@@ -1,0 +1,298 @@
+"""Three-term roofline analysis from compiled XLA artifacts.
+
+Copy of ``repro.core.roofline`` for the PyTorch port, which imports nothing
+of ``repro``. ``from_compiled`` is left out: it reads a JAX ``Compiled``
+object, which the port never has.
+
+Per the assignment:
+
+    compute term    = HLO_FLOPs / (chips x peak_FLOP/s)
+    memory term     = HLO_bytes / (chips x HBM_bw)
+    collective term = collective_bytes / (chips x link_bw)
+
+``compiled.cost_analysis()`` in JAX 0.8 reports **per-device** FLOPs/bytes for
+SPMD executables (verified empirically in tests/test_roofline.py), so the
+per-chip division is already done for those two terms; collective bytes are
+parsed from the optimized HLO text, which is likewise the per-device program.
+
+Hardware constants: TPU v5e — 197 TFLOP/s bf16, 819 GB/s HBM, ~50 GB/s/link
+ICI (from core.hw.TPU_V5E).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+from typing import Dict, Iterable, Optional
+
+from repro_torch.core import hw
+
+# ---------------------------------------------------------------------------
+# HLO collective parsing
+# ---------------------------------------------------------------------------
+
+_DTYPE_BYTES = {
+    "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1,
+    "f8e4m3fn": 1, "f8e5m2": 1, "f8e4m3": 1, "f8e3m4": 1, "f8e4m3b11fnuz": 1,
+    "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
+    "s32": 4, "u32": 4, "f32": 4,
+    "s64": 8, "u64": 8, "f64": 8, "c64": 8, "c128": 16,
+}
+
+# collective opcodes we bill against the ICI links.  ``-start`` async forms
+# are counted; ``-done`` forms are skipped (same transfer, second mention).
+_COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                   "collective-permute", "ragged-all-to-all")
+
+_SHAPE_RE = re.compile(r"(\w[\w\d]*)\[([\d,]*)\]")
+_OP_LINE_RE = re.compile(
+    r"=\s*(?P<out>.+?)\s+(?P<op>" + "|".join(_COLLECTIVE_OPS) + r")(?P<start>-start)?\("
+)
+
+
+def _shape_bytes(text: str) -> int:
+    """Sum the byte sizes of every typed shape literal in ``text``."""
+    total = 0
+    for dtype, dims in _SHAPE_RE.findall(text):
+        if dtype not in _DTYPE_BYTES:
+            continue  # e.g. token[], opaque[]
+        n = 1
+        if dims:
+            for d in dims.split(","):
+                n *= int(d)
+        total += n * _DTYPE_BYTES[dtype]
+    return total
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    bytes_by_op: Dict[str, float]
+    count_by_op: Dict[str, int]
+    # top individual instructions: (op, shape_str, per_hit_bytes, mult)
+    top: list = dataclasses.field(default_factory=list)
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.bytes_by_op.values())
+
+
+_COMP_HDR_RE = re.compile(r"^(?:ENTRY\s+)?%?([\w\.\-]+)\s*\(")
+_WHILE_RE = re.compile(r"while\(.*?\),\s*condition=%?([\w\.\-]+),\s*body=%?([\w\.\-]+)")
+_CALLS_RE = re.compile(r"(?:calls|to_apply)=%?([\w\.\-]+)")
+_CONST_RE = re.compile(r"constant\((\d+)\)")
+
+
+def _split_computations(hlo_text: str) -> Dict[str, str]:
+    """computation name -> body text (optimized HLO dialect).
+
+    Headers are non-indented lines ending in '{' containing '->' (param lists
+    may contain nested parens — name comes from the leading token only).
+    Unattributed lines land in the ``_orphan`` bucket (multiplier 1).
+    """
+    comps: Dict[str, list] = {"_orphan": []}
+    cur = "_orphan"
+    for line in hlo_text.splitlines():
+        stripped = line.strip()
+        if not line.startswith(" "):
+            if stripped.endswith("{") and "->" in stripped:
+                m = _COMP_HDR_RE.match(stripped)
+                if m:
+                    cur = m.group(1)
+                    comps.setdefault(cur, [])
+                    continue
+            if stripped == "}":
+                cur = "_orphan"
+                continue
+        comps.setdefault(cur, []).append(line)
+    return {k: "\n".join(v) for k, v in comps.items()}
+
+
+def _trip_count(cond_text: str) -> int:
+    """Heuristic: largest integer constant in the while condition."""
+    vals = [int(v) for v in _CONST_RE.findall(cond_text)]
+    return max(vals) if vals else 1
+
+
+def _comp_multipliers(comps: Dict[str, str], entry: str) -> Dict[str, float]:
+    """Execution-count multiplier per computation (while bodies x trip count)."""
+    mult: Dict[str, float] = {name: 0.0 for name in comps}
+    if entry not in comps:
+        return {name: 1.0 for name in comps}
+    mult[entry] = 1.0
+    mult["_orphan"] = 1.0
+    # propagate in dependency order via simple fixpoint (call graph is a DAG)
+    for _ in range(len(comps)):
+        changed = False
+        for name, text in comps.items():
+            m = mult.get(name, 0.0)
+            if m == 0.0:
+                continue
+            for wm in _WHILE_RE.finditer(text):
+                cond, body = wm.group(1), wm.group(2)
+                trips = _trip_count(comps.get(cond, ""))
+                for target, k in ((body, m * trips), (cond, m * (trips + 1))):
+                    if target in mult and mult[target] < k:
+                        mult[target] = k
+                        changed = True
+            for cm in _CALLS_RE.finditer(text):
+                target = cm.group(1)
+                if target in mult and mult[target] < m:
+                    mult[target] = m
+                    changed = True
+        if not changed:
+            break
+    return {k: max(v, 0.0) for k, v in mult.items()}
+
+
+def parse_collectives(hlo_text: str) -> CollectiveStats:
+    """Sum per-device collective bytes from optimized HLO text.
+
+    While-loop aware: a collective inside a scanned-layer body is multiplied
+    by the loop trip count (XLA prints the body computation once — without
+    this, per-layer collectives under-count by ~n_layers).
+
+    Cost model per op (ring-algorithm constants folded into an upper-bound
+    "operand size" accounting per the assignment):
+      * all-reduce:       2 x size   (reduce-scatter + all-gather phases)
+      * everything else:  1 x size
+    where size = max(output bytes, operand bytes) on the instruction.
+    """
+    comps = _split_computations(hlo_text)
+    entry = None
+    for line in hlo_text.splitlines():
+        if line.startswith("ENTRY"):
+            m = _COMP_HDR_RE.match(line.strip())
+            if m:
+                entry = m.group(1)
+            break
+    mults = (_comp_multipliers(comps, entry) if entry
+             else {k: 1.0 for k in comps})
+
+    bytes_by_op: Dict[str, float] = {}
+    count_by_op: Dict[str, int] = {}
+    top: list = []
+    for comp_name, text in comps.items():
+        mult = mults.get(comp_name, 1.0)
+        if mult <= 0:
+            mult = 1.0
+        for line in text.splitlines():
+            m = _OP_LINE_RE.search(line)
+            if m is None:
+                continue
+            op = m.group("op")
+            out_str = m.group("out")
+            out_bytes = _shape_bytes(out_str)
+            rest = line[m.end():]
+            operand_str = rest.split("replica_groups")[0].split("channel_id")[0]
+            in_bytes = _shape_bytes(operand_str)
+            size = max(out_bytes, in_bytes)
+            if op == "all-reduce":
+                size *= 2
+            bytes_by_op[op] = bytes_by_op.get(op, 0.0) + size * mult
+            count_by_op[op] = count_by_op.get(op, 0) + 1
+            top.append((op, out_str.strip()[:60], size, mult))
+    top.sort(key=lambda t: -t[2] * t[3])
+    return CollectiveStats(bytes_by_op, count_by_op, top[:12])
+
+
+# ---------------------------------------------------------------------------
+# Roofline terms
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RooflineTerms:
+    """Per-device roofline terms for one compiled step."""
+
+    flops_per_device: float
+    bytes_per_device: float
+    collective_bytes_per_device: float
+    n_devices: int
+    peak_flops: float = hw.TPU_PEAK_FLOPS
+    hbm_bw: float = hw.TPU_HBM_BW
+    link_bw: float = hw.TPU_LINK_BW
+    # bookkeeping
+    label: str = ""
+    collective_detail: Optional[Dict[str, float]] = None
+    memory_per_device_bytes: Optional[float] = None   # from memory_analysis()
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops_per_device / self.peak_flops
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_per_device / self.hbm_bw
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes_per_device / self.link_bw
+
+    @property
+    def terms(self) -> Dict[str, float]:
+        return {"compute": self.compute_s, "memory": self.memory_s,
+                "collective": self.collective_s}
+
+    @property
+    def bound(self) -> str:
+        return max(self.terms, key=self.terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Lower-bound step time under perfect overlap (max of the terms)."""
+        return max(self.terms.values())
+
+    @property
+    def step_time_no_overlap_s(self) -> float:
+        """Upper-bound step time with zero overlap (sum of the terms)."""
+        return sum(self.terms.values())
+
+    def roofline_fraction(self, model_flops_total: float) -> float:
+        """Useful-FLOPs MFU bound: model FLOPs vs. peak over the bound time."""
+        per_dev = model_flops_total / self.n_devices
+        denom = self.step_time_s * self.peak_flops
+        return per_dev / denom if denom > 0 else 0.0
+
+    def useful_flops_ratio(self, model_flops_total: float) -> float:
+        """MODEL_FLOPS / HLO_FLOPs — catches remat/redundancy waste."""
+        hlo_total = self.flops_per_device * self.n_devices
+        return model_flops_total / hlo_total if hlo_total > 0 else 0.0
+
+    def to_dict(self) -> Dict:
+        d = dataclasses.asdict(self)
+        d.update(compute_s=self.compute_s, memory_s=self.memory_s,
+                 collective_s=self.collective_s, bound=self.bound,
+                 step_time_s=self.step_time_s)
+        return d
+
+
+# ---------------------------------------------------------------------------
+# MODEL_FLOPS helpers
+# ---------------------------------------------------------------------------
+
+def model_flops_train(n_params_active: float, n_tokens: float) -> float:
+    """6·N·D for a training step (fwd 2ND + bwd 4ND)."""
+    return 6.0 * n_params_active * n_tokens
+
+def model_flops_infer(n_params_active: float, n_tokens: float) -> float:
+    """2·N·D for a forward/decode step."""
+    return 2.0 * n_params_active * n_tokens
+
+
+def format_table(rows: Iterable[RooflineTerms], model_flops: Dict[str, float]) -> str:
+    """Markdown table for EXPERIMENTS.md §Roofline."""
+    hdr = ("| cell | compute (s) | memory (s) | collective (s) | bound | "
+           "MODEL/HLO | roofline frac |\n|---|---|---|---|---|---|---|")
+    lines = [hdr]
+    for r in rows:
+        mf = model_flops.get(r.label, 0.0)
+        lines.append(
+            f"| {r.label} | {r.compute_s:.4g} | {r.memory_s:.4g} | "
+            f"{r.collective_s:.4g} | {r.bound} | "
+            f"{r.useful_flops_ratio(mf):.3f} | {r.roofline_fraction(mf):.3f} |")
+    return "\n".join(lines)
+
+
+def save_json(path: str, rows: Iterable[RooflineTerms]) -> None:
+    with open(path, "w") as f:
+        json.dump([r.to_dict() for r in rows], f, indent=2)
