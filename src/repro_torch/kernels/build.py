@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point (no PyTorch headers, so a build
 takes seconds, not minutes). Libraries land in ``build/kernels/`` at the
-repository root, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. ``build()`` starts one
+repository root, named by a hash of the source, the ``csrc/`` headers it
+includes and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module, and the CPU
@@ -17,14 +18,17 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention",)
+SOURCES = ("decode_attention", "paged_decode_attention",
+           "paged_prefill_attention")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,10 +46,29 @@ def nvcc() -> str:
     return str(path)
 
 
+def sources_of(name: str) -> List[Path]:
+    """``name``'s ``.cu`` and every file of ``csrc/`` it includes, directly
+    or through another include, in the order first met."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (CSRC / inc).is_file():
+                todo.append(CSRC / inc)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """Keyed on the source, the headers it includes and the flags: an edit
+    to a shared header rebuilds every library that includes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:

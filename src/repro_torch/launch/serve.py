@@ -1,9 +1,12 @@
 """Serving launcher of the PyTorch port: batched request serving with
-carbon accounting (mirror of ``repro.launch.serve``, dense path).
+carbon accounting (mirror of ``repro.launch.serve``, dense and paged
+paths).
 
     python -m repro_torch.launch.serve --arch starcoder2-7b \\
         [--smoke] [--device cpu] --requests 8 --max-tokens 16 \\
-        [--prompt-len 4 12] [--profile-ticks N]
+        [--prompt-len 4 12] [--profile-ticks N] \\
+        [--paged [--page-size 16] [--num-pages N] [--no-prefix-cache] \\
+         [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost]]
 
 Runs on the card unless ``--device cpu`` is given. The full-width model is
 built in bf16 from a seed; ``--smoke`` builds the arch's reduced config in
@@ -91,6 +94,26 @@ def main(argv=None) -> None:
     ap.add_argument("--profile-ticks", type=int, default=0,
                     help="profile this many decode ticks once every slot "
                          "decodes (0 = off)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache with prefix reuse")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged mode)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pool capacity in pages (default: dense-equivalent)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable prefix block reuse")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="admit prompts in chunks of this many tokens, "
+                         "interleaved with decode ticks (0 = whole prompt)")
+    ap.add_argument("--compact-threshold", type=float, default=0.0,
+                    help="compact a slot's private page suffix into a "
+                         "contiguous run when its page-table fragmentation "
+                         "reaches this score in [0, 1] (paged mode; 0 = "
+                         "compaction off)")
+    ap.add_argument("--evict-policy", default="lru", choices=("lru", "cost"),
+                    help="parked-prefix reclamation: lru evicts the least-"
+                         "recently-parked block; cost evicts the cheapest-"
+                         "to-recompute block first")
     args = ap.parse_args(argv)
     if args.requests < 0 or args.max_tokens < 1 or args.slots < 1:
         ap.error("--requests >= 0, --max-tokens >= 1 and --slots >= 1")
@@ -99,6 +122,12 @@ def main(argv=None) -> None:
         ap.error("--prompt-len needs 1 <= LO < HI <= --max-len")
     if args.profile_ticks < 0:
         ap.error("--profile-ticks must be >= 0")
+    if args.page_size <= 0:
+        ap.error(f"--page-size must be > 0, got {args.page_size}")
+    if args.prefill_chunk < 0:
+        ap.error(f"--prefill-chunk must be >= 0, got {args.prefill_chunk}")
+    if args.num_pages is not None and args.num_pages <= 0:
+        ap.error(f"--num-pages must be > 0, got {args.num_pages}")
 
     dev = device_lib.resolve(args.device)
     arch = cfgbase.get(args.arch)
@@ -110,12 +139,20 @@ def main(argv=None) -> None:
     params = tf_lib.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
     acct = accounting.CarbonAccountant(accounting.AccountantConfig(
         device="h100_sxm", n_devices=1, grid_mix=args.grid_mix))
-    eng = ServeEngine(params, cfg,
-                      ServeConfig(max_slots=args.slots, max_len=args.max_len,
-                                  temperature=args.temperature,
-                                  seed=args.seed, device=str(dev)),
-                      accountant=acct,
-                      scheduler=Scheduler(SchedulerConfig(policy=args.policy)))
+    scfg = ServeConfig(max_slots=args.slots, max_len=args.max_len,
+                       temperature=args.temperature, seed=args.seed,
+                       device=str(dev), paged=args.paged,
+                       page_size=args.page_size, num_pages=args.num_pages,
+                       prefix_cache=not args.no_prefix_cache,
+                       prefill_chunk=args.prefill_chunk,
+                       compact_threshold=args.compact_threshold,
+                       evict_policy=args.evict_policy)
+    try:    # the engine checks how the paged flags combine
+        eng = ServeEngine(params, cfg, scfg, accountant=acct,
+                          scheduler=Scheduler(SchedulerConfig(
+                              policy=args.policy)))
+    except ValueError as e:
+        ap.error(str(e))
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=rng.integers(lo, hi))

@@ -87,6 +87,23 @@ def decode_tick_flops(matmul_elems: float, n_attn: int, attn_dims: int,
             + 4.0 * n_attn * attn_dims * ctx_sum)
 
 
+def block_recompute_flops(matmul_elems: float, n_attn: int, attn_dims: int,
+                          start_tok: int, n_tok: int) -> float:
+    """Modeled FLOPs to *recompute* one cached KV block of ``n_tok`` tokens
+    whose first token sits at absolute position ``start_tok`` (= block
+    depth x page size): each token streams the matmul weights once and
+    causally attends its own prefix,
+
+        2 * matmul_elems * n_tok
+        + 4 * n_attn * attn_dims * sum_{p=start}^{start+n-1} (p + 1).
+
+    The paged engine's cost-aware eviction divides this by the block's
+    resident bytes, so deeper blocks are the last to go."""
+    n = float(n_tok)
+    attn_keys = n * float(start_tok) + n * (n + 1.0) / 2.0
+    return 2.0 * matmul_elems * n + 4.0 * n_attn * attn_dims * attn_keys
+
+
 def prefill_span_flops(matmul_elems: float, n_attn: int, attn_dims: int,
                        start: float, n_tok: float) -> float:
     """Modeled FLOPs of ONE prefill row's chunk ``[start, start + n_tok)``:

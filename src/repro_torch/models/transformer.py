@@ -11,8 +11,10 @@ The decode step updates the KV cache in place (``index_put_``); that is the
 counterpart of the JAX engine donating its cache to the jitted tick.
 Per-slot positions send decode attention through ``kernels.ops`` (the K1
 kernel on the card); a scalar position takes the masked ``sdpa`` path, as
-in JAX. SSD, MoE, shared attention, M-RoPE, ring caches and the int8 modes
-are not ported yet and raise ``NotImplementedError``.
+in JAX. The paged pool (``init_paged_caches``) is updated in place too:
+``paged_decode_step`` attends through K2 and ``paged_extend`` through K3.
+SSD, MoE, shared attention, M-RoPE, ring caches and the int8 modes are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -257,6 +259,177 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, pos: torch.Tensor,
         x = x + _decode_attn(p, cfg, spec, h, cache, pos)
         x = _ffn(p, cfg, spec, x)
     return _lm_head(params, cfg, x), caches
+
+
+# -----------------------------------------------------------------------------
+# Paged KV cache: block pool + page-table indirection
+# -----------------------------------------------------------------------------
+
+def paged_supported(cfg: LMConfig) -> bool:
+    """The paged path is attention-only (SSM states are not position-
+    addressable) and replaces ring caches (pages are not reclaimed by
+    window; window masking still applies)."""
+    return (not cfg.ring_cache
+            and all(sp.kind == "attn"
+                    for sp in tuple(cfg.pattern) + tuple(cfg.tail)))
+
+
+def init_paged_caches(cfg: LMConfig, num_pages: int, page_size: int,
+                      dtype=torch.bfloat16, device="cuda"
+                      ) -> Dict[str, PyTree]:
+    """KV block pools: ``num_pages + 1`` pages of ``page_size`` tokens per
+    attention layer, in ``init_caches``' tree (pattern positions stacked
+    over repeats, tail single), pool-major instead of slot-major. The extra
+    page is the **sink**: writes from dead and padded lanes land there, so
+    the host allocator recycles pages without any device-side scrub. One
+    page table, built by the serve engine, maps every layer's logical
+    blocks to the same physical pages.
+
+    No position tags: the engine keeps slot b's valid positions exactly
+    ``[0, len_b)`` through its page chain, so validity is ``pos < len``.
+    Pools are fp only (``LMConfig`` refuses the int8 modes until they are
+    ported)."""
+    if not paged_supported(cfg):
+        raise NotImplementedError(
+            "paged KV caches are attention-only and incompatible with "
+            "ring_cache; use init_caches")
+    dev = device_lib.resolve(device)
+    shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def one(lead):
+        return {"kv": KVCache(
+            k=torch.zeros(lead + shape, dtype=dtype, device=dev),
+            v=torch.zeros(lead + shape, dtype=dtype, device=dev))}
+
+    caches: Dict[str, PyTree] = {}
+    for i in range(len(cfg.pattern)):
+        caches[f"pat{i}"] = one((cfg.repeats,))
+    for i in range(len(cfg.tail)):
+        caches[f"tail{i}"] = one(())
+    return caches
+
+
+def move_pages(caches: Dict[str, PyTree], src: torch.Tensor,
+               dst: torch.Tensor) -> Dict[str, PyTree]:
+    """Copy pool page ``src[i]`` -> ``dst[i]`` in every layer's K/V pool, in
+    place: the device half of page-table compaction. ``pool[src]`` is
+    gathered into a new tensor before ``pool[dst]`` is written, so a
+    destination that is also a source reads its old bytes. Padding entries
+    may point both at the sink page (a sink->sink copy is the identity).
+    The caller owns the host-side invariants: destinations are freshly
+    allocated private pages, sources are released after the copy."""
+    src, dst = src.long(), dst.long()
+    for key, entry in caches.items():
+        for pool in (entry["kv"].k, entry["kv"].v):
+            if key.startswith("pat"):               # stacked layers lead
+                pool[:, dst] = pool[:, src]
+            else:
+                pool[dst] = pool[src]
+    return caches
+
+
+def _paged_decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
+                       page_table, active):
+    """One-token attention against the paged pool, written in place. ``pos``
+    is (B,) per-slot positions; ``active`` routes dead lanes' writes to the
+    sink page, since their table rows may name pages recycled to other
+    slots."""
+    acfg = cfg.attn_cfg(spec.window)
+    b = x.shape[0]
+    kv = cache["kv"]
+    ps = kv.k.shape[1]
+    nb = page_table.shape[1]
+    sink = kv.k.shape[0] - 1
+    q, k_new, v_new = layers._project_qkv(p["attn"], acfg, x, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    blk = (pos // ps).clamp(0, nb - 1)
+    page = torch.where(active, page_table[rows, blk].long(), sink)
+    off = pos % ps
+    kv.k.index_put_((page, off), k_new[:, 0].to(kv.k.dtype))
+    kv.v.index_put_((page, off), v_new[:, 0].to(kv.v.dtype))
+    out = ops.paged_decode_attention(
+        q[:, 0], kv.k, kv.v, page_table, (pos + 1).to(torch.int32),
+        scale=acfg.scale, window=spec.window)[:, None]
+    return _out_proj(p, out)
+
+
+def paged_decode_step(params, cfg: LMConfig, token: torch.Tensor,
+                      pos: torch.Tensor, page_table: torch.Tensor,
+                      caches: Dict[str, PyTree],
+                      active: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """One decode step against the paged pools. token (B,1), pos (B,)
+    per-slot positions, page_table (B, NB) int32 -> (logits (B,1,V) fp32,
+    caches), the pools updated in place.
+
+    ``active`` (B,) bool: lanes that are really decoding. Inactive lanes
+    still run through the batch, but their K/V writes go to the sink page.
+    """
+    if active is None:
+        active = torch.ones(token.shape[0], dtype=torch.bool,
+                            device=token.device)
+    x = layers.embed(params["embed"], token)
+    for spec, p, cache in _layers(params, cfg, caches):
+        h = layers.rms_norm(p["norm_attn"], x)
+        x = x + _paged_decode_attn(p, cfg, spec, h, cache, pos, page_table,
+                                   active)
+        x = _ffn(p, cfg, spec, x)
+    return _lm_head(params, cfg, x), caches
+
+
+def paged_extend(params, cfg: LMConfig, tokens: torch.Tensor,
+                 starts: torch.Tensor, lens: torch.Tensor,
+                 page_table: torch.Tensor, caches: Dict[str, PyTree]
+                 ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """Extend-prefill: run a chunk of prompt tokens against pre-populated
+    paged caches. The one primitive behind suffix-after-prefix-hit
+    admission and chunked prefill.
+
+    tokens: (B, C) right-padded chunk per row; starts: (B,) absolute
+    position of each row's first chunk token; lens: (B,) valid tokens per
+    row (0 = dead row: its writes go to the sink page); page_table: (B, NB)
+    int32, ROW-major (row j's pages, not slot j's). Each layer writes the
+    chunk's K/V into the rows' pages in place, then each chunk query
+    attends the cached window [0, start) read from the pool plus the chunk
+    itself in full precision (``ops.paged_prefill_attention``, K3 on the
+    card): dense-prefill numerics for the chunk, decode numerics for the
+    cached part.
+
+    Returns per-row logits at the chunk's last valid token, (B, 1, V) fp32
+    — meaningful only for rows whose prompt ends in this chunk.
+    """
+    b, c = tokens.shape
+    nb = page_table.shape[1]
+    dev = tokens.device
+    x = layers.embed(params["embed"], tokens)
+    rel = torch.arange(c, device=dev)[None]                       # (1, C)
+    valid = rel < lens[:, None]                                   # (B, C)
+    pos_abs = starts.long()[:, None] + rel                        # (B, C)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, c)
+    starts32, lens32 = starts.to(torch.int32), lens.to(torch.int32)
+    for spec, p, cache in _layers(params, cfg, caches):
+        acfg = cfg.attn_cfg(spec.window)
+        kv = cache["kv"]
+        ps = kv.k.shape[1]
+        sink = kv.k.shape[0] - 1
+        h = layers.rms_norm(p["norm_attn"], x)
+        q, k_new, v_new = layers._project_qkv(p["attn"], acfg, h, pos_abs)
+        # scatter the chunk's K/V into the rows' pages (invalid lanes ->
+        # sink); rope-rotated K is what lands in the pool, as in prefill
+        blk = (pos_abs // ps).clamp(0, nb - 1)
+        page = torch.where(valid, page_table[rows, blk].long(), sink)
+        off = pos_abs % ps
+        kv.k.index_put_((page, off), k_new.to(kv.k.dtype))
+        kv.v.index_put_((page, off), v_new.to(kv.v.dtype))
+        out = ops.paged_prefill_attention(
+            q, k_new.to(q.dtype), v_new.to(q.dtype), kv.k, kv.v, page_table,
+            starts32, lens32, scale=acfg.scale, window=spec.window)
+        x = x + _out_proj(p, out)
+        x = _ffn(p, cfg, spec, x)
+    # per-row last valid chunk token (rows are right-padded to C)
+    idx = (lens.long() - 1).clamp(0, c - 1)
+    x_last = x[torch.arange(b, device=dev), idx][:, None]
+    return _lm_head(params, cfg, x_last), caches
 
 
 def _lm_head(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Modules the port keeps as copies (it imports nothing of ``repro``) must
-behave as their originals: the scheduler state for state, and the
-sustainability engine value for value. The only difference allowed is
-the port's extra ``h100_sxm`` device.
+behave as their originals: the scheduler and the page pool state for
+state, and the sustainability engine value for value. The only difference
+allowed is the port's extra ``h100_sxm`` device.
 """
 
 import dataclasses
@@ -16,6 +16,7 @@ from repro.core import lca as j_lca
 from repro.core import roofline as j_rl
 from repro.core import sustain as j_sustain
 from repro.serve import engine as j_engine
+from repro.serve import pages as j_pages
 from repro.serve import scheduler as j_sched
 from repro_torch.core import energy as t_energy
 from repro_torch.core import grid as t_grid
@@ -24,6 +25,7 @@ from repro_torch.core import lca as t_lca
 from repro_torch.core import roofline as t_rl
 from repro_torch.core import sustain as t_sustain
 from repro_torch.serve import engine as t_engine
+from repro_torch.serve import pages as t_pages
 from repro_torch.serve import scheduler as t_sched
 
 POLICIES = [("fifo", 0), ("longest_prompt", 0), ("longest_prompt", 3)]
@@ -71,6 +73,72 @@ def test_scheduler_state_for_state(policy, age, seed):
         assert [r.uid for r in scheds[0].pending] == \
             [r.uid for r in scheds[1].pending]
         assert len(scheds[0]) == len(scheds[1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("policy", ["lru", "cost"])
+def test_page_pool_state_for_state(policy, seed):
+    """A random sequence of alloc, alloc_run, publish, lookup (kept, or
+    rolled back with unbook_lookup as a deferral does), release and the
+    evictions that allocation under pressure forces: both pools return the
+    same pages and end every step in the same state, with a clean audit.
+    Blocks come from a two-token alphabet, so lookups hit."""
+    rng = np.random.default_rng(seed)
+
+    def cost(depth):
+        return float((3 * depth) % 4 + depth)
+
+    pools = [m.PagePool(12, 4, evict_policy=policy, block_cost=cost)
+             for m in (j_pages, t_pages)]
+    held = []                       # page runs both pools hand out alike
+
+    def block():
+        return tuple(int(t) for t in rng.integers(0, 2, 4))
+
+    def both(fn):
+        out = [fn(p) for p in pools]
+        assert out[0] == out[1]
+        return out[0]
+
+    for _ in range(400):
+        op = int(rng.integers(0, 7))
+        n = int(rng.integers(1, 5))
+        if op <= 1:
+            run = both(lambda p: p.alloc(n) if op == 0 else p.alloc_run(n))
+            if run:
+                held.append(run)
+        elif op == 2 and held:
+            run = held[int(rng.integers(0, len(held)))]
+            blocks = [block() for _ in run]
+
+            def publish(p):
+                parent = j_pages.ROOT
+                for page, blk in zip(run, blocks):
+                    parent = p.publish(page, parent, blk)
+                return parent
+
+            both(publish)
+        elif op in (3, 4):
+            blocks = [block() for _ in range(n)]
+            hits = both(lambda p: p.lookup(blocks))
+            if op == 4:             # a deferred admission rolls back
+                for p in pools:
+                    p.release_all(hits)
+                    p.unbook_lookup(len(hits), len(blocks))
+            elif hits:
+                held.append(hits)
+        elif op >= 5 and held:
+            run = held.pop(int(rng.integers(0, len(held))))
+            for p in pools:
+                p.release_all(run)
+        assert pools[0].state_dict() == pools[1].state_dict()
+        assert pools[0].audit() == pools[1].audit() == []
+    assert pools[1].stats.evicted_blocks > 0
+    assert pools[1].stats.hit_blocks > 0
+    assert t_pages.block_tokens([1, 2, 3, 4, 5], 2) == \
+        j_pages.block_tokens([1, 2, 3, 4, 5], 2)
+    assert t_pages.fragmentation([3, 4, 9, 1]) == \
+        j_pages.fragmentation([3, 4, 9, 1])
 
 
 def test_scheduler_rejects_unknown_policy():
