@@ -6,35 +6,55 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the main path's shapes, then drives the
 dense and the paged serve paths of starcoder2-7b at full width and full
-depth with random weights from a seed. Phases, each printing one JSON line;
-any failure raises, so the script exits non-zero and prints no result:
+depth with random weights from a seed, unquantized and in the int8 mode.
+Phases, each printing JSON lines; any failure raises, so the script exits
+non-zero and prints no result:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: every kernel source, one nvcc each, all started together;
-3. kernels, each against its plain version (``kernels/ref.py``) in three
-   dtype modes (fp32/fp32, bf16/bf16, bf16 q with fp32 K/V) and windows
-   -1 and 256, with timings of the kernel, the plain version and one
-   library call (masked ``F.scaled_dot_product_attention``, a yardstick
-   the port never calls; for the paged kernels the gather through the
-   table is part of that call):
+3. kernels, each against its plain version (``kernels/ref.py``) in five
+   dtype modes (q / K,V: fp32/fp32, bf16/bf16, bf16/fp32, and the int8-KV
+   modes fp32/int8 and bf16/int8: random codes in [-127, 127] with
+   positive fp32 row scales) and windows -1 and 256, with timings of the
+   kernel, the plain version and one library call (masked
+   ``F.scaled_dot_product_attention``, a yardstick the port never calls;
+   for the paged kernels the gather through the table, for int8 K/V the
+   dequantization, is part of that call):
    K1 at B=8, H=36, Hkv=4, D=128, Sk=2048; K2 at the same shapes through a
    permuted table of 128 pages of 16 per slot; K3 at 8 rows, C=256, ragged
    starts (unaligned ones too) and lengths (0 too);
-4. streams: fp32 weights and cache, 4 requests x 16 greedy tokens; the
+4. int8 matmul (K4) against its plain version at the main path's shapes:
+   decode (M=8) for 4608->4608, ->512, ->18432 and 18432->4608, prefill
+   (M=2048) for 4608->18432 and 18432->4608, with bf16 x, and fp32 x at
+   M=8 for 4608->18432; the library call is cuBLAS ``x @ w`` on the weight
+   dequantized once to x's dtype, which is not the same function: it moves
+   2x (bf16) or 4x (fp32) the weight bytes;
+5. streams: fp32 weights and cache, 4 requests x 16 greedy tokens; the
    dense engine (through K1) must be token-identical to the host-loop
    reference (through masked ``sdpa``), and the paged engine (K2, K3;
    page_size 16, prefill_chunk 64, no prefix cache) to the dense engine;
    a paged run with the prefix cache on requests that share a 128-token
-   prefix must hit, and prints its agreement with the dense streams;
-5. serve: bf16 weights, fp32 cache, 8 slots, max_len 2048, 16 requests of
-   32-1024 prompt tokens and 64 new tokens each; the K1 launch count must be
+   prefix must hit, and prints its agreement with the dense streams; then
+   the same with ``quant="int8"``: the dense int8 engine (K4 + K1) must be
+   token-identical to the int8 host-loop reference (K4 + dequantize +
+   ``sdpa``) given the engine's params and cfg, and the paged int8 engine
+   (K4 + K2 + K3) to the dense int8 engine;
+6. serve: bf16 weights, fp32 cache, 8 slots, max_len 2048, 16 requests of
+   32-1024 prompt tokens and 64 new tokens each; K1 launches must be
    decode ticks x 32 layers;
-6. paged serve: the same weights, page_size 16, prefill_chunk 256, prefix
+7. paged serve: the same weights, page_size 16, prefill_chunk 256, prefix
    cache on, 16 requests of a shared 512-token prompt plus a 32-512-token
    tail; K2 launches must be decode ticks x 32, K3 launches extend calls x
    32, and the prefix cache must hit;
-7. a ``kernels`` line, then the result line ``{"ok": true, "device": ...}``.
+8. phases 6 and 7 again with ``quant="int8"`` (the same weights quantized
+   once): K4 launches must be (decode ticks + admission or extend calls) x
+   32 x 6, K1, K2 and K3 as in phases 6 and 7;
+9. agreement: teacher-forced greedy token agreement of the int8 model with
+   the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
+   asserted);
+10. a ``kernels`` line, then the result line ``{"ok": true, "device": ...}``.
 
+Every counter is set to 0 just before each serve run and read just after.
 Needs one card and no network. Exits non-zero without a card, and outside a
 checkout of the repository.
 """
@@ -111,7 +131,12 @@ def phase_build():
 # keys give O(1) outputs
 MODES = (("float32", "float32", 1e-5, 0.0),
          ("bfloat16", "bfloat16", 5e-3, 1e-2),
-         ("bfloat16", "float32", 5e-3, 1e-2))
+         ("bfloat16", "float32", 5e-3, 1e-2),
+         ("float32", "int8", 1e-5, 0.0),
+         ("bfloat16", "int8", 5e-3, 1e-2))
+# the main path's mode of each slice: fp32 K/V (PR 12), int8 K/V (int8)
+MAIN_FP = ("bfloat16", "float32", -1)
+MAIN_INT8 = ("bfloat16", "int8", -1)
 WINDOWS = (-1, 256)
 B, H, HKV, D = 8, 36, 4, 128
 PAGE, N_BLOCKS = 16, 128                       # 2048 positions per slot
@@ -122,8 +147,22 @@ CHUNK = 256
 
 
 def _randn(gen, shape, dtype):
+    """Normal values, or for int8 random codes in [-127, 127]."""
     import torch
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _scales(gen, kv, kv_dtype):
+    """Positive fp32 scales, one per K/V row and head, for int8 K/V (the
+    codes times them span about +-1.4); nothing for fp K/V."""
+    import torch
+    if kv_dtype != torch.int8:
+        return ()
+    return tuple(torch.rand(kv.shape[:-1], generator=gen, device="cuda")
+                 * 0.02 + 1e-3 for _ in range(2))
 
 
 def _decode_inputs(q_dtype, kv_dtype):
@@ -133,7 +172,7 @@ def _decode_inputs(q_dtype, kv_dtype):
     k = _randn(gen, (B, N_BLOCKS * PAGE, HKV, D), kv_dtype)
     v = _randn(gen, (B, N_BLOCKS * PAGE, HKV, D), kv_dtype)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
-    return q, k, v, lengths
+    return (q, k, v, lengths) + _scales(gen, k, kv_dtype)
 
 
 def _pool_inputs(gen, kv_dtype):
@@ -154,7 +193,8 @@ def _paged_decode_inputs(q_dtype, kv_dtype):
     q = _randn(gen, (B, H, D), q_dtype)
     k_pool, v_pool, table = _pool_inputs(gen, kv_dtype)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
-    return q, k_pool, v_pool, table, lengths
+    return (q, k_pool, v_pool, table, lengths) + _scales(gen, k_pool,
+                                                         kv_dtype)
 
 
 def _prefill_inputs(q_dtype, kv_dtype):
@@ -166,13 +206,25 @@ def _prefill_inputs(q_dtype, kv_dtype):
     k_pool, v_pool, table = _pool_inputs(gen, kv_dtype)
     starts = torch.tensor(STARTS, dtype=torch.int32, device="cuda")
     lens = torch.tensor(CHUNK_LENS, dtype=torch.int32, device="cuda")
-    return q, k_new, v_new, k_pool, v_pool, table, starts, lens
+    return (q, k_new, v_new, k_pool, v_pool, table, starts,
+            lens) + _scales(gen, k_pool, kv_dtype)
 
 
 def _peak(*tensors):
+    """fp32's peak when any input is fp32, else bf16's (int8 K/V codes are
+    exact in bf16)."""
     import torch
     return (PEAK_FP32 if any(t.dtype == torch.float32 for t in tensors)
             else PEAK_BF16)
+
+
+def _row_bytes(kv):
+    """Bytes of one K/V row (all heads): int8 codes carry a 4-byte scale
+    per head."""
+    import torch
+    hkv, d = kv.shape[-2:]
+    return hkv * (d * kv.element_size() + (4 if kv.dtype == torch.int8
+                                           else 0))
 
 
 def _bound(nbytes, t_ops):
@@ -184,16 +236,15 @@ def _bound(nbytes, t_ops):
 
 
 def _decode_bound(q, k, lengths, window, paged=False):
-    """Least time of a decode call (K1, K2): the live K/V rows, q, the
-    output and the lengths once each over the HBM rate (K2 adds the table
-    entries of the live rows), or 4*live*H*D FLOPs over the inputs' peak
-    (fp32 if any input is fp32)."""
+    """Least time of a decode call (K1, K2): the live K/V rows (with their
+    scales for int8), q, the output and the lengths once each over the HBM
+    rate (K2 adds the table entries of the live rows), or 4*live*H*D FLOPs
+    over the inputs' peak (fp32 if any input is fp32)."""
     lens = lengths.tolist()
     los = [max(0, n - window) if window > 0 else 0 for n in lens]
     n_live = sum(n - lo for n, lo in zip(lens, los))
     b, h, d = q.shape
-    hkv = k.shape[2]
-    nbytes = (2 * n_live * hkv * d * k.element_size()
+    nbytes = (2 * n_live * _row_bytes(k)
               + 2 * q.numel() * q.element_size() + 4 * b)
     if paged:
         nbytes += 4 * sum(-(-n // PAGE) - lo // PAGE
@@ -225,7 +276,7 @@ def _prefill_bound(q, k_new, k_pool, starts, lens, window):
                 chunk_pairs += t + 1
     live = int(lens.clamp(min=0).sum())
     nbytes = (live * (h + 2 * hkv) * d * q.element_size()
-              + 2 * cached * hkv * d * k_pool.element_size()
+              + 2 * cached * _row_bytes(k_pool)
               + q.numel() * q.element_size()
               + 4 * sum(-(-s // PAGE) for s in starts.tolist()) + 8 * B)
     return _bound(nbytes, 4.0 * h * d * (cached_pairs / _peak(q, k_pool)
@@ -289,25 +340,52 @@ def _library_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
         enable_gqa=True)
 
 
+def _with_scales(fn):
+    """``fn`` taking int8 K/V's scales as its last two positional
+    arguments, passed on as ``k_scale``/``v_scale``."""
+    def call(*args, scale, window):
+        return fn(*args[:-2], scale=scale, window=window, k_scale=args[-2],
+                  v_scale=args[-1])
+    return call
+
+
+def _dequantized(library, kv_pos):
+    """The library call on int8 K/V: codes times scales to q's dtype, then
+    the call; the dequantization is part of the timed call."""
+    def call(*args, scale, window):
+        args = list(args)
+        for pos, sc in zip(kv_pos, args[-2:]):
+            args[pos] = (args[pos].float() * sc[..., None]).to(args[0].dtype)
+        return library(*args[:-2], scale=scale, window=window)
+    return call
+
+
 def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
-                  iters):
+                  iters, kv_pos):
     """Hold ``kernel`` against ``plain`` in every mode and window, time the
-    kernel, the plain version and the library call, and return the main
-    path's row (bf16 q, fp32 K/V, no window). ``inputs(q_dtype,
-    kv_dtype)`` gives the call's tensors, the first being q; ``bound(args,
-    window)`` is the least time; ``dead`` masks the output's leading dims
-    where the kernel must write exact zeros; ``cold`` names the positions
-    of the large tensors each timed call reads from its own copy."""
+    kernel, the plain version and the library call, and return the rows of
+    the main path's modes (``MAIN_FP``, ``MAIN_INT8``). ``inputs(q_dtype,
+    kv_dtype)`` gives the call's tensors, the first being q and, for int8
+    K/V, the last two the scales; ``bound(args, window)`` is the least
+    time; ``dead`` masks the output's leading dims where the kernel must
+    write exact zeros; ``cold`` names the positions of the large tensors
+    each timed call reads from its own copy (int8 scales too); ``kv_pos``
+    those of K and V."""
     import torch
     scale = D ** -0.5
     dead = dead.cuda()
-    main = None
+    main = {}
     for q_name, kv_name, atol, rtol in MODES:
+        int8 = kv_name == "int8"
+        fns = ((_with_scales(kernel), _with_scales(plain),
+                _dequantized(library, kv_pos)) if int8
+               else (kernel, plain, library))
         args = inputs(getattr(torch, q_name), getattr(torch, kv_name))
+        hot = cold + ((len(args) - 2, len(args) - 1) if int8 else ())
         for window in WINDOWS:
-            got = kernel(*args, scale=scale, window=window)
+            got = fns[0](*args, scale=scale, window=window)
             torch.cuda.synchronize()
-            want = plain(*args, scale=scale, window=window)
+            want = fns[1](*args, scale=scale, window=window)
             err = (got.float() - want.float()).abs()
             max_err = float(err.max())
             ok = bool((err <= atol + rtol * want.float().abs()).all())
@@ -320,16 +398,16 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                     f"{dead_zero}")
             # each timed call reads its own copy of the cache: the 32
             # layers of a tick find their K/V cold in the 50 MB L2
-            copies = [[a.clone() if i in cold else a
+            copies = [[a.clone() if i in hot else a
                        for i, a in enumerate(args)] for _ in range(4)]
 
             def timed(fn):
                 return lambda i: fn(*copies[i % len(copies)], scale=scale,
                                     window=window)
 
-            kernel_ms = cuda_ms(timed(kernel), iters)
-            plain_ms = cuda_ms(timed(plain), max(iters // 4, 4))
-            library_ms = cuda_ms(timed(library), max(iters // 2, 4))
+            kernel_ms = cuda_ms(timed(fns[0]), iters)
+            plain_ms = cuda_ms(timed(fns[1]), max(iters // 4, 4))
+            library_ms = cuda_ms(timed(fns[2]), max(iters // 2, 4))
             bound_ms, bound_by = bound(args, window)
             row = {"phase": "kernels", "kernel": name, "q": q_name,
                    "kv": kv_name, "window": window, "max_abs_err": max_err,
@@ -338,14 +416,14 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                    "bound_ms": bound_ms, "bound_by": bound_by}
             emit(row)
             del copies
-            if (q_name, kv_name, window) == ("bfloat16", "float32", -1):
-                main = row
+            if (q_name, kv_name, window) in (MAIN_FP, MAIN_INT8):
+                main[q_name, kv_name, window] = row
     return main
 
 
 def phase_kernels():
     """K1, K2 and K3 against their plain versions at the main path's
-    shapes. Returns each kernel's main-path row."""
+    shapes. Returns each kernel's main-path rows."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import paged_decode_attention as k2
@@ -358,32 +436,108 @@ def phase_kernels():
         "decode_attention", k1.decode_attention, ref.decode_attention_ref,
         _library_decode, _decode_inputs,
         lambda a, w: _decode_bound(a[0], a[1], a[3], w), dead=dead_slots,
-        cold=(1, 2), iters=48)
+        cold=(1, 2), iters=48, kv_pos=(1, 2))
     rows["paged_decode_attention"] = _check_kernel(
         "paged_decode_attention", k2.paged_decode_attention,
         ref.paged_decode_attention_ref, _library_paged_decode,
         _paged_decode_inputs,
         lambda a, w: _decode_bound(a[0], a[1], a[4], w, paged=True),
-        dead=dead_slots, cold=(1, 2), iters=48)
+        dead=dead_slots, cold=(1, 2), iters=48, kv_pos=(1, 2))
     rows["paged_prefill_attention"] = _check_kernel(
         "paged_prefill_attention", k3.paged_prefill_attention,
         ref.paged_prefill_attention_ref, _library_prefill, _prefill_inputs,
         lambda a, w: _prefill_bound(a[0], a[1], a[3], a[6], a[7], w),
         dead=torch.arange(CHUNK)[None] >= torch.tensor(CHUNK_LENS)[:, None],
-        cold=(3, 4), iters=16)
+        cold=(3, 4), iters=16, kv_pos=(3, 4))
     return rows
+
+
+# (M, K, N, x dtype) of K4's checks: a decode tick's projections at 8
+# slots (wq/wo, wk/wv, w_in, w_out), the prefill GEMMs of an extend call
+# (8 rows x 256-token chunks), and fp32 x
+K4_SHAPES = ((8, 4608, 4608, "bfloat16"), (8, 4608, 512, "bfloat16"),
+             (8, 4608, 18432, "bfloat16"), (8, 18432, 4608, "bfloat16"),
+             (2048, 4608, 18432, "bfloat16"), (2048, 18432, 4608, "bfloat16"),
+             (8, 4608, 18432, "float32"))
+K4_MAIN = (8, 4608, 18432, "bfloat16")
+# fp32 x: 1e-5, absolute and relative to the output (a sum of K = 4608
+# products of O(1) outputs differs from cuBLAS's in its last ~5 bits).
+# bf16 x: one bf16 rounding of the output (an ulp, 2^-7 relative, where
+# the two fp32 sums straddle a rounding boundary), plus 1e-3 absolute for
+# outputs near zero: the tensor cores' fp32 accumulation over K = 18432
+# differs from cuBLAS's fp32 sum by about 1e-4 there
+K4_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}
+# each timed call reads its own weight copy, these bytes of copies at least
+# (twice the 50 MB L2): every layer's weights are cold on a decode tick
+K4_COLD_BYTES = 100e6
+
+
+def phase_int8_matmul():
+    """K4 against its plain version at the main path's shapes, with its
+    time, bound, the plain version's time and cuBLAS on the dequantized
+    weight. Returns the main row (decode, w_in)."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import ref
+    from repro_torch.quant import int8 as int8_lib
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    main = None
+    for m, k, n, x_name in K4_SHAPES:
+        dt = getattr(torch, x_name)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        leaf = int8_lib.quantize_weight(w)
+        q, sc = leaf["q8"], leaf["s8"].reshape(n).contiguous()
+        del w
+        got = k4.int8_matmul(x, q, sc)
+        torch.cuda.synchronize()
+        want = ref.int8_matmul_ref(x, q, sc)
+        atol, rtol = K4_TOL[x_name]
+        err = (got.float() - want.float()).abs()
+        max_err = float(err.max())
+        excess = err - (atol + rtol * want.float().abs())
+        if not (float(excess.max()) <= 0.0 and torch.isfinite(got).all()):
+            worst = int(excess.argmax())
+            raise AssertionError(
+                f"int8_matmul disagrees with its plain version at "
+                f"{m}x{k}x{n} {x_name}: max abs err {max_err} (atol {atol}, "
+                f"rtol {rtol}); worst element {divmod(worst, n)}: kernel "
+                f"{float(got.flatten()[worst])}, plain "
+                f"{float(want.flatten()[worst])}")
+        qs = [q] + [q.clone() for _ in range(
+            max(3, int(K4_COLD_BYTES // q.numel())))]
+        kernel_ms = cuda_ms(lambda i: k4.int8_matmul(x, qs[i % len(qs)], sc),
+                            24)
+        plain_ms = cuda_ms(
+            lambda i: ref.int8_matmul_ref(x, qs[i % len(qs)], sc), 6)
+        # the yardstick moves 2x (bf16) or 4x (fp32) the weight bytes
+        wd = [(c.float() * sc).to(dt) for c in qs[:max(
+            2, int(K4_COLD_BYTES // (q.numel() * x.element_size())))]]
+        library_ms = cuda_ms(lambda i: x @ wd[i % len(wd)], 24)
+        del qs, wd
+        nbytes = (q.numel() + sc.numel() * 4
+                  + (x.numel() + m * n) * x.element_size())
+        bound_ms, bound_by = _bound(
+            nbytes, 2.0 * m * k * n / (PEAK_BF16 if dt == torch.bfloat16
+                                       else PEAK_FP32))
+        row = {"phase": "int8_matmul", "m": m, "k": k, "n": n, "x": x_name,
+               "max_abs_err": max_err, "atol": atol, "rtol": rtol,
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "cuBLAS x @ w, w dequantized once: not the same "
+                          "function, it moves 2x (bf16) or 4x (fp32) the "
+                          "weight bytes",
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        if (m, k, n, x_name) == K4_MAIN:
+            main = row
+    return main
 
 
 def _shared_prefix_prompts(rng, vocab, prefix, tails):
     import numpy as np
     head = rng.integers(0, vocab, prefix)
     return [np.concatenate([head, rng.integers(0, vocab, n)]) for n in tails]
-
-
-def _drain(eng, prompts, max_tokens):
-    for p in prompts:
-        eng.submit(p, max_tokens=max_tokens)
-    return {r.uid: r.generated for r in eng.run_until_drained()}
 
 
 def phase_streams():
@@ -395,7 +549,8 @@ def phase_streams():
     from repro_torch.configs import starcoder2_7b
     from repro_torch.models import costing
     from repro_torch.models import transformer as tf_lib
-    from repro_torch.serve import ReferenceEngine, ServeConfig, ServeEngine
+    from repro_torch.serve import (ReferenceEngine, ServeConfig, ServeEngine,
+                                   generation_agreement, run_workload)
     cfg = starcoder2_7b.make_config()
     t0 = time.monotonic()
     params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
@@ -404,146 +559,201 @@ def phase_streams():
     scfg = ServeConfig(max_slots=4, max_len=512, device="cuda")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, n) for n in (17, 64, 130, 250)]
-    got = _drain(ServeEngine(params, cfg, scfg), prompts, 16)
-    want = _drain(ReferenceEngine(params, cfg, scfg), prompts, 16)
+    got = run_workload(ServeEngine(params, cfg, scfg), prompts, 16)
+    want = run_workload(ReferenceEngine(params, cfg, scfg), prompts, 16)
     if got != want or any(len(s) != 16 for s in got.values()):
         raise AssertionError(f"fp32 streams differ: engine {got}, "
                              f"reference {want}")
     paged_cfg = dataclasses.replace(scfg, paged=True, page_size=PAGE,
                                     prefill_chunk=64, prefix_cache=False)
-    paged = _drain(ServeEngine(params, cfg, paged_cfg), prompts, 16)
+    paged = run_workload(ServeEngine(params, cfg, paged_cfg), prompts, 16)
     if paged != got:
         raise AssertionError(f"fp32 paged streams differ from the dense "
                              f"engine's: paged {paged}, dense {got}")
     # two slots, so the later requests find the first ones' published
     # prefix blocks
     shared = _shared_prefix_prompts(rng, cfg.vocab, 128, (9, 40, 77, 130))
-    dense_shared = _drain(ServeEngine(params, cfg, scfg), shared, 16)
+    dense_shared = run_workload(ServeEngine(params, cfg, scfg), shared, 16)
     eng = ServeEngine(params, cfg, dataclasses.replace(
         paged_cfg, max_slots=2, prefix_cache=True))
-    hit_streams = _drain(eng, shared, 16)
+    hit_streams = run_workload(eng, shared, 16)
     hits = eng.summary()["prefix_hit_tokens"]
     if hits <= 0:
         raise AssertionError("the prefix-cache run hit no prefix block")
-    same = sum(a == b for u in dense_shared
-               for a, b in zip(dense_shared[u], hit_streams[u]))
     emit({"phase": "streams", "dtype": "float32", "requests": len(prompts),
           "tokens_each": 16, "identical": True, "paged_identical": True,
           "prefix_hit_tokens": hits,
-          "prefix_run_agreement": same / (16 * len(shared)),
+          "prefix_run_agreement": generation_agreement(
+              hit_streams, dense_shared)["agreement"],
           "init_s": init_s, "param_gb": costing.tree_bytes(params) / 1e9})
-    del params, eng
+    del eng
+    # int8: the engine quantizes at construction; the reference and the
+    # paged engine take its quantized params and INT8_QUANT cfg
+    int8_cfg = dataclasses.replace(scfg, quant="int8")
+    t0 = time.monotonic()
+    eng = ServeEngine(params, cfg, int8_cfg)
+    quant_s = time.monotonic() - t0
+    qparams, qcfg = eng.params, eng.cfg
+    del params
+    got = run_workload(eng, prompts, 16)
+    want = run_workload(ReferenceEngine(qparams, qcfg, int8_cfg), prompts,
+                        16)
+    if got != want or any(len(s) != 16 for s in got.values()):
+        raise AssertionError(f"fp32 int8 streams differ: engine {got}, "
+                             f"reference {want}")
+    paged = run_workload(ServeEngine(qparams, qcfg, dataclasses.replace(
+        paged_cfg, quant="int8")), prompts, 16)
+    if paged != got:
+        raise AssertionError(f"fp32 int8 paged streams differ from the "
+                             f"dense int8 engine's: paged {paged}, dense "
+                             f"{got}")
+    emit({"phase": "streams", "dtype": "float32", "quant": "int8",
+          "requests": len(prompts), "tokens_each": 16, "identical": True,
+          "paged_identical": True, "quantize_s": quant_s,
+          "weight_gb": eng.weight_bytes / 1e9,
+          "kv_cache_gb": eng.kv_cache_bytes / 1e9})
+    del eng, qparams
 
 
-def _serve_report(eng, acct, done, n_requests, n_new):
+def _counters():
+    """Every kernel's launch counter, by kernel name."""
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.kernels import paged_prefill_attention as k3
+    return {"decode_attention": k1.decode_attention,
+            "paged_decode_attention": k2.paged_decode_attention,
+            "paged_prefill_attention": k3.paged_prefill_attention,
+            "int8_matmul": k4.int8_matmul}
+
+
+def _serve_run(phase, eng, acct, prompts, n_new):
+    """Submit, set every launch counter to 0, drain, read the counters;
+    check that every request finished and that each kernel launched as
+    many times as the path's decode ticks and admission (dense) or extend
+    (paged) calls demand. Returns the phase's row and the launches."""
     import torch
+    for p in prompts:
+        eng.submit(p, max_tokens=n_new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
     s = eng.summary()
     rep = acct.report()
     decode_ticks = sum(1 for m in eng.metrics_log if m.active_slots > 0)
-    extends = sum(1 for m in eng.metrics_log if m.prefill_tokens > 0)
-    if len(done) != n_requests or any(len(r.generated) != n_new
-                                      for r in done):
-        raise AssertionError("serve run did not finish every request")
-    return decode_ticks, extends, s, {
-        "dtype": "bfloat16", "cache": "float32", "requests": n_requests,
-        "new_tokens_each": n_new,
-        "decode_tokens_per_s": s["decode_tokens_per_s"],
-        "decode_tokens": s["decode_tokens"],
-        "prefill_tokens": s["prefill_tokens"], "ticks": s["ticks"],
-        "decode_ticks": decode_ticks,
-        "ms_per_decode_tick": 1e3 * (s["wall_s"] - s["prefill_wall_s"])
-        / max(decode_ticks, 1),
-        "prefill_ms_per_admission": 1e3 * s["prefill_wall_s"]
-        / max(extends, 1),
-        "admissions": extends,
-        "modeled_j_per_token": rep["modeled_j_per_token"],
-        "bytes_moved": rep["bytes_moved"],
-        "host_readbacks": eng.host_readbacks,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    admissions = sum(1 for m in eng.metrics_log if m.prefill_tokens > 0)
+    if len(done) != len(prompts) or any(len(r.generated) != n_new
+                                        for r in done):
+        raise AssertionError(f"{phase}: the run did not finish every "
+                             f"request")
+    paged = eng.pool is not None
+    int8 = eng.scfg.quant == "int8"
+    want = {"decode_attention": 0 if paged else decode_ticks * N_LAYERS,
+            "paged_decode_attention": decode_ticks * N_LAYERS if paged
+            else 0,
+            "paged_prefill_attention": admissions * N_LAYERS if paged
+            else 0,
+            "int8_matmul": (decode_ticks + admissions) * N_LAYERS * 6
+            if int8 else 0}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches} != {want} "
+                             f"(decode ticks {decode_ticks}, admission or "
+                             f"extend calls {admissions})")
+    row = {"phase": phase, "dtype": "bfloat16", "quant": eng.scfg.quant,
+           "cache": "int8" if int8 else "float32",
+           "requests": len(prompts), "new_tokens_each": n_new,
+           "decode_tokens_per_s": s["decode_tokens_per_s"],
+           "decode_tokens": s["decode_tokens"],
+           "prefill_tokens": s["prefill_tokens"], "ticks": s["ticks"],
+           "decode_ticks": decode_ticks,
+           "ms_per_decode_tick": 1e3 * (s["wall_s"] - s["prefill_wall_s"])
+           / max(decode_ticks, 1),
+           "prefill_ms_per_admission": 1e3 * s["prefill_wall_s"]
+           / max(admissions, 1),
+           "admissions": admissions,
+           "modeled_j_per_token": rep["modeled_j_per_token"],
+           "bytes_moved": rep["bytes_moved"],
+           "weight_bytes": eng.weight_bytes,
+           "kv_cache_bytes": eng.kv_cache_bytes,
+           "host_readbacks": eng.host_readbacks,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "k4_launches_per_step": launches["int8_matmul"]
+           / max(decode_ticks + admissions, 1)}
+    if paged:
+        row.update({"page_size": PAGE, "prefill_chunk": 256,
+                    "pool_pages": s["pool_pages"],
+                    "prefix_hit_tokens": s["prefix_hit_tokens"],
+                    "prefix_hit_rate": s["prefix_hit_rate"],
+                    "prefill_gather_bytes": s["prefill_gather_bytes"]})
+        if s["prefix_hit_tokens"] <= 0:
+            raise AssertionError(f"{phase}: the run hit no prefix block")
+    emit(row)
+    return launches
 
 
-def phase_serve():
-    """bf16 full width, the dense serve loop billed to h100_sxm. Returns
-    the bf16 params (the paged phase reuses them) and K1's launches."""
-    import numpy as np
-    import torch
-    from repro_torch.configs import starcoder2_7b
+def _accountant():
     from repro_torch.core import accounting
-    from repro_torch.kernels import decode_attention as k1
-    from repro_torch.models import transformer as tf_lib
-    from repro_torch.serve import ServeConfig, ServeEngine
-    cfg = starcoder2_7b.make_config()
-    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
-                            device="cuda")
-    acct = accounting.CarbonAccountant(accounting.AccountantConfig(
+    return accounting.CarbonAccountant(accounting.AccountantConfig(
         device="h100_sxm", n_devices=1))
-    eng = ServeEngine(params, cfg, ServeConfig(max_slots=8, max_len=2048,
-                                               device="cuda"),
-                      accountant=acct)
+
+
+def phase_serve(cfg, params, quant="none"):
+    """bf16 full width, the dense serve loop billed to h100_sxm: 16
+    requests of 32-1024 prompt tokens, 64 new tokens each. Returns the
+    launches."""
+    import numpy as np
+    from repro_torch.serve import ServeConfig, ServeEngine
+    acct = _accountant()
+    eng = ServeEngine(params, cfg, ServeConfig(
+        max_slots=8, max_len=2048, device="cuda", quant=quant),
+        accountant=acct)
     rng = np.random.default_rng(SEED)
-    for _ in range(16):
-        eng.submit(rng.integers(0, cfg.vocab, int(rng.integers(32, 1025))),
-                   max_tokens=64)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    k1.decode_attention.launches = 0
-    done = eng.run_until_drained()
-    launches = k1.decode_attention.launches
-    decode_ticks, _, _, row = _serve_report(eng, acct, done, 16, 64)
-    if launches != decode_ticks * N_LAYERS:
-        raise AssertionError(f"K1 launches {launches} != decode ticks "
-                             f"{decode_ticks} x {N_LAYERS}")
-    emit({"phase": "serve", **row, "k1_launches": launches})
-    return cfg, params, launches
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(32, 1025)))
+               for _ in range(16)]
+    return _serve_run("serve", eng, acct, prompts, 64)
 
 
-def phase_paged_serve(cfg, params):
-    """bf16 weights, fp32 pool: the paged serve loop with the prefix cache
-    on shared-prompt traffic. Returns K2's and K3's launches."""
+def phase_paged_serve(cfg, params, quant="none"):
+    """bf16 weights, the paged serve loop with the prefix cache on
+    shared-prompt traffic: 16 requests of a 512-token shared prompt plus a
+    32-512-token tail. Returns the launches."""
     import numpy as np
-    import torch
-    from repro_torch.core import accounting
-    from repro_torch.kernels import paged_decode_attention as k2
-    from repro_torch.kernels import paged_prefill_attention as k3
     from repro_torch.serve import ServeConfig, ServeEngine
-    acct = accounting.CarbonAccountant(accounting.AccountantConfig(
-        device="h100_sxm", n_devices=1))
+    acct = _accountant()
     eng = ServeEngine(params, cfg, ServeConfig(
         max_slots=8, max_len=2048, device="cuda", paged=True,
-        page_size=PAGE, prefill_chunk=256, prefix_cache=True),
+        page_size=PAGE, prefill_chunk=256, prefix_cache=True, quant=quant),
         accountant=acct)
     rng = np.random.default_rng(SEED + 3)
     tails = [int(n) for n in rng.integers(32, 513, 16)]
-    for p in _shared_prefix_prompts(rng, cfg.vocab, 512, tails):
-        eng.submit(p, max_tokens=64)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    k2.paged_decode_attention.launches = 0
-    k3.paged_prefill_attention.launches = 0
-    done = eng.run_until_drained()
-    torch.cuda.synchronize()
-    launches = (k2.paged_decode_attention.launches,
-                k3.paged_prefill_attention.launches)
-    decode_ticks, extends, s, row = _serve_report(eng, acct, done, 16, 64)
-    if launches != (decode_ticks * N_LAYERS, extends * N_LAYERS):
-        raise AssertionError(
-            f"K2/K3 launches {launches} != (decode ticks {decode_ticks}, "
-            f"extend calls {extends}) x {N_LAYERS}")
-    if s["prefix_hit_tokens"] <= 0:
-        raise AssertionError("the paged serve run hit no prefix block")
-    emit({"phase": "paged_serve", **row, "page_size": PAGE,
-          "prefill_chunk": 256, "pool_pages": s["pool_pages"],
-          "prefix_hit_tokens": s["prefix_hit_tokens"],
-          "prefix_hit_rate": s["prefix_hit_rate"],
-          "prefill_gather_bytes": s["prefill_gather_bytes"],
-          "k2_launches": launches[0], "k3_launches": launches[1]})
-    return launches
+    prompts = _shared_prefix_prompts(rng, cfg.vocab, 512, tails)
+    return _serve_run("paged_serve", eng, acct, prompts, 64)
+
+
+def phase_agreement(cfg, params, qparams):
+    """Teacher-forced greedy agreement of the int8 model with the bf16 one
+    at full width (reported, not asserted)."""
+    import numpy as np
+    from repro_torch.serve import token_agreement
+    prompts = np.random.default_rng(SEED + 5).integers(0, cfg.vocab,
+                                                       (8, 64))
+    t0 = time.monotonic()
+    res = token_agreement(params, cfg, prompts, 24, qparams=qparams)
+    emit({"phase": "agreement", "prompts": 8, "prompt_len": 64,
+          "new_tokens": 24, **res, "seconds": time.monotonic() - t0})
 
 
 KERNELS = (
     ("decode_attention", "src/repro/kernels/decode_attention.py:122"),
     ("paged_decode_attention", "src/repro/kernels/decode_attention.py:245"),
     ("paged_prefill_attention", "src/repro/kernels/flash_attention.py:494"),
+    ("int8_matmul", "src/repro/kernels/int8_matmul.py:53"),
 )
 
 
@@ -562,15 +772,25 @@ def main() -> int:
     t0 = time.monotonic()
     phase_device()
     phase_build()
-    rows = phase_kernels()
+    rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
+    rows["int8_matmul"] = phase_int8_matmul()
     phase_streams()
     torch.cuda.empty_cache()
-    cfg, params, k1_launches = phase_serve()
-    torch.cuda.empty_cache()
-    k2_launches, k3_launches = phase_paged_serve(cfg, params)
-    launches = {"decode_attention": k1_launches,
-                "paged_decode_attention": k2_launches,
-                "paged_prefill_attention": k3_launches}
+    from repro_torch.configs import starcoder2_7b
+    from repro_torch.models import transformer as tf_lib
+    cfg = starcoder2_7b.make_config()
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
+                            device="cuda")
+    runs = [phase_serve(cfg, params), phase_paged_serve(cfg, params)]
+    qcfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
+    qparams = tf_lib.quantize_lm(params)
+    runs += [phase_serve(qcfg, qparams, "int8"),
+             phase_paged_serve(qcfg, qparams, "int8")]
+    phase_agreement(cfg, params, qparams)
+    launches = {name: sum(r[name] for r in runs) for name, _ in KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the main path never launched: "
+                             f"{launches}")
     emit({"phase": "total", "seconds": time.monotonic() - t0})
     emit({"kernels": [{
         "name": name, "route": "cuda",

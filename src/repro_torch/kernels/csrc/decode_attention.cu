@@ -14,15 +14,19 @@
 
 // Plain C entry point. q (B, H, D) and out (B, H, D) contiguous; k/v
 // (B, Sk, Hkv, D) with unit stride on D and stride D on Hkv, their batch and
-// position strides given in elements; lengths (B,) int32. Returns the CUDA
-// error of the launch (0 on success); the ctypes wrapper raises on non-zero.
+// position strides given in elements; lengths (B,) int32; kv_type a
+// KvType. With int8 K/V, ks/vs (B, Sk, Hkv) fp32 have K/V's strides / D
+// (else they are unused). Returns the CUDA error of the launch (0 on
+// success); the ctypes wrapper raises on non-zero.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* lengths, void* out, int B, int H,
                                        int Hkv, int D, int Sk, long long kv_stride_b,
                                        long long kv_stride_s, int window, float scale,
-                                       int q_bf16, int kv_bf16, void* stream) {
+                                       int q_bf16, int kv_type, const void* ks,
+                                       const void* vs, void* stream) {
   const DenseRows rows{kv_stride_b, kv_stride_s, Sk};
-  return static_cast<int>(dispatch_decode(D, q_bf16, kv_bf16, q, k, v, lengths, out, B, H,
-                                          Hkv, rows, window, scale,
-                                          static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch_decode(
+      D, q_bf16, kv_type, q, k, v, lengths, out, B, H, Hkv, rows, window, scale,
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<cudaStream_t>(stream)));
 }

@@ -11,7 +11,11 @@
 // position length - 1. fp32 accumulation throughout, q scaled in fp32
 // before the dot, online softmax with running max m (starting at -1e30),
 // denominator floored at 1e-30, output in q's dtype. A dead slot
-// (length 0) writes exact zeros.
+// (length 0) writes exact zeros. In the int8-KV mode (KVT = int8_t) K/V
+// are int8 codes with one fp32 scale per (row, KV head), and each code is
+// dequantized in fp32 registers (code * scale) as its tile goes to shared
+// memory, as the Pallas body does (decode_attention.py:96-110); the scales
+// sit at the K/V row's element offset / D, so one row lookup serves both.
 //
 // What bounds it on the card: bytes. Each key costs 4 * rep * D FLOPs
 // against 2 * D * sizeof(KV) bytes (about 4.5 FLOP per byte for fp32 K/V at
@@ -43,6 +47,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -55,6 +62,7 @@ constexpr float kNegInf = -1e30f;
 template <typename T> struct Vec16;      // 16 bytes of T
 template <> struct Vec16<float> { using type = float4; static constexpr int n = 4; };
 template <> struct Vec16<__nv_bfloat16> { using type = uint4; static constexpr int n = 8; };
+template <> struct Vec16<int8_t> { using type = uint4; static constexpr int n = 16; };
 
 __device__ __forceinline__ void to_smem(const float4& x, float* dst) {
   *reinterpret_cast<float4*>(dst) = x;
@@ -66,6 +74,16 @@ __device__ __forceinline__ void to_smem(const uint4& x, float* dst) {
   const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
   reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// 16 int8 codes times their row's scale, in fp32
+__device__ __forceinline__ void dequant_to_smem(const uint4& x, float s, float* dst) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    reinterpret_cast<float4*>(dst)[i] =
+        make_float4((float)c[4 * i] * s, (float)c[4 * i + 1] * s, (float)c[4 * i + 2] * s,
+                    (float)c[4 * i + 3] * s);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -134,13 +152,15 @@ struct PagedRows {
 // `rows` is __grid_constant__: the load loop reads it through a reference,
 // and without the qualifier nvcc fetched its fields with per-thread
 // constant loads there, which made the fp32-K/V kernel about 27% slower
-// on an H100.
+// on an H100. `ks`/`vs` are read only when KVT is int8_t.
 template <typename QT, typename KVT, int D, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                         const KVT* __restrict__ v, const int* __restrict__ lengths,
                         QT* __restrict__ out, int H, int rep,
-                        const __grid_constant__ Rows rows, int window, float scale) {
+                        const __grid_constant__ Rows rows, int window, float scale,
+                        const float* __restrict__ ks, const float* __restrict__ vs) {
+  constexpr bool kQuant = std::is_same<KVT, int8_t>::value;
   constexpr int DQ = D / 4;                       // float4 columns of a row
   constexpr int KS = D + 4;                       // padded K row: conflict-free
   constexpr int G = kThreads / DQ;                // row groups of the P @ V pass
@@ -178,18 +198,29 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   // the next tile's K/V rows, held in registers while this tile computes;
   // rows past the length are zero, so p = 0 never meets stale memory
   VecT k_next[kLoads], v_next[kLoads];
+  float ks_next[kQuant ? kLoads : 1], vs_next[kQuant ? kLoads : 1];
   auto load_tile = [&](int t0) {
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
       const int j = i / kVecPerRow, c = (i % kVecPerRow) * VN;
       if (t0 + j < length) {
-        const long long off = rows.row(b, t0 + j) + c;
+        const long long row = rows.row(b, t0 + j);
+        const long long off = row + c;
         k_next[u] = *reinterpret_cast<const VecT*>(k_g + off);
         v_next[u] = *reinterpret_cast<const VecT*>(v_g + off);
+        if constexpr (kQuant) {
+          const long long s_off = (rows.base(b) + row) / D + kvh;
+          ks_next[u] = __ldg(ks + s_off);
+          vs_next[u] = __ldg(vs + s_off);
+        }
       } else {
         k_next[u] = VecT{};
         v_next[u] = VecT{};
+        if constexpr (kQuant) {
+          ks_next[u] = 0.f;
+          vs_next[u] = 0.f;
+        }
       }
     }
   };
@@ -212,8 +243,13 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
       const int j = i / kVecPerRow, c = (i % kVecPerRow) * VN;
-      to_smem(k_next[u], k_s + j * KS + c);
-      to_smem(v_next[u], v_s + j * D + c);
+      if constexpr (kQuant) {
+        dequant_to_smem(k_next[u], ks_next[u], k_s + j * KS + c);
+        dequant_to_smem(v_next[u], vs_next[u], v_s + j * D + c);
+      } else {
+        to_smem(k_next[u], k_s + j * KS + c);
+        to_smem(v_next[u], v_s + j * D + c);
+      }
     }
     __syncthreads();
     if (t0 + kTileK < length) load_tile(t0 + kTileK);   // in flight meanwhile
@@ -292,7 +328,8 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
 template <typename QT, typename KVT, int D, typename Rows>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* lengths,
                           void* out, int B, int H, int Hkv, Rows rows, int window,
-                          float scale, cudaStream_t stream) {
+                          float scale, const float* ks, const float* vs,
+                          cudaStream_t stream) {
   const int rep = H / Hkv;
   const size_t smem = sizeof(float) * ((size_t)rep * D + (size_t)kTileK * (D + 4) +
                                        (size_t)kTileK * D + (size_t)rep * kTileK + 2 * (size_t)rep);
@@ -305,31 +342,36 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v),
       static_cast<const int*>(lengths), static_cast<QT*>(out), H, H / Hkv, rows, window,
-      scale);
+      scale, ks, vs);
   return cudaGetLastError();
 }
 
-// The (q dtype, K/V dtype, head dim) dispatch of one launch.
+// K/V storage of a launch: fp32, bf16, or int8 codes with fp32 row scales.
+enum KvType { kKvFloat = 0, kKvBf16 = 1, kKvInt8 = 2 };
+
+// The (q dtype, K/V type, head dim) dispatch of one launch.
 template <typename Rows>
-cudaError_t dispatch_decode(int D, int q_bf16, int kv_bf16, const void* q, const void* k,
+cudaError_t dispatch_decode(int D, int q_bf16, int kv_type, const void* q, const void* k,
                             const void* v, const void* lengths, void* out, int B, int H,
-                            int Hkv, Rows rows, int window, float scale,
-                            cudaStream_t stream) {
+                            int Hkv, Rows rows, int window, float scale, const float* ks,
+                            const float* vs, cudaStream_t stream) {
 #define DECODE_CASE(QT, KVT)                                                              \
   switch (D) {                                                                            \
     case 64: return launch_decode<QT, KVT, 64>(q, k, v, lengths, out, B, H, Hkv, rows,    \
-                                               window, scale, stream);                    \
+                                               window, scale, ks, vs, stream);            \
     case 128: return launch_decode<QT, KVT, 128>(q, k, v, lengths, out, B, H, Hkv, rows,  \
-                                                 window, scale, stream);                  \
+                                                 window, scale, ks, vs, stream);          \
     case 256: return launch_decode<QT, KVT, 256>(q, k, v, lengths, out, B, H, Hkv, rows,  \
-                                                 window, scale, stream);                  \
+                                                 window, scale, ks, vs, stream);          \
     default: return cudaErrorInvalidValue;                                                \
   }
   if (q_bf16) {
-    if (kv_bf16) { DECODE_CASE(__nv_bfloat16, __nv_bfloat16) }
+    if (kv_type == kKvBf16) { DECODE_CASE(__nv_bfloat16, __nv_bfloat16) }
+    if (kv_type == kKvInt8) { DECODE_CASE(__nv_bfloat16, int8_t) }
     DECODE_CASE(__nv_bfloat16, float)
   }
-  if (kv_bf16) { DECODE_CASE(float, __nv_bfloat16) }
+  if (kv_type == kKvBf16) { DECODE_CASE(float, __nv_bfloat16) }
+  if (kv_type == kKvInt8) { DECODE_CASE(float, int8_t) }
   DECODE_CASE(float, float)
 #undef DECODE_CASE
 }

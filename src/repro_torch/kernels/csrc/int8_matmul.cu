@@ -1,0 +1,526 @@
+// K4: weight-only int8 matmul for the serving fast path, on Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/int8_matmul.py::int8_matmul
+// (_int8_matmul_kernel). Computes
+//   y[m, n] = (sum_k x[m, k] * q[k, n]) * scale[n]
+// with x (M, K) fp32 or bf16 row-major, q (K, N) int8 row-major (the
+// weight's own layout: K rows of N codes), scale (N,) fp32 and y (M, N) in
+// x's dtype. The int8 tile is widened to x's dtype after it loads (int8
+// codes are exact in bf16), the products accumulate in fp32, the scale is
+// applied once per output element at the end, and the result is cast to
+// x's dtype once. Full-precision weights never exist in device memory.
+// Nothing is padded: every kernel masks ragged M, N and K edges itself;
+// K must be a multiple of 16 (every starcoder2 K is a multiple of 128).
+//
+// What bounds it on the card depends on M, and so there are three kernels:
+//   * decode, bf16 x, M <= 8 (int8_gemv_kernel): bytes. The weight is read
+//     once (1 byte an element) and each byte feeds at most 2 * 8 FLOPs, far
+//     below the H100's ~295 FLOP/byte ridge; the least time is the weight
+//     bytes over 3.35 TB/s. On fp32 CUDA cores the 8 FMAs and the widening
+//     per byte would cost more than the bytes (a first version ran at 5x
+//     the bound), so the products run on the tensor cores: mma m16n8k16
+//     with x as A (M <= 8 rows, zero-padded to 16) and the weight as B.
+//     Each lane streams 16-byte cp.async copies of one weight row, five
+//     16-row steps ahead; the codes are widened exactly to bf16 with a byte
+//     permute and a subtraction (no int-to-float conversion) into a
+//     warp-private shared tile, and ldmatrix.trans hands out the B
+//     fragments. K is split across blocks (up to 32 splits) so that the
+//     grid is about three blocks per SM where N allows; the partial
+//     sums of a column tile meet in an fp32 workspace, and the last block
+//     of the tile to finish (an atomic counter, reset by that block) adds
+//     them in split order, so the result does not depend on the order in
+//     which blocks ran and the call is one launch.
+//   * prefill, bf16 x, M > 8 (int8_mma_kernel): operations (about 2 * M
+//     FLOPs a weight byte). 128 x 128 output tiles on warp-level mma.sync
+//     (m16n8k16, bf16 in, fp32 accumulate), with x and the widened weight
+//     tile staged in shared memory (the weight stored n-major, so each B
+//     fragment is one 32-bit read, conflict-free with 8 bf16 of padding)
+//     and the next K tile loaded into registers while this one computes.
+//     wgmma and TMA are later work.
+//   * fp32 x, any M (int8_simt_kernel): fp32 CUDA-core FMAs on 64 x 64
+//     tiles. TF32 would change the numerics, so the tensor cores are not
+//     used; each output sums k in the same order whatever M is (16-row
+//     partial sums added in ascending order), so an engine's batched call
+//     and a one-row call give the same bits.
+//
+// Built by repro_torch/kernels/build.py with nvcc into a shared library
+// with a plain C entry point, loaded with ctypes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// ---------------------------------------------------------------------------
+// decode: bf16 x, M <= 8, split K, tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxM = 8;
+constexpr int kGemvWarpN = 32;                    // columns a warp owns
+constexpr int kGemvWarps = kThreads / 32;
+constexpr int kGemvBN = kGemvWarps * kGemvWarpN;  // 256 columns a block
+constexpr int kStages = 6;                        // 16-row steps in flight per warp
+constexpr int kTileStride = kGemvWarpN + 8;       // padded bf16 row: conflict-free
+constexpr int kMaxRowsPerSplit = 1536;            // x slice of 24.7 KB in smem
+// dynamic shared memory: the x slice, then each warp's ring of raw code
+// steps (16 rows x 32 bytes), then each warp's widened bf16 tile
+constexpr size_t kRingBytes = (size_t)kGemvWarps * kStages * 16 * kGemvWarpN;
+constexpr size_t kTileBytes = (size_t)kGemvWarps * 16 * kTileStride * 2;
+constexpr size_t kXsBytesMax = (size_t)kMaxM * (kMaxRowsPerSplit + 8) * 2;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four int8 codes (one 32-bit word) as two packed bf16 pairs, exactly and
+// without the slow int-to-float conversion: xor 0x80 biases each byte to
+// c + 128 in [0, 255], a byte permute puts it in the low mantissa byte of
+// 2^23 (0x4B0000bb), subtracting 2^23 + 128 leaves c as a float, and
+// |c| <= 128 is exact in bf16.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t b = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7440 + e)) - 8388736.f;
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Computes the output tile as mma m16n8k16 with x as A (its M <= 8 rows
+// padded to 16 by zero fragments) and the widened weight as B. Each warp
+// owns 32 columns and walks every 16-row step of the block's split: lane l
+// copies row l / 2, columns (l % 2) * 16 .. + 15 (16 bytes) with cp.async
+// into its warp's ring, kStages - 1 steps ahead (asynchronous copies, so
+// the warp's few load scoreboards do not cap how many are in flight);
+// widens its own 16 codes into a warp-private bf16 tile; and ldmatrix.trans
+// hands out the B fragments. No warp shares an output, so the only
+// reduction is across splits.
+__global__ void __launch_bounds__(kThreads, 3)
+int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ ws, int* __restrict__ counters, int M, int N, int K,
+                 int rows_per_split, int vec) {
+  extern __shared__ __align__(16) unsigned char gemv_smem[];
+  __shared__ int last_s;
+  const int xs = rows_per_split + 8;                 // padded x row: conflict-free
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  uint8_t* ring = gemv_smem + (size_t)kMaxM * xs * 2 +
+                  (size_t)warp * kStages * 16 * kGemvWarpN;
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(
+      gemv_smem + (size_t)kMaxM * xs * 2 + kRingBytes) + warp * 16 * kTileStride;
+  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(gemv_smem);   // kMaxM x xs
+
+  const int n0 = blockIdx.x * kGemvBN, split = blockIdx.y, S = gridDim.y;
+  const int k_lo = split * rows_per_split;
+  const int kr = min(K, k_lo + rows_per_split) - k_lo;   // a multiple of 16
+  const int steps = kr / 16;
+
+  const int nw = n0 + warp * kGemvWarpN;             // the warp's columns
+  const int ln = nw + (lane & 1) * 16;               // this lane's 16 columns
+  const int8_t* src = q + (long long)(k_lo + (lane >> 1)) * N + ln;
+  const int slot = lane * 16;                        // this lane's bytes of a step
+  // step st's 16 codes into ring stage st % kStages: cp.async where the 16
+  // bytes are whole and aligned, else plain loads (ragged N); zeros past N
+  auto fetch = [&](int st) {
+    if (st >= steps) return;
+    uint8_t* dst = ring + (st % kStages) * 16 * kGemvWarpN + slot;
+    const int8_t* p = src + (long long)st * 16 * N;
+    if (vec && ln + 16 <= N) {
+      cp_async16(smem_addr(dst), p);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      for (int e = 0; e < 16; ++e)
+        if (ln + e < N) w[e >> 2] |= (uint32_t)(uint8_t)p[e] << (8 * (e & 3));
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  };
+#pragma unroll
+  for (int d = 0; d < kStages - 1; ++d) {
+    fetch(d);
+    cp_async_commit();
+  }
+  // the x slice, 8 bf16 at a time, while the first steps are in flight
+  for (int i = tid; i < M * (kr / 8); i += kThreads) {
+    const int m = i / (kr / 8), j = (i % (kr / 8)) * 8;
+    *reinterpret_cast<uint4*>(x_s + m * xs + j) =
+        *reinterpret_cast<const uint4*>(x + (long long)m * K + k_lo + j);
+  }
+  __syncthreads();                                   // x_s is filled
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  uint4* st_dst = reinterpret_cast<uint4*>(tile + (lane >> 1) * kTileStride +
+                                           (lane & 1) * 16);
+  // ldmatrix x4: matrix lane / 8 of (k 0-7, k 8-15) x (n +0, n +8)
+  const int mi = lane >> 3, ri = lane & 7;
+  const uint32_t ld_base =
+      smem_addr(tile + (ri + 8 * (mi & 1)) * kTileStride + 8 * (mi >> 1));
+  const bool a_live = g < M;
+  const __nv_bfloat16* xa = x_s + g * xs + 2 * t;
+
+  for (int st = 0; st < steps; ++st) {
+    fetch(st + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();                    // step st has landed
+    const uint4 c = *reinterpret_cast<const uint4*>(
+        ring + (st % kStages) * 16 * kGemvWarpN + slot);
+    const uint2 w0 = widen4(c.x), w1 = widen4(c.y), w2 = widen4(c.z), w3 = widen4(c.w);
+    st_dst[0] = make_uint4(w0.x, w0.y, w1.x, w1.y);
+    st_dst[1] = make_uint4(w2.x, w2.y, w3.x, w3.y);
+    __syncwarp();
+    uint32_t b[4][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+          : "=r"(b[2 * h][0]), "=r"(b[2 * h][1]), "=r"(b[2 * h + 1][0]),
+            "=r"(b[2 * h + 1][1])
+          : "r"(ld_base + h * 16 * 2));
+    }
+    uint32_t a[4] = {0u, 0u, 0u, 0u};                 // rows 8-15 stay zero
+    if (a_live) {
+      a[0] = *reinterpret_cast<const uint32_t*>(xa + st * 16);
+      a[2] = *reinterpret_cast<const uint32_t*>(xa + st * 16 + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mma_bf16(acc[i], a, b[i]);
+    __syncwarp();                                     // the tile is read
+  }
+  cp_async_wait<0>();
+
+  // acc[i][0..1]: row m = g, columns nw + 8 i + 2 t + {0, 1}
+  if (S == 1) {
+    if (a_live) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = nw + 8 * i + 2 * t + e;
+          if (n < N)
+            out[(long long)g * N + n] = __float2bfloat16_rn(acc[i][e] * scale[n]);
+        }
+    }
+    return;
+  }
+  // this split's partial sums, then the tile's arrival count
+  if (a_live) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = nw + 8 * i + 2 * t + e;
+        if (n < N) ws[((long long)split * M + g) * N + n] = acc[i][e];
+      }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(counters + blockIdx.x, 1) == S - 1;
+  __syncthreads();
+  if (!last_s) return;
+  // the last block adds every split's sums in split order (read from L2:
+  // other SMs wrote them), applies the scale and resets the counter; four
+  // splits' loads of a thread's 8 outputs are in flight together
+  __threadfence();
+  constexpr int kPer = kMaxM * kGemvBN / kThreads;   // 8 outputs a thread
+  const long long stride = (long long)M * N;         // one split's sums
+  float sum[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) sum[r] = 0.f;
+  for (int sp0 = 0; sp0 < S; sp0 += 4) {
+    float v[4][kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = tid + r * kThreads;
+      const int m = i / kGemvBN, col = n0 + i % kGemvBN;
+      const bool ok = m < M && col < N;
+      const float* p = ws + sp0 * stride + (long long)m * N + col;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u][r] = (ok && sp0 + u < S) ? __ldcg(p + u * stride) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) sum[r] += v[u][r];
+  }
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int i = tid + r * kThreads;
+    const int m = i / kGemvBN, col = n0 + i % kGemvBN;
+    if (m < M && col < N) out[(long long)m * N + col] = __float2bfloat16_rn(sum[r] * scale[col]);
+  }
+  if (tid == 0) counters[blockIdx.x] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// prefill: bf16 x, M > 8, mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128, kBN = 128, kBK = 32, kPad = 8;
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Block tile 128 x 128 over 8 warps (2 along M x 4 along N), each warp
+// 64 x 32: 4 x 4 m16n8 accumulators. Fragment layouts are PTX's for
+// m16n8k16: g = lane / 4 picks the row (A, C) or the column (B), t = lane %
+// 4 the pair of k (A, B) or of columns (C).
+__global__ void __launch_bounds__(kThreads, 2)
+int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
+                int N, int K, int vec) {
+  __shared__ __align__(16) __nv_bfloat16 a_s[kBM][kBK + kPad];   // x tile, k contiguous
+  __shared__ __align__(16) __nv_bfloat16 b_s[kBN][kBK + kPad];   // weight tile, n-major
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // per K tile: x as 2 x 16 bytes a thread (4 threads a row), the weight as
+  // 16 codes a thread: row k = lane of the warp, columns warp * 16 + 0..15
+  uint4 a_reg[2];
+  uint32_t b_reg[4];                              // 16 codes, packed
+  const int b_k = tid & 31, b_n = (tid >> 5) * 16;
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = tid + u * kThreads;
+      const int r = i >> 2, c = (i & 3) * 8;
+      const int m = m0 + r, k = k0 + c;
+      a_reg[u] = (m < M && k < K)
+                     ? *reinterpret_cast<const uint4*>(x + (long long)m * K + k)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+    const int k = k0 + b_k, n = n0 + b_n;
+    const int8_t* src = q + (long long)k * N + n;
+    if (k < K && vec && n + 16 <= N) {
+      const uint4 u = *reinterpret_cast<const uint4*>(src);
+      b_reg[0] = u.x; b_reg[1] = u.y; b_reg[2] = u.z; b_reg[3] = u.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b_reg[i] = 0u;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (k < K && n + e < N) b_reg[e >> 2] |= (uint32_t)(uint8_t)src[e] << (8 * (e & 3));
+    }
+  };
+
+  load(0);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    __syncthreads();                              // last tile's readers are done
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = tid + u * kThreads;
+      *reinterpret_cast<uint4*>(&a_s[i >> 2][(i & 3) * 8]) = a_reg[u];
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      b_s[b_n + e][b_k] =
+          __float2bfloat16_rn((float)(int8_t)(b_reg[e >> 2] >> (8 * (e & 3))));
+    __syncthreads();
+    if (k0 + kBK < K) load(k0 + kBK);             // in flight meanwhile
+
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm + i * 16 + g;
+        af[i][0] = ld32(&a_s[r][kk + t * 2]);
+        af[i][1] = ld32(&a_s[r + 8][kk + t * 2]);
+        af[i][2] = ld32(&a_s[r][kk + 8 + t * 2]);
+        af[i][3] = ld32(&a_s[r + 8][kk + 8 + t * 2]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn + j * 8 + g;
+        bf[j][0] = ld32(&b_s[c][kk + t * 2]);
+        bf[j][1] = ld32(&b_s[c][kk + 8 + t * 2]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + i * 16 + g + (e >> 1) * 8;
+        const int n = n0 + wn + j * 8 + t * 2 + (e & 1);
+        if (m < M && n < N)
+          out[(long long)m * N + n] = __float2bfloat16_rn(acc[i][j][e] * scale[n]);
+      }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 x, any M: CUDA-core FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int kSBM = 64, kSBN = 64, kSBK = 16;
+
+__global__ void __launch_bounds__(kThreads)
+int8_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ scale, float* __restrict__ out, int M, int N,
+                 int K, int vec) {
+  __shared__ __align__(16) float a_s[kSBK][kSBM + 4];   // x tile, k-major
+  __shared__ __align__(16) float b_s[kSBK][kSBN];       // widened weight tile
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * kSBM, n0 = blockIdx.x * kSBN;
+  const int a_r = tid >> 2, a_c = (tid & 3) * 4;        // x: one float4 a thread
+  const int b_k = tid >> 4, b_n = (tid & 15) * 4;       // weight: 4 codes a thread
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kSBK) {
+    const int m = m0 + a_r;
+    const float4 av = m < M
+        ? *reinterpret_cast<const float4*>(x + (long long)m * K + k0 + a_c)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int n = n0 + b_n;
+    const int8_t* src = q + (long long)(k0 + b_k) * N + n;
+    uint32_t c = 0u;                              // 4 codes, packed
+    if (vec && n + 4 <= N) {
+      c = *reinterpret_cast<const uint32_t*>(src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) c |= (uint32_t)(uint8_t)src[e] << (8 * e);
+    }
+    __syncthreads();                              // last tile's readers are done
+    a_s[a_c + 0][a_r] = av.x;
+    a_s[a_c + 1][a_r] = av.y;
+    a_s[a_c + 2][a_r] = av.z;
+    a_s[a_c + 3][a_r] = av.w;
+    *reinterpret_cast<float4*>(&b_s[b_k][b_n]) =
+        make_float4((float)(int8_t)c, (float)(int8_t)(c >> 8), (float)(int8_t)(c >> 16),
+                    (float)(int8_t)(c >> 24));
+    __syncthreads();
+    // this tile's 16 products summed apart, then added to the running sum:
+    // two-level summation keeps the fp32 error near that of a blocked sum
+    float part[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kSBK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&a_s[k][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&b_s[k][tx * 4]);
+      const float av4[4] = {a.x, a.y, a.z, a.w}, bv4[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av4[i], bv4[j], part[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
+      if (m < M && n < N) out[(long long)m * N + n] = acc[i][j] * scale[n];
+    }
+}
+
+}  // namespace
+
+// Plain C entry point. x (M, K) and out (M, N) contiguous in x's dtype
+// (x_bf16: bf16, else fp32), 16-byte aligned; q (K, N) int8 contiguous;
+// scale (N,) fp32; K % 16 == 0. The bf16 decode kernel (M <= 8) splits K
+// into gridDim.y = ceil(K / rows_per_split) blocks per 256-column tile and
+// needs ws (splits, M, N) fp32 and counters (one int per column tile, zero
+// on entry and left zero) when there is more than one split. Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int int8_matmul_launch(const void* x, const void* q, const void* scale, void* out,
+                                  void* ws, void* counters, int M, int N, int K,
+                                  int rows_per_split, int x_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K % 16 != 0 || M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!x_bf16) {
+    const dim3 grid((N + kSBN - 1) / kSBN, (M + kSBM - 1) / kSBM);
+    int8_simt_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scale), static_cast<float*>(out), M, N, K, N % 4 == 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (M <= kMaxM) {
+    if (rows_per_split <= 0 || rows_per_split % 16 || rows_per_split > kMaxRowsPerSplit)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int splits = (K + rows_per_split - 1) / rows_per_split;
+    const size_t smem = (size_t)kMaxM * (rows_per_split + 8) * 2 + kRingBytes + kTileBytes;
+    // allow the largest split's shared memory, once per process
+    static const cudaError_t smem_set = cudaFuncSetAttribute(
+        int8_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(kXsBytesMax + kRingBytes + kTileBytes));
+    if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
+    const dim3 grid((N + kGemvBN - 1) / kGemvBN, splits);
+    int8_gemv_kernel<<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+        static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, rows_per_split,
+        N % 16 == 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  int8_mma_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, N, K,
+      N % 16 == 0);
+  return static_cast<int>(cudaGetLastError());
+}

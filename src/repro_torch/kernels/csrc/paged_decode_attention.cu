@@ -1,4 +1,5 @@
-// K2: decode attention through the paged KV pool, on Hopper (sm_90a).
+// K2: decode attention through the paged KV pool, on Hopper (sm_90a),
+// with fp32, bf16 or int8 (codes plus per-row fp32 scale pools) pages.
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py::
 // paged_decode_attention (_paged_kernel): K1's function with each K/V row
@@ -27,16 +28,19 @@
 // Plain C entry point. q (B, H, D) and out (B, H, D) contiguous; k/v pools
 // (P, page_size, Hkv, D) with unit stride on D and stride D on Hkv, their
 // page and row strides given in elements; page_table (B, n_blocks) int32
-// contiguous, every entry a page of the pool; lengths (B,) int32. Returns
-// the CUDA error of the launch (0 on success).
+// contiguous, every entry a page of the pool; lengths (B,) int32; kv_type
+// a KvType. With int8 pools, ks/vs (P, page_size, Hkv) fp32 have the
+// pools' strides / D (else they are unused). Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* page_table,
     const void* lengths, void* out, int B, int H, int Hkv, int D, int n_blocks,
     int page_size, long long pool_stride_page, long long pool_stride_row, int window,
-    float scale, int q_bf16, int kv_bf16, void* stream) {
+    float scale, int q_bf16, int kv_type, const void* ks, const void* vs, void* stream) {
   const PagedRows rows{static_cast<const int*>(page_table), n_blocks, page_size,
                        pool_stride_page, pool_stride_row, n_blocks * page_size};
-  return static_cast<int>(dispatch_decode(D, q_bf16, kv_bf16, q, k_pool, v_pool, lengths,
-                                          out, B, H, Hkv, rows, window, scale,
-                                          static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch_decode(
+      D, q_bf16, kv_type, q, k_pool, v_pool, lengths, out, B, H, Hkv, rows, window, scale,
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<cudaStream_t>(stream)));
 }

@@ -17,6 +17,11 @@
 // accumulation, q scaled in fp32 before the dot, online softmax from
 // m = -1e30, denominator floored at 1e-30, output in q's dtype. Rows at or
 // past len_b, and every row of a dead row (len_b = 0), write exact zeros.
+// In the int8-KV mode (KVT = int8_t) the pool holds int8 codes with one
+// fp32 scale per (page, row, KV head) in ks/vs, at the pool row's element
+// offset / D; each cached key and value is dequantized in fp32 registers
+// (code * scale) as it loads, as the Pallas body does
+// (flash_attention.py:459-477). The chunk's own K/V stay in q's dtype.
 //
 // What bounds it on the card: operations. Each (query, key) pair costs
 // 4 * D FLOPs per head; a block of T tokens x rep heads reuses every K/V
@@ -54,6 +59,15 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+}
+
+__device__ __forceinline__ float4 scale4(float4 x, float s) {
+  return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
+}
+
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -69,7 +83,9 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
                      const int* __restrict__ starts, const int* __restrict__ lens,
                      QT* __restrict__ out, int C, int H, int Hkv, int n_blocks,
                      int page_size, long long stride_page, long long stride_row,
-                     int tokens, int window, float scale) {
+                     int tokens, int window, float scale, const float* __restrict__ ks,
+                     const float* __restrict__ vs) {
+  constexpr bool kQuant = std::is_same<KVT, int8_t>::value;
   constexpr int DQ = D / 4;                       // 4-element columns of a row
   constexpr int KS = D + 4;                       // padded K row: conflict-free
   constexpr int G = kThreads / DQ;                // row groups of the P @ V pass
@@ -140,10 +156,15 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
       const int kp = kt0 + i / DQ, c = (i % DQ) * 4;
       if (kp < start) {
         const int page = __ldg(page_table + (long long)b * n_blocks + kp / page_size);
-        const long long off =
-            (long long)page * stride_page + (long long)(kp % page_size) * stride_row + c;
-        kr[u] = load4(kp_g + off);
-        vr[u] = load4(vp_g + off);
+        const long long row =
+            (long long)page * stride_page + (long long)(kp % page_size) * stride_row;
+        kr[u] = load4(kp_g + row + c);
+        vr[u] = load4(vp_g + row + c);
+        if constexpr (kQuant) {
+          const long long s_off = row / D + kvh;
+          kr[u] = scale4(kr[u], __ldg(ks + s_off));
+          vr[u] = scale4(vr[u], __ldg(vs + s_off));
+        }
       } else if (kp < kp_end) {
         const long long off = (long long)(kp - start) * chunk_row + c;
         kr[u] = load4(kc_g + off);
@@ -256,7 +277,7 @@ cudaError_t launch_prefill(const void* q, const void* k_new, const void* v_new,
                            const void* starts, const void* lens, void* out, int B, int C,
                            int H, int Hkv, int n_blocks, int page_size, long long stride_page,
                            long long stride_row, int window, float scale,
-                           cudaStream_t stream) {
+                           const float* ks, const float* vs, cudaStream_t stream) {
   const int rep = H / Hkv;
   const int tokens = kRows / rep;
   const int rows = tokens * rep;
@@ -275,7 +296,7 @@ cudaError_t launch_prefill(const void* q, const void* k_new, const void* v_new,
       static_cast<const KVT*>(k_pool), static_cast<const KVT*>(v_pool),
       static_cast<const int*>(page_table), static_cast<const int*>(starts),
       static_cast<const int*>(lens), static_cast<QT*>(out), C, H, Hkv, n_blocks, page_size,
-      stride_page, stride_row, tokens, window, scale);
+      stride_page, stride_row, tokens, window, scale, ks, vs);
   return cudaGetLastError();
 }
 
@@ -285,30 +306,38 @@ cudaError_t launch_prefill(const void* q, const void* k_new, const void* v_new,
 // dtype and out (B, C, H, D), all contiguous; k/v pools (P, page_size, Hkv,
 // D) with unit stride on D and stride D on Hkv, their page and row strides
 // given in elements; page_table (B, n_blocks) int32 contiguous; starts and
-// lens (B,) int32. H / Hkv <= 72 and D in {64, 128}. Returns the CUDA error
-// of the launch (0 on success).
+// lens (B,) int32; kv_type a KvType. With int8 pools, ks/vs (P, page_size,
+// Hkv) fp32 have the pools' strides / D (else they are unused). H / Hkv <=
+// 72 and D in {64, 128}. Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int paged_prefill_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pool,
     const void* v_pool, const void* page_table, const void* starts, const void* lens,
     void* out, int B, int C, int H, int Hkv, int D, int n_blocks, int page_size,
     long long pool_stride_page, long long pool_stride_row, int window, float scale,
-    int q_bf16, int kv_bf16, void* stream) {
+    int q_bf16, int kv_type, const void* ks, const void* vs, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ksf = static_cast<const float*>(ks);
+  const float* vsf = static_cast<const float*>(vs);
 #define PREFILL_CASE(QT, KVT)                                                             \
   switch (D) {                                                                            \
     case 64: return static_cast<int>(launch_prefill<QT, KVT, 64>(                         \
         q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv,     \
-        n_blocks, page_size, pool_stride_page, pool_stride_row, window, scale, s));       \
+        n_blocks, page_size, pool_stride_page, pool_stride_row, window, scale, ksf, vsf,  \
+        s));                                                                              \
     case 128: return static_cast<int>(launch_prefill<QT, KVT, 128>(                       \
         q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv,     \
-        n_blocks, page_size, pool_stride_page, pool_stride_row, window, scale, s));       \
+        n_blocks, page_size, pool_stride_page, pool_stride_row, window, scale, ksf, vsf,  \
+        s));                                                                              \
     default: return static_cast<int>(cudaErrorInvalidValue);                              \
   }
   if (q_bf16) {
-    if (kv_bf16) { PREFILL_CASE(__nv_bfloat16, __nv_bfloat16) }
+    if (kv_type == kKvBf16) { PREFILL_CASE(__nv_bfloat16, __nv_bfloat16) }
+    if (kv_type == kKvInt8) { PREFILL_CASE(__nv_bfloat16, int8_t) }
     PREFILL_CASE(__nv_bfloat16, float)
   }
-  if (kv_bf16) { PREFILL_CASE(float, __nv_bfloat16) }
+  if (kv_type == kKvBf16) { PREFILL_CASE(float, __nv_bfloat16) }
+  if (kv_type == kKvInt8) { PREFILL_CASE(float, int8_t) }
   PREFILL_CASE(float, float)
 #undef PREFILL_CASE
 }

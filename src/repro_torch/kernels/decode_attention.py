@@ -1,6 +1,7 @@
 """ctypes wrapper of the K1 decode-attention CUDA kernel
 (``csrc/decode_attention.cu``), which replaces the Pallas TPU kernel
-``repro.kernels.decode_attention.decode_attention``.
+``repro.kernels.decode_attention.decode_attention``, in its fp32, bf16 and
+int8-KV (codes plus fp32 row scales) modes.
 
 The wrapper checks device, dtypes, shapes, strides and alignment, allocates
 the output with ``torch.empty``, launches on PyTorch's current stream and
@@ -19,6 +20,8 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)
+# K/V storage: the source's KvType codes (int8: codes plus fp32 row scales)
+KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128, 256)
 
 
@@ -29,7 +32,7 @@ def _launcher():
     fn = build.load("decode_attention").decode_attention_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, i, ctypes.c_float, i,
-                   i, p]
+                   i, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,14 +59,21 @@ def check_int32(name: str, **tensors: torch.Tensor) -> None:
                             f"got {t.dtype}")
 
 
-def check_kv_rows(name: str, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_kv_rows(name: str, k: torch.Tensor, v: torch.Tensor,
+                  k_scale=None, v_scale=None) -> tuple:
     """K and V (..., Hkv, D) alike: one dtype, shared strides, contiguous
     (Hkv, D) rows, and every row on a 16-byte boundary (the kernels' vector
-    loads)."""
-    if k.dtype not in DTYPES or v.dtype != k.dtype or v.shape != k.shape:
-        raise TypeError(f"{name} kernel takes fp32/bf16 K/V alike; got "
+    loads). int8 K/V come with fp32 scales (..., Hkv) whose strides are
+    K/V's over D, so a row's scale sits at its element offset / D. Returns
+    the (k_scale, v_scale) pointers to pass (None for fp K/V)."""
+    if k.dtype not in KV_TYPES or v.dtype != k.dtype or v.shape != k.shape:
+        raise TypeError(f"{name} kernel takes fp32/bf16/int8 K/V alike; got "
                         f"{k.dtype} {tuple(k.shape)}, {v.dtype} "
                         f"{tuple(v.shape)}")
+    if (k_scale is not None) != (k.dtype == torch.int8) \
+            or (k_scale is None) != (v_scale is None):
+        raise TypeError(f"{name} kernel: int8 K/V take k_scale and v_scale, "
+                        f"fp K/V neither")
     d = k.shape[-1]
     if k.stride() != v.stride() or k.stride()[-2:] != (d, 1):
         raise ValueError(f"{name} kernel: k/v must share strides with "
@@ -73,13 +83,27 @@ def check_kv_rows(name: str, k: torch.Tensor, v: torch.Tensor) -> None:
     if (k.data_ptr() % 16 or v.data_ptr() % 16
             or any((s * item) % 16 for s in k.stride()[:-2])):
         raise ValueError(f"{name} kernel: k/v rows must be 16-byte aligned")
+    if k_scale is None:
+        return None, None
+    want = tuple(s // d for s in k.stride()[:-1])
+    for sc in (k_scale, v_scale):
+        if (any(s % d for s in k.stride()[:-1])
+                or sc.dtype != torch.float32 or sc.shape != k.shape[:-1]
+                or sc.stride() != want or sc.device != k.device):
+            raise ValueError(f"{name} kernel: KV scales must be fp32 "
+                             f"{tuple(k.shape[:-1])} with strides {want} "
+                             f"on {k.device}; got {sc.dtype} "
+                             f"{tuple(sc.shape)} {sc.stride()}")
+    return k_scale.data_ptr(), v_scale.data_ptr()
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, scale: float,
-                     window: int = -1) -> torch.Tensor:
+                     window: int = -1, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
     """q: (B, H, D) on a CUDA device; k/v: (B, Sk, Hkv, D), the last two dims
-    contiguous; lengths: (B,) int32. Returns (B, H, D) in q's dtype."""
+    contiguous, fp32/bf16, or int8 with k_scale/v_scale (B, Sk, Hkv) fp32;
+    lengths: (B,) int32. Returns (B, H, D) in q's dtype."""
     check_cuda("decode_attention", q, k, v, lengths)
     if q.dtype not in DTYPES:
         raise TypeError(f"decode_attention kernel takes fp32/bf16 q; got "
@@ -87,7 +111,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_int32("decode_attention", lengths=lengths)
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    check_kv_rows("decode_attention", k, v)
+    ks, vs = check_kv_rows("decode_attention", k, v, k_scale, v_scale)
     b, h, d = q.shape
     _, sk, hkv, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or lengths.shape != (b,):
@@ -108,7 +132,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, h, hkv, d, sk, k.stride(0), k.stride(1),
             int(window), float(scale), int(q.dtype == torch.bfloat16),
-            int(k.dtype == torch.bfloat16),
+            KV_TYPES[k.dtype], ks, vs,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

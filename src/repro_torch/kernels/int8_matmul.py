@@ -1,0 +1,129 @@
+"""ctypes wrapper of the K4 int8 weight matmul CUDA kernel
+(``csrc/int8_matmul.cu``), which replaces the Pallas TPU kernel
+``repro.kernels.int8_matmul.int8_matmul``.
+
+The wrapper checks device, dtypes, shapes, contiguity and alignment,
+allocates the output (and, for the split-K decode kernel, its fp32
+workspace) with ``torch.empty``, launches on PyTorch's current stream and
+raises if the launch reports a CUDA error. It pads nothing: the kernels
+mask ragged edges. ``int8_matmul.launches`` counts launches.
+
+The decode kernel's split-K tiles meet through one counter per column
+tile, zero between launches (the last block of a tile resets it). The
+counters live in one buffer per (device, stream), so launches on one
+stream never share counters with launches that may run beside them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import check_cuda
+
+DTYPES = (torch.float32, torch.bfloat16)
+# the decode kernel's limits (kMaxM, kGemvBN, its 16-row steps and
+# kMaxRowsPerSplit, whose x slice fits the kernel's shared memory)
+GEMV_MAX_M = 8
+_GEMV_BN = 256
+_STEP = 16
+_MAX_ROWS_PER_SPLIT = 1536
+_MAX_SPLITS = 32
+
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C entry point, built and bound on first use (every pointer and
+    the stream as ``c_void_p``)."""
+    fn = build.load("int8_matmul").int8_matmul_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_rows(k: int, n: int, sms: int) -> int:
+    """Rows of K per split of the decode kernel: splits enough for about
+    three blocks per SM (as many as fit at once), at most 32 (the last
+    block of a column tile adds the splits' sums, a round of loads per
+    four splits), each split whole 16-row steps and at most 1536 rows."""
+    tiles = -(-n // _GEMV_BN)
+    splits = max(1, min(3 * sms // tiles, _MAX_SPLITS, -(-k // _STEP)))
+    rows = -(-(-(-k // splits)) // _STEP) * _STEP
+    return min(rows, _MAX_ROWS_PER_SPLIT)
+
+
+def _counter_buffer(device: torch.device, stream: int,
+                    tiles: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x: (M, K) fp32 or bf16 on a CUDA device, contiguous; q: (K, N) int8
+    contiguous; scale: (N,) fp32. K % 16 == 0, x and q 16-byte aligned.
+    Returns (M, N) in x's dtype: ``(x @ q) * scale`` with fp32
+    accumulation."""
+    name = "int8_matmul"
+    check_cuda(name, x, q, scale)
+    if x.dtype not in DTYPES or q.dtype != torch.int8 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes fp32/bf16 x, int8 q and fp32 "
+                        f"scale; got {x.dtype}, {q.dtype}, {scale.dtype}")
+    if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0] \
+            or scale.shape != (q.shape[1],):
+        raise ValueError(f"shapes: x {tuple(x.shape)}, q {tuple(q.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    m, k = x.shape
+    n = q.shape[1]
+    if k % 16:
+        raise ValueError(f"{name} kernel needs K % 16 == 0; got K = {k}")
+    if not (x.is_contiguous() and q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError(f"{name} kernel: x, q and scale must be contiguous")
+    if x.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: x and q must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rows = 0
+    ws = counters = None
+    if bf16 and m <= GEMV_MAX_M:
+        rows = split_rows(k, n, _sm_count(x.device.index))
+        splits = -(-k // rows)
+        if splits > 1:
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=x.device)
+            counters = _counter_buffer(x.device, stream, -(-n // _GEMV_BN))
+    launch = _launcher()
+    with torch.cuda.device(x.device):
+        err = launch(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, n, k, rows,
+            int(bf16), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0

@@ -1,4 +1,6 @@
-"""Public kernel entry points of the port (mirror of ``repro.kernels.ops``).
+"""Public kernel entry points of the port (mirror of ``repro.kernels.ops``):
+decode attention (K1), paged decode and prefill attention (K2, K3), each
+with its int8-KV mode, and the int8 weight matmul (K4).
 
 Dispatch goes by the tensors' device, never by what the machine has: CPU
 tensors take the plain PyTorch version (``ref``), CUDA tensors take the
@@ -15,33 +17,62 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_prefill_attention as _ppa
 from repro_torch.kernels import ref as _ref
 
 
-def _no_int8_kv(name: str, k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(f"{name}: the int8-KV mode is not ported "
-                                  f"yet (ROADMAP queue 1, item 4)")
+def _scale_pair(name: str, k_scale, v_scale) -> None:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both KV scales or neither")
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x: (..., K) @ int8 weight (K, N) with per-channel scale -> (..., N)
+    in x's dtype (K4).
+
+    ``scale`` may be () per-tensor, (N,) per-channel, or any keepdims shape
+    broadcastable to (1, N) (``quant.int8.quantize_weight``'s ``s8``).
+    """
+    k, n = q.shape
+    sc = scale.float()
+    sc = torch.broadcast_to(sc.reshape(-1, n) if sc.dim() else sc,
+                            (1, n)).reshape(n)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if x.device.type == "cpu":
+        y = _ref.int8_matmul_ref(x2, q, sc)
+    elif x.device.type == "cuda":
+        y = _im.int8_matmul(x2.contiguous(), q, sc.contiguous())
+    else:
+        raise ValueError(f"int8_matmul: no kernel for device {x.device}")
+    return y.reshape(*lead, n)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, scale: Optional[float] = None,
-                     window: int = -1) -> torch.Tensor:
+                     window: int = -1,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Serve-core decode attention with per-slot lengths (K1).
 
     q: (B, H, D) — the one new token per slot; k/v: (B, Sk, Hkv, D)
     slot-major KV cache; lengths: (B,) int32 valid prefix per slot (0 = dead
-    slot -> zeros).
+    slot -> zeros). ``k_scale``/``v_scale`` (B, Sk, Hkv) fp32 enable the
+    int8-KV mode: k/v are int8 codes, dequantized inside the kernel.
     """
+    _scale_pair("decode_attention", k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return _ref.decode_attention_ref(q, k, v, lengths, scale=scale,
-                                         window=window)
+                                         window=window, k_scale=k_scale,
+                                         v_scale=v_scale)
     if q.device.type == "cuda":
         return _da.decode_attention(q, k, v, lengths, scale=scale,
-                                    window=window)
+                                    window=window, k_scale=k_scale,
+                                    v_scale=v_scale)
     raise ValueError(f"decode_attention: no kernel for device {q.device}")
 
 
@@ -58,17 +89,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     (P, page_size, Hkv, D) the shared block pool; page_table: (B, NB) int32
     (entries past a slot's length point at the sink page); lengths: (B,)
     int32 valid logical prefix per slot (0 = dead slot -> zeros).
+    ``k_scale``/``v_scale`` (P, page_size, Hkv) fp32 enable the int8-KV
+    mode.
     """
-    _no_int8_kv("paged_decode_attention", k_scale, v_scale)
+    _scale_pair("paged_decode_attention", k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return _ref.paged_decode_attention_ref(q, k_pool, v_pool, page_table,
-                                               lengths, scale=scale,
-                                               window=window)
+        return _ref.paged_decode_attention_ref(
+            q, k_pool, v_pool, page_table, lengths, scale=scale,
+            window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cuda":
-        return _pda.paged_decode_attention(q, k_pool, v_pool, page_table,
-                                           lengths, scale=scale,
-                                           window=window)
+        return _pda.paged_decode_attention(
+            q, k_pool, v_pool, page_table, lengths, scale=scale,
+            window=window, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"paged_decode_attention: no kernel for device "
                      f"{q.device}")
 
@@ -90,16 +123,18 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
     numerics); page_table: (B, NB) int32; starts/lens: (B,) int32
     cached-prefix length and valid chunk tokens per row (lens 0 = dead
     row). Rows at or past ``lens`` come back as zeros.
+    ``k_scale``/``v_scale`` (P, page_size, Hkv) fp32 enable the int8-KV
+    mode for the cached prefix; the chunk's own K/V stay in q's dtype.
     """
-    _no_int8_kv("paged_prefill_attention", k_scale, v_scale)
+    _scale_pair("paged_prefill_attention", k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return _ref.paged_prefill_attention_ref(
             q, k_new, v_new, k_pool, v_pool, page_table, starts, lens,
-            scale=scale, window=window)
+            scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cuda":
         return _ppa.paged_prefill_attention(
             q, k_new, v_new, k_pool, v_pool, page_table, starts, lens,
-            scale=scale, window=window)
+            scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"paged_prefill_attention: no kernel for device "
                      f"{q.device}")

@@ -17,9 +17,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (DTYPES, check_cuda,
-                                                  check_int32, check_kv_rows,
-                                                  max_rep)
+from repro_torch.kernels.decode_attention import (DTYPES, KV_TYPES,
+                                                  check_cuda, check_int32,
+                                                  check_kv_rows, max_rep)
 
 _HEAD_DIMS = (64, 128, 256)
 
@@ -31,7 +31,7 @@ def _launcher():
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ll, ll, i,
-                   ctypes.c_float, i, i, p]
+                   ctypes.c_float, i, i, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -39,9 +39,11 @@ def _launcher():
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            lengths: torch.Tensor, *, scale: float,
-                           window: int = -1) -> torch.Tensor:
+                           window: int = -1, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """q: (B, H, D) on a CUDA device; k_pool/v_pool: (P, page_size, Hkv,
-    D), the last two dims contiguous; page_table: (B, NB) int32 whose
+    D), the last two dims contiguous, fp32/bf16, or int8 with
+    k_scale/v_scale (P, page_size, Hkv) fp32; page_table: (B, NB) int32 whose
     entries below each length are pages of the pool; lengths: (B,) int32.
     Returns (B, H, D) in q's dtype."""
     name = "paged_decode_attention"
@@ -53,7 +55,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"shapes: q {tuple(q.shape)}, pool "
                          f"{tuple(k_pool.shape)}, page_table "
                          f"{tuple(page_table.shape)}")
-    check_kv_rows(name, k_pool, v_pool)
+    ks, vs = check_kv_rows(name, k_pool, v_pool, k_scale, v_scale)
     b, h, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     nb = page_table.shape[1]
@@ -78,7 +80,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
             hkv, d, nb, ps, k_pool.stride(0), k_pool.stride(1), int(window),
             float(scale), int(q.dtype == torch.bfloat16),
-            int(k_pool.dtype == torch.bfloat16),
+            KV_TYPES[k_pool.dtype], ks, vs,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

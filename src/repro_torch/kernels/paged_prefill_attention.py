@@ -17,8 +17,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (DTYPES, check_cuda,
-                                                  check_int32, check_kv_rows)
+from repro_torch.kernels.decode_attention import (DTYPES, KV_TYPES,
+                                                  check_cuda, check_int32,
+                                                  check_kv_rows)
 
 _HEAD_DIMS = (64, 128)
 # query rows a block holds (kRows in the source): T tokens x rep heads
@@ -31,7 +32,8 @@ def _launcher():
     the stream as ``c_void_p``)."""
     fn = build.load("paged_prefill_attention").paged_prefill_attention_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 9 + [i] * 7 + [ll, ll, i, ctypes.c_float, i, i, p]
+    fn.argtypes = [p] * 9 + [i] * 7 + [ll, ll, i, ctypes.c_float, i, i, p,
+                                       p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -40,10 +42,12 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
                             v_new: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, page_table: torch.Tensor,
                             starts: torch.Tensor, lens: torch.Tensor, *,
-                            scale: float, window: int = -1) -> torch.Tensor:
+                            scale: float, window: int = -1, k_scale=None,
+                            v_scale=None) -> torch.Tensor:
     """q: (B, C, H, D) on a CUDA device; k_new/v_new: (B, C, Hkv, D) in
     q's dtype; k_pool/v_pool: (P, page_size, Hkv, D), the last two dims
-    contiguous; page_table: (B, NB) int32 whose entries below
+    contiguous, fp32/bf16, or int8 with k_scale/v_scale (P, page_size,
+    Hkv) fp32; page_table: (B, NB) int32 whose entries below
     ceil(start / page_size) are pages of the pool; starts, lens: (B,)
     int32. Returns (B, C, H, D) in q's dtype, zero at and past each
     row's length."""
@@ -60,7 +64,7 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
         raise ValueError(f"shapes: q {tuple(q.shape)}, pool "
                          f"{tuple(k_pool.shape)}, page_table "
                          f"{tuple(page_table.shape)}")
-    check_kv_rows(name, k_pool, v_pool)
+    ks, vs = check_kv_rows(name, k_pool, v_pool, k_scale, v_scale)
     b, c, h, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     nb = page_table.shape[1]
@@ -90,7 +94,7 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
             starts.data_ptr(), lens.data_ptr(), out.data_ptr(), b, c, h, hkv,
             d, nb, ps, k_pool.stride(0), k_pool.stride(1), int(window),
             float(scale), int(q.dtype == torch.bfloat16),
-            int(k_pool.dtype == torch.bfloat16),
+            KV_TYPES[k_pool.dtype], ks, vs,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

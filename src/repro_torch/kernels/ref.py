@@ -6,14 +6,37 @@ kernel against them on the card. Nothing on the card's main path calls them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models import layers
+from repro_torch.quant import int8 as int8_lib
+
+
+def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """What ``repro.kernels.int8_matmul._int8_matmul_kernel`` computes:
+    ``(x @ q) * scale[n]`` with fp32 accumulation, cast to x's dtype.
+    x: (M, K); q: (K, N) int8; scale: (N,) fp32."""
+    return ((x.float() @ q.float()) * scale).to(x.dtype)
+
+
+def _dequant(k, v, k_scale, v_scale):
+    """int8 codes x their per-row scales in fp32, as the kernels dequantize
+    in registers; fp K/V pass through."""
+    if k_scale is None:
+        return k, v
+    return (int8_lib.dequantize_rowwise(k, k_scale),
+            int8_lib.dequantize_rowwise(v, v_scale))
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *, scale: float,
-                         window: int = -1) -> torch.Tensor:
+                         window: int = -1,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """What ``repro.kernels.decode_attention._decode_kernel`` computes, as
     tag-masked fp32 softmax attention (``layers.sdpa``).
 
@@ -22,7 +45,10 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with ``window > 0``, at ``lengths - 1 - pos >= window`` are masked. An
     all-masked row of ``sdpa`` averages V, but a dead slot (length 0) must
     return zeros, so those rows are zeroed. Returns (B, H, D) in q.dtype.
+    With ``k_scale``/``v_scale`` (B, Sk, Hkv) k/v are int8 codes,
+    dequantized in fp32 first.
     """
+    k, v = _dequant(k, v, k_scale, v_scale)
     sk = k.shape[1]
     lengths = lengths.to(torch.int64)
     pos = torch.arange(sk, device=k.device)[None]               # (1, Sk)
@@ -39,8 +65,9 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """The slot-major (B, NB * page_size, Hkv, D) view of a pool
     (P, page_size, Hkv, D) through the page table (B, NB), as
     ``repro.models.transformer._paged_gather`` builds it, in the pool's
-    storage dtype. It copies the whole table's pages: the kernels read the
-    pool in place instead."""
+    storage dtype (a scale pool (P, page_size, Hkv) gives (B, NB *
+    page_size, Hkv)). It copies the whole table's pages: the kernels read
+    the pool in place instead."""
     g = pool[page_table.long()]                     # (B, NB, ps, Hkv, D)
     return g.flatten(1, 2)
 
@@ -48,24 +75,35 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, page_table: torch.Tensor,
                                lengths: torch.Tensor, *, scale: float,
-                               window: int = -1) -> torch.Tensor:
+                               window: int = -1,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """What ``repro.kernels.decode_attention._paged_kernel`` computes: the
     K/V view gathered through the table, then ``decode_attention_ref``
     (tag-masked ``layers.sdpa``, zeros for dead slots). K/V are read in
-    their storage dtype and upcast to fp32, as the kernel reads them.
+    their storage dtype and upcast to fp32, as the kernel reads them; int8
+    codes and their scale pools (P, page_size, Hkv) are both gathered.
 
     q: (B, H, D); pools: (P, page_size, Hkv, D); page_table: (B, NB);
     lengths: (B,). Returns (B, H, D) in q.dtype."""
+    ks = vs = None
+    if k_scale is not None:
+        ks = paged_gather(k_scale, page_table)
+        vs = paged_gather(v_scale, page_table)
     return decode_attention_ref(q, paged_gather(k_pool, page_table),
                                 paged_gather(v_pool, page_table), lengths,
-                                scale=scale, window=window)
+                                scale=scale, window=window, k_scale=ks,
+                                v_scale=vs)
 
 
 def paged_prefill_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
                                 v_new: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, page_table: torch.Tensor,
                                 starts: torch.Tensor, lens: torch.Tensor, *,
-                                scale: float, window: int = -1
+                                scale: float, window: int = -1,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """What ``repro.kernels.flash_attention._paged_prefill_kernel``
     computes, with the mask of the XLA branch of
@@ -81,11 +119,17 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
     q: (B, C, H, D); k_new/v_new: (B, C, Hkv, D); pools: (P, page_size,
     Hkv, D); page_table: (B, NB); starts, lens: (B,). Returns (B, C, H, D)
     in q.dtype; rows at or past ``lens`` (every row of a dead row) are
-    zeros."""
+    zeros. With ``k_scale``/``v_scale`` (P, page_size, Hkv) the pools hold
+    int8 codes, gathered with their scales and dequantized in fp32; the
+    chunk's own K/V stay in q's dtype."""
     c = q.shape[1]
     starts, lens = starts.long(), lens.long()
     k_all = paged_gather(k_pool, page_table)
     v_all = paged_gather(v_pool, page_table)
+    if k_scale is not None:
+        k_all, v_all = _dequant(k_all, v_all,
+                                paged_gather(k_scale, page_table),
+                                paged_gather(v_scale, page_table))
     j_abs = torch.arange(k_all.shape[1], device=q.device)[None]  # (1, W)
     rel = torch.arange(c, device=q.device)[None]                  # (1, C)
     pos_abs = starts[:, None] + rel                               # (B, C)

@@ -4,7 +4,7 @@ paths).
 
     python -m repro_torch.launch.serve --arch starcoder2-7b \\
         [--smoke] [--device cpu] --requests 8 --max-tokens 16 \\
-        [--prompt-len 4 12] [--profile-ticks N] \\
+        [--prompt-len 4 12] [--profile-ticks N] [--quant int8] \\
         [--paged [--page-size 16] [--num-pages N] [--no-prefix-cache] \\
          [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost]]
 
@@ -13,6 +13,11 @@ built in bf16 from a seed; ``--smoke`` builds the arch's reduced config in
 fp32. On the card the carbon report bills ``h100_sxm``; on the CPU the
 report's wall-time-derived keys are left out, since CPU seconds say
 nothing about the card's joules.
+
+``--quant int8`` serves through the quantized fast path (int8 weights
+through K4, an int8 KV cache through the int8-KV modes of K1-K3); the
+carbon report's bytes moved and modeled J/token fall against the
+unquantized run of the same workload.
 
 ``--profile-ticks N`` runs N decode ticks under ``torch.profiler`` once
 every slot is decoding and prints the kernels with the most device time
@@ -114,6 +119,9 @@ def main(argv=None) -> None:
                     help="parked-prefix reclamation: lru evicts the least-"
                          "recently-parked block; cost evicts the cheapest-"
                          "to-recompute block first")
+    ap.add_argument("--quant", default="none", choices=("none", "int8"),
+                    help="int8: serve through the quantized fast path "
+                         "(int8 weights + int8 KV cache)")
     args = ap.parse_args(argv)
     if args.requests < 0 or args.max_tokens < 1 or args.slots < 1:
         ap.error("--requests >= 0, --max-tokens >= 1 and --slots >= 1")
@@ -146,7 +154,7 @@ def main(argv=None) -> None:
                        prefix_cache=not args.no_prefix_cache,
                        prefill_chunk=args.prefill_chunk,
                        compact_threshold=args.compact_threshold,
-                       evict_policy=args.evict_policy)
+                       evict_policy=args.evict_policy, quant=args.quant)
     try:    # the engine checks how the paged flags combine
         eng = ServeEngine(params, cfg, scfg, accountant=acct,
                           scheduler=Scheduler(SchedulerConfig(

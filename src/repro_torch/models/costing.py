@@ -19,13 +19,9 @@ from typing import Any, Iterator
 import torch
 
 from repro_torch.models import transformer as tf_lib
+from repro_torch.quant.int8 import SERVING_QUANT_KEYS
 
 PyTree = Any
-
-# linear-layer weights (``repro.quant.int8.SERVING_QUANT_KEYS``): the
-# matmul weights a token streams
-SERVING_QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_in", "w_gate",
-                                "w_out", "w_z", "w_x"})
 
 
 def _leaves(tree: PyTree) -> Iterator[torch.Tensor]:
@@ -43,25 +39,32 @@ def _leaves(tree: PyTree) -> Iterator[torch.Tensor]:
 
 
 def tree_bytes(tree: PyTree) -> int:
-    """Resident bytes of a tree of tensors — dtype-aware."""
+    """Resident bytes of a tree of tensors — dtype-aware (int8 leaves bill
+    1 byte)."""
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
 def kv_bytes(caches: PyTree) -> int:
-    """Bytes of the K/V payload (excludes position tags)."""
-    return sum(tree_bytes(entry["kv"]) for entry in caches.values())
+    """Bytes of the K/V payload (codes + scales; excludes position
+    tags)."""
+    return sum(tree_bytes(entry[key]) for entry in caches.values()
+               for key in ("kv", "kv_scale") if key in entry)
 
 
 def matmul_weight_elems(params: PyTree, cfg: tf_lib.LMConfig) -> float:
     """Logical matmul-weight elements executed per token, the unembedding
-    projection included; norms and biases excluded."""
+    projection included; norms and biases excluded. An int8 leaf counts its
+    codes: int8 changes bytes, not FLOPs."""
     total = 0.0
 
     def walk(p):
         nonlocal total
         for k, v in p.items():
             if isinstance(v, dict):
-                walk(v)
+                if "q8" not in v:
+                    walk(v)
+                elif k in SERVING_QUANT_KEYS:
+                    total += v["q8"].numel()
             elif k in SERVING_QUANT_KEYS and v.dim() >= 2:
                 total += v.numel()
 

@@ -17,9 +17,36 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import common
 
 NEG_INF = -1e30
+
+
+def wl(w, dtype):
+    """Weight loader: an int8-served leaf ``{"q8", "s8"}`` is dequantized
+    at use (codes and scale cast to ``dtype``, then multiplied, as
+    ``repro.models.layers.wl`` does); a plain tensor is cast."""
+    if isinstance(w, dict) and "q8" in w:
+        return w["q8"].to(dtype) * w["s8"].to(dtype)
+    return w.to(dtype)
+
+
+def q8_matmul(x: torch.Tensor, w: dict, contract_ndim: int = 1
+              ) -> torch.Tensor:
+    """x (..., contract dims) @ an int8 weight leaf through
+    ``ops.int8_matmul`` (K4 on the card, its plain version on the CPU):
+    int8 loads, the widen in registers, the per-channel scale on the
+    output. ``w`` is {"q8", "s8"} with its first ``contract_ndim`` dims
+    contracted; returns (..., *w["q8"].shape[contract_ndim:])."""
+    q = w["q8"]
+    kdim = math.prod(q.shape[:contract_ndim])
+    out_shape = q.shape[contract_ndim:]
+    sv = torch.broadcast_to(w["s8"], (1,) * contract_ndim + tuple(out_shape))
+    lead = x.shape[:-contract_ndim]
+    y = ops.int8_matmul(x.reshape(*lead, kdim), q.reshape(kdim, -1),
+                        sv.reshape(-1))
+    return y.reshape(*lead, *out_shape)
 
 
 # -----------------------------------------------------------------------------
@@ -106,14 +133,23 @@ def _act(name: str):
             "relu": F.relu}[name]
 
 
-def mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(params, x: torch.Tensor, act: str = "silu",
+        int8_kernel: bool = False) -> torch.Tensor:
     act_fn = _act(act)
-    h = x @ params["w_in"].to(x.dtype)
+    w_in = params["w_in"]
+    if int8_kernel and isinstance(w_in, dict) and "q8" in w_in:
+        h = q8_matmul(x, w_in)
+        if "w_gate" in params:
+            h = act_fn(q8_matmul(x, params["w_gate"])) * h
+        else:
+            h = act_fn(h)
+        return q8_matmul(h, params["w_out"])
+    h = x @ wl(w_in, x.dtype)
     if "w_gate" in params:
-        h = act_fn(x @ params["w_gate"].to(x.dtype)) * h
+        h = act_fn(x @ wl(params["w_gate"], x.dtype)) * h
     else:
         h = act_fn(h)
-    return h @ params["w_out"].to(x.dtype)
+    return h @ wl(params["w_out"], x.dtype)
 
 
 # -----------------------------------------------------------------------------
@@ -157,22 +193,34 @@ class AttnConfig:
     window: int = -1
     pos_emb: str = "rope"                     # "rope" | "none"
     softmax_scale: Optional[float] = None
+    # int8-served projections go through q8_matmul (the K4 seam)
+    int8_kernel: bool = False
 
     @property
     def scale(self) -> float:
         return self.softmax_scale or (1.0 / math.sqrt(self.head_dim))
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _project(x: torch.Tensor, w) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    w = wl(w, x.dtype)
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _q8_active(cfg: AttnConfig, w) -> bool:
+    return cfg.int8_kernel and isinstance(w, dict) and "q8" in w
 
 
 def _project_qkv(params, cfg: AttnConfig, x: torch.Tensor, positions):
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    if _q8_active(cfg, params["wq"]):
+        q = q8_matmul(x, params["wq"])
+        k = q8_matmul(x, params["wk"])
+        v = q8_matmul(x, params["wv"])
+    else:
+        q = _project(x, params["wq"])
+        k = _project(x, params["wk"])
+        v = _project(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)

@@ -13,9 +13,17 @@ Per-slot positions send decode attention through ``kernels.ops`` (the K1
 kernel on the card); a scalar position takes the masked ``sdpa`` path, as
 in JAX. The paged pool (``init_paged_caches``) is updated in place too:
 ``paged_decode_step`` attends through K2 and ``paged_extend`` through K3.
-SSD, MoE, shared attention, M-RoPE, ring caches and the int8 modes are not
-ported yet and raise ``NotImplementedError``.
+SSD, MoE, shared attention, M-RoPE and ring caches are not ported yet and
+raise ``NotImplementedError``.
+
+The int8 serving mode (``QuantPolicy`` ``INT8_QUANT``, DESIGN.md §12):
+``quantize_lm`` turns the linear weights into ``{"q8", "s8"}`` leaves,
+every projection runs through ``layers.q8_matmul`` (K4 on the card), and
+the KV cache or pool holds int8 codes plus one fp32 scale per (slot or
+page row, position, kv-head) in a ``kv_scale`` pair, written by rowwise
+quantization and read by the int8-KV modes of K1, K2 and K3.
 """
+
 
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from repro_torch import device as device_lib
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.layers import AttnConfig, KVCache
+from repro_torch.quant import int8 as int8_lib
 
 PyTree = Any
 
@@ -41,12 +50,26 @@ class BlockSpec:
     has_ffn: bool = True        # pure mamba blocks have no separate FFN
 
 
+QUANT_MODES = ("none", "int8")
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
     """Serving-time quantization policy (``weights``/``kv``: "none" |
-    "int8"). Only "none" is ported so far."""
+    "int8")."""
     weights: str = "none"
     kv: str = "none"
+
+    @property
+    def weights_int8(self) -> bool:
+        return self.weights == "int8"
+
+    @property
+    def kv_int8(self) -> bool:
+        return self.kv == "int8"
+
+
+INT8_QUANT = QuantPolicy(weights="int8", kv="int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,9 +109,9 @@ class LMConfig:
                                       f"ported yet")
         if self.ring_cache:
             raise NotImplementedError("ring caches are not ported yet")
-        if self.quant != QuantPolicy():
-            raise NotImplementedError(f"{self.quant}: the int8 modes are not "
-                                      f"ported yet")
+        if (self.quant.weights not in QUANT_MODES
+                or self.quant.kv not in QUANT_MODES):
+            raise ValueError(f"{self.quant}: quant modes are {QUANT_MODES}")
 
     @property
     def padded_vocab(self) -> int:
@@ -103,12 +126,20 @@ class LMConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def use_int8_matmul(self) -> bool:
+        """int8-served projections through K4. The JAX package also asks
+        for its Pallas switch; the port has none (the tensors' device picks
+        the kernel or its plain version)."""
+        return self.quant.weights_int8
+
     def attn_cfg(self, window: int = -1) -> AttnConfig:
         return AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.resolved_head_dim,
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
-            causal=True, window=window, pos_emb=self.pos_emb)
+            causal=True, window=window, pos_emb=self.pos_emb,
+            int8_kernel=self.use_int8_matmul)
 
 
 # -----------------------------------------------------------------------------
@@ -147,6 +178,49 @@ def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.bfloat16,
     return params
 
 
+def quantize_lm(params: PyTree) -> PyTree:
+    """Weight-tree int8 quantization for serving (``weights_int8``), as
+    ``repro.models.transformer.quantize_lm``: linear-layer leaves
+    (``SERVING_QUANT_KEYS``) become ``{"q8": int8, "s8": fp32}`` with
+    per-output-channel scales; embeddings and norms pass through. A
+    ``pat*`` group's leading repeats dim keeps its own scales. Stacked
+    leaves are quantized one layer at a time (the reduction never crosses
+    layers, so the codes are the same), which keeps the transient fp32
+    copy to one layer: the stacked w_in of starcoder2-7b alone is 10.9 GB
+    in fp32."""
+
+    def leaf(v: torch.Tensor, name: str, lead: int) -> dict:
+        out_dims = min(int8_lib.weight_out_dims(name), v.dim() - lead - 1)
+        if lead == 0:
+            return int8_lib.quantize_weight(v, out_dims=out_dims)
+        first = int8_lib.quantize_weight(v[0], out_dims=out_dims)
+        q8 = torch.empty(v.shape, dtype=torch.int8, device=v.device)
+        s8 = torch.empty((v.shape[0],) + tuple(first["s8"].shape),
+                         dtype=torch.float32, device=v.device)
+        for r in range(v.shape[0]):
+            part = first if r == 0 else int8_lib.quantize_weight(
+                v[r], out_dims=out_dims)
+            q8[r] = part["q8"]
+            s8[r] = part["s8"]
+        return {"q8": q8, "s8": s8}
+
+    def walk(p: dict, lead: int) -> dict:
+        out = {}
+        for k, v in p.items():
+            if isinstance(v, dict):
+                out[k] = v if "q8" in v else walk(v, lead)
+            elif (k in int8_lib.SERVING_QUANT_KEYS
+                  and v.dim() >= lead + 2):
+                out[k] = leaf(v, k, lead)
+            else:
+                out[k] = v
+        return out
+
+    return {k: (walk(v, 1 if k.startswith("pat") else 0)
+                if isinstance(v, dict) else v)
+            for k, v in params.items()}
+
+
 def _index(tree, r: int):
     """Layer ``r`` of a stacked tree, as views."""
     if isinstance(tree, dict):
@@ -174,16 +248,17 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> Dict[str, PyTree]:
     """Cache tree: pattern positions stacked over repeats, tail single. Each
     attention cache holds ``kv`` (B, max_len, Hkv, Dh) and per-row position
-    tags ``pos`` (-1 = empty)."""
+    tags ``pos`` (-1 = empty). Under ``cfg.quant.kv_int8`` K/V are int8
+    codes (``dtype`` is ignored for them) and the cache gains a
+    ``kv_scale`` pair (B, max_len, Hkv) fp32."""
     dev = device_lib.resolve(device)
     kvh, dh = cfg.n_kv_heads, cfg.resolved_head_dim
 
     def one(lead):
-        shape = lead + (batch, max_len, kvh, dh)
-        return {"kv": KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                              v=torch.zeros(shape, dtype=dtype, device=dev)),
-                "pos": torch.full(lead + (batch, max_len), -1,
-                                  dtype=torch.int32, device=dev)}
+        entry = _kv_entry(cfg, lead + (batch, max_len, kvh), dh, dtype, dev)
+        entry["pos"] = torch.full(lead + (batch, max_len), -1,
+                                  dtype=torch.int32, device=dev)
+        return entry
 
     caches: Dict[str, PyTree] = {}
     for i in range(len(cfg.pattern)):
@@ -193,11 +268,53 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int,
     return caches
 
 
-def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd", out, wo)."""
+def _kv_entry(cfg: LMConfig, rows, dh: int, dtype, dev) -> dict:
+    """``{"kv"}`` K/V of ``rows + (dh,)`` zeros, plus the ``kv_scale``
+    pair of ``rows`` fp32 zeros when the KV cache is int8."""
+    kv_dtype = torch.int8 if cfg.quant.kv_int8 else dtype
+    shape = tuple(rows) + (dh,)
+    entry = {"kv": KVCache(k=torch.zeros(shape, dtype=kv_dtype, device=dev),
+                           v=torch.zeros(shape, dtype=kv_dtype, device=dev))}
+    if cfg.quant.kv_int8:
+        entry["kv_scale"] = KVCache(
+            k=torch.zeros(tuple(rows), dtype=torch.float32, device=dev),
+            v=torch.zeros(tuple(rows), dtype=torch.float32, device=dev))
+    return entry
+
+
+def _write_kv(cache, idx, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """K/V rows written in place at ``idx`` (an index tuple for
+    ``index_put_``): cast to the storage dtype, or, in an int8 cache,
+    quantized rowwise into codes and one fp32 scale per (row, head)."""
+    kv = cache["kv"]
+    if "kv_scale" in cache:
+        sc = cache["kv_scale"]
+        k_q, k_s = int8_lib.quantize_rowwise(k_new)
+        v_q, v_s = int8_lib.quantize_rowwise(v_new)
+        kv.k.index_put_(idx, k_q)
+        kv.v.index_put_(idx, v_q)
+        sc.k.index_put_(idx, k_s)
+        sc.v.index_put_(idx, v_s)
+    else:
+        kv.k.index_put_(idx, k_new.to(kv.k.dtype))
+        kv.v.index_put_(idx, v_new.to(kv.v.dtype))
+
+
+def _kv_scales(cache) -> dict:
+    """The kernels' ``k_scale``/``v_scale`` arguments of a cache entry."""
+    sc = cache.get("kv_scale")
+    return ({} if sc is None else {"k_scale": sc.k, "v_scale": sc.v})
+
+
+def _out_proj(p, acfg: AttnConfig, out: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", out, wo); an int8-served wo goes through
+    K4."""
     wo = p["attn"]["wo"]
+    if layers._q8_active(acfg, wo):
+        return layers.q8_matmul(out, wo, contract_ndim=2)
+    wo = layers.wl(wo, out.dtype)
     h, k, d = wo.shape
-    return out.flatten(-2) @ wo.to(out.dtype).reshape(h * k, d)
+    return out.flatten(-2) @ wo.reshape(h * k, d)
 
 
 def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
@@ -213,36 +330,44 @@ def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
     batched_pos = pos.dim() > 0
     positions = pos[:, None] if batched_pos else pos.expand(b, 1)
     q, k_new, v_new = layers._project_qkv(p["attn"], acfg, x, positions)
+    rows = torch.arange(b, device=x.device)
     if batched_pos:
         # one scatter row per sequence, in place: the counterpart of the
         # JAX tick's donated `.at[rows, slot].set` (transformer.py:469-471)
-        rows = torch.arange(b, device=x.device)
         slot = pos % clen
-        kv.k.index_put_((rows, slot), k_new[:, 0].to(kv.k.dtype))
-        kv.v.index_put_((rows, slot), v_new[:, 0].to(kv.v.dtype))
+        _write_kv(cache, (rows, slot), k_new[:, 0], v_new[:, 0])
         tags.index_put_((rows, slot), pos.to(torch.int32))
         # valid cache rows are the contiguous prefix [0, pos]: the kernel
-        # masks by length, so dead and short slots cost no work
+        # masks by length, so dead and short slots cost no work; int8
+        # caches hand it codes and scales, dequantized in the kernel
         out = ops.decode_attention(
             q[:, 0], kv.k, kv.v, (pos + 1).to(torch.int32),
-            scale=acfg.scale, window=spec.window)[:, None]
+            scale=acfg.scale, window=spec.window,
+            **_kv_scales(cache))[:, None]
     else:
         slot = int(pos) % clen
-        kv.k[:, slot] = k_new[:, 0].to(kv.k.dtype)
-        kv.v[:, slot] = v_new[:, 0].to(kv.v.dtype)
+        _write_kv(cache, (rows, torch.full_like(rows, slot)), k_new[:, 0],
+                  v_new[:, 0])
         tags[:, slot] = int(pos)
+        k_at, v_at = kv.k, kv.v
+        if "kv_scale" in cache:
+            # dequantize at use, in q's dtype, as the JAX XLA branch does
+            sc = cache["kv_scale"]
+            k_at = int8_lib.dequantize_rowwise(kv.k, sc.k, dtype=q.dtype)
+            v_at = int8_lib.dequantize_rowwise(kv.v, sc.v, dtype=q.dtype)
         mask = layers.attention_mask(positions, tags, causal=True,
                                      window=spec.window)
         mask &= (tags >= 0)[:, None, :]
-        out = layers.sdpa(q, kv.k, kv.v, mask, acfg.scale)
-    return _out_proj(p, out)
+        out = layers.sdpa(q, k_at, v_at, mask, acfg.scale)
+    return _out_proj(p, acfg, out)
 
 
 def _ffn(p, cfg: LMConfig, spec: BlockSpec, x):
     if not spec.has_ffn:
         return x
     h = layers.rms_norm(p["norm_ffn"], x)
-    return x + layers.mlp(p["mlp"], h, cfg.act)
+    return x + layers.mlp(p["mlp"], h, cfg.act,
+                          int8_kernel=cfg.use_int8_matmul)
 
 
 def decode_step(params, cfg: LMConfig, token: torch.Tensor, pos: torch.Tensor,
@@ -287,19 +412,18 @@ def init_paged_caches(cfg: LMConfig, num_pages: int, page_size: int,
 
     No position tags: the engine keeps slot b's valid positions exactly
     ``[0, len_b)`` through its page chain, so validity is ``pos < len``.
-    Pools are fp only (``LMConfig`` refuses the int8 modes until they are
-    ported)."""
+    Under ``cfg.quant.kv_int8`` the pools hold int8 codes plus a
+    ``kv_scale`` pair of (num_pages + 1, page_size, Hkv) fp32 scale pools,
+    the dense int8 cache's representation."""
     if not paged_supported(cfg):
         raise NotImplementedError(
             "paged KV caches are attention-only and incompatible with "
             "ring_cache; use init_caches")
     dev = device_lib.resolve(device)
-    shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    rows = (num_pages + 1, page_size, cfg.n_kv_heads)
 
     def one(lead):
-        return {"kv": KVCache(
-            k=torch.zeros(lead + shape, dtype=dtype, device=dev),
-            v=torch.zeros(lead + shape, dtype=dtype, device=dev))}
+        return _kv_entry(cfg, lead + rows, cfg.resolved_head_dim, dtype, dev)
 
     caches: Dict[str, PyTree] = {}
     for i in range(len(cfg.pattern)):
@@ -311,16 +435,20 @@ def init_paged_caches(cfg: LMConfig, num_pages: int, page_size: int,
 
 def move_pages(caches: Dict[str, PyTree], src: torch.Tensor,
                dst: torch.Tensor) -> Dict[str, PyTree]:
-    """Copy pool page ``src[i]`` -> ``dst[i]`` in every layer's K/V pool, in
-    place: the device half of page-table compaction. ``pool[src]`` is
-    gathered into a new tensor before ``pool[dst]`` is written, so a
+    """Copy pool page ``src[i]`` -> ``dst[i]`` in every layer's K/V pool
+    (and scale pool), in place: the device half of page-table compaction.
+    ``pool[src]`` is gathered into a new tensor before ``pool[dst]`` is
+    written, so a
     destination that is also a source reads its old bytes. Padding entries
     may point both at the sink page (a sink->sink copy is the identity).
     The caller owns the host-side invariants: destinations are freshly
     allocated private pages, sources are released after the copy."""
     src, dst = src.long(), dst.long()
     for key, entry in caches.items():
-        for pool in (entry["kv"].k, entry["kv"].v):
+        pools = [entry["kv"].k, entry["kv"].v]
+        if "kv_scale" in entry:
+            pools += [entry["kv_scale"].k, entry["kv_scale"].v]
+        for pool in pools:
             if key.startswith("pat"):               # stacked layers lead
                 pool[:, dst] = pool[:, src]
             else:
@@ -345,12 +473,11 @@ def _paged_decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
     blk = (pos // ps).clamp(0, nb - 1)
     page = torch.where(active, page_table[rows, blk].long(), sink)
     off = pos % ps
-    kv.k.index_put_((page, off), k_new[:, 0].to(kv.k.dtype))
-    kv.v.index_put_((page, off), v_new[:, 0].to(kv.v.dtype))
+    _write_kv(cache, (page, off), k_new[:, 0], v_new[:, 0])
     out = ops.paged_decode_attention(
         q[:, 0], kv.k, kv.v, page_table, (pos + 1).to(torch.int32),
-        scale=acfg.scale, window=spec.window)[:, None]
-    return _out_proj(p, out)
+        scale=acfg.scale, window=spec.window, **_kv_scales(cache))[:, None]
+    return _out_proj(p, acfg, out)
 
 
 def paged_decode_step(params, cfg: LMConfig, token: torch.Tensor,
@@ -419,12 +546,12 @@ def paged_extend(params, cfg: LMConfig, tokens: torch.Tensor,
         blk = (pos_abs // ps).clamp(0, nb - 1)
         page = torch.where(valid, page_table[rows, blk].long(), sink)
         off = pos_abs % ps
-        kv.k.index_put_((page, off), k_new.to(kv.k.dtype))
-        kv.v.index_put_((page, off), v_new.to(kv.v.dtype))
+        _write_kv(cache, (page, off), k_new, v_new)
         out = ops.paged_prefill_attention(
             q, k_new.to(q.dtype), v_new.to(q.dtype), kv.k, kv.v, page_table,
-            starts32, lens32, scale=acfg.scale, window=spec.window)
-        x = x + _out_proj(p, out)
+            starts32, lens32, scale=acfg.scale, window=spec.window,
+            **_kv_scales(cache))
+        x = x + _out_proj(p, acfg, out)
         x = _ffn(p, cfg, spec, x)
     # per-row last valid chunk token (rows are right-padded to C)
     idx = (lens.long() - 1).clamp(0, c - 1)
@@ -466,6 +593,8 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
     caches = init_caches(cfg, b, max_len, cache_dtype, device=tokens.device)
     x = layers.embed(params["embed"], tokens)
     pos1d = torch.arange(s, device=tokens.device).expand(b, s)
+    prompt_rows = (torch.arange(b, device=tokens.device)[:, None],
+                   torch.arange(s, device=tokens.device)[None])
     tag_row = torch.arange(s, dtype=torch.int32, device=tokens.device)
     if lengths is not None:
         tag_row = torch.where(tag_row[None] < lengths[:, None], tag_row, -1)
@@ -480,10 +609,11 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
             mask = layers.attention_mask(pos1d, pos1d, causal=True,
                                          window=spec.window)
             out = layers.sdpa(q, k, v, mask, acfg.scale)
-        x = x + _out_proj(p, out)
-        kv = cache["kv"]
-        kv.k[:, :s] = k.to(kv.k.dtype)
-        kv.v[:, :s] = v.to(kv.v.dtype)
+        x = x + _out_proj(p, acfg, out)
+        # prompt K/V enter the cache in its storage form (int8 caches get
+        # codes and scales, the representation decode appends); attention
+        # above used the full-precision K/V
+        _write_kv(cache, prompt_rows, k, v)
         cache["pos"][:, :s] = tag_row
         x = _ffn(p, cfg, spec, x)
     if lengths is not None:

@@ -19,9 +19,16 @@ device only when a request finishes. Where the JAX engine donates its
 ``DeviceState`` to a jitted tick, this engine updates the same tensors in
 place; PyTorch runs eagerly, so there is no trace to count.
 
-Not ported yet (ROADMAP queue 1): int8, speculative decode, copy-on-write
-forks, the chaos tier and durability. A slot whose logits go non-finite
-therefore raises instead of being quarantined.
+``ServeConfig.quant="int8"`` serves through the quantized fast path on
+either path: the weight tree is quantized to int8 per output channel at
+construction (every projection through K4 on the card) and the KV cache or
+pool holds int8 codes plus fp32 row scales (K1/K2/K3 in their int8-KV
+modes); the byte bills follow the resident codes and scales.
+
+Not ported yet (ROADMAP queue 1): speculative decode, copy-on-write forks,
+the chaos tier (with the int8 mode's fp oracle, drift check and fp
+fallback) and durability. A slot whose logits go non-finite therefore
+raises instead of being quarantined.
 """
 
 from __future__ import annotations
@@ -71,6 +78,10 @@ class ServeConfig:
     compact_threshold: float = 0.0
     # park reclamation: "lru" | "cost" (cheapest-to-recompute block first)
     evict_policy: str = "lru"
+    # quantized serving fast path: "none" | "int8". int8 quantizes the
+    # weight tree (per-channel scales) AND the KV cache (per-row scales);
+    # cache_dtype is then ignored for K/V
+    quant: str = "none"
 
 
 @dataclasses.dataclass
@@ -168,6 +179,15 @@ class DeviceState:
     page_table: torch.Tensor
 
 
+def cache_tensors(entry) -> List[torch.Tensor]:
+    """A dense cache entry's per-slot tensors in a fixed order: K, V,
+    their int8 scales when present, the position tags."""
+    out = [entry["kv"].k, entry["kv"].v]
+    if "kv_scale" in entry:
+        out += [entry["kv_scale"].k, entry["kv_scale"].v]
+    return out + [entry["pos"]]
+
+
 def _bucket_len(n: int, cap: Optional[int] = None) -> int:
     """Pad prompt-batch length to a pow2 bucket, clamped at ``cap``."""
     b = 4
@@ -190,10 +210,17 @@ class ServeEngine:
         if not 0.0 <= serve_cfg.compact_threshold <= 1.0:
             raise ValueError(f"compact_threshold must be in [0, 1], got "
                              f"{serve_cfg.compact_threshold}")
+        if serve_cfg.quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant mode {serve_cfg.quant!r}")
         self.device = device_lib.resolve(serve_cfg.device)
         if params["embed"]["w"].device != self.device:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
                              f"the engine on {self.device}")
+        if serve_cfg.quant == "int8":
+            # int8 weight tree + int8 KV cache; an already-quantized tree
+            # (the caller ran quantize_lm) passes through
+            cfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
+            params = tf_lib.quantize_lm(params)
         self.scfg = serve_cfg
         self.accountant = accountant
         self.scheduler = scheduler or Scheduler(SchedulerConfig())
@@ -332,10 +359,8 @@ class ServeEngine:
                        torch.zeros_like(uids), temps, sampled=sampled)
         for key, entry in st.caches.items():
             ax = 1 if key.startswith("pat") else 0   # stacked layers lead
-            row = row_caches[key]
-            for dst, src in ((entry["kv"].k, row["kv"].k),
-                             (entry["kv"].v, row["kv"].v),
-                             (entry["pos"], row["pos"])):
+            for dst, src in zip(cache_tensors(entry),
+                                cache_tensors(row_caches[key])):
                 dst.index_copy_(ax, slots, src.to(dst.dtype))
         # a request can finish at admission: max_tokens == 1, prompt at the
         # length cap, or the first sampled token being EOS

@@ -5,7 +5,9 @@ Per-prompt prefill, one single-row decode step per active slot with a
 scalar position (so decode attention takes the masked-``sdpa`` branch, not
 the K1 kernel), and host-side sampling with one ``int(tok)`` device sync
 per slot per tick. Under greedy decoding the fused engine must be
-token-identical to this.
+token-identical to this. Given an int8 engine's ``params`` and ``cfg``
+(``INT8_QUANT``) it runs the int8 mode too: projections through
+``ops.int8_matmul``, an int8 cache dequantized at use.
 """
 
 from __future__ import annotations
@@ -22,19 +24,23 @@ from repro_torch.core import accounting
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.layers import KVCache
 from repro_torch.serve.engine import (PyTree, Request, ServeConfig,
-                                      StepMetrics, _sample)
+                                      StepMetrics, _sample, cache_tensors)
 
 
 def _row(caches: PyTree, slot: int) -> PyTree:
     """Slot ``slot`` of the batched cache as a batch-1 view (pattern caches
-    carry batch at axis 1, behind the stacked layers; tail caches at 0);
-    writes through it land in the batched cache."""
+    carry batch at axis 1, behind the stacked layers; tail caches at 0),
+    int8 scales included; writes through it land in the batched cache."""
     out = {}
     for key, entry in caches.items():
         ax = 1 if key.startswith("pat") else 0
         out[key] = {"kv": KVCache(k=entry["kv"].k.narrow(ax, slot, 1),
                                   v=entry["kv"].v.narrow(ax, slot, 1)),
                     "pos": entry["pos"].narrow(ax, slot, 1)}
+        if "kv_scale" in entry:
+            sc = entry["kv_scale"]
+            out[key]["kv_scale"] = KVCache(k=sc.k.narrow(ax, slot, 1),
+                                           v=sc.v.narrow(ax, slot, 1))
     return out
 
 
@@ -93,9 +99,9 @@ class ReferenceEngine:
                 cache_dtype=self.scfg.cache_dtype)
             row = _row(self.caches, slot)
             for key, entry in row.items():
-                entry["kv"].k.copy_(row_cache[key]["kv"].k)
-                entry["kv"].v.copy_(row_cache[key]["kv"].v)
-                entry["pos"].copy_(row_cache[key]["pos"])
+                for dst, src in zip(cache_tensors(entry),
+                                    cache_tensors(row_cache[key])):
+                    dst.copy_(src)
             tok = self._sample(logits[0, -1], req)
             req.generated.append(tok)
             # the fused engine's admission-time finish rules

@@ -1,7 +1,8 @@
 """Modules the port keeps as copies (it imports nothing of ``repro``) must
 behave as their originals: the scheduler and the page pool state for
-state, and the sustainability engine value for value. The only difference
-allowed is the port's extra ``h100_sxm`` device.
+state, the sustainability engine and the int8 quantizer's constants value
+for value. The only difference allowed is the port's extra ``h100_sxm``
+device.
 """
 
 import dataclasses
@@ -15,6 +16,7 @@ from repro.core import hw as j_hw
 from repro.core import lca as j_lca
 from repro.core import roofline as j_rl
 from repro.core import sustain as j_sustain
+from repro.quant import int8 as j_int8
 from repro.serve import engine as j_engine
 from repro.serve import pages as j_pages
 from repro.serve import scheduler as j_sched
@@ -24,6 +26,8 @@ from repro_torch.core import hw as t_hw
 from repro_torch.core import lca as t_lca
 from repro_torch.core import roofline as t_rl
 from repro_torch.core import sustain as t_sustain
+from repro_torch.models import costing as t_costing
+from repro_torch.quant import int8 as t_int8
 from repro_torch.serve import engine as t_engine
 from repro_torch.serve import pages as t_pages
 from repro_torch.serve import scheduler as t_sched
@@ -204,3 +208,13 @@ def test_sustain_equal():
         j_sustain.breakeven_time_s(3.2e6, 20.0, 5.0)
     assert t_sustain.indifference_time_s(4e6, 1e6, 10.0, 3.0) == \
         j_sustain.indifference_time_s(4e6, 1e6, 10.0, 3.0)
+
+
+@pytest.mark.parametrize("name", ["SERVING_QUANT_KEYS", "_OUT_DIMS",
+                                  "SCALE_FLOOR"])
+def test_int8_constants_equal(name):
+    """One copy of each in the port (costing imports the quantizer's)."""
+    assert getattr(t_int8, name) == getattr(j_int8, name)
+    assert t_costing.SERVING_QUANT_KEYS is t_int8.SERVING_QUANT_KEYS
+    for key in j_int8.SERVING_QUANT_KEYS:
+        assert t_int8.weight_out_dims(key) == j_int8.weight_out_dims(key)

@@ -148,14 +148,15 @@ def test_paged_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_paged_ops_refuse_int8_kv():
+    """The int8-KV mode takes both scales or neither: one scale without
+    the other is refused before any kernel or plain version runs."""
     x = torch.zeros((1, 1, 2, 16))
+    sc = torch.ones((1, 1, 2))
     i = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ops.paged_decode_attention(x[:, 0], x, x, i[None], i, k_scale=x,
-                                   v_scale=x)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ops.paged_prefill_attention(x, x, x, x, x, i[None], i, i, k_scale=x,
-                                    v_scale=x)
+    with pytest.raises(ValueError, match="both KV scales"):
+        ops.paged_decode_attention(x[:, 0], x, x, i[None], i, k_scale=sc)
+    with pytest.raises(ValueError, match="both KV scales"):
+        ops.paged_prefill_attention(x, x, x, x, x, i[None], i, i, v_scale=sc)
 
 
 # -----------------------------------------------------------------------------
@@ -491,17 +492,21 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     import shutil
 
     from repro_torch.kernels import build
-    assert set(build.SOURCES) == {"decode_attention", "paged_decode_attention",
-                                  "paged_prefill_attention"}
+    attention = ("decode_attention", "paged_decode_attention",
+                 "paged_prefill_attention")
+    assert set(build.SOURCES) == set(attention) | {"int8_matmul"}
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    for name in build.SOURCES:
+    for name in attention:
         assert [p.name for p in build.sources_of(name)] == \
             [f"{name}.cu", "decode_attention.cuh"]
+    assert [p.name for p in build.sources_of("int8_matmul")] == \
+        ["int8_matmul.cu"]
     before = {name: build.library_path(name) for name in build.SOURCES}
     header = csrc / "decode_attention.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: build.library_path(name) for name in build.SOURCES}
-    assert all(before[n] != after[n] for n in build.SOURCES)
+    assert all(before[n] != after[n] for n in attention)
+    assert before["int8_matmul"] == after["int8_matmul"]
     assert all(p.parent == build.BUILD_DIR for p in after.values())

@@ -155,9 +155,10 @@ def test_unported_features_raise():
         bridge.config_from_dict(dataclasses.asdict(mamba2_1_3b.make_smoke()))
     with pytest.raises(NotImplementedError):
         dataclasses.replace(t_sc2.make_smoke(), ring_cache=True)
-    with pytest.raises(NotImplementedError):
+    # int8 is a ported mode now; a quant mode neither package knows raises
+    with pytest.raises(ValueError, match="quant"):
         dataclasses.replace(t_sc2.make_smoke(),
-                            quant=ttf.QuantPolicy(weights="int8"))
+                            quant=ttf.QuantPolicy(weights="fp4"))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
