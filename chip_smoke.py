@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the main path's shapes, then drives the
-dense and the paged serve paths of starcoder2-7b at full width and full
-depth with random weights from a seed, unquantized and in the int8 mode.
+dense, the paged and the speculative serve paths of starcoder2-7b at full
+width and full depth with random weights from a seed, unquantized and in
+the int8 mode.
 Phases, each printing JSON lines; any failure raises, so the script exits
 non-zero and prints no result:
 
@@ -22,7 +23,12 @@ non-zero and prints no result:
    dequantization, is part of that call):
    K1 at B=8, H=36, Hkv=4, D=128, Sk=2048; K2 at the same shapes through a
    permuted table of 128 pages of 16 per slot; K3 at 8 rows, C=256, ragged
-   starts (unaligned ones too) and lengths (0 too);
+   starts (unaligned ones too) and lengths (0 too); K5 on K2's pools and
+   lengths with T = 1, 2 and 5 query lanes per slot (lengths 1 and 2 leave
+   rows with no valid key, which must be exact zeros like a dead slot's),
+   its library call masked SDPA with a per-lane causal mask, and lane t
+   held against K2 at length ``lengths - T + t + 1`` without a window
+   (reported: equal bit for bit, and the max abs difference);
 4. int8 matmul (K4) against its plain version at the main path's shapes:
    decode (M=8) for 4608->4608, ->512, ->18432 and 18432->4608, prefill
    (M=2048) for 4608->18432 and 18432->4608, with bf16 x, and fp32 x at
@@ -38,7 +44,10 @@ non-zero and prints no result:
    the same with ``quant="int8"``: the dense int8 engine (K4 + K1) must be
    token-identical to the int8 host-loop reference (K4 + dequantize +
    ``sdpa``) given the engine's params and cfg, and the paged int8 engine
-   (K4 + K2 + K3) to the dense int8 engine;
+   (K4 + K2 + K3) to the dense int8 engine; the speculative engine (K5)
+   must be token-identical to the plain paged engine: ``ngram`` at k = 1,
+   2 and 4 and ``oracle`` at k = 2 (which must accept drafts), int8 at
+   k = 4, and k = 4 with the prefix cache on the shared-prefix requests;
 6. serve: bf16 weights, fp32 cache, 8 slots, max_len 2048, 16 requests of
    32-1024 prompt tokens and 64 new tokens each; K1 launches must be
    decode ticks x 32 layers;
@@ -49,6 +58,10 @@ non-zero and prints no result:
 8. phases 6 and 7 again with ``quant="int8"`` (the same weights quantized
    once): K4 launches must be (decode ticks + admission or extend calls) x
    32 x 6, K1, K2 and K3 as in phases 6 and 7;
+8b. phase 7's traffic with speculative decode (``spec_k=4``, ``ngram``),
+   unquantized and int8: K5 launches must be spec ticks x 32, K2 none, K3
+   extend calls x 32, K4 (spec ticks + extend calls) x 192; reports the
+   accept rate, accepted tokens per tick and the draft/verify energy;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
    asserted);
@@ -137,6 +150,9 @@ MODES = (("float32", "float32", 1e-5, 0.0),
 # the main path's mode of each slice: fp32 K/V (PR 12), int8 K/V (int8)
 MAIN_FP = ("bfloat16", "float32", -1)
 MAIN_INT8 = ("bfloat16", "int8", -1)
+# K5's query lanes per slot: T = 5 is the spec serve runs' k = 4
+VERIFY_LANES = (1, 2, 5)
+SPEC_K = 4
 WINDOWS = (-1, 256)
 B, H, HKV, D = 8, 36, 4, 128
 PAGE, N_BLOCKS = 16, 128                       # 2048 positions per slot
@@ -252,6 +268,32 @@ def _decode_bound(q, k, lengths, window, paged=False):
     return _bound(nbytes, 4.0 * n_live * h * d / _peak(q, k))
 
 
+def _verify_bound(q, k, lengths, window):
+    """Least time of a K5 call: the K/V rows some lane of a slot attends
+    (with their scales for int8), q, the output, the lengths and those
+    rows' table entries once each over the HBM rate; or 4*H*D FLOPs per
+    valid (lane, key) pair over the inputs' peak."""
+    b, t, h, d = q.shape
+    cap = N_BLOCKS * PAGE
+    rows = pairs = pages = 0
+    for n in lengths.tolist():
+        if n <= 0:
+            continue
+        spans = []
+        for lane in range(t):
+            q_pos = n - t + lane
+            lo = max(0, q_pos + 1 - window) if window > 0 else 0
+            spans.append((lo, min(q_pos + 1, cap)))
+            pairs += max(0, spans[-1][1] - lo)
+        lo, hi = spans[0][0], spans[-1][1]
+        if hi > lo:
+            rows += hi - lo
+            pages += -(-hi // PAGE) - lo // PAGE
+    nbytes = (2 * rows * _row_bytes(k) + 2 * q.numel() * q.element_size()
+              + 4 * b + 4 * pages)
+    return _bound(nbytes, 4.0 * pairs * h * d / _peak(q, k))
+
+
 def _prefill_bound(q, k_new, k_pool, starts, lens, window):
     """Least time of a K3 call: the live chunk tokens' q, k, v, the cached
     keys the live tokens attend (per row, [start - window + 1, start) or
@@ -311,6 +353,28 @@ def _library_paged_decode(q, k_pool, v_pool, table, lengths, *, scale,
                            scale=scale, window=window)
 
 
+def _library_verify(q, k_pool, v_pool, table, lengths, *, scale, window):
+    """The gather through the table, then one masked SDPA with a per-lane
+    causal mask (lane t at lengths - T + t); the gather and the mask are
+    part of the call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    k = ref.paged_gather(k_pool, table)
+    v = ref.paged_gather(v_pool, table)
+    t = q.shape[1]
+    lengths = lengths.long()
+    j = torch.arange(k.shape[1], device=q.device)[None, None]
+    q_pos = (lengths - t)[:, None] + torch.arange(t, device=q.device)[None]
+    diff = q_pos[:, :, None] - j
+    mask = (diff >= 0) & (j < lengths[:, None, None])
+    if window > 0:
+        mask &= diff < window
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2).to(k.dtype), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None], scale=scale, enable_gqa=True)
+
+
 def _library_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
                      scale, window):
     """The cached window gathered through the table and the chunk as one
@@ -361,7 +425,7 @@ def _dequantized(library, kv_pos):
 
 
 def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
-                  iters, kv_pos):
+                  iters, kv_pos, extra=None):
     """Hold ``kernel`` against ``plain`` in every mode and window, time the
     kernel, the plain version and the library call, and return the rows of
     the main path's modes (``MAIN_FP``, ``MAIN_INT8``). ``inputs(q_dtype,
@@ -370,7 +434,7 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
     time; ``dead`` masks the output's leading dims where the kernel must
     write exact zeros; ``cold`` names the positions of the large tensors
     each timed call reads from its own copy (int8 scales too); ``kv_pos``
-    those of K and V."""
+    those of K and V; ``extra`` goes into every row."""
     import torch
     scale = D ** -0.5
     dead = dead.cuda()
@@ -413,7 +477,7 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                    "kv": kv_name, "window": window, "max_abs_err": max_err,
                    "atol": atol, "rtol": rtol, "ms": kernel_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {})}
             emit(row)
             del copies
             if (q_name, kv_name, window) in (MAIN_FP, MAIN_INT8):
@@ -422,7 +486,7 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
 
 
 def phase_kernels():
-    """K1, K2 and K3 against their plain versions at the main path's
+    """K1, K2, K5 and K3 against their plain versions at the main path's
     shapes. Returns each kernel's main-path rows."""
     import torch
     from repro_torch.kernels import decode_attention as k1
@@ -443,6 +507,7 @@ def phase_kernels():
         _paged_decode_inputs,
         lambda a, w: _decode_bound(a[0], a[1], a[4], w, paged=True),
         dead=dead_slots, cold=(1, 2), iters=48, kv_pos=(1, 2))
+    rows["paged_verify_attention"] = phase_verify_kernel()
     rows["paged_prefill_attention"] = _check_kernel(
         "paged_prefill_attention", k3.paged_prefill_attention,
         ref.paged_prefill_attention_ref, _library_prefill, _prefill_inputs,
@@ -450,6 +515,63 @@ def phase_kernels():
         dead=torch.arange(CHUNK)[None] >= torch.tensor(CHUNK_LENS)[:, None],
         cold=(3, 4), iters=16, kv_pos=(3, 4))
     return rows
+
+
+def _verify_inputs(t):
+    """K2's inputs (the same pools, table, lengths and scales) with a q of
+    T lanes per slot."""
+    import torch
+
+    def inputs(q_dtype, kv_dtype):
+        _, *rest = _paged_decode_inputs(q_dtype, kv_dtype)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        return (_randn(gen, (B, t, H, D), q_dtype), *rest)
+    return inputs
+
+
+def phase_verify_kernel():
+    """K5 against its plain version for T = 1, 2 and 5 lanes in every mode
+    and window; then, without a window in the fp32 and bf16 modes, each
+    lane t against K2 at length ``lengths - T + t + 1`` (the same keys):
+    reported as bitwise equality and the max abs difference. Returns the
+    main-path rows at T = 5."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.kernels import paged_verify_attention as k5
+    from repro_torch.kernels import ref
+    lengths = torch.tensor(LENGTHS)
+    main = {}
+    for t in VERIFY_LANES:
+        q_pos = lengths[:, None] - t + torch.arange(t)[None]
+        rows = _check_kernel(
+            "paged_verify_attention", k5.paged_verify_attention,
+            ref.paged_verify_attention_ref, _library_verify,
+            _verify_inputs(t), lambda a, w: _verify_bound(a[0], a[1], a[4], w),
+            dead=(lengths[:, None] == 0) | (q_pos < 0), cold=(1, 2),
+            iters=48, kv_pos=(1, 2), extra={"T": t})
+        if t == max(VERIFY_LANES):
+            main = rows
+        for q_name, kv_name in (("float32", "float32"),
+                                ("bfloat16", "bfloat16")):
+            q, k_pool, v_pool, table, lens = _verify_inputs(t)(
+                getattr(torch, q_name), getattr(torch, kv_name))
+            scale = D ** -0.5
+            got = k5.paged_verify_attention(q, k_pool, v_pool, table, lens,
+                                            scale=scale)
+            diff = 0.0
+            equal = True
+            for lane in range(t):
+                want = k2.paged_decode_attention(
+                    q[:, lane].contiguous(), k_pool, v_pool, table,
+                    (lens - t + lane + 1).clamp(min=0).to(torch.int32),
+                    scale=scale)
+                equal &= bool(torch.equal(got[:, lane], want))
+                diff = max(diff, float((got[:, lane].float()
+                                        - want.float()).abs().max()))
+            emit({"phase": "kernels", "kernel": "paged_verify_attention",
+                  "T": t, "q": q_name, "kv": kv_name, "window": -1,
+                  "lanes_equal_k2": equal, "max_abs_diff_k2": diff})
+    return main
 
 
 # (M, K, N, x dtype) of K4's checks: a decode tick's projections at 8
@@ -587,6 +709,17 @@ def phase_streams():
               hit_streams, dense_shared)["agreement"],
           "init_s": init_s, "param_gb": costing.tree_bytes(params) / 1e9})
     del eng
+    # speculative decode: the same streams as the plain paged engine's
+    for k, drafter in ((1, "ngram"), (2, "ngram"), (4, "ngram"),
+                       (2, "oracle")):
+        _spec_streams(params, cfg, dataclasses.replace(
+            paged_cfg, spec_k=k, spec_drafter=drafter), prompts, paged)
+    spec_hits = _spec_streams(params, cfg, dataclasses.replace(
+        paged_cfg, max_slots=2, prefix_cache=True, spec_k=SPEC_K), shared,
+        hit_streams)["prefix_hit_tokens"]
+    if spec_hits <= 0:
+        raise AssertionError("the speculative prefix-cache run hit no "
+                             "prefix block")
     # int8: the engine quantizes at construction; the reference and the
     # paged engine take its quantized params and INT8_QUANT cfg
     int8_cfg = dataclasses.replace(scfg, quant="int8")
@@ -607,6 +740,8 @@ def phase_streams():
         raise AssertionError(f"fp32 int8 paged streams differ from the "
                              f"dense int8 engine's: paged {paged}, dense "
                              f"{got}")
+    _spec_streams(qparams, qcfg, dataclasses.replace(
+        paged_cfg, quant="int8", spec_k=SPEC_K), prompts, paged)
     emit({"phase": "streams", "dtype": "float32", "quant": "int8",
           "requests": len(prompts), "tokens_each": 16, "identical": True,
           "paged_identical": True, "quantize_s": quant_s,
@@ -615,15 +750,46 @@ def phase_streams():
     del eng, qparams
 
 
+def _spec_streams(params, cfg, scfg, prompts, want):
+    """The speculative engine's fp32 streams on ``prompts`` must be
+    ``want``, the plain paged engine's; the oracle drafter must accept.
+    Emits and returns the run's summary."""
+    from repro_torch.serve import ServeEngine, run_workload
+    eng = ServeEngine(params, cfg, scfg)
+    got = run_workload(eng, prompts, 16)
+    s = eng.summary()
+    if got != want:
+        first = next((uid, i, a, b) for uid in sorted(want)
+                     for i, (a, b) in enumerate(zip(got[uid], want[uid]))
+                     if a != b)
+        raise AssertionError(
+            f"fp32 speculative streams (k={scfg.spec_k}, "
+            f"{scfg.spec_drafter}, quant {scfg.quant}) differ from the plain "
+            f"paged engine's; first at (uid, index, spec, plain) {first}: "
+            f"spec {got}, plain {want}")
+    if scfg.spec_drafter == "oracle" and s["spec_accepted_tokens"] <= 0:
+        raise AssertionError("the oracle drafter's run accepted no draft")
+    emit({"phase": "streams", "dtype": "float32", "quant": scfg.quant,
+          "spec_k": scfg.spec_k, "drafter": scfg.spec_drafter,
+          "prefix_cache": scfg.prefix_cache, "requests": len(prompts),
+          "tokens_each": 16, "identical_to_plain_paged": True,
+          "accept_rate": s["accept_rate"],
+          "accepted_tokens_per_tick": s["accepted_tokens_per_tick"],
+          "prefix_hit_tokens": s["prefix_hit_tokens"]})
+    return s
+
+
 def _counters():
     """Every kernel's launch counter, by kernel name."""
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_prefill_attention as k3
+    from repro_torch.kernels import paged_verify_attention as k5
     return {"decode_attention": k1.decode_attention,
             "paged_decode_attention": k2.paged_decode_attention,
             "paged_prefill_attention": k3.paged_prefill_attention,
+            "paged_verify_attention": k5.paged_verify_attention,
             "int8_matmul": k4.int8_matmul}
 
 
@@ -653,11 +819,13 @@ def _serve_run(phase, eng, acct, prompts, n_new):
                              f"request")
     paged = eng.pool is not None
     int8 = eng.scfg.quant == "int8"
+    spec = eng.scfg.spec_k > 0                  # the ngram drafter: no K2
     want = {"decode_attention": 0 if paged else decode_ticks * N_LAYERS,
-            "paged_decode_attention": decode_ticks * N_LAYERS if paged
-            else 0,
+            "paged_decode_attention": decode_ticks * N_LAYERS
+            if paged and not spec else 0,
             "paged_prefill_attention": admissions * N_LAYERS if paged
             else 0,
+            "paged_verify_attention": decode_ticks * N_LAYERS if spec else 0,
             "int8_matmul": (decode_ticks + admissions) * N_LAYERS * 6
             if int8 else 0}
     if launches != want:
@@ -684,7 +852,9 @@ def _serve_run(phase, eng, acct, prompts, n_new):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
            "k4_launches_per_step": launches["int8_matmul"]
-           / max(decode_ticks + admissions, 1)}
+           / max(decode_ticks + admissions, 1),
+           "port_kernel_launches_per_decode_tick": sum(launches.values())
+           / max(decode_ticks, 1)}
     if paged:
         row.update({"page_size": PAGE, "prefill_chunk": 256,
                     "pool_pages": s["pool_pages"],
@@ -693,6 +863,15 @@ def _serve_run(phase, eng, acct, prompts, n_new):
                     "prefill_gather_bytes": s["prefill_gather_bytes"]})
         if s["prefix_hit_tokens"] <= 0:
             raise AssertionError(f"{phase}: the run hit no prefix block")
+    if spec:
+        sp = rep["spec"]
+        row.update({"spec_k": eng.scfg.spec_k,
+                    "drafter": eng.scfg.spec_drafter,
+                    "accept_rate": s["accept_rate"],
+                    "accepted_tokens_per_tick":
+                        s["accepted_tokens_per_tick"],
+                    "j_per_accepted_token": sp["j_per_accepted_token"],
+                    "draft_j": sp["draft_j"], "verify_j": sp["verify_j"]})
     emit(row)
     return launches
 
@@ -719,21 +898,23 @@ def phase_serve(cfg, params, quant="none"):
     return _serve_run("serve", eng, acct, prompts, 64)
 
 
-def phase_paged_serve(cfg, params, quant="none"):
+def phase_paged_serve(cfg, params, quant="none", spec_k=0):
     """bf16 weights, the paged serve loop with the prefix cache on
     shared-prompt traffic: 16 requests of a 512-token shared prompt plus a
-    32-512-token tail. Returns the launches."""
+    32-512-token tail; with ``spec_k``, speculative decode with the ngram
+    drafter. Returns the launches."""
     import numpy as np
     from repro_torch.serve import ServeConfig, ServeEngine
     acct = _accountant()
     eng = ServeEngine(params, cfg, ServeConfig(
         max_slots=8, max_len=2048, device="cuda", paged=True,
-        page_size=PAGE, prefill_chunk=256, prefix_cache=True, quant=quant),
-        accountant=acct)
+        page_size=PAGE, prefill_chunk=256, prefix_cache=True, quant=quant,
+        spec_k=spec_k), accountant=acct)
     rng = np.random.default_rng(SEED + 3)
     tails = [int(n) for n in rng.integers(32, 513, 16)]
     prompts = _shared_prefix_prompts(rng, cfg.vocab, 512, tails)
-    return _serve_run("paged_serve", eng, acct, prompts, 64)
+    return _serve_run("spec_serve" if spec_k else "paged_serve", eng, acct,
+                      prompts, 64)
 
 
 def phase_agreement(cfg, params, qparams):
@@ -754,6 +935,7 @@ KERNELS = (
     ("paged_decode_attention", "src/repro/kernels/decode_attention.py:245"),
     ("paged_prefill_attention", "src/repro/kernels/flash_attention.py:494"),
     ("int8_matmul", "src/repro/kernels/int8_matmul.py:53"),
+    ("paged_verify_attention", "src/repro/kernels/decode_attention.py:388"),
 )
 
 
@@ -785,7 +967,9 @@ def main() -> int:
     qcfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
     qparams = tf_lib.quantize_lm(params)
     runs += [phase_serve(qcfg, qparams, "int8"),
-             phase_paged_serve(qcfg, qparams, "int8")]
+             phase_paged_serve(qcfg, qparams, "int8"),
+             phase_paged_serve(cfg, params, spec_k=SPEC_K),
+             phase_paged_serve(qcfg, qparams, "int8", spec_k=SPEC_K)]
     phase_agreement(cfg, params, qparams)
     launches = {name: sum(r[name] for r in runs) for name, _ in KERNELS}
     if not all(launches.values()):

@@ -1,7 +1,9 @@
-// One-token decode attention for the serve engine's decode tick, on Hopper
-// (sm_90a): the kernel body shared by K1 (decode_attention.cu, a slot-major
-// cache) and K2 (paged_decode_attention.cu, a paged pool). The two differ
-// only in where K/V row i of slot b lives, which the `Rows` policy below
+// Decode attention for the serve engine's ticks, on Hopper (sm_90a): the
+// kernel body shared by K1 (decode_attention.cu, a slot-major cache), K2
+// (paged_decode_attention.cu, a paged pool) and K5
+// (paged_verify_attention.cu, T query lanes per slot through the pool).
+// They differ only in where K/V row i of slot b lives and, for K5, in
+// which keys each query row may see, which the `Rows` policy below
 // answers; the numerics, the tiling and the GQA sharing are one code.
 //
 // Computes what the Pallas TPU kernels repro/kernels/decode_attention.py::
@@ -31,6 +33,17 @@
 //     would copy the whole cache on every call, is not carried over.
 //   * the next tile's K/V rows are loaded into registers while the current
 //     tile computes, so the loads are in flight behind the math.
+// K5 (VerifyRows) gives each slot T query lanes, lane t at position
+// q_pos = length - T + t (the length counts the lanes): its rows attend
+// keys [max(0, q_pos + 1 - window), min(q_pos + 1, n_blocks * page_size)),
+// so q_pos comes from the unclamped length and only the key range is
+// clamped. A block holds `lanes` lanes of one (slot, KV head), lane-major
+// rows (t, r), and loads each K/V tile once for all of them; the tiles
+// start where the block's first row starts (key 0 without a window) and
+// end where its last row ends. A row past its own bound adds p = 0 with
+// alpha = 1, so with no window lane t computes exactly what K2 computes at
+// length q_pos + 1. A row with no valid key (lane t < T - length, or the
+// capacity edge under a window) writes zeros, as a dead slot does.
 // Known weak points, left for a later revision: B * Hkv blocks (32 on the
 // starcoder2-7b main path) leave most of the 132 SMs idle, so one SM
 // walks a whole long slot alone; and the dot products run on fp32 CUDA
@@ -56,8 +69,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileK = 64;               // keys per tile: two per lane
-constexpr int kMaxRowsPerThread = 8;     // P @ V pass: rep <= 8 * (1024 / D)
+constexpr int kMaxRowsPerThread = 8;     // P @ V pass: rows <= 8 * (1024 / D)
+constexpr int kMaxRowsPerWarp = (64 + kWarps - 1) / kWarps;   // score pass
 constexpr float kNegInf = -1e30f;
+
+// Query rows one block can hold at head dim D: the score pass's 64 and
+// the P @ V pass's kMaxRowsPerThread groups of kThreads / (D / 4) threads.
+inline int max_rows(int D) {
+  const int pv = kMaxRowsPerThread * (kThreads / (D / 4));
+  return pv < kWarps * kMaxRowsPerWarp ? pv : kWarps * kMaxRowsPerWarp;
+}
 
 template <typename T> struct Vec16;      // 16 bytes of T
 template <> struct Vec16<float> { using type = float4; static constexpr int n = 4; };
@@ -149,6 +170,14 @@ struct PagedRows {
   }
 };
 
+// K5: PagedRows for T query lanes per slot; a block holds `lanes` of them
+// (lanes * rep <= max_rows(D)), lanes [blockIdx.z * lanes, ...). q and out
+// are (B, T, H, D).
+struct VerifyRows : PagedRows {
+  int n_q;                                        // T
+  int lanes;
+};
+
 // `rows` is __grid_constant__: the load loop reads it through a reference,
 // and without the qualifier nvcc fetched its fields with per-thread
 // constant loads there, which made the fp32-K/V kernel about 27% slower
@@ -161,6 +190,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                         const __grid_constant__ Rows rows, int window, float scale,
                         const float* __restrict__ ks, const float* __restrict__ vs) {
   constexpr bool kQuant = std::is_same<KVT, int8_t>::value;
+  constexpr bool kMulti = std::is_same<Rows, VerifyRows>::value;
   constexpr int DQ = D / 4;                       // float4 columns of a row
   constexpr int KS = D + 4;                       // padded K row: conflict-free
   constexpr int G = kThreads / DQ;                // row groups of the P @ V pass
@@ -171,27 +201,58 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                 "unsupported head dim");
   using VecT = typename Vec16<KVT>::type;
 
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // rep x D, pre-scaled
-  float* k_s = q_s + rep * D;                     // kTileK x KS
-  float* v_s = k_s + kTileK * KS;                 // kTileK x D
-  float* p_s = v_s + kTileK * D;                  // rep x kTileK
-  float* a_s = p_s + rep * kTileK;                // this tile's rescale per row
-  float* l_s = a_s + rep;                         // running denominator per row
-
   const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const long long row0 = (long long)b * H + (long long)kvh * rep;
   QT* out_g = out + row0 * D;
-  const int length = min(lengths[b], rows.limit);
-  if (length <= 0) {                              // dead slot: exact zeros
-    for (int i = tid; i < rep * D; i += kThreads) store(out_g + i, 0.f);
-    return;
+  // K1/K2: the block's rep rows, one run of q and out. K5: lanes
+  // [t_lo, t_lo + n_rows / rep) x rep heads, lane-major.
+  int n_rows = rep, t_lo = 0, n_q = 1;
+  if constexpr (kMulti) {
+    n_q = rows.n_q;
+    t_lo = blockIdx.z * rows.lanes;
+    n_rows = min(rows.lanes, n_q - t_lo) * rep;
   }
-  const int lo = (window > 0 && length > window) ? length - window : 0;
+  auto row_off = [&](int i) -> long long {        // K5: row i's element offset
+    return (((long long)b * n_q + t_lo + i / rep) * H + (long long)kvh * rep + i % rep) * D;
+  };
 
-  const QT* q_g = q + row0 * D;
-  for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_float(q_g[i]) * scale;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);   // n_rows x D, pre-scaled
+  float* k_s = q_s + n_rows * D;                  // kTileK x KS
+  float* v_s = k_s + kTileK * KS;                 // kTileK x D
+  float* p_s = v_s + kTileK * D;                  // n_rows x kTileK
+  float* a_s = p_s + n_rows * kTileK;             // this tile's rescale per row
+  float* l_s = a_s + n_rows;                      // running denominator per row
+
+  // keys [lo, length) are the block's; K5's rows each see a part of them
+  int length, lo, q_first = 0;
+  if constexpr (kMulti) {
+    const int len_b = lengths[b];                 // unclamped: it places q
+    if (len_b <= 0) {                             // dead slot: exact zeros
+      for (int i = tid; i < n_rows * D; i += kThreads)
+        store(out + row_off(i / D) + i % D, 0.f);
+      return;
+    }
+    q_first = len_b - n_q + t_lo;                 // the block's first lane
+    length = min(q_first + n_rows / rep, rows.limit);
+    lo = window > 0 ? max(0, q_first + 1 - window) : 0;
+  } else {
+    length = min(lengths[b], rows.limit);
+    if (length <= 0) {                            // dead slot: exact zeros
+      for (int i = tid; i < rep * D; i += kThreads) store(out_g + i, 0.f);
+      return;
+    }
+    lo = (window > 0 && length > window) ? length - window : 0;
+  }
+
+  if constexpr (kMulti) {
+    for (int i = tid; i < n_rows * D; i += kThreads)
+      q_s[i] = to_float(q[row_off(i / D) + i % D]) * scale;
+  } else {
+    const QT* q_g = q + row0 * D;
+    for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_float(q_g[i]) * scale;
+  }
   const KVT* k_g = k + rows.base(b) + (long long)kvh * D;
   const KVT* v_g = v + rows.base(b) + (long long)kvh * D;
 
@@ -226,10 +287,10 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   };
 
   // running max: held by every lane of the warp that owns the row
-  float m_run[(64 + kWarps - 1) / kWarps];
+  float m_run[kMaxRowsPerWarp];
 #pragma unroll
-  for (int i = 0; i < (64 + kWarps - 1) / kWarps; ++i) m_run[i] = kNegInf;
-  for (int r = tid; r < rep; r += kThreads) l_s[r] = 0.f;
+  for (int i = 0; i < kMaxRowsPerWarp; ++i) m_run[i] = kNegInf;
+  for (int r = tid; r < n_rows; r += kThreads) l_s[r] = 0.f;
 
   const int cq = tid % DQ, grp = tid / DQ;        // P @ V ownership
   float4 acc[kMaxRowsPerThread];
@@ -260,9 +321,17 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     const float4* k1 = reinterpret_cast<const float4*>(k_s + (lane + 32) * KS);
     const bool valid0 = t0 + lane < length, valid1 = t0 + lane + 32 < length;
 #pragma unroll
-    for (int i = 0; i < (64 + kWarps - 1) / kWarps; ++i) {
+    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
       const int r = warp + kWarps * i;
-      if (r >= rep) break;                        // uniform across the warp
+      if (r >= n_rows) break;                     // uniform across the warp
+      bool ok0 = valid0, ok1 = valid1;
+      if constexpr (kMulti) {                     // K5: row r's key range
+        const int q_pos = q_first + r / rep;
+        const int hi = min(q_pos + 1, rows.limit);
+        const int lo_r = window > 0 ? max(0, q_pos + 1 - window) : 0;
+        ok0 = t0 + lane >= lo_r && t0 + lane < hi;
+        ok1 = t0 + lane + 32 >= lo_r && t0 + lane + 32 < hi;
+      }
       const float4* qr = reinterpret_cast<const float4*>(q_s + r * D);
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll 8
@@ -271,12 +340,12 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
         s0 = dot4(qv, k0[dq], s0);
         s1 = dot4(qv, k1[dq], s1);
       }
-      s0 = valid0 ? s0 : kNegInf;
-      s1 = valid1 ? s1 : kNegInf;
+      s0 = ok0 ? s0 : kNegInf;
+      s1 = ok1 ? s1 : kNegInf;
       const float m_old = m_run[i];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = valid0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = valid1 ? expf(s1 - m_new) : 0.f;
+      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
+      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
       const float p_sum = warp_sum(p0 + p1);
       p_s[r * kTileK + lane] = p0;
       p_s[r * kTileK + lane + 32] = p1;
@@ -294,7 +363,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kMaxRowsPerThread; ++i) {
       const int r = grp + G * i;
-      if (r >= rep) break;
+      if (r >= n_rows) break;
       const float alpha = a_s[r];
       float4 a = acc[i];
       a.x *= alpha; a.y *= alpha; a.z *= alpha; a.w *= alpha;
@@ -315,9 +384,11 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kMaxRowsPerThread; ++i) {
     const int r = grp + G * i;
-    if (r >= rep) break;
+    if (r >= n_rows) break;
     const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-    QT* o = out_g + r * D + 4 * cq;
+    QT* o;
+    if constexpr (kMulti) o = out + row_off(r) + 4 * cq;
+    else o = out_g + r * D + 4 * cq;
     store(o + 0, acc[i].x * inv);
     store(o + 1, acc[i].y * inv);
     store(o + 2, acc[i].z * inv);
@@ -331,15 +402,22 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
                           float scale, const float* ks, const float* vs,
                           cudaStream_t stream) {
   const int rep = H / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)rep * D + (size_t)kTileK * (D + 4) +
-                                       (size_t)kTileK * D + (size_t)rep * kTileK + 2 * (size_t)rep);
+  // K5: up to `lanes` lanes per block, a third grid dim over lane groups
+  int n_rows = rep, groups = 1;
+  if constexpr (std::is_same<Rows, VerifyRows>::value) {
+    n_rows = rows.lanes * rep;
+    groups = (rows.n_q + rows.lanes - 1) / rows.lanes;
+  }
+  const size_t smem = sizeof(float) * ((size_t)n_rows * D + (size_t)kTileK * (D + 4) +
+                                       (size_t)kTileK * D + (size_t)n_rows * kTileK +
+                                       2 * (size_t)n_rows);
   auto kernel = decode_attention_kernel<QT, KVT, D, Rows>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
+  kernel<<<dim3(B, Hkv, groups), kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v),
       static_cast<const int*>(lengths), static_cast<QT*>(out), H, H / Hkv, rows, window,
       scale, ks, vs);

@@ -1,6 +1,7 @@
 """Public kernel entry points of the port (mirror of ``repro.kernels.ops``):
-decode attention (K1), paged decode and prefill attention (K2, K3), each
-with its int8-KV mode, and the int8 weight matmul (K4).
+decode attention (K1), paged decode and prefill attention (K2, K3), the
+paged multi-query verify attention of speculative decode (K5), each with
+its int8-KV mode, and the int8 weight matmul (K4).
 
 Dispatch goes by the tensors' device, never by what the machine has: CPU
 tensors take the plain PyTorch version (``ref``), CUDA tensors take the
@@ -20,6 +21,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_prefill_attention as _ppa
+from repro_torch.kernels import paged_verify_attention as _pva
 from repro_torch.kernels import ref as _ref
 
 
@@ -103,6 +105,39 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             q, k_pool, v_pool, page_table, lengths, scale=scale,
             window=window, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"paged_decode_attention: no kernel for device "
+                     f"{q.device}")
+
+
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale: Optional[float] = None, window: int = -1,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Multi-query decode attention through a paged KV pool for the
+    speculative verify pass (K5).
+
+    q: (B, T, H, D) — T query lanes per slot (the pending token and the
+    drafts), already written to the pool at positions ``lengths - T + t``;
+    k_pool/v_pool: (P, page_size, Hkv, D); page_table: (B, NB) int32;
+    lengths: (B,) int32 valid logical prefix per slot INCLUDING the T lanes
+    (0 = dead slot -> zeros). Lane t attends keys ``<= lengths - T + t``,
+    read from the pool in its storage dtype. A row with no valid key is
+    zeros. ``k_scale``/``v_scale`` (P, page_size, Hkv) fp32 enable the
+    int8-KV mode.
+    """
+    _scale_pair("paged_verify_attention", k_scale, v_scale)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return _ref.paged_verify_attention_ref(
+            q, k_pool, v_pool, page_table, lengths, scale=scale,
+            window=window, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "cuda":
+        return _pva.paged_verify_attention(
+            q, k_pool, v_pool, page_table, lengths, scale=scale,
+            window=window, k_scale=k_scale, v_scale=v_scale)
+    raise ValueError(f"paged_verify_attention: no kernel for device "
                      f"{q.device}")
 
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (the correctness contracts).
+"""Plain PyTorch versions of the port's kernels (the correctness contracts):
+K1-K3 and K5 attention, K4 the int8 weight matmul.
 
 The CPU path of ``ops`` runs these, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. Nothing on the card's main path calls them.
@@ -95,6 +96,46 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                 paged_gather(v_pool, page_table), lengths,
                                 scale=scale, window=window, k_scale=ks,
                                 v_scale=vs)
+
+
+def paged_verify_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, page_table: torch.Tensor,
+                               lengths: torch.Tensor, *, scale: float,
+                               window: int = -1,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """What ``repro.kernels.decode_attention._paged_verify_kernel``
+    computes, with the mask of the XLA branch of
+    ``repro.models.transformer._paged_verify_attn``: the K/V view gathered
+    through the table in the pool's storage dtype (int8 codes dequantized in
+    fp32 with their gathered scales), then a tag-masked ``layers.sdpa`` in
+    fp32 where lane t of slot b sits at ``q_pos = lengths[b] - T + t`` and
+    attends keys ``k_pos <= q_pos`` below ``lengths[b]`` (and
+    ``q_pos - k_pos < window`` when ``window > 0``).
+
+    q: (B, T, H, D); pools: (P, page_size, Hkv, D); page_table: (B, NB);
+    lengths: (B,), counting the T lanes. Returns (B, T, H, D) in q.dtype. A
+    row with no valid key (every row of a dead slot, a lane with
+    ``q_pos < 0``, or one past the table's capacity under a window) is
+    zeros, as in the CUDA kernel; ``sdpa`` and the Pallas kernel average V
+    there."""
+    t = q.shape[1]
+    k_all = paged_gather(k_pool, page_table)
+    v_all = paged_gather(v_pool, page_table)
+    if k_scale is not None:
+        k_all, v_all = _dequant(k_all, v_all,
+                                paged_gather(k_scale, page_table),
+                                paged_gather(v_scale, page_table))
+    lengths = lengths.long()
+    j_abs = torch.arange(k_all.shape[1], device=q.device)[None]  # (1, W)
+    tags = torch.where(j_abs < lengths[:, None], j_abs, -1)       # (B, W)
+    q_pos = (lengths - t)[:, None] + torch.arange(t, device=q.device)[None]
+    mask = layers.attention_mask(q_pos, tags, causal=True, window=window)
+    mask &= (tags >= 0)[:, None, :]                               # (B, T, W)
+    out = layers.sdpa(q, k_all, v_all, mask, scale)
+    return torch.where(mask.any(-1)[..., None, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def paged_prefill_attention_ref(q: torch.Tensor, k_new: torch.Tensor,

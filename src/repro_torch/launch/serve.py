@@ -6,7 +6,8 @@ paths).
         [--smoke] [--device cpu] --requests 8 --max-tokens 16 \\
         [--prompt-len 4 12] [--profile-ticks N] [--quant int8] \\
         [--paged [--page-size 16] [--num-pages N] [--no-prefix-cache] \\
-         [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost]]
+         [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost] \\
+         [--spec-k K [--spec-drafter oracle]]]
 
 Runs on the card unless ``--device cpu`` is given. The full-width model is
 built in bf16 from a seed; ``--smoke`` builds the arch's reduced config in
@@ -18,6 +19,11 @@ nothing about the card's joules.
 through K4, an int8 KV cache through the int8-KV modes of K1-K3); the
 carbon report's bytes moved and modeled J/token fall against the
 unquantized run of the same workload.
+
+``--spec-k K`` (paged only) decodes speculatively: K drafted tokens per
+slot per tick, verified in one multi-query pass (K5 on the card); the run
+prints its accept rate, emitted tokens per slot-tick and modeled J per
+accepted token.
 
 ``--profile-ticks N`` runs N decode ticks under ``torch.profiler`` once
 every slot is decoding and prints the kernels with the most device time
@@ -122,6 +128,14 @@ def main(argv=None) -> None:
     ap.add_argument("--quant", default="none", choices=("none", "int8"),
                     help="int8: serve through the quantized fast path "
                          "(int8 weights + int8 KV cache)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decode: draft this many tokens per "
+                         "tick and verify them in one multi-query pass "
+                         "(paged mode only; 0 = off)")
+    ap.add_argument("--spec-drafter", default="ngram",
+                    choices=("ngram", "oracle"),
+                    help="ngram: prompt-lookup self-drafting; oracle: the "
+                         "target model drafts itself (parity harness)")
     args = ap.parse_args(argv)
     if args.requests < 0 or args.max_tokens < 1 or args.slots < 1:
         ap.error("--requests >= 0, --max-tokens >= 1 and --slots >= 1")
@@ -136,6 +150,11 @@ def main(argv=None) -> None:
         ap.error(f"--prefill-chunk must be >= 0, got {args.prefill_chunk}")
     if args.num_pages is not None and args.num_pages <= 0:
         ap.error(f"--num-pages must be > 0, got {args.num_pages}")
+    if args.spec_k < 0:
+        ap.error(f"--spec-k must be >= 0, got {args.spec_k}")
+    if args.spec_k > 0 and not args.paged:
+        ap.error("--spec-k requires --paged (speculative decode runs on "
+                 "the paged path only)")
 
     dev = device_lib.resolve(args.device)
     arch = cfgbase.get(args.arch)
@@ -154,7 +173,8 @@ def main(argv=None) -> None:
                        prefix_cache=not args.no_prefix_cache,
                        prefill_chunk=args.prefill_chunk,
                        compact_threshold=args.compact_threshold,
-                       evict_policy=args.evict_policy, quant=args.quant)
+                       evict_policy=args.evict_policy, quant=args.quant,
+                       spec_k=args.spec_k, spec_drafter=args.spec_drafter)
     try:    # the engine checks how the paged flags combine
         eng = ServeEngine(params, cfg, scfg, accountant=acct,
                           scheduler=Scheduler(SchedulerConfig(
@@ -177,6 +197,11 @@ def main(argv=None) -> None:
     s = eng.summary()
     print("summary:", json.dumps(s))
     rep = acct.report()
+    if args.spec_k > 0:
+        print(f"speculative decode (k={args.spec_k}, {args.spec_drafter}): "
+              f"{s['accept_rate']:.1%} accept rate, "
+              f"{s['accepted_tokens_per_tick']:.2f} emitted tokens/slot-tick, "
+              f"J/accepted-token {rep['spec']['j_per_accepted_token']:.3e}")
     if dev.type == "cpu":
         rep = {k: v for k, v in rep.items() if k not in WALL_KEYS}
         print("carbon report (CPU run: wall-time-derived keys left out):",

@@ -115,3 +115,25 @@ def prefill_span_flops(matmul_elems: float, n_attn: int, attn_dims: int,
     end = float(start) + float(n_tok)
     return (2.0 * matmul_elems * float(n_tok)
             + 2.0 * n_attn * attn_dims * (end * end - float(start) ** 2))
+
+
+def spec_verify_flops(matmul_elems: float, n_attn: int, attn_dims: int,
+                      ctx_sum: float, n_active: int, width: int) -> float:
+    """Modeled FLOPs of one speculative verification pass: a q-block of
+    ``width`` tokens per active slot through the matmul weights ONCE, with
+    causal attention — lane t of a slot at live context c attends c + t
+    keys, so the attention term is ``sum_t (c + t) = width*c +
+    width*(width-1)/2`` per slot."""
+    return (2.0 * matmul_elems * width * n_active
+            + 4.0 * n_attn * attn_dims
+            * (width * ctx_sum + n_active * width * (width - 1) / 2.0))
+
+
+def spec_oracle_draft_flops(matmul_elems: float, n_attn: int, attn_dims: int,
+                            ctx_sum: float, n_active: int, k: int) -> float:
+    """Modeled FLOPs of the ``oracle`` drafter: ``k`` sequential plain
+    decode passes of the target model itself, context growing by one per
+    pass."""
+    return sum(decode_tick_flops(matmul_elems, n_attn, attn_dims,
+                                 ctx_sum + j * n_active, n_active)
+               for j in range(k))

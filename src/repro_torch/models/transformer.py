@@ -12,7 +12,8 @@ counterpart of the JAX engine donating its cache to the jitted tick.
 Per-slot positions send decode attention through ``kernels.ops`` (the K1
 kernel on the card); a scalar position takes the masked ``sdpa`` path, as
 in JAX. The paged pool (``init_paged_caches``) is updated in place too:
-``paged_decode_step`` attends through K2 and ``paged_extend`` through K3.
+``paged_decode_step`` attends through K2, ``paged_extend`` through K3 and
+the speculative ``paged_verify_step`` (T query lanes per slot) through K5.
 SSD, MoE, shared attention, M-RoPE and ring caches are not ported yet and
 raise ``NotImplementedError``.
 
@@ -461,7 +462,9 @@ def _paged_decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
     """One-token attention against the paged pool, written in place. ``pos``
     is (B,) per-slot positions; ``active`` routes dead lanes' writes to the
     sink page, since their table rows may name pages recycled to other
-    slots."""
+    slots, and so does a position past the table's capacity (the oracle
+    drafter's passes reach it at the max_len edge), which would otherwise
+    overwrite a row of the slot's last page."""
     acfg = cfg.attn_cfg(spec.window)
     b = x.shape[0]
     kv = cache["kv"]
@@ -471,13 +474,61 @@ def _paged_decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
     q, k_new, v_new = layers._project_qkv(p["attn"], acfg, x, pos[:, None])
     rows = torch.arange(b, device=x.device)
     blk = (pos // ps).clamp(0, nb - 1)
-    page = torch.where(active, page_table[rows, blk].long(), sink)
+    page = torch.where(active & (pos < nb * ps), page_table[rows, blk].long(),
+                       sink)
     off = pos % ps
     _write_kv(cache, (page, off), k_new[:, 0], v_new[:, 0])
     out = ops.paged_decode_attention(
         q[:, 0], kv.k, kv.v, page_table, (pos + 1).to(torch.int32),
         scale=acfg.scale, window=spec.window, **_kv_scales(cache))[:, None]
     return _out_proj(p, acfg, out)
+
+
+def _paged_verify_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
+                       page_table, active):
+    """Multi-query attention of the speculative verify pass: T tokens per
+    slot at positions ``pos + t``, every lane's K/V written in place
+    through the table (int8 pools get codes and scales), then each lane
+    attends the slot's chain causally *through the storage dtype*, its own
+    lanes included (``ops.paged_verify_attention``, K5 on the card), as
+    sequential ``paged_decode_step`` ticks would see it. Inactive slots'
+    lanes and positions past the table's capacity write to the sink page.
+    Rejected lanes need no cleanup: the engine does not advance ``pos``
+    past the accepted prefix, and the next tick overwrites them."""
+    acfg = cfg.attn_cfg(spec.window)
+    b, t = x.shape[:2]
+    kv = cache["kv"]
+    ps = kv.k.shape[1]
+    nb = page_table.shape[1]
+    sink = kv.k.shape[0] - 1
+    pos_abs = pos[:, None] + torch.arange(t, device=x.device)[None]  # (B, T)
+    q, k_new, v_new = layers._project_qkv(p["attn"], acfg, x, pos_abs)
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, t)
+    blk = (pos_abs // ps).clamp(0, nb - 1)
+    writable = active[:, None] & (pos_abs < nb * ps)
+    page = torch.where(writable, page_table[rows, blk].long(), sink)
+    _write_kv(cache, (page, pos_abs % ps), k_new, v_new)
+    # lengths count the lanes; a lane sunk past the capacity has no key
+    # of its own, and the engine never emits from it
+    out = ops.paged_verify_attention(
+        q, kv.k, kv.v, page_table, (pos + t).to(torch.int32),
+        scale=acfg.scale, window=spec.window, **_kv_scales(cache))
+    return _out_proj(p, acfg, out)
+
+
+def _paged_walk(params, cfg: LMConfig, tokens, pos, page_table, caches,
+                active, attn) -> torch.Tensor:
+    """Every layer of a paged step with ``attn`` as its attention; returns
+    the logits of every token, (B, T, V) fp32."""
+    if active is None:
+        active = torch.ones(tokens.shape[0], dtype=torch.bool,
+                            device=tokens.device)
+    x = layers.embed(params["embed"], tokens)
+    for spec, p, cache in _layers(params, cfg, caches):
+        h = layers.rms_norm(p["norm_attn"], x)
+        x = x + attn(p, cfg, spec, h, cache, pos, page_table, active)
+        x = _ffn(p, cfg, spec, x)
+    return _lm_head(params, cfg, x)
 
 
 def paged_decode_step(params, cfg: LMConfig, token: torch.Tensor,
@@ -492,16 +543,29 @@ def paged_decode_step(params, cfg: LMConfig, token: torch.Tensor,
     ``active`` (B,) bool: lanes that are really decoding. Inactive lanes
     still run through the batch, but their K/V writes go to the sink page.
     """
-    if active is None:
-        active = torch.ones(token.shape[0], dtype=torch.bool,
-                            device=token.device)
-    x = layers.embed(params["embed"], token)
-    for spec, p, cache in _layers(params, cfg, caches):
-        h = layers.rms_norm(p["norm_attn"], x)
-        x = x + _paged_decode_attn(p, cfg, spec, h, cache, pos, page_table,
-                                   active)
-        x = _ffn(p, cfg, spec, x)
-    return _lm_head(params, cfg, x), caches
+    return _paged_walk(params, cfg, token, pos, page_table, caches, active,
+                       _paged_decode_attn), caches
+
+
+def paged_verify_step(params, cfg: LMConfig, tokens: torch.Tensor,
+                      pos: torch.Tensor, page_table: torch.Tensor,
+                      caches: Dict[str, PyTree],
+                      active: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, PyTree]]:
+    """Speculative verification step: score T tokens per slot in ONE
+    forward pass against the paged pools, updated in place.
+
+    tokens (B, T) — per slot, the pending token followed by T - 1 drafts;
+    pos (B,) — cache length before the step (token t lands at ``pos + t``);
+    page_table (B, NB) int32; ``active`` as in ``paged_decode_step``.
+    Returns (logits (B, T, V) fp32, caches): row t is the distribution of
+    the token after ``tokens[:, :t + 1]``, so draft t is checked against
+    row t - 1 and row T - 1 gives the bonus token. Attention reads every
+    key through the storage dtype, so lane t's logits are what a plain
+    ``paged_decode_step`` at ``pos + t`` would give.
+    """
+    return _paged_walk(params, cfg, tokens, pos, page_table, caches, active,
+                       _paged_verify_attn), caches
 
 
 def paged_extend(params, cfg: LMConfig, tokens: torch.Tensor,

@@ -1,6 +1,7 @@
 """Serving stack of the PyTorch port (mirror of ``repro.serve``, dense and
-paged paths, fp and int8): the fused engine, its host-loop oracle, the
-quality oracles, the scheduler and the page pool."""
+paged paths, fp and int8, speculative decode on the paged path): the fused
+engine, its host-loop oracle, the quality oracles, the scheduler, the page
+pool and the speculative drafter and accept step."""
 
 from repro_torch.serve.engine import (ACCOUNTING_EXEMPT, DeviceState,  # noqa: F401
                                       Request, ServeConfig, ServeEngine,
@@ -11,3 +12,5 @@ from repro_torch.serve.quality import (generation_agreement,  # noqa: F401
                                        run_workload, token_agreement)
 from repro_torch.serve.reference import ReferenceEngine  # noqa: F401
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig  # noqa: F401
+from repro_torch.serve.spec import (DRAFTERS, ngram_draft,  # noqa: F401
+                                    speculative_accept)

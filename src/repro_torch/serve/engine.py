@@ -1,5 +1,6 @@
 """Device-resident continuous-batching serve core of the PyTorch port
-(mirror of the dense and paged paths of ``repro.serve.engine``).
+(mirror of the dense, paged and speculative paths of
+``repro.serve.engine``).
 
 Dense: submit -> ``Scheduler`` -> padded admission prefill -> one decode
 tick -> one host readback -> ``StepMetrics`` -> ``CarbonAccountant``.
@@ -22,13 +23,22 @@ place; PyTorch runs eagerly, so there is no trace to count.
 ``ServeConfig.quant="int8"`` serves through the quantized fast path on
 either path: the weight tree is quantized to int8 per output channel at
 construction (every projection through K4 on the card) and the KV cache or
-pool holds int8 codes plus fp32 row scales (K1/K2/K3 in their int8-KV
+pool holds int8 codes plus fp32 row scales (K1/K2/K3/K5 in their int8-KV
 modes); the byte bills follow the resident codes and scales.
 
-Not ported yet (ROADMAP queue 1): speculative decode, copy-on-write forks,
-the chaos tier (with the int8 mode's fp oracle, drift check and fp
-fallback) and durability. A slot whose logits go non-finite therefore
-raises instead of being quarantined.
+Speculative decode (``ServeConfig.spec_k > 0``, paged only, either quant
+mode): each tick drafts ``spec_k`` tokens per slot (``serve/spec.py``: the
+``ngram`` drafter over a device-resident token history, or ``oracle``,
+``spec_k`` plain paged decode passes through K2), scores them in ONE
+``paged_verify_step`` (K5), accepts a prefix plus a correction or bonus
+token, and reads back one packed (3, B) ``[done, emitted, bad]`` array.
+The bill splits draft and verify. At temperature 0 the streams are the
+plain paged engine's.
+
+Not ported yet (ROADMAP queue 1): copy-on-write forks and tree
+speculation, the chaos tier (with the spec-k backoff, the int8 mode's fp
+oracle, drift check and fp fallback) and durability. A slot whose logits
+go non-finite therefore raises instead of being quarantined.
 """
 
 from __future__ import annotations
@@ -45,7 +55,9 @@ from repro_torch.core import accounting
 from repro_torch.models import costing
 from repro_torch.models import layers
 from repro_torch.models import transformer as tf_lib
+from repro_torch.serve import spec as spec_lib
 from repro_torch.serve.pages import ROOT, PagePool, block_tokens, fragmentation
+from repro_torch.serve.sampling import _sample
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
 
 PyTree = Any
@@ -82,6 +94,17 @@ class ServeConfig:
     # weight tree (per-channel scales) AND the KV cache (per-row scales);
     # cache_dtype is then ignored for K/V
     quant: str = "none"
+    # speculative multi-token decode on the paged path: draft spec_k tokens
+    # per slot per tick, verify them in ONE multi-query pass, commit the
+    # accepted prefix plus a correction/bonus token. 0 = off
+    spec_k: int = 0
+    # "ngram": prompt lookup over each slot's own token history; "oracle":
+    # the target model drafts itself greedily (k extra decode passes, the
+    # accept-all parity harness)
+    spec_drafter: str = "ngram"
+    # tree speculation (branches over copy-on-write page forks): 1 = linear.
+    # Only 1 is ported (ROADMAP queue 1, item 6)
+    spec_tree_m: int = 1
 
 
 @dataclasses.dataclass
@@ -177,6 +200,10 @@ class DeviceState:
     # PagePool owns allocation; entries past a slot's pages point at the
     # sink page). Dense mode: (B, 0).
     page_table: torch.Tensor
+    # speculative mode: (B, max_len) token history per slot (prompt +
+    # emitted), valid through pos inclusive — hist[b, pos[b]] is the
+    # pending token; the ngram drafter's corpus. (B, 0) otherwise.
+    hist: torch.Tensor
 
 
 def cache_tensors(entry) -> List[torch.Tensor]:
@@ -212,6 +239,28 @@ class ServeEngine:
                              f"{serve_cfg.compact_threshold}")
         if serve_cfg.quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {serve_cfg.quant!r}")
+        if serve_cfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {serve_cfg.spec_k}")
+        if serve_cfg.spec_k > 0 and not serve_cfg.paged:
+            raise ValueError("speculative decode (spec_k > 0) runs on the "
+                             "paged path only; set paged=True")
+        if serve_cfg.spec_drafter not in spec_lib.DRAFTERS:
+            raise ValueError(f"unknown drafter {serve_cfg.spec_drafter!r}; "
+                             f"expected one of {spec_lib.DRAFTERS}")
+        if serve_cfg.spec_tree_m < 1:
+            raise ValueError(f"spec_tree_m must be >= 1, got "
+                             f"{serve_cfg.spec_tree_m}")
+        if serve_cfg.spec_tree_m > 1 and serve_cfg.spec_k <= 0:
+            raise ValueError("tree speculation (spec_tree_m > 1) rides the "
+                             "speculative verify pass; set spec_k > 0")
+        if serve_cfg.spec_tree_m > 1 and serve_cfg.spec_drafter != "ngram":
+            raise ValueError("tree speculation drafts with the ngram "
+                             "drafter only (the oracle drafter is a linear "
+                             "parity harness)")
+        if serve_cfg.spec_tree_m > 1:
+            raise NotImplementedError(
+                "tree speculation (spec_tree_m > 1) is not ported yet "
+                "(ROADMAP queue 1, item 6)")
         self.device = device_lib.resolve(serve_cfg.device)
         if params["embed"]["w"].device != self.device:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
@@ -278,7 +327,9 @@ class ServeEngine:
             tok=zeros(), pos=zeros(), gen=zeros(), budget=zeros(),
             active=zeros(torch.bool), temp=zeros(torch.float32), uid=zeros(),
             out_buf=torch.zeros((b, cap), dtype=torch.int64, device=dev),
-            page_table=page_table)
+            page_table=page_table,
+            hist=torch.zeros((b, cap if scfg.spec_k > 0 else 0),
+                             dtype=torch.int64, device=dev))
         # host mirrors (admission + finished-mask readbacks keep them exact)
         self.slot_req: List[Optional[Request]] = [None] * b
         self._host_gen = [0] * b
@@ -424,8 +475,12 @@ class ServeEngine:
 
     def _pages_needed(self, prompt_len: int, max_tokens: int) -> int:
         """Worst-case (no-hit) page demand of a request: its full possible
-        context, prompt + budget, capped at max_len."""
-        ctx = min(prompt_len + max_tokens, self.scfg.max_len)
+        context, prompt + budget, capped at max_len. Speculative mode books
+        ``spec_k`` extra tokens: a verify tick writes up to k draft
+        positions past the committed length, and booking them keeps those
+        writes in the slot's own private pages."""
+        ctx = min(prompt_len + max_tokens + self.scfg.spec_k,
+                  self.scfg.max_len)
         return -(-ctx // self.scfg.page_size)
 
     def _defer_admission(self, req: Request, hits: List[int], n_hit0: int,
@@ -470,6 +525,16 @@ class ServeEngine:
         st.uid[slots] = uids
         st.out_buf[slots] = 0
         st.out_buf[slots, 0] = tok0
+        if st.hist.shape[1]:
+            # speculative mode: mirror the chunk, and the first sampled
+            # token of final rows, into the drafter's token history
+            c = torch.arange(st.hist.shape[1], device=self.device)[None]
+            rel = c - starts[:, None]
+            chunk = toks.gather(1, rel.clamp(0, toks.shape[1] - 1))
+            row = torch.where((rel >= 0) & (rel < lens[:, None]), chunk,
+                              st.hist[slots])
+            st.hist[slots] = torch.where(final[:, None] & (c == end[:, None]),
+                                         tok0[:, None], row)
         return done
 
     def _admit_paged(self, finished: List[Request]) -> _AdmitInfo:
@@ -728,6 +793,83 @@ class ServeEngine:
         st.active &= ~done & ~bad
         return torch.stack([done, bad]).to(torch.int32)
 
+    def _spec_tick(self, sampled: bool) -> torch.Tensor:
+        """One speculative tick on the device: draft ``spec_k`` tokens per
+        slot, verify them with the pending token in ONE
+        ``paged_verify_step``, accept a prefix plus a correction or bonus
+        token, clamp the run at the budget, the context cap and EOS, and
+        write the output buffer and the history. Returns the packed (3, B)
+        int32 ``[done, emitted, bad]``."""
+        scfg, st = self.scfg, self.state
+        k, max_len = scfg.spec_k, scfg.max_len
+        active = st.active
+        if scfg.spec_drafter == "oracle":
+            # the target model drafts itself greedily: k plain decode
+            # passes; the verify pass rewrites the same positions with the
+            # same values
+            d_list = []
+            tok_j, pos_j = st.tok, st.pos
+            for _ in range(k):
+                lg, _ = tf_lib.paged_decode_step(
+                    self.params, self.cfg, tok_j[:, None], pos_j,
+                    st.page_table, st.caches, active=active)
+                nxt = torch.argmax(lg[:, 0], dim=-1)
+                d_list.append(nxt)
+                tok_j = torch.where(active, nxt, tok_j)
+                pos_j = pos_j + active
+            drafts = torch.stack(d_list, dim=1)             # (B, K)
+        else:
+            drafts = spec_lib.ngram_draft(st.hist, st.pos, k)
+        chunk = torch.cat([st.tok[:, None], drafts], dim=1)
+        logits, _ = tf_lib.paged_verify_step(
+            self.params, self.cfg, chunk, st.pos, st.page_table, st.caches,
+            active=active)                                   # (B, K+1, V)
+        # numerics sentinel over the whole q-block: a non-finite logit in
+        # any lane voids the slot's tick
+        bad = active & ~torch.isfinite(logits).flatten(1).all(dim=1)
+        ok = active & ~bad
+        n_acc, fix_tok = spec_lib.speculative_accept(
+            logits, drafts, st.temp, seed=scfg.seed, uid=st.uid, gen=st.gen,
+            sampled=sampled)
+        # never past the token budget or the context cap: exactly where the
+        # plain tick would have stopped
+        rem = torch.minimum(st.budget - st.gen, max_len - 1 - st.pos)
+        n_emit = torch.minimum(n_acc + 1, rem).clamp(1, k + 1)
+        t_idx = torch.arange(k + 1, device=self.device)[None]  # (1, K+1)
+        drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])],
+                               dim=1)
+        emitted = torch.where(t_idx < n_acc[:, None], drafts_pad,
+                              fix_tok[:, None])             # (B, K+1)
+        if scfg.eos_id >= 0:
+            # an EOS anywhere in the emitted run ends it there
+            eos_lane = torch.where(emitted == scfg.eos_id, t_idx,
+                                   k + 1).amin(dim=1)
+            n_emit = torch.minimum(n_emit, eos_lane + 1)
+        n_step = torch.where(ok, n_emit, torch.zeros_like(n_emit))
+
+        def commit(buf, first):
+            # columns [first, first + n_step) of each row take the run
+            c = torch.arange(buf.shape[1], device=self.device)[None]
+            rel = c - first[:, None]
+            run = emitted.gather(1, rel.clamp(0, k))
+            buf.copy_(torch.where((rel >= 0) & (rel < n_step[:, None]), run,
+                                  buf))
+
+        commit(st.out_buf, st.gen)
+        commit(st.hist, st.pos + 1)
+        last = emitted.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+        tok_new = torch.where(ok, last, st.tok)
+        st.pos += n_step
+        st.gen += n_step
+        hit_eos = (tok_new == scfg.eos_id if scfg.eos_id >= 0
+                   else torch.zeros_like(ok))
+        done = ok & (hit_eos | (st.gen >= st.budget)
+                     | (st.pos >= max_len - 1))
+        st.tok = tok_new
+        st.active &= ~done & ~bad
+        return torch.stack([done.to(torch.int32), n_step.to(torch.int32),
+                            bad.to(torch.int32)])
+
     def step(self) -> List[Request]:
         """Admit + one decode tick. Returns finished requests."""
         t0 = time.monotonic()
@@ -744,17 +886,28 @@ class ServeEngine:
         # captured before finishes clear the slot: the paged KV read bill
         ctx = sum(len(self.slot_req[i].prompt) + self._host_gen[i]
                   for i in active) if paged else 0
+        spec_k = self.scfg.spec_k
+        emitted = len(active)       # decode tokens this tick (plain: 1/slot)
+        accepted = 0
         if active:
-            packed = self._tick(sampled=any(self._host_temp[i] > 0
-                                            for i in active))
+            sampled = any(self._host_temp[i] > 0 for i in active)
+            packed = (self._spec_tick(sampled) if spec_k > 0
+                      else self._tick(sampled))
             arr = self._readback(packed)    # the ONE hot-path transfer
-            done_mask, bad_mask = arr[0].astype(bool), arr[1].astype(bool)
+            # done is the first row and bad the last of either packing
+            done_mask, bad_mask = arr[0].astype(bool), arr[-1].astype(bool)
             if bad_mask.any():
                 raise RuntimeError(
                     f"non-finite logits in slots {np.nonzero(bad_mask)[0]}; "
                     f"quarantine is not ported yet")
+            if spec_k > 0:
+                n_emit = arr[1]
+                emitted = int(n_emit.sum())
+                accepted = int(np.maximum(n_emit - 1, 0).sum())
+            else:
+                n_emit = np.ones(len(arr[0]), np.int64)
             for i in active:
-                self._host_gen[i] += 1
+                self._host_gen[i] += int(n_emit[i])
             for i in np.nonzero(done_mask)[0]:
                 if (self.slot_req[int(i)] is not None
                         and int(i) not in self._prefilling):
@@ -763,10 +916,36 @@ class ServeEngine:
         # once; the dense tick reads the whole resident KV payload (every
         # slot billed at max_len, as the JAX dense path bills it), the paged
         # tick only the decoding slots' live context, page-granular;
-        # admission adds its own prefill bill
+        # admission adds its own prefill bill. The speculative tick bills
+        # draft and verify apart: the verify pass streams the weights ONCE
+        # for k + 1 lanes per slot and reads the live context plus the
+        # lanes' write and read-back; the ngram drafter scans one int32
+        # history row per slot, the oracle streams the weights k times
         na = len(active)
         wb = kvb = fl = 0.0
-        if active:
+        d_fl = d_by = v_fl = v_by = 0.0
+        if active and spec_k > 0:
+            width = spec_k + 1
+            v_fl = costing.spec_verify_flops(
+                self._matmul_elems, self._n_attn, self._attn_dims, ctx, na,
+                width)
+            v_kv = self._kv_token_bytes * (ctx + 2.0 * width * na)
+            v_by = self.weight_bytes + v_kv
+            if self.scfg.spec_drafter == "oracle":
+                d_fl = costing.spec_oracle_draft_flops(
+                    self._matmul_elems, self._n_attn, self._attn_dims, ctx,
+                    na, spec_k)
+                d_kv = self._kv_token_bytes * (
+                    spec_k * ctx + na * spec_k * (spec_k - 1) / 2.0)
+                d_wb = spec_k * self.weight_bytes
+            else:
+                d_kv = 4.0 * self.scfg.max_len * na
+                d_wb = 0.0
+            d_by = d_wb + d_kv
+            wb += self.weight_bytes + d_wb
+            kvb += v_kv + d_kv
+            fl += v_fl + d_fl
+        elif active:
             wb += self.weight_bytes
             if paged:
                 kvb += self._kv_token_bytes * ctx
@@ -785,7 +964,7 @@ class ServeEngine:
         if moves:
             # each relocated page is one pool read + one pool write
             kvb += 2.0 * moves * self.scfg.page_size * self._kv_token_bytes
-        m = StepMetrics(tokens=na, active_slots=na,
+        m = StepMetrics(tokens=emitted, active_slots=na,
                         wall_s=time.monotonic() - t0,
                         prefill_tokens=adm.prefill_tokens,
                         admitted=adm.admitted,
@@ -794,6 +973,10 @@ class ServeEngine:
                         prefix_hit_tokens=adm.prefix_hit_tokens,
                         saved_bytes=adm.saved_bytes,
                         saved_flops=adm.saved_flops,
+                        spec_draft_tokens=spec_k * na,
+                        spec_accepted_tokens=accepted,
+                        draft_flops=d_fl, draft_bytes=d_by,
+                        verify_flops=v_fl, verify_bytes=v_by,
                         prefill_gather_bytes=adm.gather_bytes,
                         compaction_moves=moves)
         self.last_metrics = m
@@ -837,49 +1020,17 @@ class ServeEngine:
             out["pool_pages"] = self.pool.num_pages
             out["pool_pages_live"] = self.pool.live
             out["pool_hit_rate"] = self.pool.stats.hit_rate
+        if self.scfg.spec_k > 0:
+            drafted = sum(m.spec_draft_tokens for m in self.metrics_log)
+            accepted = sum(m.spec_accepted_tokens for m in self.metrics_log)
+            slot_ticks = sum(m.active_slots for m in self.metrics_log)
+            out["spec_draft_tokens"] = drafted
+            out["spec_accepted_tokens"] = accepted
+            out["accept_rate"] = accepted / drafted if drafted > 0 else 0.0
+            # emitted decode tokens per slot-tick (plain decode: 1.0)
+            out["accepted_tokens_per_tick"] = (
+                toks / slot_ticks if slot_ticks > 0 else 0.0)
+            # the backoff rung belongs to the chaos tier (ROADMAP item 7)
+            out["spec_backoffs"] = 0
+            out["spec_k_current"] = self.scfg.spec_k
         return out
-
-
-# -- sampling -----------------------------------------------------------------
-
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash on int64 tensors holding values in [0, 2^32);
-    both multipliers are below 2^31, so no product leaves int64's range."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x68E31DA5) & _M32
-    return x ^ (x >> 16)
-
-
-def _uniform(seed: int, uid: torch.Tensor, index: torch.Tensor,
-             vocab: int) -> torch.Tensor:
-    """(B, vocab) uniforms in (0, 1), a pure function of (seed, uid, token
-    index, vocab id): counter-based, so a draw does not depend on the slot
-    a request lands in or on the other requests of the batch."""
-    key = _mix32(torch.full_like(uid, seed & _M32))
-    key = _mix32(key ^ (uid & _M32))
-    key = _mix32(key ^ (index & _M32))                      # (B,)
-    ids = torch.arange(vocab, dtype=torch.int64, device=uid.device)
-    h = _mix32(_mix32(key[:, None] ^ ((ids * 0x9E3779B9) & _M32)[None]))
-    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-
-
-def _sample(logits: torch.Tensor, seed: int, uid: torch.Tensor,
-            index: torch.Tensor, temp: torch.Tensor, *,
-            sampled: bool) -> torch.Tensor:
-    """Per-slot sampling: greedy where temp == 0, else Gumbel-max at temp
-    with noise keyed on (seed, uid, token index). JAX's threefry bits are
-    not reproduced; the distribution is the same. ``sampled`` is the host's
-    knowledge that some slot has temp > 0 (no device sync to find out)."""
-    greedy = torch.argmax(logits, dim=-1)
-    if not sampled:
-        return greedy
-    u = _uniform(seed, uid, index, logits.shape[-1])
-    gumbel = -torch.log(-torch.log(u))
-    tsafe = torch.where(temp > 0, temp, torch.ones_like(temp))
-    drawn = torch.argmax(logits / tsafe[:, None] + gumbel, dim=-1)
-    return torch.where(temp > 0, drawn, greedy)

@@ -24,7 +24,8 @@ from repro_torch.core import accounting
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.layers import KVCache
 from repro_torch.serve.engine import (PyTree, Request, ServeConfig,
-                                      StepMetrics, _sample, cache_tensors)
+                                      StepMetrics, cache_tensors)
+from repro_torch.serve.sampling import _sample
 
 
 def _row(caches: PyTree, slot: int) -> PyTree:

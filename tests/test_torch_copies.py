@@ -1,7 +1,8 @@
 """Modules the port keeps as copies (it imports nothing of ``repro``) must
 behave as their originals: the scheduler and the page pool state for
-state, the sustainability engine and the int8 quantizer's constants value
-for value. The only difference allowed is the port's extra ``h100_sxm``
+state, the sustainability engine, the int8 quantizer's constants, the
+speculative drafters' names and the speculative cost model value for
+value. The only difference allowed is the port's extra ``h100_sxm``
 device.
 """
 
@@ -16,10 +17,12 @@ from repro.core import hw as j_hw
 from repro.core import lca as j_lca
 from repro.core import roofline as j_rl
 from repro.core import sustain as j_sustain
+from repro.models import costing as j_costing
 from repro.quant import int8 as j_int8
 from repro.serve import engine as j_engine
 from repro.serve import pages as j_pages
 from repro.serve import scheduler as j_sched
+from repro.serve import spec as j_spec
 from repro_torch.core import energy as t_energy
 from repro_torch.core import grid as t_grid
 from repro_torch.core import hw as t_hw
@@ -31,6 +34,7 @@ from repro_torch.quant import int8 as t_int8
 from repro_torch.serve import engine as t_engine
 from repro_torch.serve import pages as t_pages
 from repro_torch.serve import scheduler as t_sched
+from repro_torch.serve import spec as t_spec
 
 POLICIES = [("fifo", 0), ("longest_prompt", 0), ("longest_prompt", 3)]
 
@@ -218,3 +222,19 @@ def test_int8_constants_equal(name):
     assert t_costing.SERVING_QUANT_KEYS is t_int8.SERVING_QUANT_KEYS
     for key in j_int8.SERVING_QUANT_KEYS:
         assert t_int8.weight_out_dims(key) == j_int8.weight_out_dims(key)
+
+
+def test_spec_drafters_equal():
+    assert t_spec.DRAFTERS == j_spec.DRAFTERS
+
+
+# (matmul_elems, n_attn, attn_dims, ctx_sum, n_active, width or k)
+SPEC_COST_ARGS = [(1.5e6, 2, 48, 0.0, 1, 1), (6.9e9, 32, 4608, 5123.0, 8, 5),
+                  (2.3e4, 3, 64, 97.0, 3, 3)]
+
+
+@pytest.mark.parametrize("fn", ["spec_verify_flops",
+                                "spec_oracle_draft_flops"])
+@pytest.mark.parametrize("args", SPEC_COST_ARGS)
+def test_spec_costing_equal(fn, args):
+    assert getattr(t_costing, fn)(*args) == getattr(j_costing, fn)(*args)

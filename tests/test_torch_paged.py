@@ -487,13 +487,13 @@ def test_launcher_serves_paged_on_cpu(capsys):
 
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """Each library's key hashes its source and every csrc/ header it
-    includes, so an edited shared header rebuilds K1 and K2 (computing the
-    key compiles nothing)."""
+    includes, so an edited shared header rebuilds K1, K2 and K5 (computing
+    the key compiles nothing)."""
     import shutil
 
     from repro_torch.kernels import build
     attention = ("decode_attention", "paged_decode_attention",
-                 "paged_prefill_attention")
+                 "paged_prefill_attention", "paged_verify_attention")
     assert set(build.SOURCES) == set(attention) | {"int8_matmul"}
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
