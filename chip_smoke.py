@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the main path's shapes, then drives the
 dense, the paged and the speculative serve paths of starcoder2-7b at full
 width and full depth with random weights from a seed, unquantized and in
-the int8 mode.
+the int8 mode, and the fused training tick at full width and 8 layers.
 Phases, each printing JSON lines; any failure raises, so the script exits
 non-zero and prints no result:
 
@@ -62,12 +62,30 @@ non-zero and prints no result:
    unquantized and int8: K5 launches must be spec ticks x 32, K2 none, K3
    extend calls x 32, K4 (spec ticks + extend calls) x 192; reports the
    accept rate, accepted tokens per tick and the draft/verify energy;
+4b. flash kernels: K6 (forward with lse), K7 (dQ) and K8 (dK, dV) against
+   their plain versions at the training path's shapes (B=2, S=2048, H=36,
+   Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
+   backward on the kernel's own out and lse; the library call is causal
+   ``F.scaled_dot_product_attention`` with K/V repeated to H heads, and
+   its autograd backward for K7 + K8 together;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
-   asserted);
-10. a ``kernels`` line, then the result line ``{"ok": true, "device": ...}``.
+   asserted); then the serve params are freed;
+10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
+   of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
+   ``sdpa`` route (explicit positions), the loss within 1e-5 and each
+   leaf within 1e-4 of its max, relative;
+11. train: ``TrainEngine.for_lm`` on the 8-layer full-width config, fp32
+   params and AdamW state, synthetic tokens, batch 2 x 2048, two ticks of
+   two steps: every loss and grad norm finite, one readback per tick, K6,
+   K7 and K8 launches each steps x 8; reports s/step, tokens/s, peak
+   memory, model FLOP/s over the fp32 peak and the accountant's train
+   block, then profiles one more tick (device time by kernel, busy
+   share);
+12. a ``kernels`` line, then the result line ``{"ok": true, "device": ...}``.
 
-Every counter is set to 0 just before each serve run and read just after.
+Every counter is set to 0 just before each serve or train run and read
+just after.
 Needs one card and no network. Exits non-zero without a card, and outside a
 checkout of the repository.
 """
@@ -75,6 +93,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -656,6 +675,345 @@ def phase_int8_matmul():
     return main
 
 
+# K6-K8 at the training path's shapes: starcoder2-7b's heads at B = 2,
+# S = 2048, causal, each (q dtype, window); the path's mode is fp32 with
+# no window. Tolerance, max abs error over the max abs of the plain
+# version's output: fp32 1e-4 (fp32 sums in another order over up to
+# 2048 keys, or 2048 x 9 query rows for dK/dV: about 1e-6 expected);
+# bf16 1e-2 (both round their fp32 results to bf16, 2^-8 relative, and
+# may straddle a rounding boundary)
+FLASH_B, FLASH_S = 2, 2048
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+MAIN_FLASH = ("float32", -1)
+TRAIN_LAYERS = 8
+
+
+def _flash_inputs(dtype):
+    """q, k, v and an output cotangent at the training path's shapes."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q = _randn(gen, (FLASH_B, FLASH_S, H, D), dtype)
+    k = _randn(gen, (FLASH_B, FLASH_S, HKV, D), dtype)
+    v = _randn(gen, (FLASH_B, FLASH_S, HKV, D), dtype)
+    dout = _randn(gen, (FLASH_B, FLASH_S, H, D), dtype)
+    return q, k, v, dout
+
+
+def _flash_pairs(s, window):
+    """Valid causal (query, key) pairs of one (batch, head) over S = s."""
+    return sum(i + 1 - (max(0, i - window + 1) if window > 0 else 0)
+               for i in range(s))
+
+
+def _flash_bounds(q, k, window):
+    """Least time of K6, K7 and K8 at these inputs: 4, 6 and 8 * D FLOPs
+    per valid (query, key) pair and head (K6: s and P V; K7 recomputes s
+    and dP and does dS K; K8 recomputes s and dP and does P^T dO and dS^T
+    Q) over the peak of the inputs' type, or their bytes (each input read
+    once, each output written once) over the HBM rate, the larger."""
+    b, s, h, d = q.shape
+    pairs = b * h * _flash_pairs(s, window)
+    qb = q.numel() * q.element_size()
+    kb = k.numel() * k.element_size()
+    rows = 4 * b * h * s                      # one fp32 lse or delta row
+    peak = _peak(q)
+    return {"flash_attention_fwd": _bound(2 * qb + 2 * kb + rows,
+                                          4.0 * d * pairs / peak),
+            "flash_attention_bwd_dq": _bound(3 * qb + 2 * kb + 2 * rows,
+                                             6.0 * d * pairs / peak),
+            "flash_attention_bwd_dkv": _bound(2 * qb + 4 * kb + 2 * rows,
+                                              8.0 * d * pairs / peak)}
+
+
+def _rel_err(got, want):
+    """(max abs error, that over the max abs of ``want``)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def phase_flash_kernels():
+    """K6, K7 and K8 against their plain versions in fp32 and bf16, with
+    windows -1 and 256, at the training path's shapes; the backward
+    kernels and the plain backward get the kernel's own out and lse. The
+    library yardstick is ``F.scaled_dot_product_attention`` (causal, K/V
+    repeated to H heads inside the timed call; a boolean mask for the
+    window), and its autograd backward for K7 + K8 together. Returns the
+    main-path rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    scale = D ** -0.5
+    rep = H // HKV
+    main = {}
+    for q_name, tol in FLASH_TOL.items():
+        q, k, v, dout = _flash_inputs(getattr(torch, q_name))
+        for window in WINDOWS:
+            kw = dict(scale=scale, causal=True, window=window)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = (dout.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                **kw)
+            torch.cuda.synchronize()
+            w_out, w_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+            w_dq, w_dk, w_dv = ref.flash_attention_bwd_ref(q, k, v, out, lse,
+                                                           dout, **kw)
+            errs = {"out": _rel_err(out, w_out), "lse": _rel_err(lse, w_lse),
+                    "dq": _rel_err(dq, w_dq), "dk": _rel_err(dk, w_dk),
+                    "dv": _rel_err(dv, w_dv)}
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (out, lse, dq, dk, dv))
+            dtypes_ok = (out.dtype, dq.dtype, dk.dtype, dv.dtype) == \
+                (q.dtype,) * 4 and lse.dtype == torch.float32
+            if not (finite and dtypes_ok
+                    and all(r <= tol for _, r in errs.values())):
+                raise AssertionError(
+                    f"flash kernels disagree with their plain versions: "
+                    f"{q_name}, window {window}: {errs} (tolerance {tol} of "
+                    f"the max), finite {finite}, dtypes {dtypes_ok}")
+            del w_out, w_lse, w_dq, w_dk, w_dv
+            mask = None if window <= 0 else ref.flash_mask(
+                FLASH_S, FLASH_S, causal=True, window=window, device="cuda")
+
+            def library(qq, kk, vv):
+                return F.scaled_dot_product_attention(
+                    qq.transpose(1, 2),
+                    kk.repeat_interleave(rep, dim=2).transpose(1, 2),
+                    vv.repeat_interleave(rep, dim=2).transpose(1, 2),
+                    attn_mask=mask, is_causal=mask is None, scale=scale)
+
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            with torch.enable_grad():
+                lib_out = library(*leaves)
+            lib_dout = dout.transpose(1, 2)
+            # the library's own results beside the kernels' (reported): an
+            # independent check of the plain versions
+            lib_grads = torch.autograd.grad(lib_out, leaves, lib_dout,
+                                            retain_graph=True)
+            lib_diff = {"out": _rel_err(out, lib_out.transpose(1, 2))[1],
+                        **{n: _rel_err(g, w)[1] for n, g, w in zip(
+                            ("dq", "dk", "dv"), (dq, dk, dv), lib_grads)}}
+            del lib_grads
+            times = {
+                "flash_attention_fwd": (
+                    cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, **kw),
+                            10),
+                    cuda_ms(lambda i: ref.flash_attention_fwd_ref(
+                        q, k, v, **kw), 3),
+                    cuda_ms(lambda i: library(q, k, v), 10)),
+                "flash_attention_bwd_dq": (
+                    cuda_ms(lambda i: fa.flash_attention_bwd_dq(
+                        q, k, v, dout, lse, delta, **kw), 10), None, None),
+                "flash_attention_bwd_dkv": (
+                    cuda_ms(lambda i: fa.flash_attention_bwd_dkv(
+                        q, k, v, dout, lse, delta, **kw), 10), None, None)}
+            # one plain backward and one library backward compute dq, dk
+            # and dv together: each is both K7's and K8's yardstick
+            plain_bwd = cuda_ms(lambda i: ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, dout, **kw), 3)
+            lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
+                lib_out, leaves, lib_dout, retain_graph=True), 10)
+            del lib_out, leaves
+            bounds = _flash_bounds(q, k, window)
+            err_of = {"flash_attention_fwd": ("out", "lse"),
+                      "flash_attention_bwd_dq": ("dq",),
+                      "flash_attention_bwd_dkv": ("dk", "dv")}
+            for name, (ms, plain_ms, library_ms) in times.items():
+                row = {"phase": "kernels", "kernel": name, "q": q_name,
+                       "window": window, "B": FLASH_B, "S": FLASH_S,
+                       "max_abs_err": max(errs[e][0] for e in err_of[name]),
+                       "max_rel_err": max(errs[e][1] for e in err_of[name]),
+                       "tol_rel_to_max": tol,
+                       "library_rel_diff": max(lib_diff.get(e, 0.0)
+                                               for e in err_of[name]),
+                       "ms": ms,
+                       "plain_ms": plain_ms if plain_ms is not None
+                       else plain_bwd,
+                       "library_ms": library_ms if library_ms is not None
+                       else lib_bwd,
+                       "bound_ms": bounds[name][0],
+                       "bound_by": bounds[name][1]}
+                emit(row)
+                if (q_name, window) == MAIN_FLASH:
+                    main[name] = row
+            del out, lse, delta, dq, dk, dv
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return main
+
+
+def _train_cfg(layers):
+    """starcoder2-7b at full width, cut to ``layers`` layers."""
+    from repro_torch.configs import starcoder2_7b
+    return dataclasses.replace(starcoder2_7b.make_config(), repeats=layers)
+
+
+def phase_train_parity():
+    """fp32, full width, 2 layers, B = 2, S = 1024, random weights from the
+    seed: the gradients of ``loss_fn`` through K6-K8 (``positions=None``)
+    against the same call with explicit arange positions (masked ``sdpa``
+    on the card). Tolerances: the loss within 1e-5 relative, each leaf's
+    max abs gradient difference within 1e-4 of that leaf's max abs
+    gradient: the two routes differ only in the order of the attention's
+    fp32 sums (about 1e-6 relative), carried through two layers' matmuls
+    and the loss. Returns the flash route's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.models.common import flatten
+    cfg = _train_cfg(2)
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
+                            device="cuda")
+    leaves, _ = flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1025))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    pos = torch.arange(1024, device="cuda").expand(2, 1024)
+    counters = _counters()
+    results = {}
+    for route, extra in (("flash", {}), ("sdpa", {"positions": pos})):
+        for fn in counters.values():
+            fn.launches = 0
+        loss, _ = tf_lib.loss_fn(params, cfg, {**batch, **extra})
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        results[route] = (loss.detach(), grads,
+                          {n: fn.launches for n, fn in counters.items()})
+    (l_f, g_f, launches), (l_s, g_s, sdpa_launches) = (results["flash"],
+                                                       results["sdpa"])
+    loss_rel = float((l_f - l_s).abs() / l_s.abs())
+    leaf_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(g_f, g_s))
+    want = {n: (2 if n.startswith("flash_attention") else 0)
+            for n in counters}
+    finite = bool(torch.isfinite(l_f)) and all(
+        bool(torch.isfinite(g).all()) for g in g_f)
+    row = {"phase": "train_parity", "layers": 2, "batch": 2, "seq": 1024,
+           "loss_flash": float(l_f), "loss_sdpa": float(l_s),
+           "loss_rel_diff": loss_rel, "max_leaf_rel_diff": leaf_rel,
+           "leaves": len(leaves), "launches": launches,
+           "sdpa_launches": sdpa_launches}
+    emit(row)
+    if not (finite and loss_rel <= 1e-5 and leaf_rel <= 1e-4):
+        raise AssertionError(f"train parity: flash route against sdpa: {row}")
+    if launches != want or any(sdpa_launches.values()):
+        raise AssertionError(f"train parity launches: flash {launches} != "
+                             f"{want}, sdpa {sdpa_launches}")
+    return launches
+
+
+def _profile_tick(eng, k, top=10):
+    """One more tick of ``k`` steps under torch.profiler, after the
+    measured run: device time by kernel (ms per step, largest first), the
+    flash kernels' share of it, the device's busy share of the tick's wall
+    time and the kernel launches per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.run(k)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kernels = sorted(((e.key[:80], e.self_device_time_total / 1e3 / k)
+                      for e in events), key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    flash = sum(ms for name, ms in kernels if "flash_" in name)
+    gemm = sum(ms for name, ms in kernels if "gemm" in name.lower())
+    return {"steps": k, "wall_ms_per_step": wall_ms / k,
+            "device_busy_ms_per_step": busy,
+            "device_busy_share": busy * k / wall_ms,
+            "gemm_ms_per_step": gemm, "flash_kernels_ms_per_step": flash,
+            "launches_per_step": sum(e.count for e in events) / k,
+            "top_kernels_ms_per_step": dict(kernels[:top])}
+
+
+def phase_train():
+    """The fused TrainEngine on starcoder2-7b at full width and 8 layers,
+    fp32 params and AdamW state, synthetic tokens, global batch 2 x 2048,
+    two ticks of two steps, billed to h100_sxm. Every counter is set to 0
+    just before the run and read just after: K6, K7 and K8 each launch
+    steps x layers times; one readback per tick; every loss and grad norm
+    finite. Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.models.common import flatten
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainEngine, TrainEngineConfig
+    cfg = _train_cfg(TRAIN_LAYERS)
+    steps, k = 4, 2
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
+                            device="cuda")
+    pipeline = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=FLASH_S,
+                                        global_batch=FLASH_B, seed=SEED,
+                                        source="synthetic"))
+    acct = _accountant()
+    eng = TrainEngine.for_lm(
+        params, cfg, opt_cfg=AdamWConfig(lr=warmup_cosine(3e-4, 1, steps)),
+        pipeline=pipeline, engine_cfg=TrainEngineConfig(steps_per_tick=k),
+        accountant=acct)
+    n_params = sum(p.numel() for p in flatten(params)[0])
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    eng.run(steps)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {n: (steps * TRAIN_LAYERS if n.startswith("flash_attention")
+                else 0) for n in counters}
+    log = np.concatenate(eng.step_log)
+    s = eng.summary()
+    cost = eng.cost
+    walls = [m.wall_s for m in eng.metrics_log]
+    train = acct.report()["train"]
+    row = {"phase": "train", "layers": TRAIN_LAYERS, "d_model": cfg.d_model,
+           "params": n_params, "batch": FLASH_B, "seq": FLASH_S,
+           "steps": steps, "steps_per_tick": k, "ticks": s["ticks"],
+           "host_readbacks": eng.host_readbacks,
+           "losses": log[:, 0].tolist(), "grad_norms": log[:, 1].tolist(),
+           "lrs": log[:, 2].tolist(), "tick_wall_s": walls,
+           "s_per_step": s["s_per_step"],
+           "s_per_step_last_tick": walls[-1] / k,
+           "tokens_per_s": s["tokens"] / s["wall_s"],
+           "resident_gb_before_run": resident_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "model_flops_per_step": cost.fwd_flops + cost.bwd_flops,
+           "model_flops_per_s_last_tick": (cost.fwd_flops + cost.bwd_flops)
+           * k / walls[-1],
+           "fp32_peak_share_last_tick": (cost.fwd_flops + cost.bwd_flops)
+           * k / walls[-1] / PEAK_FP32,
+           "launches": launches,
+           "train": {key: train[key] for key in (
+               "steps", "bwd_fwd_ratio", "fwd_j", "bwd_j", "opt_j",
+               "total_j", "j_per_step", "j_per_sample")}}
+    # after the measured run and its counts
+    row["profile"] = _profile_tick(eng, k)
+    emit(row)
+    if not np.isfinite(log[:, :2]).all():
+        raise AssertionError(f"train: a loss or grad norm is not finite: "
+                             f"{log.tolist()}")
+    if row["host_readbacks"] != row["ticks"] or row["ticks"] != steps // k:
+        raise AssertionError(f"train: {row['host_readbacks']} readbacks "
+                             f"for {row['ticks']} ticks")
+    if launches != want:
+        raise AssertionError(f"train: launches {launches} != {want}")
+    return launches
+
+
 def _shared_prefix_prompts(rng, vocab, prefix, tails):
     import numpy as np
     head = rng.integers(0, vocab, prefix)
@@ -782,6 +1140,7 @@ def _spec_streams(params, cfg, scfg, prompts, want):
 def _counters():
     """Every kernel's launch counter, by kernel name."""
     from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import flash_attention as k678
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_prefill_attention as k3
@@ -790,7 +1149,10 @@ def _counters():
             "paged_decode_attention": k2.paged_decode_attention,
             "paged_prefill_attention": k3.paged_prefill_attention,
             "paged_verify_attention": k5.paged_verify_attention,
-            "int8_matmul": k4.int8_matmul}
+            "int8_matmul": k4.int8_matmul,
+            "flash_attention_fwd": k678.flash_attention_fwd,
+            "flash_attention_bwd_dq": k678.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": k678.flash_attention_bwd_dkv}
 
 
 def _serve_run(phase, eng, acct, prompts, n_new):
@@ -827,7 +1189,9 @@ def _serve_run(phase, eng, acct, prompts, n_new):
             else 0,
             "paged_verify_attention": decode_ticks * N_LAYERS if spec else 0,
             "int8_matmul": (decode_ticks + admissions) * N_LAYERS * 6
-            if int8 else 0}
+            if int8 else 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches} != {want} "
                              f"(decode ticks {decode_ticks}, admission or "
@@ -930,12 +1294,24 @@ def phase_agreement(cfg, params, qparams):
           "new_tokens": 24, **res, "seconds": time.monotonic() - t0})
 
 
+# (kernel, its CUDA source under src/repro_torch/kernels/csrc/, the TPU
+# kernel it replaces)
 KERNELS = (
-    ("decode_attention", "src/repro/kernels/decode_attention.py:122"),
-    ("paged_decode_attention", "src/repro/kernels/decode_attention.py:245"),
-    ("paged_prefill_attention", "src/repro/kernels/flash_attention.py:494"),
-    ("int8_matmul", "src/repro/kernels/int8_matmul.py:53"),
-    ("paged_verify_attention", "src/repro/kernels/decode_attention.py:388"),
+    ("decode_attention", "decode_attention",
+     "src/repro/kernels/decode_attention.py:122"),
+    ("paged_decode_attention", "paged_decode_attention",
+     "src/repro/kernels/decode_attention.py:245"),
+    ("paged_prefill_attention", "paged_prefill_attention",
+     "src/repro/kernels/flash_attention.py:494"),
+    ("int8_matmul", "int8_matmul", "src/repro/kernels/int8_matmul.py:53"),
+    ("paged_verify_attention", "paged_verify_attention",
+     "src/repro/kernels/decode_attention.py:388"),
+    ("flash_attention_fwd", "flash_attention",
+     "src/repro/kernels/flash_attention.py:262"),
+    ("flash_attention_bwd_dq", "flash_attention",
+     "src/repro/kernels/flash_attention.py:337"),
+    ("flash_attention_bwd_dkv", "flash_attention",
+     "src/repro/kernels/flash_attention.py:357"),
 )
 
 
@@ -956,6 +1332,7 @@ def main() -> int:
     phase_build()
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
     rows["int8_matmul"] = phase_int8_matmul()
+    rows.update(phase_flash_kernels())
     phase_streams()
     torch.cuda.empty_cache()
     from repro_torch.configs import starcoder2_7b
@@ -971,21 +1348,25 @@ def main() -> int:
              phase_paged_serve(cfg, params, spec_k=SPEC_K),
              phase_paged_serve(qcfg, qparams, "int8", spec_k=SPEC_K)]
     phase_agreement(cfg, params, qparams)
-    launches = {name: sum(r[name] for r in runs) for name, _ in KERNELS}
+    del params, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += [phase_train_parity(), phase_train()]
+    launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
     emit({"phase": "total", "seconds": time.monotonic() - t0})
     emit({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"]}
-        for name, replaces in KERNELS]})
+        for name, source, replaces in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

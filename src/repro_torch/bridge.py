@@ -18,11 +18,11 @@ from repro_torch import device as device_lib
 from repro_torch.models.transformer import BlockSpec, LMConfig, QuantPolicy
 
 # LMConfig fields of the JAX package that only steer TPU compilation,
-# sharding, training or the Pallas switches; they do not change what the
-# model computes. (``mrope_sections`` only matters under pos_emb="mrope",
-# which ``LMConfig`` refuses.)
+# sharding, rematerialization or the Pallas switches; they do not change
+# what the model or its loss computes. (``mrope_sections`` only matters
+# under pos_emb="mrope", which ``LMConfig`` refuses.)
 _TPU_ONLY_FIELDS = frozenset({
-    "remat", "moe_group_size", "z_loss", "sp_attention", "sp_residual",
+    "remat", "moe_group_size", "sp_attention", "sp_residual",
     "kv_cache_dtype", "decode_kernel", "flash_train", "mrope_sections"})
 
 

@@ -1,0 +1,160 @@
+"""ctypes wrappers of the training flash-attention CUDA kernels
+(``csrc/flash_attention.cu``): the forward with lse (K6), the dQ backward
+(K7) and the dK/dV backward (K8), which replace the Pallas TPU kernels
+behind ``repro.kernels.flash_attention.flash_attention_vjp``.
+
+Each wrapper checks device, dtypes, shapes and contiguity, allocates its
+outputs with ``torch.empty``, launches on PyTorch's current stream and
+raises if the launch reports a CUDA error. Nothing is padded: the kernels
+mask by length. ``<wrapper>.launches`` counts each kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import DTYPES, check_cuda
+
+_HEAD_DIMS = (64, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    """The C entry point ``name``, built and bound on first use (every
+    pointer and the stream as ``c_void_p``)."""
+    fn = getattr(build.load("flash_attention"), name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    n_ptr = {"flash_attention_fwd_launch": 5,
+             "flash_attention_bwd_dq_launch": 7,
+             "flash_attention_bwd_dkv_launch": 8}[name]
+    fn.argtypes = [p] * n_ptr + [i] * 8 + [ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *rows: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+    """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) of one fp32/bf16 dtype, and
+    per-query-row tensors (B, Sq, H, D) in q's dtype or (B, H, Sq) fp32,
+    all contiguous on one card. Returns (B, Sq, Sk, H, Hkv, D)."""
+    check_cuda(name, q, k, v, *rows)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or h % hkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not form a GQA group")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} kernel takes fp32 or bf16 q, k, v of one "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    for t in (q, k, v) + rows:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: every input must be "
+                             f"contiguous")
+    for t in rows:
+        want = ((q.shape, q.dtype) if t.dim() == 4
+                else ((b, h, sq), torch.float32))
+        if (t.shape, t.dtype) != want:
+            raise ValueError(f"{name}: a row tensor is {tuple(t.shape)} "
+                             f"{t.dtype}, wants {tuple(want[0])} {want[1]}")
+    return b, sq, sk, h, hkv, d
+
+
+def _statics(causal: bool, window: int, scale: float, q: torch.Tensor):
+    return (int(bool(causal)), int(window), float(scale),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool = True,
+                        window: int = -1
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6. q (B, Sq, H, D), k/v (B, Sk, Hkv, D) on a CUDA device, fp32 or
+    bf16. Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) fp32);
+    a row with no valid key is zeros with lse about -1e30."""
+    name = "flash_attention_fwd"
+    b, sq, sk, h, hkv, d = _check(name, q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    if sk == 0:
+        return out.zero_(), lse.fill_(-1e30)
+    with torch.cuda.device(q.device):
+        err = _launcher(name + "_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, sq, sk, h, hkv, d,
+            *_statics(causal, window, scale, q))
+    _raise_on(name, err)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, dout: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor, *,
+                           scale: float, causal: bool = True,
+                           window: int = -1) -> torch.Tensor:
+    """K7. dout (B, Sq, H, D) in q's dtype, lse and delta = rowsum(dout *
+    out) (B, H, Sq) fp32. Returns dq (B, Sq, H, D) in q's dtype."""
+    name = "flash_attention_bwd_dq"
+    b, sq, sk, h, hkv, d = _check(name, q, k, v, dout, lse, delta)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    if sk == 0:
+        return dq.zero_()
+    with torch.cuda.device(q.device):
+        err = _launcher(name + "_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, sk, h,
+            hkv, d, *_statics(causal, window, scale, q))
+    _raise_on(name, err)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor, *,
+                            scale: float, causal: bool = True,
+                            window: int = -1
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8. The inputs of K7. Returns (dk, dv) (B, Sk, Hkv, D) in k's and
+    v's dtype, each summed over its GQA group inside the kernel."""
+    name = "flash_attention_bwd_dkv"
+    b, sq, sk, h, hkv, d = _check(name, q, k, v, dout, lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    if sq == 0 or h == 0:
+        return dk.zero_(), dv.zero_()
+    with torch.cuda.device(q.device):
+        err = _launcher(name + "_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, sk, h, hkv, d, *_statics(causal, window, scale, q))
+    _raise_on(name, err)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -1,7 +1,9 @@
 """Public kernel entry points of the port (mirror of ``repro.kernels.ops``):
 decode attention (K1), paged decode and prefill attention (K2, K3), the
 paged multi-query verify attention of speculative decode (K5), each with
-its int8-KV mode, and the int8 weight matmul (K4).
+its int8-KV mode, the int8 weight matmul (K4), and the differentiable
+training flash attention, whose forward is K6 and whose backward is K7
+(dQ) and K8 (dK, dV).
 
 Dispatch goes by the tensors' device, never by what the machine has: CPU
 tensors take the plain PyTorch version (``ref``), CUDA tensors take the
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_prefill_attention as _ppa
@@ -173,3 +176,68 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
             scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"paged_prefill_attention: no kernel for device "
                      f"{q.device}")
+
+
+# -----------------------------------------------------------------------------
+# Training fast path: differentiable flash attention (K6 forward, K7/K8
+# backward)
+# -----------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves (q, k, v, out, lse); backward recomputes p from lse
+    tile by tile, so no (Sq, Sk) probability tensor is kept between the
+    passes on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        if q.device.type == "cpu":
+            out, lse = _ref.flash_attention_fwd_ref(
+                q, k, v, scale=scale, causal=causal, window=window)
+        elif q.device.type == "cuda":
+            out, lse = _fa.flash_attention_fwd(
+                q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+                causal=causal, window=window)
+        else:
+            raise ValueError(f"flash_attention_train: no kernel for device "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.statics = dict(scale=scale, causal=causal, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype)
+        if q.device.type == "cpu":
+            dq, dk, dv = _ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, dout, **ctx.statics)
+        else:
+            q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+            # delta = rowsum(dO * O) in plain torch, as the reference
+            # computes it outside its kernels (flash_attention.py:328-330)
+            delta = (dout.float() * out.float()).sum(-1) \
+                .transpose(1, 2).contiguous()
+            dq = _fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                            **ctx.statics)
+            dk, dv = _fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                 **ctx.statics)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: Optional[float] = None,
+                          causal: bool = True,
+                          window: int = -1) -> torch.Tensor:
+    """Differentiable flash attention (mirror of
+    ``repro.kernels.ops.flash_attention_train``): q (B, Sq, H, D), k/v (B,
+    Sk, Hkv, D) -> (B, Sq, H, D) in q's dtype; query i lines up with key i.
+
+    On the card the forward is K6 and the backward K7 and K8; on the CPU
+    their plain versions. Nothing is padded (the kernels mask by length),
+    so the JAX wrapper's escape to ``attention_ref`` for ragged shapes has
+    no counterpart; the results agree. A row with no valid key gives zeros
+    and no gradient.
+    """
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
+                                 int(window))

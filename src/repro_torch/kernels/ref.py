@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the correctness contracts):
-K1-K3 and K5 attention, K4 the int8 weight matmul.
+K1-K3 and K5 attention, K4 the int8 weight matmul, and the training flash
+attention: K6's forward with lse and K7/K8's backward.
 
 The CPU path of ``ops`` runs these, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. Nothing on the card's main path calls them.
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.quant import int8 as int8_lib
+
+NEG_INF = -1e30
 
 
 def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
@@ -184,3 +187,80 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
     live = rel < lens[:, None]
     return torch.where(live[..., None, None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+# -----------------------------------------------------------------------------
+# Training flash attention (K6, K7, K8)
+# -----------------------------------------------------------------------------
+
+def flash_mask(sq: int, sk: int, *, causal: bool, window: int,
+               device=None) -> torch.Tensor:
+    """(Sq, Sk) valid pairs: query i lines up with key i, ``i - j >= 0``
+    when causal, ``i - j < window`` when window > 0 (the reference's
+    ``_tile_mask`` by absolute index, flash_attention.py:29)."""
+    diff = (torch.arange(sq, device=device)[:, None]
+            - torch.arange(sk, device=device)[None])
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= diff >= 0
+    if window > 0:
+        mask &= diff < window
+    return mask
+
+
+def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, Sq, H, D) -> (B, Sq, Hkv, rep, D) in fp32."""
+    b, sq, h, d = q.shape
+    return q.float().reshape(b, sq, hkv, h // hkv, d)
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, scale: float,
+                            causal: bool = True, window: int = -1):
+    """What K6 (``_flash_kernel`` with ``save_lse``) computes: the softmax
+    of ``scale * q k^T`` over the valid keys times v, in q's dtype, and
+    ``lse = m + log(max(l, 1e-30))`` (B, H, Sq) fp32. q (B, Sq, H, D),
+    k/v (B, Sk, Hkv, D). p is masked explicitly, so a row with no valid key
+    is zeros (the Pallas body averages V there) with lse about -1e30."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    s = torch.einsum("bqhrd,bnhd->bhrqn", _grouped(q, hkv) * scale,
+                     k.float())
+    mask = flash_mask(sq, sk, causal=causal, window=window, device=q.device)
+    m = torch.where(mask, s, NEG_INF).amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhrqn,bnhd->bqhrd", p, v.float()) \
+        / l.permute(0, 3, 1, 2, 4)
+    lse = (m + torch.log(l)).reshape(b, h, sq)
+    return out.reshape(b, sq, h, d).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            scale: float, causal: bool = True,
+                            window: int = -1):
+    """What K7 and K8 compute (flash_attention.py:170-185), recomputing p
+    from lse: ``delta = rowsum(dO * O)``, ``p = exp(s - lse)`` under the
+    explicit mask, ``dS = p * (dO V^T - delta)``, ``dQ = scale * dS K``,
+    ``dK = dS^T (scale * Q)`` and ``dV = p^T dO``, each GQA group summed.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qs = _grouped(q, hkv) * scale
+    do = _grouped(dout, hkv)
+    kf, vf = k.float(), v.float()
+    delta = (do * _grouped(out, hkv)).sum(-1).permute(0, 2, 3, 1)
+    s = torch.einsum("bqhrd,bnhd->bhrqn", qs, kf)
+    mask = flash_mask(sq, sk, causal=causal, window=window, device=q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, rep, sq, 1)),
+                    0.0)
+    dp = torch.einsum("bqhrd,bnhd->bhrqn", do, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhrqn,bnhd->bqhrd", ds, kf) * scale
+    dk = torch.einsum("bhrqn,bqhrd->bnhd", ds, qs)
+    dv = torch.einsum("bhrqn,bqhrd->bnhd", p, do)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

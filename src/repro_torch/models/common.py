@@ -11,7 +11,7 @@ bits, so tests that compare the two frameworks bridge JAX's weights.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,3 +33,32 @@ def fan_in_init(shape: Sequence[int], fan_in: Optional[int] = None, *,
     fi = fan_in if fan_in is not None else math.prod(shape[:-1]) or 1
     return trunc_normal(shape, 1.0 / math.sqrt(fi), generator=generator,
                         device=device, dtype=dtype)
+
+
+def flatten(tree: dict) -> Tuple[List[torch.Tensor],
+                                Callable[[Sequence], dict]]:
+    """(leaves, rebuild) of a nested dict of tensors, leaves in dict order:
+    ``rebuild(new)`` puts ``new`` leaves back in the same structure (the
+    counterpart of ``jax.tree.flatten`` / ``unflatten`` for the port's
+    parameter trees)."""
+    keys = []
+
+    def walk(t, path):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                keys.append((path + (k,), v))
+
+    walk(tree, ())
+
+    def rebuild(new):
+        out: dict = {}
+        for (path, _), v in zip(keys, new):
+            d = out
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = v
+        return out
+
+    return [v for _, v in keys], rebuild

@@ -1,9 +1,10 @@
-"""Dtype-aware modeled traffic/compute for LM serving (mirror of the dense
-subset of ``repro.models.costing``).
+"""Dtype-aware modeled traffic/compute for LM serving and training (mirror
+of the dense subset of ``repro.models.costing``).
 
-The serve engine bills every tick's bytes and FLOPs through these, from the
-resident tensors' real sizes, so the port's ``CarbonAccountant`` report
-equals the JAX engine's on the same workload:
+The serve engine bills every tick's bytes and FLOPs through these, and the
+train engine every step's, from the resident tensors' real sizes, so the
+port's ``CarbonAccountant`` report equals the JAX engine's on the same
+workload:
 
 * a weight of E elements costs 2E FLOPs per token regardless of storage
   dtype;
@@ -18,6 +19,7 @@ from typing import Any, Iterator
 
 import torch
 
+from repro_torch.core import energy
 from repro_torch.models import transformer as tf_lib
 from repro_torch.quant.int8 import SERVING_QUANT_KEYS
 
@@ -137,3 +139,32 @@ def spec_oracle_draft_flops(matmul_elems: float, n_attn: int, attn_dims: int,
     return sum(decode_tick_flops(matmul_elems, n_attn, attn_dims,
                                  ctx_sum + j * n_active, n_active)
                for j in range(k))
+
+
+def lm_train_step_cost(params: PyTree, cfg: tf_lib.LMConfig, *,
+                       batch: int, seq_len: int,
+                       opt_state: PyTree = None) -> energy.TrainStepCost:
+    """Per-optimizer-step modeled cost of one LM training step
+    (costing.py:174): the backward is twice the forward's FLOPs, reads the
+    weights and writes fp32 grads; the update reads the grads, reads and
+    writes the optimizer state and the weights. ``params`` is the live
+    weight tree, ``opt_state`` the optimizer state tree."""
+    tokens = float(batch) * float(seq_len)
+    w_elems = matmul_weight_elems(params, cfg)
+    attn_dims = cfg.n_heads * cfg.resolved_head_dim
+    attn_flops_tok = 2.0 * attn_layers(cfg) * attn_dims * seq_len
+    fwd_flops = (2.0 * w_elems + attn_flops_tok) * tokens
+    weight_bytes = float(tree_bytes(params))
+    n_params = float(sum(t.numel() for t in _leaves(params)))
+    grad_bytes = 4.0 * n_params                    # grads are fp32
+    opt_bytes_ = float(tree_bytes(opt_state)) if opt_state is not None \
+        else 0.0
+    return energy.TrainStepCost(
+        fwd_flops=fwd_flops,
+        bwd_flops=2.0 * fwd_flops,
+        fwd_bytes=weight_bytes,
+        bwd_bytes=weight_bytes + grad_bytes,
+        opt_bytes=grad_bytes + 2.0 * opt_bytes_ + 2.0 * weight_bytes,
+        tokens=tokens,
+        samples=float(batch),
+    )

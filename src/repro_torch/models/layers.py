@@ -104,12 +104,35 @@ def init_attention(cfg: "AttnConfig", lead=(), *, generator, device,
 # Norms, embedding, MLP
 # -----------------------------------------------------------------------------
 
+class _RMSNorm(torch.autograd.Function):
+    """``rms_norm`` with the reference's custom VJP (layers.py:62-87): the
+    forward takes the mean of squares in fp32 and casts the inverse back to
+    x's dtype before the products; the backward stays in x's dtype with
+    fp32 reductions only, and ``dscale`` is summed in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        var = torch.mean(x.square(), dim=-1, keepdim=True,
+                         dtype=torch.float32)
+        inv32 = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, inv32, scale)
+        return x * inv32.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, inv32, scale = ctx.saved_tensors
+        inv = inv32.to(x.dtype)
+        g = dy * scale.to(x.dtype)
+        dot = torch.sum((g * x).float(), dim=-1, keepdim=True)
+        corr = inv32 ** 3 * (dot / x.shape[-1])
+        dx = g * inv - x * corr.to(x.dtype)
+        dscale = torch.sum((dy * x * inv).float(),
+                           dim=tuple(range(x.dim() - 1))).to(scale.dtype)
+        return dx, dscale, None
+
+
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    # mean of squares in fp32, the inverse cast back to x's dtype before the
-    # products (layers.py:63-66)
-    var = torch.mean(x.square(), dim=-1, keepdim=True, dtype=torch.float32)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * params["scale"].to(x.dtype)
+    return _RMSNorm.apply(x, params["scale"], eps)
 
 
 def embed(params, tokens: torch.Tensor, compute_dtype=None) -> torch.Tensor:
@@ -283,6 +306,51 @@ def sdpa_q_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
         mask = attention_mask(p_i, k_pos, causal=causal, window=window)
         outs.append(sdpa(q[:, s0:s0 + chunk], k, v, mask, scale))
     return torch.cat(outs, dim=1)
+
+
+def attention(params, cfg: AttnConfig, x: torch.Tensor,
+              positions: Optional[torch.Tensor] = None,
+              window: Optional[int] = None,
+              arange_positions: bool = False) -> torch.Tensor:
+    """Full-sequence (training) self-attention (layers.py:407-435).
+
+    ``arange_positions`` is the caller's promise that ``positions`` is the
+    0..S-1 arange (``None`` synthesizes it and sets the promise): the
+    precondition of the flash route, whose mask is by index, not by the
+    positions tensor. Causal attention with an int window then goes
+    through ``ops.flash_attention_train`` (K6 forward, K7/K8 backward on
+    the card); other positions take the masked ``sdpa``, or
+    ``sdpa_q_chunked`` above 8192 keys. The reference's ``flash_vjp``
+    switch has no counterpart: no switch turns a kernel off on the card.
+    """
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        arange_positions = True
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    w = cfg.window if window is None else window
+    if arange_positions and cfg.causal and isinstance(w, int):
+        out = ops.flash_attention_train(q, k, v, scale=cfg.scale,
+                                        causal=True, window=w)
+    elif s > _CHUNKED_SDPA_THRESHOLD:
+        out = sdpa_q_chunked(q, k, v, positions, positions,
+                             causal=cfg.causal, window=w, scale=cfg.scale)
+    else:
+        mask = attention_mask(positions, positions, causal=cfg.causal,
+                              window=w)
+        out = sdpa(q, k, v, mask, cfg.scale)
+    return out_proj(params, cfg, out)
+
+
+def out_proj(params, cfg: AttnConfig, out: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", out, wo); an int8-served wo goes through
+    K4."""
+    wo = params["wo"]
+    if _q8_active(cfg, wo):
+        return q8_matmul(out, wo, contract_ndim=2)
+    wo = wl(wo, out.dtype)
+    h, dh, d = wo.shape
+    return out.flatten(-2) @ wo.reshape(h * dh, d)
 
 
 @dataclasses.dataclass

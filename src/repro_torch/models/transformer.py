@@ -17,6 +17,11 @@ the speculative ``paged_verify_step`` (T query lanes per slot) through K5.
 SSD, MoE, shared attention, M-RoPE and ring caches are not ported yet and
 raise ``NotImplementedError``.
 
+Training: ``forward`` and ``loss_fn`` run the full sequence with autograd;
+with ``positions=None`` attention goes through ``ops.flash_attention_train``
+(K6 forward, K7 and K8 backward on the card), and ``rms_norm`` carries the
+reference's custom backward.
+
 The int8 serving mode (``QuantPolicy`` ``INT8_QUANT``, DESIGN.md §12):
 ``quantize_lm`` turns the linear weights into ``{"q8", "s8"}`` leaves,
 every projection runs through ``layers.q8_matmul`` (K4 on the card), and
@@ -35,7 +40,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import common, layers
 from repro_torch.models.layers import AttnConfig, KVCache
 from repro_torch.quant import int8 as int8_lib
 
@@ -76,8 +81,10 @@ INT8_QUANT = QuantPolicy(weights="int8", kv="int8")
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The fields of ``repro.models.transformer.LMConfig`` that describe the
-    model; the TPU-only knobs (sharding, remat, the Pallas switches) have no
-    counterpart here (``bridge.config_from_dict`` drops them)."""
+    model and its loss; the TPU-only knobs (sharding, remat, the Pallas
+    switches ``decode_kernel`` and ``flash_train``) have no counterpart
+    here (``bridge.config_from_dict`` drops them): the kernels' routes
+    follow the reference's own eligibility alone."""
     name: str
     d_model: int
     n_heads: int
@@ -95,6 +102,7 @@ class LMConfig:
     tie_embeddings: bool = True
     logit_softcap: float = 0.0
     ring_cache: bool = False
+    z_loss: float = 0.0                      # weight of the loss's z term
     mlp_gated: bool = True
     vocab_pad_multiple: int = 128
     quant: QuantPolicy = QuantPolicy()
@@ -241,6 +249,90 @@ def _layers(params, cfg: LMConfig, caches) -> Iterator[tuple]:
         yield spec, params[f"tail{i}"], caches[f"tail{i}"]
 
 
+def _unstacked(params, cfg: LMConfig) -> Iterator[tuple]:
+    """(spec, layer params) in execution order. The stacked ``pat{i}``
+    leaves are unbound once, so the backward stacks each leaf's gradient in
+    one copy instead of scattering every layer's into a zero-filled stack."""
+    per_pat = {}
+    for i in range(len(cfg.pattern)):
+        leaves, rebuild = common.flatten(params[f"pat{i}"])
+        cols = [torch.unbind(t, 0) for t in leaves]
+        per_pat[i] = [rebuild([c[r] for c in cols])
+                      for r in range(cfg.repeats)]
+    for r in range(cfg.repeats):
+        for i, spec in enumerate(cfg.pattern):
+            yield spec, per_pat[i][r]
+    for i, spec in enumerate(cfg.tail):
+        yield spec, params[f"tail{i}"]
+
+
+def _apply_block(p, cfg: LMConfig, spec: BlockSpec, x: torch.Tensor,
+                 positions: torch.Tensor,
+                 arange_pos: bool = False) -> torch.Tensor:
+    """One attention block over the full sequence (transformer.py:254).
+    ``arange_pos``: ``positions`` is the synthesized 0..S-1 arange, which
+    makes the block's attention eligible for the flash kernels."""
+    acfg = cfg.attn_cfg(spec.window)
+    h = layers.rms_norm(p["norm_attn"], x)
+    x = x + layers.attention(p["attn"], acfg, h, positions,
+                             arange_positions=arange_pos)
+    return _ffn(p, cfg, spec, x)
+
+
+def forward(params, cfg: LMConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (transformer.py:311): tokens (B, S) ->
+    (logits (B, S, padded vocab) fp32, aux loss).
+
+    With ``positions=None`` every attention block takes the flash route
+    (K6, and K7/K8 in the backward, on the card; their plain versions on
+    the CPU); an explicit ``positions`` tensor takes the masked ``sdpa``,
+    as in the reference. The reference's ``remat`` has no counterpart: the
+    port keeps every layer's activations for the backward. The aux loss
+    is 0 (no MoE block is ported).
+    """
+    b, s = tokens.shape
+    x = layers.embed(params["embed"], tokens)
+    arange_pos = positions is None
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for spec, p in _unstacked(params, cfg):
+        x = _apply_block(p, cfg, spec, x, positions, arange_pos=arange_pos)
+    x = layers.rms_norm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = layers.unembed(params["embed"], x)
+    else:
+        logits = layers.apply_unembed(params["unembed"], x)
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy plus the aux loss and the optional z-loss
+    (transformer.py:360). ``batch``: ``tokens`` and ``labels`` (B, S),
+    optional ``positions`` and ``loss_mask``. Returns (total, {"ce",
+    "aux", "tokens"}), all device scalars."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          positions=batch.get("positions"))
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - label_logit) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = nll.sum() / denom
+    total = ce + aux
+    if cfg.z_loss > 0:
+        total = total + cfg.z_loss * ((logz * mask) ** 2).sum() / denom
+    return total, {"ce": ce, "aux": aux, "tokens": denom}
+
+
 # -----------------------------------------------------------------------------
 # Caches (decode)
 # -----------------------------------------------------------------------------
@@ -307,17 +399,6 @@ def _kv_scales(cache) -> dict:
     return ({} if sc is None else {"k_scale": sc.k, "v_scale": sc.v})
 
 
-def _out_proj(p, acfg: AttnConfig, out: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd", out, wo); an int8-served wo goes through
-    K4."""
-    wo = p["attn"]["wo"]
-    if layers._q8_active(acfg, wo):
-        return layers.q8_matmul(out, wo, contract_ndim=2)
-    wo = layers.wl(wo, out.dtype)
-    h, k, d = wo.shape
-    return out.flatten(-2) @ wo.reshape(h * k, d)
-
-
 def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
     """One-token attention against the cache, written in place.
 
@@ -360,7 +441,7 @@ def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
                                      window=spec.window)
         mask &= (tags >= 0)[:, None, :]
         out = layers.sdpa(q, k_at, v_at, mask, acfg.scale)
-    return _out_proj(p, acfg, out)
+    return layers.out_proj(p["attn"], acfg, out)
 
 
 def _ffn(p, cfg: LMConfig, spec: BlockSpec, x):
@@ -481,7 +562,7 @@ def _paged_decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
     out = ops.paged_decode_attention(
         q[:, 0], kv.k, kv.v, page_table, (pos + 1).to(torch.int32),
         scale=acfg.scale, window=spec.window, **_kv_scales(cache))[:, None]
-    return _out_proj(p, acfg, out)
+    return layers.out_proj(p["attn"], acfg, out)
 
 
 def _paged_verify_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
@@ -513,7 +594,7 @@ def _paged_verify_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
     out = ops.paged_verify_attention(
         q, kv.k, kv.v, page_table, (pos + t).to(torch.int32),
         scale=acfg.scale, window=spec.window, **_kv_scales(cache))
-    return _out_proj(p, acfg, out)
+    return layers.out_proj(p["attn"], acfg, out)
 
 
 def _paged_walk(params, cfg: LMConfig, tokens, pos, page_table, caches,
@@ -615,7 +696,7 @@ def paged_extend(params, cfg: LMConfig, tokens: torch.Tensor,
             q, k_new.to(q.dtype), v_new.to(q.dtype), kv.k, kv.v, page_table,
             starts32, lens32, scale=acfg.scale, window=spec.window,
             **_kv_scales(cache))
-        x = x + _out_proj(p, acfg, out)
+        x = x + layers.out_proj(p["attn"], acfg, out)
         x = _ffn(p, cfg, spec, x)
     # per-row last valid chunk token (rows are right-padded to C)
     idx = (lens.long() - 1).clamp(0, c - 1)
@@ -673,7 +754,7 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
             mask = layers.attention_mask(pos1d, pos1d, causal=True,
                                          window=spec.window)
             out = layers.sdpa(q, k, v, mask, acfg.scale)
-        x = x + _out_proj(p, acfg, out)
+        x = x + layers.out_proj(p["attn"], acfg, out)
         # prompt K/V enter the cache in its storage form (int8 caches get
         # codes and scales, the representation decode appends); attention
         # above used the full-precision K/V

@@ -1,8 +1,8 @@
 """Modules the port keeps as copies (it imports nothing of ``repro``) must
 behave as their originals: the scheduler and the page pool state for
 state, the sustainability engine, the int8 quantizer's constants, the
-speculative drafters' names and the speculative cost model value for
-value. The only difference allowed is the port's extra ``h100_sxm``
+speculative drafters' names, the speculative cost model and the training
+token pipeline value for value. The only difference allowed is the port's extra ``h100_sxm``
 device.
 """
 
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from repro.core import energy as j_energy
+from repro.data import pipeline as j_pipeline
 from repro.core import grid as j_grid
 from repro.core import hw as j_hw
 from repro.core import lca as j_lca
@@ -24,6 +25,7 @@ from repro.serve import pages as j_pages
 from repro.serve import scheduler as j_sched
 from repro.serve import spec as j_spec
 from repro_torch.core import energy as t_energy
+from repro_torch.data import pipeline as t_pipeline
 from repro_torch.core import grid as t_grid
 from repro_torch.core import hw as t_hw
 from repro_torch.core import lca as t_lca
@@ -238,3 +240,30 @@ SPEC_COST_ARGS = [(1.5e6, 2, 48, 0.0, 1, 1), (6.9e9, 32, 4608, 5123.0, 8, 5),
 @pytest.mark.parametrize("args", SPEC_COST_ARGS)
 def test_spec_costing_equal(fn, args):
     assert getattr(t_costing, fn)(*args) == getattr(j_costing, fn)(*args)
+
+
+@pytest.mark.parametrize("source", ["synthetic", "markov"])
+def test_pipeline_batches_equal(source):
+    """``batch_at`` gives the original's tokens and labels at every step,
+    for a whole batch and for each rank's slice after ``reshard``, and the
+    step state moves the same way."""
+    kw = dict(vocab=97, seq_len=12, global_batch=4, seed=3, source=source)
+    pipes = [m.make_pipeline(m.DataConfig(**kw))
+             for m in (j_pipeline, t_pipeline)]
+    for step in (0, 1, 7, 1000):
+        want, got = (p.batch_at(step) for p in pipes)
+        assert set(got) == set(want) == {"tokens", "labels"}
+        for key in want:
+            assert got[key].dtype == want[key].dtype
+            np.testing.assert_array_equal(got[key], want[key])
+    for p in pipes:
+        next(p)
+        next(p)
+    assert pipes[0].state == pipes[1].state == {"step": 2}
+    for rank in range(2):
+        shards = [p.reshard(rank, 2) for p in pipes]
+        assert shards[0].state == shards[1].state == {"step": 2}
+        for step in (0, 5):
+            want, got = (sh.batch_at(step) for sh in shards)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key])

@@ -494,19 +494,20 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     from repro_torch.kernels import build
     attention = ("decode_attention", "paged_decode_attention",
                  "paged_prefill_attention", "paged_verify_attention")
-    assert set(build.SOURCES) == set(attention) | {"int8_matmul"}
+    alone = ("int8_matmul", "flash_attention")    # include no csrc header
+    assert set(build.SOURCES) == set(attention) | set(alone)
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     for name in attention:
         assert [p.name for p in build.sources_of(name)] == \
             [f"{name}.cu", "decode_attention.cuh"]
-    assert [p.name for p in build.sources_of("int8_matmul")] == \
-        ["int8_matmul.cu"]
+    for name in alone:
+        assert [p.name for p in build.sources_of(name)] == [f"{name}.cu"]
     before = {name: build.library_path(name) for name in build.SOURCES}
     header = csrc / "decode_attention.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: build.library_path(name) for name in build.SOURCES}
     assert all(before[n] != after[n] for n in attention)
-    assert before["int8_matmul"] == after["int8_matmul"]
+    assert all(before[n] == after[n] for n in alone)
     assert all(p.parent == build.BUILD_DIR for p in after.values())
