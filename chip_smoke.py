@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the main path's shapes, then drives the
 dense, the paged and the speculative serve paths of starcoder2-7b at full
 width and full depth with random weights from a seed, unquantized and in
-the int8 mode, and the fused training tick at full width and 8 layers.
+the int8 mode, the fused training tick at full width and 8 layers, the
+checkpointing Trainer on the ~100M e2e model at full size, and the port's
+train and kernel benches.
 Phases, each printing JSON lines; any failure raises, so the script exits
 non-zero and prints no result:
 
@@ -31,10 +33,17 @@ non-zero and prints no result:
    (reported: equal bit for bit, and the max abs difference);
 4. int8 matmul (K4) against its plain version at the main path's shapes:
    decode (M=8) for 4608->4608, ->512, ->18432 and 18432->4608, prefill
-   (M=2048) for 4608->18432 and 18432->4608, with bf16 x, and fp32 x at
-   M=8 for 4608->18432; the library call is cuBLAS ``x @ w`` on the weight
-   dequantized once to x's dtype, which is not the same function: it moves
-   2x (bf16) or 4x (fp32) the weight bytes;
+   (M=2048) for 4608->18432 and 18432->4608, with bf16 x, fp32 x at M=8
+   for 4608->18432, and the fp32-output mode of bf16 x (the training
+   forward's) at M=8 and M=4096 for 4608->18432; the library call is
+   cuBLAS ``x @ w`` on the weight dequantized once to x's dtype, which is
+   not the same function: it moves 2x (bf16) or 4x (fp32) the weight
+   bytes; then K9 (the int8 backward, fp32 dy) against its plain version
+   at M = 4096 for (K, N) = (4608, 4608), (4608, 512), (4608, 18432) and
+   (18432, 4608), dx in fp32 and bf16, its library call cuBLAS ``(dy *
+   scale) @ w^T`` on the weight widened once (4x the weight bytes); and
+   ``int8_matmul_train``'s dx and dscale (K4 + K9) against autograd
+   through the plain math at (4096, 4608, 18432), fp32 and bf16 x;
 5. streams: fp32 weights and cache, 4 requests x 16 greedy tokens; the
    dense engine (through K1) must be token-identical to the host-loop
    reference (through masked ``sdpa``), and the paged engine (K2, K3;
@@ -67,7 +76,10 @@ non-zero and prints no result:
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
    backward on the kernel's own out and lse; the library call is causal
    ``F.scaled_dot_product_attention`` with K/V repeated to H heads, and
-   its autograd backward for K7 + K8 together;
+   its autograd backward for K7 + K8 together; then K10 (the inference
+   flash attention) at the same shapes, q fp32 and bf16, K/V in q's dtype
+   or int8 with (B, S, Hkv) scales, windows -1 and 256, its library call
+   causal SDPA with K/V dequantized and repeated inside the call;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
    asserted); then the serve params are freed;
@@ -82,10 +94,21 @@ non-zero and prints no result:
    memory, model FLOP/s over the fp32 peak and the accountant's train
    block, then profiles one more tick (device time by kernel, busy
    share);
+11b. trainer: the checkpointing ``Trainer`` on examples/train_e2e.py's
+   model_100m at full size (12 layers, d_model 768, 129.0M params), fp32,
+   batch 8 x 128: 2N steps straight against N steps, a save, and a fresh
+   Trainer from another seed that restores and runs N more (params and
+   AdamW state must match bit for bit, else within 1e-6 of each leaf's
+   max); a preempted run's synchronous save at its step; a flipped byte in
+   arrays.npz refused; K6 = K7 = K8 = 2N x 12 launches; s/step, tokens/s,
+   save and restore seconds and bytes, peak memory, one profiled pair of
+   steps;
+11c. the port's train bench (both arms, update and kernel-grad parity;
+   K9's launch) and kernel bench (K10's launches);
 12. a ``kernels`` line, then the result line ``{"ok": true, "device": ...}``.
 
-Every counter is set to 0 just before each serve or train run and read
-just after.
+Every counter is set to 0 just before each serve, train, trainer or bench
+run and read just after.
 Needs one card and no network. Exits non-zero without a card, and outside a
 checkout of the repository.
 """
@@ -95,6 +118,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -593,21 +617,32 @@ def phase_verify_kernel():
     return main
 
 
-# (M, K, N, x dtype) of K4's checks: a decode tick's projections at 8
-# slots (wq/wo, wk/wv, w_in, w_out), the prefill GEMMs of an extend call
-# (8 rows x 256-token chunks), and fp32 x
-K4_SHAPES = ((8, 4608, 4608, "bfloat16"), (8, 4608, 512, "bfloat16"),
-             (8, 4608, 18432, "bfloat16"), (8, 18432, 4608, "bfloat16"),
-             (2048, 4608, 18432, "bfloat16"), (2048, 18432, 4608, "bfloat16"),
-             (8, 4608, 18432, "float32"))
-K4_MAIN = (8, 4608, 18432, "bfloat16")
+# (M, K, N, x dtype, output dtype) of K4's checks: a decode tick's
+# projections at 8 slots (wq/wo, wk/wv, w_in, w_out), the prefill GEMMs of
+# an extend call (8 rows x 256-token chunks), fp32 x, and the fp32-output
+# mode of bf16 x that int8_matmul_train's forward runs, at a decode and a
+# training batch (4096 tokens)
+K4_SHAPES = ((8, 4608, 4608, "bfloat16", "bfloat16"),
+             (8, 4608, 512, "bfloat16", "bfloat16"),
+             (8, 4608, 18432, "bfloat16", "bfloat16"),
+             (8, 18432, 4608, "bfloat16", "bfloat16"),
+             (2048, 4608, 18432, "bfloat16", "bfloat16"),
+             (2048, 18432, 4608, "bfloat16", "bfloat16"),
+             (8, 4608, 18432, "float32", "float32"),
+             (8, 4608, 18432, "bfloat16", "float32"),
+             (4096, 4608, 18432, "bfloat16", "float32"))
+K4_MAIN = (8, 4608, 18432, "bfloat16", "bfloat16")
 # fp32 x: 1e-5, absolute and relative to the output (a sum of K = 4608
 # products of O(1) outputs differs from cuBLAS's in its last ~5 bits).
 # bf16 x: one bf16 rounding of the output (an ulp, 2^-7 relative, where
 # the two fp32 sums straddle a rounding boundary), plus 1e-3 absolute for
 # outputs near zero: the tensor cores' fp32 accumulation over K = 18432
 # differs from cuBLAS's fp32 sum by about 1e-4 there
-K4_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}
+# bf16 x with fp32 output: the same 1e-3 absolute for the accumulation
+# order, and no output rounding (1e-5 relative). Keyed on (x, output).
+K4_TOL = {("float32", "float32"): (1e-5, 1e-5),
+          ("bfloat16", "bfloat16"): (1e-3, 2.0 ** -7),
+          ("bfloat16", "float32"): (1e-3, 1e-5)}
 # each timed call reads its own weight copy, these bytes of copies at least
 # (twice the 50 MB L2): every layer's weights are cold on a decode tick
 K4_COLD_BYTES = 100e6
@@ -623,46 +658,49 @@ def phase_int8_matmul():
     from repro_torch.quant import int8 as int8_lib
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     main = None
-    for m, k, n, x_name in K4_SHAPES:
-        dt = getattr(torch, x_name)
+    for m, k, n, x_name, out_name in K4_SHAPES:
+        dt, odt = getattr(torch, x_name), getattr(torch, out_name)
         x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
         w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
         leaf = int8_lib.quantize_weight(w)
         q, sc = leaf["q8"], leaf["s8"].reshape(n).contiguous()
         del w
-        got = k4.int8_matmul(x, q, sc)
+        got = k4.int8_matmul(x, q, sc, out_dtype=odt)
         torch.cuda.synchronize()
-        want = ref.int8_matmul_ref(x, q, sc)
-        atol, rtol = K4_TOL[x_name]
+        want = ref.int8_matmul_ref(x, q, sc, out_dtype=odt)
+        atol, rtol = K4_TOL[x_name, out_name]
         err = (got.float() - want.float()).abs()
         max_err = float(err.max())
         excess = err - (atol + rtol * want.float().abs())
-        if not (float(excess.max()) <= 0.0 and torch.isfinite(got).all()):
+        if not (float(excess.max()) <= 0.0 and torch.isfinite(got).all()
+                and got.dtype == odt):
             worst = int(excess.argmax())
             raise AssertionError(
                 f"int8_matmul disagrees with its plain version at "
-                f"{m}x{k}x{n} {x_name}: max abs err {max_err} (atol {atol}, "
+                f"{m}x{k}x{n} {x_name} -> {out_name} ({got.dtype}): max abs "
+                f"err {max_err} (atol {atol}, "
                 f"rtol {rtol}); worst element {divmod(worst, n)}: kernel "
                 f"{float(got.flatten()[worst])}, plain "
                 f"{float(want.flatten()[worst])}")
         qs = [q] + [q.clone() for _ in range(
             max(3, int(K4_COLD_BYTES // q.numel())))]
-        kernel_ms = cuda_ms(lambda i: k4.int8_matmul(x, qs[i % len(qs)], sc),
-                            24)
-        plain_ms = cuda_ms(
-            lambda i: ref.int8_matmul_ref(x, qs[i % len(qs)], sc), 6)
+        kernel_ms = cuda_ms(lambda i: k4.int8_matmul(
+            x, qs[i % len(qs)], sc, out_dtype=odt), 24 if m <= 2048 else 8)
+        plain_ms = cuda_ms(lambda i: ref.int8_matmul_ref(
+            x, qs[i % len(qs)], sc, out_dtype=odt), 6 if m <= 2048 else 3)
         # the yardstick moves 2x (bf16) or 4x (fp32) the weight bytes
         wd = [(c.float() * sc).to(dt) for c in qs[:max(
             2, int(K4_COLD_BYTES // (q.numel() * x.element_size())))]]
-        library_ms = cuda_ms(lambda i: x @ wd[i % len(wd)], 24)
+        library_ms = cuda_ms(lambda i: x @ wd[i % len(wd)],
+                             24 if m <= 2048 else 8)
         del qs, wd
-        nbytes = (q.numel() + sc.numel() * 4
-                  + (x.numel() + m * n) * x.element_size())
+        nbytes = (q.numel() + sc.numel() * 4 + x.numel() * x.element_size()
+                  + m * n * got.element_size())
         bound_ms, bound_by = _bound(
             nbytes, 2.0 * m * k * n / (PEAK_BF16 if dt == torch.bfloat16
                                        else PEAK_FP32))
         row = {"phase": "int8_matmul", "m": m, "k": k, "n": n, "x": x_name,
-               "max_abs_err": max_err, "atol": atol, "rtol": rtol,
+               "out": out_name, "max_abs_err": max_err, "atol": atol, "rtol": rtol,
                "ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library": "cuBLAS x @ w, w dequantized once: not the same "
@@ -670,9 +708,127 @@ def phase_int8_matmul():
                           "weight bytes",
                "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
-        if (m, k, n, x_name) == K4_MAIN:
+        if (m, k, n, x_name, out_name) == K4_MAIN:
             main = row
     return main
+
+
+# K9 at the training path's projection shapes of starcoder2-7b, M = 4096
+# tokens: (K, N) of wq and wo, wk (and wv), w_in and w_out; dx in fp32 and
+# bf16 (x's dtype). Tolerance: fp32 dx within 1e-5 of the plain version's
+# max abs (fp32 sums of N up to 18432 products in another order); bf16 dx
+# also one bf16 rounding of each element (2^-7 relative, where the two
+# fp32 sums straddle a rounding boundary)
+K9_M = 4096
+K9_SHAPES = ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608))
+K9_MAIN = (4608, 18432, "float32")
+K9_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
+
+
+def phase_int8_dx():
+    """K9 against its plain version at the training projections' shapes,
+    with its time, bound, the plain version's time, and cuBLAS ``(dy *
+    scale) @ w^T`` with the weight widened to fp32 once (not the same
+    function: it reads 4x the weight bytes). Returns the main row."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    main = None
+    for k, n in K9_SHAPES:
+        dy = torch.randn((K9_M, n), generator=gen, device="cuda")
+        q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        sc = (torch.rand(n, generator=gen, device="cuda") + 0.5) * 1e-3
+        wf = q.float()
+        for out_name, (rel_max, rtol) in K9_TOL.items():
+            odt = getattr(torch, out_name)
+            got = k4.int8_matmul_dx(dy, q, sc, odt)
+            torch.cuda.synchronize()
+            want = ref.int8_matmul_dx_ref(dy, q, sc, odt)
+            err = (got.float() - want.float()).abs()
+            max_err = float(err.max())
+            peak = float(want.float().abs().max())
+            excess = err - (rel_max * peak + rtol * want.float().abs())
+            if not (float(excess.max()) <= 0.0 and got.dtype == odt
+                    and torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"int8_matmul_dx disagrees with its plain version at "
+                    f"M={K9_M}, K={k}, N={n}, {out_name}: max abs err "
+                    f"{max_err} of max {peak} ({got.dtype})")
+            kernel_ms = cuda_ms(lambda i: k4.int8_matmul_dx(dy, q, sc, odt),
+                                6)
+            plain_ms = cuda_ms(
+                lambda i: ref.int8_matmul_dx_ref(dy, q, sc, odt), 3)
+            library_ms = cuda_ms(lambda i: ((dy * sc) @ wf.T).to(odt), 6)
+            nbytes = (dy.numel() * 4 + q.numel() + n * 4
+                      + K9_M * k * got.element_size())
+            bound_ms, bound_by = _bound(nbytes, 2.0 * K9_M * n * k / PEAK_FP32)
+            row = {"phase": "int8_matmul_dx", "m": K9_M, "k": k, "n": n,
+                   "dy": "float32", "out": out_name, "max_abs_err": max_err,
+                   "max_rel_err": max_err / max(peak, 1e-30),
+                   "tol_rel_to_max": rel_max, "rtol": rtol, "ms": kernel_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library": "cuBLAS (dy * scale) @ w^T, w widened to fp32 "
+                              "once: not the same function, it reads 4x "
+                              "the weight bytes",
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(row)
+            if (k, n, out_name) == K9_MAIN:
+                main = row
+            del got, want, err, excess
+        del dy, q, sc, wf
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_int8_train_grads():
+    """``ops.int8_matmul_train`` (K4 with fp32 output, K9) against autograd
+    through ``(x @ q) * scale`` in fp32, cast to x's dtype as the kernel
+    route's output is (so both routes round the cotangent alike), at (M,
+    K, N) = (4096, 4608, 18432),
+    fp32 and bf16 x: dx within 1e-5 (fp32) or 2e-2 (bf16, one bf16
+    rounding, tests/test_kernels_grad.py's bound) of its max, dscale within
+    1e-4 of its max (recovered from the saved fp32 output, summed over
+    4096 rows in another order)."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    m, k, n = K9_M, 4608, 18432
+    q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    sc = (torch.rand(n, generator=gen, device="cuda") + 0.5) * 1e-3
+    ct = torch.randn((m, n), generator=gen, device="cuda")
+    x32 = torch.randn((m, k), generator=gen, device="cuda")
+    for x_name, dx_tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+        x = x32.to(getattr(torch, x_name))
+        grads = {}
+        for route in ("kernels", "plain"):
+            xl = x.detach().requires_grad_(True)
+            sl = sc.detach().requires_grad_(True)
+            with torch.enable_grad():
+                y = (ops.int8_matmul_train(xl, q, sl) if route == "kernels"
+                     else ((xl.float() @ q.float()) * sl).to(x.dtype))
+                grads[route] = torch.autograd.grad(
+                    (y.float() * ct).sum(), (xl, sl))
+            del y
+        (dx, ds), (wdx, wds) = grads["kernels"], grads["plain"]
+        dx_err = _rel_err(dx, wdx)
+        ds_err = _rel_err(ds, wds)
+        row = {"phase": "int8_matmul_train_grads", "m": m, "k": k, "n": n,
+               "x": x_name, "dx_dtype": str(dx.dtype).split(".")[-1],
+               "dx_max_abs_err": dx_err[0], "dx_rel_to_max": dx_err[1],
+               "dscale_max_abs_err": ds_err[0],
+               "dscale_rel_to_max": ds_err[1]}
+        emit(row)
+        if not (dx_err[1] <= dx_tol and ds_err[1] <= 1e-4
+                and dx.dtype == x.dtype and ds.dtype == torch.float32):
+            raise AssertionError(f"int8_matmul_train gradients disagree "
+                                 f"with autograd through the plain math: "
+                                 f"{row}")
+        del grads, dx, ds, wdx, wds
+    del q, sc, ct, x32
+    torch.cuda.empty_cache()
 
 
 # K6-K8 at the training path's shapes: starcoder2-7b's heads at B = 2,
@@ -684,6 +840,8 @@ def phase_int8_matmul():
 # may straddle a rounding boundary)
 FLASH_B, FLASH_S = 2, 2048
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+TRAIN_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
 MAIN_FLASH = ("float32", -1)
 TRAIN_LAYERS = 8
 
@@ -727,8 +885,9 @@ def _flash_bounds(q, k, window):
 
 def _rel_err(got, want):
     """(max abs error, that over the max abs of ``want``)."""
-    err = float((got.float() - want.float()).abs().max())
-    return err, err / max(float(want.float().abs().max()), 1e-30)
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
 
 
 def phase_flash_kernels():
@@ -844,6 +1003,90 @@ def phase_flash_kernels():
     return main
 
 
+# K10 at K6's shapes: (q dtype, K/V storage) with windows -1 and 256; the
+# kernels line reports fp32 q and K/V without a window, K6's mode.
+# Tolerance over the max of the plain version's output: K6's (FLASH_TOL)
+K10_MODES = (("float32", "float32"), ("float32", "int8"),
+             ("bfloat16", "bfloat16"), ("bfloat16", "int8"))
+K10_MAIN = ("float32", "float32", -1)
+
+
+def phase_flash_infer():
+    """K10 against its plain version at K6's shapes (B = 2, S = 2048, H =
+    36, Hkv = 4, D = 128, causal) with q in fp32 and bf16, K/V in q's dtype
+    or int8 with (B, S, Hkv) fp32 scales, windows -1 and 256. The library
+    yardstick is causal ``F.scaled_dot_product_attention`` with K/V
+    dequantized (int8) and repeated to H heads inside the timed call (a
+    boolean mask for the window). Returns the main row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    scale = D ** -0.5
+    rep = H // HKV
+    main = None
+    for q_name, kv_name in K10_MODES:
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        q = _randn(gen, (FLASH_B, FLASH_S, H, D), q_dt)
+        k = _randn(gen, (FLASH_B, FLASH_S, HKV, D), kv_dt)
+        v = _randn(gen, (FLASH_B, FLASH_S, HKV, D), kv_dt)
+        scales = _scales(gen, k, kv_dt)
+        kvs = dict(zip(("k_scale", "v_scale"), scales))
+        tol = FLASH_TOL[q_name]
+        for window in WINDOWS:
+            kw = dict(scale=scale, causal=True, window=window, **kvs)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err, rel = _rel_err(got, want)
+            if not (rel <= tol and got.dtype == q.dtype
+                    and torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"flash_attention disagrees with its plain version: q "
+                    f"{q_name}, kv {kv_name}, window {window}: max abs err "
+                    f"{err}, {rel} of the max (tolerance {tol})")
+            del want
+            mask = None if window <= 0 else ref.flash_mask(
+                FLASH_S, FLASH_S, causal=True, window=window, device="cuda")
+
+            def library():
+                kk, vv = k, v
+                if scales:
+                    kk = (k.float() * scales[0][..., None]).to(q.dtype)
+                    vv = (v.float() * scales[1][..., None]).to(q.dtype)
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2),
+                    kk.repeat_interleave(rep, dim=2).transpose(1, 2),
+                    vv.repeat_interleave(rep, dim=2).transpose(1, 2),
+                    attn_mask=mask, is_causal=mask is None, scale=scale)
+
+            lib_rel = _rel_err(got, library().transpose(1, 2))[1]
+            ms = cuda_ms(lambda i: fa.flash_attention(q, k, v, **kw), 10)
+            plain_ms = cuda_ms(lambda i: ref.flash_attention_ref(q, k, v,
+                                                                 **kw), 3)
+            library_ms = cuda_ms(lambda i: library(), 10)
+            pairs = FLASH_B * H * _flash_pairs(FLASH_S, window)
+            nbytes = (2 * q.numel() * q.element_size()
+                      + 2 * k.numel() * k.element_size()
+                      + sum(t.numel() * 4 for t in scales))
+            bound_ms, bound_by = _bound(nbytes, 4.0 * D * pairs / _peak(q))
+            row = {"phase": "kernels", "kernel": "flash_attention",
+                   "q": q_name, "kv": kv_name, "window": window,
+                   "B": FLASH_B, "S": FLASH_S, "max_abs_err": err,
+                   "max_rel_err": rel, "tol_rel_to_max": tol,
+                   "library_rel_diff": lib_rel, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(row)
+            if (q_name, kv_name, window) == K10_MAIN:
+                main = row
+            del got
+        del q, k, v, scales, kvs
+        torch.cuda.empty_cache()
+    return main
+
+
 def _train_cfg(layers):
     """starcoder2-7b at full width, cut to ``layers`` layers."""
     from repro_torch.configs import starcoder2_7b
@@ -888,8 +1131,7 @@ def phase_train_parity():
     loss_rel = float((l_f - l_s).abs() / l_s.abs())
     leaf_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                    for a, b in zip(g_f, g_s))
-    want = {n: (2 if n.startswith("flash_attention") else 0)
-            for n in counters}
+    want = {n: (2 if n in TRAIN_FLASH else 0) for n in counters}
     finite = bool(torch.isfinite(l_f)) and all(
         bool(torch.isfinite(g).all()) for g in g_f)
     row = {"phase": "train_parity", "layers": 2, "batch": 2, "seq": 1024,
@@ -907,8 +1149,9 @@ def phase_train_parity():
 
 
 def _profile_tick(eng, k, top=10):
-    """One more tick of ``k`` steps under torch.profiler, after the
-    measured run: device time by kernel (ms per step, largest first), the
+    """``eng.run(k)`` (a TrainEngine tick, or k Trainer steps) under
+    torch.profiler, after the measured run: device time by kernel (ms per
+    step, largest first), the
     flash kernels' share of it, the device's busy share of the tick's wall
     time and the kernel launches per step."""
     import torch
@@ -973,8 +1216,8 @@ def phase_train():
     eng.run(steps)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = {n: (steps * TRAIN_LAYERS if n.startswith("flash_attention")
-                else 0) for n in counters}
+    want = {n: (steps * TRAIN_LAYERS if n in TRAIN_FLASH else 0)
+            for n in counters}
     log = np.concatenate(eng.step_log)
     s = eng.summary()
     cost = eng.cost
@@ -1011,6 +1254,247 @@ def phase_train():
                              f"for {row['ticks']} ticks")
     if launches != want:
         raise AssertionError(f"train: launches {launches} != {want}")
+    return launches
+
+
+# the Trainer at the full size of examples/train_e2e.py's model_100m: fp32,
+# batch 8 x 128 tokens, N steps per leg of the resume check
+TRAINER_N = 10
+TRAINER_BATCH, TRAINER_SEQ = 8, 128
+
+
+def _trainer(cfg, seed, ckpt_dir=None):
+    """A Trainer on ``cfg`` with fp32 random weights from ``seed``, billed
+    to h100_sxm, checkpointing (keep 2, no periodic saves) into
+    ``ckpt_dir``. Synthetic tokens: the Markov source's vocab x vocab
+    table would take 17 GB of host memory and about a minute to draw at
+    vocab 32768, and the stream's content does not change the work."""
+    import torch
+    from repro_torch.checkpoint import CheckpointConfig
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+    steps = 2 * TRAINER_N
+    params = tf_lib.init_lm(cfg, seed=seed, dtype=torch.float32,
+                            device="cuda")
+    return Trainer(
+        loss_fn=lambda p, b: tf_lib.loss_fn(p, cfg, b), params=params,
+        opt_cfg=AdamWConfig(lr=warmup_cosine(3e-3, steps // 10, steps)),
+        train_cfg=TrainConfig(num_steps=steps, log_every=TRAINER_N,
+                              checkpoint_every=10 ** 9),
+        pipeline=make_pipeline(DataConfig(
+            vocab=cfg.vocab, seq_len=TRAINER_SEQ,
+            global_batch=TRAINER_BATCH, seed=SEED, source="synthetic")),
+        ckpt_cfg=(CheckpointConfig(directory=str(ckpt_dir), keep_last=2)
+                  if ckpt_dir else None),
+        accountant=_accountant())
+
+
+def _tree_diff(got, want):
+    """(every leaf equal bit for bit, max abs difference, max of that over
+    the leaf's max abs) over two trees of tensors of one structure."""
+    from repro_torch.models.common import flatten
+    same, diff, rel = True, 0.0, 0.0
+    for a, b in zip(flatten(got)[0], flatten(want)[0]):
+        a, b = a.detach(), b.detach()
+        same &= bool(_equal(a, b))
+        d = float((a.double() - b.double()).abs().max())
+        diff = max(diff, d)
+        rel = max(rel, d / max(float(b.double().abs().max()), 1e-30))
+    return same, diff, rel
+
+
+def _equal(a, b):
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_trainer():
+    """The checkpointing Trainer on examples/train_e2e.py's model_100m at
+    full size (12 layers, d_model 768, 12/4 heads of 64, vocab 32768, five
+    256-token-window layers per global one), fp32, batch 8 x 128: (a) 2N
+    steps straight; (b) N steps, ``save(wait=True)``, then a fresh Trainer
+    from another seed ``maybe_restore``s and runs N more steps. (b)'s
+    params and optimizer state must equal (a)'s: bit for bit, else each
+    leaf within 1e-6 of its max. Then a preempted run saves synchronously
+    at its step, and a flipped byte in arrays.npz makes restore raise.
+    Every counter is set to 0 just before (a) and read just after: K6, K7
+    and K8 each launch 2N x 12 times. Returns (a)'s launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.examples.train_e2e import model_100m
+    from repro_torch.models.common import flatten
+    cfg = model_100m()
+    n = TRAINER_N
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                 dir=ROOT / "build"))
+    try:
+        tr_a = _trainer(cfg, SEED)
+        n_params = sum(p.numel() for p in flatten(tr_a.params)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        tr_a.run(2 * n)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {name: (2 * n * cfg.n_layers if name in TRAIN_FLASH else 0)
+                for name in counters}
+        losses = [e["loss"] for e in tr_a.metrics_log]
+
+        tr_b = _trainer(cfg, SEED, root / "resume")
+        tr_b.run(n)
+        t0 = time.monotonic()
+        tr_b.save(wait=True)
+        save_s = time.monotonic() - t0
+        save_bytes = _dir_bytes(root / "resume" / f"ckpt_{n:08d}")
+        del tr_b
+        tr_c = _trainer(cfg, SEED + 1, root / "resume")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        restored = tr_c.maybe_restore()
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        step_after_restore = tr_c.step_num
+        tr_c.run(n)
+        same_p, diff_p, rel_p = _tree_diff(tr_c.params, tr_a.params)
+        same_o, diff_o, rel_o = _tree_diff(tr_c.opt_state, tr_a.opt_state)
+        # after the measured run, its counts and the comparison
+        profile = _profile_tick(tr_a, 2)
+        del tr_a
+
+        # preemption after the third step: a synchronous save at that step
+        orig = tr_c._step_fn
+        calls = []
+
+        def step_then_preempt(*args):
+            out = orig(*args)
+            calls.append(1)
+            if len(calls) == 3:
+                tr_c._preempted = True
+            return out
+
+        tr_c._step_fn = step_then_preempt
+        tr_c.run(2 * n)
+        preempt_step = tr_c.step_num
+        preempt_saved = tr_c.ckpt.latest_step()
+        # a flipped byte in the latest arrays.npz, inside its first array
+        # (the first one restore reads, so it stops there)
+        npz = root / "resume" / f"ckpt_{preempt_saved:08d}" / "arrays.npz"
+        with open(npz, "r+b") as f:
+            f.seek(4096)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+        try:
+            tr_c.ckpt.restore(target={"params": tr_c.params,
+                                      "opt": tr_c.opt_state})
+            refused = None
+        except Exception as e:              # any refusal counts; reported
+            refused = f"{type(e).__name__}: {str(e)[:120]}"
+        del tr_c
+        row = {"phase": "trainer", "model": cfg.name,
+               "layers": cfg.n_layers, "d_model": cfg.d_model,
+               "params": n_params, "batch": TRAINER_BATCH,
+               "seq": TRAINER_SEQ, "steps": 2 * n,
+               "s_per_step": wall / (2 * n),
+               "tokens_per_s": 2 * n * TRAINER_BATCH * TRAINER_SEQ / wall,
+               "peak_mem_gb": peak_gb, "losses": losses,
+               "resume": {"restored": restored,
+                          "step_after_restore": step_after_restore,
+                          "params_identical": same_p,
+                          "opt_identical": same_o,
+                          "params_max_abs_diff": diff_p,
+                          "opt_max_abs_diff": diff_o,
+                          "max_leaf_rel_diff": max(rel_p, rel_o)},
+               "save_s": save_s, "save_bytes": save_bytes,
+               "restore_s": restore_s,
+               "preempt_step": preempt_step,
+               "preempt_saved_step": preempt_saved,
+               "corrupt_restore_refused": refused, "launches": launches,
+               "profile": profile}
+        emit(row)
+        if not (restored and step_after_restore == n
+                and (same_p and same_o or max(rel_p, rel_o) <= 1e-6)):
+            raise AssertionError(f"trainer: the resumed run differs from "
+                                 f"the straight one: {row['resume']}")
+        if not (preempt_step == 2 * n + 3 and preempt_saved == preempt_step):
+            raise AssertionError(f"trainer: preempted at step "
+                                 f"{preempt_step}, saved {preempt_saved}")
+        if refused is None:
+            raise AssertionError("trainer: a corrupt checkpoint restored")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"trainer: losses {losses}")
+        if launches != want:
+            raise AssertionError(f"trainer: launches {launches} != {want}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_bench():
+    """The port's train bench (``repro_torch.benchmarks.train_bench``) into
+    build/bench/: both arms, the update parity and the kernel-grad parity,
+    whose int8 case launches K4 (fp32 output) and K9 once each. Counters
+    set to 0 just before and read just after. Returns the launches."""
+    from repro_torch.benchmarks import train_bench
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    res = train_bench.bench(out=ROOT / "build" / "bench"
+                            / "BENCH_torch_train.json", device="cuda")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    g = res["grad_parity_vs_ref"]
+    row = {"phase": "train_bench",
+           "loop_s_per_step": res["reference"]["s_per_step"],
+           "fused_s_per_step": res["fused"]["s_per_step"],
+           "fused_speedup_s_per_step": res["speedup_s_per_step"],
+           "update_parity_max_abs_diff": res["update_parity_max_abs_diff"],
+           "grad_parity_vs_ref": g, "launches": launches}
+    emit(row)
+    # fp32 gradients through the kernels against autograd through the
+    # plain math at tiny shapes: 1e-4 absolute for dq, dk, dv and dx
+    # (values O(1)-O(10)), 1e-5 of its max for dscale (values O(1e3))
+    if not (max(g.values()) <= 1e-4
+            and g["int8_matmul_dscale_rel_err"] <= 1e-5
+            and res["update_parity_max_abs_diff"] <= 1e-6):
+        raise AssertionError(f"train bench parity: {row}")
+    if launches["int8_matmul_dx"] != 1 or launches["int8_matmul"] != 1 \
+            or not all(launches[n] for n in TRAIN_FLASH):
+        raise AssertionError(f"train bench launches: {launches}")
+    return launches
+
+
+def phase_kernel_bench():
+    """The port's kernel bench (``repro_torch.benchmarks.kernel_bench``):
+    K10 against its plain version at the reference bench's flash shapes,
+    timed. Counters set to 0 just before and read just after. Returns the
+    launches."""
+    from repro_torch.benchmarks import kernel_bench
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rows = kernel_bench.run("cuda")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    emit({"phase": "kernel_bench", "rows": [list(r) for r in rows],
+          "launches": launches})
+    err = float(rows[-1][2].split("=")[1])
+    if err > 1e-5 or launches["flash_attention"] <= 0 \
+            or sum(launches.values()) != launches["flash_attention"]:
+        raise AssertionError(f"kernel bench: max err {err}, launches "
+                             f"{launches}")
     return launches
 
 
@@ -1152,7 +1636,9 @@ def _counters():
             "int8_matmul": k4.int8_matmul,
             "flash_attention_fwd": k678.flash_attention_fwd,
             "flash_attention_bwd_dq": k678.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": k678.flash_attention_bwd_dkv}
+            "flash_attention_bwd_dkv": k678.flash_attention_bwd_dkv,
+            "int8_matmul_dx": k4.int8_matmul_dx,
+            "flash_attention": k678.flash_attention}
 
 
 def _serve_run(phase, eng, acct, prompts, n_new):
@@ -1191,7 +1677,8 @@ def _serve_run(phase, eng, acct, prompts, n_new):
             "int8_matmul": (decode_ticks + admissions) * N_LAYERS * 6
             if int8 else 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dkv": 0, "int8_matmul_dx": 0,
+            "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches} != {want} "
                              f"(decode ticks {decode_ticks}, admission or "
@@ -1312,6 +1799,9 @@ KERNELS = (
      "src/repro/kernels/flash_attention.py:337"),
     ("flash_attention_bwd_dkv", "flash_attention",
      "src/repro/kernels/flash_attention.py:357"),
+    ("int8_matmul_dx", "int8_matmul", "src/repro/kernels/int8_matmul.py:124"),
+    ("flash_attention", "flash_attention",
+     "src/repro/kernels/flash_attention.py:103"),
 )
 
 
@@ -1332,7 +1822,10 @@ def main() -> int:
     phase_build()
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
     rows["int8_matmul"] = phase_int8_matmul()
+    rows["int8_matmul_dx"] = phase_int8_dx()
+    phase_int8_train_grads()
     rows.update(phase_flash_kernels())
+    rows["flash_attention"] = phase_flash_infer()
     phase_streams()
     torch.cuda.empty_cache()
     from repro_torch.configs import starcoder2_7b
@@ -1352,6 +1845,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs += [phase_train_parity(), phase_train()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += [phase_trainer(), phase_train_bench(), phase_kernel_bench()]
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "

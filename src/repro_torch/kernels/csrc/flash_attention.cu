@@ -1,11 +1,13 @@
 // K6, K7, K8: flash attention for training, forward with lse and its two
-// backward kernels, on Hopper (sm_90a).
+// backward kernels, and K10, the inference flash attention, on Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernels behind repro/kernels/flash_attention.py::
-// flash_attention_vjp:
+// flash_attention_vjp and flash_attention:
 //   K6  _fwd_with_lse         (_flash_kernel with save_lse=True)
 //   K7  _flash_vjp_bwd -> dQ  (_flash_bwd_dq_kernel)
 //   K8  _flash_vjp_bwd -> dK, dV (_flash_bwd_dkv_kernel)
+//   K10 flash_attention       (_flash_kernel without the lse; int8-KV mode)
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D) with rep = H / Hkv, all contiguous
 // and read in place (the TPU wrapper's transposes and padding are not
 // carried over). Query i and key j form a valid pair when i < Sq, j < Sk,
@@ -51,7 +53,16 @@
 //
 // K10 (the inference flash_attention, with its int8-KV mode) is the same
 // forward body without the lse: flash_fwd_kernel takes the K/V storage
-// type and the lse switch as template parameters for it.
+// type and the lse switch as template parameters. In the int8-KV mode K and
+// V are int8 codes with one fp32 scale per (batch, key, KV head), (B, Sk,
+// Hkv); the tile loads widen each code to fp32 and multiply it by its
+// row's scale (the Pallas body's k * ks, v * vs), where the fp mode only
+// converts. The bound and the math are K6's; the int8 codes move 4x (2x)
+// fewer K/V bytes than fp32 (bf16). With Sq > Sk under a window, a query
+// row whose window lies past the last key sees no key and is zeros: the
+// Pallas kernel averages V over the masked keys of the tiles it visited
+// there, and the JAX wrapper sends such ragged shapes to attention_ref,
+// which averages all of V; no model path makes such a row.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library
 // with a plain C entry point, loaded with ctypes.
@@ -96,6 +107,15 @@ __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float4& a, float4& b
   const float2 x2 = __bfloat1622float2(h[2]), x3 = __bfloat1622float2(h[3]);
   a = make_float4(x0.x, x0.y, x1.x, x1.y);
   b = make_float4(x2.x, x2.y, x3.x, x3.y);
+}
+
+// eight int8 codes, widened exactly
+__device__ __forceinline__ void ld8(const int8_t* p, float4& a, float4& b) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  a = make_float4((float)(int8_t)u.x, (float)(int8_t)(u.x >> 8), (float)(int8_t)(u.x >> 16),
+                  (float)(int8_t)(u.x >> 24));
+  b = make_float4((float)(int8_t)u.y, (float)(int8_t)(u.y >> 8), (float)(int8_t)(u.y >> 16),
+                  (float)(int8_t)(u.y >> 24));
 }
 
 __device__ __forceinline__ void st4(__nv_bfloat16* p, const float4& x) {
@@ -146,18 +166,23 @@ __device__ __forceinline__ bool valid_pair(int i, int j, int Sq, int Sk, int cau
 
 // Rows [0, 64) of a tile into shared memory with row stride `stride`
 // floats, times `mul`: global row r at src + r * gstride (elements); rows
-// at or past n_valid are zeros, so p = 0 never meets stale memory.
+// at or past n_valid are zeros, so p = 0 never meets stale memory. With
+// `row_scale` (int8 codes), row r is also multiplied by row_scale[r *
+// sstride], its fp32 scale.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          long long gstride, int n_valid, float mul) {
+                                          long long gstride, int n_valid, float mul,
+                                          const float* row_scale = nullptr,
+                                          int sstride = 0) {
   constexpr int C8 = D / 8;
   for (int idx = threadIdx.x; idx < kTile * C8; idx += kThreads) {
     const int r = idx / C8, c = (idx % C8) * 8;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
     if (r < n_valid) {
       ld8(src + r * gstride + c, a, b);
-      a = mul4(a, mul);
-      b = mul4(b, mul);
+      const float f = row_scale ? mul * row_scale[(long long)r * sstride] : mul;
+      a = mul4(a, f);
+      b = mul4(b, f);
     }
     st4(dst + r * stride + c, a);
     st4(dst + r * stride + c + 4, b);
@@ -217,15 +242,18 @@ __device__ __forceinline__ void pv(const float* p_s, const float* v_s, int v_str
   }
 }
 
-// K6 (and later K10): grid (Sq tiles, H, B). Block x walks query tile
-// nq - 1 - x, so the causal triangle's longest rows start first.
-// Shared memory: Q (64 x D, scaled), K (64 x (D + 4)), V (64 x D); P reuses
-// K's space once the scores are taken.
+// K6 and K10: grid (Sq tiles, H, B). Block x walks query tile nq - 1 - x,
+// so the causal triangle's longest rows start first. Shared memory: Q (64 x
+// D, scaled), K (64 x (D + 4)), V (64 x D); P reuses K's space once the
+// scores are taken. k_scale and v_scale (B, Sk, Hkv) are the int8-KV
+// mode's row scales, null otherwise.
 template <typename QT, typename KVT, int D, bool kSaveLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
-                 const KVT* __restrict__ v, QT* __restrict__ out, float* __restrict__ lse,
-                 int Sq, int Sk, int H, int Hkv, int causal, int window, float scale) {
+                 const KVT* __restrict__ v, const float* __restrict__ k_scale,
+                 const float* __restrict__ v_scale, QT* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int causal,
+                 int window, float scale) {
   constexpr int KS = D + 4, CJ = D / 64;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
@@ -242,6 +270,7 @@ flash_fwd_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                    n_q, scale);
   const KVT* k_g = k + (long long)b * Sk * k_row + (long long)hk * D;
   const KVT* v_g = v + (long long)b * Sk * k_row + (long long)hk * D;
+  const long long s_off = (long long)b * Sk * Hkv + hk;   // row 0's scale
 
   const int q_last = q0 + n_q - 1;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -260,8 +289,10 @@ flash_fwd_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   for (int k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
     __syncthreads();                      // the last tile's P and V readers are done
     const int n_k = min(kTile, Sk - k0);
-    load_tile<KVT, D>(k_s, KS, k_g + k0 * k_row, k_row, n_k, 1.f);
-    load_tile<KVT, D>(v_s, D, v_g + k0 * k_row, k_row, n_k, 1.f);
+    load_tile<KVT, D>(k_s, KS, k_g + k0 * k_row, k_row, n_k, 1.f,
+                      k_scale ? k_scale + s_off + (long long)k0 * Hkv : nullptr, Hkv);
+    load_tile<KVT, D>(v_s, D, v_g + k0 * k_row, k_row, n_k, 1.f,
+                      v_scale ? v_scale + s_off + (long long)k0 * Hkv : nullptr, Hkv);
     __syncthreads();
     float s[4][4];
     dots<D>(q_s, D, k_s, ty, tx, s);
@@ -488,19 +519,35 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                       int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
-                       float scale, cudaStream_t stream) {
+// K6 (KVT = QT, kSaveLse) and K10 (KVT = QT or int8_t, no lse)
+template <typename QT, typename KVT, int D, bool kSaveLse>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* k_scale,
+                       const void* v_scale, void* out, void* lse, int B, int Sq, int Sk,
+                       int H, int Hkv, int causal, int window, float scale,
+                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)kTile * D * 2 + shared_tile(D));
-  auto kernel = flash_fwd_kernel<T, T, D, true>;
+  auto kernel = flash_fwd_kernel<QT, KVT, D, kSaveLse>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kTile - 1) / kTile, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, window, scale);
+      static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<QT*>(out), static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, window,
+      scale);
   return cudaGetLastError();
+}
+
+template <typename QT, int D>
+cudaError_t launch_infer(const void* q, const void* k, const void* v, const void* k_scale,
+                         const void* v_scale, void* out, int B, int Sq, int Sk, int H,
+                         int Hkv, int causal, int window, float scale, int kv_int8,
+                         cudaStream_t stream) {
+  if (kv_int8)
+    return launch_fwd<QT, int8_t, D, false>(q, k, v, k_scale, v_scale, out, nullptr, B, Sq,
+                                            Sk, H, Hkv, causal, window, scale, stream);
+  return launch_fwd<QT, QT, D, false>(q, k, v, nullptr, nullptr, out, nullptr, B, Sq, Sk, H,
+                                      Hkv, causal, window, scale, stream);
 }
 
 template <typename T, int D>
@@ -563,10 +610,28 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
                                           int Hkv, int D, int causal, int window, float scale,
                                           int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(T, DIM) \
-  launch_fwd<T, DIM>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window, scale, s)
+#define FWD(T, DIM)                                                                      \
+  launch_fwd<T, T, DIM, true>(q, k, v, nullptr, nullptr, out, lse, B, Sq, Sk, H, Hkv, causal, \
+                              window, scale, s)
   FLASH_DISPATCH(FWD)
 #undef FWD
+}
+
+// K10. q and out (B, Sq, H, D) fp32, or bf16 when `bf16` is 1; k, v (B, Sk,
+// Hkv, D) in q's dtype, or int8 codes when kv_int8 is 1 with k_scale and
+// v_scale (B, Sk, Hkv) fp32 contiguous (ignored otherwise). The shape rules
+// are K6's.
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
+                                      const void* k_scale, const void* v_scale, void* out,
+                                      int B, int Sq, int Sk, int H, int Hkv, int D,
+                                      int causal, int window, float scale, int bf16,
+                                      int kv_int8, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define INFER(T, DIM)                                                                      \
+  launch_infer<T, DIM>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, Hkv, causal, window, \
+                       scale, kv_int8, s)
+  FLASH_DISPATCH(INFER)
+#undef INFER
 }
 
 extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,

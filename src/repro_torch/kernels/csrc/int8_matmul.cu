@@ -1,14 +1,17 @@
-// K4: weight-only int8 matmul for the serving fast path, on Hopper (sm_90a).
+// K4: weight-only int8 matmul for the serving fast path, on Hopper (sm_90a),
+// and K9, its backward with respect to x (end of the file).
 //
 // Replaces the Pallas TPU kernel repro/kernels/int8_matmul.py::int8_matmul
 // (_int8_matmul_kernel). Computes
 //   y[m, n] = (sum_k x[m, k] * q[k, n]) * scale[n]
 // with x (M, K) fp32 or bf16 row-major, q (K, N) int8 row-major (the
 // weight's own layout: K rows of N codes), scale (N,) fp32 and y (M, N) in
-// x's dtype. The int8 tile is widened to x's dtype after it loads (int8
+// x's dtype, or in fp32 for bf16 x when asked (the training forward keeps
+// its output in fp32, as int8_matmul_vjp does, so that the dscale residual
+// stays exact). The int8 tile is widened to x's dtype after it loads (int8
 // codes are exact in bf16), the products accumulate in fp32, the scale is
 // applied once per output element at the end, and the result is cast to
-// x's dtype once. Full-precision weights never exist in device memory.
+// the output type once. Full-precision weights never exist in device memory.
 // Nothing is padded: every kernel masks ragged M, N and K edges itself;
 // K must be a multiple of 16 (every starcoder2 K is a multiple of 128).
 //
@@ -97,6 +100,12 @@ __device__ __forceinline__ uint2 widen4(uint32_t w) {
                     *reinterpret_cast<const uint32_t*>(&hi));
 }
 
+// one output element from its fp32 value: the only rounding of the result
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -123,9 +132,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // widens its own 16 codes into a warp-private bf16 tile; and ldmatrix.trans
 // hands out the B fragments. No warp shares an output, so the only
 // reduction is across splits.
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 3)
 int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                 const float* __restrict__ scale, OutT* __restrict__ out,
                  float* __restrict__ ws, int* __restrict__ counters, int M, int N, int K,
                  int rows_per_split, int vec) {
   extern __shared__ __align__(16) unsigned char gemv_smem[];
@@ -228,8 +238,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int n = nw + 8 * i + 2 * t + e;
-          if (n < N)
-            out[(long long)g * N + n] = __float2bfloat16_rn(acc[i][e] * scale[n]);
+          if (n < N) store_out(out + (long long)g * N + n, acc[i][e] * scale[n]);
         }
     }
     return;
@@ -278,7 +287,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   for (int r = 0; r < kPer; ++r) {
     const int i = tid + r * kThreads;
     const int m = i / kGemvBN, col = n0 + i % kGemvBN;
-    if (m < M && col < N) out[(long long)m * N + col] = __float2bfloat16_rn(sum[r] * scale[col]);
+    if (m < M && col < N) store_out(out + (long long)m * N + col, sum[r] * scale[col]);
   }
   if (tid == 0) counters[blockIdx.x] = 0;
 }
@@ -297,9 +306,10 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 // 64 x 32: 4 x 4 m16n8 accumulators. Fragment layouts are PTX's for
 // m16n8k16: g = lane / 4 picks the row (A, C) or the column (B), t = lane %
 // 4 the pair of k (A, B) or of columns (C).
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
+                const float* __restrict__ scale, OutT* __restrict__ out, int M,
                 int N, int K, int vec) {
   __shared__ __align__(16) __nv_bfloat16 a_s[kBM][kBK + kPad];   // x tile, k contiguous
   __shared__ __align__(16) __nv_bfloat16 b_s[kBN][kBK + kPad];   // weight tile, n-major
@@ -393,8 +403,7 @@ int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + wm + i * 16 + g + (e >> 1) * 8;
         const int n = n0 + wn + j * 8 + t * 2 + (e & 1);
-        if (m < M && n < N)
-          out[(long long)m * N + n] = __float2bfloat16_rn(acc[i][j][e] * scale[n]);
+        if (m < M && n < N) store_out(out + (long long)m * N + n, acc[i][j][e] * scale[n]);
       }
 }
 
@@ -478,49 +487,206 @@ int8_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
     }
 }
 
+template <typename OutT>
+cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* out, void* ws,
+                        void* counters, int M, int N, int K, int rows_per_split,
+                        cudaStream_t s) {
+  if (M <= kMaxM) {
+    if (rows_per_split <= 0 || rows_per_split % 16 || rows_per_split > kMaxRowsPerSplit)
+      return cudaErrorInvalidValue;
+    const int splits = (K + rows_per_split - 1) / rows_per_split;
+    const size_t smem = (size_t)kMaxM * (rows_per_split + 8) * 2 + kRingBytes + kTileBytes;
+    // allow the largest split's shared memory, once per process and output type
+    static const cudaError_t smem_set = cudaFuncSetAttribute(
+        int8_gemv_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(kXsBytesMax + kRingBytes + kTileBytes));
+    if (smem_set != cudaSuccess) return smem_set;
+    const dim3 grid((N + kGemvBN - 1) / kGemvBN, splits);
+    int8_gemv_kernel<OutT><<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scale), static_cast<OutT*>(out),
+        static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, rows_per_split,
+        N % 16 == 0);
+    return cudaGetLastError();
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  int8_mma_kernel<OutT><<<grid, kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<OutT*>(out), M, N, K, N % 16 == 0);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K9: the backward with respect to x, fp32 dy, CUDA-core FMAs
+// ---------------------------------------------------------------------------
+//
+// Replaces the Pallas TPU kernel repro/kernels/int8_matmul.py::int8_matmul_dx
+// (_int8_bwd_dx_kernel), the backward of int8_matmul_vjp. Computes
+//   dx[m, k] = sum_n (dy[m, n] * scale[n]) * q[k, n]
+// with dy (M, N) fp32 row-major (the caller casts the cotangent to fp32, as
+// _int8_vjp_bwd does), q (K, N) int8 in the forward's own layout (a dx
+// tile's weight rows are contiguous along the contraction axis N), scale
+// (N,) fp32, and dx (M, K) in x's dtype (fp32 or bf16), accumulated in fp32.
+//
+// What bounds it on the card: operations. 2 * M * N * K FLOPs against
+// 4 * M * N + K * N bytes read: at M = 4096 training tokens that is
+// hundreds of FLOPs a byte, above the H100's ridge, so the least time is
+// the FLOPs over the fp32 peak. The operand is fp32, and the tensor cores
+// take fp32 only as TF32, which the reference's fp32 dot does not round to;
+// so the products run on fp32 CUDA cores, in int8_simt_kernel's shape:
+// 64 x 64 dx tiles over 256 threads, each a 4 x 4 block, 16-wide steps
+// along N. The scale is folded into the dy tile as it loads (the reference
+// folds it into the cotangent in-register), the int8 codes are widened to
+// fp32 into shared memory, both tiles are stored N-major so each thread's
+// four rows (and four columns) are one 16-byte read, and the next step's
+// tiles are loaded into registers while this one computes. Every edge is
+// masked by length, so no shape needs padding. Tensor cores (a 3xTF32
+// split that keeps fp32 accuracy) and a deeper load pipeline are later
+// speed work.
+
+constexpr int kDxBM = 64, kDxBK = 64, kDxBN = 16, kDxPad = 4;
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+int8_dx_kernel(const float* __restrict__ dy, const int8_t* __restrict__ q,
+               const float* __restrict__ scale, OutT* __restrict__ dx, int M, int N, int K,
+               int vec) {
+  __shared__ __align__(16) float a_s[kDxBN][kDxBM + kDxPad];   // dy * scale, n-major
+  __shared__ __align__(16) float b_s[kDxBN][kDxBK + kDxPad];   // widened codes, n-major
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * kDxBM, k0 = blockIdx.x * kDxBK;
+  const int r = tid >> 2, c = (tid & 3) * 4;   // a tile row (m or k) and 4 n of it
+
+  float4 a_reg;                                 // dy[m0 + r][n0 + c .. + 3] * scale
+  uint32_t b_reg;                               // q[k0 + r][n0 + c .. + 3], packed
+  auto load = [&](int n0) {
+    const int n = n0 + c, m = m0 + r, k = k0 + r;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    if (m < M) {
+      const float* src = dy + (long long)m * N + n;
+      if (vec && n + 4 <= N) {
+        const float4 u = *reinterpret_cast<const float4*>(src);
+        a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) a[e] = src[e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < N) a[e] *= scale[n + e];
+    a_reg = make_float4(a[0], a[1], a[2], a[3]);
+    b_reg = 0u;
+    if (k < K) {
+      const int8_t* src = q + (long long)k * N + n;
+      if (vec && n + 4 <= N) {
+        b_reg = *reinterpret_cast<const uint32_t*>(src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) b_reg |= (uint32_t)(uint8_t)src[e] << (8 * e);
+      }
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  load(0);
+  for (int n0 = 0; n0 < N; n0 += kDxBN) {
+    __syncthreads();                            // last step's readers are done
+    a_s[c + 0][r] = a_reg.x;
+    a_s[c + 1][r] = a_reg.y;
+    a_s[c + 2][r] = a_reg.z;
+    a_s[c + 3][r] = a_reg.w;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) b_s[c + e][r] = (float)(int8_t)(b_reg >> (8 * e));
+    __syncthreads();
+    if (n0 + kDxBN < N) load(n0 + kDxBN);       // in flight meanwhile
+    // this step's 16 products summed apart, then added to the running sum,
+    // as int8_simt_kernel does
+    float part[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
+#pragma unroll
+    for (int n = 0; n < kDxBN; ++n) {
+      const float4 a = *reinterpret_cast<const float4*>(&a_s[n][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&b_s[n][tx * 4]);
+      const float av4[4] = {a.x, a.y, a.z, a.w}, bv4[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av4[i], bv4[j], part[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 4 + i, k = k0 + tx * 4 + j;
+      if (m < M && k < K) store_out(dx + (long long)m * K + k, acc[i][j]);
+    }
+}
+
 }  // namespace
 
-// Plain C entry point. x (M, K) and out (M, N) contiguous in x's dtype
-// (x_bf16: bf16, else fp32), 16-byte aligned; q (K, N) int8 contiguous;
-// scale (N,) fp32; K % 16 == 0. The bf16 decode kernel (M <= 8) splits K
-// into gridDim.y = ceil(K / rows_per_split) blocks per 256-column tile and
-// needs ws (splits, M, N) fp32 and counters (one int per column tile, zero
-// on entry and left zero) when there is more than one split. Returns the
-// CUDA error of the launch (0 on success).
+// Plain C entry point of K4. x (M, K) contiguous in x's dtype (x_bf16: bf16,
+// else fp32), 16-byte aligned; out (M, N) contiguous, fp32 when out_f32 is 1
+// (required for fp32 x), else bf16; q (K, N) int8 contiguous; scale (N,)
+// fp32; K % 16 == 0. The bf16 decode kernel (M <= 8) splits K into
+// gridDim.y = ceil(K / rows_per_split) blocks per 256-column tile and needs
+// ws (splits, M, N) fp32 and counters (one int per column tile, zero on
+// entry and left zero) when there is more than one split. Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int int8_matmul_launch(const void* x, const void* q, const void* scale, void* out,
                                   void* ws, void* counters, int M, int N, int K,
-                                  int rows_per_split, int x_bf16, void* stream) {
+                                  int rows_per_split, int x_bf16, int out_f32, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 16 != 0 || M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (!x_bf16) {
+    if (!out_f32) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((N + kSBN - 1) / kSBN, (M + kSBM - 1) / kSBM);
     int8_simt_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const int8_t*>(q),
         static_cast<const float*>(scale), static_cast<float*>(out), M, N, K, N % 4 == 0);
     return static_cast<int>(cudaGetLastError());
   }
-  if (M <= kMaxM) {
-    if (rows_per_split <= 0 || rows_per_split % 16 || rows_per_split > kMaxRowsPerSplit)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int splits = (K + rows_per_split - 1) / rows_per_split;
-    const size_t smem = (size_t)kMaxM * (rows_per_split + 8) * 2 + kRingBytes + kTileBytes;
-    // allow the largest split's shared memory, once per process
-    static const cudaError_t smem_set = cudaFuncSetAttribute(
-        int8_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kXsBytesMax + kRingBytes + kTileBytes));
-    if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
-    const dim3 grid((N + kGemvBN - 1) / kGemvBN, splits);
-    int8_gemv_kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, rows_per_split,
-        N % 16 == 0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  int8_mma_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, N, K,
-      N % 16 == 0);
+  return static_cast<int>(
+      out_f32 ? launch_bf16<float>(x, q, scale, out, ws, counters, M, N, K, rows_per_split, s)
+              : launch_bf16<__nv_bfloat16>(x, q, scale, out, ws, counters, M, N, K,
+                                           rows_per_split, s));
+}
+
+// Plain C entry point of K9. dy (M, N) fp32 contiguous, 16-byte aligned; q
+// (K, N) int8 contiguous, 16-byte aligned; scale (N,) fp32; dx (M, K)
+// contiguous, bf16 when dx_bf16 is 1, else fp32. Any M, N, K >= 1. Returns
+// the CUDA error of the launch (0 on success).
+extern "C" int int8_matmul_dx_launch(const void* dy, const void* q, const void* scale,
+                                     void* dx, int M, int N, int K, int dx_bf16,
+                                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((K + kDxBK - 1) / kDxBK, (M + kDxBM - 1) / kDxBM);
+  const int vec = N % 4 == 0;
+  if (dx_bf16)
+    int8_dx_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(dy), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(dx), M, N, K, vec);
+  else
+    int8_dx_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(dy), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scale), static_cast<float*>(dx), M, N, K, vec);
   return static_cast<int>(cudaGetLastError());
 }

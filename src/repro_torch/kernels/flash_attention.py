@@ -1,7 +1,9 @@
-"""ctypes wrappers of the training flash-attention CUDA kernels
-(``csrc/flash_attention.cu``): the forward with lse (K6), the dQ backward
-(K7) and the dK/dV backward (K8), which replace the Pallas TPU kernels
-behind ``repro.kernels.flash_attention.flash_attention_vjp``.
+"""ctypes wrappers of the flash-attention CUDA kernels
+(``csrc/flash_attention.cu``): the training forward with lse (K6), the dQ
+backward (K7) and the dK/dV backward (K8), which replace the Pallas TPU
+kernels behind ``repro.kernels.flash_attention.flash_attention_vjp``, and
+the inference forward without lse (K10, with its int8-KV mode), which
+replaces ``repro.kernels.flash_attention.flash_attention``.
 
 Each wrapper checks device, dtypes, shapes and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream and
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,17 +33,22 @@ def _launcher(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     n_ptr = {"flash_attention_fwd_launch": 5,
              "flash_attention_bwd_dq_launch": 7,
-             "flash_attention_bwd_dkv_launch": 8}[name]
-    fn.argtypes = [p] * n_ptr + [i] * 8 + [ctypes.c_float, i, p]
+             "flash_attention_bwd_dkv_launch": 8,
+             "flash_attention_launch": 6}[name]
+    n_flags = 2 if name == "flash_attention_launch" else 1
+    fn.argtypes = [p] * n_ptr + [i] * 8 + [ctypes.c_float] + [i] * n_flags \
+        + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           *rows: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
-    """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) of one fp32/bf16 dtype, and
-    per-query-row tensors (B, Sq, H, D) in q's dtype or (B, H, Sq) fp32,
-    all contiguous on one card. Returns (B, Sq, Sk, H, Hkv, D)."""
+           *rows: torch.Tensor, kv_int8: bool = False
+           ) -> Tuple[int, int, int, int, int, int]:
+    """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) of one fp32/bf16 dtype (k/v
+    int8 with ``kv_int8``), and per-query-row tensors (B, Sq, H, D) in q's
+    dtype or (B, H, Sq) fp32, all contiguous on one card. Returns (B, Sq,
+    Sk, H, Hkv, D)."""
     check_cuda(name, q, k, v, *rows)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -53,13 +60,18 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} do not form a GQA group")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} kernel takes fp32 or bf16 q, k, v of one "
-                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    kv_dtype = torch.int8 if kv_int8 else q.dtype
+    if q.dtype not in DTYPES or k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"{name} kernel takes fp32 or bf16 q with k, v in "
+                        f"{'int8' if kv_int8 else 'its dtype'}; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     for t in (q, k, v) + rows:
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel: every input must be "
                              f"contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: every input must be 16-byte "
+                             f"aligned")
     for t in rows:
         want = ((q.shape, q.dtype) if t.dim() == 4
                 else ((b, h, sq), torch.float32))
@@ -155,6 +167,46 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     return dk, dv
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True, window: int = -1,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10. q (B, Sq, H, D) fp32 or bf16 on a CUDA device; k/v (B, Sk,
+    Hkv, D) in q's dtype, or int8 codes with ``k_scale``/``v_scale`` (B,
+    Sk, Hkv) fp32. Returns out (B, Sq, H, D) in q's dtype; a row with no
+    valid key is zeros."""
+    name = "flash_attention"
+    int8 = k_scale is not None
+    if int8 != (v_scale is not None):
+        raise ValueError(f"{name}: pass both KV scales or neither")
+    b, sq, sk, h, hkv, d = _check(name, q, k, v, kv_int8=int8)
+    if int8:
+        check_cuda(name, q, k_scale, v_scale)
+        for sc in (k_scale, v_scale):
+            if sc.shape != k.shape[:3] or sc.dtype != torch.float32 \
+                    or not sc.is_contiguous():
+                raise ValueError(f"{name}: a KV scale is {tuple(sc.shape)} "
+                                 f"{sc.dtype}, wants {tuple(k.shape[:3])} "
+                                 f"fp32 contiguous")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if sk == 0:
+        return out.zero_()
+    with torch.cuda.device(q.device):
+        err = _launcher(name + "_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, out.data_ptr(), b, sq, sk,
+            h, hkv, d, int(bool(causal)), int(window), float(scale),
+            int(q.dtype == torch.bfloat16), int(int8),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(name, err)
+    flash_attention.launches += 1
+    return out
+
+
 flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention.launches = 0

@@ -1,12 +1,14 @@
-"""ctypes wrapper of the K4 int8 weight matmul CUDA kernel
-(``csrc/int8_matmul.cu``), which replaces the Pallas TPU kernel
-``repro.kernels.int8_matmul.int8_matmul``.
+"""ctypes wrappers of the K4 int8 weight matmul CUDA kernel and of K9, its
+backward with respect to x (``csrc/int8_matmul.cu``), which replace the
+Pallas TPU kernels ``repro.kernels.int8_matmul.int8_matmul`` and
+``int8_matmul_dx``.
 
-The wrapper checks device, dtypes, shapes, contiguity and alignment,
-allocates the output (and, for the split-K decode kernel, its fp32
+Each wrapper checks device, dtypes, shapes, contiguity and alignment,
+allocates the output (and, for K4's split-K decode kernel, its fp32
 workspace) with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. It pads nothing: the kernels
-mask ragged edges. ``int8_matmul.launches`` counts launches.
+mask ragged edges. ``int8_matmul.launches`` and ``int8_matmul_dx.launches``
+count launches.
 
 The decode kernel's split-K tiles meet through one counter per column
 tile, zero between launches (the last block of a tile resets it). The
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,12 +40,13 @@ _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C entry point, built and bound on first use (every pointer and
-    the stream as ``c_void_p``)."""
-    fn = build.load("int8_matmul").int8_matmul_launch
+def _launcher(name: str = "int8_matmul_launch"):
+    """The C entry point ``name``, built and bound on first use (every
+    pointer and the stream as ``c_void_p``)."""
+    fn = getattr(build.load("int8_matmul"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    fn.argtypes = ({"int8_matmul_launch": [p] * 6 + [i] * 6,
+                    "int8_matmul_dx_launch": [p] * 4 + [i] * 4}[name] + [p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,14 +77,18 @@ def _counter_buffer(device: torch.device, stream: int,
     return buf
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: (M, K) fp32 or bf16 on a CUDA device, contiguous; q: (K, N) int8
     contiguous; scale: (N,) fp32. K % 16 == 0, x and q 16-byte aligned.
-    Returns (M, N) in x's dtype: ``(x @ q) * scale`` with fp32
-    accumulation."""
+    Returns (M, N) in ``out_dtype``: x's dtype (the default) or fp32.
+    ``(x @ q) * scale`` with fp32 accumulation."""
     name = "int8_matmul"
     check_cuda(name, x, q, scale)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"{name} kernel writes x's dtype or fp32; got "
+                        f"{out_dtype} for {x.dtype} x")
     if x.dtype not in DTYPES or q.dtype != torch.int8 \
             or scale.dtype != torch.float32:
         raise TypeError(f"{name} kernel takes fp32/bf16 x, int8 q and fp32 "
@@ -99,7 +106,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"{name} kernel: x, q and scale must be contiguous")
     if x.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError(f"{name} kernel: x and q must be 16-byte aligned")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     bf16 = x.dtype == torch.bfloat16
@@ -119,7 +126,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), m, n, k, rows,
-            int(bf16), stream)
+            int(bf16), int(out_dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     int8_matmul.launches += 1
@@ -127,3 +134,47 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+def int8_matmul_dx(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """K9. dy: (M, N) fp32 on a CUDA device; q: (K, N) int8; scale: (N,)
+    fp32; all contiguous, dy and q 16-byte aligned. Returns dx (M, K) in
+    ``out_dtype`` (fp32 or bf16, x's dtype): ``(dy * scale) @ q^T`` with
+    fp32 accumulation."""
+    name = "int8_matmul_dx"
+    check_cuda(name, dy, q, scale)
+    if dy.dtype != torch.float32 or q.dtype != torch.int8 \
+            or scale.dtype != torch.float32 or out_dtype not in DTYPES:
+        raise TypeError(f"{name} kernel takes fp32 dy, int8 q and fp32 "
+                        f"scale and writes fp32 or bf16; got {dy.dtype}, "
+                        f"{q.dtype}, {scale.dtype} -> {out_dtype}")
+    if dy.dim() != 2 or q.dim() != 2 or dy.shape[1] != q.shape[1] \
+            or scale.shape != (q.shape[1],):
+        raise ValueError(f"shapes: dy {tuple(dy.shape)}, q {tuple(q.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    if not (dy.is_contiguous() and q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError(f"{name} kernel: dy, q and scale must be "
+                         f"contiguous")
+    if dy.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: dy and q must be 16-byte aligned")
+    m, n = dy.shape
+    k = q.shape[0]
+    dx = torch.empty((m, k), dtype=out_dtype, device=dy.device)
+    if m == 0 or k == 0:
+        return dx
+    if n == 0:
+        return dx.zero_()
+    with torch.cuda.device(dy.device):
+        err = _launcher("int8_matmul_dx_launch")(
+            dy.data_ptr(), q.data_ptr(), scale.data_ptr(), dx.data_ptr(), m,
+            n, k, int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream(dy.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    int8_matmul_dx.launches += 1
+    return dx
+
+
+int8_matmul_dx.launches = 0

@@ -1,9 +1,11 @@
 """Public kernel entry points of the port (mirror of ``repro.kernels.ops``):
 decode attention (K1), paged decode and prefill attention (K2, K3), the
 paged multi-query verify attention of speculative decode (K5), each with
-its int8-KV mode, the int8 weight matmul (K4), and the differentiable
-training flash attention, whose forward is K6 and whose backward is K7
-(dQ) and K8 (dK, dV).
+its int8-KV mode, the int8 weight matmul (K4) and its differentiable form
+(forward K4 with fp32 output, backward K9), the inference flash attention
+(K10, with its int8-KV mode), and the differentiable training flash
+attention, whose forward is K6 and whose backward is K7 (dQ) and K8 (dK,
+dV).
 
 Dispatch goes by the tensors' device, never by what the machine has: CPU
 tensors take the plain PyTorch version (``ref``), CUDA tensors take the
@@ -33,6 +35,13 @@ def _scale_pair(name: str, k_scale, v_scale) -> None:
         raise ValueError(f"{name}: pass both KV scales or neither")
 
 
+def _channel_scale(scale: torch.Tensor, n: int) -> torch.Tensor:
+    """A () per-tensor, (N,) per-channel or keepdims scale as (N,) fp32."""
+    sc = scale.float()
+    return torch.broadcast_to(sc.reshape(-1, n) if sc.dim() else sc,
+                              (1, n)).reshape(n)
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x: (..., K) @ int8 weight (K, N) with per-channel scale -> (..., N)
@@ -42,9 +51,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     broadcastable to (1, N) (``quant.int8.quantize_weight``'s ``s8``).
     """
     k, n = q.shape
-    sc = scale.float()
-    sc = torch.broadcast_to(sc.reshape(-1, n) if sc.dim() else sc,
-                            (1, n)).reshape(n)
+    sc = _channel_scale(scale, n)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
     if x.device.type == "cpu":
@@ -176,6 +183,94 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
             scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"paged_prefill_attention: no kernel for device "
                      f"{q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None, causal: bool = True,
+                    window: int = -1,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA-aware flash attention, forward only (K10; mirror of
+    ``repro.kernels.ops.flash_attention``). q (B, Sq, H, D), k/v (B, Sk,
+    Hkv, D) -> (B, Sq, H, D) in q's dtype; query i lines up with key i.
+
+    ``k_scale``/``v_scale`` (B, Sk, Hkv) enable the int8-KV mode: k/v are
+    int8 codes, each row times its fp32 scale as the kernel reads it.
+    Nothing is padded (the kernel masks by length), so the JAX wrapper's
+    escape to ``attention_ref`` for ragged shapes has no counterpart. A row
+    with no valid key (Sq > Sk under a window, whose keys then lie past the
+    last one) is zeros; the JAX wrapper gives it ``attention_ref``'s average
+    of V.
+    """
+    _scale_pair("flash_attention", k_scale, v_scale)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    kw = dict(scale=float(scale), causal=bool(causal), window=int(window),
+              k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "cpu":
+        return _ref.flash_attention_ref(q, k, v, **kw)
+    if q.device.type == "cuda":
+        if k_scale is not None:
+            kw.update(k_scale=k_scale.float().contiguous(),
+                      v_scale=v_scale.float().contiguous())
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+# -----------------------------------------------------------------------------
+# Training fast path: differentiable int8 matmul (K4 forward, K9 backward)
+# -----------------------------------------------------------------------------
+
+class _Int8MatmulTrain(torch.autograd.Function):
+    """Forward: K4 with fp32 output, saving (q, scale, y); backward: dx
+    through K9 in x's dtype, dscale recovered from the saved fp32 output
+    (``repro.kernels.int8_matmul.int8_matmul_vjp``), no gradient for the
+    frozen int8 codes. CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x2, q, sc):
+        if x2.device.type == "cpu":
+            y = _ref.int8_matmul_ref(x2, q, sc, out_dtype=torch.float32)
+        elif x2.device.type == "cuda":
+            y = _im.int8_matmul(x2.contiguous(), q, sc.contiguous(),
+                                out_dtype=torch.float32)
+        else:
+            raise ValueError(f"int8_matmul_train: no kernel for device "
+                             f"{x2.device}")
+        ctx.save_for_backward(q, sc, y)
+        ctx.x_dtype = x2.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, sc, y = ctx.saved_tensors
+        dy32 = dy.float()
+        if dy32.device.type == "cpu":
+            dx = _ref.int8_matmul_dx_ref(dy32, q, sc, ctx.x_dtype)
+        else:
+            dx = _im.int8_matmul_dx(dy32.contiguous(), q, sc.contiguous(),
+                                    ctx.x_dtype)
+        # y = acc * scale => dscale[n] = sum_m dy[m, n] * y[m, n] / scale[n]
+        # (int8_matmul.py:172-176), in plain torch as the reference does
+        safe = torch.where(sc == 0, torch.ones_like(sc), sc)
+        dscale = (dy32 * y).sum(0) / safe
+        return dx, None, dscale
+
+
+def int8_matmul_train(x: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Differentiable int8 matmul (mirror of
+    ``repro.kernels.ops.int8_matmul_train``): x (..., K) @ int8 q (K, N)
+    with a () / (N,) / keepdims scale -> (..., N) in x's dtype. The
+    forward runs K4 with fp32 output, cast to x's dtype after; dx runs K9;
+    dscale is recovered from the saved fp32 output and takes the scale's
+    own shape; the codes get no gradient. Nothing is padded (the JAX
+    wrapper pads the scale with ones; the kernels mask by length)."""
+    k, n = q.shape
+    lead = x.shape[:-1]
+    y = _Int8MatmulTrain.apply(x.reshape(-1, k), q,
+                               _channel_scale(scale, n))
+    return y.reshape(*lead, n).to(x.dtype)
 
 
 # -----------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the correctness contracts):
-K1-K3 and K5 attention, K4 the int8 weight matmul, and the training flash
-attention: K6's forward with lse and K7/K8's backward.
+K1-K3 and K5 attention, K4 the int8 weight matmul and K9 its backward, the
+training flash attention (K6's forward with lse and K7/K8's backward) and
+K10, the inference flash attention.
 
 The CPU path of ``ops`` runs these, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. Nothing on the card's main path calls them.
@@ -18,12 +19,21 @@ from repro_torch.quant import int8 as int8_lib
 NEG_INF = -1e30
 
 
-def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
-                    scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """What ``repro.kernels.int8_matmul._int8_matmul_kernel`` computes:
-    ``(x @ q) * scale[n]`` with fp32 accumulation, cast to x's dtype.
-    x: (M, K); q: (K, N) int8; scale: (N,) fp32."""
-    return ((x.float() @ q.float()) * scale).to(x.dtype)
+    ``(x @ q) * scale[n]`` with fp32 accumulation, cast to ``out_dtype``
+    (x's dtype by default). x: (M, K); q: (K, N) int8; scale: (N,) fp32."""
+    return ((x.float() @ q.float()) * scale).to(out_dtype or x.dtype)
+
+
+def int8_matmul_dx_ref(dy: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """What ``repro.kernels.int8_matmul._int8_bwd_dx_kernel`` computes (K9):
+    ``dx[m, k] = sum_n dy[m, n] * scale[n] * q[k, n]`` in fp32, cast to
+    ``out_dtype``. dy: (M, N); q: (K, N) int8; scale: (N,) fp32."""
+    return ((dy.float() * scale) @ q.float().T).to(out_dtype)
 
 
 def _dequant(k, v, k_scale, v_scale):
@@ -264,3 +274,19 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dv = torch.einsum("bhrqn,bqhrd->bnhd", p, do)
     return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool = True,
+                        window: int = -1,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """What K10 (``_flash_kernel`` without the lse) computes: K6's forward
+    (``flash_attention_fwd_ref``) without the lse. With ``k_scale``/
+    ``v_scale`` (B, Sk, Hkv) fp32, k/v are int8 codes, each row times its
+    scale in fp32 as the kernel reads it. A row with no valid key is
+    zeros."""
+    k, v = _dequant(k, v, k_scale, v_scale)
+    return flash_attention_fwd_ref(q, k, v, scale=scale, causal=causal,
+                                   window=window)[0]

@@ -1,28 +1,35 @@
 """Training launcher of the PyTorch port (mirror of ``repro.launch.train``,
-the fused engine's smoke path).
+its smoke path).
 
     python -m repro_torch.launch.train --arch starcoder2-7b --smoke \\
-        [--device cpu] --engine fused --steps 4 --steps-per-tick 2 \\
-        [--grid-mix NY] [--report out.json]
+        [--device cpu] --steps 8 [--ckpt-dir DIR [--resume]] \\
+        [--engine fused --steps-per-tick 4] [--grid-mix NY] \\
+        [--report out.json]
 
-Runs the arch's reduced config in fp32 through the fused ``TrainEngine``
-(k optimizer steps per tick, one metrics readback per tick) on the
-reference's Markov token stream and AdamW schedule, and prints the final
-metrics, the engine summary and the carbon report, whose ``train`` block
-splits the modeled energy into forward, backward and optimizer phases.
-Runs on the card unless ``--device cpu`` is given; on the card the report
-bills ``h100_sxm``, on the CPU its wall-time-derived keys are left out.
-``--engine loop`` (the checkpointing Trainer) is not ported yet.
+Runs the arch's reduced config in fp32 on the reference's Markov token
+stream and AdamW schedule. ``--engine loop`` (the default, as in the
+reference) drives the checkpointing host-loop ``Trainer``: a checkpoint
+every quarter of the run into ``--ckpt-dir``, the latest one restored
+first with ``--resume`` (params, optimizer state, step and stream), a
+synchronous checkpoint on SIGTERM. ``--engine fused`` drives the
+``TrainEngine`` (k optimizer steps per tick, one metrics readback per
+tick) and prints its summary; its carbon report's ``train`` block splits
+the modeled energy into forward, backward and optimizer phases. Both print
+the final metrics and the carbon report. Runs on the card unless
+``--device cpu`` is given; the report bills ``h100_sxm``, and on the CPU
+its wall-time-derived keys are left out.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+from typing import Optional
 
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.checkpoint import CheckpointConfig
 from repro_torch.configs import base as cfgbase
 from repro_torch.core import accounting
 from repro_torch.data import DataConfig, make_pipeline
@@ -30,7 +37,52 @@ from repro_torch.launch.serve import WALL_KEYS
 from repro_torch.models import transformer as tf_lib
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.schedules import warmup_cosine
-from repro_torch.train import TrainEngine, TrainEngineConfig
+from repro_torch.train import (TrainConfig, Trainer, TrainEngine,
+                               TrainEngineConfig)
+from repro_torch.train.ft import HeartbeatWriter
+
+
+def _lm_cfg(arch_id: str, what: str):
+    arch = cfgbase.get(arch_id)
+    if arch.kind == "encdec":
+        raise NotImplementedError(f"{arch_id}: encoder-decoder models are "
+                                  f"not ported yet (ROADMAP item 12)")
+    if arch.kind != "lm":
+        raise SystemExit(f"{arch_id}: the {what} trains LM archs")
+    return arch.make_smoke()
+
+
+def _accountant(grid_mix: str) -> accounting.CarbonAccountant:
+    return accounting.CarbonAccountant(accounting.AccountantConfig(
+        device="h100_sxm", n_devices=1, grid_mix=grid_mix))
+
+
+def build_smoke_trainer(arch_id: str, *, steps: int, ckpt_dir: Optional[str],
+                        grid_mix: str = "NY", seed: int = 0,
+                        global_batch: int = 8, seq_len: int = 64,
+                        heartbeat_dir: Optional[str] = None,
+                        lr: float = 3e-3, device="cuda") -> Trainer:
+    """The arch's smoke config in fp32 with random weights from ``seed``,
+    the Markov stream and warmup-cosine AdamW of the reference's smoke
+    trainer, a checkpoint every quarter of ``steps`` into ``ckpt_dir``, a
+    heartbeat file when ``heartbeat_dir`` is given, billed to
+    ``h100_sxm``."""
+    dev = device_lib.resolve(device)
+    cfg = _lm_cfg(arch_id, "Trainer")
+    params = tf_lib.init_lm(cfg, seed=seed, dtype=torch.float32, device=dev)
+    pipeline = make_pipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
+        seed=seed, source="markov"))
+    hb = (HeartbeatWriter(heartbeat_dir, host_id="host0")
+          if heartbeat_dir else None)
+    return Trainer(
+        loss_fn=lambda p, b: tf_lib.loss_fn(p, cfg, b), params=params,
+        opt_cfg=AdamWConfig(lr=warmup_cosine(lr, max(steps // 10, 1), steps)),
+        train_cfg=TrainConfig(num_steps=steps, log_every=max(steps // 10, 1),
+                              checkpoint_every=max(steps // 4, 1)),
+        pipeline=pipeline,
+        ckpt_cfg=(CheckpointConfig(directory=ckpt_dir) if ckpt_dir else None),
+        accountant=_accountant(grid_mix), heartbeat=hb)
 
 
 def build_smoke_engine(arch_id: str, *, steps: int, grid_mix: str = "NY",
@@ -41,22 +93,28 @@ def build_smoke_engine(arch_id: str, *, steps: int, grid_mix: str = "NY",
     the Markov stream and the warmup-cosine AdamW of the reference's smoke
     engine, billed to ``h100_sxm``."""
     dev = device_lib.resolve(device)
-    arch = cfgbase.get(arch_id)
-    if arch.kind != "lm":
-        raise SystemExit(f"{arch_id}: the fused engine trains LM archs")
-    cfg = arch.make_smoke()
+    cfg = _lm_cfg(arch_id, "fused engine")
     params = tf_lib.init_lm(cfg, seed=seed, dtype=torch.float32, device=dev)
     pipeline = make_pipeline(DataConfig(
         vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
         seed=seed, source="markov"))
-    acct = accounting.CarbonAccountant(accounting.AccountantConfig(
-        device="h100_sxm", n_devices=1, grid_mix=grid_mix))
     return TrainEngine.for_lm(
         params, cfg,
         opt_cfg=AdamWConfig(lr=warmup_cosine(lr, max(steps // 10, 1), steps)),
         pipeline=pipeline,
         engine_cfg=TrainEngineConfig(steps_per_tick=steps_per_tick),
-        accountant=acct)
+        accountant=_accountant(grid_mix))
+
+
+def _print_report(rep: dict, dev: torch.device) -> dict:
+    if dev.type == "cpu":
+        rep = {k: v for k, v in rep.items() if k not in WALL_KEYS}
+        print("carbon report (CPU run: wall-time-derived keys left out):",
+              json.dumps(rep, default=float))
+    else:
+        print(f"device: {torch.cuda.get_device_name(dev)}")
+        print("carbon report:", json.dumps(rep, default=float))
+    return rep
 
 
 def main(argv=None) -> None:
@@ -66,43 +124,54 @@ def main(argv=None) -> None:
                     help="the arch's reduced config, in fp32")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--grid-mix", default="NY")
     ap.add_argument("--report", default=None, help="write accounting JSON")
-    ap.add_argument("--engine", choices=("loop", "fused"), default="fused",
-                    help="fused: the TrainEngine tick with per-phase energy "
-                         "accounting; loop: the checkpointing Trainer (not "
-                         "ported yet)")
+    ap.add_argument("--engine", choices=("loop", "fused"), default="loop",
+                    help="loop: host-loop Trainer (checkpoint/FT path); "
+                         "fused: the TrainEngine tick with per-phase energy "
+                         "accounting")
     ap.add_argument("--steps-per-tick", type=int, default=8,
                     help="fused engine: optimizer steps per tick")
     args = ap.parse_args(argv)
     if args.steps < 1 or args.steps_per_tick < 1:
         ap.error("--steps and --steps-per-tick must be >= 1")
-    if args.engine == "loop":
-        raise NotImplementedError("--engine loop: the checkpointing Trainer "
-                                  "is not ported yet; use --engine fused")
     if not args.smoke:
         raise SystemExit("the full config does not fit one card with fp32 "
                          "AdamW state; use --smoke (chip_smoke.py trains "
                          "starcoder2-7b at full width, reduced depth)")
 
     dev = device_lib.resolve(args.device)
-    eng = build_smoke_engine(args.arch, steps=args.steps,
-                             grid_mix=args.grid_mix,
-                             steps_per_tick=args.steps_per_tick, device=dev)
-    metrics = eng.run(args.steps)
+    if args.engine == "fused":
+        eng = build_smoke_engine(args.arch, steps=args.steps,
+                                 grid_mix=args.grid_mix,
+                                 steps_per_tick=args.steps_per_tick,
+                                 device=dev)
+        metrics = eng.run(args.steps)
+        print("final metrics:", json.dumps(metrics))
+        print("engine summary:", json.dumps(eng.summary()))
+        rep = _print_report(eng.accountant.report(), dev)
+        if args.report:
+            with open(args.report, "w") as f:
+                json.dump({"metrics": metrics, "summary": eng.summary(),
+                           "carbon": rep}, f, default=float)
+        return
+
+    tr = build_smoke_trainer(args.arch, steps=args.steps,
+                             ckpt_dir=args.ckpt_dir, grid_mix=args.grid_mix,
+                             device=dev)
+    tr.install_preemption_handler()
+    if args.resume:
+        restored = tr.maybe_restore()
+        print(f"resume: "
+              f"{'restored step ' + str(tr.step_num) if restored else 'fresh'}")
+    metrics = tr.run()
     print("final metrics:", json.dumps(metrics))
-    print("engine summary:", json.dumps(eng.summary()))
-    rep = eng.accountant.report()
-    if dev.type == "cpu":
-        rep = {k: v for k, v in rep.items() if k not in WALL_KEYS}
-        print("carbon report (CPU run: wall-time-derived keys left out):",
-              json.dumps(rep, default=float))
-    else:
-        print(f"device: {torch.cuda.get_device_name(dev)}")
-        print("carbon report:", json.dumps(rep, default=float))
+    rep = _print_report(tr.accountant.report(), dev)
     if args.report:
         with open(args.report, "w") as f:
-            json.dump({"metrics": metrics, "summary": eng.summary(),
+            json.dump({"metrics": metrics, "step": tr.step_num,
                        "carbon": rep}, f, default=float)
 
 

@@ -1,12 +1,15 @@
 """Modules the port keeps as copies (it imports nothing of ``repro``) must
 behave as their originals: the scheduler and the page pool state for
 state, the sustainability engine, the int8 quantizer's constants, the
-speculative drafters' names, the speculative cost model and the training
-token pipeline value for value. The only difference allowed is the port's extra ``h100_sxm``
-device.
+speculative drafters' names, the speculative cost model, the training
+token pipeline and the fleet fault-tolerance module (heartbeats, health
+monitor, elastic planner) value for value. The only difference allowed is
+the port's extra ``h100_sxm`` device.
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from repro.serve import engine as j_engine
 from repro.serve import pages as j_pages
 from repro.serve import scheduler as j_sched
 from repro.serve import spec as j_spec
+from repro.train import ft as j_ft
 from repro_torch.core import energy as t_energy
 from repro_torch.data import pipeline as t_pipeline
 from repro_torch.core import grid as t_grid
@@ -37,6 +41,7 @@ from repro_torch.serve import engine as t_engine
 from repro_torch.serve import pages as t_pages
 from repro_torch.serve import scheduler as t_sched
 from repro_torch.serve import spec as t_spec
+from repro_torch.train import ft as t_ft
 
 POLICIES = [("fifo", 0), ("longest_prompt", 0), ("longest_prompt", 3)]
 
@@ -267,3 +272,96 @@ def test_pipeline_batches_equal(source):
             want, got = (sh.batch_at(step) for sh in shards)
             for key in want:
                 np.testing.assert_array_equal(got[key], want[key])
+
+
+# -- train/ft.py: tests/test_ft.py's cases through both modules -----------------
+
+def _beat(m, directory, host, step, ewma, t):
+    w = m.HeartbeatWriter(directory, host)
+    w._step_time = ewma           # bypass EWMA warmup for test determinism
+    w.beat(step, ewma, now=t)
+
+
+def _monitor_case(m, d, case):
+    """One of tests/test_ft.py's TestMonitor cases through module ``m`` in
+    directory ``d``: the list of assess() results it produces."""
+    os.makedirs(d)
+    if case == "all_healthy":
+        for h in ("h0", "h1", "h2"):
+            _beat(m, d, h, 10, 1.0, t=1000.0)
+        return [m.HealthMonitor(d).assess(now=1001.0)]
+    if case == "dead_host":
+        _beat(m, d, "h0", 10, 1.0, t=1000.0)
+        _beat(m, d, "h1", 10, 1.0, t=900.0)
+        return [m.HealthMonitor(d, m.MonitorConfig(dead_after_s=60))
+                .assess(now=1000.0)]
+    if case == "straggler_strikes":
+        mon = m.HealthMonitor(d, m.MonitorConfig(straggler_factor=2.0,
+                                                 strikes_to_exclude=3))
+        for h, t in (("h0", 1.0), ("h1", 1.0), ("h2", 5.0)):
+            _beat(m, d, h, 10, t, t=1000.0)
+        return [mon.assess(now=1000.0) for _ in range(3)]
+    if case == "recovered_straggler":
+        mon = m.HealthMonitor(d, m.MonitorConfig(straggler_factor=2.0,
+                                                 strikes_to_exclude=2))
+        for h, t in (("h0", 1.0), ("h1", 1.0), ("h2", 5.0)):
+            _beat(m, d, h, 10, t, t=1000.0)
+        out = [mon.assess(now=1000.0)]
+        _beat(m, d, "h2", 11, 1.0, t=1000.5)
+        out.append(mon.assess(now=1001.0))
+        _beat(m, d, "h2", 12, 5.0, t=1001.5)
+        out.append(mon.assess(now=1002.0))
+        return out
+    assert case == "torn_heartbeat"
+    _beat(m, d, "h0", 3, 1.0, t=1000.0)
+    with open(os.path.join(d, "h1.json"), "w") as f:
+        f.write("{not json")
+    return [m.HealthMonitor(d).assess(now=1000.5)]
+
+
+MONITOR_CASES = {
+    "all_healthy": [(["h0", "h1", "h2"], [], [])],
+    "dead_host": [(["h0"], ["h1"], [])],
+    "straggler_strikes": [(["h0", "h1", "h2"], [], [])] * 2
+    + [(["h0", "h1"], [], ["h2"])],
+    "recovered_straggler": [(["h0", "h1", "h2"], [], [])] * 3,
+    "torn_heartbeat": [(["h0"], [], [])],
+}
+
+
+@pytest.mark.parametrize("case", sorted(MONITOR_CASES))
+def test_ft_monitor_equal(case, tmp_path):
+    got = _monitor_case(t_ft, str(tmp_path / "t"), case)
+    want = _monitor_case(j_ft, str(tmp_path / "j"), case)
+    assert [tuple(map(list, r)) for r in got] == \
+        [tuple(map(list, r)) for r in want] == MONITOR_CASES[case]
+    beat = {}
+    for m, sub in ((j_ft, "j"), (t_ft, "t")):
+        with open(tmp_path / sub / "h0.json") as f:
+            beat[sub] = json.load(f)
+    assert beat["j"] == beat["t"]
+
+
+# (chips_per_host, model_parallel, healthy hosts, current plan's hosts)
+PLANNER_CASES = [(4, 16, 128, None), (4, 16, 50, None), (4, 16, 64, 64),
+                 (4, 16, 64, 50), (2, 8, 5, None)]
+
+
+@pytest.mark.parametrize("cph,mp,hosts,current", PLANNER_CASES)
+def test_ft_planner_equal(cph, mp, hosts, current):
+    plans = []
+    for m in (j_ft, t_ft):
+        pl = m.ElasticPlanner(chips_per_host=cph, model_parallel=mp)
+        cur = pl.plan(current) if current else None
+        plans.append(dataclasses.asdict(pl.plan(hosts, current=cur)))
+    assert plans[0] == plans[1]
+
+
+def test_ft_planner_infeasible_and_ewma_equal():
+    for m in (j_ft, t_ft):
+        with pytest.raises(RuntimeError):
+            m.ElasticPlanner(chips_per_host=1, model_parallel=16).plan(8)
+    ewmas = [m.Ewma(alpha=0.8) for m in (j_ft, t_ft)]
+    for x in (3.0, 1.0, 7.5, 2.0):
+        assert ewmas[0].update(x) == ewmas[1].update(x)
+    assert dataclasses.asdict(ewmas[0]) == dataclasses.asdict(ewmas[1])

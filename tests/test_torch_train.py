@@ -373,7 +373,8 @@ def test_launcher_cpu_smoke(tmp_path):
     """``python -m repro_torch.launch.train --arch starcoder2-7b --smoke
     --device cpu --engine fused --steps 4 --steps-per-tick 2``: two ticks,
     finite losses, a report whose train block splits the phases with the
-    backward at twice the forward; ``--engine loop`` is not ported."""
+    backward at twice the forward; without ``--engine`` the launcher runs
+    the reference's default, the host-loop Trainer."""
     report = tmp_path / "report.json"
     t_launch.main(["--arch", "starcoder2-7b", "--smoke", "--device", "cpu",
                    "--engine", "fused", "--steps", "4", "--steps-per-tick",
@@ -384,6 +385,9 @@ def test_launcher_cpu_smoke(tmp_path):
     train = rep["carbon"]["train"]
     assert train["steps"] == 4 and train["bwd_fwd_ratio"] == 2.0
     assert min(train["fwd_j"], train["bwd_j"], train["opt_j"]) > 0
-    with pytest.raises(NotImplementedError):
-        t_launch.main(["--arch", "starcoder2-7b", "--smoke", "--device",
-                       "cpu", "--engine", "loop"])
+    loop_report = tmp_path / "loop.json"
+    t_launch.main(["--arch", "starcoder2-7b", "--smoke", "--device", "cpu",
+                   "--steps", "2", "--report", str(loop_report)])
+    loop = json.loads(loop_report.read_text())
+    assert loop["step"] == 2 and "summary" not in loop
+    assert np.isfinite(loop["metrics"]["loss"])
