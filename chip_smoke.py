@@ -8,8 +8,9 @@ against its plain PyTorch version at the main path's shapes, then drives the
 dense, the paged and the speculative serve paths of starcoder2-7b at full
 width and full depth with random weights from a seed, unquantized and in
 the int8 mode, the fused training tick at full width and 8 layers, the
-checkpointing Trainer on the ~100M e2e model at full size, and the port's
-train and kernel benches.
+checkpointing Trainer on the ~100M e2e model at full size, the port's
+train and kernel benches, and the paper's ternary AlexNet and VGG-16 at
+full size.
 Phases, each printing JSON lines; any failure raises, so the script exits
 non-zero and prints no result:
 
@@ -44,6 +45,15 @@ non-zero and prints no result:
    scale) @ w^T`` on the weight widened once (4x the weight bytes); and
    ``int8_matmul_train``'s dx and dscale (K4 + K9) against autograd
    through the plain math at (4096, 4608, 18432), fp32 and bf16 x;
+4c. ternary matmul (K11) against its plain version at the CNN workloads'
+   FC shapes: AlexNet's (K, N) = (9216, 4096), (4096, 4096), (4096, 1000)
+   and VGG-16's (25088, 4096) at M = 1 and 64, fp32 and bf16 x, codes from
+   ``ternarize``, plus a binary case (no zero codes) per shape, and the
+   kernel bench's 256 x 2048 x 512, then (checked, not timed) ragged
+   shapes at M = 1-9, 64 and 100; the library call is cuBLAS ``x @ w``
+   on the weight dequantized once (4x the weight bytes in fp32); times are
+   device time from torch.profiler (at M = 1 the host's launch time
+   exceeds the kernel's), the CUDA-event time beside them;
 5. streams: fp32 weights and cache, 4 requests x 16 greedy tokens; the
    dense engine (through K1) must be token-identical to the host-loop
    reference (through masked ``sdpa``), and the paged engine (K2, K3;
@@ -104,11 +114,22 @@ non-zero and prints no result:
    save and restore seconds and bytes, peak memory, one profiled pair of
    steps;
 11c. the port's train bench (both arms, update and kernel-grad parity;
-   K9's launch) and kernel bench (K10's launches);
-12. a ``kernels`` line, then the result line ``{"ok": true, "device": ...}``.
+   K9's launch) and kernel bench (K11's and K10's launches);
+11d. the paper's CNN workloads, AlexNet and VGG-16 at 224 x 224 x 3 and
+   1000 classes, fp32, random weights and synthetic normal images: the FC
+   weights ternarized as examples/edge_cnn_repro.py does, and the K11
+   route (``forward(matmul_fn=ternary_mm)``) at batch 1 and 64 held to
+   the dequantized forward (1e-4 of the max |logit|, the same top-1),
+   timed beside it, K11's share of the device time profiled, top-1
+   agreement with the fp32 forward reported; then three fp32 training
+   steps at batch 32 (dropout on, AdamW), losses and grad norms finite,
+   s/step, model FLOP/s over the fp32 peak, peak memory; K11 launches 3
+   times a forward; the params are freed after each model;
+12. a ``kernels`` line (K1-K11), then the result line
+   ``{"ok": true, "device": ...}``.
 
-Every counter is set to 0 just before each serve, train, trainer or bench
-run and read just after.
+Every counter is set to 0 just before each serve, train, trainer, bench
+or CNN run and read just after.
 Needs one card and no network. Exits non-zero without a card, and outside a
 checkout of the repository.
 """
@@ -154,6 +175,33 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, attempts: int = 3) -> float:
+    """Mean device time of the kernels (and copies) that ``fn(i)``
+    launches, over calls i = 0 .. iters-1 after a warm-up, from
+    torch.profiler: the host's time to launch them is not in it, where
+    ``cuda_ms`` includes it whenever the host is the slower side. A
+    profile that reports no device event at all (torch.profiler has
+    returned such an empty profile of a short run on the H100) is taken
+    again, up to ``attempts`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError(f"torch.profiler saw no device time in "
+                         f"{attempts} profiles")
 
 
 def phase_device():
@@ -831,6 +879,132 @@ def phase_int8_train_grads():
     torch.cuda.empty_cache()
 
 
+# K11 at the CNN workloads' FC shapes (K, N): AlexNet's fc0, fc1 and fc2
+# and VGG-16's fc0, at M = 1 (batch-1 inference) and 64, x fp32 (the main
+# path's mode) and bf16, the codes from ``ternarize`` of a normal weight;
+# one binary case (``binarize``: no zero codes) per shape in the main mode;
+# then the kernel bench's 256 x 2048 x 512. Tolerance, (of the plain
+# version's max abs output, relative to each element): fp32 1e-5 of the max
+# (K up to 25088 fp32 products summed in another order); bf16 also one bf16
+# rounding of each element (2^-7 relative)
+K11_FC = ((9216, 4096), (4096, 4096), (4096, 1000), (25088, 4096))
+K11_CASES = (tuple((m, k, n, x, "ternary") for k, n in K11_FC
+                   for m in (1, 64) for x in ("float32", "bfloat16"))
+             + tuple((1, k, n, "float32", "binary") for k, n in K11_FC)
+             + ((256, 2048, 512, "float32", "ternary"),
+                (256, 2048, 512, "bfloat16", "ternary")))
+K11_MAIN = (1, 9216, 4096, "float32", "ternary")
+K11_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
+# (M, K, N) checked in fp32 and bf16 but not timed: every instantiation of
+# the streaming kernel (M = 1, 2, 3-4, 5-8), the tile kernel's unaligned
+# and ragged loads (K % 4 != 0, N % 4 != 0), the smoke classifier and
+# tests/test_kernels_ternary.py's ragged shape
+K11_RAGGED = ((3, 192, 10), (2, 777, 33), (5, 512, 128), (8, 300, 50),
+              (9, 301, 50), (100, 300, 50), (64, 7, 3), (1, 1, 1))
+
+
+def _check_k11(x, q, sc, label):
+    """K11 on (x, q, sc) against its plain version within K11_TOL, or
+    raise. Returns (the plain output's max abs, the max abs error)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ternary_matmul as k11
+    got = k11.ternary_matmul(x, q, sc)
+    torch.cuda.synchronize()
+    want = ref.ternary_matmul_ref(x, q, sc)
+    of_max, rtol = K11_TOL[str(x.dtype).split(".")[1]]
+    want_max = float(want.float().abs().max())
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    excess = err - (of_max * want_max + rtol * want.float().abs())
+    if not (float(excess.max()) <= 0.0 and torch.isfinite(got).all()
+            and got.dtype == x.dtype and got.shape == want.shape):
+        worst = int(excess.argmax())
+        raise AssertionError(
+            f"ternary_matmul disagrees with its plain version at {label}: "
+            f"max abs err {max_err} (max {want_max}, tolerance {of_max} of "
+            f"it + {rtol} relative); worst element "
+            f"{divmod(worst, q.shape[1])}: kernel "
+            f"{float(got.flatten()[worst])}, plain "
+            f"{float(want.flatten()[worst])}")
+    return want_max, max_err
+
+
+def phase_ternary_matmul():
+    """K11 against its plain version at the CNN workloads' shapes, with its
+    device time (``device_ms``; each timed call reads its own copy of the
+    codes, K4_COLD_BYTES of copies at least) and its CUDA-event time, its
+    bound, the plain version's device time and that of cuBLAS on the
+    weight dequantized once to x's dtype (the reference example's route:
+    not the same function, it reads 4x (fp32) or 2x (bf16) the weight
+    bytes). Returns the main row (fp32 x, M = 1, AlexNet fc0)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ternary_matmul as k11
+    from repro_torch.quant import ternary
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    main = None
+    for case in K11_CASES:
+        m, k, n, x_name, codes = case
+        dt = getattr(torch, x_name)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        tw = (ternary.ternarize if codes == "ternary" else ternary.binarize)(w)
+        del w
+        q, sc = tw.q, tw.scale
+        want_max, max_err = _check_k11(x, q, sc, f"{m}x{k}x{n} {x_name} "
+                                                 f"{codes}")
+        qs = [q] + [q.clone() for _ in range(
+            max(3, int(K4_COLD_BYTES // q.numel())))]
+
+        def kernel(i):
+            return k11.ternary_matmul(x, qs[i % len(qs)], sc)
+
+        kernel_ms = device_ms(kernel, 24)
+        event_ms = cuda_ms(kernel, 24)
+        plain_ms = device_ms(lambda i: ref.ternary_matmul_ref(
+            x, qs[i % len(qs)], sc), 6)
+        wd = [(c.float() * sc).to(dt) for c in qs[:max(
+            2, int(K4_COLD_BYTES // (q.numel() * x.element_size())))]]
+        library_ms = device_ms(lambda i: x @ wd[i % len(wd)], 24)
+        del qs, wd
+        nbytes = (q.numel() + sc.numel() * 4
+                  + (x.numel() + m * n) * x.element_size())
+        bound_ms, bound_by = _bound(
+            nbytes, 2.0 * m * k * n / (PEAK_BF16 if dt == torch.bfloat16
+                                       else PEAK_FP32))
+        row = {"phase": "ternary_matmul", "m": m, "k": k, "n": n,
+               "x": x_name, "codes": codes,
+               "zero_code_share": float((q == 0).float().mean()),
+               "max_abs_err": max_err, "plain_max": want_max,
+               "err_over_max": max_err / want_max,
+               "ms": kernel_ms, "event_ms": event_ms,
+               "timing": "ms, plain_ms, library_ms: device time of the "
+                         "call's kernels (torch.profiler); event_ms: CUDA "
+                         "events around back-to-back calls, host launch "
+                         "time included where it is the slower side",
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "cuBLAS x @ w, w dequantized once to x's dtype: "
+                          "not the same function, it reads 4x (fp32) or "
+                          "2x (bf16) the weight bytes",
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        if case == K11_MAIN:
+            main = row
+    ragged = []
+    for m, k, n in K11_RAGGED:
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        tw = ternary.ternarize(w)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            want_max, max_err = _check_k11(x, tw.q, tw.scale,
+                                           f"{m}x{k}x{n} {dt}")
+            ragged.append([m, k, n, str(dt), max_err / max(want_max, 1e-30)])
+    emit({"phase": "ternary_matmul_ragged",
+          "cases_m_k_n_x_err_over_max": ragged})
+    return main
+
+
 # K6-K8 at the training path's shapes: starcoder2-7b's heads at B = 2,
 # S = 2048, causal, each (q dtype, window); the path's mode is fp32 with
 # no window. Tolerance, max abs error over the max abs of the plain
@@ -1479,9 +1653,9 @@ def phase_train_bench():
 
 def phase_kernel_bench():
     """The port's kernel bench (``repro_torch.benchmarks.kernel_bench``):
-    K10 against its plain version at the reference bench's flash shapes,
-    timed. Counters set to 0 just before and read just after. Returns the
-    launches."""
+    K11 and K10 against their plain versions at the reference bench's
+    shapes, timed. Counters set to 0 just before and read just after.
+    Returns the launches."""
     from repro_torch.benchmarks import kernel_bench
     counters = _counters()
     for fn in counters.values():
@@ -1490,11 +1664,201 @@ def phase_kernel_bench():
     launches = {name: fn.launches for name, fn in counters.items()}
     emit({"phase": "kernel_bench", "rows": [list(r) for r in rows],
           "launches": launches})
-    err = float(rows[-1][2].split("=")[1])
-    if err > 1e-5 or launches["flash_attention"] <= 0 \
-            or sum(launches.values()) != launches["flash_attention"]:
-        raise AssertionError(f"kernel bench: max err {err}, launches "
-                             f"{launches}")
+    derived = {r[0]: dict(kv.split("=") for kv in r[2].split(";"))
+               for r in rows}
+    t_err = derived["kernel/ternary_matmul_vs_oracle"]
+    f_err = float(derived["kernel/flash_attention_vs_oracle"]["max_err"])
+    # K11 fp32 at K = 2048: 1e-5 of the plain version's max (as phase 4c)
+    bench = ("flash_attention", "ternary_matmul")
+    if f_err > 1e-5 \
+            or float(t_err["max_err"]) > 1e-5 * float(t_err["ref_max"]) \
+            or not all(launches[n] > 0 for n in bench) \
+            or sum(launches.values()) != sum(launches[n] for n in bench):
+        raise AssertionError(f"kernel bench: max errs {f_err}, {t_err}, "
+                             f"launches {launches}")
+    return launches
+
+
+# the paper's CNN workloads at full size (224 x 224 x 3 images, 1000
+# classes), fp32, random weights from SEED and synthetic normal images:
+# ternary inference (the FC layers' codes through K11) at these batches,
+# and CNN_TRAIN_STEPS fp32 training steps at CNN_TRAIN_BATCH. The K11 route
+# must agree with the dequantized forward (cuBLAS on q * scale, the
+# reference example's route) within CNN_TOL of its max |logit|: the two
+# round (x . q) * s and x . (q * s) apart, over three layers
+CNN_BATCHES = (1, 64)
+CNN_TRAIN_BATCH = 32
+CNN_TRAIN_STEPS = 3
+CNN_TOL = 1e-4
+
+
+def _profile_device(fn, k, top=8):
+    """``fn()`` k times under torch.profiler after the measured run:
+    device ms per call by kernel (largest first), the K11 kernels',
+    convolutions' and GEMMs' ms per call, and the device's busy share of
+    the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(k):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kernels = sorted(((e.key[:80], e.self_device_time_total / 1e3 / k)
+                      for e in events), key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+
+    def share(*words):
+        return sum(ms for name, ms in kernels
+                   if any(w in name.lower() for w in words))
+
+    k11 = share("ternary_")
+    return {"calls": k, "wall_ms_per_call": wall_ms / k,
+            "device_busy_ms_per_call": busy,
+            "device_busy_share": busy * k / wall_ms,
+            "k11_ms_per_call": k11, "k11_share_of_device": k11 / busy,
+            "conv_ms_per_call": share("conv", "fprop", "dgrad", "wgrad"),
+            "gemm_ms_per_call": share("gemm", "gemv") - k11,
+            "launches_per_call": sum(e.count for e in events) / k,
+            "top_kernels_ms_per_call": dict(kernels[:top])}
+
+
+def phase_cnn(cfg):
+    """The paper's CNN ``cfg`` (AlexNet or VGG-16) at full size. Inference:
+    the FC weights ternarized as the reference example does
+    (``quantize_tree`` with its FC predicate); at each batch of
+    CNN_BATCHES the K11 route (``forward(matmul_fn=ternary_mm)``) against
+    the dequantized forward: logits within CNN_TOL of its max |logit|, the
+    same top-1 unless its top two are closer than that; ms per forward
+    (CUDA events) of both routes, images/s, K11's share of the device time
+    (one profiled forward), peak memory, and top-1 agreement with the fp32
+    forward (reported, not asserted). Training: CNN_TRAIN_STEPS steps of
+    ``loss_fn`` (dropout on, from a seeded generator), autograd and AdamW
+    at CNN_TRAIN_BATCH, every loss and grad norm finite; s/step without the
+    first step, images/s, model FLOP/s over the fp32 peak, peak memory,
+    then one profiled step. Every counter is set to 0 just before the
+    inference runs and read after the training: K11 launches 3 times a
+    K11-route forward, nothing else launches. Returns the launches."""
+    import torch
+    from repro_torch.examples.edge_cnn_repro import fc_predicate, ternary_mm
+    from repro_torch.models import cnn
+    from repro_torch.models.common import flatten
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         init_opt_state)
+    from repro_torch.quant import ternary
+    params = cnn.init_cnn(cfg, seed=SEED, device="cuda")
+    leaves, rebuild = flatten(params)
+    qparams = ternary.quantize_tree(params, predicate=fc_predicate)
+    deq = ternary.dequantize_tree(qparams)
+    n_fc = len(cfg.fcs) + 1
+    code_bytes = sum(qparams[f"fc{i}"]["w"].q.numel() for i in range(n_fc))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    shape = (cfg.image_size, cfg.image_size, cfg.in_channels)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    forwards = 0
+    for batch in CNN_BATCHES:
+        imgs = torch.randn((batch,) + shape, generator=gen, device="cuda")
+        iters = 20 if batch == 1 else 5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            def k11_route(i=0):
+                return cnn.forward(qparams, cfg, imgs, matmul_fn=ternary_mm)
+
+            got = k11_route()
+            want = cnn.forward(deq, cfg, imgs)
+            fp32 = cnn.forward(params, cfg, imgs)
+            ms = cuda_ms(k11_route, iters)
+            deq_ms = cuda_ms(lambda i: cnn.forward(deq, cfg, imgs), iters)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            prof = _profile_device(k11_route, 2)
+        forwards += 1 + (iters + 1) + 2
+        want_max = float(want.abs().max())
+        diff = float((got - want).abs().max())
+        top2 = want.topk(2, dim=-1).values
+        close = (top2[:, 0] - top2[:, 1]) <= CNN_TOL * want_max
+        same = got.argmax(-1) == want.argmax(-1)
+        row = {"phase": "cnn_infer", "model": cfg.name, "batch": batch,
+               "image": list(shape), "classes": cfg.num_classes,
+               "params": sum(p.numel() for p in leaves),
+               "ternary_code_bytes": code_bytes,
+               "max_abs_diff_vs_dequantized": diff, "max_logit": want_max,
+               "diff_over_max": diff / want_max,
+               "top1_same_as_dequantized": float(same.float().mean()),
+               "top1_agreement_with_fp32": float(
+                   (got.argmax(-1) == fp32.argmax(-1)).float().mean()),
+               "ms_per_forward": ms, "images_per_s": batch / ms * 1e3,
+               "dequantized_ms_per_forward": deq_ms,
+               "peak_mem_gb": peak_gb, "profile": prof}
+        emit(row)
+        if not (diff <= CNN_TOL * want_max and bool((same | close).all())
+                and bool(torch.isfinite(got).all())
+                and got.shape == (batch, cfg.num_classes)):
+            raise AssertionError(f"cnn {cfg.name} batch {batch}: the K11 "
+                                 f"route disagrees with the dequantized "
+                                 f"forward: {row}")
+    del qparams, deq, got, want, fp32, imgs
+
+    for p in leaves:
+        p.requires_grad_(True)
+    opt_cfg = AdamWConfig(lr=1e-4)
+    state = init_opt_state(params, opt_cfg)
+    tgen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    batch = {"images": torch.randn((CNN_TRAIN_BATCH,) + shape, generator=tgen,
+                                   device="cuda"),
+             "labels": torch.randint(0, cfg.num_classes, (CNN_TRAIN_BATCH,),
+                                     generator=tgen, device="cuda")}
+    dropout = torch.Generator(device="cuda").manual_seed(SEED + 31)
+
+    def step():
+        loss, _ = cnn.loss_fn(params, cfg, batch, generator=dropout)
+        grads = torch.autograd.grad(loss, leaves)
+        _, _, m = apply_updates(params, rebuild(list(grads)), state, opt_cfg)
+        return loss.detach(), m["grad_norm"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, walls = [], [], []
+    for _ in range(CNN_TRAIN_STEPS):
+        t0 = time.monotonic()
+        loss, gnorm = step()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in counters.items()}
+    s_per_step = sum(walls[1:]) / len(walls[1:])
+    flops = 3 * cnn.flops_per_image(cfg) * CNN_TRAIN_BATCH
+    row = {"phase": "cnn_train", "model": cfg.name,
+           "batch": CNN_TRAIN_BATCH, "steps": CNN_TRAIN_STEPS,
+           "dropout": cfg.dropout, "losses": losses, "grad_norms": gnorms,
+           "step_wall_s": walls, "s_per_step": s_per_step,
+           "images_per_s": CNN_TRAIN_BATCH / s_per_step,
+           "flops_per_image": cnn.flops_per_image(cfg),
+           "model_flops_per_s": flops / s_per_step,
+           "fp32_peak_share": flops / s_per_step / PEAK_FP32,
+           "peak_mem_gb": peak_gb, "k11_forwards": forwards,
+           "launches": launches}
+    # after the measured steps and the counts
+    row["profile"] = _profile_device(step, 1)
+    emit(row)
+    want_l = {n: (forwards * n_fc if n == "ternary_matmul" else 0)
+              for n in counters}
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"cnn {cfg.name} train: a loss or grad norm is "
+                             f"not finite: {losses}, {gnorms}")
+    if launches != want_l:
+        raise AssertionError(f"cnn {cfg.name}: launches {launches} != "
+                             f"{want_l}")
     return launches
 
 
@@ -1629,6 +1993,7 @@ def _counters():
     from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_prefill_attention as k3
     from repro_torch.kernels import paged_verify_attention as k5
+    from repro_torch.kernels import ternary_matmul as k11
     return {"decode_attention": k1.decode_attention,
             "paged_decode_attention": k2.paged_decode_attention,
             "paged_prefill_attention": k3.paged_prefill_attention,
@@ -1638,7 +2003,8 @@ def _counters():
             "flash_attention_bwd_dq": k678.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": k678.flash_attention_bwd_dkv,
             "int8_matmul_dx": k4.int8_matmul_dx,
-            "flash_attention": k678.flash_attention}
+            "flash_attention": k678.flash_attention,
+            "ternary_matmul": k11.ternary_matmul}
 
 
 def _serve_run(phase, eng, acct, prompts, n_new):
@@ -1678,7 +2044,7 @@ def _serve_run(phase, eng, acct, prompts, n_new):
             if int8 else 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "int8_matmul_dx": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "ternary_matmul": 0}
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches} != {want} "
                              f"(decode ticks {decode_ticks}, admission or "
@@ -1802,6 +2168,8 @@ KERNELS = (
     ("int8_matmul_dx", "int8_matmul", "src/repro/kernels/int8_matmul.py:124"),
     ("flash_attention", "flash_attention",
      "src/repro/kernels/flash_attention.py:103"),
+    ("ternary_matmul", "ternary_matmul",
+     "src/repro/kernels/ternary_matmul.py:58"),
 )
 
 
@@ -1824,6 +2192,7 @@ def main() -> int:
     rows["int8_matmul"] = phase_int8_matmul()
     rows["int8_matmul_dx"] = phase_int8_dx()
     phase_int8_train_grads()
+    rows["ternary_matmul"] = phase_ternary_matmul()
     rows.update(phase_flash_kernels())
     rows["flash_attention"] = phase_flash_infer()
     phase_streams()
@@ -1848,6 +2217,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs += [phase_trainer(), phase_train_bench(), phase_kernel_bench()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.models import cnn
+    for cnn_cfg in (cnn.ALEXNET, cnn.VGG16):
+        runs.append(phase_cnn(cnn_cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "

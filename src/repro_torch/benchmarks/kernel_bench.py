@@ -1,14 +1,16 @@
-"""Kernel micro-benchmark of the PyTorch port: the flash-attention rows of
-``benchmarks/kernel_bench.py``, for K10.
+"""Kernel micro-benchmark of the PyTorch port: the rows of
+``benchmarks/kernel_bench.py``, for K11 and K10.
 
-At the reference's shapes (B = 2, S = 256, H = 8 on 2 KV heads, D = 64,
-causal) it times the plain version (``ref.flash_attention_ref``, the
-counterpart of the reference's jitted ``attention_ref`` oracle) and the
-kernel (``ops.flash_attention``), and reports the kernel's max abs error
-against the plain version. On the card the times come from CUDA events;
-on the CPU ``ops.flash_attention`` runs the plain version itself, so its
-error is 0 and its times are CPU times. The ternary rows wait for the
-ternary matmul's port (ROADMAP item 11).
+At the reference's shapes (the ternary matmul at M = 256, K = 2048, N = 512
+in fp32 with codes from ``ternarize``; flash attention at B = 2, S = 256,
+H = 8 on 2 KV heads, D = 64, causal) it times each plain version
+(``ref.ternary_matmul_ref`` and ``ref.flash_attention_ref``, the
+counterparts of the reference's jitted oracles) and each kernel
+(``ops.ternary_matmul``, ``ops.flash_attention``), and reports the kernel's
+max abs error against the plain version (for the ternary matmul also the
+plain version's max abs output, the scale of that error). On the card the times come from
+CUDA events; on the CPU the ops run the plain versions themselves, so the
+errors are 0 and the times are CPU times.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench [--device cpu]
 """
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import ops, ref
+from repro_torch.quant import ternary
 
 OUT_PATH = (Path(__file__).resolve().parents[3] / "build" / "bench"
             / "BENCH_torch_kernels.json")
@@ -55,6 +58,7 @@ def timed_us(fn: Callable[[], torch.Tensor], dev: torch.device,
 def run(device="cuda") -> List[Row]:
     """name, us_per_call, derived rows."""
     dev = device_lib.resolve(device)
+    rows = ternary_rows(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     b, s, h, hkv, d = 2, 256, 8, 2, 64
     q = torch.randn((b, s, h, d), generator=gen, device=dev)
@@ -70,10 +74,34 @@ def run(device="cuda") -> List[Row]:
         return ops.flash_attention(q, k, v, **kw)
 
     err = float((kernel() - oracle()).abs().max())
-    return [("kernel/flash_attention_oracle", timed_us(oracle, dev), shape),
-            ("kernel/flash_attention", timed_us(kernel, dev),
+    return rows + [
+        ("kernel/flash_attention_oracle", timed_us(oracle, dev), shape),
+        ("kernel/flash_attention", timed_us(kernel, dev),
+         f"{shape};device={dev.type}"),
+        ("kernel/flash_attention_vs_oracle", 0.0, f"max_err={err:.2e}")]
+
+
+def ternary_rows(dev: torch.device) -> List[Row]:
+    """The ternary matmul's rows at the reference bench's shape."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m, k, n = 256, 2048, 512
+    x = torch.randn((m, k), generator=gen, device=dev)
+    tw = ternary.ternarize(torch.randn((k, n), generator=gen, device=dev))
+    shape = f"shape={m}x{k}x{n};flops={2 * m * k * n:.2e}"
+
+    def oracle():
+        return ref.ternary_matmul_ref(x, tw.q, tw.scale)
+
+    def kernel():
+        return ops.ternary_matmul(x, tw)
+
+    want = oracle()
+    err = float((kernel() - want).abs().max())
+    return [("kernel/ternary_matmul_oracle", timed_us(oracle, dev), shape),
+            ("kernel/ternary_matmul", timed_us(kernel, dev),
              f"{shape};device={dev.type}"),
-            ("kernel/flash_attention_vs_oracle", 0.0, f"max_err={err:.2e}")]
+            ("kernel/ternary_matmul_vs_oracle", 0.0,
+             f"max_err={err:.2e};ref_max={float(want.abs().max()):.2e}")]
 
 
 def main(argv=None) -> None:

@@ -1,8 +1,9 @@
 """Bridge from the JAX package's parameters and configs to the port's.
 
-Tests build a model with ``repro.models.transformer.init_lm``, turn its tree
-into numpy with ``jax.tree.map(np.asarray, params)``, and load it here, so
-the two frameworks run the very same weights. This module itself imports
+Tests build a model with ``repro.models.transformer.init_lm`` (or
+``repro.models.cnn.init_cnn``), turn its tree into numpy with
+``jax.tree.map(np.asarray, params)``, and load it here, so the two
+frameworks run the very same weights. This module itself imports
 neither JAX nor ``repro``: it reads numpy arrays and plain dicts.
 """
 
@@ -15,7 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.models import cnn
 from repro_torch.models.transformer import BlockSpec, LMConfig, QuantPolicy
+from repro_torch.quant.ternary import TernaryWeight
 
 # LMConfig fields of the JAX package that only steer TPU compilation,
 # sharding, rematerialization or the Pallas switches; they do not change
@@ -57,6 +60,33 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
             raise ValueError(f"pat{i} is stacked {lead} deep; {cfg.name} "
                              f"repeats {cfg.repeats}")
     return out
+
+
+def cnn_params_from_numpy(tree: Dict[str, Any], cfg: cnn.CNNConfig,
+                          device="cuda") -> Dict[str, Any]:
+    """The JAX CNN tree (``conv{i}/{w,b}``, ``fc{i}/{w,b}``: nested dicts of
+    numpy arrays, HWIO kernels and ``(in, out)`` FC weights) as the port's
+    parameters on ``device``, array for array. Raises unless every leaf
+    has the shape ``cfg`` gives it."""
+    dev = device_lib.resolve(device)
+    want = cnn.param_shapes(cfg)
+    got = {g: {k: tuple(v.shape) for k, v in leaves.items()}
+           for g, leaves in tree.items()}
+    if got != want:
+        raise ValueError(f"{cfg.name}: parameter shapes {got} != {want}")
+    return {g: {k: _to_tensor(v, dev) for k, v in leaves.items()}
+            for g, leaves in tree.items()}
+
+
+def ternary_from_numpy(q: np.ndarray, scale: np.ndarray,
+                       device="cuda") -> TernaryWeight:
+    """A JAX ``TernaryWeight``'s ``(q, scale)`` arrays as the port's."""
+    dev = device_lib.resolve(device)
+    if q.dtype != np.int8 or scale.shape != q.shape[-1:]:
+        raise ValueError(f"ternary weight: q {q.dtype} {q.shape}, scale "
+                         f"{scale.shape}")
+    return TernaryWeight(q=_to_tensor(q, dev),
+                         scale=_to_tensor(scale, dev).float())
 
 
 def config_from_dict(d: Dict[str, Any]) -> LMConfig:

@@ -17,7 +17,7 @@ class ArchSpec:
     arch_id: str
     family: str                       # dense|moe|ssm|hybrid|audio|vlm|cnn
     kind: str                         # "lm" | "encdec" | "cnn"
-    make_config: Callable             # () -> LMConfig
+    make_config: Callable             # () -> LMConfig / CNNConfig
     make_smoke: Callable              # () -> reduced config, same family
     params_nominal: float             # headline param count (B) from the pool
     long_context_ok: bool = False
@@ -27,7 +27,7 @@ class ArchSpec:
 
 
 # archs ported so far; the rest of repro.configs follows the port's queue
-_ARCH_MODULES = ["starcoder2_7b"]
+_ARCH_MODULES = ["starcoder2_7b", "alexnet", "vgg16"]
 
 REGISTRY: Dict[str, ArchSpec] = {}
 

@@ -3,9 +3,9 @@ decode attention (K1), paged decode and prefill attention (K2, K3), the
 paged multi-query verify attention of speculative decode (K5), each with
 its int8-KV mode, the int8 weight matmul (K4) and its differentiable form
 (forward K4 with fp32 output, backward K9), the inference flash attention
-(K10, with its int8-KV mode), and the differentiable training flash
+(K10, with its int8-KV mode), the differentiable training flash
 attention, whose forward is K6 and whose backward is K7 (dQ) and K8 (dK,
-dV).
+dV), and the ternary weight matmul (K11) of the CNN workloads.
 
 Dispatch goes by the tensors' device, never by what the machine has: CPU
 tensors take the plain PyTorch version (``ref``), CUDA tensors take the
@@ -28,6 +28,8 @@ from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_prefill_attention as _ppa
 from repro_torch.kernels import paged_verify_attention as _pva
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ternary_matmul as _tm
+from repro_torch.quant.ternary import TernaryWeight
 
 
 def _scale_pair(name: str, k_scale, v_scale) -> None:
@@ -61,6 +63,30 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     else:
         raise ValueError(f"int8_matmul: no kernel for device {x.device}")
     return y.reshape(*lead, n)
+
+
+def ternary_matmul(x: torch.Tensor, w: TernaryWeight) -> torch.Tensor:
+    """x: (..., K) @ ternary weight (K, N) -> (..., N) in x's dtype (K11)."""
+    k, n = w.q.shape
+    sc = w.scale.reshape(n).float()
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if x.device.type == "cpu":
+        y = _ref.ternary_matmul_ref(x2, w.q, sc)
+    elif x.device.type == "cuda":
+        y = _tm.ternary_matmul(x2.contiguous(), w.q.contiguous(),
+                               sc.contiguous())
+    else:
+        raise ValueError(f"ternary_matmul: no kernel for device {x.device}")
+    return y.reshape(*lead, n)
+
+
+def ternary_dense(x: torch.Tensor, w: TernaryWeight,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = ternary_matmul(x, w)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the correctness contracts):
 K1-K3 and K5 attention, K4 the int8 weight matmul and K9 its backward, the
-training flash attention (K6's forward with lse and K7/K8's backward) and
-K10, the inference flash attention.
+training flash attention (K6's forward with lse and K7/K8's backward),
+K10, the inference flash attention, and K11, the ternary weight matmul.
 
 The CPU path of ``ops`` runs these, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. Nothing on the card's main path calls them.
@@ -17,6 +17,16 @@ from repro_torch.models import layers
 from repro_torch.quant import int8 as int8_lib
 
 NEG_INF = -1e30
+
+
+def ternary_matmul_ref(x: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """What ``repro.kernels.ternary_matmul._ternary_matmul_kernel``
+    computes (K11): ``(x @ q) * scale[n]`` with q int8 in {-1, 0, 1}, an
+    fp32 dot of x and the codes widened to fp32, cast to ``out_dtype`` (x's
+    dtype by default). x: (M, K); q: (K, N) int8; scale: (N,) fp32."""
+    return ((x.float() @ q.float()) * scale.float()).to(out_dtype or x.dtype)
 
 
 def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

@@ -2,8 +2,9 @@
 behave as their originals: the scheduler and the page pool state for
 state, the sustainability engine, the int8 quantizer's constants, the
 speculative drafters' names, the speculative cost model, the training
-token pipeline and the fleet fault-tolerance module (heartbeats, health
-monitor, elastic planner) value for value. The only difference allowed is
+token pipeline, the fleet fault-tolerance module (heartbeats, health
+monitor, elastic planner), the sustainability advisor and the CNN
+configs value for value. The only difference allowed is
 the port's extra ``h100_sxm`` device.
 """
 
@@ -14,6 +15,7 @@ import os
 import numpy as np
 import pytest
 
+from repro.core import advisor as j_advisor
 from repro.core import energy as j_energy
 from repro.data import pipeline as j_pipeline
 from repro.core import grid as j_grid
@@ -21,6 +23,7 @@ from repro.core import hw as j_hw
 from repro.core import lca as j_lca
 from repro.core import roofline as j_rl
 from repro.core import sustain as j_sustain
+from repro.models import cnn as j_cnn
 from repro.models import costing as j_costing
 from repro.quant import int8 as j_int8
 from repro.serve import engine as j_engine
@@ -28,6 +31,7 @@ from repro.serve import pages as j_pages
 from repro.serve import scheduler as j_sched
 from repro.serve import spec as j_spec
 from repro.train import ft as j_ft
+from repro_torch.core import advisor as t_advisor
 from repro_torch.core import energy as t_energy
 from repro_torch.data import pipeline as t_pipeline
 from repro_torch.core import grid as t_grid
@@ -35,6 +39,7 @@ from repro_torch.core import hw as t_hw
 from repro_torch.core import lca as t_lca
 from repro_torch.core import roofline as t_rl
 from repro_torch.core import sustain as t_sustain
+from repro_torch.models import cnn as t_cnn
 from repro_torch.models import costing as t_costing
 from repro_torch.quant import int8 as t_int8
 from repro_torch.serve import engine as t_engine
@@ -365,3 +370,49 @@ def test_ft_planner_infeasible_and_ewma_equal():
     for x in (3.0, 1.0, 7.5, 2.0):
         assert ewmas[0].update(x) == ewmas[1].update(x)
     assert dataclasses.asdict(ewmas[0]) == dataclasses.asdict(ewmas[1])
+
+
+# (platforms, activity, service years, reference throughput's platform):
+# tests/test_sustain.py::test_fpga_never_selected and
+# tests/test_system.py::test_advisor_closes_the_loop's inputs
+ADVISOR_CASES = [(("gpu", "rm_pim", "fpga"), 0.7, 5, "rm_pim"),
+                 (("gpu", "rm_pim"), 0.9, 3, "rm_pim"),
+                 (("gpu", "rm_pim"), 0.2, 3, "rm_pim"),
+                 (("gpu", "rm_pim", "fpga"), 0.3, 5, "rm_pim")]
+
+
+@pytest.mark.parametrize("names,activity,years,ref", ADVISOR_CASES)
+def test_advisor_equal(names, activity, years, ref):
+    """``recommend`` gives the same winner, dominated set, totals,
+    indifference times and narrative."""
+    recs = []
+    for adv, sus in ((j_advisor, j_sustain), (t_advisor, t_sustain)):
+        plats = [sus.platform_from_hw(n, "alexnet", "train_fp32")
+                 for n in names]
+        by = {p.name: p for p in plats}
+        recs.append(dataclasses.asdict(adv.recommend(
+            plats, sus.Duty(activity), years * sus.SECONDS_PER_YEAR,
+            ref_throughput=by[ref].throughput)))
+    assert recs[0] == recs[1]
+    if activity == 0.7:
+        assert "fpga" in recs[1]["dominated"] and recs[1]["winner"] != "fpga"
+    if activity in (0.9, 0.2):
+        assert recs[1]["winner"] == ("gpu" if activity == 0.9 else "rm_pim")
+
+
+def test_advisor_fleet_equal():
+    """``fleet_recommend`` on the same roofline terms."""
+    opts = [(8, 1e15, 2e12, 1e10, 4096.0), (64, 1e15, 2e12, 5e10, 4096.0)]
+    out = []
+    for adv, rl in ((j_advisor, j_rl), (t_advisor, t_rl)):
+        out.append(adv.fleet_recommend(
+            [adv.MeshOption(f"m{n}", rl.RooflineTerms(f, b, c, n), tok)
+             for n, f, b, c, tok in opts], "NY", service_years=3.0,
+            activity=0.5))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("name", ["ALEXNET", "VGG16"])
+def test_cnn_configs_equal(name):
+    assert dataclasses.asdict(getattr(t_cnn, name)) == \
+        dataclasses.asdict(getattr(j_cnn, name))

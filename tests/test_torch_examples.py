@@ -1,6 +1,6 @@
 """The port's examples and benchmarks (``repro_torch.examples``,
-``repro_torch.benchmarks``) run on the CPU, and the CUDA wrappers of K9
-and K10 refuse CPU tensors instead of computing on them.
+``repro_torch.benchmarks``) run on the CPU, and the CUDA wrappers of K9,
+K10 and K11 refuse CPU tensors instead of computing on them.
 
 On the CPU the kernels' plain versions stand in for them, so the benches'
 parity numbers here check the plumbing (the same route, exact update
@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from repro_torch.benchmarks import kernel_bench, train_bench
-from repro_torch.examples import quickstart, train_e2e
+from repro_torch.examples import (edge_cnn_repro, quickstart,
+                                  sustainability_report, train_e2e)
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import int8_matmul as t_im
+from repro_torch.kernels import ternary_matmul as t_tm
 
 
 def test_train_bench_cpu(tmp_path):
@@ -41,13 +43,20 @@ def test_train_bench_cpu(tmp_path):
 
 def test_kernel_bench_cpu(tmp_path, capsys):
     rows = kernel_bench.run("cpu")
-    assert [r[0] for r in rows] == ["kernel/flash_attention_oracle",
+    assert [r[0] for r in rows] == ["kernel/ternary_matmul_oracle",
+                                    "kernel/ternary_matmul",
+                                    "kernel/ternary_matmul_vs_oracle",
+                                    "kernel/flash_attention_oracle",
                                     "kernel/flash_attention",
                                     "kernel/flash_attention_vs_oracle"]
+    assert rows[2][2].startswith("max_err=0.00e+00;ref_max=")
+    assert rows[0][2] == "shape=256x2048x512;flops=5.37e+08"
     assert rows[-1][2] == "max_err=0.00e+00"
     kernel_bench.main(["--device", "cpu", "--out", str(tmp_path / "k.json")])
-    assert len(json.loads((tmp_path / "k.json").read_text())) == 3
-    assert "kernel/flash_attention_vs_oracle" in capsys.readouterr().out
+    assert len(json.loads((tmp_path / "k.json").read_text())) == 6
+    out = capsys.readouterr().out
+    assert "kernel/flash_attention_vs_oracle" in out
+    assert "kernel/ternary_matmul_vs_oracle" in out
 
 
 def test_train_e2e_cpu_scale_resumes(tmp_path, capsys):
@@ -78,9 +87,33 @@ def test_quickstart_cpu(capsys):
     assert "step  100" in out and "-> [" in out
 
 
+def test_edge_cnn_repro_cpu(capsys):
+    """``python -m repro_torch.examples.edge_cnn_repro --device cpu``: the
+    ternary route (K11's plain version here) agrees with the dequantized
+    forward, and the Table 3, Fig. 2 and advisor sections print."""
+    res = edge_cnn_repro.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert res["route_max_abs_diff"] < 1e-5
+    assert "ternary route (K11) vs dequantized forward: max |diff|" in out
+    assert "Table 3 (inference, ternary PIM):" in out
+    assert "Fig 2a break-even" in out
+    assert "GPU beats RM above activity ratio 40%" in out
+    assert "activity  30%: winner=rm_pim" in out
+    assert "activity  90%: winner=gpu (dominated: ['fpga'])" in out
+
+
+def test_sustainability_report_cpu(capsys):
+    sustainability_report.main([])
+    out = capsys.readouterr().out
+    for head in ("Table 1", "Table 2", "Table 3", "Figure 2"):
+        assert head in out
+    assert "2b/2c: GPU beats RM (vgg16)" in out
+    assert "ROADMAP item 13" in out
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
-    """K9's and K10's wrappers take CUDA tensors only: a CPU tensor raises
-    before anything is built or launched."""
+    """K9's, K10's and K11's wrappers take CUDA tensors only: a CPU tensor
+    raises before anything is built or launched."""
     dy = torch.zeros((4, 16))
     q = torch.zeros((32, 16), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -88,5 +121,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     qq = torch.zeros((1, 4, 2, 64))
     with pytest.raises(ValueError, match="CUDA"):
         t_fa.flash_attention(qq, qq[:, :, :1], qq[:, :, :1], scale=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_tm.ternary_matmul(dy, q, torch.ones(16))
     assert t_im.int8_matmul_dx.launches == 0
     assert t_fa.flash_attention.launches == 0
+    assert t_tm.ternary_matmul.launches == 0

@@ -494,7 +494,8 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     from repro_torch.kernels import build
     attention = ("decode_attention", "paged_decode_attention",
                  "paged_prefill_attention", "paged_verify_attention")
-    alone = ("int8_matmul", "flash_attention")    # include no csrc header
+    alone = ("int8_matmul", "flash_attention",    # include no csrc header
+             "ternary_matmul")
     assert set(build.SOURCES) == set(attention) | set(alone)
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
