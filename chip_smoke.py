@@ -26,15 +26,23 @@ non-zero and prints no result:
    dequantization, is part of that call):
    K1 at B=8, H=36, Hkv=4, D=128, Sk=2048; K2 at the same shapes through a
    permuted table of 128 pages of 16 per slot; K3 at 8 rows, C=256, ragged
-   starts (unaligned ones too) and lengths (0 too); K5 on K2's pools and
+   starts (unaligned ones too) and lengths (0 too), then (checked, not
+   timed) at C=200 with a window of 300 that starts inside cached pages
+   and key tiles (K3's bf16-q modes over bf16 and int8 pools run its
+   tensor-core kernel, the others its SIMT kernel; a ``routes`` line names
+   the kernel that one call of each K3 mode and K4 regime launched, read
+   from the wrappers' per-kernel counters); K5 on K2's pools and
    lengths with T = 1, 2 and 5 query lanes per slot (lengths 1 and 2 leave
    rows with no valid key, which must be exact zeros like a dead slot's),
    its library call masked SDPA with a per-lane causal mask, and lane t
    held against K2 at length ``lengths - T + t + 1`` without a window
    (reported: equal bit for bit, and the max abs difference);
 4. int8 matmul (K4) against its plain version at the main path's shapes:
-   decode (M=8) for 4608->4608, ->512, ->18432 and 18432->4608, prefill
-   (M=2048) for 4608->18432 and 18432->4608, with bf16 x, fp32 x at M=8
+   decode (M=8) and speculative-tick (M=40) for 4608->4608, ->512,
+   ->18432 and 18432->4608, prefill (M=2048) for 4608->18432 and
+   18432->4608, with bf16 x, then (checked, not timed) the wgmma kernel's
+   ragged shapes (M = 9, 100, 2047; N = 1008, 4624) and an N = 1000 call
+   that must raise its shape error, fp32 x at M=8
    for 4608->18432, and the fp32-output mode of bf16 x (the training
    forward's) at M=8 and M=4096 for 4608->18432; the library call is
    cuBLAS ``x @ w`` on the weight dequantized once to x's dtype, which is
@@ -76,7 +84,11 @@ non-zero and prints no result:
    32, and the prefix cache must hit;
 8. phases 6 and 7 again with ``quant="int8"`` (the same weights quantized
    once): K4 launches must be (decode ticks + admission or extend calls) x
-   32 x 6, K1, K2 and K3 as in phases 6 and 7;
+   32 x 6, K1, K2 and K3 as in phases 6 and 7; each serve run also reads
+   the per-kernel counters of K3 and K4: K3 must run on its tensor cores
+   in the int8 runs and on its SIMT kernel in the others, and K4 in the
+   int8 runs on its wgmma kernel and (outside the spec runs) its decode
+   kernel, never its SIMT kernel;
 8b. phase 7's traffic with speculative decode (``spec_k=4``, ``ngram``),
    unquantized and int8: K5 launches must be spec ticks x 32, K2 none, K3
    extend calls x 32, K4 (spec ticks + extend calls) x 192; reports the
@@ -582,7 +594,6 @@ def phase_kernels():
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import paged_decode_attention as k2
-    from repro_torch.kernels import paged_prefill_attention as k3
     from repro_torch.kernels import ref
 
     dead_slots = torch.tensor(LENGTHS) == 0
@@ -599,13 +610,111 @@ def phase_kernels():
         lambda a, w: _decode_bound(a[0], a[1], a[4], w, paged=True),
         dead=dead_slots, cold=(1, 2), iters=48, kv_pos=(1, 2))
     rows["paged_verify_attention"] = phase_verify_kernel()
-    rows["paged_prefill_attention"] = _check_kernel(
+    rows["paged_prefill_attention"] = phase_prefill_kernel()
+    return rows
+
+
+def phase_prefill_kernel():
+    """K3 against its plain version at the main path's shapes, in every
+    mode and window, timed. Returns its main-path rows."""
+    import torch
+    from repro_torch.kernels import paged_prefill_attention as k3
+    from repro_torch.kernels import ref
+    return _check_kernel(
         "paged_prefill_attention", k3.paged_prefill_attention,
         ref.paged_prefill_attention_ref, _library_prefill, _prefill_inputs,
         lambda a, w: _prefill_bound(a[0], a[1], a[3], a[6], a[7], w),
         dead=torch.arange(CHUNK)[None] >= torch.tensor(CHUNK_LENS)[:, None],
         cold=(3, 4), iters=16, kv_pos=(3, 4))
-    return rows
+
+
+# K3 at a chunk of 200 tokens (no multiple of the tensor-core kernel's 128
+# query rows or 64 keys) with a window of 300, whose start falls inside a
+# cached page and inside a 64-key tile for every row but a block's first:
+# every mode against its plain version, checked and not timed
+RAGGED_CHUNK, RAGGED_WINDOW = 200, 300
+
+
+def phase_prefill_ragged():
+    """K3 at C = 200 with the window of 300 and without one, in every mode,
+    within MODES' bounds, exact zeros at and past each row's length."""
+    import torch
+    from repro_torch.kernels import paged_prefill_attention as k3
+    from repro_torch.kernels import ref
+    lens = [min(n, RAGGED_CHUNK) for n in CHUNK_LENS]
+    dead = torch.arange(RAGGED_CHUNK)[None] >= torch.tensor(lens)[:, None]
+    rows = []
+    for q_name, kv_name, atol, rtol in MODES:
+        args = list(_prefill_inputs(getattr(torch, q_name),
+                                    getattr(torch, kv_name)))
+        for i in (0, 1, 2):                     # q, k_new, v_new
+            args[i] = args[i][:, :RAGGED_CHUNK].contiguous()
+        args[7] = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kw = ({"k_scale": args[8], "v_scale": args[9]} if kv_name == "int8"
+              else {})
+        for window in (-1, RAGGED_WINDOW):
+            got = k3.paged_prefill_attention(*args[:8], scale=D ** -0.5,
+                                             window=window, **kw)
+            torch.cuda.synchronize()
+            want = ref.paged_prefill_attention_ref(
+                *args[:8], scale=D ** -0.5, window=window, **kw)
+            err = (got.float() - want.float()).abs()
+            if not (bool((err <= atol + rtol * want.float().abs()).all())
+                    and bool((got[dead.cuda()] == 0).all())
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(
+                    f"paged_prefill_attention disagrees with its plain "
+                    f"version at C = {RAGGED_CHUNK}: q {q_name}, kv "
+                    f"{kv_name}, window {window}: max abs err "
+                    f"{float(err.max())} (atol {atol}, rtol {rtol})")
+            rows.append([q_name, kv_name, window,
+                         k3.route(args[0].dtype, args[3].dtype),
+                         float(err.max())])
+    emit({"phase": "kernels_ragged", "kernel": "paged_prefill_attention",
+          "chunk": RAGGED_CHUNK, "lens": lens, "rows": rows})
+
+
+def phase_routes():
+    """Which kernel each K3 mode and each K4 regime ran: one call of each
+    at the main path's shapes (K4 on a 4608 x 512 weight), read from the
+    wrappers' per-kernel counters; each must be the kernel that the
+    wrapper's rule (``route``, ``regime``) names."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import paged_prefill_attention as k3
+
+    def ran(fn, call):
+        for name in fn.launches_by_kernel:
+            fn.launches_by_kernel[name] = 0
+        call()
+        torch.cuda.synchronize()
+        kernels = [n for n, c in fn.launches_by_kernel.items() if c]
+        if len(kernels) != 1:
+            raise AssertionError(f"{fn.__name__}: one call launched "
+                                 f"{fn.launches_by_kernel}")
+        return kernels[0]
+
+    k3_ran, k4_ran = {}, {}
+    for q_name, kv_name, _, _ in MODES:
+        args = _prefill_inputs(getattr(torch, q_name), getattr(torch, kv_name))
+        kw = ({"k_scale": args[8], "v_scale": args[9]} if kv_name == "int8"
+              else {})
+        key = f"q {q_name}, kv {kv_name}"
+        k3_ran[key] = ran(k3.paged_prefill_attention,
+                          lambda: k3.paged_prefill_attention(
+                              *args[:8], scale=D ** -0.5, **kw))
+        if k3_ran[key] != k3.route(args[0].dtype, args[3].dtype):
+            raise AssertionError(f"K3 {key} ran its {k3_ran[key]} kernel")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for x_name, m in (("bfloat16", 8), ("bfloat16", 40), ("bfloat16", 2048),
+                      ("float32", 8), ("float32", 4096)):
+        x, q, sc = _k4_inputs(gen, m, 4608, 512, getattr(torch, x_name))
+        key = f"x {x_name}, M = {m}"
+        k4_ran[key] = ran(k4.int8_matmul, lambda: k4.int8_matmul(x, q, sc))
+        if k4_ran[key] != k4.regime(m, x.dtype):
+            raise AssertionError(f"K4 {key} ran its {k4_ran[key]} kernel")
+    emit({"phase": "routes", "paged_prefill_attention": k3_ran,
+          "int8_matmul": k4_ran})
 
 
 def _verify_inputs(t):
@@ -666,14 +775,19 @@ def phase_verify_kernel():
 
 
 # (M, K, N, x dtype, output dtype) of K4's checks: a decode tick's
-# projections at 8 slots (wq/wo, wk/wv, w_in, w_out), the prefill GEMMs of
-# an extend call (8 rows x 256-token chunks), fp32 x, and the fp32-output
-# mode of bf16 x that int8_matmul_train's forward runs, at a decode and a
-# training batch (4096 tokens)
+# projections at 8 slots (wq/wo, wk/wv, w_in, w_out), the same at a
+# speculative tick's 8 slots x 5 lanes (M = 40, the wgmma kernel), the
+# prefill GEMMs of an extend call (8 rows x 256-token chunks), fp32 x, and
+# the fp32-output mode of bf16 x that int8_matmul_train's forward runs, at
+# a decode and a training batch (4096 tokens)
 K4_SHAPES = ((8, 4608, 4608, "bfloat16", "bfloat16"),
              (8, 4608, 512, "bfloat16", "bfloat16"),
              (8, 4608, 18432, "bfloat16", "bfloat16"),
              (8, 18432, 4608, "bfloat16", "bfloat16"),
+             (40, 4608, 4608, "bfloat16", "bfloat16"),
+             (40, 4608, 512, "bfloat16", "bfloat16"),
+             (40, 4608, 18432, "bfloat16", "bfloat16"),
+             (40, 18432, 4608, "bfloat16", "bfloat16"),
              (2048, 4608, 18432, "bfloat16", "bfloat16"),
              (2048, 18432, 4608, "bfloat16", "bfloat16"),
              (8, 4608, 18432, "float32", "float32"),
@@ -694,70 +808,125 @@ K4_TOL = {("float32", "float32"): (1e-5, 1e-5),
 # each timed call reads its own weight copy, these bytes of copies at least
 # (twice the 50 MB L2): every layer's weights are cold on a decode tick
 K4_COLD_BYTES = 100e6
+# (M, K, N, output dtype) of the wgmma kernel checked but not timed: ragged
+# M (9, 100, 2047: no multiple of its 64/128/256-row tiles) and N (1008 and
+# 4624: multiples of 16 that no 128-column tile divides), both outputs;
+# then an N that TMA cannot take (N % 16 != 0), which must raise
+K4_RAGGED = ((9, 4608, 1008, "bfloat16"), (9, 4608, 4624, "float32"),
+             (100, 4608, 4624, "bfloat16"), (100, 18432, 1008, "float32"),
+             (2047, 4608, 1008, "bfloat16"), (2047, 4608, 4624, "float32"))
+K4_REFUSED = (40, 4608, 1000)
+
+
+def _k4_inputs(gen, m, k, n, dt):
+    """x (m, k) in ``dt``, and a normal (k, n) weight quantized as the
+    engine quantizes it: int8 codes and fp32 per-column scales."""
+    import torch
+    from repro_torch.quant import int8 as int8_lib
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    leaf = int8_lib.quantize_weight(w)
+    return x, leaf["q8"], leaf["s8"].reshape(n).contiguous()
+
+
+def _check_k4(x, q, sc, odt):
+    """K4 on (x, q, sc) against its plain version within K4_TOL; returns
+    the kernel's output and the max abs error."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import ref
+    got = k4.int8_matmul(x, q, sc, out_dtype=odt)
+    torch.cuda.synchronize()
+    want = ref.int8_matmul_ref(x, q, sc, out_dtype=odt)
+    x_name = str(x.dtype).replace("torch.", "")
+    out_name = str(odt).replace("torch.", "")
+    atol, rtol = K4_TOL[x_name, out_name]
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    excess = err - (atol + rtol * want.float().abs())
+    if not (float(excess.max()) <= 0.0 and torch.isfinite(got).all()
+            and got.dtype == odt):
+        (m, k), n = x.shape, q.shape[1]
+        worst = int(excess.argmax())
+        raise AssertionError(
+            f"int8_matmul disagrees with its plain version at "
+            f"{m}x{k}x{n} {x_name} -> {out_name} ({got.dtype}): max abs "
+            f"err {max_err} (atol {atol}, "
+            f"rtol {rtol}); worst element {divmod(worst, n)}: kernel "
+            f"{float(got.flatten()[worst])}, plain "
+            f"{float(want.flatten()[worst])}")
+    return got, max_err
+
+
+def _k4_row(gen, m, k, n, x_name, out_name):
+    """K4 at one shape of K4_SHAPES held against its plain version, with
+    its time, bound, the plain version's time and cuBLAS on the
+    dequantized weight, every timed call on its own cold weight copy."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import ref
+    dt, odt = getattr(torch, x_name), getattr(torch, out_name)
+    x, q, sc = _k4_inputs(gen, m, k, n, dt)
+    got, max_err = _check_k4(x, q, sc, odt)
+    atol, rtol = K4_TOL[x_name, out_name]
+    qs = [q] + [q.clone() for _ in range(
+        max(3, int(K4_COLD_BYTES // q.numel())))]
+    kernel_ms = cuda_ms(lambda i: k4.int8_matmul(
+        x, qs[i % len(qs)], sc, out_dtype=odt), 24 if m <= 2048 else 8)
+    plain_ms = cuda_ms(lambda i: ref.int8_matmul_ref(
+        x, qs[i % len(qs)], sc, out_dtype=odt), 6 if m <= 2048 else 3)
+    # the yardstick moves 2x (bf16) or 4x (fp32) the weight bytes
+    wd = [(c.float() * sc).to(dt) for c in qs[:max(
+        2, int(K4_COLD_BYTES // (q.numel() * x.element_size())))]]
+    library_ms = cuda_ms(lambda i: x @ wd[i % len(wd)],
+                         24 if m <= 2048 else 8)
+    del qs, wd
+    nbytes = (q.numel() + sc.numel() * 4 + x.numel() * x.element_size()
+              + m * n * got.element_size())
+    bound_ms, bound_by = _bound(
+        nbytes, 2.0 * m * k * n / (PEAK_BF16 if dt == torch.bfloat16
+                                   else PEAK_FP32))
+    return {"phase": "int8_matmul", "m": m, "k": k, "n": n, "x": x_name,
+            "out": out_name, "max_abs_err": max_err, "atol": atol,
+            "rtol": rtol, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "cuBLAS x @ w, w dequantized once: not the same "
+                       "function, it moves 2x (bf16) or 4x (fp32) the "
+                       "weight bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_int8_matmul():
     """K4 against its plain version at the main path's shapes, with its
     time, bound, the plain version's time and cuBLAS on the dequantized
-    weight. Returns the main row (decode, w_in)."""
+    weight; then the wgmma kernel's ragged shapes (checked, not timed) and
+    the shape it must refuse. Returns the main row (decode, w_in)."""
     import torch
     from repro_torch.kernels import int8_matmul as k4
-    from repro_torch.kernels import ref
-    from repro_torch.quant import int8 as int8_lib
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     main = None
     for m, k, n, x_name, out_name in K4_SHAPES:
-        dt, odt = getattr(torch, x_name), getattr(torch, out_name)
-        x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
-        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
-        leaf = int8_lib.quantize_weight(w)
-        q, sc = leaf["q8"], leaf["s8"].reshape(n).contiguous()
-        del w
-        got = k4.int8_matmul(x, q, sc, out_dtype=odt)
-        torch.cuda.synchronize()
-        want = ref.int8_matmul_ref(x, q, sc, out_dtype=odt)
-        atol, rtol = K4_TOL[x_name, out_name]
-        err = (got.float() - want.float()).abs()
-        max_err = float(err.max())
-        excess = err - (atol + rtol * want.float().abs())
-        if not (float(excess.max()) <= 0.0 and torch.isfinite(got).all()
-                and got.dtype == odt):
-            worst = int(excess.argmax())
-            raise AssertionError(
-                f"int8_matmul disagrees with its plain version at "
-                f"{m}x{k}x{n} {x_name} -> {out_name} ({got.dtype}): max abs "
-                f"err {max_err} (atol {atol}, "
-                f"rtol {rtol}); worst element {divmod(worst, n)}: kernel "
-                f"{float(got.flatten()[worst])}, plain "
-                f"{float(want.flatten()[worst])}")
-        qs = [q] + [q.clone() for _ in range(
-            max(3, int(K4_COLD_BYTES // q.numel())))]
-        kernel_ms = cuda_ms(lambda i: k4.int8_matmul(
-            x, qs[i % len(qs)], sc, out_dtype=odt), 24 if m <= 2048 else 8)
-        plain_ms = cuda_ms(lambda i: ref.int8_matmul_ref(
-            x, qs[i % len(qs)], sc, out_dtype=odt), 6 if m <= 2048 else 3)
-        # the yardstick moves 2x (bf16) or 4x (fp32) the weight bytes
-        wd = [(c.float() * sc).to(dt) for c in qs[:max(
-            2, int(K4_COLD_BYTES // (q.numel() * x.element_size())))]]
-        library_ms = cuda_ms(lambda i: x @ wd[i % len(wd)],
-                             24 if m <= 2048 else 8)
-        del qs, wd
-        nbytes = (q.numel() + sc.numel() * 4 + x.numel() * x.element_size()
-                  + m * n * got.element_size())
-        bound_ms, bound_by = _bound(
-            nbytes, 2.0 * m * k * n / (PEAK_BF16 if dt == torch.bfloat16
-                                       else PEAK_FP32))
-        row = {"phase": "int8_matmul", "m": m, "k": k, "n": n, "x": x_name,
-               "out": out_name, "max_abs_err": max_err, "atol": atol, "rtol": rtol,
-               "ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "library": "cuBLAS x @ w, w dequantized once: not the same "
-                          "function, it moves 2x (bf16) or 4x (fp32) the "
-                          "weight bytes",
-               "bound_ms": bound_ms, "bound_by": bound_by}
+        row = _k4_row(gen, m, k, n, x_name, out_name)
+        row["kernel"] = k4.regime(m, getattr(torch, x_name))
         emit(row)
         if (m, k, n, x_name, out_name) == K4_MAIN:
             main = row
+    ragged = []
+    for m, k, n, out_name in K4_RAGGED:
+        x, q, sc = _k4_inputs(gen, m, k, n, torch.bfloat16)
+        ragged.append([m, k, n, out_name,
+                       _check_k4(x, q, sc, getattr(torch, out_name))[1]])
+    m, k, n = K4_REFUSED
+    x, q, sc = _k4_inputs(gen, m, k, n, torch.bfloat16)
+    try:
+        k4.int8_matmul(x, q, sc)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"int8_matmul took N = {n} (N % 16 != 0) at "
+                             f"M = {m}: its TMA descriptors cannot")
+    emit({"phase": "int8_matmul_ragged", "kernel": "wgmma",
+          "rows": ragged, "refused": [m, k, n], "error": refused})
     return main
 
 
@@ -2018,11 +2187,17 @@ def _serve_run(phase, eng, acct, prompts, n_new):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = _counters()
+    by_kernel = {name: fn.launches_by_kernel for name, fn in counters.items()
+                 if hasattr(fn, "launches_by_kernel")}
     for fn in counters.values():
         fn.launches = 0
+    for counts in by_kernel.values():
+        for kernel in counts:
+            counts[kernel] = 0
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_kernel = {name: dict(counts) for name, counts in by_kernel.items()}
     s = eng.summary()
     rep = acct.report()
     decode_ticks = sum(1 for m in eng.metrics_log if m.active_slots > 0)
@@ -2049,6 +2224,19 @@ def _serve_run(phase, eng, acct, prompts, n_new):
         raise AssertionError(f"{phase}: launches {launches} != {want} "
                              f"(decode ticks {decode_ticks}, admission or "
                              f"extend calls {admissions})")
+    # which of K3's and K4's kernels ran: bf16 q over the int8 pool on K3's
+    # tensor cores and over the fp32 pool on its SIMT kernel; bf16 x on
+    # K4's wgmma kernel (M > 8: admission and extend calls, the spec ticks'
+    # 40 rows) and its decode kernel (M <= 8: the 8 slots of a decode tick,
+    # an extend call of a few tokens), never its SIMT one
+    k3_by = by_kernel["paged_prefill_attention"]
+    k4_by = by_kernel["int8_matmul"]
+    k3_kernel = "tensor_cores" if int8 else "simt"
+    if k3_by[k3_kernel] != launches["paged_prefill_attention"] or (
+            int8 and not (k4_by["simt"] == 0 and k4_by["wgmma"] > 0
+                          and (spec or k4_by["decode"] > 0))):
+        raise AssertionError(f"{phase}: K3 ran {k3_by} (all on "
+                             f"{k3_kernel} expected), K4 ran {k4_by}")
     row = {"phase": phase, "dtype": "bfloat16", "quant": eng.scfg.quant,
            "cache": "int8" if int8 else "float32",
            "requests": len(prompts), "new_tokens_each": n_new,
@@ -2067,7 +2255,7 @@ def _serve_run(phase, eng, acct, prompts, n_new):
            "kv_cache_bytes": eng.kv_cache_bytes,
            "host_readbacks": eng.host_readbacks,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches,
+           "launches": launches, "launches_by_kernel": by_kernel,
            "k4_launches_per_step": launches["int8_matmul"]
            / max(decode_ticks + admissions, 1),
            "port_kernel_launches_per_decode_tick": sum(launches.values())
@@ -2188,7 +2376,9 @@ def main() -> int:
     t0 = time.monotonic()
     phase_device()
     phase_build()
+    phase_routes()
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
+    phase_prefill_ragged()
     rows["int8_matmul"] = phase_int8_matmul()
     rows["int8_matmul_dx"] = phase_int8_dx()
     phase_int8_train_grads()

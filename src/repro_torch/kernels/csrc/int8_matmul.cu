@@ -33,13 +33,17 @@
 //     of the tile to finish (an atomic counter, reset by that block) adds
 //     them in split order, so the result does not depend on the order in
 //     which blocks ran and the call is one launch.
-//   * prefill, bf16 x, M > 8 (int8_mma_kernel): operations (about 2 * M
-//     FLOPs a weight byte). 128 x 128 output tiles on warp-level mma.sync
-//     (m16n8k16, bf16 in, fp32 accumulate), with x and the widened weight
-//     tile staged in shared memory (the weight stored n-major, so each B
-//     fragment is one 32-bit read, conflict-free with 8 bf16 of padding)
-//     and the next K tile loaded into registers while this one computes.
-//     wgmma and TMA are later work.
+//   * prefill, bf16 x, M > 8 (int8_wgmma_kernel): operations (about 2 * M
+//     FLOPs a weight byte: past the ridge from M ~ 150; at a speculative
+//     tick's M = 40, bytes). wgmma with the weight as the register operand
+//     (widened exactly in registers by the same byte permute, so no wide
+//     copy of the weight is ever stored) and x as the shared one, fed by a
+//     producer warpgroup's TMA ring (x tiles of BM x 64 bf16 and weight
+//     tiles of 64 x 128 codes, 4 stages, mbarriers); BM = 64, 128, 192 or
+//     256 rows of x by the wrapper's rule, and K split across blocks (the
+//     decode kernel's in-order combine) when the output tiles alone would
+//     not cover the SMs. The design note is above the kernel. N % 16 == 0
+//     (TMA).
 //   * fp32 x, any M (int8_simt_kernel): fp32 CUDA-core FMAs on 64 x 64
 //     tiles. TF32 would change the numerics, so the tensor cores are not
 //     used; each output sums k in the same order whatever M is (16-row
@@ -49,13 +53,17 @@
 // Built by repro_torch/kernels/build.py with nvcc into a shared library
 // with a plain C entry point, loaded with ctypes.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTcMaxSplits = 64;  // the wgmma kernel's K splits at most
 
 // ---------------------------------------------------------------------------
 // decode: bf16 x, M <= 8, split K, tensor cores
@@ -83,45 +91,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Four int8 codes (one 32-bit word) as two packed bf16 pairs, exactly and
-// without the slow int-to-float conversion: xor 0x80 biases each byte to
-// c + 128 in [0, 255], a byte permute puts it in the low mantissa byte of
-// 2^23 (0x4B0000bb), subtracting 2^23 + 128 leaves c as a float, and
-// |c| <= 128 is exact in bf16.
-__device__ __forceinline__ uint2 widen4(uint32_t w) {
-  const uint32_t b = w ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    f[e] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7440 + e)) - 8388736.f;
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
-  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                    *reinterpret_cast<const uint32_t*>(&hi));
-}
-
 // one output element from its fp32 value: the only rounding of the result
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_addr;
+using hopper::widen4;
 
 // Computes the output tile as mma m16n8k16 with x as A (its M <= 8 rows
 // padded to 16 by zero fragments) and the widened weight as B. Each warp
@@ -165,7 +144,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     uint8_t* dst = ring + (st % kStages) * 16 * kGemvWarpN + slot;
     const int8_t* p = src + (long long)st * 16 * N;
     if (vec && ln + 16 <= N) {
-      cp_async16(smem_addr(dst), p);
+      hopper::cp_async16_zfill(smem_addr(dst), p, true);
     } else {
       uint32_t w[4] = {0u, 0u, 0u, 0u};
       for (int e = 0; e < 16; ++e)
@@ -293,118 +272,275 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// prefill: bf16 x, M > 8, mma.sync
+// prefill: bf16 x, M > 8, wgmma with a TMA ring
 // ---------------------------------------------------------------------------
+//
+// The block computes a 128-column (n) by BM-row (m) tile of y as its
+// transpose, y^T = q^T x^T, so that the int8 weight is wgmma's register
+// operand A (widened to bf16 in registers, never stored wide) and x, K-major
+// as it lies in memory, is the shared operand B with N = BM. Warps 0-7 are
+// two consumer warpgroups, each owning 64 of the 128 columns (one m64nBMk16
+// per 16-deep k step); warps 8-11 are the producer warpgroup, one thread of
+// which keeps TMA loads of x (BM x 64, bf16) and q (64 x 128, int8) in
+// flight through a ring of kTcStages stages, each with a "full" mbarrier
+// (the TMA bytes) and an "empty" one (the 256 consumer threads'
+// arrivals). setmaxnreg hands the producer's registers to the consumers
+// (BM = 256 keeps 128 accumulators a thread). TMA zero-fills rows and
+// columns past M, N and K, so only the stores are masked.
+//
+// A's rows may be any permutation of the block's columns (it only permutes
+// y^T's rows): warp w of warpgroup c takes its row g as column 64c + 16w +
+// 2g and row g + 8 as the column after it, so each of a thread's A
+// registers pairs two codes that sit next to each other in q's rows, and
+// one 16-bit shared load of a k row gives both. With the 128-byte swizzle
+// those loads are free of bank conflicts.
+//
+// Split K (gridDim.z > 1, small grids): block z sums k tiles [z * kt / S,
+// (z + 1) * kt / S), writes its fp32 partial tile to ws, and the last block
+// of the tile to arrive (an atomic counter, reset by that block) adds the
+// S partials in split order, as the decode kernel does.
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kPad = 8;
+constexpr int kTcBN = 128;                 // output columns a block
+constexpr int kTcBK = 64;                  // k rows a stage: 128 bytes of bf16 x
+constexpr int kTcStages = 4;
+constexpr int kTcConsumers = 256;          // two warpgroups
+constexpr int kTcThreads = kTcConsumers + 128;  // and the producer warpgroup
+constexpr int kTcQBytes = kTcBK * kTcBN;   // one int8 weight tile
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int BM>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + (size_t)kTcStages * (BM * kTcBK * 2 + kTcQBytes) + 2 * kTcStages * 8 + 16;
 }
 
-// Block tile 128 x 128 over 8 warps (2 along M x 4 along N), each warp
-// 64 x 32: 4 x 4 m16n8 accumulators. Fragment layouts are PTX's for
-// m16n8k16: g = lane / 4 picks the row (A, C) or the column (B), t = lane %
-// 4 the pair of k (A, B) or of columns (C).
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads, 2)
-int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                const float* __restrict__ scale, OutT* __restrict__ out, int M,
-                int N, int K, int vec) {
-  __shared__ __align__(16) __nv_bfloat16 a_s[kBM][kBK + kPad];   // x tile, k contiguous
-  __shared__ __align__(16) __nv_bfloat16 b_s[kBN][kBK + kPad];   // weight tile, n-major
+template <int BM>
+__device__ __forceinline__ void wgmma_x(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (BM == 64) hopper::wgmma_rs_n64<0>(d, a, desc, 1);
+  else if constexpr (BM == 128) hopper::wgmma_rs_n128<0>(d, a, desc, 1);
+  else if constexpr (BM == 192) hopper::wgmma_rs_n192<0>(d, a, desc, 1);
+  else hopper::wgmma_rs_n256<0>(d, a, desc, 1);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+template <int BM, typename OutT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+int8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
+                  __grid_constant__ const CUtensorMap q_map, const float* __restrict__ scale,
+                  OutT* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int M, int N, int k_tiles) {
+  constexpr int kXBytes = BM * kTcBK * 2;
+  constexpr int R = BM / 2;                        // accumulators a thread
+  extern __shared__ unsigned char tc_smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(tc_smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* xs = smem;                        // kTcStages x tiles
+  unsigned char* qs = smem + kTcStages * kXBytes;  // kTcStages weight tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + kTcStages * kTcQBytes);
+  uint64_t* empty = full + kTcStages;
+  int* last_s = reinterpret_cast<int*>(empty + kTcStages);
 
-  // per K tile: x as 2 x 16 bytes a thread (4 threads a row), the weight as
-  // 16 codes a thread: row k = lane of the warp, columns warp * 16 + 0..15
-  uint4 a_reg[2];
-  uint32_t b_reg[4];                              // 16 codes, packed
-  const int b_k = tid & 31, b_n = (tid >> 5) * 16;
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + u * kThreads;
-      const int r = i >> 2, c = (i & 3) * 8;
-      const int m = m0 + r, k = k0 + c;
-      a_reg[u] = (m < M && k < K)
-                     ? *reinterpret_cast<const uint4*>(x + (long long)m * K + k)
-                     : make_uint4(0u, 0u, 0u, 0u);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * kTcBN, m0 = blockIdx.y * BM;
+  const int S = gridDim.z, split = blockIdx.z;
+  const int kt_lo = (int)((long long)split * k_tiles / S);
+  const int nt = (int)((long long)(split + 1) * k_tiles / S) - kt_lo;
+
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kTcConsumers);
     }
-    const int k = k0 + b_k, n = n0 + b_n;
-    const int8_t* src = q + (long long)k * N + n;
-    if (k < K && vec && n + 16 <= N) {
-      const uint4 u = *reinterpret_cast<const uint4*>(src);
-      b_reg[0] = u.x; b_reg[1] = u.y; b_reg[2] = u.z; b_reg[3] = u.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) b_reg[i] = 0u;
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        if (k < K && n + e < N) b_reg[e >> 2] |= (uint32_t)(uint8_t)src[e] << (8 * (e & 3));
-    }
-  };
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
 
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();                              // last tile's readers are done
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + u * kThreads;
-      *reinterpret_cast<uint4*>(&a_s[i >> 2][(i & 3) * 8]) = a_reg[u];
-    }
-#pragma unroll
-    for (int e = 0; e < 16; ++e)
-      b_s[b_n + e][b_k] =
-          __float2bfloat16_rn((float)(int8_t)(b_reg[e >> 2] >> (8 * (e & 3))));
-    __syncthreads();
-    if (k0 + kBK < K) load(k0 + kBK);             // in flight meanwhile
-
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + i * 16 + g;
-        af[i][0] = ld32(&a_s[r][kk + t * 2]);
-        af[i][1] = ld32(&a_s[r + 8][kk + t * 2]);
-        af[i][2] = ld32(&a_s[r][kk + 8 + t * 2]);
-        af[i][3] = ld32(&a_s[r + 8][kk + 8 + t * 2]);
+  // registers move from the producer warpgroup (which needs few) to the
+  // consumers' accumulators: 128 x 40 + 256 x 232 <= 65,536
+  if (warp >= kTcConsumers / 32) {                 // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == kTcConsumers) {
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % kTcStages;
+        if (i >= kTcStages) hopper::mbar_wait(empty + s, ((i / kTcStages) - 1) & 1);
+        hopper::mbar_expect_tx(full + s, kXBytes + kTcQBytes);
+        const int k = (kt_lo + i) * kTcBK;
+        hopper::tma_load_2d(xs + s * kXBytes, &x_map, full + s, k, m0);
+        hopper::tma_load_2d(qs + s * kTcQBytes, &q_map, full + s, n0, k);
       }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+    const int g = lane >> 2, t = lane & 3;
+    // this thread's A rows g and g + 8: block columns nc and nc + 1
+    const int nc = (warp >> 2) * 64 + (warp & 3) * 16 + 2 * g;
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % kTcStages;
+      hopper::mbar_wait(full + s, (i / kTcStages) & 1);
+      const unsigned char* qt = qs + s * kTcQBytes;
+      // k rows 16j + 2t + {0, 1, 8, 9} at columns nc, nc + 1 (one 16-bit load
+      // each), interleaved to (k, k + 1) pairs per column and widened exactly
+      uint32_t a[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = wn + j * 8 + g;
-        bf[j][0] = ld32(&b_s[c][kk + t * 2]);
-        bf[j][1] = ld32(&b_s[c][kk + 8 + t * 2]);
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * j + 2 * t + (e & 1) + 8 * (e >> 1);
+          w[e] = *reinterpret_cast<const uint16_t*>(qt + hopper::sw128(r, nc >> 4) + (nc & 15));
+        }
+        const uint2 lo = widen4(__byte_perm(w[0], w[1], 0x5140));
+        const uint2 hi = widen4(__byte_perm(w[2], w[3], 0x5140));
+        a[j][0] = lo.x;
+        a[j][1] = lo.y;
+        a[j][2] = hi.x;
+        a[j][3] = hi.y;
       }
+      const unsigned char* xt = xs + s * kXBytes;
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
+      for (int j = 0; j < 4; ++j)
+        wgmma_x<BM>(acc, a[j], hopper::sw128_desc(xt + 32 * j, 16, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::mbar_arrive(empty + s);
     }
-  }
 
+    // acc[4j + e]: column nc + e / 2, row m0 + 8j + 2t + e % 2
+    const int n = n0 + nc;
+    if (S == 1) {
+      if (n < N) {
+        const float s0 = scale[n], s1 = scale[n + 1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + i * 16 + g + (e >> 1) * 8;
-        const int n = n0 + wn + j * 8 + t * 2 + (e & 1);
-        if (m < M && n < N) store_out(out + (long long)m * N + n, acc[i][j][e] * scale[n]);
+        for (int j = 0; j < BM / 8; ++j) {
+          const int m = m0 + 8 * j + 2 * t;
+          if (m < M) store_pair(out + (long long)m * N + n, acc[4 * j] * s0, acc[4 * j + 2] * s1);
+          if (m + 1 < M)
+            store_pair(out + (long long)(m + 1) * N + n, acc[4 * j + 1] * s0, acc[4 * j + 3] * s1);
+        }
       }
+      return;
+    }
+    // this split's partial tile, then the tile's arrival count (consumers
+    // only: named barrier 1 over the 256 consumer threads)
+    if (n < N) {
+      float* wp = ws + (long long)split * M * N + n;
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int m = m0 + 8 * j + 2 * t;
+        if (m < M) store_pair(wp + (long long)m * N, acc[4 * j], acc[4 * j + 2]);
+        if (m + 1 < M) store_pair(wp + (long long)(m + 1) * N, acc[4 * j + 1], acc[4 * j + 3]);
+      }
+    }
+    __threadfence();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kTcConsumers) : "memory");
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    if (tid == 0) *last_s = atomicAdd(counters + tile, 1) == S - 1;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kTcConsumers) : "memory");
+    if (!*last_s) return;
+    __threadfence();
+    // the last block adds the splits' partials in split order (from L2: other
+    // SMs wrote them), applies the scale and resets the counter
+    if (n < N) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i] = 0.f;
+      for (int sp = 0; sp < S; ++sp) {
+        const float* wp = ws + (long long)sp * M * N + n;
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          const int m = m0 + 8 * j + 2 * t;
+          if (m < M) {
+            const float2 v = __ldcg(reinterpret_cast<const float2*>(wp + (long long)m * N));
+            acc[4 * j] += v.x;
+            acc[4 * j + 2] += v.y;
+          }
+          if (m + 1 < M) {
+            const float2 v = __ldcg(reinterpret_cast<const float2*>(wp + (long long)(m + 1) * N));
+            acc[4 * j + 1] += v.x;
+            acc[4 * j + 3] += v.y;
+          }
+        }
+      }
+      const float s0 = scale[n], s1 = scale[n + 1];
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int m = m0 + 8 * j + 2 * t;
+        if (m < M) store_pair(out + (long long)m * N + n, acc[4 * j] * s0, acc[4 * j + 2] * s1);
+        if (m + 1 < M)
+          store_pair(out + (long long)(m + 1) * N + n, acc[4 * j + 1] * s0, acc[4 * j + 3] * s1);
+      }
+    }
+    if (tid == 0) counters[tile] = 0;
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's
+// entry-point query so that the library needs no -lcuda; null if missing.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 2D row-major tensor (rows x cols elements of `bytes` each, rows
+// `row_bytes` apart) as TMA boxes of box_rows x box_cols with the 128-byte
+// swizzle; out-of-bounds elements read as zeros.
+bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, uint64_t rows,
+               uint64_t cols, uint64_t row_bytes, uint32_t box_rows, uint32_t box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, typename OutT>
+cudaError_t launch_wgmma(const void* x, const void* q, const void* scale, void* out, void* ws,
+                         void* counters, int M, int N, int K, int splits, cudaStream_t s) {
+  CUtensorMap x_map, q_map;
+  if (!encode_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, (uint64_t)K * 2, BM, kTcBK) ||
+      !encode_2d(&q_map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N, N, kTcBK, kTcBN))
+    return cudaErrorInvalidValue;
+  static const cudaError_t smem_set =
+      cudaFuncSetAttribute(int8_wgmma_kernel<BM, OutT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_smem_bytes<BM>());
+  if (smem_set != cudaSuccess) return smem_set;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + BM - 1) / BM, splits);
+  int8_wgmma_kernel<BM, OutT><<<grid, kTcThreads, tc_smem_bytes<BM>(), s>>>(
+      x_map, q_map, static_cast<const float*>(scale), static_cast<OutT*>(out),
+      static_cast<float*>(ws), static_cast<int*>(counters), M, N, (K + kTcBK - 1) / kTcBK);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -489,8 +625,8 @@ int8_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
 
 template <typename OutT>
 cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* out, void* ws,
-                        void* counters, int M, int N, int K, int rows_per_split,
-                        cudaStream_t s) {
+                        void* counters, int M, int N, int K, int rows_per_split, int splits,
+                        int tile_m, cudaStream_t s) {
   if (M <= kMaxM) {
     if (rows_per_split <= 0 || rows_per_split % 16 || rows_per_split > kMaxRowsPerSplit)
       return cudaErrorInvalidValue;
@@ -509,11 +645,15 @@ cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* o
         N % 16 == 0);
     return cudaGetLastError();
   }
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  int8_mma_kernel<OutT><<<grid, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<OutT*>(out), M, N, K, N % 16 == 0);
-  return cudaGetLastError();
+  if (N % 16 != 0 || splits < 1 || splits > kTcMaxSplits || (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  switch (tile_m) {
+    case 64: return launch_wgmma<64, OutT>(x, q, scale, out, ws, counters, M, N, K, splits, s);
+    case 128: return launch_wgmma<128, OutT>(x, q, scale, out, ws, counters, M, N, K, splits, s);
+    case 192: return launch_wgmma<192, OutT>(x, q, scale, out, ws, counters, M, N, K, splits, s);
+    case 256: return launch_wgmma<256, OutT>(x, q, scale, out, ws, counters, M, N, K, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -644,15 +784,20 @@ int8_dx_kernel(const float* __restrict__ dy, const int8_t* __restrict__ q,
 
 // Plain C entry point of K4. x (M, K) contiguous in x's dtype (x_bf16: bf16,
 // else fp32), 16-byte aligned; out (M, N) contiguous, fp32 when out_f32 is 1
-// (required for fp32 x), else bf16; q (K, N) int8 contiguous; scale (N,)
-// fp32; K % 16 == 0. The bf16 decode kernel (M <= 8) splits K into
-// gridDim.y = ceil(K / rows_per_split) blocks per 256-column tile and needs
-// ws (splits, M, N) fp32 and counters (one int per column tile, zero on
-// entry and left zero) when there is more than one split. Returns the CUDA
-// error of the launch (0 on success).
+// (required for fp32 x), else bf16; q (K, N) int8 contiguous, 16-byte
+// aligned; scale (N,) fp32; K % 16 == 0. The bf16 decode kernel (M <= 8)
+// splits K into gridDim.y = ceil(K / rows_per_split) blocks per 256-column
+// tile and needs ws (splits, M, N) fp32 and counters (one int per column
+// tile, zero on entry and left zero) when there is more than one split. The
+// bf16 wgmma kernel (M > 8) needs N % 16 == 0 (TMA's 16-byte row stride),
+// takes tile_m (64, 128, 192 or 256 rows of x a block) and splits (1-64; K
+// tiles of 64 shared out evenly), and with splits > 1 needs ws (splits, M,
+// N) fp32 and counters (one int per 128 x tile_m output tile, zero on entry
+// and left zero). Returns the CUDA error of the launch (0 on success).
 extern "C" int int8_matmul_launch(const void* x, const void* q, const void* scale, void* out,
                                   void* ws, void* counters, int M, int N, int K,
-                                  int rows_per_split, int x_bf16, int out_f32, void* stream) {
+                                  int rows_per_split, int splits, int tile_m, int x_bf16,
+                                  int out_f32, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 16 != 0 || M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (!x_bf16) {
@@ -664,9 +809,10 @@ extern "C" int int8_matmul_launch(const void* x, const void* q, const void* scal
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(
-      out_f32 ? launch_bf16<float>(x, q, scale, out, ws, counters, M, N, K, rows_per_split, s)
+      out_f32 ? launch_bf16<float>(x, q, scale, out, ws, counters, M, N, K, rows_per_split,
+                                   splits, tile_m, s)
               : launch_bf16<__nv_bfloat16>(x, q, scale, out, ws, counters, M, N, K,
-                                           rows_per_split, s));
+                                           rows_per_split, splits, tile_m, s));
 }
 
 // Plain C entry point of K9. dy (M, N) fp32 contiguous, 16-byte aligned; q

@@ -17,18 +17,20 @@
 // accumulation, q scaled in fp32 before the dot, online softmax from
 // m = -1e30, denominator floored at 1e-30, output in q's dtype. Rows at or
 // past len_b, and every row of a dead row (len_b = 0), write exact zeros.
-// In the int8-KV mode (KVT = int8_t) the pool holds int8 codes with one
-// fp32 scale per (page, row, KV head) in ks/vs, at the pool row's element
-// offset / D; each cached key and value is dequantized in fp32 registers
-// (code * scale) as it loads, as the Pallas body does
-// (flash_attention.py:459-477). The chunk's own K/V stay in q's dtype.
+// In the int8-KV mode the pool holds int8 codes with one fp32 scale per
+// (page, row, KV head) in ks/vs, at the pool row's element offset / D; the
+// SIMT kernel dequantizes each cached key and value in fp32 registers (code
+// * scale) as it loads, as the Pallas body does (flash_attention.py:459-477).
+// The chunk's own K/V stay in q's dtype.
+//
+// Two kernels, chosen by the wrapper from the dtypes (no fallback either
+// way): bf16 q over a bf16 or int8 pool runs paged_prefill_tc_kernel on the
+// tensor cores; fp32 q or an fp32 pool runs paged_prefill_kernel, fp32
+// SIMT dots, since TF32 would change the fp32 numerics.
 //
 // What bounds it on the card: operations. Each (query, key) pair costs
-// 4 * D FLOPs per head; a block of T tokens x rep heads reuses every K/V
-// row it loads T * rep times, so at starcoder2-7b's shapes (rep = 9,
-// T = 8, D = 128) it does about 72 FLOP per byte of fp32 pool read, and a
-// chunk's quadratic term adds more: the least time is the pairs' FLOPs over
-// the fp32 peak. What the design does about it:
+// 4 * D FLOPs per head, and every K/V row a block loads serves all of its
+// query rows. The SIMT kernel:
 //   * a grid over (row b, KV head, tile of T chunk tokens): the T * rep = 72
 //     query rows of a tile share each K/V row the block loads, and
 //     B * Hkv * ceil(C / T) blocks fill the card (1,024 at B = 8, C = 256);
@@ -41,14 +43,42 @@
 //     pools and its padding of C are not carried over;
 //   * query rows flatten (token, rep) row-major, so a tile holds whole
 //     tokens and row r decodes as token r / rep, head r % rep.
-// Known weak point: the dots run on fp32 CUDA cores (the pool is fp32 on
-// the main path and the reference is fp32), with one block per SM for its
-// 120 KB of shared memory; tensor cores (wgmma, TMA) are later work.
+// The tensor-core kernel (D = 128):
+//   * a block is 128 consecutive chunk tokens of one q head, two warpgroups
+//     of 64 rows. Rows of one head, not the (token, head) packing above:
+//     each row's causal and window limits are then its token, with no
+//     division by rep, every block's output rows are whole 256-byte rows
+//     of one head, and the 9-fold re-read of a KV head's tiles by the 9
+//     heads of its group comes from the 50 MB L2 (the two layouts walk
+//     the same number of (64-row, 64-key) tile pairs);
+//   * S = Q K^T by wgmma m64n64k16 from shared memory (8 steps over D),
+//     O += P V by wgmma m64n128k16 with P in registers as the A operand and
+//     V N-major from shared memory; tiles are 64-row halves of 64 columns
+//     with the 128-byte swizzle wgmma reads;
+//   * K/V tiles of 64 keys (the cached prefix, then the chunk) come in
+//     through a two-stage cp.async ring, 16 bytes a copy with zero fill
+//     past the tile's last key, rows found through the page table (its
+//     entries cached in shared memory); bf16 rows land in the swizzled
+//     tiles, int8 rows as they lie, and each thread widens the chunks it
+//     copied, exactly, into the swizzled tiles;
+//   * int8 numerics: the codes are exact in bf16, so they enter the MMAs
+//     unscaled; the softmax scale and the per-key K scale multiply the fp32
+//     score, and the per-key V scale is folded into P before P is rounded
+//     to bf16 (the
+//     one rounding the fp32 reference does not make: 2^-9 relative a
+//     term); chunk keys and bf16 pools use a scale of 1;
+//   * the online softmax runs in log2 units with exp2, m from -1e30, the
+//     denominator floored at 1e-30, rows at or past the length exact
+//     zeros; O / l goes out in bf16 through shared memory in whole rows.
+// Known weak points (ROADMAP item 18): both warpgroups wait at three
+// block barriers a tile, so the softmax does not overlap the MMAs, and the
+// fp32-pool mode stays on fp32 CUDA cores.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library
 // with a plain C entry point, loaded with ctypes.
 
 #include "decode_attention.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -300,16 +330,347 @@ cudaError_t launch_prefill(const void* q, const void* k_new, const void* v_new,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tensor cores: bf16 q over a bf16 or int8 pool, D = 128
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;                     // query rows a block: two warpgroups
+constexpr int kTcKeys = 64;                      // keys a tile
+constexpr int kTcD = 128;
+constexpr int kTcThreads = 256;
+constexpr int kTcHalf = 64 * 128;                // one 64-column half of a 64-row bf16 tile
+constexpr int kTcQBytes = kTcRows * kTcD * 2;    // Q: two warpgroups x two halves
+constexpr int kTcTile = kTcKeys * kTcD * 2;      // a K or V tile, bf16, two halves
+constexpr int kTcRaw = kTcKeys * kTcD;           // a K or V tile of int8 codes as it landed
+constexpr int kTcStage = 50 * 1024;              // K, V, raw K, raw V, scales; 1024-aligned
+constexpr float kLog2e = 1.4426950408889634f;
+
+inline size_t tc_smem_bytes(int n_blocks) {
+  return 1024 + kTcQBytes + 2 * (size_t)kTcStage + 4 * (size_t)n_blocks;
+}
+
+// Byte offset of the 16-byte chunk holding columns 8c..8c+7 (c in 0-15) of
+// row r of a 64-row bf16 tile of 128 columns: two 64-column halves of 8 KB,
+// each with the 128-byte swizzle, the layout wgmma reads both K-major (Q, K)
+// and N-major (V).
+__device__ __forceinline__ uint32_t tc_chunk(int r, int c) {
+  return (uint32_t)((c >> 3) * kTcHalf) + hopper::sw128(r, c & 7);
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kTcThreads, 1)
+paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k_new,
+                        const __nv_bfloat16* __restrict__ v_new, const void* __restrict__ k_pool,
+                        const void* __restrict__ v_pool, const int* __restrict__ page_table,
+                        const int* __restrict__ starts, const int* __restrict__ lens,
+                        __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int n_blocks,
+                        int page_size, long long stride_page, long long stride_row, int window,
+                        float scale, const float* __restrict__ ks,
+                        const float* __restrict__ vs) {
+  extern __shared__ unsigned char tc_smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(tc_smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* q_s = smem;                                  // also the output staging
+  unsigned char* stage0 = smem + kTcQBytes;
+  int* pt_s = reinterpret_cast<int*>(stage0 + 2 * kTcStage);  // the prefix's page entries
+  // a stage: K tile, V tile (bf16, swizzled), raw K, raw V (int8), K and V scales
+  auto k_tile = [&](int st) { return stage0 + st * kTcStage; };
+  auto v_tile = [&](int st) { return stage0 + st * kTcStage + kTcTile; };
+  auto raw_k = [&](int st) { return stage0 + st * kTcStage + 2 * kTcTile; };
+  auto raw_v = [&](int st) { return stage0 + st * kTcStage + 2 * kTcTile + kTcRaw; };
+  auto scales = [&](int st) {
+    return reinterpret_cast<float*>(stage0 + st * kTcStage + 2 * kTcTile + 2 * kTcRaw);
+  };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t0 = blockIdx.x * kTcRows, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int start = min(max(starts[b], 0), n_blocks * page_size);
+  const int ln = min(lens[b], C);
+  const long long q_row = (long long)H * kTcD;                // q / out token stride
+  const __nv_bfloat16* q_b = q + ((long long)b * C * H + h) * kTcD;
+  __nv_bfloat16* out_b = out + ((long long)b * C * H + h) * kTcD;
+  const int r_end = min(kTcRows, C - t0);                     // rows inside the chunk
+  if (t0 >= ln) {                                             // no live token: exact zeros
+    for (int i = tid; i < r_end * (kTcD / 8); i += kTcThreads)
+      *reinterpret_cast<uint4*>(out_b + (t0 + i / 16) * q_row + (i % 16) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+
+  // key walk: the cached prefix [kp_lo, start) in 64-key tiles, then the
+  // chunk [ck_lo, kp_end) in 64-key tiles up to the block's last live token
+  const int kp_lo = window > 0 ? max(0, start + t0 - window + 1) : 0;
+  const int kp_end = start + min(ln, t0 + kTcRows);
+  const int n_pre = kp_lo < start ? (start - kp_lo + kTcKeys - 1) / kTcKeys : 0;
+  const int ck_lo = max(kp_lo, start);
+  const int n_tiles = n_pre + (kp_end - ck_lo + kTcKeys - 1) / kTcKeys;
+  const int pg_lo = kp_lo / page_size;
+  for (int i = tid; i < (start + page_size - 1) / page_size - pg_lo; i += kTcThreads)
+    pt_s[i] = page_table[(long long)b * n_blocks + pg_lo + i];
+  __syncthreads();
+
+  const long long chunk_row = (long long)Hkv * kTcD;
+  const __nv_bfloat16* kc = k_new + (long long)b * C * chunk_row + (long long)kvh * kTcD;
+  const __nv_bfloat16* vc = v_new + (long long)b * C * chunk_row + (long long)kvh * kTcD;
+  auto tile_span = [&](int i, int& kt0, int& kt_end) {
+    if (i < n_pre) {
+      kt0 = kp_lo + i * kTcKeys;
+      kt_end = min(kt0 + kTcKeys, start);
+    } else {
+      kt0 = ck_lo + (i - n_pre) * kTcKeys;
+      kt_end = min(kt0 + kTcKeys, kp_end);
+    }
+  };
+  // element offset of cached key kp's row (its KV head's first element);
+  // a shift for the usual power-of-two page sizes
+  const int ps_shift = (page_size & (page_size - 1)) == 0 ? __ffs(page_size) - 1 : -1;
+  auto pool_row = [&](int kp) {
+    const int pg = ps_shift >= 0 ? kp >> ps_shift : kp / page_size;
+    return (long long)pt_s[pg - pg_lo] * stride_page +
+           (long long)(kp - pg * page_size) * stride_row;
+  };
+  // tile i's rows into stage st with cp.async, zeros past its last key:
+  // bf16 rows straight into the swizzled tiles, int8 rows as they lie
+  // (each thread widens the chunks it copied, after they land) with their
+  // scales
+  auto fetch = [&](int i, int st) {
+    int kt0, kt_end;
+    tile_span(i, kt0, kt_end);
+    if (kInt8 && i < n_pre) {
+      const int8_t* kp8 = static_cast<const int8_t*>(k_pool) + kvh * kTcD;
+      const int8_t* vp8 = static_cast<const int8_t*>(v_pool) + kvh * kTcD;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int idx = tid + u * kTcThreads, r = idx >> 3, c = idx & 7;
+        const int kp = kt0 + r;
+        const bool ok = kp < kt_end;
+        const long long row = ok ? pool_row(kp) : 0;
+        hopper::cp_async16_zfill(hopper::smem_addr(raw_k(st) + r * kTcD + c * 16),
+                                 kp8 + row + c * 16, ok);
+        hopper::cp_async16_zfill(hopper::smem_addr(raw_v(st) + r * kTcD + c * 16),
+                                 vp8 + row + c * 16, ok);
+      }
+      if (tid < 2 * kTcKeys) {
+        const int r = tid & (kTcKeys - 1), kp = kt0 + r;
+        const bool ok = kp < kt_end;
+        const long long s_off = ok ? pool_row(kp) / kTcD + kvh : 0;
+        hopper::cp_async4_zfill(hopper::smem_addr(scales(st) + tid),
+                                (tid < kTcKeys ? ks : vs) + s_off, ok);
+      }
+      return;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = tid + u * kTcThreads, r = idx >> 4, c = idx & 15;
+      const int kp = kt0 + r;
+      const bool ok = kp < kt_end;
+      const __nv_bfloat16 *ksrc = kc, *vsrc = vc;
+      if (ok) {
+        if (i < n_pre) {
+          const long long row = pool_row(kp) + kvh * kTcD;
+          ksrc = static_cast<const __nv_bfloat16*>(k_pool) + row;
+          vsrc = static_cast<const __nv_bfloat16*>(v_pool) + row;
+        } else {
+          ksrc = kc + (long long)(kp - start) * chunk_row;
+          vsrc = vc + (long long)(kp - start) * chunk_row;
+        }
+      }
+      hopper::cp_async16_zfill(hopper::smem_addr(k_tile(st) + tc_chunk(r, c)), ksrc + c * 8, ok);
+      hopper::cp_async16_zfill(hopper::smem_addr(v_tile(st) + tc_chunk(r, c)), vsrc + c * 8, ok);
+    }
+  };
+
+  // Q: 128 rows of head h, zeros at and past the row's length
+#pragma unroll
+  for (int u = 0; u < kTcRows * 16 / kTcThreads; ++u) {
+    const int idx = tid + u * kTcThreads, r = idx >> 4, c = idx & 15;
+    const bool ok = t0 + r < ln;
+    hopper::cp_async16_zfill(
+        hopper::smem_addr(q_s + (r >> 6) * (2 * kTcHalf) + tc_chunk(r & 63, c)),
+        q_b + (ok ? (t0 + r) * q_row : 0) + c * 8, ok);
+  }
+  fetch(0, 0);
+  hopper::cp_async_commit();
+
+  // this thread's rows of the warpgroup's 64 (g and g + 8 of its warp)
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int row_a = wg * 64 + (warp & 3) * 16 + g;             // block row; row_a + 8 too
+  int q_abs[2];
+  bool live[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    q_abs[e] = start + t0 + row_a + 8 * e;
+    live[e] = t0 + row_a + 8 * e < ln;
+  }
+  const float c_log2 = scale * kLog2e;                         // scores in log2 units
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float s_acc[32], o_acc[64];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o_acc[i] = 0.f;
+  const unsigned char* q_wg = q_s + wg * (2 * kTcHalf);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_tiles) fetch(i + 1, st ^ 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();                                // tile i (and Q) landed
+    const bool widen = kInt8 && i < n_pre;
+    if (widen) {
+      // this thread's own 16-code chunks (row r, codes 16c..16c+15 of K and
+      // of V, as fetch copied them) to bf16, exactly, into the swizzled
+      // tiles: two 8-value chunks each
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = tid + (u & 1) * kTcThreads, r = idx >> 3, c = idx & 7;
+        const uint4 w = *reinterpret_cast<const uint4*>((u < 2 ? raw_k(st) : raw_v(st)) +
+                                                        r * kTcD + c * 16);
+        unsigned char* dst = u < 2 ? k_tile(st) : v_tile(st);
+        const uint2 a = hopper::widen4(w.x), b = hopper::widen4(w.y);
+        const uint2 e = hopper::widen4(w.z), f = hopper::widen4(w.w);
+        *reinterpret_cast<uint4*>(dst + tc_chunk(r, 2 * c)) = make_uint4(a.x, a.y, b.x, b.y);
+        *reinterpret_cast<uint4*>(dst + tc_chunk(r, 2 * c + 1)) = make_uint4(e.x, e.y, f.x, f.y);
+      }
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    int kt0, kt_end;
+    tile_span(i, kt0, kt_end);
+    // S = Q K^T over D in 16-deep steps (two 64-column halves)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kTcD / 16; ++j) {
+      const uint32_t off = (j >> 2) * kTcHalf + (j & 3) * 32;
+      hopper::wgmma_ss_n64(s_acc, hopper::sw128_desc(q_wg + off, 16, 1024),
+                           hopper::sw128_desc(k_tile(st) + off, 16, 1024), j > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s_acc);
+
+    // online softmax in log2 units; s_acc[4j + e]: row row_a + 8 (e / 2),
+    // key kt0 + 8j + 2t + e % 2. int8 tiles scale the score by the key's
+    // scale and P by the value's; bf16 tiles by 1
+    const float* sc = scales(st);
+    float p[32];
+    float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int e = x & 3, key = 8 * (x >> 2) + 2 * t + (e & 1), kp = kt0 + key;
+      const int rr = e >> 1;
+      const bool ok = live[rr] && kp < kt_end && kp <= q_abs[rr] &&
+                      (window <= 0 || q_abs[rr] - kp < window);
+      const float s = s_acc[x] * (widen ? sc[key] * c_log2 : c_log2);
+      p[x] = ok ? s : kNegInf;
+      m_new[rr] = fmaxf(m_new[rr], p[x]);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      m_new[rr] = fmaxf(m_new[rr], __shfl_xor_sync(0xffffffffu, m_new[rr], 1));
+      m_new[rr] = fmaxf(m_new[rr], __shfl_xor_sync(0xffffffffu, m_new[rr], 2));
+      alpha[rr] = exp2f(m_run[rr] - m_new[rr]);
+      m_run[rr] = m_new[rr];
+    }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int x = 0; x < 32; x += 2) {
+      const int rr = (x & 3) >> 1, key = 8 * (x >> 2) + 2 * t;
+      float p0 = p[x] > kNegInf ? exp2f(p[x] - m_new[rr]) : 0.f;
+      float p1 = p[x + 1] > kNegInf ? exp2f(p[x + 1] - m_new[rr]) : 0.f;
+      sum[rr] += p0 + p1;
+      if (widen) {
+        p0 *= sc[kTcKeys + key];
+        p1 *= sc[kTcKeys + key + 1];
+      }
+      const __nv_bfloat162 pp = __floats2bfloat162_rn(p0, p1);
+      // key group jj = x / 4 of 8: k step jj / 2, register (jj % 2) * 2 + rr
+      a[x >> 3][((x >> 2) & 1) * 2 + rr] = *reinterpret_cast<const uint32_t*>(&pp);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
+      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
+      l_run[rr] = l_run[rr] * alpha[rr] + sum[rr];
+    }
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o_acc[x] *= alpha[(x & 3) >> 1];
+
+    // O += P V over the tile's keys in 16-deep steps (V N-major: its
+    // 64-column halves 8 KB apart, 8-key groups 1 KB apart)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+      hopper::wgmma_rs_n128<1>(o_acc, a[kk],
+                               hopper::sw128_desc(v_tile(st) + kk * 16 * 128, kTcHalf, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o_acc);
+    __syncthreads();                                           // stage st is free again
+  }
+
+  // O / l in bf16 through the warpgroup's own Q tile (16-byte chunks
+  // swizzled by row), then whole rows to global memory; rows past the
+  // length have l = 0 and O = 0: exact zeros
+  unsigned char* o_s = q_s + wg * (2 * kTcHalf);
+  const float inv[2] = {1.f / fmaxf(l_run[0], 1e-30f), 1.f / fmaxf(l_run[1], 1e-30f)};
+  const int r_wg = (warp & 3) * 16 + g;
+#pragma unroll
+  for (int x = 0; x < 64; x += 2) {
+    const int rr = (x & 3) >> 1, r = r_wg + 8 * rr, col = 8 * (x >> 2) + 2 * t;
+    const __nv_bfloat162 v = __floats2bfloat162_rn(o_acc[x] * inv[rr], o_acc[x + 1] * inv[rr]);
+    *reinterpret_cast<__nv_bfloat162*>(o_s + r * 256 + (((col >> 3) ^ (r & 7)) << 4) +
+                                       (col & 7) * 2) = v;
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  const int wt = tid & 127;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int idx = wt + u * 128, r = idx >> 4, c = idx & 15, row = wg * 64 + r;
+    if (row < r_end)
+      *reinterpret_cast<uint4*>(out_b + (t0 + row) * q_row + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + r * 256 + ((c ^ (r & 7)) << 4));
+  }
+}
+
+template <bool kInt8>
+cudaError_t launch_prefill_tc(const void* q, const void* k_new, const void* v_new,
+                              const void* k_pool, const void* v_pool, const void* page_table,
+                              const void* starts, const void* lens, void* out, int B, int C,
+                              int H, int Hkv, int n_blocks, int page_size, long long stride_page,
+                              long long stride_row, int window, float scale, const float* ks,
+                              const float* vs, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(n_blocks);
+  auto kernel = paged_prefill_tc_kernel<kInt8>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + kTcRows - 1) / kTcRows, H, B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), k_pool, v_pool,
+      static_cast<const int*>(page_table), static_cast<const int*>(starts),
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), C, H, Hkv, n_blocks,
+      page_size, stride_page, stride_row, window, scale, ks, vs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point. q (B, C, H, D), k_new/v_new (B, C, Hkv, D) in q's
-// dtype and out (B, C, H, D), all contiguous; k/v pools (P, page_size, Hkv,
-// D) with unit stride on D and stride D on Hkv, their page and row strides
-// given in elements; page_table (B, n_blocks) int32 contiguous; starts and
-// lens (B,) int32; kv_type a KvType. With int8 pools, ks/vs (P, page_size,
-// Hkv) fp32 have the pools' strides / D (else they are unused). H / Hkv <=
-// 72 and D in {64, 128}. Returns the CUDA error of the launch (0 on
-// success).
+// Plain C entry point of the SIMT kernel, which takes fp32 q over any pool
+// and bf16 q over an fp32 pool only (bf16 q over a bf16 or int8 pool is
+// the tensor-core kernel's, and is refused here). q (B, C, H, D),
+// k_new/v_new (B, C, Hkv, D) in q's dtype and out (B, C, H, D), all
+// contiguous; k/v pools (P, page_size, Hkv, D) with unit stride on D and
+// stride D on Hkv, their page and row strides given in elements;
+// page_table (B, n_blocks) int32 contiguous; starts and lens (B,) int32;
+// kv_type a KvType. With int8 pools, ks/vs (P, page_size, Hkv) fp32 have
+// the pools' strides / D (else they are unused). H / Hkv <= 72 and D in
+// {64, 128}. Returns the CUDA error of the launch (0 on success).
 extern "C" int paged_prefill_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pool,
     const void* v_pool, const void* page_table, const void* starts, const void* lens,
@@ -332,12 +693,38 @@ extern "C" int paged_prefill_attention_launch(
     default: return static_cast<int>(cudaErrorInvalidValue);                              \
   }
   if (q_bf16) {
-    if (kv_type == kKvBf16) { PREFILL_CASE(__nv_bfloat16, __nv_bfloat16) }
-    if (kv_type == kKvInt8) { PREFILL_CASE(__nv_bfloat16, int8_t) }
+    if (kv_type != kKvFloat) return static_cast<int>(cudaErrorInvalidValue);
     PREFILL_CASE(__nv_bfloat16, float)
   }
   if (kv_type == kKvBf16) { PREFILL_CASE(float, __nv_bfloat16) }
   if (kv_type == kKvInt8) { PREFILL_CASE(float, int8_t) }
   PREFILL_CASE(float, float)
 #undef PREFILL_CASE
+}
+
+
+// Plain C entry point of the tensor-core kernel: bf16 q, k_new, v_new and
+// out as for paged_prefill_attention_launch, a bf16 or int8 pool (kv_type),
+// D = 128 only, any H / Hkv; the table's entries of one row must fit in
+// shared memory beside the tiles (n_blocks <= 16384). Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int paged_prefill_attention_tc_launch(
+    const void* q, const void* k_new, const void* v_new, const void* k_pool,
+    const void* v_pool, const void* page_table, const void* starts, const void* lens,
+    void* out, int B, int C, int H, int Hkv, int D, int n_blocks, int page_size,
+    long long pool_stride_page, long long pool_stride_row, int window, float scale,
+    int kv_type, const void* ks, const void* vs, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != kTcD || n_blocks > 16384 || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_type == kKvBf16)
+    return static_cast<int>(launch_prefill_tc<false>(
+        q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv, n_blocks,
+        page_size, pool_stride_page, pool_stride_row, window, scale, nullptr, nullptr, s));
+  if (kv_type == kKvInt8)
+    return static_cast<int>(launch_prefill_tc<true>(
+        q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv, n_blocks,
+        page_size, pool_stride_page, pool_stride_row, window, scale,
+        static_cast<const float*>(ks), static_cast<const float*>(vs), s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

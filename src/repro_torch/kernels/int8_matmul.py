@@ -8,11 +8,18 @@ allocates the output (and, for K4's split-K decode kernel, its fp32
 workspace) with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. It pads nothing: the kernels
 mask ragged edges. ``int8_matmul.launches`` and ``int8_matmul_dx.launches``
-count launches.
+count launches, and ``int8_matmul.launches_by_kernel`` K4's launches of
+each kernel, by the name ``regime`` gives it.
 
-The decode kernel's split-K tiles meet through one counter per column
-tile, zero between launches (the last block of a tile resets it). The
-counters live in one buffer per (device, stream), so launches on one
+Which kernel runs (``regime``): bf16 x with M <= 8 the split-K decode
+kernel (tensor cores, mma.sync), bf16 x with M > 8 the wgmma kernel with a
+TMA ring (tensor cores; N % 16 == 0, else the wrapper raises), fp32 x the
+SIMT kernel (fp32 FMAs, any M). ``wgmma_plan`` picks the wgmma kernel's
+rows of x a block and its K splits.
+
+The split-K tiles of both tensor-core kernels meet through one counter per
+output tile, zero between launches (the last block of a tile resets it).
+The counters live in one buffer per (device, stream), so launches on one
 stream never share counters with launches that may run beside them.
 """
 
@@ -35,6 +42,15 @@ _GEMV_BN = 256
 _STEP = 16
 _MAX_ROWS_PER_SPLIT = 1536
 _MAX_SPLITS = 32
+# the wgmma kernel's limits (kTcBN, kTcBK, kTcMaxSplits): 128 output
+# columns and 64 k rows a tile, at most 64 K splits; and the planner's
+# rules: a K split at least 8 k tiles long, and a 192-row tile costing
+# 1.12x a 256-row one's time a row (both tuned on an H100: see wgmma_plan)
+TC_BN = 128
+TC_BK = 64
+TC_MAX_SPLITS = 64
+TC_MIN_SPLIT_TILES = 8
+TC_ROW_COST = {192: 1.12, 256: 1.0}
 
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -45,7 +61,7 @@ def _launcher(name: str = "int8_matmul_launch"):
     pointer and the stream as ``c_void_p``)."""
     fn = getattr(build.load("int8_matmul"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ({"int8_matmul_launch": [p] * 6 + [i] * 6,
+    fn.argtypes = ({"int8_matmul_launch": [p] * 6 + [i] * 8,
                     "int8_matmul_dx_launch": [p] * 4 + [i] * 4}[name] + [p])
     fn.restype = ctypes.c_int
     return fn
@@ -67,6 +83,51 @@ def split_rows(k: int, n: int, sms: int) -> int:
     return min(rows, _MAX_ROWS_PER_SPLIT)
 
 
+def regime(m: int, x_dtype: torch.dtype) -> str:
+    """Which kernel ``int8_matmul`` launches for M rows of ``x_dtype``:
+    "decode" (bf16, M <= 8), "wgmma" (bf16, M > 8) or "simt" (fp32)."""
+    if x_dtype == torch.float32:
+        return "simt"
+    return "decode" if m <= GEMV_MAX_M else "wgmma"
+
+
+def wgmma_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(rows of x a block, K splits) of the wgmma kernel for an (m, k) x
+    and a (k, n) weight on ``sms`` SMs (one block an SM at a time). A block
+    takes 128 output columns and 64, 128 or 192 rows of x, the fewest that
+    hold M (wgmma's N: rows past M are zero work that still costs); past
+    192 rows, 192 or 256, whichever takes the fewer rounds of blocks times
+    rows a block (a 192-row tile at 1.12x the cost a row: M = 2048 at N =
+    4608 is 396 tiles of 192, three full rounds, against 288 of 256 in
+    three rounds, the last short). When the tiles number fewer than the
+    SMs, K is split so that the grid covers them, each split at least 8
+    k tiles (512 rows) long and at most 64 splits: the last block of a tile
+    adds every split's partial tile, so short splits cost more in that sum
+    than they save. Raises on shapes the kernel's TMA
+    descriptors cannot take: N % 16 != 0 (the weight's rows must lie 16
+    bytes apart) or K % 16 != 0."""
+    if n % 16 or k % 16:
+        raise ValueError(f"int8_matmul kernel (bf16 x, M > {GEMV_MAX_M}) "
+                         f"needs N % 16 == 0 and K % 16 == 0 for its TMA "
+                         f"descriptors; got N = {n}, K = {k}")
+    if m <= GEMV_MAX_M:
+        raise ValueError(f"the wgmma kernel takes M > {GEMV_MAX_M}; got {m}")
+    n_tiles = -(-n // TC_BN)
+    if m <= 192:
+        tile_m = 64 if m <= 64 else 128 if m <= 128 else 192
+    else:
+        def cost(rows):
+            return (-(-n_tiles * -(-m // rows) // sms) * rows
+                    * TC_ROW_COST[rows])
+        tile_m = min((256, 192), key=cost)
+    tiles = n_tiles * -(-m // tile_m)
+    k_tiles = -(-k // TC_BK)
+    if tiles >= sms:
+        return tile_m, 1
+    return tile_m, max(1, min(-(-sms // tiles), k_tiles // TC_MIN_SPLIT_TILES,
+                              TC_MAX_SPLITS))
+
+
 def _counter_buffer(device: torch.device, stream: int,
                     tiles: int) -> torch.Tensor:
     key = (device.index, stream)
@@ -80,9 +141,10 @@ def _counter_buffer(device: torch.device, stream: int,
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: (M, K) fp32 or bf16 on a CUDA device, contiguous; q: (K, N) int8
-    contiguous; scale: (N,) fp32. K % 16 == 0, x and q 16-byte aligned.
-    Returns (M, N) in ``out_dtype``: x's dtype (the default) or fp32.
-    ``(x @ q) * scale`` with fp32 accumulation."""
+    contiguous; scale: (N,) fp32. K % 16 == 0, x and q 16-byte aligned; for
+    bf16 x with M > 8 also N % 16 == 0. Returns (M, N) in ``out_dtype``:
+    x's dtype (the default) or fp32. ``(x @ q) * scale`` with fp32
+    accumulation."""
     name = "int8_matmul"
     check_cuda(name, x, q, scale)
     out_dtype = out_dtype or x.dtype
@@ -109,31 +171,37 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    bf16 = x.dtype == torch.bfloat16
+    kind = regime(m, x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rows = 0
-    ws = counters = None
-    if bf16 and m <= GEMV_MAX_M:
+    rows = tile_m = 0
+    splits, tiles = 1, 0
+    if kind == "decode":
         rows = split_rows(k, n, _sm_count(x.device.index))
-        splits = -(-k // rows)
-        if splits > 1:
-            ws = torch.empty((splits, m, n), dtype=torch.float32,
-                             device=x.device)
-            counters = _counter_buffer(x.device, stream, -(-n // _GEMV_BN))
+        splits, tiles = -(-k // rows), -(-n // _GEMV_BN)
+    elif kind == "wgmma":
+        tile_m, splits = wgmma_plan(m, n, k, _sm_count(x.device.index))
+        tiles = -(-n // TC_BN) * -(-m // tile_m)
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        counters = _counter_buffer(x.device, stream, tiles)
     launch = _launcher()
     with torch.cuda.device(x.device):
         err = launch(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), m, n, k, rows,
-            int(bf16), int(out_dtype == torch.float32), stream)
+            splits, tile_m, int(kind != "simt"),
+            int(out_dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     int8_matmul.launches += 1
+    int8_matmul.launches_by_kernel[kind] += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_by_kernel = {"decode": 0, "wgmma": 0, "simt": 0}
 
 
 def int8_matmul_dx(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

@@ -2,11 +2,20 @@
 (``csrc/paged_prefill_attention.cu``), which replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.paged_prefill_attention``.
 
+The source holds two kernels, and ``route`` picks one by dtype: bf16 q
+over a bf16 or int8 pool runs the tensor-core kernel (wgmma; D = 128 only,
+any GQA group), every mode with fp32 q or an fp32 pool the SIMT kernel
+(fp32 FMAs: TF32 would change the fp32 numerics; GQA group at most
+``MAX_REP``). A shape the chosen kernel cannot take raises; neither kernel
+stands in for the other.
+
 The wrapper checks device, dtypes, shapes, strides and alignment, allocates
 the output with ``torch.empty``, launches on PyTorch's current stream and
-raises if the launch reports a CUDA error. It pads nothing: the kernel
-walks the chunk in key tiles and masks by length, and reads the pools in
-place. ``paged_prefill_attention.launches`` counts launches.
+raises if the launch reports a CUDA error. It pads nothing: the kernels
+walk the chunk in key tiles and mask by length, and read the pools in
+place. ``paged_prefill_attention.launches`` counts launches of either,
+and ``paged_prefill_attention.launches_by_kernel`` each kernel's, by the
+name ``route`` gives it.
 """
 
 from __future__ import annotations
@@ -22,18 +31,36 @@ from repro_torch.kernels.decode_attention import (DTYPES, KV_TYPES,
                                                   check_kv_rows)
 
 _HEAD_DIMS = (64, 128)
-# query rows a block holds (kRows in the source): T tokens x rep heads
+# the SIMT kernel's query rows a block (kRows in the source): T tokens x rep
 MAX_REP = 72
+# the tensor-core kernel's head dim (kTcD) and page-table entries a row
+# (held in shared memory beside the tiles)
+TC_HEAD_DIM = 128
+TC_MAX_PAGES = 16384
+
+
+def route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The kernel that runs for q of ``q_dtype`` over a pool of
+    ``kv_dtype``: "tensor_cores" (bf16 q, bf16 or int8 pool) or "simt"."""
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+        return "tensor_cores"
+    return "simt"
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C entry point, built and bound on first use (every pointer and
-    the stream as ``c_void_p``)."""
-    fn = build.load("paged_prefill_attention").paged_prefill_attention_launch
+def _launcher(tensor_cores: bool):
+    """The C entry point of either kernel, built and bound on first use
+    (every pointer and the stream as ``c_void_p``)."""
+    lib = build.load("paged_prefill_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 9 + [i] * 7 + [ll, ll, i, ctypes.c_float, i, i, p,
-                                       p, p]
+    if tensor_cores:
+        fn = lib.paged_prefill_attention_tc_launch
+        fn.argtypes = [p] * 9 + [i] * 7 + [ll, ll, i, ctypes.c_float, i, p,
+                                           p, p]
+    else:
+        fn = lib.paged_prefill_attention_launch
+        fn.argtypes = [p] * 9 + [i] * 7 + [ll, ll, i, ctypes.c_float, i, i,
+                                           p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,7 +103,15 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
                          f"pool {tuple(k_pool.shape)}, page_table "
                          f"{tuple(page_table.shape)}, starts "
                          f"{tuple(starts.shape)}, lens {tuple(lens.shape)}")
-    if d not in _HEAD_DIMS or h % hkv or h // hkv > MAX_REP:
+    kernel = route(q.dtype, k_pool.dtype)
+    tensor_cores = kernel == "tensor_cores"
+    if tensor_cores and (d != TC_HEAD_DIM or h % hkv or nb > TC_MAX_PAGES):
+        raise ValueError(f"{name} tensor-core kernel (bf16 q, bf16/int8 "
+                         f"pool): head_dim {d} must be {TC_HEAD_DIM}, H "
+                         f"{h} a multiple of Hkv {hkv}, and the table at "
+                         f"most {TC_MAX_PAGES} pages a row (got {nb})")
+    if not tensor_cores and (d not in _HEAD_DIMS or h % hkv
+                             or h // hkv > MAX_REP):
         raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}, "
                          f"or GQA group {h}/{hkv} above {MAX_REP}")
     if not (q.is_contiguous() and k_new.is_contiguous()
@@ -86,20 +121,23 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or c == 0 or h == 0:
         return out
-    launch = _launcher()
-    with torch.cuda.device(q.device):
-        err = launch(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+    args = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
             starts.data_ptr(), lens.data_ptr(), out.data_ptr(), b, c, h, hkv,
             d, nb, ps, k_pool.stride(0), k_pool.stride(1), int(window),
-            float(scale), int(q.dtype == torch.bfloat16),
-            KV_TYPES[k_pool.dtype], ks, vs,
+            float(scale))
+    if not tensor_cores:
+        args += (int(q.dtype == torch.bfloat16),)
+    with torch.cuda.device(q.device):
+        err = _launcher(tensor_cores)(
+            *args, KV_TYPES[k_pool.dtype], ks, vs,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.launches_by_kernel[kernel] += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.launches_by_kernel = {"tensor_cores": 0, "simt": 0}

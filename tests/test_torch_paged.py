@@ -487,28 +487,31 @@ def test_launcher_serves_paged_on_cpu(capsys):
 
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """Each library's key hashes its source and every csrc/ header it
-    includes, so an edited shared header rebuilds K1, K2 and K5 (computing
-    the key compiles nothing)."""
+    includes, so an edited shared header rebuilds exactly the libraries
+    that include it: decode_attention.cuh K1, K2, K3 and K5, hopper.cuh K3
+    and K4 (computing the key compiles nothing)."""
     import shutil
 
     from repro_torch.kernels import build
-    attention = ("decode_attention", "paged_decode_attention",
-                 "paged_prefill_attention", "paged_verify_attention")
-    alone = ("int8_matmul", "flash_attention",    # include no csrc header
-             "ternary_matmul")
-    assert set(build.SOURCES) == set(attention) | set(alone)
+    includes = {"decode_attention": ["decode_attention.cuh"],
+                "paged_decode_attention": ["decode_attention.cuh"],
+                "paged_prefill_attention": ["decode_attention.cuh",
+                                            "hopper.cuh"],
+                "paged_verify_attention": ["decode_attention.cuh"],
+                "int8_matmul": ["hopper.cuh"],
+                "flash_attention": [], "ternary_matmul": []}
+    assert set(build.SOURCES) == set(includes)
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    for name in attention:
+    for name, headers in includes.items():
         assert [p.name for p in build.sources_of(name)] == \
-            [f"{name}.cu", "decode_attention.cuh"]
-    for name in alone:
-        assert [p.name for p in build.sources_of(name)] == [f"{name}.cu"]
-    before = {name: build.library_path(name) for name in build.SOURCES}
-    header = csrc / "decode_attention.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {name: build.library_path(name) for name in build.SOURCES}
-    assert all(before[n] != after[n] for n in attention)
-    assert all(before[n] == after[n] for n in alone)
+            [f"{name}.cu", *headers]
+    for edited in ("decode_attention.cuh", "hopper.cuh"):
+        before = {name: build.library_path(name) for name in build.SOURCES}
+        header = csrc / edited
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {name: build.library_path(name) for name in build.SOURCES}
+        assert all((before[n] != after[n]) == (edited in includes[n])
+                   for n in build.SOURCES), edited
     assert all(p.parent == build.BUILD_DIR for p in after.values())
