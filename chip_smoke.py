@@ -25,18 +25,27 @@ non-zero and prints no result:
    for the paged kernels the gather through the table, for int8 K/V the
    dequantization, is part of that call):
    K1 at B=8, H=36, Hkv=4, D=128, Sk=2048; K2 at the same shapes through a
-   permuted table of 128 pages of 16 per slot; K3 at 8 rows, C=256, ragged
+   permuted table of 128 pages of 16 per slot (K1's, K2's and K5's times
+   are device time from torch.profiler, their CUDA-event times beside
+   them; K2 and K5 split each slot's keys across the SMs, and their
+   bf16-q modes over bf16 and int8 pools run their tensor-core kernel, the
+   others their SIMT kernel); K3 at 8 rows, C=256, ragged
    starts (unaligned ones too) and lengths (0 too), then (checked, not
    timed) at C=200 with a window of 300 that starts inside cached pages
    and key tiles (K3's bf16-q modes over bf16 and int8 pools run its
    tensor-core kernel, the others its SIMT kernel; a ``routes`` line names
-   the kernel that one call of each K3 mode and K4 regime launched, read
-   from the wrappers' per-kernel counters); K5 on K2's pools and
-   lengths with T = 1, 2 and 5 query lanes per slot (lengths 1 and 2 leave
-   rows with no valid key, which must be exact zeros like a dead slot's),
-   its library call masked SDPA with a per-lane causal mask, and lane t
-   held against K2 at length ``lengths - T + t + 1`` without a window
-   (reported: equal bit for bit, and the max abs difference);
+   the kernel that one call of each K2, K3 and K5 mode and K4 regime
+   launched, read from the wrappers' per-kernel counters); K5 on K2's
+   pools and lengths with T = 1, 2 and 5 query lanes per slot (lengths 1
+   and 2 leave rows with no valid key, which must be exact zeros like a
+   dead slot's), its library call masked SDPA with a per-lane causal
+   mask, and lane t held against K2 at length ``lengths - T + t + 1``
+   without a window in every mode (equal bit for bit on the SIMT kernel,
+   asserted; on the tensor cores reported with the max abs difference);
+   then (checked, not timed) K2 and K5 at a capacity of 2000 keys (no
+   multiple of the split), lengths 0, 1, at a split edge and past it, a
+   window of 300 that starts inside a split and a page, T = 1, 2 and 5,
+   head dims 128, 64 and 256, every mode;
 4. int8 matmul (K4) against its plain version at the main path's shapes:
    decode (M=8) and speculative-tick (M=40) for 4608->4608, ->512,
    ->18432 and 18432->4608, prefill (M=2048) for 4608->18432 and
@@ -85,8 +94,9 @@ non-zero and prints no result:
 8. phases 6 and 7 again with ``quant="int8"`` (the same weights quantized
    once): K4 launches must be (decode ticks + admission or extend calls) x
    32 x 6, K1, K2 and K3 as in phases 6 and 7; each serve run also reads
-   the per-kernel counters of K3 and K4: K3 must run on its tensor cores
-   in the int8 runs and on its SIMT kernel in the others, and K4 in the
+   the per-kernel counters of K2, K3, K4 and K5: K2, K3 and K5 must run
+   on their tensor cores in the int8 runs and on their SIMT kernels in
+   the others, and K4 in the
    int8 runs on its wgmma kernel and (outside the spec runs) its decode
    kernel, never its SIMT kernel;
 8b. phase 7's traffic with speculative decode (``spec_k=4``, ``ngram``),
@@ -528,7 +538,7 @@ def _dequantized(library, kv_pos):
 
 
 def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
-                  iters, kv_pos, extra=None):
+                  iters, kv_pos, extra=None, device_time=False, route=None):
     """Hold ``kernel`` against ``plain`` in every mode and window, time the
     kernel, the plain version and the library call, and return the rows of
     the main path's modes (``MAIN_FP``, ``MAIN_INT8``). ``inputs(q_dtype,
@@ -537,7 +547,13 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
     time; ``dead`` masks the output's leading dims where the kernel must
     write exact zeros; ``cold`` names the positions of the large tensors
     each timed call reads from its own copy (int8 scales too); ``kv_pos``
-    those of K and V; ``extra`` goes into every row."""
+    those of K and V; ``extra`` goes into every row. With ``device_time``
+    the kernel's, the plain version's and the library call's times are
+    device time from torch.profiler (``device_ms``), the kernel's and the
+    library call's CUDA-event times beside them (host-paced where the
+    host's launch is the slower side), as K1, K2 and K5 report them;
+    ``route(q dtype, K/V dtype, head dim)`` names the kernel each mode
+    runs (K2's and K5's ``route``)."""
     import torch
     scale = D ** -0.5
     dead = dead.cuda()
@@ -572,15 +588,23 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                 return lambda i: fn(*copies[i % len(copies)], scale=scale,
                                     window=window)
 
-            kernel_ms = cuda_ms(timed(fns[0]), iters)
-            plain_ms = cuda_ms(timed(fns[1]), max(iters // 4, 4))
-            library_ms = cuda_ms(timed(fns[2]), max(iters // 2, 4))
+            timer = device_ms if device_time else cuda_ms
+            kernel_ms = timer(timed(fns[0]), iters)
+            plain_ms = timer(timed(fns[1]), max(iters // 4, 4))
+            library_ms = timer(timed(fns[2]), max(iters // 2, 4))
             bound_ms, bound_by = bound(args, window)
             row = {"phase": "kernels", "kernel": name, "q": q_name,
                    "kv": kv_name, "window": window, "max_abs_err": max_err,
                    "atol": atol, "rtol": rtol, "ms": kernel_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {})}
+            if device_time:
+                row.update({"timing": "device", "event_ms": cuda_ms(
+                    timed(fns[0]), iters), "library_event_ms": cuda_ms(
+                    timed(fns[2]), max(iters // 2, 4))})
+            if route is not None:
+                row["route"] = route(args[0].dtype, args[1].dtype,
+                                     args[0].shape[-1])
             emit(row)
             del copies
             if (q_name, kv_name, window) in (MAIN_FP, MAIN_INT8):
@@ -591,27 +615,10 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
 def phase_kernels():
     """K1, K2, K5 and K3 against their plain versions at the main path's
     shapes. Returns each kernel's main-path rows."""
-    import torch
-    from repro_torch.kernels import decode_attention as k1
-    from repro_torch.kernels import paged_decode_attention as k2
-    from repro_torch.kernels import ref
-
-    dead_slots = torch.tensor(LENGTHS) == 0
-    rows = {}
-    rows["decode_attention"] = _check_kernel(
-        "decode_attention", k1.decode_attention, ref.decode_attention_ref,
-        _library_decode, _decode_inputs,
-        lambda a, w: _decode_bound(a[0], a[1], a[3], w), dead=dead_slots,
-        cold=(1, 2), iters=48, kv_pos=(1, 2))
-    rows["paged_decode_attention"] = _check_kernel(
-        "paged_decode_attention", k2.paged_decode_attention,
-        ref.paged_decode_attention_ref, _library_paged_decode,
-        _paged_decode_inputs,
-        lambda a, w: _decode_bound(a[0], a[1], a[4], w, paged=True),
-        dead=dead_slots, cold=(1, 2), iters=48, kv_pos=(1, 2))
-    rows["paged_verify_attention"] = phase_verify_kernel()
-    rows["paged_prefill_attention"] = phase_prefill_kernel()
-    return rows
+    return {"decode_attention": phase_decode_kernel(),
+            "paged_decode_attention": phase_paged_decode_kernel(),
+            "paged_verify_attention": phase_verify_kernel(),
+            "paged_prefill_attention": phase_prefill_kernel()}
 
 
 def phase_prefill_kernel():
@@ -675,13 +682,16 @@ def phase_prefill_ragged():
 
 
 def phase_routes():
-    """Which kernel each K3 mode and each K4 regime ran: one call of each
-    at the main path's shapes (K4 on a 4608 x 512 weight), read from the
-    wrappers' per-kernel counters; each must be the kernel that the
-    wrapper's rule (``route``, ``regime``) names."""
+    """Which kernel each K2, K3 and K5 mode and each K4 regime ran: one
+    call of each at the main path's shapes (K2 and K5 at T = 5 also at
+    head dim 64; K4 on a 4608 x 512 weight), read from the wrappers'
+    per-kernel counters; each must be the kernel that the wrapper's rule
+    (``route``, ``regime``) names."""
     import torch
     from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_prefill_attention as k3
+    from repro_torch.kernels import paged_verify_attention as k5
 
     def ran(fn, call):
         for name in fn.launches_by_kernel:
@@ -705,6 +715,27 @@ def phase_routes():
                               *args[:8], scale=D ** -0.5, **kw))
         if k3_ran[key] != k3.route(args[0].dtype, args[3].dtype):
             raise AssertionError(f"K3 {key} ran its {k3_ran[key]} kernel")
+    k2_ran, k5_ran = {}, {}
+    lengths = [min(n, RAGGED_BLOCKS * PAGE) for n in LENGTHS]
+    for d in (D, 64):
+        for q_name, kv_name, _, _ in MODES:
+            q, *rest = _ragged_decode_inputs(d, SPEC_K + 1, lengths)(
+                getattr(torch, q_name), getattr(torch, kv_name))
+            kw = ({"k_scale": rest[4], "v_scale": rest[5]}
+                  if kv_name == "int8" else {})
+            key = f"q {q_name}, kv {kv_name}, D = {d}"
+            want = k2.route(q.dtype, rest[0].dtype, d)
+            k2_ran[key] = ran(k2.paged_decode_attention,
+                              lambda: k2.paged_decode_attention(
+                                  q[:, 0].contiguous(), *rest[:4],
+                                  scale=d ** -0.5, **kw))
+            k5_ran[key] = ran(k5.paged_verify_attention,
+                              lambda: k5.paged_verify_attention(
+                                  q, *rest[:4], scale=d ** -0.5, **kw))
+            if k2_ran[key] != want or k5_ran[key] != want:
+                raise AssertionError(f"K2 / K5 {key} ran their "
+                                     f"{k2_ran[key]} / {k5_ran[key]} "
+                                     f"kernels, not {want}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     for x_name, m in (("bfloat16", 8), ("bfloat16", 40), ("bfloat16", 2048),
                       ("float32", 8), ("float32", 4096)):
@@ -713,7 +744,8 @@ def phase_routes():
         k4_ran[key] = ran(k4.int8_matmul, lambda: k4.int8_matmul(x, q, sc))
         if k4_ran[key] != k4.regime(m, x.dtype):
             raise AssertionError(f"K4 {key} ran its {k4_ran[key]} kernel")
-    emit({"phase": "routes", "paged_prefill_attention": k3_ran,
+    emit({"phase": "routes", "paged_decode_attention": k2_ran,
+          "paged_verify_attention": k5_ran, "paged_prefill_attention": k3_ran,
           "int8_matmul": k4_ran})
 
 
@@ -729,49 +761,215 @@ def _verify_inputs(t):
     return inputs
 
 
+def phase_decode_kernel():
+    """K1 against its plain version in every mode and window at the main
+    path's shapes, timed by device time. Returns its main-path rows."""
+    import torch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ref
+    return _check_kernel(
+        "decode_attention", k1.decode_attention, ref.decode_attention_ref,
+        _library_decode, _decode_inputs,
+        lambda a, w: _decode_bound(a[0], a[1], a[3], w),
+        dead=torch.tensor(LENGTHS) == 0, cold=(1, 2), iters=48,
+        kv_pos=(1, 2), device_time=True)
+
+
+# K2's and K5's rule for the kernel a mode runs; a checkout from before
+# their split (which decode_bench.py times beside this one) has none
+def _k25_route():
+    from repro_torch.kernels import paged_decode_attention as k2
+    return getattr(k2, "route", None)
+
+
+def phase_paged_decode_kernel():
+    """K2 against its plain version in every mode and window at the main
+    path's shapes, timed by device time. Returns its main-path rows."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.kernels import ref
+    return _check_kernel(
+        "paged_decode_attention", k2.paged_decode_attention,
+        ref.paged_decode_attention_ref, _library_paged_decode,
+        _paged_decode_inputs,
+        lambda a, w: _decode_bound(a[0], a[1], a[4], w, paged=True),
+        dead=torch.tensor(LENGTHS) == 0, cold=(1, 2), iters=48,
+        kv_pos=(1, 2), device_time=True, route=_k25_route())
+
+
+def check_verify_kernel(t):
+    """K5 with T lanes against its plain version in every mode and
+    window at the main path's shapes, timed by device time. Returns its
+    main-path rows."""
+    import torch
+    from repro_torch.kernels import paged_verify_attention as k5
+    from repro_torch.kernels import ref
+    lengths = torch.tensor(LENGTHS)
+    q_pos = lengths[:, None] - t + torch.arange(t)[None]
+    return _check_kernel(
+        "paged_verify_attention", k5.paged_verify_attention,
+        ref.paged_verify_attention_ref, _library_verify, _verify_inputs(t),
+        lambda a, w: _verify_bound(a[0], a[1], a[4], w),
+        dead=(lengths[:, None] == 0) | (q_pos < 0), cold=(1, 2), iters=48,
+        kv_pos=(1, 2), extra={"T": t}, device_time=True,
+        route=_k25_route())
+
+
+def _lanes_against_k2(inputs, t, scale, label):
+    """K5's lane t against K2 at length ``lengths - T + t + 1`` (the same
+    keys), without a window, in every mode: equal bit for bit on the SIMT
+    kernel (asserted: the same splits, tiles and sums), reported with the
+    max abs difference on the tensor cores. Returns the rows."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.kernels import paged_verify_attention as k5
+    rows = []
+    for q_name, kv_name, _, _ in MODES:
+        q, k_pool, v_pool, table, lens, *sc = inputs(
+            getattr(torch, q_name), getattr(torch, kv_name))
+        kw = {"k_scale": sc[0], "v_scale": sc[1]} if sc else {}
+        got = k5.paged_verify_attention(q, k_pool, v_pool, table, lens,
+                                        scale=scale, **kw)
+        equal, diff = True, 0.0
+        for lane in range(t):
+            want = k2.paged_decode_attention(
+                q[:, lane].contiguous(), k_pool, v_pool, table,
+                (lens - t + lane + 1).clamp(min=0).to(torch.int32),
+                scale=scale, **kw)
+            equal &= bool(torch.equal(got[:, lane], want))
+            diff = max(diff, float((got[:, lane].float()
+                                    - want.float()).abs().max()))
+        route = k2.route(q.dtype, k_pool.dtype, q.shape[-1])
+        if route == "simt" and not equal:
+            raise AssertionError(
+                f"{label}: K5 at T = {t} differs from K2 at each lane's "
+                f"length on the SIMT kernel (q {q_name}, kv {kv_name}): max "
+                f"abs diff {diff}")
+        rows.append({"T": t, "q": q_name, "kv": kv_name, "route": route,
+                     "lanes_equal_k2": equal, "max_abs_diff_k2": diff})
+    return rows
+
+
 def phase_verify_kernel():
     """K5 against its plain version for T = 1, 2 and 5 lanes in every mode
-    and window; then, without a window in the fp32 and bf16 modes, each
-    lane t against K2 at length ``lengths - T + t + 1`` (the same keys):
-    reported as bitwise equality and the max abs difference. Returns the
-    main-path rows at T = 5."""
+    and window, timed by device time; then each lane t against K2 at its
+    length (``_lanes_against_k2``). Returns the main-path rows at T = 5."""
+    main = {}
+    for t in VERIFY_LANES:
+        rows = check_verify_kernel(t)
+        if t == max(VERIFY_LANES):
+            main = rows
+        for row in _lanes_against_k2(_verify_inputs(t), t, D ** -0.5,
+                                     "paged_verify_attention"):
+            emit({"phase": "kernels", "kernel": "paged_verify_attention",
+                  "window": -1, **row})
+    return main
+
+
+# K2 and K5 at a capacity that is no multiple of the split (125 pages of
+# 16: 2000 keys, whose last split is short; 256-key splits without a
+# window, 64-key ones in a window of 300), with lengths 0, 1, at a split
+# edge and one past it, at the capacity and one below it, and 777, whose
+# window of 300 starts inside a split and inside a page; at head dims 128,
+# 64 (the SIMT kernel in every mode) and 256 (T = 5 lanes take two lane
+# groups there); every mode, T = 1, 2 and 5, windows -1 and 300: checked
+# against the plain versions, not timed
+RAGGED_BLOCKS = 125
+RAGGED_HEAD_DIMS = (128, 64, 256)
+
+
+def _ragged_decode_inputs(d, t, lengths):
+    """inputs(q_dtype, kv_dtype) of K5 (T lanes; K2 takes lane 0) at head
+    dim ``d`` over a pool of B * RAGGED_BLOCKS pages and a permuted table,
+    with ``lengths``."""
+    import torch
+
+    def inputs(q_dtype, kv_dtype):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        q = _randn(gen, (B, t, H, d), q_dtype)
+        pages = B * RAGGED_BLOCKS
+        k_pool = _randn(gen, (pages + 1, PAGE, HKV, d), kv_dtype)
+        v_pool = _randn(gen, (pages + 1, PAGE, HKV, d), kv_dtype)
+        table = torch.randperm(pages, generator=gen, device="cuda").to(
+            torch.int32).reshape(B, RAGGED_BLOCKS)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        return (q, k_pool, v_pool, table, lens) + _scales(gen, k_pool,
+                                                          kv_dtype)
+    return inputs
+
+
+def phase_decode_ragged():
+    """K2 and K5 at the ragged shapes above within MODES' bounds, exact
+    zeros for dead slots and rows with no key, and K5's lanes equal to K2
+    bit for bit on the SIMT kernel."""
     import torch
     from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_verify_attention as k5
     from repro_torch.kernels import ref
-    lengths = torch.tensor(LENGTHS)
-    main = {}
-    for t in VERIFY_LANES:
-        q_pos = lengths[:, None] - t + torch.arange(t)[None]
-        rows = _check_kernel(
-            "paged_verify_attention", k5.paged_verify_attention,
-            ref.paged_verify_attention_ref, _library_verify,
-            _verify_inputs(t), lambda a, w: _verify_bound(a[0], a[1], a[4], w),
-            dead=(lengths[:, None] == 0) | (q_pos < 0), cold=(1, 2),
-            iters=48, kv_pos=(1, 2), extra={"T": t})
-        if t == max(VERIFY_LANES):
-            main = rows
-        for q_name, kv_name in (("float32", "float32"),
-                                ("bfloat16", "bfloat16")):
-            q, k_pool, v_pool, table, lens = _verify_inputs(t)(
-                getattr(torch, q_name), getattr(torch, kv_name))
-            scale = D ** -0.5
-            got = k5.paged_verify_attention(q, k_pool, v_pool, table, lens,
-                                            scale=scale)
-            diff = 0.0
-            equal = True
-            for lane in range(t):
-                want = k2.paged_decode_attention(
-                    q[:, lane].contiguous(), k_pool, v_pool, table,
-                    (lens - t + lane + 1).clamp(min=0).to(torch.int32),
-                    scale=scale)
-                equal &= bool(torch.equal(got[:, lane], want))
-                diff = max(diff, float((got[:, lane].float()
-                                        - want.float()).abs().max()))
-            emit({"phase": "kernels", "kernel": "paged_verify_attention",
-                  "T": t, "q": q_name, "kv": kv_name, "window": -1,
-                  "lanes_equal_k2": equal, "max_abs_diff_k2": diff})
-    return main
+    cap = RAGGED_BLOCKS * PAGE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split, n_splits = k2.split_plan(cap, PAGE, B * HKV, sms)
+    split_w = k2.split_plan(cap, PAGE, B * HKV, sms, RAGGED_WINDOW)[0]
+    lengths = (0, 1, split, split + 1, cap, cap - 1, 777, 2 * split + 37)
+    lo = 777 - RAGGED_WINDOW
+    if (cap % split == 0 or cap % split_w == 0 or lo % split == 0
+            or lo % split_w == 0 or lo % PAGE == 0):
+        raise AssertionError(f"the ragged case misses its edges: capacity "
+                             f"{cap}, splits {split} and {split_w} (window), "
+                             f"window start {lo}")
+    rows, lanes = [], []
+    for d in RAGGED_HEAD_DIMS:
+        for q_name, kv_name, atol, rtol in MODES:
+            for t in (0,) + VERIFY_LANES:           # t = 0: K2
+                args = list(_ragged_decode_inputs(d, max(t, 1), lengths)(
+                    getattr(torch, q_name), getattr(torch, kv_name)))
+                kw = ({"k_scale": args[5], "v_scale": args[6]}
+                      if kv_name == "int8" else {})
+                lens = torch.tensor(lengths)
+                if t == 0:
+                    args[0] = args[0][:, 0].contiguous()
+                    kernel, plain = (k2.paged_decode_attention,
+                                     ref.paged_decode_attention_ref)
+                    dead = lens == 0
+                else:
+                    kernel, plain = (k5.paged_verify_attention,
+                                     ref.paged_verify_attention_ref)
+                    q_pos = lens[:, None] - t + torch.arange(t)[None]
+                    dead = (lens[:, None] == 0) | (q_pos < 0)
+                for window in (-1, RAGGED_WINDOW):
+                    got = kernel(*args[:5], scale=d ** -0.5, window=window,
+                                 **kw)
+                    torch.cuda.synchronize()
+                    want = plain(*args[:5], scale=d ** -0.5, window=window,
+                                 **kw)
+                    err = (got.float() - want.float()).abs()
+                    if not (bool((err <= atol + rtol * want.float().abs())
+                                 .all())
+                            and bool((got[dead.cuda()] == 0).all())
+                            and bool(torch.isfinite(got).all())):
+                        raise AssertionError(
+                            f"{kernel.__name__} disagrees with its plain "
+                            f"version at the ragged shapes: D {d}, T {t}, q "
+                            f"{q_name}, kv {kv_name}, window {window}: max "
+                            f"abs err {float(err.max())} (atol {atol}, rtol "
+                            f"{rtol}), dead rows zero "
+                            f"{bool((got[dead.cuda()] == 0).all())}")
+                    rows.append([d, t, q_name, kv_name, window,
+                                 k2.route(args[0].dtype, args[1].dtype, d),
+                                 float(err.max())])
+        for t in VERIFY_LANES:
+            lanes += [[d, r["T"], r["q"], r["kv"], r["route"],
+                       r["lanes_equal_k2"], r["max_abs_diff_k2"]]
+                      for r in _lanes_against_k2(
+                          _ragged_decode_inputs(d, t, lengths), t,
+                          d ** -0.5, f"ragged D = {d}")]
+    emit({"phase": "kernels_ragged",
+          "kernel": "paged_decode_attention, paged_verify_attention",
+          "capacity": cap, "split": split, "splits": n_splits,
+          "split_in_window": split_w,
+          "lengths": list(lengths), "window": RAGGED_WINDOW,
+          "rows_d_t_q_kv_window_route_err": rows,
+          "lanes_d_t_q_kv_route_equal_diff": lanes})
 
 
 # (M, K, N, x dtype, output dtype) of K4's checks: a decode tick's
@@ -2224,19 +2422,24 @@ def _serve_run(phase, eng, acct, prompts, n_new):
         raise AssertionError(f"{phase}: launches {launches} != {want} "
                              f"(decode ticks {decode_ticks}, admission or "
                              f"extend calls {admissions})")
-    # which of K3's and K4's kernels ran: bf16 q over the int8 pool on K3's
-    # tensor cores and over the fp32 pool on its SIMT kernel; bf16 x on
+    # which of K2's, K3's, K4's and K5's kernels ran: bf16 q over the int8
+    # pool on K2's, K3's and K5's tensor cores and over the fp32 pool on
+    # their SIMT kernels; bf16 x on
     # K4's wgmma kernel (M > 8: admission and extend calls, the spec ticks'
     # 40 rows) and its decode kernel (M <= 8: the 8 slots of a decode tick,
     # an extend call of a few tokens), never its SIMT one
     k3_by = by_kernel["paged_prefill_attention"]
     k4_by = by_kernel["int8_matmul"]
-    k3_kernel = "tensor_cores" if int8 else "simt"
-    if k3_by[k3_kernel] != launches["paged_prefill_attention"] or (
+    attn_kernel = "tensor_cores" if int8 else "simt"
+    if any(by_kernel[name][attn_kernel] != launches[name]
+           for name in ("paged_decode_attention", "paged_prefill_attention",
+                        "paged_verify_attention")) or (
             int8 and not (k4_by["simt"] == 0 and k4_by["wgmma"] > 0
                           and (spec or k4_by["decode"] > 0))):
-        raise AssertionError(f"{phase}: K3 ran {k3_by} (all on "
-                             f"{k3_kernel} expected), K4 ran {k4_by}")
+        raise AssertionError(
+            f"{phase}: K2 ran {by_kernel['paged_decode_attention']}, K3 "
+            f"{k3_by}, K5 {by_kernel['paged_verify_attention']} (all on "
+            f"{attn_kernel} expected), K4 ran {k4_by}")
     row = {"phase": phase, "dtype": "bfloat16", "quant": eng.scfg.quant,
            "cache": "int8" if int8 else "float32",
            "requests": len(prompts), "new_tokens_each": n_new,
@@ -2379,6 +2582,7 @@ def main() -> int:
     phase_routes()
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
     phase_prefill_ragged()
+    phase_decode_ragged()
     rows["int8_matmul"] = phase_int8_matmul()
     rows["int8_matmul_dx"] = phase_int8_dx()
     phase_int8_train_grads()

@@ -1,13 +1,11 @@
-// Decode attention for the serve engine's ticks, on Hopper (sm_90a): the
-// kernel body shared by K1 (decode_attention.cu, a slot-major cache), K2
-// (paged_decode_attention.cu, a paged pool) and K5
-// (paged_verify_attention.cu, T query lanes per slot through the pool).
-// They differ only in where K/V row i of slot b lives and, for K5, in
-// which keys each query row may see, which the `Rows` policy below
-// answers; the numerics, the tiling and the GQA sharing are one code.
+// Decode attention for the serve engine's dense ticks, on Hopper (sm_90a):
+// the kernel body of K1 (decode_attention.cu, a slot-major cache), and the
+// tile helpers that K2 and K5 (paged_decode_split.cuh) and K3's SIMT
+// kernel share with it. Where K/V row i of slot b lives is the `Rows`
+// policy's answer (DenseRows below).
 //
-// Computes what the Pallas TPU kernels repro/kernels/decode_attention.py::
-// _decode_kernel and ::_paged_kernel compute: one query token per slot with
+// Computes what the Pallas TPU kernel repro/kernels/decode_attention.py::
+// _decode_kernel computes: one query token per slot with
 // a per-slot length. Slot b attends keys [lo, length) with
 // lo = max(0, length - window) when window > 0, else 0; its query sits at
 // position length - 1. fp32 accumulation throughout, q scaled in fp32
@@ -33,21 +31,11 @@
 //     would copy the whole cache on every call, is not carried over.
 //   * the next tile's K/V rows are loaded into registers while the current
 //     tile computes, so the loads are in flight behind the math.
-// K5 (VerifyRows) gives each slot T query lanes, lane t at position
-// q_pos = length - T + t (the length counts the lanes): its rows attend
-// keys [max(0, q_pos + 1 - window), min(q_pos + 1, n_blocks * page_size)),
-// so q_pos comes from the unclamped length and only the key range is
-// clamped. A block holds `lanes` lanes of one (slot, KV head), lane-major
-// rows (t, r), and loads each K/V tile once for all of them; the tiles
-// start where the block's first row starts (key 0 without a window) and
-// end where its last row ends. A row past its own bound adds p = 0 with
-// alpha = 1, so with no window lane t computes exactly what K2 computes at
-// length q_pos + 1. A row with no valid key (lane t < T - length, or the
-// capacity edge under a window) writes zeros, as a dead slot does.
-// Known weak points, left for a later revision: B * Hkv blocks (32 on the
-// starcoder2-7b main path) leave most of the 132 SMs idle, so one SM
-// walks a whole long slot alone; and the dot products run on fp32 CUDA
-// cores, since rep = 9 query rows are no MMA-friendly M.
+// Known weak points, left for a later revision (ROADMAP item 16): B * Hkv
+// blocks (32 on the starcoder2-7b main path) leave most of the 132 SMs
+// idle, so one SM walks a whole long slot alone; and the dot products run
+// on fp32 CUDA cores. K2 and K5 carry the split and the tensor-core route
+// that answer both (paged_decode_split.cuh).
 //
 // Per tile of kTileK = 64 keys: (0) the prefetched rows go to shared memory
 // as fp32 (K rows padded to D + 4 floats, so 16-byte reads across keys hit
@@ -155,29 +143,6 @@ struct DenseRows {
   }
 };
 
-// K2: a pool (P, page_size, Hkv, D); slot b's logical row i sits in page
-// page_table[b, i / page_size] at offset i % page_size. The block reads its
-// slot's table row itself, in place of the TPU's scalar prefetch.
-struct PagedRows {
-  const int* page_table;                          // (B, n_blocks) int32
-  int n_blocks, page_size;
-  long long stride_page, stride_row;
-  int limit;                                      // n_blocks * page_size
-  __device__ __forceinline__ long long base(int) const { return 0; }
-  __device__ __forceinline__ long long row(int b, int i) const {
-    const int page = __ldg(page_table + (long long)b * n_blocks + i / page_size);
-    return (long long)page * stride_page + (long long)(i % page_size) * stride_row;
-  }
-};
-
-// K5: PagedRows for T query lanes per slot; a block holds `lanes` of them
-// (lanes * rep <= max_rows(D)), lanes [blockIdx.z * lanes, ...). q and out
-// are (B, T, H, D).
-struct VerifyRows : PagedRows {
-  int n_q;                                        // T
-  int lanes;
-};
-
 // `rows` is __grid_constant__: the load loop reads it through a reference,
 // and without the qualifier nvcc fetched its fields with per-thread
 // constant loads there, which made the fp32-K/V kernel about 27% slower
@@ -190,7 +155,6 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                         const __grid_constant__ Rows rows, int window, float scale,
                         const float* __restrict__ ks, const float* __restrict__ vs) {
   constexpr bool kQuant = std::is_same<KVT, int8_t>::value;
-  constexpr bool kMulti = std::is_same<Rows, VerifyRows>::value;
   constexpr int DQ = D / 4;                       // float4 columns of a row
   constexpr int KS = D + 4;                       // padded K row: conflict-free
   constexpr int G = kThreads / DQ;                // row groups of the P @ V pass
@@ -205,17 +169,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   const int lane = tid & 31, warp = tid >> 5;
   const long long row0 = (long long)b * H + (long long)kvh * rep;
   QT* out_g = out + row0 * D;
-  // K1/K2: the block's rep rows, one run of q and out. K5: lanes
-  // [t_lo, t_lo + n_rows / rep) x rep heads, lane-major.
-  int n_rows = rep, t_lo = 0, n_q = 1;
-  if constexpr (kMulti) {
-    n_q = rows.n_q;
-    t_lo = blockIdx.z * rows.lanes;
-    n_rows = min(rows.lanes, n_q - t_lo) * rep;
-  }
-  auto row_off = [&](int i) -> long long {        // K5: row i's element offset
-    return (((long long)b * n_q + t_lo + i / rep) * H + (long long)kvh * rep + i % rep) * D;
-  };
+  const int n_rows = rep;                         // the block's rows: one run of q and out
 
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);   // n_rows x D, pre-scaled
@@ -225,34 +179,16 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   float* a_s = p_s + n_rows * kTileK;             // this tile's rescale per row
   float* l_s = a_s + n_rows;                      // running denominator per row
 
-  // keys [lo, length) are the block's; K5's rows each see a part of them
-  int length, lo, q_first = 0;
-  if constexpr (kMulti) {
-    const int len_b = lengths[b];                 // unclamped: it places q
-    if (len_b <= 0) {                             // dead slot: exact zeros
-      for (int i = tid; i < n_rows * D; i += kThreads)
-        store(out + row_off(i / D) + i % D, 0.f);
-      return;
-    }
-    q_first = len_b - n_q + t_lo;                 // the block's first lane
-    length = min(q_first + n_rows / rep, rows.limit);
-    lo = window > 0 ? max(0, q_first + 1 - window) : 0;
-  } else {
-    length = min(lengths[b], rows.limit);
-    if (length <= 0) {                            // dead slot: exact zeros
-      for (int i = tid; i < rep * D; i += kThreads) store(out_g + i, 0.f);
-      return;
-    }
-    lo = (window > 0 && length > window) ? length - window : 0;
+  // keys [lo, length) are the block's
+  const int length = min(lengths[b], rows.limit);
+  if (length <= 0) {                              // dead slot: exact zeros
+    for (int i = tid; i < rep * D; i += kThreads) store(out_g + i, 0.f);
+    return;
   }
+  const int lo = (window > 0 && length > window) ? length - window : 0;
 
-  if constexpr (kMulti) {
-    for (int i = tid; i < n_rows * D; i += kThreads)
-      q_s[i] = to_float(q[row_off(i / D) + i % D]) * scale;
-  } else {
-    const QT* q_g = q + row0 * D;
-    for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_float(q_g[i]) * scale;
-  }
+  const QT* q_g = q + row0 * D;
+  for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_float(q_g[i]) * scale;
   const KVT* k_g = k + rows.base(b) + (long long)kvh * D;
   const KVT* v_g = v + rows.base(b) + (long long)kvh * D;
 
@@ -319,19 +255,11 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     // r = w, w + 8, ...; lane owns keys lane and lane + 32
     const float4* k0 = reinterpret_cast<const float4*>(k_s + lane * KS);
     const float4* k1 = reinterpret_cast<const float4*>(k_s + (lane + 32) * KS);
-    const bool valid0 = t0 + lane < length, valid1 = t0 + lane + 32 < length;
+    const bool ok0 = t0 + lane < length, ok1 = t0 + lane + 32 < length;
 #pragma unroll
     for (int i = 0; i < kMaxRowsPerWarp; ++i) {
       const int r = warp + kWarps * i;
       if (r >= n_rows) break;                     // uniform across the warp
-      bool ok0 = valid0, ok1 = valid1;
-      if constexpr (kMulti) {                     // K5: row r's key range
-        const int q_pos = q_first + r / rep;
-        const int hi = min(q_pos + 1, rows.limit);
-        const int lo_r = window > 0 ? max(0, q_pos + 1 - window) : 0;
-        ok0 = t0 + lane >= lo_r && t0 + lane < hi;
-        ok1 = t0 + lane + 32 >= lo_r && t0 + lane + 32 < hi;
-      }
       const float4* qr = reinterpret_cast<const float4*>(q_s + r * D);
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll 8
@@ -386,9 +314,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     const int r = grp + G * i;
     if (r >= n_rows) break;
     const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-    QT* o;
-    if constexpr (kMulti) o = out + row_off(r) + 4 * cq;
-    else o = out_g + r * D + 4 * cq;
+    QT* o = out_g + r * D + 4 * cq;
     store(o + 0, acc[i].x * inv);
     store(o + 1, acc[i].y * inv);
     store(o + 2, acc[i].z * inv);
@@ -401,13 +327,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
                           void* out, int B, int H, int Hkv, Rows rows, int window,
                           float scale, const float* ks, const float* vs,
                           cudaStream_t stream) {
-  const int rep = H / Hkv;
-  // K5: up to `lanes` lanes per block, a third grid dim over lane groups
-  int n_rows = rep, groups = 1;
-  if constexpr (std::is_same<Rows, VerifyRows>::value) {
-    n_rows = rows.lanes * rep;
-    groups = (rows.n_q + rows.lanes - 1) / rows.lanes;
-  }
+  const int n_rows = H / Hkv;
   const size_t smem = sizeof(float) * ((size_t)n_rows * D + (size_t)kTileK * (D + 4) +
                                        (size_t)kTileK * D + (size_t)n_rows * kTileK +
                                        2 * (size_t)n_rows);
@@ -417,7 +337,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(B, Hkv, groups), kThreads, smem, stream>>>(
+  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v),
       static_cast<const int*>(lengths), static_cast<QT*>(out), H, H / Hkv, rows, window,
       scale, ks, vs);

@@ -2,10 +2,19 @@
 (``csrc/paged_verify_attention.cu``), which replaces the Pallas TPU kernel
 ``repro.kernels.decode_attention.paged_verify_attention``.
 
+K5 is K2's kernel body with T query lanes a slot (``csrc/
+paged_decode_split.cuh``): the same ``route`` (bf16 q over a bf16 or int8
+pool at D = 128 on the tensor cores, every other mode on fp32 SIMT dots),
+the same ``plan`` (so lane t and K2 at its length split the keys at the
+same places) and the same per-stream scratch buffers
+(``paged_decode_attention``). A block holds ``plan(...).lanes`` lanes; more
+lanes take more blocks.
+
 The wrapper checks device, dtypes, shapes, strides and alignment, allocates
 the output with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. The pools are read in place
-through their strides. ``paged_verify_attention.launches`` counts launches.
+through their strides. ``paged_verify_attention.launches`` counts launches,
+and ``paged_verify_attention.launches_by_kernel`` each kernel's.
 """
 
 from __future__ import annotations
@@ -16,11 +25,10 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (DTYPES, KV_TYPES,
-                                                  check_cuda, check_int32,
-                                                  check_kv_rows, max_rep)
-
-_HEAD_DIMS = (64, 128, 256)
+from repro_torch.kernels.decode_attention import KV_TYPES
+from repro_torch.kernels.int8_matmul import _sm_count
+from repro_torch.kernels.paged_decode_attention import (check_paged, plan,
+                                                        route, scratch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,7 +38,7 @@ def _launcher():
     fn = build.load("paged_verify_attention").paged_verify_attention_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, i,
-                   ctypes.c_float, i, i, p, p, p]
+                   ctypes.c_float, i, i, p, p, i, i, i, p, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -46,32 +54,23 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     whose entries below each length are pages of the pool; lengths: (B,)
     int32 counting the T lanes. Returns (B, T, H, D) in q's dtype."""
     name = "paged_verify_attention"
-    check_cuda(name, q, k_pool, v_pool, page_table, lengths)
-    if q.dtype not in DTYPES:
-        raise TypeError(f"{name} kernel takes fp32/bf16 q; got {q.dtype}")
-    check_int32(name, page_table=page_table, lengths=lengths)
-    if q.dim() != 4 or k_pool.dim() != 4 or page_table.dim() != 2:
-        raise ValueError(f"shapes: q {tuple(q.shape)}, pool "
-                         f"{tuple(k_pool.shape)}, page_table "
-                         f"{tuple(page_table.shape)}")
-    ks, vs = check_kv_rows(name, k_pool, v_pool, k_scale, v_scale)
+    if q.dim() != 4:
+        raise ValueError(f"shapes: q {tuple(q.shape)}")
+    ks, vs = check_paged(name, q, k_pool, v_pool, page_table, lengths,
+                         k_scale, v_scale)
     b, t, h, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     nb = page_table.shape[1]
-    if (k_pool.shape[3] != d or page_table.shape[0] != b
-            or lengths.shape != (b,)):
-        raise ValueError(f"shapes: q {tuple(q.shape)}, pool "
-                         f"{tuple(k_pool.shape)}, page_table "
-                         f"{tuple(page_table.shape)}, lengths "
-                         f"{tuple(lengths.shape)}")
-    if d not in _HEAD_DIMS or h % hkv or h // hkv > max_rep(d):
-        raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}, "
-                         f"or GQA group {h}/{hkv} above {max_rep(d)}")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
+    kernel = route(q.dtype, k_pool.dtype, d)
     out = torch.empty_like(q)
     if b == 0 or t == 0 or h == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pl = plan(b, t, h, hkv, d, nb, ps, kernel, _sm_count(q.device.index),
+              int(window))
+    counters = ws = None
+    if pl.n_splits > 1:
+        counters, ws = scratch(q.device, stream, pl.units, pl.ws_floats)
     launch = _launcher()
     with torch.cuda.device(q.device):
         err = launch(
@@ -79,12 +78,16 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, t,
             h, hkv, d, nb, ps, k_pool.stride(0), k_pool.stride(1),
             int(window), float(scale), int(q.dtype == torch.bfloat16),
-            KV_TYPES[k_pool.dtype], ks, vs,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            KV_TYPES[k_pool.dtype], ks, vs, pl.lanes, pl.split, pl.n_splits,
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            int(kernel == "tensor_cores"), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     paged_verify_attention.launches += 1
+    paged_verify_attention.launches_by_kernel[kernel] += 1
     return out
 
 
 paged_verify_attention.launches = 0
+paged_verify_attention.launches_by_kernel = {"tensor_cores": 0, "simt": 0}

@@ -488,16 +488,18 @@ def test_launcher_serves_paged_on_cpu(capsys):
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """Each library's key hashes its source and every csrc/ header it
     includes, so an edited shared header rebuilds exactly the libraries
-    that include it: decode_attention.cuh K1, K2, K3 and K5, hopper.cuh K3
-    and K4 (computing the key compiles nothing)."""
+    that include it: decode_attention.cuh K1, K2, K3 and K5, hopper.cuh
+    K2, K3, K4 and K5, paged_decode_split.cuh K2 and K5 alone (computing
+    the key compiles nothing)."""
     import shutil
 
     from repro_torch.kernels import build
+    split = ["paged_decode_split.cuh", "decode_attention.cuh", "hopper.cuh"]
     includes = {"decode_attention": ["decode_attention.cuh"],
-                "paged_decode_attention": ["decode_attention.cuh"],
+                "paged_decode_attention": split,
                 "paged_prefill_attention": ["decode_attention.cuh",
                                             "hopper.cuh"],
-                "paged_verify_attention": ["decode_attention.cuh"],
+                "paged_verify_attention": split,
                 "int8_matmul": ["hopper.cuh"],
                 "flash_attention": [], "ternary_matmul": []}
     assert set(build.SOURCES) == set(includes)
@@ -507,7 +509,8 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     for name, headers in includes.items():
         assert [p.name for p in build.sources_of(name)] == \
             [f"{name}.cu", *headers]
-    for edited in ("decode_attention.cuh", "hopper.cuh"):
+    for edited in ("decode_attention.cuh", "hopper.cuh",
+                   "paged_decode_split.cuh"):
         before = {name: build.library_path(name) for name in build.SOURCES}
         header = csrc / edited
         header.write_text(header.read_text() + "\n// edited\n")
