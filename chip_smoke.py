@@ -23,7 +23,8 @@ non-zero and prints no result:
    kernel, the plain version and one library call (masked
    ``F.scaled_dot_product_attention``, a yardstick the port never calls;
    for the paged kernels the gather through the table, for int8 K/V the
-   dequantization, is part of that call):
+   dequantization, is part of that call; fp32 operations bounds count
+   fp32-accurate work at the 3xTF32 rate, PEAK_TF32 / 3):
    K1 at B=8, H=36, Hkv=4, D=128, Sk=2048; K2 at the same shapes through a
    permuted table of 128 pages of 16 per slot (K1's, K2's and K5's times
    are device time from torch.profiler, their CUDA-event times beside
@@ -34,8 +35,9 @@ non-zero and prints no result:
    timed) at C=200 with a window of 300 that starts inside cached pages
    and key tiles (K3's bf16-q modes over bf16 and int8 pools run its
    tensor-core kernel, the others its SIMT kernel; a ``routes`` line names
-   the kernel that one call of each K2, K3 and K5 mode and K4 regime
-   launched, read from the wrappers' per-kernel counters); K5 on K2's
+   the kernel that one call of each K2, K3 and K5 mode, K4 regime and K7
+   and K8 mode (fp32 and bf16, head dims 128 and 64) launched, read from
+   the wrappers' per-kernel counters); K5 on K2's
    pools and lengths with T = 1, 2 and 5 query lanes per slot (lengths 1
    and 2 leave rows with no valid key, which must be exact zeros like a
    dead slot's), its library call masked SDPA with a per-lane causal
@@ -106,9 +108,17 @@ non-zero and prints no result:
 4b. flash kernels: K6 (forward with lse), K7 (dQ) and K8 (dK, dV) against
    their plain versions at the training path's shapes (B=2, S=2048, H=36,
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
-   backward on the kernel's own out and lse; the library call is causal
+   backward on the kernel's own out and lse (fp32 K7 and K8 run their
+   tensor-core kernels, bf16 their SIMT kernels); two calls of K7 and of
+   K8 on the same inputs must give the same bits; K7, K8 and the library
+   backward timed by device time from torch.profiler, CUDA events beside;
+   the library call is causal
    ``F.scaled_dot_product_attention`` with K/V repeated to H heads, and
-   its autograd backward for K7 + K8 together; then K10 (the inference
+   its autograd backward for K7 + K8 together; then (checked, not timed)
+   K7 and K8 at ragged shapes: Sq = Sk in {1, 63, 65, 1000} and Sq = 100
+   with Sk = 128, head dims 64 and 128, GQA groups of 1, 3 and 9, a window
+   of 300 and a non-causal case, fp32 and bf16, each also called twice for
+   equal bits; then K10 (the inference
    flash attention) at the same shapes, q fp32 and bf16, K/V in q's dtype
    or int8 with (B, S, Hkv) scales, windows -1 and 256, its library call
    causal SDPA with K/V dequantized and repeated inside the call;
@@ -118,11 +128,13 @@ non-zero and prints no result:
 10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
    of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
    ``sdpa`` route (explicit positions), the loss within 1e-5 and each
-   leaf within 1e-4 of its max, relative;
+   leaf within 1e-4 of its max, relative; every K7 and K8 launch on the
+   tensor-core kernels;
 11. train: ``TrainEngine.for_lm`` on the 8-layer full-width config, fp32
    params and AdamW state, synthetic tokens, batch 2 x 2048, two ticks of
    two steps: every loss and grad norm finite, one readback per tick, K6,
-   K7 and K8 launches each steps x 8; reports s/step, tokens/s, peak
+   K7 and K8 launches each steps x 8, K7's and K8's all on the
+   tensor-core kernels; reports s/step, tokens/s, peak
    memory, model FLOP/s over the fp32 peak and the accountant's train
    block, then profiles one more tick (device time by kernel, busy
    share);
@@ -132,7 +144,8 @@ non-zero and prints no result:
    Trainer from another seed that restores and runs N more (params and
    AdamW state must match bit for bit, else within 1e-6 of each leaf's
    max); a preempted run's synchronous save at its step; a flipped byte in
-   arrays.npz refused; K6 = K7 = K8 = 2N x 12 launches; s/step, tokens/s,
+   arrays.npz refused; K6 = K7 = K8 = 2N x 12 launches, K7's and K8's
+   all on the tensor-core kernels; s/step, tokens/s,
    save and restore seconds and bytes, peak memory, one profiled pair of
    steps;
 11c. the port's train bench (both arms, update and kernel-grad parity;
@@ -171,10 +184,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 # dense device peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
-# sheet): bytes/s of HBM3, FLOP/s in fp32 outside the tensor cores and in
-# bf16 on them
+# sheet): bytes/s of HBM3, FLOP/s in fp32 outside the tensor cores, and in
+# TF32 and bf16 on them
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 494.7e12
 PEAK_BF16 = 989e12
 N_LAYERS = 32
 
@@ -340,10 +354,14 @@ def _prefill_inputs(q_dtype, kv_dtype):
 
 
 def _peak(*tensors):
-    """fp32's peak when any input is fp32, else bf16's (int8 K/V codes are
-    exact in bf16)."""
+    """The fastest rate of fp32-accurate work when any input is fp32, else
+    bf16's peak (int8 K/V codes are exact in bf16). fp32-accurate products
+    run fastest on the tensor cores as 3xTF32 (three TF32 products of hi/lo
+    halves), at PEAK_TF32 / 3 = 165 TFLOP/s, above the CUDA cores'
+    PEAK_FP32: the least time of the same fp32 work, whatever implements
+    it (before this rate the fp32 bounds used PEAK_FP32)."""
     import torch
-    return (PEAK_FP32 if any(t.dtype == torch.float32 for t in tensors)
+    return (PEAK_TF32 / 3 if any(t.dtype == torch.float32 for t in tensors)
             else PEAK_BF16)
 
 
@@ -682,12 +700,14 @@ def phase_prefill_ragged():
 
 
 def phase_routes():
-    """Which kernel each K2, K3 and K5 mode and each K4 regime ran: one
-    call of each at the main path's shapes (K2 and K5 at T = 5 also at
-    head dim 64; K4 on a 4608 x 512 weight), read from the wrappers'
-    per-kernel counters; each must be the kernel that the wrapper's rule
-    (``route``, ``regime``) names."""
+    """Which kernel each K2, K3 and K5 mode, each K4 regime and each K7
+    and K8 mode ran: one call of each at the main path's shapes (K2 and K5
+    at T = 5 also at head dim 64; K4 on a 4608 x 512 weight; K7 and K8 in
+    fp32 and bf16 at head dims 128 and 64, S = 256), read from the
+    wrappers' per-kernel counters; each must be the kernel that the
+    wrapper's rule (``route``, ``regime``) names."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_prefill_attention as k3
@@ -744,9 +764,32 @@ def phase_routes():
         k4_ran[key] = ran(k4.int8_matmul, lambda: k4.int8_matmul(x, q, sc))
         if k4_ran[key] != k4.regime(m, x.dtype):
             raise AssertionError(f"K4 {key} ran its {k4_ran[key]} kernel")
+    k7_ran, k8_ran = {}, {}
+    for d in (D, 64):
+        for q_name in FLASH_TOL:
+            dt = getattr(torch, q_name)
+            q, dout = (_randn(gen, (1, 256, 12, d), dt) for _ in range(2))
+            k, v = (_randn(gen, (1, 256, 4, d), dt) for _ in range(2))
+            kw = dict(scale=d ** -0.5, causal=True, window=-1)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = (dout.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            key = f"{q_name}, D = {d}"
+            k7_ran[key] = ran(fa.flash_attention_bwd_dq,
+                              lambda: fa.flash_attention_bwd_dq(
+                                  q, k, v, dout, lse, delta, **kw))
+            k8_ran[key] = ran(fa.flash_attention_bwd_dkv,
+                              lambda: fa.flash_attention_bwd_dkv(
+                                  q, k, v, dout, lse, delta, **kw))
+            want = fa.route(dt, d)
+            if k7_ran[key] != want or k8_ran[key] != want:
+                raise AssertionError(f"K7 / K8 {key} ran their "
+                                     f"{k7_ran[key]} / {k8_ran[key]} "
+                                     f"kernels, not {want}")
     emit({"phase": "routes", "paged_decode_attention": k2_ran,
           "paged_verify_attention": k5_ran, "paged_prefill_attention": k3_ran,
-          "int8_matmul": k4_ran})
+          "int8_matmul": k4_ran, "flash_attention_bwd_dq": k7_ran,
+          "flash_attention_bwd_dkv": k8_ran})
 
 
 def _verify_inputs(t):
@@ -1081,9 +1124,7 @@ def _k4_row(gen, m, k, n, x_name, out_name):
     del qs, wd
     nbytes = (q.numel() + sc.numel() * 4 + x.numel() * x.element_size()
               + m * n * got.element_size())
-    bound_ms, bound_by = _bound(
-        nbytes, 2.0 * m * k * n / (PEAK_BF16 if dt == torch.bfloat16
-                                   else PEAK_FP32))
+    bound_ms, bound_by = _bound(nbytes, 2.0 * m * k * n / _peak(x))
     return {"phase": "int8_matmul", "m": m, "k": k, "n": n, "x": x_name,
             "out": out_name, "max_abs_err": max_err, "atol": atol,
             "rtol": rtol, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -1178,7 +1219,8 @@ def phase_int8_dx():
             library_ms = cuda_ms(lambda i: ((dy * sc) @ wf.T).to(odt), 6)
             nbytes = (dy.numel() * 4 + q.numel() + n * 4
                       + K9_M * k * got.element_size())
-            bound_ms, bound_by = _bound(nbytes, 2.0 * K9_M * n * k / PEAK_FP32)
+            bound_ms, bound_by = _bound(nbytes,
+                                        2.0 * K9_M * n * k / _peak(dy))
             row = {"phase": "int8_matmul_dx", "m": K9_M, "k": k, "n": n,
                    "dy": "float32", "out": out_name, "max_abs_err": max_err,
                    "max_rel_err": max_err / max(peak, 1e-30),
@@ -1337,9 +1379,7 @@ def phase_ternary_matmul():
         del qs, wd
         nbytes = (q.numel() + sc.numel() * 4
                   + (x.numel() + m * n) * x.element_size())
-        bound_ms, bound_by = _bound(
-            nbytes, 2.0 * m * k * n / (PEAK_BF16 if dt == torch.bfloat16
-                                       else PEAK_FP32))
+        bound_ms, bound_by = _bound(nbytes, 2.0 * m * k * n / _peak(x))
         row = {"phase": "ternary_matmul", "m": m, "k": k, "n": n,
                "x": x_name, "codes": codes,
                "zero_code_share": float((q == 0).float().mean()),
@@ -1434,11 +1474,16 @@ def _rel_err(got, want):
 def phase_flash_kernels():
     """K6, K7 and K8 against their plain versions in fp32 and bf16, with
     windows -1 and 256, at the training path's shapes; the backward
-    kernels and the plain backward get the kernel's own out and lse. The
-    library yardstick is ``F.scaled_dot_product_attention`` (causal, K/V
-    repeated to H heads inside the timed call; a boolean mask for the
-    window), and its autograd backward for K7 + K8 together. Returns the
-    main-path rows by kernel."""
+    kernels and the plain backward get the kernel's own out and lse. A
+    second call of K7 and of K8 on the same inputs must give the same
+    bits. The library yardstick is ``F.scaled_dot_product_attention``
+    (causal, K/V repeated to H heads inside the timed call; a boolean mask
+    for the window), and its autograd backward for K7 + K8 together. K7,
+    K8 and that backward are timed by device time (torch.profiler; their
+    CUDA-event times beside), K6 by CUDA events. Calls only the kernels'
+    public wrappers, so an older checkout's kernels can be timed through
+    it (``benchmarks/flash_bwd_bench.py``). Returns the main-path rows by
+    kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1473,6 +1518,9 @@ def phase_flash_kernels():
                     f"flash kernels disagree with their plain versions: "
                     f"{q_name}, window {window}: {errs} (tolerance {tol} of "
                     f"the max), finite {finite}, dtypes {dtypes_ok}")
+            _same_bits(f"{q_name}, window {window}", (dq, dk, dv), (
+                fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw),)
+                + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw))
             del w_out, w_lse, w_dq, w_dk, w_dv
             mask = None if window <= 0 else ref.flash_mask(
                 FLASH_S, FLASH_S, causal=True, window=window, device="cuda")
@@ -1504,17 +1552,29 @@ def phase_flash_kernels():
                         q, k, v, **kw), 3),
                     cuda_ms(lambda i: library(q, k, v), 10)),
                 "flash_attention_bwd_dq": (
-                    cuda_ms(lambda i: fa.flash_attention_bwd_dq(
+                    device_ms(lambda i: fa.flash_attention_bwd_dq(
                         q, k, v, dout, lse, delta, **kw), 10), None, None),
                 "flash_attention_bwd_dkv": (
-                    cuda_ms(lambda i: fa.flash_attention_bwd_dkv(
+                    device_ms(lambda i: fa.flash_attention_bwd_dkv(
                         q, k, v, dout, lse, delta, **kw), 10), None, None)}
+            event_ms = {
+                "flash_attention_bwd_dq": cuda_ms(
+                    lambda i: fa.flash_attention_bwd_dq(
+                        q, k, v, dout, lse, delta, **kw), 10),
+                "flash_attention_bwd_dkv": cuda_ms(
+                    lambda i: fa.flash_attention_bwd_dkv(
+                        q, k, v, dout, lse, delta, **kw), 10)}
             # one plain backward and one library backward compute dq, dk
             # and dv together: each is both K7's and K8's yardstick
             plain_bwd = cuda_ms(lambda i: ref.flash_attention_bwd_ref(
                 q, k, v, out, lse, dout, **kw), 3)
-            lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
-                lib_out, leaves, lib_dout, retain_graph=True), 10)
+
+            def lib_backward(i):
+                return torch.autograd.grad(lib_out, leaves, lib_dout,
+                                           retain_graph=True)
+
+            lib_bwd = device_ms(lib_backward, 10)
+            event_ms["library_bwd"] = cuda_ms(lib_backward, 10)
             del lib_out, leaves
             bounds = _flash_bounds(q, k, window)
             err_of = {"flash_attention_fwd": ("out", "lse"),
@@ -1535,6 +1595,10 @@ def phase_flash_kernels():
                        else lib_bwd,
                        "bound_ms": bounds[name][0],
                        "bound_by": bounds[name][1]}
+                if name in event_ms:        # device time, CUDA events beside
+                    row["timing"] = "device"
+                    row["cuda_event_ms"] = event_ms[name]
+                    row["library_cuda_event_ms"] = event_ms["library_bwd"]
                 emit(row)
                 if (q_name, window) == MAIN_FLASH:
                     main[name] = row
@@ -1542,6 +1606,84 @@ def phase_flash_kernels():
         del q, k, v, dout
         torch.cuda.empty_cache()
     return main
+
+
+def _same_bits(label, first, second):
+    """Two calls' outputs must be equal bit for bit (every sum of K7 and
+    K8 is taken in a fixed order)."""
+    import torch
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"flash backward: two calls on the same inputs "
+                             f"differ: {label}")
+
+
+# (Sq, Sk, H, Hkv, D, causal, window): ragged lengths across the tensor-core
+# kernels' 64- and 32-row tiles (1, 63, 65, 1000; Sq < Sk), GQA groups of
+# 1, 3 and 9, both head dims, a window of 300 and a non-causal case
+FLASH_RAGGED = ((1, 1, 4, 4, 128, True, -1),
+                (63, 63, 12, 4, 64, True, -1),
+                (65, 65, 36, 4, 128, True, 300),
+                (1000, 1000, 12, 4, 64, True, 300),
+                (1000, 1000, 36, 4, 128, True, -1),
+                (100, 128, 9, 1, 128, True, -1),
+                (100, 128, 3, 3, 64, False, 300))
+
+
+# An absolute floor beside FLASH_TOL's share of the max in the ragged cases:
+# with one visible key (Sq = Sk = 1) dq and dk are zero by construction (the
+# softmax of one score is 1), so the kernel's and the plain version's values
+# are both rounding noise of dP - delta, of no size a share of their max
+# can hold; the inputs are N(0, 1), so gradients are O(1) elsewhere
+FLASH_ATOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def phase_flash_ragged():
+    """K7 and K8 (checked, not timed) against their plain versions at the
+    FLASH_RAGGED shapes, B = 2, fp32 and bf16, on K6's out and lse: each
+    gradient within FLASH_TOL of its plain version's max plus FLASH_ATOL; a
+    second call of each must give the same bits."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for sq, sk, h, hkv, d, causal, window in FLASH_RAGGED:
+        for q_name, tol in FLASH_TOL.items():
+            dt = getattr(torch, q_name)
+            q = _randn(gen, (2, sq, h, d), dt)
+            k = _randn(gen, (2, sk, hkv, d), dt)
+            v = _randn(gen, (2, sk, hkv, d), dt)
+            dout = _randn(gen, (2, sq, h, d), dt)
+            kw = dict(scale=d ** -0.5, causal=causal, window=window)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = (dout.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                **kw)
+            label = (f"Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, causal "
+                     f"{causal}, window {window}, {q_name}")
+            _same_bits(label, (dq, dk, dv), (
+                fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw),)
+                + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw))
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+            errs = {n: _rel_err(g, w)
+                    for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+            finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+            ok = all(err <= tol * float(w.float().abs().max())
+                     + FLASH_ATOL[q_name]
+                     for (err, _), w in zip(errs.values(), want))
+            rows.append({"case": label, "max_abs_err": {
+                n: e[0] for n, e in errs.items()}, "rel_err": {
+                n: e[1] for n, e in errs.items()}, "kernel": fa.route(dt, d)})
+            if not (finite and ok):
+                raise AssertionError(f"flash backward disagrees with its "
+                                     f"plain version: {label}: (abs, rel) "
+                                     f"{errs} (tolerance {tol} of the max "
+                                     f"+ {FLASH_ATOL[q_name]}), finite "
+                                     f"{finite}")
+    emit({"phase": "flash_ragged", "cases": rows})
 
 
 # K10 at K6's shapes: (q dtype, K/V storage) with windows -1 and 256; the
@@ -1628,6 +1770,31 @@ def phase_flash_infer():
     return main
 
 
+def _bwd_counters():
+    from repro_torch.kernels import flash_attention as fa
+    return (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+
+
+def _reset_bwd_kernels():
+    """K7's and K8's per-kernel counters to 0 (beside ``launches``)."""
+    for fn in _bwd_counters():
+        for key in fn.launches_by_kernel:
+            fn.launches_by_kernel[key] = 0
+
+
+def _bwd_on_tensor_cores(phase):
+    """K7's and K8's per-kernel counts since ``_reset_bwd_kernels``; every
+    launch of the fp32 backward must have gone through the tensor-core
+    kernels."""
+    by_kernel = {fn.__name__: dict(fn.launches_by_kernel)
+                 for fn in _bwd_counters()}
+    for fn in _bwd_counters():
+        if fn.launches_by_kernel != {"tensor_cores": fn.launches, "simt": 0}:
+            raise AssertionError(f"{phase}: the fp32 backward ran off the "
+                                 f"tensor-core kernels: {by_kernel}")
+    return by_kernel
+
+
 def _train_cfg(layers):
     """starcoder2-7b at full width, cut to ``layers`` layers."""
     from repro_torch.configs import starcoder2_7b
@@ -1662,11 +1829,14 @@ def phase_train_parity():
     for route, extra in (("flash", {}), ("sdpa", {"positions": pos})):
         for fn in counters.values():
             fn.launches = 0
+        _reset_bwd_kernels()
         loss, _ = tf_lib.loss_fn(params, cfg, {**batch, **extra})
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
         results[route] = (loss.detach(), grads,
                           {n: fn.launches for n, fn in counters.items()})
+        if route == "flash":
+            by_kernel = _bwd_on_tensor_cores("train parity")
     (l_f, g_f, launches), (l_s, g_s, sdpa_launches) = (results["flash"],
                                                        results["sdpa"])
     loss_rel = float((l_f - l_s).abs() / l_s.abs())
@@ -1679,6 +1849,7 @@ def phase_train_parity():
            "loss_flash": float(l_f), "loss_sdpa": float(l_s),
            "loss_rel_diff": loss_rel, "max_leaf_rel_diff": leaf_rel,
            "leaves": len(leaves), "launches": launches,
+           "bwd_launches_by_kernel": by_kernel,
            "sdpa_launches": sdpa_launches}
     emit(row)
     if not (finite and loss_rel <= 1e-5 and leaf_rel <= 1e-4):
@@ -1754,9 +1925,11 @@ def phase_train():
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    _reset_bwd_kernels()
     eng.run(steps)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_kernel = _bwd_on_tensor_cores("train")
     want = {n: (steps * TRAIN_LAYERS if n in TRAIN_FLASH else 0)
             for n in counters}
     log = np.concatenate(eng.step_log)
@@ -1780,7 +1953,7 @@ def phase_train():
            * k / walls[-1],
            "fp32_peak_share_last_tick": (cost.fwd_flops + cost.bwd_flops)
            * k / walls[-1] / PEAK_FP32,
-           "launches": launches,
+           "launches": launches, "bwd_launches_by_kernel": by_kernel,
            "train": {key: train[key] for key in (
                "steps", "bwd_fwd_ratio", "fwd_j", "bwd_j", "opt_j",
                "total_j", "j_per_step", "j_per_sample")}}
@@ -1885,11 +2058,13 @@ def phase_trainer():
         counters = _counters()
         for fn in counters.values():
             fn.launches = 0
+        _reset_bwd_kernels()
         t0 = time.monotonic()
         tr_a.run(2 * n)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
+        by_kernel = _bwd_on_tensor_cores("trainer")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = {name: (2 * n * cfg.n_layers if name in TRAIN_FLASH else 0)
                 for name in counters}
@@ -1965,6 +2140,7 @@ def phase_trainer():
                "preempt_step": preempt_step,
                "preempt_saved_step": preempt_saved,
                "corrupt_restore_refused": refused, "launches": launches,
+               "bwd_launches_by_kernel": by_kernel,
                "profile": profile}
         emit(row)
         if not (restored and step_after_restore == n
@@ -2588,6 +2764,7 @@ def main() -> int:
     phase_int8_train_grads()
     rows["ternary_matmul"] = phase_ternary_matmul()
     rows.update(phase_flash_kernels())
+    phase_flash_ragged()
     rows["flash_attention"] = phase_flash_infer()
     phase_streams()
     torch.cuda.empty_cache()

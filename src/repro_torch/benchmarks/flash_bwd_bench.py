@@ -1,0 +1,56 @@
+"""Training flash-attention timings of the PyTorch port on the card, for a
+before/after comparison of two checkouts: K7 (``flash_attention_bwd_dq``)
+and K8 (``flash_attention_bwd_dkv``) against their plain versions and
+against the SDPA backward at the training path's shapes (B = 2, S = 2048,
+H = 36, Hkv = 4, D = 128, causal), fp32 and bf16, windows -1 and 256, by
+device time; K6 and K10 beside them by CUDA events.
+
+    PYTHONPATH=src python src/repro_torch/benchmarks/flash_bwd_bench.py
+    PYTHONPATH=<older checkout>/src \\
+        python src/repro_torch/benchmarks/flash_bwd_bench.py
+
+The measurement is chip_smoke.py's own, loaded from the checkout this file
+lies in: its ``phase_device`` (the card's name and power limit, TF32 off),
+``phase_flash_kernels`` (K6-K8 against their plain versions, two calls of
+K7 and of K8 equal bit for bit, K7, K8 and the SDPA backward by device
+time) and ``phase_flash_infer`` (K10). Those call only the kernels' public
+wrappers, so the second command times an older checkout's kernels on the
+same inputs. Prints JSON lines, with the flash source's ptxas lines. Needs
+a card.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import torch
+
+
+def _chip_smoke():
+    """chip_smoke.py of the checkout this file lies in, as a module."""
+    path = Path(__file__).resolve().parents[3] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_bwd_bench: needs a CUDA device")
+    cs = _chip_smoke()
+    from repro_torch.kernels import build
+    cs.phase_device()
+    build.build(["flash_attention"])
+    cs.emit({"phase": "checkout", "src": str(Path(build.__file__).parents[2]),
+             "flash_attention_ptxas": [
+                 line.strip() for line in
+                 build.build_log("flash_attention").splitlines()
+                 if "registers" in line or "spill" in line]})
+    cs.phase_flash_kernels()
+    cs.phase_flash_infer()
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,8 @@
 // Replaces the Pallas TPU kernels behind repro/kernels/flash_attention.py::
 // flash_attention_vjp and flash_attention:
 //   K6  _fwd_with_lse         (_flash_kernel with save_lse=True)
-//   K7  _flash_vjp_bwd -> dQ  (_flash_bwd_dq_kernel)
-//   K8  _flash_vjp_bwd -> dK, dV (_flash_bwd_dkv_kernel)
+//   K7  _flash_vjp_bwd -> dQ  (_flash_bwd_dq_kernel, pallas_call at :337)
+//   K8  _flash_vjp_bwd -> dK, dV (_flash_bwd_dkv_kernel, pallas_call at :357)
 //   K10 flash_attention       (_flash_kernel without the lse; int8-KV mode)
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D) with rep = H / Hkv, all contiguous
 // and read in place (the TPU wrapper's transposes and padding are not
@@ -28,28 +28,68 @@
 //   K8: dv = sum over the group's rep heads of p^T dO, dk = the same sum of
 //       dS^T (scale * q), in k's and v's dtypes.
 //
-// What bounds it on the card: operations. A valid (query, key) pair costs
+// What bounds them on the card: operations. A valid (query, key) pair costs
 // 4 * D FLOPs per head forward, 6 * D in K7 (s, dP, dQ) and 8 * D in K8 (s,
 // dP, dV, dK), against one read of each q, k, v, dO row: at starcoder2-7b's
 // shapes (S = 2048, causal) that is hundreds of FLOPs per byte, above the
-// H100's ridge, so the least time is the pairs' FLOPs over the fp32 (or
-// bf16) peak. What the design does about it:
-//   * 64 x 64 tiles, 256 threads, each thread a 4 x 4 block of scores and
-//     4 rows x D/16 columns of the accumulator in registers, so each value
-//     read from shared memory serves 4 FMAs;
-//   * tiles outside the causal triangle or the window are never visited:
-//     the key loop (K6, K7) and the query loop (K8) run only over the range
-//     the tile's rows can see;
-//   * K8 gives each block one (batch, KV head, key tile) and walks the rep
-//     query heads of the group and their query tiles inside the block, so
-//     the GQA sum stays in registers: no atomics, a deterministic result,
-//     and no per-query-head fp32 dK/dV in device memory (the TPU kernel
-//     writes (B, H, Sk, D) fp32 and sums outside);
-//   * rows that shared memory reads across threads (K rows in the score
-//     pass) are padded to D + 4 floats, so 16-byte reads hit distinct banks.
-// Known weak point: the dots run on fp32 CUDA cores with no overlap of
-// loads and math (one block per SM for K7 and K8, two for K6); wgmma, TMA
-// and a load pipeline are later work.
+// H100's ridge. The least time for fp32 work is its FLOPs at the 3xTF32
+// rate, 495 / 3 = 165 TFLOP/s on the tensor cores (below, K7 and K8); for
+// bf16, at the bf16 peak.
+//
+// K7 and K8 in fp32 (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel; the
+// wrapper's route "tensor_cores"). Every product runs on the tensor cores
+// in tf32 with fp32-accurate results (3xTF32): each fp32 operand x splits
+// into hi = tf32(x) (round to nearest, ties away: cvt.rna's rounding) and
+// lo = tf32(x - hi), and A B = A_lo B_hi + A_hi B_lo + A_hi B_hi, small
+// terms first, about 2^-21 relative a product (plain TF32, hi only, is
+// about 2^-11 and misses the fp32 gate). Q, K, V and dO split as their
+// tiles are stored, P and dS in registers as they are made.
+//   * All seven products on wgmma. S = Q K^T and dP = dO V^T (K8: S^T = K
+//     Q^T, dP^T = V dO^T) have K-major operands as the tensors are stored:
+//     m64n32k8 from hi/lo planes in shared memory (K7's S takes Q's hi half
+//     from registers, kept for the whole block). tf32 wgmma has no
+//     transposed operand, so the products over the rows (dQ over keys, dV
+//     and dK over queries) run as their transposes, dQ^T = K^T dS^T, dV^T =
+//     dO^T P, dK^T = (scale Q)^T dS: the side that would need the
+//     transposition (K, dO, Q) comes in as the A operand from registers,
+//     which may be filled from any layout, and the side made in registers
+//     (dS, P^T, dS^T) is written as K-major hi/lo planes for B. (A first
+//     design on warp-level mma.sync m16n8k8 for every product read each B
+//     fragment from shared memory once per warp and ran slower.)
+//   * Planes use wgmma's K-major layout with the 128-byte swizzle (rows of
+//     32 floats, 1024-byte aligned), so wgmma and the threads' own loads
+//     and stores read the same bytes; fp32 hi/lo planes take 8 bytes an
+//     element, which sets the tiles: K7 64 query rows over 32-key tiles, K8
+//     64 keys over 32-query tiles, about 205-225 KB a block, one block an SM.
+//   * The tensor cores' fp32 accumulation rounds toward zero; over the
+//     thousands of MMA steps of one output (K8 sums rep heads x Sq
+//     queries) that bias reached 1e-4 of the max. Each transposed product
+//     sums a tile's 12 wgmma in a fresh accumulator, and one fp32 add
+//     (to nearest) takes it into the running sum.
+//   * Two warpgroups. K7 is a pipeline over the key tiles on named
+//     barriers: warpgroup 0 stores tile i's K and V (loaded into its
+//     registers a tile ahead), computes S and P; warpgroup 1 computes dP
+//     and dS, takes K^T into registers, releases the tile and adds K^T
+//     dS^T while warpgroup 0 goes on to tile i + 1. K8 splits by product:
+//     warpgroup 0 S^T, P^T and dV^T, warpgroup 1 dP^T, dS^T and dK^T, the
+//     next query tile loading into registers meanwhile.
+//   * Block order: K7's grid walks each head's query tiles heaviest first;
+//     K8's 1-D grid puts the key tile slowest, so every (batch, KV head) of
+//     key tile 0, which the most query rows see under the causal mask,
+//     launches first (longest-processing-time order).
+//   * K8 walks the rep query heads of its group and their tiles inside the
+//     block, so the GQA sum stays in registers. Every sum is taken in a
+//     fixed order, with no atomics: two calls give the same bits.
+//
+// K7 and K8 in bf16 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; route
+// "simt") and K6/K10 (flash_fwd_kernel) run fp32 SIMT dots: 64 x 64 tiles,
+// 256 threads, each thread a 4 x 4 block of scores and 4 rows x D/16
+// columns of the accumulator in registers, so each value read from shared
+// memory serves 4 FMAs; tiles outside the causal triangle or the window
+// are never visited; rows that shared memory reads across threads are
+// padded to D + 4 floats. Known weak point: these run on fp32 CUDA cores
+// with no overlap of loads and math (one block per SM for the bf16
+// backward, two for K6); K6 and K10 should take K7's tile machinery next.
 //
 // K10 (the inference flash_attention, with its int8-KV mode) is the same
 // forward body without the lse: flash_fwd_kernel takes the K/V storage
@@ -70,6 +110,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -512,6 +554,573 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7 and K8 on the tensor cores: fp32 q, k, v and dO through the 3xTF32 split
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;          // two warpgroups (roles) of four warps
+constexpr int kDqRows = 64;              // K7: query rows a block, 16 a warp
+constexpr int kDqKeys = 32;              // K7: keys a streamed tile
+constexpr int kDkvKeys = 64;             // K8: keys a block, 16 a warp
+constexpr int kDkvRows = 32;             // K8: query rows a streamed tile
+
+// floats of shared memory past the 1024-byte alignment: K7 holds Q (scaled)
+// and dO (64 rows) and K and V (32 rows) as hi and lo planes, the dS planes
+// (64 x 32), four exchange tiles (16 x 32) and 128 lse and delta rows; K8
+// holds K and V (64 rows) and Q (scaled) and dO (32 rows) as hi and lo
+// planes, the P^T and dS^T planes (64 x 32) and 64 lse and delta rows
+__host__ __device__ constexpr int dq_smem_floats(int D) { return 384 * D + 2 * 2048 + 2048 + 128; }
+__host__ __device__ constexpr int dkv_smem_floats(int D) { return 384 * D + 4 * 2048 + 64; }
+
+// Float offset of element (r, c) of a plane of R rows of D floats in
+// wgmma's K-major layout with the 128-byte swizzle: D / 32 blocks of R rows
+// of 32 floats (128 bytes), block after block, each row's 16-byte chunks
+// xor-swizzled by the row mod 8 (the plane starts 1024-byte aligned). The
+// threads' own reads and writes use the same offsets: whole rows of 16-byte
+// chunks (tile stores) fall on distinct banks, the register fragments'
+// scalar reads on at most two ways.
+template <int D, int R>
+__device__ __forceinline__ int pl(int r, int c) {
+  return (c >> 5) * (R * 32) + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& h, uint4& l) {
+  hopper::tf32_split(x.x, h.x, l.x);
+  hopper::tf32_split(x.y, h.y, l.y);
+  hopper::tf32_split(x.z, h.z, l.z);
+  hopper::tf32_split(x.w, h.w, l.w);
+}
+
+// Rows [0, R) of a tile read from global memory (row stride gstride) times
+// `mul`, rows at or past n_valid zeros, split into the hi and lo planes: the
+// resident tiles, once a block.
+template <int D, int R>
+__device__ __forceinline__ void stage_global(float* hi, float* lo, const float* src,
+                                             long long gstride, int n_valid, float mul) {
+  constexpr int C = D / 4;
+  for (int idx = threadIdx.x; idx < R * C; idx += kTcThreads) {
+    const int r = idx / C, c = idx % C;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_valid) x = mul4(ld4(src + r * gstride + 4 * c), mul);
+    uint4 h, l;
+    split4(x, h, l);
+    const int o = pl<D, R>(r, 4 * c);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// A streamed 32-row tile of two tensors, held in the registers of the
+// kThreads threads that move it (from threadIdx.x % kThreads) between its
+// global loads (issued a tile ahead) and its split into the planes.
+template <int D, int kThreads>
+struct Prefetch {
+  static constexpr int kChunks = 32 * (D / 4) / kThreads;     // 16-byte chunks a thread, a tensor
+  float4 a[kChunks], b[kChunks];
+
+  // rows [0, 32) of a and b (row stride gstride), zeros at and past n_valid
+  __device__ __forceinline__ void load(const float* src_a, const float* src_b,
+                                       long long gstride, int n_valid) {
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int idx = threadIdx.x % kThreads + u * kThreads, r = idx / (D / 4), c = idx % (D / 4);
+      a[u] = b[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n_valid) {
+        a[u] = ld4(src_a + r * gstride + 4 * c);
+        b[u] = ld4(src_b + r * gstride + 4 * c);
+      }
+    }
+  }
+
+  // a times mul_a into planes (ah, al), b into (bh, bl)
+  __device__ __forceinline__ void store(float* ah, float* al, float mul_a, float* bh,
+                                        float* bl) const {
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int idx = threadIdx.x % kThreads + u * kThreads, r = idx / (D / 4), c = idx % (D / 4);
+      const int o = pl<D, 32>(r, 4 * c);
+      uint4 h, l;
+      split4(mul4(a[u], mul_a), h, l);
+      *reinterpret_cast<uint4*>(ah + o) = h;
+      *reinterpret_cast<uint4*>(al + o) = l;
+      split4(b[u], h, l);
+      *reinterpret_cast<uint4*>(bh + o) = h;
+      *reinterpret_cast<uint4*>(bl + o) = l;
+    }
+  }
+};
+
+// s = A B^T over D for the warpgroup's 64 rows of A and the 32 rows of B,
+// both from hi/lo planes (A of 64 rows, B of 32), in 3xTF32 on wgmma
+// m64n32k8: each k step of 8 issues A_lo B_hi, A_hi B_lo, A_hi B_hi (small
+// terms first), committed as one group and waited for. s[0][j][e] of warp w
+// of the warpgroup is (row 16w + g + 8 (e / 2), B row 8j + 2t + e % 2).
+template <int D>
+__device__ __forceinline__ void dots_wgmma(const float* a_hi, const float* a_lo,
+                                           const float* b_hi, const float* b_lo,
+                                           float (&s)[1][4][4]) {
+  float(&d)[16] = reinterpret_cast<float(&)[16]>(s);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    // k step kk: 32-float block kk / 4, 32 bytes into its rows per step
+    const int a_off = (kk >> 2) * (64 * 32) + (kk & 3) * 8;
+    const int b_off = (kk >> 2) * (32 * 32) + (kk & 3) * 8;
+    const uint64_t ah = hopper::sw128_desc(a_hi + a_off, 16, 1024);
+    const uint64_t al = hopper::sw128_desc(a_lo + a_off, 16, 1024);
+    const uint64_t bh = hopper::sw128_desc(b_hi + b_off, 16, 1024);
+    const uint64_t bl = hopper::sw128_desc(b_lo + b_off, 16, 1024);
+    hopper::wgmma_tf32_ss_n32(d, al, bh, kk > 0);
+    hopper::wgmma_tf32_ss_n32(d, ah, bl, 1);
+    hopper::wgmma_tf32_ss_n32(d, ah, bh, 1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+}
+
+// The hi halves of a warpgroup's A operand, kept in registers for the
+// whole block: rows 16w .. 16w + 15 (warp w) of a 64-row tile's hi plane,
+// all D columns, as tf32 fragments (wgmma_tf32_rs_n32's layout).
+template <int D>
+struct RowFrags {
+  uint32_t h[D / 8][4];
+
+  __device__ __forceinline__ void load(const float* xh) {
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+    const int r = 16 * w + g;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[kk][e] = __float_as_uint(xh[pl<D, 64>(r + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1))]);
+  }
+};
+
+// dots_wgmma with A's hi half from registers (RowFrags): A_lo B_hi reads
+// A's lo plane from shared memory, A_hi B_lo and A_hi B_hi only B's planes.
+template <int D>
+__device__ __forceinline__ void dots_wgmma_rs(const RowFrags<D>& a, const float* a_lo,
+                                              const float* b_hi, const float* b_lo,
+                                              float (&s)[1][4][4]) {
+  float(&d)[16] = reinterpret_cast<float(&)[16]>(s);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    // k step kk: 32-float block kk / 4, 32 bytes into its rows per step
+    const int a_off = (kk >> 2) * (64 * 32) + (kk & 3) * 8;
+    const int b_off = (kk >> 2) * (32 * 32) + (kk & 3) * 8;
+    const uint64_t al = hopper::sw128_desc(a_lo + a_off, 16, 1024);
+    const uint64_t bh = hopper::sw128_desc(b_hi + b_off, 16, 1024);
+    const uint64_t bl = hopper::sw128_desc(b_lo + b_off, 16, 1024);
+    hopper::wgmma_tf32_ss_n32(d, al, bh, kk > 0);
+    hopper::wgmma_tf32_rs_n32(d, a.h[kk], bl, 1);
+    hopper::wgmma_tf32_rs_n32(d, a.h[kk], bh, 1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+}
+
+// The transposed products (dQ^T = K^T dS^T, dV^T = dO^T P, dK^T = (scale
+// Q)^T dS) on wgmma in 3xTF32, in two steps: load takes X^T's A fragments
+// into registers, run multiplies them by B^T. tf32 wgmma reads
+// its shared-memory B only K-major, so B^T is the P^T, dS^T or dS planes the
+// warpgroups wrote (N rows of 32 k values), and X, a 32-row tile's hi/lo
+// planes (k = its 32 rows, m = its D columns), comes in as the A operand
+// from registers, which may be filled from any layout: m-tile mt is X's
+// columns 64 mt .. + 63, warp w's rows 16w + g (+ 8) of it, its k columns t
+// (+ 4) of each k step of 8.
+template <int D, int MT>
+struct TFrags {
+  uint32_t h[MT][4][4], l[MT][4][4];
+
+  __device__ __forceinline__ void load(const float* xh, const float* xl) {
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int r = 8 * kk + t, d = 64 * mt + 16 * w + g;
+        const int o[4] = {pl<D, 32>(r, d), pl<D, 32>(r, d + 8), pl<D, 32>(r + 4, d),
+                          pl<D, 32>(r + 4, d + 8)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          h[mt][kk][e] = __float_as_uint(xh[o[e]]);
+          l[mt][kk][e] = __float_as_uint(xl[o[e]]);
+        }
+      }
+  }
+
+  // acc[mt] += X^T B^T: acc[mt][4j + e] is (m = 64 mt + 16w + g + 8 (e / 2),
+  // n = 8j + 2t + e % 2). Each m-tile's 12 wgmma of the tile sum into a fresh
+  // accumulator that fp32 adds (to nearest) then add to acc: the tensor
+  // cores' own accumulation rounds toward zero, a bias that over the
+  // thousands of steps of a long sum (K8: rep heads x Sq queries) reached
+  // 1e-4 of the max.
+  template <int N>
+  __device__ __forceinline__ void run(const float* bh, const float* bl,
+                                      float (&acc)[MT][N / 2]) const {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float part[N / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dh = hopper::sw128_desc(bh + 8 * kk, 16, 1024);
+        const uint64_t dl = hopper::sw128_desc(bl + 8 * kk, 16, 1024);
+        if constexpr (N == 32) {
+          hopper::wgmma_tf32_rs_n32(part, l[mt][kk], dh, kk > 0);
+          hopper::wgmma_tf32_rs_n32(part, h[mt][kk], dl, 1);
+          hopper::wgmma_tf32_rs_n32(part, h[mt][kk], dh, 1);
+        } else {
+          hopper::wgmma_tf32_rs_n64(part, l[mt][kk], dh, kk > 0);
+          hopper::wgmma_tf32_rs_n64(part, h[mt][kk], dl, 1);
+          hopper::wgmma_tf32_rs_n64(part, h[mt][kk], dh, 1);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[mt][i] += part[i];
+    }
+  }
+};
+
+// A warp's 16 x 32 accumulator-layout tile (rows r0 + g (+ 8), columns 8j +
+// 2t (+ 1)) split into the hi/lo planes of a 32-column tile of R rows, the
+// B side of a later TFrags::run.
+template <int R>
+__device__ __forceinline__ void put_planes(float* hi, float* lo, int r0,
+                                           const float (&x)[1][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = pl<32, R>(r0 + g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1));
+      uint32_t h, l;
+      hopper::tf32_split(x[0][j][e], h, l);
+      hi[o] = __uint_as_float(h);
+      lo[o] = __uint_as_float(l);
+    }
+}
+
+// A warp's 16 x 32 tile to and from its group's exchange tile, in fragment
+// order (value v of lane L at v * 32 + L): both warps of a group hold the
+// same (row, key) positions, so each reads its partner's values for its own.
+__device__ __forceinline__ void put_tile(float* xs, const float (&x)[1][4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int v = 0; v < 16; ++v) xs[v * 32 + lane] = x[0][v / 4][v % 4];
+}
+
+__device__ __forceinline__ void get_tile(const float* xs, float (&x)[1][4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int v = 0; v < 16; ++v) x[0][v / 4][v % 4] = xs[v * 32 + lane];
+}
+
+// The block's shared memory, 1024-byte aligned for the swizzled planes.
+__device__ __forceinline__ float* tc_smem(float4* raw) {
+  return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                  ~(uintptr_t)1023);
+}
+
+// Named barriers (0 is __syncthreads). In K7 warpgroup 0 arrives and
+// warpgroup 1 waits on kPlanesReady (a key tile's K and V planes are
+// stored) and kPReady (its P is in the exchange tiles); warpgroup 1 arrives
+// and warpgroup 0 waits on kPlanesFree (warpgroup 1 has read the tile's V
+// planes, P, and K as its A fragments). kStored (K7's warpgroup 0) and
+// kDsStored (K7's and K8's warpgroup 1) are one warpgroup's own: its
+// stores are done before its wgmma reads them.
+constexpr int kPlanesReady = 1, kPReady = 2, kPlanesFree = 3, kStored = 4, kDsStored = 5;
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// K7 on the tensor cores: grid (Sq tiles of 64, H, B), heaviest tiles first
+// as in the SIMT kernel. The two warpgroups work as a pipeline over the
+// 32-key tiles. Warpgroup 0 splits tile i's K and V (loaded into its
+// registers during tile i - 1) into their planes, computes S = (scale Q)
+// K^T on wgmma and P, and passes P from warp w to warp w of warpgroup 1
+// through their exchange tile. Warpgroup 1 computes dP = dO V^T on wgmma and
+// dS = P (dP - delta) into the dS planes, takes K^T's A fragments into
+// registers, releases the tile, and adds K^T dS^T to dQ^T (the block's 64
+// rows, all of D) while warpgroup 0 goes on to tile i + 1. Shared memory:
+// the block's Q and dO and the tile's K and V as hi/lo planes, the dS
+// planes, the exchange tiles, the rows' lse and delta.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int causal,
+                       int window, float scale) {
+  extern __shared__ float4 smem4[];
+  float* q_hi = tc_smem(smem4);
+  float* q_lo = q_hi + kDqRows * D;
+  float* do_hi = q_lo + kDqRows * D;
+  float* do_lo = do_hi + kDqRows * D;
+  float* k_hi = do_lo + kDqRows * D;
+  float* k_lo = k_hi + kDqKeys * D;
+  float* v_hi = k_lo + kDqKeys * D;
+  float* v_lo = v_hi + kDqKeys * D;
+  float* ds_hi = v_lo + kDqKeys * D;                // 64 rows x 32 keys
+  float* ds_lo = ds_hi + kDqRows * kDqKeys;
+  float* xs_all = ds_lo + kDqRows * kDqKeys;        // 4 groups x 16 x 32
+  float* lse_s = xs_all + 2048;
+  float* dl_s = lse_s + kDqRows;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int grp = warp & 3, role = warp >> 2;
+  const long long q_row = (long long)H * D, k_row = (long long)Hkv * D;
+  const int n_q = min(kDqRows, Sq - q0);
+  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * D;
+
+  // key tiles [t_lo, t_lo + n_tiles) of 32: the keys the block's rows can see
+  const int q_last = q0 + n_q - 1;
+  const int key_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int key_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int t_lo = key_lo / kDqKeys;
+  const int n_tiles = max(0, (key_hi + kDqKeys - 1) / kDqKeys - t_lo);
+
+  stage_global<D, kDqRows>(q_hi, q_lo, q + q_off, q_row, n_q, scale);
+  stage_global<D, kDqRows>(do_hi, do_lo, dout + q_off, q_row, n_q, 1.f);
+  const long long row_off = ((long long)b * H + h) * Sq + q0;
+  if (tid < kDqRows) {
+    lse_s[tid] = tid < n_q ? lse[row_off + tid] : 0.f;
+    dl_s[tid] = tid < n_q ? delta[row_off + tid] : 0.f;
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  float* xs = xs_all + grp * 512;
+  const int row = 16 * grp + g;                     // this thread's rows: row, row + 8
+  if (role == 0) {
+    const float* k_g = k + (long long)b * Sk * k_row + (long long)hk * D;
+    const float* v_g = v + (long long)b * Sk * k_row + (long long)hk * D;
+    Prefetch<D, 128> next;
+    RowFrags<D> qa;                                 // (scale Q)'s hi half, for the whole block
+    qa.load(q_hi);
+    auto fetch = [&](int i) {
+      const int k0 = (t_lo + i) * kDqKeys;
+      next.load(k_g + k0 * k_row, v_g + k0 * k_row, k_row, Sk - k0);
+    };
+    if (n_tiles > 0) fetch(0);
+    for (int i = 0; i < n_tiles; ++i) {
+      if (i > 0) bar_sync(kPlanesFree, kTcThreads);   // warpgroup 1 is done with tile i - 1
+      next.store(k_hi, k_lo, 1.f, v_hi, v_lo);
+      hopper::fence_proxy_async();
+      bar_sync(kStored, 128);
+      bar_arrive(kPlanesReady, kTcThreads);
+      if (i + 1 < n_tiles) fetch(i + 1);
+      const int k0 = (t_lo + i) * kDqKeys;
+      float s[1][4][4];
+      dots_wgmma_rs<D>(qa, q_lo, k_hi, k_lo, s);      // S
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row + 8 * (e >> 1);
+          const bool ok =
+              valid_pair(q0 + r, k0 + 8 * j + 2 * t + (e & 1), Sq, Sk, causal, window);
+          // explicit mask: a row with no valid key has lse ~ -1e30
+          s[0][j][e] = ok ? expf(s[0][j][e] - lse_s[r]) : 0.f;
+        }
+      put_tile(xs, s);                    // P
+      bar_arrive(kPReady, kTcThreads);
+    }
+    return;
+  }
+
+  float acc[D / 64][32];                            // dQ^T: D x the block's 64 rows
+#pragma unroll
+  for (int mt = 0; mt < D / 64; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    bar_sync(kPlanesReady, kTcThreads);
+    float s[1][4][4], p[1][4][4];
+    dots_wgmma<D>(do_hi, do_lo, v_hi, v_lo, s);     // dP
+    TFrags<D, D / 64> kt;                           // K^T, dQ^T's A operand
+    kt.load(k_hi, k_lo);
+    bar_sync(kPReady, kTcThreads);
+    get_tile(xs, p);
+    if (i + 1 < n_tiles) bar_arrive(kPlanesFree, kTcThreads);   // V, K and P are read
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[0][j][e] = p[0][j][e] * (s[0][j][e] - dl_s[row + 8 * (e >> 1)]);
+    put_planes<kDqRows>(ds_hi, ds_lo, 16 * grp, s);   // dS
+    hopper::fence_proxy_async();
+    bar_sync(kDsStored, 128);
+    kt.template run<64>(ds_hi, ds_lo, acc);         // dQ^T += K^T dS^T
+  }
+
+  // acc[mt][4j + e]: d = 64 mt + 16 grp + g + 8 (e / 2), row 8j + 2t + e % 2
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int qi = q0 + 8 * j + 2 * t + e1;
+      if (qi >= Sq) continue;
+      float* o = dq + ((long long)b * Sq + qi) * q_row + (long long)h * D + 16 * grp + g;
+#pragma unroll
+      for (int mt = 0; mt < D / 64; ++mt)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1] * scale;
+    }
+}
+
+// K8 on the tensor cores: a 1-D grid of (key tile of 64, batch, KV head)
+// blocks, key tile slowest, so every (b, hk) of key tile 0 (the heaviest
+// under the causal mask) launches first (longest-processing-time order).
+// Warpgroup 0 computes S^T = K (scale Q)^T and P^T, warpgroup 1 dP^T = V
+// dO^T, each on wgmma from the planes; P^T goes into hi/lo planes, from
+// which warpgroup 1 takes it for dS^T = P^T (dP^T - delta) and its own
+// planes; then warpgroup 0 adds dO^T P to dV^T and warpgroup 1 (scale Q)^T
+// dS to dK^T (TFrags), each for all D rows and the block's 64 keys.
+// Shared memory: the block's K and V (resident) and the current 32-query
+// tile's Q and dO as hi/lo planes, the P^T and dS^T planes, the tile's lse
+// and delta rows. The block walks the rep query heads of its group and
+// their query tiles in order, dV^T or dK^T in each warpgroup's registers;
+// the next tile loads into registers during this tile's math.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int B, int Sq, int Sk,
+                        int H, int Hkv, int causal, int window, float scale) {
+  extern __shared__ float4 smem4[];
+  float* k_hi = tc_smem(smem4);
+  float* k_lo = k_hi + kDkvKeys * D;
+  float* v_hi = k_lo + kDkvKeys * D;
+  float* v_lo = v_hi + kDkvKeys * D;
+  float* q_hi = v_lo + kDkvKeys * D;
+  float* q_lo = q_hi + kDkvRows * D;
+  float* do_hi = q_lo + kDkvRows * D;
+  float* do_lo = do_hi + kDkvRows * D;
+  float* pt_hi = do_lo + kDkvRows * D;              // 64 keys x 32 queries
+  float* pt_lo = pt_hi + kDkvKeys * kDkvRows;
+  float* st_hi = pt_lo + kDkvKeys * kDkvRows;
+  float* st_lo = st_hi + kDkvKeys * kDkvRows;
+  float* lse_s = st_lo + kDkvKeys * kDkvRows;
+  float* dl_s = lse_s + kDkvRows;
+
+  const int n_bh = B * Hkv;
+  const int k0 = (blockIdx.x / n_bh) * kDkvKeys;
+  const int b = (blockIdx.x % n_bh) / Hkv, hk = blockIdx.x % Hkv, rep = H / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int grp = warp & 3, role = warp >> 2;
+  const long long q_row = (long long)H * D, k_row = (long long)Hkv * D;
+  const int n_k = min(kDkvKeys, Sk - k0);
+  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * D;
+
+  // query tiles [qt_lo, qt_lo + n_qt) of 32 that can see a key of the
+  // block, for each of the rep heads: tile i is head i / n_qt's tile i % n_qt
+  const int k_last = k0 + n_k - 1;
+  const int qry_lo = causal ? k0 : 0;
+  const int qry_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int qt_lo = qry_lo / kDkvRows;
+  const int n_qt = max(0, (qry_hi + kDkvRows - 1) / kDkvRows - qt_lo);
+  const int n_tiles = rep * n_qt;
+  Prefetch<D, kTcThreads> next;
+  float next_row = 0.f;                   // lse (threads 0-31) or delta (32-63) of a query row
+  auto fetch = [&](int i) {
+    const int h = hk * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * kDkvRows;
+    const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * D;
+    next.load(q + q_off, dout + q_off, q_row, Sq - q0);
+    if (tid < 2 * kDkvRows) {
+      const int r = tid % kDkvRows;
+      next_row = q0 + r < Sq
+                     ? (tid < kDkvRows ? lse : delta)[((long long)b * H + h) * Sq + q0 + r]
+                     : 0.f;
+    }
+  };
+  if (n_tiles > 0) fetch(0);
+  stage_global<D, kDkvKeys>(k_hi, k_lo, k + k_off, k_row, n_k, 1.f);
+  stage_global<D, kDkvKeys>(v_hi, v_lo, v + k_off, k_row, n_k, 1.f);
+
+  const int key = 16 * grp + g;                     // this thread's keys: key, key + 8
+  float acc[D / 64][32];                            // dV^T (role 0) or dK^T (role 1): D x 64 keys
+#pragma unroll
+  for (int mt = 0; mt < D / 64; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    __syncthreads();                      // the last tile's readers of the planes are done
+    next.store(q_hi, q_lo, scale, do_hi, do_lo);
+    if (tid < 2 * kDkvRows) lse_s[tid] = next_row;   // lse, then delta
+    hopper::fence_proxy_async();          // the planes' stores, before wgmma reads them
+    __syncthreads();                      // tile i's planes are ready
+    if (i + 1 < n_tiles) fetch(i + 1);
+    const int q0 = (qt_lo + i % n_qt) * kDkvRows;
+
+    // transposed scores: rows are the warpgroup's 64 keys, columns the tile's queries
+    float s[1][4][4];                     // S^T (role 0) or dP^T (role 1)
+    if (role == 0) {
+      dots_wgmma<D>(k_hi, k_lo, q_hi, q_lo, s);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qq = 8 * j + 2 * t + (e & 1);
+          const bool ok = valid_pair(q0 + qq, k0 + key + 8 * (e >> 1), Sq, Sk, causal, window);
+          s[0][j][e] = ok ? expf(s[0][j][e] - lse_s[qq]) : 0.f;
+        }
+      put_planes<kDkvKeys>(pt_hi, pt_lo, 16 * grp, s);  // P^T
+      hopper::fence_proxy_async();
+      __syncthreads();                    // P^T is in its planes
+      TFrags<D, D / 64> dot;
+      dot.load(do_hi, do_lo);
+      dot.template run<64>(pt_hi, pt_lo, acc);      // dV^T += dO^T P
+    } else {
+      dots_wgmma<D>(v_hi, v_lo, do_hi, do_lo, s);
+      __syncthreads();                    // P^T is in its planes
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = pl<32, kDkvKeys>(key + 8 * (e >> 1), 8 * j + 2 * t + (e & 1));
+          s[0][j][e] = (pt_hi[o] + pt_lo[o]) * (s[0][j][e] - dl_s[8 * j + 2 * t + (e & 1)]);
+        }
+      put_planes<kDkvKeys>(st_hi, st_lo, 16 * grp, s);  // dS^T
+      hopper::fence_proxy_async();
+      bar_sync(kDsStored, 128);           // warpgroup 1's dS^T is in its planes
+      TFrags<D, D / 64> qt;
+      qt.load(q_hi, q_lo);
+      qt.template run<64>(st_hi, st_lo, acc);       // dK^T += (scale Q)^T dS
+    }
+  }
+
+  // acc[mt][4j + e]: d = 64 mt + 16 grp + g + 8 (e / 2), key 8j + 2t + e % 2
+  float* out = role ? dk : dv;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int kk = 8 * j + 2 * t + e1;
+      if (kk >= n_k) continue;
+      float* o = out + ((long long)b * Sk + k0 + kk) * k_row + (long long)hk * D + 16 * grp + g;
+#pragma unroll
+      for (int mt = 0; mt < D / 64; ++mt)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1];
+    }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -588,6 +1197,43 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
+                         int H, int Hkv, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  const size_t smem = 1024 + sizeof(float) * dq_smem_floats(D);
+  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kDqRows - 1) / kDqRows, H, B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Sk, H, Hkv, causal, window,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                          int Sk, int H, int Hkv, int causal, int window, float scale,
+                          cudaStream_t stream) {
+  const size_t smem = 1024 + sizeof(float) * dkv_smem_floats(D);
+  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((Sk + kDkvKeys - 1) / kDkvKeys) * B * Hkv;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), B, Sq,
+      Sk, H, Hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points. q, dout, out and dq (B, Sq, H, D); k, v, dk and dv
@@ -634,17 +1280,35 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #undef INFER
 }
 
+// K7 and K8 take `tensor_cores` from the wrapper's route: 1 runs the 3xTF32
+// tensor-core kernel, which takes fp32 only; 0 the SIMT kernel, which takes
+// bf16 only. Any other pairing is refused (cudaErrorInvalidValue).
+#define BWD_DISPATCH(TC, SIMT)                                                     \
+  if (tensor_cores) {                                                             \
+    if (bf16) return static_cast<int>(cudaErrorInvalidValue);                     \
+    if (D == 64) return static_cast<int>(TC(64));                                 \
+    if (D == 128) return static_cast<int>(TC(128));                               \
+  } else if (bf16) {                                                              \
+    if (D == 64) return static_cast<int>(SIMT(64));                               \
+    if (D == 128) return static_cast<int>(SIMT(128));                             \
+  }                                                                               \
+  return static_cast<int>(cudaErrorInvalidValue);
+
 extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse,
                                              const void* delta, void* dq, int B, int Sq,
                                              int Sk, int H, int Hkv, int D, int causal,
                                              int window, float scale, int bf16,
-                                             void* stream) {
+                                             int tensor_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(T, DIM)                                                                        \
-  launch_dq<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, window, scale, \
+#define DQ_TC(DIM)                                                                       \
+  launch_dq_tc<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, window, scale, \
                     s)
-  FLASH_DISPATCH(DQ)
+#define DQ(DIM)                                                                          \
+  launch_dq<__nv_bfloat16, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal,   \
+                                window, scale, s)
+  BWD_DISPATCH(DQ_TC, DQ)
+#undef DQ_TC
 #undef DQ
 }
 
@@ -653,13 +1317,18 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
                                               const void* delta, void* dk, void* dv, int B,
                                               int Sq, int Sk, int H, int Hkv, int D,
                                               int causal, int window, float scale, int bf16,
-                                              void* stream) {
+                                              int tensor_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV(T, DIM)                                                                    \
-  launch_dkv<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal, window, \
+#define DKV_TC(DIM)                                                                        \
+  launch_dkv_tc<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal, window, \
                      scale, s)
-  FLASH_DISPATCH(DKV)
+#define DKV(DIM)                                                                           \
+  launch_dkv<__nv_bfloat16, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv,      \
+                                 causal, window, scale, s)
+  BWD_DISPATCH(DKV_TC, DKV)
+#undef DKV_TC
 #undef DKV
 }
 
+#undef BWD_DISPATCH
 #undef FLASH_DISPATCH

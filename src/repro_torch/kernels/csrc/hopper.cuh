@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (K3's and K4's wgmma paths): shared-memory addresses, cp.async with zero
-// fill, mbarriers, 2D TMA loads, the 128-byte swizzle, wgmma descriptors
-// and the warpgroup MMAs in the shapes the kernels issue. Everything here
+// (K3's and K4's wgmma paths, K7's and K8's 3xTF32 ones): shared-memory
+// addresses, cp.async with zero fill, the tf32 split, mbarriers, 2D TMA
+// loads, the 128-byte swizzle, wgmma descriptors and the warpgroup MMAs in
+// the shapes the kernels issue. Everything here
 // is a thin wrapper of one PTX instruction (or a fixed sequence of them);
 // the layouts are PTX's own (ISA 8.x, "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate").
@@ -69,6 +70,25 @@ __device__ __forceinline__ void cp_async_wait() {
 // landed cp.async copies) before later async-proxy reads (wgmma, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- tf32 --------------------------------------------------------------------
+
+// x rounded to tf32 (10 mantissa bits) as cvt.rna.tf32.f32 rounds: to
+// nearest, ties away from zero, done on the bit pattern (add half a tf32
+// ulp to the magnitude, clear the 13 low bits). The result is an fp32 value
+// that the tensor cores take exactly.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact): the
+// 3xTF32 split. hi * hi' + hi * lo' + lo * hi' keeps a product to about
+// 2^-21 relative; the dropped lo * lo' is about 2^-22.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32_rna(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32_rna(x - h));
 }
 
 // --- mbarriers and TMA -------------------------------------------------------
@@ -179,6 +199,60 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) += A (64 x 8) * B (8 x 32), both tf32 in shared memory,
+// K-major (tf32 has no transposed form), through their descriptors: rows of
+// 32 k values (128 bytes) with the 128-byte swizzle, as sw128_desc
+// describes them. D's layout is the bf16 shapes' (d[4j + e] above).
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) += A (64 x 8, tf32, registers) * B (8 x 32, tf32, shared
+// memory, K-major, through desc_b). A's fragment per warp w of the
+// warpgroup is mma.sync m16n8k8's for rows 16w .. 16w + 15: a0 (row 16w + g,
+// k t), a1 (row + 8, t), a2 (row, t + 4), a3 (row + 8, t + 4).
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 8, tf32, registers; wgmma_tf32_rs_n32's
+// fragment) * B (8 x 64, tf32, shared memory, K-major, through desc_b)
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // D (64 x 64, fp32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,

@@ -9,6 +9,14 @@ Each wrapper checks device, dtypes, shapes and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. Nothing is padded: the kernels
 mask by length. ``<wrapper>.launches`` counts each kernel's launches.
+
+K7 and K8 each have two kernels, and ``route`` picks one by dtype: fp32
+runs the tensor-core kernel (every product on wgmma in 3xTF32, hi/lo tf32
+halves of each operand: fp32-accurate), bf16 the SIMT kernel (fp32 FMAs).
+The C entry point refuses any other pairing, so neither stands in for the
+other; ``<wrapper>.launches_by_kernel`` counts each kernel's launches by
+the name ``route`` gives it. K8's tensor-core grid launches its blocks in
+``dkv_block_order``.
 """
 
 from __future__ import annotations
@@ -23,6 +31,29 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import DTYPES, check_cuda
 
 _HEAD_DIMS = (64, 128)
+# K8's keys a block (kDkvKeys in the source)
+DKV_KEYS = 64
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel K7 and K8 run for inputs of ``dtype`` at head dim ``d``:
+    "tensor_cores" for fp32, "simt" for bf16."""
+    if d not in _HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"flash backward: no kernel for {dtype} at head_dim "
+                         f"{d} (takes fp32 or bf16 at {_HEAD_DIMS})")
+    return "tensor_cores" if dtype == torch.float32 else "simt"
+
+
+def dkv_block_order(sk: int, b: int, hkv: int):
+    """(key tile, batch, KV head) of each block of K8's tensor-core grid,
+    in launch order: the key tile slowest, so every (batch, KV head) of key
+    tile 0, which the most query rows see under the causal mask, launches
+    first, then tile 1, and so on (the kernel's own decoding of
+    ``blockIdx.x``)."""
+    n_bh = b * hkv
+    n_kt = -(-sk // DKV_KEYS)
+    return [(x // n_bh, (x % n_bh) // hkv, x % hkv)
+            for x in range(n_kt * n_bh)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,7 +66,7 @@ def _launcher(name: str):
              "flash_attention_bwd_dq_launch": 7,
              "flash_attention_bwd_dkv_launch": 8,
              "flash_attention_launch": 6}[name]
-    n_flags = 2 if name == "flash_attention_launch" else 1
+    n_flags = 1 if name == "flash_attention_fwd_launch" else 2
     fn.argtypes = [p] * n_ptr + [i] * 8 + [ctypes.c_float] + [i] * n_flags \
         + [p]
     fn.restype = ctypes.c_int
@@ -81,9 +112,10 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, sq, sk, h, hkv, d
 
 
-def _statics(causal: bool, window: int, scale: float, q: torch.Tensor):
+def _statics(causal: bool, window: int, scale: float, q: torch.Tensor,
+             *flags: int):
     return (int(bool(causal)), int(window), float(scale),
-            int(q.dtype == torch.bfloat16),
+            int(q.dtype == torch.bfloat16), *flags,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -126,6 +158,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     out) (B, H, Sq) fp32. Returns dq (B, Sq, H, D) in q's dtype."""
     name = "flash_attention_bwd_dq"
     b, sq, sk, h, hkv, d = _check(name, q, k, v, dout, lse, delta)
+    kernel = route(q.dtype, d)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
@@ -135,9 +168,11 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, sk, h,
-            hkv, d, *_statics(causal, window, scale, q))
+            hkv, d, *_statics(causal, window, scale, q,
+                              int(kernel == "tensor_cores")))
     _raise_on(name, err)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_kernel[kernel] += 1
     return dq
 
 
@@ -151,6 +186,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     v's dtype, each summed over its GQA group inside the kernel."""
     name = "flash_attention_bwd_dkv"
     b, sq, sk, h, hkv, d = _check(name, q, k, v, dout, lse, delta)
+    kernel = route(q.dtype, d)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if dk.numel() == 0:
@@ -161,9 +197,12 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, sk, h, hkv, d, *_statics(causal, window, scale, q))
+            b, sq, sk, h, hkv, d,
+            *_statics(causal, window, scale, q,
+                      int(kernel == "tensor_cores")))
     _raise_on(name, err)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_by_kernel[kernel] += 1
     return dk, dv
 
 
@@ -208,5 +247,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_kernel = {"tensor_cores": 0, "simt": 0}
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_kernel = {"tensor_cores": 0, "simt": 0}
 flash_attention.launches = 0

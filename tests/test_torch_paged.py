@@ -489,8 +489,8 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """Each library's key hashes its source and every csrc/ header it
     includes, so an edited shared header rebuilds exactly the libraries
     that include it: decode_attention.cuh K1, K2, K3 and K5, hopper.cuh
-    K2, K3, K4 and K5, paged_decode_split.cuh K2 and K5 alone (computing
-    the key compiles nothing)."""
+    K2, K3, K4, K5 and the flash kernels (K6-K8, K10), paged_decode_split.cuh
+    K2 and K5 alone (computing the key compiles nothing)."""
     import shutil
 
     from repro_torch.kernels import build
@@ -501,7 +501,7 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
                                             "hopper.cuh"],
                 "paged_verify_attention": split,
                 "int8_matmul": ["hopper.cuh"],
-                "flash_attention": [], "ternary_matmul": []}
+                "flash_attention": ["hopper.cuh"], "ternary_matmul": []}
     assert set(build.SOURCES) == set(includes)
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
