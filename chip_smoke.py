@@ -35,9 +35,9 @@ non-zero and prints no result:
    timed) at C=200 with a window of 300 that starts inside cached pages
    and key tiles (K3's bf16-q modes over bf16 and int8 pools run its
    tensor-core kernel, the others its SIMT kernel; a ``routes`` line names
-   the kernel that one call of each K2, K3 and K5 mode, K4 regime and K7
-   and K8 mode (fp32 and bf16, head dims 128 and 64) launched, read from
-   the wrappers' per-kernel counters); K5 on K2's
+   the kernel that one call of each K2, K3 and K5 mode, K4 regime and
+   K6-K8 and K10 mode (fp32 and bf16, head dims 128 and 64) launched,
+   read from the wrappers' per-kernel counters); K5 on K2's
    pools and lengths with T = 1, 2 and 5 query lanes per slot (lengths 1
    and 2 leave rows with no valid key, which must be exact zeros like a
    dead slot's), its library call masked SDPA with a per-lane causal
@@ -108,33 +108,35 @@ non-zero and prints no result:
 4b. flash kernels: K6 (forward with lse), K7 (dQ) and K8 (dK, dV) against
    their plain versions at the training path's shapes (B=2, S=2048, H=36,
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
-   backward on the kernel's own out and lse (fp32 K7 and K8 run their
-   tensor-core kernels, bf16 their SIMT kernels); two calls of K7 and of
-   K8 on the same inputs must give the same bits; K7, K8 and the library
-   backward timed by device time from torch.profiler, CUDA events beside;
-   the library call is causal
-   ``F.scaled_dot_product_attention`` with K/V repeated to H heads, and
-   its autograd backward for K7 + K8 together; then (checked, not timed)
-   K7 and K8 at ragged shapes: Sq = Sk in {1, 63, 65, 1000} and Sq = 100
+   backward on the kernel's own out and lse (K6 and K10 run their
+   tensor-core kernel in every mode, fp32 K7 and K8 theirs, bf16 K7 and
+   K8 their SIMT kernels); two calls of K6, K7 and K8 on the same inputs
+   must give the same bits; the kernels and the library calls timed by
+   device time from torch.profiler, CUDA events beside; the library call
+   is causal ``F.scaled_dot_product_attention`` with K/V repeated to H
+   heads, and its autograd backward for K7 + K8 together; then (checked,
+   not timed) K6 (out and lse), K7, K8 and K10 (K/V in q's dtype and
+   int8) at ragged shapes: Sq = Sk in {1, 63, 65, 1000} and Sq = 100
    with Sk = 128, head dims 64 and 128, GQA groups of 1, 3 and 9, a window
    of 300 and a non-causal case, fp32 and bf16, each also called twice for
    equal bits; then K10 (the inference
    flash attention) at the same shapes, q fp32 and bf16, K/V in q's dtype
-   or int8 with (B, S, Hkv) scales, windows -1 and 256, its library call
-   causal SDPA with K/V dequantized and repeated inside the call;
+   or int8 with (B, S, Hkv) scales, windows -1 and 256, two calls equal
+   bit for bit, its library call causal SDPA with K/V dequantized and
+   repeated inside the call;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
    asserted); then the serve params are freed;
 10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
    of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
    ``sdpa`` route (explicit positions), the loss within 1e-5 and each
-   leaf within 1e-4 of its max, relative; every K7 and K8 launch on the
-   tensor-core kernels;
+   leaf within 1e-4 of its max, relative; every K6, K7 and K8 launch on
+   the tensor-core kernels;
 11. train: ``TrainEngine.for_lm`` on the 8-layer full-width config, fp32
    params and AdamW state, synthetic tokens, batch 2 x 2048, two ticks of
    two steps: every loss and grad norm finite, one readback per tick, K6,
-   K7 and K8 launches each steps x 8, K7's and K8's all on the
-   tensor-core kernels; reports s/step, tokens/s, peak
+   K7 and K8 launches each steps x 8, all on the tensor-core kernels;
+   reports s/step, tokens/s, peak
    memory, model FLOP/s over the fp32 peak and the accountant's train
    block, then profiles one more tick (device time by kernel, busy
    share);
@@ -144,8 +146,8 @@ non-zero and prints no result:
    Trainer from another seed that restores and runs N more (params and
    AdamW state must match bit for bit, else within 1e-6 of each leaf's
    max); a preempted run's synchronous save at its step; a flipped byte in
-   arrays.npz refused; K6 = K7 = K8 = 2N x 12 launches, K7's and K8's
-   all on the tensor-core kernels; s/step, tokens/s,
+   arrays.npz refused; K6 = K7 = K8 = 2N x 12 launches, all on the
+   tensor-core kernels; s/step, tokens/s,
    save and restore seconds and bytes, peak memory, one profiled pair of
    steps;
 11c. the port's train bench (both arms, update and kernel-grad parity;
@@ -213,31 +215,42 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, attempts: int = 3) -> float:
+def device_ms(fn, iters: int, attempts: int = 5) -> float:
     """Mean device time of the kernels (and copies) that ``fn(i)``
     launches, over calls i = 0 .. iters-1 after a warm-up, from
     torch.profiler: the host's time to launch them is not in it, where
-    ``cuda_ms`` includes it whenever the host is the slower side. A
-    profile that reports no device event at all (torch.profiler has
-    returned such an empty profile of a short run on the H100) is taken
-    again, up to ``attempts`` times."""
+    ``cuda_ms`` includes it whenever the host is the slower side.
+    torch.profiler on the H100 has returned profiles that lost device
+    events (none at all, or some launches of a kernel: a call's time came
+    out 0.7x its CUDA-event time). Every call of ``fn`` launches the same
+    kernels, so a whole profile counts each kernel a multiple of ``iters``
+    times; a profile that does not is taken again, up to ``attempts``
+    times, after which the largest reading stands (a lost event only
+    lowers it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
+    readings = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0 and all(e.count % iters == 0 for e in events):
             return us / 1e3 / iters
-    raise AssertionError(f"torch.profiler saw no device time in "
-                         f"{attempts} profiles")
+        if us > 0:
+            readings.append(us / 1e3 / iters)
+    if not readings:
+        raise AssertionError(f"torch.profiler saw no device time in "
+                             f"{attempts} profiles")
+    return max(readings)
 
 
 def phase_device():
@@ -700,12 +713,12 @@ def phase_prefill_ragged():
 
 
 def phase_routes():
-    """Which kernel each K2, K3 and K5 mode, each K4 regime and each K7
-    and K8 mode ran: one call of each at the main path's shapes (K2 and K5
-    at T = 5 also at head dim 64; K4 on a 4608 x 512 weight; K7 and K8 in
-    fp32 and bf16 at head dims 128 and 64, S = 256), read from the
-    wrappers' per-kernel counters; each must be the kernel that the
-    wrapper's rule (``route``, ``regime``) names."""
+    """Which kernel each K2, K3 and K5 mode, each K4 regime and each K6-K8
+    and K10 mode ran: one call of each at the main path's shapes (K2 and
+    K5 at T = 5 also at head dim 64; K4 on a 4608 x 512 weight; K6-K8 in
+    fp32 and bf16 and K10 in each of its modes at head dims 128 and 64, S
+    = 256), read from the wrappers' per-kernel counters; each must be the
+    kernel that the wrapper's rule (``route``, ``regime``) names."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as k4
@@ -764,17 +777,36 @@ def phase_routes():
         k4_ran[key] = ran(k4.int8_matmul, lambda: k4.int8_matmul(x, q, sc))
         if k4_ran[key] != k4.regime(m, x.dtype):
             raise AssertionError(f"K4 {key} ran its {k4_ran[key]} kernel")
-    k7_ran, k8_ran = {}, {}
+    k6_ran, k7_ran, k8_ran, k10_ran = {}, {}, {}, {}
     for d in (D, 64):
         for q_name in FLASH_TOL:
             dt = getattr(torch, q_name)
             q, dout = (_randn(gen, (1, 256, 12, d), dt) for _ in range(2))
             k, v = (_randn(gen, (1, 256, 4, d), dt) for _ in range(2))
             kw = dict(scale=d ** -0.5, causal=True, window=-1)
-            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            key = f"{q_name}, D = {d}"
+            fwd = {}
+            k6_ran[key] = ran(fa.flash_attention_fwd, lambda: fwd.update(
+                res=fa.flash_attention_fwd(q, k, v, **kw)))
+            out, lse = fwd["res"]
+            if k6_ran[key] != fa.route(dt, d, forward=True):
+                raise AssertionError(f"K6 {key} ran its {k6_ran[key]} "
+                                     f"kernel")
+            for kv_name in ("int8", q_name):
+                kv_dt = getattr(torch, kv_name)
+                kk, vv = (_randn(gen, (1, 256, 4, d), kv_dt)
+                          for _ in range(2))
+                kvs = dict(zip(("k_scale", "v_scale"),
+                               _scales(gen, kk, kv_dt)))
+                key10 = f"q {q_name}, kv {kv_name}, D = {d}"
+                k10_ran[key10] = ran(fa.flash_attention,
+                                     lambda: fa.flash_attention(
+                                         q, kk, vv, **kw, **kvs))
+                if k10_ran[key10] != fa.route(dt, d, forward=True):
+                    raise AssertionError(f"K10 {key10} ran its "
+                                         f"{k10_ran[key10]} kernel")
             delta = (dout.float() * out.float()).sum(-1).transpose(
                 1, 2).contiguous()
-            key = f"{q_name}, D = {d}"
             k7_ran[key] = ran(fa.flash_attention_bwd_dq,
                               lambda: fa.flash_attention_bwd_dq(
                                   q, k, v, dout, lse, delta, **kw))
@@ -788,8 +820,9 @@ def phase_routes():
                                      f"kernels, not {want}")
     emit({"phase": "routes", "paged_decode_attention": k2_ran,
           "paged_verify_attention": k5_ran, "paged_prefill_attention": k3_ran,
-          "int8_matmul": k4_ran, "flash_attention_bwd_dq": k7_ran,
-          "flash_attention_bwd_dkv": k8_ran})
+          "int8_matmul": k4_ran, "flash_attention_fwd": k6_ran,
+          "flash_attention_bwd_dq": k7_ran,
+          "flash_attention_bwd_dkv": k8_ran, "flash_attention": k10_ran})
 
 
 def _verify_inputs(t):
@@ -1475,15 +1508,15 @@ def phase_flash_kernels():
     """K6, K7 and K8 against their plain versions in fp32 and bf16, with
     windows -1 and 256, at the training path's shapes; the backward
     kernels and the plain backward get the kernel's own out and lse. A
-    second call of K7 and of K8 on the same inputs must give the same
+    second call of K6, K7 and K8 on the same inputs must give the same
     bits. The library yardstick is ``F.scaled_dot_product_attention``
     (causal, K/V repeated to H heads inside the timed call; a boolean mask
-    for the window), and its autograd backward for K7 + K8 together. K7,
-    K8 and that backward are timed by device time (torch.profiler; their
-    CUDA-event times beside), K6 by CUDA events. Calls only the kernels'
-    public wrappers, so an older checkout's kernels can be timed through
-    it (``benchmarks/flash_bwd_bench.py``). Returns the main-path rows by
-    kernel."""
+    for the window) for K6, and its autograd backward for K7 + K8
+    together. The kernels and the library calls are timed by device time
+    (torch.profiler; their CUDA-event times beside). Calls only the
+    kernels' public wrappers, so an older checkout's kernels can be timed
+    through it (``benchmarks/flash_bwd_bench.py``). Returns the main-path
+    rows by kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1518,9 +1551,12 @@ def phase_flash_kernels():
                     f"flash kernels disagree with their plain versions: "
                     f"{q_name}, window {window}: {errs} (tolerance {tol} of "
                     f"the max), finite {finite}, dtypes {dtypes_ok}")
-            _same_bits(f"{q_name}, window {window}", (dq, dk, dv), (
-                fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw),)
-                + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw))
+            _same_bits(f"{q_name}, window {window}", (out, lse, dq, dk, dv),
+                       fa.flash_attention_fwd(q, k, v, **kw)
+                       + (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                                    **kw),)
+                       + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                    **kw))
             del w_out, w_lse, w_dq, w_dk, w_dv
             mask = None if window <= 0 else ref.flash_mask(
                 FLASH_S, FLASH_S, causal=True, window=window, device="cuda")
@@ -1546,11 +1582,11 @@ def phase_flash_kernels():
             del lib_grads
             times = {
                 "flash_attention_fwd": (
-                    cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, **kw),
-                            10),
+                    device_ms(lambda i: fa.flash_attention_fwd(q, k, v, **kw),
+                              10),
                     cuda_ms(lambda i: ref.flash_attention_fwd_ref(
                         q, k, v, **kw), 3),
-                    cuda_ms(lambda i: library(q, k, v), 10)),
+                    device_ms(lambda i: library(q, k, v), 10)),
                 "flash_attention_bwd_dq": (
                     device_ms(lambda i: fa.flash_attention_bwd_dq(
                         q, k, v, dout, lse, delta, **kw), 10), None, None),
@@ -1558,6 +1594,9 @@ def phase_flash_kernels():
                     device_ms(lambda i: fa.flash_attention_bwd_dkv(
                         q, k, v, dout, lse, delta, **kw), 10), None, None)}
             event_ms = {
+                "flash_attention_fwd": cuda_ms(
+                    lambda i: fa.flash_attention_fwd(q, k, v, **kw), 10),
+                "library_fwd": cuda_ms(lambda i: library(q, k, v), 10),
                 "flash_attention_bwd_dq": cuda_ms(
                     lambda i: fa.flash_attention_bwd_dq(
                         q, k, v, dout, lse, delta, **kw), 10),
@@ -1595,10 +1634,12 @@ def phase_flash_kernels():
                        else lib_bwd,
                        "bound_ms": bounds[name][0],
                        "bound_by": bounds[name][1]}
-                if name in event_ms:        # device time, CUDA events beside
-                    row["timing"] = "device"
-                    row["cuda_event_ms"] = event_ms[name]
-                    row["library_cuda_event_ms"] = event_ms["library_bwd"]
+                # device time, CUDA events beside
+                row["timing"] = "device"
+                row["cuda_event_ms"] = event_ms[name]
+                row["library_cuda_event_ms"] = event_ms[
+                    "library_fwd" if name == "flash_attention_fwd"
+                    else "library_bwd"]
                 emit(row)
                 if (q_name, window) == MAIN_FLASH:
                     main[name] = row
@@ -1609,12 +1650,13 @@ def phase_flash_kernels():
 
 
 def _same_bits(label, first, second):
-    """Two calls' outputs must be equal bit for bit (every sum of K7 and
-    K8 is taken in a fixed order)."""
+    """Two calls' outputs must be equal bit for bit (every sum of K6-K8
+    and K10 is taken in a fixed order)."""
     import torch
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError(f"flash backward: two calls on the same inputs "
+    if len(first) != len(second) or not all(
+            torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"flash kernels: two calls on the same inputs "
                              f"differ: {label}")
 
 
@@ -1638,11 +1680,26 @@ FLASH_RAGGED = ((1, 1, 4, 4, 128, True, -1),
 FLASH_ATOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
+def _lse_err(got, want):
+    """(max abs error, that over the max abs of ``want``) of an lse over
+    the rows that see a key; rows that see none (lse about -1e30 in the
+    plain version) must be about -1e30 in ``got`` too."""
+    live = want > -1e29
+    if not bool((got[~live] <= -1e29).all()):
+        raise AssertionError("flash forward: a row with no valid key has a "
+                             "finite lse")
+    if not bool(live.any()):
+        return 0.0, 0.0
+    return _rel_err(got[live], want[live])
+
+
 def phase_flash_ragged():
-    """K7 and K8 (checked, not timed) against their plain versions at the
-    FLASH_RAGGED shapes, B = 2, fp32 and bf16, on K6's out and lse: each
-    gradient within FLASH_TOL of its plain version's max plus FLASH_ATOL; a
-    second call of each must give the same bits."""
+    """K6, K7, K8 and K10 (checked, not timed) against their plain
+    versions at the FLASH_RAGGED shapes, B = 2, fp32 and bf16: K6's out
+    and lse, K7 and K8 on K6's out and lse, K10 with K/V in q's dtype and
+    as int8 codes with (B, Sk, Hkv) scales. Each output within FLASH_TOL
+    of its plain version's max plus FLASH_ATOL; a second call of each
+    kernel must give the same bits."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1664,22 +1721,43 @@ def phase_flash_ragged():
                                                 **kw)
             label = (f"Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, causal "
                      f"{causal}, window {window}, {q_name}")
-            _same_bits(label, (dq, dk, dv), (
-                fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw),)
-                + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw))
+            _same_bits(label, (out, lse, dq, dk, dv),
+                       fa.flash_attention_fwd(q, k, v, **kw)
+                       + (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                                    **kw),)
+                       + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                    **kw))
+            w_out, w_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
             want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-            errs = {n: _rel_err(g, w)
-                    for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
-            finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
-            ok = all(err <= tol * float(w.float().abs().max())
-                     + FLASH_ATOL[q_name]
-                     for (err, _), w in zip(errs.values(), want))
+            got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+            wants = dict(zip(("out", "dq", "dk", "dv"), (w_out,) + want))
+            for kv_name in ("int8", q_name):
+                kv_dt = getattr(torch, kv_name)
+                kk = k if kv_dt == dt else _randn(gen, k.shape, kv_dt)
+                vv = v if kv_dt == dt else _randn(gen, v.shape, kv_dt)
+                kvs = dict(zip(("k_scale", "v_scale"),
+                               _scales(gen, kk, kv_dt)))
+                name = f"k10 kv {kv_name}"
+                got[name] = fa.flash_attention(q, kk, vv, **kw, **kvs)
+                _same_bits(f"K10, kv {kv_name}, {label}", (got[name],),
+                           (fa.flash_attention(q, kk, vv, **kw, **kvs),))
+                wants[name] = ref.flash_attention_ref(q, kk, vv, **kw, **kvs)
+            errs = {n: _rel_err(got[n], wants[n]) for n in got}
+            errs["lse"] = _lse_err(lse, w_lse)
+            finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+            w_max = {n: float(w.float().abs().max()) for n, w in wants.items()}
+            w_max["lse"] = float(w_lse[w_lse > -1e29].abs().max()) \
+                if bool((w_lse > -1e29).any()) else 0.0
+            ok = all(err <= tol * w_max[n] + FLASH_ATOL[q_name]
+                     for n, (err, _) in errs.items())
             rows.append({"case": label, "max_abs_err": {
                 n: e[0] for n, e in errs.items()}, "rel_err": {
-                n: e[1] for n, e in errs.items()}, "kernel": fa.route(dt, d)})
+                n: e[1] for n, e in errs.items()}, "kernel": {
+                "forward": fa.route(dt, d, forward=True),
+                "backward": fa.route(dt, d)}})
             if not (finite and ok):
-                raise AssertionError(f"flash backward disagrees with its "
-                                     f"plain version: {label}: (abs, rel) "
+                raise AssertionError(f"flash kernels disagree with their "
+                                     f"plain versions: {label}: (abs, rel) "
                                      f"{errs} (tolerance {tol} of the max "
                                      f"+ {FLASH_ATOL[q_name]}), finite "
                                      f"{finite}")
@@ -1697,10 +1775,13 @@ K10_MAIN = ("float32", "float32", -1)
 def phase_flash_infer():
     """K10 against its plain version at K6's shapes (B = 2, S = 2048, H =
     36, Hkv = 4, D = 128, causal) with q in fp32 and bf16, K/V in q's dtype
-    or int8 with (B, S, Hkv) fp32 scales, windows -1 and 256. The library
-    yardstick is causal ``F.scaled_dot_product_attention`` with K/V
-    dequantized (int8) and repeated to H heads inside the timed call (a
-    boolean mask for the window). Returns the main row."""
+    or int8 with (B, S, Hkv) fp32 scales, windows -1 and 256; a second
+    call must give the same bits. The library yardstick is causal
+    ``F.scaled_dot_product_attention`` with K/V dequantized (int8) and
+    repeated to H heads inside the timed call (a boolean mask for the
+    window). K10 and the library call are timed by device time
+    (torch.profiler; their CUDA-event times beside). Returns the main
+    row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1720,7 +1801,8 @@ def phase_flash_infer():
         for window in WINDOWS:
             kw = dict(scale=scale, causal=True, window=window, **kvs)
             got = fa.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
+            _same_bits(f"K10, q {q_name}, kv {kv_name}, window {window}",
+                       (got,), (fa.flash_attention(q, k, v, **kw),))
             want = ref.flash_attention_ref(q, k, v, **kw)
             err, rel = _rel_err(got, want)
             if not (rel <= tol and got.dtype == q.dtype
@@ -1745,10 +1827,13 @@ def phase_flash_infer():
                     attn_mask=mask, is_causal=mask is None, scale=scale)
 
             lib_rel = _rel_err(got, library().transpose(1, 2))[1]
-            ms = cuda_ms(lambda i: fa.flash_attention(q, k, v, **kw), 10)
+            ms = device_ms(lambda i: fa.flash_attention(q, k, v, **kw), 10)
+            event_ms = cuda_ms(lambda i: fa.flash_attention(q, k, v, **kw),
+                               10)
             plain_ms = cuda_ms(lambda i: ref.flash_attention_ref(q, k, v,
                                                                  **kw), 3)
-            library_ms = cuda_ms(lambda i: library(), 10)
+            library_ms = device_ms(lambda i: library(), 10)
+            library_event_ms = cuda_ms(lambda i: library(), 10)
             pairs = FLASH_B * H * _flash_pairs(FLASH_S, window)
             nbytes = (2 * q.numel() * q.element_size()
                       + 2 * k.numel() * k.element_size()
@@ -1760,7 +1845,9 @@ def phase_flash_infer():
                    "max_rel_err": rel, "tol_rel_to_max": tol,
                    "library_rel_diff": lib_rel, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "timing": "device", "cuda_event_ms": event_ms,
+                   "library_cuda_event_ms": library_event_ms}
             emit(row)
             if (q_name, kv_name, window) == K10_MAIN:
                 main = row
@@ -1770,28 +1857,32 @@ def phase_flash_infer():
     return main
 
 
-def _bwd_counters():
+def _train_flash_counters():
     from repro_torch.kernels import flash_attention as fa
-    return (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv)
 
 
-def _reset_bwd_kernels():
-    """K7's and K8's per-kernel counters to 0 (beside ``launches``)."""
-    for fn in _bwd_counters():
+def _reset_flash_kernels():
+    """K6's, K7's and K8's per-kernel counters to 0 (beside
+    ``launches``)."""
+    for fn in _train_flash_counters():
         for key in fn.launches_by_kernel:
             fn.launches_by_kernel[key] = 0
 
 
-def _bwd_on_tensor_cores(phase):
-    """K7's and K8's per-kernel counts since ``_reset_bwd_kernels``; every
-    launch of the fp32 backward must have gone through the tensor-core
-    kernels."""
+def _flash_on_tensor_cores(phase):
+    """K6's, K7's and K8's per-kernel counts since
+    ``_reset_flash_kernels``; every launch of the fp32 training attention
+    must have gone through the tensor-core kernels."""
     by_kernel = {fn.__name__: dict(fn.launches_by_kernel)
-                 for fn in _bwd_counters()}
-    for fn in _bwd_counters():
-        if fn.launches_by_kernel != {"tensor_cores": fn.launches, "simt": 0}:
-            raise AssertionError(f"{phase}: the fp32 backward ran off the "
-                                 f"tensor-core kernels: {by_kernel}")
+                 for fn in _train_flash_counters()}
+    for fn in _train_flash_counters():
+        if fn.launches_by_kernel.get("tensor_cores") != fn.launches or any(
+                n for kernel, n in fn.launches_by_kernel.items()
+                if kernel != "tensor_cores"):
+            raise AssertionError(f"{phase}: the fp32 flash attention ran "
+                                 f"off the tensor-core kernels: {by_kernel}")
     return by_kernel
 
 
@@ -1829,14 +1920,14 @@ def phase_train_parity():
     for route, extra in (("flash", {}), ("sdpa", {"positions": pos})):
         for fn in counters.values():
             fn.launches = 0
-        _reset_bwd_kernels()
+        _reset_flash_kernels()
         loss, _ = tf_lib.loss_fn(params, cfg, {**batch, **extra})
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
         results[route] = (loss.detach(), grads,
                           {n: fn.launches for n, fn in counters.items()})
         if route == "flash":
-            by_kernel = _bwd_on_tensor_cores("train parity")
+            by_kernel = _flash_on_tensor_cores("train parity")
     (l_f, g_f, launches), (l_s, g_s, sdpa_launches) = (results["flash"],
                                                        results["sdpa"])
     loss_rel = float((l_f - l_s).abs() / l_s.abs())
@@ -1849,7 +1940,7 @@ def phase_train_parity():
            "loss_flash": float(l_f), "loss_sdpa": float(l_s),
            "loss_rel_diff": loss_rel, "max_leaf_rel_diff": leaf_rel,
            "leaves": len(leaves), "launches": launches,
-           "bwd_launches_by_kernel": by_kernel,
+           "flash_launches_by_kernel": by_kernel,
            "sdpa_launches": sdpa_launches}
     emit(row)
     if not (finite and loss_rel <= 1e-5 and leaf_rel <= 1e-4):
@@ -1925,11 +2016,11 @@ def phase_train():
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    _reset_bwd_kernels()
+    _reset_flash_kernels()
     eng.run(steps)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    by_kernel = _bwd_on_tensor_cores("train")
+    by_kernel = _flash_on_tensor_cores("train")
     want = {n: (steps * TRAIN_LAYERS if n in TRAIN_FLASH else 0)
             for n in counters}
     log = np.concatenate(eng.step_log)
@@ -1953,7 +2044,7 @@ def phase_train():
            * k / walls[-1],
            "fp32_peak_share_last_tick": (cost.fwd_flops + cost.bwd_flops)
            * k / walls[-1] / PEAK_FP32,
-           "launches": launches, "bwd_launches_by_kernel": by_kernel,
+           "launches": launches, "flash_launches_by_kernel": by_kernel,
            "train": {key: train[key] for key in (
                "steps", "bwd_fwd_ratio", "fwd_j", "bwd_j", "opt_j",
                "total_j", "j_per_step", "j_per_sample")}}
@@ -2058,13 +2149,13 @@ def phase_trainer():
         counters = _counters()
         for fn in counters.values():
             fn.launches = 0
-        _reset_bwd_kernels()
+        _reset_flash_kernels()
         t0 = time.monotonic()
         tr_a.run(2 * n)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
-        by_kernel = _bwd_on_tensor_cores("trainer")
+        by_kernel = _flash_on_tensor_cores("trainer")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = {name: (2 * n * cfg.n_layers if name in TRAIN_FLASH else 0)
                 for name in counters}
@@ -2140,7 +2231,7 @@ def phase_trainer():
                "preempt_step": preempt_step,
                "preempt_saved_step": preempt_saved,
                "corrupt_restore_refused": refused, "launches": launches,
-               "bwd_launches_by_kernel": by_kernel,
+               "flash_launches_by_kernel": by_kernel,
                "profile": profile}
         emit(row)
         if not (restored and step_after_restore == n

@@ -1,9 +1,11 @@
-"""Training flash-attention timings of the PyTorch port on the card, for a
-before/after comparison of two checkouts: K7 (``flash_attention_bwd_dq``)
-and K8 (``flash_attention_bwd_dkv``) against their plain versions and
-against the SDPA backward at the training path's shapes (B = 2, S = 2048,
-H = 36, Hkv = 4, D = 128, causal), fp32 and bf16, windows -1 and 256, by
-device time; K6 and K10 beside them by CUDA events.
+"""Flash-attention timings of the PyTorch port on the card, for a
+before/after comparison of two checkouts: K6 (``flash_attention_fwd``), K7
+(``flash_attention_bwd_dq``) and K8 (``flash_attention_bwd_dkv``) against
+their plain versions and against the SDPA forward and backward at the
+training path's shapes (B = 2, S = 2048, H = 36, Hkv = 4, D = 128,
+causal), fp32 and bf16, windows -1 and 256, and K10 (``flash_attention``)
+in each of its modes against the SDPA forward; the kernels and the SDPA
+calls by device time (torch.profiler), their CUDA-event times beside.
 
     PYTHONPATH=src python src/repro_torch/benchmarks/flash_bwd_bench.py
     PYTHONPATH=<older checkout>/src \\
@@ -12,8 +14,8 @@ device time; K6 and K10 beside them by CUDA events.
 The measurement is chip_smoke.py's own, loaded from the checkout this file
 lies in: its ``phase_device`` (the card's name and power limit, TF32 off),
 ``phase_flash_kernels`` (K6-K8 against their plain versions, two calls of
-K7 and of K8 equal bit for bit, K7, K8 and the SDPA backward by device
-time) and ``phase_flash_infer`` (K10). Those call only the kernels' public
+each equal bit for bit) and ``phase_flash_infer`` (K10, two calls equal
+bit for bit). Those call only the kernels' public
 wrappers, so the second command times an older checkout's kernels on the
 same inputs. Prints JSON lines, with the flash source's ptxas lines. Needs
 a card.

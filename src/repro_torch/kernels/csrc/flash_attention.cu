@@ -33,72 +33,96 @@
 // dP, dV, dK), against one read of each q, k, v, dO row: at starcoder2-7b's
 // shapes (S = 2048, causal) that is hundreds of FLOPs per byte, above the
 // H100's ridge. The least time for fp32 work is its FLOPs at the 3xTF32
-// rate, 495 / 3 = 165 TFLOP/s on the tensor cores (below, K7 and K8); for
-// bf16, at the bf16 peak.
+// rate, 495 / 3 = 165 TFLOP/s on the tensor cores (below); for bf16, at
+// the bf16 peak.
 //
-// K7 and K8 in fp32 (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel; the
-// wrapper's route "tensor_cores"). Every product runs on the tensor cores
-// in tf32 with fp32-accurate results (3xTF32): each fp32 operand x splits
-// into hi = tf32(x) (round to nearest, ties away: cvt.rna's rounding) and
-// lo = tf32(x - hi), and A B = A_lo B_hi + A_hi B_lo + A_hi B_hi, small
-// terms first, about 2^-21 relative a product (plain TF32, hi only, is
-// about 2^-11 and misses the fp32 gate). Q, K, V and dO split as their
-// tiles are stored, P and dS in registers as they are made.
-//   * All seven products on wgmma. S = Q K^T and dP = dO V^T (K8: S^T = K
-//     Q^T, dP^T = V dO^T) have K-major operands as the tensors are stored:
-//     m64n32k8 from hi/lo planes in shared memory (K7's S takes Q's hi half
-//     from registers, kept for the whole block). tf32 wgmma has no
-//     transposed operand, so the products over the rows (dQ over keys, dV
-//     and dK over queries) run as their transposes, dQ^T = K^T dS^T, dV^T =
-//     dO^T P, dK^T = (scale Q)^T dS: the side that would need the
-//     transposition (K, dO, Q) comes in as the A operand from registers,
-//     which may be filled from any layout, and the side made in registers
-//     (dS, P^T, dS^T) is written as K-major hi/lo planes for B. (A first
-//     design on warp-level mma.sync m16n8k8 for every product read each B
-//     fragment from shared memory once per warp and ran slower.)
+// The tensor-core kernels: K6 and K10 in every mode (flash_fwd_tc_kernel:
+// q fp32 or bf16, K/V in q's dtype or int8 codes), K7 and K8 in fp32
+// (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel; the wrapper's route
+// "tensor_cores"). Every product runs on the tensor cores in tf32 with
+// fp32-accurate results (3xTF32): each fp32 operand x splits into hi =
+// tf32(x) (round to nearest, ties away: cvt.rna's rounding) and lo = tf32(x
+// - hi), and A B = A_lo B_hi + A_hi B_lo + A_hi B_hi, small terms first,
+// about 2^-21 relative a product (plain TF32, hi only, is about 2^-11 and
+// misses the fp32 gate). Q, K, V and dO split as their tiles are stored,
+// P and dS in registers as they are made. The forward splits K and V once
+// a call, in a pre-pass (flash_fwd_split_kernel) into a workspace that
+// holds every 32-key tile's planes in their shared-memory layout, read by
+// all the query blocks of the KV head: split in the block, every query
+// block that sees a tile split it again (up to 144 at starcoder2-7b's
+// shapes, 9 query heads x 16 blocks), and the split and its stores were
+// half of a block's instructions. bf16 and int8 K/V are widened to fp32
+// there (int8 codes times their row's scale, the Pallas body's k * ks,
+// v * vs). A bf16 K or V is tf32-exact (lo = 0): the forward leaves out
+// its lo planes and the terms with them.
+//   * Every product on wgmma. S = Q K^T and dP = dO V^T (K8: S^T = K Q^T,
+//     dP^T = V dO^T) have K-major operands as the tensors are stored:
+//     m64n32k8 from hi/lo planes in shared memory (K6's, K10's and K7's S
+//     take Q's hi half from registers, kept for the whole block). tf32
+//     wgmma has no transposed operand, so a product over the rows needs
+//     its B stored K-major along the rows. The forward's P V stores V
+//     transposed as V^T planes (D rows of the tile's keys), in the key
+//     order (2t, 2t + 1 at slots t, t + 4 of each k step of 8) that makes
+//     S's accumulator fragment P's A fragment, so P stays in registers
+//     (m64n64k8, 64 columns of D at a time). The backward's products over
+//     the rows (dQ over keys, dV and dK over queries) run as their
+//     transposes, dQ^T = K^T dS^T, dV^T = dO^T P, dK^T = (scale Q)^T dS:
+//     the side that would need the transposition (K, dO, Q) comes in as
+//     the A operand from registers, which may be filled from any layout,
+//     and the side made in registers (dS, P^T, dS^T) is written as K-major
+//     hi/lo planes for B. (A first design on warp-level mma.sync m16n8k8
+//     for every product read each B fragment from shared memory once per
+//     warp and ran slower.)
 //   * Planes use wgmma's K-major layout with the 128-byte swizzle (rows of
 //     32 floats, 1024-byte aligned), so wgmma and the threads' own loads
 //     and stores read the same bytes; fp32 hi/lo planes take 8 bytes an
-//     element, which sets the tiles: K7 64 query rows over 32-key tiles, K8
-//     64 keys over 32-query tiles, about 205-225 KB a block, one block an SM.
+//     element, which sets the tiles: K6/K10 128 query rows (64 a
+//     warpgroup) and K7 64 over 32-key tiles, K8 64 keys over 32-query
+//     tiles, 193-225 KB a block (the forward double-buffers its K and V^T
+//     planes), one block an SM.
 //   * The tensor cores' fp32 accumulation rounds toward zero; over the
 //     thousands of MMA steps of one output (K8 sums rep heads x Sq
-//     queries) that bias reached 1e-4 of the max. Each transposed product
-//     sums a tile's 12 wgmma in a fresh accumulator, and one fp32 add
-//     (to nearest) takes it into the running sum.
-//   * Two warpgroups. K7 is a pipeline over the key tiles on named
-//     barriers: warpgroup 0 stores tile i's K and V (loaded into its
-//     registers a tile ahead), computes S and P; warpgroup 1 computes dP
-//     and dS, takes K^T into registers, releases the tile and adds K^T
-//     dS^T while warpgroup 0 goes on to tile i + 1. K8 splits by product:
-//     warpgroup 0 S^T, P^T and dV^T, warpgroup 1 dP^T, dS^T and dK^T, the
-//     next query tile loading into registers meanwhile.
-//   * Block order: K7's grid walks each head's query tiles heaviest first;
-//     K8's 1-D grid puts the key tile slowest, so every (batch, KV head) of
-//     key tile 0, which the most query rows see under the causal mask,
-//     launches first (longest-processing-time order).
+//     queries) that bias reached 1e-4 of the max. Each product over the
+//     rows sums a tile's 12 wgmma in a fresh accumulator, and one fp32 add
+//     (to nearest) takes it into the running sum (the forward's O = O
+//     alpha + P V, its online rescale, 64 columns of D at a time).
+//   * Two warpgroups. In the forward each owns 64 query rows from end to
+//     end (S, the online softmax with m, l and p in fp32, P V), and the
+//     two share the tile's planes, which land by cp.async during the tile
+//     before. (A first design split the forward by role, S and the
+//     softmax in warpgroup 0 and P V in warpgroup 1: warpgroup 0, one warp
+//     a scheduler, was the path and warpgroup 1 waited.) K7 is a pipeline
+//     over the key tiles on named barriers: warpgroup 0 stores tile i's K
+//     and V (loaded into its registers a tile ahead), computes S and P;
+//     warpgroup 1 computes dP and dS, takes K^T into registers and adds
+//     K^T dS^T while warpgroup 0 goes on to tile i + 1. K8 splits by
+//     product: warpgroup 0 S^T, P^T and dV^T, warpgroup 1 dP^T, dS^T and
+//     dK^T, the next query tile loading into registers meanwhile.
+//   * Block order: the forward's and K7's grids walk each head's query
+//     tiles heaviest first; K8's 1-D grid puts the key tile slowest, so
+//     every (batch, KV head) of key tile 0, which the most query rows see
+//     under the causal mask, launches first (longest-processing-time
+//     order). Tiles outside the causal triangle or the window are never
+//     visited.
 //   * K8 walks the rep query heads of its group and their tiles inside the
 //     block, so the GQA sum stays in registers. Every sum is taken in a
 //     fixed order, with no atomics: two calls give the same bits.
 //
 // K7 and K8 in bf16 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; route
-// "simt") and K6/K10 (flash_fwd_kernel) run fp32 SIMT dots: 64 x 64 tiles,
-// 256 threads, each thread a 4 x 4 block of scores and 4 rows x D/16
-// columns of the accumulator in registers, so each value read from shared
-// memory serves 4 FMAs; tiles outside the causal triangle or the window
-// are never visited; rows that shared memory reads across threads are
-// padded to D + 4 floats. Known weak point: these run on fp32 CUDA cores
-// with no overlap of loads and math (one block per SM for the bf16
-// backward, two for K6); K6 and K10 should take K7's tile machinery next.
+// "simt") run fp32 SIMT dots: 64 x 64 tiles, 256 threads, each thread a 4
+// x 4 block of scores and 4 rows x D/16 columns of the accumulator in
+// registers, so each value read from shared memory serves 4 FMAs; rows
+// that shared memory reads across threads are padded to D + 4 floats. They
+// run on fp32 CUDA cores with no overlap of loads and math, one block per
+// SM.
 //
-// K10 (the inference flash_attention, with its int8-KV mode) is the same
-// forward body without the lse: flash_fwd_kernel takes the K/V storage
-// type and the lse switch as template parameters. In the int8-KV mode K and
-// V are int8 codes with one fp32 scale per (batch, key, KV head), (B, Sk,
-// Hkv); the tile loads widen each code to fp32 and multiply it by its
-// row's scale (the Pallas body's k * ks, v * vs), where the fp mode only
-// converts. The bound and the math are K6's; the int8 codes move 4x (2x)
-// fewer K/V bytes than fp32 (bf16). With Sq > Sk under a window, a query
+// K10 (the inference flash_attention, with its int8-KV mode) is K6's
+// forward without the lse: the pre-pass takes the K/V storage type as a
+// template parameter, the forward whether K and V have lo planes and the
+// lse switch. In the int8-KV mode K and V are int8 codes with one fp32
+// scale per (batch, key, KV head), (B, Sk, Hkv); the bound and the math
+// are K6's, and the pre-pass reads 4x (2x) fewer K/V bytes than in fp32
+// (bf16). With Sq > Sk under a window, a query
 // row whose window lies past the last key sees no key and is zeros: the
 // Pallas kernel averages V over the masked keys of the tiles it visited
 // there, and the JAX wrapper sends such ragged shapes to attention_ref,
@@ -110,6 +134,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -142,6 +168,7 @@ __device__ __forceinline__ void ld8(const float* p, float4& a, float4& b) {
   b = ld4(p + 4);
 }
 
+// eight consecutive bf16 elements of a global row, in fp32
 __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float4& a, float4& b) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -149,15 +176,6 @@ __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float4& a, float4& b
   const float2 x2 = __bfloat1622float2(h[2]), x3 = __bfloat1622float2(h[3]);
   a = make_float4(x0.x, x0.y, x1.x, x1.y);
   b = make_float4(x2.x, x2.y, x3.x, x3.y);
-}
-
-// eight int8 codes, widened exactly
-__device__ __forceinline__ void ld8(const int8_t* p, float4& a, float4& b) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  a = make_float4((float)(int8_t)u.x, (float)(int8_t)(u.x >> 8), (float)(int8_t)(u.x >> 16),
-                  (float)(int8_t)(u.x >> 24));
-  b = make_float4((float)(int8_t)u.y, (float)(int8_t)(u.y >> 8), (float)(int8_t)(u.y >> 16),
-                  (float)(int8_t)(u.y >> 24));
 }
 
 __device__ __forceinline__ void st4(__nv_bfloat16* p, const float4& x) {
@@ -187,44 +205,26 @@ __device__ __forceinline__ float comp(const float4& x, int u) {
   return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
 }
 
-// max / sum over the 16 lanes of a row group (lanes 0-15 or 16-31)
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 __device__ __forceinline__ bool valid_pair(int i, int j, int Sq, int Sk, int causal,
                                            int window) {
   const int diff = i - j;
   return i < Sq && j < Sk && (!causal || diff >= 0) && (window <= 0 || diff < window);
 }
 
-// Rows [0, 64) of a tile into shared memory with row stride `stride`
+// Rows [0, 64) of a bf16 tile into shared memory with row stride `stride`
 // floats, times `mul`: global row r at src + r * gstride (elements); rows
-// at or past n_valid are zeros, so p = 0 never meets stale memory. With
-// `row_scale` (int8 codes), row r is also multiplied by row_scale[r *
-// sstride], its fp32 scale.
+// at or past n_valid are zeros, so p = 0 never meets stale memory.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          long long gstride, int n_valid, float mul,
-                                          const float* row_scale = nullptr,
-                                          int sstride = 0) {
+                                          long long gstride, int n_valid, float mul) {
   constexpr int C8 = D / 8;
   for (int idx = threadIdx.x; idx < kTile * C8; idx += kThreads) {
     const int r = idx / C8, c = (idx % C8) * 8;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
     if (r < n_valid) {
       ld8(src + r * gstride + c, a, b);
-      const float f = row_scale ? mul * row_scale[(long long)r * sstride] : mul;
-      a = mul4(a, f);
-      b = mul4(b, f);
+      a = mul4(a, mul);
+      b = mul4(b, mul);
     }
     st4(dst + r * stride + c, a);
     st4(dst + r * stride + c + 4, b);
@@ -280,106 +280,6 @@ __device__ __forceinline__ void pv(const float* p_s, const float* v_s, int v_str
 #pragma unroll
         for (int i = 0; i < 4; ++i) axpy4(comp(p[i], u), vv, acc[i][c]);
       }
-    }
-  }
-}
-
-// K6 and K10: grid (Sq tiles, H, B). Block x walks query tile nq - 1 - x,
-// so the causal triangle's longest rows start first. Shared memory: Q (64 x
-// D, scaled), K (64 x (D + 4)), V (64 x D); P reuses K's space once the
-// scores are taken. k_scale and v_scale (B, Sk, Hkv) are the int8-KV
-// mode's row scales, null otherwise.
-template <typename QT, typename KVT, int D, bool kSaveLse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
-                 const KVT* __restrict__ v, const float* __restrict__ k_scale,
-                 const float* __restrict__ v_scale, QT* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int causal,
-                 int window, float scale) {
-  constexpr int KS = D + 4, CJ = D / 64;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + kTile * D;
-  float* v_s = k_s + shared_tile(D);
-  float* p_s = k_s;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long q_row = (long long)H * D, k_row = (long long)Hkv * D;
-  const int n_q = min(kTile, Sq - q0);
-  load_tile<QT, D>(q_s, D, q + ((long long)b * Sq + q0) * q_row + (long long)h * D, q_row,
-                   n_q, scale);
-  const KVT* k_g = k + (long long)b * Sk * k_row + (long long)hk * D;
-  const KVT* v_g = v + (long long)b * Sk * k_row + (long long)hk * D;
-  const long long s_off = (long long)b * Sk * Hkv + hk;   // row 0's scale
-
-  const int q_last = q0 + n_q - 1;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-
-  float m[4], l[4];
-  float4 acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (int k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
-    __syncthreads();                      // the last tile's P and V readers are done
-    const int n_k = min(kTile, Sk - k0);
-    load_tile<KVT, D>(k_s, KS, k_g + k0 * k_row, k_row, n_k, 1.f,
-                      k_scale ? k_scale + s_off + (long long)k0 * Hkv : nullptr, Hkv);
-    load_tile<KVT, D>(v_s, D, v_g + k0 * k_row, k_row, n_k, 1.f,
-                      v_scale ? v_scale + s_off + (long long)k0 * Hkv : nullptr, Hkv);
-    __syncthreads();
-    float s[4][4];
-    dots<D>(q_s, D, k_s, ty, tx, s);
-    __syncthreads();                      // every score is taken: P may overwrite K
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qi = q0 + r;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = valid_pair(qi, k0 + tx + 16 * j, Sq, Sk, causal, window);
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        p_s[r * kPS + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + group_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) acc[i][c] = mul4(acc[i][c], alpha);
-    }
-    __syncthreads();
-    pv<D>(p_s, v_s, D, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= Sq) break;
-    const float den = fmaxf(l[i], 1e-30f);
-    QT* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * D + 4 * tx;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) {
-      const float4 a = acc[i][c];
-      st4(o + 64 * c, make_float4(a.x / den, a.y / den, a.z / den, a.w / den));
-    }
-    if constexpr (kSaveLse) {
-      if (tx == 0) lse[((long long)b * H + h) * Sq + qi] = m[i] + logf(den);
     }
   }
 }
@@ -591,17 +491,52 @@ __device__ __forceinline__ void split4(const float4& x, uint4& h, uint4& l) {
   hopper::tf32_split(x.w, h.w, l.w);
 }
 
+// Four consecutive elements of a global row as stored (fp32, bf16, or int8
+// codes), read in one access and widened to fp32 exactly.
+template <typename T>
+struct Raw4;
+template <>
+struct Raw4<float> {
+  using type = float4;
+};
+template <>
+struct Raw4<__nv_bfloat16> {
+  using type = uint2;
+};
+template <>
+struct Raw4<int8_t> {
+  using type = uint32_t;
+};
+
+template <typename T>
+__device__ __forceinline__ typename Raw4<T>::type ld_raw4(const T* p) {
+  return *reinterpret_cast<const typename Raw4<T>::type*>(p);
+}
+
+__device__ __forceinline__ float4 to_f32x4(const float4& x) { return x; }
+
+__device__ __forceinline__ float4 to_f32x4(const uint2& u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 to_f32x4(uint32_t w) {
+  return make_float4((float)(int8_t)w, (float)(int8_t)(w >> 8), (float)(int8_t)(w >> 16),
+                     (float)(int8_t)(w >> 24));
+}
+
 // Rows [0, R) of a tile read from global memory (row stride gstride) times
-// `mul`, rows at or past n_valid zeros, split into the hi and lo planes: the
-// resident tiles, once a block.
-template <int D, int R>
-__device__ __forceinline__ void stage_global(float* hi, float* lo, const float* src,
+// `mul` in fp32, rows at or past n_valid zeros, split into the hi and lo
+// planes: the resident tiles, once a block.
+template <int D, int R, typename T>
+__device__ __forceinline__ void stage_global(float* hi, float* lo, const T* src,
                                              long long gstride, int n_valid, float mul) {
   constexpr int C = D / 4;
   for (int idx = threadIdx.x; idx < R * C; idx += kTcThreads) {
     const int r = idx / C, c = idx % C;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid) x = mul4(ld4(src + r * gstride + 4 * c), mul);
+    if (r < n_valid) x = mul4(to_f32x4(ld_raw4(src + r * gstride + 4 * c)), mul);
     uint4 h, l;
     split4(x, h, l);
     const int o = pl<D, R>(r, 4 * c);
@@ -699,7 +634,9 @@ struct RowFrags {
 
 // dots_wgmma with A's hi half from registers (RowFrags): A_lo B_hi reads
 // A's lo plane from shared memory, A_hi B_lo and A_hi B_hi only B's planes.
-template <int D>
+// Without kBLo, B's lo half is zero (B was bf16: tf32-exact) and A_hi B_lo
+// is not issued.
+template <int D, bool kBLo = true>
 __device__ __forceinline__ void dots_wgmma_rs(const RowFrags<D>& a, const float* a_lo,
                                               const float* b_hi, const float* b_lo,
                                               float (&s)[1][4][4]) {
@@ -714,7 +651,7 @@ __device__ __forceinline__ void dots_wgmma_rs(const RowFrags<D>& a, const float*
     const uint64_t bh = hopper::sw128_desc(b_hi + b_off, 16, 1024);
     const uint64_t bl = hopper::sw128_desc(b_lo + b_off, 16, 1024);
     hopper::wgmma_tf32_ss_n32(d, al, bh, kk > 0);
-    hopper::wgmma_tf32_rs_n32(d, a.h[kk], bl, 1);
+    if constexpr (kBLo) hopper::wgmma_tf32_rs_n32(d, a.h[kk], bl, 1);
     hopper::wgmma_tf32_rs_n32(d, a.h[kk], bh, 1);
   }
   hopper::wgmma_commit();
@@ -1121,6 +1058,329 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
 }
 
+// ---------------------------------------------------------------------------
+// K6 and K10 on the tensor cores: every mode through the 3xTF32 split
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;            // query rows a block: 64 a warpgroup, 16 a warp
+constexpr int kFwdKeys = 32;             // keys a streamed tile
+
+// floats of shared memory past the 1024-byte alignment: Q's lo planes (two
+// warpgroups x 64 rows, scaled) and two buffers of a tile's kFwdPlanes
+// planes. Q's hi planes pass through buffer 1 on their way into registers.
+__host__ __device__ constexpr int fwd_smem_floats(int D) { return 384 * D; }
+
+// The slot of key kk (0-31) of a tile in the V^T planes: within each k step
+// of 8, slot t holds key 2t and slot t + 4 key 2t + 1, so that S's
+// accumulator fragment (columns 2t, 2t + 1) is P's tf32 A fragment (k t,
+// t + 4) as it stands.
+__device__ __forceinline__ int vt_slot(int kk) {
+  return (kk & ~7) | ((kk & 1) << 2) | ((kk & 7) >> 1);
+}
+
+// The forward's K and V planes, split once per call by
+// flash_fwd_split_kernel into a workspace that every query block of the
+// KV head reads: for each (batch, KV head, 32-key tile) kFwdPlanes planes
+// of 32 x D floats, K hi and lo (32 rows of D, pl<D, 32>) and V^T hi and lo
+// (D rows of 32 slots, pl<32, D>, key kk at slot vt_slot(kk)), keys at and
+// past Sk zeros. Their bytes are those of the forward's shared-memory
+// tiles, so a block copies a tile's planes as they lie.
+constexpr int kFwdPlanes = 4;
+
+// Keys [0, 32) of a tile of K and V as stored (fp32, bf16, or int8 codes
+// times their row's fp32 scale: k_scale / v_scale, stride sstride), rows
+// at and past n_valid zeros, widened to fp32, split and stored into the
+// tile's planes (see kFwdPlanes) at `planes`. Thread x moves key x % 32's
+// 4-column chunks x / 32 + 8u of K and of V, so a warp's scalar V^T stores
+// (one column, 32 keys) fill one 128-byte row. Without a lo half (bf16 is
+// tf32-exact) the lo planes are not written.
+template <typename T, int D>
+__device__ __forceinline__ void split_tile(const T* k_g, const T* v_g, long long gstride,
+                                           int n_valid, const float* k_scale,
+                                           const float* v_scale, long long sstride,
+                                           float* planes) {
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  constexpr bool kLo = !std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kPlane = kFwdKeys * D;
+  const int key = threadIdx.x & 31, w = threadIdx.x >> 5, slot = vt_slot(key);
+  const bool ok = key < n_valid;
+  float ks = 1.f, vs = 1.f;
+  if constexpr (kScaled) {
+    ks = ok ? k_scale[key * sstride] : 0.f;
+    vs = ok ? v_scale[key * sstride] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < D / 32; ++u) {
+    const int c = 4 * (w + 8 * u);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (ok) {
+      x = mul4(to_f32x4(ld_raw4(k_g + key * gstride + c)), ks);
+      y = mul4(to_f32x4(ld_raw4(v_g + key * gstride + c)), vs);
+    }
+    uint4 h, l;
+    split4(x, h, l);
+    const int o = pl<D, 32>(key, c);
+    *reinterpret_cast<uint4*>(planes + o) = h;
+    if constexpr (kLo) *reinterpret_cast<uint4*>(planes + kPlane + o) = l;
+    split4(y, h, l);
+    const uint32_t hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ot = 2 * kPlane + pl<32, D>(c + e, slot);
+      planes[ot] = __uint_as_float(hs[e]);
+      if constexpr (kLo) planes[kPlane + ot] = __uint_as_float(ls[e]);
+    }
+  }
+}
+
+// The pre-pass of K6 and K10: one block of 256 threads a (batch, KV head,
+// 32-key tile), tile fastest, into the workspace `ws`.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_split_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                       const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                       float* __restrict__ ws, int Sk, int Hkv) {
+  const int n_kt = (Sk + kFwdKeys - 1) / kFwdKeys;
+  const int bh = blockIdx.x / n_kt, k0 = (blockIdx.x % n_kt) * kFwdKeys;
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const long long k_row = (long long)Hkv * D;
+  const long long off = ((long long)b * Sk + k0) * k_row + (long long)hk * D;
+  const long long s0 = ((long long)b * Sk + k0) * Hkv + hk;
+  split_tile<T, D>(k + off, v + off, k_row, Sk - k0, k_scale ? k_scale + s0 : nullptr,
+                   v_scale ? v_scale + s0 : nullptr, Hkv,
+                   ws + (long long)blockIdx.x * kFwdPlanes * kFwdKeys * D);
+}
+
+// P's hi and lo halves as the tf32 A fragments of P V's four k steps: P is
+// the warp's 16 rows x 32 keys in S's accumulator layout, and k step j's
+// a0..a3 are P's (row g, key 8j + 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t
+// + 1), the slots t and t + 4 of the V^T planes (vt_slot).
+struct PFrags {
+  uint32_t h[4][4], l[4][4];
+
+  __device__ __forceinline__ void split(const float (&p)[1][4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x[4] = {p[0][j][0], p[0][j][2], p[0][j][1], p[0][j][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hopper::tf32_split(x[e], h[j][e], l[j][e]);
+    }
+  }
+
+  // Keeps the registers live and unchanged up to here: a wgmma that reads
+  // them as its A operand may read them until it completes, so call after
+  // its wgmma_wait.
+  __device__ __forceinline__ void hold() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(h[j][e]), "+r"(l[j][e])::"memory");
+  }
+};
+
+// part = P V for 64 columns of D over one key tile, on wgmma m64n64k8 in
+// 3xTF32 from zero, V^T's 64 rows of those columns from its hi/lo planes;
+// waited for. Without kVLo, V's lo half is zero (V was bf16) and P_hi V_lo
+// is not issued. part[4j + e] is (row g + 8 (e / 2), column 8j + 2t + e %
+// 2) of the 64.
+template <bool kVLo>
+__device__ __forceinline__ void pv_wgmma(const PFrags& p, const float* vt_hi,
+                                         const float* vt_lo, float (&part)[32]) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t dh = hopper::sw128_desc(vt_hi + 8 * j, 16, 1024);
+    const uint64_t dl = hopper::sw128_desc(vt_lo + 8 * j, 16, 1024);
+    hopper::wgmma_tf32_rs_n64(part, p.l[j], dh, j > 0);
+    if constexpr (kVLo) hopper::wgmma_tf32_rs_n64(part, p.h[j], dl, 1);
+    hopper::wgmma_tf32_rs_n64(part, p.h[j], dh, 1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(part);
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// K6 (kSaveLse) and K10: grid (Sq tiles of 128, H, B), heaviest tiles first
+// (block x walks query tile nq - 1 - x), after flash_fwd_split_kernel has
+// split K and V into the workspace `ws`. Each warpgroup owns 64 of the
+// block's rows from end to end; the two share the 32-key tiles that the
+// block's rows can see, whose planes land by cp.async in one of two
+// buffers during the tile before. Tile i: S = (scale Q) K^T on wgmma (Q's
+// hi half in registers for the whole block, its lo half from its plane),
+// the online softmax (m, l and p in fp32, p masked explicitly on the tiles
+// that cross an edge), and P V on wgmma with P split in registers, 64
+// columns of D at a time, each in a fresh accumulator taken into O = O
+// alpha + P V in fp32. One barrier a tile: tile i + 1 has landed and tile
+// i's planes are read. A warpgroup skips the math of a tile none of its
+// rows can see (a no-op in exact arithmetic: alpha = 1, p = 0). At the end
+// out = O / max(l, 1e-30) in q's dtype, and K6's lse = m + log max(l,
+// 1e-30). Without kKvLo (bf16 K and V) the lo planes are neither copied
+// nor read.
+template <typename QT, int D, bool kKvLo, bool kSaveLse>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
+                    QT* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+                    int Hkv, int causal, int window, float scale) {
+  constexpr int kPlane = kFwdKeys * D;              // floats of one plane
+  constexpr int kTile = kFwdPlanes * kPlane;        // floats of a tile's planes
+  extern __shared__ float4 smem4[];
+  float* q_lo_all = tc_smem(smem4);                 // warpgroup r's 64 rows at 64 r D
+  float* kv_all = q_lo_all + kFwdRows * D;          // buffer u at u kTile
+  float* q_hi_all = kv_all + kTile;                 // buffer 1, before the first tile
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdRows;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int wg = warp >> 2;
+  const long long q_row = (long long)H * D;
+  const int n_q = min(kFwdRows, Sq - q0);
+
+  // key tiles [t_lo, t_lo + n_tiles) of 32: the keys the block's rows can see
+  const int key_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int key_hi = causal ? min(Sk, q0 + n_q) : Sk;
+  const int t_lo = key_lo / kFwdKeys;
+  const int n_tiles = max(0, (key_hi + kFwdKeys - 1) / kFwdKeys - t_lo);
+  // this warpgroup's rows [r0, r_last] (none when r0 >= Sq) and this
+  // thread's: r0 + row, r0 + row + 8
+  const int r0 = q0 + 64 * wg, r_last = min(r0 + 63, Sq - 1);
+  const int row = 16 * (warp & 3) + g;
+
+  // the (batch, KV head)'s tiles in the workspace
+  const float* ws_bh =
+      ws + ((long long)b * Hkv + hk) * ((Sk + kFwdKeys - 1) / kFwdKeys) * kTile;
+  // tile i's planes into buffer i % 2, 16 bytes a thread a step; committed
+  auto fetch = [&](int i) {
+    const float* src = ws_bh + (long long)(t_lo + i) * kTile;
+    const uint32_t dst = hopper::smem_addr(kv_all + (i & 1) * kTile);
+#pragma unroll
+    for (int p = 0; p < kFwdPlanes; ++p) {
+      if (!kKvLo && (p & 1)) continue;
+#pragma unroll
+      for (int j = 0; j < kPlane / 4 / kTcThreads; ++j) {
+        const int x = p * kPlane + 4 * (tid + j * kTcThreads);
+        hopper::cp_async16_zfill(dst + 4 * x, src + x, true);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  if (n_tiles > 0) fetch(0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    stage_global<D, 64>(q_hi_all + 64 * r * D, q_lo_all + 64 * r * D,
+                        q + ((long long)b * Sq + q0 + 64 * r) * q_row + (long long)h * D, q_row,
+                        n_q - 64 * r, scale);
+  hopper::cp_async_wait<0>();
+  hopper::fence_proxy_async();
+  __syncthreads();
+  RowFrags<D> qa;                                   // (scale Q)'s hi half, for the whole block
+  qa.load(q_hi_all + 64 * wg * D);
+  __syncthreads();                                  // buffer 1 is free
+  const float* q_lo = q_lo_all + 64 * wg * D;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 2];                                 // O: the warp's 16 rows, all of D
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) fetch(i + 1);    // its buffer's last reader, tile i - 1, is done
+    const int k0 = (t_lo + i) * kFwdKeys;
+    const float* kb = kv_all + (i & 1) * kTile;
+    const bool seen = r0 <= r_last && (!causal || k0 <= r_last) &&
+                      (window <= 0 || k0 + kFwdKeys - 1 > r0 - window);
+    float s[1][4][4];
+    if (seen) {
+      dots_wgmma_rs<D, kKvLo>(qa, q_lo, kb, kb + kPlane, s);   // S
+      // every pair of the tile is valid for these rows unless it crosses an edge
+      const bool edge = r0 + 64 > Sq || k0 + kFwdKeys > Sk ||
+                        (causal && k0 + kFwdKeys - 1 > r0) ||
+                        (window > 0 && r0 + 63 - k0 >= window);
+      uint32_t ok = 0xffffu;
+      if (edge) {
+        ok = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (valid_pair(r0 + row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), Sq, Sk,
+                           causal, window))
+              ok |= 1u << (4 * j + e);
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if ((ok >> (4 * j + e)) & 1u) mx[e >> 1] = fmaxf(mx[e >> 1], s[0][j][e]);
+      float m_new[2], sum[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // explicit mask: a row with no valid key yet has m = -1e30
+          const float p = (ok >> (4 * j + e)) & 1u ? expf(s[0][j][e] - m_new[e >> 1]) : 0.f;
+          s[0][j][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        alpha[r] = expf(m[r] - m_new[r]);
+        l[r] = l[r] * alpha[r] + sum[r];
+        m[r] = m_new[r];
+      }
+      PFrags pf;
+      pf.split(s);
+      const float* vt = kb + 2 * kPlane;
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        float part[32];
+        pv_wgmma<kKvLo>(pf, vt + 64 * c * kFwdKeys, vt + kPlane + 64 * c * kFwdKeys, part);
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          acc[32 * c + x] = fmaf(acc[32 * c + x], x & 2 ? alpha[1] : alpha[0], part[x]);
+      }
+      pf.hold();
+    }
+    hopper::cp_async_wait<0>();
+    hopper::fence_proxy_async();          // tile i + 1's planes, before wgmma reads them
+    __syncthreads();                      // tile i + 1 has landed, tile i's planes are read
+  }
+
+  // acc[32c + 4j + e]: row + 8 (e / 2), column 64c + 8j + 2t + e % 2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + row + 8 * r;
+    if (qi >= Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    if constexpr (kSaveLse) {
+      if (t == 0) lse[((long long)b * H + h) * Sq + qi] = m[r] + logf(den);
+    }
+    QT* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * D + 2 * t;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        st2(o + 64 * c + 8 * j, acc[32 * c + 4 * j + 2 * r] / den,
+            acc[32 * c + 4 * j + 2 * r + 1] / den);
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -1128,35 +1388,43 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-// K6 (KVT = QT, kSaveLse) and K10 (KVT = QT or int8_t, no lse)
+// K6 (KVT = QT, kSaveLse) and K10 (KVT = QT or int8_t, no lse): the split
+// pre-pass into ws, then the forward
 template <typename QT, typename KVT, int D, bool kSaveLse>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* k_scale,
-                       const void* v_scale, void* out, void* lse, int B, int Sq, int Sk,
-                       int H, int Hkv, int causal, int window, float scale,
+                       const void* v_scale, void* out, void* lse, void* ws, int B, int Sq,
+                       int Sk, int H, int Hkv, int causal, int window, float scale,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kTile * D * 2 + shared_tile(D));
-  auto kernel = flash_fwd_kernel<QT, KVT, D, kSaveLse>;
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KVT*>(k), static_cast<const KVT*>(v),
+  const long long tiles = (long long)B * Hkv * ((Sk + kFwdKeys - 1) / kFwdKeys);
+  if (tiles > 0x7fffffffll) return cudaErrorInvalidValue;
+  flash_fwd_split_kernel<KVT, D><<<(unsigned)tiles, kTcThreads, 0, stream>>>(
+      static_cast<const KVT*>(k), static_cast<const KVT*>(v),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<QT*>(out), static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, window,
-      scale);
+      static_cast<float*>(ws), Sk, Hkv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = 1024 + sizeof(float) * fwd_smem_floats(D);
+  auto kernel =
+      flash_fwd_tc_kernel<QT, D, !std::is_same<KVT, __nv_bfloat16>::value, kSaveLse>;
+  err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kFwdRows - 1) / kFwdRows, H, B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const float*>(ws), static_cast<QT*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename QT, int D>
 cudaError_t launch_infer(const void* q, const void* k, const void* v, const void* k_scale,
-                         const void* v_scale, void* out, int B, int Sq, int Sk, int H,
-                         int Hkv, int causal, int window, float scale, int kv_int8,
+                         const void* v_scale, void* out, void* ws, int B, int Sq, int Sk,
+                         int H, int Hkv, int causal, int window, float scale, int kv_int8,
                          cudaStream_t stream) {
   if (kv_int8)
-    return launch_fwd<QT, int8_t, D, false>(q, k, v, k_scale, v_scale, out, nullptr, B, Sq,
-                                            Sk, H, Hkv, causal, window, scale, stream);
-  return launch_fwd<QT, QT, D, false>(q, k, v, nullptr, nullptr, out, nullptr, B, Sq, Sk, H,
-                                      Hkv, causal, window, scale, stream);
+    return launch_fwd<QT, int8_t, D, false>(q, k, v, k_scale, v_scale, out, nullptr, ws, B,
+                                            Sq, Sk, H, Hkv, causal, window, scale, stream);
+  return launch_fwd<QT, QT, D, false>(q, k, v, nullptr, nullptr, out, nullptr, ws, B, Sq, Sk,
+                                      H, Hkv, causal, window, scale, stream);
 }
 
 template <typename T, int D>
@@ -1239,8 +1507,10 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 // Plain C entry points. q, dout, out and dq (B, Sq, H, D); k, v, dk and dv
 // (B, Sk, Hkv, D), all contiguous and of one dtype (fp32, or bf16 when
 // `bf16` is 1); lse and delta (B, H, Sq) fp32 contiguous. H % Hkv == 0, D in
-// {64, 128}. causal is 0 or 1; window <= 0 means no window. Each returns
-// the CUDA error of its launch (0 on success).
+// {64, 128}. causal is 0 or 1; window <= 0 means no window. The forward's
+// ws is an fp32 workspace of B * Hkv * ceil(Sk / 32) * kFwdPlanes * 32 * D
+// floats, 16-byte aligned. Each returns the CUDA error of its launches (0
+// on success).
 #define FLASH_DISPATCH(CALL)                                                      \
   if (bf16) {                                                                     \
     if (D == 64) return static_cast<int>(CALL(__nv_bfloat16, 64));                \
@@ -1252,13 +1522,13 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                          void* out, void* lse, int B, int Sq, int Sk, int H,
-                                          int Hkv, int D, int causal, int window, float scale,
-                                          int bf16, void* stream) {
+                                          void* out, void* lse, void* ws, int B, int Sq,
+                                          int Sk, int H, int Hkv, int D, int causal,
+                                          int window, float scale, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(T, DIM)                                                                      \
-  launch_fwd<T, T, DIM, true>(q, k, v, nullptr, nullptr, out, lse, B, Sq, Sk, H, Hkv, causal, \
-                              window, scale, s)
+#define FWD(T, DIM)                                                                          \
+  launch_fwd<T, T, DIM, true>(q, k, v, nullptr, nullptr, out, lse, ws, B, Sq, Sk, H, Hkv, \
+                              causal, window, scale, s)
   FLASH_DISPATCH(FWD)
 #undef FWD
 }
@@ -1269,12 +1539,12 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
 // are K6's.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale, void* out,
-                                      int B, int Sq, int Sk, int H, int Hkv, int D,
+                                      void* ws, int B, int Sq, int Sk, int H, int Hkv, int D,
                                       int causal, int window, float scale, int bf16,
                                       int kv_int8, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define INFER(T, DIM)                                                                      \
-  launch_infer<T, DIM>(q, k, v, k_scale, v_scale, out, B, Sq, Sk, H, Hkv, causal, window, \
+#define INFER(T, DIM)                                                                          \
+  launch_infer<T, DIM>(q, k, v, k_scale, v_scale, out, ws, B, Sq, Sk, H, Hkv, causal, window, \
                        scale, kv_int8, s)
   FLASH_DISPATCH(INFER)
 #undef INFER

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (K3's and K4's wgmma paths, K7's and K8's 3xTF32 ones): shared-memory
+// (K3's and K4's wgmma paths, K6-K8's and K10's 3xTF32 ones): shared-memory
 // addresses, cp.async with zero fill, the tf32 split, mbarriers, 2D TMA
 // loads, the 128-byte swizzle, wgmma descriptors and the warpgroup MMAs in
 // the shapes the kernels issue. Everything here

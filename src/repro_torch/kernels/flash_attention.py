@@ -10,12 +10,15 @@ outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. Nothing is padded: the kernels
 mask by length. ``<wrapper>.launches`` counts each kernel's launches.
 
-K7 and K8 each have two kernels, and ``route`` picks one by dtype: fp32
-runs the tensor-core kernel (every product on wgmma in 3xTF32, hi/lo tf32
-halves of each operand: fp32-accurate), bf16 the SIMT kernel (fp32 FMAs).
-The C entry point refuses any other pairing, so neither stands in for the
-other; ``<wrapper>.launches_by_kernel`` counts each kernel's launches by
-the name ``route`` gives it. K8's tensor-core grid launches its blocks in
+K6 and K10 run one tensor-core kernel in every mode (q fp32 or bf16, K/V
+in q's dtype or int8 codes): every product on wgmma in 3xTF32, hi/lo tf32
+halves of each operand, fp32-accurate. A pre-pass in the same call splits
+K and V once into their planes in a workspace (``fwd_workspace``). K7 and
+K8 each have two kernels, and ``route`` picks one by dtype: fp32 runs the
+tensor-core kernel, bf16 the SIMT kernel (fp32 FMAs). The C entry point
+refuses any other pairing, so neither stands in for the other.
+``<wrapper>.launches_by_kernel`` counts each kernel's launches by the name
+``route`` gives it. K8's tensor-core grid launches its blocks in
 ``dkv_block_order``.
 """
 
@@ -33,15 +36,19 @@ from repro_torch.kernels.decode_attention import DTYPES, check_cuda
 _HEAD_DIMS = (64, 128)
 # K8's keys a block (kDkvKeys in the source)
 DKV_KEYS = 64
+# the forward's key tile and the hi/lo planes a tile takes in its workspace
+# (kFwdKeys, kFwdPlanes in the source)
+FWD_KEYS, FWD_PLANES = 32, 4
 
 
-def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel K7 and K8 run for inputs of ``dtype`` at head dim ``d``:
+def route(dtype: torch.dtype, d: int, *, forward: bool = False) -> str:
+    """The kernel that q of ``dtype`` at head dim ``d`` runs: the forward
+    (K6, K10) "tensor_cores" in every mode; the backward (K7, K8)
     "tensor_cores" for fp32, "simt" for bf16."""
     if d not in _HEAD_DIMS or dtype not in DTYPES:
-        raise ValueError(f"flash backward: no kernel for {dtype} at head_dim "
-                         f"{d} (takes fp32 or bf16 at {_HEAD_DIMS})")
-    return "tensor_cores" if dtype == torch.float32 else "simt"
+        raise ValueError(f"flash attention: no kernel for {dtype} at "
+                         f"head_dim {d} (takes fp32 or bf16 at {_HEAD_DIMS})")
+    return "tensor_cores" if forward or dtype == torch.float32 else "simt"
 
 
 def dkv_block_order(sk: int, b: int, hkv: int):
@@ -56,16 +63,26 @@ def dkv_block_order(sk: int, b: int, hkv: int):
             for x in range(n_kt * n_bh)]
 
 
+def fwd_workspace(b: int, sk: int, hkv: int, d: int,
+                  device: torch.device) -> torch.Tensor:
+    """The fp32 workspace of K6 and K10: K and V split once per call into
+    the hi/lo tf32 planes of every 32-key tile of every (batch, KV head),
+    which all the query blocks of the head read."""
+    tiles = b * hkv * -(-sk // FWD_KEYS)
+    return torch.empty(tiles * FWD_PLANES * FWD_KEYS * d, dtype=torch.float32,
+                       device=device)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str):
     """The C entry point ``name``, built and bound on first use (every
     pointer and the stream as ``c_void_p``)."""
     fn = getattr(build.load("flash_attention"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    n_ptr = {"flash_attention_fwd_launch": 5,
+    n_ptr = {"flash_attention_fwd_launch": 6,
              "flash_attention_bwd_dq_launch": 7,
              "flash_attention_bwd_dkv_launch": 8,
-             "flash_attention_launch": 6}[name]
+             "flash_attention_launch": 7}[name]
     n_flags = 1 if name == "flash_attention_fwd_launch" else 2
     fn.argtypes = [p] * n_ptr + [i] * 8 + [ctypes.c_float] + [i] * n_flags \
         + [p]
@@ -139,13 +156,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     if sk == 0:
         return out.zero_(), lse.fill_(-1e30)
+    ws = fwd_workspace(b, sk, hkv, d, q.device)
     with torch.cuda.device(q.device):
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, sq, sk, h, hkv, d,
+            lse.data_ptr(), ws.data_ptr(), b, sq, sk, h, hkv, d,
             *_statics(causal, window, scale, q))
     _raise_on(name, err)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_kernel[route(q.dtype, d, forward=True)] \
+        += 1
     return out, lse
 
 
@@ -232,22 +252,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if sk == 0:
         return out.zero_()
+    ws = fwd_workspace(b, sk, hkv, d, q.device)
     with torch.cuda.device(q.device):
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if int8 else None,
-            v_scale.data_ptr() if int8 else None, out.data_ptr(), b, sq, sk,
-            h, hkv, d, int(bool(causal)), int(window), float(scale),
+            v_scale.data_ptr() if int8 else None, out.data_ptr(),
+            ws.data_ptr(), b, sq, sk, h, hkv, d, int(bool(causal)),
+            int(window), float(scale),
             int(q.dtype == torch.bfloat16), int(int8),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err)
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[route(q.dtype, d, forward=True)] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_kernel = {"tensor_cores": 0}
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.launches_by_kernel = {"tensor_cores": 0, "simt": 0}
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.launches_by_kernel = {"tensor_cores": 0, "simt": 0}
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = {"tensor_cores": 0}

@@ -1,0 +1,265 @@
+"""The numerics of the flash forward's tensor-core kernel (K6, K10),
+checked on the CPU.
+
+The forward kernel (``csrc/flash_attention.cu``, ``flash_fwd_tc_kernel``)
+runs both products on the tensor cores in tf32, split so as to keep fp32
+accuracy: each fp32 operand x = hi + lo with hi = tf32(x) and lo = tf32(x
+- hi) (tf32: round to nearest, ties away, to 10 mantissa bits), and a
+product A B as A_lo B_hi + A_hi B_lo + A_hi B_hi in fp32 (3xTF32). q is
+scaled in fp32 and split as its tile is stored, K and V are widened to
+fp32 (bf16, or int8 codes times their row's scale) and split as theirs
+are, P as it is made. The walk: each warpgroup's 64 query rows over the
+32-key tiles from its block's first visible key (a block holds two
+warpgroups; a tile that none of a warpgroup's rows sees changes nothing
+there, so a 64-row walk gives the same values); an online softmax from m
+= -1e30 with p masked explicitly and l summed from the fp32 P; each
+tile's P V summed on its own and taken into O = O alpha + P V in fp32;
+out = O / max(l, 1e-30), lse = m + log(max(l, 1e-30)). ``emulate_fwd``
+below does exactly that in torch.
+Held against the JAX Pallas forward in interpret mode (``_fwd_with_lse``,
+K6's ``pallas_call``, for out and lse; ``ops.flash_attention`` in its
+int8-KV mode for K10) at chip_smoke.py's fp32 gate (1e-4 of the max), it
+shows that the design can pass the card's gate, and that plain TF32 (hi *
+hi' only) does worse at the same inputs.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as j_fa
+from repro.kernels import ops as j_ops
+from repro.quant import int8 as j_q8
+from repro_torch.kernels import flash_attention as fa
+
+ROWS, KEYS = 64, 32                 # the forward's warpgroup rows and key tile
+FP32_GATE = 1e-4                    # chip_smoke.py FLASH_TOL["float32"]
+BLOCK = 32                          # the Pallas kernel's tiles here
+
+
+def tf32(x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 rounds: add 0x1000 to the bit
+    pattern and clear the low 13 bits (to nearest, ties away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mm3(a, b):
+    """a @ b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def mm1(a, b):
+    """a @ b in plain TF32: only the hi * hi' term."""
+    return tf32(a) @ tf32(b)
+
+
+def _valid(qi, kj, sq, sk, causal, window):
+    """(len(qi), len(kj)) valid pairs, the kernel's ``valid_pair``."""
+    diff = qi[:, None] - kj[None, :]
+    ok = (qi[:, None] < sq) & (kj[None, :] < sk)
+    if causal:
+        ok &= diff >= 0
+    if window > 0:
+        ok &= diff < window
+    return ok
+
+
+def _rows(x, lo, n):
+    """Rows [lo, lo + n) of dim 1 of x, zeros past its end."""
+    out = torch.zeros((x.shape[0], n) + tuple(x.shape[2:]), dtype=x.dtype)
+    hi = min(lo + n, x.shape[1])
+    if hi > lo:
+        out[:, :hi - lo] = x[:, lo:hi]
+    return out
+
+
+def emulate_fwd(q, k, v, *, scale, causal, window, k_scale=None,
+                v_scale=None, mm=mm3):
+    """What the forward kernel computes: q (B, Sq, H, D) fp32 or bf16, k/v
+    (B, Sk, Hkv, D) in q's dtype or int8 codes with (B, Sk, Hkv) scales.
+    Returns out (B, Sq, H, D) in q's dtype and lse (B, H, Sq) fp32."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:                     # widened and scaled as stored
+        kf, vf = kf * k_scale[..., None], vf * v_scale[..., None]
+    out = torch.zeros((b, sq, h, d))
+    lse = torch.zeros((b, h, sq))
+    for q0 in range(0, sq, ROWS):
+        n_q = min(ROWS, sq - q0)
+        qi = torch.arange(q0, q0 + ROWS)
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        k_hi = min(sk, q0 + n_q) if causal else sk
+        qs = _rows(q.float(), q0, ROWS).permute(0, 2, 1, 3) * scale
+        m = torch.full((b, h, ROWS), -1e30)
+        l = torch.zeros((b, h, ROWS))
+        acc = torch.zeros((b, h, ROWS, d))
+        for k0 in range(k_lo // KEYS * KEYS, k_hi, KEYS):
+            kj = torch.arange(k0, k0 + KEYS)
+            kt = _rows(kf, k0, KEYS).permute(0, 2, 1, 3) \
+                .repeat_interleave(rep, 1)                      # (B, H, K, D)
+            vt = _rows(vf, k0, KEYS).permute(0, 2, 1, 3) \
+                .repeat_interleave(rep, 1)
+            s = mm(qs, kt.transpose(-1, -2))
+            ok = _valid(qi, kj, sq, sk, causal, window)
+            m_new = torch.maximum(m, torch.where(ok, s, -1e30).amax(-1))
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + mm(p, vt)
+            m = m_new
+        den = l.clamp_min(1e-30)
+        out[:, q0:q0 + n_q] = (acc / den[..., None]).permute(
+            0, 2, 1, 3)[:, :n_q]
+        lse[:, :, q0:q0 + n_q] = (m + torch.log(den))[..., :n_q]
+    return out.to(q.dtype), lse
+
+
+# (sq, sk, h, hkv, d, causal, window): both head dims; ragged lengths
+# across the 64-row blocks and 32-key tiles, Sq < Sk, GQA groups of 1, 2
+# and 3, windows that start inside a tile, a non-causal case
+CASES = [
+    (130, 130, 4, 2, 64, True, -1),
+    (96, 160, 3, 1, 128, True, -1),
+    (128, 128, 2, 2, 128, True, 40),
+    (64, 96, 2, 1, 64, False, -1),
+    (200, 200, 2, 1, 64, True, 70),
+]
+IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}d{c[4]}{'c' if c[5] else 'f'}w{c[6]}"
+       for c in CASES]
+
+
+def _inputs(case):
+    sq, sk, h, hkv, d, _, _ = case
+    rng = np.random.default_rng(CASES.index(case))
+    shapes = ((1, sq, h, d), (1, sk, hkv, d), (1, sk, hkv, d))
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@functools.partial(jax.jit, static_argnames=("statics",))
+def _pallas_fwd(q, k, v, statics):
+    return j_fa._fwd_with_lse(q, k, v, statics)
+
+
+def _jax_fwd(case):
+    """K6's Pallas kernel (``_fwd_with_lse``) in interpret mode: out (B, Sq,
+    H, D) and lse (B, H, Sq). Keys padded to the tile sit past Sk, where the
+    causal mask hides them from every row (Sq <= Sk) or none is padded."""
+    sq, sk, _, _, d, causal, window = case
+    assert (causal and sq <= sk) or sk % BLOCK == 0
+    q, k, v = _inputs(case)
+
+    def pad(x):
+        return jnp.pad(jnp.asarray(x),
+                       ((0, 0), (0, -x.shape[1] % BLOCK), (0, 0), (0, 0)))
+
+    out, lse = _pallas_fwd(pad(q), pad(k), pad(v), statics=(
+        d ** -0.5, causal, window, BLOCK, BLOCK, True))
+    return np.asarray(out)[:, :sq], np.asarray(lse)[:, :, :sq, 0]
+
+
+def _emulated(case, mm):
+    sq, sk, h, hkv, d, causal, window = case
+    q, k, v = (torch.from_numpy(x) for x in _inputs(case))
+    out, lse = emulate_fwd(q, k, v, scale=d ** -0.5, causal=causal,
+                           window=window, mm=mm)
+    return out.numpy(), lse.numpy()
+
+
+def _rel_errs(got, want):
+    return [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_split_numerics_within_the_card_gate(case):
+    """3xTF32 in the kernel's tile walk: out and lse within 1e-4 of the max
+    of the Pallas forward's (with a margin of 10x: about 2^-21 a
+    product)."""
+    errs = _rel_errs(_emulated(case, mm3), _jax_fwd(case))
+    assert max(errs) <= FP32_GATE / 10, errs
+
+
+def test_plain_tf32_is_worse_than_the_split():
+    """The split is needed: hi * hi' alone (plain TF32, about 2^-11 an
+    operand) is at least 10x further from the Pallas forward than the
+    split in out and in lse, in every case, and misses the fp32 gate in
+    out in every case (about 4e-4 of the max, the split 3e-7 to 8e-7).
+    Its lse stays within the gate in some cases (3e-5 to 2e-4 of the
+    max, the split about 1e-7): lse is a log of a sum, which averages the
+    products' rounding."""
+    for case in CASES:
+        want = _jax_fwd(case)
+        split_errs = _rel_errs(_emulated(case, mm3), want)
+        plain_errs = _rel_errs(_emulated(case, mm1), want)
+        assert all(p >= 10 * s for p, s in zip(plain_errs, split_errs)), \
+            (case, split_errs, plain_errs)
+        assert plain_errs[0] > FP32_GATE, (case, plain_errs)
+
+
+@pytest.mark.parametrize("s,window", [(96, -1), (130, 50)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_kv_within_the_card_gate(s, window, d):
+    """K10's int8-KV mode: codes times their row's scale in fp32, then the
+    split, against the Pallas kernel's int8-KV mode (``ops.flash_attention``
+    with ``k_scale``/``v_scale``) at the fp32 gate with the same 10x
+    margin."""
+    rng = np.random.default_rng(7 + s + d)
+    b, h, hkv = 1, 4, 2
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    kv = []
+    for _ in range(2):
+        x = jnp.asarray(rng.standard_normal((b, s, hkv, d)), jnp.float32)
+        codes, sc = j_q8.quantize_rowwise(x)
+        kv += [np.array(codes), np.array(sc)]
+    kq, ks, vq, vs = kv
+    want = np.asarray(j_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), scale=d ** -0.5,
+        causal=True, window=window, block_q=BLOCK, block_k=BLOCK,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), interpret=True))
+    t = torch.from_numpy
+    got, _ = emulate_fwd(t(q), t(kq), t(vq), scale=d ** -0.5, causal=True,
+                         window=window, k_scale=t(ks), v_scale=t(vs))
+    err = float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+    assert err <= FP32_GATE / 10, err
+
+
+def test_bf16_operands_are_tf32_exact():
+    """bf16 values (8 mantissa bits) split into hi = x and lo = 0, so the
+    kernel leaves out the terms with a bf16 K's or V's lo half (a bf16 q,
+    scaled in fp32, keeps its lo half)."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        4096).astype(np.float32)).to(torch.bfloat16).float()
+    hi, lo = split(x)
+    assert torch.equal(hi, x) and not lo.any()
+    _, lo_scaled = split(x * 128 ** -0.5)
+    assert lo_scaled.any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_forward_route(d):
+    """K6 and K10 run their tensor-core kernel for fp32 and bf16 q at both
+    head dims (the backward routes bf16 to SIMT); any other dtype or head
+    dim has no kernel."""
+    for dt in (torch.float32, torch.bfloat16):
+        assert fa.route(dt, d, forward=True) == "tensor_cores"
+    assert fa.route(torch.bfloat16, d) == "simt"
+    with pytest.raises(ValueError):
+        fa.route(torch.float16, d, forward=True)
+    with pytest.raises(ValueError):
+        fa.route(torch.float32, 96, forward=True)
+    assert set(fa.flash_attention_fwd.launches_by_kernel) == \
+        set(fa.flash_attention.launches_by_kernel) == {"tensor_cores"}
