@@ -28,14 +28,18 @@ non-zero and prints no result:
    K1 at B=8, H=36, Hkv=4, D=128, Sk=2048; K2 at the same shapes through a
    permuted table of 128 pages of 16 per slot (K1's, K2's and K5's times
    are device time from torch.profiler, their CUDA-event times beside
-   them; K2 and K5 split each slot's keys across the SMs, and their
-   bf16-q modes over bf16 and int8 pools run their tensor-core kernel, the
-   others their SIMT kernel); K3 at 8 rows, C=256, ragged
+   them; K1, K2 and K5 run one body that splits each slot's keys across
+   the SMs, their bf16-q modes over bf16 and int8 caches on its
+   tensor-core kernel, the others on its SIMT kernel, and each row names
+   the kernel its call launched); K1 on the dense cache equal bit for bit
+   to K2 on a permuted pool that holds the same rows, in every mode and
+   both windows, and two calls of K1 equal bit for bit; K3 at 8 rows,
+   C=256, ragged
    starts (unaligned ones too) and lengths (0 too), then (checked, not
    timed) at C=200 with a window of 300 that starts inside cached pages
    and key tiles (K3's bf16-q modes over bf16 and int8 pools run its
    tensor-core kernel, the others its SIMT kernel; a ``routes`` line names
-   the kernel that one call of each K2, K3 and K5 mode, K4 regime and
+   the kernel that one call of each K1, K2, K3 and K5 mode, K4 regime and
    K6-K8 and K10 mode (fp32 and bf16, head dims 128 and 64) launched,
    read from the wrappers' per-kernel counters); K5 on K2's
    pools and lengths with T = 1, 2 and 5 query lanes per slot (lengths 1
@@ -49,9 +53,13 @@ non-zero and prints no result:
    window of 300 that starts inside a split and a page, T = 1, 2 and 5,
    head dims 128, 64 and 256, every mode;
 4. int8 matmul (K4) against its plain version at the main path's shapes:
-   decode (M=8) and speculative-tick (M=40) for 4608->4608, ->512,
+   decode (M=8: the decode kernel, by device time from torch.profiler,
+   CUDA events beside) and speculative-tick (M=40) for 4608->4608, ->512,
    ->18432 and 18432->4608, prefill (M=2048) for 4608->18432 and
-   18432->4608, with bf16 x, then (checked, not timed) the wgmma kernel's
+   18432->4608, with bf16 x, each also called twice for equal bits; then
+   (checked, not timed) the decode kernel at M = 1, 3, 7 and 8 over (K, N)
+   = (48, 13), (4608, 1000), (4608, 4624) and (18464, 512), both outputs,
+   and the wgmma kernel's
    ragged shapes (M = 9, 100, 2047; N = 1008, 4624) and an N = 1000 call
    that must raise its shape error, fp32 x at M=8
    for 4608->18432, and the fp32-output mode of bf16 x (the training
@@ -96,9 +104,9 @@ non-zero and prints no result:
 8. phases 6 and 7 again with ``quant="int8"`` (the same weights quantized
    once): K4 launches must be (decode ticks + admission or extend calls) x
    32 x 6, K1, K2 and K3 as in phases 6 and 7; each serve run also reads
-   the per-kernel counters of K2, K3, K4 and K5: K2, K3 and K5 must run
-   on their tensor cores in the int8 runs and on their SIMT kernels in
-   the others, and K4 in the
+   the per-kernel counters of K1, K2, K3, K4 and K5: K1, K2, K3 and K5
+   must run on their tensor cores in the int8 runs and on their SIMT
+   kernels in the others, and K4 in the
    int8 runs on its wgmma kernel and (outside the spec runs) its decode
    kernel, never its SIMT kernel;
 8b. phase 7's traffic with speculative decode (``spec_k=4``, ``ngram``),
@@ -583,8 +591,10 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
     device time from torch.profiler (``device_ms``), the kernel's and the
     library call's CUDA-event times beside them (host-paced where the
     host's launch is the slower side), as K1, K2 and K5 report them;
-    ``route(q dtype, K/V dtype, head dim)`` names the kernel each mode
-    runs (K2's and K5's ``route``)."""
+    a wrapper with per-kernel counters (``launches_by_kernel``) reports
+    the kernel the checked call launched as the row's route, which must be
+    the one that ``route(q dtype, K/V dtype, head dim)`` names (the split
+    body's ``route``, for K1, K2 and K5) when both are there."""
     import torch
     scale = D ** -0.5
     dead = dead.cuda()
@@ -596,9 +606,12 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                else (kernel, plain, library))
         args = inputs(getattr(torch, q_name), getattr(torch, kv_name))
         hot = cold + ((len(args) - 2, len(args) - 1) if int8 else ())
+        counts = getattr(kernel, "launches_by_kernel", None)
         for window in WINDOWS:
+            before = dict(counts or {})
             got = fns[0](*args, scale=scale, window=window)
             torch.cuda.synchronize()
+            ran = [n for n in (counts or {}) if counts[n] != before[n]]
             want = fns[1](*args, scale=scale, window=window)
             err = (got.float() - want.float()).abs()
             max_err = float(err.max())
@@ -633,9 +646,14 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                 row.update({"timing": "device", "event_ms": cuda_ms(
                     timed(fns[0]), iters), "library_event_ms": cuda_ms(
                     timed(fns[2]), max(iters // 2, 4))})
-            if route is not None:
-                row["route"] = route(args[0].dtype, args[1].dtype,
-                                     args[0].shape[-1])
+            if counts is not None:
+                row["route"] = ran[0] if len(ran) == 1 else ran
+                rule = route and route(args[0].dtype, args[1].dtype,
+                                       args[0].shape[-1])
+                if rule and row["route"] != rule:
+                    raise AssertionError(
+                        f"{name}: q {q_name}, kv {kv_name} ran {ran}, not "
+                        f"its route's {rule} kernel")
             emit(row)
             del copies
             if (q_name, kv_name, window) in (MAIN_FP, MAIN_INT8):
@@ -645,11 +663,14 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
 
 def phase_kernels():
     """K1, K2, K5 and K3 against their plain versions at the main path's
-    shapes. Returns each kernel's main-path rows."""
-    return {"decode_attention": phase_decode_kernel(),
+    shapes, then K1 against K2 on the same rows. Returns each kernel's
+    main-path rows."""
+    main = {"decode_attention": phase_decode_kernel(),
             "paged_decode_attention": phase_paged_decode_kernel(),
             "paged_verify_attention": phase_verify_kernel(),
             "paged_prefill_attention": phase_prefill_kernel()}
+    phase_decode_identity()
+    return main
 
 
 def phase_prefill_kernel():
@@ -713,13 +734,14 @@ def phase_prefill_ragged():
 
 
 def phase_routes():
-    """Which kernel each K2, K3 and K5 mode, each K4 regime and each K6-K8
-    and K10 mode ran: one call of each at the main path's shapes (K2 and
-    K5 at T = 5 also at head dim 64; K4 on a 4608 x 512 weight; K6-K8 in
+    """Which kernel each K1, K2, K3 and K5 mode, each K4 regime and each
+    K6-K8 and K10 mode ran: one call of each at the main path's shapes (K1,
+    K2 and K5 (T = 5) also at head dim 64; K4 on a 4608 x 512 weight; K6-K8 in
     fp32 and bf16 and K10 in each of its modes at head dims 128 and 64, S
     = 256), read from the wrappers' per-kernel counters; each must be the
     kernel that the wrapper's rule (``route``, ``regime``) names."""
     import torch
+    from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import paged_decode_attention as k2
@@ -748,7 +770,7 @@ def phase_routes():
                               *args[:8], scale=D ** -0.5, **kw))
         if k3_ran[key] != k3.route(args[0].dtype, args[3].dtype):
             raise AssertionError(f"K3 {key} ran its {k3_ran[key]} kernel")
-    k2_ran, k5_ran = {}, {}
+    k1_ran, k2_ran, k5_ran = {}, {}, {}
     lengths = [min(n, RAGGED_BLOCKS * PAGE) for n in LENGTHS]
     for d in (D, 64):
         for q_name, kv_name, _, _ in MODES:
@@ -765,10 +787,19 @@ def phase_routes():
             k5_ran[key] = ran(k5.paged_verify_attention,
                               lambda: k5.paged_verify_attention(
                                   q, *rest[:4], scale=d ** -0.5, **kw))
-            if k2_ran[key] != want or k5_ran[key] != want:
-                raise AssertionError(f"K2 / K5 {key} ran their "
-                                     f"{k2_ran[key]} / {k5_ran[key]} "
-                                     f"kernels, not {want}")
+            # K1 over the pool's first pages, seen as a slot-major cache
+            dense = [t[:B * 16].reshape(B, 16 * PAGE, *t.shape[2:])
+                     for t in rest[:2] + rest[4:]]
+            dkw = dict(zip(("k_scale", "v_scale"), dense[2:]))
+            k1_ran[key] = ran(k1.decode_attention,
+                              lambda: k1.decode_attention(
+                                  q[:, 0].contiguous(), *dense[:2], rest[3],
+                                  scale=d ** -0.5, **dkw))
+            if k1_ran[key] != want or k2_ran[key] != want \
+                    or k5_ran[key] != want:
+                raise AssertionError(f"K1 / K2 / K5 {key} ran their "
+                                     f"{k1_ran[key]} / {k2_ran[key]} / "
+                                     f"{k5_ran[key]} kernels, not {want}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     for x_name, m in (("bfloat16", 8), ("bfloat16", 40), ("bfloat16", 2048),
                       ("float32", 8), ("float32", 4096)):
@@ -818,7 +849,8 @@ def phase_routes():
                 raise AssertionError(f"K7 / K8 {key} ran their "
                                      f"{k7_ran[key]} / {k8_ran[key]} "
                                      f"kernels, not {want}")
-    emit({"phase": "routes", "paged_decode_attention": k2_ran,
+    emit({"phase": "routes", "decode_attention": k1_ran,
+          "paged_decode_attention": k2_ran,
           "paged_verify_attention": k5_ran, "paged_prefill_attention": k3_ran,
           "int8_matmul": k4_ran, "flash_attention_fwd": k6_ran,
           "flash_attention_bwd_dq": k7_ran,
@@ -839,7 +871,8 @@ def _verify_inputs(t):
 
 def phase_decode_kernel():
     """K1 against its plain version in every mode and window at the main
-    path's shapes, timed by device time. Returns its main-path rows."""
+    path's shapes, timed by device time, with the kernel each mode ran.
+    Returns its main-path rows."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import ref
@@ -848,11 +881,63 @@ def phase_decode_kernel():
         _library_decode, _decode_inputs,
         lambda a, w: _decode_bound(a[0], a[1], a[3], w),
         dead=torch.tensor(LENGTHS) == 0, cold=(1, 2), iters=48,
-        kv_pos=(1, 2), device_time=True)
+        kv_pos=(1, 2), device_time=True, route=_k25_route())
 
 
-# K2's and K5's rule for the kernel a mode runs; a checkout from before
-# their split (which decode_bench.py times beside this one) has none
+def _as_pool(kv, table):
+    """A pool of pages of PAGE rows (and the sink page, zeros) holding the
+    rows of the slot-major ``kv`` (B, Sk, ...) where ``table`` (B, Sk /
+    PAGE) puts them: K2's view of K1's cache."""
+    import torch
+    b, sk = kv.shape[:2]
+    pages = kv.reshape(b * (sk // PAGE), PAGE, *kv.shape[2:])
+    pool = torch.zeros((pages.shape[0] + 1, *pages.shape[1:]),
+                       dtype=kv.dtype, device=kv.device)
+    pool[table.flatten().long()] = pages
+    return pool
+
+
+def phase_decode_identity():
+    """K1 on the dense cache against K2 on a permuted pool of pages of 16
+    that holds the same rows, at the main path's shapes, in every mode and
+    both windows: equal bit for bit (the split body splits, walks and
+    merges the same keys in the same order whatever the row policy), and
+    two calls of K1 equal bit for bit."""
+    import torch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import paged_decode_attention as k2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    table = torch.randperm(B * N_BLOCKS, generator=gen, device="cuda").to(
+        torch.int32).reshape(B, N_BLOCKS)
+    rows = []
+    for q_name, kv_name, _, _ in MODES:
+        q, k, v, lengths, *sc = _decode_inputs(getattr(torch, q_name),
+                                               getattr(torch, kv_name))
+        pools = [_as_pool(t, table) for t in (k, v, *sc)]
+        for window in WINDOWS:
+            kw = dict(scale=D ** -0.5, window=window)
+            dense_kw = dict(zip(("k_scale", "v_scale"), sc), **kw)
+            paged_kw = dict(zip(("k_scale", "v_scale"), pools[2:]), **kw)
+            first = k1.decode_attention(q, k, v, lengths, **dense_kw)
+            second = k1.decode_attention(q, k, v, lengths, **dense_kw)
+            paged = k2.paged_decode_attention(q, *pools[:2], table, lengths,
+                                              **paged_kw)
+            torch.cuda.synchronize()
+            label = f"K1: q {q_name}, kv {kv_name}, window {window}"
+            _same_bits(label, (first,), (second,))
+            if not torch.equal(first, paged):
+                raise AssertionError(
+                    f"{label} differs from K2 on the same rows: max abs diff "
+                    f"{float((first.float() - paged.float()).abs().max())}")
+            rows.append([q_name, kv_name, window,
+                         k2.route(q.dtype, k.dtype, D)])
+    emit({"phase": "decode_identity", "kernel": "decode_attention",
+          "equal_to": "paged_decode_attention, page size 16",
+          "rows_q_kv_window_route": rows})
+
+
+# K1's, K2's and K5's rule for the kernel a mode runs; a checkout from
+# before their split (which decode_bench.py times beside this one) has none
 def _k25_route():
     from repro_torch.kernels import paged_decode_attention as k2
     return getattr(k2, "route", None)
@@ -1049,16 +1134,17 @@ def phase_decode_ragged():
 
 
 # (M, K, N, x dtype, output dtype) of K4's checks: a decode tick's
-# projections at 8 slots (wq/wo, wk/wv, w_in, w_out), the same at a
-# speculative tick's 8 slots x 5 lanes (M = 40, the wgmma kernel), the
-# prefill GEMMs of an extend call (8 rows x 256-token chunks), fp32 x, and
-# the fp32-output mode of bf16 x that int8_matmul_train's forward runs, at
-# a decode and a training batch (4096 tokens)
-K4_SHAPES = ((8, 4608, 4608, "bfloat16", "bfloat16"),
+# projections at 8 slots (wq/wo, wk/wv, w_in, w_out: the decode kernel,
+# timed by device time), then the same at a speculative tick's 8 slots x 5
+# lanes (M = 40, the wgmma kernel), the prefill GEMMs of an extend call (8
+# rows x 256-token chunks), fp32 x, and the fp32-output mode of bf16 x that
+# int8_matmul_train's forward runs, at a decode and a training batch (4096
+# tokens)
+K4_DECODE = ((8, 4608, 4608, "bfloat16", "bfloat16"),
              (8, 4608, 512, "bfloat16", "bfloat16"),
              (8, 4608, 18432, "bfloat16", "bfloat16"),
-             (8, 18432, 4608, "bfloat16", "bfloat16"),
-             (40, 4608, 4608, "bfloat16", "bfloat16"),
+             (8, 18432, 4608, "bfloat16", "bfloat16"))
+K4_SHAPES = ((40, 4608, 4608, "bfloat16", "bfloat16"),
              (40, 4608, 512, "bfloat16", "bfloat16"),
              (40, 4608, 18432, "bfloat16", "bfloat16"),
              (40, 18432, 4608, "bfloat16", "bfloat16"),
@@ -1090,6 +1176,12 @@ K4_RAGGED = ((9, 4608, 1008, "bfloat16"), (9, 4608, 4624, "float32"),
              (100, 4608, 4624, "bfloat16"), (100, 18432, 1008, "float32"),
              (2047, 4608, 1008, "bfloat16"), (2047, 4608, 4624, "float32"))
 K4_REFUSED = (40, 4608, 1000)
+# the decode kernel's ragged shapes, checked and not timed: M = 1, 3, 7
+# and 8 rows over (K, N) of a K below one 128-row round and an N below
+# one 128-column tile, N % 16 != 0 (byte loads), an N no tile divides,
+# and a K that is no whole number of rounds over a narrow N; both outputs
+K4_DECODE_RAGGED_M = (1, 3, 7, 8)
+K4_DECODE_RAGGED_KN = ((48, 13), (4608, 1000), (4608, 4624), (18464, 512))
 
 
 def _k4_inputs(gen, m, k, n, dt):
@@ -1133,56 +1225,97 @@ def _check_k4(x, q, sc, odt):
 
 
 def _k4_row(gen, m, k, n, x_name, out_name):
-    """K4 at one shape of K4_SHAPES held against its plain version, with
-    its time, bound, the plain version's time and cuBLAS on the
-    dequantized weight, every timed call on its own cold weight copy."""
+    """K4 at one shape held against its plain version, with its time,
+    bound, the plain version's time and cuBLAS on the dequantized weight,
+    every timed call on its own cold weight copy. The decode kernel's
+    times are device time from torch.profiler (a decode call's launch can
+    take the host longer than the kernel takes the card), its and the
+    library call's CUDA-event times beside them; a second call on the same
+    inputs must give the first one's bits."""
     import torch
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import ref
     dt, odt = getattr(torch, x_name), getattr(torch, out_name)
     x, q, sc = _k4_inputs(gen, m, k, n, dt)
     got, max_err = _check_k4(x, q, sc, odt)
+    _same_bits(f"K4 {m}x{k}x{n}", (got,), (k4.int8_matmul(
+        x, q, sc, out_dtype=odt),))
     atol, rtol = K4_TOL[x_name, out_name]
+    decode = k4.regime(m, dt) == "decode"
+    timer = device_ms if decode else cuda_ms
     qs = [q] + [q.clone() for _ in range(
         max(3, int(K4_COLD_BYTES // q.numel())))]
-    kernel_ms = cuda_ms(lambda i: k4.int8_matmul(
-        x, qs[i % len(qs)], sc, out_dtype=odt), 24 if m <= 2048 else 8)
-    plain_ms = cuda_ms(lambda i: ref.int8_matmul_ref(
+    iters = 24 if m <= 2048 else 8
+
+    def kernel(i):
+        return k4.int8_matmul(x, qs[i % len(qs)], sc, out_dtype=odt)
+    kernel_ms = timer(kernel, iters)
+    plain_ms = timer(lambda i: ref.int8_matmul_ref(
         x, qs[i % len(qs)], sc, out_dtype=odt), 6 if m <= 2048 else 3)
     # the yardstick moves 2x (bf16) or 4x (fp32) the weight bytes
     wd = [(c.float() * sc).to(dt) for c in qs[:max(
         2, int(K4_COLD_BYTES // (q.numel() * x.element_size())))]]
-    library_ms = cuda_ms(lambda i: x @ wd[i % len(wd)],
-                         24 if m <= 2048 else 8)
+
+    def library(i):
+        return x @ wd[i % len(wd)]
+    library_ms = timer(library, iters)
+    row = {"phase": "int8_matmul", "kernel": k4.regime(m, dt), "m": m,
+           "k": k, "n": n, "x": x_name, "out": out_name,
+           "max_abs_err": max_err, "atol": atol, "rtol": rtol,
+           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "cuBLAS x @ w, w dequantized once: not the same "
+                      "function, it moves 2x (bf16) or 4x (fp32) the "
+                      "weight bytes"}
+    if decode:
+        row.update({"timing": "device", "event_ms": cuda_ms(kernel, iters),
+                    "library_event_ms": cuda_ms(library, iters)})
     del qs, wd
     nbytes = (q.numel() + sc.numel() * 4 + x.numel() * x.element_size()
               + m * n * got.element_size())
-    bound_ms, bound_by = _bound(nbytes, 2.0 * m * k * n / _peak(x))
-    return {"phase": "int8_matmul", "m": m, "k": k, "n": n, "x": x_name,
-            "out": out_name, "max_abs_err": max_err, "atol": atol,
-            "rtol": rtol, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "library": "cuBLAS x @ w, w dequantized once: not the same "
-                       "function, it moves 2x (bf16) or 4x (fp32) the "
-                       "weight bytes",
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    row["bound_ms"], row["bound_by"] = _bound(nbytes,
+                                              2.0 * m * k * n / _peak(x))
+    return row
 
 
-def phase_int8_matmul():
-    """K4 against its plain version at the main path's shapes, with its
-    time, bound, the plain version's time and cuBLAS on the dequantized
-    weight; then the wgmma kernel's ragged shapes (checked, not timed) and
-    the shape it must refuse. Returns the main row (decode, w_in)."""
+def phase_int8_decode():
+    """K4's decode kernel (bf16 x, M <= 8) against its plain version at a
+    decode tick's four projections, timed by device time with CUDA events
+    beside, two calls equal bit for bit; then at the ragged decode shapes
+    (checked, not timed), both outputs. Returns the main row (w_in)."""
     import torch
     from repro_torch.kernels import int8_matmul as k4
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     main = None
-    for m, k, n, x_name, out_name in K4_SHAPES:
+    for m, k, n, x_name, out_name in K4_DECODE:
         row = _k4_row(gen, m, k, n, x_name, out_name)
-        row["kernel"] = k4.regime(m, getattr(torch, x_name))
         emit(row)
         if (m, k, n, x_name, out_name) == K4_MAIN:
             main = row
+    ragged = []
+    for k, n in K4_DECODE_RAGGED_KN:
+        for m in K4_DECODE_RAGGED_M:
+            x, q, sc = _k4_inputs(gen, m, k, n, torch.bfloat16)
+            for odt in (torch.bfloat16, torch.float32):
+                got, err = _check_k4(x, q, sc, odt)
+                _same_bits(f"K4 {m}x{k}x{n}", (got,), (k4.int8_matmul(
+                    x, q, sc, out_dtype=odt),))
+                ragged.append([m, k, n, str(odt).split(".")[1], err])
+    emit({"phase": "int8_matmul_ragged", "kernel": "decode",
+          "rows_m_k_n_out_err": ragged})
+    return main
+
+
+def phase_int8_matmul():
+    """K4 against its plain version at the main path's shapes past the
+    decode tick's (the decode kernel's are ``phase_int8_decode``'s), with
+    its time, bound, the plain version's time and cuBLAS on the
+    dequantized weight; then the wgmma kernel's ragged shapes (checked,
+    not timed) and the shape it must refuse."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for m, k, n, x_name, out_name in K4_SHAPES:
+        emit(_k4_row(gen, m, k, n, x_name, out_name))
     ragged = []
     for m, k, n, out_name in K4_RAGGED:
         x, q, sc = _k4_inputs(gen, m, k, n, torch.bfloat16)
@@ -1199,7 +1332,6 @@ def phase_int8_matmul():
                              f"M = {m}: its TMA descriptors cannot")
     emit({"phase": "int8_matmul_ragged", "kernel": "wgmma",
           "rows": ragged, "refused": [m, k, n], "error": refused})
-    return main
 
 
 # K9 at the training path's projection shapes of starcoder2-7b, M = 4096
@@ -1650,14 +1782,14 @@ def phase_flash_kernels():
 
 
 def _same_bits(label, first, second):
-    """Two calls' outputs must be equal bit for bit (every sum of K6-K8
-    and K10 is taken in a fixed order)."""
+    """Two calls' outputs must be equal bit for bit (every sum of K1, K4,
+    K6-K8 and K10 is taken in a fixed order)."""
     import torch
     torch.cuda.synchronize()
     if len(first) != len(second) or not all(
             torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError(f"flash kernels: two calls on the same inputs "
-                             f"differ: {label}")
+        raise AssertionError(f"two calls on the same inputs differ: "
+                             f"{label}")
 
 
 # (Sq, Sk, H, Hkv, D, causal, window): ragged lengths across the tensor-core
@@ -2689,9 +2821,9 @@ def _serve_run(phase, eng, acct, prompts, n_new):
         raise AssertionError(f"{phase}: launches {launches} != {want} "
                              f"(decode ticks {decode_ticks}, admission or "
                              f"extend calls {admissions})")
-    # which of K2's, K3's, K4's and K5's kernels ran: bf16 q over the int8
-    # pool on K2's, K3's and K5's tensor cores and over the fp32 pool on
-    # their SIMT kernels; bf16 x on
+    # which of K1's, K2's, K3's, K4's and K5's kernels ran: bf16 q over the
+    # int8 cache on K1's, K2's, K3's and K5's tensor cores and over the fp32
+    # cache on their SIMT kernels; bf16 x on
     # K4's wgmma kernel (M > 8: admission and extend calls, the spec ticks'
     # 40 rows) and its decode kernel (M <= 8: the 8 slots of a decode tick,
     # an extend call of a few tokens), never its SIMT one
@@ -2699,12 +2831,14 @@ def _serve_run(phase, eng, acct, prompts, n_new):
     k4_by = by_kernel["int8_matmul"]
     attn_kernel = "tensor_cores" if int8 else "simt"
     if any(by_kernel[name][attn_kernel] != launches[name]
-           for name in ("paged_decode_attention", "paged_prefill_attention",
+           for name in ("decode_attention", "paged_decode_attention",
+                        "paged_prefill_attention",
                         "paged_verify_attention")) or (
             int8 and not (k4_by["simt"] == 0 and k4_by["wgmma"] > 0
                           and (spec or k4_by["decode"] > 0))):
         raise AssertionError(
-            f"{phase}: K2 ran {by_kernel['paged_decode_attention']}, K3 "
+            f"{phase}: K1 ran {by_kernel['decode_attention']}, K2 ran "
+            f"{by_kernel['paged_decode_attention']}, K3 "
             f"{k3_by}, K5 {by_kernel['paged_verify_attention']} (all on "
             f"{attn_kernel} expected), K4 ran {k4_by}")
     row = {"phase": phase, "dtype": "bfloat16", "quant": eng.scfg.quant,
@@ -2850,7 +2984,8 @@ def main() -> int:
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
     phase_prefill_ragged()
     phase_decode_ragged()
-    rows["int8_matmul"] = phase_int8_matmul()
+    rows["int8_matmul"] = phase_int8_decode()
+    phase_int8_matmul()
     rows["int8_matmul_dx"] = phase_int8_dx()
     phase_int8_train_grads()
     rows["ternary_matmul"] = phase_ternary_matmul()

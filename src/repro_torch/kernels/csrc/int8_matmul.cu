@@ -16,23 +16,26 @@
 // K must be a multiple of 16 (every starcoder2 K is a multiple of 128).
 //
 // What bounds it on the card depends on M, and so there are three kernels:
-//   * decode, bf16 x, M <= 8 (int8_gemv_kernel): bytes. The weight is read
-//     once (1 byte an element) and each byte feeds at most 2 * 8 FLOPs, far
-//     below the H100's ~295 FLOP/byte ridge; the least time is the weight
-//     bytes over 3.35 TB/s. On fp32 CUDA cores the 8 FMAs and the widening
-//     per byte would cost more than the bytes (a first version ran at 5x
-//     the bound), so the products run on the tensor cores: mma m16n8k16
-//     with x as A (M <= 8 rows, zero-padded to 16) and the weight as B.
-//     Each lane streams 16-byte cp.async copies of one weight row, five
-//     16-row steps ahead; the codes are widened exactly to bf16 with a byte
-//     permute and a subtraction (no int-to-float conversion) into a
-//     warp-private shared tile, and ldmatrix.trans hands out the B
-//     fragments. K is split across blocks (up to 32 splits) so that the
-//     grid is about three blocks per SM where N allows; the partial
-//     sums of a column tile meet in an fp32 workspace, and the last block
-//     of the tile to finish (an atomic counter, reset by that block) adds
-//     them in split order, so the result does not depend on the order in
-//     which blocks ran and the call is one launch.
+//   * decode, bf16 x, M <= 8 (int8_decode_kernel): bytes. The weight is
+//     read once (1 byte an element) and each byte feeds at most 2 * 8
+//     FLOPs, far below the H100's ~295 FLOP/byte ridge; the least time is
+//     the weight bytes over 3.35 TB/s. On fp32 CUDA cores the 8 FMAs and
+//     the widening a byte would cost more than the bytes (a first version
+//     ran at 5x the bound), so the products run on the tensor cores as
+//     y^T = q^T x^T with the weight as the register operand, widened
+//     exactly in registers (a byte permute and a subtraction, no
+//     int-to-float conversion), and x^T as the n = 8 operand (no padded
+//     rows). What holds such a kernel back is the stream (a split-K
+//     kernel before this one, measured part by part, spent 89-97% of its
+//     time on its cp.async stream alone): each lane loads its own
+//     fragments, 128 contiguous bytes of a row a warp load, straight to
+//     registers two steps ahead (no shared memory, no wide tile, no
+//     ldmatrix); one block a (128-column tile, band of k rows), equal bands
+//     with every block resident, the blocks of a band walking down the
+//     same rows of adjacent tiles in step; the sums of a tile's bands meet
+//     in an in-order last-block combine, so the result does not depend on
+//     the order in which blocks ran and the call is one launch. The design
+//     note is above the kernel.
 //   * prefill, bf16 x, M > 8 (int8_wgmma_kernel): operations (about 2 * M
 //     FLOPs a weight byte: past the ridge from M ~ 150; at a speculative
 //     tick's M = 40, bytes). wgmma with the weight as the register operand
@@ -66,21 +69,54 @@ constexpr int kThreads = 256;
 constexpr int kTcMaxSplits = 64;  // the wgmma kernel's K splits at most
 
 // ---------------------------------------------------------------------------
-// decode: bf16 x, M <= 8, split K, tensor cores
+// decode: bf16 x, M <= 8, the weight streamed to registers, tensor cores
 // ---------------------------------------------------------------------------
+//
+// The block computes y^T = q^T x^T for one 128-column tile at a time on
+// mma.sync m16n8k16: the weight's codes are A (16 output columns by 16 k
+// rows an MMA), x^T is B (16 k rows by M <= 8 rows of x: no padding at M =
+// 8). A's rows may be any permutation of the tile's columns, so lane (g, t)
+// of a warp owns the tile's columns 16g .. 16g + 15 and takes A's rows g and
+// g + 8 of MMA j as columns 16g + 2j and 16g + 2j + 1: the 16 codes it loads
+// from each of k rows 2t, 2t + 1, 2t + 8 and 2t + 9 of a 16-row step (four
+// 16-byte loads straight from device memory to registers; a warp's load
+// covers 4 rows x 128 contiguous bytes) hold its A fragments of all 8 MMAs
+// of the step. Each byte pair (k, k + 1) of a column is widened exactly to
+// a bf16 pair in registers (a byte permute, hopper::widen4); the weight
+// touches no shared memory. x^T's fragment is one 4-byte load of x row g
+// each for k 2t, 2t + 1 and 2t + 8, 2t + 9 (from L1: every warp of the grid
+// reads x). Lane (g, t) ends holding y[2t, 2t + 1][16g .. 16g + 15] of the
+// tile. A warp keeps kDecStages - 1 steps of loads in flight ahead of the
+// one it multiplies. (Measured on an H100, the same lanes streaming
+// through shared memory, by TMA boxes or by their own cp.async copies, ran
+// 1.2-1.5x slower at a decode tick's shapes.) Where N % 16 != 0 (the rows
+// are not 16-byte aligned) the lanes load their codes a byte at a time
+// instead.
+//
+// Work: a round is 128 k rows of a tile, one 16-row step for each of the
+// block's 8 warps. Block b takes tile b % tiles and band b / tiles of its
+// rounds: the wrapper's plan splits each tile's rounds into `bands` equal
+// bands of at least 4 rounds, as many as fit with every block resident at
+// once (2 blocks an SM), so every block streams the same bytes. The blocks
+// of a band start together at the same k row of adjacent tiles and walk
+// down in step, so at any time the card reads whole runs of a weight row
+// (on an H100, walking each tile's band from another start cost 4-7%). At
+// the end the warps add their sums in warp order through shared memory; a
+// tile of one band is written out, else each block writes its fp32 partial
+// to ws slot b and the last block of the tile to arrive (an atomic
+// counter, reset by that block) adds the partials in band order, so the
+// result does not depend on the order in which blocks ran and the call is
+// one launch.
 
 constexpr int kMaxM = 8;
-constexpr int kGemvWarpN = 32;                    // columns a warp owns
-constexpr int kGemvWarps = kThreads / 32;
-constexpr int kGemvBN = kGemvWarps * kGemvWarpN;  // 256 columns a block
-constexpr int kStages = 6;                        // 16-row steps in flight per warp
-constexpr int kTileStride = kGemvWarpN + 8;       // padded bf16 row: conflict-free
-constexpr int kMaxRowsPerSplit = 1536;            // x slice of 24.7 KB in smem
-// dynamic shared memory: the x slice, then each warp's ring of raw code
-// steps (16 rows x 32 bytes), then each warp's widened bf16 tile
-constexpr size_t kRingBytes = (size_t)kGemvWarps * kStages * 16 * kGemvWarpN;
-constexpr size_t kTileBytes = (size_t)kGemvWarps * 16 * kTileStride * 2;
-constexpr size_t kXsBytesMax = (size_t)kMaxM * (kMaxRowsPerSplit + 8) * 2;
+constexpr int kDecWarps = 8;                        // a round: a step each
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecBN = 128;                         // a tile: 8 lanes' 16 columns
+constexpr int kDecRound = kDecWarps * 16;           // k rows a round
+constexpr int kDecOut = kMaxM * kDecBN;             // a tile's outputs; a partial's floats
+constexpr int kDecStages = 3;                       // steps a warp holds in registers
+constexpr int kDecBlocksPerSm = 2;                  // resident an SM: the launch bounds
+constexpr int kRedStride = 33;                      // the warps' exchange: conflict-free rows
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -91,184 +127,204 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// 16 bytes of the weight, read once: not kept in L1
+__device__ __forceinline__ uint4 ld_stream16(const int8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
 // one output element from its fp32 value: the only rounding of the result
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-using hopper::cp_async_commit;
-using hopper::cp_async_wait;
-using hopper::smem_addr;
 using hopper::widen4;
 
-// Computes the output tile as mma m16n8k16 with x as A (its M <= 8 rows
-// padded to 16 by zero fragments) and the widened weight as B. Each warp
-// owns 32 columns and walks every 16-row step of the block's split: lane l
-// copies row l / 2, columns (l % 2) * 16 .. + 15 (16 bytes) with cp.async
-// into its warp's ring, kStages - 1 steps ahead (asynchronous copies, so
-// the warp's few load scoreboards do not cap how many are in flight);
-// widens its own 16 codes into a warp-private bf16 tile; and ldmatrix.trans
-// hands out the B fragments. No warp shares an output, so the only
-// reduction is across splits.
+// One 16-row step's operands of one lane: 16 codes of each of the step's k
+// rows 2t, 2t + 1, 2t + 8 and 2t + 9 (the lane's 16 columns) and its x^T
+// fragment (x row g at k 2t, 2t + 1 and 2t + 8, 2t + 9).
+struct DecStep {
+  uint4 w[4];
+  uint32_t b[2];
+};
+
+// The rest of the block's flush, once the warps' sums are in red (out of
+// line: it runs once a block): thread i adds the warps' sums in warp order
+// for outputs i + kDecThreads u (row m, column n of tile ct); a tile of
+// one band is written out, else the block's partial goes to ws slot blk
+// and the last block of the tile to arrive adds the partials of the
+// tile's bands in band order (slots ct + band * tiles).
 template <typename OutT>
-__global__ void __launch_bounds__(kThreads, 3)
-int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                 const float* __restrict__ scale, OutT* __restrict__ out,
-                 float* __restrict__ ws, int* __restrict__ counters, int M, int N, int K,
-                 int rows_per_split, int vec) {
-  extern __shared__ __align__(16) unsigned char gemv_smem[];
-  __shared__ int last_s;
-  const int xs = rows_per_split + 8;                 // padded x row: conflict-free
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  uint8_t* ring = gemv_smem + (size_t)kMaxM * xs * 2 +
-                  (size_t)warp * kStages * 16 * kGemvWarpN;
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(
-      gemv_smem + (size_t)kMaxM * xs * 2 + kRingBytes) + warp * 16 * kTileStride;
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(gemv_smem);   // kMaxM x xs
-
-  const int n0 = blockIdx.x * kGemvBN, split = blockIdx.y, S = gridDim.y;
-  const int k_lo = split * rows_per_split;
-  const int kr = min(K, k_lo + rows_per_split) - k_lo;   // a multiple of 16
-  const int steps = kr / 16;
-
-  const int nw = n0 + warp * kGemvWarpN;             // the warp's columns
-  const int ln = nw + (lane & 1) * 16;               // this lane's 16 columns
-  const int8_t* src = q + (long long)(k_lo + (lane >> 1)) * N + ln;
-  const int slot = lane * 16;                        // this lane's bytes of a step
-  // step st's 16 codes into ring stage st % kStages: cp.async where the 16
-  // bytes are whole and aligned, else plain loads (ragged N); zeros past N
-  auto fetch = [&](int st) {
-    if (st >= steps) return;
-    uint8_t* dst = ring + (st % kStages) * 16 * kGemvWarpN + slot;
-    const int8_t* p = src + (long long)st * 16 * N;
-    if (vec && ln + 16 <= N) {
-      hopper::cp_async16_zfill(smem_addr(dst), p, true);
+__device__ __noinline__ void dec_flush(const float* red, int* last_s, int ct, int tiles,
+                                       int bands, int blk, int M, int N,
+                                       const float* __restrict__ scale, OutT* __restrict__ out,
+                                       float* __restrict__ ws, int* __restrict__ counters) {
+  const int tid = threadIdx.x, n0 = ct * kDecBN;
+  for (int u = 0; u < kDecOut / kDecThreads; ++u) {
+    const int i = tid + u * kDecThreads, m = i / kDecBN, n = i % kDecBN;
+    if (m >= M) continue;
+    const int src_lane = 4 * (n >> 4) + (m >> 1);
+    const int src_acc = 4 * ((n & 15) >> 1) + 2 * (n & 1) + (m & 1);
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) v += red[(w * 32 + src_acc) * kRedStride + src_lane];
+    if (bands == 1) {
+      if (n0 + n < N) store_out(out + (long long)m * N + n0 + n, v * scale[n0 + n]);
     } else {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      for (int e = 0; e < 16; ++e)
-        if (ln + e < N) w[e >> 2] |= (uint32_t)(uint8_t)p[e] << (8 * (e & 3));
-      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      ws[(long long)blk * kDecOut + i] = v;
     }
-  };
-#pragma unroll
-  for (int d = 0; d < kStages - 1; ++d) {
-    fetch(d);
-    cp_async_commit();
   }
-  // the x slice, 8 bf16 at a time, while the first steps are in flight
-  for (int i = tid; i < M * (kr / 8); i += kThreads) {
-    const int m = i / (kr / 8), j = (i % (kr / 8)) * 8;
-    *reinterpret_cast<uint4*>(x_s + m * xs + j) =
-        *reinterpret_cast<const uint4*>(x + (long long)m * K + k_lo + j);
-  }
-  __syncthreads();                                   // x_s is filled
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  uint4* st_dst = reinterpret_cast<uint4*>(tile + (lane >> 1) * kTileStride +
-                                           (lane & 1) * 16);
-  // ldmatrix x4: matrix lane / 8 of (k 0-7, k 8-15) x (n +0, n +8)
-  const int mi = lane >> 3, ri = lane & 7;
-  const uint32_t ld_base =
-      smem_addr(tile + (ri + 8 * (mi & 1)) * kTileStride + 8 * (mi >> 1));
-  const bool a_live = g < M;
-  const __nv_bfloat16* xa = x_s + g * xs + 2 * t;
-
-  for (int st = 0; st < steps; ++st) {
-    fetch(st + kStages - 1);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();                    // step st has landed
-    const uint4 c = *reinterpret_cast<const uint4*>(
-        ring + (st % kStages) * 16 * kGemvWarpN + slot);
-    const uint2 w0 = widen4(c.x), w1 = widen4(c.y), w2 = widen4(c.z), w3 = widen4(c.w);
-    st_dst[0] = make_uint4(w0.x, w0.y, w1.x, w1.y);
-    st_dst[1] = make_uint4(w2.x, w2.y, w3.x, w3.y);
-    __syncwarp();
-    uint32_t b[4][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-          : "=r"(b[2 * h][0]), "=r"(b[2 * h][1]), "=r"(b[2 * h + 1][0]),
-            "=r"(b[2 * h + 1][1])
-          : "r"(ld_base + h * 16 * 2));
-    }
-    uint32_t a[4] = {0u, 0u, 0u, 0u};                 // rows 8-15 stay zero
-    if (a_live) {
-      a[0] = *reinterpret_cast<const uint32_t*>(xa + st * 16);
-      a[2] = *reinterpret_cast<const uint32_t*>(xa + st * 16 + 8);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mma_bf16(acc[i], a, b[i]);
-    __syncwarp();                                     // the tile is read
-  }
-  cp_async_wait<0>();
-
-  // acc[i][0..1]: row m = g, columns nw + 8 i + 2 t + {0, 1}
-  if (S == 1) {
-    if (a_live) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = nw + 8 * i + 2 * t + e;
-          if (n < N) store_out(out + (long long)g * N + n, acc[i][e] * scale[n]);
-        }
-    }
+  if (bands == 1) {
+    __syncthreads();                                   // red is read
     return;
   }
-  // this split's partial sums, then the tile's arrival count
-  if (a_live) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = nw + 8 * i + 2 * t + e;
-        if (n < N) ws[((long long)split * M + g) * N + n] = acc[i][e];
-      }
-  }
   __threadfence();
   __syncthreads();
-  if (tid == 0) last_s = atomicAdd(counters + blockIdx.x, 1) == S - 1;
+  if (tid == 0) *last_s = atomicAdd(counters + ct, 1) == bands - 1;
   __syncthreads();
-  if (!last_s) return;
-  // the last block adds every split's sums in split order (read from L2:
-  // other SMs wrote them), applies the scale and resets the counter; four
-  // splits' loads of a thread's 8 outputs are in flight together
+  if (!*last_s) return;
   __threadfence();
-  constexpr int kPer = kMaxM * kGemvBN / kThreads;   // 8 outputs a thread
-  const long long stride = (long long)M * N;         // one split's sums
-  float sum[kPer];
+  // the partials from L2 (other SMs wrote them), eight blocks' loads in
+  // flight at once; then the scale, and the counter reset
+  for (int u = 0; u < kDecOut / kDecThreads; ++u) {
+    const int i = tid + u * kDecThreads, m = i / kDecBN, n = i % kDecBN;
+    if (m >= M || n0 + n >= N) continue;
+    float v = 0.f;
+    for (int b0 = 0; b0 < bands; b0 += 8) {
+      float part[8];
 #pragma unroll
-  for (int r = 0; r < kPer; ++r) sum[r] = 0.f;
-  for (int sp0 = 0; sp0 < S; sp0 += 4) {
-    float v[4][kPer];
+      for (int e = 0; e < 8; ++e)
+        part[e] = b0 + e < bands
+                      ? __ldcg(ws + ((long long)(b0 + e) * tiles + ct) * kDecOut + i)
+                      : 0.f;
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = tid + r * kThreads;
-      const int m = i / kGemvBN, col = n0 + i % kGemvBN;
-      const bool ok = m < M && col < N;
-      const float* p = ws + sp0 * stride + (long long)m * N + col;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u][r] = (ok && sp0 + u < S) ? __ldcg(p + u * stride) : 0.f;
+      for (int e = 0; e < 8; ++e)
+        if (b0 + e < bands) v += part[e];
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int r = 0; r < kPer; ++r) sum[r] += v[u][r];
+    store_out(out + (long long)m * N + n0 + n, v * scale[n0 + n]);
   }
+  if (tid == 0) counters[ct] = 0;
+}
+
+template <bool kVec, typename OutT>
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+int8_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                   const float* __restrict__ scale, OutT* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ counters, int M, int N, int K) {
+  constexpr int P = kDecStages;
+  __shared__ float red[kDecWarps * 32 * kRedStride];   // (warp, accumulator) rows of lanes
+  __shared__ int last_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int steps = K / 16, rounds = (K + kDecRound - 1) / kDecRound;
+  const int tiles = (N + kDecBN - 1) / kDecBN, bands = gridDim.x / tiles;
+  const int blk = blockIdx.x, ct = blk % tiles, band = blk / tiles;
+  const int r_lo = band * rounds / bands, r_hi = (band + 1) * rounds / bands;
+  const int col = ct * kDecBN + 16 * g;
+
+  // round r's step of this warp into s: zeros for a step past K (a tile's
+  // last round may be short), for columns past N and for x's rows past M
+  auto load = [&](DecStep& s, int r) {
+    if (r >= r_hi) return;
+    const int rr = r;                    // the tile's round: in step with the band's other tiles
+    const int st = rr * kDecWarps + warp, k0 = st * 16 + 2 * t;
+    const int8_t* src = q + (long long)k0 * N + col;
 #pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = tid + r * kThreads;
-    const int m = i / kGemvBN, col = n0 + i % kGemvBN;
-    if (m < M && col < N) store_out(out + (long long)m * N + col, sum[r] * scale[col]);
+    for (int e = 0; e < 4; ++e) {
+      const int8_t* row = src + (long long)((e & 1) + 8 * (e >> 1)) * N;
+      if constexpr (kVec) {
+        s.w[e] = st < steps && col < N ? ld_stream16(row) : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        if (st < steps)
+          for (int c = 0; c < 16; ++c)
+            if (col + c < N) v[c >> 2] |= (uint32_t)(uint8_t)row[c] << (8 * (c & 3));
+        s.w[e] = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    s.b[0] = s.b[1] = 0u;
+    if (st < steps && g < M) {
+      const __nv_bfloat16* xr = x + (long long)g * K + k0;
+      s.b[0] = __ldg(reinterpret_cast<const unsigned int*>(xr));
+      s.b[1] = __ldg(reinterpret_cast<const unsigned int*>(xr + 8));
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // MMA j (columns 16g + 2j, + 1) from the codes' 32-bit word j / 2, its
+  // bytes 2 (j % 2) and 2 (j % 2) + 1 of each row, interleaved to (k, k + 1)
+  // pairs per column
+  auto compute = [&](const DecStep& s) {
+    const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&s.w[0]);
+    const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&s.w[1]);
+    const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&s.w[2]);
+    const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&s.w[3]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t sel = h ? 0x7362u : 0x5140u;
+        const uint2 lo = widen4(__byte_perm(w0[i], w1[i], sel));   // k 2t, 2t + 1
+        const uint2 hi = widen4(__byte_perm(w2[i], w3[i], sel));   // k 2t + 8, 2t + 9
+        const uint32_t a[4] = {lo.x, lo.y, hi.x, hi.y};
+        mma_bf16(acc[2 * i + h], a, s.b);
+      }
+    }
+  };
+
+  // the end of the block's band: acc[j][e] holds y[2t + e % 2][16g + 2j + e
+  // / 2] of the tile; the warps' sums meet in red
+  auto flush = [&] {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(warp * 32 + 4 * j + e) * kRedStride + lane] = acc[j][e];
+    __syncthreads();
+    dec_flush<OutT>(red, &last_s, ct, tiles, bands, blk, M, N, scale, out, ws, counters);
+  };
+
+  DecStep stage[P];
+#pragma unroll
+  for (int p = 0; p < P - 1; ++p) load(stage[p], r_lo + p);
+  for (int r0 = r_lo; r0 < r_hi; r0 += P) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int r = r0 + u;
+      if (r >= r_hi) break;                            // uniform across the block
+      load(stage[(u + P - 1) % P], r + P - 1);
+      compute(stage[u]);
+    }
   }
-  if (tid == 0) counters[blockIdx.x] = 0;
+  flush();
+}
+
+// The decode kernel's launch: 16-byte loads where N % 16 == 0, byte loads
+// otherwise.
+template <typename OutT>
+cudaError_t launch_decode(const void* x, const void* q, const void* scale, void* out,
+                          void* ws, void* counters, int M, int N, int K, int blocks,
+                          cudaStream_t s) {
+  const long long rounds = (K + kDecRound - 1) / kDecRound;
+  const long long tiles = (N + kDecBN - 1) / kDecBN;
+  const long long bands = blocks / tiles;
+  if (blocks < 1 || blocks % tiles || bands > rounds ||
+      (bands > 1 && (ws == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  auto kernel = N % 16 == 0 ? int8_decode_kernel<true, OutT> : int8_decode_kernel<false, OutT>;
+  kernel<<<blocks, kDecThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<OutT*>(out), static_cast<float*>(ws),
+      static_cast<int*>(counters), M, N, K);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -298,7 +354,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 // Split K (gridDim.z > 1, small grids): block z sums k tiles [z * kt / S,
 // (z + 1) * kt / S), writes its fp32 partial tile to ws, and the last block
 // of the tile to arrive (an atomic counter, reset by that block) adds the
-// S partials in split order, as the decode kernel does.
+// S partials in split order, as the decode kernel adds its blocks'.
 
 constexpr int kTcBN = 128;                 // output columns a block
 constexpr int kTcBK = 64;                  // k rows a stage: 128 bytes of bf16 x
@@ -625,26 +681,9 @@ int8_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
 
 template <typename OutT>
 cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* out, void* ws,
-                        void* counters, int M, int N, int K, int rows_per_split, int splits,
+                        void* counters, int M, int N, int K, int blocks, int splits,
                         int tile_m, cudaStream_t s) {
-  if (M <= kMaxM) {
-    if (rows_per_split <= 0 || rows_per_split % 16 || rows_per_split > kMaxRowsPerSplit)
-      return cudaErrorInvalidValue;
-    const int splits = (K + rows_per_split - 1) / rows_per_split;
-    const size_t smem = (size_t)kMaxM * (rows_per_split + 8) * 2 + kRingBytes + kTileBytes;
-    // allow the largest split's shared memory, once per process and output type
-    static const cudaError_t smem_set = cudaFuncSetAttribute(
-        int8_gemv_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kXsBytesMax + kRingBytes + kTileBytes));
-    if (smem_set != cudaSuccess) return smem_set;
-    const dim3 grid((N + kGemvBN - 1) / kGemvBN, splits);
-    int8_gemv_kernel<OutT><<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<OutT*>(out),
-        static_cast<float*>(ws), static_cast<int*>(counters), M, N, K, rows_per_split,
-        N % 16 == 0);
-    return cudaGetLastError();
-  }
+  if (M <= kMaxM) return launch_decode<OutT>(x, q, scale, out, ws, counters, M, N, K, blocks, s);
   if (N % 16 != 0 || splits < 1 || splits > kTcMaxSplits || (splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   switch (tile_m) {
@@ -786,9 +825,10 @@ int8_dx_kernel(const float* __restrict__ dy, const int8_t* __restrict__ q,
 // else fp32), 16-byte aligned; out (M, N) contiguous, fp32 when out_f32 is 1
 // (required for fp32 x), else bf16; q (K, N) int8 contiguous, 16-byte
 // aligned; scale (N,) fp32; K % 16 == 0. The bf16 decode kernel (M <= 8)
-// splits K into gridDim.y = ceil(K / rows_per_split) blocks per 256-column
-// tile and needs ws (splits, M, N) fp32 and counters (one int per column
-// tile, zero on entry and left zero) when there is more than one split. The
+// runs `blocks` blocks, a whole number of bands (at most ceil(K / 128)) of
+// ceil(N / 128) tiles, and, with more than one band, needs ws (blocks *
+// 1024 fp32) and counters (one int per 128-column tile, zero on entry and
+// left zero). The
 // bf16 wgmma kernel (M > 8) needs N % 16 == 0 (TMA's 16-byte row stride),
 // takes tile_m (64, 128, 192 or 256 rows of x a block) and splits (1-64; K
 // tiles of 64 shared out evenly), and with splits > 1 needs ws (splits, M,
@@ -796,7 +836,7 @@ int8_dx_kernel(const float* __restrict__ dy, const int8_t* __restrict__ q,
 // and left zero). Returns the CUDA error of the launch (0 on success).
 extern "C" int int8_matmul_launch(const void* x, const void* q, const void* scale, void* out,
                                   void* ws, void* counters, int M, int N, int K,
-                                  int rows_per_split, int splits, int tile_m, int x_bf16,
+                                  int blocks, int splits, int tile_m, int x_bf16,
                                   int out_f32, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 16 != 0 || M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -809,10 +849,10 @@ extern "C" int int8_matmul_launch(const void* x, const void* q, const void* scal
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(
-      out_f32 ? launch_bf16<float>(x, q, scale, out, ws, counters, M, N, K, rows_per_split,
-                                   splits, tile_m, s)
-              : launch_bf16<__nv_bfloat16>(x, q, scale, out, ws, counters, M, N, K,
-                                           rows_per_split, splits, tile_m, s));
+      out_f32 ? launch_bf16<float>(x, q, scale, out, ws, counters, M, N, K, blocks, splits,
+                                   tile_m, s)
+              : launch_bf16<__nv_bfloat16>(x, q, scale, out, ws, counters, M, N, K, blocks,
+                                           splits, tile_m, s));
 }
 
 // Plain C entry point of K9. dy (M, N) fp32 contiguous, 16-byte aligned; q

@@ -1,32 +1,40 @@
-// Paged decode attention split across the SMs, on Hopper (sm_90a): the
-// kernel body of K2 (paged_decode_attention.cu, one query lane per slot)
-// and K5 (paged_verify_attention.cu, T query lanes per slot for the
-// speculative verify pass). K2 is K5 at T = 1, so the two share every line
-// here, their row policy included: lane t of slot b sits at
+// Decode attention split across the SMs, on Hopper (sm_90a): the kernel
+// body of K1 (decode_attention.cu, a slot-major cache), K2
+// (paged_decode_attention.cu, one query lane per slot through the page
+// table) and K5 (paged_verify_attention.cu, T query lanes per slot for the
+// speculative verify pass). K2 is K5 at T = 1, and K1 is K2 with another
+// row policy, so the three share every line here: lane t of slot b sits at
 // q_pos = lengths[b] - T + t and attends keys
 // [max(0, q_pos + 1 - window), min(q_pos + 1, cap)) (no lower bound without
-// a window), cap = n_blocks * page_size, through the page table: key i of
-// slot b lives in page page_table[b, i / page_size] at row i % page_size.
+// a window), cap = n_blocks * page_size. Where key i of slot b lies is the
+// row policy's answer: PagedRows reads the page table (key i lives in page
+// page_table[b, i / page_size] at row i % page_size), DenseRows the
+// cache's strides (b * stride_b + i * stride_s, with page_size 1 and
+// n_blocks = Sk, so cap = Sk). Each entry point instantiates its own
+// policy only. The window starts at the unclamped length, as the Pallas
+// kernels start it, also where a length runs past cap.
 //
 // Computes what the Pallas TPU kernels repro/kernels/decode_attention.py::
-// _paged_kernel and ::_paged_verify_kernel compute: online-softmax
+// _decode_kernel, ::_paged_kernel and ::_paged_verify_kernel compute:
+// online-softmax
 // attention from m = -1e30, the denominator floored at 1e-30, output in
 // q's dtype; a dead slot, and a row with no valid key, write exact zeros
 // (the Pallas verify kernel averages V there; the engine never reads such
-// rows). int8 pools hold codes with one fp32 scale per (page, row, KV
-// head) at the pool row's element offset / D.
+// rows). int8 caches hold codes with one fp32 scale per row and KV head,
+// at the row's element offset / D (either policy).
 //
 // What bounds it on the card: bytes (the live K/V rows over 3.35 TB/s;
 // each key costs 4 * rows * D FLOPs against 2 * D * sizeof(KV) bytes). The
-// TPU kernels walk a slot's pages in order in the grid's last dimension;
-// one block per (slot, KV head) on the card (the body K1 keeps in
-// decode_attention.cuh) leaves 100 of the 132 SMs idle at 8 slots and 4 KV
-// heads, one SM walking a whole long slot. What this design does:
+// TPU kernels walk a slot's keys in order in the grid's last dimension;
+// one block per (slot, KV head) on the card leaves 100 of the 132 SMs
+// idle at 8 slots and 4 KV heads, one SM walking a whole long slot. What
+// this design does:
 //   * the key range is split across blocks: the grid is (split, KV head x
 //     lane group, slot). Split boundaries are fixed absolute key
 //     positions, multiples of split_len (a multiple of the 64-key tile and
-//     of page_size), chosen by the wrapper's planner from the shapes and
-//     the window alone, so no host read of the lengths plans the grid. The
+//     of page_size: 1 for K1), chosen by the wrapper's planner from the
+//     shapes and the window alone, so no host read of the lengths plans
+//     the grid. The
 //     grid's split index counts from the first split that holds a key of
 //     the block's rows (the window's start, else key 0), so a window costs
 //     no empty blocks; a block past its rows' last key exits at once and
@@ -38,27 +46,33 @@
 //     split alone writes its output directly and touches no workspace;
 //   * live rows only: keys past a row's bound, outside the window or in a
 //     dead slot move no bytes, and table entries past the length, which
-//     point at the sink page, are never read. One block loads each K/V
+//     point at the sink page, are never read. K1 reads the slot-major
+//     cache in place through its strides (no transpose to the TPU kernel's
+//     (B, Hkv, Sk, D) layout). One block loads each K/V
 //     tile once for all rows of its KV head's GQA group and lanes;
-//   * bf16 q over a bf16 or int8 pool at D = 128 runs on the tensor cores
+//   * bf16 q over a bf16 or int8 cache at D = 128 runs on the tensor cores
 //     (split_tc_kernel): one warpgroup holds the block's rows padded to
-//     wgmma's M = 64 (rep = 9 for K2, T * rep = 45 for K5 at T = 5),
+//     wgmma's M = 64 (rep = 9 for K1 and K2, T * rep = 45 for K5 at T = 5),
 //     S = Q K^T by wgmma m64n64k16 from shared memory, O += P V by wgmma
-//     m64n128k16 with P in registers, K/V tiles through the page table into
-//     a four-stage cp.async ring with zero fill. int8 codes are widened
+//     m64n128k16 with P in registers, K/V tiles (through the row policy)
+//     into a four-stage cp.async ring with zero fill. int8 codes are widened
 //     exactly (|c| <= 127 is exact in bf16); the softmax scale and the K
 //     scale multiply the fp32 score, the V scale is folded into P before P
 //     is rounded to bf16 (the one rounding the fp32 plain version does not
 //     make), as K3's tensor-core kernel does; the softmax runs in log2
 //     units. Padding rows and keys outside a row's range are masked on the
 //     fp32 score before the row max; padding rows write nothing;
-//   * every other mode (fp32 q, an fp32 pool, D = 64 or 256) runs
-//     split_simt_kernel: K1's tile body (fp32 SIMT dots, q pre-scaled in
-//     fp32, expf) with the split and the combine. With no window, its lane
+//   * every other mode (fp32 q, an fp32 cache, D = 64 or 256) runs
+//     split_simt_kernel: decode_attention.cuh's tile body (fp32 SIMT dots,
+//     q pre-scaled in fp32, expf) with the split and the combine. With no window, its lane
 //     t of K5 equals K2 at length q_pos + 1 bit for bit: the splits and
 //     tiles start at the same keys, a key past a row's bound adds p = 0
 //     with alpha = 1, a split past it adds a zero partial with weight 0,
 //     and a one-split row's combine multiplies by exactly 1.
+// The splits depend on the shapes and the window alone, so K1 over a
+// dense cache and K2 over a pool of pages of 16 that holds the same rows
+// split, walk and merge the same keys in the same order: equal bit for
+// bit in every mode.
 
 #pragma once
 
@@ -73,16 +87,16 @@ constexpr int kMaxSplits = 64;            // the combine's weights fit the freed
 // from the parameter space, not copied per thread.
 struct SplitParams {
   const void* q;                          // (B, T, H, D)
-  const void* k;                          // pools (P, page_size, Hkv, D)
+  const void* k;                          // (P, page_size, Hkv, D); K1 (B, Sk, Hkv, D)
   const void* v;
-  const int* page_table;                  // (B, n_blocks)
+  const int* page_table;                  // (B, n_blocks); K1: none
   const int* lengths;                     // (B,), counting the T lanes
   void* out;                              // (B, T, H, D) in q's dtype
-  const float* ks;                        // int8 pools: (P, page_size, Hkv)
+  const float* ks;                        // int8: K/V's shape without D
   const float* vs;
   float* ws;                              // partials: unit x n_splits x rows_cap x (D + 4)
   int* counters;                          // one per unit, zero between launches
-  long long stride_page, stride_row;      // the pools', in elements
+  long long stride_page, stride_row;      // in elements (K1: a slot's, a key's)
   int T, H, Hkv, rep, n_blocks, page_size, cap;
   int lanes, groups;                      // lanes a block, lane groups a slot
   int split_len;
@@ -139,11 +153,20 @@ __device__ __forceinline__ void split_row_keys(const SplitParams& p, const Split
   hi = min(min(q_pos + 1, p.cap), k.k1);
 }
 
-// Element offset of key i's pool row (KV head 0) for slot b.
-__device__ __forceinline__ long long split_pool_row(const SplitParams& p, int b, int i) {
-  const int page = __ldg(p.page_table + (long long)b * p.n_blocks + i / p.page_size);
-  return (long long)page * p.stride_page + (long long)(i % p.page_size) * p.stride_row;
-}
+// Element offset of key i's row (KV head 0) for slot b: through the page
+// table (K2, K5), or through a slot-major cache's strides (K1).
+struct PagedRows {
+  __device__ __forceinline__ static long long row(const SplitParams& p, int b, int i) {
+    const int page = __ldg(p.page_table + (long long)b * p.n_blocks + i / p.page_size);
+    return (long long)page * p.stride_page + (long long)(i % p.page_size) * p.stride_row;
+  }
+};
+
+struct DenseRows {
+  __device__ __forceinline__ static long long row(const SplitParams& p, int b, int i) {
+    return (long long)b * p.stride_page + (long long)i * p.stride_row;
+  }
+};
 
 template <typename QT>
 __device__ __forceinline__ void split_zero_rows(const SplitParams& p, int b, int kvh,
@@ -262,10 +285,10 @@ __device__ __forceinline__ bool split_arrive_last(const SplitParams& p, const Sp
 }
 
 // ---------------------------------------------------------------------------
-// SIMT: every mode; K1's tile body (decode_attention.cuh) over one split
+// SIMT: every mode; decode_attention.cuh's tile body over one split
 // ---------------------------------------------------------------------------
 
-template <typename QT, typename KVT, int D>
+template <typename QT, typename KVT, int D, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 split_simt_kernel(const __grid_constant__ SplitParams p) {
   constexpr bool kQuant = std::is_same<KVT, int8_t>::value;
@@ -315,7 +338,7 @@ split_simt_kernel(const __grid_constant__ SplitParams p) {
       const int i = tid + u * kThreads;
       const int j = i / kVecPerRow, c = (i % kVecPerRow) * VN;
       if (t0 + j < k1) {
-        const long long row = split_pool_row(p, b, t0 + j);
+        const long long row = Rows::row(p, b, t0 + j);
         k_next[u] = *reinterpret_cast<const VecT*>(k_g + row + c);
         v_next[u] = *reinterpret_cast<const VecT*>(v_g + row + c);
         if constexpr (kQuant) {
@@ -461,13 +484,13 @@ split_simt_kernel(const __grid_constant__ SplitParams p) {
   if (tid == 0) p.counters[blk.unit] = 0;
 }
 
-template <typename QT, typename KVT, int D>
+template <typename QT, typename KVT, int D, typename Rows>
 cudaError_t launch_split_simt(const SplitParams& p, int B, cudaStream_t stream) {
   const int rows = p.lanes * p.rep;
   if (rows > max_rows(D)) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)rows * D + (size_t)kTileK * (D + 4) +
                                        (size_t)kTileK * D + (size_t)rows * kTileK + 2 * (size_t)rows);
-  auto kernel = split_simt_kernel<QT, KVT, D>;
+  auto kernel = split_simt_kernel<QT, KVT, D, Rows>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -478,7 +501,7 @@ cudaError_t launch_split_simt(const SplitParams& p, int B, cudaStream_t stream) 
 }
 
 // ---------------------------------------------------------------------------
-// tensor cores: bf16 q over a bf16 or int8 pool, D = 128
+// tensor cores: bf16 q over a bf16 or int8 cache, D = 128
 // ---------------------------------------------------------------------------
 
 constexpr int kSpD = 128;
@@ -509,7 +532,7 @@ __device__ __forceinline__ uint32_t sp_chunk(int r, int c) {
   return (uint32_t)((c >> 3) * kSpHalf) + hopper::sw128(r, c & 7);
 }
 
-template <bool kInt8>
+template <bool kInt8, typename Rows>
 __global__ void __launch_bounds__(kSpThreads, 1)
 split_tc_kernel(const __grid_constant__ SplitParams p) {
   using Lay = SpLayout<kInt8>;
@@ -550,7 +573,7 @@ split_tc_kernel(const __grid_constant__ SplitParams p) {
       for (int u = 0; u < 4; ++u) {
         const int idx = tid + u * kSpThreads, r = idx >> 3, c = idx & 7;
         const bool ok = kt0 + r < k1;
-        const long long row = ok ? split_pool_row(p, b, kt0 + r) : 0;
+        const long long row = ok ? Rows::row(p, b, kt0 + r) : 0;
         hopper::cp_async16_zfill(hopper::smem_addr(stage(st) + r * kSpD + c * 16),
                                  kp8 + row + c * 16, ok);
         hopper::cp_async16_zfill(hopper::smem_addr(stage(st) + kSpRaw + r * kSpD + c * 16),
@@ -558,7 +581,7 @@ split_tc_kernel(const __grid_constant__ SplitParams p) {
       }
       const int r = tid & (kSpKeys - 1);
       const bool ok = kt0 + r < k1;
-      const long long s_off = ok ? split_pool_row(p, b, kt0 + r) / kSpD + kvh : 0;
+      const long long s_off = ok ? Rows::row(p, b, kt0 + r) / kSpD + kvh : 0;
       hopper::cp_async4_zfill(hopper::smem_addr(scales(st) + tid),
                               (tid < kSpKeys ? p.ks : p.vs) + s_off, ok);
     } else {
@@ -568,7 +591,7 @@ split_tc_kernel(const __grid_constant__ SplitParams p) {
       for (int u = 0; u < 8; ++u) {
         const int idx = tid + u * kSpThreads, r = idx >> 4, c = idx & 15;
         const bool ok = kt0 + r < k1;
-        const long long row = ok ? split_pool_row(p, b, kt0 + r) : 0;
+        const long long row = ok ? Rows::row(p, b, kt0 + r) : 0;
         hopper::cp_async16_zfill(hopper::smem_addr(k_tile(st) + sp_chunk(r, c)),
                                  kb + row + c * 8, ok);
         hopper::cp_async16_zfill(hopper::smem_addr(v_tile(st) + sp_chunk(r, c)),
@@ -742,11 +765,11 @@ split_tc_kernel(const __grid_constant__ SplitParams p) {
   if (tid == 0) p.counters[blk.unit] = 0;
 }
 
-template <bool kInt8>
+template <bool kInt8, typename Rows>
 cudaError_t launch_split_tc(const SplitParams& p, int B, cudaStream_t stream) {
   if (p.lanes * p.rep > kSpRows) return cudaErrorInvalidValue;
   const size_t smem = SpLayout<kInt8>::kBytes;
-  auto kernel = split_tc_kernel<kInt8>;
+  auto kernel = split_tc_kernel<kInt8, Rows>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -755,7 +778,9 @@ cudaError_t launch_split_tc(const SplitParams& p, int B, cudaStream_t stream) {
 }
 
 // The launch's parameters from an entry point's arguments (pointers as
-// the wrappers pass them; H a multiple of Hkv, checked by the caller).
+// the wrappers pass them; H a multiple of Hkv, checked by the caller). K1
+// passes no table, page_size 1, n_blocks = Sk and its slot and key
+// strides.
 inline SplitParams split_params(const void* q, const void* k_pool, const void* v_pool,
                                 const void* page_table, const void* lengths, void* out, int T,
                                 int H, int Hkv, int n_blocks, int page_size,
@@ -791,10 +816,11 @@ inline SplitParams split_params(const void* q, const void* k_pool, const void* v
   return p;
 }
 
-// One launch: the tensor-core kernel when asked for (bf16 q over a bf16 or
-// int8 pool at D = 128, else an error: the wrapper's route decides), the
-// SIMT kernel otherwise.
-inline cudaError_t launch_split(const SplitParams& p, int B, int D, int q_bf16, int kv_type,
+// One launch with row policy Rows: the tensor-core kernel when asked for
+// (bf16 q over a bf16 or int8 cache at D = 128, else an error: the
+// wrapper's route decides), the SIMT kernel otherwise.
+template <typename Rows>
+cudaError_t launch_split(const SplitParams& p, int B, int D, int q_bf16, int kv_type,
                                 int tensor_cores, cudaStream_t stream) {
   if (B < 1 || p.T < 1 || p.Hkv < 1 || p.rep < 1 || p.lanes < 1 || p.n_splits < 1 ||
       p.n_splits > kMaxSplits || p.split_len < 1 || p.groups * p.lanes < p.T ||
@@ -802,15 +828,15 @@ inline cudaError_t launch_split(const SplitParams& p, int B, int D, int q_bf16, 
     return cudaErrorInvalidValue;
   if (tensor_cores) {
     if (!q_bf16 || D != kSpD) return cudaErrorInvalidValue;
-    if (kv_type == kKvBf16) return launch_split_tc<false>(p, B, stream);
-    if (kv_type == kKvInt8) return launch_split_tc<true>(p, B, stream);
+    if (kv_type == kKvBf16) return launch_split_tc<false, Rows>(p, B, stream);
+    if (kv_type == kKvInt8) return launch_split_tc<true, Rows>(p, B, stream);
     return cudaErrorInvalidValue;
   }
 #define SPLIT_CASE(QT, KVT)                                                               \
   switch (D) {                                                                            \
-    case 64: return launch_split_simt<QT, KVT, 64>(p, B, stream);                         \
-    case 128: return launch_split_simt<QT, KVT, 128>(p, B, stream);                       \
-    case 256: return launch_split_simt<QT, KVT, 256>(p, B, stream);                       \
+    case 64: return launch_split_simt<QT, KVT, 64, Rows>(p, B, stream);                         \
+    case 128: return launch_split_simt<QT, KVT, 128, Rows>(p, B, stream);                       \
+    case 256: return launch_split_simt<QT, KVT, 256, Rows>(p, B, stream);                       \
     default: return cudaErrorInvalidValue;                                                \
   }
   if (q_bf16) {

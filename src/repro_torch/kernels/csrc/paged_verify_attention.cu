@@ -57,6 +57,6 @@ extern "C" int paged_verify_attention_launch(
                                      n_blocks, page_size, pool_stride_page, pool_stride_row,
                                      window, scale, ks, vs, lanes, split_len, n_splits, ws,
                                      counters);
-  return static_cast<int>(launch_split(p, B, D, q_bf16, kv_type, tensor_cores,
-                                       static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_split<PagedRows>(p, B, D, q_bf16, kv_type, tensor_cores,
+                                                  static_cast<cudaStream_t>(stream)));
 }

@@ -3,11 +3,20 @@
 ``repro.kernels.decode_attention.decode_attention``, in its fp32, bf16 and
 int8-KV (codes plus fp32 row scales) modes.
 
+K1 runs K2's split body (``csrc/paged_decode_split.cuh``) over the
+slot-major cache, read in place through its strides, so it takes K2's
+rules: ``route`` (``paged_decode_attention.route``) picks the kernel
+(bf16 q over a bf16 or int8 cache at D = 128 on the tensor cores, every
+other mode on fp32 SIMT dots), ``plan`` is K2's planner at page size 1
+(splits of whole 64-key tiles, from the shapes and the window alone), and
+the workspace and counters come from K2's per-stream ``scratch``. A launch
+error raises; neither kernel stands in for the other.
+
 The wrapper checks device, dtypes, shapes, strides and alignment, allocates
 the output with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. ``decode_attention.launches``
-counts launches, so a run can show its main path went through the kernel.
-The checks shared with the paged kernels (K2, K3) live here too.
+counts launches, and ``decode_attention.launches_by_kernel`` each kernel's,
+by the name ``route`` gives it.
 """
 
 from __future__ import annotations
@@ -18,11 +27,14 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import paged_decode_attention as k2
+from repro_torch.kernels.checks import (DTYPES, KV_TYPES, check_cuda,
+                                        check_int32, check_kv_rows)
+from repro_torch.kernels.int8_matmul import _sm_count
 
-DTYPES = (torch.float32, torch.bfloat16)
-# K/V storage: the source's KvType codes (int8: codes plus fp32 row scales)
-KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64, 128, 256)
+
+# K1 runs K2's body, so it takes K2's rule for the kernel a mode runs
+route = k2.route
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,69 +44,18 @@ def _launcher():
     fn = build.load("decode_attention").decode_attention_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, i, ctypes.c_float, i,
-                   i, p, p, p]
+                   i, p, p, i, i, p, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def max_rep(head_dim: int) -> int:
-    """Largest GQA group the kernel takes at this head dim (its register
-    and score-pass budgets; see the kernel source)."""
-    return min(64, 8 * (1024 // head_dim))
-
-
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Every tensor on the first one's CUDA device: the kernels never fall
-    back to another device."""
-    dev = tensors[0].device
-    if not (tensors[0].is_cuda and all(t.device == dev for t in tensors)):
-        raise ValueError(f"{name} kernel: all tensors must be on the same "
-                         f"CUDA device")
-
-
-def check_int32(name: str, **tensors: torch.Tensor) -> None:
-    for arg, t in tensors.items():
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError(f"{name} kernel: {arg} must be contiguous int32, "
-                            f"got {t.dtype}")
-
-
-def check_kv_rows(name: str, k: torch.Tensor, v: torch.Tensor,
-                  k_scale=None, v_scale=None) -> tuple:
-    """K and V (..., Hkv, D) alike: one dtype, shared strides, contiguous
-    (Hkv, D) rows, and every row on a 16-byte boundary (the kernels' vector
-    loads). int8 K/V come with fp32 scales (..., Hkv) whose strides are
-    K/V's over D, so a row's scale sits at its element offset / D. Returns
-    the (k_scale, v_scale) pointers to pass (None for fp K/V)."""
-    if k.dtype not in KV_TYPES or v.dtype != k.dtype or v.shape != k.shape:
-        raise TypeError(f"{name} kernel takes fp32/bf16/int8 K/V alike; got "
-                        f"{k.dtype} {tuple(k.shape)}, {v.dtype} "
-                        f"{tuple(v.shape)}")
-    if (k_scale is not None) != (k.dtype == torch.int8) \
-            or (k_scale is None) != (v_scale is None):
-        raise TypeError(f"{name} kernel: int8 K/V take k_scale and v_scale, "
-                        f"fp K/V neither")
-    d = k.shape[-1]
-    if k.stride() != v.stride() or k.stride()[-2:] != (d, 1):
-        raise ValueError(f"{name} kernel: k/v must share strides with "
-                         f"contiguous (Hkv, D) dims; got {k.stride()} and "
-                         f"{v.stride()}")
-    item = k.element_size()
-    if (k.data_ptr() % 16 or v.data_ptr() % 16
-            or any((s * item) % 16 for s in k.stride()[:-2])):
-        raise ValueError(f"{name} kernel: k/v rows must be 16-byte aligned")
-    if k_scale is None:
-        return None, None
-    want = tuple(s // d for s in k.stride()[:-1])
-    for sc in (k_scale, v_scale):
-        if (any(s % d for s in k.stride()[:-1])
-                or sc.dtype != torch.float32 or sc.shape != k.shape[:-1]
-                or sc.stride() != want or sc.device != k.device):
-            raise ValueError(f"{name} kernel: KV scales must be fp32 "
-                             f"{tuple(k.shape[:-1])} with strides {want} "
-                             f"on {k.device}; got {sc.dtype} "
-                             f"{tuple(sc.shape)} {sc.stride()}")
-    return k_scale.data_ptr(), v_scale.data_ptr()
+def plan(b: int, h: int, hkv: int, d: int, sk: int, kernel: str, sms: int,
+         window: int = -1) -> k2.Plan:
+    """The launch of ``kernel`` for q (b, h, d) over a cache of ``sk`` keys
+    a slot under ``window``, from these alone: K2's plan at page size 1,
+    whose unit is then the 64-key tile (8 splits of 256 keys at
+    starcoder2-7b's main path: 256 blocks)."""
+    return k2.plan(b, 1, h, hkv, d, sk, 1, kernel, sms, window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,41 +65,48 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, D) on a CUDA device; k/v: (B, Sk, Hkv, D), the last two dims
     contiguous, fp32/bf16, or int8 with k_scale/v_scale (B, Sk, Hkv) fp32;
     lengths: (B,) int32. Returns (B, H, D) in q's dtype."""
-    check_cuda("decode_attention", q, k, v, lengths)
+    name = "decode_attention"
+    check_cuda(name, q, k, v, lengths)
     if q.dtype not in DTYPES:
-        raise TypeError(f"decode_attention kernel takes fp32/bf16 q; got "
-                        f"{q.dtype}")
-    check_int32("decode_attention", lengths=lengths)
+        raise TypeError(f"{name} kernel takes fp32/bf16 q; got {q.dtype}")
+    check_int32(name, lengths=lengths)
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    ks, vs = check_kv_rows("decode_attention", k, v, k_scale, v_scale)
+    ks, vs = check_kv_rows(name, k, v, k_scale, v_scale)
     b, h, d = q.shape
     _, sk, hkv, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or lengths.shape != (b,):
         raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"lengths {tuple(lengths.shape)}")
-    if d not in _HEAD_DIMS or h % hkv or h // hkv > max_rep(d):
-        raise ValueError(f"decode_attention kernel: head_dim {d} not in "
-                         f"{_HEAD_DIMS}, or GQA group {h}/{hkv} above "
-                         f"{max_rep(d)}")
+    k2.check_heads(name, d, h, hkv)
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
+    kernel = route(q.dtype, k.dtype, d)
     out = torch.empty_like(q)
     if b == 0 or h == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pl = plan(b, h, hkv, d, sk, kernel, _sm_count(q.device.index),
+              int(window))
+    counters = ws = None
+    if pl.n_splits > 1:
+        counters, ws = k2.scratch(q.device, stream, pl.units, pl.ws_floats)
     launch = _launcher()
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, h, hkv, d, sk, k.stride(0), k.stride(1),
             int(window), float(scale), int(q.dtype == torch.bfloat16),
-            KV_TYPES[k.dtype], ks, vs,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            KV_TYPES[k.dtype], ks, vs, pl.split, pl.n_splits,
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            int(kernel == "tensor_cores"), stream)
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     decode_attention.launches += 1
+    decode_attention.launches_by_kernel[kernel] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_kernel = {"tensor_cores": 0, "simt": 0}

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import DTYPES, check_cuda
+from repro_torch.kernels.checks import DTYPES, check_cuda
 
 _HEAD_DIMS = (64, 128)
 # K8's keys a block (kDkvKeys in the source)

@@ -4,21 +4,23 @@ Pallas TPU kernels ``repro.kernels.int8_matmul.int8_matmul`` and
 ``int8_matmul_dx``.
 
 Each wrapper checks device, dtypes, shapes, contiguity and alignment,
-allocates the output (and, for K4's split-K decode kernel, its fp32
-workspace) with ``torch.empty``, launches on PyTorch's current stream and
+allocates the output (and, for K4's split tiles, their fp32 workspace)
+with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. It pads nothing: the kernels
 mask ragged edges. ``int8_matmul.launches`` and ``int8_matmul_dx.launches``
 count launches, and ``int8_matmul.launches_by_kernel`` K4's launches of
 each kernel, by the name ``regime`` gives it.
 
-Which kernel runs (``regime``): bf16 x with M <= 8 the split-K decode
-kernel (tensor cores, mma.sync), bf16 x with M > 8 the wgmma kernel with a
-TMA ring (tensor cores; N % 16 == 0, else the wrapper raises), fp32 x the
-SIMT kernel (fp32 FMAs, any M). ``wgmma_plan`` picks the wgmma kernel's
-rows of x a block and its K splits.
+Which kernel runs (``regime``): bf16 x with M <= 8 the decode kernel
+(tensor cores, mma.sync, the weight streamed to registers; ``decode_plan``
+gives its bands), bf16 x with M > 8 the wgmma kernel with a TMA
+ring (tensor cores; N % 16 == 0, else the wrapper raises), fp32 x the SIMT
+kernel (fp32 FMAs, any M). ``wgmma_plan`` picks the wgmma kernel's rows of
+x a block and its K splits.
 
-The split-K tiles of both tensor-core kernels meet through one counter per
-output tile, zero between launches (the last block of a tile resets it).
+The tiles that both tensor-core kernels split across blocks meet through
+one counter per output tile, zero between launches (the last block of a
+tile resets it).
 The counters live in one buffer per (device, stream), so launches on one
 stream never share counters with launches that may run beside them.
 """
@@ -27,21 +29,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import check_cuda
+from repro_torch.kernels.checks import check_cuda
 
 DTYPES = (torch.float32, torch.bfloat16)
-# the decode kernel's limits (kMaxM, kGemvBN, its 16-row steps and
-# kMaxRowsPerSplit, whose x slice fits the kernel's shared memory)
+# the decode kernel's shape (kMaxM, kDecBN, kDecRound, kDecOut,
+# kDecBlocksPerSm): M <= 8 rows of x, 128 output columns a tile, 128 k rows
+# a round (a 16-row step for each of a block's 8 warps), 8 x 128 fp32 a
+# partial, and the blocks an SM that its launch bounds keep resident
 GEMV_MAX_M = 8
-_GEMV_BN = 256
-_STEP = 16
-_MAX_ROWS_PER_SPLIT = 1536
-_MAX_SPLITS = 32
+DECODE_BN = 128
+DECODE_ROUND = 128
+DECODE_PARTIAL = GEMV_MAX_M * DECODE_BN
+DECODE_BLOCKS_PER_SM = 2
+# the planner's floor: rounds a band (below it a tile's many partials cost
+# more than its blocks save)
+DECODE_MIN_ROUNDS = 4
 # the wgmma kernel's limits (kTcBN, kTcBK, kTcMaxSplits): 128 output
 # columns and 64 k rows a tile, at most 64 K splits; and the planner's
 # rules: a K split at least 8 k tiles long, and a 192-row tile costing
@@ -72,15 +79,40 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_rows(k: int, n: int, sms: int) -> int:
-    """Rows of K per split of the decode kernel: splits enough for about
-    three blocks per SM (as many as fit at once), at most 32 (the last
-    block of a column tile adds the splits' sums, a round of loads per
-    four splits), each split whole 16-row steps and at most 1536 rows."""
-    tiles = -(-n // _GEMV_BN)
-    splits = max(1, min(3 * sms // tiles, _MAX_SPLITS, -(-k // _STEP)))
-    rows = -(-(-(-k // splits)) // _STEP) * _STEP
-    return min(rows, _MAX_ROWS_PER_SPLIT)
+class DecodePlan(NamedTuple):
+    """The decode kernel's launch for a (k, n) weight: ``tiles`` 128-column
+    tiles of ``rounds`` 128-row rounds each (the last may be short), each
+    tile's rounds in ``bands`` equal bands, one block a (tile, band):
+    ``blocks`` = tiles x bands, block b on tile b % tiles and band b //
+    tiles (``decode_band``), its partial (with more than one band) in
+    workspace slot b of ``ws_floats`` floats."""
+    tiles: int
+    rounds: int
+    bands: int
+    blocks: int
+    ws_floats: int
+
+
+def decode_plan(k: int, n: int, sms: int) -> DecodePlan:
+    """The most bands that divide a tile's rounds evenly with every block
+    resident at once (``DECODE_BLOCKS_PER_SM`` an SM), at least one: every
+    block streams the same bytes, and the blocks of a band walk down the
+    same k rows of adjacent tiles together."""
+    tiles, rounds = -(-n // DECODE_BN), -(-k // DECODE_ROUND)
+    room = DECODE_BLOCKS_PER_SM * sms // tiles
+    bands = max([d for d in range(1, rounds + 1) if rounds % d == 0
+                 and d <= room and rounds // d >= DECODE_MIN_ROUNDS] or [1])
+    blocks = tiles * bands
+    return DecodePlan(tiles, rounds, bands, blocks,
+                      blocks * DECODE_PARTIAL if bands > 1 else 0)
+
+
+def decode_band(plan: DecodePlan, b: int) -> Tuple[int, int, int]:
+    """(tile, first round, end round) of block b, as the kernel takes them
+    (round r of a tile: k rows from 128 r)."""
+    band = b // plan.tiles
+    return (b % plan.tiles, band * plan.rounds // plan.bands,
+            (band + 1) * plan.rounds // plan.bands)
 
 
 def regime(m: int, x_dtype: torch.dtype) -> str:
@@ -173,24 +205,25 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         return out
     kind = regime(m, x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rows = tile_m = 0
-    splits, tiles = 1, 0
+    blocks = tile_m = 0
+    splits, tiles, ws_floats = 1, 0, 0
     if kind == "decode":
-        rows = split_rows(k, n, _sm_count(x.device.index))
-        splits, tiles = -(-k // rows), -(-n // _GEMV_BN)
+        pl = decode_plan(k, n, _sm_count(x.device.index))
+        blocks, tiles, ws_floats = pl.blocks, pl.tiles, pl.ws_floats
     elif kind == "wgmma":
         tile_m, splits = wgmma_plan(m, n, k, _sm_count(x.device.index))
         tiles = -(-n // TC_BN) * -(-m // tile_m)
+        ws_floats = splits * m * n if splits > 1 else 0
     ws = counters = None
-    if splits > 1:
-        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    if ws_floats:
+        ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
         counters = _counter_buffer(x.device, stream, tiles)
     launch = _launcher()
     with torch.cuda.device(x.device):
         err = launch(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
-            None if counters is None else counters.data_ptr(), m, n, k, rows,
+            None if counters is None else counters.data_ptr(), m, n, k, blocks,
             splits, tile_m, int(kind != "simt"),
             int(out_dtype == torch.float32), stream)
     if err != 0:

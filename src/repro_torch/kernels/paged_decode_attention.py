@@ -1,13 +1,15 @@
 """ctypes wrapper of the K2 paged decode-attention CUDA kernel
 (``csrc/paged_decode_attention.cu``), which replaces the Pallas TPU kernel
 ``repro.kernels.decode_attention.paged_decode_attention``, and what K2
-shares with K5 (``paged_verify_attention``): the route, the split planner
-and the split's scratch buffers.
+shares with K5 (``paged_verify_attention``) and K1 (``decode_attention``):
+the route, the split planner, the head checks and the split's scratch
+buffers.
 
-K2 and K5 are one kernel body (``csrc/paged_decode_split.cuh``; K2 is K5
-at one query lane) with two kernels, and ``route`` picks one by dtype and
-head dim: bf16 q over a bf16 or int8 pool at D = 128 runs on the tensor
-cores (wgmma), every other mode on fp32 SIMT dots. Neither stands in for
+K1, K2 and K5 are one kernel body (``csrc/paged_decode_split.cuh``; K2 is
+K5 at one query lane, K1 is K2 over a slot-major cache) with two kernels,
+and ``route`` picks one by dtype and head dim: bf16 q over a bf16 or int8
+cache at D = 128 runs on the tensor cores (wgmma), every other mode on
+fp32 SIMT dots. Neither stands in for
 the other, and a launch error raises.
 
 Both split each slot's key range across blocks: ``plan`` gives the split
@@ -39,9 +41,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (DTYPES, KV_TYPES,
-                                                  check_cuda, check_int32,
-                                                  check_kv_rows, max_rep)
+from repro_torch.kernels.checks import (DTYPES, KV_TYPES, check_cuda,
+                                        check_int32, check_kv_rows)
 from repro_torch.kernels.int8_matmul import _sm_count
 
 _HEAD_DIMS = (64, 128, 256)
@@ -58,8 +59,23 @@ SPLIT_BLOCKS_PER_SM = 2
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
+def max_rep(head_dim: int) -> int:
+    """Largest GQA group the SIMT kernel takes at this head dim (its
+    register and score-pass budgets: ``max_rows`` in
+    ``csrc/decode_attention.cuh``)."""
+    return min(64, 8 * (1024 // head_dim))
+
+
+def check_heads(name: str, d: int, h: int, hkv: int) -> None:
+    """The head dims and GQA groups of K1, K2 and K5: D in {64, 128, 256}
+    and at most ``max_rep(d)`` query heads a KV head."""
+    if d not in _HEAD_DIMS or h % hkv or h // hkv > max_rep(d):
+        raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}, "
+                         f"or GQA group {h}/{hkv} above {max_rep(d)}")
+
+
 def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that K2 and K5 run for q of ``q_dtype`` over a pool of
+    """The kernel that K1, K2 and K5 run for q of ``q_dtype`` over a cache of
     ``kv_dtype`` at ``head_dim``: "tensor_cores" (bf16 q, a bf16 or int8
     pool, D = 128) or "simt" (every other mode: fp32 q keeps its fp32
     numerics, and an fp32 pool is no bf16 operand)."""
@@ -178,9 +194,7 @@ def check_paged(name: str, q: torch.Tensor, k_pool: torch.Tensor,
     if (k_pool.shape[3] != d or page_table.shape[0] != b
             or lengths.shape != (b,)):
         raise ValueError(shapes)
-    if d not in _HEAD_DIMS or h % hkv or h // hkv > max_rep(d):
-        raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}, "
-                         f"or GQA group {h}/{hkv} above {max_rep(d)}")
+    check_heads(name, d, h, hkv)
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     return ks, vs

@@ -26,9 +26,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (DTYPES, KV_TYPES,
-                                                  check_cuda, check_int32,
-                                                  check_kv_rows)
+from repro_torch.kernels.checks import (DTYPES, KV_TYPES, check_cuda,
+                                        check_int32, check_kv_rows)
 
 _HEAD_DIMS = (64, 128)
 # the SIMT kernel's query rows a block (kRows in the source): T tokens x rep

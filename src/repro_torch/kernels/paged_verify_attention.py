@@ -25,7 +25,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import KV_TYPES
+from repro_torch.kernels.checks import KV_TYPES
 from repro_torch.kernels.int8_matmul import _sm_count
 from repro_torch.kernels.paged_decode_attention import (check_paged, plan,
                                                         route, scratch)

@@ -17,7 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import check_cuda
+from repro_torch.kernels.checks import check_cuda
 
 DTYPES = (torch.float32, torch.bfloat16)
 # the source's regimes: M <= 8 streams the codes (256-column tiles), larger

@@ -587,16 +587,24 @@ def test_int8_kv_scales_come_in_pairs(op):
 @pytest.mark.parametrize("k,n", [(4608, 4608), (4608, 512), (4608, 18432),
                                  (18432, 4608), (48, 13), (18432, 18432)])
 def test_int8_matmul_decode_split_policy(k, n):
-    """The decode kernel's K splits: whole 16-row steps, at most 1536 rows
-    (its x slice's shared memory), at most 32 splits, and about three
-    blocks per SM of an H100's 132 unless those caps bind."""
-    rows = k4.split_rows(k, n, 132)
-    splits, tiles = -(-k // rows), -(-n // 256)
-    assert rows % 16 == 0 and 16 <= rows <= 1536
-    assert splits <= 32 and (splits * tiles <= 3 * 132 or rows == 1536)
-    assert splits == 32 or rows == 1536 or splits * tiles > 2 * 132 \
-        or splits * 16 >= k
-    assert (splits - 1) * rows < k
+    """The decode kernel's plan: each 128-column tile's 128-row rounds in
+    equal bands of at least 4 rounds (or one band), as many as divide the
+    rounds with every block resident (2 an SM of an H100's 132), one block
+    a (tile, band), every round of every tile in exactly one block."""
+    pl = k4.decode_plan(k, n, 132)
+    assert (pl.tiles, pl.rounds) == (-(-n // 128), -(-k // 128))
+    assert pl.rounds % pl.bands == 0 and pl.blocks == pl.tiles * pl.bands
+    assert pl.blocks <= 2 * 132 or pl.bands == 1
+    assert pl.rounds // pl.bands >= 4 or pl.bands == 1
+    assert not any(pl.rounds % d == 0 and pl.tiles * d <= 2 * 132
+                   and pl.rounds // d >= 4
+                   for d in range(pl.bands + 1, pl.rounds + 1))
+    seen = np.zeros((pl.tiles, pl.rounds), np.int64)
+    for b in range(pl.blocks):
+        ct, lo, hi = k4.decode_band(pl, b)
+        assert hi - lo == pl.rounds // pl.bands
+        seen[ct, lo:hi] += 1
+    assert (seen == 1).all()
 
 
 def test_run_workload_and_generation_agreement_match_jax():

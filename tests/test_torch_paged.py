@@ -489,13 +489,14 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """Each library's key hashes its source and every csrc/ header it
     includes, so an edited shared header rebuilds exactly the libraries
     that include it: decode_attention.cuh K1, K2, K3 and K5, hopper.cuh
-    K2, K3, K4, K5 and the flash kernels (K6-K8, K10), paged_decode_split.cuh
-    K2 and K5 alone (computing the key compiles nothing)."""
+    K1, K2, K3, K4, K5 and the flash kernels (K6-K8, K10),
+    paged_decode_split.cuh K1, K2 and K5, the split body they share
+    (computing the key compiles nothing)."""
     import shutil
 
     from repro_torch.kernels import build
     split = ["paged_decode_split.cuh", "decode_attention.cuh", "hopper.cuh"]
-    includes = {"decode_attention": ["decode_attention.cuh"],
+    includes = {"decode_attention": split,
                 "paged_decode_attention": split,
                 "paged_prefill_attention": ["decode_attention.cuh",
                                             "hopper.cuh"],
