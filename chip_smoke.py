@@ -66,18 +66,26 @@ non-zero and prints no result:
    forward's) at M=8 and M=4096 for 4608->18432; the library call is
    cuBLAS ``x @ w`` on the weight dequantized once to x's dtype, which is
    not the same function: it moves 2x (bf16) or 4x (fp32) the weight
-   bytes; then K9 (the int8 backward, fp32 dy) against its plain version
+   bytes; then K9 (the int8 backward, fp32 dy, on the coded GEMM's tensor
+   cores) against its plain version
    at M = 4096 for (K, N) = (4608, 4608), (4608, 512), (4608, 18432) and
-   (18432, 4608), dx in fp32 and bf16, its library call cuBLAS ``(dy *
-   scale) @ w^T`` on the weight widened once (4x the weight bytes); and
+   (18432, 4608), dx in fp32 and bf16, two calls equal bit for bit, one
+   launch a call, its library call cuBLAS ``(dy *
+   scale) @ w^T`` on the weight widened once (4x the weight bytes), then
+   (checked, not timed) at (M, K, N) = (100, 300, 50), (9, 7, 3) and (4096,
+   4608, 1000); and
    ``int8_matmul_train``'s dx and dscale (K4 + K9) against autograd
-   through the plain math at (4096, 4608, 18432), fp32 and bf16 x;
+   through the plain math at (4096, 4608, 18432), fp32 and bf16 x; the
+   bounds of fp32 x against int8 or ternary codes count three exact bf16
+   products (``_peak_coded``: PEAK_BF16 / 3);
 4c. ternary matmul (K11) against its plain version at the CNN workloads'
    FC shapes: AlexNet's (K, N) = (9216, 4096), (4096, 4096), (4096, 1000)
    and VGG-16's (25088, 4096) at M = 1 and 64, fp32 and bf16 x, codes from
    ``ternarize``, plus a binary case (no zero codes) per shape, and the
    kernel bench's 256 x 2048 x 512, then (checked, not timed) ragged
-   shapes at M = 1-9, 64 and 100; the library call is cuBLAS ``x @ w``
+   shapes at M = 1-9, 64, 100 and 130; every call on the kernel its rule
+   names (M > 8 on the tensor cores), two calls equal bit for bit, one
+   launch a call; the library call is cuBLAS ``x @ w``
    on the weight dequantized once (4x the weight bytes in fp32); times are
    device time from torch.profiler (at M = 1 the host's launch time
    exceeds the kernel's), the CUDA-event time beside them;
@@ -169,8 +177,11 @@ non-zero and prints no result:
    agreement with the fp32 forward reported; then three fp32 training
    steps at batch 32 (dropout on, AdamW), losses and grad norms finite,
    s/step, model FLOP/s over the fp32 peak, peak memory; K11 launches 3
-   times a forward; the params are freed after each model;
-12. a ``kernels`` line (K1-K11), then the result line
+   times a forward, one kernel each (torch.profiler), on its streaming
+   kernel at batch 1 and its tensor-core kernel at 64; the params are
+   freed after each model;
+12. a ``kernels`` line (K1-K11; K9's and K11's with the launches of each
+   of their kernels in the main-path runs), then the result line
    ``{"ok": true, "device": ...}``.
 
 Every counter is set to 0 just before each serve, train, trainer, bench
@@ -380,10 +391,19 @@ def _peak(*tensors):
     run fastest on the tensor cores as 3xTF32 (three TF32 products of hi/lo
     halves), at PEAK_TF32 / 3 = 165 TFLOP/s, above the CUDA cores'
     PEAK_FP32: the least time of the same fp32 work, whatever implements
-    it (before this rate the fp32 bounds used PEAK_FP32)."""
+    it (before this rate the fp32 bounds used PEAK_FP32). Products with
+    int8 or ternary weight codes take ``_peak_coded``."""
     import torch
     return (PEAK_TF32 / 3 if any(t.dtype == torch.float32 for t in tensors)
             else PEAK_BF16)
+
+
+def _peak_coded(x):
+    """The fastest rate of x's product with int8 or ternary codes: the codes
+    are exact in bf16, so three exact bf16 products carry fp32 x
+    (PEAK_BF16 / 3), and bf16 x is one (PEAK_BF16)."""
+    import torch
+    return PEAK_BF16 / 3 if x.dtype == torch.float32 else PEAK_BF16
 
 
 def _row_bytes(kv):
@@ -734,9 +754,12 @@ def phase_prefill_ragged():
 
 
 def phase_routes():
-    """Which kernel each K1, K2, K3 and K5 mode, each K4 regime and each
-    K6-K8 and K10 mode ran: one call of each at the main path's shapes (K1,
-    K2 and K5 (T = 5) also at head dim 64; K4 on a 4608 x 512 weight; K6-K8 in
+    """Which kernel each K1, K2, K3 and K5 mode, each K4 regime, K9 and
+    each K11 regime and each K6-K8 and K10 mode ran: one call of each at
+    the main path's shapes (K1,
+    K2 and K5 (T = 5) also at head dim 64; K4 on a 4608 x 512 weight; K9
+    with fp32 and bf16 dx; K11 at M = 1, 8, 9 and 64, fp32 and bf16 x;
+    K6-K8 in
     fp32 and bf16 and K10 in each of its modes at head dims 128 and 64, S
     = 256), read from the wrappers' per-kernel counters; each must be the
     kernel that the wrapper's rule (``route``, ``regime``) names."""
@@ -747,6 +770,8 @@ def phase_routes():
     from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_prefill_attention as k3
     from repro_torch.kernels import paged_verify_attention as k5
+    from repro_torch.kernels import ternary_matmul as k11
+    from repro_torch.quant import ternary
 
     def ran(fn, call):
         for name in fn.launches_by_kernel:
@@ -808,6 +833,26 @@ def phase_routes():
         k4_ran[key] = ran(k4.int8_matmul, lambda: k4.int8_matmul(x, q, sc))
         if k4_ran[key] != k4.regime(m, x.dtype):
             raise AssertionError(f"K4 {key} ran its {k4_ran[key]} kernel")
+    k9_ran, k11_ran = {}, {}
+    dy, q9, sc9 = _k9_inputs(gen, 64, 512, 256)
+    for out_name in K9_TOL:
+        k9_ran[out_name] = ran(k4.int8_matmul_dx, lambda: k4.int8_matmul_dx(
+            dy, q9, sc9, getattr(torch, out_name)))
+        if k9_ran[out_name] != "tensor_cores":
+            raise AssertionError(f"K9 {out_name} ran its {k9_ran[out_name]} "
+                                 f"kernel")
+    tw = ternary.ternarize(torch.randn((512, 256), generator=gen,
+                                       device="cuda"))
+    for x_name in ("float32", "bfloat16"):
+        for m in (1, 8, 9, 64):
+            x = torch.randn((m, 512), generator=gen, device="cuda").to(
+                getattr(torch, x_name))
+            key = f"x {x_name}, M = {m}"
+            k11_ran[key] = ran(k11.ternary_matmul, lambda: k11.ternary_matmul(
+                x, tw.q, tw.scale))
+            if k11_ran[key] != k11.route(m):
+                raise AssertionError(f"K11 {key} ran its {k11_ran[key]} "
+                                     f"kernel")
     k6_ran, k7_ran, k8_ran, k10_ran = {}, {}, {}, {}
     for d in (D, 64):
         for q_name in FLASH_TOL:
@@ -852,7 +897,8 @@ def phase_routes():
     emit({"phase": "routes", "decode_attention": k1_ran,
           "paged_decode_attention": k2_ran,
           "paged_verify_attention": k5_ran, "paged_prefill_attention": k3_ran,
-          "int8_matmul": k4_ran, "flash_attention_fwd": k6_ran,
+          "int8_matmul": k4_ran, "int8_matmul_dx": k9_ran,
+          "ternary_matmul": k11_ran, "flash_attention_fwd": k6_ran,
           "flash_attention_bwd_dq": k7_ran,
           "flash_attention_bwd_dkv": k8_ran, "flash_attention": k10_ran})
 
@@ -1273,7 +1319,7 @@ def _k4_row(gen, m, k, n, x_name, out_name):
     nbytes = (q.numel() + sc.numel() * 4 + x.numel() * x.element_size()
               + m * n * got.element_size())
     row["bound_ms"], row["bound_by"] = _bound(nbytes,
-                                              2.0 * m * k * n / _peak(x))
+                                              2.0 * m * k * n / _peak_coded(x))
     return row
 
 
@@ -1344,39 +1390,105 @@ K9_M = 4096
 K9_SHAPES = ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608))
 K9_MAIN = (4608, 18432, "float32")
 K9_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
+# (M, K, N) checked in both outputs, not timed: a contraction of 50 (no
+# whole 64-deep stage; rows not 16 bytes apart, so dy and the codes take
+# the kernel's element loads), a tiny one, and N = 1000 (dy by TMA, the
+# codes in 8-byte loads) at the training batch
+K9_RAGGED = ((100, 300, 50), (9, 7, 3), (4096, 4608, 1000))
+
+
+def _k9_inputs(gen, m, k, n):
+    """fp32 dy (m, n), random int8 codes (k, n) and positive scales."""
+    import torch
+    dy = torch.randn((m, n), generator=gen, device="cuda")
+    q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    sc = (torch.rand(n, generator=gen, device="cuda") + 0.5) * 1e-3
+    return dy, q, sc
+
+
+def _check_k9(dy, q, sc, odt, label):
+    """K9 on (dy, q, sc) against its plain version within K9_TOL, on its
+    tensor-core kernel (``launches_by_kernel``), a second call equal bit for
+    bit; returns (the kernel's output, its max abs error, the plain
+    version's max abs)."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    from repro_torch.kernels import ref
+    before = dict(k4.int8_matmul_dx.launches_by_kernel)
+    got = k4.int8_matmul_dx(dy, q, sc, odt)
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in
+           k4.int8_matmul_dx.launches_by_kernel.items()}
+    if ran != {"tensor_cores": 1}:
+        raise AssertionError(f"int8_matmul_dx at {label}: one call "
+                             f"launched {ran}")
+    want = ref.int8_matmul_dx_ref(dy, q, sc, odt)
+    rel_max, rtol = K9_TOL[str(odt).split(".")[1]]
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    peak = float(want.float().abs().max())
+    excess = err - (rel_max * peak + rtol * want.float().abs())
+    if not (float(excess.max()) <= 0.0 and got.dtype == odt
+            and got.shape == want.shape and torch.isfinite(got).all()):
+        raise AssertionError(
+            f"int8_matmul_dx disagrees with its plain version at {label}: "
+            f"max abs err {max_err} of max {peak} ({got.dtype})")
+    _same_bits(f"K9 {label}", (got,), (k4.int8_matmul_dx(dy, q, sc, odt),))
+    return got, max_err, peak
+
+
+def _one_launch(label, fn, iters=8, attempts=5, per_call=1, names=None):
+    """Every call of ``fn`` launches exactly ``per_call`` kernels on the
+    card (of those whose name holds one of ``names``, if given), read from
+    torch.profiler's kernel records (taken again, up to ``attempts`` times,
+    when a profile lost records, as ``device_ms`` does). Returns the calls
+    of ``fn`` it made."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0
+                and (names is None or any(w in e.key for w in names)))
+        if n == per_call * iters:
+            return 1 + iters * (len(seen) + 1)
+        seen.append(n)
+    raise AssertionError(f"{label}: {iters} calls made {seen} kernel "
+                         f"launches in {attempts} profiles, not {per_call} "
+                         f"a call")
 
 
 def phase_int8_dx():
     """K9 against its plain version at the training projections' shapes,
-    with its time, bound, the plain version's time, and cuBLAS ``(dy *
+    on its tensor-core kernel, a second call equal bit for bit, one launch a
+    call, with its time, bound, the plain version's time, and cuBLAS ``(dy *
     scale) @ w^T`` with the weight widened to fp32 once (not the same
-    function: it reads 4x the weight bytes). Returns the main row."""
+    function: it reads 4x the weight bytes); then the ragged shapes
+    (checked, not timed), both outputs. Returns the main row."""
     import torch
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     main = None
     for k, n in K9_SHAPES:
-        dy = torch.randn((K9_M, n), generator=gen, device="cuda")
-        q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        sc = (torch.rand(n, generator=gen, device="cuda") + 0.5) * 1e-3
+        dy, q, sc = _k9_inputs(gen, K9_M, k, n)
         wf = q.float()
         for out_name, (rel_max, rtol) in K9_TOL.items():
             odt = getattr(torch, out_name)
-            got = k4.int8_matmul_dx(dy, q, sc, odt)
-            torch.cuda.synchronize()
-            want = ref.int8_matmul_dx_ref(dy, q, sc, odt)
-            err = (got.float() - want.float()).abs()
-            max_err = float(err.max())
-            peak = float(want.float().abs().max())
-            excess = err - (rel_max * peak + rtol * want.float().abs())
-            if not (float(excess.max()) <= 0.0 and got.dtype == odt
-                    and torch.isfinite(got).all()):
-                raise AssertionError(
-                    f"int8_matmul_dx disagrees with its plain version at "
-                    f"M={K9_M}, K={k}, N={n}, {out_name}: max abs err "
-                    f"{max_err} of max {peak} ({got.dtype})")
+            label = f"M={K9_M}, K={k}, N={n}, {out_name}"
+            got, max_err, peak = _check_k9(dy, q, sc, odt, label)
+            _one_launch(f"K9 {label}",
+                        lambda: k4.int8_matmul_dx(dy, q, sc, odt), iters=2)
             kernel_ms = cuda_ms(lambda i: k4.int8_matmul_dx(dy, q, sc, odt),
                                 6)
             plain_ms = cuda_ms(
@@ -1384,9 +1496,10 @@ def phase_int8_dx():
             library_ms = cuda_ms(lambda i: ((dy * sc) @ wf.T).to(odt), 6)
             nbytes = (dy.numel() * 4 + q.numel() + n * 4
                       + K9_M * k * got.element_size())
-            bound_ms, bound_by = _bound(nbytes,
-                                        2.0 * K9_M * n * k / _peak(dy))
-            row = {"phase": "int8_matmul_dx", "m": K9_M, "k": k, "n": n,
+            bound_ms, bound_by = _bound(
+                nbytes, 2.0 * K9_M * n * k / _peak_coded(dy))
+            row = {"phase": "int8_matmul_dx", "kernel": "tensor_cores",
+                   "m": K9_M, "k": k, "n": n,
                    "dy": "float32", "out": out_name, "max_abs_err": max_err,
                    "max_rel_err": max_err / max(peak, 1e-30),
                    "tol_rel_to_max": rel_max, "rtol": rtol, "ms": kernel_ms,
@@ -1398,8 +1511,18 @@ def phase_int8_dx():
             emit(row)
             if (k, n, out_name) == K9_MAIN:
                 main = row
-            del got, want, err, excess
+            del got
         del dy, q, sc, wf
+    ragged = []
+    for m, k, n in K9_RAGGED:
+        dy, q, sc = _k9_inputs(gen, m, k, n)
+        for out_name in K9_TOL:
+            _, max_err, peak = _check_k9(dy, q, sc, getattr(torch, out_name),
+                                         f"M={m}, K={k}, N={n}, {out_name}")
+            ragged.append([m, k, n, out_name, max_err / max(peak, 1e-30)])
+        del dy, q, sc
+    emit({"phase": "int8_matmul_dx_ragged", "kernel": "tensor_cores",
+          "cases_m_k_n_out_err_over_max": ragged})
     torch.cuda.empty_cache()
     return main
 
@@ -1470,21 +1593,32 @@ K11_CASES = (tuple((m, k, n, x, "ternary") for k, n in K11_FC
 K11_MAIN = (1, 9216, 4096, "float32", "ternary")
 K11_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 # (M, K, N) checked in fp32 and bf16 but not timed: every instantiation of
-# the streaming kernel (M = 1, 2, 3-4, 5-8), the tile kernel's unaligned
-# and ragged loads (K % 4 != 0, N % 4 != 0), the smoke classifier and
-# tests/test_kernels_ternary.py's ragged shape
+# the streaming kernel (M = 1, 2, 3-4, 5-8), the tensor-core kernel's
+# element loads (K % 8 != 0: x not by TMA; N % 16 != 0: the codes in 8-,
+# 4- or 1-byte loads), ragged tiles and split K (the last two), the smoke
+# classifier and tests/test_kernels_ternary.py's ragged shape
 K11_RAGGED = ((3, 192, 10), (2, 777, 33), (5, 512, 128), (8, 300, 50),
-              (9, 301, 50), (100, 300, 50), (64, 7, 3), (1, 1, 1))
+              (9, 301, 50), (100, 300, 50), (64, 7, 3), (1, 1, 1),
+              (64, 777, 1000), (130, 2052, 300))
 
 
 def _check_k11(x, q, sc, label):
-    """K11 on (x, q, sc) against its plain version within K11_TOL, or
+    """K11 on (x, q, sc) against its plain version within K11_TOL, on the
+    kernel that its rule names (``route``: M > 8 on the tensor cores, read
+    from ``launches_by_kernel``), a second call equal bit for bit, or
     raise. Returns (the plain output's max abs, the max abs error)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ternary_matmul as k11
+    before = dict(k11.ternary_matmul.launches_by_kernel)
     got = k11.ternary_matmul(x, q, sc)
     torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in
+           k11.ternary_matmul.launches_by_kernel.items() if c != before[n]}
+    if ran != {k11.route(x.shape[0]): 1}:
+        raise AssertionError(f"ternary_matmul at {label}: one call "
+                             f"launched {ran}")
+    _same_bits(f"K11 {label}", (got,), (k11.ternary_matmul(x, q, sc),))
     want = ref.ternary_matmul_ref(x, q, sc)
     of_max, rtol = K11_TOL[str(x.dtype).split(".")[1]]
     want_max = float(want.float().abs().max())
@@ -1505,8 +1639,10 @@ def _check_k11(x, q, sc, label):
 
 
 def phase_ternary_matmul():
-    """K11 against its plain version at the CNN workloads' shapes, with its
-    device time (``device_ms``; each timed call reads its own copy of the
+    """K11 against its plain version at the CNN workloads' shapes, each call
+    on the kernel its rule names (every M > 8 call on the tensor cores), a
+    second call equal bit for bit, one launch a call, with its device time
+    (``device_ms``; each timed call reads its own copy of the
     codes, K4_COLD_BYTES of copies at least) and its CUDA-event time, its
     bound, the plain version's device time and that of cuBLAS on the
     weight dequantized once to x's dtype (the reference example's route:
@@ -1534,6 +1670,7 @@ def phase_ternary_matmul():
         def kernel(i):
             return k11.ternary_matmul(x, qs[i % len(qs)], sc)
 
+        _one_launch(f"K11 {m}x{k}x{n} {x_name}", lambda: kernel(0))
         kernel_ms = device_ms(kernel, 24)
         event_ms = cuda_ms(kernel, 24)
         plain_ms = device_ms(lambda i: ref.ternary_matmul_ref(
@@ -1544,8 +1681,10 @@ def phase_ternary_matmul():
         del qs, wd
         nbytes = (q.numel() + sc.numel() * 4
                   + (x.numel() + m * n) * x.element_size())
-        bound_ms, bound_by = _bound(nbytes, 2.0 * m * k * n / _peak(x))
-        row = {"phase": "ternary_matmul", "m": m, "k": k, "n": n,
+        bound_ms, bound_by = _bound(nbytes,
+                                    2.0 * m * k * n / _peak_coded(x))
+        row = {"phase": "ternary_matmul", "kernel": k11.route(m),
+               "m": m, "k": k, "n": n,
                "x": x_name, "codes": codes,
                "zero_code_share": float((q == 0).float().mean()),
                "max_abs_err": max_err, "plain_max": want_max,
@@ -2393,9 +2532,11 @@ def phase_train_bench():
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    before = _routes()
     res = train_bench.bench(out=ROOT / "build" / "bench"
                             / "BENCH_torch_train.json", device="cuda")
     launches = {name: fn.launches for name, fn in counters.items()}
+    _add_routes(before)
     g = res["grad_parity_vs_ref"]
     row = {"phase": "train_bench",
            "loop_s_per_step": res["reference"]["s_per_step"],
@@ -2426,8 +2567,10 @@ def phase_kernel_bench():
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    before = _routes()
     rows = kernel_bench.run("cuda")
     launches = {name: fn.launches for name, fn in counters.items()}
+    _add_routes(before)
     emit({"phase": "kernel_bench", "rows": [list(r) for r in rows],
           "launches": launches})
     derived = {r[0]: dict(kv.split("=") for kv in r[2].split(";"))
@@ -2453,6 +2596,9 @@ def phase_kernel_bench():
 # reference example's route) within CNN_TOL of its max |logit|: the two
 # round (x . q) * s and x . (q * s) apart, over three layers
 CNN_BATCHES = (1, 64)
+# K11's kernels by name (the streaming kernel at M <= 8, the tensor-core
+# kernel above), as torch.profiler lists them
+K11_KERNELS = ("ternary_gemv_kernel", "coded_gemm_kernel")
 CNN_TRAIN_BATCH = 32
 CNN_TRAIN_STEPS = 3
 CNN_TOL = 1e-4
@@ -2484,7 +2630,7 @@ def _profile_device(fn, k, top=8):
         return sum(ms for name, ms in kernels
                    if any(w in name.lower() for w in words))
 
-    k11 = share("ternary_")
+    k11 = share(*K11_KERNELS)
     return {"calls": k, "wall_ms_per_call": wall_ms / k,
             "device_busy_ms_per_call": busy,
             "device_busy_share": busy * k / wall_ms,
@@ -2510,9 +2656,13 @@ def phase_cnn(cfg):
     first step, images/s, model FLOP/s over the fp32 peak, peak memory,
     then one profiled step. Every counter is set to 0 just before the
     inference runs and read after the training: K11 launches 3 times a
-    K11-route forward, nothing else launches. Returns the launches."""
+    K11-route forward, one kernel launch each (torch.profiler's records),
+    on the streaming kernel at batch 1 and the tensor-core kernel at 64
+    (``launches_by_kernel``); nothing else launches. Returns the
+    launches."""
     import torch
     from repro_torch.examples.edge_cnn_repro import fc_predicate, ternary_mm
+    from repro_torch.kernels import ternary_matmul as k11_lib
     from repro_torch.models import cnn
     from repro_torch.models.common import flatten
     from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
@@ -2529,8 +2679,11 @@ def phase_cnn(cfg):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    k11 = counters["ternary_matmul"]
+    before = _routes()
     forwards = 0
     for batch in CNN_BATCHES:
+        routes_before = dict(k11.launches_by_kernel)
         imgs = torch.randn((batch,) + shape, generator=gen, device="cuda")
         iters = 20 if batch == 1 else 5
         torch.cuda.synchronize()
@@ -2546,7 +2699,14 @@ def phase_cnn(cfg):
             deq_ms = cuda_ms(lambda i: cnn.forward(deq, cfg, imgs), iters)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             prof = _profile_device(k11_route, 2)
-        forwards += 1 + (iters + 1) + 2
+            checked = _one_launch(f"cnn {cfg.name} batch {batch}: K11",
+                                  k11_route, iters=2, per_call=n_fc,
+                                  names=K11_KERNELS)
+        batch_forwards = 1 + (iters + 1) + 2 + checked
+        forwards += batch_forwards
+        routes = {r: c - routes_before[r]
+                  for r, c in k11.launches_by_kernel.items()
+                  if c != routes_before[r]}
         want_max = float(want.abs().max())
         diff = float((got - want).abs().max())
         top2 = want.topk(2, dim=-1).values
@@ -2563,8 +2723,12 @@ def phase_cnn(cfg):
                    (got.argmax(-1) == fp32.argmax(-1)).float().mean()),
                "ms_per_forward": ms, "images_per_s": batch / ms * 1e3,
                "dequantized_ms_per_forward": deq_ms,
-               "peak_mem_gb": peak_gb, "profile": prof}
+               "peak_mem_gb": peak_gb, "k11_routes": routes,
+               "profile": prof}
         emit(row)
+        if routes != {k11_lib.route(batch): batch_forwards * n_fc}:
+            raise AssertionError(f"cnn {cfg.name} batch {batch}: K11's "
+                                 f"calls ran {routes}")
         if not (diff <= CNN_TOL * want_max and bool((same | close).all())
                 and bool(torch.isfinite(got).all())
                 and got.shape == (batch, cfg.num_classes)):
@@ -2602,6 +2766,7 @@ def phase_cnn(cfg):
         gnorms.append(float(gnorm))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in counters.items()}
+    _add_routes(before)
     s_per_step = sum(walls[1:]) / len(walls[1:])
     flops = 3 * cnn.flops_per_image(cfg) * CNN_TRAIN_BATCH
     row = {"phase": "cnn_train", "model": cfg.name,
@@ -2749,6 +2914,27 @@ def _spec_streams(params, cfg, scfg, prompts, want):
           "accepted_tokens_per_tick": s["accepted_tokens_per_tick"],
           "prefix_hit_tokens": s["prefix_hit_tokens"]})
     return s
+
+
+# K9's and K11's launches of each of their kernels in the main-path runs
+# (the train bench, the kernel bench, the CNN phases), for the kernels line
+MAIN_ROUTES = {"int8_matmul_dx": {}, "ternary_matmul": {}}
+
+
+def _routes():
+    """K9's and K11's per-kernel launch counts now."""
+    counters = _counters()
+    return {name: dict(counters[name].launches_by_kernel)
+            for name in MAIN_ROUTES}
+
+
+def _add_routes(before):
+    """Adds K9's and K11's per-kernel launches since ``before`` (a
+    ``_routes()``) to MAIN_ROUTES."""
+    for name, now in _routes().items():
+        for kernel, count in now.items():
+            MAIN_ROUTES[name][kernel] = (MAIN_ROUTES[name].get(kernel, 0)
+                                         + count - before[name][kernel])
 
 
 def _counters():
@@ -3034,7 +3220,9 @@ def main() -> int:
         "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"],
-        "library_ms": rows[name]["library_ms"]}
+        "library_ms": rows[name]["library_ms"],
+        **({"kernels_launched": MAIN_ROUTES[name]} if name in MAIN_ROUTES
+           else {})}
         for name, source, replaces in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (K3's and K4's wgmma paths, K6-K8's and K10's 3xTF32 ones): shared-memory
-// addresses, cp.async with zero fill, the tf32 split, mbarriers, 2D TMA
-// loads, the 128-byte swizzle, wgmma descriptors and the warpgroup MMAs in
-// the shapes the kernels issue. Everything here
+// (K3's and K4's wgmma paths, K6-K8's and K10's 3xTF32 ones, K9's and K11's
+// coded GEMM): shared-memory addresses, cp.async with zero fill, the tf32
+// and bf16x3 splits, mbarriers, 2D TMA loads and their tensor maps, the
+// 128-byte swizzle, wgmma descriptors and the warpgroup MMAs in the shapes
+// the kernels issue. Everything on the device here
 // is a thin wrapper of one PTX instruction (or a fixed sequence of them);
 // the layouts are PTX's own (ISA 8.x, "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate").
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +93,32 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(tf32_rna(x - h));
 }
 
+// --- bf16x3 -------------------------------------------------------------------
+
+// x = hi + mid + lo, three bf16 values (fp32 bit patterns whose low 16 bits
+// are zero), split by truncation on the bit pattern: hi keeps x's top 16
+// bits, r = x - hi is exact, mid keeps r's top 16 bits, and lo = r - mid is
+// exact with at most 8 significant bits. The sum is x exactly whenever lo is
+// zero or a normal number: for every |x| >= 2^-103 (below that the error is
+// under 2^-126). Truncation never rounds hi up past FLT_MAX, as a
+// round-to-nearest hi would. A non-finite x goes into hi alone (NaN kept a
+// NaN), with mid = lo = 0, so inf * 0 = NaN and inf * +-1 = +-inf as in an
+// fp32 dot. Against an operand that is exact in bf16 (int8 or ternary
+// codes), three bf16 products carry fp32 x without loss.
+__device__ __forceinline__ void bf16x3_split(float x, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const uint32_t u = __float_as_uint(x);
+  const bool finite = (u & 0x7F800000u) != 0x7F800000u;
+  hi = (u & 0xFFFF0000u) | ((u & 0x7FFFFFFFu) > 0x7F800000u ? 0x00400000u : 0u);
+  const float r = finite ? x - __uint_as_float(hi) : 0.f;
+  mid = __float_as_uint(r) & 0xFFFF0000u;
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+
+// Two such pieces (elements k and k + 1) as one packed bf16 pair, k low.
+__device__ __forceinline__ uint32_t bf16_pack(uint32_t k0, uint32_t k1) {
+  return __byte_perm(k0, k1, 0x7632);
+}
+
 // --- mbarriers and TMA -------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -140,6 +168,48 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's
+// entry-point query so that a library needs no -lcuda; null if missing.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 2D row-major tensor (rows x cols elements of `bytes` each, rows
+// `row_bytes` apart) as TMA boxes of box_rows x box_cols with the 128-byte
+// swizzle (or `swizzle`); out-of-bounds elements read as zeros.
+inline bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, uint64_t rows,
+                      uint64_t cols, uint64_t row_bytes, uint32_t box_rows, uint32_t box_cols,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // --- wgmma -------------------------------------------------------------------

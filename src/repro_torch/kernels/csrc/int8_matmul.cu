@@ -1,5 +1,6 @@
 // K4: weight-only int8 matmul for the serving fast path, on Hopper (sm_90a),
-// and K9, its backward with respect to x (end of the file).
+// and K9, its backward with respect to x (end of the file: the coded GEMM of
+// csrc/coded_gemm.cuh, shared with K11).
 //
 // Replaces the Pallas TPU kernel repro/kernels/int8_matmul.py::int8_matmul
 // (_int8_matmul_kernel). Computes
@@ -49,7 +50,8 @@
 //     (TMA).
 //   * fp32 x, any M (int8_simt_kernel): fp32 CUDA-core FMAs on 64 x 64
 //     tiles. TF32 would change the numerics, so the tensor cores are not
-//     used; each output sums k in the same order whatever M is (16-row
+//     used (the coded GEMM's three exact bf16 planes could carry it, as they
+//     carry K9); each output sums k in the same order whatever M is (16-row
 //     partial sums added in ascending order), so an engine's batched call
 //     and a one-row call give the same bits.
 //
@@ -61,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "coded_gemm.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -136,11 +139,8 @@ __device__ __forceinline__ uint4 ld_stream16(const int8_t* p) {
   return v;
 }
 
-// one output element from its fp32 value: the only rounding of the result
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+using coded::store_out;   // one output element from its fp32 value: its only rounding
+using coded::store_pair;
 
 using hopper::widen4;
 
@@ -376,13 +376,6 @@ __device__ __forceinline__ void wgmma_x(float (&d)[BM / 2], const uint32_t (&a)[
   else hopper::wgmma_rs_n256<0>(d, a, desc, 1);
 }
 
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 template <int BM, typename OutT>
 __global__ void __launch_bounds__(kTcThreads, 1)
 int8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
@@ -540,53 +533,13 @@ int8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the runtime's
-// entry-point query so that the library needs no -lcuda; null if missing.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2D row-major tensor (rows x cols elements of `bytes` each, rows
-// `row_bytes` apart) as TMA boxes of box_rows x box_cols with the 128-byte
-// swizzle; out-of-bounds elements read as zeros.
-bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, uint64_t rows,
-               uint64_t cols, uint64_t row_bytes, uint32_t box_rows, uint32_t box_cols) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BM, typename OutT>
 cudaError_t launch_wgmma(const void* x, const void* q, const void* scale, void* out, void* ws,
                          void* counters, int M, int N, int K, int splits, cudaStream_t s) {
   CUtensorMap x_map, q_map;
-  if (!encode_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, (uint64_t)K * 2, BM, kTcBK) ||
-      !encode_2d(&q_map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N, N, kTcBK, kTcBN))
+  if (!hopper::encode_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, (uint64_t)K * 2, BM,
+                         kTcBK) ||
+      !hopper::encode_2d(&q_map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N, N, kTcBK, kTcBN))
     return cudaErrorInvalidValue;
   static const cudaError_t smem_set =
       cudaFuncSetAttribute(int8_wgmma_kernel<BM, OutT>,
@@ -696,7 +649,7 @@ cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* o
 }
 
 // ---------------------------------------------------------------------------
-// K9: the backward with respect to x, fp32 dy, CUDA-core FMAs
+// K9: the backward with respect to x, on the coded GEMM
 // ---------------------------------------------------------------------------
 //
 // Replaces the Pallas TPU kernel repro/kernels/int8_matmul.py::int8_matmul_dx
@@ -704,120 +657,18 @@ cudaError_t launch_bf16(const void* x, const void* q, const void* scale, void* o
 //   dx[m, k] = sum_n (dy[m, n] * scale[n]) * q[k, n]
 // with dy (M, N) fp32 row-major (the caller casts the cotangent to fp32, as
 // _int8_vjp_bwd does), q (K, N) int8 in the forward's own layout (a dx
-// tile's weight rows are contiguous along the contraction axis N), scale
-// (N,) fp32, and dx (M, K) in x's dtype (fp32 or bf16), accumulated in fp32.
+// column's weight row is contiguous along the contraction axis N: K-major
+// codes), scale (N,) fp32, and dx (M, K) in x's dtype (fp32 or bf16).
 //
 // What bounds it on the card: operations. 2 * M * N * K FLOPs against
 // 4 * M * N + K * N bytes read: at M = 4096 training tokens that is
-// hundreds of FLOPs a byte, above the H100's ridge, so the least time is
-// the FLOPs over the fp32 peak. The operand is fp32, and the tensor cores
-// take fp32 only as TF32, which the reference's fp32 dot does not round to;
-// so the products run on fp32 CUDA cores, in int8_simt_kernel's shape:
-// 64 x 64 dx tiles over 256 threads, each a 4 x 4 block, 16-wide steps
-// along N. The scale is folded into the dy tile as it loads (the reference
-// folds it into the cotangent in-register), the int8 codes are widened to
-// fp32 into shared memory, both tiles are stored N-major so each thread's
-// four rows (and four columns) are one 16-byte read, and the next step's
-// tiles are loaded into registers while this one computes. Every edge is
-// masked by length, so no shape needs padding. Tensor cores (a 3xTF32
-// split that keeps fp32 accuracy) and a deeper load pipeline are later
-// speed work.
-
-constexpr int kDxBM = 64, kDxBK = 64, kDxBN = 16, kDxPad = 4;
-
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-int8_dx_kernel(const float* __restrict__ dy, const int8_t* __restrict__ q,
-               const float* __restrict__ scale, OutT* __restrict__ dx, int M, int N, int K,
-               int vec) {
-  __shared__ __align__(16) float a_s[kDxBN][kDxBM + kDxPad];   // dy * scale, n-major
-  __shared__ __align__(16) float b_s[kDxBN][kDxBK + kDxPad];   // widened codes, n-major
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kDxBM, k0 = blockIdx.x * kDxBK;
-  const int r = tid >> 2, c = (tid & 3) * 4;   // a tile row (m or k) and 4 n of it
-
-  float4 a_reg;                                 // dy[m0 + r][n0 + c .. + 3] * scale
-  uint32_t b_reg;                               // q[k0 + r][n0 + c .. + 3], packed
-  auto load = [&](int n0) {
-    const int n = n0 + c, m = m0 + r, k = k0 + r;
-    float a[4] = {0.f, 0.f, 0.f, 0.f};
-    if (m < M) {
-      const float* src = dy + (long long)m * N + n;
-      if (vec && n + 4 <= N) {
-        const float4 u = *reinterpret_cast<const float4*>(src);
-        a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (n + e < N) a[e] = src[e];
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (n + e < N) a[e] *= scale[n + e];
-    a_reg = make_float4(a[0], a[1], a[2], a[3]);
-    b_reg = 0u;
-    if (k < K) {
-      const int8_t* src = q + (long long)k * N + n;
-      if (vec && n + 4 <= N) {
-        b_reg = *reinterpret_cast<const uint32_t*>(src);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (n + e < N) b_reg |= (uint32_t)(uint8_t)src[e] << (8 * e);
-      }
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  load(0);
-  for (int n0 = 0; n0 < N; n0 += kDxBN) {
-    __syncthreads();                            // last step's readers are done
-    a_s[c + 0][r] = a_reg.x;
-    a_s[c + 1][r] = a_reg.y;
-    a_s[c + 2][r] = a_reg.z;
-    a_s[c + 3][r] = a_reg.w;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) b_s[c + e][r] = (float)(int8_t)(b_reg >> (8 * e));
-    __syncthreads();
-    if (n0 + kDxBN < N) load(n0 + kDxBN);       // in flight meanwhile
-    // this step's 16 products summed apart, then added to the running sum,
-    // as int8_simt_kernel does
-    float part[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-#pragma unroll
-    for (int n = 0; n < kDxBN; ++n) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[n][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&b_s[n][tx * 4]);
-      const float av4[4] = {a.x, a.y, a.z, a.w}, bv4[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av4[i], bv4[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, k = k0 + tx * 4 + j;
-      if (m < M && k < K) store_out(dx + (long long)m * K + k, acc[i][j]);
-    }
-}
+// hundreds of FLOPs a byte, above the H100's ridge. The codes are exact in
+// bf16, so g = dy * scale (folded in fp32 as the reference folds it) is
+// split into three bf16 planes and each product runs on bf16 wgmma:
+// coded_gemm.cuh's kernel with dx's K columns as its outputs and N as its
+// contraction (the least time is the FLOPs at a third of the bf16 peak).
+// One launch; K is split across blocks only where the 64 x 256 dx tiles
+// would leave SMs idle.
 
 }  // namespace
 
@@ -855,24 +706,24 @@ extern "C" int int8_matmul_launch(const void* x, const void* q, const void* scal
                                            splits, tile_m, s));
 }
 
-// Plain C entry point of K9. dy (M, N) fp32 contiguous, 16-byte aligned; q
-// (K, N) int8 contiguous, 16-byte aligned; scale (N,) fp32; dx (M, K)
-// contiguous, bf16 when dx_bf16 is 1, else fp32. Any M, N, K >= 1. Returns
+// Plain C entry point of K9. dy (M, N) fp32 contiguous; q (K, N) int8
+// contiguous; scale (N,) fp32; dx (M, K) contiguous, bf16 when dx_bf16 is
+// 1, else fp32. Any M, N, K >= 1. `splits` (1 .. ceil(N / 64)) parts of the
+// contraction; with more than one, ws holds splits x tiles x 16384 fp32 and
+// counters one int per 64 x 256 dx tile (zero on entry, left zero). Returns
 // the CUDA error of the launch (0 on success).
 extern "C" int int8_matmul_dx_launch(const void* dy, const void* q, const void* scale,
-                                     void* dx, int M, int N, int K, int dx_bf16,
-                                     void* stream) {
+                                     void* dx, void* ws, void* counters, int M, int N, int K,
+                                     int splits, int dx_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((K + kDxBK - 1) / kDxBK, (M + kDxBM - 1) / kDxBM);
-  const int vec = N % 4 == 0;
-  if (dx_bf16)
-    int8_dx_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(dy), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(dx), M, N, K, vec);
-  else
-    int8_dx_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(dy), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<float*>(dx), M, N, K, vec);
-  return static_cast<int>(cudaGetLastError());
+  const int8_t* qc = static_cast<const int8_t*>(q);
+  const float* sc = static_cast<const float*>(scale);
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
+  // dx's K columns are the coded GEMM's outputs, N its contraction
+  return static_cast<int>(
+      dx_bf16 ? coded::launch<3, true>(dy, qc, sc, static_cast<__nv_bfloat16*>(dx), w, c, M, K, N,
+                                       splits, s)
+              : coded::launch<3, true>(dy, qc, sc, static_cast<float*>(dx), w, c, M, K, N,
+                                       splits, s));
 }

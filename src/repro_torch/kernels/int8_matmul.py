@@ -4,12 +4,13 @@ Pallas TPU kernels ``repro.kernels.int8_matmul.int8_matmul`` and
 ``int8_matmul_dx``.
 
 Each wrapper checks device, dtypes, shapes, contiguity and alignment,
-allocates the output (and, for K4's split tiles, their fp32 workspace)
+allocates the output (and, for split tiles, their fp32 workspace)
 with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. It pads nothing: the kernels
 mask ragged edges. ``int8_matmul.launches`` and ``int8_matmul_dx.launches``
-count launches, and ``int8_matmul.launches_by_kernel`` K4's launches of
-each kernel, by the name ``regime`` gives it.
+count launches, and ``launches_by_kernel`` on each the launches of each
+kernel: K4's by the name ``regime`` gives it, K9's "tensor_cores" (its one
+kernel, the coded GEMM of ``coded_gemm``).
 
 Which kernel runs (``regime``): bf16 x with M <= 8 the decode kernel
 (tensor cores, mma.sync, the weight streamed to registers; ``decode_plan``
@@ -18,22 +19,24 @@ ring (tensor cores; N % 16 == 0, else the wrapper raises), fp32 x the SIMT
 kernel (fp32 FMAs, any M). ``wgmma_plan`` picks the wgmma kernel's rows of
 x a block and its K splits.
 
-The tiles that both tensor-core kernels split across blocks meet through
-one counter per output tile, zero between launches (the last block of a
-tile resets it).
-The counters live in one buffer per (device, stream), so launches on one
-stream never share counters with launches that may run beside them.
+K9 runs the coded GEMM for any shape: the codes widened exactly to bf16,
+the fp32 cotangent (times the scale) split into three bf16 planes, three
+products on bf16 wgmma; ``coded_gemm.plan`` splits its contraction where
+the dx tiles alone would leave SMs idle.
+
+The tiles that the tensor-core kernels split across blocks meet through
+one counter per output tile (``coded_gemm.counter_buffer``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, coded_gemm
 from repro_torch.kernels.checks import check_cuda
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -59,8 +62,6 @@ TC_MAX_SPLITS = 64
 TC_MIN_SPLIT_TILES = 8
 TC_ROW_COST = {192: 1.12, 256: 1.0}
 
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
-
 
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str = "int8_matmul_launch"):
@@ -69,7 +70,7 @@ def _launcher(name: str = "int8_matmul_launch"):
     fn = getattr(build.load("int8_matmul"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ({"int8_matmul_launch": [p] * 6 + [i] * 8,
-                    "int8_matmul_dx_launch": [p] * 4 + [i] * 4}[name] + [p])
+                    "int8_matmul_dx_launch": [p] * 6 + [i] * 5}[name] + [p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -160,16 +161,6 @@ def wgmma_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
                               TC_MAX_SPLITS))
 
 
-def _counter_buffer(device: torch.device, stream: int,
-                    tiles: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
-
-
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: (M, K) fp32 or bf16 on a CUDA device, contiguous; q: (K, N) int8
@@ -217,7 +208,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     ws = counters = None
     if ws_floats:
         ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
-        counters = _counter_buffer(x.device, stream, tiles)
+        counters = coded_gemm.counter_buffer(x.device, stream, tiles)
     launch = _launcher()
     with torch.cuda.device(x.device):
         err = launch(
@@ -240,9 +231,8 @@ int8_matmul.launches_by_kernel = {"decode": 0, "wgmma": 0, "simt": 0}
 def int8_matmul_dx(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                    out_dtype: torch.dtype) -> torch.Tensor:
     """K9. dy: (M, N) fp32 on a CUDA device; q: (K, N) int8; scale: (N,)
-    fp32; all contiguous, dy and q 16-byte aligned. Returns dx (M, K) in
-    ``out_dtype`` (fp32 or bf16, x's dtype): ``(dy * scale) @ q^T`` with
-    fp32 accumulation."""
+    fp32; all contiguous. Returns dx (M, K) in ``out_dtype`` (fp32 or
+    bf16, x's dtype): ``(dy * scale) @ q^T`` with fp32 accumulation."""
     name = "int8_matmul_dx"
     check_cuda(name, dy, q, scale)
     if dy.dtype != torch.float32 or q.dtype != torch.int8 \
@@ -258,8 +248,6 @@ def int8_matmul_dx(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             and scale.is_contiguous()):
         raise ValueError(f"{name} kernel: dy, q and scale must be "
                          f"contiguous")
-    if dy.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError(f"{name} kernel: dy and q must be 16-byte aligned")
     m, n = dy.shape
     k = q.shape[0]
     dx = torch.empty((m, k), dtype=out_dtype, device=dy.device)
@@ -267,15 +255,27 @@ def int8_matmul_dx(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         return dx
     if n == 0:
         return dx.zero_()
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    # dx's K columns are the coded GEMM's outputs, N its contraction
+    splits = coded_gemm.plan(m, k, n, _sm_count(dy.device.index))
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(coded_gemm.ws_floats(m, k, splits),
+                         dtype=torch.float32, device=dy.device)
+        counters = coded_gemm.counter_buffer(dy.device, stream,
+                                             coded_gemm.tiles(m, k))
     with torch.cuda.device(dy.device):
         err = _launcher("int8_matmul_dx_launch")(
-            dy.data_ptr(), q.data_ptr(), scale.data_ptr(), dx.data_ptr(), m,
-            n, k, int(out_dtype == torch.bfloat16),
-            torch.cuda.current_stream(dy.device).cuda_stream)
+            dy.data_ptr(), q.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, n, k,
+            splits, int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     int8_matmul_dx.launches += 1
+    int8_matmul_dx.launches_by_kernel["tensor_cores"] += 1
     return dx
 
 
 int8_matmul_dx.launches = 0
+int8_matmul_dx.launches_by_kernel = {"tensor_cores": 0}

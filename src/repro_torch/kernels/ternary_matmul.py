@@ -1,12 +1,20 @@
-"""ctypes wrapper of the K11 ternary weight matmul CUDA kernel
-(``csrc/ternary_matmul.cu``), which replaces the Pallas TPU kernel
+"""ctypes wrapper of the K11 ternary weight matmul CUDA kernels
+(``csrc/ternary_matmul.cu``), which replace the Pallas TPU kernel
 ``repro.kernels.ternary_matmul.ternary_matmul``.
 
 The wrapper checks device, dtypes, shapes and contiguity, allocates the
 output (and, where K is split, the fp32 workspace of the splits' partial
 sums) with ``torch.empty``, launches on PyTorch's current stream and raises
 if the launch reports a CUDA error. It pads nothing: the kernels mask
-ragged M, N and K edges. ``ternary_matmul.launches`` counts launches.
+ragged M, N and K edges. Every call is one launch: split K meets in an
+in-order last-block combine through ``coded_gemm.counter_buffer``.
+
+Which kernel runs (``route``): M <= 8 "gemv", the code-streaming kernel
+(fp32 FMAs; ``split_rows`` plans its K splits); larger M "tensor_cores",
+the coded GEMM shared with K9 (bf16 wgmma: bf16 x as one plane, fp32 x as
+three exact bf16 planes; ``coded_gemm.plan`` splits its K).
+``ternary_matmul.launches`` counts launches and
+``ternary_matmul.launches_by_kernel`` those of each route.
 """
 
 from __future__ import annotations
@@ -16,18 +24,14 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, coded_gemm
 from repro_torch.kernels.checks import check_cuda
 
 DTYPES = (torch.float32, torch.bfloat16)
-# the source's regimes: M <= 8 streams the codes (256-column tiles), larger
-# M runs 64 x 64 tiles over 16-deep K steps
+# the streaming kernel's regime and shape: M <= 8 rows, 256-column tiles
 GEMV_MAX_M = 8
 _GEMV_BN = 256
-_TILE = 64
-_STEP = 16
 _MAX_GEMV_SPLITS = 64
-_MAX_TILE_SPLITS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,7 +40,7 @@ def _launcher():
     the stream as ``c_void_p``)."""
     fn = build.load("ternary_matmul").ternary_matmul_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 5 + [i] * 5 + [p]
+    fn.argtypes = [p] * 6 + [i] * 6 + [p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -46,19 +50,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_rows(m: int, k: int, n: int, sms: int) -> int:
-    """Rows of K per split. M <= 8: about four blocks per SM over the
-    column tiles, at most 64 splits of at least 64 rows. Larger M: about
-    two blocks per SM over the output tiles, at most 32 splits of at least
-    256 rows, each a whole number of 16-row steps."""
-    if m <= GEMV_MAX_M:
-        tiles = -(-n // _GEMV_BN)
-        splits = max(1, min(4 * sms // tiles, _MAX_GEMV_SPLITS, -(-k // 64)))
-        return -(-k // splits)
-    tiles = -(-n // _TILE) * -(-m // _TILE)
-    splits = max(1, min(-(-2 * sms // tiles), _MAX_TILE_SPLITS,
-                        -(-k // 256)))
-    return -(-(-(-k // splits)) // _STEP) * _STEP
+def route(m: int) -> str:
+    """The kernel a call with M rows of x launches."""
+    return "gemv" if m <= GEMV_MAX_M else "tensor_cores"
+
+
+def split_rows(k: int, n: int, sms: int) -> int:
+    """Rows of K per split of the streaming kernel (M <= 8): about four
+    blocks per SM over the 256-column tiles, at most 64 splits and no more
+    than K has 64-row parts; but splits of 256 rows at least wherever those
+    still give 1.5 blocks an SM (each split's partial costs the last block
+    a read: on an H100, AlexNet's fc1 at 16 splits took 11.0 us against
+    12.4 at 33, while fc0 and fc2 were fastest at 33 and 64)."""
+    tiles = -(-n // _GEMV_BN)
+    splits = max(1, min(4 * sms // tiles, _MAX_GEMV_SPLITS, -(-k // 64)))
+    long = -(-k // 256)
+    if 2 * tiles * long >= 3 * sms:
+        splits = min(splits, long)
+    return -(-k // splits)
 
 
 def ternary_matmul(x: torch.Tensor, q: torch.Tensor,
@@ -86,20 +95,35 @@ def ternary_matmul(x: torch.Tensor, q: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
-    rows = split_rows(m, k, n, _sm_count(x.device.index))
-    splits = -(-k // rows)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) \
-        if splits > 1 else None
+    kind = route(m)
+    sms = _sm_count(x.device.index)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rows = 0
+    if kind == "gemv":
+        rows = split_rows(k, n, sms)
+        splits = -(-k // rows)
+        tiles = -(-n // _GEMV_BN)
+        ws_floats = splits * m * n if splits > 1 else 0
+    else:
+        splits = coded_gemm.plan(m, n, k, sms)
+        tiles = coded_gemm.tiles(m, n)
+        ws_floats = coded_gemm.ws_floats(m, n, splits)
+    ws = counters = None
+    if ws_floats:
+        ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
+        counters = coded_gemm.counter_buffer(x.device, stream, tiles)
     with torch.cuda.device(x.device):
         err = _launcher()(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, n, k, rows,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, n, k, rows,
+            splits, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     ternary_matmul.launches += 1
+    ternary_matmul.launches_by_kernel[kind] += 1
     return out
 
 
 ternary_matmul.launches = 0
+ternary_matmul.launches_by_kernel = {"gemv": 0, "tensor_cores": 0}

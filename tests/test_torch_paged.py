@@ -489,8 +489,9 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """Each library's key hashes its source and every csrc/ header it
     includes, so an edited shared header rebuilds exactly the libraries
     that include it: decode_attention.cuh K1, K2, K3 and K5, hopper.cuh
-    K1, K2, K3, K4, K5 and the flash kernels (K6-K8, K10),
-    paged_decode_split.cuh K1, K2 and K5, the split body they share
+    every library (K11 through coded_gemm.cuh),
+    paged_decode_split.cuh K1, K2 and K5, the split body they share,
+    coded_gemm.cuh K4/K9 and K11, the coded GEMM they share
     (computing the key compiles nothing)."""
     import shutil
 
@@ -501,8 +502,9 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
                 "paged_prefill_attention": ["decode_attention.cuh",
                                             "hopper.cuh"],
                 "paged_verify_attention": split,
-                "int8_matmul": ["hopper.cuh"],
-                "flash_attention": ["hopper.cuh"], "ternary_matmul": []}
+                "int8_matmul": ["coded_gemm.cuh", "hopper.cuh"],
+                "flash_attention": ["hopper.cuh"],
+                "ternary_matmul": ["coded_gemm.cuh", "hopper.cuh"]}
     assert set(build.SOURCES) == set(includes)
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
@@ -511,7 +513,7 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
         assert [p.name for p in build.sources_of(name)] == \
             [f"{name}.cu", *headers]
     for edited in ("decode_attention.cuh", "hopper.cuh",
-                   "paged_decode_split.cuh"):
+                   "paged_decode_split.cuh", "coded_gemm.cuh"):
         before = {name: build.library_path(name) for name in build.SOURCES}
         header = csrc / edited
         header.write_text(header.read_text() + "\n// edited\n")

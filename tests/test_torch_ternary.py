@@ -26,7 +26,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.quant import ternary as jtern
 from repro_torch import bridge
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import coded_gemm, ops, ref
 from repro_torch.kernels import ternary_matmul as k11
 from repro_torch.quant import ternary as ttern
 
@@ -106,18 +106,30 @@ def test_dense_bias():
 
 
 def test_split_rows_cover_k():
-    """The wrapper's K splits: whole 16-row steps for the tile kernel,
-    every row in exactly one split, at most 64 (M <= 8) or 32 splits."""
+    """The wrapper's K splits, both routes: every row of K in exactly one
+    split. M <= 8 (``split_rows``): at most 64 splits, and no more than
+    K has 64-row parts. M > 8 (``coded_gemm.plan``): whole 64-row stages, at most
+    64 splits, each at least 4 stages long (or one), and the grid within
+    one wave of 132 SMs whenever the output tiles alone leave SMs idle."""
     for m in (1, 3, 8, 9, 64, 256):
         for k in (1, 15, 192, 300, 2048, 9216, 25088):
             for n in (10, 1000, 4096):
-                rows = k11.split_rows(m, k, n, 132)
-                splits = -(-k // rows)
-                assert 1 <= rows and (splits - 1) * rows < k <= splits * rows
-                if m > k11.GEMV_MAX_M:
-                    assert rows % 16 == 0 and splits <= 32
-                else:
-                    assert splits <= 64
+                if k11.route(m) == "gemv":
+                    rows = k11.split_rows(k, n, 132)
+                    splits = -(-k // rows)
+                    assert 1 <= rows and (splits - 1) * rows < k <= splits * rows
+                    assert splits <= min(64, -(-k // 64))
+                    continue
+                splits = coded_gemm.plan(m, n, k, 132)
+                spans = [coded_gemm.split_stages(k, splits, z)
+                         for z in range(splits)]
+                rows = [r for lo, hi in spans
+                        for r in range(64 * lo, min(64 * hi, k))]
+                assert rows == list(range(k))
+                assert 1 <= splits <= 64
+                assert splits == 1 or min(hi - lo for lo, hi in spans) >= 4
+                tiles = coded_gemm.tiles(m, n)
+                assert splits == 1 or tiles * splits <= 132
 
 
 def test_wrapper_refuses_cpu_tensors():
