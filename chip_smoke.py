@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the main path's shapes, then drives the
 dense, the paged and the speculative serve paths of starcoder2-7b at full
 width and full depth with random weights from a seed, unquantized and in
-the int8 mode, the fused training tick at full width and 8 layers, the
+the int8 mode (with tree speculation, n-best forks and a quarantined
+slot), the fused training tick at full width and 8 layers, the
 checkpointing Trainer on the ~100M e2e model at full size, the port's
 train and kernel benches, and the paper's ternary AlexNet and VGG-16 at
 full size.
@@ -48,7 +49,10 @@ non-zero and prints no result:
    mask, and lane t held against K2 at length ``lengths - T + t + 1``
    without a window in every mode (equal bit for bit on the SIMT kernel,
    asserted; on the tensor cores reported with the max abs difference);
-   then (checked, not timed) K2 and K5 at a capacity of 2000 keys (no
+   then (checked, not timed) K5 at a tree tick's rows: 24 rows of T = 5
+   lanes, each slot's 3 branch rows over tables that share every page
+   but the one holding its last key, every mode and window; and K2 and K5
+   at a capacity of 2000 keys (no
    multiple of the split), lengths 0, 1, at a split edge and past it, a
    window of 300 that starts inside a split and a page, T = 1, 2 and 5,
    head dims 128, 64 and 256, every mode;
@@ -102,6 +106,12 @@ non-zero and prints no result:
    must be token-identical to the plain paged engine: ``ngram`` at k = 1,
    2 and 4 and ``oracle`` at k = 2 (which must accept drafts), int8 at
    k = 4, and k = 4 with the prefix cache on the shared-prefix requests;
+   so must tree speculation (k = 4, ``spec_tree_m=3``, unquantized and
+   int8; at least linear's accepted tokens a tick) and n-best sampling
+   (every request forked 2 ways, unquantized and int8); and a paged run
+   whose decoding slot 0 has its first private K page set to NaN before
+   tick 6 must quarantine that slot once, at that tick, and retry it to
+   the same streams with a clean pool;
 6. serve: bf16 weights, fp32 cache, 8 slots, max_len 2048, 16 requests of
    32-1024 prompt tokens and 64 new tokens each; K1 launches must be
    decode ticks x 32 layers;
@@ -121,6 +131,23 @@ non-zero and prints no result:
    unquantized and int8: K5 launches must be spec ticks x 32, K2 none, K3
    extend calls x 32, K4 (spec ticks + extend calls) x 192; reports the
    accept rate, accepted tokens per tick and the draft/verify energy;
+   every paged run must drain its pool clean (no live page, a clean
+   audit);
+8d. phase 8b's traffic with tree speculation (``spec_tree_m=3``), per
+   mode after 8b: K5 launches tree ticks x 32 on 8b's route; reports the
+   streams' agreement with 8b's and phase 7's (bf16 GEMMs of 120, 40 and
+   8 rows round differently, so a near tie may flip a greedy token: the
+   identity is phase 5's, in fp32), the accepted tokens per tick beside
+   8b's, the copy-on-write copies and bytes, and one profiled tree tick
+   beside one linear tick (device ms a tick, on 8 of the requests once
+   they all decode);
+8c. n-best sampling, per mode after 8d: 8 requests of 100-500 prompt
+   tokens (none page-aligned) forked 4 ways, 32 greedy tokens, 8 slots:
+   every stream must equal a plain paged engine's fed each prompt at the
+   tick its group was admitted (the same extend rows, the same 8-slot
+   ticks), 24 forks, at least 24 page copies, saved bytes, a clean pool;
+   then at temperature 0.8: a clean drain, the distinct streams of each
+   group reported;
 4b. flash kernels: K6 (forward with lse), K7 (dQ) and K8 (dK, dV) against
    their plain versions at the training path's shapes (B=2, S=2048, H=36,
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
@@ -312,6 +339,9 @@ MAIN_INT8 = ("bfloat16", "int8", -1)
 # K5's query lanes per slot: T = 5 is the spec serve runs' k = 4
 VERIFY_LANES = (1, 2, 5)
 SPEC_K = 4
+# tree speculation's branches a slot, and n-best sampling's forks a request
+# and new tokens a stream (phases 5, 8c, 8d)
+TREE_M, NBEST, NBEST_NEW = 3, 4, 32
 WINDOWS = (-1, 256)
 B, H, HKV, D = 8, 36, 4, 128
 PAGE, N_BLOCKS = 16, 128                       # 2048 positions per slot
@@ -690,6 +720,7 @@ def phase_kernels():
             "paged_verify_attention": phase_verify_kernel(),
             "paged_prefill_attention": phase_prefill_kernel()}
     phase_decode_identity()
+    phase_verify_tree_rows()
     return main
 
 
@@ -1071,6 +1102,59 @@ def phase_verify_kernel():
             emit({"phase": "kernels", "kernel": "paged_verify_attention",
                   "window": -1, **row})
     return main
+
+
+def phase_verify_tree_rows():
+    """K5 at a tree tick's rows: each of the 8 slots' ``TREE_M`` branch rows
+    b * TREE_M + j (T = 5 lanes) over tables that share every page but the
+    one holding the slot's last key, which branches 1 and 2 replace with
+    pages of their own; the slots' LENGTHS (a dead slot, rows with no
+    valid key among them). Every mode and window against the plain
+    version, checked and not timed."""
+    import torch
+    from repro_torch.kernels import paged_verify_attention as k5
+    from repro_torch.kernels import ref
+    m, t = TREE_M, SPEC_K + 1
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32,
+                           device="cuda").repeat_interleave(m)
+    q_pos = lengths[:, None].cpu() - t + torch.arange(t)[None]
+    dead = ((lengths.cpu() == 0)[:, None] | (q_pos < 0)).cuda()
+    for q_name, kv_name, atol, rtol in MODES:
+        q_dtype, kv_dtype = getattr(torch, q_name), getattr(torch, kv_name)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        q = _randn(gen, (B * m, t, H, D), q_dtype)
+        pages = B * N_BLOCKS + B * (m - 1)
+        k_pool = _randn(gen, (pages + 1, PAGE, HKV, D), kv_dtype)
+        v_pool = _randn(gen, (pages + 1, PAGE, HKV, D), kv_dtype)
+        table = torch.randperm(B * N_BLOCKS, generator=gen, device="cuda").to(
+            torch.int32).reshape(B, N_BLOCKS).repeat_interleave(m, dim=0)
+        rows = torch.arange(B * m, device="cuda")
+        branch = rows % m > 0
+        last = ((lengths.long() - 1).clamp(min=0) // PAGE)
+        own = (B * N_BLOCKS + (rows // m) * (m - 1) + rows % m - 1).to(
+            torch.int32)
+        table[rows[branch], last[branch]] = own[branch]
+        kw = dict(zip(("k_scale", "v_scale"), _scales(gen, k_pool,
+                                                      kv_dtype)))
+        for window in WINDOWS:
+            got = k5.paged_verify_attention(q, k_pool, v_pool, table,
+                                            lengths, scale=D ** -0.5,
+                                            window=window, **kw)
+            want = ref.paged_verify_attention_ref(
+                q, k_pool, v_pool, table, lengths, scale=D ** -0.5,
+                window=window, **kw)
+            err = (got.float() - want.float()).abs()
+            ok = bool((err <= atol + rtol * want.float().abs()).all())
+            if not (ok and bool((got[dead] == 0).all())
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(
+                    f"paged_verify_attention at the tree's rows disagrees "
+                    f"with its plain version: q {q_name}, kv {kv_name}, "
+                    f"window {window}: max abs err {float(err.max())}")
+            emit({"phase": "kernels", "kernel": "paged_verify_attention",
+                  "tree_rows": B * m, "T": t, "q": q_name, "kv": kv_name,
+                  "window": window, "max_abs_err": float(err.max()),
+                  "atol": atol, "rtol": rtol, "timed": False})
 
 
 # K2 and K5 at a capacity that is no multiple of the split (125 pages of
@@ -2847,8 +2931,7 @@ def phase_streams():
           "init_s": init_s, "param_gb": costing.tree_bytes(params) / 1e9})
     del eng
     # speculative decode: the same streams as the plain paged engine's
-    for k, drafter in ((1, "ngram"), (2, "ngram"), (4, "ngram"),
-                       (2, "oracle")):
+    for k, drafter in ((1, "ngram"), (2, "ngram"), (2, "oracle")):
         _spec_streams(params, cfg, dataclasses.replace(
             paged_cfg, spec_k=k, spec_drafter=drafter), prompts, paged)
     spec_hits = _spec_streams(params, cfg, dataclasses.replace(
@@ -2857,6 +2940,11 @@ def phase_streams():
     if spec_hits <= 0:
         raise AssertionError("the speculative prefix-cache run hit no "
                              "prefix block")
+    # tree speculation, n-best forks and a quarantined slot's retry: the
+    # same streams
+    _tree_streams(params, cfg, paged_cfg, prompts, paged)
+    _nbest_streams(params, cfg, paged_cfg, prompts, paged)
+    _quarantine_streams(params, cfg, paged_cfg, prompts, paged)
     # int8: the engine quantizes at construction; the reference and the
     # paged engine take its quantized params and INT8_QUANT cfg
     int8_cfg = dataclasses.replace(scfg, quant="int8")
@@ -2877,8 +2965,12 @@ def phase_streams():
         raise AssertionError(f"fp32 int8 paged streams differ from the "
                              f"dense int8 engine's: paged {paged}, dense "
                              f"{got}")
-    _spec_streams(qparams, qcfg, dataclasses.replace(
-        paged_cfg, quant="int8", spec_k=SPEC_K), prompts, paged)
+    _tree_streams(qparams, qcfg, dataclasses.replace(paged_cfg,
+                                                     quant="int8"),
+                  prompts, paged)
+    _nbest_streams(qparams, qcfg, dataclasses.replace(paged_cfg,
+                                                      quant="int8"),
+                   prompts, paged)
     emit({"phase": "streams", "dtype": "float32", "quant": "int8",
           "requests": len(prompts), "tokens_each": 16, "identical": True,
           "paged_identical": True, "quantize_s": quant_s,
@@ -2907,13 +2999,95 @@ def _spec_streams(params, cfg, scfg, prompts, want):
     if scfg.spec_drafter == "oracle" and s["spec_accepted_tokens"] <= 0:
         raise AssertionError("the oracle drafter's run accepted no draft")
     emit({"phase": "streams", "dtype": "float32", "quant": scfg.quant,
-          "spec_k": scfg.spec_k, "drafter": scfg.spec_drafter,
+          "spec_k": scfg.spec_k, "spec_tree_m": scfg.spec_tree_m,
+          "drafter": scfg.spec_drafter,
           "prefix_cache": scfg.prefix_cache, "requests": len(prompts),
           "tokens_each": 16, "identical_to_plain_paged": True,
           "accept_rate": s["accept_rate"],
           "accepted_tokens_per_tick": s["accepted_tokens_per_tick"],
           "prefix_hit_tokens": s["prefix_hit_tokens"]})
     return s
+
+
+def _tree_streams(params, cfg, scfg, prompts, want):
+    """Linear (k = 4) and tree (k = 4, ``spec_tree_m=3``) speculation on
+    fp32 streams: both must be ``want``, the plain paged engine's, and the
+    tree must accept at least as many tokens a tick as linear."""
+    rates = [_spec_streams(params, cfg, dataclasses.replace(
+        scfg, spec_k=SPEC_K, spec_tree_m=m), prompts, want)[
+            "accepted_tokens_per_tick"] for m in (1, TREE_M)]
+    if rates[1] < rates[0]:
+        raise AssertionError(f"fp32 tree speculation (quant {scfg.quant}) "
+                             f"accepted {rates[1]} tokens a tick, linear "
+                             f"{rates[0]}")
+
+
+def _nbest_streams(params, cfg, scfg, prompts, want):
+    """The fp32 streams of every request forked 2 ways must both be
+    ``want``'s for its uid, the plain paged engine's, with a fork each and a
+    clean drain."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(params, cfg, scfg)
+    for p in prompts:
+        eng.submit(p, max_tokens=16, n_best=2)
+    got = {r.uid: r.nbest for r in eng.run_until_drained()}
+    s = eng.summary()
+    expect = {uid: [w, w] for uid, w in want.items()}
+    if got != expect or s["forks"] != len(prompts) or eng.pool.audit():
+        raise AssertionError(
+            f"fp32 n-best streams (quant {scfg.quant}) differ from the plain "
+            f"paged engine's, or forks {s['forks']} != {len(prompts)}; first "
+            f"at (uid, index, (fork, plain)) {_first_diff(got, expect)}")
+    emit({"phase": "streams", "dtype": "float32", "quant": scfg.quant,
+          "n_best": 2, "requests": len(prompts), "tokens_each": 16,
+          "identical_to_plain_paged": True, "forks": s["forks"],
+          "cow_copies": s["cow_copies"], "pool_pages_live": s[
+              "pool_pages_live"]})
+
+
+# the tick at which a decoding slot's private KV page is poisoned, and the
+# slot (decoding then: prompt 17, 7 tokens committed)
+POISON_TICK, POISON_SLOT = 6, 0
+
+
+def _quarantine_streams(params, cfg, scfg, prompts, want):
+    """One private K page of a decoding slot set to NaN before tick
+    ``POISON_TICK``, as the reference's ``kv_bitflip`` fault does: the
+    numerics sentinel must quarantine that slot exactly once, at that tick,
+    and its retry leave every fp32 stream ``want``'s (the unpoisoned paged
+    run's), with a clean pool."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(params, cfg, scfg)
+    for p in prompts:
+        eng.submit(p, max_tokens=16)
+    got, page = {}, None
+    for tick in range(1000):
+        if tick == POISON_TICK:
+            slot = POISON_SLOT
+            pages = eng._slot_pages[slot]
+            live = -(-(len(eng.slot_req[slot].prompt)
+                       + eng._host_gen[slot]) // scfg.page_size)
+            page = pages[eng.pool.movable_suffix(pages):live][0]
+            for key, entry in eng.state.caches.items():
+                entry["kv"].k[(slice(None), page) if key.startswith("pat")
+                              else page] = float("nan")
+        got.update({r.uid: r.generated for r in eng.step()})
+        if len(got) == len(prompts):
+            break
+    s = eng.summary()
+    flagged = [t for t, m in enumerate(eng.metrics_log) if m.quarantined]
+    if (got != want or s["quarantined"] != 1 or flagged != [POISON_TICK]
+            or eng.pool.live or eng.pool.audit()):
+        raise AssertionError(
+            f"quarantine: {s['quarantined']} quarantined at ticks {flagged} "
+            f"(one at {POISON_TICK} expected), streams equal to the "
+            f"unpoisoned run's: {got == want} (first difference "
+            f"{_first_diff(got, want)}), {eng.pool.live} pages live")
+    emit({"phase": "streams", "dtype": "float32", "quarantine": True,
+          "poisoned_page": page, "tick": POISON_TICK,
+          "quarantined": s["quarantined"],
+          "recovery_tokens": s["recovery_tokens"],
+          "recovery_j": s["recovery_j"], "identical_to_unpoisoned": True})
 
 
 # K9's and K11's launches of each of their kernels in the main-path runs
@@ -2959,14 +3133,17 @@ def _counters():
             "ternary_matmul": k11.ternary_matmul}
 
 
-def _serve_run(phase, eng, acct, prompts, n_new):
-    """Submit, set every launch counter to 0, drain, read the counters;
-    check that every request finished and that each kernel launched as
-    many times as the path's decode ticks and admission (dense) or extend
-    (paged) calls demand. Returns the phase's row and the launches."""
+def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
+    """Submit (each request forked ``n_best`` ways), set every launch
+    counter to 0, drain, read the counters; check that every request
+    finished with every stream, that each kernel launched as many times as
+    the path's decode ticks and admission (dense) or extend (paged) calls
+    demand, and on the paged path that the pool drained clean (and, with
+    ``hits``, that the prefix cache hit). Returns the launches, the streams
+    by uid (each request's ``nbest`` list when forked) and the summary."""
     import torch
     for p in prompts:
-        eng.submit(p, max_tokens=n_new)
+        eng.submit(p, max_tokens=n_new, n_best=n_best)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = _counters()
@@ -2985,8 +3162,11 @@ def _serve_run(phase, eng, acct, prompts, n_new):
     rep = acct.report()
     decode_ticks = sum(1 for m in eng.metrics_log if m.active_slots > 0)
     admissions = sum(1 for m in eng.metrics_log if m.prefill_tokens > 0)
-    if len(done) != len(prompts) or any(len(r.generated) != n_new
-                                        for r in done):
+    streams = {r.uid: r.nbest if n_best > 1 else r.generated for r in done}
+    if len(done) != len(prompts) or any(
+            len(r.generated) != n_new
+            or (n_best > 1 and [len(x) for x in r.nbest] != [n_new] * n_best)
+            for r in done):
         raise AssertionError(f"{phase}: the run did not finish every "
                              f"request")
     paged = eng.pool is not None
@@ -3051,16 +3231,28 @@ def _serve_run(phase, eng, acct, prompts, n_new):
            "port_kernel_launches_per_decode_tick": sum(launches.values())
            / max(decode_ticks, 1)}
     if paged:
-        row.update({"page_size": PAGE, "prefill_chunk": 256,
+        audit = eng.pool.audit()
+        row.update({"page_size": PAGE,
+                    "prefill_chunk": eng.scfg.prefill_chunk,
                     "pool_pages": s["pool_pages"],
                     "prefix_hit_tokens": s["prefix_hit_tokens"],
                     "prefix_hit_rate": s["prefix_hit_rate"],
-                    "prefill_gather_bytes": s["prefill_gather_bytes"]})
-        if s["prefix_hit_tokens"] <= 0:
+                    "prefill_gather_bytes": s["prefill_gather_bytes"],
+                    "n_best": n_best,
+                    **{key: s[key] for key in (
+                        "forks", "cow_copies", "cow_bytes",
+                        "fork_saved_bytes", "fork_saved_flops",
+                        "pool_pages_live")}})
+        if hits and s["prefix_hit_tokens"] <= 0:
             raise AssertionError(f"{phase}: the run hit no prefix block")
+        if s["pool_pages_live"] or audit:
+            raise AssertionError(f"{phase}: the pool did not drain clean: "
+                                 f"{s['pool_pages_live']} pages live, "
+                                 f"audit {audit}")
     if spec:
         sp = rep["spec"]
         row.update({"spec_k": eng.scfg.spec_k,
+                    "spec_tree_m": eng.scfg.spec_tree_m,
                     "drafter": eng.scfg.spec_drafter,
                     "accept_rate": s["accept_rate"],
                     "accepted_tokens_per_tick":
@@ -3068,7 +3260,7 @@ def _serve_run(phase, eng, acct, prompts, n_new):
                     "j_per_accepted_token": sp["j_per_accepted_token"],
                     "draft_j": sp["draft_j"], "verify_j": sp["verify_j"]})
     emit(row)
-    return launches
+    return launches, streams, s
 
 
 def _accountant():
@@ -3090,26 +3282,222 @@ def phase_serve(cfg, params, quant="none"):
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(32, 1025)))
                for _ in range(16)]
-    return _serve_run("serve", eng, acct, prompts, 64)
+    return _serve_run("serve", eng, acct, prompts, 64)[0]
+
+
+def _paged_scfg(quant, **kw):
+    """Phases 7, 8b and 8d's engine: 8 slots, max_len 2048, pages of 16,
+    256-token chunks, the prefix cache on."""
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(max_slots=8, max_len=2048, device="cuda", paged=True,
+                       page_size=PAGE, prefill_chunk=256, prefix_cache=True,
+                       quant=quant, **kw)
+
+
+def _paged_traffic(cfg):
+    """16 requests of a 512-token shared prompt plus a 32-512-token tail."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    tails = [int(n) for n in rng.integers(32, 513, 16)]
+    return _shared_prefix_prompts(rng, cfg.vocab, 512, tails)
 
 
 def phase_paged_serve(cfg, params, quant="none", spec_k=0):
     """bf16 weights, the paged serve loop with the prefix cache on
-    shared-prompt traffic: 16 requests of a 512-token shared prompt plus a
-    32-512-token tail; with ``spec_k``, speculative decode with the ngram
-    drafter. Returns the launches."""
+    shared-prompt traffic (``_paged_traffic``); with ``spec_k``,
+    speculative decode with the ngram drafter. Returns the launches, the
+    streams and the summary."""
+    from repro_torch.serve import ServeEngine
+    acct = _accountant()
+    eng = ServeEngine(params, cfg, _paged_scfg(quant, spec_k=spec_k),
+                      accountant=acct)
+    return _serve_run("spec_serve" if spec_k else "paged_serve", eng, acct,
+                      _paged_traffic(cfg), 64)
+
+
+def _first_diff(got, want):
+    """(uid, index, got, want) at the first token where two runs' streams
+    differ, or None."""
+    for uid in sorted(want):
+        a, b = got.get(uid), want[uid]
+        if a == b:
+            continue
+        pairs = (list(zip(a, b)) if a and not isinstance(a[0], list)
+                 else [(x, y) for sa, sb in zip(a, b)
+                       for x, y in zip(sa, sb)])
+        i = next((i for i, (x, y) in enumerate(pairs) if x != y),
+                 min(len(a), len(b)))
+        return uid, i, pairs[i] if i < len(pairs) else None
+    return None
+
+
+def _profile_serve_ticks(params, cfg, scfg, prompts, n_new, ticks=3):
+    """A fresh engine with ``prompts`` submitted, stepped until every one
+    of them decodes, then ``ticks`` decode ticks under torch.profiler
+    (``launch/serve.py``'s ``profile_ticks``): device ms a tick (the sum
+    of the kernels' device time), host wall ms a tick, the busy share, the
+    launches and the largest kernels' device ms a tick. Then drained."""
+    from repro_torch.launch.serve import profile_ticks
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(params, cfg, scfg)
+    for p in prompts:
+        eng.submit(p, max_tokens=n_new)
+    while eng.last_metrics is None or (eng.last_metrics.active_slots
+                                       < len(prompts)):
+        eng.step()
+    _, rep = profile_ticks(eng, ticks, top=8)
+    eng.run_until_drained()
+    return {"ticks": ticks,
+            "device_ms_per_tick": rep["device_busy_ms"] / ticks,
+            "wall_ms_per_tick": rep["wall_ms"] / ticks,
+            "device_busy_share": rep["device_busy_share"],
+            "launches_per_tick": rep["kernel_launches_per_tick"],
+            "top_kernels_ms_per_tick": {
+                name[:80]: ms / ticks
+                for name, ms in rep["top_kernels_ms"].items()}}
+
+
+def phase_tree_serve(cfg, params, quant, plain, linear):
+    """Phase 8b's traffic with tree speculation (``spec_k=4``,
+    ``spec_tree_m=3``): K5 launches are tree ticks x 32 on 8b's route and
+    the pool drains clean (``_serve_run``); the streams' agreement with
+    phase 8b's linear ones and phase 7's plain ones (``plain``, ``linear``:
+    their (streams, summary)) and the accepted tokens per tick beside
+    linear's are reported. They are not asserted here: the tree verifies
+    120 rows a tick where 8b verifies 40 and phase 7 decodes 8, and bf16
+    GEMMs of other row counts round otherwise, so a near tie can flip a
+    greedy token; phase 5 asserts the identity in fp32. Then one profiled
+    tree tick against one linear tick on 8 of the requests. Returns the
+    launches."""
+    from repro_torch.serve import ServeEngine, generation_agreement
+    acct = _accountant()
+    prompts = _paged_traffic(cfg)
+    eng = ServeEngine(params, cfg, _paged_scfg(
+        quant, spec_k=SPEC_K, spec_tree_m=TREE_M), accountant=acct)
+    launches, streams, s = _serve_run("tree_serve", eng, acct, prompts, 64)
+    pairs = {"tree_linear": (streams, linear[0]),
+             "tree_plain": (streams, plain[0]),
+             "linear_plain": (linear[0], plain[0])}
+    agree = {name: {**generation_agreement(a, b),
+                    "first_difference": _first_diff(a, b)}
+             for name, (a, b) in pairs.items()}
+    lin_rate = linear[1]["accepted_tokens_per_tick"]
+    profiles = {name: _profile_serve_ticks(params, cfg, _paged_scfg(
+        quant, spec_k=SPEC_K, spec_tree_m=m), prompts[:8], 64)
+        for name, m in (("tree", TREE_M), ("linear", 1))}
+    emit({"phase": "tree_serve_profile", "quant": quant,
+          "agreement": agree,
+          "accepted_tokens_per_tick": s["accepted_tokens_per_tick"],
+          "linear_accepted_tokens_per_tick": lin_rate,
+          "cow_copies": s["cow_copies"], "cow_bytes": s["cow_bytes"],
+          "tree_over_linear_device_ms": (
+              profiles["tree"]["device_ms_per_tick"]
+              / max(profiles["linear"]["device_ms_per_tick"], 1e-9)),
+          "profiles": profiles})
+    return launches
+
+
+def _time_calls(eng, name):
+    """Replace the engine's method ``name`` by one that times each call:
+    the host clock from a synchronize before it to one after it, and the
+    device time of its kernels (torch.profiler). Returns the list the
+    (host ms, device ms) pairs go to."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    method, rows = getattr(eng, name), []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            out = method(*args, **kw)
+            torch.cuda.synchronize()
+            host_ms = 1e3 * (time.monotonic() - t0)
+        rows.append((host_ms, sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / 1e3))
+        return out
+    setattr(eng, name, timed)
+    return rows
+
+
+def phase_nbest(cfg, params, quant="none"):
+    """n-best sampling over copy-on-write forks: 8 requests of 100-500
+    prompt tokens (none page-aligned, so every fork shares a partial
+    boundary block) forked 4 ways, 32 greedy tokens, 8 slots. Every stream
+    must equal a plain paged engine's for its prompt; that engine is fed
+    each prompt at the tick the fork group was admitted, so its extend
+    calls carry the same rows and its decode ticks the same 8 slots (the
+    same kernel shapes: bit-comparable in bf16). 24 forks, at least 24
+    page copies, saved bytes, a clean drain. Then the same at temperature
+    0.8: a clean drain, and the distinct streams of each group reported.
+    Returns the launches."""
     import numpy as np
     from repro_torch.serve import ServeConfig, ServeEngine
+    rng = np.random.default_rng(SEED + 7)
+    lens = [int(n) + (int(n) % PAGE == 0) for n in rng.integers(100, 501, 8)]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+    scfg = ServeConfig(max_slots=8, max_len=1024, device="cuda", paged=True,
+                       page_size=PAGE, prefill_chunk=256, quant=quant)
     acct = _accountant()
-    eng = ServeEngine(params, cfg, ServeConfig(
-        max_slots=8, max_len=2048, device="cuda", paged=True,
-        page_size=PAGE, prefill_chunk=256, prefix_cache=True, quant=quant,
-        spec_k=spec_k), accountant=acct)
-    rng = np.random.default_rng(SEED + 3)
-    tails = [int(n) for n in rng.integers(32, 513, 16)]
-    prompts = _shared_prefix_prompts(rng, cfg.vocab, 512, tails)
-    return _serve_run("spec_serve" if spec_k else "paged_serve", eng, acct,
-                      prompts, 64)
+    eng = ServeEngine(params, cfg, scfg, accountant=acct)
+    launches, streams, s = _serve_run("nbest_serve", eng, acct, prompts,
+                                      NBEST_NEW, n_best=NBEST, hits=False)
+    admit_at = [t for t, m in enumerate(eng.metrics_log)
+                for _ in range(m.admitted)]
+    plain = ServeEngine(params, cfg, scfg)
+    want = {}
+    for tick in range(10000):
+        due = [i for i, t in enumerate(admit_at) if t == tick]
+        for i in due:
+            plain.submit(prompts[i], max_tokens=NBEST_NEW)
+        want.update({r.uid: r.generated for r in plain.step()})
+        if plain.metrics_log[-1].admitted != len(due):
+            raise AssertionError(f"nbest_serve: the plain engine admitted "
+                                 f"{plain.metrics_log[-1].admitted} at tick "
+                                 f"{tick}, the fork groups {len(due)}")
+        if len(want) == len(prompts):
+            break
+    expect = {uid: [w] * NBEST for uid, w in want.items()}
+    if streams != expect:
+        raise AssertionError(
+            f"nbest_serve ({quant}): a fork's stream differs from the plain "
+            f"engine's for its prompt; first at (uid, index, (fork, plain)) "
+            f"{_first_diff(streams, expect)}")
+    if not (s["forks"] == len(prompts) * (NBEST - 1)
+            and s["cow_copies"] >= len(prompts) * (NBEST - 1)
+            and s["fork_saved_bytes"] > 0):
+        raise AssertionError(f"nbest_serve ({quant}): forks {s['forks']}, "
+                             f"copies {s['cow_copies']}, saved bytes "
+                             f"{s['fork_saved_bytes']}")
+    hot = ServeEngine(params, cfg, dataclasses.replace(scfg,
+                                                       temperature=0.8))
+    calls = {name: _time_calls(hot, name)
+             for name in ("_fork_slots", "_cow_call")}
+    for p in prompts:
+        hot.submit(p, max_tokens=NBEST_NEW, n_best=NBEST)
+    done = hot.run_until_drained()
+    audit = hot.pool.audit()
+    if (len(done) != len(prompts) or hot.pool.live or audit
+            or any(len(r.nbest) != NBEST for r in done)):
+        raise AssertionError(f"nbest_serve ({quant}) at temperature 0.8: "
+                             f"{len(done)} requests, {hot.pool.live} pages "
+                             f"live, audit {audit}")
+    emit({"phase": "nbest_serve", "quant": quant, "temperature": 0.8,
+          "requests": len(prompts), "n_best": NBEST,
+          "identical_to_plain_at_temperature_0": True,
+          "forks": hot.summary()["forks"],
+          **{name.strip("_") + "_calls": {
+              "calls": len(rows),
+              "host_ms_per_call": sum(h for h, _ in rows) / max(len(rows), 1),
+              "device_ms_per_call": sum(d for _, d in rows)
+              / max(len(rows), 1)} for name, rows in calls.items()},
+          "distinct_streams_per_group": [
+              len({tuple(x) for x in r.nbest})
+              for r in sorted(done, key=lambda r: r.uid)],
+          "pool_pages_live": hot.pool.live})
+    return launches
 
 
 def phase_agreement(cfg, params, qparams):
@@ -3151,6 +3539,30 @@ KERNELS = (
 )
 
 
+def phase_serve_runs():
+    """Phases 6-9 on the bf16 weights and their int8 quantization: the
+    dense, paged and speculative serve runs, the tree and n-best runs held
+    to their streams, and the int8 agreement. Returns each run's
+    launches."""
+    import torch
+    from repro_torch.configs import starcoder2_7b
+    from repro_torch.models import transformer as tf_lib
+    cfg = starcoder2_7b.make_config()
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
+                            device="cuda")
+    qcfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
+    qparams = tf_lib.quantize_lm(params)
+    runs = [phase_serve(cfg, params), phase_serve(qcfg, qparams, "int8")]
+    for c, p, quant in ((cfg, params, "none"), (qcfg, qparams, "int8")):
+        launches, *plain = phase_paged_serve(c, p, quant)
+        runs.append(launches)
+        launches, *linear = phase_paged_serve(c, p, quant, spec_k=SPEC_K)
+        runs += [launches, phase_tree_serve(c, p, quant, plain, linear),
+                 phase_nbest(c, p, quant)]
+    phase_agreement(cfg, params, qparams)
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -3180,20 +3592,7 @@ def main() -> int:
     rows["flash_attention"] = phase_flash_infer()
     phase_streams()
     torch.cuda.empty_cache()
-    from repro_torch.configs import starcoder2_7b
-    from repro_torch.models import transformer as tf_lib
-    cfg = starcoder2_7b.make_config()
-    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
-                            device="cuda")
-    runs = [phase_serve(cfg, params), phase_paged_serve(cfg, params)]
-    qcfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
-    qparams = tf_lib.quantize_lm(params)
-    runs += [phase_serve(qcfg, qparams, "int8"),
-             phase_paged_serve(qcfg, qparams, "int8"),
-             phase_paged_serve(cfg, params, spec_k=SPEC_K),
-             phase_paged_serve(qcfg, qparams, "int8", spec_k=SPEC_K)]
-    phase_agreement(cfg, params, qparams)
-    del params, qparams
+    runs = phase_serve_runs()
     gc.collect()
     torch.cuda.empty_cache()
     runs += [phase_train_parity(), phase_train()]

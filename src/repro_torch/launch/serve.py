@@ -7,7 +7,8 @@ paths).
         [--prompt-len 4 12] [--profile-ticks N] [--quant int8] \\
         [--paged [--page-size 16] [--num-pages N] [--no-prefix-cache] \\
          [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost] \\
-         [--spec-k K [--spec-drafter oracle]]]
+         [--spec-k K [--spec-drafter oracle | --spec-tree-m M]] \\
+         [--nbest N]]
 
 Runs on the card unless ``--device cpu`` is given. The full-width model is
 built in bf16 from a seed; ``--smoke`` builds the arch's reduced config in
@@ -23,7 +24,15 @@ unquantized run of the same workload.
 ``--spec-k K`` (paged only) decodes speculatively: K drafted tokens per
 slot per tick, verified in one multi-query pass (K5 on the card); the run
 prints its accept rate, emitted tokens per slot-tick and modeled J per
-accepted token.
+accepted token. ``--spec-tree-m M`` (with ``--spec-k``, the ngram
+drafter) verifies M draft branches per greedy slot in that one pass, over
+copy-on-write forked write windows, and commits the one that emits the
+most.
+
+``--nbest N`` (paged only) prefills each prompt once and forks it into N
+streams that share the prompt's pages copy-on-write; each request prints
+its N streams and the run its forks, page copies and the duplicate KV the
+forks did not write.
 
 ``--profile-ticks N`` runs N decode ticks under ``torch.profiler`` once
 every slot is decoding and prints the kernels with the most device time
@@ -136,6 +145,15 @@ def main(argv=None) -> None:
                     choices=("ngram", "oracle"),
                     help="ngram: prompt-lookup self-drafting; oracle: the "
                          "target model drafts itself (parity harness)")
+    ap.add_argument("--spec-tree-m", type=int, default=1,
+                    help="tree speculation: verify this many draft branches "
+                         "per greedy slot in the one verify pass and commit "
+                         "the one that emits the most (1 = linear; needs "
+                         "--spec-k)")
+    ap.add_argument("--nbest", type=int, default=1,
+                    help="n-best sampling: fork each request into this many "
+                         "streams sharing its prompt's pages copy-on-write "
+                         "(paged mode only)")
     args = ap.parse_args(argv)
     if args.requests < 0 or args.max_tokens < 1 or args.slots < 1:
         ap.error("--requests >= 0, --max-tokens >= 1 and --slots >= 1")
@@ -155,6 +173,21 @@ def main(argv=None) -> None:
     if args.spec_k > 0 and not args.paged:
         ap.error("--spec-k requires --paged (speculative decode runs on "
                  "the paged path only)")
+    if args.nbest < 1:
+        ap.error(f"--nbest must be >= 1, got {args.nbest}")
+    if args.nbest > 1 and not args.paged:
+        ap.error("--nbest requires --paged (n-best sampling forks the "
+                 "paged KV cache)")
+    if args.nbest > args.slots:
+        ap.error(f"--nbest ({args.nbest}) cannot exceed --slots "
+                 f"({args.slots}): every fork decodes concurrently")
+    if args.spec_tree_m < 1:
+        ap.error(f"--spec-tree-m must be >= 1, got {args.spec_tree_m}")
+    if args.spec_tree_m > 1 and args.spec_k <= 0:
+        ap.error("--spec-tree-m > 1 requires --spec-k > 0 (tree "
+                 "speculation rides the speculative verify pass)")
+    if args.spec_tree_m > 1 and args.spec_drafter != "ngram":
+        ap.error("--spec-tree-m > 1 drafts with the ngram drafter only")
 
     dev = device_lib.resolve(args.device)
     arch = cfgbase.get(args.arch)
@@ -174,7 +207,8 @@ def main(argv=None) -> None:
                        prefill_chunk=args.prefill_chunk,
                        compact_threshold=args.compact_threshold,
                        evict_policy=args.evict_policy, quant=args.quant,
-                       spec_k=args.spec_k, spec_drafter=args.spec_drafter)
+                       spec_k=args.spec_k, spec_drafter=args.spec_drafter,
+                       spec_tree_m=args.spec_tree_m)
     try:    # the engine checks how the paged flags combine
         eng = ServeEngine(params, cfg, scfg, accountant=acct,
                           scheduler=Scheduler(SchedulerConfig(
@@ -184,7 +218,7 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=rng.integers(lo, hi))
-        eng.submit(prompt, max_tokens=args.max_tokens)
+        eng.submit(prompt, max_tokens=args.max_tokens, n_best=args.nbest)
     done = []
     if args.profile_ticks:
         done += eng.step()              # the first admission fills the slots
@@ -194,9 +228,18 @@ def main(argv=None) -> None:
     done = sorted(done + eng.run_until_drained(), key=lambda r: r.uid)
     for r in done:
         print(f"req {r.uid}: prompt_len={len(r.prompt)} -> {r.generated}")
+        if r.nbest is not None:
+            for i, alt in enumerate(r.nbest[1:], start=1):
+                print(f"  nbest[{i}]: {alt}")
     s = eng.summary()
     print("summary:", json.dumps(s))
     rep = acct.report()
+    if args.paged and (args.nbest > 1 or s["cow_copies"] > 0):
+        print(f"copy-on-write: {s['forks']:.0f} forks, "
+              f"{s['cow_copies']:.0f} page copies "
+              f"({rep['cow_bytes']:.3g} bytes = {rep['cow_dram_j']:.3e} J "
+              f"DRAM), saved {rep['fork_saved_bytes']:.3g} duplicate KV "
+              f"bytes = {rep['fork_saved_dram_j']:.3e} J DRAM")
     if args.spec_k > 0:
         print(f"speculative decode (k={args.spec_k}, {args.spec_drafter}): "
               f"{s['accept_rate']:.1%} accept rate, "

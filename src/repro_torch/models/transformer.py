@@ -538,6 +538,31 @@ def move_pages(caches: Dict[str, PyTree], src: torch.Tensor,
     return caches
 
 
+def cow_pages(caches: Dict[str, PyTree], page_table: torch.Tensor,
+              src: torch.Tensor, dst: torch.Tensor, slot_idx: torch.Tensor,
+              blk_idx: torch.Tensor, entry: torch.Tensor
+              ) -> Tuple[Dict[str, PyTree], torch.Tensor]:
+    """Copy-on-write divergence, device half, in place: duplicate pool
+    pages ``src[i] -> dst[i]`` in every layer (``move_pages``) and redirect
+    the forked slots' table entries ``page_table[slot_idx[i], blk_idx[i]]
+    = entry[i]``. The (M,) index vectors are padded with sink->sink copies
+    (the identity) and slot ids past the table's rows, which drop, so one
+    code path serves every event count. A redirect without a byte copy
+    (the last co-owner adopting a page, or a block with nothing committed
+    yet) passes ``src == dst == sink``. The table write goes through a
+    flat copy with one spare element that the dropped rows land in, so no
+    mask leaves the device."""
+    move_pages(caches, src, dst)
+    b, nb = page_table.shape
+    slot_idx, blk_idx = slot_idx.long(), blk_idx.long()
+    keep = (slot_idx >= 0) & (slot_idx < b) & (blk_idx >= 0) & (blk_idx < nb)
+    flat = torch.cat([page_table.reshape(-1), page_table.new_zeros(1)])
+    flat[torch.where(keep, slot_idx * nb + blk_idx, b * nb)] = entry.to(
+        flat.dtype)
+    page_table.copy_(flat[:-1].view(b, nb))
+    return caches, page_table
+
+
 def _paged_decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
                        page_table, active):
     """One-token attention against the paged pool, written in place. ``pos``

@@ -1,7 +1,8 @@
 """Serving stack of the PyTorch port (mirror of ``repro.serve``, dense and
-paged paths, fp and int8, speculative decode on the paged path): the fused
-engine, its host-loop oracle, the quality oracles, the scheduler, the page
-pool and the speculative drafter and accept step."""
+paged paths, fp and int8, speculative decode, copy-on-write forks and tree
+speculation on the paged path, quarantine on the numerics sentinel): the
+fused engine, its host-loop oracle, the quality oracles, the scheduler, the
+page pool and the speculative drafters and accept step."""
 
 from repro_torch.serve.engine import (ACCOUNTING_EXEMPT, DeviceState,  # noqa: F401
                                       Request, ServeConfig, ServeEngine,
@@ -13,4 +14,4 @@ from repro_torch.serve.quality import (generation_agreement,  # noqa: F401
 from repro_torch.serve.reference import ReferenceEngine  # noqa: F401
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig  # noqa: F401
 from repro_torch.serve.spec import (DRAFTERS, ngram_draft,  # noqa: F401
-                                    speculative_accept)
+                                    ngram_draft_tree, speculative_accept)

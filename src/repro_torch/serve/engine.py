@@ -35,23 +35,38 @@ token, and reads back one packed (3, B) ``[done, emitted, bad]`` array.
 The bill splits draft and verify. At temperature 0 the streams are the
 plain paged engine's.
 
-Not ported yet (ROADMAP queue 1): copy-on-write forks and tree
-speculation, the chaos tier (with the spec-k backoff, the int8 mode's fp
-oracle, drift check and fp fallback) and durability. A slot whose logits
-go non-finite therefore raises instead of being quarantined.
+Copy-on-write forks (paged only): ``submit(..., n_best=n)`` admits ONE
+prefill and fans it out to ``n`` slots that share the prompt's committed
+pages (``PagePool.fork``); a pre-tick barrier makes every page a tick may
+write private to its slot first (``PagePool.cow_write`` plus one
+``cow_pages`` call), and the request completes with all ``n`` streams in
+``nbest``. Tree speculation (``spec_tree_m = m > 1``) drafts ``m``
+branches per greedy slot over forked write windows, folds them into rows
+``b * m + j`` of the one ``paged_verify_step`` (K5 at ``m`` times the
+rows), commits the branch that emits the most tokens and reads back one
+packed (4, B) ``[done, emitted, bad, winner]`` array.
+
+The numerics sentinel: a slot whose logits go non-finite makes no
+progress that tick and deactivates itself on the device; the host then
+quarantines it (its pages scrubbed and released unpublished) and requeues
+a continuation (prompt plus committed tokens, the remaining budget) at
+the head of the queue; at finish the caller sees one stream. The rest of
+the chaos tier (fault injection, the ladder's other rungs, deadlines, the
+int8 mode's fp oracle) and durability are not ported yet (ROADMAP queue
+1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core import accounting
+from repro_torch.core import accounting, energy
 from repro_torch.models import costing
 from repro_torch.models import layers
 from repro_torch.models import transformer as tf_lib
@@ -61,6 +76,10 @@ from repro_torch.serve.sampling import _sample
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
 
 PyTree = Any
+
+# the stream of a fork cancelled at activation (its parent finished on its
+# first token): resolved to a copy of stream 0 when the group closes
+_FORK_MIRROR = object()
 
 
 @dataclasses.dataclass
@@ -102,8 +121,12 @@ class ServeConfig:
     # the target model drafts itself greedily (k extra decode passes, the
     # accept-all parity harness)
     spec_drafter: str = "ngram"
-    # tree speculation (branches over copy-on-write page forks): 1 = linear.
-    # Only 1 is ported (ROADMAP queue 1, item 6)
+    # tree speculation: draft spec_tree_m k-token branches per greedy slot
+    # over copy-on-write forked write windows and verify all of them in the
+    # one multi-query pass (branches fold into batch rows); the branch that
+    # emits the most commits. 1 = linear speculation. Temperature slots keep
+    # branch 0 only: multi-branch rejection sampling would need a joint
+    # residual scheme to stay unbiased
     spec_tree_m: int = 1
 
 
@@ -117,6 +140,16 @@ class Request:
     done: bool = False
     # engine tick at submission (the scheduler's queue-aging term reads it)
     submit_tick: int = -1
+    # n-best sampling over copy-on-write forks: n_best > 1 admits ONE
+    # prefill and fans out to n_best slots sharing the prompt's committed
+    # pages; the request completes when every fork's stream is in, with
+    # ``nbest`` holding them all (``generated`` is stream 0). Fork-internal
+    # requests (children, continuations of forks) carry ``fork_group`` (the
+    # parent's uid) and their ``fork_idx``; the caller never sees them
+    n_best: int = 1
+    nbest: Optional[List[List[int]]] = None
+    fork_group: Optional[int] = None
+    fork_idx: int = 0
 
 
 @dataclasses.dataclass
@@ -180,6 +213,11 @@ class _AdmitInfo:
     saved_bytes: float = 0.0
     saved_flops: float = 0.0
     gather_bytes: float = 0.0   # cached-window gather share of kv_bytes
+    # rows re-prefilling a quarantined slot's context bill their share of
+    # the above here too
+    recovery_tokens: int = 0
+    recovery_flops: float = 0.0
+    recovery_bytes: float = 0.0
 
 
 @dataclasses.dataclass
@@ -257,10 +295,6 @@ class ServeEngine:
             raise ValueError("tree speculation drafts with the ngram "
                              "drafter only (the oracle drafter is a linear "
                              "parity harness)")
-        if serve_cfg.spec_tree_m > 1:
-            raise NotImplementedError(
-                "tree speculation (spec_tree_m > 1) is not ported yet "
-                "(ROADMAP queue 1, item 6)")
         self.device = device_lib.resolve(serve_cfg.device)
         if params["embed"]["w"].device != self.device:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
@@ -283,6 +317,16 @@ class ServeEngine:
         self.n_finished_ok = 0
         # paged mode: queued uids already checked against the pool size
         self._fit_checked: set = set()
+        # n-best fork groups: group uid -> {"req": parent, "k": fan-out,
+        # "streams": {fork index: tokens}}
+        self._fork_groups: Dict[int, Dict[str, Any]] = {}
+        # quarantine: uid -> the original prompt, budget and the tokens
+        # committed before each capture; uids whose re-prefill is still to
+        # be billed as recovery
+        self._recovery: Dict[int, Dict[str, Any]] = {}
+        self._recovering: set = set()
+        self.n_quarantined = 0
+        self._tick_quarantined = 0
         self._init_runtime(params, cfg)
 
     def _init_runtime(self, params: PyTree, cfg: tf_lib.LMConfig) -> None:
@@ -340,6 +384,20 @@ class ServeEngine:
         # in-flight chunked prefills {slot: {"req", "plen", "next", ...}}
         self._slot_pages: List[List[int]] = [[] for _ in range(b)]
         self._prefilling: Dict[int, Dict[str, Any]] = {}
+        # fork mirrors: child slots reserved for a parent still mid-prefill
+        # (kept out of the decoding set until the fork), and parent slot ->
+        # its reserved children
+        self._fork_wait: Dict[int, int] = {}
+        self._fork_children: Dict[int, List[int]] = {}
+        # tree speculation: this tick's staged branch windows,
+        # slot -> (window_lo, window_hi, [branch pages or None] * (m - 1))
+        self._tree_branches: Dict[int, Tuple[int, int, list]] = {}
+        # per-tick copy-on-write and fork bills (reset in step())
+        self._tick_cow_bytes = 0.0
+        self._tick_cow_copies = 0
+        self._tick_forks = 0
+        self._tick_fork_saved_bytes = 0.0
+        self._tick_fork_saved_flops = 0.0
         # modeled per-tick traffic/compute from the resident tensors' sizes
         self.weight_bytes = costing.tree_bytes(self.params)
         self.kv_cache_bytes = costing.kv_bytes(self.state.caches)
@@ -362,25 +420,35 @@ class ServeEngine:
     # -- queue API ------------------------------------------------------------
 
     def submit(self, prompt: np.ndarray, max_tokens: int = 16,
-               temperature: Optional[float] = None) -> int:
+               temperature: Optional[float] = None, n_best: int = 1) -> int:
         prompt = np.asarray(prompt, np.int32)
         if prompt.size >= self.scfg.max_len:
             raise ValueError(f"prompt length {prompt.size} >= max_len "
                              f"{self.scfg.max_len}")
+        if n_best < 1:
+            raise ValueError(f"n_best must be >= 1, got {n_best}")
+        if n_best > 1 and not self.scfg.paged:
+            raise ValueError("n-best sampling forks the paged KV cache; set "
+                             "paged=True")
+        if n_best > self.scfg.max_slots:
+            raise ValueError(f"n_best ({n_best}) exceeds max_slots "
+                             f"({self.scfg.max_slots}): every fork of one "
+                             f"group decodes concurrently")
         if self.pool is not None:
             # a request whose worst-case page demand can never be met would
             # livelock admission (fits() false forever): reject it here
-            need = self._pages_needed(prompt.size, max_tokens)
+            need = self._pages_needed_group(prompt.size, max_tokens, n_best)
             if need > self.pool.num_pages:
                 raise ValueError(
                     f"request needs {need} pages (prompt {prompt.size} + "
-                    f"max_tokens {max_tokens}) but the pool has only "
-                    f"{self.pool.num_pages}; raise num_pages or lower "
-                    f"max_tokens")
+                    f"max_tokens {max_tokens} x n_best {n_best}) but the "
+                    f"pool has only {self.pool.num_pages}; raise num_pages "
+                    f"or lower max_tokens")
         self._uid += 1
         self.scheduler.submit(Request(self._uid, prompt, max_tokens,
                                       temperature,
-                                      submit_tick=self._tick_idx))
+                                      submit_tick=self._tick_idx,
+                                      n_best=n_best))
         return self._uid
 
     @property
@@ -464,12 +532,26 @@ class ServeEngine:
             if done_mask[j]:
                 self._finish_slot(free[j], finished)
         self.prefill_wall_s += time.monotonic() - t0
+        # recovery bill: dense prefill is single-shot, so a quarantined
+        # slot's continuation bills its whole prompt here
+        rec_tok, rec_fl, rec_by = 0, 0.0, 0.0
+        for req in reqs:
+            if req.uid in self._recovering:
+                plen = len(req.prompt)
+                rec_tok += plen
+                rec_fl += costing.prefill_span_flops(
+                    self._matmul_elems, self._n_attn, self._attn_dims, 0,
+                    plen)
+                rec_by += self.kv_cache_bytes / self.scfg.max_slots
+                self._recovering.discard(req.uid)
         return _AdmitInfo(
             admitted=n, prefill_tokens=int(lens.sum()), weight_passes=1,
             kv_bytes=self.kv_cache_bytes * n / self.scfg.max_slots,
             flops=sum(costing.prefill_span_flops(
                 self._matmul_elems, self._n_attn, self._attn_dims, 0, int(l))
-                for l in lens))
+                for l in lens),
+            recovery_tokens=rec_tok, recovery_flops=rec_fl,
+            recovery_bytes=rec_by)
 
     # -- paged admission ------------------------------------------------------
 
@@ -482,6 +564,31 @@ class ServeEngine:
         ctx = min(prompt_len + max_tokens + self.scfg.spec_k,
                   self.scfg.max_len)
         return -(-ctx // self.scfg.page_size)
+
+    def _tree_extra(self) -> int:
+        """Per-slot transient page demand of tree speculation: each of the
+        ``spec_tree_m - 1`` extra branches claims a private copy of the
+        write window for one tick, at most ``(ps - 1 + k) // ps + 1`` pages
+        (the worst alignment of a k+1-token span). Booked by the admission
+        gate but never attached to a slot; a pool race at staging drops
+        that branch's lane instead of failing."""
+        scfg = self.scfg
+        if scfg.spec_tree_m <= 1:
+            return 0
+        ps = scfg.page_size
+        return (scfg.spec_tree_m - 1) * ((ps - 1 + scfg.spec_k) // ps + 1)
+
+    def _pages_needed_group(self, prompt_len: int, max_tokens: int,
+                            n_best: int) -> int:
+        """Worst-case page demand of an ``n_best``-way fork group: the
+        parent's full demand plus, per child, a private decode tail (the
+        blocks past the shared full prompt blocks, which counts one copy of
+        the partial boundary block), plus every member's transient tree
+        branch windows."""
+        need = self._pages_needed(prompt_len, max_tokens)
+        shared_full = prompt_len // self.scfg.page_size
+        return (need + (n_best - 1) * (need - shared_full)
+                + n_best * self._tree_extra())
 
     def _defer_admission(self, req: Request, hits: List[int], n_hit0: int,
                          n_blocks: int, rest: List[Request]) -> None:
@@ -543,7 +650,10 @@ class ServeEngine:
         advance EVERY in-flight prefill (new and continuing) by one chunk in
         a single ``paged_extend`` call. With ``prefill_chunk == 0`` the
         whole suffix lands in one call; with a chunk size, the per-tick
-        prefill work is bounded by ``max_slots * prefill_chunk`` tokens."""
+        prefill work is bounded by ``max_slots * prefill_chunk`` tokens. An
+        n-best request books its whole fork group (its ``n_best`` slots and
+        the group's worst-case pages) in one decision and forks at its
+        final chunk."""
         scfg, pool = self.scfg, self.pool
         ps, nb = scfg.page_size, self._blocks_per_slot
 
@@ -555,34 +665,43 @@ class ServeEngine:
             if r.uid in self._fit_checked:
                 return False
             self._fit_checked.add(r.uid)
-            return (self._pages_needed(len(r.prompt), r.max_tokens)
+            return (self._pages_needed_group(len(r.prompt), r.max_tokens,
+                                             r.n_best)
                     > pool.num_pages)
 
         for req in self.scheduler.drop(never_fits):
             self._fit_checked.discard(req.uid)
             req.done = True
             req.generated = []
+            if req.n_best > 1:
+                req.nbest = [[] for _ in range(req.n_best)]
             finished.append(req)
         free = [i for i, r in enumerate(self.slot_req) if r is None]
         budget_pages = [pool.available]
+        budget_slots = [len(free)]
 
         def fits(req: Request) -> bool:
             # conservative: ignores hits (submit() guarantees the demand
             # fits an empty pool, so deferral always terminates); a
             # non-fitting request is not looked up, so it books no stats
-            need = self._pages_needed(len(req.prompt), req.max_tokens)
-            if need > budget_pages[0]:
+            need = self._pages_needed_group(len(req.prompt), req.max_tokens,
+                                            req.n_best)
+            if need > budget_pages[0] or req.n_best > budget_slots[0]:
                 return False
             budget_pages[0] -= need
+            budget_slots[0] -= req.n_best
             return True
 
         reqs = self.scheduler.select(len(free), fits=fits, now=self._tick_idx)
         admitted = len(reqs)
         hit_tokens = 0
         hit_sq = 0.0
+        # slots assign from a pool: an n-best parent takes its own slot and
+        # one reserved slot per child
+        slot_pool = list(free)
         for j, req in enumerate(reqs):
             self._fit_checked.discard(req.uid)
-            slot = free[j]
+            slot = slot_pool[0]
             plen = len(req.prompt)
             blocks = block_tokens(req.prompt, ps) if scfg.prefix_cache else []
             hits = pool.lookup(blocks)
@@ -600,11 +719,29 @@ class ServeEngine:
                 admitted = j
                 break
             pages = hits + fresh
+            slot_pool.pop(0)
             self.slot_req[slot] = req
             self._slot_pages[slot] = pages
             self._prefilling[slot] = {"req": req, "plen": plen,
                                       "next": shared, "blocks": blocks,
                                       "pages": pages}
+            if req.n_best > 1:
+                # mint and reserve the children now: they hold slots (kept
+                # out of decode by _fork_wait) until the parent's final
+                # chunk, where _fork_slots fans the committed pages out
+                req.fork_group = req.uid
+                req.fork_idx = 0
+                self._fork_groups[req.uid] = {"req": req, "k": req.n_best,
+                                              "streams": {}}
+                kids = [slot_pool.pop(0) for _ in range(req.n_best - 1)]
+                self._fork_children[slot] = kids
+                for i, kid in enumerate(kids):
+                    self._uid += 1
+                    self.slot_req[kid] = Request(
+                        self._uid, req.prompt, req.max_tokens,
+                        req.temperature, fork_group=req.uid,
+                        fork_idx=i + 1, submit_tick=self._tick_idx)
+                    self._fork_wait[kid] = slot
             hit_tokens += shared
             hit_sq += float(shared) ** 2
         work = sorted(self._prefilling.items())
@@ -645,6 +782,22 @@ class ServeEngine:
             dev(tables), dev(budgets), dev(temps), dev(uids), dev(final),
             sampled=bool((temps > 0).any()))
         done_mask = self._readback(done)
+        # the recovery bill: rows re-prefilling a quarantined slot's
+        # context bill their share of this call apart, with the same
+        # formulas as the call's bill below, per row
+        rec_tok, rec_fl, rec_by = 0, 0.0, 0.0
+        for j, ((slot, w), clen) in enumerate(zip(work, call_lens)):
+            uid = w["req"].uid
+            if uid in self._recovering:
+                rec_tok += clen
+                rec_fl += costing.prefill_span_flops(
+                    self._matmul_elems, self._n_attn, self._attn_dims,
+                    int(starts[j]), clen)
+                row_gather = (-(-int(starts[j]) // ps) * ps
+                              if self._kernel_path else nb * ps)
+                rec_by += self._kv_token_bytes * (row_gather + clen)
+                if final[j]:
+                    self._recovering.discard(uid)
         for j, ((slot, w), clen) in enumerate(zip(work, call_lens)):
             if final[j]:
                 del self._prefilling[slot]
@@ -658,8 +811,15 @@ class ServeEngine:
                     parent = ROOT
                     for bi, block in enumerate(w["blocks"]):
                         parent = pool.publish(w["pages"][bi], parent, block)
+                kids = self._fork_children.pop(slot, None)
                 if done_mask[j]:
+                    if kids is not None:
+                        self._cancel_fork(slot, kids)
                     self._finish_slot(slot, finished)
+                elif kids is not None:
+                    # the prompt's KV is committed and the first token
+                    # sampled: fan the group out
+                    self._fork_slots(slot, kids)
             else:
                 w["next"] += clen
         self.prefill_wall_s += time.monotonic() - t0
@@ -684,7 +844,9 @@ class ServeEngine:
                    + 2.0 * self._n_attn * self._attn_dims * attn_sq),
             saved_bytes=self._kv_token_bytes * hit_tokens,
             saved_flops=(2.0 * self._matmul_elems * hit_tokens
-                         + 2.0 * self._n_attn * self._attn_dims * hit_sq))
+                         + 2.0 * self._n_attn * self._attn_dims * hit_sq),
+            recovery_tokens=rec_tok, recovery_flops=rec_fl,
+            recovery_bytes=rec_by)
 
     def _maybe_compact(self) -> int:
         """Defragment at most ONE slot's private page suffix per tick. A
@@ -722,6 +884,100 @@ class ServeEngine:
             return len(movable)
         return 0
 
+    # -- quarantine: the numerics sentinel's recovery ------------------------
+
+    def _scrub_slot_storage(self, slot: int) -> None:
+        """Zero the K/V storage a quarantined slot may have poisoned. A bad
+        tick writes non-finite K/V into the slot's private pages, and a NaN
+        in V leaks through masked attention (probability 0 times NaN is
+        NaN), so a freed page would poison its next owner: free storage
+        must never hold NaN. Shared prefix pages are clean by construction
+        and skipped. A rare-path in-place fill, not tick work."""
+        if self.pool is not None:
+            pages = self._slot_pages[slot]
+            lo = self.pool.movable_suffix(pages)
+            self._scrub_pages(pages[lo:])
+        else:
+            self._scrub_sel([slot])
+
+    def _scrub_pages(self, pages: List[int]) -> None:
+        """Zero pool pages about to be freed that belong to no slot's list
+        (a flagged tree tick's branch windows): free storage is never NaN."""
+        if pages:
+            self._scrub_sel(pages)
+
+    def _scrub_sel(self, sel: List[int]) -> None:
+        """Zero K/V (and the int8 scales) at ``sel``: pool pages on the
+        paged path, the slots' whole cache rows on the dense one (the dense
+        layout has B where the pool has pages)."""
+        idx = torch.tensor(sel, dtype=torch.long, device=self.device)
+        for key, entry in self.state.caches.items():
+            ax = 1 if key.startswith("pat") else 0  # stacked layers lead
+            for name in ("kv", "kv_scale"):
+                if name in entry:
+                    entry[name].k.index_fill_(ax, idx, 0)
+                    entry[name].v.index_fill_(ax, idx, 0)
+
+    def _capture_slot(self, slot: int) -> Request:
+        """Freeze a live slot into a continuation request that carries its
+        committed progress: its prompt is the original prompt plus the
+        committed tokens (read back here, off the hot path), its budget
+        what remains. The original prompt and budget park in
+        ``_recovery[uid]`` and come back at finish, so the caller sees one
+        stream; the re-prefill is billed as recovery."""
+        req = self.slot_req[slot]
+        g = self._host_gen[slot]
+        toks = ([int(t) for t in self._readback(self.state.out_buf[slot, :g])]
+                if g > 0 else [])
+        rec = self._recovery.setdefault(
+            req.uid, {"prompt": req.prompt, "max_tokens": req.max_tokens,
+                      "tokens": []})
+        rec["tokens"].extend(toks)
+        cont = Request(
+            req.uid,
+            np.concatenate([np.asarray(rec["prompt"], np.int32),
+                            np.asarray(rec["tokens"], np.int32)]),
+            max_tokens=max(rec["max_tokens"] - len(rec["tokens"]), 1),
+            temperature=req.temperature, submit_tick=self._tick_idx,
+            # a captured fork member stays a member (its finish banks into
+            # the group) but never forks again (n_best stays 1)
+            fork_group=req.fork_group, fork_idx=req.fork_idx)
+        self._recovering.add(req.uid)
+        self.slot_req[slot] = None
+        self._host_gen[slot] = 0
+        self._host_temp[slot] = 0.0
+        self._prefilling.pop(slot, None)
+        self._fork_wait.pop(slot, None)
+        kids = self._fork_children.pop(slot, None)
+        if kids is not None:
+            # children reserved but never forked (the parent captured mid-
+            # prefill): requeue them as independent admissions; their
+            # streams still bank into the group, only the sharing is lost
+            requeue = []
+            for kid in kids:
+                child = self.slot_req[kid]
+                self.slot_req[kid] = None
+                self._fork_wait.pop(kid, None)
+                if child is not None:
+                    child.submit_tick = self._tick_idx
+                    requeue.append(child)
+            self.scheduler.requeue_front(requeue)
+        self._scrub_slot_storage(slot)
+        if self.pool is not None and self._slot_pages[slot]:
+            # released unpublished: a faulted slot's pages may hold corrupt
+            # KV, and unkeyed they are rewritten before any lookup can hit
+            self.pool.release_all(self._slot_pages[slot])
+            self._slot_pages[slot] = []
+        return cont
+
+    def _quarantine_slot(self, slot: int) -> None:
+        """Sentinel hit: tear the slot down and requeue its continuation at
+        the head of the queue. The slot made no progress on the bad tick,
+        so the continuation resumes exactly at the last committed token."""
+        self.scheduler.requeue_front([self._capture_slot(slot)])
+        self.n_quarantined += 1
+        self._tick_quarantined += 1
+
     def _finish_slot(self, slot: int, finished: List[Request]) -> None:
         req = self.slot_req[slot]
         n = self._host_gen[slot]
@@ -739,7 +995,8 @@ class ServeEngine:
                 # frees unpublished pages, so publishing afterwards would
                 # certify recyclable pages. The cache holds positions
                 # [0, prompt + n - 1): the last generated token's K/V never
-                # landed.
+                # landed. A continuation's prompt is the original prompt
+                # plus the recovered tokens, which is the stream's content.
                 cached = np.concatenate(
                     [np.asarray(req.prompt, np.int64),
                      np.asarray(toks[:n - 1], np.int64)])
@@ -753,8 +1010,256 @@ class ServeEngine:
             # private pages free immediately
             self.pool.release_all(pages)
             self._slot_pages[slot] = []
-        finished.append(req)
+        # recovery merge last: the original prompt and budget come back and
+        # the recovered tokens go in front, so the caller sees one stream
+        rec = self._recovery.pop(req.uid, None)
+        if rec is not None:
+            req.prompt = rec["prompt"]
+            req.max_tokens = rec["max_tokens"]
+            req.generated = list(rec["tokens"]) + req.generated
+            self._recovering.discard(req.uid)
+        if req.fork_group is not None:
+            # a fork-group member banks its stream into the group; the
+            # caller receives the parent once every fork has reported
+            self._record_fork_stream(req.fork_group, req.fork_idx,
+                                     req.generated, finished)
+        else:
+            finished.append(req)
         self.n_finished_ok += 1
+
+    # -- copy-on-write forks and tree speculation ----------------------------
+
+    def _cow_call(self, events: List[Tuple[int, int, int, int, int]]
+                  ) -> None:
+        """Apply ``(src, dst, slot, blk, entry)`` page events in ONE
+        ``cow_pages`` call, padded to a power-of-two count with sink->sink
+        copies and out-of-range slot ids. ``src == dst == sink`` rows move
+        only the table entry; out-of-range slot rows copy only the page (a
+        branch window that no table row owns)."""
+        n = _bucket_len(len(events))
+        sink, nslots = self.pool.sink, self.scfg.max_slots
+        ev = np.zeros((5, n), np.int64)
+        ev[:] = np.array([sink, sink, nslots + 1, 0, sink])[:, None]
+        ev[:, :len(events)] = np.asarray(events, np.int64).T
+        src, dst, sl, bl, en = torch.from_numpy(ev).to(self.device)
+        tf_lib.cow_pages(self.state.caches, self.state.page_table, src, dst,
+                         sl, bl, en)
+
+    def _fork_slots(self, parent_slot: int, kids: List[int]) -> None:
+        """Activate a fork group: fork the parent's committed prompt pages
+        into each child's table (no bytes move), give each child a private
+        decode tail, then copy the parent's slot row to every child in one
+        device call. A child whose tail loses a pool race is requeued as an
+        independent admission: its stream still banks into the group."""
+        scfg = self.scfg
+        ps, nb, sink = scfg.page_size, self._blocks_per_slot, self.pool.sink
+        parent = self.slot_req[parent_slot]
+        plen = len(parent.prompt)
+        pages = self._slot_pages[parent_slot]
+        # blocks holding committed prompt KV (the last may be partial:
+        # shared under copy-on-write, each diverging writer copies it at
+        # the barrier)
+        n_shared = -(-plen // ps)
+        tail = len(pages) - n_shared
+        dsts, tables, uids, requeue = [], [], [], []
+        for kid in kids:
+            child = self.slot_req[kid]
+            self._fork_wait.pop(kid, None)
+            shared = self.pool.fork(pages[:n_shared])
+            fresh = self.pool.alloc(tail)
+            if fresh is None:
+                self.pool.release_all(shared)
+                self.slot_req[kid] = None
+                child.submit_tick = self._tick_idx
+                requeue.append(child)
+                continue
+            kid_pages = shared + fresh
+            self._slot_pages[kid] = kid_pages
+            self._host_gen[kid] = 1
+            self._host_temp[kid] = self._host_temp[parent_slot]
+            dsts.append(kid)
+            tables.append((kid_pages + [sink] * nb)[:nb])
+            uids.append(child.uid)
+            # the duplicate-KV bill this fork did not pay: an independent
+            # admission of the same stream would re-prefill the prompt
+            self._tick_forks += 1
+            self._tick_fork_saved_bytes += self._kv_token_bytes * plen
+            self._tick_fork_saved_flops += costing.prefill_span_flops(
+                self._matmul_elems, self._n_attn, self._attn_dims, 0, plen)
+        if requeue:
+            self.scheduler.requeue_front(requeue)
+        if dsts:
+            self._fork_rows(parent_slot, dsts, tables, uids)
+
+    def _fork_rows(self, src: int, dsts: List[int], tables: List[List[int]],
+                   uids: List[int]) -> None:
+        """The fork's device call: the parent's slot row (pending token,
+        position, counts, budget, temperature, output buffer, drafter
+        history) to every child, each child's own table, and each child's
+        own uid, which keys its draws from here on."""
+        st, dev = self.state, self.device
+        d = torch.tensor(dsts, dtype=torch.long, device=dev)
+        for t in (st.tok, st.pos, st.gen, st.budget, st.active, st.temp,
+                  st.out_buf, st.hist):
+            t[d] = t[src].clone()
+        st.page_table[d] = torch.tensor(tables, dtype=st.page_table.dtype,
+                                        device=dev)
+        st.uid[d] = torch.tensor(uids, dtype=st.uid.dtype, device=dev)
+
+    def _cancel_fork(self, parent_slot: int, kids: List[int]) -> None:
+        """The parent finished at activation (budget 1, or EOS on its first
+        token): every fork would replay the same one-token stream, so the
+        reserved child slots free and the group banks mirror streams,
+        resolved against stream 0 when the parent's finish records it."""
+        g = self._fork_groups.get(self.slot_req[parent_slot].fork_group)
+        for kid in kids:
+            child = self.slot_req[kid]
+            self.slot_req[kid] = None
+            self._fork_wait.pop(kid, None)
+            if g is not None and child is not None:
+                g["streams"][child.fork_idx] = _FORK_MIRROR
+
+    def _record_fork_stream(self, gid: int, idx: int, toks: List[int],
+                            finished: List[Request]) -> None:
+        """Bank one fork's finished stream into its group; once every fork
+        has reported, the parent request completes with ``nbest`` holding
+        all streams in fork order (``generated`` is stream 0)."""
+        g = self._fork_groups.get(gid)
+        if g is None:
+            return
+        g["streams"][idx] = toks
+        s = g["streams"]
+        if len(s) < g["k"]:
+            return
+        base = s.get(0, [])
+        streams = [list(base) if s.get(i, []) is _FORK_MIRROR
+                   else list(s.get(i, [])) for i in range(g["k"])]
+        parent = g["req"]
+        parent.nbest = streams
+        parent.generated = streams[0]
+        parent.done = True
+        del self._fork_groups[gid]
+        finished.append(parent)
+
+    def _cow_barrier(self, active: List[int]) -> List[int]:
+        """The pre-tick write barrier: every block the coming tick may
+        write (positions ``[pos, pos + spec_k]`` of each decoding slot)
+        must be private to its slot. A shared (forked) or published page
+        is replaced by ``PagePool.cow_write``; a block with committed
+        content is copied (billed as copy-on-write traffic), one without it
+        moves in the table only. All events go in one ``cow_pages`` call. A
+        slot whose copy finds the pool exhausted has its device lane
+        deactivated first (so the tick cannot write the shared page) and is
+        then quarantined. Returns the decoding slots that remain."""
+        ps, k, sink = self.scfg.page_size, self.scfg.spec_k, self.pool.sink
+        events: List[Tuple[int, int, int, int, int]] = []
+        drop: List[int] = []
+        for slot in active:
+            pages = self._slot_pages[slot]
+            pos = len(self.slot_req[slot].prompt) + self._host_gen[slot] - 1
+            for blk in range(pos // ps,
+                             min((pos + k) // ps, len(pages) - 1) + 1):
+                p = pages[blk]
+                if self.pool.writable(p):
+                    continue
+                res = self.pool.cow_write(p)
+                if res is None:
+                    drop.append(slot)
+                    break
+                new, copied = res
+                pages[blk] = new
+                if copied:
+                    self._tick_cow_copies += 1
+                    self._tick_cow_bytes += 2.0 * ps * self._kv_token_bytes
+                # committed content below pos is copied; a later block holds
+                # nothing yet, so only its table entry moves
+                if blk * ps < pos:
+                    events.append((p, new, slot, blk, new))
+                else:
+                    events.append((sink, sink, slot, blk, new))
+        for slot in drop:
+            self.state.active[slot] = False
+            self._quarantine_slot(slot)
+        if drop:
+            events = [e for e in events if e[2] not in drop]
+            active = [s for s in active if s not in drop]
+        if events:
+            self._cow_call(events)
+        return active
+
+    def _prepare_tree(self, active: List[int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage this tick's branch windows: each greedy decoding slot's
+        ``spec_tree_m - 1`` extra branches each get a forked table row
+        whose write-window blocks are fresh private pages. Only the
+        boundary block holds committed KV (the barrier just made it
+        private), so at most one page a branch is copied, in one
+        ``cow_pages`` call, billed as copy-on-write traffic. A pool race
+        drops that branch's lane. Returns the device ``(btables, bvalid)``;
+        the staged pages wait in ``_tree_branches`` for ``_commit_tree``."""
+        scfg = self.scfg
+        m, k, ps = scfg.spec_tree_m, scfg.spec_k, scfg.page_size
+        nslots, nb = scfg.max_slots, self._blocks_per_slot
+        sink = self.pool.sink
+        btables = np.full((nslots, m - 1, nb), sink, np.int32)
+        bvalid = np.zeros((nslots, m - 1), bool)
+        self._tree_branches = {}
+        events: List[Tuple[int, int, int, int, int]] = []
+        for slot in active:
+            if self._host_temp[slot] > 0.0:
+                # temperature slots keep the distribution-exact linear path
+                # on branch 0
+                continue
+            pages = self._slot_pages[slot]
+            pos = len(self.slot_req[slot].prompt) + self._host_gen[slot] - 1
+            wlo = pos // ps
+            whi = min((pos + k) // ps, len(pages) - 1)
+            row = (pages + [sink] * nb)[:nb]
+            branches: List[Optional[List[int]]] = []
+            for i in range(m - 1):
+                bp = self.pool.alloc(whi - wlo + 1)
+                branches.append(bp)
+                if bp is None:
+                    continue
+                btables[slot, i] = row[:wlo] + bp + row[whi + 1:]
+                bvalid[slot, i] = True
+                if pos > wlo * ps:
+                    # the boundary block's committed KV, which the branch
+                    # attends through its own table (no table row owns
+                    # branch pages: an out-of-range slot id)
+                    events.append((pages[wlo], bp[0], nslots + 1, 0, sink))
+                    self._tick_cow_copies += 1
+                    self._tick_cow_bytes += 2.0 * ps * self._kv_token_bytes
+            self._tree_branches[slot] = (wlo, whi, branches)
+        if events:
+            self._cow_call(events)
+        return (torch.from_numpy(btables).to(self.device),
+                torch.from_numpy(bvalid).to(self.device))
+
+    def _commit_tree(self, bad_mask: np.ndarray, winners: np.ndarray
+                     ) -> None:
+        """Resolve the staged branches from the packed winner row: the
+        winner's window pages join the slot's page list (the device table
+        switched inside the tick), the pages they replace (private and
+        unpublished after the barrier) free, and every losing branch is
+        released. A sentinel-flagged slot adopts nothing, and its branch
+        pages are scrubbed before release: the bad verify pass wrote non-
+        finite KV into them."""
+        for slot, (wlo, whi, branches) in self._tree_branches.items():
+            w, bad = int(winners[slot]), bool(bad_mask[slot])
+            for i, bp in enumerate(branches):
+                if bp is None:
+                    continue
+                if not bad and w == i + 1:
+                    pages = self._slot_pages[slot]
+                    old = pages[wlo:whi + 1]
+                    pages[wlo:whi + 1] = bp
+                    self.pool.release_all(old)
+                else:
+                    if bad:
+                        self._scrub_pages(bp)
+                    self.pool.release_all(bp)
+        self._tree_branches = {}
 
     # -- the decode tick ------------------------------------------------------
 
@@ -801,7 +1306,7 @@ class ServeEngine:
         write the output buffer and the history. Returns the packed (3, B)
         int32 ``[done, emitted, bad]``."""
         scfg, st = self.scfg, self.state
-        k, max_len = scfg.spec_k, scfg.max_len
+        k = scfg.spec_k
         active = st.active
         if scfg.spec_drafter == "oracle":
             # the target model drafts itself greedily: k plain decode
@@ -831,20 +1336,95 @@ class ServeEngine:
         n_acc, fix_tok = spec_lib.speculative_accept(
             logits, drafts, st.temp, seed=scfg.seed, uid=st.uid, gen=st.gen,
             sampled=sampled)
-        # never past the token budget or the context cap: exactly where the
-        # plain tick would have stopped
-        rem = torch.minimum(st.budget - st.gen, max_len - 1 - st.pos)
+        emitted, n_emit = self._runs(n_acc, fix_tok, drafts)
+        done, n_step = self._commit_run(emitted, n_emit, ok, bad)
+        return torch.stack([done.to(torch.int32), n_step.to(torch.int32),
+                            bad.to(torch.int32)])
+
+    def _tree_tick(self, sampled: bool, btables: torch.Tensor,
+                   bvalid: torch.Tensor) -> torch.Tensor:
+        """One tree-speculative tick on the device: draft ``m`` branches
+        per slot, fold them into rows ``b * m + j`` of ONE
+        ``paged_verify_step`` over the branch tables (branch 0 on the
+        slot's own table; the others valid only where the host staged pages
+        and the slot is greedy), accept per branch, and commit the branch
+        that emits the most (the first such, so a tie is the linear tick),
+        with its table swapped in. Returns the packed (4, B) int32
+        ``[done, emitted, bad, winner]``."""
+        scfg, st = self.scfg, self.state
+        k, m = scfg.spec_k, scfg.spec_tree_m
+        b = st.tok.shape[0]
+        active = st.active
+        drafts = spec_lib.ngram_draft_tree(st.hist, st.pos, k, m)  # (B,M,K)
+        valid = torch.cat([torch.ones_like(bvalid[:, :1]),
+                           bvalid & (st.temp <= 0.0)[:, None]], dim=1)
+        tables = torch.cat([st.page_table[:, None], btables], dim=1)
+        chunk = torch.cat([st.tok[:, None, None].expand(b, m, 1), drafts],
+                          dim=2)                              # (B, M, K+1)
+        logits, _ = tf_lib.paged_verify_step(
+            self.params, self.cfg, chunk.reshape(b * m, k + 1),
+            st.pos.repeat_interleave(m), tables.reshape(b * m, -1),
+            st.caches, active=(active[:, None] & valid).reshape(b * m))
+        # sentinel: a non-finite logit in ANY valid branch voids the slot's
+        # tick (committed-KV corruption hits every branch alike)
+        fin = torch.isfinite(logits).flatten(1).all(dim=1).view(b, m)
+        bad = active & (valid & ~fin).any(dim=1)
+        ok = active & ~bad
+        # per-branch accept: branch 0 keeps the slot's temperature, the
+        # extra branches are greedy and draw nothing
+        temp_f = torch.cat([st.temp[:, None],
+                            torch.zeros_like(st.temp)[:, None].expand(
+                                b, m - 1)], dim=1)
+        n_acc, fix = spec_lib.speculative_accept(
+            logits, drafts.reshape(b * m, k), temp_f.reshape(b * m),
+            seed=scfg.seed, uid=st.uid.repeat_interleave(m),
+            gen=st.gen.repeat_interleave(m), sampled=sampled)
+        emitted, n_emit = self._runs(n_acc.view(b, m), fix.view(b, m),
+                                     drafts)
+        w = torch.where(valid, n_emit, 0).argmax(dim=1)         # (B,)
+        rows = torch.arange(b, device=self.device)
+        done, n_step = self._commit_run(emitted[rows, w], n_emit[rows, w],
+                                        ok, bad)
+        # the winner's window pages become the slot's in the tick; the
+        # host mirrors the swap from the packed winner row
+        st.page_table.copy_(torch.where(ok[:, None], tables[rows, w],
+                                        st.page_table))
+        return torch.stack([done.to(torch.int32), n_step.to(torch.int32),
+                            bad.to(torch.int32),
+                            torch.where(ok, w, 0).to(torch.int32)])
+
+    def _runs(self, n_acc: torch.Tensor, fix: torch.Tensor,
+              drafts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The run each slot (or branch: leading dims (B, M)) would emit,
+        (..., K+1), and its length: the accepted drafts plus the correction
+        or bonus token, never past the token budget or the context cap
+        (exactly where the plain tick would have stopped), cut after an
+        EOS."""
+        st, k = self.state, self.scfg.spec_k
+        rem = torch.minimum(st.budget - st.gen,
+                            self.scfg.max_len - 1 - st.pos)
+        rem = rem.view(rem.shape + (1,) * (n_acc.dim() - 1))
         n_emit = torch.minimum(n_acc + 1, rem).clamp(1, k + 1)
-        t_idx = torch.arange(k + 1, device=self.device)[None]  # (1, K+1)
-        drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])],
-                               dim=1)
-        emitted = torch.where(t_idx < n_acc[:, None], drafts_pad,
-                              fix_tok[:, None])             # (B, K+1)
-        if scfg.eos_id >= 0:
+        t_idx = torch.arange(k + 1, device=self.device)
+        drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[..., :1])],
+                               dim=-1)
+        emitted = torch.where(t_idx < n_acc[..., None], drafts_pad,
+                              fix[..., None])
+        eos_id = self.scfg.eos_id
+        if eos_id >= 0:
             # an EOS anywhere in the emitted run ends it there
-            eos_lane = torch.where(emitted == scfg.eos_id, t_idx,
-                                   k + 1).amin(dim=1)
+            eos_lane = torch.where(emitted == eos_id, t_idx,
+                                   k + 1).amin(dim=-1)
             n_emit = torch.minimum(n_emit, eos_lane + 1)
+        return emitted, n_emit
+
+    def _commit_run(self, emitted: torch.Tensor, n_emit: torch.Tensor,
+                    ok: torch.Tensor, bad: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Write each good slot's run (B, K+1) of ``n_emit`` tokens to the
+        output buffer and the history, advance the slot, set its done flag
+        and deactivate done and bad slots. Returns ``(done, n_step)``."""
+        st, k = self.state, self.scfg.spec_k
         n_step = torch.where(ok, n_emit, torch.zeros_like(n_emit))
 
         def commit(buf, first):
@@ -861,57 +1441,83 @@ class ServeEngine:
         tok_new = torch.where(ok, last, st.tok)
         st.pos += n_step
         st.gen += n_step
-        hit_eos = (tok_new == scfg.eos_id if scfg.eos_id >= 0
+        hit_eos = (tok_new == self.scfg.eos_id if self.scfg.eos_id >= 0
                    else torch.zeros_like(ok))
         done = ok & (hit_eos | (st.gen >= st.budget)
-                     | (st.pos >= max_len - 1))
+                     | (st.pos >= self.scfg.max_len - 1))
         st.tok = tok_new
         st.active &= ~done & ~bad
-        return torch.stack([done.to(torch.int32), n_step.to(torch.int32),
-                            bad.to(torch.int32)])
+        return done, n_step
 
     def step(self) -> List[Request]:
         """Admit + one decode tick. Returns finished requests."""
         t0 = time.monotonic()
         finished: List[Request] = []
+        self._tick_quarantined = 0
+        self._tick_cow_bytes = 0.0
+        self._tick_cow_copies = 0
+        self._tick_forks = 0
+        self._tick_fork_saved_bytes = 0.0
+        self._tick_fork_saved_flops = 0.0
         paged = self.pool is not None
         adm = (self._admit_paged(finished) if paged
                else self._admit_dense(finished))
         moves = self._maybe_compact()
-        # decoding slots only: a mid-prefill paged slot holds a slot but
-        # decodes nothing until its final chunk
+        # decoding slots only: a mid-prefill paged slot and a fork child
+        # reserved for a parent still in prefill hold a slot but decode
+        # nothing yet
         active = [i for i, r in enumerate(self.slot_req)
-                  if r is not None and i not in self._prefilling]
+                  if r is not None and i not in self._prefilling
+                  and i not in self._fork_wait]
+        if paged and active:
+            # the copy-on-write barrier: every page this tick writes is
+            # private to its slot before the tick runs
+            active = self._cow_barrier(active)
         # live context per decoding slot (prompt + generated so far),
         # captured before finishes clear the slot: the paged KV read bill
         ctx = sum(len(self.slot_req[i].prompt) + self._host_gen[i]
                   for i in active) if paged else 0
-        spec_k = self.scfg.spec_k
+        spec_k, tree_m = self.scfg.spec_k, self.scfg.spec_tree_m
         emitted = len(active)       # decode tokens this tick (plain: 1/slot)
         accepted = 0
         if active:
             sampled = any(self._host_temp[i] > 0 for i in active)
-            packed = (self._spec_tick(sampled) if spec_k > 0
-                      else self._tick(sampled))
+            if tree_m > 1:
+                # stage the branch windows, run the folded verify, then
+                # resolve the winners' pages on the host
+                packed = self._tree_tick(sampled, *self._prepare_tree(active))
+            elif spec_k > 0:
+                packed = self._spec_tick(sampled)
+            else:
+                packed = self._tick(sampled)
             arr = self._readback(packed)    # the ONE hot-path transfer
-            # done is the first row and bad the last of either packing
-            done_mask, bad_mask = arr[0].astype(bool), arr[-1].astype(bool)
-            if bad_mask.any():
-                raise RuntimeError(
-                    f"non-finite logits in slots {np.nonzero(bad_mask)[0]}; "
-                    f"quarantine is not ported yet")
+            # rows: [done, bad] plain; [done, emitted, bad] speculative;
+            # [done, emitted, bad, winner] on a tree
+            done_mask = arr[0].astype(bool)
+            bad_mask = arr[1 if spec_k == 0 else 2].astype(bool)
+            if tree_m > 1:
+                self._commit_tree(bad_mask, arr[3])
             if spec_k > 0:
+                # a bad slot's emitted count is 0: it made no progress
                 n_emit = arr[1]
                 emitted = int(n_emit.sum())
                 accepted = int(np.maximum(n_emit - 1, 0).sum())
             else:
-                n_emit = np.ones(len(arr[0]), np.int64)
+                n_emit = (~bad_mask).astype(np.int64)
+                emitted = int(sum(n_emit[i] for i in active))
             for i in active:
                 self._host_gen[i] += int(n_emit[i])
             for i in np.nonzero(done_mask)[0]:
                 if (self.slot_req[int(i)] is not None
                         and int(i) not in self._prefilling):
                     self._finish_slot(int(i), finished)
+            # flagged slots made no progress and deactivated themselves on
+            # the device: quarantine them (teardown and a continuation at
+            # the head of the queue); the other slots' streams are untouched
+            for i in np.nonzero(bad_mask)[0]:
+                if (self.slot_req[int(i)] is not None
+                        and int(i) not in self._prefilling):
+                    self._quarantine_slot(int(i))
         # modeled traffic/compute: the decode tick streams the weight tree
         # once; the dense tick reads the whole resident KV payload (every
         # slot billed at max_len, as the JAX dense path bills it), the paged
@@ -920,16 +1526,18 @@ class ServeEngine:
         # draft and verify apart: the verify pass streams the weights ONCE
         # for k + 1 lanes per slot and reads the live context plus the
         # lanes' write and read-back; the ngram drafter scans one int32
-        # history row per slot, the oracle streams the weights k times
+        # history row per slot, the oracle streams the weights k times. A
+        # tree folds m branch rows per slot into the one verify pass: m
+        # times the row compute and KV traffic, still one weight stream
         na = len(active)
         wb = kvb = fl = 0.0
         d_fl = d_by = v_fl = v_by = 0.0
         if active and spec_k > 0:
             width = spec_k + 1
             v_fl = costing.spec_verify_flops(
-                self._matmul_elems, self._n_attn, self._attn_dims, ctx, na,
-                width)
-            v_kv = self._kv_token_bytes * (ctx + 2.0 * width * na)
+                self._matmul_elems, self._n_attn, self._attn_dims,
+                ctx * tree_m, na * tree_m, width)
+            v_kv = self._kv_token_bytes * (ctx + 2.0 * width * na) * tree_m
             v_by = self.weight_bytes + v_kv
             if self.scfg.spec_drafter == "oracle":
                 d_fl = costing.spec_oracle_draft_flops(
@@ -939,7 +1547,7 @@ class ServeEngine:
                     spec_k * ctx + na * spec_k * (spec_k - 1) / 2.0)
                 d_wb = spec_k * self.weight_bytes
             else:
-                d_kv = 4.0 * self.scfg.max_len * na
+                d_kv = 4.0 * self.scfg.max_len * na * tree_m
                 d_wb = 0.0
             d_by = d_wb + d_kv
             wb += self.weight_bytes + d_wb
@@ -964,6 +1572,9 @@ class ServeEngine:
         if moves:
             # each relocated page is one pool read + one pool write
             kvb += 2.0 * moves * self.scfg.page_size * self._kv_token_bytes
+        # copy-on-write copies (barrier and tree boundary) are page traffic,
+        # also broken out on their own channel
+        kvb += self._tick_cow_bytes
         m = StepMetrics(tokens=emitted, active_slots=na,
                         wall_s=time.monotonic() - t0,
                         prefill_tokens=adm.prefill_tokens,
@@ -978,7 +1589,16 @@ class ServeEngine:
                         draft_flops=d_fl, draft_bytes=d_by,
                         verify_flops=v_fl, verify_bytes=v_by,
                         prefill_gather_bytes=adm.gather_bytes,
-                        compaction_moves=moves)
+                        compaction_moves=moves,
+                        quarantined=self._tick_quarantined,
+                        recovery_tokens=adm.recovery_tokens,
+                        recovery_flops=adm.recovery_flops,
+                        recovery_bytes=adm.recovery_bytes,
+                        cow_bytes=self._tick_cow_bytes,
+                        cow_copies=self._tick_cow_copies,
+                        forks=self._tick_forks,
+                        fork_saved_bytes=self._tick_fork_saved_bytes,
+                        fork_saved_flops=self._tick_fork_saved_flops)
         self.last_metrics = m
         self.metrics_log.append(m)
         if self.accountant is not None:
@@ -1020,6 +1640,13 @@ class ServeEngine:
             out["pool_pages"] = self.pool.num_pages
             out["pool_pages_live"] = self.pool.live
             out["pool_hit_rate"] = self.pool.stats.hit_rate
+            # the fork economy: copies are paid traffic, fork_saved_* the
+            # duplicate-KV bill the forks did not pay
+            for key in ("cow_bytes", "cow_copies", "forks",
+                        "fork_saved_bytes", "fork_saved_flops"):
+                out[key] = sum(getattr(m, key) for m in self.metrics_log)
+            out["pool_forked_pages"] = self.pool.stats.forked_pages
+            out["pool_cow_copies"] = self.pool.stats.cow_copies
         if self.scfg.spec_k > 0:
             drafted = sum(m.spec_draft_tokens for m in self.metrics_log)
             accepted = sum(m.spec_accepted_tokens for m in self.metrics_log)
@@ -1033,4 +1660,18 @@ class ServeEngine:
             # the backoff rung belongs to the chaos tier (ROADMAP item 7)
             out["spec_backoffs"] = 0
             out["spec_k_current"] = self.scfg.spec_k
+        # the quarantine rung of the chaos tier; its other keys wait for
+        # their mechanisms (ROADMAP item 7)
+        n_ticks = len(self.metrics_log)
+        rec_fl = sum(m.recovery_flops for m in self.metrics_log)
+        rec_by = sum(m.recovery_bytes for m in self.metrics_log)
+        out["quarantined"] = self.n_quarantined
+        out["quarantine_rate"] = (self.n_quarantined / n_ticks
+                                  if n_ticks > 0 else 0.0)
+        out["recovery_tokens"] = sum(m.recovery_tokens
+                                     for m in self.metrics_log)
+        out["recovery_j"] = (energy.compute_energy_j(rec_fl)
+                             + energy.dram_energy_j(rec_by))
+        out["recovery_j_per_token"] = (out["recovery_j"] / toks
+                                       if toks > 0 else 0.0)
         return out

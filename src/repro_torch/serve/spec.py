@@ -25,7 +25,10 @@ on (seed, uid, token index) with one stream each for the acceptance
 uniform, the residual draw and the bonus draw, so they depend on the
 request and the token index, never on the slot or the batch; JAX's
 threefry keys, advanced only while a slot accepts, are not reproduced.
-``ngram_draft_tree`` waits for tree speculation (ROADMAP queue 1, item 6).
+
+Tree speculation drafts ``m`` branches per slot (``ngram_draft_tree``); the
+engine folds them into batch rows of the one verify pass and runs this
+accept step on every branch row.
 """
 
 from __future__ import annotations
@@ -69,6 +72,36 @@ def ngram_draft(hist: torch.Tensor, pos: torch.Tensor, k: int
         start[:, None] + torch.arange(k, device=hist.device)[None],
         pos[:, None])
     return hist.gather(1, idx)
+
+
+def ngram_draft_tree(hist: torch.Tensor, pos: torch.Tensor, k: int, m: int
+                     ) -> torch.Tensor:
+    """Tree drafter: ``m`` independent ``k``-token branches per slot from
+    the ``m`` most recent occurrences of the trailing bigram.
+
+    Branch 0 is exactly ``ngram_draft`` (the most recent match), so branch
+    0's stream is the linear stream. Later branches take the next most
+    recent matches; a slot with fewer than ``m`` matches pads its tail
+    branches by repeating the pending token. Returns (B, M, K) in hist's
+    dtype; inactive rows give tokens the engine never emits.
+    """
+    b, length = hist.shape
+    pos = pos.long()
+    rows = torch.arange(b, device=hist.device)
+    pend = hist[rows, pos]
+    prev = hist[rows, (pos - 1).clamp(min=0)]
+    p_idx = torch.arange(length - 1, device=hist.device)
+    match = ((hist[:, :-1] == prev[:, None])
+             & (hist[:, 1:] == pend[:, None])
+             & (p_idx[None] <= (pos - 2)[:, None]))
+    # the m most recent match positions, descending (-1 pads short lists)
+    ranked = torch.where(match, p_idx[None], -1).sort(
+        dim=1, descending=True).values[:, :m]
+    starts = torch.where(ranked >= 0, ranked + 2, pos[:, None])   # (B, M)
+    idx = torch.minimum(
+        starts[:, :, None] + torch.arange(k, device=hist.device)[None, None],
+        pos[:, None, None])                                       # (B, M, K)
+    return hist.gather(1, idx.reshape(b, -1)).reshape(b, -1, k)
 
 
 def speculative_accept(logits: torch.Tensor, drafts: torch.Tensor,

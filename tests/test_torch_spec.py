@@ -459,8 +459,8 @@ def test_oracle_at_the_max_len_edge_matches_the_plain_engine():
 def test_spec_one_readback_per_tick_and_private_write_windows():
     """One host readback per tick, and every page a verify tick writes
     ([pos, pos + k] below max_len) is the slot's own private page: without
-    forks no copy-on-write barrier is needed. Refcounts return to their
-    baseline after the drain."""
+    forks the copy-on-write barrier copies nothing. Refcounts return to
+    their baseline after the drain."""
     _, te, _ = _engines("serve-core", dict(spec_k=4), prefill_chunk=8)
     for p in SHARED[:2]:
         te.submit(p, max_tokens=40)
@@ -480,6 +480,7 @@ def test_spec_one_readback_per_tick_and_private_write_windows():
         assert te.host_readbacks == base + i + 1
     te.run_until_drained()
     assert te.pool.live == 0 and te.pool.audit() == []
+    assert te.summary()["cow_copies"] == 0
 
 
 def test_spec_config_validation():
@@ -492,9 +493,18 @@ def test_spec_config_validation():
     for kw in bad:
         with pytest.raises(ValueError):
             ServeEngine(tparams, tcfg, ServeConfig(device="cpu", **kw))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServeEngine(tparams, tcfg, ServeConfig(device="cpu", paged=True,
-                                               spec_k=2, spec_tree_m=2))
+    # tests/test_serve_cow.py::TestTreeSpec::test_tree_config_validation
+    for kw, match in ((dict(spec_tree_m=0), "spec_tree_m"),
+                      (dict(spec_tree_m=2), "spec_k"),
+                      (dict(spec_k=2, spec_tree_m=2, spec_drafter="oracle"),
+                       "ngram")):
+        with pytest.raises(ValueError, match=match):
+            ServeEngine(tparams, tcfg, ServeConfig(device="cpu", paged=True,
+                                                   page_size=4, max_slots=4,
+                                                   max_len=64, **kw))
+    tree = ServeEngine(tparams, tcfg, ServeConfig(device="cpu", paged=True,
+                                                  spec_k=2, spec_tree_m=2))
+    assert tree.scfg.spec_tree_m == 2
 
 
 def test_launcher_serves_speculatively_on_cpu(capsys):
