@@ -7,11 +7,11 @@ Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the main path's shapes, then drives the
 dense, the paged and the speculative serve paths of starcoder2-7b at full
 width and full depth with random weights from a seed, unquantized and in
-the int8 mode (with tree speculation, n-best forks and a quarantined
-slot), the fused training tick at full width and 8 layers, the
-checkpointing Trainer on the ~100M e2e model at full size, the port's
-train and kernel benches, and the paper's ternary AlexNet and VGG-16 at
-full size.
+the int8 mode (with tree speculation, n-best forks, a quarantined slot,
+and the chaos tier's seeded faults and degradation ladder), the fused
+training tick at full width and 8 layers, the checkpointing Trainer on
+the ~100M e2e model at full size, the port's train and kernel benches,
+and the paper's ternary AlexNet and VGG-16 at full size.
 Phases, each printing JSON lines; any failure raises, so the script exits
 non-zero and prints no result:
 
@@ -112,6 +112,21 @@ non-zero and prints no result:
    whose decoding slot 0 has its first private K page set to NaN before
    tick 6 must quarantine that slot once, at that tick, and retry it to
    the same streams with a clean pool;
+5b. chaos, on phase 5's fp32 params, prompts and paged streams: each
+   transient fault kind (``FaultPlan.single(kind, tick=2, seed=11,
+   slot=1)``; a stall of magnitude 10) on the paged engine with the pool
+   auditor every tick: the streams phase 5's, at least one fault, a clean
+   pool and audit, no non-finite pool value, the split kernels' counters at
+   zero; the readback kinds retry (no quarantine), the numerics kinds
+   quarantine once; ``nan_logits`` on the speculative (k = 4) and tree
+   (m = 3) engines, unquantized and (after the int8 streams) int8, the
+   plain paged streams; a ``process_kill`` raises at its tick; deadline 1
+   on 16 requests over 4 slots sheds, shed + finished = 16; an int8 engine
+   built from the fp32 params with the drift rung armed and a
+   ``kv_bitflip``: every request its 16 tokens, a clean pool, at most one
+   fp fallback (its count and the drift checks reported); K2, K5 (T = 5)
+   and K3 in their int8-KV modes against their plain versions on pools
+   whose K codes were XORed with 0x55 (codes -128..127);
 6. serve: bf16 weights, fp32 cache, 8 slots, max_len 2048, 16 requests of
    32-1024 prompt tokens and 64 new tokens each; K1 launches must be
    decode ticks x 32 layers;
@@ -148,6 +163,21 @@ non-zero and prints no result:
    ticks), 24 forks, at least 24 page copies, saved bytes, a clean pool;
    then at temperature 0.8: a clean drain, the distinct streams of each
    group reported;
+8e. chaos at full width, per mode after 8c: phase 7's traffic under
+   ``FaultPlan.matrix(seed=0, n_ticks=40)`` over the transient kinds, a
+   stall of magnitude 10 at tick 50 and a spike of half the pool for 4
+   ticks at tick 64, with the auditor every tick, admission retries capped
+   at 8 with backoff 1 and the compaction pause at 2x the tick EWMA: every
+   request finished or shed, K2 = decode ticks x 32, K3 = extend calls x
+   32 (K4 as in phase 8), a clean pool, no audit failure, a compaction
+   pause, two readback retries; reports the agreement with phase 7's
+   streams, host ms a tick beside phase 7's, recovery J/token and the
+   auditor's host ms a tick; then 8b's traffic (unquantized) with the
+   spec-k backoff armed (threshold 0.9, window 2): a backoff, K5 = spec
+   ticks x 32; then an int8 engine built from the bf16 params on 8 of the
+   requests with ``_fallback_to_fp()`` forced before tick 3: every
+   request its 32 tokens, a clean pool, K2 and K3 on their tensor cores
+   before and on SIMT after, no K4 after; the fallback's host seconds;
 4b. flash kernels: K6 (forward with lse), K7 (dQ) and K8 (dK, dV) against
    their plain versions at the training path's shapes (B=2, S=2048, H=36,
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
@@ -2945,6 +2975,7 @@ def phase_streams():
     _tree_streams(params, cfg, paged_cfg, prompts, paged)
     _nbest_streams(params, cfg, paged_cfg, prompts, paged)
     _quarantine_streams(params, cfg, paged_cfg, prompts, paged)
+    phase_chaos_streams(params, cfg, paged_cfg, prompts, paged)
     # int8: the engine quantizes at construction; the reference and the
     # paged engine take its quantized params and INT8_QUANT cfg
     int8_cfg = dataclasses.replace(scfg, quant="int8")
@@ -2971,6 +3002,8 @@ def phase_streams():
     _nbest_streams(qparams, qcfg, dataclasses.replace(paged_cfg,
                                                       quant="int8"),
                    prompts, paged)
+    _nan_on_spec_and_tree(qparams, qcfg, dataclasses.replace(
+        paged_cfg, quant="int8"), prompts, paged)
     emit({"phase": "streams", "dtype": "float32", "quant": "int8",
           "requests": len(prompts), "tokens_each": 16, "identical": True,
           "paged_identical": True, "quantize_s": quant_s,
@@ -3090,6 +3123,236 @@ def _quarantine_streams(params, cfg, scfg, prompts, want):
           "recovery_j": s["recovery_j"], "identical_to_unpoisoned": True})
 
 
+# phase 5b: the chaos tier on phase 5's fp32 paged engine. Each transient
+# fault kind fires at tick 2 in slot 1 (seed 11), as in the CPU tests'
+# chaos matrix; a stall there sleeps STALL_MAG x 0.02 s, since one unit is
+# lost in an eager tick's 60-110 ms of host time
+CHAOS_TICK, CHAOS_SEED, CHAOS_SLOT, STALL_MAG = 2, 11, 1, 10
+# the drift rung's guard and plan of the reference's int8 test
+DRIFT_GUARD = dict(drift_check_interval=1, drift_min_checks=1,
+                   drift_threshold=0.0, ewma_alpha=0.5)
+
+
+def _chaos_run(params, cfg, scfg, prompts, n_new, deadline=None):
+    """Drain ``prompts`` through a fresh engine of ``scfg``. Returns the
+    engine, the streams by uid, the summary and the host seconds."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(params, cfg, scfg)
+    for p in prompts:
+        eng.submit(p, max_tokens=n_new, deadline_ticks=deadline)
+    t0 = time.monotonic()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return (eng, {r.uid: list(r.generated) for r in done}, eng.summary(),
+            time.monotonic() - t0)
+
+
+def _pool_state(eng):
+    """(live pages, audit violations, every float K/V value finite)."""
+    import torch
+    finite = all(bool(torch.isfinite(t).all())
+                 for e in eng.state.caches.values()
+                 for t in (e["kv"].k, e["kv"].v)
+                 if t.dtype.is_floating_point)
+    return eng.pool.live, eng.pool.audit(), finite
+
+
+def _split_counters_zero():
+    """Whether every per-stream counter of the split kernels (K1, K2, K5)
+    is back at zero, as each launch's last block leaves it."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as k2
+    torch.cuda.synchronize()
+    return all(bool((c == 0).all()) for c, _ in k2._scratch.values())
+
+
+def _nan_on_spec_and_tree(params, cfg, scfg, prompts, want):
+    """``nan_logits`` at tick 2 in slot 1 on the speculative (k = 4) and the
+    tree (k = 4, m = 3) engine: one quarantine, at that tick, the streams
+    ``want`` (the plain paged engine's), a clean pool, the split kernels'
+    counters at zero."""
+    from repro_torch.serve import FaultPlan, GuardrailConfig
+    plan = FaultPlan.single("nan_logits", tick=CHAOS_TICK, seed=CHAOS_SEED,
+                            slot=CHAOS_SLOT)
+    rows = []
+    for m in (1, TREE_M):
+        eng, got, s, wall = _chaos_run(params, cfg, dataclasses.replace(
+            scfg, spec_k=SPEC_K, spec_tree_m=m, faults=plan,
+            guard=GuardrailConfig(audit_interval=1)), prompts, 16)
+        flagged = [t for t, x in enumerate(eng.metrics_log) if x.quarantined]
+        live, audit, finite = _pool_state(eng)
+        if (got != want or s["quarantined"] != 1 or flagged != [CHAOS_TICK]
+                or live or audit or not finite or s["audit_failures"]
+                or not _split_counters_zero()):
+            raise AssertionError(
+                f"chaos: nan_logits on the spec tick (k {SPEC_K}, m {m}, "
+                f"quant {scfg.quant}): quarantined at {flagged}, streams "
+                f"equal {got == want} (first difference "
+                f"{_first_diff(got, want)}), {live} pages live, audit "
+                f"{audit}, finite {finite}")
+        rows.append({"spec_k": SPEC_K, "spec_tree_m": m,
+                     "quarantined": s["quarantined"], "ticks": s["ticks"],
+                     "recovery_tokens": s["recovery_tokens"], "seconds": wall})
+    emit({"phase": "chaos_streams", "dtype": "float32", "quant": scfg.quant,
+          "fault": "nan_logits", "runs": rows,
+          "identical_to_plain_paged": True})
+
+
+def _xor_pool_kernels():
+    """K2, K5 (T = 5) and K3 in their int8-KV modes against their plain
+    versions on pools whose K codes were XORed with 0x55, as ``kv_bitflip``
+    corrupts an int8 page: the codes span -128..127, and -128 is a code the
+    quantizer never writes. Every window, MODES' bounds."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.kernels import paged_prefill_attention as k3
+    from repro_torch.kernels import paged_verify_attention as k5
+    from repro_torch.kernels import ref
+    rows = []
+    for q_name, kv_name, atol, rtol in MODES:
+        if kv_name != "int8":
+            continue
+        q_dtype = getattr(torch, q_name)
+        cases = (("paged_decode_attention", k2.paged_decode_attention,
+                  ref.paged_decode_attention_ref,
+                  _paged_decode_inputs(q_dtype, torch.int8), 1),
+                 ("paged_verify_attention", k5.paged_verify_attention,
+                  ref.paged_verify_attention_ref,
+                  _verify_inputs(SPEC_K + 1)(q_dtype, torch.int8), 1),
+                 ("paged_prefill_attention", k3.paged_prefill_attention,
+                  ref.paged_prefill_attention_ref,
+                  _prefill_inputs(q_dtype, torch.int8), 3))
+        for name, kernel, plain, args, k_pos in cases:
+            args = list(args)
+            args[k_pos] = args[k_pos] ^ 0x55
+            if not bool((args[k_pos] == -128).any()):
+                raise AssertionError(f"{name}: the XORed pool holds no -128")
+            kw = {"k_scale": args[-2], "v_scale": args[-1]}
+            for window in WINDOWS:
+                got = kernel(*args[:-2], scale=D ** -0.5, window=window,
+                             **kw)
+                torch.cuda.synchronize()
+                want = plain(*args[:-2], scale=D ** -0.5, window=window, **kw)
+                err = (got.float() - want.float()).abs()
+                if not (bool((err <= atol + rtol * want.float().abs()).all())
+                        and bool(torch.isfinite(got).all())):
+                    raise AssertionError(
+                        f"{name} on an XORed int8 pool disagrees with its "
+                        f"plain version: q {q_name}, window {window}: max "
+                        f"abs err {float(err.max())} (atol {atol}, rtol "
+                        f"{rtol})")
+                rows.append([name, q_name, window, float(err.max())])
+    emit({"phase": "kernels_xor_pool", "rows": rows, "timed": False})
+
+
+def phase_chaos_streams(params, cfg, paged_cfg, prompts, want):
+    """Phase 5b on phase 5's fp32 params, prompts and paged streams: every
+    transient fault kind on the paged engine, nan_logits on the spec and
+    tree ticks, a process kill, deadline shedding, the int8 drift rung
+    built from the fp32 params, and K2, K3 and K5 on an XORed int8 pool."""
+    import numpy as np
+    from repro_torch.serve import (TRANSIENT_FAULT_KINDS, FaultPlan,
+                                   GuardrailConfig, ProcessKilled,
+                                   ServeEngine, generation_agreement)
+    t_phase = time.monotonic()
+    rows = []
+    for kind in TRANSIENT_FAULT_KINDS:
+        plan = FaultPlan.single(kind, tick=CHAOS_TICK, seed=CHAOS_SEED,
+                                slot=CHAOS_SLOT,
+                                magnitude=STALL_MAG if kind == "stall"
+                                else 1.0)
+        eng, got, s, wall = _chaos_run(params, cfg, dataclasses.replace(
+            paged_cfg, faults=plan, guard=GuardrailConfig(
+                audit_interval=1)), prompts, 16)
+        live, audit, finite = _pool_state(eng)
+        numerics = kind in ("nan_logits", "inf_logits", "kv_bitflip")
+        readback = kind.startswith("readback")
+        ok = (got == want and s["faults_injected"] >= 1 and not live
+              and not audit and finite and s["audit_failures"] == 0
+              and s["quarantined"] == (1 if numerics else 0)
+              and (not readback or s["readback_retries"] >= 1)
+              and _split_counters_zero())
+        if not ok:
+            raise AssertionError(
+                f"chaos: {kind} at tick {CHAOS_TICK}: streams equal "
+                f"{got == want} (first difference {_first_diff(got, want)}), "
+                f"injected {s['faults_injected']}, quarantined "
+                f"{s['quarantined']}, readback retries "
+                f"{s['readback_retries']}, {live} pages live, audit {audit}, "
+                f"finite {finite}, audit failures {s['audit_failures']}")
+        rows.append({"kind": kind, "injected": s["faults_injected"],
+                     "quarantined": s["quarantined"],
+                     "readback_retries": s["readback_retries"],
+                     "recovery_tokens": s["recovery_tokens"],
+                     "recovery_j": s["recovery_j"], "ticks": s["ticks"],
+                     "host_readbacks": eng.host_readbacks,
+                     "compaction_pauses": s["compaction_pauses"],
+                     "seconds": wall})
+    emit({"phase": "chaos_streams", "dtype": "float32", "quant": "none",
+          "tick": CHAOS_TICK, "slot": CHAOS_SLOT, "seed": CHAOS_SEED,
+          "stall_magnitude": STALL_MAG, "kinds": rows,
+          "identical_to_fault_free": True})
+    _nan_on_spec_and_tree(params, cfg, paged_cfg, prompts, want)
+    # a process kill leaves step() at its tick
+    eng = ServeEngine(params, cfg, dataclasses.replace(
+        paged_cfg, faults=FaultPlan.single("process_kill", tick=CHAOS_TICK)))
+    for p in prompts:
+        eng.submit(p, max_tokens=16)
+    try:
+        for _ in range(CHAOS_TICK + 1):
+            eng.step()
+        raise AssertionError("chaos: process_kill did not raise")
+    except ProcessKilled:
+        if eng._tick_idx != CHAOS_TICK:
+            raise AssertionError(f"chaos: process_kill raised at tick "
+                                 f"{eng._tick_idx}, not {CHAOS_TICK}")
+    del eng
+    # deadline 1 on 16 requests over 4 slots: the queue past its deadline
+    # is shed, and shed + finished partition the workload
+    rng = np.random.default_rng(SEED + 9)
+    many = [rng.integers(0, cfg.vocab, int(n))
+            for n in rng.integers(8, 65, 16)]
+    eng, got, s, wall = _chaos_run(params, cfg, paged_cfg, many, 16,
+                                   deadline=1)
+    if not (s["shed"] > 0 and eng.n_shed + eng.n_finished_ok == len(many)
+            and len(got) == len(many) and not eng.pool.live):
+        raise AssertionError(f"chaos: deadline 1 shed {s['shed']}, finished "
+                             f"{eng.n_finished_ok} of {len(many)}")
+    emit({"phase": "chaos_deadline", "requests": len(many),
+          "slots": paged_cfg.max_slots, "deadline_ticks": 1,
+          "shed": s["shed"], "finished": eng.n_finished_ok,
+          "shed_rate": s["shed_rate"], "ticks": s["ticks"], "seconds": wall})
+    del eng
+    # the int8 drift rung: an int8 engine built from the fp32 params (the
+    # pair it keeps as its fp oracle), the reference's guard and a
+    # kv_bitflip of an int8 K page (finite garbage the sentinel cannot see)
+    eng, got, s, wall = _chaos_run(params, cfg, dataclasses.replace(
+        paged_cfg, quant="int8",
+        faults=FaultPlan.single("kv_bitflip", tick=CHAOS_TICK, seed=3),
+        guard=GuardrailConfig(**DRIFT_GUARD)), prompts, 16)
+    live, audit, _ = _pool_state(eng)
+    if (len(got) != len(prompts) or any(len(g) != 16 for g in got.values())
+            or live or audit or s["fp_fallbacks"] > 1
+            or s["faults_injected"] != 1):
+        raise AssertionError(
+            f"chaos: the drift rung's run: {len(got)} requests, lengths "
+            f"{[len(g) for g in got.values()]}, {live} pages live, audit "
+            f"{audit}, fp fallbacks {s['fp_fallbacks']}, injected "
+            f"{s['faults_injected']}")
+    emit({"phase": "chaos_drift", "dtype": "float32", "quant": "int8",
+          "fp_fallbacks": s["fp_fallbacks"], "drift_checks": eng.drift_checks,
+          "degraded_ticks": s["degraded_ticks"], "ticks": s["ticks"],
+          "recovery_tokens": s["recovery_tokens"],
+          "agreement_with_fp32_paged": generation_agreement(
+              got, want)["agreement"],
+          "seconds": wall})
+    del eng
+    _xor_pool_kernels()
+    emit({"phase": "chaos_streams_total",
+          "seconds": time.monotonic() - t_phase})
+
+
 # K9's and K11's launches of each of their kernels in the main-path runs
 # (the train bench, the kernel bench, the CNN phases), for the kernels line
 MAIN_ROUTES = {"int8_matmul_dx": {}, "ternary_matmul": {}}
@@ -3136,7 +3399,8 @@ def _counters():
 def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
     """Submit (each request forked ``n_best`` ways), set every launch
     counter to 0, drain, read the counters; check that every request
-    finished with every stream, that each kernel launched as many times as
+    finished with every stream (or, under an armed guard, was shed: the
+    chaos tier's backpressure), that each kernel launched as many times as
     the path's decode ticks and admission (dense) or extend (paged) calls
     demand, and on the paged path that the pool drained clean (and, with
     ``hits``, that the prefix cache hit). Returns the launches, the streams
@@ -3163,12 +3427,12 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
     decode_ticks = sum(1 for m in eng.metrics_log if m.active_slots > 0)
     admissions = sum(1 for m in eng.metrics_log if m.prefill_tokens > 0)
     streams = {r.uid: r.nbest if n_best > 1 else r.generated for r in done}
-    if len(done) != len(prompts) or any(
-            len(r.generated) != n_new
-            or (n_best > 1 and [len(x) for x in r.nbest] != [n_new] * n_best)
-            for r in done):
+    short = sum(1 for r in done if len(r.generated) != n_new or (
+        n_best > 1 and [len(x) for x in r.nbest] != [n_new] * n_best))
+    if len(done) != len(prompts) or short != s["shed"]:
         raise AssertionError(f"{phase}: the run did not finish every "
-                             f"request")
+                             f"request ({len(done)} of {len(prompts)} "
+                             f"back, {short} short, {s['shed']} shed)")
     paged = eng.pool is not None
     int8 = eng.scfg.quant == "int8"
     spec = eng.scfg.spec_k > 0                  # the ngram drafter: no K2
@@ -3500,6 +3764,182 @@ def phase_nbest(cfg, params, quant="none"):
     return launches
 
 
+# phase 8e: phase 7's traffic under a seeded plan of every transient kind
+# in its first CHAOS_TICKS ticks, a stall of STALL_MAG at STALL_AT (in the
+# first wave's steady decode) and a spike of half the pool for SPIKE_TICKS
+# ticks at SPIKE_AT (as the first wave finishes and the second admits),
+# with the guard armed
+CHAOS_TICKS, STALL_AT, SPIKE_AT, SPIKE_TICKS = 40, 50, 64, 4
+ARMED_GUARD = dict(audit_interval=1, admit_max_retries=8, admit_backoff=1,
+                   stall_factor=2.0)
+
+
+def _chaos_plan(num_pages):
+    from repro_torch.serve import (TRANSIENT_FAULT_KINDS, FaultEvent,
+                                   FaultPlan)
+    plan = FaultPlan.matrix(seed=SEED, n_ticks=CHAOS_TICKS,
+                            kinds=TRANSIENT_FAULT_KINDS)
+    return dataclasses.replace(plan, events=plan.events + (
+        FaultEvent(tick=STALL_AT, kind="stall", magnitude=STALL_MAG),
+        FaultEvent(tick=SPIKE_AT, kind="pool_spike",
+                   magnitude=num_pages // 2, duration=SPIKE_TICKS)))
+
+
+def _host_timed(eng, name):
+    """Replace the engine's method ``name`` by one that records each call's
+    host seconds; returns the list they go to."""
+    method, secs = getattr(eng, name), []
+
+    def timed(*args, **kw):
+        t0 = time.monotonic()
+        out = method(*args, **kw)
+        secs.append(time.monotonic() - t0)
+        return out
+    setattr(eng, name, timed)
+    return secs
+
+
+def phase_chaos_serve(cfg, params, quant, plain):
+    """Phase 8e on the bf16 weights in one mode: phase 7's traffic under
+    ``_chaos_plan`` with ``ARMED_GUARD``. Asserted (``_serve_run`` and
+    here): every request finished or shed, K2 = decode ticks x 32, K3 =
+    extend calls x 32 (K4 in int8), a clean pool and audit, no audit
+    failure, at least one compaction pause and two readback retries.
+    Reported: the streams' agreement with phase 7's (``plain``: its
+    streams and summary; bf16 near ties may flip a greedy token after a
+    quarantined slot's retry), host ms a tick against phase 7's, the
+    recovery J/token and the auditor's host ms a tick. Returns the
+    launches."""
+    from repro_torch.serve import (GuardrailConfig, ServeEngine,
+                                   generation_agreement)
+    acct = _accountant()
+    scfg = _paged_scfg(quant)
+    pages = scfg.max_slots * -(-scfg.max_len // PAGE)
+    eng = ServeEngine(params, cfg, dataclasses.replace(
+        scfg, faults=_chaos_plan(pages),
+        guard=GuardrailConfig(**ARMED_GUARD)), accountant=acct)
+    audit_s = _host_timed(eng, "_run_audit")
+    launches, streams, s = _serve_run("chaos_serve", eng, acct,
+                                      _paged_traffic(cfg), 64)
+    if not (s["audit_failures"] == 0 and s["compaction_pauses"] >= 1
+            and s["readback_retries"] >= 2):
+        raise AssertionError(
+            f"chaos_serve ({quant}): audit failures {s['audit_failures']}, "
+            f"compaction pauses {s['compaction_pauses']}, readback retries "
+            f"{s['readback_retries']}")
+    base_streams, base = plain
+    emit({"phase": "chaos_serve_report", "quant": quant,
+          "faults": [[e.tick, e.kind, e.magnitude]
+                     for e in eng.scfg.faults.events],
+          "faults_injected": s["faults_injected"],
+          "quarantined": s["quarantined"], "shed": s["shed"],
+          "readback_retries": s["readback_retries"],
+          "compaction_pauses": s["compaction_pauses"],
+          "degraded_ticks": s["degraded_ticks"],
+          "recovery_tokens": s["recovery_tokens"],
+          "recovery_j_per_token": s["recovery_j_per_token"],
+          "ticks": s["ticks"], "phase7_ticks": base["ticks"],
+          "host_ms_per_tick": 1e3 * s["wall_s"] / s["ticks"],
+          "phase7_host_ms_per_tick": 1e3 * base["wall_s"] / base["ticks"],
+          "audit_host_ms_per_tick": 1e3 * sum(audit_s) / max(len(audit_s),
+                                                             1),
+          "audits": len(audit_s),
+          "agreement_with_phase7": {
+              **generation_agreement(streams, base_streams),
+              "first_difference": _first_diff(streams, base_streams)}})
+    return launches
+
+
+def phase_chaos_spec(cfg, params):
+    """Phase 8e's speculative run: 8b's traffic (unquantized, k = 4) with
+    the spec-k backoff armed (threshold 0.9, window 2): at least one
+    backoff, K5 = spec ticks x 32 (``_serve_run``). Returns the
+    launches."""
+    from repro_torch.serve import GuardrailConfig, ServeEngine
+    acct = _accountant()
+    eng = ServeEngine(params, cfg, _paged_scfg(
+        "none", spec_k=SPEC_K, guard=GuardrailConfig(
+            spec_backoff_threshold=0.9, spec_backoff_window=2)),
+        accountant=acct)
+    launches, _, s = _serve_run("chaos_spec_serve", eng, acct,
+                                _paged_traffic(cfg), 64)
+    if s["spec_backoffs"] < 1:
+        raise AssertionError(f"chaos_spec_serve: no spec-k backoff "
+                             f"(accept rate {s['accept_rate']})")
+    emit({"phase": "chaos_spec_report", "spec_backoffs": s["spec_backoffs"],
+          "spec_k_current": s["spec_k_current"],
+          "degraded_ticks": s["degraded_ticks"],
+          "accept_rate": s["accept_rate"],
+          "accepted_tokens_per_tick": s["accepted_tokens_per_tick"]})
+    return launches
+
+
+def phase_forced_fallback(cfg, params):
+    """The int8 -> fp fallback at full width: an int8 engine built from the
+    bf16 params (quantized at construction; the bf16 pair is its fp
+    oracle) on phase 7's first 8 requests x NBEST_NEW tokens, with
+    ``_fallback_to_fp()`` forced before tick 3. Every request completes
+    with its budget and the pool drains clean; K2 and K3 ran on their
+    tensor cores before (bf16 q over the int8 pool) and on SIMT after (bf16
+    q over the fp32 pool), K4 not at all after. The counters stay
+    cumulative; the deltas are read around the fallback. Reports its
+    host seconds."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    names = ("paged_decode_attention", "paged_prefill_attention",
+             "int8_matmul")
+    counters = _counters()
+
+    def snap():
+        torch.cuda.synchronize()
+        return {n: dict(counters[n].launches_by_kernel) for n in names}
+
+    def delta(a, b):
+        return {n: {k: b[n][k] - a[n][k] for k in b[n]} for n in names}
+
+    eng = ServeEngine(params, cfg, _paged_scfg("int8"))
+    prompts = _paged_traffic(cfg)[:8]
+    for p in prompts:
+        eng.submit(p, max_tokens=NBEST_NEW)
+    s0 = snap()
+    for _ in range(3):
+        eng.step()
+    s1 = snap()
+    t0 = time.monotonic()
+    eng._fallback_to_fp()
+    torch.cuda.synchronize()
+    fallback_s = time.monotonic() - t0
+    done = eng.run_until_drained()
+    s2 = snap()
+    before, after = delta(s0, s1), delta(s1, s2)
+    k2b, k3b = before["paged_decode_attention"], before[
+        "paged_prefill_attention"]
+    k2a, k3a = after["paged_decode_attention"], after[
+        "paged_prefill_attention"]
+    if not (len(done) == len(prompts)
+            and all(len(r.generated) == NBEST_NEW for r in done)
+            and eng.fp_fallbacks == 1 and not eng.pool.live
+            and not eng.pool.audit()
+            and k2b["tensor_cores"] > 0 and k2b["simt"] == 0
+            and k3b["tensor_cores"] > 0 and k3b["simt"] == 0
+            and k2a["tensor_cores"] == 0 and k2a["simt"] > 0
+            and k3a["tensor_cores"] == 0 and k3a["simt"] > 0
+            and sum(before["int8_matmul"].values()) > 0
+            and sum(after["int8_matmul"].values()) == 0):
+        raise AssertionError(
+            f"forced fallback: {len(done)} requests, lengths "
+            f"{[len(r.generated) for r in done]}, fallbacks "
+            f"{eng.fp_fallbacks}, {eng.pool.live} pages live; launches "
+            f"before {before}, after {after}")
+    emit({"phase": "chaos_fallback", "dtype": "bfloat16",
+          "requests": len(prompts), "new_tokens_each": NBEST_NEW,
+          "fallback_tick": 3, "fallback_host_s": fallback_s,
+          "launches_before": before, "launches_after": after,
+          "ticks": eng.summary()["ticks"],
+          "degraded_ticks": eng.summary()["degraded_ticks"],
+          "recovery_tokens": eng.summary()["recovery_tokens"]})
+
+
 def phase_agreement(cfg, params, qparams):
     """Teacher-forced greedy agreement of the int8 model with the bf16 one
     at full width (reported, not asserted)."""
@@ -3558,7 +3998,10 @@ def phase_serve_runs():
         runs.append(launches)
         launches, *linear = phase_paged_serve(c, p, quant, spec_k=SPEC_K)
         runs += [launches, phase_tree_serve(c, p, quant, plain, linear),
-                 phase_nbest(c, p, quant)]
+                 phase_nbest(c, p, quant),
+                 phase_chaos_serve(c, p, quant, plain)]
+    runs.append(phase_chaos_spec(cfg, params))
+    phase_forced_fallback(cfg, params)
     phase_agreement(cfg, params, qparams)
     return runs
 

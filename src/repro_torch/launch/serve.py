@@ -8,7 +8,8 @@ paths).
         [--paged [--page-size 16] [--num-pages N] [--no-prefix-cache] \\
          [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost] \\
          [--spec-k K [--spec-drafter oracle | --spec-tree-m M]] \\
-         [--nbest N]]
+         [--nbest N]] [--fault-kind KIND [--fault-tick T] [--fault-seed S]] \\
+        [--deadline-ticks D]
 
 Runs on the card unless ``--device cpu`` is given. The full-width model is
 built in bf16 from a seed; ``--smoke`` builds the arch's reduced config in
@@ -34,6 +35,16 @@ streams that share the prompt's pages copy-on-write; each request prints
 its N streams and the run its forks, page copies and the duplicate KV the
 forks did not write.
 
+``--fault-kind KIND`` replays one seeded fault of the chaos tier at tick
+``--fault-tick`` (seed ``--fault-seed``) and prints what was injected,
+quarantined and shed, the recovery bill and the degraded ticks;
+``process_kill`` is refused, since surviving it needs the durability
+tier's snapshots and journal, which are not ported yet.
+``--deadline-ticks D`` sheds a request still queued D ticks after its
+submission. The summary's chaos keys (``faults_injected``, ``shed``,
+``shed_rate``, ``degraded_ticks``, ``readback_retries``, ``fp_fallbacks``,
+``compaction_pauses``, ``audit_failures``) are printed in every run.
+
 ``--profile-ticks N`` runs N decode ticks under ``torch.profiler`` once
 every slot is decoding and prints the kernels with the most device time
 and the device's busy share of those ticks' wall time.
@@ -52,8 +63,8 @@ from repro_torch import device as device_lib
 from repro_torch.configs import base as cfgbase
 from repro_torch.core import accounting
 from repro_torch.models import transformer as tf_lib
-from repro_torch.serve import (Scheduler, SchedulerConfig, ServeConfig,
-                               ServeEngine)
+from repro_torch.serve import (FAULT_KINDS, FaultPlan, Scheduler,
+                               SchedulerConfig, ServeConfig, ServeEngine)
 
 # report keys computed from wall time (active seconds x board power)
 WALL_KEYS = frozenset({"operational_j", "operational_gco2", "j_per_token",
@@ -154,6 +165,17 @@ def main(argv=None) -> None:
                     help="n-best sampling: fork each request into this many "
                          "streams sharing its prompt's pages copy-on-write "
                          "(paged mode only)")
+    ap.add_argument("--fault-kind", default=None, choices=FAULT_KINDS,
+                    help="chaos tier: inject one seeded fault of this kind "
+                         "and exercise the degradation ladder (default: no "
+                         "injection)")
+    ap.add_argument("--fault-tick", type=int, default=2,
+                    help="engine tick at which the fault fires")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault's random choices")
+    ap.add_argument("--deadline-ticks", type=int, default=None,
+                    help="per-request deadline in ticks; a request still "
+                         "queued past it is shed, not served late")
     args = ap.parse_args(argv)
     if args.requests < 0 or args.max_tokens < 1 or args.slots < 1:
         ap.error("--requests >= 0, --max-tokens >= 1 and --slots >= 1")
@@ -188,6 +210,14 @@ def main(argv=None) -> None:
                  "speculation rides the speculative verify pass)")
     if args.spec_tree_m > 1 and args.spec_drafter != "ngram":
         ap.error("--spec-tree-m > 1 drafts with the ngram drafter only")
+    if args.fault_kind is not None and args.fault_tick < 0:
+        ap.error(f"--fault-tick must be >= 0, got {args.fault_tick}")
+    if args.deadline_ticks is not None and args.deadline_ticks <= 0:
+        ap.error(f"--deadline-ticks must be > 0, got {args.deadline_ticks}")
+    if args.fault_kind == "process_kill":
+        ap.error("--fault-kind process_kill needs the durability tier (a "
+                 "snapshot and journal to restart from, --checkpoint-dir), "
+                 "which is not ported yet")
 
     dev = device_lib.resolve(args.device)
     arch = cfgbase.get(args.arch)
@@ -208,7 +238,11 @@ def main(argv=None) -> None:
                        compact_threshold=args.compact_threshold,
                        evict_policy=args.evict_policy, quant=args.quant,
                        spec_k=args.spec_k, spec_drafter=args.spec_drafter,
-                       spec_tree_m=args.spec_tree_m)
+                       spec_tree_m=args.spec_tree_m,
+                       faults=(FaultPlan.single(args.fault_kind,
+                                                tick=args.fault_tick,
+                                                seed=args.fault_seed)
+                               if args.fault_kind else None))
     try:    # the engine checks how the paged flags combine
         eng = ServeEngine(params, cfg, scfg, accountant=acct,
                           scheduler=Scheduler(SchedulerConfig(
@@ -218,7 +252,8 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=rng.integers(lo, hi))
-        eng.submit(prompt, max_tokens=args.max_tokens, n_best=args.nbest)
+        eng.submit(prompt, max_tokens=args.max_tokens,
+                   deadline_ticks=args.deadline_ticks, n_best=args.nbest)
     done = []
     if args.profile_ticks:
         done += eng.step()              # the first admission fills the slots
@@ -240,6 +275,13 @@ def main(argv=None) -> None:
               f"({rep['cow_bytes']:.3g} bytes = {rep['cow_dram_j']:.3e} J "
               f"DRAM), saved {rep['fork_saved_bytes']:.3g} duplicate KV "
               f"bytes = {rep['fork_saved_dram_j']:.3e} J DRAM")
+    if args.fault_kind is not None:
+        print(f"chaos ({args.fault_kind}@{args.fault_tick}): "
+              f"{s['faults_injected']} injected, {s['quarantined']} "
+              f"quarantined, {s['shed']} shed, recovery "
+              f"{s['recovery_j']:.3e} J ({s['recovery_tokens']} toks), "
+              f"{s['degraded_ticks']} degraded ticks, "
+              f"{s['readback_retries']} readback retries")
     if args.spec_k > 0:
         print(f"speculative decode (k={args.spec_k}, {args.spec_drafter}): "
               f"{s['accept_rate']:.1%} accept rate, "

@@ -50,10 +50,20 @@ The numerics sentinel: a slot whose logits go non-finite makes no
 progress that tick and deactivates itself on the device; the host then
 quarantines it (its pages scrubbed and released unpublished) and requeues
 a continuation (prompt plus committed tokens, the remaining budget) at
-the head of the queue; at finish the caller sees one stream. The rest of
-the chaos tier (fault injection, the ladder's other rungs, deadlines, the
-int8 mode's fp oracle) and durability are not ported yet (ROADMAP queue
-1).
+the head of the queue; at finish the caller sees one stream.
+
+The chaos tier (``ServeConfig.faults`` and ``guard``, ``serve/faults.py``):
+a seeded ``FaultPlan`` replays NaN or inf logits (a poison vector added
+inside the tick, from one resident buffer), KV page corruption, pool
+spikes, host stalls, garbled or dropped readbacks and a process kill; the
+tick's packed readback is validated and read again on a transport fault.
+The degradation ladder's rungs, each off until ``GuardrailConfig`` arms it:
+admission retry caps with exponential backoff, per-request deadlines that
+shed queued requests, the spec-k backoff on collapsing acceptance, a
+compaction pause on a straggling tick, the pool auditor, and in the int8
+mode a drift watch against the fp oracle (the params and config before
+quantization) that falls back to fp serving once. Durability (snapshots,
+the journal, restore) is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -71,9 +81,14 @@ from repro_torch.models import costing
 from repro_torch.models import layers
 from repro_torch.models import transformer as tf_lib
 from repro_torch.serve import spec as spec_lib
+from repro_torch.serve.faults import (FaultInjector, FaultPlan,
+                                      GuardrailConfig, ProcessKilled,
+                                      corrupt_kv_page)
 from repro_torch.serve.pages import ROOT, PagePool, block_tokens, fragmentation
 from repro_torch.serve.sampling import _sample
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
+from repro_torch.serve.snapshot import reconcile_ownership
+from repro_torch.train.ft import Ewma
 
 PyTree = Any
 
@@ -128,6 +143,13 @@ class ServeConfig:
     # branch 0 only: multi-branch rejection sampling would need a joint
     # residual scheme to stay unbiased
     spec_tree_m: int = 1
+    # chaos tier: a seeded fault schedule to replay against this engine
+    # (None = no injection), and the guardrail knobs that arm the
+    # degradation ladder's rungs (all-default = the fault-free behavior;
+    # the numerics sentinel is always on)
+    faults: Optional[FaultPlan] = None
+    guard: GuardrailConfig = dataclasses.field(
+        default_factory=GuardrailConfig)
 
 
 @dataclasses.dataclass
@@ -138,7 +160,12 @@ class Request:
     temperature: Optional[float] = None   # None -> ServeConfig.temperature
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    # engine tick at submission (the scheduler's queue-aging term reads it)
+    # per-request deadline: shed from the queue once ``deadline_ticks``
+    # engine ticks have passed since ``submit_tick`` without admission
+    # (None = wait forever)
+    deadline_ticks: Optional[int] = None
+    # engine tick at submission (the scheduler's queue-aging term and the
+    # deadline read it)
     submit_tick: int = -1
     # n-best sampling over copy-on-write forks: n_best > 1 admits ONE
     # prefill and fans out to n_best slots sharing the prompt's committed
@@ -299,12 +326,16 @@ class ServeEngine:
         if params["embed"]["w"].device != self.device:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
                              f"the engine on {self.device}")
+        # the fp oracle pair (the params and config before quantization, by
+        # reference): the drift rung's check and the fp fallback read it
+        self._oracle = (params, cfg)
         if serve_cfg.quant == "int8":
             # int8 weight tree + int8 KV cache; an already-quantized tree
             # (the caller ran quantize_lm) passes through
             cfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
             params = tf_lib.quantize_lm(params)
         self.scfg = serve_cfg
+        self.guard = serve_cfg.guard
         self.accountant = accountant
         self.scheduler = scheduler or Scheduler(SchedulerConfig())
         self._uid = 0
@@ -327,6 +358,32 @@ class ServeEngine:
         self._recovering: set = set()
         self.n_quarantined = 0
         self._tick_quarantined = 0
+        # the chaos tier's state; it survives the fp fallback's rebuild
+        self._injector = (FaultInjector(serve_cfg.faults)
+                          if serve_cfg.faults is not None else None)
+        self._cur_spec_k = serve_cfg.spec_k
+        self._fell_back = False
+        self._pending_shed: List[Request] = []
+        self._defer_counts: Dict[int, int] = {}
+        self._retry_after: Dict[int, int] = {}
+        self._tick_wall_ewma = Ewma(alpha=self.guard.ewma_alpha)
+        self._accept_ewma = Ewma(alpha=self.guard.ewma_alpha)
+        self._drift_ewma = Ewma(alpha=self.guard.ewma_alpha)
+        self._compact_pause_until = 0
+        self._drift_rr = 0
+        self._tick_shed = 0
+        self._rb_retries_tick = 0
+        self.n_shed = 0
+        self.spec_backoffs = 0
+        self.fp_fallbacks = 0
+        self.drift_checks = 0
+        self.compaction_pauses = 0
+        self.audit_failures = 0
+        self.audit_log: List[str] = []
+        self.readback_retries_total = 0
+        # ticks at or before this index already fired their process_kill
+        # (the crash a restore recovered from); -1 until durability lands
+        self._restore_boundary = -1
         self._init_runtime(params, cfg)
 
     def _init_runtime(self, params: PyTree, cfg: tf_lib.LMConfig) -> None:
@@ -392,6 +449,13 @@ class ServeEngine:
         # tree speculation: this tick's staged branch windows,
         # slot -> (window_lo, window_hi, [branch pages or None] * (m - 1))
         self._tree_branches: Dict[int, Tuple[int, int, list]] = {}
+        # the injector's page holds referenced the previous pool
+        self._spike_holds: List[Tuple[int, List[int]]] = []
+        # the logit poison every tick adds: resident zeros, written with
+        # copy_ on a fault tick only (and zeroed after it), so a healthy
+        # tick moves nothing from the host
+        self._poison = torch.zeros(b, dtype=torch.float32, device=dev)
+        self._poison_dirty = False
         # per-tick copy-on-write and fork bills (reset in step())
         self._tick_cow_bytes = 0.0
         self._tick_cow_copies = 0
@@ -420,11 +484,16 @@ class ServeEngine:
     # -- queue API ------------------------------------------------------------
 
     def submit(self, prompt: np.ndarray, max_tokens: int = 16,
-               temperature: Optional[float] = None, n_best: int = 1) -> int:
+               temperature: Optional[float] = None,
+               deadline_ticks: Optional[int] = None,
+               n_best: int = 1) -> int:
         prompt = np.asarray(prompt, np.int32)
         if prompt.size >= self.scfg.max_len:
             raise ValueError(f"prompt length {prompt.size} >= max_len "
                              f"{self.scfg.max_len}")
+        if deadline_ticks is not None and deadline_ticks <= 0:
+            raise ValueError(f"deadline_ticks must be > 0, got "
+                             f"{deadline_ticks}")
         if n_best < 1:
             raise ValueError(f"n_best must be >= 1, got {n_best}")
         if n_best > 1 and not self.scfg.paged:
@@ -447,6 +516,7 @@ class ServeEngine:
         self._uid += 1
         self.scheduler.submit(Request(self._uid, prompt, max_tokens,
                                       temperature,
+                                      deadline_ticks=deadline_ticks,
                                       submit_tick=self._tick_idx,
                                       n_best=n_best))
         return self._uid
@@ -462,6 +532,115 @@ class ServeEngine:
         hot path must do exactly one — the packed done/bad flags)."""
         self.host_readbacks += 1
         return x.cpu().numpy()
+
+    def _checked_readback(self, x: torch.Tensor, validate, tick: int
+                          ) -> np.ndarray:
+        """The tick's readback with transport-fault detection: the injector
+        may drop or garble the host copy (as a real transfer can), and
+        ``validate`` knows the packed layout's value domain. A failed check
+        reads the unchanged device buffer again, up to
+        ``guard.readback_max_retries`` times, then raises."""
+        attempt = 0
+        while True:
+            arr = self._readback(x)
+            if self._injector is not None:
+                arr = self._injector.filter_readback(arr, tick, attempt)
+            if arr is not None and validate(arr):
+                return arr
+            attempt += 1
+            if attempt > self.guard.readback_max_retries:
+                raise RuntimeError(
+                    f"tick {tick}: readback failed validation "
+                    f"{attempt} times")
+            self.readback_retries_total += 1
+            self._rb_retries_tick += 1
+
+    @staticmethod
+    def _validate_plain_packed(arr: np.ndarray) -> bool:
+        return (arr.ndim == 2 and arr.shape[0] == 2
+                and bool(np.isin(arr, (0, 1)).all()))
+
+    def _validate_spec_packed(self, arr: np.ndarray) -> bool:
+        if arr.ndim != 2 or arr.shape[0] != 3:
+            return False
+        flags_ok = bool(np.isin(arr[(0, 2), :], (0, 1)).all())
+        emit_ok = bool(((arr[1] >= 0)
+                        & (arr[1] <= self._cur_spec_k + 1)).all())
+        return flags_ok and emit_ok
+
+    def _validate_tree_packed(self, arr: np.ndarray) -> bool:
+        if arr.ndim != 2 or arr.shape[0] != 4:
+            return False
+        flags_ok = bool(np.isin(arr[(0, 2), :], (0, 1)).all())
+        emit_ok = bool(((arr[1] >= 0)
+                        & (arr[1] <= self._cur_spec_k + 1)).all())
+        win_ok = bool(((arr[3] >= 0)
+                       & (arr[3] < self.scfg.spec_tree_m)).all())
+        return flags_ok and emit_ok and win_ok
+
+    # -- the chaos tier: fault application -----------------------------------
+
+    def _apply_host_faults(self, tick: int) -> None:
+        """Inject this tick's host-side fault events (the logit poison rides
+        the tick instead). Runs before admission, so a pool spike presses
+        this tick's admission and a KV flip is what its decode attends."""
+        inj = self._injector
+        # spike holds expire on schedule whatever else fires
+        keep = []
+        for expires, pages in self._spike_holds:
+            if tick >= expires and self.pool is not None:
+                self.pool.release_all(pages)
+            else:
+                keep.append((expires, pages))
+        self._spike_holds = keep
+        if inj is None:
+            return
+        stall = inj.stall_seconds(tick)
+        if stall > 0.0:
+            time.sleep(stall)
+        for ev in inj.events_for(tick):
+            if ev.kind == "pool_spike" and self.pool is not None:
+                n = min(int(ev.magnitude), self.pool.available)
+                if n > 0:
+                    held = self.pool.alloc(n)
+                    if held is not None:
+                        self._spike_holds.append(
+                            (tick + max(ev.duration, 1), held))
+                        inj.count("pool_spike")
+            elif ev.kind == "kv_bitflip" and self.scfg.paged:
+                self._inject_kv_bitflip(ev)
+            elif ev.kind == "process_kill":
+                # the simulated process death: the exception leaves step();
+                # a kill at or before the restore boundary is the crash a
+                # restore already recovered from and does not fire again
+                if ev.tick > self._restore_boundary:
+                    inj.count("process_kill")
+                    raise ProcessKilled(
+                        f"process_kill fault at tick {tick}: engine state "
+                        f"is gone; a restart needs the durability tier "
+                        f"(snapshots and the journal), not ported yet")
+
+    def _inject_kv_bitflip(self, ev) -> None:
+        """Corrupt one K page of a decoding slot, inside its attended
+        window, so the sentinel (not luck) must catch it. Only decoding
+        slots: a mid-prefill slot's extend readback carries no ``bad``
+        lane, and its poisoned logits would go unobserved."""
+        ps = self.scfg.page_size
+        victims = [i for i, r in enumerate(self.slot_req)
+                   if r is not None and i not in self._prefilling]
+        if ev.slot in victims:
+            victims = [ev.slot]
+        for slot in victims:
+            pages = self._slot_pages[slot]
+            req = self.slot_req[slot]
+            n_live = -(-(len(req.prompt) + self._host_gen[slot]) // ps)
+            lo = self.pool.movable_suffix(pages)
+            cand = [p for j, p in enumerate(pages) if lo <= j < n_live]
+            if not cand:
+                continue
+            corrupt_kv_page(self.state.caches, cand[0])
+            self._injector.count("kv_bitflip")
+            return
 
     # -- admission ------------------------------------------------------------
 
@@ -595,9 +774,26 @@ class ServeEngine:
         """The one deferral path for a selected-but-unallocatable paged
         admission: release the retained hit pages, roll back the lookup's
         stats booking (the retry looks up, and books, again) and requeue
-        head-of-line."""
+        head-of-line.
+
+        The backpressure rung: with ``guard.admit_max_retries`` set, each
+        deferral of a uid counts, and past the cap the request is shed
+        instead of retried; with ``guard.admit_backoff`` set, the retry
+        waits an exponentially growing number of ticks."""
         self.pool.release_all(hits)
         self.pool.unbook_lookup(n_hit0, n_blocks)
+        guard = self.guard
+        n = self._defer_counts.get(req.uid, 0) + 1
+        self._defer_counts[req.uid] = n
+        if guard.admit_max_retries > 0 and n > guard.admit_max_retries:
+            self._defer_counts.pop(req.uid, None)
+            self._retry_after.pop(req.uid, None)
+            self._pending_shed.append(req)
+            self.scheduler.requeue_front(rest)
+            return
+        if guard.admit_backoff > 0:
+            delay = min(guard.admit_backoff * 2 ** (n - 1), 32)
+            self._retry_after[req.uid] = self._tick_idx + delay
         self.scheduler.requeue_front([req] + rest)
 
     def _extend(self, toks, starts, lens, slots, tables, budgets, temps,
@@ -681,6 +877,10 @@ class ServeEngine:
         budget_slots = [len(free)]
 
         def fits(req: Request) -> bool:
+            # the backoff gate: a deferred request sits out its retry
+            # window before it takes any page budget
+            if self._retry_after.get(req.uid, 0) > self._tick_idx:
+                return False
             # conservative: ignores hits (submit() guarantees the demand
             # fits an empty pool, so deferral always terminates); a
             # non-fitting request is not looked up, so it books no stats
@@ -719,6 +919,9 @@ class ServeEngine:
                 admitted = j
                 break
             pages = hits + fresh
+            # admitted: the backpressure bookkeeping clears
+            self._defer_counts.pop(req.uid, None)
+            self._retry_after.pop(req.uid, None)
             slot_pool.pop(0)
             self.slot_req[slot] = req
             self._slot_pages[slot] = pages
@@ -857,6 +1060,10 @@ class ServeEngine:
         thr = self.scfg.compact_threshold
         if thr <= 0.0 or self.pool is None:
             return 0
+        # the latency-pressure rung: a straggling tick pauses this
+        # deferrable work for a window
+        if self._tick_idx < self._compact_pause_until:
+            return 0
         nb, sink = self._blocks_per_slot, self.pool.sink
         for slot, req in enumerate(self.slot_req):
             if req is None or slot in self._prefilling:
@@ -938,7 +1145,8 @@ class ServeEngine:
             np.concatenate([np.asarray(rec["prompt"], np.int32),
                             np.asarray(rec["tokens"], np.int32)]),
             max_tokens=max(rec["max_tokens"] - len(rec["tokens"]), 1),
-            temperature=req.temperature, submit_tick=self._tick_idx,
+            temperature=req.temperature,
+            deadline_ticks=req.deadline_ticks, submit_tick=self._tick_idx,
             # a captured fork member stays a member (its finish banks into
             # the group) but never forks again (n_best stays 1)
             fork_group=req.fork_group, fork_idx=req.fork_idx)
@@ -977,6 +1185,36 @@ class ServeEngine:
         self.scheduler.requeue_front([self._capture_slot(slot)])
         self.n_quarantined += 1
         self._tick_quarantined += 1
+
+    def _shed_request(self, req: Request, finished: List[Request]) -> None:
+        """Fail a request fast (deadline expiry or admission retries spent):
+        it completes with whatever tokens its recovery already banked, and
+        never silently vanishes."""
+        rec = self._recovery.pop(req.uid, None)
+        if rec is not None:
+            req.prompt = rec["prompt"]
+            req.max_tokens = rec["max_tokens"]
+            req.generated = list(rec["tokens"])
+        else:
+            req.generated = []
+        self._recovering.discard(req.uid)
+        self._defer_counts.pop(req.uid, None)
+        self._retry_after.pop(req.uid, None)
+        self._fit_checked.discard(req.uid)
+        req.done = True
+        if req.fork_group is not None:
+            # a shed fork member still reports: the group must close
+            self._record_fork_stream(req.fork_group, req.fork_idx,
+                                     req.generated, finished)
+        elif req.n_best > 1:
+            # shed before its admission forked (no group exists): the
+            # caller still sees an n-best-shaped result
+            req.nbest = [list(req.generated) for _ in range(req.n_best)]
+            finished.append(req)
+        else:
+            finished.append(req)
+        self.n_shed += 1
+        self._tick_shed += 1
 
     def _finish_slot(self, slot: int, finished: List[Request]) -> None:
         req = self.slot_req[slot]
@@ -1151,7 +1389,7 @@ class ServeEngine:
         slot whose copy finds the pool exhausted has its device lane
         deactivated first (so the tick cannot write the shared page) and is
         then quarantined. Returns the decoding slots that remain."""
-        ps, k, sink = self.scfg.page_size, self.scfg.spec_k, self.pool.sink
+        ps, k, sink = self.scfg.page_size, self._cur_spec_k, self.pool.sink
         events: List[Tuple[int, int, int, int, int]] = []
         drop: List[int] = []
         for slot in active:
@@ -1198,7 +1436,7 @@ class ServeEngine:
         drops that branch's lane. Returns the device ``(btables, bvalid)``;
         the staged pages wait in ``_tree_branches`` for ``_commit_tree``."""
         scfg = self.scfg
-        m, k, ps = scfg.spec_tree_m, scfg.spec_k, scfg.page_size
+        m, k, ps = scfg.spec_tree_m, self._cur_spec_k, scfg.page_size
         nslots, nb = scfg.max_slots, self._blocks_per_slot
         sink = self.pool.sink
         btables = np.full((nslots, m - 1, nb), sink, np.int32)
@@ -1263,9 +1501,11 @@ class ServeEngine:
 
     # -- the decode tick ------------------------------------------------------
 
-    def _tick(self, sampled: bool) -> torch.Tensor:
+    def _tick(self, sampled: bool, poison: torch.Tensor) -> torch.Tensor:
         """One decode step over every slot plus sampling and bookkeeping, all
-        on the device. Returns the packed (2, B) int32 ``[done, bad]``."""
+        on the device; ``poison`` (B,) is added to each slot's logits (zeros
+        unless a logit fault fires). Returns the packed (2, B) int32
+        ``[done, bad]``."""
         scfg, st = self.scfg, self.state
         if self.pool is not None:
             # dead and prefilling lanes' K/V writes go to the sink page:
@@ -1277,7 +1517,7 @@ class ServeEngine:
             logits1, _ = tf_lib.decode_step(self.params, self.cfg,
                                             st.tok[:, None], st.pos,
                                             st.caches)
-        logits = logits1[:, 0]                              # (B, V) fp32
+        logits = logits1[:, 0] + poison[:, None]            # (B, V) fp32
         # numerics sentinel: a non-finite logit row makes no progress
         bad = st.active & ~torch.isfinite(logits).all(dim=-1)
         ok = st.active & ~bad
@@ -1298,7 +1538,8 @@ class ServeEngine:
         st.active &= ~done & ~bad
         return torch.stack([done, bad]).to(torch.int32)
 
-    def _spec_tick(self, sampled: bool) -> torch.Tensor:
+    def _spec_tick(self, sampled: bool, poison: torch.Tensor
+                   ) -> torch.Tensor:
         """One speculative tick on the device: draft ``spec_k`` tokens per
         slot, verify them with the pending token in ONE
         ``paged_verify_step``, accept a prefix plus a correction or bonus
@@ -1306,7 +1547,7 @@ class ServeEngine:
         write the output buffer and the history. Returns the packed (3, B)
         int32 ``[done, emitted, bad]``."""
         scfg, st = self.scfg, self.state
-        k = scfg.spec_k
+        k = self._cur_spec_k
         active = st.active
         if scfg.spec_drafter == "oracle":
             # the target model drafts itself greedily: k plain decode
@@ -1329,6 +1570,7 @@ class ServeEngine:
         logits, _ = tf_lib.paged_verify_step(
             self.params, self.cfg, chunk, st.pos, st.page_table, st.caches,
             active=active)                                   # (B, K+1, V)
+        logits = logits + poison[:, None, None]
         # numerics sentinel over the whole q-block: a non-finite logit in
         # any lane voids the slot's tick
         bad = active & ~torch.isfinite(logits).flatten(1).all(dim=1)
@@ -1341,8 +1583,9 @@ class ServeEngine:
         return torch.stack([done.to(torch.int32), n_step.to(torch.int32),
                             bad.to(torch.int32)])
 
-    def _tree_tick(self, sampled: bool, btables: torch.Tensor,
-                   bvalid: torch.Tensor) -> torch.Tensor:
+    def _tree_tick(self, sampled: bool, poison: torch.Tensor,
+                   btables: torch.Tensor, bvalid: torch.Tensor
+                   ) -> torch.Tensor:
         """One tree-speculative tick on the device: draft ``m`` branches
         per slot, fold them into rows ``b * m + j`` of ONE
         ``paged_verify_step`` over the branch tables (branch 0 on the
@@ -1352,7 +1595,7 @@ class ServeEngine:
         with its table swapped in. Returns the packed (4, B) int32
         ``[done, emitted, bad, winner]``."""
         scfg, st = self.scfg, self.state
-        k, m = scfg.spec_k, scfg.spec_tree_m
+        k, m = self._cur_spec_k, scfg.spec_tree_m
         b = st.tok.shape[0]
         active = st.active
         drafts = spec_lib.ngram_draft_tree(st.hist, st.pos, k, m)  # (B,M,K)
@@ -1365,6 +1608,8 @@ class ServeEngine:
             self.params, self.cfg, chunk.reshape(b * m, k + 1),
             st.pos.repeat_interleave(m), tables.reshape(b * m, -1),
             st.caches, active=(active[:, None] & valid).reshape(b * m))
+        # a slot's poison reaches every one of its branch rows
+        logits = logits + poison.repeat_interleave(m)[:, None, None]
         # sentinel: a non-finite logit in ANY valid branch voids the slot's
         # tick (committed-KV corruption hits every branch alike)
         fin = torch.isfinite(logits).flatten(1).all(dim=1).view(b, m)
@@ -1400,7 +1645,7 @@ class ServeEngine:
         or bonus token, never past the token budget or the context cap
         (exactly where the plain tick would have stopped), cut after an
         EOS."""
-        st, k = self.state, self.scfg.spec_k
+        st, k = self.state, self._cur_spec_k
         rem = torch.minimum(st.budget - st.gen,
                             self.scfg.max_len - 1 - st.pos)
         rem = rem.view(rem.shape + (1,) * (n_acc.dim() - 1))
@@ -1424,7 +1669,7 @@ class ServeEngine:
         """Write each good slot's run (B, K+1) of ``n_emit`` tokens to the
         output buffer and the history, advance the slot, set its done flag
         and deactivate done and bad slots. Returns ``(done, n_step)``."""
-        st, k = self.state, self.scfg.spec_k
+        st, k = self.state, self._cur_spec_k
         n_step = torch.where(ok, n_emit, torch.zeros_like(n_emit))
 
         def commit(buf, first):
@@ -1449,19 +1694,155 @@ class ServeEngine:
         st.active &= ~done & ~bad
         return done, n_step
 
+    # -- the degradation ladder's rungs ---------------------------------------
+
+    def _maybe_spec_backoff(self, accepted: int, n_ok: int) -> None:
+        """The acceptance-collapse rung: EWMA the tick's draft acceptance
+        rate; when it sinks below the threshold, halve spec-k. It never
+        climbs back within a run."""
+        guard = self.guard
+        if guard.spec_backoff_threshold <= 0.0 or self._cur_spec_k <= 1:
+            return
+        if n_ok <= 0:
+            return
+        self._accept_ewma.update(accepted / float(self._cur_spec_k * n_ok))
+        if (self._accept_ewma.n >= guard.spec_backoff_window
+                and self._accept_ewma.value < guard.spec_backoff_threshold):
+            self._cur_spec_k = max(1, self._cur_spec_k // 2)
+            self.spec_backoffs += 1
+            self._accept_ewma = Ewma(alpha=guard.ewma_alpha)
+
+    def _maybe_pause_compaction(self, wall_s: float) -> None:
+        """The latency-pressure rung: EWMA the tick's wall time; a tick
+        slower than ``stall_factor`` x the smoothed baseline pauses
+        compaction (the tick's one deferrable piece of work) for a
+        window."""
+        guard = self.guard
+        prev = self._tick_wall_ewma.value
+        seen = self._tick_wall_ewma.n
+        self._tick_wall_ewma.update(wall_s)
+        if guard.stall_factor <= 0.0 or seen < 3 or prev is None:
+            return
+        if (wall_s > guard.stall_factor * prev
+                and self._tick_idx + 1 >= self._compact_pause_until):
+            self._compact_pause_until = (self._tick_idx + 1
+                                         + guard.compact_pause_ticks)
+            self.compaction_pauses += 1
+
+    def _drift_check(self) -> None:
+        """The quantization-drift rung: replay ONE decoding greedy slot's
+        last token through the fp oracle (a teacher-forced prefill of the
+        prompt and the committed tokens but the last) and compare its
+        argmax with what the engine emitted. A disagreement EWMA above
+        ``drift_threshold`` triggers the fp fallback."""
+        guard = self.guard
+        cands = [i for i, r in enumerate(self.slot_req)
+                 if r is not None and i not in self._prefilling
+                 and self._host_gen[i] >= 2
+                 and (r.temperature if r.temperature is not None
+                      else self.scfg.temperature) == 0.0]
+        if not cands:
+            return
+        slot = cands[self._drift_rr % len(cands)]
+        self._drift_rr += 1
+        req = self.slot_req[slot]
+        g = self._host_gen[slot]
+        toks = self._readback(self.state.out_buf[slot, :g])
+        o_params, o_cfg = self._oracle
+        seq = np.concatenate([np.asarray(req.prompt, np.int64),
+                              toks[:-1].astype(np.int64)])
+        lg, _ = tf_lib.prefill(o_params, o_cfg,
+                               torch.from_numpy(seq[None]).to(self.device),
+                               cache_dtype=torch.float32)
+        want = int(torch.argmax(lg[0, -1]))
+        self.drift_checks += 1
+        self._drift_ewma.update(0.0 if want == int(toks[-1]) else 1.0)
+        if (self._drift_ewma.n >= guard.drift_min_checks
+                and self._drift_ewma.value > guard.drift_threshold):
+            self._fallback_to_fp()
+
+    def _fallback_to_fp(self) -> None:
+        """The int8 -> fp fallback: capture every live slot as a
+        continuation, requeue them at the head of the queue, and rebuild the
+        runtime (pool, caches, slot state) from the fp oracle pair. One-way:
+        quantization drift makes every later token suspect. The int8 pool,
+        caches and weights are dropped before the fp runtime allocates."""
+        if self._fell_back:
+            return
+        conts: List[Request] = []
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            conts.append(self._capture_slot(slot))
+        self.scheduler.requeue_front(conts)
+        self.fp_fallbacks += 1
+        self._fell_back = True
+        self._drift_ewma = Ewma(alpha=self.guard.ewma_alpha)
+        self.state = self.params = self.pool = None
+        self._init_runtime(*self._oracle)
+
+    def _run_audit(self) -> None:
+        """The pool auditor: the pool's own invariants plus the ownership
+        reconciliation (every page's refcount covers its appearances across
+        the slots' page lists and the injector's spike holds; no slot lists
+        a page twice). Violations are recorded, never raised."""
+        violations = self.pool.audit()
+        violations += reconcile_ownership(self.pool, self._slot_pages,
+                                          self._spike_holds)
+        if violations:
+            self.audit_failures += len(violations)
+            self.audit_log.extend(
+                f"tick {self._tick_idx}: {v}" for v in violations)
+
+    # -- the engine tick ------------------------------------------------------
+
+    def _tick_poison(self, tick: int, active: List[int]) -> torch.Tensor:
+        """This tick's logit poison: the resident buffer, which holds zeros
+        unless a logit fault fires now (then the injector's vector is
+        copied in, and the buffer is zeroed on the device after the
+        tick)."""
+        if self._poison_dirty:
+            self._poison.zero_()
+            self._poison_dirty = False
+        if self._injector is not None:
+            pv = self._injector.logit_poison(tick, active,
+                                             self.scfg.max_slots)
+            if pv is not None:
+                self._poison.copy_(torch.from_numpy(pv))
+                self._poison_dirty = True
+        return self._poison
+
     def step(self) -> List[Request]:
         """Admit + one decode tick. Returns finished requests."""
         t0 = time.monotonic()
+        tick = self._tick_idx
         finished: List[Request] = []
+        self._tick_shed = 0
         self._tick_quarantined = 0
+        self._rb_retries_tick = 0
         self._tick_cow_bytes = 0.0
         self._tick_cow_copies = 0
         self._tick_forks = 0
         self._tick_fork_saved_bytes = 0.0
         self._tick_fork_saved_flops = 0.0
+        inj0 = (self._injector.faults_injected
+                if self._injector is not None else 0)
+        # deadline shedding: queued requests whose wait passed their
+        # deadline complete failed-fast before any admission work
+        for req in self.scheduler.drop(
+                lambda r: (r.deadline_ticks is not None
+                           and r.submit_tick >= 0
+                           and tick - r.submit_tick > r.deadline_ticks)):
+            self._shed_request(req, finished)
+        # host-side faults land before admission
+        self._apply_host_faults(tick)
         paged = self.pool is not None
         adm = (self._admit_paged(finished) if paged
                else self._admit_dense(finished))
+        # admission retries spent: shed what _defer_admission queued
+        for req in self._pending_shed:
+            self._shed_request(req, finished)
+        self._pending_shed = []
         moves = self._maybe_compact()
         # decoding slots only: a mid-prefill paged slot and a fork child
         # reserved for a parent still in prefill hold a slot but decode
@@ -1477,22 +1858,31 @@ class ServeEngine:
         # captured before finishes clear the slot: the paged KV read bill
         ctx = sum(len(self.slot_req[i].prompt) + self._host_gen[i]
                   for i in active) if paged else 0
-        spec_k, tree_m = self.scfg.spec_k, self.scfg.spec_tree_m
+        spec_k, tree_m = self._cur_spec_k, self.scfg.spec_tree_m
         emitted = len(active)       # decode tokens this tick (plain: 1/slot)
         accepted = 0
         if active:
             sampled = any(self._host_temp[i] > 0 for i in active)
+            poison = self._tick_poison(tick, active)
+            # the ONE hot-path transfer, validated: a garbled or dropped
+            # copy is read again from the unchanged device buffer. Rows:
+            # [done, bad] plain; [done, emitted, bad] speculative;
+            # [done, emitted, bad, winner] on a tree
             if tree_m > 1:
                 # stage the branch windows, run the folded verify, then
                 # resolve the winners' pages on the host
-                packed = self._tree_tick(sampled, *self._prepare_tree(active))
+                packed = self._tree_tick(sampled, poison,
+                                         *self._prepare_tree(active))
+                arr = self._checked_readback(
+                    packed, self._validate_tree_packed, tick)
             elif spec_k > 0:
-                packed = self._spec_tick(sampled)
+                packed = self._spec_tick(sampled, poison)
+                arr = self._checked_readback(
+                    packed, self._validate_spec_packed, tick)
             else:
-                packed = self._tick(sampled)
-            arr = self._readback(packed)    # the ONE hot-path transfer
-            # rows: [done, bad] plain; [done, emitted, bad] speculative;
-            # [done, emitted, bad, winner] on a tree
+                packed = self._tick(sampled, poison)
+                arr = self._checked_readback(
+                    packed, self._validate_plain_packed, tick)
             done_mask = arr[0].astype(bool)
             bad_mask = arr[1 if spec_k == 0 else 2].astype(bool)
             if tree_m > 1:
@@ -1514,10 +1904,13 @@ class ServeEngine:
             # flagged slots made no progress and deactivated themselves on
             # the device: quarantine them (teardown and a continuation at
             # the head of the queue); the other slots' streams are untouched
+            n_bad = int(sum(1 for i in active if bad_mask[i]))
             for i in np.nonzero(bad_mask)[0]:
                 if (self.slot_req[int(i)] is not None
                         and int(i) not in self._prefilling):
                     self._quarantine_slot(int(i))
+            if spec_k > 0:
+                self._maybe_spec_backoff(accepted, len(active) - n_bad)
         # modeled traffic/compute: the decode tick streams the weight tree
         # once; the dense tick reads the whole resident KV payload (every
         # slot billed at max_len, as the JAX dense path bills it), the paged
@@ -1575,8 +1968,22 @@ class ServeEngine:
         # copy-on-write copies (barrier and tree boundary) are page traffic,
         # also broken out on their own channel
         kvb += self._tick_cow_bytes
-        m = StepMetrics(tokens=emitted, active_slots=na,
-                        wall_s=time.monotonic() - t0,
+        # the periodic detection rungs (rare paths, off the hot tick and
+        # bounded by their intervals)
+        guard = self.guard
+        if (guard.drift_check_interval > 0 and not self._fell_back
+                and self.scfg.quant == "int8"
+                and tick % guard.drift_check_interval == 0):
+            self._drift_check()
+        if (guard.audit_interval > 0 and paged
+                and tick % guard.audit_interval == 0):
+            self._run_audit()
+        degraded = int(self._cur_spec_k != self.scfg.spec_k
+                       or self._fell_back
+                       or tick < self._compact_pause_until)
+        wall = time.monotonic() - t0
+        self._maybe_pause_compaction(wall)
+        m = StepMetrics(tokens=emitted, active_slots=na, wall_s=wall,
                         prefill_tokens=adm.prefill_tokens,
                         admitted=adm.admitted,
                         queue_depth=len(self.scheduler),
@@ -1590,10 +1997,16 @@ class ServeEngine:
                         verify_flops=v_fl, verify_bytes=v_by,
                         prefill_gather_bytes=adm.gather_bytes,
                         compaction_moves=moves,
+                        faults_injected=(
+                            self._injector.faults_injected - inj0
+                            if self._injector is not None else 0),
                         quarantined=self._tick_quarantined,
+                        shed=self._tick_shed,
                         recovery_tokens=adm.recovery_tokens,
                         recovery_flops=adm.recovery_flops,
                         recovery_bytes=adm.recovery_bytes,
+                        degraded=degraded,
+                        readback_retries=self._rb_retries_tick,
                         cow_bytes=self._tick_cow_bytes,
                         cow_copies=self._tick_cow_copies,
                         forks=self._tick_forks,
@@ -1657,21 +2070,31 @@ class ServeEngine:
             # emitted decode tokens per slot-tick (plain decode: 1.0)
             out["accepted_tokens_per_tick"] = (
                 toks / slot_ticks if slot_ticks > 0 else 0.0)
-            # the backoff rung belongs to the chaos tier (ROADMAP item 7)
-            out["spec_backoffs"] = 0
-            out["spec_k_current"] = self.scfg.spec_k
-        # the quarantine rung of the chaos tier; its other keys wait for
-        # their mechanisms (ROADMAP item 7)
+            out["spec_backoffs"] = self.spec_backoffs
+            out["spec_k_current"] = self._cur_spec_k
+        # the chaos tier: every ratio guards its denominator (0.0 on an
+        # empty or fully shed run)
         n_ticks = len(self.metrics_log)
+        done_total = self.n_shed + self.n_finished_ok
         rec_fl = sum(m.recovery_flops for m in self.metrics_log)
         rec_by = sum(m.recovery_bytes for m in self.metrics_log)
+        out["faults_injected"] = sum(m.faults_injected
+                                     for m in self.metrics_log)
         out["quarantined"] = self.n_quarantined
         out["quarantine_rate"] = (self.n_quarantined / n_ticks
                                   if n_ticks > 0 else 0.0)
+        out["shed"] = self.n_shed
+        out["shed_rate"] = (self.n_shed / done_total
+                            if done_total > 0 else 0.0)
         out["recovery_tokens"] = sum(m.recovery_tokens
                                      for m in self.metrics_log)
         out["recovery_j"] = (energy.compute_energy_j(rec_fl)
                              + energy.dram_energy_j(rec_by))
         out["recovery_j_per_token"] = (out["recovery_j"] / toks
                                        if toks > 0 else 0.0)
+        out["degraded_ticks"] = sum(m.degraded for m in self.metrics_log)
+        out["readback_retries"] = self.readback_retries_total
+        out["fp_fallbacks"] = self.fp_fallbacks
+        out["compaction_pauses"] = self.compaction_pauses
+        out["audit_failures"] = self.audit_failures
         return out

@@ -3,8 +3,9 @@ behave as their originals: the scheduler and the page pool state for
 state, the sustainability engine, the int8 quantizer's constants, the
 speculative drafters' names, the speculative cost model, the training
 token pipeline, the fleet fault-tolerance module (heartbeats, health
-monitor, elastic planner), the sustainability advisor and the CNN
-configs value for value. The only difference allowed is
+monitor, elastic planner), the sustainability advisor, the CNN configs,
+the host half of the fault injector and the pool auditor's ownership
+reconciliation value for value. The only difference allowed is
 the port's extra ``h100_sxm`` device.
 """
 
@@ -27,8 +28,10 @@ from repro.models import cnn as j_cnn
 from repro.models import costing as j_costing
 from repro.quant import int8 as j_int8
 from repro.serve import engine as j_engine
+from repro.serve import faults as j_faults
 from repro.serve import pages as j_pages
 from repro.serve import scheduler as j_sched
+from repro.serve import snapshot as j_snapshot
 from repro.serve import spec as j_spec
 from repro.train import ft as j_ft
 from repro_torch.core import advisor as t_advisor
@@ -43,8 +46,10 @@ from repro_torch.models import cnn as t_cnn
 from repro_torch.models import costing as t_costing
 from repro_torch.quant import int8 as t_int8
 from repro_torch.serve import engine as t_engine
+from repro_torch.serve import faults as t_faults
 from repro_torch.serve import pages as t_pages
 from repro_torch.serve import scheduler as t_sched
+from repro_torch.serve import snapshot as t_snapshot
 from repro_torch.serve import spec as t_spec
 from repro_torch.train import ft as t_ft
 
@@ -159,6 +164,71 @@ def test_page_pool_state_for_state(policy, seed):
         j_pages.block_tokens([1, 2, 3, 4, 5], 2)
     assert t_pages.fragmentation([3, 4, 9, 1]) == \
         j_pages.fragmentation([3, 4, 9, 1])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_reconcile_ownership_equal(seed):
+    """Random slot page lists over a pool in which pages were allocated,
+    forked and released (a page listed twice by a slot, a page the pool
+    freed, a page shared by more slots than hold it) and random spike
+    holds: both packages' ``reconcile_ownership``, each over its own pool
+    in the same state, return the same violations."""
+    rng = np.random.default_rng(seed)
+    pools = [m.PagePool(16, 4) for m in (j_pages, t_pages)]
+    held = [p.alloc(10) for p in pools][0]
+    assert all(p.fork(held[:3]) == held[:3] for p in pools)
+    for p in pools:
+        p.release_all(held[8:])
+    found = 0
+    for _ in range(40):
+        pages = list(range(16))
+        slots = [[int(x) for x in rng.choice(pages, int(rng.integers(0, 5)))]
+                 for _ in range(3)]
+        holds = [(int(rng.integers(0, 9)),
+                  [int(x) for x in rng.choice(pages, int(rng.integers(0,
+                                                                      3)))])
+                 for _ in range(int(rng.integers(0, 3)))]
+        got = [m.reconcile_ownership(p, slots, holds)
+               for m, p in zip((j_snapshot, t_snapshot), pools)]
+        assert got[0] == got[1]
+        found += len(got[1])
+    assert found > 0
+    assert t_snapshot.reconcile_ownership(pools[1], [held[:8]], []) == []
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_fault_injector_host_half_equal(seed):
+    """A random plan over every kind (several events a tick, victims in and
+    out of the active set): for every tick both injectors give the same
+    stall seconds, the same poison vector (NaN, +inf or None), the same
+    filtered readback on the first attempt and a retry, and the same
+    ledger."""
+    rng = np.random.default_rng(seed)
+    events = [(int(rng.integers(0, 12)), str(rng.choice(j_faults.FAULT_KINDS)),
+               int(rng.integers(-1, 4)), float(rng.integers(1, 4)),
+               int(rng.integers(1, 3))) for _ in range(24)]
+    injectors = [m.FaultInjector(m.FaultPlan(seed=seed, events=tuple(
+        m.FaultEvent(*e) for e in events))) for m in (j_faults, t_faults)]
+    assert injectors[0].plan.max_tick == injectors[1].plan.max_tick
+    for tick in range(13):
+        active = sorted(int(x) for x in rng.choice(4, int(rng.integers(0, 4)),
+                                                   replace=False))
+        arr = rng.integers(0, 2, (3, 4)).astype(np.int32)
+        out = [(inj.stall_seconds(tick), inj.logit_poison(tick, active, 4),
+                [inj.filter_readback(arr, tick, a) for a in (0, 1)],
+                dict(inj.counts), inj.faults_injected)
+               for inj in injectors]
+        assert out[0][0] == out[1][0]
+        if out[0][1] is None:
+            assert out[1][1] is None
+        else:
+            np.testing.assert_array_equal(out[0][1], out[1][1])
+        for a, b in zip(out[0][2], out[1][2]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+        assert out[0][3:] == out[1][3:]
+    assert sum(injectors[1].counts.values()) > 0
 
 
 def test_scheduler_rejects_unknown_policy():
