@@ -8,7 +8,8 @@ against its plain PyTorch version at the main path's shapes, then drives the
 dense, the paged and the speculative serve paths of starcoder2-7b at full
 width and full depth with random weights from a seed, unquantized and in
 the int8 mode (with tree speculation, n-best forks, a quarantined slot,
-and the chaos tier's seeded faults and degradation ladder), the fused
+the chaos tier's seeded faults and degradation ladder, and the
+durability tier's kill, snapshot restore and journal replay), the fused
 training tick at full width and 8 layers, the checkpointing Trainer on
 the ~100M e2e model at full size, the port's train and kernel benches,
 and the paper's ternary AlexNet and VGG-16 at full size.
@@ -127,6 +128,18 @@ non-zero and prints no result:
    fp fallback (its count and the drift checks reported); K2, K5 (T = 5)
    and K3 in their int8-KV modes against their plain versions on pools
    whose K codes were XORed with 0x55 (codes -128..127);
+5c. durability, on phase 5's fp32 params, prompts and streams: the
+   paged, speculative (k = 4) and dense engines, then an int8 paged
+   engine built from the fp32 params, each snapshotting every 4 ticks
+   into a temporary directory and killed (``process_kill``) at tick 7,
+   dropped, restored by a fresh engine (the tick-4 snapshot, 3 ticks of
+   the journal replayed) and drained, journaling only: phase 5's streams
+   token for token,
+   3 replayed ticks, restore_j > 0, a clean pool and audit, the split
+   kernels' counters at zero; an int8 run with ``_fallback_to_fp()``
+   forced before tick 3 restores the fp runtime (``_fell_back``, an fp32
+   pool) and gives the streams of the same forced run without a crash;
+   the restore seconds split into loading and replay are reported;
 6. serve: bf16 weights, fp32 cache, 8 slots, max_len 2048, 16 requests of
    32-1024 prompt tokens and 64 new tokens each; K1 launches must be
    decode ticks x 32 layers;
@@ -178,6 +191,18 @@ non-zero and prints no result:
    requests with ``_fallback_to_fp()`` forced before tick 3: every
    request its 32 tokens, a clean pool, K2 and K3 on their tensor cores
    before and on SIMT after, no K4 after; the fallback's host seconds;
+8f. durability at full width, per mode after 8e: phase 7's traffic on a
+   durable engine killed at tick 3 (snapshots every 2 ticks: the tick-2
+   snapshot its restore loads holds slots mid-prefill and queued
+   requests) and, after that restore, at tick 40 (snapshots every 32
+   ticks: 8 ticks replayed), each time dropped and replaced by a fresh
+   engine that restores and serves on (the last journaling only): phase 7's streams (phase 8's int8
+   paged streams), each restore's replayed ticks its kill tick minus its
+   snapshot's, restore_j > 0, a clean pool and audit, K2 = decode ticks x
+   32 and K3 = extend calls x 32 (K4 as in phase 8) over every tick the
+   three engines ran; reports each snapshot's host seconds and GB, each
+   restore's seconds split into loading and replay, the journal bytes,
+   the write joules, restore J/token and the durability bytes a tick;
 4b. flash kernels: K6 (forward with lse), K7 (dQ) and K8 (dK, dV) against
    their plain versions at the training path's shapes (B=2, S=2048, H=36,
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
@@ -2976,6 +3001,10 @@ def phase_streams():
     _nbest_streams(params, cfg, paged_cfg, prompts, paged)
     _quarantine_streams(params, cfg, paged_cfg, prompts, paged)
     phase_chaos_streams(params, cfg, paged_cfg, prompts, paged)
+    phase_durability_streams(params, cfg, {
+        "paged": paged_cfg,
+        "spec": dataclasses.replace(paged_cfg, spec_k=SPEC_K),
+        "dense": scfg}, prompts, paged, "none")
     # int8: the engine quantizes at construction; the reference and the
     # paged engine take its quantized params and INT8_QUANT cfg
     int8_cfg = dataclasses.replace(scfg, quant="int8")
@@ -2983,7 +3012,6 @@ def phase_streams():
     eng = ServeEngine(params, cfg, int8_cfg)
     quant_s = time.monotonic() - t0
     qparams, qcfg = eng.params, eng.cfg
-    del params
     got = run_workload(eng, prompts, 16)
     want = run_workload(ReferenceEngine(qparams, qcfg, int8_cfg), prompts,
                         16)
@@ -2996,6 +3024,12 @@ def phase_streams():
         raise AssertionError(f"fp32 int8 paged streams differ from the "
                              f"dense int8 engine's: paged {paged}, dense "
                              f"{got}")
+    # phase 5c's int8 engines are built from the fp32 params (their fp
+    # oracle, which the forced fallback rebuilds from)
+    phase_durability_streams(params, cfg, {
+        "paged": dataclasses.replace(paged_cfg, quant="int8")}, prompts,
+        paged, "int8")
+    del params
     _tree_streams(qparams, qcfg, dataclasses.replace(paged_cfg,
                                                      quant="int8"),
                   prompts, paged)
@@ -3350,6 +3384,163 @@ def phase_chaos_streams(params, cfg, paged_cfg, prompts, want):
     del eng
     _xor_pool_kernels()
     emit({"phase": "chaos_streams_total",
+          "seconds": time.monotonic() - t_phase})
+
+
+# phase 5c: the process_kill tick and the snapshot interval of the fp32
+# kill-and-restore runs (a snapshot at tick 4, ticks 4-6 replayed), and the
+# tick before which one int8 run forces its fp fallback
+KILL_TICK, KILL_INTERVAL, FALLBACK_TICK = 7, 4, 3
+
+
+def _timed_restore(eng):
+    """``eng.restore()`` with its host seconds split into loading (the
+    manifest, the checksum, the arrays, the host state, the audit) and the
+    replayed ticks. Returns (recovered requests, report)."""
+    import torch
+    steps = _host_timed(eng, "step")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    recovered = eng.restore()
+    torch.cuda.synchronize()
+    total = time.monotonic() - t0
+    del eng.step
+    replay = sum(sec for sec, _ in steps)
+    return recovered, {"restore_s": total, "load_s": total - replay,
+                       "replay_s": replay}
+
+
+def _free_device():
+    """After the caller dropped its last reference to an engine (the
+    simulated crash): its tensors freed before the next engine allocates
+    its own."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _kill_and_restore(params, cfg, scfg, prompts, n_new, prepare=None):
+    """A durable engine of ``scfg`` (snapshots every KILL_INTERVAL ticks
+    into a temporary directory) killed at KILL_TICK, dropped, and a fresh
+    engine restored from the directory and drained (journal only: the
+    snapshots after a restore are cut to keep the phase short).
+    ``prepare(eng, t)`` runs before each of the dead engine's ticks.
+    Returns the restored engine, the streams by uid and a report."""
+    import shutil
+    import tempfile
+    from repro_torch.serve import FaultPlan, ProcessKilled, ServeEngine
+    d = tempfile.mkdtemp(prefix="chip_smoke_durable.")
+    try:
+        scfg = dataclasses.replace(
+            scfg, checkpoint_dir=d, checkpoint_interval=KILL_INTERVAL,
+            faults=FaultPlan.single("process_kill", tick=KILL_TICK))
+        eng = ServeEngine(params, cfg, scfg)
+        writes = _host_timed(eng, "_write_snapshot")
+        for p in prompts:
+            eng.submit(p, max_tokens=n_new)
+        killed = False
+        for t in range(10000):
+            if prepare is not None:
+                prepare(eng, t)
+            try:
+                eng.step()
+            except ProcessKilled:
+                killed = True
+                break
+        if not killed or eng._tick_idx != KILL_TICK:
+            raise AssertionError(f"durability: the kill at tick {KILL_TICK} "
+                                 f"did not fire (engine at tick "
+                                 f"{eng._tick_idx})")
+        eng = None
+        _free_device()
+        eng = ServeEngine(params, cfg, dataclasses.replace(
+            scfg, checkpoint_interval=0))
+        recovered, rep = _timed_restore(eng)
+        got = {r.uid: list(r.generated) for r in recovered}
+        got.update({r.uid: list(r.generated)
+                    for r in eng.run_until_drained()})
+        want_replay = KILL_TICK - KILL_TICK // KILL_INTERVAL * KILL_INTERVAL
+        s = eng.summary()
+        if s["replayed_ticks"] != want_replay or s["restore_j"] <= 0:
+            raise AssertionError(
+                f"durability: replayed {s['replayed_ticks']} ticks (want "
+                f"{want_replay}), restore_j {s['restore_j']}")
+        rep.update({"replayed_ticks": s["replayed_ticks"],
+                    "snapshot_s": [sec for sec, _ in writes],
+                    "snapshot_gb": [nbytes / 1e9 for _, nbytes in writes],
+                    "journal_bytes": s["journal_bytes"],
+                    "restore_j": s["restore_j"]})
+        return eng, got, rep
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_durability_streams(params, cfg, scfgs, prompts, want, quant):
+    """Phase 5c on phase 5's fp32 params and prompts: a process kill at
+    KILL_TICK, a restore from the tick-4 snapshot and the journal, and a
+    drain, on each engine of ``scfgs`` (name -> ServeConfig): the streams
+    ``want`` (phase 5's), a clean pool and audit, the split kernels'
+    counters at zero. In the int8 mode (engines built from the fp32
+    params, their fp oracle) one more run forces ``_fallback_to_fp()``
+    before tick FALLBACK_TICK, so its snapshot holds the fp runtime: the
+    restored engine must have rebuilt it (``_fell_back``, an fp32 pool) and
+    give the streams of the same forced run without a crash."""
+    import torch
+    from repro_torch.serve import ServeEngine, generation_agreement
+    t_phase = time.monotonic()
+    rows = []
+
+    def check(name, eng, got, want_streams, rep):
+        live, audit, finite = (_pool_state(eng) if eng.pool is not None
+                               else (0, [], True))
+        if (got != want_streams or live or audit or not finite
+                or not _split_counters_zero()):
+            raise AssertionError(
+                f"durability ({name}, {quant}): streams equal "
+                f"{got == want_streams} (first difference "
+                f"{_first_diff(got, want_streams)}), {live} pages live, "
+                f"audit {audit}, finite {finite}")
+        rows.append({"engine": name, **rep})
+
+    for name, scfg in scfgs.items():
+        eng, got, rep = _kill_and_restore(params, cfg, scfg, prompts, 16)
+        check(name, eng, got, want, rep)
+        eng = None
+        _free_device()
+    if quant == "int8":
+        def force(eng, t):
+            if t == FALLBACK_TICK:
+                eng._fallback_to_fp()
+
+        scfg = scfgs["paged"]
+        eng = ServeEngine(params, cfg, scfg)
+        for p in prompts:
+            eng.submit(p, max_tokens=16)
+        done = []
+        for t in range(10000):
+            force(eng, t)
+            done += eng.step()
+            if not len(eng.scheduler) and all(r is None
+                                              for r in eng.slot_req):
+                break
+        forced = {r.uid: list(r.generated) for r in done}
+        eng = None
+        _free_device()
+        eng, got, rep = _kill_and_restore(params, cfg, scfg, prompts, 16,
+                                          prepare=force)
+        pool_dtype = eng.state.caches["pat0"]["kv"].k.dtype
+        if not (eng._fell_back and pool_dtype == torch.float32):
+            raise AssertionError(f"durability: the fell-back snapshot "
+                                 f"restored fell_back {eng._fell_back}, "
+                                 f"a {pool_dtype} pool")
+        check("paged_fp_fallback", eng, got, forced, rep)
+        rows[-1]["agreement_with_int8_paged"] = generation_agreement(
+            forced, want)["agreement"]
+        eng = None
+        _free_device()
+    emit({"phase": "durability_streams", "dtype": "float32", "quant": quant,
+          "kill_tick": KILL_TICK, "checkpoint_interval": KILL_INTERVAL,
+          "runs": rows, "identical": True,
           "seconds": time.monotonic() - t_phase})
 
 
@@ -3787,16 +3978,17 @@ def _chaos_plan(num_pages):
 
 def _host_timed(eng, name):
     """Replace the engine's method ``name`` by one that records each call's
-    host seconds; returns the list they go to."""
-    method, secs = getattr(eng, name), []
+    (host seconds, return value); returns the list they go to. ``del
+    eng.<name>`` puts the class's method back."""
+    method, calls = getattr(eng, name), []
 
     def timed(*args, **kw):
         t0 = time.monotonic()
         out = method(*args, **kw)
-        secs.append(time.monotonic() - t0)
+        calls.append((time.monotonic() - t0, out))
         return out
     setattr(eng, name, timed)
-    return secs
+    return calls
 
 
 def phase_chaos_serve(cfg, params, quant, plain):
@@ -3841,8 +4033,8 @@ def phase_chaos_serve(cfg, params, quant, plain):
           "ticks": s["ticks"], "phase7_ticks": base["ticks"],
           "host_ms_per_tick": 1e3 * s["wall_s"] / s["ticks"],
           "phase7_host_ms_per_tick": 1e3 * base["wall_s"] / base["ticks"],
-          "audit_host_ms_per_tick": 1e3 * sum(audit_s) / max(len(audit_s),
-                                                             1),
+          "audit_host_ms_per_tick": 1e3 * sum(sec for sec, _ in audit_s)
+          / max(len(audit_s), 1),
           "audits": len(audit_s),
           "agreement_with_phase7": {
               **generation_agreement(streams, base_streams),
@@ -3940,6 +4132,156 @@ def phase_forced_fallback(cfg, params):
           "recovery_tokens": eng.summary()["recovery_tokens"]})
 
 
+# phase 8f: the first life snapshots every EARLY_INTERVAL ticks and dies at
+# EARLY_KILL, so the snapshot its restore loads is one of the first
+# chunked prefills (phase 7's traffic has slots mid-prefill at ticks 1-3
+# and at no later snapshot tick); the second snapshots every
+# SERVE_INTERVAL ticks and dies at SERVE_KILL, SERVE_KILL - SERVE_INTERVAL
+# ticks past its last snapshot; the third journals only (its snapshots,
+# 6 s each at the fp32 pool, are cut to keep the phase short)
+EARLY_INTERVAL, EARLY_KILL, SERVE_INTERVAL, SERVE_KILL = 2, 3, 32, 40
+
+
+def phase_durability_serve(cfg, params, quant, plain):
+    """Phase 8f on the bf16 weights in one mode: phase 7's traffic on a
+    durable paged engine killed twice (``process_kill`` at EARLY_KILL and
+    SERVE_KILL), each time dropped and replaced by a fresh engine that
+    restores from the directory (the last journals only, without
+    snapshots): the snapshot the first restore loads
+    holds slots mid-prefill and queued requests, the second replays
+    SERVE_KILL - SERVE_INTERVAL ticks. Asserted: the streams phase 7's
+    (``plain``; phase 8's paged int8 streams in the int8 mode), each
+    restore's replayed ticks its kill tick minus its snapshot's tick,
+    restore_j > 0, a clean pool and audit, and K2 = decode ticks x 32, K3
+    = extend calls x 32 (K4 as in phase 8) over the ticks the three
+    engines ran (pre-crash, replayed and after the restore). Reported: each
+    snapshot's host seconds and GB, each restore's seconds split into
+    loading and replay, the journal bytes, durability_write_j,
+    restore_j_per_token and ``durability_overhead_bytes_per_tick`` at
+    SERVE_INTERVAL. Returns the launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import energy
+    from repro_torch.models import costing
+    from repro_torch.serve import (FaultEvent, FaultPlan, ProcessKilled,
+                                   ServeEngine)
+    t_phase = time.monotonic()
+    d = tempfile.mkdtemp(prefix="chip_smoke_serve_durable.")
+    try:
+        plan = FaultPlan(seed=SEED, events=(
+            FaultEvent(tick=EARLY_KILL, kind="process_kill"),
+            FaultEvent(tick=SERVE_KILL, kind="process_kill")))
+        base = _paged_scfg(quant, checkpoint_dir=d, faults=plan)
+        lives = [dataclasses.replace(base, checkpoint_interval=n)
+                 for n in (EARLY_INTERVAL, SERVE_INTERVAL, 0)]
+        acct = _accountant()
+        prompts = _paged_traffic(cfg)
+        eng = ServeEngine(params, cfg, lives[0], accountant=acct)
+        for p in prompts:
+            eng.submit(p, max_tokens=64)
+        torch.cuda.synchronize()
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        executed, snapshots, restores, done = [], [], [], {}
+        start = 0
+        for life in range(len(lives)):
+            writes = _host_timed(eng, "_write_snapshot")
+            try:
+                for r in eng.run_until_drained():
+                    done[r.uid] = list(r.generated)
+                killed = False
+            except ProcessKilled:
+                killed = True
+            torch.cuda.synchronize()
+            executed += eng.metrics_log[start:]
+            snapshots += [(sec, nbytes / 1e9) for sec, nbytes in writes]
+            if not killed:
+                break
+            kill_tick = eng._tick_idx
+            eng = None
+            _free_device()
+            eng = ServeEngine(params, cfg, lives[life + 1],
+                              accountant=acct)
+            step = eng._ckpt_mgr.latest_step()
+            extra = eng._ckpt_mgr.peek_extra(step)
+            replayed0 = eng.replayed_ticks
+            recovered, rep = _timed_restore(eng)
+            for r in recovered:
+                done[r.uid] = list(r.generated)
+            restores.append({
+                "kill_tick": kill_tick, "snapshot_tick": step,
+                "snapshot_prefilling_slots": len(extra["prefilling"]),
+                "snapshot_queued": len(extra["queue"]),
+                "replayed_ticks": eng.replayed_ticks - replayed0
+                - extra["durability"]["replayed_ticks"], **rep})
+            start = step
+        s = eng.summary()
+        first, second = restores if len(restores) == 2 else (None, None)
+        decode_ticks = sum(1 for m in executed if m.active_slots > 0)
+        extends = sum(1 for m in executed if m.prefill_tokens > 0)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = {name: 0 for name in launches}
+        want.update({"paged_decode_attention": decode_ticks * N_LAYERS,
+                     "paged_prefill_attention": extends * N_LAYERS})
+        if quant == "int8":
+            want["int8_matmul"] = (decode_ticks + extends) * N_LAYERS * 6
+        live, audit, _ = _pool_state(eng)
+        base_streams = plain[0]
+        if not (first is not None and first["kill_tick"] == EARLY_KILL
+                and first["snapshot_prefilling_slots"] > 0
+                and first["snapshot_queued"] > 0
+                and second["kill_tick"] == SERVE_KILL
+                and second["snapshot_tick"] == SERVE_INTERVAL
+                and all(r["replayed_ticks"] == r["kill_tick"]
+                        - r["snapshot_tick"] for r in restores)
+                and s["restore_j"] > 0 and done == base_streams
+                and launches == want and not live and not audit):
+            raise AssertionError(
+                f"durability_serve ({quant}): restores {restores}, "
+                f"restore_j {s['restore_j']}, streams equal "
+                f"{done == base_streams} (first difference "
+                f"{_first_diff(done, base_streams)}), launches {launches} "
+                f"!= {want}, {live} pages live, audit {audit}")
+        snap_gb = [gb for _, gb in snapshots]
+        journal_file = (Path(d) / "journal.jsonl").stat().st_size
+        journal_per_tick = journal_file / len(executed)
+        emit({"phase": "durability_serve", "dtype": "bfloat16",
+              "quant": quant, "cache": "int8" if quant == "int8"
+              else "float32", "requests": len(prompts),
+              "new_tokens_each": 64, "restores": restores,
+              "snapshots": len(snapshots),
+              "snapshot_s": [sec for sec, _ in snapshots],
+              "snapshot_gb": snap_gb,
+              "snapshot_gb_per_s": sum(snap_gb) / max(
+                  sum(sec for sec, _ in snapshots), 1e-9),
+              "journal_bytes": s["journal_bytes"],
+              "journal_file_bytes": journal_file,
+              # the summary bills the writes the restored state knew of (a
+              # snapshot does not hold its own bytes, and the last engine
+              # takes none); written_j bills every byte the three engines
+              # put on disk
+              "durability_write_j": s["durability_write_j"],
+              "written_j": energy.dram_energy_j(1e9 * sum(snap_gb)
+                                                + journal_file),
+              "restore_j": s["restore_j"],
+              "restore_j_per_token": s["restore_j_per_token"],
+              "durability_overhead_bytes_per_tick":
+                  costing.durability_overhead_bytes_per_tick(
+                      1e9 * sum(snap_gb) / max(len(snap_gb), 1),
+                      journal_per_tick, SERVE_INTERVAL),
+              "expected_replay_ticks": costing.expected_replay_ticks(
+                  SERVE_INTERVAL),
+              "ticks": s["ticks"], "ticks_run": len(executed),
+              "decode_ticks_run": decode_ticks, "extend_calls_run": extends,
+              "launches": launches, "identical_to_phase7": True,
+              "seconds": time.monotonic() - t_phase})
+        return launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def phase_agreement(cfg, params, qparams):
     """Teacher-forced greedy agreement of the int8 model with the bf16 one
     at full width (reported, not asserted)."""
@@ -3999,7 +4341,8 @@ def phase_serve_runs():
         launches, *linear = phase_paged_serve(c, p, quant, spec_k=SPEC_K)
         runs += [launches, phase_tree_serve(c, p, quant, plain, linear),
                  phase_nbest(c, p, quant),
-                 phase_chaos_serve(c, p, quant, plain)]
+                 phase_chaos_serve(c, p, quant, plain),
+                 phase_durability_serve(c, p, quant, plain)]
     runs.append(phase_chaos_spec(cfg, params))
     phase_forced_fallback(cfg, params)
     phase_agreement(cfg, params, qparams)

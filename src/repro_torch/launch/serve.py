@@ -9,7 +9,8 @@ paths).
          [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost] \\
          [--spec-k K [--spec-drafter oracle | --spec-tree-m M]] \\
          [--nbest N]] [--fault-kind KIND [--fault-tick T] [--fault-seed S]] \\
-        [--deadline-ticks D]
+        [--deadline-ticks D] [--checkpoint-dir DIR
+         [--checkpoint-interval N] [--resume]]
 
 Runs on the card unless ``--device cpu`` is given. The full-width model is
 built in bf16 from a seed; ``--smoke`` builds the arch's reduced config in
@@ -38,12 +39,19 @@ forks did not write.
 ``--fault-kind KIND`` replays one seeded fault of the chaos tier at tick
 ``--fault-tick`` (seed ``--fault-seed``) and prints what was injected,
 quarantined and shed, the recovery bill and the degraded ticks;
-``process_kill`` is refused, since surviving it needs the durability
-tier's snapshots and journal, which are not ported yet.
+``process_kill`` needs ``--checkpoint-dir``: the killed engine is
+replaced by a fresh one that restores from the directory and serves on.
 ``--deadline-ticks D`` sheds a request still queued D ticks after its
 submission. The summary's chaos keys (``faults_injected``, ``shed``,
 ``shed_rate``, ``degraded_ticks``, ``readback_retries``, ``fp_fallbacks``,
 ``compaction_pauses``, ``audit_failures``) are printed in every run.
+
+``--checkpoint-dir DIR`` turns the durability tier on: every submit is
+journaled (fsync'd) before it is acked and every ``--checkpoint-interval``
+ticks the engine is snapshotted there; ``--resume`` restores from the
+directory before serving (the latest snapshot, then the journal's tail).
+The run prints a ``durability:`` line: snapshots and their bytes, journal
+bytes, the write joules and the ticks replayed on restore.
 
 ``--profile-ticks N`` runs N decode ticks under ``torch.profiler`` once
 every slot is decoding and prints the kernels with the most device time
@@ -63,8 +71,9 @@ from repro_torch import device as device_lib
 from repro_torch.configs import base as cfgbase
 from repro_torch.core import accounting
 from repro_torch.models import transformer as tf_lib
-from repro_torch.serve import (FAULT_KINDS, FaultPlan, Scheduler,
-                               SchedulerConfig, ServeConfig, ServeEngine)
+from repro_torch.serve import (FAULT_KINDS, FaultPlan, ProcessKilled,
+                               Scheduler, SchedulerConfig, ServeConfig,
+                               ServeEngine)
 
 # report keys computed from wall time (active seconds x board power)
 WALL_KEYS = frozenset({"operational_j", "operational_gco2", "j_per_token",
@@ -102,6 +111,72 @@ def profile_ticks(eng: ServeEngine, n: int, top: int = 12):
         "device_busy_share": busy_ms / (1e3 * wall_s),
         "kernel_launches_per_tick": sum(e.count for e in events) / n,
         "top_kernels_ms": dict(kernels[:top])}
+
+
+def validate_args(ap: argparse.ArgumentParser,
+                  args: argparse.Namespace) -> None:
+    """Reject flag combinations that make no sense, with a usage line,
+    before any device work (the engine would raise too, but deep in its
+    constructor). The JAX launcher's checks and messages, then the port's
+    own (the request and prompt shapes, ``--profile-ticks``)."""
+    if args.spec_k < 0:
+        ap.error(f"--spec-k must be >= 0, got {args.spec_k}")
+    if args.page_size <= 0:
+        ap.error(f"--page-size must be > 0, got {args.page_size}")
+    if args.prefill_chunk < 0:
+        ap.error(f"--prefill-chunk must be >= 0, got {args.prefill_chunk}")
+    if (args.paged and args.prefill_chunk > 0
+            and args.prefill_chunk % args.page_size != 0):
+        ap.error(f"--prefill-chunk ({args.prefill_chunk}) must be a "
+                 f"multiple of --page-size ({args.page_size}) in paged "
+                 f"mode: chunk boundaries must land on page boundaries")
+    if not (0.0 <= args.compact_threshold <= 1.0):
+        ap.error(f"--compact-threshold must be in [0, 1], got "
+                 f"{args.compact_threshold}")
+    if args.num_pages is not None and args.num_pages <= 0:
+        ap.error(f"--num-pages must be > 0, got {args.num_pages}")
+    if args.spec_k > 0 and not args.paged:
+        ap.error("--spec-k requires --paged (speculative decode runs on "
+                 "the paged path only)")
+    if args.fault_kind is not None and args.fault_tick < 0:
+        ap.error(f"--fault-tick must be >= 0, got {args.fault_tick}")
+    if args.deadline_ticks is not None and args.deadline_ticks <= 0:
+        ap.error(f"--deadline-ticks must be > 0, got {args.deadline_ticks}")
+    if args.nbest < 1:
+        ap.error(f"--nbest must be >= 1, got {args.nbest}")
+    if args.nbest > 1 and not args.paged:
+        ap.error("--nbest requires --paged (n-best sampling forks the "
+                 "paged KV cache)")
+    if args.nbest > args.slots:
+        ap.error(f"--nbest ({args.nbest}) cannot exceed --slots "
+                 f"({args.slots}): every fork decodes concurrently")
+    if args.spec_tree_m < 1:
+        ap.error(f"--spec-tree-m must be >= 1, got {args.spec_tree_m}")
+    if args.spec_tree_m > 1 and args.spec_k <= 0:
+        ap.error("--spec-tree-m > 1 requires --spec-k > 0 (tree "
+                 "speculation rides the speculative verify pass)")
+    if args.spec_tree_m > 1 and args.spec_drafter != "ngram":
+        ap.error("--spec-tree-m > 1 drafts with the ngram drafter only")
+    if args.checkpoint_interval < 0:
+        ap.error(f"--checkpoint-interval must be >= 0, got "
+                 f"{args.checkpoint_interval}")
+    if args.checkpoint_interval > 0 and args.checkpoint_dir is None:
+        ap.error("--checkpoint-interval requires --checkpoint-dir "
+                 "(snapshots need somewhere durable to land)")
+    if args.resume and args.checkpoint_dir is None:
+        ap.error("--resume requires --checkpoint-dir (restore loads the "
+                 "snapshot + journal written there)")
+    if args.fault_kind == "process_kill" and args.checkpoint_dir is None:
+        ap.error("--fault-kind process_kill requires --checkpoint-dir: "
+                 "the kill is only survivable with a snapshot + journal "
+                 "to restart from")
+    if args.requests < 0 or args.max_tokens < 1 or args.slots < 1:
+        ap.error("--requests >= 0, --max-tokens >= 1 and --slots >= 1")
+    lo, hi = args.prompt_len
+    if not 1 <= lo < hi or hi > args.max_len:
+        ap.error("--prompt-len needs 1 <= LO < HI <= --max-len")
+    if args.profile_ticks < 0:
+        ap.error("--profile-ticks must be >= 0")
 
 
 def main(argv=None) -> None:
@@ -176,48 +251,21 @@ def main(argv=None) -> None:
     ap.add_argument("--deadline-ticks", type=int, default=None,
                     help="per-request deadline in ticks; a request still "
                          "queued past it is shed, not served late")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="durability tier: journal every admission "
+                         "(fsync'd) and snapshot the engine here; a killed "
+                         "engine restarts from it with the same streams "
+                         "(--resume)")
+    ap.add_argument("--checkpoint-interval", type=int, default=0,
+                    help="snapshot every N ticks (0 = journal only; needs "
+                         "--checkpoint-dir). Smaller: less replay after a "
+                         "crash, more write energy")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore from --checkpoint-dir before serving: "
+                         "load the latest snapshot, replay the journal's "
+                         "tail, resume the requests mid-stream")
     args = ap.parse_args(argv)
-    if args.requests < 0 or args.max_tokens < 1 or args.slots < 1:
-        ap.error("--requests >= 0, --max-tokens >= 1 and --slots >= 1")
-    lo, hi = args.prompt_len
-    if not 1 <= lo < hi or hi > args.max_len:
-        ap.error("--prompt-len needs 1 <= LO < HI <= --max-len")
-    if args.profile_ticks < 0:
-        ap.error("--profile-ticks must be >= 0")
-    if args.page_size <= 0:
-        ap.error(f"--page-size must be > 0, got {args.page_size}")
-    if args.prefill_chunk < 0:
-        ap.error(f"--prefill-chunk must be >= 0, got {args.prefill_chunk}")
-    if args.num_pages is not None and args.num_pages <= 0:
-        ap.error(f"--num-pages must be > 0, got {args.num_pages}")
-    if args.spec_k < 0:
-        ap.error(f"--spec-k must be >= 0, got {args.spec_k}")
-    if args.spec_k > 0 and not args.paged:
-        ap.error("--spec-k requires --paged (speculative decode runs on "
-                 "the paged path only)")
-    if args.nbest < 1:
-        ap.error(f"--nbest must be >= 1, got {args.nbest}")
-    if args.nbest > 1 and not args.paged:
-        ap.error("--nbest requires --paged (n-best sampling forks the "
-                 "paged KV cache)")
-    if args.nbest > args.slots:
-        ap.error(f"--nbest ({args.nbest}) cannot exceed --slots "
-                 f"({args.slots}): every fork decodes concurrently")
-    if args.spec_tree_m < 1:
-        ap.error(f"--spec-tree-m must be >= 1, got {args.spec_tree_m}")
-    if args.spec_tree_m > 1 and args.spec_k <= 0:
-        ap.error("--spec-tree-m > 1 requires --spec-k > 0 (tree "
-                 "speculation rides the speculative verify pass)")
-    if args.spec_tree_m > 1 and args.spec_drafter != "ngram":
-        ap.error("--spec-tree-m > 1 drafts with the ngram drafter only")
-    if args.fault_kind is not None and args.fault_tick < 0:
-        ap.error(f"--fault-tick must be >= 0, got {args.fault_tick}")
-    if args.deadline_ticks is not None and args.deadline_ticks <= 0:
-        ap.error(f"--deadline-ticks must be > 0, got {args.deadline_ticks}")
-    if args.fault_kind == "process_kill":
-        ap.error("--fault-kind process_kill needs the durability tier (a "
-                 "snapshot and journal to restart from, --checkpoint-dir), "
-                 "which is not ported yet")
+    validate_args(ap, args)
 
     dev = device_lib.resolve(args.device)
     arch = cfgbase.get(args.arch)
@@ -242,25 +290,49 @@ def main(argv=None) -> None:
                        faults=(FaultPlan.single(args.fault_kind,
                                                 tick=args.fault_tick,
                                                 seed=args.fault_seed)
-                               if args.fault_kind else None))
+                               if args.fault_kind else None),
+                       checkpoint_dir=args.checkpoint_dir,
+                       checkpoint_interval=args.checkpoint_interval)
+
+    def build() -> ServeEngine:
+        return ServeEngine(params, cfg, scfg, accountant=acct,
+                           scheduler=Scheduler(SchedulerConfig(
+                               policy=args.policy)))
+
     try:    # the engine checks how the paged flags combine
-        eng = ServeEngine(params, cfg, scfg, accountant=acct,
-                          scheduler=Scheduler(SchedulerConfig(
-                              policy=args.policy)))
+        eng = build()
     except ValueError as e:
         ap.error(str(e))
+    done = []
+    if args.resume:
+        done += eng.restore()
+    lo, hi = args.prompt_len
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=rng.integers(lo, hi))
         eng.submit(prompt, max_tokens=args.max_tokens,
                    deadline_ticks=args.deadline_ticks, n_best=args.nbest)
-    done = []
-    if args.profile_ticks:
-        done += eng.step()              # the first admission fills the slots
-        finished, report = profile_ticks(eng, args.profile_ticks)
-        done += finished
-        print("profile:", json.dumps(report))
-    done = sorted(done + eng.run_until_drained(), key=lambda r: r.uid)
+    profile = args.profile_ticks
+    while True:
+        try:
+            if profile:
+                profile = 0
+                done += eng.step()      # the first admission fills the slots
+                finished, report = profile_ticks(eng, args.profile_ticks)
+                done += finished
+                print("profile:", json.dumps(report))
+            done += eng.run_until_drained()
+            break
+        except ProcessKilled as e:
+            # a simulated crash: the engine object is dead; restart from
+            # disk alone and keep serving
+            print(f"engine killed ({e}); warm-restarting from "
+                  f"{args.checkpoint_dir}")
+            del eng
+            eng = build()
+            done += eng.restore()
+    # a restore delivers at least once: dedupe by uid
+    done = sorted({r.uid: r for r in done}.values(), key=lambda r: r.uid)
     for r in done:
         print(f"req {r.uid}: prompt_len={len(r.prompt)} -> {r.generated}")
         if r.nbest is not None:
@@ -282,6 +354,13 @@ def main(argv=None) -> None:
               f"{s['recovery_j']:.3e} J ({s['recovery_tokens']} toks), "
               f"{s['degraded_ticks']} degraded ticks, "
               f"{s['readback_retries']} readback retries")
+    if args.checkpoint_dir is not None:
+        print(f"durability: {s['snapshots_taken']:.0f} snapshots "
+              f"({s['snapshot_bytes']:.3g} B) + journal "
+              f"{s['journal_bytes']:.3g} B = "
+              f"{s['durability_write_j']:.3e} J writes; replayed "
+              f"{s['replayed_ticks']:.0f} ticks on restore "
+              f"({s['restore_j']:.3e} J)")
     if args.spec_k > 0:
         print(f"speculative decode (k={args.spec_k}, {args.spec_drafter}): "
               f"{s['accept_rate']:.1%} accept rate, "

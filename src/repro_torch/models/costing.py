@@ -141,6 +141,28 @@ def spec_oracle_draft_flops(matmul_elems: float, n_attn: int, attn_dims: int,
                for j in range(k))
 
 
+def expected_replay_ticks(interval: int) -> float:
+    """Expected ticks of journal replay a warm restart pays, for a crash
+    uniform over the checkpoint cycle: snapshots land every ``interval``
+    ticks, so the tail since the last one is uniform on ``[0, interval)``
+    with mean ``(interval - 1) / 2``. 0.0 when snapshots are off."""
+    if interval <= 0:
+        return 0.0
+    return (float(interval) - 1.0) / 2.0
+
+
+def durability_overhead_bytes_per_tick(snapshot_bytes: float,
+                                       journal_bytes_per_tick: float,
+                                       interval: int) -> float:
+    """Steady-state durability write traffic a tick: every tick appends a
+    journal record, and every ``interval`` ticks a whole snapshot lands.
+    Shrinking the interval raises this while
+    :func:`expected_replay_ticks` (the recompute of a recovery) falls."""
+    amortized = (float(snapshot_bytes) / float(interval)
+                 if interval > 0 else 0.0)
+    return float(journal_bytes_per_tick) + amortized
+
+
 def lm_train_step_cost(params: PyTree, cfg: tf_lib.LMConfig, *,
                        batch: int, seq_len: int,
                        opt_state: PyTree = None) -> energy.TrainStepCost:

@@ -1,7 +1,8 @@
 """Serving stack of the PyTorch port (mirror of ``repro.serve``, dense and
 paged paths, fp and int8, speculative decode, copy-on-write forks and tree
 speculation on the paged path, the chaos tier: fault injection, quarantine
-and the degradation ladder): the fused engine, its host-loop oracle, the
+and the degradation ladder; the durability tier: the write-ahead journal,
+snapshots and restore): the fused engine, its host-loop oracle, the
 quality oracles, the scheduler, the page pool, the fault plans and guards,
 and the speculative drafters and accept step."""
 
@@ -12,7 +13,12 @@ from repro_torch.serve.faults import (FAULT_KINDS,  # noqa: F401
                                       TRANSIENT_FAULT_KINDS, FaultEvent,
                                       FaultInjector, FaultPlan,
                                       GuardrailConfig, ProcessKilled)
-from repro_torch.serve.snapshot import reconcile_ownership  # noqa: F401
+from repro_torch.serve.snapshot import (Journal,  # noqa: F401
+                                        check_fingerprint,
+                                        config_fingerprint,
+                                        host_state_dict,
+                                        install_host_state,
+                                        reconcile_ownership)
 from repro_torch.serve.pages import (PagePool, block_tokens,  # noqa: F401
                                      fragmentation)
 from repro_torch.serve.quality import (generation_agreement,  # noqa: F401

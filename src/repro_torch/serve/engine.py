@@ -62,13 +62,25 @@ admission retry caps with exponential backoff, per-request deadlines that
 shed queued requests, the spec-k backoff on collapsing acceptance, a
 compaction pause on a straggling tick, the pool auditor, and in the int8
 mode a drift watch against the fp oracle (the params and config before
-quantization) that falls back to fp serving once. Durability (snapshots,
-the journal, restore) is not ported yet (ROADMAP queue 1).
+quantization) that falls back to fp serving once.
+
+The durability tier (``ServeConfig.checkpoint_dir`` and
+``checkpoint_interval``, ``serve/snapshot.py``): every submit is written
+to a write-ahead journal (fsync'd) before it is acked, every tick appends
+a record of the streams it finished, and every ``checkpoint_interval``
+ticks the whole engine is snapshotted: the device tensors (caches, slot
+state, page table, token history) and every host mirror, in one atomic
+``CheckpointManager`` save. ``restore()`` on a fresh engine loads the
+latest snapshot into the live tensors, checks it (config fingerprint,
+checksum, pool audit and ownership) and replays the journal's tail; a
+``process_kill`` is survived that way and does not fire again.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -76,6 +88,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.checkpoint.manager import CheckpointConfig, CheckpointManager
 from repro_torch.core import accounting, energy
 from repro_torch.models import costing
 from repro_torch.models import layers
@@ -87,7 +100,9 @@ from repro_torch.serve.faults import (FaultInjector, FaultPlan,
 from repro_torch.serve.pages import ROOT, PagePool, block_tokens, fragmentation
 from repro_torch.serve.sampling import _sample
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
-from repro_torch.serve.snapshot import reconcile_ownership
+from repro_torch.serve.snapshot import (Journal, check_fingerprint,
+                                        host_state_dict, install_host_state,
+                                        reconcile_ownership)
 from repro_torch.train.ft import Ewma
 
 PyTree = Any
@@ -150,6 +165,13 @@ class ServeConfig:
     faults: Optional[FaultPlan] = None
     guard: GuardrailConfig = dataclasses.field(
         default_factory=GuardrailConfig)
+    # durability tier: the directory of crash-consistent snapshots and the
+    # write-ahead request journal (None = durability off).
+    # checkpoint_interval > 0 snapshots the whole engine every N completed
+    # ticks: it trades snapshot write J/token against the replay a restore
+    # pays (restore_j); 0 = journal only (a restore replays from tick 0)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_interval: int = 0
 
 
 @dataclasses.dataclass
@@ -322,6 +344,13 @@ class ServeEngine:
             raise ValueError("tree speculation drafts with the ngram "
                              "drafter only (the oracle drafter is a linear "
                              "parity harness)")
+        if serve_cfg.checkpoint_interval < 0:
+            raise ValueError(f"checkpoint_interval must be >= 0, got "
+                             f"{serve_cfg.checkpoint_interval}")
+        if (serve_cfg.checkpoint_interval > 0
+                and serve_cfg.checkpoint_dir is None):
+            raise ValueError("checkpoint_interval > 0 requires a "
+                             "checkpoint_dir to write snapshots into")
         self.device = device_lib.resolve(serve_cfg.device)
         if params["embed"]["w"].device != self.device:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
@@ -381,9 +410,30 @@ class ServeEngine:
         self.audit_failures = 0
         self.audit_log: List[str] = []
         self.readback_retries_total = 0
+        # the durability tier: snapshot manager and write-ahead journal.
+        # Synchronous saves: a snapshot is on disk before the tick after it
+        # is journaled as replayable from it
+        self._ckpt_mgr: Optional[CheckpointManager] = None
+        self._journal: Optional[Journal] = None
+        if serve_cfg.checkpoint_dir is not None:
+            self._ckpt_mgr = CheckpointManager(CheckpointConfig(
+                directory=os.path.join(serve_cfg.checkpoint_dir,
+                                       "snapshots"),
+                async_save=False))
+            self._journal = Journal(os.path.join(serve_cfg.checkpoint_dir,
+                                                 "journal.jsonl"))
+        # replay mode: journaling and snapshots off, the recompute billed
+        # to the restore_* channels
+        self._replaying = False
         # ticks at or before this index already fired their process_kill
-        # (the crash a restore recovered from); -1 until durability lands
+        # (the crash a restore recovered from); -1 = fresh engine
         self._restore_boundary = -1
+        self.snapshots_taken = 0
+        self.snapshot_bytes_total = 0.0
+        self.journal_bytes_total = 0.0
+        self.replayed_ticks = 0
+        self.restore_flops = 0.0
+        self.restore_bytes = 0.0
         self._init_runtime(params, cfg)
 
     def _init_runtime(self, params: PyTree, cfg: tf_lib.LMConfig) -> None:
@@ -514,6 +564,17 @@ class ServeEngine:
                     f"pool has only {self.pool.num_pages}; raise num_pages "
                     f"or lower max_tokens")
         self._uid += 1
+        if self._journal is not None and not self._replaying:
+            # the write-ahead contract: the admission is durable (fsync'd)
+            # BEFORE it is acked, so an acked request survives any crash
+            nb = self._journal.append_submit(
+                uid=self._uid, prompt=[int(t) for t in prompt.tolist()],
+                max_tokens=max_tokens, temperature=temperature,
+                deadline_ticks=deadline_ticks, n_best=n_best,
+                tick=self._tick_idx)
+            self.journal_bytes_total += nb
+            if self.accountant is not None:
+                self.accountant.observe_durability(journal_bytes=nb)
         self.scheduler.submit(Request(self._uid, prompt, max_tokens,
                                       temperature,
                                       deadline_ticks=deadline_ticks,
@@ -616,9 +677,9 @@ class ServeEngine:
                 if ev.tick > self._restore_boundary:
                     inj.count("process_kill")
                     raise ProcessKilled(
-                        f"process_kill fault at tick {tick}: engine state "
-                        f"is gone; a restart needs the durability tier "
-                        f"(snapshots and the journal), not ported yet")
+                        f"process_kill fault at tick {tick}: engine "
+                        f"state is gone; restart from checkpoint_dir "
+                        f"via ServeEngine.restore()")
 
     def _inject_kv_bitflip(self, ev) -> None:
         """Corrupt one K page of a decoding slot, inside its attended
@@ -2017,9 +2078,45 @@ class ServeEngine:
         if self.accountant is not None:
             self.accountant.observe_serve(m)
         self._tick_idx += 1
+        if self._replaying:
+            # replayed recompute is real work, already billed through
+            # observe_serve; restore_j breaks the same joules out as the
+            # recovery cost of a crash
+            self.replayed_ticks += 1
+            self.restore_flops += m.flops
+            self.restore_bytes += m.bytes_moved
+            if self.accountant is not None:
+                self.accountant.observe_durability(
+                    restore_flops=m.flops, restore_bytes=m.bytes_moved,
+                    replayed_ticks=1)
+        elif self._journal is not None:
+            # the tick record first (replay needs every tick, idle ones
+            # too: fault schedules and deadlines key on the absolute tick),
+            # THEN the snapshot, whose journal_seq cut must sit after this
+            # tick's record so that replay resumes exactly at _tick_idx
+            d_journal = self._journal.append_tick(
+                tick=tick,
+                finished=[[r.uid,
+                           [int(t) for t in r.generated],
+                           ([[int(t) for t in s] for s in r.nbest]
+                            if r.nbest is not None else None)]
+                          for r in finished])
+            self.journal_bytes_total += d_journal
+            d_snapshot = 0
+            if (self.scfg.checkpoint_interval > 0
+                    and self._tick_idx % self.scfg.checkpoint_interval
+                    == 0):
+                d_snapshot = self._write_snapshot()
+            if self.accountant is not None:
+                self.accountant.observe_durability(
+                    journal_bytes=d_journal, snapshot_bytes=d_snapshot,
+                    snapshots=1 if d_snapshot else 0)
         return finished
 
     def run_until_drained(self, max_ticks: int = 10000) -> List[Request]:
+        """Step until nothing is queued or live. Always steps once before
+        it looks, as the JAX engine does: an engine with no work left gets
+        one idle tick."""
         done: List[Request] = []
         for _ in range(max_ticks):
             done.extend(self.step())
@@ -2027,6 +2124,189 @@ class ServeEngine:
                                                for r in self.slot_req):
                 break
         return done
+
+    # -- durability: crash-consistent snapshot and journal replay -------------
+
+    def _device_tree(self) -> Dict[str, Any]:
+        """The device state as a dict of the live tensors under stable
+        names (``caches/<block>/k``, ``.../v``, ``.../k_scale``,
+        ``.../v_scale``, ``.../pos``, ``tok``, ``page_table``, ``hist``,
+        ...): the checkpoint manager's tree."""
+        st = self.state
+        caches = {}
+        for block, entry in st.caches.items():
+            leaves = {"k": entry["kv"].k, "v": entry["kv"].v}
+            if "kv_scale" in entry:
+                leaves["k_scale"] = entry["kv_scale"].k
+                leaves["v_scale"] = entry["kv_scale"].v
+            if "pos" in entry:
+                leaves["pos"] = entry["pos"]
+            caches[block] = leaves
+        tree: Dict[str, Any] = {"caches": caches}
+        for f in dataclasses.fields(DeviceState):
+            if f.name != "caches":
+                tree[f.name] = getattr(st, f.name)
+        return tree
+
+    def _write_snapshot(self) -> int:
+        """Persist a crash-consistent checkpoint of the whole engine: the
+        device tensors plus every host mirror (``host_state_dict``) in one
+        atomic CheckpointManager save. ``journal_seq`` marks the replay
+        cut: journal records below it are baked into this snapshot, and
+        restore replays everything from it on. Returns the bytes written
+        (billed as durability DRAM traffic)."""
+        step = self._tick_idx
+        extra = host_state_dict(self)
+        extra["journal_seq"] = self._journal.seq
+        self._ckpt_mgr.save(step, self._device_tree(), extra=extra)
+        d = self._ckpt_mgr._step_dir(step)
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+        self.snapshots_taken += 1
+        self.snapshot_bytes_total += nbytes
+        return nbytes
+
+    def _load_snapshot(self, step: int) -> Dict[str, Any]:
+        """Load snapshot ``step`` into the live device tensors (``copy_``:
+        the tensors other structures hold, such as the split kernels'
+        cached workspace's users, are never rebound) and install its host
+        state. The loaded host copy is dropped afterwards. Returns the
+        manifest's ``extra``."""
+        live = self._device_tree()
+        _, loaded, extra = self._ckpt_mgr.restore(step, target=live,
+                                                  device="cpu")
+
+        def copy_into(dst, src):
+            if isinstance(dst, dict):
+                for key in dst:
+                    copy_into(dst[key], src[key])
+            else:
+                dst.copy_(src)
+
+        with torch.no_grad():
+            copy_into(live, loaded)
+        temps = loaded["temp"].tolist()
+        del loaded
+        install_host_state(self, extra)
+        # the sampling mode's host mirror, from the slots' device
+        # temperatures (zero for an empty slot, as a finish leaves it)
+        self._host_temp = [float(t) if r is not None else 0.0
+                           for t, r in zip(temps, self.slot_req)]
+        return extra
+
+    def restore(self) -> List[Request]:
+        """Warm restart from disk: load the latest snapshot (if any), then
+        replay the journal's tail deterministically. Must be called on a
+        FRESH engine built with the same ServeConfig and ``checkpoint_dir``
+        as the dead one. Replayed ticks repeat the original run (seeded
+        sampler, sorted host iteration, seeded fault plans); a divergence
+        or a corrupted snapshot raises rather than serving other streams.
+
+        Returns every request finished up to now: the pre-crash finishes
+        rebuilt from the journal and those the replay produced. Delivery is
+        at-least-once: a caller that already streamed pre-crash results
+        dedupes by uid."""
+        if self._ckpt_mgr is None or self._journal is None:
+            raise RuntimeError("restore() requires checkpoint_dir")
+        if self._tick_idx != 0 or self.metrics_log or len(self.scheduler):
+            raise RuntimeError("restore() must run on a fresh engine — "
+                               "this one has already ticked or admitted")
+        journal_seq = 0
+        step = self._ckpt_mgr.latest_step()
+        if step is not None:
+            extra = self._ckpt_mgr.peek_extra(step)
+            # the config gate FIRST: a snapshot of another configuration is
+            # diagnosed as such, not as a shape mismatch halfway through
+            check_fingerprint(self.scfg, extra.get("fingerprint", {}))
+            if extra.get("fell_back") and not self._fell_back:
+                # the snapshot's device tensors are the fp runtime's:
+                # rebuild it from the fp oracle before loading, as the
+                # fallback does (the int8 pool and caches dropped first)
+                self._fell_back = True
+                self.state = self.params = self.pool = None
+                gc.collect()
+                self._init_runtime(*self._oracle)
+            extra = self._load_snapshot(step)
+            journal_seq = int(extra.get("journal_seq", 0))
+            if self.scfg.paged:
+                # snapshot load shares the auditor's reconciliation, but
+                # here a violation refuses: restoring inconsistent
+                # ownership would corrupt streams
+                violations = self.pool.audit()
+                violations += reconcile_ownership(
+                    self.pool, self._slot_pages, self._spike_holds)
+                if violations:
+                    raise RuntimeError(
+                        "snapshot failed consistency check: "
+                        + "; ".join(violations))
+        recovered: List[Request] = []
+        submits: Dict[int, dict] = {}
+        post: List[dict] = []
+        for rec in self._journal.records():
+            if rec["kind"] == "submit":
+                submits[int(rec["uid"])] = rec
+            if rec["seq"] < journal_seq:
+                if rec["kind"] == "tick":
+                    # pre-snapshot finishes: rebuild the completed requests
+                    # so the caller sees every result as the dead engine
+                    # emitted it
+                    for uid, gen, nbest in rec["finished"]:
+                        s = submits[int(uid)]
+                        recovered.append(Request(
+                            int(uid),
+                            np.asarray(s["prompt"], np.int32),
+                            max_tokens=int(s["max_tokens"]),
+                            temperature=s["temperature"],
+                            generated=[int(t) for t in gen],
+                            done=True,
+                            deadline_ticks=s["deadline_ticks"],
+                            submit_tick=int(s["tick"]),
+                            n_best=int(s["n_best"]),
+                            nbest=([[int(t) for t in st] for st in nbest]
+                                   if nbest is not None else None)))
+            else:
+                post.append(rec)
+        self._replaying = True
+        try:
+            for rec in post:
+                if rec["kind"] == "submit":
+                    uid = self.submit(
+                        np.asarray(rec["prompt"], np.int32),
+                        max_tokens=int(rec["max_tokens"]),
+                        temperature=rec["temperature"],
+                        deadline_ticks=rec["deadline_ticks"],
+                        n_best=int(rec["n_best"]))
+                    if uid != int(rec["uid"]):
+                        raise RuntimeError(
+                            f"replay diverged: journaled submit uid "
+                            f"{rec['uid']}, replay assigned {uid}")
+                else:
+                    if int(rec["tick"]) != self._tick_idx:
+                        raise RuntimeError(
+                            f"replay diverged: journal at tick "
+                            f"{rec['tick']}, engine at {self._tick_idx}")
+                    fins = self.step()
+                    got = {int(r.uid): ([int(t) for t in r.generated],
+                                        ([[int(t) for t in st]
+                                          for st in r.nbest]
+                                         if r.nbest is not None else None))
+                           for r in fins}
+                    want = {int(u): ([int(t) for t in g],
+                                     ([[int(t) for t in st] for st in nb]
+                                      if nb is not None else None))
+                            for u, g, nb in rec["finished"]}
+                    if got != want:
+                        raise RuntimeError(
+                            f"replay diverged at tick {rec['tick']}: "
+                            f"journaled finishes {sorted(want)} vs "
+                            f"replayed {sorted(got)} (or streams differ)")
+                    recovered.extend(fins)
+        finally:
+            self._replaying = False
+        # kills at or before this tick already happened before the crash; a
+        # surviving fault plan must not fire them again (a crash loop)
+        self._restore_boundary = self._tick_idx
+        return recovered
 
     def summary(self) -> Dict[str, float]:
         """Aggregate run stats; every ratio is 0.0 on an empty run.
@@ -2097,4 +2377,15 @@ class ServeEngine:
         out["fp_fallbacks"] = self.fp_fallbacks
         out["compaction_pauses"] = self.compaction_pauses
         out["audit_failures"] = self.audit_failures
+        # the durability tier: all 0.0 on an engine that never checkpoints
+        out["snapshots_taken"] = self.snapshots_taken
+        out["snapshot_bytes"] = self.snapshot_bytes_total
+        out["journal_bytes"] = self.journal_bytes_total
+        out["replayed_ticks"] = self.replayed_ticks
+        out["restore_j"] = (energy.compute_energy_j(self.restore_flops)
+                            + energy.dram_energy_j(self.restore_bytes))
+        out["restore_j_per_token"] = (out["restore_j"] / toks
+                                      if toks > 0 else 0.0)
+        out["durability_write_j"] = energy.dram_energy_j(
+            self.snapshot_bytes_total + self.journal_bytes_total)
         return out

@@ -4,8 +4,9 @@ state, the sustainability engine, the int8 quantizer's constants, the
 speculative drafters' names, the speculative cost model, the training
 token pipeline, the fleet fault-tolerance module (heartbeats, health
 monitor, elastic planner), the sustainability advisor, the CNN configs,
-the host half of the fault injector and the pool auditor's ownership
-reconciliation value for value. The only difference allowed is
+the host half of the fault injector, the pool auditor's ownership
+reconciliation and the durability tier's journal, request records, EWMA
+lists, config fingerprint and costing helpers value for value. The only difference allowed is
 the port's extra ``h100_sxm`` device.
 """
 
@@ -229,6 +230,125 @@ def test_fault_injector_host_half_equal(seed):
                 np.testing.assert_array_equal(a, b)
         assert out[0][3:] == out[1][3:]
     assert sum(injectors[1].counts.values()) > 0
+
+
+def _journal_ops(rng):
+    """A random sequence of journal appends: submits of random prompts,
+    budgets, temperatures, deadlines and fan-outs, ticks of random
+    finishes (with and without n-best streams)."""
+    ops = []
+    for i in range(30):
+        if rng.integers(0, 2):
+            ops.append(("submit", dict(
+                uid=i, prompt=[int(t) for t in rng.integers(0, 99, 5)],
+                max_tokens=int(rng.integers(1, 9)),
+                temperature=[None, 0.0, 0.7][int(rng.integers(0, 3))],
+                deadline_ticks=[None, 3][int(rng.integers(0, 2))],
+                n_best=int(rng.integers(1, 3)), tick=i)))
+        else:
+            fin = [[int(u), [int(t) for t in rng.integers(0, 99, 3)],
+                    None if rng.integers(0, 2) else [[1, 2], [3]]]
+                   for u in rng.integers(0, 30, int(rng.integers(0, 3)))]
+            ops.append(("tick", dict(tick=i, finished=fin)))
+    return ops
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_journal_equal(seed, tmp_path):
+    """The same appends give the same bytes, lengths and ``seq`` in both
+    packages' ``Journal``; a torn tail is truncated the same way on open,
+    and both read the same records back."""
+    ops = _journal_ops(np.random.default_rng(seed))
+    paths, lens = [], []
+    for name, m in (("j", j_snapshot), ("t", t_snapshot)):
+        path = str(tmp_path / f"{name}.jsonl")
+        j = m.Journal(path)
+        out = []
+        for kind, kw in ops:
+            fn = j.append_submit if kind == "submit" else j.append_tick
+            out.append(fn(**kw))
+        out.append((j.seq, j.bytes_written))
+        j.close()
+        with open(path, "a") as f:
+            f.write('{"kind": "tick", "tick": 99, "fini')     # torn write
+        paths.append(path)
+        lens.append(out)
+    assert lens[0] == lens[1]
+    reopened = [m.Journal(p) for m, p in zip((j_snapshot, t_snapshot),
+                                             paths)]
+    assert [(j.seq, j.bytes_written) for j in reopened] == [lens[0][-1]] * 2
+    assert reopened[0].records() == reopened[1].records()
+    for j in reopened:
+        j.close()
+    with open(paths[0], "rb") as f0, open(paths[1], "rb") as f1:
+        assert f0.read() == f1.read()
+
+
+def test_request_dict_round_trip_equal():
+    """``request_to_dict`` of the same request is the same dict in both
+    packages, and ``request_from_dict`` rebuilds it in each."""
+    dicts = []
+    for eng, snap in ((j_engine, j_snapshot), (t_engine, t_snapshot)):
+        req = eng.Request(7, np.arange(6, dtype=np.int32), max_tokens=5,
+                          temperature=0.5, deadline_ticks=4, submit_tick=2,
+                          n_best=2, fork_group=3, fork_idx=1)
+        req.generated = [4, 5]
+        req.nbest = [[4, 5], [6]]
+        d = snap.request_to_dict(req)
+        back = snap.request_from_dict(json.loads(json.dumps(d)))
+        assert snap.request_to_dict(back) == d
+        assert isinstance(back, eng.Request)
+        dicts.append(d)
+    assert dicts[0] == dicts[1]
+
+
+def test_ewma_lists_equal():
+    lists = []
+    for ft, snap in ((j_ft, j_snapshot), (t_ft, t_snapshot)):
+        e = ft.Ewma(alpha=0.5)
+        assert snap._ewma_to_list(e) == [None, 0]
+        for x in (1.0, 3.0, 2.5):
+            e.update(x)
+        v = snap._ewma_to_list(e)
+        back = snap._ewma_from_list(json.loads(json.dumps(v)), 0.5)
+        assert (back.value, back.n, back.alpha) == (e.value, e.n, 0.5)
+        lists.append(v)
+    assert lists[0] == lists[1]
+
+
+def test_check_fingerprint_messages_equal():
+    """The fingerprint's fields and the refusal message naming a field are
+    the same in both packages."""
+    import jax.numpy as jnp
+    import torch
+    assert t_snapshot._FINGERPRINT_FIELDS == j_snapshot._FINGERPRINT_FIELDS
+    j_cfg = j_engine.ServeConfig(paged=True, page_size=4,
+                                 cache_dtype=jnp.bfloat16)
+    t_cfg = t_engine.ServeConfig(paged=True, page_size=4,
+                                 cache_dtype=torch.bfloat16, device="cpu")
+    fps = [m.config_fingerprint(c) for m, c in ((j_snapshot, j_cfg),
+                                                (t_snapshot, t_cfg))]
+    assert fps[0] == fps[1] and fps[1]["cache_dtype"] == "bfloat16"
+    for field, value in (("page_size", 8), ("cache_dtype", "float32"),
+                         ("spec_k", 2)):
+        msgs = []
+        for m, c, fp in ((j_snapshot, j_cfg, fps[0]),
+                         (t_snapshot, t_cfg, fps[1])):
+            with pytest.raises(RuntimeError) as err:
+                m.check_fingerprint(c, {**fp, field: value})
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1] and field in msgs[1]
+
+
+@pytest.mark.parametrize("interval", [-1, 0, 1, 2, 5, 32])
+def test_durability_costing_equal(interval):
+    assert (t_costing.expected_replay_ticks(interval)
+            == j_costing.expected_replay_ticks(interval))
+    for snap_bytes, journal in ((0.0, 0.0), (2.15e9, 410.0), (1e3, 10.0)):
+        assert (t_costing.durability_overhead_bytes_per_tick(
+            snap_bytes, journal, interval)
+            == j_costing.durability_overhead_bytes_per_tick(
+                snap_bytes, journal, interval))
 
 
 def test_scheduler_rejects_unknown_policy():

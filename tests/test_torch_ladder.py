@@ -392,4 +392,4 @@ def test_launcher_rejects_bad_chaos_flags(bad, capsys):
         launch.main(LAUNCH + bad)
     err = capsys.readouterr().err
     if "process_kill" in bad:
-        assert "durability tier" in err
+        assert "requires --checkpoint-dir" in err
