@@ -9,7 +9,10 @@ dense, the paged and the speculative serve paths of starcoder2-7b at full
 width and full depth with random weights from a seed, unquantized and in
 the int8 mode (with tree speculation, n-best forks, a quarantined slot,
 the chaos tier's seeded faults and degradation ladder, and the
-durability tier's kill, snapshot restore and journal replay), the fused
+durability tier's kill, snapshot restore and journal replay), gemma3-27b
+at full width (head dim 168, sliding windows of 1024) and 14 layers on
+the dense, paged and speculative paths, granite-34b, qwen1.5-110b and
+qwen2-vl-72b at full width and 2 layers on the paged path, the fused
 training tick at full width and 8 layers, the checkpointing Trainer on
 the ~100M e2e model at full size, the port's train and kernel benches,
 and the paper's ternary AlexNet and VGG-16 at full size.
@@ -56,7 +59,15 @@ non-zero and prints no result:
    at a capacity of 2000 keys (no
    multiple of the split), lengths 0, 1, at a split edge and past it, a
    window of 300 that starts inside a split and a page, T = 1, 2 and 5,
-   head dims 128, 64 and 256, every mode;
+   every mode, at head dims 128, 64, 256 and every other one of the
+   reference's configs (168, 112, 24, 16, 8) and at granite-34b's MQA
+   group of 48 (48 heads on one KV head of 128, on both kernels), with K1
+   on the same rows gathered slot-major (equal to K2 bit for bit) and K3
+   at C = 200 at the same head dims and group, each call on the kernel
+   its route names (read from the counters); and K1, K2, K5 (T = 5) and
+   K3 at gemma3-27b's heads (32 on 16 KV heads of 168), windows -1 and
+   1024, in the two serve modes (bf16 q over the fp32 and the int8
+   cache), timed as at D = 128 (phase ``kernels_d168``);
 4. int8 matmul (K4) against its plain version at the main path's shapes:
    decode (M=8: the decode kernel, by device time from torch.profiler,
    CUDA events beside) and speculative-tick (M=40) for 4608->4608, ->512,
@@ -79,6 +90,9 @@ non-zero and prints no result:
    scale) @ w^T`` on the weight widened once (4x the weight bytes), then
    (checked, not timed) at (M, K, N) = (100, 300, 50), (9, 7, 3) and (4096,
    4608, 1000); and
+   K4 at the dense family's weight shapes at full width (gemma3-27b,
+   granite-34b, qwen1.5-110b, qwen2-vl-72b: wq/wo, wk/wv, w_in, w_out) at
+   M = 8 and 40, bf16 x, checked and not timed; and
    ``int8_matmul_train``'s dx and dscale (K4 + K9) against autograd
    through the plain math at (4096, 4608, 18432), fp32 and bf16 x; the
    bounds of fp32 x against int8 or ternary codes count three exact bf16
@@ -225,6 +239,19 @@ non-zero and prints no result:
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
    asserted); then the serve params are freed;
+9b. gemma3-27b at full width (d_model 5376, 32/16 heads of 168, d_ff
+   21504, vocab 262144), 14 layers (two repeats of 5 local layers of
+   window 1024 and a global one, and the 2-layer local tail), fp32 params
+   from SEED: 4 requests of 1100-1501 prompt tokens (the window's start
+   inside a page and a split), 16 greedy tokens, 4 slots: the dense (K1),
+   paged (K2, K3; pages of 16, chunks of 256) and speculative (K5, k = 4)
+   engines' streams identical; then the same draws in bf16 on the paged
+   engine, unquantized and int8 (K4), their agreement with the fp32
+   streams reported; every run's launches checked (every layer, on the
+   SIMT kernels at D = 168);
+9c. granite-34b, qwen1.5-110b and qwen2-vl-72b at full width, 2 layers,
+   bf16: 4 requests of 100-400 tokens x 16 on the paged engine, streams
+   and launches;
 10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
    of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
    ``sdpa`` route (explicit positions), the loss within 1e-5 and each
@@ -263,7 +290,9 @@ non-zero and prints no result:
    kernel at batch 1 and its tensor-core kernel at 64; the params are
    freed after each model;
 12. a ``kernels`` line (K1-K11; K9's and K11's with the launches of each
-   of their kernels in the main-path runs), then the result line
+   of their kernels in the main-path runs; K1's, K2's, K3's and K5's with
+   the head dims of the serve runs that launched them and their
+   ``kernels_d168`` row at the int8 mode), then the result line
    ``{"ok": true, "device": ...}``.
 
 Every counter is set to 0 just before each serve, train, trainer, bench
@@ -425,45 +454,50 @@ def _scales(gen, kv, kv_dtype):
                  * 0.02 + 1e-3 for _ in range(2))
 
 
-def _decode_inputs(q_dtype, kv_dtype):
+def _decode_inputs(q_dtype, kv_dtype, heads=(H, HKV, D)):
+    """K1's inputs: q (B, H, D) and a slot-major cache of N_BLOCKS * PAGE
+    keys a slot, at ``heads`` = (H, Hkv, D)."""
     import torch
+    h, hkv, d = heads
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    q = _randn(gen, (B, H, D), q_dtype)
-    k = _randn(gen, (B, N_BLOCKS * PAGE, HKV, D), kv_dtype)
-    v = _randn(gen, (B, N_BLOCKS * PAGE, HKV, D), kv_dtype)
+    q = _randn(gen, (B, h, d), q_dtype)
+    k = _randn(gen, (B, N_BLOCKS * PAGE, hkv, d), kv_dtype)
+    v = _randn(gen, (B, N_BLOCKS * PAGE, hkv, d), kv_dtype)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
     return (q, k, v, lengths) + _scales(gen, k, kv_dtype)
 
 
-def _pool_inputs(gen, kv_dtype):
+def _pool_inputs(gen, kv_dtype, heads=(H, HKV, D)):
     """A pool of B * N_BLOCKS pages plus the sink, and a permuted
     (fragmented) page table over it."""
     import torch
+    _, hkv, d = heads
     pages = B * N_BLOCKS
-    k_pool = _randn(gen, (pages + 1, PAGE, HKV, D), kv_dtype)
-    v_pool = _randn(gen, (pages + 1, PAGE, HKV, D), kv_dtype)
+    k_pool = _randn(gen, (pages + 1, PAGE, hkv, d), kv_dtype)
+    v_pool = _randn(gen, (pages + 1, PAGE, hkv, d), kv_dtype)
     table = torch.randperm(pages, generator=gen, device="cuda").to(
         torch.int32).reshape(B, N_BLOCKS)
     return k_pool, v_pool, table
 
 
-def _paged_decode_inputs(q_dtype, kv_dtype):
+def _paged_decode_inputs(q_dtype, kv_dtype, heads=(H, HKV, D)):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    q = _randn(gen, (B, H, D), q_dtype)
-    k_pool, v_pool, table = _pool_inputs(gen, kv_dtype)
+    q = _randn(gen, (B, heads[0], heads[2]), q_dtype)
+    k_pool, v_pool, table = _pool_inputs(gen, kv_dtype, heads)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
     return (q, k_pool, v_pool, table, lengths) + _scales(gen, k_pool,
                                                          kv_dtype)
 
 
-def _prefill_inputs(q_dtype, kv_dtype):
+def _prefill_inputs(q_dtype, kv_dtype, heads=(H, HKV, D)):
     import torch
+    h, hkv, d = heads
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    q = _randn(gen, (B, CHUNK, H, D), q_dtype)
-    k_new = _randn(gen, (B, CHUNK, HKV, D), q_dtype)
-    v_new = _randn(gen, (B, CHUNK, HKV, D), q_dtype)
-    k_pool, v_pool, table = _pool_inputs(gen, kv_dtype)
+    q = _randn(gen, (B, CHUNK, h, d), q_dtype)
+    k_new = _randn(gen, (B, CHUNK, hkv, d), q_dtype)
+    v_new = _randn(gen, (B, CHUNK, hkv, d), q_dtype)
+    k_pool, v_pool, table = _pool_inputs(gen, kv_dtype, heads)
     starts = torch.tensor(STARTS, dtype=torch.int32, device="cuda")
     lens = torch.tensor(CHUNK_LENS, dtype=torch.int32, device="cuda")
     return (q, k_new, v_new, k_pool, v_pool, table, starts,
@@ -682,7 +716,8 @@ def _dequantized(library, kv_pos):
 
 
 def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
-                  iters, kv_pos, extra=None, device_time=False, route=None):
+                  iters, kv_pos, extra=None, device_time=False, route=None,
+                  modes=MODES, windows=WINDOWS):
     """Hold ``kernel`` against ``plain`` in every mode and window, time the
     kernel, the plain version and the library call, and return the rows of
     the main path's modes (``MAIN_FP``, ``MAIN_INT8``). ``inputs(q_dtype,
@@ -699,20 +734,22 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
     a wrapper with per-kernel counters (``launches_by_kernel``) reports
     the kernel the checked call launched as the row's route, which must be
     the one that ``route(q dtype, K/V dtype, head dim)`` names (the split
-    body's ``route``, for K1, K2 and K5) when both are there."""
+    body's ``route``, for K1, K2 and K5) when both are there. ``modes``
+    and ``windows`` narrow the checked and timed calls; the softmax scale
+    is q's head dim ** -0.5."""
     import torch
-    scale = D ** -0.5
     dead = dead.cuda()
     main = {}
-    for q_name, kv_name, atol, rtol in MODES:
+    for q_name, kv_name, atol, rtol in modes:
         int8 = kv_name == "int8"
         fns = ((_with_scales(kernel), _with_scales(plain),
                 _dequantized(library, kv_pos)) if int8
                else (kernel, plain, library))
         args = inputs(getattr(torch, q_name), getattr(torch, kv_name))
+        scale = args[0].shape[-1] ** -0.5
         hot = cold + ((len(args) - 2, len(args) - 1) if int8 else ())
         counts = getattr(kernel, "launches_by_kernel", None)
-        for window in WINDOWS:
+        for window in windows:
             before = dict(counts or {})
             got = fns[0](*args, scale=scale, window=window)
             torch.cuda.synchronize()
@@ -743,7 +780,8 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
             library_ms = timer(timed(fns[2]), max(iters // 2, 4))
             bound_ms, bound_by = bound(args, window)
             row = {"phase": "kernels", "kernel": name, "q": q_name,
-                   "kv": kv_name, "window": window, "max_abs_err": max_err,
+                   "kv": kv_name, "window": window,
+                   "head_dim": args[0].shape[-1], "max_abs_err": max_err,
                    "atol": atol, "rtol": rtol, "ms": kernel_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {})}
@@ -796,54 +834,86 @@ def phase_prefill_kernel():
 # K3 at a chunk of 200 tokens (no multiple of the tensor-core kernel's 128
 # query rows or 64 keys) with a window of 300, whose start falls inside a
 # cached page and inside a 64-key tile for every row but a block's first:
-# every mode against its plain version, checked and not timed
+# every mode against its plain version, checked and not timed; at the main
+# path's heads, at every other head dim of the reference's configs (168:
+# gemma3-27b, 112: kimi-k2 and zamba2, 64: whisper, 24, 16 and 8: the smoke
+# configs; on the SIMT kernel in every mode) and at granite-34b's MQA
+# group of 48 (H 48 on one KV head of 128; bf16 q over bf16 and int8 pools
+# on the tensor cores)
 RAGGED_CHUNK, RAGGED_WINDOW = 200, 300
+PREFILL_RAGGED_HEADS = ((H, HKV, D), (H, HKV, 168), (H, HKV, 112),
+                        (H, HKV, 64), (H, HKV, 24), (H, HKV, 16), (H, HKV, 8),
+                        (48, 1, 128))
+
+
+def _launched(fn, call):
+    """(``call()``'s result, the one kernel of ``fn`` it launched), read
+    from the wrapper's per-kernel counters."""
+    import torch
+    before = dict(fn.launches_by_kernel)
+    out = call()
+    torch.cuda.synchronize()
+    ran = [n for n, c in fn.launches_by_kernel.items() if c != before[n]]
+    if len(ran) != 1:
+        raise AssertionError(f"{fn.__name__}: one call launched {ran}")
+    return out, ran[0]
 
 
 def phase_prefill_ragged():
     """K3 at C = 200 with the window of 300 and without one, in every mode,
-    within MODES' bounds, exact zeros at and past each row's length."""
+    at each of ``PREFILL_RAGGED_HEADS``, within MODES' bounds, exact zeros
+    at and past each row's length; each row names the kernel its call
+    launched, which must be the one ``route`` names."""
     import torch
     from repro_torch.kernels import paged_prefill_attention as k3
     from repro_torch.kernels import ref
+    t0 = time.monotonic()
     lens = [min(n, RAGGED_CHUNK) for n in CHUNK_LENS]
     dead = torch.arange(RAGGED_CHUNK)[None] >= torch.tensor(lens)[:, None]
     rows = []
-    for q_name, kv_name, atol, rtol in MODES:
-        args = list(_prefill_inputs(getattr(torch, q_name),
-                                    getattr(torch, kv_name)))
-        for i in (0, 1, 2):                     # q, k_new, v_new
-            args[i] = args[i][:, :RAGGED_CHUNK].contiguous()
-        args[7] = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        kw = ({"k_scale": args[8], "v_scale": args[9]} if kv_name == "int8"
-              else {})
-        for window in (-1, RAGGED_WINDOW):
-            got = k3.paged_prefill_attention(*args[:8], scale=D ** -0.5,
-                                             window=window, **kw)
-            torch.cuda.synchronize()
-            want = ref.paged_prefill_attention_ref(
-                *args[:8], scale=D ** -0.5, window=window, **kw)
-            err = (got.float() - want.float()).abs()
-            if not (bool((err <= atol + rtol * want.float().abs()).all())
-                    and bool((got[dead.cuda()] == 0).all())
-                    and bool(torch.isfinite(got).all())):
-                raise AssertionError(
-                    f"paged_prefill_attention disagrees with its plain "
-                    f"version at C = {RAGGED_CHUNK}: q {q_name}, kv "
-                    f"{kv_name}, window {window}: max abs err "
-                    f"{float(err.max())} (atol {atol}, rtol {rtol})")
-            rows.append([q_name, kv_name, window,
-                         k3.route(args[0].dtype, args[3].dtype),
-                         float(err.max())])
+    for heads in PREFILL_RAGGED_HEADS:
+        d = heads[2]
+        for q_name, kv_name, atol, rtol in MODES:
+            args = list(_prefill_inputs(getattr(torch, q_name),
+                                        getattr(torch, kv_name), heads))
+            for i in (0, 1, 2):                 # q, k_new, v_new
+                args[i] = args[i][:, :RAGGED_CHUNK].contiguous()
+            args[7] = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            kw = ({"k_scale": args[8], "v_scale": args[9]}
+                  if kv_name == "int8" else {})
+            rule = k3.route(args[0].dtype, args[3].dtype, d)
+            for window in (-1, RAGGED_WINDOW):
+                got, kernel = _launched(
+                    k3.paged_prefill_attention,
+                    lambda: k3.paged_prefill_attention(
+                        *args[:8], scale=d ** -0.5, window=window, **kw))
+                want = ref.paged_prefill_attention_ref(
+                    *args[:8], scale=d ** -0.5, window=window, **kw)
+                err = (got.float() - want.float()).abs()
+                if not (bool((err <= atol + rtol * want.float().abs()).all())
+                        and bool((got[dead.cuda()] == 0).all())
+                        and bool(torch.isfinite(got).all())
+                        and kernel == rule):
+                    raise AssertionError(
+                        f"paged_prefill_attention disagrees with its plain "
+                        f"version at C = {RAGGED_CHUNK}, heads {heads}: q "
+                        f"{q_name}, kv {kv_name}, window {window}: max abs "
+                        f"err {float(err.max())} (atol {atol}, rtol {rtol}),"
+                        f" ran {kernel} (route {rule})")
+                rows.append([list(heads), q_name, kv_name, window, kernel,
+                             float(err.max())])
     emit({"phase": "kernels_ragged", "kernel": "paged_prefill_attention",
-          "chunk": RAGGED_CHUNK, "lens": lens, "rows": rows})
+          "chunk": RAGGED_CHUNK, "lens": lens,
+          "rows_heads_q_kv_window_ran_err": rows,
+          "seconds": time.monotonic() - t0})
 
 
 def phase_routes():
     """Which kernel each K1, K2, K3 and K5 mode, each K4 regime, K9 and
     each K11 regime and each K6-K8 and K10 mode ran: one call of each at
     the main path's shapes (K1,
-    K2 and K5 (T = 5) also at head dim 64; K4 on a 4608 x 512 weight; K9
+    K2 and K5 (T = 5) also at head dims 64 and 168, K3 at 168; K4 on a
+    4608 x 512 weight; K9
     with fp32 and bf16 dx; K11 at M = 1, 8, 9 and 64, fp32 and bf16 x;
     K6-K8 in
     fp32 and bf16 and K10 in each of its modes at head dims 128 and 64, S
@@ -860,32 +930,28 @@ def phase_routes():
     from repro_torch.quant import ternary
 
     def ran(fn, call):
-        for name in fn.launches_by_kernel:
-            fn.launches_by_kernel[name] = 0
-        call()
-        torch.cuda.synchronize()
-        kernels = [n for n, c in fn.launches_by_kernel.items() if c]
-        if len(kernels) != 1:
-            raise AssertionError(f"{fn.__name__}: one call launched "
-                                 f"{fn.launches_by_kernel}")
-        return kernels[0]
+        return _launched(fn, call)[1]
 
     k3_ran, k4_ran = {}, {}
-    for q_name, kv_name, _, _ in MODES:
-        args = _prefill_inputs(getattr(torch, q_name), getattr(torch, kv_name))
-        kw = ({"k_scale": args[8], "v_scale": args[9]} if kv_name == "int8"
-              else {})
-        key = f"q {q_name}, kv {kv_name}"
-        k3_ran[key] = ran(k3.paged_prefill_attention,
-                          lambda: k3.paged_prefill_attention(
-                              *args[:8], scale=D ** -0.5, **kw))
-        if k3_ran[key] != k3.route(args[0].dtype, args[3].dtype):
-            raise AssertionError(f"K3 {key} ran its {k3_ran[key]} kernel")
+    for d in (D, 168):
+        for q_name, kv_name, _, _ in MODES:
+            args = _prefill_inputs(getattr(torch, q_name),
+                                   getattr(torch, kv_name), (H, HKV, d))
+            kw = ({"k_scale": args[8], "v_scale": args[9]}
+                  if kv_name == "int8" else {})
+            key = f"q {q_name}, kv {kv_name}, D = {d}"
+            k3_ran[key] = ran(k3.paged_prefill_attention,
+                              lambda: k3.paged_prefill_attention(
+                                  *args[:8], scale=d ** -0.5, **kw))
+            if k3_ran[key] != k3.route(args[0].dtype, args[3].dtype, d):
+                raise AssertionError(f"K3 {key} ran its {k3_ran[key]} "
+                                     f"kernel")
     k1_ran, k2_ran, k5_ran = {}, {}, {}
     lengths = [min(n, RAGGED_BLOCKS * PAGE) for n in LENGTHS]
-    for d in (D, 64):
+    for d in (D, 64, 168):
         for q_name, kv_name, _, _ in MODES:
-            q, *rest = _ragged_decode_inputs(d, SPEC_K + 1, lengths)(
+            q, *rest = _ragged_decode_inputs((H, HKV, d), SPEC_K + 1,
+                                             lengths)(
                 getattr(torch, q_name), getattr(torch, kv_name))
             kw = ({"k_scale": rest[4], "v_scale": rest[5]}
                   if kv_name == "int8" else {})
@@ -989,15 +1055,15 @@ def phase_routes():
           "flash_attention_bwd_dkv": k8_ran, "flash_attention": k10_ran})
 
 
-def _verify_inputs(t):
+def _verify_inputs(t, heads=(H, HKV, D)):
     """K2's inputs (the same pools, table, lengths and scales) with a q of
     T lanes per slot."""
     import torch
 
     def inputs(q_dtype, kv_dtype):
-        _, *rest = _paged_decode_inputs(q_dtype, kv_dtype)
+        _, *rest = _paged_decode_inputs(q_dtype, kv_dtype, heads)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-        return (_randn(gen, (B, t, H, D), q_dtype), *rest)
+        return (_randn(gen, (B, t, heads[0], heads[2]), q_dtype), *rest)
     return inputs
 
 
@@ -1212,30 +1278,38 @@ def phase_verify_tree_rows():
                   "atol": atol, "rtol": rtol, "timed": False})
 
 
-# K2 and K5 at a capacity that is no multiple of the split (125 pages of
-# 16: 2000 keys, whose last split is short; 256-key splits without a
+# K1, K2 and K5 at a capacity that is no multiple of the split (125 pages
+# of 16: 2000 keys, whose last split is short; 256-key splits without a
 # window, 64-key ones in a window of 300), with lengths 0, 1, at a split
 # edge and one past it, at the capacity and one below it, and 777, whose
-# window of 300 starts inside a split and inside a page; at head dims 128,
-# 64 (the SIMT kernel in every mode) and 256 (T = 5 lanes take two lane
-# groups there); every mode, T = 1, 2 and 5, windows -1 and 300: checked
-# against the plain versions, not timed
+# window of 300 starts inside a split and inside a page; at the main path's
+# heads (36 on 4 KV heads of 128), at head dims 64 (the SIMT kernel in
+# every mode), 256 (T = 5 lanes take two lane groups there) and every
+# other one of the reference's configs (168: gemma3-27b, 112: kimi-k2 and
+# zamba2, 24, 16 and 8: the smoke configs), and at granite-34b's MQA group
+# of 48 (48 heads on one KV head of 128: one lane a block at T = 5, on both
+# kernels); every mode, T = 1, 2 and 5, windows -1 and 300: checked against
+# the plain versions, not timed. K1 reads the pool's rows gathered into a
+# slot-major cache and must equal K2 bit for bit
 RAGGED_BLOCKS = 125
-RAGGED_HEAD_DIMS = (128, 64, 256)
+RAGGED_HEADS = ((H, HKV, 128), (H, HKV, 64), (H, HKV, 256), (H, HKV, 168),
+                (H, HKV, 112), (H, HKV, 24), (H, HKV, 16), (H, HKV, 8),
+                (48, 1, 128))
 
 
-def _ragged_decode_inputs(d, t, lengths):
-    """inputs(q_dtype, kv_dtype) of K5 (T lanes; K2 takes lane 0) at head
-    dim ``d`` over a pool of B * RAGGED_BLOCKS pages and a permuted table,
-    with ``lengths``."""
+def _ragged_decode_inputs(heads, t, lengths):
+    """inputs(q_dtype, kv_dtype) of K5 (T lanes; K2 takes lane 0) at
+    ``heads`` = (H, Hkv, D) over a pool of B * RAGGED_BLOCKS pages and a
+    permuted table, with ``lengths``."""
     import torch
+    h, hkv, d = heads
 
     def inputs(q_dtype, kv_dtype):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-        q = _randn(gen, (B, t, H, d), q_dtype)
+        q = _randn(gen, (B, t, h, d), q_dtype)
         pages = B * RAGGED_BLOCKS
-        k_pool = _randn(gen, (pages + 1, PAGE, HKV, d), kv_dtype)
-        v_pool = _randn(gen, (pages + 1, PAGE, HKV, d), kv_dtype)
+        k_pool = _randn(gen, (pages + 1, PAGE, hkv, d), kv_dtype)
+        v_pool = _randn(gen, (pages + 1, PAGE, hkv, d), kv_dtype)
         table = torch.randperm(pages, generator=gen, device="cuda").to(
             torch.int32).reshape(B, RAGGED_BLOCKS)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -1245,13 +1319,16 @@ def _ragged_decode_inputs(d, t, lengths):
 
 
 def phase_decode_ragged():
-    """K2 and K5 at the ragged shapes above within MODES' bounds, exact
-    zeros for dead slots and rows with no key, and K5's lanes equal to K2
-    bit for bit on the SIMT kernel."""
+    """K1, K2 and K5 at the ragged shapes above within MODES' bounds, exact
+    zeros for dead slots and rows with no key, each call on the kernel its
+    route names (read from the wrappers' counters), K1 equal to K2 bit for
+    bit, and K5's lanes equal to K2 bit for bit on the SIMT kernel."""
     import torch
+    from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import paged_decode_attention as k2
     from repro_torch.kernels import paged_verify_attention as k5
     from repro_torch.kernels import ref
+    t_start = time.monotonic()
     cap = RAGGED_BLOCKS * PAGE
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     split, n_splits = k2.split_plan(cap, PAGE, B * HKV, sms)
@@ -1264,15 +1341,17 @@ def phase_decode_ragged():
                              f"{cap}, splits {split} and {split_w} (window), "
                              f"window start {lo}")
     rows, lanes = [], []
-    for d in RAGGED_HEAD_DIMS:
+    for heads in RAGGED_HEADS:
+        d = heads[2]
         for q_name, kv_name, atol, rtol in MODES:
-            for t in (0,) + VERIFY_LANES:           # t = 0: K2
-                args = list(_ragged_decode_inputs(d, max(t, 1), lengths)(
+            for t in (-1, 0) + VERIFY_LANES:        # t = -1: K1, 0: K2
+                args = list(_ragged_decode_inputs(heads, max(t, 1), lengths)(
                     getattr(torch, q_name), getattr(torch, kv_name)))
                 kw = ({"k_scale": args[5], "v_scale": args[6]}
                       if kv_name == "int8" else {})
                 lens = torch.tensor(lengths)
-                if t == 0:
+                rule = k2.route(args[0].dtype, args[1].dtype, d)
+                if t <= 0:
                     args[0] = args[0][:, 0].contiguous()
                     kernel, plain = (k2.paged_decode_attention,
                                      ref.paged_decode_attention_ref)
@@ -1282,40 +1361,125 @@ def phase_decode_ragged():
                                      ref.paged_verify_attention_ref)
                     q_pos = lens[:, None] - t + torch.arange(t)[None]
                     dead = (lens[:, None] == 0) | (q_pos < 0)
+                if t == -1:
+                    # the pool's rows as K1's slot-major cache (B, cap, ...)
+                    dense = [ref.paged_gather(a, args[3]).contiguous()
+                             for a in args[1:3]]
+                    dkw = {name: ref.paged_gather(sc, args[3]).contiguous()
+                           for name, sc in kw.items()}
                 for window in (-1, RAGGED_WINDOW):
-                    got = kernel(*args[:5], scale=d ** -0.5, window=window,
-                                 **kw)
-                    torch.cuda.synchronize()
+                    if t == -1:
+                        got, ran = _launched(
+                            k1.decode_attention, lambda: k1.decode_attention(
+                                args[0], *dense, args[4], scale=d ** -0.5,
+                                window=window, **dkw))
+                        paged = k2.paged_decode_attention(
+                            *args[:5], scale=d ** -0.5, window=window, **kw)
+                        if not torch.equal(got, paged):
+                            raise AssertionError(
+                                f"decode_attention differs from "
+                                f"paged_decode_attention on the same rows: "
+                                f"heads {heads}, q {q_name}, kv {kv_name}, "
+                                f"window {window}: max abs diff "
+                                f"{float((got.float() - paged.float()).abs().max())}")
+                    else:
+                        got, ran = _launched(kernel, lambda: kernel(
+                            *args[:5], scale=d ** -0.5, window=window, **kw))
                     want = plain(*args[:5], scale=d ** -0.5, window=window,
                                  **kw)
                     err = (got.float() - want.float()).abs()
+                    name = ("decode_attention" if t == -1
+                            else kernel.__name__)
                     if not (bool((err <= atol + rtol * want.float().abs())
                                  .all())
                             and bool((got[dead.cuda()] == 0).all())
-                            and bool(torch.isfinite(got).all())):
+                            and bool(torch.isfinite(got).all())
+                            and ran == rule):
                         raise AssertionError(
-                            f"{kernel.__name__} disagrees with its plain "
-                            f"version at the ragged shapes: D {d}, T {t}, q "
+                            f"{name} disagrees with its plain version at the "
+                            f"ragged shapes: heads {heads}, T {t}, q "
                             f"{q_name}, kv {kv_name}, window {window}: max "
                             f"abs err {float(err.max())} (atol {atol}, rtol "
                             f"{rtol}), dead rows zero "
-                            f"{bool((got[dead.cuda()] == 0).all())}")
-                    rows.append([d, t, q_name, kv_name, window,
-                                 k2.route(args[0].dtype, args[1].dtype, d),
+                            f"{bool((got[dead.cuda()] == 0).all())}, ran "
+                            f"{ran} (route {rule})")
+                    rows.append([list(heads), t, q_name, kv_name, window, ran,
                                  float(err.max())])
         for t in VERIFY_LANES:
-            lanes += [[d, r["T"], r["q"], r["kv"], r["route"],
+            lanes += [[list(heads), r["T"], r["q"], r["kv"], r["route"],
                        r["lanes_equal_k2"], r["max_abs_diff_k2"]]
                       for r in _lanes_against_k2(
-                          _ragged_decode_inputs(d, t, lengths), t,
-                          d ** -0.5, f"ragged D = {d}")]
+                          _ragged_decode_inputs(heads, t, lengths), t,
+                          d ** -0.5, f"ragged heads {heads}")]
     emit({"phase": "kernels_ragged",
-          "kernel": "paged_decode_attention, paged_verify_attention",
+          "kernel": "decode_attention, paged_decode_attention, "
+                    "paged_verify_attention",
           "capacity": cap, "split": split, "splits": n_splits,
           "split_in_window": split_w,
           "lengths": list(lengths), "window": RAGGED_WINDOW,
-          "rows_d_t_q_kv_window_route_err": rows,
-          "lanes_d_t_q_kv_route_equal_diff": lanes})
+          "t_minus1_is_k1_0_is_k2": True,
+          "rows_heads_t_q_kv_window_ran_err": rows,
+          "lanes_heads_t_q_kv_route_equal_diff": lanes,
+          "seconds": time.monotonic() - t_start})
+
+
+# gemma3-27b's attention heads at full width (32 query heads on 16 KV
+# heads of 168) and its local layers' window: K1, K2, K5 (T = 5) and K3
+# at the main path's lengths, timed in the serve modes (bf16 q over the
+# fp32 cache and over the int8 cache) beside their D = 128 rows
+G3_HEADS, G3_WINDOW = (32, 16, 168), 1024
+G3_MODES = tuple(m for m in MODES if (m[0], m[1]) in (MAIN_FP[:2],
+                                                      MAIN_INT8[:2]))
+
+
+def phase_kernels_d168():
+    """K1, K2, K5 (T = 5) and K3 at gemma3-27b's heads, windows -1 and
+    1024, in the two serve modes, against their plain versions and timed
+    as ``phase_kernels`` times them at D = 128 (K1, K2, K5 by device
+    time). Returns each kernel's MAIN_INT8 row."""
+    import torch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.kernels import paged_prefill_attention as k3
+    from repro_torch.kernels import paged_verify_attention as k5
+    from repro_torch.kernels import ref
+    t0 = time.monotonic()
+    heads, t = G3_HEADS, SPEC_K + 1
+    lengths = torch.tensor(LENGTHS)
+    q_pos = lengths[:, None] - t + torch.arange(t)[None]
+    kw = dict(iters=48, kv_pos=(1, 2), device_time=True, route=_k25_route(),
+              modes=G3_MODES, windows=(-1, G3_WINDOW), cold=(1, 2))
+    rows = {
+        "decode_attention": _check_kernel(
+            "decode_attention", k1.decode_attention, ref.decode_attention_ref,
+            _library_decode, lambda q, kv: _decode_inputs(q, kv, heads),
+            lambda a, w: _decode_bound(a[0], a[1], a[3], w),
+            dead=lengths == 0, **kw),
+        "paged_decode_attention": _check_kernel(
+            "paged_decode_attention", k2.paged_decode_attention,
+            ref.paged_decode_attention_ref, _library_paged_decode,
+            lambda q, kv: _paged_decode_inputs(q, kv, heads),
+            lambda a, w: _decode_bound(a[0], a[1], a[4], w, paged=True),
+            dead=lengths == 0, **kw),
+        "paged_verify_attention": _check_kernel(
+            "paged_verify_attention", k5.paged_verify_attention,
+            ref.paged_verify_attention_ref, _library_verify,
+            _verify_inputs(t, heads),
+            lambda a, w: _verify_bound(a[0], a[1], a[4], w),
+            dead=(lengths[:, None] == 0) | (q_pos < 0), extra={"T": t},
+            **kw),
+        "paged_prefill_attention": _check_kernel(
+            "paged_prefill_attention", k3.paged_prefill_attention,
+            ref.paged_prefill_attention_ref, _library_prefill,
+            lambda q, kv: _prefill_inputs(q, kv, heads),
+            lambda a, w: _prefill_bound(a[0], a[1], a[3], a[6], a[7], w),
+            dead=torch.arange(CHUNK)[None]
+            >= torch.tensor(CHUNK_LENS)[:, None],
+            cold=(3, 4), iters=16, kv_pos=(3, 4), modes=G3_MODES,
+            windows=(-1, G3_WINDOW))}
+    emit({"phase": "kernels_d168", "heads": list(heads),
+          "seconds": time.monotonic() - t0})
+    return {name: r[MAIN_INT8] for name, r in rows.items()}
 
 
 # (M, K, N, x dtype, output dtype) of K4's checks: a decode tick's
@@ -1517,6 +1681,43 @@ def phase_int8_matmul():
                              f"M = {m}: its TMA descriptors cannot")
     emit({"phase": "int8_matmul_ragged", "kernel": "wgmma",
           "rows": ragged, "refused": [m, k, n], "error": refused})
+
+
+# K4 at the int8 mode's weight shapes of the dense family at full width:
+# (K, N) of wq and wo, wk and wv, w_in (and w_gate) and w_out, checked
+# against its plain version at a decode tick's M = 8 (the decode kernel)
+# and a speculative tick's M = 40 (the wgmma kernel), bf16 x, not timed
+K4_FAMILY = {"gemma3-27b": ((5376, 5376), (5376, 2688), (5376, 21504),
+                            (21504, 5376)),
+             "granite-34b": ((6144, 6144), (6144, 128), (6144, 24576),
+                             (24576, 6144)),
+             "qwen1.5-110b": ((8192, 8192), (8192, 1024), (8192, 49152),
+                              (49152, 8192)),
+             "qwen2-vl-72b": ((8192, 8192), (8192, 1024), (8192, 29568),
+                              (29568, 8192))}
+
+
+def phase_int8_family():
+    """K4 at every (K, N) of ``K4_FAMILY``, M = 8 and 40, bf16 x and
+    output, within K4_TOL, each call on the kernel ``regime`` names."""
+    import torch
+    from repro_torch.kernels import int8_matmul as k4
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rows = []
+    for arch, shapes in K4_FAMILY.items():
+        for k, n in shapes:
+            for m in (8, 40):
+                x, q, sc = _k4_inputs(gen, m, k, n, torch.bfloat16)
+                (_, err), ran = _launched(k4.int8_matmul, lambda: _check_k4(
+                    x, q, sc, torch.bfloat16))
+                if ran != k4.regime(m, x.dtype):
+                    raise AssertionError(f"int8_matmul at {m}x{k}x{n} ran "
+                                         f"its {ran} kernel")
+                rows.append([arch, m, k, n, ran, err])
+                del x, q, sc
+    emit({"phase": "int8_matmul_family", "rows_arch_m_k_n_ran_err": rows,
+          "seconds": time.monotonic() - t0})
 
 
 # K9 at the training path's projection shapes of starcoder2-7b, M = 4096
@@ -3547,6 +3748,10 @@ def phase_durability_streams(params, cfg, scfgs, prompts, want, quant):
 # K9's and K11's launches of each of their kernels in the main-path runs
 # (the train bench, the kernel bench, the CNN phases), for the kernels line
 MAIN_ROUTES = {"int8_matmul_dx": {}, "ternary_matmul": {}}
+# the head dims of the serve runs that launched each attention kernel
+ATTENTION_KERNELS = ("decode_attention", "paged_decode_attention",
+                     "paged_prefill_attention", "paged_verify_attention")
+MAIN_HEAD_DIMS = {}
 
 
 def _routes():
@@ -3627,13 +3832,16 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
     paged = eng.pool is not None
     int8 = eng.scfg.quant == "int8"
     spec = eng.scfg.spec_k > 0                  # the ngram drafter: no K2
-    want = {"decode_attention": 0 if paged else decode_ticks * N_LAYERS,
-            "paged_decode_attention": decode_ticks * N_LAYERS
+    # every layer attends; K4 takes each layer's wq, wk, wv, wo, w_in,
+    # w_out and (a gated MLP) w_gate
+    layers, n_proj = eng.cfg.n_layers, 6 + int(eng.cfg.mlp_gated)
+    want = {"decode_attention": 0 if paged else decode_ticks * layers,
+            "paged_decode_attention": decode_ticks * layers
             if paged and not spec else 0,
-            "paged_prefill_attention": admissions * N_LAYERS if paged
+            "paged_prefill_attention": admissions * layers if paged
             else 0,
-            "paged_verify_attention": decode_ticks * N_LAYERS if spec else 0,
-            "int8_matmul": (decode_ticks + admissions) * N_LAYERS * 6
+            "paged_verify_attention": decode_ticks * layers if spec else 0,
+            "int8_matmul": (decode_ticks + admissions) * layers * n_proj
             if int8 else 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "int8_matmul_dx": 0,
@@ -3642,15 +3850,24 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
         raise AssertionError(f"{phase}: launches {launches} != {want} "
                              f"(decode ticks {decode_ticks}, admission or "
                              f"extend calls {admissions})")
-    # which of K1's, K2's, K3's, K4's and K5's kernels ran: bf16 q over the
-    # int8 cache on K1's, K2's, K3's and K5's tensor cores and over the fp32
-    # cache on their SIMT kernels; bf16 x on
+    # which of K1's, K2's, K3's, K4's and K5's kernels ran: the one their
+    # route names for the activations' dtype, the cache's and the head dim
+    # (bf16 q over the int8 cache at D = 128 on K1's, K2's, K3's and K5's
+    # tensor cores; over the fp32 cache, fp32 q or another head dim on their
+    # SIMT kernels); bf16 x on
     # K4's wgmma kernel (M > 8: admission and extend calls, the spec ticks'
     # 40 rows) and its decode kernel (M <= 8: the 8 slots of a decode tick,
     # an extend call of a few tokens), never its SIMT one
+    from repro_torch.kernels import paged_decode_attention as k2
     k3_by = by_kernel["paged_prefill_attention"]
     k4_by = by_kernel["int8_matmul"]
-    attn_kernel = "tensor_cores" if int8 else "simt"
+    q_dtype = eng.params["embed"]["w"].dtype
+    kv_dtype = torch.int8 if int8 else eng.scfg.cache_dtype
+    head_dim = eng.cfg.resolved_head_dim
+    attn_kernel = k2.route(q_dtype, kv_dtype, head_dim)
+    for name in ATTENTION_KERNELS:
+        if launches[name]:
+            MAIN_HEAD_DIMS.setdefault(name, set()).add(head_dim)
     if any(by_kernel[name][attn_kernel] != launches[name]
            for name in ("decode_attention", "paged_decode_attention",
                         "paged_prefill_attention",
@@ -3662,8 +3879,11 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
             f"{by_kernel['paged_decode_attention']}, K3 "
             f"{k3_by}, K5 {by_kernel['paged_verify_attention']} (all on "
             f"{attn_kernel} expected), K4 ran {k4_by}")
-    row = {"phase": phase, "dtype": "bfloat16", "quant": eng.scfg.quant,
-           "cache": "int8" if int8 else "float32",
+    row = {"phase": phase, "arch": eng.cfg.name,
+           "layers": layers, "head_dim": head_dim,
+           "dtype": str(q_dtype).replace("torch.", ""),
+           "quant": eng.scfg.quant,
+           "cache": str(kv_dtype).replace("torch.", ""),
            "requests": len(prompts), "new_tokens_each": n_new,
            "decode_tokens_per_s": s["decode_tokens_per_s"],
            "decode_tokens": s["decode_tokens"],
@@ -4295,6 +4515,172 @@ def phase_agreement(cfg, params, qparams):
           "new_tokens": 24, **res, "seconds": time.monotonic() - t0})
 
 
+# gemma3-27b at full width (d_model 5376, 32 query heads on 16 KV heads of
+# 168, d_ff 21504 gated GELU, vocab 262144) cut to 14 of its 62 layers:
+# two repeats of its 6-layer pattern (5 local layers of window 1024, one
+# global) and its 2-layer local tail, so every layer kind runs, each
+# pattern position at two depths; fp32 params are 29.9 GB.
+# 4 requests of 1100-1501 prompt tokens (past the window, whose start then
+# falls inside a page and a split), 16 greedy tokens each, on 4 slots
+G3_REPEATS = 2
+G3_PROMPTS = (1100, 1237, 1389, 1501)
+G3_NEW = 16
+G3_MAX_LEN = 1536
+
+
+def phase_gemma3():
+    """gemma3-27b's serve paths at full width, 14 layers: in fp32 the dense
+    engine (K1), the paged engine with chunked prefill (K2, K3; pages of
+    16, chunks of 256) and the speculative one (K5, ``spec_k=4``) must give
+    the same greedy streams token for token; then bf16 weights (the same
+    draws rounded) on the paged engine, unquantized and int8 (K4 at
+    gemma3's shapes), report their agreement with the fp32 streams. Each
+    run's kernel launches are checked by ``_serve_run`` (every layer, on
+    the kernel its route names: SIMT at D = 168). Returns the runs'
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gemma3_27b
+    from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.models import costing
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   generation_agreement)
+    t_start = time.monotonic()
+    cfg = dataclasses.replace(gemma3_27b.make_config(), repeats=G3_REPEATS)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab)
+    if shape != (14, 5376, 32, 16, 168, 21504, 262144):
+        raise AssertionError(f"gemma3-27b is not at full width: {shape}")
+    kinds = [sp.window for sp in cfg.pattern + cfg.tail]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cap = G3_MAX_LEN // PAGE * PAGE
+    split = k2.split_plan(cap, PAGE, len(G3_PROMPTS) * cfg.n_kv_heads, sms,
+                          G3_WINDOW)[0]
+    # the window's start at each decode tick's query (position n + i)
+    starts = [n + i + 1 - G3_WINDOW for n in G3_PROMPTS
+              for i in range(G3_NEW - 1)]
+    in_page = sum(1 for x in starts if x % PAGE)
+    in_split = sum(1 for x in starts if x % split)
+    if min(starts) <= 0 or not (in_page and in_split):
+        raise AssertionError(f"gemma3's window does not bite inside a page "
+                             f"and a split: starts {starts}, split {split}")
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in G3_PROMPTS]
+    t0 = time.monotonic()
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
+                            device="cuda")
+    init_s = time.monotonic() - t0
+    dense_cfg = ServeConfig(max_slots=len(prompts), max_len=G3_MAX_LEN,
+                            device="cuda")
+    paged_cfg = dataclasses.replace(dense_cfg, paged=True, page_size=PAGE,
+                                    prefill_chunk=256, prefix_cache=False)
+    runs, streams, seconds = [], {}, {}
+    for name, scfg in (("dense", dense_cfg), ("paged", paged_cfg),
+                       ("spec", dataclasses.replace(paged_cfg,
+                                                    spec_k=SPEC_K))):
+        t0 = time.monotonic()
+        acct = _accountant()
+        launches, streams[name], _ = _serve_run(
+            f"gemma3_{name}", ServeEngine(params, cfg, scfg,
+                                          accountant=acct),
+            acct, prompts, G3_NEW, hits=False)
+        runs.append(launches)
+        seconds[name] = time.monotonic() - t0
+    if not streams["dense"] == streams["paged"] == streams["spec"]:
+        raise AssertionError(
+            f"gemma3-27b fp32 streams differ: dense {streams['dense']}, "
+            f"paged {streams['paged']}, spec {streams['spec']}; first "
+            f"difference paged {_first_diff(streams['paged'], streams['dense'])}"
+            f", spec {_first_diff(streams['spec'], streams['dense'])}")
+    param_gb = costing.tree_bytes(params) / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    bparams = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
+                             device="cuda")
+    agreement = {}
+    for quant in ("none", "int8"):
+        t0 = time.monotonic()
+        label = "bf16" if quant == "none" else "int8"
+        acct = _accountant()
+        launches, got, _ = _serve_run(
+            f"gemma3_paged_{label}", ServeEngine(
+                bparams, cfg, dataclasses.replace(paged_cfg, quant=quant),
+                accountant=acct), acct, prompts, G3_NEW, hits=False)
+        runs.append(launches)
+        agreement[label] = generation_agreement(got, streams["paged"])
+        seconds[f"paged_{label}"] = time.monotonic() - t0
+    del bparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "gemma3", "layers": cfg.n_layers, "windows": kinds,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "param_gb_fp32": param_gb, "init_s": init_s,
+          "prompts": list(G3_PROMPTS), "new_tokens_each": G3_NEW,
+          "window_starts_inside_a_page": in_page,
+          "window_starts_inside_a_split": in_split, "split": split,
+          "fp32_dense_paged_spec_identical": True,
+          "streams_fp32": {str(u): v for u, v in streams["dense"].items()},
+          "agreement_with_fp32": agreement, "run_seconds": seconds,
+          "seconds": time.monotonic() - t_start})
+    return runs
+
+
+# granite-34b (48 query heads on one KV head: MQA), qwen1.5-110b (QKV
+# bias, untied head) and qwen2-vl-72b (M-RoPE, its text tokens on three
+# equal position streams) at full width, cut to 2 layers (two repeats of
+# their one-layer pattern), bf16 weights from SEED: 4 requests of
+# 100-400 prompt tokens, 16 greedy tokens each, on the paged path (K2,
+# K3), 4 slots, pages of 16, chunks of 256
+FAMILY = ("granite-34b", "qwen1.5-110b", "qwen2-vl-72b")
+FAMILY_REPEATS = 2
+
+
+def phase_family_serve():
+    """The rest of the dense family at full width, 2 layers, bf16, through
+    the paged engine: each run's streams (every request its 16 tokens) and
+    kernel launches (``_serve_run``). Returns the runs' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import costing
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.serve import ServeConfig, ServeEngine
+    runs = []
+    for arch in FAMILY:
+        t0 = time.monotonic()
+        cfg = dataclasses.replace(cfgbase.get(arch).make_config(),
+                                  repeats=FAMILY_REPEATS)
+        params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
+                                device="cuda")
+        rng = np.random.default_rng(SEED + 12)
+        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(100, 401)))
+                   for _ in range(4)]
+        acct = _accountant()
+        eng = ServeEngine(params, cfg, ServeConfig(
+            max_slots=4, max_len=512, device="cuda", paged=True,
+            page_size=PAGE, prefill_chunk=256, prefix_cache=False),
+            accountant=acct)
+        launches, streams, _ = _serve_run(f"family_{arch}", eng, acct,
+                                          prompts, 16, hits=False)
+        runs.append(launches)
+        emit({"phase": "family", "arch": arch, "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+              "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+              "vocab": cfg.vocab, "pos_emb": cfg.pos_emb,
+              "qkv_bias": cfg.qkv_bias, "tied": cfg.tie_embeddings,
+              "param_gb": costing.tree_bytes(params) / 1e9,
+              "prompt_lens": [len(p) for p in prompts],
+              "streams": {str(u): v for u, v in streams.items()},
+              "seconds": time.monotonic() - t0})
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
 # (kernel, its CUDA source under src/repro_torch/kernels/csrc/, the TPU
 # kernel it replaces)
 KERNELS = (
@@ -4366,10 +4752,12 @@ def main() -> int:
     phase_build()
     phase_routes()
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
+    d168 = phase_kernels_d168()
     phase_prefill_ragged()
     phase_decode_ragged()
     rows["int8_matmul"] = phase_int8_decode()
     phase_int8_matmul()
+    phase_int8_family()
     rows["int8_matmul_dx"] = phase_int8_dx()
     phase_int8_train_grads()
     rows["ternary_matmul"] = phase_ternary_matmul()
@@ -4381,6 +4769,8 @@ def main() -> int:
     runs = phase_serve_runs()
     gc.collect()
     torch.cuda.empty_cache()
+    runs += phase_gemma3()
+    runs += phase_family_serve()
     runs += [phase_train_parity(), phase_train()]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4407,7 +4797,11 @@ def main() -> int:
         "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"],
         **({"kernels_launched": MAIN_ROUTES[name]} if name in MAIN_ROUTES
-           else {})}
+           else {}),
+        **({"head_dims": sorted(MAIN_HEAD_DIMS.get(name, ())),
+            "d168": {key: d168[name][key] for key in (
+                "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "route")}} if name in d168 else {})}
         for name, source, replaces in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

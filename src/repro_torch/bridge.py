@@ -22,11 +22,10 @@ from repro_torch.quant.ternary import TernaryWeight
 
 # LMConfig fields of the JAX package that only steer TPU compilation,
 # sharding, rematerialization or the Pallas switches; they do not change
-# what the model or its loss computes. (``mrope_sections`` only matters
-# under pos_emb="mrope", which ``LMConfig`` refuses.)
+# what the model or its loss computes.
 _TPU_ONLY_FIELDS = frozenset({
     "remat", "moe_group_size", "sp_attention", "sp_residual",
-    "kv_cache_dtype", "decode_kernel", "flash_train", "mrope_sections"})
+    "kv_cache_dtype", "decode_kernel", "flash_train"})
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -40,8 +39,11 @@ def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
                       device="cuda") -> Dict[str, Any]:
     """The JAX parameter tree (nested dicts of numpy arrays, ``pat{i}``
-    stacked over ``repeats`` as ``init_lm`` makes it) as the port's
-    parameters: the same keys and layouts, as tensors on ``device``."""
+    stacked over ``repeats`` as ``init_lm`` makes it, ``tail{i}`` single)
+    as the port's parameters: the same keys and layouts, as tensors on
+    ``device``. Every leaf is carried: gemma3's six stacked pattern groups
+    and its two-block tail, the QKV biases (``bq``, ``bk``, ``bv``) and an
+    untied ``unembed`` alike."""
     dev = device_lib.resolve(device)
 
     def walk(t):
@@ -91,15 +93,13 @@ def ternary_from_numpy(q: np.ndarray, scale: np.ndarray,
 
 def config_from_dict(d: Dict[str, Any]) -> LMConfig:
     """The port's ``LMConfig`` from ``dataclasses.asdict`` of a JAX one.
-    TPU-only knobs are dropped; features the port lacks raise
-    ``NotImplementedError`` (here or in ``LMConfig``)."""
+    TPU-only knobs are dropped; ``mrope_sections`` and ``vision_tokens``
+    are carried; features the port lacks raise ``NotImplementedError``
+    (here or in ``LMConfig``)."""
     if d.get("moe_cfg") is not None or d.get("ssd_cfg") is not None:
         raise NotImplementedError("MoE and SSD configs are not ported yet")
-    if d.get("vision_tokens", 0):
-        raise NotImplementedError("the vision frontend is not ported yet")
     fields = {f.name for f in dataclasses.fields(LMConfig)}
-    unknown = set(d) - fields - _TPU_ONLY_FIELDS - {"moe_cfg", "ssd_cfg",
-                                                    "vision_tokens"}
+    unknown = set(d) - fields - _TPU_ONLY_FIELDS - {"moe_cfg", "ssd_cfg"}
     if unknown:
         raise ValueError(f"unknown LMConfig fields {sorted(unknown)}")
     kw = {k: v for k, v in d.items() if k in fields}

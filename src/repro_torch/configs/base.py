@@ -26,8 +26,10 @@ class ArchSpec:
     active_fraction: float = 1.0
 
 
-# archs ported so far; the rest of repro.configs follows the port's queue
-_ARCH_MODULES = ["starcoder2_7b", "alexnet", "vgg16"]
+# archs ported so far (the dense family, then the CNNs), in the
+# reference's order; the rest of repro.configs follows the port's queue
+_ARCH_MODULES = ["gemma3_27b", "starcoder2_7b", "granite_34b",
+                 "qwen1_5_110b", "qwen2_vl_72b", "alexnet", "vgg16"]
 
 REGISTRY: Dict[str, ArchSpec] = {}
 

@@ -5,6 +5,8 @@ take; none falls back to another device."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -32,8 +34,8 @@ def check_int32(name: str, **tensors: torch.Tensor) -> None:
 def check_kv_rows(name: str, k: torch.Tensor, v: torch.Tensor,
                   k_scale=None, v_scale=None) -> tuple:
     """K and V (..., Hkv, D) alike: one dtype, shared strides, contiguous
-    (Hkv, D) rows, and every row on a 16-byte boundary (the kernels' vector
-    loads). int8 K/V come with fp32 scales (..., Hkv) whose strides are
+    (Hkv, D) rows, and every row on a 16-byte boundary, or an 8-byte one
+    where D bytes are no multiple of 16 (the kernels' vector loads). int8 K/V come with fp32 scales (..., Hkv) whose strides are
     K/V's over D, so a row's scale sits at its element offset / D. Returns
     the (k_scale, v_scale) pointers to pass (None for fp K/V)."""
     if k.dtype not in KV_TYPES or v.dtype != k.dtype or v.shape != k.shape:
@@ -50,9 +52,13 @@ def check_kv_rows(name: str, k: torch.Tensor, v: torch.Tensor,
                          f"contiguous (Hkv, D) dims; got {k.stride()} and "
                          f"{v.stride()}")
     item = k.element_size()
-    if (k.data_ptr() % 16 or v.data_ptr() % 16
-            or any((s * item) % 16 for s in k.stride()[:-2])):
-        raise ValueError(f"{name} kernel: k/v rows must be 16-byte aligned")
+    # the kernels' vector loads: 16 bytes, or 8 where a row of int8 codes
+    # is no multiple of 16 (D = 8, 24, 168)
+    align = math.gcd(16, d * item)
+    if (k.data_ptr() % align or v.data_ptr() % align
+            or any((s * item) % align for s in k.stride()[:-2])):
+        raise ValueError(f"{name} kernel: k/v rows must be {align}-byte "
+                         f"aligned")
     if k_scale is None:
         return None, None
     want = tuple(s // d for s in k.stride()[:-1])

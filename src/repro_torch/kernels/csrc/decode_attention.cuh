@@ -18,7 +18,11 @@
 // with each lane taking two keys and runs each row's online-softmax update
 // with warp reductions; thread t accumulates P @ V for four columns. One
 // block loads each K/V row of a KV head's GQA group once for all of the
-// group's query rows.
+// group's query rows. Any head dim that is a multiple of 8 fits this
+// layout, masked by length and never padded: a tile's loads are
+// ceil(64 * D / vector / 256) a thread with the last ones masked, and
+// where D / 4 does not divide 256 (D = 24, 112, 168) the threads past
+// the last whole group of D / 4 sit out the P @ V pass.
 
 #pragma once
 
@@ -48,6 +52,16 @@ template <typename T> struct Vec16;      // 16 bytes of T
 template <> struct Vec16<float> { using type = float4; static constexpr int n = 4; };
 template <> struct Vec16<__nv_bfloat16> { using type = uint4; static constexpr int n = 8; };
 template <> struct Vec16<int8_t> { using type = uint4; static constexpr int n = 16; };
+struct Vec8Int8 { using type = uint2; static constexpr int n = 8; };
+
+// The vector a thread loads of a K/V row of D values of T: 16 bytes, or 8
+// codes for an int8 row whose D is no multiple of 16 (D = 8, 24, 168), so
+// no load crosses a row's end. Every head dim the kernels take is a
+// multiple of 8, so a bf16 row is a whole number of 16-byte vectors and
+// an fp32 one of float4s.
+template <typename T, int D>
+using RowVec = typename std::conditional<std::is_same<T, int8_t>::value && D % 16 != 0,
+                                         Vec8Int8, Vec16<T>>::type;
 
 __device__ __forceinline__ void to_smem(const float4& x, float* dst) {
   *reinterpret_cast<float4*>(dst) = x;
@@ -61,11 +75,12 @@ __device__ __forceinline__ void to_smem(const uint4& x, float* dst) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
-// 16 int8 codes times their row's scale, in fp32
-__device__ __forceinline__ void dequant_to_smem(const uint4& x, float s, float* dst) {
+// 16 (uint4) or 8 (uint2) int8 codes times their row's scale, in fp32
+template <typename V>
+__device__ __forceinline__ void dequant_to_smem(const V& x, float s, float* dst) {
   const int8_t* c = reinterpret_cast<const int8_t*>(&x);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < (int)sizeof(V) / 4; ++i)
     reinterpret_cast<float4*>(dst)[i] =
         make_float4((float)c[4 * i] * s, (float)c[4 * i + 1] * s, (float)c[4 * i + 2] * s,
                     (float)c[4 * i + 3] * s);

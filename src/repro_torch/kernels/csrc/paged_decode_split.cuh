@@ -62,9 +62,13 @@
 //     make), as K3's tensor-core kernel does; the softmax runs in log2
 //     units. Padding rows and keys outside a row's range are masked on the
 //     fp32 score before the row max; padding rows write nothing;
-//   * every other mode (fp32 q, an fp32 cache, D = 64 or 256) runs
+//   * every other mode (fp32 q, an fp32 cache, any head dim but 128) runs
 //     split_simt_kernel: decode_attention.cuh's tile body (fp32 SIMT dots,
-//     q pre-scaled in fp32, expf) with the split and the combine. With no window, its lane
+//     q pre-scaled in fp32, expf) with the split and the combine, at every
+//     head dim of the reference's configs (8, 16, 24, 64, 112, 128, 168,
+//     256): columns past D are never loaded or stored, the tile's last
+//     loads and the threads past the P @ V pass's last whole group of D / 4
+//     are masked in registers, and the tensors hold no zero columns. With no window, its lane
 //     t of K5 equals K2 at length q_pos + 1 bit for bit: the splits and
 //     tiles start at the same keys, a key past a row's bound adds p = 0
 //     with alpha = 1, a split past it adds a zero partial with weight 0,
@@ -295,12 +299,13 @@ split_simt_kernel(const __grid_constant__ SplitParams p) {
   constexpr int DQ = D / 4;                       // float4 columns of a row
   constexpr int KS = D + 4;                       // padded K row: conflict-free
   constexpr int G = kThreads / DQ;                // row groups of the P @ V pass
-  constexpr int VN = Vec16<KVT>::n;
+  using RV = RowVec<KVT, D>;
+  constexpr int VN = RV::n;
   constexpr int kVecPerRow = D / VN;
-  constexpr int kLoads = kTileK * kVecPerRow / kThreads;   // per thread, K and V each
-  static_assert(kThreads % DQ == 0 && (kTileK * kVecPerRow) % kThreads == 0,
-                "unsupported head dim");
-  using VecT = typename Vec16<KVT>::type;
+  constexpr int kVecs = kTileK * kVecPerRow;      // a tile's vectors, K and V each
+  constexpr int kLoads = (kVecs + kThreads - 1) / kThreads;   // per thread; the last masked
+  static_assert(D % 8 == 0 && D % VN == 0 && DQ <= kThreads, "unsupported head dim");
+  using VecT = typename RV::type;
 
   const int j = blockIdx.x, kvh = blockIdx.y / p.groups, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -337,7 +342,7 @@ split_simt_kernel(const __grid_constant__ SplitParams p) {
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
       const int j = i / kVecPerRow, c = (i % kVecPerRow) * VN;
-      if (t0 + j < k1) {
+      if (i < kVecs && t0 + j < k1) {
         const long long row = Rows::row(p, b, t0 + j);
         k_next[u] = *reinterpret_cast<const VecT*>(k_g + row + c);
         v_next[u] = *reinterpret_cast<const VecT*>(v_g + row + c);
@@ -362,7 +367,9 @@ split_simt_kernel(const __grid_constant__ SplitParams p) {
   for (int i = 0; i < kMaxRowsPerWarp; ++i) m_run[i] = kNegInf;
   for (int r = tid; r < n_rows; r += kThreads) l_s[r] = 0.f;
 
-  const int cq = tid % DQ, rg = tid / DQ;         // P @ V ownership
+  // P @ V ownership: columns 4 cq.. of rows rg, rg + G, ...; a thread past
+  // the last whole group (D / 4 not dividing kThreads) owns no row
+  const int cq = tid % DQ, rg = tid < G * DQ ? tid / DQ : kThreads;
   float4 acc[kMaxRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kMaxRowsPerThread; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -374,6 +381,7 @@ split_simt_kernel(const __grid_constant__ SplitParams p) {
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
       const int j = i / kVecPerRow, c = (i % kVecPerRow) * VN;
+      if (i >= kVecs) break;
       if constexpr (kQuant) {
         dequant_to_smem(k_next[u], ks_next[u], k_s + j * KS + c);
         dequant_to_smem(v_next[u], vs_next[u], v_s + j * D + c);
@@ -834,9 +842,14 @@ cudaError_t launch_split(const SplitParams& p, int B, int D, int q_bf16, int kv_
   }
 #define SPLIT_CASE(QT, KVT)                                                               \
   switch (D) {                                                                            \
-    case 64: return launch_split_simt<QT, KVT, 64, Rows>(p, B, stream);                         \
-    case 128: return launch_split_simt<QT, KVT, 128, Rows>(p, B, stream);                       \
-    case 256: return launch_split_simt<QT, KVT, 256, Rows>(p, B, stream);                       \
+    case 8: return launch_split_simt<QT, KVT, 8, Rows>(p, B, stream);                     \
+    case 16: return launch_split_simt<QT, KVT, 16, Rows>(p, B, stream);                   \
+    case 24: return launch_split_simt<QT, KVT, 24, Rows>(p, B, stream);                   \
+    case 64: return launch_split_simt<QT, KVT, 64, Rows>(p, B, stream);                   \
+    case 112: return launch_split_simt<QT, KVT, 112, Rows>(p, B, stream);                 \
+    case 128: return launch_split_simt<QT, KVT, 128, Rows>(p, B, stream);                 \
+    case 168: return launch_split_simt<QT, KVT, 168, Rows>(p, B, stream);                 \
+    case 256: return launch_split_simt<QT, KVT, 256, Rows>(p, B, stream);                 \
     default: return cudaErrorInvalidValue;                                                \
   }
   if (q_bf16) {

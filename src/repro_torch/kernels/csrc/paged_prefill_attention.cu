@@ -23,10 +23,15 @@
 // * scale) as it loads, as the Pallas body does (flash_attention.py:459-477).
 // The chunk's own K/V stay in q's dtype.
 //
-// Two kernels, chosen by the wrapper from the dtypes (no fallback either
-// way): bf16 q over a bf16 or int8 pool runs paged_prefill_tc_kernel on the
-// tensor cores; fp32 q or an fp32 pool runs paged_prefill_kernel, fp32
-// SIMT dots, since TF32 would change the fp32 numerics.
+// Two kernels, chosen by the wrapper from the dtypes and the head dim (no
+// fallback either way): bf16 q over a bf16 or int8 pool at D = 128 runs
+// paged_prefill_tc_kernel on the tensor cores; fp32 q, an fp32 pool or
+// any other head dim runs paged_prefill_kernel, fp32 SIMT dots, since TF32
+// would change the fp32 numerics. The SIMT kernel takes every head dim of
+// the reference's configs (8, 16, 24, 64, 112, 128, 168), masked by
+// length and never padded: a tile's last loads, and the threads past the
+// P @ V pass's last whole group of D / 4 (D = 24, 112, 168), are masked
+// in registers.
 //
 // What bounds it on the card: operations. Each (query, key) pair costs
 // 4 * D FLOPs per head, and every K/V row a block loads serves all of its
@@ -120,9 +125,9 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
   constexpr int KS = D + 4;                       // padded K row: conflict-free
   constexpr int G = kThreads / DQ;                // row groups of the P @ V pass
   constexpr int kRowsPerThread = (kRows + G - 1) / G;
-  constexpr int kLoads = kTileK * DQ / kThreads;  // per thread, K and V each
-  static_assert(kThreads % DQ == 0 && (kTileK * DQ) % kThreads == 0,
-                "unsupported head dim");
+  constexpr int kVecs = kTileK * DQ;              // a tile's 4-value vectors, K and V each
+  constexpr int kLoads = (kVecs + kThreads - 1) / kThreads;   // per thread; the last masked
+  static_assert(D % 8 == 0 && DQ <= kThreads, "unsupported head dim");
 
   const int rep = H / Hkv;
   const int R = tokens * rep;                     // <= kRows
@@ -171,7 +176,9 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
   float m_run[kRowsPerWarp];
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) m_run[i] = kNegInf;
-  const int cq = tid % DQ, grp = tid / DQ;        // P @ V ownership
+  // P @ V ownership: columns 4 cq.. of rows grp, grp + G, ...; a thread
+  // past the last whole group (D / 4 not dividing kThreads) owns no row
+  const int cq = tid % DQ, grp = tid < G * DQ ? tid / DQ : kThreads;
   float4 acc[kRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -184,7 +191,10 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
       const int kp = kt0 + i / DQ, c = (i % DQ) * 4;
-      if (kp < start) {
+      if (i >= kVecs) {
+        kr[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        vr[u] = kr[u];
+      } else if (kp < start) {
         const int page = __ldg(page_table + (long long)b * n_blocks + kp / page_size);
         const long long row =
             (long long)page * stride_page + (long long)(kp % page_size) * stride_row;
@@ -209,6 +219,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
       const int j = i / DQ, c = (i % DQ) * 4;
+      if (i >= kVecs) break;
       *reinterpret_cast<float4*>(k_s + j * KS + c) = kr[u];
       *reinterpret_cast<float4*>(v_s + j * D + c) = vr[u];
     }
@@ -661,16 +672,17 @@ cudaError_t launch_prefill_tc(const void* q, const void* k_new, const void* v_ne
 
 }  // namespace
 
-// Plain C entry point of the SIMT kernel, which takes fp32 q over any pool
-// and bf16 q over an fp32 pool only (bf16 q over a bf16 or int8 pool is
-// the tensor-core kernel's, and is refused here). q (B, C, H, D),
+// Plain C entry point of the SIMT kernel, which takes fp32 or bf16 q over
+// any pool (bf16 q over a bf16 or int8 pool is the tensor-core kernel's at
+// D = 128; the wrapper routes it there). q (B, C, H, D),
 // k_new/v_new (B, C, Hkv, D) in q's dtype and out (B, C, H, D), all
 // contiguous; k/v pools (P, page_size, Hkv, D) with unit stride on D and
 // stride D on Hkv, their page and row strides given in elements;
 // page_table (B, n_blocks) int32 contiguous; starts and lens (B,) int32;
 // kv_type a KvType. With int8 pools, ks/vs (P, page_size, Hkv) fp32 have
 // the pools' strides / D (else they are unused). H / Hkv <= 72 and D in
-// {64, 128}. Returns the CUDA error of the launch (0 on success).
+// {8, 16, 24, 64, 112, 128, 168}. Returns the CUDA error of the launch (0
+// on success).
 extern "C" int paged_prefill_attention_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pool,
     const void* v_pool, const void* page_table, const void* starts, const void* lens,
@@ -680,26 +692,28 @@ extern "C" int paged_prefill_attention_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ksf = static_cast<const float*>(ks);
   const float* vsf = static_cast<const float*>(vs);
+#define PREFILL_D(QT, KVT, DD)                                                            \
+    case DD: return static_cast<int>(launch_prefill<QT, KVT, DD>(                         \
+        q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv,     \
+        n_blocks, page_size, pool_stride_page, pool_stride_row, window, scale, ksf, vsf,  \
+        s));
 #define PREFILL_CASE(QT, KVT)                                                             \
   switch (D) {                                                                            \
-    case 64: return static_cast<int>(launch_prefill<QT, KVT, 64>(                         \
-        q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv,     \
-        n_blocks, page_size, pool_stride_page, pool_stride_row, window, scale, ksf, vsf,  \
-        s));                                                                              \
-    case 128: return static_cast<int>(launch_prefill<QT, KVT, 128>(                       \
-        q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv,     \
-        n_blocks, page_size, pool_stride_page, pool_stride_row, window, scale, ksf, vsf,  \
-        s));                                                                              \
+    PREFILL_D(QT, KVT, 8) PREFILL_D(QT, KVT, 16) PREFILL_D(QT, KVT, 24)                   \
+    PREFILL_D(QT, KVT, 64) PREFILL_D(QT, KVT, 112) PREFILL_D(QT, KVT, 128)                \
+    PREFILL_D(QT, KVT, 168)                                                               \
     default: return static_cast<int>(cudaErrorInvalidValue);                              \
   }
   if (q_bf16) {
-    if (kv_type != kKvFloat) return static_cast<int>(cudaErrorInvalidValue);
+    if (kv_type == kKvBf16) { PREFILL_CASE(__nv_bfloat16, __nv_bfloat16) }
+    if (kv_type == kKvInt8) { PREFILL_CASE(__nv_bfloat16, int8_t) }
     PREFILL_CASE(__nv_bfloat16, float)
   }
   if (kv_type == kKvBf16) { PREFILL_CASE(float, __nv_bfloat16) }
   if (kv_type == kKvInt8) { PREFILL_CASE(float, int8_t) }
   PREFILL_CASE(float, float)
 #undef PREFILL_CASE
+#undef PREFILL_D
 }
 
 

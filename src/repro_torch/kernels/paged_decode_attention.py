@@ -8,9 +8,10 @@ buffers.
 K1, K2 and K5 are one kernel body (``csrc/paged_decode_split.cuh``; K2 is
 K5 at one query lane, K1 is K2 over a slot-major cache) with two kernels,
 and ``route`` picks one by dtype and head dim: bf16 q over a bf16 or int8
-cache at D = 128 runs on the tensor cores (wgmma), every other mode on
-fp32 SIMT dots. Neither stands in for
-the other, and a launch error raises.
+cache at D = 128 runs on the tensor cores (wgmma), every other mode and
+head dim (``HEAD_DIMS``) on fp32 SIMT dots. Neither stands in for
+the other, a head dim outside ``HEAD_DIMS`` raises, and a launch error
+raises.
 
 Both split each slot's key range across blocks: ``plan`` gives the split
 length and count from the shapes and the window alone (never from the
@@ -45,7 +46,10 @@ from repro_torch.kernels.checks import (DTYPES, KV_TYPES, check_cuda,
                                         check_int32, check_kv_rows)
 from repro_torch.kernels.int8_matmul import _sm_count
 
-_HEAD_DIMS = (64, 128, 256)
+# every head dim of the reference's configs (full size 64, 112, 128, 168;
+# smoke 8, 16, 24) and 256; the SIMT kernel masks a D that is no multiple
+# of its vector width or thread groups by length, and pads nothing
+HEAD_DIMS = (8, 16, 24, 64, 112, 128, 168, 256)
 # the kernels' key tile (kTileK, kSpKeys), the tensor-core kernel's head
 # dim and rows a block (kSpD, kSpRows: wgmma's M), the most splits the
 # combine takes (kMaxSplits)
@@ -62,15 +66,18 @@ _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 def max_rep(head_dim: int) -> int:
     """Largest GQA group the SIMT kernel takes at this head dim (its
     register and score-pass budgets: ``max_rows`` in
-    ``csrc/decode_attention.cuh``)."""
+    ``csrc/decode_attention.cuh``): 64 rows for the score pass, and 8 rows
+    a thread of the P @ V pass's 1024 // d whole groups of d / 4 threads
+    (48 at D 168, 64 at D 112 and below)."""
     return min(64, 8 * (1024 // head_dim))
 
 
 def check_heads(name: str, d: int, h: int, hkv: int) -> None:
-    """The head dims and GQA groups of K1, K2 and K5: D in {64, 128, 256}
-    and at most ``max_rep(d)`` query heads a KV head."""
-    if d not in _HEAD_DIMS or h % hkv or h // hkv > max_rep(d):
-        raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}, "
+    """The head dims and GQA groups of K1, K2 and K5: D in ``HEAD_DIMS``
+    and at most ``max_rep(d)`` query heads a KV head. Any other head dim
+    raises: no wrapper falls back to the plain version."""
+    if d not in HEAD_DIMS or h % hkv or h // hkv > max_rep(d):
+        raise ValueError(f"{name} kernel: head_dim {d} not in {HEAD_DIMS}, "
                          f"or GQA group {h}/{hkv} above {max_rep(d)}")
 
 

@@ -2,12 +2,13 @@
 (``csrc/paged_prefill_attention.cu``), which replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.paged_prefill_attention``.
 
-The source holds two kernels, and ``route`` picks one by dtype: bf16 q
-over a bf16 or int8 pool runs the tensor-core kernel (wgmma; D = 128 only,
-any GQA group), every mode with fp32 q or an fp32 pool the SIMT kernel
-(fp32 FMAs: TF32 would change the fp32 numerics; GQA group at most
-``MAX_REP``). A shape the chosen kernel cannot take raises; neither kernel
-stands in for the other.
+The source holds two kernels, and ``route`` picks one by dtype and head
+dim: bf16 q over a bf16 or int8 pool at D = 128 runs the tensor-core
+kernel (wgmma, any GQA group), every mode with fp32 q or an fp32 pool, and
+every other head dim of ``HEAD_DIMS``, the SIMT kernel (fp32 FMAs: TF32
+would change the fp32 numerics; GQA group at most ``MAX_REP``). A shape
+the chosen kernel cannot take raises; neither kernel stands in for the
+other.
 
 The wrapper checks device, dtypes, shapes, strides and alignment, allocates
 the output with ``torch.empty``, launches on PyTorch's current stream and
@@ -29,7 +30,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.checks import (DTYPES, KV_TYPES, check_cuda,
                                         check_int32, check_kv_rows)
 
-_HEAD_DIMS = (64, 128)
+# every head dim of the reference's configs: full size 64, 112, 128, 168;
+# smoke 8, 16, 24 (the SIMT kernel masks the ragged ones by length)
+HEAD_DIMS = (8, 16, 24, 64, 112, 128, 168)
 # the SIMT kernel's query rows a block (kRows in the source): T tokens x rep
 MAX_REP = 72
 # the tensor-core kernel's head dim (kTcD) and page-table entries a row
@@ -38,12 +41,31 @@ TC_HEAD_DIM = 128
 TC_MAX_PAGES = 16384
 
 
-def route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+def route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+          head_dim: int = TC_HEAD_DIM) -> str:
     """The kernel that runs for q of ``q_dtype`` over a pool of
-    ``kv_dtype``: "tensor_cores" (bf16 q, bf16 or int8 pool) or "simt"."""
-    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+    ``kv_dtype`` at ``head_dim``: "tensor_cores" (bf16 q, bf16 or int8
+    pool, D = 128) or "simt" (every other mode and head dim)."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and head_dim == TC_HEAD_DIM):
         return "tensor_cores"
     return "simt"
+
+
+def check_heads(name: str, kernel: str, d: int, h: int, hkv: int) -> None:
+    """The head dims and GQA groups ``kernel`` takes: the tensor-core
+    kernel D = 128 and any group, the SIMT kernel D in ``HEAD_DIMS`` and at
+    most ``MAX_REP`` query heads a KV head. Anything else raises: no
+    wrapper falls back to the plain version."""
+    if h % hkv:
+        raise ValueError(f"{name} kernel: H {h} must be a multiple of Hkv "
+                         f"{hkv}")
+    if kernel == "tensor_cores" and d != TC_HEAD_DIM:
+        raise ValueError(f"{name} tensor-core kernel (bf16 q, bf16/int8 "
+                         f"pool): head_dim {d} must be {TC_HEAD_DIM}")
+    if kernel == "simt" and (d not in HEAD_DIMS or h // hkv > MAX_REP):
+        raise ValueError(f"{name} kernel: head_dim {d} not in {HEAD_DIMS}, "
+                         f"or GQA group {h}/{hkv} above {MAX_REP}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,17 +124,12 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
                          f"pool {tuple(k_pool.shape)}, page_table "
                          f"{tuple(page_table.shape)}, starts "
                          f"{tuple(starts.shape)}, lens {tuple(lens.shape)}")
-    kernel = route(q.dtype, k_pool.dtype)
+    kernel = route(q.dtype, k_pool.dtype, d)
     tensor_cores = kernel == "tensor_cores"
-    if tensor_cores and (d != TC_HEAD_DIM or h % hkv or nb > TC_MAX_PAGES):
-        raise ValueError(f"{name} tensor-core kernel (bf16 q, bf16/int8 "
-                         f"pool): head_dim {d} must be {TC_HEAD_DIM}, H "
-                         f"{h} a multiple of Hkv {hkv}, and the table at "
-                         f"most {TC_MAX_PAGES} pages a row (got {nb})")
-    if not tensor_cores and (d not in _HEAD_DIMS or h % hkv
-                             or h // hkv > MAX_REP):
-        raise ValueError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}, "
-                         f"or GQA group {h}/{hkv} above {MAX_REP}")
+    check_heads(name, kernel, d, h, hkv)
+    if tensor_cores and nb > TC_MAX_PAGES:
+        raise ValueError(f"{name} tensor-core kernel: the table at most "
+                         f"{TC_MAX_PAGES} pages a row (got {nb})")
     if not (q.is_contiguous() and k_new.is_contiguous()
             and v_new.is_contiguous()):
         raise ValueError(f"{name} kernel: q, k_new and v_new must be "

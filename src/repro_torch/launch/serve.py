@@ -3,7 +3,7 @@ carbon accounting (mirror of ``repro.launch.serve``, dense and paged
 paths).
 
     python -m repro_torch.launch.serve --arch starcoder2-7b \\
-        [--smoke] [--device cpu] --requests 8 --max-tokens 16 \\
+        [--smoke] [--repeats R] [--device cpu] --requests 8 --max-tokens 16 \\
         [--prompt-len 4 12] [--profile-ticks N] [--quant int8] \\
         [--paged [--page-size 16] [--num-pages N] [--no-prefix-cache] \\
          [--prefill-chunk C] [--compact-threshold F] [--evict-policy cost] \\
@@ -14,7 +14,13 @@ paths).
 
 Runs on the card unless ``--device cpu`` is given. The full-width model is
 built in bf16 from a seed; ``--smoke`` builds the arch's reduced config in
-fp32. On the card the carbon report bills ``h100_sxm``; on the CPU the
+fp32. ``--arch`` takes every LM arch of the port's registry: starcoder2-7b
+and the dense family beyond it, gemma3-27b (head dim 168, 5 sliding-window
+layers of 1024 to 1 global), granite-34b (MQA), qwen1.5-110b (QKV bias,
+untied head) and qwen2-vl-72b (M-RoPE; its text tokens on three equal
+position streams). ``--repeats R`` cuts the depth to R repeats of the
+arch's layer pattern (its tail stays), the width untouched: one card holds
+qwen1.5-110b's full width at a few layers, not its 80. On the card the carbon report bills ``h100_sxm``; on the CPU the
 report's wall-time-derived keys are left out, since CPU seconds say
 nothing about the card's joules.
 
@@ -61,6 +67,7 @@ and the device's busy share of those ticks' wall time.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -177,6 +184,8 @@ def validate_args(ap: argparse.ArgumentParser,
         ap.error("--prompt-len needs 1 <= LO < HI <= --max-len")
     if args.profile_ticks < 0:
         ap.error("--profile-ticks must be >= 0")
+    if args.repeats is not None and args.repeats < 1:
+        ap.error(f"--repeats must be >= 1, got {args.repeats}")
 
 
 def main(argv=None) -> None:
@@ -184,6 +193,9 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config, in fp32")
+    ap.add_argument("--repeats", type=int, default=None,
+                    help="cut the depth to this many repeats of the arch's "
+                         "layer pattern (the tail stays; default: all)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-tokens", type=int, default=16)
@@ -273,6 +285,8 @@ def main(argv=None) -> None:
         raise SystemExit(f"serve launcher supports LM archs; {args.arch} is "
                          f"{arch.kind}")
     cfg = arch.make_smoke() if args.smoke else arch.make_config()
+    if args.repeats is not None:
+        cfg = dataclasses.replace(cfg, repeats=args.repeats)
     dtype = torch.float32 if args.smoke else torch.bfloat16
     params = tf_lib.init_lm(cfg, seed=args.seed, dtype=dtype, device=dev)
     acct = accounting.CarbonAccountant(accounting.AccountantConfig(

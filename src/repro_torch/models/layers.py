@@ -1,5 +1,6 @@
 """Transformer building blocks of the PyTorch port (mirror of
-``repro.models.layers``): norms, embeddings, MLP, RoPE, GQA attention.
+``repro.models.layers``): norms, embeddings, MLP, RoPE and M-RoPE, GQA
+attention.
 
 Layouts stay the JAX package's: activations (B, S, D), per-head tensors
 (B, S, H, Dh), projection weights ``wq`` (d, h, dh) and ``wo`` (h, dh, d),
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -176,7 +177,7 @@ def mlp(params, x: torch.Tensor, act: str = "silu",
 
 
 # -----------------------------------------------------------------------------
-# Rotary embeddings (half-split layout, layers.py:206-221)
+# Rotary embeddings: RoPE and M-RoPE (half-split layout, layers.py:206-245)
 # -----------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
@@ -199,6 +200,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
+                sections: Tuple[int, int, int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl, layers.py:224): three position streams
+    (t, h, w) rotate disjoint frequency sections of the head dim.
+
+    x: (B, S, H, Dh); positions_thw: (B, S, 3); sections sum to Dh // 2:
+    frequency i takes the stream of the section it falls in."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} must sum to {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, s in enumerate(sections)])          # (half,)
+    angles = positions_thw.float()[..., sec_id] * freqs           # (B, S, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def positions_for(pos_emb: str, positions: torch.Tensor) -> torch.Tensor:
+    """(..., S) positions as ``_project_qkv`` takes them: broadcast to the
+    three identical (t, h, w) streams (..., S, 3) under M-RoPE, as the
+    reference's decode and prefill do for text tokens
+    (transformer.py:326, :448)."""
+    if pos_emb == "mrope":
+        return positions[..., None].expand(*positions.shape, 3)
+    return positions
+
+
 # -----------------------------------------------------------------------------
 # Attention (GQA, windows)
 # -----------------------------------------------------------------------------
@@ -214,7 +248,8 @@ class AttnConfig:
     causal: bool = True
     # sliding window in tokens; <0 = global/full attention
     window: int = -1
-    pos_emb: str = "rope"                     # "rope" | "none"
+    pos_emb: str = "rope"                     # "rope" | "mrope" | "none"
+    mrope_sections: Tuple[int, int, int] = (0, 0, 0)
     softmax_scale: Optional[float] = None
     # int8-served projections go through q8_matmul (the K4 seam)
     int8_kernel: bool = False
@@ -251,8 +286,11 @@ def _project_qkv(params, cfg: AttnConfig, x: torch.Tensor, positions):
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos_emb == "mrope":
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
     elif cfg.pos_emb != "none":
-        raise NotImplementedError(f"pos_emb={cfg.pos_emb!r}: not ported yet")
+        raise ValueError(f"pos_emb={cfg.pos_emb!r}: rope, mrope or none")
     return q, k, v
 
 
@@ -319,25 +357,29 @@ def attention(params, cfg: AttnConfig, x: torch.Tensor,
     precondition of the flash route, whose mask is by index, not by the
     positions tensor. Causal attention with an int window then goes
     through ``ops.flash_attention_train`` (K6 forward, K7/K8 backward on
-    the card); other positions take the masked ``sdpa``, or
-    ``sdpa_q_chunked`` above 8192 keys. The reference's ``flash_vjp``
-    switch has no counterpart: no switch turns a kernel off on the card.
+    the card); other positions, and M-RoPE as in the reference, take the
+    masked ``sdpa``, or ``sdpa_q_chunked`` above 8192 keys. M-RoPE
+    positions are (B, S, 3); the mask reads their first stream. The
+    reference's ``flash_vjp`` switch has no counterpart: no switch turns a
+    kernel off on the card.
     """
     b, s, _ = x.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = positions_for(
+            cfg.pos_emb, torch.arange(s, device=x.device).expand(b, s))
         arange_positions = True
     q, k, v = _project_qkv(params, cfg, x, positions)
+    pos1d = positions[..., 0] if positions.dim() == 3 else positions
     w = cfg.window if window is None else window
-    if arange_positions and cfg.causal and isinstance(w, int):
+    if (arange_positions and cfg.causal and isinstance(w, int)
+            and cfg.pos_emb != "mrope"):
         out = ops.flash_attention_train(q, k, v, scale=cfg.scale,
                                         causal=True, window=w)
     elif s > _CHUNKED_SDPA_THRESHOLD:
-        out = sdpa_q_chunked(q, k, v, positions, positions,
+        out = sdpa_q_chunked(q, k, v, pos1d, pos1d,
                              causal=cfg.causal, window=w, scale=cfg.scale)
     else:
-        mask = attention_mask(positions, positions, causal=cfg.causal,
-                              window=w)
+        mask = attention_mask(pos1d, pos1d, causal=cfg.causal, window=w)
         out = sdpa(q, k, v, mask, cfg.scale)
     return out_proj(params, cfg, out)
 

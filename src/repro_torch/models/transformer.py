@@ -14,8 +14,14 @@ kernel on the card); a scalar position takes the masked ``sdpa`` path, as
 in JAX. The paged pool (``init_paged_caches``) is updated in place too:
 ``paged_decode_step`` attends through K2, ``paged_extend`` through K3 and
 the speculative ``paged_verify_step`` (T query lanes per slot) through K5.
-SSD, MoE, shared attention, M-RoPE and ring caches are not ported yet and
-raise ``NotImplementedError``.
+M-RoPE (qwen2-vl: (B, S, 3) positions, text tokens on three equal
+streams) and the stub vision frontend (``vision_embeds`` written over the
+first tokens' embeddings) run on every path. Ring caches (gemma3's
+window-sized caches, ``ring_cache``) run on the dense path only: a row
+lands at slot ``pos % clen`` with its position tag, and attention over it
+is the masked ``sdpa``, as in the reference; the paged path refuses them.
+SSD, MoE and shared attention are not ported yet and raise
+``NotImplementedError``.
 
 Training: ``forward`` and ``loss_fn`` run the full sequence with autograd;
 with ``positions=None`` attention goes through ``ops.flash_attention_train``
@@ -98,8 +104,10 @@ class LMConfig:
     act: str = "silu"
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    pos_emb: str = "rope"                    # "rope" | "none"
+    pos_emb: str = "rope"                    # "rope" | "mrope" | "none"
+    mrope_sections: Tuple[int, int, int] = (0, 0, 0)
     tie_embeddings: bool = True
+    vision_tokens: int = 0                   # qwen2-vl stub frontend
     logit_softcap: float = 0.0
     ring_cache: bool = False
     z_loss: float = 0.0                      # weight of the loss's z term
@@ -113,11 +121,9 @@ class LMConfig:
                 raise NotImplementedError(
                     f"{spec}: SSD, MoE and shared-attention blocks are not "
                     f"ported yet")
-        if self.pos_emb not in ("rope", "none"):
-            raise NotImplementedError(f"pos_emb={self.pos_emb!r} is not "
-                                      f"ported yet")
-        if self.ring_cache:
-            raise NotImplementedError("ring caches are not ported yet")
+        if self.pos_emb not in ("rope", "mrope", "none"):
+            raise ValueError(f"pos_emb={self.pos_emb!r}: rope, mrope or "
+                             f"none")
         if (self.quant.weights not in QUANT_MODES
                 or self.quant.kv not in QUANT_MODES):
             raise ValueError(f"{self.quant}: quant modes are {QUANT_MODES}")
@@ -148,6 +154,7 @@ class LMConfig:
             n_kv_heads=self.n_kv_heads, head_dim=self.resolved_head_dim,
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
             causal=True, window=window, pos_emb=self.pos_emb,
+            mrope_sections=self.mrope_sections,
             int8_kernel=self.use_int8_matmul)
 
 
@@ -279,24 +286,41 @@ def _apply_block(p, cfg: LMConfig, spec: BlockSpec, x: torch.Tensor,
     return _ffn(p, cfg, spec, x)
 
 
+def _vision_overwrite(cfg: LMConfig, x: torch.Tensor,
+                      vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The stub vision frontend (transformer.py:318-320): precomputed patch
+    embeddings (B, V, d_model) replace the first V token embeddings."""
+    if vision_embeds is None or cfg.vision_tokens <= 0:
+        return x
+    x = x.clone()
+    x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
+    return x
+
+
 def forward(params, cfg: LMConfig, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            vision_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (transformer.py:311): tokens (B, S) ->
     (logits (B, S, padded vocab) fp32, aux loss).
 
     With ``positions=None`` every attention block takes the flash route
     (K6, and K7/K8 in the backward, on the card; their plain versions on
-    the CPU); an explicit ``positions`` tensor takes the masked ``sdpa``,
-    as in the reference. The reference's ``remat`` has no counterpart: the
+    the CPU), but for M-RoPE, which takes the masked ``sdpa`` as in the
+    reference; an explicit ``positions`` tensor ((B, S), or (B, S, 3)
+    under M-RoPE) takes the masked ``sdpa`` too. ``vision_embeds`` (B, V,
+    d_model) overwrite the first V embeddings when the config has a
+    vision frontend. The reference's ``remat`` has no counterpart: the
     port keeps every layer's activations for the backward. The aux loss
     is 0 (no MoE block is ported).
     """
     b, s = tokens.shape
-    x = layers.embed(params["embed"], tokens)
+    x = _vision_overwrite(cfg, layers.embed(params["embed"], tokens),
+                          vision_embeds)
     arange_pos = positions is None
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        positions = layers.positions_for(
+            cfg.pos_emb, torch.arange(s, device=tokens.device).expand(b, s))
     for spec, p in _unstacked(params, cfg):
         x = _apply_block(p, cfg, spec, x, positions, arange_pos=arange_pos)
     x = layers.rms_norm(params["final_norm"], x)
@@ -316,7 +340,8 @@ def loss_fn(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
     optional ``positions`` and ``loss_mask``. Returns (total, {"ce",
     "aux", "tokens"}), all device scalars."""
     logits, aux = forward(params, cfg, batch["tokens"],
-                          positions=batch.get("positions"))
+                          positions=batch.get("positions"),
+                          vision_embeds=batch.get("vision_embeds"))
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     if mask is None:
@@ -337,27 +362,38 @@ def loss_fn(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
 # Caches (decode)
 # -----------------------------------------------------------------------------
 
+def _cache_len(cfg: LMConfig, spec: BlockSpec, max_len: int) -> int:
+    """Rows of a layer's dense cache (transformer.py:383-386): a windowed
+    layer's ring holds its window under ``ring_cache``, else ``max_len``."""
+    if cfg.ring_cache and spec.window > 0:
+        return min(spec.window, max_len)
+    return max_len
+
+
 def init_caches(cfg: LMConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> Dict[str, PyTree]:
     """Cache tree: pattern positions stacked over repeats, tail single. Each
-    attention cache holds ``kv`` (B, max_len, Hkv, Dh) and per-row position
-    tags ``pos`` (-1 = empty). Under ``cfg.quant.kv_int8`` K/V are int8
-    codes (``dtype`` is ignored for them) and the cache gains a
-    ``kv_scale`` pair (B, max_len, Hkv) fp32."""
+    attention cache holds ``kv`` (B, clen, Hkv, Dh) and per-row position
+    tags ``pos`` (-1 = empty), clen = ``_cache_len``: ``max_len``, or a
+    windowed layer's window under ``ring_cache`` (position p at row
+    p % clen). Under ``cfg.quant.kv_int8`` K/V are int8 codes (``dtype``
+    is ignored for them) and the cache gains a ``kv_scale`` pair (B, clen,
+    Hkv) fp32."""
     dev = device_lib.resolve(device)
     kvh, dh = cfg.n_kv_heads, cfg.resolved_head_dim
 
-    def one(lead):
-        entry = _kv_entry(cfg, lead + (batch, max_len, kvh), dh, dtype, dev)
-        entry["pos"] = torch.full(lead + (batch, max_len), -1,
+    def one(spec, lead):
+        clen = _cache_len(cfg, spec, max_len)
+        entry = _kv_entry(cfg, lead + (batch, clen, kvh), dh, dtype, dev)
+        entry["pos"] = torch.full(lead + (batch, clen), -1,
                                   dtype=torch.int32, device=dev)
         return entry
 
     caches: Dict[str, PyTree] = {}
-    for i in range(len(cfg.pattern)):
-        caches[f"pat{i}"] = one((cfg.repeats,))
-    for i in range(len(cfg.tail)):
-        caches[f"tail{i}"] = one(())
+    for i, spec in enumerate(cfg.pattern):
+        caches[f"pat{i}"] = one(spec, (cfg.repeats,))
+    for i, spec in enumerate(cfg.tail):
+        caches[f"tail{i}"] = one(spec, ())
     return caches
 
 
@@ -400,10 +436,14 @@ def _kv_scales(cache) -> dict:
 
 
 def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
-    """One-token attention against the cache, written in place.
+    """One-token attention against the cache (a ring under
+    ``ring_cache``), written in place at row ``pos % clen``.
 
     ``pos`` is a scalar shared by every row, or a (B,) vector of per-slot
-    positions (the serving engine's slot-major batched decode).
+    positions (the serving engine's slot-major batched decode). Per-slot
+    positions over a full-length cache go through K1; a ring cache, whose
+    rows are not the prefix [0, pos], and a scalar position take the
+    tag-masked ``sdpa``, as in the reference (transformer.py:487).
     """
     acfg = cfg.attn_cfg(spec.window)
     b = x.shape[0]
@@ -411,7 +451,8 @@ def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
     clen = kv.k.shape[1]
     batched_pos = pos.dim() > 0
     positions = pos[:, None] if batched_pos else pos.expand(b, 1)
-    q, k_new, v_new = layers._project_qkv(p["attn"], acfg, x, positions)
+    q, k_new, v_new = layers._project_qkv(
+        p["attn"], acfg, x, layers.positions_for(cfg.pos_emb, positions))
     rows = torch.arange(b, device=x.device)
     if batched_pos:
         # one scatter row per sequence, in place: the counterpart of the
@@ -419,6 +460,12 @@ def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
         slot = pos % clen
         _write_kv(cache, (rows, slot), k_new[:, 0], v_new[:, 0])
         tags.index_put_((rows, slot), pos.to(torch.int32))
+    else:
+        slot = int(pos) % clen
+        _write_kv(cache, (rows, torch.full_like(rows, slot)), k_new[:, 0],
+                  v_new[:, 0])
+        tags[:, slot] = int(pos)
+    if batched_pos and not cfg.ring_cache:
         # valid cache rows are the contiguous prefix [0, pos]: the kernel
         # masks by length, so dead and short slots cost no work; int8
         # caches hand it codes and scales, dequantized in the kernel
@@ -427,10 +474,6 @@ def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
             scale=acfg.scale, window=spec.window,
             **_kv_scales(cache))[:, None]
     else:
-        slot = int(pos) % clen
-        _write_kv(cache, (rows, torch.full_like(rows, slot)), k_new[:, 0],
-                  v_new[:, 0])
-        tags[:, slot] = int(pos)
         k_at, v_at = kv.k, kv.v
         if "kv_scale" in cache:
             # dequantize at use, in q's dtype, as the JAX XLA branch does
@@ -577,7 +620,8 @@ def _paged_decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
     ps = kv.k.shape[1]
     nb = page_table.shape[1]
     sink = kv.k.shape[0] - 1
-    q, k_new, v_new = layers._project_qkv(p["attn"], acfg, x, pos[:, None])
+    q, k_new, v_new = layers._project_qkv(
+        p["attn"], acfg, x, layers.positions_for(cfg.pos_emb, pos[:, None]))
     rows = torch.arange(b, device=x.device)
     blk = (pos // ps).clamp(0, nb - 1)
     page = torch.where(active & (pos < nb * ps), page_table[rows, blk].long(),
@@ -608,7 +652,8 @@ def _paged_verify_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos,
     nb = page_table.shape[1]
     sink = kv.k.shape[0] - 1
     pos_abs = pos[:, None] + torch.arange(t, device=x.device)[None]  # (B, T)
-    q, k_new, v_new = layers._project_qkv(p["attn"], acfg, x, pos_abs)
+    q, k_new, v_new = layers._project_qkv(
+        p["attn"], acfg, x, layers.positions_for(cfg.pos_emb, pos_abs))
     rows = torch.arange(b, device=x.device)[:, None].expand(b, t)
     blk = (pos_abs // ps).clamp(0, nb - 1)
     writable = active[:, None] & (pos_abs < nb * ps)
@@ -702,6 +747,7 @@ def paged_extend(params, cfg: LMConfig, tokens: torch.Tensor,
     rel = torch.arange(c, device=dev)[None]                       # (1, C)
     valid = rel < lens[:, None]                                   # (B, C)
     pos_abs = starts.long()[:, None] + rel                        # (B, C)
+    positions = layers.positions_for(cfg.pos_emb, pos_abs)
     rows = torch.arange(b, device=dev)[:, None].expand(b, c)
     starts32, lens32 = starts.to(torch.int32), lens.to(torch.int32)
     for spec, p, cache in _layers(params, cfg, caches):
@@ -710,7 +756,7 @@ def paged_extend(params, cfg: LMConfig, tokens: torch.Tensor,
         ps = kv.k.shape[1]
         sink = kv.k.shape[0] - 1
         h = layers.rms_norm(p["norm_attn"], x)
-        q, k_new, v_new = layers._project_qkv(p["attn"], acfg, h, pos_abs)
+        q, k_new, v_new = layers._project_qkv(p["attn"], acfg, h, positions)
         # scatter the chunk's K/V into the rows' pages (invalid lanes ->
         # sink); rope-rotated K is what lands in the pool, as in prefill
         blk = (pos_abs // ps).clamp(0, nb - 1)
@@ -746,7 +792,9 @@ def _lm_head(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
 # -----------------------------------------------------------------------------
 
 def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
-            max_len: Optional[int] = None, cache_dtype=torch.bfloat16,
+            max_len: Optional[int] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
+            cache_dtype=torch.bfloat16,
             lengths: Optional[torch.Tensor] = None):
     """Process a prompt batch, returning (last-token logits (B,1,V), caches).
 
@@ -754,24 +802,23 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
     right-padded to a shared length S, logits are taken at ``lengths - 1``
     per row, and cache position tags past each row's length are -1. Full
     attention here is plain PyTorch (``layers.sdpa``), as it is XLA in JAX.
+    A cache shorter than the prompt (a ring, or ``max_len`` < S) keeps the
+    last clen positions, position p at row p % clen (the reference's ring
+    branch). ``vision_embeds`` as in ``forward``.
     """
     b, s = tokens.shape
     max_len = max_len or s
-    if max_len < s:
-        raise NotImplementedError("a prompt longer than the cache needs the "
-                                  "ring-cache branch, which is not ported yet")
-    caches = init_caches(cfg, b, max_len, cache_dtype, device=tokens.device)
-    x = layers.embed(params["embed"], tokens)
-    pos1d = torch.arange(s, device=tokens.device).expand(b, s)
-    prompt_rows = (torch.arange(b, device=tokens.device)[:, None],
-                   torch.arange(s, device=tokens.device)[None])
-    tag_row = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    if lengths is not None:
-        tag_row = torch.where(tag_row[None] < lengths[:, None], tag_row, -1)
+    dev = tokens.device
+    caches = init_caches(cfg, b, max_len, cache_dtype, device=dev)
+    x = _vision_overwrite(cfg, layers.embed(params["embed"], tokens),
+                          vision_embeds)
+    pos1d = torch.arange(s, device=dev).expand(b, s)
+    positions = layers.positions_for(cfg.pos_emb, pos1d)
+    rows = torch.arange(b, device=dev)[:, None]
     for spec, p, cache in _layers(params, cfg, caches):
         acfg = cfg.attn_cfg(spec.window)
         h = layers.rms_norm(p["norm_attn"], x)
-        q, k, v = layers._project_qkv(p["attn"], acfg, h, pos1d)
+        q, k, v = layers._project_qkv(p["attn"], acfg, h, positions)
         if s > layers._CHUNKED_SDPA_THRESHOLD:
             out = layers.sdpa_q_chunked(q, k, v, pos1d, pos1d, causal=True,
                                         window=spec.window, scale=acfg.scale)
@@ -782,9 +829,17 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
         x = x + layers.out_proj(p["attn"], acfg, out)
         # prompt K/V enter the cache in its storage form (int8 caches get
         # codes and scales, the representation decode appends); attention
-        # above used the full-precision K/V
-        _write_kv(cache, prompt_rows, k, v)
-        cache["pos"][:, :s] = tag_row
+        # above used the full-precision K/V. The cache keeps positions
+        # [s0, s), each at row pos % clen
+        clen = cache["pos"].shape[-1]
+        s0 = max(0, s - clen)
+        kept = torch.arange(s0, s, device=dev)
+        slots = kept % clen
+        _write_kv(cache, (rows, slots[None]), k[:, s0:], v[:, s0:])
+        tags = kept.to(torch.int32).expand(b, s - s0)
+        if lengths is not None:
+            tags = torch.where(tags < lengths[:, None], tags, -1)
+        cache["pos"][:, slots] = tags.to(torch.int32)
         x = _ffn(p, cfg, spec, x)
     if lengths is not None:
         x_last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]

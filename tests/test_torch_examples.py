@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.benchmarks import kernel_bench, train_bench
-from repro_torch.examples import (edge_cnn_repro, quickstart,
+from repro_torch.examples import (edge_cnn_repro, quickstart, serve_lm,
                                   sustainability_report, train_e2e)
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import int8_matmul as t_im
@@ -85,6 +85,20 @@ def test_quickstart_cpu(capsys):
     quickstart.main(["--device", "cpu"])
     out = capsys.readouterr().out
     assert "step  100" in out and "-> [" in out
+
+
+def test_serve_lm_cpu(capsys):
+    """``python -m repro_torch.examples.serve_lm --device cpu``: gemma3-27b's
+    smoke config (its sliding-window layers) by default, every request
+    served, billed as h100_sxm with the wall-time figures left out."""
+    serve_lm.main(["--device", "cpu", "--requests", "5",
+                   "--max-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "serving 5 requests on gemma3-27b (smoke config)" in out
+    assert "... 5 requests completed" in out
+    assert out.count("prompt toks -> 4 generated") == 5
+    assert "billed as h100_sxm" in out and "left out" in out
+    assert "J/token (live)" not in out
 
 
 def test_edge_cnn_repro_cpu(capsys):

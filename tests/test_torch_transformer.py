@@ -153,8 +153,13 @@ def test_unported_features_raise():
     from repro.configs import mamba2_1_3b
     with pytest.raises(NotImplementedError):
         bridge.config_from_dict(dataclasses.asdict(mamba2_1_3b.make_smoke()))
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(t_sc2.make_smoke(), ring_cache=True)
+    # ring caches are ported on the dense path (their streams against the
+    # JAX engine's: tests/test_torch_dense_family.py); the paged path still
+    # refuses them, as the reference's does
+    ring = dataclasses.replace(t_sc2.make_smoke(), ring_cache=True)
+    assert not ttf.paged_supported(ring)
+    with pytest.raises(NotImplementedError, match="ring_cache"):
+        ttf.init_paged_caches(ring, 4, 4, device="cpu")
     # int8 is a ported mode now; a quant mode neither package knows raises
     with pytest.raises(ValueError, match="quant"):
         dataclasses.replace(t_sc2.make_smoke(),
