@@ -12,7 +12,10 @@ the chaos tier's seeded faults and degradation ladder, and the
 durability tier's kill, snapshot restore and journal replay), gemma3-27b
 at full width (head dim 168, sliding windows of 1024) and 14 layers on
 the dense, paged and speculative paths, granite-34b, qwen1.5-110b and
-qwen2-vl-72b at full width and 2 layers on the paged path, the fused
+qwen2-vl-72b at full width and 2 layers on the paged path, the MoE family
+(one layer of moonshot-v1-16b-a3b and of kimi-k2-1t-a32b at full width,
+moonshot at full width through every serve path and kimi-k2 at one
+layer), the fused
 training tick at full width and 8 layers, the checkpointing Trainer on
 the ~100M e2e model at full size, the port's train and kernel benches,
 and the paper's ternary AlexNet and VGG-16 at full size.
@@ -67,7 +70,11 @@ non-zero and prints no result:
    its route names (read from the counters); and K1, K2, K5 (T = 5) and
    K3 at gemma3-27b's heads (32 on 16 KV heads of 168), windows -1 and
    1024, in the two serve modes (bf16 q over the fp32 and the int8
-   cache), timed as at D = 128 (phase ``kernels_d168``);
+   cache), timed as at D = 128 (phase ``kernels_d168``), and at
+   kimi-k2's (64 on 8 KV heads of 112), no window (``kernels_d112``);
+   K3's checks hold every lane of a live row, the padding lanes past its
+   length too (they attend the row's keys, as the Pallas kernel's do),
+   and exact zeros on a dead row;
 4. int8 matmul (K4) against its plain version at the main path's shapes:
    decode (M=8: the decode kernel, by device time from torch.profiler,
    CUDA events beside) and speculative-tick (M=40) for 4608->4608, ->512,
@@ -252,6 +259,23 @@ non-zero and prints no result:
 9c. granite-34b, qwen1.5-110b and qwen2-vl-72b at full width, 2 layers,
    bf16: 4 requests of 100-400 tokens x 16 on the paged engine, streams
    and launches;
+9d. the MoE family (``moe_layer``, ``moe``): one layer of
+   moonshot-v1-16b-a3b (64 experts, top-6, d 2048, expert d_ff 1408) and
+   of kimi-k2-1t-a32b (384, top-8, d 7168, 2048) at full width in fp32,
+   at 4096 tokens and 8, inputs N(0, 1) plus one shared direction:
+   ``moe_capacity`` at a capacity where no route drops against
+   ``moe_dense``, and at the published factor its dropped routes against
+   a host recount of the first-come ranks from the read-back ids and its
+   output against a per-route fp32 sum over the kept routes (bound: the
+   smoke tests' 2e-5 grown with the square root of d); moonshot at full
+   width, 16 layers, fp32, the capacity factor raised to n_experts /
+   top_k: the dense, paged and speculative (k = 4) streams identical and
+   no route dropped; bf16 and int8 (quantized leaf by leaf) at the
+   published factor on the paged engine, at 16 layers (agreement with
+   the fp32 streams, routes dropped) and at full depth (8 slots, 3
+   decode ticks profiled); kimi-k2 at full width and one layer, bf16,
+   paged and speculative (K2, K3, K5 on SIMT at D 112, one tick set
+   profiled); every run's launches checked;
 10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
    of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
    ``sdpa`` route (explicit positions), the loss within 1e-5 and each
@@ -292,7 +316,8 @@ non-zero and prints no result:
 12. a ``kernels`` line (K1-K11; K9's and K11's with the launches of each
    of their kernels in the main-path runs; K1's, K2's, K3's and K5's with
    the head dims of the serve runs that launched them and their
-   ``kernels_d168`` row at the int8 mode), then the result line
+   ``kernels_d168`` and ``kernels_d112`` rows at the int8 mode), then the
+   result line
    ``{"ok": true, "device": ...}``.
 
 Every counter is set to 0 just before each serve, train, trainer, bench
@@ -303,6 +328,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -586,29 +612,33 @@ def _verify_bound(q, k, lengths, window):
 
 
 def _prefill_bound(q, k_new, k_pool, starts, lens, window):
-    """Least time of a K3 call: the live chunk tokens' q, k, v, the cached
-    keys the live tokens attend (per row, [start - window + 1, start) or
-    [0, start)), the output and the table entries once each over the HBM
-    rate; or 4*D*H FLOPs per valid (query, key) pair, the pairs on cached
-    keys over the peak of q's and the pool's types, those on the chunk's
-    own keys over the peak of q's type (k_new, v_new share it)."""
+    """Least time of a K3 call: q of every lane of a live row, the live
+    chunk tokens' k and v, the cached keys the row's lanes attend (per
+    row, [start - window + 1, start) or [0, start)), the output and the
+    table entries once each over the HBM rate; or 4*D*H FLOPs per valid
+    (query, key) pair, the pairs on cached keys over the peak of q's and
+    the pool's types, those on the chunk's own keys over the peak of q's
+    type (k_new, v_new share it). A padding lane (t >= len) of a live row
+    attends the row's keys below start + len that its window reaches."""
     _, c, h, d = q.shape
     hkv = k_pool.shape[2]
-    cached = cached_pairs = chunk_pairs = 0
+    cached = cached_pairs = chunk_pairs = live_rows = 0
     for start, ln in zip(starts.tolist(), lens.tolist()):
         if ln <= 0:
             continue
+        live_rows += 1
         lo = max(0, start - window + 1) if window > 0 else 0
         cached += start - lo
-        for t in range(ln):
+        for t in range(c):
             if window > 0:      # keys with q_abs - k_abs < window
                 cached_pairs += min(start, max(0, window - 1 - t))
-                chunk_pairs += min(t + 1, window)
+                chunk_pairs += max(0, min(t + 1, ln) - max(0, t - window + 1))
             else:
                 cached_pairs += start
-                chunk_pairs += t + 1
+                chunk_pairs += min(t + 1, ln)
     live = int(lens.clamp(min=0).sum())
-    nbytes = (live * (h + 2 * hkv) * d * q.element_size()
+    nbytes = (live_rows * c * h * d * q.element_size()
+              + live * 2 * hkv * d * q.element_size()
               + 2 * cached * _row_bytes(k_pool)
               + q.numel() * q.element_size()
               + 4 * sum(-(-s // PAGE) for s in starts.tolist()) + 8 * B)
@@ -827,8 +857,15 @@ def phase_prefill_kernel():
         "paged_prefill_attention", k3.paged_prefill_attention,
         ref.paged_prefill_attention_ref, _library_prefill, _prefill_inputs,
         lambda a, w: _prefill_bound(a[0], a[1], a[3], a[6], a[7], w),
-        dead=torch.arange(CHUNK)[None] >= torch.tensor(CHUNK_LENS)[:, None],
-        cold=(3, 4), iters=16, kv_pos=(3, 4))
+        dead=_dead_rows(CHUNK_LENS, CHUNK), cold=(3, 4), iters=16,
+        kv_pos=(3, 4))
+
+
+def _dead_rows(lens, c):
+    """(B, C) the lanes K3 writes as exact zeros: every lane of a dead row
+    (a live row's padding lanes attend its keys)."""
+    import torch
+    return (torch.tensor(lens) == 0)[:, None].expand(-1, c)
 
 
 # K3 at a chunk of 200 tokens (no multiple of the tensor-core kernel's 128
@@ -861,15 +898,16 @@ def _launched(fn, call):
 
 def phase_prefill_ragged():
     """K3 at C = 200 with the window of 300 and without one, in every mode,
-    at each of ``PREFILL_RAGGED_HEADS``, within MODES' bounds, exact zeros
-    at and past each row's length; each row names the kernel its call
-    launched, which must be the one ``route`` names."""
+    at each of ``PREFILL_RAGGED_HEADS``, within MODES' bounds (a live
+    row's padding lanes too), exact zeros on the dead row; each row names
+    the kernel its call launched, which must be the one ``route``
+    names."""
     import torch
     from repro_torch.kernels import paged_prefill_attention as k3
     from repro_torch.kernels import ref
     t0 = time.monotonic()
     lens = [min(n, RAGGED_CHUNK) for n in CHUNK_LENS]
-    dead = torch.arange(RAGGED_CHUNK)[None] >= torch.tensor(lens)[:, None]
+    dead = _dead_rows(lens, RAGGED_CHUNK)
     rows = []
     for heads in PREFILL_RAGGED_HEADS:
         d = heads[2]
@@ -1430,6 +1468,9 @@ def phase_decode_ragged():
 G3_HEADS, G3_WINDOW = (32, 16, 168), 1024
 G3_MODES = tuple(m for m in MODES if (m[0], m[1]) in (MAIN_FP[:2],
                                                       MAIN_INT8[:2]))
+# kimi-k2-1t-a32b's heads at full width (64 query heads on 8 KV heads of
+# 112), no window: the same calls
+KIMI_HEADS = (64, 8, 112)
 
 
 def phase_kernels_d168():
@@ -1437,6 +1478,18 @@ def phase_kernels_d168():
     1024, in the two serve modes, against their plain versions and timed
     as ``phase_kernels`` times them at D = 128 (K1, K2, K5 by device
     time). Returns each kernel's MAIN_INT8 row."""
+    return _kernels_at_heads("kernels_d168", G3_HEADS, (-1, G3_WINDOW))
+
+
+def phase_kernels_d112():
+    """The same at kimi-k2-1t-a32b's heads, without a window."""
+    return _kernels_at_heads("kernels_d112", KIMI_HEADS, (-1,))
+
+
+def _kernels_at_heads(phase, heads, windows):
+    """K1, K2, K5 (T = 5) and K3 at ``heads`` (H, Hkv, D), in the two
+    serve modes and ``windows``, checked and timed as at D = 128. Returns
+    each kernel's MAIN_INT8 row."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import paged_decode_attention as k2
@@ -1444,11 +1497,11 @@ def phase_kernels_d168():
     from repro_torch.kernels import paged_verify_attention as k5
     from repro_torch.kernels import ref
     t0 = time.monotonic()
-    heads, t = G3_HEADS, SPEC_K + 1
+    t = SPEC_K + 1
     lengths = torch.tensor(LENGTHS)
     q_pos = lengths[:, None] - t + torch.arange(t)[None]
     kw = dict(iters=48, kv_pos=(1, 2), device_time=True, route=_k25_route(),
-              modes=G3_MODES, windows=(-1, G3_WINDOW), cold=(1, 2))
+              modes=G3_MODES, windows=windows, cold=(1, 2))
     rows = {
         "decode_attention": _check_kernel(
             "decode_attention", k1.decode_attention, ref.decode_attention_ref,
@@ -1473,11 +1526,10 @@ def phase_kernels_d168():
             ref.paged_prefill_attention_ref, _library_prefill,
             lambda q, kv: _prefill_inputs(q, kv, heads),
             lambda a, w: _prefill_bound(a[0], a[1], a[3], a[6], a[7], w),
-            dead=torch.arange(CHUNK)[None]
-            >= torch.tensor(CHUNK_LENS)[:, None],
+            dead=_dead_rows(CHUNK_LENS, CHUNK),
             cold=(3, 4), iters=16, kv_pos=(3, 4), modes=G3_MODES,
-            windows=(-1, G3_WINDOW))}
-    emit({"phase": "kernels_d168", "heads": list(heads),
+            windows=windows)}
+    emit({"phase": phase, "heads": list(heads),
           "seconds": time.monotonic() - t0})
     return {name: r[MAIN_INT8] for name, r in rows.items()}
 
@@ -3832,16 +3884,21 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
     paged = eng.pool is not None
     int8 = eng.scfg.quant == "int8"
     spec = eng.scfg.spec_k > 0                  # the ngram drafter: no K2
-    # every layer attends; K4 takes each layer's wq, wk, wv, wo, w_in,
-    # w_out and (a gated MLP) w_gate
-    layers, n_proj = eng.cfg.n_layers, 6 + int(eng.cfg.mlp_gated)
+    # every layer attends; K4 takes each layer's wq, wk, wv, wo and, in a
+    # dense FFN, w_in, w_out and (a gated MLP) w_gate; an MoE block's
+    # experts dequantize through layers.wl, as the reference's do
+    specs = ([sp for _ in range(eng.cfg.repeats) for sp in eng.cfg.pattern]
+             + list(eng.cfg.tail))
+    layers = len(specs)
+    k4_per_step = sum(4 + (0 if sp.moe or not sp.has_ffn
+                           else 2 + int(eng.cfg.mlp_gated)) for sp in specs)
     want = {"decode_attention": 0 if paged else decode_ticks * layers,
             "paged_decode_attention": decode_ticks * layers
             if paged and not spec else 0,
             "paged_prefill_attention": admissions * layers if paged
             else 0,
             "paged_verify_attention": decode_ticks * layers if spec else 0,
-            "int8_matmul": (decode_ticks + admissions) * layers * n_proj
+            "int8_matmul": (decode_ticks + admissions) * k4_per_step
             if int8 else 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "int8_matmul_dx": 0,
@@ -4681,6 +4738,364 @@ def phase_family_serve():
     return runs
 
 
+# The MoE family: moonshot-v1-16b-a3b (64 experts, top-6, d 2048, expert
+# d_ff 1408, 16/16 heads of 128) and kimi-k2-1t-a32b (384 experts, top-8,
+# d 7168, expert d_ff 2048, 64/8 heads of 112). The layer at full width
+# runs 4096 tokens (one group of moe_group_size) and a decode-sized call
+# of 8; moonshot's fp32 streams run 16 of its 48 layers (37.9 GB) with the
+# capacity factor raised to n_experts / top_k, rounded up, where no route
+# can drop; its bf16 and int8 runs the published factor (1.25), at 16
+# layers (agreement with the fp32 streams) and at full depth (55.4 GB of
+# bf16; the int8 tree quantized leaf by leaf, so the two never coexist
+# whole); kimi-k2 one layer in bf16 (36.4 GB), paged and speculative
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b")
+MOE_LAYER_TOKENS = (4096, 8)
+MOE_SHARED = 0.1
+MOE_FP32_REPEATS = 16
+MOE_PROMPTS = (211, 298, 377, 460)
+MOE_NEW = 16
+MOE_FULL_SLOTS = 8
+MOE_FULL_NEW = 24
+
+
+def _moe_tol(mcfg):
+    """The fp32 bound between two computations of one MoE layer at full
+    width: tests/test_moe.py's 2e-5 at d = 32 (smoke scale), grown with
+    the square root of the contraction depth, as the rounding of a sum of
+    d fp32 products grows: 1.6e-4 at moonshot's d of 2048, 3.0e-4 at
+    kimi-k2's 7168. The two sides differ in the row counts of their
+    products (cuBLAS picks its kernels by shape) and in the zero terms
+    the reference adds, never in the routes."""
+    return 2e-5 * math.sqrt(mcfg.d_model / 32)
+
+
+def _host_drops(ids, n_experts, tg, cap):
+    """The reference's first-come drops recounted on the host from
+    read-back ids (T, k): per group of ``tg`` tokens, token by token and
+    route by route, a route is dropped once its expert already holds
+    ``cap`` earlier routes."""
+    import numpy as np
+    out = np.zeros(ids.shape, bool)
+    for g0 in range(0, ids.shape[0], tg):
+        seen = np.zeros(n_experts, np.int64)
+        for t in range(g0, g0 + tg):
+            for j, e in enumerate(ids[t]):
+                out[t, j] = seen[e] >= cap
+                seen[e] += 1
+    return out
+
+
+def _route_sum(p, mcfg, x2d, gates, ids, kept):
+    """The MoE output as a per-route fp32 sum: for each expert in
+    ascending id, its FFN over exactly the tokens of its kept routes, each
+    token adding gate * output (an index walk over the read-back routes,
+    no slot buffer and no capacity)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    y = torch.zeros_like(x2d, dtype=torch.float32)
+    for e in range(mcfg.n_experts):
+        t_idx, j_idx = np.nonzero((ids == e) & kept)
+        if not len(t_idx):
+            continue
+        rows = torch.from_numpy(t_idx).to(x2d.device)
+        xe = x2d[rows]
+        h = xe @ p["w_in"][e]
+        ye = (F.silu(xe @ p["w_gate"][e]) * h) @ p["w_out"][e]
+        g = gates[rows, torch.from_numpy(j_idx).to(x2d.device)]
+        y.index_add_(0, rows, g[:, None] * ye)
+    return y
+
+
+def _moe_layer(arch):
+    """One MoE layer of ``arch`` at full width, fp32, random weights from
+    SEED: at 4096 tokens and at 8, ``moe_capacity`` at a capacity factor
+    computed from the routes so that none drops equals ``moe_dense``
+    within ``_moe_tol``; at the published factor its dropped routes equal
+    the host recount route for route (some drop at 4096) and its output
+    the per-route fp32 sum over the kept routes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import moe
+    t0 = time.monotonic()
+    cfg = cfgbase.get(arch).make_config()
+    mcfg, group = cfg.moe_cfg, cfg.moe_group_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p = moe.init_moe(mcfg, generator=gen, device=torch.device("cuda"),
+                     dtype=torch.float32)
+    tol = _moe_tol(mcfg)
+    # every token shares one direction of 0.1 standard deviations, as a
+    # model's hidden states share a common component: the routes skew, and
+    # at the published factor some drop (iid inputs spread them so evenly
+    # that moonshot's 4096 tokens drop none)
+    shared = MOE_SHARED * torch.randn((mcfg.d_model,), generator=gen,
+                                      device="cuda")
+    rows = []
+    for n_tok in MOE_LAYER_TOKENS:
+        x = torch.randn((1, n_tok, mcfg.d_model), generator=gen,
+                        device="cuda") + shared
+        x2d = x[0]
+        gates, ids, _ = moe.route(p, mcfg, x2d)
+        ids_h = ids.cpu().numpy()
+        tg = n_tok // max(n_tok // group, 1)
+        load = max(int(np.bincount(ids_h[g0:g0 + tg].ravel(),
+                                   minlength=mcfg.n_experts).max())
+                   for g0 in range(0, n_tok, tg))
+        ample = dataclasses.replace(
+            mcfg, capacity_factor=(load + 1) * mcfg.n_experts
+            / (tg * mcfg.top_k))
+        if _host_drops(ids_h, mcfg.n_experts, tg, ample.capacity(tg)).any():
+            raise AssertionError(f"{arch}: the ample capacity drops routes")
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        y_cap, aux_cap = moe.moe_capacity(p, ample, x, group)
+        torch.cuda.synchronize()
+        cap_s = time.monotonic() - t1
+        t1 = time.monotonic()
+        y_dense, aux_dense = moe.moe_dense(p, ample, x)
+        torch.cuda.synchronize()
+        dense_s = time.monotonic() - t1
+        err_dense = float((y_cap - y_dense).abs().max())
+        cap = mcfg.capacity(tg)
+        want = _host_drops(ids_h, mcfg.n_experts, tg, cap)
+        got = moe.dropped_routes(mcfg, ids, group).cpu().numpy()
+        y_pub, _ = moe.moe_capacity(p, mcfg, x, group)
+        y_ref = _route_sum(p, mcfg, x2d, gates, ids_h, ~want)
+        err_routes = float((y_pub[0] - y_ref).abs().max())
+        row = {"tokens": n_tok, "group": tg, "max_load": load,
+               "ample_capacity": ample.capacity(tg),
+               "capacity_1.25": cap, "dropped_1.25": int(want.sum()),
+               "routes": int(want.size),
+               "max_abs_err_vs_dense": err_dense,
+               "max_abs_err_vs_route_sum": err_routes, "tol": tol,
+               "y_max_abs": float(y_dense.abs().max()),
+               "aux": float(aux_cap), "capacity_ms": 1e3 * cap_s,
+               "dense_ms": 1e3 * dense_s}
+        rows.append(row)
+        if not (err_dense <= tol and err_routes <= tol
+                and abs(float(aux_cap) - float(aux_dense)) <= 1e-6
+                and np.array_equal(got, want)
+                and bool(torch.isfinite(y_pub).all())
+                and (n_tok < 4096 or want.any())):
+            raise AssertionError(f"{arch} MoE layer at {n_tok} tokens: "
+                                 f"{row}, device drops equal the host "
+                                 f"recount: {np.array_equal(got, want)}")
+        del x, x2d, y_cap, y_dense, y_pub, y_ref
+    emit({"phase": "moe_layer", "arch": arch, "shared_std": MOE_SHARED,
+          "d_model": mcfg.d_model,
+          "d_ff": mcfg.d_ff, "experts": mcfg.n_experts, "top_k": mcfg.top_k,
+          "param_gb_fp32": sum(t.numel() for t in p.values()) * 4 / 1e9,
+          "rows": rows, "seconds": time.monotonic() - t0})
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _DropCount:
+    """Counts the routes ``moe_capacity`` drops while it is entered (the
+    count runs its own ``route``, outside the model's arithmetic)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.dropped = self.routes = 0
+        self._orig = moe.moe_capacity
+
+        def counted(p, cfg, x, group_size=4096):
+            _, ids, _ = moe.route(p, cfg, x.reshape(-1, x.shape[-1]))
+            self.dropped += int(moe.dropped_routes(cfg, ids,
+                                                   group_size).sum())
+            self.routes += ids.numel()
+            return self._orig(p, cfg, x, group_size)
+
+        moe.moe_capacity = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_capacity = self._orig
+
+
+def _quantize_in_place(params):
+    """``quantize_lm`` one leaf at a time, each bf16 leaf dropped once its
+    int8 leaf exists: the peak is the bf16 tree plus one int8 leaf, where
+    the whole call would hold both trees (83 GB at moonshot's full
+    depth). The codes and scales are quantize_lm's."""
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.quant.int8 import SERVING_QUANT_KEYS
+
+    def walk(top, d, path):
+        for k in list(d):
+            v = d[k]
+            if isinstance(v, dict):
+                if "q8" not in v:
+                    walk(top, v, path + (k,))
+            elif k in SERVING_QUANT_KEYS:
+                tree = v
+                for key in reversed(path + (k,)):
+                    tree = {key: tree}
+                q = tf_lib.quantize_lm({top: tree})[top]
+                for key in path + (k,):
+                    q = q[key]
+                d[k] = q
+                del v, tree
+
+    for top, group in params.items():
+        if top.startswith(("pat", "tail")):
+            walk(top, group, ())
+    return params
+
+
+def phase_moe():
+    """The MoE family on the serve paths at full width (see MOE_ARCHS'
+    comment): the layer checks, moonshot's fp32 dense, paged and
+    speculative (k = 4) streams identical with no route dropped, its bf16
+    and int8 paged runs at 16 layers (agreement with the fp32 streams) and
+    at full depth (8 slots; host ms a decode tick, peak memory, launches,
+    and 3 bf16 decode ticks profiled), kimi-k2's one layer in bf16, paged
+    and speculative (K2, K3 and K5 on SIMT at D 112). Every run's kernel
+    calls are checked by ``_serve_run``. Returns the runs' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import costing
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   generation_agreement)
+    t_start = time.monotonic()
+    for arch in MOE_ARCHS:
+        _moe_layer(arch)
+    runs, seconds, report = [], {}, {}
+    base = cfgbase.get("moonshot-v1-16b-a3b").make_config()
+    m = base.moe_cfg
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [rng.integers(0, base.vocab, n) for n in MOE_PROMPTS]
+    max_len = 512
+    dense_cfg = ServeConfig(max_slots=len(prompts), max_len=max_len,
+                            device="cuda")
+    paged_cfg = dataclasses.replace(dense_cfg, paged=True, page_size=PAGE,
+                                    prefill_chunk=256, prefix_cache=False)
+    # fp32, 16 layers, a capacity at which no route can drop
+    cfg = dataclasses.replace(
+        base, repeats=MOE_FP32_REPEATS, moe_cfg=dataclasses.replace(
+            m, capacity_factor=float(math.ceil(m.n_experts / m.top_k))))
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
+                            device="cuda")
+    report["param_gb_fp32_16_layers"] = costing.tree_bytes(params) / 1e9
+    streams = {}
+    with _DropCount() as drops:
+        for name, scfg in (("dense", dense_cfg), ("paged", paged_cfg),
+                           ("spec", dataclasses.replace(paged_cfg,
+                                                        spec_k=SPEC_K))):
+            t0 = time.monotonic()
+            acct = _accountant()
+            launches, streams[name], _ = _serve_run(
+                f"moe_fp32_{name}", ServeEngine(params, cfg, scfg,
+                                                accountant=acct),
+                acct, prompts, MOE_NEW, hits=False)
+            runs.append(launches)
+            seconds[f"fp32_{name}"] = time.monotonic() - t0
+    if drops.dropped or not drops.routes:
+        raise AssertionError(f"moonshot fp32: {drops.dropped} of "
+                             f"{drops.routes} routes dropped")
+    if not streams["dense"] == streams["paged"] == streams["spec"]:
+        raise AssertionError(
+            f"moonshot fp32 streams differ: dense {streams['dense']}, "
+            f"paged {streams['paged']}, spec {streams['spec']}; first "
+            f"difference paged "
+            f"{_first_diff(streams['paged'], streams['dense'])}, spec "
+            f"{_first_diff(streams['spec'], streams['dense'])}")
+    report["fp32_routes"] = drops.routes
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16 and int8 at the published capacity factor: 16 layers (the same
+    # draws rounded; agreement with the fp32 streams), then full depth
+    agreement = {}
+    for depth in (MOE_FP32_REPEATS, base.repeats):
+        cfg = dataclasses.replace(base, repeats=depth)
+        params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
+                                device="cuda")
+        report[f"param_gb_bf16_{depth}_layers"] = (
+            costing.tree_bytes(params) / 1e9)
+        full = depth == base.repeats
+        scfg = (dataclasses.replace(paged_cfg, max_slots=MOE_FULL_SLOTS)
+                if full else paged_cfg)
+        traffic = ([rng.integers(0, base.vocab, int(rng.integers(100, 501)))
+                    for _ in range(MOE_FULL_SLOTS)] if full else prompts)
+        n_new = MOE_FULL_NEW if full else MOE_NEW
+        for quant in ("none", "int8"):
+            label = f"{'bf16' if quant == 'none' else 'int8'}_{depth}"
+            if quant == "int8":
+                cfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
+                gc.collect()
+                torch.cuda.empty_cache()
+                t0 = time.monotonic()
+                params = _quantize_in_place(params)
+                torch.cuda.synchronize()
+                report[f"quantize_s_{depth}"] = time.monotonic() - t0
+                report[f"param_gb_int8_{depth}_layers"] = (
+                    costing.tree_bytes(params) / 1e9)
+            t0 = time.monotonic()
+            acct = _accountant()
+            qcfg = dataclasses.replace(scfg, quant=quant)
+            # the 16-layer runs count the dropped routes (the count's own
+            # routing and reads add host time); the full-depth runs are
+            # the timed ones, each with 3 decode ticks profiled
+            counter = contextlib.nullcontext() if full else _DropCount()
+            with counter as drops:
+                launches, got, _ = _serve_run(
+                    f"moe_paged_{label}", ServeEngine(
+                        params, cfg, qcfg, accountant=acct), acct, traffic,
+                    n_new, hits=False)
+            runs.append(launches)
+            seconds[f"paged_{label}"] = time.monotonic() - t0
+            if full:
+                report[f"profile_{label}"] = _profile_serve_ticks(
+                    params, cfg, qcfg, traffic, n_new)
+            else:
+                report[f"dropped_{label}"] = [drops.dropped, drops.routes]
+                agreement[label] = generation_agreement(got, streams["paged"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    # kimi-k2 at full width, one layer, bf16: paged and speculative
+    kcfg = dataclasses.replace(cfgbase.get("kimi-k2-1t-a32b").make_config(),
+                               repeats=1)
+    kparams = tf_lib.init_lm(kcfg, seed=SEED, dtype=torch.bfloat16,
+                             device="cuda")
+    report["param_gb_bf16_kimi_1_layer"] = costing.tree_bytes(kparams) / 1e9
+    kprompts = [rng.integers(0, kcfg.vocab, n) for n in MOE_PROMPTS]
+    kstreams = {}
+    for name, scfg in (("paged", paged_cfg),
+                       ("spec", dataclasses.replace(paged_cfg,
+                                                    spec_k=SPEC_K))):
+        t0 = time.monotonic()
+        acct = _accountant()
+        launches, kstreams[name], _ = _serve_run(
+            f"moe_kimi_{name}", ServeEngine(kparams, kcfg, scfg,
+                                            accountant=acct),
+            acct, kprompts, MOE_NEW, hits=False)
+        runs.append(launches)
+        seconds[f"kimi_{name}"] = time.monotonic() - t0
+    report["profile_kimi_paged"] = _profile_serve_ticks(
+        kparams, kcfg, paged_cfg, kprompts, MOE_NEW)
+    del kparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "fp32_layers": MOE_FP32_REPEATS,
+          "fp32_capacity_factor": float(math.ceil(m.n_experts / m.top_k)),
+          "prompts": list(MOE_PROMPTS), "new_tokens_each": MOE_NEW,
+          "fp32_dense_paged_spec_identical": True,
+          "streams_fp32": {str(u): v for u, v in streams["dense"].items()},
+          "agreement_with_fp32": agreement,
+          "kimi_paged_spec_agreement": generation_agreement(
+              kstreams["spec"], kstreams["paged"]),
+          **report, "run_seconds": seconds,
+          "seconds": time.monotonic() - t_start})
+    return runs
+
+
 # (kernel, its CUDA source under src/repro_torch/kernels/csrc/, the TPU
 # kernel it replaces)
 KERNELS = (
@@ -4753,6 +5168,7 @@ def main() -> int:
     phase_routes()
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
     d168 = phase_kernels_d168()
+    d112 = phase_kernels_d112()
     phase_prefill_ragged()
     phase_decode_ragged()
     rows["int8_matmul"] = phase_int8_decode()
@@ -4771,6 +5187,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs += phase_gemma3()
     runs += phase_family_serve()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += phase_moe()
     runs += [phase_train_parity(), phase_train()]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4799,9 +5218,11 @@ def main() -> int:
         **({"kernels_launched": MAIN_ROUTES[name]} if name in MAIN_ROUTES
            else {}),
         **({"head_dims": sorted(MAIN_HEAD_DIMS.get(name, ())),
-            "d168": {key: d168[name][key] for key in (
+            **{label: {key: rows_d[name][key] for key in (
                 "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "route")}} if name in d168 else {})}
+                "library_ms", "route")}
+               for label, rows_d in (("d168", d168), ("d112", d112))}}
+           if name in d168 else {})}
         for name, source, replaces in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

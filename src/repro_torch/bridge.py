@@ -17,14 +17,16 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.models import cnn
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import BlockSpec, LMConfig, QuantPolicy
 from repro_torch.quant.ternary import TernaryWeight
 
 # LMConfig fields of the JAX package that only steer TPU compilation,
 # sharding, rematerialization or the Pallas switches; they do not change
-# what the model or its loss computes.
+# what the model or its loss computes. (``moe_group_size`` does, once
+# routes drop, and is carried.)
 _TPU_ONLY_FIELDS = frozenset({
-    "remat", "moe_group_size", "sp_attention", "sp_residual",
+    "remat", "sp_attention", "sp_residual",
     "kv_cache_dtype", "decode_kernel", "flash_train"})
 
 
@@ -42,8 +44,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
     stacked over ``repeats`` as ``init_lm`` makes it, ``tail{i}`` single)
     as the port's parameters: the same keys and layouts, as tensors on
     ``device``. Every leaf is carried: gemma3's six stacked pattern groups
-    and its two-block tail, the QKV biases (``bq``, ``bk``, ``bv``) and an
-    untied ``unembed`` alike."""
+    and its two-block tail, the QKV biases (``bq``, ``bk``, ``bv``), an
+    untied ``unembed`` and the ``moe`` groups (``router`` (R, d, E),
+    ``w_in``/``w_gate`` (R, E, d, f), ``w_out`` (R, E, f, d)) alike."""
     dev = device_lib.resolve(device)
 
     def walk(t):
@@ -61,6 +64,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
         if lead != cfg.repeats:
             raise ValueError(f"pat{i} is stacked {lead} deep; {cfg.name} "
                              f"repeats {cfg.repeats}")
+        moe = out[f"pat{i}"].get("moe")
+        if moe is not None:
+            m = cfg.moe_cfg
+            w_in = moe["w_in"]
+            got = tuple((w_in["q8"] if isinstance(w_in, dict) else w_in).shape)
+            want = (cfg.repeats, m.n_experts, m.d_model, m.d_ff)
+            if got != want:
+                raise ValueError(f"pat{i} experts are {got}; {cfg.name} "
+                                 f"needs {want}")
     return out
 
 
@@ -93,13 +105,14 @@ def ternary_from_numpy(q: np.ndarray, scale: np.ndarray,
 
 def config_from_dict(d: Dict[str, Any]) -> LMConfig:
     """The port's ``LMConfig`` from ``dataclasses.asdict`` of a JAX one.
-    TPU-only knobs are dropped; ``mrope_sections`` and ``vision_tokens``
-    are carried; features the port lacks raise ``NotImplementedError``
-    (here or in ``LMConfig``)."""
-    if d.get("moe_cfg") is not None or d.get("ssd_cfg") is not None:
-        raise NotImplementedError("MoE and SSD configs are not ported yet")
+    TPU-only knobs are dropped; ``mrope_sections``, ``vision_tokens``,
+    ``moe_cfg`` (as the port's ``MoEConfig``) and ``moe_group_size`` are
+    carried; features the port lacks raise ``NotImplementedError`` (here
+    or in ``LMConfig``)."""
+    if d.get("ssd_cfg") is not None:
+        raise NotImplementedError("SSD configs are not ported yet")
     fields = {f.name for f in dataclasses.fields(LMConfig)}
-    unknown = set(d) - fields - _TPU_ONLY_FIELDS - {"moe_cfg", "ssd_cfg"}
+    unknown = set(d) - fields - _TPU_ONLY_FIELDS - {"ssd_cfg"}
     if unknown:
         raise ValueError(f"unknown LMConfig fields {sorted(unknown)}")
     kw = {k: v for k, v in d.items() if k in fields}
@@ -107,4 +120,6 @@ def config_from_dict(d: Dict[str, Any]) -> LMConfig:
     kw["tail"] = tuple(BlockSpec(**s) for s in d.get("tail", ()))
     if "quant" in d:
         kw["quant"] = QuantPolicy(**d["quant"])
+    if d.get("moe_cfg") is not None:
+        kw["moe_cfg"] = MoEConfig(**d["moe_cfg"])
     return LMConfig(**kw)

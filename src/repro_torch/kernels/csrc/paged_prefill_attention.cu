@@ -15,8 +15,11 @@
 // loop walks the absolute key positions kp of both parts, so the mask is
 // the XLA paged_extend mask: kp <= q_abs, kp < start + len, window. fp32
 // accumulation, q scaled in fp32 before the dot, online softmax from
-// m = -1e30, denominator floored at 1e-30, output in q's dtype. Rows at or
-// past len_b, and every row of a dead row (len_b = 0), write exact zeros.
+// m = -1e30, denominator floored at 1e-30, output in q's dtype. A padding
+// token t >= len_b of a live row attends every key below start_b + len_b
+// that its window reaches, as the Pallas kernel's padding rows do (an MoE
+// block ranks its routes together with the live tokens'); every row of a
+// dead row (len_b = 0), and a row no key reaches, writes exact zeros.
 // In the int8-KV mode the pool holds int8 codes with one fp32 scale per
 // (page, row, KV head) in ks/vs, at the pool row's element offset / D; the
 // SIMT kernel dequantizes each cached key and value in fp32 registers (code
@@ -149,7 +152,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
     return (((long long)b * C + t0 + r / rep) * H + (long long)kvh * rep + r % rep) * D;
   };
   const int r_end = min(R, (C - t0) * rep);       // rows of tokens inside the chunk
-  if (t0 >= ln) {                                 // no live token: exact zeros
+  if (ln <= 0) {                                  // a dead row: exact zeros
     for (int i = tid; i < r_end * D; i += kThreads) store(out + row_off(i / D) + i % D, 0.f);
     return;
   }
@@ -164,7 +167,8 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
   for (int r = tid; r < R; r += kThreads) l_s[r] = 0.f;
 
   // absolute key positions [kp_lo, kp_end): the cached prefix below start,
-  // then the chunk up to the tile's last live token
+  // then the chunk up to the tile's last live token (all of the row's keys
+  // once the tile holds a padding token)
   const int kp_end = start + min(ln, t0 + tokens);
   const int kp_lo = window > 0 ? max(0, start + t0 - window + 1) : 0;
   const KVT* kp_g = k_pool + (long long)kvh * D;
@@ -251,12 +255,10 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp + kWarps * i;
       if (r >= R) break;
-      const int q_rel = t0 + r / rep;
-      const int q_abs = start + q_rel;
-      const bool live = q_rel < ln;
+      const int q_abs = start + t0 + r / rep;
       const int ka = kt0 + lane, kb = ka + 32;
-      const bool valid0 = live && ka <= q_abs && (window <= 0 || q_abs - ka < window);
-      const bool valid1 = live && kb <= q_abs && (window <= 0 || q_abs - kb < window);
+      const bool valid0 = ka < kp_end && ka <= q_abs && (window <= 0 || q_abs - ka < window);
+      const bool valid1 = kb < kp_end && kb <= q_abs && (window <= 0 || q_abs - kb < window);
       const float s0 = valid0 ? s[i][0] : kNegInf;
       const float s1 = valid1 ? s[i][1] : kNegInf;
       const float m_old = m_run[i];
@@ -298,7 +300,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
   }
   __syncthreads();
 
-  // rows with no live key (past len) have l = 0 and acc = 0: exact zeros
+  // rows no key reaches have l = 0 and acc = 0: exact zeros
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int r = grp + G * i;
@@ -403,7 +405,7 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* q_b = q + ((long long)b * C * H + h) * kTcD;
   __nv_bfloat16* out_b = out + ((long long)b * C * H + h) * kTcD;
   const int r_end = min(kTcRows, C - t0);                     // rows inside the chunk
-  if (t0 >= ln) {                                             // no live token: exact zeros
+  if (ln <= 0) {                                              // a dead row: exact zeros
     for (int i = tid; i < r_end * (kTcD / 8); i += kTcThreads)
       *reinterpret_cast<uint4*>(out_b + (t0 + i / 16) * q_row + (i % 16) * 8) =
           make_uint4(0u, 0u, 0u, 0u);
@@ -412,6 +414,7 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // key walk: the cached prefix [kp_lo, start) in 64-key tiles, then the
   // chunk [ck_lo, kp_end) in 64-key tiles up to the block's last live token
+  // (every chunk key once the block holds a padding token)
   const int kp_lo = window > 0 ? max(0, start + t0 - window + 1) : 0;
   const int kp_end = start + min(ln, t0 + kTcRows);
   const int n_pre = kp_lo < start ? (start - kp_lo + kTcKeys - 1) / kTcKeys : 0;
@@ -493,11 +496,11 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  // Q: 128 rows of head h, zeros at and past the row's length
+  // Q: 128 rows of head h, zeros past the chunk
 #pragma unroll
   for (int u = 0; u < kTcRows * 16 / kTcThreads; ++u) {
     const int idx = tid + u * kTcThreads, r = idx >> 4, c = idx & 15;
-    const bool ok = t0 + r < ln;
+    const bool ok = t0 + r < C;
     hopper::cp_async16_zfill(
         hopper::smem_addr(q_s + (r >> 6) * (2 * kTcHalf) + tc_chunk(r & 63, c)),
         q_b + (ok ? (t0 + r) * q_row : 0) + c * 8, ok);
@@ -508,12 +511,14 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // this thread's rows of the warpgroup's 64 (g and g + 8 of its warp)
   const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
   const int row_a = wg * 64 + (warp & 3) * 16 + g;             // block row; row_a + 8 too
+  // a row past the chunk sees no key; a padding row of the chunk sees the
+  // row's keys, which kt_end bounds at start + len
   int q_abs[2];
   bool live[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     q_abs[e] = start + t0 + row_a + 8 * e;
-    live[e] = t0 + row_a + 8 * e < ln;
+    live[e] = t0 + row_a + 8 * e < C;
   }
   const float c_log2 = scale * kLog2e;                         // scores in log2 units
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
@@ -625,8 +630,8 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // O / l in bf16 through the warpgroup's own Q tile (16-byte chunks
-  // swizzled by row), then whole rows to global memory; rows past the
-  // length have l = 0 and O = 0: exact zeros
+  // swizzled by row), then whole rows to global memory; rows no key
+  // reaches have l = 0 and O = 0: exact zeros
   unsigned char* o_s = q_s + wg * (2 * kTcHalf);
   const float inv[2] = {1.f / fmaxf(l_run[0], 1e-30f), 1.f / fmaxf(l_run[1], 1e-30f)};
   const int r_wg = (warp & 3) * 16 + g;

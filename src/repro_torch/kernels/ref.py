@@ -182,10 +182,13 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
 
     q: (B, C, H, D); k_new/v_new: (B, C, Hkv, D); pools: (P, page_size,
     Hkv, D); page_table: (B, NB); starts, lens: (B,). Returns (B, C, H, D)
-    in q.dtype; rows at or past ``lens`` (every row of a dead row) are
-    zeros. With ``k_scale``/``v_scale`` (P, page_size, Hkv) the pools hold
-    int8 codes, gathered with their scales and dequantized in fp32; the
-    chunk's own K/V stay in q's dtype."""
+    in q.dtype. A padding lane of a live row (``len <= t < C``) attends
+    every key of the row below ``start + len`` that its window reaches, as
+    the Pallas kernel's does: an MoE block downstream ranks its routes
+    with the live ones. Every row of a dead row (``len = 0``), and a lane
+    no key reaches, is zeros. With ``k_scale``/``v_scale`` (P, page_size,
+    Hkv) the pools hold int8 codes, gathered with their scales and
+    dequantized in fp32; the chunk's own K/V stay in q's dtype."""
     c = q.shape[1]
     starts, lens = starts.long(), lens.long()
     k_all = paged_gather(k_pool, page_table)
@@ -204,7 +207,9 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
     mask = layers.attention_mask(pos_abs, tags, causal=True, window=window)
     mask &= (tags >= 0)[:, None, :]
     out = layers.sdpa(q, k_att, v_att, mask, scale)
-    live = rel < lens[:, None]
+    # a lane past a live row's length sees the row's keys (causally all
+    # below it); the dead row's lanes and a lane no key reaches are zeros
+    live = mask.any(dim=-1) & (lens[:, None] > 0)
     return torch.where(live[..., None, None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
 

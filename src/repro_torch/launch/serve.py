@@ -18,9 +18,12 @@ fp32. ``--arch`` takes every LM arch of the port's registry: starcoder2-7b
 and the dense family beyond it, gemma3-27b (head dim 168, 5 sliding-window
 layers of 1024 to 1 global), granite-34b (MQA), qwen1.5-110b (QKV bias,
 untied head) and qwen2-vl-72b (M-RoPE; its text tokens on three equal
-position streams). ``--repeats R`` cuts the depth to R repeats of the
-arch's layer pattern (its tail stays), the width untouched: one card holds
-qwen1.5-110b's full width at a few layers, not its 80. On the card the carbon report bills ``h100_sxm``; on the CPU the
+position streams), and the MoE family, moonshot-v1-16b-a3b (64 experts,
+top-6) and kimi-k2-1t-a32b (384 experts, top-8, head dim 112), whose
+blocks drop routes past their capacity on every path. ``--repeats R`` cuts
+the depth to R repeats of the arch's layer pattern (its tail stays), the
+width untouched: one card holds qwen1.5-110b's full width at a few layers,
+not its 80, and kimi-k2-1t-a32b's at one. On the card the carbon report bills ``h100_sxm``; on the CPU the
 report's wall-time-derived keys are left out, since CPU seconds say
 nothing about the card's joules.
 

@@ -1,5 +1,5 @@
 """Dtype-aware modeled traffic/compute for LM serving and training (mirror
-of the dense subset of ``repro.models.costing``).
+of ``repro.models.costing``).
 
 The serve engine bills every tick's bytes and FLOPs through these, and the
 train engine every step's, from the resident tensors' real sizes, so the
@@ -55,22 +55,25 @@ def kv_bytes(caches: PyTree) -> int:
 
 def matmul_weight_elems(params: PyTree, cfg: tf_lib.LMConfig) -> float:
     """Logical matmul-weight elements executed per token, the unembedding
-    projection included; norms and biases excluded. An int8 leaf counts its
-    codes: int8 changes bytes, not FLOPs."""
+    projection included; norms, biases and routers excluded. An int8 leaf
+    counts its codes: int8 changes bytes, not FLOPs. MoE experts count at
+    their top_k / n_experts activation fraction."""
     total = 0.0
+    moe_frac = (cfg.moe_cfg.top_k / cfg.moe_cfg.n_experts
+                if cfg.moe_cfg is not None else 1.0)
 
-    def walk(p):
+    def walk(p, frac):
         nonlocal total
         for k, v in p.items():
             if isinstance(v, dict):
                 if "q8" not in v:
-                    walk(v)
+                    walk(v, moe_frac if k == "moe" else frac)
                 elif k in SERVING_QUANT_KEYS:
-                    total += v["q8"].numel()
+                    total += frac * v["q8"].numel()
             elif k in SERVING_QUANT_KEYS and v.dim() >= 2:
-                total += v.numel()
+                total += frac * v.numel()
 
-    walk(params)
+    walk(params, 1.0)
     if cfg.tie_embeddings:
         total += params["embed"]["w"].numel()
     else:

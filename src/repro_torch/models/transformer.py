@@ -20,7 +20,13 @@ first tokens' embeddings) run on every path. Ring caches (gemma3's
 window-sized caches, ``ring_cache``) run on the dense path only: a row
 lands at slot ``pos % clen`` with its position tag, and attention over it
 is the masked ``sdpa``, as in the reference; the paged path refuses them.
-SSD, MoE and shared attention are not ported yet and raise
+MoE blocks (``BlockSpec(moe=True)``, ``models.moe``) replace the FFN with
+``moe_capacity`` on every path, grouped as the reference groups them: the
+full-sequence passes (``forward``, ``prefill``, ``paged_extend``) in
+groups of ``cfg.moe_group_size`` tokens, the decode and verify steps in
+one group of every token of the call, dead slots and padding rows
+included, so a batch's rows are no longer independent once routes drop.
+SSD and shared attention are not ported yet and raise
 ``NotImplementedError``.
 
 Training: ``forward`` and ``loss_fn`` run the full sequence with autograd;
@@ -47,6 +53,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.kernels import ops
 from repro_torch.models import common, layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import AttnConfig, KVCache
 from repro_torch.quant import int8 as int8_lib
 
@@ -90,7 +97,8 @@ class LMConfig:
     model and its loss; the TPU-only knobs (sharding, remat, the Pallas
     switches ``decode_kernel`` and ``flash_train``) have no counterpart
     here (``bridge.config_from_dict`` drops them): the kernels' routes
-    follow the reference's own eligibility alone."""
+    follow the reference's own eligibility alone. ``moe_group_size`` is
+    kept: it sets which routes an MoE block drops."""
     name: str
     d_model: int
     n_heads: int
@@ -114,13 +122,17 @@ class LMConfig:
     mlp_gated: bool = True
     vocab_pad_multiple: int = 128
     quant: QuantPolicy = QuantPolicy()
+    moe_cfg: Optional[moe_lib.MoEConfig] = None
+    moe_group_size: int = 4096
 
     def __post_init__(self):
         for spec in tuple(self.pattern) + tuple(self.tail):
-            if spec.kind != "attn" or spec.moe or spec.shared_attn:
+            if spec.kind != "attn" or spec.shared_attn:
                 raise NotImplementedError(
-                    f"{spec}: SSD, MoE and shared-attention blocks are not "
+                    f"{spec}: SSD and shared-attention blocks are not "
                     f"ported yet")
+            if spec.moe and self.moe_cfg is None:
+                raise ValueError(f"{spec}: an MoE block needs moe_cfg")
         if self.pos_emb not in ("rope", "mrope", "none"):
             raise ValueError(f"pos_emb={self.pos_emb!r}: rope, mrope or "
                              f"none")
@@ -140,6 +152,12 @@ class LMConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def has_moe(self) -> bool:
+        """An MoE block couples the rows of a call: its capacity ranks
+        every row's routes together."""
+        return any(sp.moe for sp in tuple(self.pattern) + tuple(self.tail))
 
     @property
     def use_int8_matmul(self) -> bool:
@@ -169,17 +187,23 @@ def _init_block(cfg: LMConfig, spec: BlockSpec, lead, **kw) -> dict:
                                            **kw)}
     if spec.has_ffn:
         parts["norm_ffn"] = layers.init_rmsnorm(cfg.d_model, lead, device=dev)
-        parts["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, lead,
-                                       gated=cfg.mlp_gated, **kw)
+        if spec.moe:
+            parts["moe"] = moe_lib.init_moe(cfg.moe_cfg, lead, **kw)
+        else:
+            parts["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, lead,
+                                           gated=cfg.mlp_gated, **kw)
     return parts
 
 
 def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.bfloat16,
             device="cuda") -> Dict[str, PyTree]:
     """Random weights from ``seed`` in the JAX tree's layout (``pat{i}``
-    stacked over repeats). The draws are torch's, not ``jax.random``'s."""
-    dev = device_lib.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    stacked over repeats). The draws are torch's, not ``jax.random``'s.
+    ``device="meta"`` builds the shapes alone (a full config's parameter
+    count without its memory)."""
+    meta = str(device) == "meta"
+    dev = torch.device("meta") if meta else device_lib.resolve(device)
+    gen = torch.Generator(device="cpu" if meta else dev).manual_seed(seed)
     kw = dict(generator=gen, device=dev, dtype=dtype)
     params: Dict[str, PyTree] = {
         "embed": layers.init_embed(cfg.padded_vocab, cfg.d_model, **kw)}
@@ -198,24 +222,22 @@ def quantize_lm(params: PyTree) -> PyTree:
     """Weight-tree int8 quantization for serving (``weights_int8``), as
     ``repro.models.transformer.quantize_lm``: linear-layer leaves
     (``SERVING_QUANT_KEYS``) become ``{"q8": int8, "s8": fp32}`` with
-    per-output-channel scales; embeddings and norms pass through. A
-    ``pat*`` group's leading repeats dim keeps its own scales. Stacked
-    leaves are quantized one layer at a time (the reduction never crosses
-    layers, so the codes are the same), which keeps the transient fp32
-    copy to one layer: the stacked w_in of starcoder2-7b alone is 10.9 GB
-    in fp32."""
+    per-output-channel scales; embeddings, norms and routers pass through.
+    A ``pat*`` group's leading repeats dim and an ``moe`` group's leading
+    expert dim each keep their own scales. Stacked leaves are quantized
+    one layer (and one expert) at a time (the reduction never crosses
+    them, so the codes are the same), which keeps the transient fp32 copy
+    small: the stacked w_in of starcoder2-7b alone is 10.9 GB in fp32."""
 
-    def leaf(v: torch.Tensor, name: str, lead: int) -> dict:
-        out_dims = min(int8_lib.weight_out_dims(name), v.dim() - lead - 1)
+    def leaf(v: torch.Tensor, out_dims: int, lead: int) -> dict:
         if lead == 0:
             return int8_lib.quantize_weight(v, out_dims=out_dims)
-        first = int8_lib.quantize_weight(v[0], out_dims=out_dims)
+        first = leaf(v[0], out_dims, lead - 1)
         q8 = torch.empty(v.shape, dtype=torch.int8, device=v.device)
         s8 = torch.empty((v.shape[0],) + tuple(first["s8"].shape),
                          dtype=torch.float32, device=v.device)
         for r in range(v.shape[0]):
-            part = first if r == 0 else int8_lib.quantize_weight(
-                v[r], out_dims=out_dims)
+            part = first if r == 0 else leaf(v[r], out_dims, lead - 1)
             q8[r] = part["q8"]
             s8[r] = part["s8"]
         return {"q8": q8, "s8": s8}
@@ -224,10 +246,13 @@ def quantize_lm(params: PyTree) -> PyTree:
         out = {}
         for k, v in p.items():
             if isinstance(v, dict):
-                out[k] = v if "q8" in v else walk(v, lead)
+                out[k] = v if "q8" in v else walk(
+                    v, lead + (1 if k == "moe" else 0))
             elif (k in int8_lib.SERVING_QUANT_KEYS
                   and v.dim() >= lead + 2):
-                out[k] = leaf(v, k, lead)
+                out_dims = min(int8_lib.weight_out_dims(k),
+                               v.dim() - lead - 1)
+                out[k] = leaf(v, out_dims, lead)
             else:
                 out[k] = v
         return out
@@ -274,16 +299,17 @@ def _unstacked(params, cfg: LMConfig) -> Iterator[tuple]:
 
 
 def _apply_block(p, cfg: LMConfig, spec: BlockSpec, x: torch.Tensor,
-                 positions: torch.Tensor,
-                 arange_pos: bool = False) -> torch.Tensor:
-    """One attention block over the full sequence (transformer.py:254).
-    ``arange_pos``: ``positions`` is the synthesized 0..S-1 arange, which
-    makes the block's attention eligible for the flash kernels."""
+                 positions: torch.Tensor, arange_pos: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One attention block over the full sequence (transformer.py:254):
+    (x, the MoE aux loss or None). ``arange_pos``: ``positions`` is the
+    synthesized 0..S-1 arange, which makes the block's attention eligible
+    for the flash kernels."""
     acfg = cfg.attn_cfg(spec.window)
     h = layers.rms_norm(p["norm_attn"], x)
     x = x + layers.attention(p["attn"], acfg, h, positions,
                              arange_positions=arange_pos)
-    return _ffn(p, cfg, spec, x)
+    return _ffn(p, cfg, spec, x, cfg.moe_group_size)
 
 
 def _vision_overwrite(cfg: LMConfig, x: torch.Tensor,
@@ -312,7 +338,7 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor,
     d_model) overwrite the first V embeddings when the config has a
     vision frontend. The reference's ``remat`` has no counterpart: the
     port keeps every layer's activations for the backward. The aux loss
-    is 0 (no MoE block is ported).
+    is the sum of the MoE blocks' router losses (0 without MoE).
     """
     b, s = tokens.shape
     x = _vision_overwrite(cfg, layers.embed(params["embed"], tokens),
@@ -321,8 +347,11 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor,
     if positions is None:
         positions = layers.positions_for(
             cfg.pos_emb, torch.arange(s, device=tokens.device).expand(b, s))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in _unstacked(params, cfg):
-        x = _apply_block(p, cfg, spec, x, positions, arange_pos=arange_pos)
+        x, a = _apply_block(p, cfg, spec, x, positions, arange_pos=arange_pos)
+        if a is not None:
+            aux = aux + a
     x = layers.rms_norm(params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = layers.unembed(params["embed"], x)
@@ -330,7 +359,7 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor,
         logits = layers.apply_unembed(params["unembed"], x)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
@@ -487,12 +516,25 @@ def _decode_attn(p, cfg: LMConfig, spec: BlockSpec, x, cache, pos):
     return layers.out_proj(p["attn"], acfg, out)
 
 
-def _ffn(p, cfg: LMConfig, spec: BlockSpec, x):
+def _ffn(p, cfg: LMConfig, spec: BlockSpec, x,
+         group_size: Optional[int] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN with its residual: (x, the MoE aux loss or None).
+    An MoE block runs ``moe_capacity`` in groups of ``group_size`` tokens,
+    or in one group of every token of the call when it is None (the decode
+    and verify steps, transformer.py:540, :883). Its experts dequantize
+    int8 leaves through ``layers.wl``, as the reference's do, so K4 serves
+    only the dense projections."""
     if not spec.has_ffn:
-        return x
+        return x, None
     h = layers.rms_norm(p["norm_ffn"], x)
+    if spec.moe:
+        y, aux = moe_lib.moe_capacity(
+            p["moe"], cfg.moe_cfg, h,
+            group_size or h.shape[0] * h.shape[1])
+        return x + y, aux
     return x + layers.mlp(p["mlp"], h, cfg.act,
-                          int8_kernel=cfg.use_int8_matmul)
+                          int8_kernel=cfg.use_int8_matmul), None
 
 
 def decode_step(params, cfg: LMConfig, token: torch.Tensor, pos: torch.Tensor,
@@ -507,7 +549,7 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, pos: torch.Tensor,
     for spec, p, cache in _layers(params, cfg, caches):
         h = layers.rms_norm(p["norm_attn"], x)
         x = x + _decode_attn(p, cfg, spec, h, cache, pos)
-        x = _ffn(p, cfg, spec, x)
+        x, _ = _ffn(p, cfg, spec, x)
     return _lm_head(params, cfg, x), caches
 
 
@@ -678,7 +720,7 @@ def _paged_walk(params, cfg: LMConfig, tokens, pos, page_table, caches,
     for spec, p, cache in _layers(params, cfg, caches):
         h = layers.rms_norm(p["norm_attn"], x)
         x = x + attn(p, cfg, spec, h, cache, pos, page_table, active)
-        x = _ffn(p, cfg, spec, x)
+        x, _ = _ffn(p, cfg, spec, x)
     return _lm_head(params, cfg, x)
 
 
@@ -768,7 +810,7 @@ def paged_extend(params, cfg: LMConfig, tokens: torch.Tensor,
             starts32, lens32, scale=acfg.scale, window=spec.window,
             **_kv_scales(cache))
         x = x + layers.out_proj(p["attn"], acfg, out)
-        x = _ffn(p, cfg, spec, x)
+        x, _ = _ffn(p, cfg, spec, x, cfg.moe_group_size)
     # per-row last valid chunk token (rows are right-padded to C)
     idx = (lens.long() - 1).clamp(0, c - 1)
     x_last = x[torch.arange(b, device=dev), idx][:, None]
@@ -840,7 +882,7 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
         if lengths is not None:
             tags = torch.where(tags < lengths[:, None], tags, -1)
         cache["pos"][:, slots] = tags.to(torch.int32)
-        x = _ffn(p, cfg, spec, x)
+        x, _ = _ffn(p, cfg, spec, x, cfg.moe_group_size)
     if lengths is not None:
         x_last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]
     else:

@@ -487,6 +487,10 @@ class ServeEngine:
         self._host_temp = [0.0] * b
         # tensors on the card run the kernels; the gather bill follows
         self._kernel_path = dev.type == "cuda"
+        # an MoE block ranks the routes of every row of a call together, so
+        # admission feeds the rows the JAX engine feeds: max_slots rows
+        # (padding rows hold token 0, length 0) at the power-of-two width
+        self._pad_rows = cfg.has_moe
         # paged mirrors: pages owned per slot (released at finish) and
         # in-flight chunked prefills {slot: {"req", "plen", "next", ...}}
         self._slot_pages: List[List[int]] = [[] for _ in range(b)]
@@ -709,18 +713,23 @@ class ServeEngine:
                sampled: bool) -> torch.Tensor:
         """Admission body: ONE padded prefill over the prompt stack, first
         tokens sampled, every admitted slot's cache rows and slot state
-        written at once. Returns the (N,) finished-at-admission mask."""
+        written at once. ``toks`` and ``lens`` may carry padding rows past
+        the N admitted ones (``_pad_rows``): they run through the prefill
+        and are dropped after it. Returns the (N,) finished-at-admission
+        mask."""
         scfg, st, max_len = self.scfg, self.state, self.scfg.max_len
+        n = slots.shape[0]
         logits1, row_caches = tf_lib.prefill(
             self.params, self.cfg, toks, max_len=max_len,
             cache_dtype=scfg.cache_dtype, lengths=lens)
-        tok0 = _sample(logits1[:, 0], scfg.seed, uids,
+        lens = lens[:n]
+        tok0 = _sample(logits1[:n, 0], scfg.seed, uids,
                        torch.zeros_like(uids), temps, sampled=sampled)
         for key, entry in st.caches.items():
             ax = 1 if key.startswith("pat") else 0   # stacked layers lead
             for dst, src in zip(cache_tensors(entry),
                                 cache_tensors(row_caches[key])):
-                dst.index_copy_(ax, slots, src.to(dst.dtype))
+                dst.index_copy_(ax, slots, src.narrow(ax, 0, n).to(dst.dtype))
         # a request can finish at admission: max_tokens == 1, prompt at the
         # length cap, or the first sampled token being EOS
         done = (budgets <= 1) | (lens >= max_len - 1)
@@ -747,8 +756,9 @@ class ServeEngine:
         lmax = _bucket_len(max(len(r.prompt) for r in reqs),
                            cap=self.scfg.max_len)
         n = len(reqs)
-        toks = np.zeros((n, lmax), np.int64)
-        lens = np.zeros(n, np.int64)
+        rows = self.scfg.max_slots if self._pad_rows else n
+        toks = np.zeros((rows, lmax), np.int64)
+        lens = np.zeros(rows, np.int64)
         temps = np.zeros(n, np.float32)
         for j, req in enumerate(reqs):
             toks[j, :len(req.prompt)] = req.prompt
@@ -867,14 +877,18 @@ class ServeEngine:
         ROW-major (row j's pages): ``paged_extend`` indexes its table by
         batch row, and the slot-major state table is written separately —
         handing it the state table would write through another slot's pages
-        whenever rows and slots do not line up. Returns the (N,)
+        whenever rows and slots do not line up. Padding rows past the N
+        in-flight ones (``_pad_rows``: no tokens, sink tables) run through
+        the call and are dropped after it. Returns the (N,)
         finished-at-admission mask."""
         scfg, st = self.scfg, self.state
-        st.page_table[slots] = tables
+        n = slots.shape[0]
         logits1, _ = tf_lib.paged_extend(self.params, self.cfg, toks, starts,
                                          lens, tables, st.caches)
-        tok0 = _sample(logits1[:, 0], scfg.seed, uids, torch.zeros_like(uids),
-                       temps, sampled=sampled)
+        toks, starts, lens, tables = toks[:n], starts[:n], lens[:n], tables[:n]
+        st.page_table[slots] = tables
+        tok0 = _sample(logits1[:n, 0], scfg.seed, uids,
+                       torch.zeros_like(uids), temps, sampled=sampled)
         end = starts + lens
         done = final & ((budgets <= 1) | (end >= scfg.max_len - 1))
         if scfg.eos_id >= 0:
@@ -1017,11 +1031,15 @@ class ServeEngine:
         chunk_cap = scfg.prefill_chunk or min(scfg.max_len,
                                               layers._CHUNKED_SDPA_THRESHOLD)
         call_lens = [min(w["plen"] - w["next"], chunk_cap) for _, w in work]
-        n, width = len(work), max(call_lens)
-        toks = np.zeros((n, width), np.int64)
-        starts = np.zeros(n, np.int64)
-        lens = np.asarray(call_lens, np.int64)
-        tables = np.full((n, nb), pool.sink, np.int32)
+        n, width, rows = len(work), max(call_lens), len(work)
+        if self._pad_rows:
+            width = _bucket_len(width, cap=chunk_cap)
+            rows = scfg.max_slots
+        toks = np.zeros((rows, width), np.int64)
+        starts = np.zeros(rows, np.int64)
+        lens = np.zeros(rows, np.int64)
+        lens[:n] = call_lens
+        tables = np.full((rows, nb), pool.sink, np.int32)
         budgets = np.zeros(n, np.int64)
         temps = np.zeros(n, np.float32)
         uids = np.zeros(n, np.int64)

@@ -31,6 +31,19 @@ from repro_torch.kernels import int8_matmul as k4
 from repro_torch.kernels import paged_decode_attention as k2
 from tests.test_torch_decode_split import ATOL, RTOL, SMS, emulate
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The CPU emulations' ops are far below any parallel grain, but on a
+    loaded host (the suite's parallel workers) idle intra-op threads cost
+    this file many times its run time: one thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PAGE = 16                           # K2's pool pages in the identity
 SK = 256                            # a whole number of Pallas's 128-key blocks
 # a dead slot, a one-key slot, a split edge and one past it, the

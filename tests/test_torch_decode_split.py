@@ -32,6 +32,19 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import paged_decode_attention as k2
 from repro_torch.kernels import ref
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The CPU emulations' ops are far below any parallel grain, but on a
+    loaded host (the suite's parallel workers) idle intra-op threads cost
+    this file many times its run time: one thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TILE = 64                           # the kernels' key tile
 ATOL, RTOL = 5e-3, 1e-2             # chip_smoke.py MODES' bf16 gate
 SMS = 132                           # an H100 SXM

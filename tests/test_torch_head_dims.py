@@ -133,7 +133,8 @@ def test_paged_prefill_plain_matches_pallas(d, window):
                                       window=window).numpy()
     want = np.asarray(jops.paged_prefill_attention(
         *map(jnp.asarray, args), scale=scale, window=window, interpret=True))
-    _check(got, want, np.arange(c)[None, :] < lens[:, None])
+    # every lane of a live row, the padding lanes past its length too
+    _check(got, want, np.broadcast_to((lens > 0)[:, None], (b, c)))
 
 
 def test_head_dim_sets():

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import moonshot_v1_16b_a3b as j_moonshot
 from repro.configs import starcoder2_7b as j_sc2
 from repro.kernels import ops as jops
 from repro.models import layers as jlayers
@@ -49,6 +50,18 @@ from repro_torch.serve import (ReferenceEngine, ServeConfig, ServeEngine,
                                StepMetrics, token_agreement)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The smoke models' and plain kernels' ops are far below any
+    parallel grain, but on a loaded host (the suite's parallel workers)
+    idle intra-op threads cost this file many times its run time: one
+    thread while it runs, the worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _core_cfg():
     """tests/test_serve_quant.py::_cfg."""
     return jtf.LMConfig(name="t", d_model=48, n_heads=4, n_kv_heads=2,
@@ -57,13 +70,15 @@ def _core_cfg():
 
 
 CFGS = {"starcoder2-smoke": j_sc2.make_smoke, "serve-core": _core_cfg}
+# the trees quantize_lm is held to: an MoE block's experts add a lead dim
+QUANT_CFGS = dict(CFGS, **{"moonshot-smoke": j_moonshot.make_smoke})
 _CACHE = {}
 
 
 def _models(name):
     """(JAX cfg, JAX fp32 params, port cfg, port fp32 params)."""
     if name not in _CACHE:
-        jcfg = CFGS[name]()
+        jcfg = QUANT_CFGS[name]()
         params = jtf.init_lm(jax.random.PRNGKey(0), jcfg,
                              dtype=jnp.float32).params
         tcfg = bridge.config_from_dict(dataclasses.asdict(jcfg))
@@ -127,12 +142,14 @@ def test_quantize_weight_bit_identical(shape, lead, out_dims):
                                       np.asarray(want[key]))
 
 
-@pytest.mark.parametrize("name", sorted(CFGS))
+@pytest.mark.parametrize("name", sorted(QUANT_CFGS))
 def test_quantize_lm_bit_identical(name):
     """The port's quantize_lm on bridged fp32 weights equals JAX's on the
-    originals, leaf for leaf (stacked leaves keep per-layer scales)."""
-    _, params, _, tparams = _models(name)
-    want = jax.tree.map(np.asarray, jtf.quantize_lm(params))
+    originals, leaf for leaf (stacked leaves keep per-layer scales, and an
+    MoE block's experts one scale row each; its router stays fp32)."""
+    tparams = _models(name)[3]
+    # JAX's quantize_lm of the same params, computed once per module
+    want = jax.tree.map(np.asarray, _qmodels(name)[1])
     got = ttf.quantize_lm(tparams)
 
     def walk(w, g, path):
@@ -146,8 +163,13 @@ def test_quantize_lm_bit_identical(name):
                                               err_msg=str(path + (k,)))
 
     walk(want, got, ())
-    assert got["pat0"]["attn"]["wq"]["s8"].shape[0] == \
-        _models(name)[2].repeats
+    tcfg = _models(name)[2]
+    assert got["pat0"]["attn"]["wq"]["s8"].shape[0] == tcfg.repeats
+    if tcfg.moe_cfg is not None:
+        moe = got["pat0"]["moe"]
+        assert tuple(moe["w_in"]["s8"].shape) == (
+            tcfg.repeats, tcfg.moe_cfg.n_experts, 1, tcfg.moe_cfg.d_ff)
+        assert moe["router"].dtype == torch.float32
 
 
 def test_quantize_lm_passes_a_quantized_tree_through():
@@ -287,7 +309,8 @@ def test_int8_kv_paged_prefill_plain_matches_pallas(window):
     want = np.asarray(jops.paged_prefill_attention(
         *map(jnp.asarray, args), scale=d ** -0.5, window=window,
         interpret=True, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
-    live = np.arange(c)[None, :] < lens[:, None]
+    # every lane of a live row, the padding lanes past its length too
+    live = lens > 0
     assert np.abs(got[live] - want[live]).max() < 1e-5
     assert (got[~live] == 0.0).all() and (want[2] == 0.0).all()
 

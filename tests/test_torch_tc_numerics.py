@@ -39,7 +39,8 @@ def tc_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
                scale, window=-1, k_scale=None, v_scale=None):
     """What the tensor-core K3 computes: q (B, C, H, D) bf16; k_new/v_new
     bf16; pools bf16, or int8 codes with (P, page_size, Hkv) fp32 scales.
-    Returns (B, C, H, D) bf16, zeros at and past each row's length."""
+    Returns (B, C, H, D) bf16: a padding token past a live row's length
+    attends the row's keys, a dead row is zeros."""
     b_n, c, h, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     rep = h // hkv
@@ -49,7 +50,7 @@ def tc_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
         start = min(max(int(starts[b]), 0), nb * ps)
         ln = min(int(lens[b]), c)
         for t0 in range(0, c, ROWS):
-            if t0 >= ln:
+            if ln <= 0:
                 continue
             kp_lo = max(0, start + t0 - window + 1) if window > 0 else 0
             kp_end = start + min(ln, t0 + ROWS)
@@ -59,7 +60,6 @@ def tc_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
                       for k0 in range(max(kp_lo, start), kp_end, KEYS)]
             rows = torch.arange(t0, min(t0 + ROWS, c))
             q_abs = (start + rows)[None, :, None]
-            live = (rows < ln)[None, :, None]
             qh = q[b, rows].float().transpose(0, 1)            # (H, R, D)
             m = torch.full((h, len(rows), 1), ref.NEG_INF)
             l = torch.zeros((h, len(rows), 1))
@@ -83,7 +83,7 @@ def tc_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
                 ksh = ks.t().repeat_interleave(rep, 0)[:, None, :]
                 vsh = vs.t().repeat_interleave(rep, 0)[:, None, :]
                 s = (qh @ kh.transpose(1, 2)) * ksh * scale
-                ok = live & (kp[None, None, :] <= q_abs)
+                ok = kp[None, None, :] <= q_abs
                 if window > 0:
                     ok &= q_abs - kp[None, None, :] < window
                 s = torch.where(ok, s, torch.tensor(ref.NEG_INF))
@@ -94,9 +94,7 @@ def tc_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
                 p_bf = (p * vsh).bfloat16().float()             # P' in bf16
                 o = o * alpha + p_bf @ vh
                 m = m_new
-            res = (o / l.clamp(min=1e-30)).transpose(0, 1)      # (R, H, D)
-            out[b, rows] = torch.where(live[0][:, :, None], res,
-                                       torch.zeros(()))
+            out[b, rows] = (o / l.clamp(min=1e-30)).transpose(0, 1)
     return out.bfloat16()
 
 
@@ -147,8 +145,8 @@ def test_tc_prefill_numerics_within_the_card_gate(kv, window):
               v_scale=None if vs is None else _torch(vs))
     got = tc_prefill(*map(_torch, args), scale=scale, window=window,
                      **tk).float().numpy()
-    lens = args[-1]
-    live = np.arange(args[0].shape[1])[None, :] < lens[:, None]
+    # every lane of a live row, the padding lanes past its length too
+    live = args[-1] > 0
     err = np.abs(got[live] - want[live])
     assert (err <= ATOL + RTOL * np.abs(want[live])).all(), err.max()
     # the emulation rounds where the fp32 plain version does not, and no
