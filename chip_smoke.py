@@ -15,7 +15,8 @@ the dense, paged and speculative paths, granite-34b, qwen1.5-110b and
 qwen2-vl-72b at full width and 2 layers on the paged path, the MoE family
 (one layer of moonshot-v1-16b-a3b and of kimi-k2-1t-a32b at full width,
 moonshot at full width through every serve path and kimi-k2 at one
-layer), the fused
+layer), the SSD/hybrid family (mamba2-1.3b and zamba2-7b at full width
+and full depth on the dense serve path), the fused
 training tick at full width and 8 layers, the checkpointing Trainer on
 the ~100M e2e model at full size, the port's train and kernel benches,
 and the paper's ternary AlexNet and VGG-16 at full size.
@@ -72,6 +73,8 @@ non-zero and prints no result:
    1024, in the two serve modes (bf16 q over the fp32 and the int8
    cache), timed as at D = 128 (phase ``kernels_d168``), and at
    kimi-k2's (64 on 8 KV heads of 112), no window (``kernels_d112``);
+   K1 alone also at zamba2-7b's (32 on 32 KV heads of 112: a group of
+   one), no window, the same two modes (``kernels_zamba2``);
    K3's checks hold every lane of a live row, the padding lanes past its
    length too (they attend the row's keys, as the Pallas kernel's do),
    and exact zeros on a dead row;
@@ -276,6 +279,25 @@ non-zero and prints no result:
    decode ticks profiled); kimi-k2 at full width and one layer, bf16,
    paged and speculative (K2, K3, K5 on SIMT at D 112, one tick set
    profiled); every run's launches checked;
+9e. the SSD/hybrid family (``ssd_scan``, ``ssm_family``), the dense
+   serve path only (the paged path refuses SSD archs, as the reference's
+   does), ``conv_b``/``conv_c`` of every SSD block drawn N(0, 0.2) from
+   SEED after ``init_lm`` (its zeros leave every SSM state at 0): one
+   mamba2-1.3b layer's ``ssd_chunked`` against ``ssd_naive`` at B 2, S
+   1024 on the layer's own projections of N(0, 1) hidden states (bound
+   2e-4 of max(1, max |y|), the final state too); then mamba2-1.3b (48
+   SSD blocks) and zamba2-7b (81 slots: 13 x (5 SSD blocks and a shared
+   attention site) and 3) at full width and full depth, 8 slots, max_len
+   2048, prompts of 512 and 301 tokens alternating (equal-length
+   admission groups: the 301s go back to the queue), 24 greedy tokens:
+   fp32 dense streams identical to ``ReferenceEngine``'s (mamba2's also
+   to a kill at tick 7 restored from the tick-4 snapshot and the
+   journal), the SSM states nonzero; bf16 (and zamba2 int8: the shared
+   block's projections through K4, the SSD blocks in bf16) with 3 decode
+   ticks profiled (device and host ms a tick, launches a layer, peak
+   memory), the int8-vs-bf16 and bf16-vs-fp32 agreement reported; K1
+   launches = decode ticks x 13 at zamba2 (SIMT at D 112), none at
+   mamba2;
 10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
    of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
    ``sdpa`` route (explicit positions), the loss within 1e-5 and each
@@ -312,11 +334,13 @@ non-zero and prints no result:
    s/step, model FLOP/s over the fp32 peak, peak memory; K11 launches 3
    times a forward, one kernel each (torch.profiler), on its streaming
    kernel at batch 1 and its tensor-core kernel at 64; the params are
-   freed after each model;
+   freed after each model. It runs right after the kernel phases (before
+   phase 5), ahead of the long profiles of the serve and training phases;
 12. a ``kernels`` line (K1-K11; K9's and K11's with the launches of each
    of their kernels in the main-path runs; K1's, K2's, K3's and K5's with
    the head dims of the serve runs that launched them and their
-   ``kernels_d168`` and ``kernels_d112`` rows at the int8 mode), then the
+   ``kernels_d168`` and ``kernels_d112`` rows at the int8 mode; K1's also
+   with its ``kernels_zamba2`` row as ``d112_zamba2``), then the
    result line
    ``{"ok": true, "device": ...}``.
 
@@ -1830,12 +1854,15 @@ def _check_k9(dy, q, sc, odt, label):
     return got, max_err, peak
 
 
-def _one_launch(label, fn, iters=8, attempts=5, per_call=1, names=None):
+def _one_launch(label, fn, iters=8, attempts=40, per_call=1, names=None):
     """Every call of ``fn`` launches exactly ``per_call`` kernels on the
     card (of those whose name holds one of ``names``, if given), read from
-    torch.profiler's kernel records (taken again, up to ``attempts`` times,
-    when a profile lost records, as ``device_ms`` does). Returns the calls
-    of ``fn`` it made."""
+    torch.profiler's kernel records: a profile that lost records is taken
+    again after a pause of 0.2 s, up to ``attempts`` times (late in a long
+    run the card's profiles have lost the same records of every call for
+    ten profiles in a row, the last record inside the window). Returns the
+    calls of ``fn`` it made and the counts of the profiles that fell
+    short."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1853,8 +1880,9 @@ def _one_launch(label, fn, iters=8, attempts=5, per_call=1, names=None):
                 and e.self_device_time_total > 0
                 and (names is None or any(w in e.key for w in names)))
         if n == per_call * iters:
-            return 1 + iters * (len(seen) + 1)
+            return 1 + iters * (len(seen) + 1), seen
         seen.append(n)
+        time.sleep(0.2)
     raise AssertionError(f"{label}: {iters} calls made {seen} kernel "
                          f"launches in {attempts} profiles, not {per_call} "
                          f"a call")
@@ -3091,9 +3119,9 @@ def phase_cnn(cfg):
             deq_ms = cuda_ms(lambda i: cnn.forward(deq, cfg, imgs), iters)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             prof = _profile_device(k11_route, 2)
-            checked = _one_launch(f"cnn {cfg.name} batch {batch}: K11",
-                                  k11_route, iters=2, per_call=n_fc,
-                                  names=K11_KERNELS)
+            checked, short = _one_launch(
+                f"cnn {cfg.name} batch {batch}: K11", k11_route, iters=2,
+                per_call=n_fc, names=K11_KERNELS)
         batch_forwards = 1 + (iters + 1) + 2 + checked
         forwards += batch_forwards
         routes = {r: c - routes_before[r]
@@ -3116,7 +3144,7 @@ def phase_cnn(cfg):
                "ms_per_forward": ms, "images_per_s": batch / ms * 1e3,
                "dequantized_ms_per_forward": deq_ms,
                "peak_mem_gb": peak_gb, "k11_routes": routes,
-               "profile": prof}
+               "profile": prof, "k11_launch_check_short_profiles": short}
         emit(row)
         if routes != {k11_lib.route(batch): batch_forwards * n_fc}:
             raise AssertionError(f"cnn {cfg.name} batch {batch}: K11's "
@@ -3884,14 +3912,19 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
     paged = eng.pool is not None
     int8 = eng.scfg.quant == "int8"
     spec = eng.scfg.spec_k > 0                  # the ngram drafter: no K2
-    # every layer attends; K4 takes each layer's wq, wk, wv, wo and, in a
-    # dense FFN, w_in, w_out and (a gated MLP) w_gate; an MoE block's
-    # experts dequantize through layers.wl, as the reference's do
-    specs = ([sp for _ in range(eng.cfg.repeats) for sp in eng.cfg.pattern]
-             + list(eng.cfg.tail))
+    # every attention layer attends; K4 takes each one's wq, wk, wv, wo
+    # and, in a dense FFN, w_in, w_out and (a gated MLP: zamba2's shared
+    # block always) w_gate; an MoE block's experts dequantize through
+    # layers.wl, as the reference's do, and an SSD block launches neither
+    # (its projections stay full precision in the int8 mode, as the
+    # reference's do)
+    specs = [sp for sp in ([sp for _ in range(eng.cfg.repeats)
+                            for sp in eng.cfg.pattern] + list(eng.cfg.tail))
+             if sp.kind == "attn"]
     layers = len(specs)
-    k4_per_step = sum(4 + (0 if sp.moe or not sp.has_ffn
-                           else 2 + int(eng.cfg.mlp_gated)) for sp in specs)
+    k4_per_step = sum(4 + (0 if sp.moe or not (sp.has_ffn or sp.shared_attn)
+                           else 2 + int(eng.cfg.mlp_gated or sp.shared_attn))
+                      for sp in specs)
     want = {"decode_attention": 0 if paged else decode_ticks * layers,
             "paged_decode_attention": decode_ticks * layers
             if paged and not spec else 0,
@@ -3937,7 +3970,8 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
             f"{k3_by}, K5 {by_kernel['paged_verify_attention']} (all on "
             f"{attn_kernel} expected), K4 ran {k4_by}")
     row = {"phase": phase, "arch": eng.cfg.name,
-           "layers": layers, "head_dim": head_dim,
+           "layers": eng.cfg.n_layers, "attention_layers": layers,
+           "head_dim": head_dim,
            "dtype": str(q_dtype).replace("torch.", ""),
            "quant": eng.scfg.quant,
            "cache": str(kv_dtype).replace("torch.", ""),
@@ -4068,7 +4102,9 @@ def _profile_serve_ticks(params, cfg, scfg, prompts, n_new, ticks=3):
     of them decodes, then ``ticks`` decode ticks under torch.profiler
     (``launch/serve.py``'s ``profile_ticks``): device ms a tick (the sum
     of the kernels' device time), host wall ms a tick, the busy share, the
-    launches and the largest kernels' device ms a tick. Then drained."""
+    launches and the largest kernels' device ms a tick. The engine is
+    dropped undrained: the traffic's streams, launches and clean drain are
+    the caller's ``_serve_run``'s."""
     from repro_torch.launch.serve import profile_ticks
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(params, cfg, scfg)
@@ -4078,7 +4114,6 @@ def _profile_serve_ticks(params, cfg, scfg, prompts, n_new, ticks=3):
                                        < len(prompts)):
         eng.step()
     _, rep = profile_ticks(eng, ticks, top=8)
-    eng.run_until_drained()
     return {"ticks": ticks,
             "device_ms_per_tick": rep["device_busy_ms"] / ticks,
             "wall_ms_per_tick": rep["wall_ms"] / ticks,
@@ -5096,6 +5131,242 @@ def phase_moe():
     return runs
 
 
+SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")
+# 8 slots, max_len 2048: 4 prompts of 512 tokens and 4 of 301, alternating,
+# so the first admission prefills the 512s together and sends the 301s
+# back to the queue (equal-length groups: an SSM state integrates padding)
+SSM_PROMPTS = (512, 301) * 4
+SSM_NEW = 24
+SSM_SLOTS = 8
+# one mamba2 layer's scan at full shapes, chunked against naive (B, S)
+SSD_SCAN = (2, 1024)
+# zamba2-7b's heads at full width (32 query heads on 32 KV heads of 112)
+ZAMBA2_HEADS = (32, 32, 112)
+
+
+def _ssd_scan_tol(y_max):
+    """The chunked scan against the naive recurrence: tests/test_ssd.py's
+    2e-4, relative to the largest value once it exceeds 1 (both sides
+    fp32, TF32 off; the chunked form sums 256-term products in another
+    order than the 1024-step recurrence)."""
+    return 2e-4 * max(1.0, y_max)
+
+
+def _live_ssd_conv(params):
+    """``conv_b``/``conv_c`` of every SSD group drawn N(0, 0.2) from SEED,
+    in place: ``init_lm`` leaves them at zero, as the reference's does,
+    which makes B and C silu(0) = 0 and every SSM state 0 (only the D
+    skip and ``conv_x`` would carry signal). fp32 draws, cast to the
+    params' dtype, so bf16 params get the fp32 draws rounded."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for key in sorted(params):
+        group = params[key]
+        if isinstance(group, dict) and "ssd" in group:
+            for name in ("conv_b", "conv_c"):
+                t = group["ssd"][name]
+                t.copy_(0.2 * torch.randn(t.shape, generator=gen,
+                                          device="cuda"))
+    return params
+
+
+def _ssm_state_max(eng):
+    """The largest |value| of any SSM state in an engine's caches."""
+    return max(float(e["ssd"].ssm.abs().max())
+               for e in eng.state.caches.values() if "ssd" in e)
+
+
+def phase_kernels_zamba2():
+    """K1 at zamba2-7b's heads (32 on 32 KV heads of 112: a group of one,
+    unlike kimi-k2's 8), no window, in the two serve modes, checked and
+    timed as ``kernels_d112``. Returns its MAIN_INT8 row."""
+    import torch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ref
+    t0 = time.monotonic()
+    rows = _check_kernel(
+        "decode_attention", k1.decode_attention, ref.decode_attention_ref,
+        _library_decode, lambda q, kv: _decode_inputs(q, kv, ZAMBA2_HEADS),
+        lambda a, w: _decode_bound(a[0], a[1], a[3], w),
+        dead=torch.tensor(LENGTHS) == 0, iters=48, kv_pos=(1, 2),
+        device_time=True, route=_k25_route(), modes=G3_MODES,
+        windows=(-1,), cold=(1, 2))
+    emit({"phase": "kernels_zamba2", "heads": list(ZAMBA2_HEADS),
+          "seconds": time.monotonic() - t0})
+    return rows[MAIN_INT8]
+
+
+def _ssd_scan_check(cfg, params):
+    """Layer 0 of mamba2 at full shapes: its projections of N(0, 1)
+    hidden states (B, S = SSD_SCAN) through its convs, dt and A, then
+    ``ssd_chunked`` against ``ssd_naive`` on those inputs, fp32."""
+    import torch
+    from repro_torch.models import layers, ssd
+    t0 = time.monotonic()
+    scfg = cfg.ssd_cfg
+    p = {k: v[0] for k, v in params["pat0"]["ssd"].items()
+         if isinstance(v, torch.Tensor)}
+    norm = {"scale": params["pat0"]["norm_ssd"]["scale"][0]}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    x = torch.randn(SSD_SCAN + (cfg.d_model,), generator=gen, device="cuda")
+    _, xin, b_raw, c_raw, dt_raw = ssd._projections(
+        p, scfg, layers.rms_norm(norm, x))
+    xin = ssd.silu(ssd._causal_dwconv(xin, p["conv_x"]))
+    bm = ssd._expand_groups(ssd.silu(ssd._causal_dwconv(
+        b_raw, p["conv_b"])), scfg.n_heads)
+    cm = ssd._expand_groups(ssd.silu(ssd._causal_dwconv(
+        c_raw, p["conv_c"])), scfg.n_heads)
+    dt, a = ssd._dt_a(p, dt_raw)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    y, h = ssd.ssd_chunked(xin, dt, a, bm, cm, scfg.chunk)
+    torch.cuda.synchronize()
+    chunked_s = time.monotonic() - t1
+    t1 = time.monotonic()
+    y_ref, h_ref = ssd.ssd_naive(xin, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    naive_s = time.monotonic() - t1
+    y_max, h_max = float(y_ref.abs().max()), float(h_ref.abs().max())
+    err = float((y - y_ref).abs().max())
+    err_state = float((h - h_ref).abs().max())
+    row = {"phase": "ssd_scan", "batch": SSD_SCAN[0], "seq": SSD_SCAN[1],
+           "heads": scfg.n_heads, "head_dim": scfg.head_dim,
+           "d_state": scfg.d_state, "chunk": scfg.chunk,
+           "max_abs_err": err, "tol": _ssd_scan_tol(y_max),
+           "max_abs_err_state": err_state,
+           "tol_state": _ssd_scan_tol(h_max),
+           "y_max_abs": y_max, "state_max_abs": h_max,
+           "chunked_ms": 1e3 * chunked_s, "naive_ms": 1e3 * naive_s,
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    if not (err <= row["tol"] and err_state <= row["tol_state"]
+            and h_max > 0):
+        raise AssertionError(f"ssd_chunked disagrees with ssd_naive: {row}")
+
+
+def _ssm_fp32(arch, cfg, params, prompts, scfg):
+    """On fp32 ``params``: the dense engine's streams against
+    ``ReferenceEngine``'s (and mamba2's against a restore from the tick-4
+    snapshot and the journal). Returns the launches, the streams and a
+    report."""
+    from repro_torch.models import costing
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.reference import ReferenceEngine
+    t0 = time.monotonic()
+    rep = {"param_gb": costing.tree_bytes(params) / 1e9}
+    acct = _accountant()
+    eng = ServeEngine(params, cfg, scfg, accountant=acct)
+    launches, streams, _ = _serve_run(f"ssm_fp32_{arch}", eng, acct,
+                                      prompts, SSM_NEW, hits=False)
+    rep["ssm_state_max_abs"] = _ssm_state_max(eng)
+    rep["admissions"] = sum(1 for m in eng.metrics_log
+                            if m.prefill_tokens > 0)
+    if rep["ssm_state_max_abs"] <= 0 or rep["admissions"] < 2:
+        raise AssertionError(f"{arch} fp32: {rep}")
+    eng = None
+    _free_device()
+    t1 = time.monotonic()
+    ref = ReferenceEngine(params, cfg, scfg)
+    for p in prompts:
+        ref.submit(p, max_tokens=SSM_NEW)
+    want = {r.uid: list(r.generated) for r in ref.run_until_drained()}
+    rep["reference_s"] = time.monotonic() - t1
+    ref = None
+    _free_device()
+    if streams != want:
+        raise AssertionError(f"{arch} fp32: the dense engine's streams "
+                             f"differ from ReferenceEngine's: "
+                             f"{_first_diff(streams, want)}")
+    if arch == "mamba2-1.3b":
+        eng, got, rep["restore"] = _kill_and_restore(params, cfg, scfg,
+                                                     prompts, SSM_NEW)
+        eng = None
+        _free_device()
+        if got != want:
+            raise AssertionError(f"{arch} fp32: the restored streams "
+                                 f"differ: {_first_diff(got, want)}")
+    rep["seconds"] = time.monotonic() - t0
+    return launches, streams, rep
+
+
+def phase_ssm_family():
+    """The SSD/hybrid family on the dense serve path at full width and full
+    depth (see SSM_ARCHS' comment): mamba2's scan check, then per arch the
+    fp32 streams against ``ReferenceEngine``'s (mamba2's also against a
+    restore), and the bf16 (zamba2: also int8) runs with 3 decode ticks
+    profiled. Every run's kernel calls are checked by ``_serve_run`` (K1
+    at zamba2's 13 shared sites a decode tick, K4 at their projections in
+    the int8 mode; mamba2 launches none). Returns the runs' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import costing
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.serve import (ServeConfig, ServeEngine,
+                                   generation_agreement)
+    t_start = time.monotonic()
+    runs = []
+    scfg = ServeConfig(max_slots=SSM_SLOTS, max_len=2048, device="cuda")
+    for arch in SSM_ARCHS:
+        t_arch = time.monotonic()
+        cfg = cfgbase.get(arch).make_config()
+        rng = np.random.default_rng(SEED + 31)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in SSM_PROMPTS]
+        report = {}
+        params = _live_ssd_conv(tf_lib.init_lm(
+            cfg, seed=SEED, dtype=torch.float32, device="cuda"))
+        if arch == "mamba2-1.3b":
+            _ssd_scan_check(cfg, params)
+        launches, fp32, report["fp32"] = _ssm_fp32(arch, cfg, params,
+                                                   prompts, scfg)
+        runs.append(launches)
+        params = None
+        _free_device()
+        params = _live_ssd_conv(tf_lib.init_lm(
+            cfg, seed=SEED, dtype=torch.bfloat16, device="cuda"))
+        streams = {}
+        for quant in ("none", "int8") if arch == "zamba2-7b" else ("none",):
+            label = "bf16" if quant == "none" else "int8"
+            t0 = time.monotonic()
+            qcfg = dataclasses.replace(scfg, quant=quant)
+            acct = _accountant()
+            eng = ServeEngine(params, cfg, qcfg, accountant=acct)
+            launches, streams[label], _ = _serve_run(
+                f"ssm_{label}_{arch}", eng, acct, prompts, SSM_NEW,
+                hits=False)
+            runs.append(launches)
+            report[label] = {
+                "param_gb": costing.tree_bytes(eng.params) / 1e9,
+                "kv_cache_gb": eng.kv_cache_bytes / 1e9,
+                "ssm_state_max_abs": _ssm_state_max(eng),
+                "launches": launches}
+            eng = None
+            _free_device()
+            report[label]["profile"] = _profile_serve_ticks(
+                params, cfg, qcfg, prompts, SSM_NEW)
+            report[label]["launches_per_layer_per_tick"] = (
+                report[label]["profile"]["launches_per_tick"]
+                / cfg.n_layers)
+            report[label]["seconds"] = time.monotonic() - t0
+            _free_device()
+        if "int8" in streams:
+            report["int8_vs_bf16_agreement"] = generation_agreement(
+                streams["int8"], streams["bf16"])
+        report["bf16_vs_fp32_agreement"] = generation_agreement(
+            streams["bf16"], fp32)
+        params = None
+        _free_device()
+        emit({"phase": "ssm_family", "arch": arch, "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "prompts": list(SSM_PROMPTS),
+              "new_tokens_each": SSM_NEW, "slots": SSM_SLOTS,
+              "fp32_engine_reference_identical": True,
+              **({"fp32_restore_identical": True}
+                 if arch == "mamba2-1.3b" else {}),
+              **report, "seconds": time.monotonic() - t_arch})
+    emit({"phase": "ssm_family_total", "seconds": time.monotonic() - t_start})
+    return runs
+
+
 # (kernel, its CUDA source under src/repro_torch/kernels/csrc/, the TPU
 # kernel it replaces)
 KERNELS = (
@@ -5163,12 +5434,21 @@ def main() -> int:
                          f"from a checkout of the repository")
     sys.path.insert(0, str(SRC))
     t0 = time.monotonic()
+    # seconds since the start at the end of each group of phases: where the
+    # script's 1200 s go
+    timeline = {}
+
+    def mark(name):
+        timeline[name] = time.monotonic() - t0
+
     phase_device()
     phase_build()
+    mark("build")
     phase_routes()
     rows = {name: r[MAIN_INT8] for name, r in phase_kernels().items()}
     d168 = phase_kernels_d168()
     d112 = phase_kernels_d112()
+    k1_zamba2 = phase_kernels_zamba2()
     phase_prefill_ragged()
     phase_decode_ragged()
     rows["int8_matmul"] = phase_int8_decode()
@@ -5180,31 +5460,46 @@ def main() -> int:
     rows.update(phase_flash_kernels())
     phase_flash_ragged()
     rows["flash_attention"] = phase_flash_infer()
-    phase_streams()
-    torch.cuda.empty_cache()
-    runs = phase_serve_runs()
-    gc.collect()
-    torch.cuda.empty_cache()
-    runs += phase_gemma3()
-    runs += phase_family_serve()
-    gc.collect()
-    torch.cuda.empty_cache()
-    runs += phase_moe()
-    runs += [phase_train_parity(), phase_train()]
-    gc.collect()
-    torch.cuda.empty_cache()
-    runs += [phase_trainer(), phase_train_bench(), phase_kernel_bench()]
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("kernels")
+    # before any long profile: after one of tens of thousands of kernels,
+    # the card's profiles drop records for a while, and the CNN phase
+    # counts K11's records in profiles of two forwards
     from repro_torch.models import cnn
+    runs = []
     for cnn_cfg in (cnn.ALEXNET, cnn.VGG16):
         runs.append(phase_cnn(cnn_cfg))
         gc.collect()
         torch.cuda.empty_cache()
+    mark("cnn")
+    phase_streams()
+    mark("streams")
+    torch.cuda.empty_cache()
+    runs += phase_serve_runs()
+    mark("serve_runs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += phase_gemma3()
+    runs += phase_family_serve()
+    mark("gemma3_family")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += phase_moe()
+    mark("moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += phase_ssm_family()
+    mark("ssm_family")
+    runs += [phase_train_parity(), phase_train()]
+    mark("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += [phase_trainer(), phase_train_bench(), phase_kernel_bench()]
+    mark("trainer_benches")
     launches = {name: sum(r[name] for r in runs) for name, _, _ in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    emit({"phase": "timeline", "seconds_since_start": timeline})
     emit({"phase": "total", "seconds": time.monotonic() - t0})
     emit({"kernels": [{
         "name": name, "route": "cuda",
@@ -5222,7 +5517,10 @@ def main() -> int:
                 "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "route")}
                for label, rows_d in (("d168", d168), ("d112", d112))}}
-           if name in d168 else {})}
+           if name in d168 else {}),
+        **({"d112_zamba2": {key: k1_zamba2[key] for key in (
+            "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "route")}} if name == "decode_attention" else {})}
         for name, source, replaces in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.models import cnn
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.ssd import SSDConfig
 from repro_torch.models.transformer import BlockSpec, LMConfig, QuantPolicy
 from repro_torch.quant.ternary import TernaryWeight
 
@@ -45,8 +46,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
     as the port's parameters: the same keys and layouts, as tensors on
     ``device``. Every leaf is carried: gemma3's six stacked pattern groups
     and its two-block tail, the QKV biases (``bq``, ``bk``, ``bv``), an
-    untied ``unembed`` and the ``moe`` groups (``router`` (R, d, E),
-    ``w_in``/``w_gate`` (R, E, d, f), ``w_out`` (R, E, f, d)) alike."""
+    untied ``unembed``, the ``moe`` groups (``router`` (R, d, E),
+    ``w_in``/``w_gate`` (R, E, d, f), ``w_out`` (R, E, f, d)), the ``ssd``
+    groups and zamba2's one ``shared_attn`` group alike. The depth check
+    reads each stacked group's norm (``norm_attn``, or ``norm_ssd`` in an
+    SSD group); a shared site has no group of its own."""
     dev = device_lib.resolve(device)
 
     def walk(t):
@@ -59,8 +63,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
     if rows != cfg.padded_vocab:
         raise ValueError(f"embedding has {rows} rows; {cfg.name} needs "
                          f"padded_vocab {cfg.padded_vocab}")
-    for i in range(len(cfg.pattern)):
-        lead = out[f"pat{i}"]["norm_attn"]["scale"].shape[0]
+    for i, spec in enumerate(cfg.pattern):
+        if spec.shared_attn:
+            continue
+        norm = "norm_ssd" if spec.kind == "ssd" else "norm_attn"
+        lead = out[f"pat{i}"][norm]["scale"].shape[0]
         if lead != cfg.repeats:
             raise ValueError(f"pat{i} is stacked {lead} deep; {cfg.name} "
                              f"repeats {cfg.repeats}")
@@ -106,13 +113,10 @@ def ternary_from_numpy(q: np.ndarray, scale: np.ndarray,
 def config_from_dict(d: Dict[str, Any]) -> LMConfig:
     """The port's ``LMConfig`` from ``dataclasses.asdict`` of a JAX one.
     TPU-only knobs are dropped; ``mrope_sections``, ``vision_tokens``,
-    ``moe_cfg`` (as the port's ``MoEConfig``) and ``moe_group_size`` are
-    carried; features the port lacks raise ``NotImplementedError`` (here
-    or in ``LMConfig``)."""
-    if d.get("ssd_cfg") is not None:
-        raise NotImplementedError("SSD configs are not ported yet")
+    ``moe_cfg`` and ``ssd_cfg`` (as the port's ``MoEConfig`` and
+    ``SSDConfig``) and ``moe_group_size`` are carried."""
     fields = {f.name for f in dataclasses.fields(LMConfig)}
-    unknown = set(d) - fields - _TPU_ONLY_FIELDS - {"ssd_cfg"}
+    unknown = set(d) - fields - _TPU_ONLY_FIELDS
     if unknown:
         raise ValueError(f"unknown LMConfig fields {sorted(unknown)}")
     kw = {k: v for k, v in d.items() if k in fields}
@@ -122,4 +126,6 @@ def config_from_dict(d: Dict[str, Any]) -> LMConfig:
         kw["quant"] = QuantPolicy(**d["quant"])
     if d.get("moe_cfg") is not None:
         kw["moe_cfg"] = MoEConfig(**d["moe_cfg"])
+    if d.get("ssd_cfg") is not None:
+        kw["ssd_cfg"] = SSDConfig(**d["ssd_cfg"])
     return LMConfig(**kw)

@@ -26,12 +26,13 @@ class ArchSpec:
     active_fraction: float = 1.0
 
 
-# archs ported so far (the dense family, the MoE family, then the CNNs),
-# in the reference's order; the rest of repro.configs follows the port's
-# queue
+# archs ported so far (the dense family, the MoE family, the SSD and
+# hybrid family, then the CNNs), in the reference's order; the rest of
+# repro.configs (whisper-large-v3) follows the port's queue
 _ARCH_MODULES = ["gemma3_27b", "starcoder2_7b", "granite_34b",
                  "qwen1_5_110b", "moonshot_v1_16b_a3b", "kimi_k2_1t_a32b",
-                 "qwen2_vl_72b", "alexnet", "vgg16"]
+                 "zamba2_7b", "qwen2_vl_72b", "mamba2_1_3b", "alexnet",
+                 "vgg16"]
 
 REGISTRY: Dict[str, ArchSpec] = {}
 

@@ -18,7 +18,8 @@ nothing about the card's joules. gemma3-27b's smoke config serves its
 sliding-window layers (window 8) through the same kernels as its full
 width's (K1 on the card: head dim 24 there, 168 at full width).
 ``--arch`` takes any LM arch of the port's registry, the MoE archs
-moonshot-v1-16b-a3b and kimi-k2-1t-a32b among them.
+moonshot-v1-16b-a3b and kimi-k2-1t-a32b and the SSD/hybrid archs
+mamba2-1.3b and zamba2-7b among them.
 """
 
 import argparse

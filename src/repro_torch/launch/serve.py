@@ -20,7 +20,12 @@ layers of 1024 to 1 global), granite-34b (MQA), qwen1.5-110b (QKV bias,
 untied head) and qwen2-vl-72b (M-RoPE; its text tokens on three equal
 position streams), and the MoE family, moonshot-v1-16b-a3b (64 experts,
 top-6) and kimi-k2-1t-a32b (384 experts, top-8, head dim 112), whose
-blocks drop routes past their capacity on every path. ``--repeats R`` cuts
+blocks drop routes past their capacity on every path, and the SSD/hybrid
+family, mamba2-1.3b (48 SSD blocks, no attention) and zamba2-7b (81
+slots: 13 x (5 SSD blocks and a site of the one shared attention block of
+32 heads of 112) and 3 SSD blocks), on the dense path only (``--paged``
+raises ``NotImplementedError``, as the reference does): their admissions
+prefill equal-length prompts together, unpadded. ``--repeats R`` cuts
 the depth to R repeats of the arch's layer pattern (its tail stays), the
 width untouched: one card holds qwen1.5-110b's full width at a few layers,
 not its 80, and kimi-k2-1t-a32b's at one. On the card the carbon report bills ``h100_sxm``; on the CPU the

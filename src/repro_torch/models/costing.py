@@ -47,8 +47,8 @@ def tree_bytes(tree: PyTree) -> int:
 
 
 def kv_bytes(caches: PyTree) -> int:
-    """Bytes of the K/V payload (codes + scales; excludes position
-    tags)."""
+    """Bytes of the K/V payload (codes + scales; excludes position tags
+    and SSD states, as the reference's does)."""
     return sum(tree_bytes(entry[key]) for entry in caches.values()
                for key in ("kv", "kv_scale") if key in entry)
 
@@ -57,7 +57,10 @@ def matmul_weight_elems(params: PyTree, cfg: tf_lib.LMConfig) -> float:
     """Logical matmul-weight elements executed per token, the unembedding
     projection included; norms, biases and routers excluded. An int8 leaf
     counts its codes: int8 changes bytes, not FLOPs. MoE experts count at
-    their top_k / n_experts activation fraction."""
+    their top_k / n_experts activation fraction. An SSD block bills its
+    ``SERVING_QUANT_KEYS`` leaves (``w_z``, ``w_x``, ``w_out``), not
+    ``w_b``, ``w_c`` or ``w_dt``; zamba2's ``shared_attn`` group is billed
+    once, however many sites run it: the reference's model."""
     total = 0.0
     moe_frac = (cfg.moe_cfg.top_k / cfg.moe_cfg.n_experts
                 if cfg.moe_cfg is not None else 1.0)

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the PyTorch port, attention-only (mirror of
-``repro.models.transformer``).
+"""Decoder-only LM of the PyTorch port (mirror of
+``repro.models.transformer``): attention, MoE, SSD and hybrid stacks.
 
 The layer schedule is ``pattern x repeats + tail``, and parameters and
 caches keep the JAX tree's layout: each ``pat{i}`` entry is stacked over
@@ -26,8 +26,15 @@ full-sequence passes (``forward``, ``prefill``, ``paged_extend``) in
 groups of ``cfg.moe_group_size`` tokens, the decode and verify steps in
 one group of every token of the call, dead slots and padding rows
 included, so a batch's rows are no longer independent once routes drop.
-SSD and shared attention are not ported yet and raise
-``NotImplementedError``.
+SSD blocks (``BlockSpec(kind="ssd")``, ``models.ssd``: mamba2) run the
+chunked scan on the full-sequence passes and the recurrent form at
+decode, their state (three conv windows and the fp32 SSM state, an
+``SSDState`` under the cache entry's ``"ssd"``) updated in place; blocks
+marked ``shared_attn`` (zamba2) run the one ``shared_attn`` parameter
+group (attention and a gated MLP) at every site, each site with its own
+KV cache. SSD stacks serve on the dense path only (``paged_supported``),
+and their prefill takes no ``lengths``: an SSM state integrates over
+padding, so the engine admits equal-length prompts together.
 
 Training: ``forward`` and ``loss_fn`` run the full sequence with autograd;
 with ``positions=None`` attention goes through ``ops.flash_attention_train``
@@ -54,6 +61,7 @@ from repro_torch import device as device_lib
 from repro_torch.kernels import ops
 from repro_torch.models import common, layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import AttnConfig, KVCache
 from repro_torch.quant import int8 as int8_lib
 
@@ -124,13 +132,16 @@ class LMConfig:
     quant: QuantPolicy = QuantPolicy()
     moe_cfg: Optional[moe_lib.MoEConfig] = None
     moe_group_size: int = 4096
+    ssd_cfg: Optional[ssd_lib.SSDConfig] = None
 
     def __post_init__(self):
         for spec in tuple(self.pattern) + tuple(self.tail):
-            if spec.kind != "attn" or spec.shared_attn:
-                raise NotImplementedError(
-                    f"{spec}: SSD and shared-attention blocks are not "
-                    f"ported yet")
+            if spec.kind not in ("attn", "ssd"):
+                raise ValueError(f"{spec}: block kinds are attn and ssd")
+            if spec.kind == "ssd" and self.ssd_cfg is None:
+                raise ValueError(f"{spec}: an SSD block needs ssd_cfg")
+            if spec.shared_attn and spec.kind != "attn":
+                raise ValueError(f"{spec}: a shared block is attention")
             if spec.moe and self.moe_cfg is None:
                 raise ValueError(f"{spec}: an MoE block needs moe_cfg")
         if self.pos_emb not in ("rope", "mrope", "none"):
@@ -152,6 +163,13 @@ class LMConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def has_ssd(self) -> bool:
+        """An SSD block's state integrates every step of its input, padding
+        included, so its prompts are prefilled unpadded."""
+        return any(sp.kind == "ssd"
+                   for sp in tuple(self.pattern) + tuple(self.tail))
 
     @property
     def has_moe(self) -> bool:
@@ -182,6 +200,11 @@ class LMConfig:
 
 def _init_block(cfg: LMConfig, spec: BlockSpec, lead, **kw) -> dict:
     dev = kw["device"]
+    if spec.kind == "ssd":
+        # an SSD block has no FFN of its own (transformer.py:165-167)
+        return {"norm_ssd": layers.init_rmsnorm(cfg.d_model, lead,
+                                                device=dev),
+                "ssd": ssd_lib.init_ssd(cfg.ssd_cfg, lead, **kw)}
     parts = {"norm_attn": layers.init_rmsnorm(cfg.d_model, lead, device=dev),
              "attn": layers.init_attention(cfg.attn_cfg(spec.window), lead,
                                            **kw)}
@@ -195,10 +218,16 @@ def _init_block(cfg: LMConfig, spec: BlockSpec, lead, **kw) -> dict:
     return parts
 
 
+def _has_shared(cfg: LMConfig) -> bool:
+    return any(s.shared_attn for s in tuple(cfg.pattern) + tuple(cfg.tail))
+
+
 def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.bfloat16,
             device="cuda") -> Dict[str, PyTree]:
     """Random weights from ``seed`` in the JAX tree's layout (``pat{i}``
-    stacked over repeats). The draws are torch's, not ``jax.random``'s.
+    stacked over repeats; a shared site has no group of its own, and the
+    one ``shared_attn`` group of attention and a gated MLP serves them
+    all). The draws are torch's, not ``jax.random``'s.
     ``device="meta"`` builds the shapes alone (a full config's parameter
     count without its memory)."""
     meta = str(device) == "meta"
@@ -208,9 +237,19 @@ def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.bfloat16,
     params: Dict[str, PyTree] = {
         "embed": layers.init_embed(cfg.padded_vocab, cfg.d_model, **kw)}
     for i, spec in enumerate(cfg.pattern):
-        params[f"pat{i}"] = _init_block(cfg, spec, (cfg.repeats,), **kw)
+        if not spec.shared_attn:
+            params[f"pat{i}"] = _init_block(cfg, spec, (cfg.repeats,), **kw)
     for i, spec in enumerate(cfg.tail):
-        params[f"tail{i}"] = _init_block(cfg, spec, (), **kw)
+        if not spec.shared_attn:
+            params[f"tail{i}"] = _init_block(cfg, spec, (), **kw)
+    if _has_shared(cfg):
+        # the reference's shared MLP takes init_mlp's default gating
+        # (transformer.py:197-202)
+        params["shared_attn"] = {
+            "norm_attn": layers.init_rmsnorm(cfg.d_model, device=dev),
+            "attn": layers.init_attention(cfg.attn_cfg(-1), **kw),
+            "norm_ffn": layers.init_rmsnorm(cfg.d_model, device=dev),
+            "mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, gated=True, **kw)}
     params["final_norm"] = layers.init_rmsnorm(cfg.d_model, device=dev)
     if not cfg.tie_embeddings:
         params["unembed"] = layers.init_unembed(cfg.d_model,
@@ -224,10 +263,13 @@ def quantize_lm(params: PyTree) -> PyTree:
     (``SERVING_QUANT_KEYS``) become ``{"q8": int8, "s8": fp32}`` with
     per-output-channel scales; embeddings, norms and routers pass through.
     A ``pat*`` group's leading repeats dim and an ``moe`` group's leading
-    expert dim each keep their own scales. Stacked leaves are quantized
-    one layer (and one expert) at a time (the reduction never crosses
-    them, so the codes are the same), which keeps the transient fp32 copy
-    small: the stacked w_in of starcoder2-7b alone is 10.9 GB in fp32."""
+    expert dim each keep their own scales. ``ssd`` groups stay in full
+    precision, as the reference leaves them (their projections take no
+    ``wl`` seam); the ``shared_attn`` group is quantized. Stacked leaves
+    are quantized one layer (and one expert) at a time (the reduction
+    never crosses them, so the codes are the same), which keeps the
+    transient fp32 copy small: the stacked w_in of starcoder2-7b alone is
+    10.9 GB in fp32."""
 
     def leaf(v: torch.Tensor, out_dims: int, lead: int) -> dict:
         if lead == 0:
@@ -246,7 +288,7 @@ def quantize_lm(params: PyTree) -> PyTree:
         out = {}
         for k, v in p.items():
             if isinstance(v, dict):
-                out[k] = v if "q8" in v else walk(
+                out[k] = v if "q8" in v or k == "ssd" else walk(
                     v, lead + (1 if k == "moe" else 0))
             elif (k in int8_lib.SERVING_QUANT_KEYS
                   and v.dim() >= lead + 2):
@@ -268,25 +310,35 @@ def _index(tree, r: int):
         return {k: _index(v, r) for k, v in tree.items()}
     if isinstance(tree, KVCache):
         return KVCache(k=tree.k[r], v=tree.v[r])
+    if isinstance(tree, ssd_lib.SSDState):
+        return ssd_lib.SSDState(*(t[r] for t in tree.tensors()))
     return tree[r]
 
 
 def _layers(params, cfg: LMConfig, caches) -> Iterator[tuple]:
-    """(spec, layer params, layer cache) in execution order."""
+    """(spec, layer params, layer cache) in execution order; a shared site
+    gets the ``shared_attn`` group and its own cache."""
+    shared = params.get("shared_attn")
     for r in range(cfg.repeats):
         for i, spec in enumerate(cfg.pattern):
-            yield (spec, _index(params[f"pat{i}"], r),
-                   _index(caches[f"pat{i}"], r))
+            p = shared if spec.shared_attn else _index(params[f"pat{i}"], r)
+            yield spec, p, _index(caches[f"pat{i}"], r)
     for i, spec in enumerate(cfg.tail):
-        yield spec, params[f"tail{i}"], caches[f"tail{i}"]
+        p = shared if spec.shared_attn else params[f"tail{i}"]
+        yield spec, p, caches[f"tail{i}"]
 
 
 def _unstacked(params, cfg: LMConfig) -> Iterator[tuple]:
-    """(spec, layer params) in execution order. The stacked ``pat{i}``
-    leaves are unbound once, so the backward stacks each leaf's gradient in
-    one copy instead of scattering every layer's into a zero-filled stack."""
+    """(spec, layer params) in execution order, the ``shared_attn`` group
+    at shared sites. The stacked ``pat{i}`` leaves are unbound once, so the
+    backward stacks each leaf's gradient in one copy instead of scattering
+    every layer's into a zero-filled stack."""
+    shared = params.get("shared_attn")
     per_pat = {}
-    for i in range(len(cfg.pattern)):
+    for i, spec in enumerate(cfg.pattern):
+        if spec.shared_attn:
+            per_pat[i] = [shared] * cfg.repeats
+            continue
         leaves, rebuild = common.flatten(params[f"pat{i}"])
         cols = [torch.unbind(t, 0) for t in leaves]
         per_pat[i] = [rebuild([c[r] for c in cols])
@@ -295,16 +347,19 @@ def _unstacked(params, cfg: LMConfig) -> Iterator[tuple]:
         for i, spec in enumerate(cfg.pattern):
             yield spec, per_pat[i][r]
     for i, spec in enumerate(cfg.tail):
-        yield spec, params[f"tail{i}"]
+        yield spec, shared if spec.shared_attn else params[f"tail{i}"]
 
 
 def _apply_block(p, cfg: LMConfig, spec: BlockSpec, x: torch.Tensor,
                  positions: torch.Tensor, arange_pos: bool = False
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One attention block over the full sequence (transformer.py:254):
-    (x, the MoE aux loss or None). ``arange_pos``: ``positions`` is the
-    synthesized 0..S-1 arange, which makes the block's attention eligible
-    for the flash kernels."""
+    """One block over the full sequence (transformer.py:254): (x, the MoE
+    aux loss or None). ``arange_pos``: ``positions`` is the synthesized
+    0..S-1 arange, which makes the block's attention eligible for the
+    flash kernels."""
+    if spec.kind == "ssd":
+        h = layers.rms_norm(p["norm_ssd"], x)
+        return x + ssd_lib.ssd_block(p["ssd"], cfg.ssd_cfg, h), None
     acfg = cfg.attn_cfg(spec.window)
     h = layers.rms_norm(p["norm_attn"], x)
     x = x + layers.attention(p["attn"], acfg, h, positions,
@@ -407,11 +462,15 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int,
     windowed layer's window under ``ring_cache`` (position p at row
     p % clen). Under ``cfg.quant.kv_int8`` K/V are int8 codes (``dtype``
     is ignored for them) and the cache gains a ``kv_scale`` pair (B, clen,
-    Hkv) fp32."""
+    Hkv) fp32. An SSD block's entry is ``{"ssd": SSDState}``: its conv
+    windows in ``dtype``, its SSM state in fp32 (transformer.py:418)."""
     dev = device_lib.resolve(device)
     kvh, dh = cfg.n_kv_heads, cfg.resolved_head_dim
 
     def one(spec, lead):
+        if spec.kind == "ssd":
+            return {"ssd": ssd_lib.init_ssd_state(cfg.ssd_cfg, batch, dtype,
+                                                  dev, lead)}
         clen = _cache_len(cfg, spec, max_len)
         entry = _kv_entry(cfg, lead + (batch, clen, kvh), dh, dtype, dev)
         entry["pos"] = torch.full(lead + (batch, clen), -1,
@@ -525,7 +584,7 @@ def _ffn(p, cfg: LMConfig, spec: BlockSpec, x,
     and verify steps, transformer.py:540, :883). Its experts dequantize
     int8 leaves through ``layers.wl``, as the reference's do, so K4 serves
     only the dense projections."""
-    if not spec.has_ffn:
+    if not (spec.has_ffn or spec.shared_attn):
         return x, None
     h = layers.rms_norm(p["norm_ffn"], x)
     if spec.moe:
@@ -547,6 +606,11 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, pos: torch.Tensor,
     """
     x = layers.embed(params["embed"], token)
     for spec, p, cache in _layers(params, cfg, caches):
+        if spec.kind == "ssd":
+            h = layers.rms_norm(p["norm_ssd"], x)
+            x = x + ssd_lib.ssd_block_decode(p["ssd"], cfg.ssd_cfg, h,
+                                             cache["ssd"])[0]
+            continue
         h = layers.rms_norm(p["norm_attn"], x)
         x = x + _decode_attn(p, cfg, spec, h, cache, pos)
         x, _ = _ffn(p, cfg, spec, x)
@@ -847,10 +911,26 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
     A cache shorter than the prompt (a ring, or ``max_len`` < S) keeps the
     last clen positions, position p at row p % clen (the reference's ring
     branch). ``vision_embeds`` as in ``forward``.
+
+    An SSD block runs the chunked scan and stores, per row, the last
+    d_conv - 1 *pre-activation* conv inputs and the final SSM state
+    (transformer.py:1284-1305). Its state would integrate the padding, so
+    ``lengths`` raises ``NotImplementedError`` for an SSD arch, as in the
+    reference, and so does a prompt shorter than d_conv - 1 tokens, whose
+    conv windows the reference leaves short (it fails later, at the
+    engine's scatter or the next decode step).
     """
     b, s = tokens.shape
     max_len = max_len or s
     dev = tokens.device
+    if cfg.has_ssd:
+        if lengths is not None:
+            raise NotImplementedError(
+                "padded prefill is attention-only; group equal-length "
+                "prompts for SSD archs")
+        if s < cfg.ssd_cfg.d_conv - 1:
+            raise ValueError(f"a prompt of {s} tokens is shorter than the "
+                             f"SSD conv window's {cfg.ssd_cfg.d_conv - 1}")
     caches = init_caches(cfg, b, max_len, cache_dtype, device=dev)
     x = _vision_overwrite(cfg, layers.embed(params["embed"], tokens),
                           vision_embeds)
@@ -858,6 +938,9 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
     positions = layers.positions_for(cfg.pos_emb, pos1d)
     rows = torch.arange(b, device=dev)[:, None]
     for spec, p, cache in _layers(params, cfg, caches):
+        if spec.kind == "ssd":
+            x = x + _fill_ssd(p, cfg.ssd_cfg, x, cache["ssd"])
+            continue
         acfg = cfg.attn_cfg(spec.window)
         h = layers.rms_norm(p["norm_attn"], x)
         q, k, v = layers._project_qkv(p["attn"], acfg, h, positions)
@@ -888,3 +971,19 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor,
     else:
         x_last = x[:, -1:]
     return _lm_head(params, cfg, x_last), caches
+
+
+def _fill_ssd(p, scfg: ssd_lib.SSDConfig, x: torch.Tensor,
+              state: ssd_lib.SSDState) -> torch.Tensor:
+    """An SSD block's prefill: its output, with ``state`` written in place
+    (the conv windows from the last d_conv - 1 pre-activation inputs, cast
+    to the cache dtype, and the final SSM state)."""
+    h = layers.rms_norm(p["norm_ssd"], x)
+    z, xin, b_raw, c_raw, dt_raw = ssd_lib._projections(p["ssd"], scfg, h)
+    w = scfg.d_conv - 1
+    state.conv_x.copy_(xin[:, -w:])
+    state.conv_b.copy_(b_raw[:, -w:])
+    state.conv_c.copy_(c_raw[:, -w:])
+    y, final = ssd_lib.ssd_scan(p["ssd"], scfg, z, xin, b_raw, c_raw, dt_raw)
+    state.ssm.copy_(final)
+    return y

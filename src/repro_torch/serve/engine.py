@@ -92,6 +92,7 @@ from repro_torch.checkpoint.manager import CheckpointConfig, CheckpointManager
 from repro_torch.core import accounting, energy
 from repro_torch.models import costing
 from repro_torch.models import layers
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.serve import spec as spec_lib
 from repro_torch.serve.faults import (FaultInjector, FaultPlan,
@@ -295,7 +296,10 @@ class DeviceState:
 
 def cache_tensors(entry) -> List[torch.Tensor]:
     """A dense cache entry's per-slot tensors in a fixed order: K, V,
-    their int8 scales when present, the position tags."""
+    their int8 scales when present, the position tags; an SSD entry's
+    three conv windows and its SSM state."""
+    if "ssd" in entry:
+        return entry["ssd"].tensors()
     out = [entry["kv"].k, entry["kv"].v]
     if "kv_scale" in entry:
         out += [entry["kv_scale"].k, entry["kv_scale"].v]
@@ -452,8 +456,8 @@ class ServeEngine:
             # registry
             if not tf_lib.paged_supported(cfg):
                 raise NotImplementedError(
-                    "paged serving is attention-only and incompatible with "
-                    "ring caches")
+                    "paged serving is attention-only (no SSD/hybrid) and "
+                    "incompatible with ring caches")
             ps = scfg.page_size
             self._blocks_per_slot = -(-cap // ps)
             n_pages = scfg.num_pages
@@ -491,6 +495,10 @@ class ServeEngine:
         # admission feeds the rows the JAX engine feeds: max_slots rows
         # (padding rows hold token 0, length 0) at the power-of-two width
         self._pad_rows = cfg.has_moe
+        # padded prefill needs causal masking to keep each row to itself;
+        # an SSM state integrates the padding, so SSD archs admit groups of
+        # equal-length prompts, unpadded (engine.py:543-547)
+        self._pad_ok = not cfg.has_ssd
         # paged mirrors: pages owned per slot (released at finish) and
         # in-flight chunked prefills {slot: {"req", "plen", "next", ...}}
         self._slot_pages: List[List[int]] = [[] for _ in range(b)]
@@ -545,6 +553,11 @@ class ServeEngine:
         if prompt.size >= self.scfg.max_len:
             raise ValueError(f"prompt length {prompt.size} >= max_len "
                              f"{self.scfg.max_len}")
+        if self.cfg.has_ssd and prompt.size < self.cfg.ssd_cfg.d_conv - 1:
+            # the prefill's conv windows need d_conv - 1 inputs; the
+            # reference admits such a prompt and fails in its scatter
+            raise ValueError(f"prompt length {prompt.size} < the SSD conv "
+                             f"window's {self.cfg.ssd_cfg.d_conv - 1}")
         if deadline_ticks is not None and deadline_ticks <= 0:
             raise ValueError(f"deadline_ticks must be > 0, got "
                              f"{deadline_ticks}")
@@ -721,7 +734,8 @@ class ServeEngine:
         n = slots.shape[0]
         logits1, row_caches = tf_lib.prefill(
             self.params, self.cfg, toks, max_len=max_len,
-            cache_dtype=scfg.cache_dtype, lengths=lens)
+            cache_dtype=scfg.cache_dtype,
+            lengths=lens if self._pad_ok else None)
         lens = lens[:n]
         tok0 = _sample(logits1[:n, 0], scfg.seed, uids,
                        torch.zeros_like(uids), temps, sampled=sampled)
@@ -753,8 +767,16 @@ class ServeEngine:
         if not reqs:
             return _AdmitInfo()
         t0 = time.monotonic()
-        lmax = _bucket_len(max(len(r.prompt) for r in reqs),
-                           cap=self.scfg.max_len)
+        if not self._pad_ok:
+            # SSD/hybrid archs: only prompts of the first one's length share
+            # a prefill, stacked at exactly that length; the rest go back
+            n0 = len(reqs[0].prompt)
+            self.scheduler.requeue_front([r for r in reqs
+                                          if len(r.prompt) != n0])
+            reqs = [r for r in reqs if len(r.prompt) == n0]
+        lmax = (_bucket_len(max(len(r.prompt) for r in reqs),
+                            cap=self.scfg.max_len)
+                if self._pad_ok else len(reqs[0].prompt))
         n = len(reqs)
         rows = self.scfg.max_slots if self._pad_rows else n
         toks = np.zeros((rows, lmax), np.int64)
@@ -1195,7 +1217,9 @@ class ServeEngine:
     def _scrub_sel(self, sel: List[int]) -> None:
         """Zero K/V (and the int8 scales) at ``sel``: pool pages on the
         paged path, the slots' whole cache rows on the dense one (the dense
-        layout has B where the pool has pages)."""
+        layout has B where the pool has pages). SSD state is left as it
+        is, as in the reference: the slot's next admission overwrites all
+        of it."""
         idx = torch.tensor(sel, dtype=torch.long, device=self.device)
         for key, entry in self.state.caches.items():
             ax = 1 if key.startswith("pat") else 0  # stacked layers lead
@@ -2148,11 +2172,16 @@ class ServeEngine:
     def _device_tree(self) -> Dict[str, Any]:
         """The device state as a dict of the live tensors under stable
         names (``caches/<block>/k``, ``.../v``, ``.../k_scale``,
-        ``.../v_scale``, ``.../pos``, ``tok``, ``page_table``, ``hist``,
-        ...): the checkpoint manager's tree."""
+        ``.../v_scale``, ``.../pos``; an SSD block's ``.../conv_x``,
+        ``.../conv_b``, ``.../conv_c``, ``.../ssm``; ``tok``,
+        ``page_table``, ``hist``, ...): the checkpoint manager's tree."""
         st = self.state
         caches = {}
         for block, entry in st.caches.items():
+            if "ssd" in entry:
+                caches[block] = dict(zip(ssd_lib.SSD_LEAVES,
+                                         entry["ssd"].tensors()))
+                continue
             leaves = {"k": entry["kv"].k, "v": entry["kv"].v}
             if "kv_scale" in entry:
                 leaves["k_scale"] = entry["kv_scale"].k

@@ -7,7 +7,9 @@ the K1 kernel), and host-side sampling with one ``int(tok)`` device sync
 per slot per tick. Under greedy decoding the fused engine must be
 token-identical to this. Given an int8 engine's ``params`` and ``cfg``
 (``INT8_QUANT``) it runs the int8 mode too: projections through
-``ops.int8_matmul``, an int8 cache dequantized at use.
+``ops.int8_matmul``, an int8 cache dequantized at use. SSD and hybrid
+archs run here too: each prompt is prefilled alone, so there is no
+padding for an SSM state to integrate.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from repro_torch import device as device_lib
 from repro_torch.core import accounting
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.layers import KVCache
+from repro_torch.models.ssd import SSDState
 from repro_torch.serve.engine import (PyTree, Request, ServeConfig,
                                       StepMetrics, cache_tensors)
 from repro_torch.serve.sampling import _sample
@@ -31,10 +34,15 @@ from repro_torch.serve.sampling import _sample
 def _row(caches: PyTree, slot: int) -> PyTree:
     """Slot ``slot`` of the batched cache as a batch-1 view (pattern caches
     carry batch at axis 1, behind the stacked layers; tail caches at 0),
-    int8 scales included; writes through it land in the batched cache."""
+    int8 scales and SSD states included; writes through it land in the
+    batched cache."""
     out = {}
     for key, entry in caches.items():
         ax = 1 if key.startswith("pat") else 0
+        if "ssd" in entry:
+            out[key] = {"ssd": SSDState(*(t.narrow(ax, slot, 1)
+                                          for t in entry["ssd"].tensors()))}
+            continue
         out[key] = {"kv": KVCache(k=entry["kv"].k.narrow(ax, slot, 1),
                                   v=entry["kv"].v.narrow(ax, slot, 1)),
                     "pos": entry["pos"].narrow(ax, slot, 1)}

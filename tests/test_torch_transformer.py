@@ -151,8 +151,20 @@ def test_config_bridge_matches_port_config():
 
 def test_unported_features_raise():
     from repro.configs import mamba2_1_3b
-    with pytest.raises(NotImplementedError):
-        bridge.config_from_dict(dataclasses.asdict(mamba2_1_3b.make_smoke()))
+    from repro_torch.configs import mamba2_1_3b as t_mamba2
+    # SSD configs are ported (the model, engine and refusal mirrors:
+    # tests/test_torch_ssd.py, tests/test_torch_ssm_family.py); what the
+    # reference refuses them, the port refuses too: the paged path and
+    # padded prefill (tests/test_serve_paged.py:283,
+    # tests/test_serve_core.py:334)
+    ssd = bridge.config_from_dict(dataclasses.asdict(mamba2_1_3b.make_smoke()))
+    assert ssd == t_mamba2.make_smoke()
+    assert not ttf.paged_supported(ssd)
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        ttf.init_paged_caches(ssd, 4, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="equal-length"):
+        ttf.prefill({}, ssd, torch.zeros((2, 8), dtype=torch.long),
+                    max_len=16, lengths=torch.tensor([4, 8]))
     # ring caches are ported on the dense path (their streams against the
     # JAX engine's: tests/test_torch_dense_family.py); the paged path still
     # refuses them, as the reference's does
