@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the main path's shapes, then drives the
 dense, the paged and the speculative serve paths of starcoder2-7b at full
-width and full depth with random weights from a seed, unquantized and in
+width and 16 of its 32 layers with random weights from a seed, unquantized and in
 the int8 mode (with tree speculation, n-best forks, a quarantined slot,
 the chaos tier's seeded faults and degradation ladder, and the
 durability tier's kill, snapshot restore and journal replay), gemma3-27b
@@ -16,10 +16,13 @@ qwen2-vl-72b at full width and 2 layers on the paged path, the MoE family
 (one layer of moonshot-v1-16b-a3b and of kimi-k2-1t-a32b at full width,
 moonshot at full width through every serve path and kimi-k2 at one
 layer), the SSD/hybrid family (mamba2-1.3b and zamba2-7b at full width
-and full depth on the dense serve path), the fused
-training tick at full width and 8 layers, the checkpointing Trainer on
-the ~100M e2e model at full size, the port's train and kernel benches,
-and the paper's ternary AlexNet and VGG-16 at full size.
+and full depth on the dense serve path), the encoder-decoder family
+(whisper-large-v3 at full width and full depth: encode, greedy decode,
+the teacher-forced decoder through K6, and its Trainer), the training
+launcher's smoke run on the card for every LM and encoder-decoder arch,
+the fused training tick at full width and 8 layers, the checkpointing
+Trainer on the ~100M e2e model at full size, the port's train and kernel
+benches, and the paper's ternary AlexNet and VGG-16 at full size.
 Phases, each printing JSON lines; any failure raises, so the script exits
 non-zero and prints no result:
 
@@ -166,27 +169,28 @@ non-zero and prints no result:
    the restore seconds split into loading and replay are reported;
 6. serve: bf16 weights, fp32 cache, 8 slots, max_len 2048, 16 requests of
    32-1024 prompt tokens and 64 new tokens each; K1 launches must be
-   decode ticks x 32 layers;
+   decode ticks x the layers (phases 5-9 run 16 of starcoder2-7b's 32
+   layers: their ticks are host-bound, and the cut halves their time);
 7. paged serve: the same weights, page_size 16, prefill_chunk 256, prefix
    cache on, 16 requests of a shared 512-token prompt plus a 32-512-token
-   tail; K2 launches must be decode ticks x 32, K3 launches extend calls x
-   32, and the prefix cache must hit;
+   tail; K2 launches must be decode ticks x 16, K3 launches extend calls x
+   16, and the prefix cache must hit;
 8. phases 6 and 7 again with ``quant="int8"`` (the same weights quantized
    once): K4 launches must be (decode ticks + admission or extend calls) x
-   32 x 6, K1, K2 and K3 as in phases 6 and 7; each serve run also reads
+   16 x 6, K1, K2 and K3 as in phases 6 and 7; each serve run also reads
    the per-kernel counters of K1, K2, K3, K4 and K5: K1, K2, K3 and K5
    must run on their tensor cores in the int8 runs and on their SIMT
    kernels in the others, and K4 in the
    int8 runs on its wgmma kernel and (outside the spec runs) its decode
    kernel, never its SIMT kernel;
 8b. phase 7's traffic with speculative decode (``spec_k=4``, ``ngram``),
-   unquantized and int8: K5 launches must be spec ticks x 32, K2 none, K3
-   extend calls x 32, K4 (spec ticks + extend calls) x 192; reports the
+   unquantized and int8: K5 launches must be spec ticks x 16, K2 none, K3
+   extend calls x 16, K4 (spec ticks + extend calls) x 96; reports the
    accept rate, accepted tokens per tick and the draft/verify energy;
    every paged run must drain its pool clean (no live page, a clean
    audit);
 8d. phase 8b's traffic with tree speculation (``spec_tree_m=3``), per
-   mode after 8b: K5 launches tree ticks x 32 on 8b's route; reports the
+   mode after 8b: K5 launches tree ticks x 16 on 8b's route; reports the
    streams' agreement with 8b's and phase 7's (bf16 GEMMs of 120, 40 and
    8 rows round differently, so a near tie may flip a greedy token: the
    identity is phase 5's, in fp32), the accepted tokens per tick beside
@@ -205,13 +209,13 @@ non-zero and prints no result:
    stall of magnitude 10 at tick 50 and a spike of half the pool for 4
    ticks at tick 64, with the auditor every tick, admission retries capped
    at 8 with backoff 1 and the compaction pause at 2x the tick EWMA: every
-   request finished or shed, K2 = decode ticks x 32, K3 = extend calls x
-   32 (K4 as in phase 8), a clean pool, no audit failure, a compaction
+   request finished or shed, K2 = decode ticks x 16, K3 = extend calls x
+   16 (K4 as in phase 8), a clean pool, no audit failure, a compaction
    pause, two readback retries; reports the agreement with phase 7's
    streams, host ms a tick beside phase 7's, recovery J/token and the
    auditor's host ms a tick; then 8b's traffic (unquantized) with the
    spec-k backoff armed (threshold 0.9, window 2): a backoff, K5 = spec
-   ticks x 32; then an int8 engine built from the bf16 params on 8 of the
+   ticks x 16; then an int8 engine built from the bf16 params on 8 of the
    requests with ``_fallback_to_fp()`` forced before tick 3: every
    request its 32 tokens, a clean pool, K2 and K3 on their tensor cores
    before and on SIMT after, no K4 after; the fallback's host seconds;
@@ -223,7 +227,7 @@ non-zero and prints no result:
    engine that restores and serves on (the last journaling only): phase 7's streams (phase 8's int8
    paged streams), each restore's replayed ticks its kill tick minus its
    snapshot's, restore_j > 0, a clean pool and audit, K2 = decode ticks x
-   32 and K3 = extend calls x 32 (K4 as in phase 8) over every tick the
+   16 and K3 = extend calls x 16 (K4 as in phase 8) over every tick the
    three engines ran; reports each snapshot's host seconds and GB, each
    restore's seconds split into loading and replay, the journal bytes,
    the write joules, restore J/token and the durability bytes a tick;
@@ -246,6 +250,15 @@ non-zero and prints no result:
    or int8 with (B, S, Hkv) scales, windows -1 and 256, two calls equal
    bit for bit, its library call causal SDPA with K/V dequantized and
    repeated inside the call;
+4d. flash kernels at the smoke configs' head dims (``flash_small_dims``):
+   K6 (out, lse), K7, K8 and K10 (K/V in q's dtype and int8) at D 8, 16
+   and 24, which run the D = 64 kernels on tiles zero past D, checked as
+   in 4b's ragged cases (fp32 and bf16, windows -1 and 8, two calls equal
+   bit for bit) at the training launcher's batch (B 8, S 64) with the
+   heads of every smoke config whose training attention takes the flash
+   route, and at S 67; timed at B 8, S 64 with kimi-k2's (D 8),
+   starcoder2's (D 16) and gemma3's (D 24) smoke heads, fp32 and bf16, by
+   device time, beside the plain versions, causal SDPA and the bounds;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
    asserted); then the serve params are freed;
@@ -298,6 +311,27 @@ non-zero and prints no result:
    memory), the int8-vs-bf16 and bf16-vs-fp32 agreement reported; K1
    launches = decode ticks x 13 at zamba2 (SIMT at D 112), none at
    mamba2;
+9f. the encoder-decoder family (``encdec``): whisper-large-v3 at full
+   width and full depth (32 + 32 layers, d_model 1280, 20 heads of 64,
+   vocab 51866), fp32 weights from SEED, B 2, 1500 frames N(0, 1) from
+   SEED: ``encode``, ``build_cross_cache``, a 4-token prompt and 32 greedy
+   tokens through ``decode_step`` (a self cache of 448 rows); then
+   ``decode_train`` on the fed stream through K6 (counted: 32 launches,
+   no other kernel): every step's logits within 1e-4 x max(1, max
+   |logit|) of the teacher-forced ones and the greedy tokens their
+   argmax; then in bf16 (reported): host and device ms and launches of
+   ``encode``, ``build_cross_cache`` and a decode step, peak memory;
+9g. encoder-decoder training (``encdec_train_parity``, ``encdec_train``,
+   ``launch_train_smoke``): whisper-large-v3 at full width and depth,
+   fp32, B 2 x 64 decoder tokens, N(0, 1) frames: the first batch's loss
+   and gradients through K6-K8 against the masked ``sdpa`` route (10's
+   bounds; the key biases' gradients, zero in exact arithmetic, below
+   1e-5 of the largest), then the Trainer 2 steps (K6 = K7 = K8 = 64 on
+   the tensor cores; s/step, peak memory); then ``launch.train.main
+   ["--arch", a, "--smoke", "--steps", "2"]`` on the card for every LM
+   and encoder-decoder arch of the registry: a finite loss, K6 = K7 = K8
+   for every arch whose training attention takes the flash route (qwen2-vl's
+   M-RoPE and mamba2 launch none), no other kernel;
 10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
    of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
    ``sdpa`` route (explicit positions), the loss within 1e-5 and each
@@ -340,8 +374,10 @@ non-zero and prints no result:
    of their kernels in the main-path runs; K1's, K2's, K3's and K5's with
    the head dims of the serve runs that launched them and their
    ``kernels_d168`` and ``kernels_d112`` rows at the int8 mode; K1's also
-   with its ``kernels_zamba2`` row as ``d112_zamba2``), then the
-   result line
+   with its ``kernels_zamba2`` row as ``d112_zamba2``; K6's, K7's, K8's
+   and K10's with the head dims of the counted runs that launched them
+   and their fp32 ``flash_small_dims`` rows as ``d8``, ``d16``,
+   ``d24``), then the result line
    ``{"ok": true, "device": ...}``.
 
 Every counter is set to 0 just before each serve, train, trainer, bench
@@ -357,6 +393,7 @@ import dataclasses
 import gc
 import json
 import math
+import signal
 import subprocess
 import sys
 import time
@@ -372,7 +409,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 494.7e12
 PEAK_BF16 = 989e12
-N_LAYERS = 32
+# starcoder2-7b's serve phases (5-9) at full width, cut to 16 of its 32
+# layers: their ticks are host-bound, so their time halves with the depth
+SERVE_LAYERS = 16
 
 
 def emit(obj) -> None:
@@ -2384,75 +2423,230 @@ def _lse_err(got, want):
     return _rel_err(got[live], want[live])
 
 
-def phase_flash_ragged():
-    """K6, K7, K8 and K10 (checked, not timed) against their plain
-    versions at the FLASH_RAGGED shapes, B = 2, fp32 and bf16: K6's out
-    and lse, K7 and K8 on K6's out and lse, K10 with K/V in q's dtype and
-    as int8 codes with (B, Sk, Hkv) scales. Each output within FLASH_TOL
-    of its plain version's max plus FLASH_ATOL; a second call of each
-    kernel must give the same bits."""
+def _check_flash_case(gen, b, sq, sk, h, hkv, d, causal, window, q_name):
+    """K6 (out, lse), K7 and K8 on K6's out and lse, and K10 with K/V in
+    q's dtype and as int8 codes with (B, Sk, Hkv) scales, against their
+    plain versions on N(0, 1) inputs: each output within FLASH_TOL of its
+    plain version's max plus FLASH_ATOL; a second call of each kernel must
+    give the same bits. Returns the case's row; raises on a failure."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    tol = FLASH_TOL[q_name]
+    dt = getattr(torch, q_name)
+    q = _randn(gen, (b, sq, h, d), dt)
+    k = _randn(gen, (b, sk, hkv, d), dt)
+    v = _randn(gen, (b, sk, hkv, d), dt)
+    dout = _randn(gen, (b, sq, h, d), dt)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    label = (f"B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, causal "
+             f"{causal}, window {window}, {q_name}")
+    _same_bits(label, (out, lse, dq, dk, dv),
+               fa.flash_attention_fwd(q, k, v, **kw)
+               + (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw),)
+               + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw))
+    w_out, w_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+    wants = dict(zip(("out", "dq", "dk", "dv"), (w_out,) + want))
+    for kv_name in ("int8", q_name):
+        kv_dt = getattr(torch, kv_name)
+        kk = k if kv_dt == dt else _randn(gen, k.shape, kv_dt)
+        vv = v if kv_dt == dt else _randn(gen, v.shape, kv_dt)
+        kvs = dict(zip(("k_scale", "v_scale"), _scales(gen, kk, kv_dt)))
+        name = f"k10 kv {kv_name}"
+        got[name] = fa.flash_attention(q, kk, vv, **kw, **kvs)
+        _same_bits(f"K10, kv {kv_name}, {label}", (got[name],),
+                   (fa.flash_attention(q, kk, vv, **kw, **kvs),))
+        wants[name] = ref.flash_attention_ref(q, kk, vv, **kw, **kvs)
+    errs = {n: _rel_err(got[n], wants[n]) for n in got}
+    errs["lse"] = _lse_err(lse, w_lse)
+    finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+    w_max = {n: float(w.float().abs().max()) for n, w in wants.items()}
+    w_max["lse"] = float(w_lse[w_lse > -1e29].abs().max()) \
+        if bool((w_lse > -1e29).any()) else 0.0
+    ok = all(err <= tol * w_max[n] + FLASH_ATOL[q_name]
+             for n, (err, _) in errs.items())
+    if not (finite and ok):
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions: {label}: (abs, rel) {errs} "
+                             f"(tolerance {tol} of the max + "
+                             f"{FLASH_ATOL[q_name]}), finite {finite}")
+    return {"case": label, "max_abs_err": {n: e[0] for n, e in errs.items()},
+            "rel_err": {n: e[1] for n, e in errs.items()},
+            "kernel": {"forward": fa.route(dt, d, forward=True),
+                       "backward": fa.route(dt, d)}}
+
+
+def phase_flash_ragged():
+    """K6, K7, K8 and K10 (checked, not timed) against their plain
+    versions at the FLASH_RAGGED shapes, B = 2, fp32 and bf16
+    (``_check_flash_case``)."""
+    import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    rows = []
-    for sq, sk, h, hkv, d, causal, window in FLASH_RAGGED:
-        for q_name, tol in FLASH_TOL.items():
-            dt = getattr(torch, q_name)
-            q = _randn(gen, (2, sq, h, d), dt)
-            k = _randn(gen, (2, sk, hkv, d), dt)
-            v = _randn(gen, (2, sk, hkv, d), dt)
-            dout = _randn(gen, (2, sq, h, d), dt)
-            kw = dict(scale=d ** -0.5, causal=causal, window=window)
-            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-            delta = (dout.float() * out.float()).sum(-1).transpose(
-                1, 2).contiguous()
-            dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
-            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                                **kw)
-            label = (f"Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, causal "
-                     f"{causal}, window {window}, {q_name}")
-            _same_bits(label, (out, lse, dq, dk, dv),
-                       fa.flash_attention_fwd(q, k, v, **kw)
-                       + (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
-                                                    **kw),)
-                       + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                                    **kw))
-            w_out, w_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
-            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-            got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
-            wants = dict(zip(("out", "dq", "dk", "dv"), (w_out,) + want))
-            for kv_name in ("int8", q_name):
-                kv_dt = getattr(torch, kv_name)
-                kk = k if kv_dt == dt else _randn(gen, k.shape, kv_dt)
-                vv = v if kv_dt == dt else _randn(gen, v.shape, kv_dt)
-                kvs = dict(zip(("k_scale", "v_scale"),
-                               _scales(gen, kk, kv_dt)))
-                name = f"k10 kv {kv_name}"
-                got[name] = fa.flash_attention(q, kk, vv, **kw, **kvs)
-                _same_bits(f"K10, kv {kv_name}, {label}", (got[name],),
-                           (fa.flash_attention(q, kk, vv, **kw, **kvs),))
-                wants[name] = ref.flash_attention_ref(q, kk, vv, **kw, **kvs)
-            errs = {n: _rel_err(got[n], wants[n]) for n in got}
-            errs["lse"] = _lse_err(lse, w_lse)
-            finite = all(bool(torch.isfinite(t).all()) for t in got.values())
-            w_max = {n: float(w.float().abs().max()) for n, w in wants.items()}
-            w_max["lse"] = float(w_lse[w_lse > -1e29].abs().max()) \
-                if bool((w_lse > -1e29).any()) else 0.0
-            ok = all(err <= tol * w_max[n] + FLASH_ATOL[q_name]
-                     for n, (err, _) in errs.items())
-            rows.append({"case": label, "max_abs_err": {
-                n: e[0] for n, e in errs.items()}, "rel_err": {
-                n: e[1] for n, e in errs.items()}, "kernel": {
-                "forward": fa.route(dt, d, forward=True),
-                "backward": fa.route(dt, d)}})
-            if not (finite and ok):
-                raise AssertionError(f"flash kernels disagree with their "
-                                     f"plain versions: {label}: (abs, rel) "
-                                     f"{errs} (tolerance {tol} of the max "
-                                     f"+ {FLASH_ATOL[q_name]}), finite "
-                                     f"{finite}")
+    rows = [_check_flash_case(gen, 2, sq, sk, h, hkv, d, causal, window,
+                              q_name)
+            for sq, sk, h, hkv, d, causal, window in FLASH_RAGGED
+            for q_name in FLASH_TOL]
     emit({"phase": "flash_ragged", "cases": rows})
+
+
+# The smoke configs' head dims (8, 16, 24: the D = 64 kernels on tiles
+# zero past D), checked at the training launcher's batch (B 8, S 64) with
+# each smoke config's heads and at an odd length, windows -1 and 8; timed
+# at the launcher's batch with the heads of SMALL_TIMED's config for each
+# dim, the kernels line's d8 / d16 / d24 entries in fp32 (its mode)
+SMALL_B, SMALL_S, SMALL_ODD = 8, 64, 67
+SMALL_WINDOWS = (-1, 8)
+SMALL_TIMED = {8: "kimi-k2-1t-a32b", 16: "starcoder2-7b", 24: "gemma3-27b"}
+
+
+def _flash_heads(cfg):
+    """(H, Hkv, D) of a smoke config whose attention takes the flash route
+    in training (causal self-attention over arange positions), else None:
+    an SSD-only config has no attention, and M-RoPE takes the masked
+    ``sdpa``, as in the reference."""
+    from repro_torch.models.encdec import EncDecConfig
+    if isinstance(cfg, EncDecConfig):
+        return cfg.n_heads, cfg.n_heads, cfg.head_dim
+    specs = tuple(cfg.pattern) + tuple(cfg.tail)
+    if cfg.pos_emb == "mrope" or all(sp.kind == "ssd" for sp in specs):
+        return None
+    return cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+
+def _smoke_flash_heads():
+    """{(H, Hkv, D): [arch]} over the registry's LM and encoder-decoder
+    smoke configs whose training attention takes the flash route."""
+    from repro_torch.configs import base as cfgbase
+    heads = {}
+    for arch in cfgbase.arch_ids():
+        spec = cfgbase.get(arch)
+        if spec.kind in ("lm", "encdec"):
+            hd = _flash_heads(spec.make_smoke())
+            if hd is not None:
+                heads.setdefault(hd, []).append(arch)
+    return heads
+
+
+def _time_flash(b, s, h, hkv, d, q_name):
+    """K6, K7, K8 and K10 (K/V in q's dtype) at (B, S, H, Hkv, D), causal,
+    no window, N(0, 1) inputs: device ms (torch.profiler), the plain
+    versions' ms (CUDA events), the library calls' device ms (causal SDPA
+    with K/V repeated to H heads; its autograd backward for K7 and K8),
+    the bounds and the max abs errors. Returns the rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    dt = getattr(torch, q_name)
+    q = _randn(gen, (b, s, h, d), dt)
+    k = _randn(gen, (b, s, hkv, d), dt)
+    v = _randn(gen, (b, s, hkv, d), dt)
+    dout = _randn(gen, (b, s, h, d), dt)
+    kw = dict(scale=d ** -0.5, causal=True, window=-1)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    o10 = fa.flash_attention(q, k, v, **kw)
+    w_out, _ = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    w_dq, w_dk, w_dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                   **kw)
+    rep = h // hkv
+
+    def library(qq, kk, vv):
+        return F.scaled_dot_product_attention(
+            qq.transpose(1, 2),
+            kk.repeat_interleave(rep, dim=2).transpose(1, 2),
+            vv.repeat_interleave(rep, dim=2).transpose(1, 2),
+            is_causal=True, scale=kw["scale"])
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = library(*leaves)
+    lib_dout = dout.transpose(1, 2)
+    lib_fwd = device_ms(lambda i: library(q, k, v), 10)
+    lib_bwd = device_ms(lambda i: torch.autograd.grad(
+        lib_out, leaves, lib_dout, retain_graph=True), 10)
+    plain_fwd = cuda_ms(lambda i: ref.flash_attention_fwd_ref(q, k, v, **kw),
+                        3)
+    plain_bwd = cuda_ms(lambda i: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, dout, **kw), 3)
+    bounds = _flash_bounds(q, k, -1)
+    pairs = b * h * _flash_pairs(s, -1)
+    bounds["flash_attention"] = _bound(
+        2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size(),
+        4.0 * d * pairs / _peak(q))
+    calls = {
+        "flash_attention_fwd": (lambda i: fa.flash_attention_fwd(q, k, v,
+                                                                 **kw),
+                                _rel_err(out, w_out)[0], plain_fwd,
+                                lib_fwd),
+        "flash_attention_bwd_dq": (lambda i: fa.flash_attention_bwd_dq(
+            q, k, v, dout, lse, delta, **kw), _rel_err(dq, w_dq)[0],
+            plain_bwd, lib_bwd),
+        "flash_attention_bwd_dkv": (lambda i: fa.flash_attention_bwd_dkv(
+            q, k, v, dout, lse, delta, **kw),
+            max(_rel_err(dk, w_dk)[0], _rel_err(dv, w_dv)[0]), plain_bwd,
+            lib_bwd),
+        "flash_attention": (lambda i: fa.flash_attention(q, k, v, **kw),
+                            _rel_err(o10, w_out)[0], plain_fwd, lib_fwd)}
+    rows = {}
+    for name, (fn, err, plain_ms, library_ms) in calls.items():
+        rows[name] = {"phase": "flash_small_dims", "kernel": name,
+                      "q": q_name, "B": b, "S": s, "H": h, "Hkv": hkv,
+                      "D": d, "kernel_dim": fa.kernel_dim(d),
+                      "ms": device_ms(fn, 10), "max_abs_err": err,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bounds[name][0],
+                      "bound_by": bounds[name][1],
+                      "route": fa.route(dt, d, forward=name in (
+                          "flash_attention_fwd", "flash_attention")),
+                      "timing": "device"}
+        emit(rows[name])
+    return rows
+
+
+def phase_flash_small_dims():
+    """K6, K7, K8 and K10 at head dims 8, 16 and 24, which run the D = 64
+    kernels on tiles zero past D: checked (``_check_flash_case``, fp32 and
+    bf16, windows -1 and 8) at the training launcher's batch (B 8, S 64)
+    with the heads of every smoke config whose training attention takes
+    the flash route, and at an odd length (S 67) with the first such
+    config's heads of each dim; then timed at the launcher's batch
+    (``_time_flash``, SMALL_TIMED's heads, fp32 and bf16). Returns the
+    fp32 rows by dim and kernel."""
+    import torch
+    heads = _smoke_flash_heads()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    first = {}
+    for hd in heads:
+        first.setdefault(hd[2], hd)
+    cases = [(SMALL_S, hd) for hd in heads] + \
+        [(SMALL_ODD, first[d]) for d in sorted(SMALL_TIMED)]
+    rows = [_check_flash_case(gen, SMALL_B, s, s, h, hkv, d, True, window,
+                              q_name)
+            for s, (h, hkv, d) in cases for q_name in FLASH_TOL
+            for window in SMALL_WINDOWS]
+    emit({"phase": "flash_small_dims", "cases": rows,
+          "heads": {f"{h}/{hkv}/{d}": archs
+                    for (h, hkv, d), archs in heads.items()}})
+    timed = {}
+    for d, arch in SMALL_TIMED.items():
+        h, hkv = next(hd[:2] for hd, archs in heads.items()
+                      if arch in archs)
+        for q_name in FLASH_TOL:
+            r = _time_flash(SMALL_B, SMALL_S, h, hkv, d, q_name)
+            if q_name == "float32":
+                timed[d] = r
+        torch.cuda.empty_cache()
+    return timed
 
 
 # K10 at K6's shapes: (q dtype, K/V storage) with windows -1 and 256; the
@@ -2577,7 +2771,7 @@ def _flash_on_tensor_cores(phase):
     return by_kernel
 
 
-def _train_cfg(layers):
+def _starcoder2(layers):
     """starcoder2-7b at full width, cut to ``layers`` layers."""
     from repro_torch.configs import starcoder2_7b
     return dataclasses.replace(starcoder2_7b.make_config(), repeats=layers)
@@ -2596,7 +2790,7 @@ def phase_train_parity():
     import torch
     from repro_torch.models import transformer as tf_lib
     from repro_torch.models.common import flatten
-    cfg = _train_cfg(2)
+    cfg = _starcoder2(2)
     params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
                             device="cuda")
     leaves, _ = flatten(params)
@@ -2639,6 +2833,7 @@ def phase_train_parity():
     if launches != want or any(sdpa_launches.values()):
         raise AssertionError(f"train parity launches: flash {launches} != "
                              f"{want}, sdpa {sdpa_launches}")
+    _add_flash_dims(launches, cfg.resolved_head_dim)
     return launches
 
 
@@ -2688,7 +2883,7 @@ def phase_train():
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.schedules import warmup_cosine
     from repro_torch.train import TrainEngine, TrainEngineConfig
-    cfg = _train_cfg(TRAIN_LAYERS)
+    cfg = _starcoder2(TRAIN_LAYERS)
     steps, k = 4, 2
     params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
                             device="cuda")
@@ -2750,6 +2945,7 @@ def phase_train():
                              f"for {row['ticks']} ticks")
     if launches != want:
         raise AssertionError(f"train: launches {launches} != {want}")
+    _add_flash_dims(launches, cfg.resolved_head_dim)
     return launches
 
 
@@ -2938,6 +3134,7 @@ def phase_trainer():
             raise AssertionError(f"trainer: losses {losses}")
         if launches != want:
             raise AssertionError(f"trainer: launches {launches} != {want}")
+        _add_flash_dims(launches, cfg.resolved_head_dim)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2975,6 +3172,7 @@ def phase_train_bench():
     if launches["int8_matmul_dx"] != 1 or launches["int8_matmul"] != 1 \
             or not all(launches[n] for n in TRAIN_FLASH):
         raise AssertionError(f"train bench launches: {launches}")
+    _add_flash_dims(launches, train_bench.HEAD_DIM)
     return launches
 
 
@@ -3005,6 +3203,8 @@ def phase_kernel_bench():
             or sum(launches.values()) != sum(launches[n] for n in bench):
         raise AssertionError(f"kernel bench: max errs {f_err}, {t_err}, "
                              f"launches {launches}")
+    # the bench's flash attention runs at head dim 64 (kernel_bench.run)
+    _add_flash_dims(launches, 64)
     return launches
 
 
@@ -3225,12 +3425,11 @@ def phase_streams():
     vs the dense engine, token for token; then a prefix-cache run."""
     import numpy as np
     import torch
-    from repro_torch.configs import starcoder2_7b
     from repro_torch.models import costing
     from repro_torch.models import transformer as tf_lib
     from repro_torch.serve import (ReferenceEngine, ServeConfig, ServeEngine,
                                    generation_agreement, run_workload)
-    cfg = starcoder2_7b.make_config()
+    cfg = _starcoder2(SERVE_LAYERS)
     t0 = time.monotonic()
     params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
                             device="cuda")
@@ -4126,7 +4325,7 @@ def _profile_serve_ticks(params, cfg, scfg, prompts, n_new, ticks=3):
 
 def phase_tree_serve(cfg, params, quant, plain, linear):
     """Phase 8b's traffic with tree speculation (``spec_k=4``,
-    ``spec_tree_m=3``): K5 launches are tree ticks x 32 on 8b's route and
+    ``spec_tree_m=3``): K5 launches are tree ticks x 16 on 8b's route and
     the pool drains clean (``_serve_run``); the streams' agreement with
     phase 8b's linear ones and phase 7's plain ones (``plain``, ``linear``:
     their (streams, summary)) and the accepted tokens per tick beside
@@ -4306,8 +4505,8 @@ def _host_timed(eng, name):
 def phase_chaos_serve(cfg, params, quant, plain):
     """Phase 8e on the bf16 weights in one mode: phase 7's traffic under
     ``_chaos_plan`` with ``ARMED_GUARD``. Asserted (``_serve_run`` and
-    here): every request finished or shed, K2 = decode ticks x 32, K3 =
-    extend calls x 32 (K4 in int8), a clean pool and audit, no audit
+    here): every request finished or shed, K2 = decode ticks x 16, K3 =
+    extend calls x 16 (K4 in int8), a clean pool and audit, no audit
     failure, at least one compaction pause and two readback retries.
     Reported: the streams' agreement with phase 7's (``plain``: its
     streams and summary; bf16 near ties may flip a greedy token after a
@@ -4357,7 +4556,7 @@ def phase_chaos_serve(cfg, params, quant, plain):
 def phase_chaos_spec(cfg, params):
     """Phase 8e's speculative run: 8b's traffic (unquantized, k = 4) with
     the spec-k backoff armed (threshold 0.9, window 2): at least one
-    backoff, K5 = spec ticks x 32 (``_serve_run``). Returns the
+    backoff, K5 = spec ticks x 16 (``_serve_run``). Returns the
     launches."""
     from repro_torch.serve import GuardrailConfig, ServeEngine
     acct = _accountant()
@@ -4464,8 +4663,8 @@ def phase_durability_serve(cfg, params, quant, plain):
     SERVE_KILL - SERVE_INTERVAL ticks. Asserted: the streams phase 7's
     (``plain``; phase 8's paged int8 streams in the int8 mode), each
     restore's replayed ticks its kill tick minus its snapshot's tick,
-    restore_j > 0, a clean pool and audit, and K2 = decode ticks x 32, K3
-    = extend calls x 32 (K4 as in phase 8) over the ticks the three
+    restore_j > 0, a clean pool and audit, and K2 = decode ticks x 16, K3
+    = extend calls x 16 (K4 as in phase 8) over the ticks the three
     engines ran (pre-crash, replayed and after the restore). Reported: each
     snapshot's host seconds and GB, each restore's seconds split into
     loading and replay, the journal bytes, durability_write_j,
@@ -4535,10 +4734,10 @@ def phase_durability_serve(cfg, params, quant, plain):
         extends = sum(1 for m in executed if m.prefill_tokens > 0)
         launches = {name: fn.launches for name, fn in counters.items()}
         want = {name: 0 for name in launches}
-        want.update({"paged_decode_attention": decode_ticks * N_LAYERS,
-                     "paged_prefill_attention": extends * N_LAYERS})
+        want.update({"paged_decode_attention": decode_ticks * cfg.n_layers,
+                     "paged_prefill_attention": extends * cfg.n_layers})
         if quant == "int8":
-            want["int8_matmul"] = (decode_ticks + extends) * N_LAYERS * 6
+            want["int8_matmul"] = (decode_ticks + extends) * cfg.n_layers * 6
         live, audit, _ = _pool_state(eng)
         base_streams = plain[0]
         if not (first is not None and first["kill_tick"] == EARLY_KILL
@@ -5369,6 +5568,398 @@ def phase_ssm_family():
 
 # (kernel, its CUDA source under src/repro_torch/kernels/csrc/, the TPU
 # kernel it replaces)
+# whisper-large-v3 at full width and full depth (32 + 32 layers, d 1280,
+# 20 heads of 64, vocab 51866): B 2, all 1500 frames N(0, 1) from SEED, a
+# 4-token prompt, then 32 greedy tokens through decode_step with a self
+# cache of 448 rows (whisper's design length)
+ENCDEC_B, ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_MAX_LEN = 2, 4, 32, 448
+# each decode step's logits against decode_train's teacher-forced logits on
+# the same stream: 1e-4 of max(1, max |logit|). The two differ in the order
+# of the self-attention's fp32 sums (K6's 3xTF32 tiles against
+# decode_step's masked sdpa, about 1e-6 relative) and in the row counts of
+# the fp32 GEMMs (35 rows against 2), carried through 32 layers
+ENCDEC_TOL = 1e-4
+# the Trainer on whisper-large-v3, fp32, B 2 x 64 decoder tokens, random
+# frames, 2 steps, at full depth (its peak is predicted in PERF.md)
+ENCDEC_TRAIN_B, ENCDEC_TRAIN_S, ENCDEC_TRAIN_STEPS = 2, 64, 2
+ENCDEC_TRAIN_ENC, ENCDEC_TRAIN_DEC = 32, 32
+# a key bias's gradient is zero in exact arithmetic (it shifts every key's
+# score of a query by one q . bk, which the softmax cancels): each route's
+# is rounding noise, held below this share of the largest gradient of any
+# leaf instead of to its own leaf's max
+ENCDEC_BK_NOISE = 1e-5
+LAUNCHER_STEPS = 2
+
+
+def _whisper(dtype, n_enc=None, n_dec=None):
+    """whisper-large-v3's config (depths cut when given) and its weights in
+    ``dtype`` from SEED on the card."""
+    from repro_torch.configs import whisper_large_v3
+    from repro_torch.models import encdec
+    cfg = whisper_large_v3.make_config()
+    if n_enc is not None:
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_enc, n_dec_layers=n_dec)
+    return cfg, encdec.init_encdec(cfg, seed=SEED, dtype=dtype,
+                                   device="cuda")
+
+
+def _frames(cfg, b, dtype):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return torch.randn((b, cfg.n_audio_ctx, cfg.d_model), generator=gen,
+                       device="cuda").to(dtype)
+
+
+def _greedy_encdec(params, cfg, enc_out, prompt, n_new, max_len, dtype):
+    """The cross cache of ``enc_out``, the prompt (B, P) through
+    ``decode_step`` one position at a time, then ``n_new`` greedy tokens.
+    Returns (the fed stream (B, P + n_new - 1), every step's logits (B,
+    P + n_new - 1, vocab), the generated tokens (B, n_new))."""
+    import torch
+    from repro_torch.models import encdec
+    caches = encdec.init_dec_caches(cfg, prompt.shape[0], max_len, dtype,
+                                    device=prompt.device)
+    caches["cross"] = encdec.build_cross_cache(params, cfg, enc_out)
+    fed, logits, gen = [], [], []
+    tok = prompt[:, :1]
+    for pos in range(prompt.shape[1] + n_new - 1):
+        fed.append(tok)
+        step, caches = encdec.decode_step(params, cfg, tok, pos, caches)
+        logits.append(step[:, 0].float())
+        if pos + 1 < prompt.shape[1]:
+            tok = prompt[:, pos + 1:pos + 2]
+        else:
+            tok = step[:, 0].argmax(-1, keepdim=True)
+            gen.append(tok)
+    return (torch.cat(fed, 1), torch.stack(logits, 1), torch.cat(gen, 1))
+
+
+def _host_device_ms(fn, k=3):
+    """(host ms a call: wall time around ``fn()`` ending in a synchronize,
+    the mean of k calls; torch.profiler's device busy ms and launches a
+    call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(k):
+        fn()
+    torch.cuda.synchronize()
+    host = 1e3 * (time.monotonic() - t0) / k
+    prof = _profile_device(fn, k)
+    return {"host_ms": host, "device_ms": prof["device_busy_ms_per_call"],
+            "launches": prof["launches_per_call"],
+            "device_busy_share": prof["device_busy_share"],
+            "top_kernels_ms": prof["top_kernels_ms_per_call"]}
+
+
+def phase_encdec():
+    """whisper-large-v3 at full width and full depth: fp32 weights from
+    SEED, ``encode`` over B 2 x 1500 frames, ``build_cross_cache``, a
+    4-token prompt and 32 greedy tokens through ``decode_step`` (a 448-row
+    self cache, masked ``sdpa``). Then ``decode_train`` on the fed stream
+    (``positions=None``: K6 on the card), the counters set to 0 just
+    before and read just after: every step's logits within ENCDEC_TOL x
+    max(1, max |logit|) of the teacher-forced ones, the greedy tokens
+    their argmax, K6 = 32 launches (one a decoder layer) and no other
+    kernel. Then the same in bf16, reported: host and device ms of
+    ``encode``, ``build_cross_cache`` and a decode step, launches a step,
+    peak memory. Returns the fp32 run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import encdec
+    counters = _counters()
+    rows = {}
+    launches = None
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params = _whisper(dt)
+        frames = _frames(cfg, ENCDEC_B, dt)
+        rng = np.random.default_rng(SEED)
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (ENCDEC_B, ENCDEC_PROMPT))).cuda()
+        with torch.no_grad():
+            t0 = time.monotonic()
+            enc_out = encdec.encode(params, cfg, frames)
+            torch.cuda.synchronize()
+            encode_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            fed, step_logits, gen = _greedy_encdec(
+                params, cfg, enc_out, prompt, ENCDEC_NEW, ENCDEC_MAX_LEN, dt)
+            torch.cuda.synchronize()
+            decode_s = time.monotonic() - t0
+            row = {"phase": "encdec", "dtype": dt_name,
+                   "layers": [cfg.n_enc_layers, cfg.n_dec_layers],
+                   "batch": ENCDEC_B, "frames": cfg.n_audio_ctx,
+                   "prompt": ENCDEC_PROMPT, "new_tokens": ENCDEC_NEW,
+                   "max_len": ENCDEC_MAX_LEN, "encode_s": encode_s,
+                   "decode_s": decode_s,
+                   "finite": bool(torch.isfinite(step_logits).all())}
+            if dt_name == "float32":
+                for fn in counters.values():
+                    fn.launches = 0
+                _reset_flash_kernels()
+                tf = encdec.decode_train(params, cfg, fed, enc_out)
+                torch.cuda.synchronize()
+                launches = {n: fn.launches for n, fn in counters.items()}
+                by_kernel = _flash_on_tensor_cores("encdec")
+                tf = tf[..., :cfg.vocab].float()
+                scale = max(1.0, float(tf.abs().max()))
+                err = float((step_logits - tf).abs().max())
+                greedy = torch.equal(tf[:, ENCDEC_PROMPT - 1:].argmax(-1),
+                                     gen)
+                row.update({"max_abs_logit_diff": err,
+                            "tol": ENCDEC_TOL * scale, "greedy_equal": greedy,
+                            "stream": gen.tolist(), "launches": launches,
+                            "flash_launches_by_kernel": by_kernel})
+                want = {n: (cfg.n_dec_layers if n == "flash_attention_fwd"
+                            else 0) for n in counters}
+                if not (row["finite"] and err <= ENCDEC_TOL * scale
+                        and greedy and launches == want):
+                    raise AssertionError(f"encdec: decode_step against "
+                                         f"decode_train: {row} (launches "
+                                         f"want {want})")
+                _add_flash_dims(launches, cfg.head_dim)
+            else:
+                caches = encdec.init_dec_caches(cfg, ENCDEC_B, ENCDEC_MAX_LEN,
+                                                dt, device="cuda")
+                caches["cross"] = encdec.build_cross_cache(params, cfg,
+                                                           enc_out)
+                tok = prompt[:, :1]
+                last = ENCDEC_PROMPT + ENCDEC_NEW - 1
+
+                def step():
+                    encdec.decode_step(params, cfg, tok, last, caches)
+
+                row.update({
+                    "encode": _host_device_ms(
+                        lambda: encdec.encode(params, cfg, frames)),
+                    "build_cross_cache": _host_device_ms(
+                        lambda: encdec.build_cross_cache(params, cfg,
+                                                         enc_out)),
+                    "decode_step": _host_device_ms(step, 8),
+                    "agreement_with_fp32": float(
+                        (gen.cpu() == torch.tensor(rows["float32"]["stream"]))
+                        .float().mean())})
+                if not row["finite"]:
+                    raise AssertionError(f"encdec bf16: {row}")
+            row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        emit(row)
+        rows[dt_name] = row
+        del params, frames, enc_out, step_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _add_flash_dims(launches, head_dim):
+    """Adds ``head_dim`` to MAIN_HEAD_DIMS for each flash kernel that
+    launched in a counted run."""
+    for name in TRAIN_FLASH + ("flash_attention",):
+        if launches.get(name):
+            MAIN_HEAD_DIMS.setdefault(name, set()).add(head_dim)
+
+
+def _encdec_pipeline(cfg):
+    """Synthetic tokens (the Markov source's vocab x vocab table is 10 GB
+    of host memory at whisper's vocab), B ENCDEC_TRAIN_B x
+    ENCDEC_TRAIN_S."""
+    from repro_torch.data import DataConfig, make_pipeline
+    return make_pipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=ENCDEC_TRAIN_S, global_batch=ENCDEC_TRAIN_B,
+        seed=SEED, source="synthetic"))
+
+
+def _encdec_trainer(cfg, params, frames):
+    """A Trainer on the encoder-decoder ``cfg`` (fp32 ``params``), the
+    frames in every batch, ``_encdec_pipeline``'s tokens, AdamW as the
+    smoke launcher's, billed to h100_sxm."""
+    from repro_torch.models import encdec
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+    steps = ENCDEC_TRAIN_STEPS
+    return Trainer(
+        loss_fn=lambda p, b: encdec.loss_fn(p, cfg, {**b, "frames": frames}),
+        params=params,
+        opt_cfg=AdamWConfig(lr=warmup_cosine(3e-3, 1, steps)),
+        train_cfg=TrainConfig(num_steps=steps, log_every=1,
+                              checkpoint_every=10 ** 9),
+        pipeline=_encdec_pipeline(cfg), accountant=_accountant())
+
+
+def phase_encdec_train():
+    """(1) whisper-large-v3 at full width, ENCDEC_TRAIN_ENC +
+    ENCDEC_TRAIN_DEC layers, fp32, B 2 x 64 decoder tokens, N(0, 1) frames:
+    the first batch's loss and gradients through K6-K8 (``positions=None``)
+    against the same call with explicit arange positions (the masked
+    ``sdpa``): the loss within 1e-5 relative and each leaf within 1e-4 of
+    its max (``phase_train_parity``'s bounds; the key biases, zero in exact
+    arithmetic, below ENCDEC_BK_NOISE of the largest gradient in both);
+    then the Trainer 2 steps (finite losses, K6 = K7 = K8 = steps x 32, on
+    the tensor cores; s/step, peak memory). (2) ``launch.train.main
+    ["--arch", a, "--smoke", "--steps", "2"]`` on the card for every LM
+    and encoder-decoder arch of the registry: a finite final loss, K6 = K7
+    = K8 = steps x the flash-route attention layers' forwards where the
+    smoke config's training attention takes the flash route (M-RoPE's and
+    an SSD-only config's take none: every other kernel none). Returns the
+    launches of (1)'s Trainer run and of each launcher run."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import encdec
+    from repro_torch.models.common import flatten
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _whisper(torch.float32, ENCDEC_TRAIN_ENC, ENCDEC_TRAIN_DEC)
+    frames = _frames(cfg, ENCDEC_TRAIN_B, torch.float32)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _encdec_pipeline(cfg).batch_at(0).items()}
+    leaves, _ = flatten(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    names = [".".join(p) for p in _leaf_paths(params)]
+    pos = torch.arange(ENCDEC_TRAIN_S, device="cuda").expand(
+        ENCDEC_TRAIN_B, ENCDEC_TRAIN_S)
+    results = {}
+    for route, extra in (("flash", {}), ("sdpa", {"positions": pos})):
+        for fn in counters.values():
+            fn.launches = 0
+        _reset_flash_kernels()
+        with torch.enable_grad():
+            loss, _ = encdec.loss_fn(params, cfg, {**batch, "frames": frames,
+                                                   **extra})
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        results[route] = (loss.detach(), [g.detach() for g in grads],
+                          {n: fn.launches for n, fn in counters.items()})
+        del loss, grads
+        if route == "flash":
+            by_kernel = _flash_on_tensor_cores("encdec train parity")
+    (l_f, g_f, launches_f), (l_s, g_s, launches_s) = (results["flash"],
+                                                      results["sdpa"])
+    g_max = max(float(g.abs().max()) for g in g_s)
+    loss_rel = float((l_f - l_s).abs() / l_s.abs())
+    leaf_rel, bk_max = 0.0, 0.0
+    for name, a, b in zip(names, g_f, g_s):
+        if name.endswith(".bk"):
+            bk_max = max(bk_max, float(a.abs().max()), float(b.abs().max()))
+            continue
+        leaf_rel = max(leaf_rel, float((a - b).abs().max()
+                                       / b.abs().max().clamp_min(1e-30)))
+    del results, g_f, g_s
+    parity = {"phase": "encdec_train_parity",
+              "layers": [cfg.n_enc_layers, cfg.n_dec_layers],
+              "batch": ENCDEC_TRAIN_B, "dec_seq": ENCDEC_TRAIN_S,
+              "loss_flash": float(l_f), "loss_sdpa": float(l_s),
+              "loss_rel_diff": loss_rel, "max_leaf_rel_diff": leaf_rel,
+              "bk_grad_max_over_max_grad": bk_max / g_max,
+              "leaves": len(leaves), "launches": launches_f,
+              "flash_launches_by_kernel": by_kernel,
+              "sdpa_launches": launches_s}
+    emit(parity)
+    want = {n: (cfg.n_dec_layers if n in TRAIN_FLASH else 0)
+            for n in counters}
+    if not (bool(torch.isfinite(l_f)) and loss_rel <= 1e-5
+            and leaf_rel <= 1e-4 and bk_max <= ENCDEC_BK_NOISE * g_max
+            and launches_f == want and not any(launches_s.values())):
+        raise AssertionError(f"encdec train parity: {parity} (launches "
+                             f"want {want})")
+    tr = _encdec_trainer(cfg, params, frames)
+    for fn in counters.values():
+        fn.launches = 0
+    _reset_flash_kernels()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    by_kernel = _flash_on_tensor_cores("encdec trainer")
+    losses = [e["loss"] for e in tr.metrics_log]
+    row = {"phase": "encdec_train", "layers": [cfg.n_enc_layers,
+                                               cfg.n_dec_layers],
+           "batch": ENCDEC_TRAIN_B, "dec_seq": ENCDEC_TRAIN_S,
+           "steps": ENCDEC_TRAIN_STEPS, "losses": losses,
+           "s_per_step": wall / ENCDEC_TRAIN_STEPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "flash_launches_by_kernel": by_kernel}
+    emit(row)
+    want = {n: (ENCDEC_TRAIN_STEPS * cfg.n_dec_layers if n in TRAIN_FLASH
+                else 0) for n in counters}
+    if not (len(losses) == ENCDEC_TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses) and launches == want):
+        raise AssertionError(f"encdec trainer: {row} (launches want {want})")
+    _add_flash_dims(launches, cfg.head_dim)
+    runs = [launches]
+    del tr, params, frames, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = []
+    for arch in cfgbase.arch_ids():
+        spec = cfgbase.get(arch)
+        if spec.kind not in ("lm", "encdec"):
+            continue
+        smoke = spec.make_smoke()
+        heads = _flash_heads(smoke)
+        for fn in counters.values():
+            fn.launches = 0
+        _reset_flash_kernels()
+        out = io.StringIO()
+        # the launcher's Trainer takes SIGTERM for a preemption flag; this
+        # script's own handling comes back after the run
+        sigterm = signal.getsignal(signal.SIGTERM)
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(out):
+                launch_train.main(["--arch", arch, "--smoke", "--steps",
+                                   str(LAUNCHER_STEPS)])
+        finally:
+            signal.signal(signal.SIGTERM, sigterm)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        final = json.loads(next(
+            line for line in out.getvalue().splitlines()
+            if line.startswith("final metrics:")).split(":", 1)[1])
+        r = {"arch": arch, "loss": final["loss"], "seconds": wall,
+             "heads": None if heads is None else list(heads),
+             "launches": {n: c for n, c in launches.items() if c}}
+        rows.append(r)
+        n6 = launches["flash_attention_fwd"]
+        flash_ok = (n6 > 0 and n6 % LAUNCHER_STEPS == 0
+                    and launches["flash_attention_bwd_dq"] == n6
+                    and launches["flash_attention_bwd_dkv"] == n6) \
+            if heads is not None else n6 == 0
+        others = all(c == 0 for n, c in launches.items()
+                     if n not in TRAIN_FLASH)
+        if not (math.isfinite(final["loss"]) and flash_ok and others):
+            raise AssertionError(f"launch.train --smoke on the card: {r}")
+        _flash_on_tensor_cores(f"launch.train {arch}")
+        if heads is not None:
+            _add_flash_dims(launches, heads[2])
+        runs.append(launches)
+    emit({"phase": "launch_train_smoke", "steps": LAUNCHER_STEPS,
+          "runs": rows})
+    return runs
+
+
+def _leaf_paths(tree, prefix=()):
+    """The key path of every leaf of a nested dict, in ``flatten``'s
+    order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _leaf_paths(v, prefix + (k,))
+        else:
+            out.append(prefix + (k,))
+    return out
+
+
 KERNELS = (
     ("decode_attention", "decode_attention",
      "src/repro/kernels/decode_attention.py:122"),
@@ -5399,9 +5990,8 @@ def phase_serve_runs():
     to their streams, and the int8 agreement. Returns each run's
     launches."""
     import torch
-    from repro_torch.configs import starcoder2_7b
     from repro_torch.models import transformer as tf_lib
-    cfg = starcoder2_7b.make_config()
+    cfg = _starcoder2(SERVE_LAYERS)
     params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.bfloat16,
                             device="cuda")
     qcfg = dataclasses.replace(cfg, quant=tf_lib.INT8_QUANT)
@@ -5460,6 +6050,7 @@ def main() -> int:
     rows.update(phase_flash_kernels())
     phase_flash_ragged()
     rows["flash_attention"] = phase_flash_infer()
+    small = phase_flash_small_dims()
     mark("kernels")
     # before any long profile: after one of tens of thousands of kernels,
     # the card's profiles drop records for a while, and the CNN phase
@@ -5489,6 +6080,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs += phase_ssm_family()
     mark("ssm_family")
+    runs.append(phase_encdec())
+    mark("encdec")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += phase_encdec_train()
+    mark("encdec_train")
+    gc.collect()
+    torch.cuda.empty_cache()
     runs += [phase_train_parity(), phase_train()]
     mark("train")
     gc.collect()
@@ -5520,7 +6119,12 @@ def main() -> int:
            if name in d168 else {}),
         **({"d112_zamba2": {key: k1_zamba2[key] for key in (
             "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "route")}} if name == "decode_attention" else {})}
+            "library_ms", "route")}} if name == "decode_attention" else {}),
+        **({"head_dims": sorted(MAIN_HEAD_DIMS.get(name, ())),
+            **{f"d{d}": {key: small[d][name][key] for key in (
+                "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "route")} for d in sorted(small)}}
+           if name in small[8] else {})}
         for name, source, replaces in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

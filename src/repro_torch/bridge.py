@@ -1,7 +1,7 @@
 """Bridge from the JAX package's parameters and configs to the port's.
 
 Tests build a model with ``repro.models.transformer.init_lm`` (or
-``repro.models.cnn.init_cnn``), turn its tree into numpy with
+``repro.models.encdec.init_encdec``, ``repro.models.cnn.init_cnn``), turn its tree into numpy with
 ``jax.tree.map(np.asarray, params)``, and load it here, so the two
 frameworks run the very same weights. This module itself imports
 neither JAX nor ``repro``: it reads numpy arrays and plain dicts.
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.models import cnn
+from repro_torch.models import cnn, encdec
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssd import SSDConfig
 from repro_torch.models.transformer import BlockSpec, LMConfig, QuantPolicy
@@ -129,3 +129,39 @@ def config_from_dict(d: Dict[str, Any]) -> LMConfig:
     if d.get("ssd_cfg") is not None:
         kw["ssd_cfg"] = SSDConfig(**d["ssd_cfg"])
     return LMConfig(**kw)
+
+
+def _shapes(tree) -> Dict[str, Any]:
+    return {k: _shapes(v) if isinstance(v, dict) else tuple(v.shape)
+            for k, v in tree.items()}
+
+
+def encdec_params_from_numpy(tree: Dict[str, Any], cfg: encdec.EncDecConfig,
+                             device="cuda") -> Dict[str, Any]:
+    """The JAX encoder-decoder tree (``embed``, ``pos_dec``, ``enc`` and
+    ``dec`` stacked over their layers, ``norm_enc``, ``norm_dec``: nested
+    dicts of numpy arrays) as the port's parameters on ``device``, array
+    by array. Raises unless every leaf has the shape ``cfg`` gives it
+    (``init_encdec`` on the meta device), the two depths included."""
+    want = _shapes(encdec.init_encdec(cfg, device="meta"))
+    got = _shapes(tree)
+    if got != want:
+        raise ValueError(f"{cfg.name}: parameter shapes {got} != {want}")
+    dev = device_lib.resolve(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _to_tensor(t, dev)
+
+    return walk(tree)
+
+
+def encdec_config_from_dict(d: Dict[str, Any]) -> encdec.EncDecConfig:
+    """The port's ``EncDecConfig`` from ``dataclasses.asdict`` of a JAX one,
+    every field carried (``sp_attention`` too)."""
+    fields = {f.name for f in dataclasses.fields(encdec.EncDecConfig)}
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"unknown EncDecConfig fields {sorted(unknown)}")
+    return encdec.EncDecConfig(**d)

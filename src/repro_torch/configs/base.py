@@ -1,15 +1,15 @@
 """ArchSpec registry of the PyTorch port (mirror of ``repro.configs.base``).
 
-The registry holds only the archs the port runs so far; the JAX package's
-registry lists every assigned arch. The input-shape grid of the original
-(``SHAPES``) drives the TPU dry-run cells and is not ported.
+The registry holds every arch of the JAX package's registry. The
+input-shape grid of the original (``SHAPES``) drives the TPU dry-run
+cells and is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,7 +17,7 @@ class ArchSpec:
     arch_id: str
     family: str                       # dense|moe|ssm|hybrid|audio|vlm|cnn
     kind: str                         # "lm" | "encdec" | "cnn"
-    make_config: Callable             # () -> LMConfig / CNNConfig
+    make_config: Callable             # () -> LMConfig / EncDecConfig / CNNConfig
     make_smoke: Callable              # () -> reduced config, same family
     params_nominal: float             # headline param count (B) from the pool
     long_context_ok: bool = False
@@ -26,13 +26,12 @@ class ArchSpec:
     active_fraction: float = 1.0
 
 
-# archs ported so far (the dense family, the MoE family, the SSD and
-# hybrid family, then the CNNs), in the reference's order; the rest of
-# repro.configs (whisper-large-v3) follows the port's queue
+# every arch of repro.configs, in the reference's order: the dense and
+# MoE families, the encoder-decoder, the SSD and hybrid family, the CNNs
 _ARCH_MODULES = ["gemma3_27b", "starcoder2_7b", "granite_34b",
                  "qwen1_5_110b", "moonshot_v1_16b_a3b", "kimi_k2_1t_a32b",
-                 "zamba2_7b", "qwen2_vl_72b", "mamba2_1_3b", "alexnet",
-                 "vgg16"]
+                 "whisper_large_v3", "zamba2_7b", "qwen2_vl_72b",
+                 "mamba2_1_3b", "alexnet", "vgg16"]
 
 REGISTRY: Dict[str, ArchSpec] = {}
 
@@ -44,6 +43,12 @@ def _load() -> None:
         mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
         spec: ArchSpec = mod.SPEC
         REGISTRY[spec.arch_id] = spec
+
+
+def arch_ids() -> List[str]:
+    """Every registered arch, in the reference's order."""
+    _load()
+    return list(REGISTRY)
 
 
 def get(arch_id: str) -> ArchSpec:

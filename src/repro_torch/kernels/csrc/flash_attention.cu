@@ -128,6 +128,10 @@
 // there, and the JAX wrapper sends such ragged shapes to attention_ref,
 // which averages all of V; no model path makes such a row.
 //
+// Head dims: 64 and 128, and the reference's smoke configs' 8, 16 and 24,
+// which run the D = 64 kernels on rows read and written at their own width,
+// the tiles zero past it (see the entry points).
+//
 // Built by repro_torch/kernels/build.py with nvcc into a shared library
 // with a plain C entry point, loaded with ctypes.
 
@@ -212,16 +216,18 @@ __device__ __forceinline__ bool valid_pair(int i, int j, int Sq, int Sk, int cau
 }
 
 // Rows [0, 64) of a bf16 tile into shared memory with row stride `stride`
-// floats, times `mul`: global row r at src + r * gstride (elements); rows
-// at or past n_valid are zeros, so p = 0 never meets stale memory.
+// floats, times `mul`: global row r at src + r * gstride (elements), its
+// first dg columns; rows at or past n_valid and columns at or past dg are
+// zeros, so p = 0 never meets stale memory and a head dim under D pads
+// with zeros in shared memory only.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          long long gstride, int n_valid, float mul) {
+                                          long long gstride, int n_valid, int dg, float mul) {
   constexpr int C8 = D / 8;
   for (int idx = threadIdx.x; idx < kTile * C8; idx += kThreads) {
     const int r = idx / C8, c = (idx % C8) * 8;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r < n_valid) {
+    if (r < n_valid && c < dg) {
       ld8(src + r * gstride + c, a, b);
       a = mul4(a, mul);
       b = mul4(b, mul);
@@ -292,7 +298,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H,
-                    int Hkv, int causal, int window, float scale) {
+                    int Hkv, int dg, int causal, int window, float scale) {
   constexpr int KS = D + 4, CJ = D / 64;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
@@ -306,16 +312,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long q_row = (long long)H * D, k_row = (long long)Hkv * D;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
   const int n_q = min(kTile, Sq - q0);
-  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * D;
-  load_tile<T, D>(q_s, D, q + q_off, q_row, n_q, scale);
-  load_tile<T, D>(do_s, D, dout + q_off, q_row, n_q, 1.f);
+  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
+  load_tile<T, D>(q_s, D, q + q_off, q_row, n_q, dg, scale);
+  load_tile<T, D>(do_s, D, dout + q_off, q_row, n_q, dg, 1.f);
   const long long row_off = ((long long)b * H + h) * Sq + q0;
   load_rows(lse_s, lse + row_off, n_q);
   load_rows(dl_s, delta + row_off, n_q);
-  const T* k_g = k + (long long)b * Sk * k_row + (long long)hk * D;
-  const T* v_g = v + (long long)b * Sk * k_row + (long long)hk * D;
+  const T* k_g = k + (long long)b * Sk * k_row + (long long)hk * dg;
+  const T* v_g = v + (long long)b * Sk * k_row + (long long)hk * dg;
 
   const int q_last = q0 + n_q - 1;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -330,8 +336,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
     __syncthreads();                      // the last tile's dS and K readers are done
     const int n_k = min(kTile, Sk - k0);
-    load_tile<T, D>(k_s, KS, k_g + k0 * k_row, k_row, n_k, 1.f);
-    load_tile<T, D>(v_s, KS, v_g + k0 * k_row, k_row, n_k, 1.f);
+    load_tile<T, D>(k_s, KS, k_g + k0 * k_row, k_row, n_k, dg, 1.f);
+    load_tile<T, D>(v_s, KS, v_g + k0 * k_row, k_row, n_k, dg, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     dots<D>(q_s, D, k_s, ty, tx, s);
@@ -357,9 +363,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) break;
-    T* o = dq + ((long long)b * Sq + qi) * q_row + (long long)h * D + 4 * tx;
+    T* o = dq + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 4 * tx;
 #pragma unroll
-    for (int c = 0; c < CJ; ++c) st4(o + 64 * c, mul4(acc[i][c], scale));
+    for (int c = 0; c < CJ; ++c)
+      if (4 * tx + 64 * c < dg) st4(o + 64 * c, mul4(acc[i][c], scale));
   }
 }
 
@@ -372,7 +379,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-                     int causal, int window, float scale) {
+                     int dg, int causal, int window, float scale) {
   constexpr int QS = D + 4, CJ = D / 64;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
@@ -387,11 +394,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kTile;
   const int hk = blockIdx.y, b = blockIdx.z, rep = H / Hkv;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long q_row = (long long)H * D, k_row = (long long)Hkv * D;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
   const int n_k = min(kTile, Sk - k0);
-  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * D;
-  load_tile<T, D>(k_s, D, k + k_off, k_row, n_k, 1.f);
-  load_tile<T, D>(v_s, D, v + k_off, k_row, n_k, 1.f);
+  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
+  load_tile<T, D>(k_s, D, k + k_off, k_row, n_k, dg, 1.f);
+  load_tile<T, D>(v_s, D, v + k_off, k_row, n_k, dg, 1.f);
 
   // queries that can see a key of [k0, k0 + n_k)
   const int k_last = k0 + n_k - 1;
@@ -412,9 +419,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int q0 = (q_lo / kTile) * kTile; q0 < q_hi; q0 += kTile) {
       __syncthreads();                    // the last tile's readers are done
       const int n_q = min(kTile, Sq - q0);
-      const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * D;
-      load_tile<T, D>(q_s, QS, q + q_off, q_row, n_q, scale);
-      load_tile<T, D>(do_s, QS, dout + q_off, q_row, n_q, 1.f);
+      const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
+      load_tile<T, D>(q_s, QS, q + q_off, q_row, n_q, dg, scale);
+      load_tile<T, D>(do_s, QS, dout + q_off, q_row, n_q, dg, 1.f);
       const long long row_off = ((long long)b * H + h) * Sq + q0;
       load_rows(lse_s, lse + row_off, n_q);
       load_rows(dl_s, delta + row_off, n_q);
@@ -445,9 +452,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int kk = ty + 16 * i;
     if (kk >= n_k) break;
-    const long long off = ((long long)b * Sk + k0 + kk) * k_row + (long long)hk * D + 4 * tx;
+    const long long off = ((long long)b * Sk + k0 + kk) * k_row + (long long)hk * dg + 4 * tx;
 #pragma unroll
     for (int c = 0; c < CJ; ++c) {
+      if (4 * tx + 64 * c >= dg) continue;
       st4(dk + off + 64 * c, dk_acc[i][c]);
       st4(dv + off + 64 * c, dv_acc[i][c]);
     }
@@ -526,17 +534,19 @@ __device__ __forceinline__ float4 to_f32x4(uint32_t w) {
                      (float)(int8_t)(w >> 24));
 }
 
-// Rows [0, R) of a tile read from global memory (row stride gstride) times
-// `mul` in fp32, rows at or past n_valid zeros, split into the hi and lo
-// planes: the resident tiles, once a block.
+// Rows [0, R) of a tile read from global memory (row stride gstride, dg
+// columns) times `mul` in fp32, rows at or past n_valid and columns at or
+// past dg zeros, split into the hi and lo planes: the resident tiles, once
+// a block.
 template <int D, int R, typename T>
 __device__ __forceinline__ void stage_global(float* hi, float* lo, const T* src,
-                                             long long gstride, int n_valid, float mul) {
+                                             long long gstride, int n_valid, int dg,
+                                             float mul) {
   constexpr int C = D / 4;
   for (int idx = threadIdx.x; idx < R * C; idx += kTcThreads) {
     const int r = idx / C, c = idx % C;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid) x = mul4(to_f32x4(ld_raw4(src + r * gstride + 4 * c)), mul);
+    if (r < n_valid && 4 * c < dg) x = mul4(to_f32x4(ld_raw4(src + r * gstride + 4 * c)), mul);
     uint4 h, l;
     split4(x, h, l);
     const int o = pl<D, R>(r, 4 * c);
@@ -553,14 +563,15 @@ struct Prefetch {
   static constexpr int kChunks = 32 * (D / 4) / kThreads;     // 16-byte chunks a thread, a tensor
   float4 a[kChunks], b[kChunks];
 
-  // rows [0, 32) of a and b (row stride gstride), zeros at and past n_valid
+  // rows [0, 32) of a and b (row stride gstride, dg columns), zeros at and
+  // past n_valid and dg
   __device__ __forceinline__ void load(const float* src_a, const float* src_b,
-                                       long long gstride, int n_valid) {
+                                       long long gstride, int n_valid, int dg) {
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const int idx = threadIdx.x % kThreads + u * kThreads, r = idx / (D / 4), c = idx % (D / 4);
       a[u] = b[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < n_valid) {
+      if (r < n_valid && 4 * c < dg) {
         a[u] = ld4(src_a + r * gstride + 4 * c);
         b[u] = ld4(src_b + r * gstride + 4 * c);
       }
@@ -798,8 +809,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int causal,
-                       int window, float scale) {
+                       float* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int dg,
+                       int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
   float* q_hi = tc_smem(smem4);
   float* q_lo = q_hi + kDqRows * D;
@@ -819,9 +830,9 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   const int grp = warp & 3, role = warp >> 2;
-  const long long q_row = (long long)H * D, k_row = (long long)Hkv * D;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
   const int n_q = min(kDqRows, Sq - q0);
-  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * D;
+  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
 
   // key tiles [t_lo, t_lo + n_tiles) of 32: the keys the block's rows can see
   const int q_last = q0 + n_q - 1;
@@ -830,8 +841,8 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_lo = key_lo / kDqKeys;
   const int n_tiles = max(0, (key_hi + kDqKeys - 1) / kDqKeys - t_lo);
 
-  stage_global<D, kDqRows>(q_hi, q_lo, q + q_off, q_row, n_q, scale);
-  stage_global<D, kDqRows>(do_hi, do_lo, dout + q_off, q_row, n_q, 1.f);
+  stage_global<D, kDqRows>(q_hi, q_lo, q + q_off, q_row, n_q, dg, scale);
+  stage_global<D, kDqRows>(do_hi, do_lo, dout + q_off, q_row, n_q, dg, 1.f);
   const long long row_off = ((long long)b * H + h) * Sq + q0;
   if (tid < kDqRows) {
     lse_s[tid] = tid < n_q ? lse[row_off + tid] : 0.f;
@@ -843,14 +854,14 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* xs = xs_all + grp * 512;
   const int row = 16 * grp + g;                     // this thread's rows: row, row + 8
   if (role == 0) {
-    const float* k_g = k + (long long)b * Sk * k_row + (long long)hk * D;
-    const float* v_g = v + (long long)b * Sk * k_row + (long long)hk * D;
+    const float* k_g = k + (long long)b * Sk * k_row + (long long)hk * dg;
+    const float* v_g = v + (long long)b * Sk * k_row + (long long)hk * dg;
     Prefetch<D, 128> next;
     RowFrags<D> qa;                                 // (scale Q)'s hi half, for the whole block
     qa.load(q_hi);
     auto fetch = [&](int i) {
       const int k0 = (t_lo + i) * kDqKeys;
-      next.load(k_g + k0 * k_row, v_g + k0 * k_row, k_row, Sk - k0);
+      next.load(k_g + k0 * k_row, v_g + k0 * k_row, k_row, Sk - k0, dg);
     };
     if (n_tiles > 0) fetch(0);
     for (int i = 0; i < n_tiles; ++i) {
@@ -911,11 +922,13 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e1 = 0; e1 < 2; ++e1) {
       const int qi = q0 + 8 * j + 2 * t + e1;
       if (qi >= Sq) continue;
-      float* o = dq + ((long long)b * Sq + qi) * q_row + (long long)h * D + 16 * grp + g;
+      float* o = dq + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 16 * grp + g;
 #pragma unroll
       for (int mt = 0; mt < D / 64; ++mt)
 #pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1] * scale;
+        for (int e2 = 0; e2 < 2; ++e2)
+          if (64 * mt + 16 * grp + g + 8 * e2 < dg)
+            o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1] * scale;
     }
 }
 
@@ -938,7 +951,7 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dk, float* __restrict__ dv, int B, int Sq, int Sk,
-                        int H, int Hkv, int causal, int window, float scale) {
+                        int H, int Hkv, int dg, int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
   float* k_hi = tc_smem(smem4);
   float* k_lo = k_hi + kDkvKeys * D;
@@ -960,9 +973,9 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int b = (blockIdx.x % n_bh) / Hkv, hk = blockIdx.x % Hkv, rep = H / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   const int grp = warp & 3, role = warp >> 2;
-  const long long q_row = (long long)H * D, k_row = (long long)Hkv * D;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
   const int n_k = min(kDkvKeys, Sk - k0);
-  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * D;
+  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
 
   // query tiles [qt_lo, qt_lo + n_qt) of 32 that can see a key of the
   // block, for each of the rep heads: tile i is head i / n_qt's tile i % n_qt
@@ -976,8 +989,8 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
   float next_row = 0.f;                   // lse (threads 0-31) or delta (32-63) of a query row
   auto fetch = [&](int i) {
     const int h = hk * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * kDkvRows;
-    const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * D;
-    next.load(q + q_off, dout + q_off, q_row, Sq - q0);
+    const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
+    next.load(q + q_off, dout + q_off, q_row, Sq - q0, dg);
     if (tid < 2 * kDkvRows) {
       const int r = tid % kDkvRows;
       next_row = q0 + r < Sq
@@ -986,8 +999,8 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
   };
   if (n_tiles > 0) fetch(0);
-  stage_global<D, kDkvKeys>(k_hi, k_lo, k + k_off, k_row, n_k, 1.f);
-  stage_global<D, kDkvKeys>(v_hi, v_lo, v + k_off, k_row, n_k, 1.f);
+  stage_global<D, kDkvKeys>(k_hi, k_lo, k + k_off, k_row, n_k, dg, 1.f);
+  stage_global<D, kDkvKeys>(v_hi, v_lo, v + k_off, k_row, n_k, dg, 1.f);
 
   const int key = 16 * grp + g;                     // this thread's keys: key, key + 8
   float acc[D / 64][32];                            // dV^T (role 0) or dK^T (role 1): D x 64 keys
@@ -1050,11 +1063,12 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int e1 = 0; e1 < 2; ++e1) {
       const int kk = 8 * j + 2 * t + e1;
       if (kk >= n_k) continue;
-      float* o = out + ((long long)b * Sk + k0 + kk) * k_row + (long long)hk * D + 16 * grp + g;
+      float* o = out + ((long long)b * Sk + k0 + kk) * k_row + (long long)hk * dg + 16 * grp + g;
 #pragma unroll
       for (int mt = 0; mt < D / 64; ++mt)
 #pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1];
+        for (int e2 = 0; e2 < 2; ++e2)
+          if (64 * mt + 16 * grp + g + 8 * e2 < dg) o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1];
     }
 }
 
@@ -1096,7 +1110,7 @@ constexpr int kFwdPlanes = 4;
 // tf32-exact) the lo planes are not written.
 template <typename T, int D>
 __device__ __forceinline__ void split_tile(const T* k_g, const T* v_g, long long gstride,
-                                           int n_valid, const float* k_scale,
+                                           int n_valid, int dg, const float* k_scale,
                                            const float* v_scale, long long sstride,
                                            float* planes) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
@@ -1113,7 +1127,7 @@ __device__ __forceinline__ void split_tile(const T* k_g, const T* v_g, long long
   for (int u = 0; u < D / 32; ++u) {
     const int c = 4 * (w + 8 * u);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-    if (ok) {
+    if (ok && c < dg) {
       x = mul4(to_f32x4(ld_raw4(k_g + key * gstride + c)), ks);
       y = mul4(to_f32x4(ld_raw4(v_g + key * gstride + c)), vs);
     }
@@ -1139,14 +1153,14 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_split_kernel(const T* __restrict__ k, const T* __restrict__ v,
                        const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                       float* __restrict__ ws, int Sk, int Hkv) {
+                       float* __restrict__ ws, int Sk, int Hkv, int dg) {
   const int n_kt = (Sk + kFwdKeys - 1) / kFwdKeys;
   const int bh = blockIdx.x / n_kt, k0 = (blockIdx.x % n_kt) * kFwdKeys;
   const int b = bh / Hkv, hk = bh % Hkv;
-  const long long k_row = (long long)Hkv * D;
-  const long long off = ((long long)b * Sk + k0) * k_row + (long long)hk * D;
+  const long long k_row = (long long)Hkv * dg;
+  const long long off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
   const long long s0 = ((long long)b * Sk + k0) * Hkv + hk;
-  split_tile<T, D>(k + off, v + off, k_row, Sk - k0, k_scale ? k_scale + s0 : nullptr,
+  split_tile<T, D>(k + off, v + off, k_row, Sk - k0, dg, k_scale ? k_scale + s0 : nullptr,
                    v_scale ? v_scale + s0 : nullptr, Hkv,
                    ws + (long long)blockIdx.x * kFwdPlanes * kFwdKeys * D);
 }
@@ -1228,7 +1242,7 @@ template <typename QT, int D, bool kKvLo, bool kSaveLse>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
                     QT* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
-                    int Hkv, int causal, int window, float scale) {
+                    int Hkv, int dg, int causal, int window, float scale) {
   constexpr int kPlane = kFwdKeys * D;              // floats of one plane
   constexpr int kTile = kFwdPlanes * kPlane;        // floats of a tile's planes
   extern __shared__ float4 smem4[];
@@ -1240,7 +1254,7 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   const int wg = warp >> 2;
-  const long long q_row = (long long)H * D;
+  const long long q_row = (long long)H * dg;
   const int n_q = min(kFwdRows, Sq - q0);
 
   // key tiles [t_lo, t_lo + n_tiles) of 32: the keys the block's rows can see
@@ -1276,8 +1290,8 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
 #pragma unroll
   for (int r = 0; r < 2; ++r)
     stage_global<D, 64>(q_hi_all + 64 * r * D, q_lo_all + 64 * r * D,
-                        q + ((long long)b * Sq + q0 + 64 * r) * q_row + (long long)h * D, q_row,
-                        n_q - 64 * r, scale);
+                        q + ((long long)b * Sq + q0 + 64 * r) * q_row + (long long)h * dg, q_row,
+                        n_q - 64 * r, dg, scale);
   hopper::cp_async_wait<0>();
   hopper::fence_proxy_async();
   __syncthreads();
@@ -1371,13 +1385,14 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
     if constexpr (kSaveLse) {
       if (t == 0) lse[((long long)b * H + h) * Sq + qi] = m[r] + logf(den);
     }
-    QT* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * D + 2 * t;
+    QT* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 2 * t;
 #pragma unroll
     for (int c = 0; c < D / 64; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        st2(o + 64 * c + 8 * j, acc[32 * c + 4 * j + 2 * r] / den,
-            acc[32 * c + 4 * j + 2 * r + 1] / den);
+        if (64 * c + 8 * j + 2 * t < dg)
+          st2(o + 64 * c + 8 * j, acc[32 * c + 4 * j + 2 * r] / den,
+              acc[32 * c + 4 * j + 2 * r + 1] / den);
   }
 }
 
@@ -1389,18 +1404,19 @@ cudaError_t set_smem(K kernel, size_t smem) {
 }
 
 // K6 (KVT = QT, kSaveLse) and K10 (KVT = QT or int8_t, no lse): the split
-// pre-pass into ws, then the forward
+// pre-pass into ws, then the forward. D is the kernels' head dim, dg the
+// tensors' (dg <= D; see the entry points)
 template <typename QT, typename KVT, int D, bool kSaveLse>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* k_scale,
                        const void* v_scale, void* out, void* lse, void* ws, int B, int Sq,
-                       int Sk, int H, int Hkv, int causal, int window, float scale,
+                       int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
                        cudaStream_t stream) {
   const long long tiles = (long long)B * Hkv * ((Sk + kFwdKeys - 1) / kFwdKeys);
   if (tiles > 0x7fffffffll) return cudaErrorInvalidValue;
   flash_fwd_split_kernel<KVT, D><<<(unsigned)tiles, kTcThreads, 0, stream>>>(
       static_cast<const KVT*>(k), static_cast<const KVT*>(v),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<float*>(ws), Sk, Hkv);
+      static_cast<float*>(ws), Sk, Hkv, dg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = 1024 + sizeof(float) * fwd_smem_floats(D);
@@ -1411,26 +1427,26 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   const dim3 grid((Sq + kFwdRows - 1) / kFwdRows, H, B);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const float*>(ws), static_cast<QT*>(out),
-      static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, window, scale);
+      static_cast<float*>(lse), Sq, Sk, H, Hkv, dg, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename QT, int D>
 cudaError_t launch_infer(const void* q, const void* k, const void* v, const void* k_scale,
                          const void* v_scale, void* out, void* ws, int B, int Sq, int Sk,
-                         int H, int Hkv, int causal, int window, float scale, int kv_int8,
-                         cudaStream_t stream) {
+                         int H, int Hkv, int dg, int causal, int window, float scale,
+                         int kv_int8, cudaStream_t stream) {
   if (kv_int8)
     return launch_fwd<QT, int8_t, D, false>(q, k, v, k_scale, v_scale, out, nullptr, ws, B,
-                                            Sq, Sk, H, Hkv, causal, window, scale, stream);
+                                            Sq, Sk, H, Hkv, dg, causal, window, scale, stream);
   return launch_fwd<QT, QT, D, false>(q, k, v, nullptr, nullptr, out, nullptr, ws, B, Sq, Sk,
-                                      H, Hkv, causal, window, scale, stream);
+                                      H, Hkv, dg, causal, window, scale, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
-                      int H, int Hkv, int causal, int window, float scale,
+                      int H, int Hkv, int dg, int causal, int window, float scale,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)kTile * D * 2 + (size_t)kTile * (D + 4) +
                                        shared_tile(D) + 2 * kTile);
@@ -1441,15 +1457,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, Hkv, causal, window,
-      scale);
+      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, Hkv, dg, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-                       int Sk, int H, int Hkv, int causal, int window, float scale,
+                       int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
                        cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)kTile * D * 2 + (size_t)kTile * (D + 4) * 2 +
                                        (size_t)kTile * kPS * 2 + 2 * kTile);
@@ -1461,14 +1477,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H,
-      Hkv, causal, window, scale);
+      Hkv, dg, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
-                         int H, int Hkv, int causal, int window, float scale,
+                         int H, int Hkv, int dg, int causal, int window, float scale,
                          cudaStream_t stream) {
   const size_t smem = 1024 + sizeof(float) * dq_smem_floats(D);
   auto kernel = flash_bwd_dq_tc_kernel<D>;
@@ -1478,15 +1494,15 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Sk, H, Hkv, causal, window,
-      scale);
+      static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Sk, H, Hkv, dg, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-                          int Sk, int H, int Hkv, int causal, int window, float scale,
+                          int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
                           cudaStream_t stream) {
   const size_t smem = 1024 + sizeof(float) * dkv_smem_floats(D);
   auto kernel = flash_bwd_dkv_tc_kernel<D>;
@@ -1498,7 +1514,7 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), B, Sq,
-      Sk, H, Hkv, causal, window, scale);
+      Sk, H, Hkv, dg, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -1507,17 +1523,30 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 // Plain C entry points. q, dout, out and dq (B, Sq, H, D); k, v, dk and dv
 // (B, Sk, Hkv, D), all contiguous and of one dtype (fp32, or bf16 when
 // `bf16` is 1); lse and delta (B, H, Sq) fp32 contiguous. H % Hkv == 0, D in
-// {64, 128}. causal is 0 or 1; window <= 0 means no window. The forward's
-// ws is an fp32 workspace of B * Hkv * ceil(Sk / 32) * kFwdPlanes * 32 * D
-// floats, 16-byte aligned. Each returns the CUDA error of its launches (0
-// on success).
-#define FLASH_DISPATCH(CALL)                                                      \
-  if (bf16) {                                                                     \
-    if (D == 64) return static_cast<int>(CALL(__nv_bfloat16, 64));                \
-    if (D == 128) return static_cast<int>(CALL(__nv_bfloat16, 128));              \
-  } else {                                                                        \
-    if (D == 64) return static_cast<int>(CALL(float, 64));                        \
-    if (D == 128) return static_cast<int>(CALL(float, 128));                      \
+// {8, 16, 24, 64, 128}. causal is 0 or 1; window <= 0 means no window. The
+// forward's ws is an fp32 workspace of B * Hkv * ceil(Sk / 32) * kFwdPlanes
+// * 32 * max(D, 64) floats, 16-byte aligned. Each returns the CUDA error of
+// its launches (0 on success).
+//
+// The head dims under 64 (the reference's smoke configs: 8, 16, 24) run
+// the D = 64 kernels with dg = D: the tensors' rows are read and
+// written at their own width, and the tiles in shared memory (and the
+// forward's workspace planes) are zero past column dg. The zero columns add
+// exact zeros to S, dP and the products over the rows, and the outputs'
+// columns past dg are not stored, so the values are those of a D-wide
+// kernel. The transposed backward products put D on wgmma's 64-row M side,
+// which is why 64 and not 32 is the floor; the work is that of D = 64
+// (8x the pairs' FLOPs at D = 8), a simple route for the small configs.
+
+#define FLASH_DISPATCH(CALL, T)                                                   \
+  switch (D) {                                                                    \
+    case 8:                                                                       \
+    case 16:                                                                      \
+    case 24:                                                                      \
+    case 64:                                                                      \
+      return static_cast<int>(CALL(T, 64));                                       \
+    case 128:                                                                     \
+      return static_cast<int>(CALL(T, 128));                                      \
   }                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
 
@@ -1526,10 +1555,13 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
                                           int Sk, int H, int Hkv, int D, int causal,
                                           int window, float scale, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(T, DIM)                                                                          \
-  launch_fwd<T, T, DIM, true>(q, k, v, nullptr, nullptr, out, lse, ws, B, Sq, Sk, H, Hkv, \
+#define FWD(T, DIM)                                                                         \
+  launch_fwd<T, T, DIM, true>(q, k, v, nullptr, nullptr, out, lse, ws, B, Sq, Sk, H, Hkv, D, \
                               causal, window, scale, s)
-  FLASH_DISPATCH(FWD)
+  if (bf16) {
+    FLASH_DISPATCH(FWD, __nv_bfloat16)
+  }
+  FLASH_DISPATCH(FWD, float)
 #undef FWD
 }
 
@@ -1543,10 +1575,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int causal, int window, float scale, int bf16,
                                       int kv_int8, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define INFER(T, DIM)                                                                          \
-  launch_infer<T, DIM>(q, k, v, k_scale, v_scale, out, ws, B, Sq, Sk, H, Hkv, causal, window, \
-                       scale, kv_int8, s)
-  FLASH_DISPATCH(INFER)
+#define INFER(T, DIM)                                                                        \
+  launch_infer<T, DIM>(q, k, v, k_scale, v_scale, out, ws, B, Sq, Sk, H, Hkv, D, causal,     \
+                       window, scale, kv_int8, s)
+  if (bf16) {
+    FLASH_DISPATCH(INFER, __nv_bfloat16)
+  }
+  FLASH_DISPATCH(INFER, float)
 #undef INFER
 }
 
@@ -1556,11 +1591,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #define BWD_DISPATCH(TC, SIMT)                                                     \
   if (tensor_cores) {                                                             \
     if (bf16) return static_cast<int>(cudaErrorInvalidValue);                     \
-    if (D == 64) return static_cast<int>(TC(64));                                 \
-    if (D == 128) return static_cast<int>(TC(128));                               \
+    FLASH_DISPATCH(TC, float)                                                     \
   } else if (bf16) {                                                              \
-    if (D == 64) return static_cast<int>(SIMT(64));                               \
-    if (D == 128) return static_cast<int>(SIMT(128));                             \
+    FLASH_DISPATCH(SIMT, __nv_bfloat16)                                           \
   }                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
 
@@ -1571,12 +1604,12 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const
                                              int window, float scale, int bf16,
                                              int tensor_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ_TC(DIM)                                                                       \
-  launch_dq_tc<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, window, scale, \
-                    s)
-#define DQ(DIM)                                                                          \
-  launch_dq<__nv_bfloat16, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal,   \
-                                window, scale, s)
+#define DQ_TC(T, DIM)                                                                       \
+  launch_dq_tc<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window, \
+                       scale, s)
+#define DQ(T, DIM)                                                                          \
+  launch_dq<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window,    \
+                    scale, s)
   BWD_DISPATCH(DQ_TC, DQ)
 #undef DQ_TC
 #undef DQ
@@ -1589,12 +1622,12 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
                                               int causal, int window, float scale, int bf16,
                                               int tensor_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV_TC(DIM)                                                                        \
-  launch_dkv_tc<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal, window, \
+#define DKV_TC(T, DIM)                                                                       \
+  launch_dkv_tc<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,     \
+                        window, scale, s)
+#define DKV(T, DIM)                                                                          \
+  launch_dkv<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, window, \
                      scale, s)
-#define DKV(DIM)                                                                           \
-  launch_dkv<__nv_bfloat16, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv,      \
-                                 causal, window, scale, s)
   BWD_DISPATCH(DKV_TC, DKV)
 #undef DKV_TC
 #undef DKV

@@ -20,6 +20,11 @@ refuses any other pairing, so neither stands in for the other.
 ``<wrapper>.launches_by_kernel`` counts each kernel's launches by the name
 ``route`` gives it. K8's tensor-core grid launches its blocks in
 ``dkv_block_order``.
+
+Head dims 64 and 128, and 8, 16 and 24 (the reference's smoke configs):
+those run the D = 64 kernels (``kernel_dim``), reading and writing the
+tensors' rows at their own width with zeros past it in shared memory and
+in the forward's workspace planes, so the tensors are never padded.
 """
 
 from __future__ import annotations
@@ -33,12 +38,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import DTYPES, check_cuda
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (8, 16, 24, 64, 128)
 # K8's keys a block (kDkvKeys in the source)
 DKV_KEYS = 64
 # the forward's key tile and the hi/lo planes a tile takes in its workspace
 # (kFwdKeys, kFwdPlanes in the source)
 FWD_KEYS, FWD_PLANES = 32, 4
+
+
+def kernel_dim(d: int) -> int:
+    """The head dim the kernels run at for tensors of head dim ``d``: 64
+    for the dims under it (their tiles zero past ``d``), else ``d``."""
+    return max(d, 64)
 
 
 def route(dtype: torch.dtype, d: int, *, forward: bool = False) -> str:
@@ -66,11 +77,12 @@ def dkv_block_order(sk: int, b: int, hkv: int):
 def fwd_workspace(b: int, sk: int, hkv: int, d: int,
                   device: torch.device) -> torch.Tensor:
     """The fp32 workspace of K6 and K10: K and V split once per call into
-    the hi/lo tf32 planes of every 32-key tile of every (batch, KV head),
-    which all the query blocks of the head read."""
+    the hi/lo tf32 planes of every 32-key tile of every (batch, KV head)
+    at the kernels' head dim, which all the query blocks of the head
+    read."""
     tiles = b * hkv * -(-sk // FWD_KEYS)
-    return torch.empty(tiles * FWD_PLANES * FWD_KEYS * d, dtype=torch.float32,
-                       device=device)
+    return torch.empty(tiles * FWD_PLANES * FWD_KEYS * kernel_dim(d),
+                       dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=None)

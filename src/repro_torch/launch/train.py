@@ -7,14 +7,18 @@ its smoke path).
         [--report out.json]
 
 Runs the arch's reduced config in fp32 on the reference's Markov token
-stream and AdamW schedule. ``--engine loop`` (the default, as in the
+stream and AdamW schedule: an LM arch (with zero vision embeddings over
+its first ``vision_tokens`` positions when it has a vision frontend), or
+the encoder-decoder on zero audio frames, as the reference's smoke
+trainer does. ``--engine loop`` (the default, as in the
 reference) drives the checkpointing host-loop ``Trainer``: a checkpoint
 every quarter of the run into ``--ckpt-dir``, the latest one restored
 first with ``--resume`` (params, optimizer state, step and stream), a
 synchronous checkpoint on SIGTERM. ``--engine fused`` drives the
 ``TrainEngine`` (k optimizer steps per tick, one metrics readback per
 tick) and prints its summary; its carbon report's ``train`` block splits
-the modeled energy into forward, backward and optimizer phases. Both print
+the modeled energy into forward, backward and optimizer phases (LM archs
+only: an encoder-decoder arch is refused, use the loop). Both print
 the final metrics and the carbon report. Runs on the card unless
 ``--device cpu`` is given; the report bills ``h100_sxm``, and on the CPU
 its wall-time-derived keys are left out.
@@ -34,6 +38,7 @@ from repro_torch.configs import base as cfgbase
 from repro_torch.core import accounting
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.launch.serve import WALL_KEYS
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.schedules import warmup_cosine
@@ -42,14 +47,12 @@ from repro_torch.train import (TrainConfig, Trainer, TrainEngine,
 from repro_torch.train.ft import HeartbeatWriter
 
 
-def _lm_cfg(arch_id: str, what: str):
+def _smoke_arch(arch_id: str, what: str, kinds=("lm", "encdec")):
     arch = cfgbase.get(arch_id)
-    if arch.kind == "encdec":
-        raise NotImplementedError(f"{arch_id}: encoder-decoder models are "
-                                  f"not ported yet (ROADMAP item 12)")
-    if arch.kind != "lm":
-        raise SystemExit(f"{arch_id}: the {what} trains LM archs")
-    return arch.make_smoke()
+    if arch.kind not in kinds:
+        raise SystemExit(f"{arch_id}: the {what} trains "
+                         f"{' and '.join(kinds)} archs")
+    return arch
 
 
 def _accountant(grid_mix: str) -> accounting.CarbonAccountant:
@@ -66,17 +69,35 @@ def build_smoke_trainer(arch_id: str, *, steps: int, ckpt_dir: Optional[str],
     the Markov stream and warmup-cosine AdamW of the reference's smoke
     trainer, a checkpoint every quarter of ``steps`` into ``ckpt_dir``, a
     heartbeat file when ``heartbeat_dir`` is given, billed to
-    ``h100_sxm``."""
+    ``h100_sxm``. Every batch gets the constant inputs of the reference's
+    smoke trainer (launch/train.py:47-66): an encoder-decoder arch zero
+    ``frames`` (global_batch, n_audio_ctx, d_model), an LM arch with a
+    vision frontend zero ``vision_embeds`` (global_batch, vision_tokens,
+    d_model)."""
     dev = device_lib.resolve(device)
-    cfg = _lm_cfg(arch_id, "Trainer")
-    params = tf_lib.init_lm(cfg, seed=seed, dtype=torch.float32, device=dev)
+    arch = _smoke_arch(arch_id, "Trainer")
+    cfg = arch.make_smoke()
+    if arch.kind == "encdec":
+        params = encdec_lib.init_encdec(cfg, seed=seed, dtype=torch.float32,
+                                        device=dev)
+        extra = {"frames": torch.zeros(
+            (global_batch, cfg.n_audio_ctx, cfg.d_model), device=dev)}
+        model_loss = encdec_lib.loss_fn
+    else:
+        params = tf_lib.init_lm(cfg, seed=seed, dtype=torch.float32,
+                                device=dev)
+        extra = ({"vision_embeds": torch.zeros(
+            (global_batch, cfg.vision_tokens, cfg.d_model), device=dev)}
+            if cfg.vision_tokens else {})
+        model_loss = tf_lib.loss_fn
     pipeline = make_pipeline(DataConfig(
         vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
         seed=seed, source="markov"))
     hb = (HeartbeatWriter(heartbeat_dir, host_id="host0")
           if heartbeat_dir else None)
     return Trainer(
-        loss_fn=lambda p, b: tf_lib.loss_fn(p, cfg, b), params=params,
+        loss_fn=lambda p, b: model_loss(p, cfg, {**b, **extra}),
+        params=params,
         opt_cfg=AdamWConfig(lr=warmup_cosine(lr, max(steps // 10, 1), steps)),
         train_cfg=TrainConfig(num_steps=steps, log_every=max(steps // 10, 1),
                               checkpoint_every=max(steps // 4, 1)),
@@ -91,9 +112,12 @@ def build_smoke_engine(arch_id: str, *, steps: int, grid_mix: str = "NY",
                        lr: float = 3e-3, device="cuda") -> TrainEngine:
     """The arch's smoke config in fp32 with random weights from ``seed``,
     the Markov stream and the warmup-cosine AdamW of the reference's smoke
-    engine, billed to ``h100_sxm``."""
+    engine, billed to ``h100_sxm``. LM archs only, as in the reference:
+    an encoder-decoder smoke run uses the loop engine."""
     dev = device_lib.resolve(device)
-    cfg = _lm_cfg(arch_id, "fused engine")
+    if cfgbase.get(arch_id).kind == "encdec":
+        raise SystemExit(f"{arch_id}: encdec smoke runs use --engine loop")
+    cfg = _smoke_arch(arch_id, "fused engine", kinds=("lm",)).make_smoke()
     params = tf_lib.init_lm(cfg, seed=seed, dtype=torch.float32, device=dev)
     pipeline = make_pipeline(DataConfig(
         vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,

@@ -1,6 +1,6 @@
 """Transformer building blocks of the PyTorch port (mirror of
 ``repro.models.layers``): norms, embeddings, MLP, RoPE and M-RoPE, GQA
-attention.
+attention, and the cross attention of the encoder-decoder family.
 
 Layouts stay the JAX package's: activations (B, S, D), per-head tensors
 (B, S, H, Dh), projection weights ``wq`` (d, h, dh) and ``wo`` (h, dh, d),
@@ -58,6 +58,14 @@ def init_rmsnorm(d: int, lead=(), *, device) -> dict:
     # norm scales stay fp32 whatever the weights' dtype (layers.py:58)
     return {"scale": torch.ones(tuple(lead) + (d,), dtype=torch.float32,
                                 device=device)}
+
+
+def init_layernorm(d: int, lead=(), *, device) -> dict:
+    # scale ones and bias zeros in fp32 whatever the weights' dtype
+    # (layers.py:99-101)
+    shape = tuple(lead) + (d,)
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device),
+            "bias": torch.zeros(shape, dtype=torch.float32, device=device)}
 
 
 def init_embed(vocab: int, d: int, *, generator, device, dtype) -> dict:
@@ -136,6 +144,19 @@ def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return _RMSNorm.apply(x, params["scale"], eps)
 
 
+def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's op order (layers.py:105-113): the mean and the mean
+    of the squares (squared in x's dtype) in fp32, var = E[x^2] - mu^2 and
+    its rsqrt in fp32, then (x - mu) * inv, the scale and the bias in x's
+    dtype, each cast to it first. A bf16 x so rounds where XLA rounds."""
+    mu = torch.mean(x, dim=-1, keepdim=True, dtype=torch.float32)
+    var = torch.mean(x.square(), dim=-1, keepdim=True,
+                     dtype=torch.float32) - mu.square()
+    inv = torch.rsqrt(var + eps)
+    y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
 def embed(params, tokens: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     dt = compute_dtype or params["w"].dtype
     return params["w"][tokens].to(dt)
@@ -155,6 +176,19 @@ def _act(name: str):
             # jax.nn.gelu(approximate=True) is the tanh form
             "gelu": lambda t: F.gelu(t, approximate="tanh"),
             "relu": F.relu}[name]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` as XLA expands it: x * (0.5 * (1 +
+    tanh(sqrt(2/pi) * (x + 0.044715 * (x * x * x))))), the constants and
+    every op rounded to x's dtype (``F.gelu`` rounds a bf16 x once, which
+    differs from XLA in a third of the elements). The encoder-decoder's
+    MLP uses it, so its bf16 blocks give JAX's bits."""
+    def c(v: float) -> float:
+        return float(torch.tensor(v, dtype=x.dtype))
+
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def mlp(params, x: torch.Tensor, act: str = "silu",
@@ -393,6 +427,24 @@ def out_proj(params, cfg: AttnConfig, out: torch.Tensor) -> torch.Tensor:
     wo = wl(wo, out.dtype)
     h, dh, d = wo.shape
     return out.flatten(-2) @ wo.reshape(h * dh, d)
+
+
+def cross_attention(params, cfg: AttnConfig, x: torch.Tensor,
+                    kv_src: torch.Tensor) -> torch.Tensor:
+    """Attention of x (B, Sq, D) over an encoder output kv_src (B, Sk, D)
+    (layers.py:489-503): no rotary embedding, the biases on q, k and v
+    when the config has them, a mask of all ones, the masked ``sdpa``, and
+    ``wo`` through ``wl``."""
+    q = _project(x, params["wq"])
+    k = _project(kv_src, params["wk"])
+    v = _project(kv_src, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    mask = torch.ones((x.shape[0], q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return out_proj(params, cfg, sdpa(q, k, v, mask, cfg.scale))
 
 
 @dataclasses.dataclass

@@ -39,6 +39,11 @@ FLASH_CASES = [
     (13, 16, 2, 2, 8, True, -1, 8, 16),         # sq < sk (chunked prefill)
     (16, 16, 2, 2, 16, True, -1, 16, 8),        # asymmetric blocks
     (9, 9, 2, 2, 8, True, 4, 8, 8),             # odd + window
+] + [
+    # the smoke configs' head dims beyond that matrix's 8 and 16
+    (16, 16, 2, 2, 24, True, -1, 8, 8),         # gemma3-smoke's 24
+    (21, 21, 4, 2, 24, True, 6, 8, 8),          # odd + window + GQA at 24
+    (19, 19, 4, 1, 16, True, -1, 8, 8),         # odd + GQA at 16
 ]
 IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}d{c[4]}{'c' if c[5] else 'f'}"
        f"w{c[6]}b{c[7]}x{c[8]}" for c in FLASH_CASES]

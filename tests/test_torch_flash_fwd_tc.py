@@ -89,13 +89,19 @@ def emulate_fwd(q, k, v, *, scale, causal, window, k_scale=None,
                 v_scale=None, mm=mm3):
     """What the forward kernel computes: q (B, Sq, H, D) fp32 or bf16, k/v
     (B, Sk, Hkv, D) in q's dtype or int8 codes with (B, Sk, Hkv) scales.
-    Returns out (B, Sq, H, D) in q's dtype and lse (B, H, Sq) fp32."""
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    rep = h // hkv
+    Returns out (B, Sq, H, D) in q's dtype and lse (B, H, Sq) fp32. A head
+    dim under 64 runs the D = 64 kernel on tiles zero past it
+    (``flash_attention.kernel_dim``): the walk runs on zero-padded
+    operands and the output keeps the first D columns."""
+    d_in = q.shape[-1]
+    pad = fa.kernel_dim(d_in) - d_in
     kf, vf = k.float(), v.float()
     if k_scale is not None:                     # widened and scaled as stored
         kf, vf = kf * k_scale[..., None], vf * v_scale[..., None]
+    q, kf, vf = (torch.nn.functional.pad(x, (0, pad)) for x in (q, kf, vf))
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
     out = torch.zeros((b, sq, h, d))
     lse = torch.zeros((b, h, sq))
     for q0 in range(0, sq, ROWS):
@@ -125,7 +131,7 @@ def emulate_fwd(q, k, v, *, scale, causal, window, k_scale=None,
         out[:, q0:q0 + n_q] = (acc / den[..., None]).permute(
             0, 2, 1, 3)[:, :n_q]
         lse[:, :, q0:q0 + n_q] = (m + torch.log(den))[..., :n_q]
-    return out.to(q.dtype), lse
+    return out[..., :d_in].to(q.dtype), lse
 
 
 # (sq, sk, h, hkv, d, causal, window): both head dims; ragged lengths
@@ -140,11 +146,19 @@ CASES = [
 ]
 IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}d{c[4]}{'c' if c[5] else 'f'}w{c[6]}"
        for c in CASES]
+# the smoke configs' head dims (the D = 64 kernel on tiles zero past d)
+SMALL = [
+    (130, 130, 4, 2, 8, True, -1),
+    (67, 96, 3, 1, 16, True, -1),
+    (96, 96, 2, 2, 24, True, 40),
+]
+SMALL_IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}d{c[4]}{'c' if c[5] else 'f'}"
+             f"w{c[6]}" for c in SMALL]
 
 
 def _inputs(case):
     sq, sk, h, hkv, d, _, _ = case
-    rng = np.random.default_rng(CASES.index(case))
+    rng = np.random.default_rng((CASES + SMALL).index(case))
     shapes = ((1, sq, h, d), (1, sk, hkv, d), (1, sk, hkv, d))
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
@@ -193,6 +207,15 @@ def test_split_numerics_within_the_card_gate(case):
     assert max(errs) <= FP32_GATE / 10, errs
 
 
+@pytest.mark.parametrize("case", SMALL, ids=SMALL_IDS)
+def test_small_dims_within_the_card_gate(case):
+    """Head dims 8, 16 and 24 on the D = 64 kernel's zero-padded tiles:
+    out and lse within the fp32 gate's 10x margin of the Pallas
+    forward's."""
+    errs = _rel_errs(_emulated(case, mm3), _jax_fwd(case))
+    assert max(errs) <= FP32_GATE / 10, errs
+
+
 def test_plain_tf32_is_worse_than_the_split():
     """The split is needed: hi * hi' alone (plain TF32, about 2^-11 an
     operand) is at least 10x further from the Pallas forward than the
@@ -211,7 +234,7 @@ def test_plain_tf32_is_worse_than_the_split():
 
 
 @pytest.mark.parametrize("s,window", [(96, -1), (130, 50)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128])
 def test_int8_kv_within_the_card_gate(s, window, d):
     """K10's int8-KV mode: codes times their row's scale in fp32, then the
     split, against the Pallas kernel's int8-KV mode (``ops.flash_attention``
@@ -249,10 +272,10 @@ def test_bf16_operands_are_tf32_exact():
     assert lo_scaled.any()
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [8, 16, 24, 64, 128])
 def test_forward_route(d):
-    """K6 and K10 run their tensor-core kernel for fp32 and bf16 q at both
-    head dims (the backward routes bf16 to SIMT); any other dtype or head
+    """K6 and K10 run their tensor-core kernel for fp32 and bf16 q at every
+    head dim (the backward routes bf16 to SIMT); any other dtype or head
     dim has no kernel."""
     for dt in (torch.float32, torch.bfloat16):
         assert fa.route(dt, d, forward=True) == "tensor_cores"

@@ -35,6 +35,9 @@ CASES = [
     (24, 24, 2, 2, 8, True, 7),
     (16, 16, 2, 2, 8, False, -1),
     (9, 9, 2, 2, 8, True, 4),
+    # the smoke configs' other head dims: 16 and gemma3-smoke's 24
+    (16, 16, 4, 4, 16, True, -1),
+    (21, 21, 3, 1, 24, True, 5),
 ]
 IDS = [f"sq{c[0]}h{c[2]}kv{c[3]}{'c' if c[5] else 'f'}w{c[6]}" for c in CASES]
 

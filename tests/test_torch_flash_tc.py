@@ -16,6 +16,8 @@ each over 32-query tiles.
 Held against the JAX Pallas backward in interpret mode, at chip_smoke.py's
 fp32 gate (1e-4 of the max), they show the design can pass the card's
 gate, and that plain TF32 (hi * hi' only) at the same inputs does not.
+The head dims under 64 (8, 16, 24: the smoke configs') run the D = 64
+kernels on tiles zero past d, which the emulation does too.
 The routing rule and K8's block order are checked as pure functions.
 """
 
@@ -161,41 +163,50 @@ CASES = [
 IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}{'c' if c[4] else 'f'}w{c[5]}"
        for c in CASES]
 D = 64
-SCALE = D ** -0.5
 
 
-def _inputs(case):
+def _inputs(case, d=D):
     sq, sk, h, hkv, _, _ = case
     rng = np.random.default_rng(CASES.index(case))
-    shapes = ((1, sq, h, D), (1, sk, hkv, D), (1, sk, hkv, D), (1, sq, h, D))
+    shapes = ((1, sq, h, d), (1, sk, hkv, d), (1, sk, hkv, d), (1, sq, h, d))
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
 
-def _jax_grads(case):
+def _jax_grads(case, d=D):
     """JAX's dq, dk, dv through the Pallas backward in interpret mode."""
     sq, sk, h, hkv, causal, window = case
-    q, k, v, ct = _inputs(case)
+    q, k, v, ct = _inputs(case, d)
 
     def f(q, k, v):
         return j_ops.flash_attention_train(
-            q, k, v, scale=SCALE, causal=causal, window=window, block_q=32,
-            block_k=32, interpret=True)
+            q, k, v, scale=d ** -0.5, causal=causal, window=window,
+            block_q=32, block_k=32, interpret=True)
 
     _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
     return [np.asarray(x, np.float32) for x in vjp(jnp.asarray(ct))]
 
 
-def _emulated(case, mm):
+def _pad(x, dk):
+    """x's last dim zero-padded to dk: the kernels' tiles in shared memory
+    at a head dim under 64 (``flash_attention.kernel_dim``)."""
+    return torch.nn.functional.pad(x, (0, dk - x.shape[-1]))
+
+
+def _emulated(case, mm, d=D):
     """The kernels' dq, dk, dv, from the port's plain forward's out and
-    lse as the backward on the card gets them."""
+    lse as the backward on the card gets them; at a head dim under 64 the
+    walks run on tiles zero-padded to 64 columns, and the outputs' first d
+    columns are kept."""
     sq, sk, h, hkv, causal, window = case
-    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(case))
-    kw = dict(scale=SCALE, causal=causal, window=window)
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(case, d))
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
     out, lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
     delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+    dk_ = fa.kernel_dim(d)
+    q, k, v, dout = (_pad(x, dk_) for x in (q, k, v, dout))
     dq = emulate_dq(q, k, v, dout, lse, delta, mm=mm, **kw)
     dk, dv = emulate_dkv(q, k, v, dout, lse, delta, mm=mm, **kw)
-    return [x.numpy() for x in (dq, dk, dv)]
+    return [x[..., :d].numpy() for x in (dq, dk, dv)]
 
 
 def _rel_errs(got, want):
@@ -208,6 +219,15 @@ def test_split_numerics_within_the_card_gate(case):
     """3xTF32 in the kernels' tile walks: dq, dk and dv within 1e-4 of the
     max of JAX's (with a margin of 10x: about 2^-21 a product)."""
     errs = _rel_errs(_emulated(case, mm3), _jax_grads(case))
+    assert max(errs) <= FP32_GATE / 10, errs
+
+
+@pytest.mark.parametrize("d", [8, 16, 24])
+@pytest.mark.parametrize("case", CASES[:2], ids=IDS[:2])
+def test_small_dims_within_the_card_gate(case, d):
+    """The smoke configs' head dims run the D = 64 kernels on tiles zero
+    past d: the same 3xTF32 walks within the fp32 gate's 10x margin."""
+    errs = _rel_errs(_emulated(case, mm3, d), _jax_grads(case, d))
     assert max(errs) <= FP32_GATE / 10, errs
 
 
@@ -238,10 +258,12 @@ def test_tf32_rounding():
     assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2 ** -22
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [8, 16, 24, 64, 128])
 def test_route(d):
-    """fp32 runs the tensor-core kernels at both head dims, bf16 the SIMT
-    kernels; any other dtype or head dim has no kernel."""
+    """fp32 runs the tensor-core kernels at every head dim, bf16 the SIMT
+    kernels; any other dtype or head dim has no kernel. The dims under 64
+    run the D = 64 kernels."""
+    assert fa.kernel_dim(d) == max(d, 64)
     assert fa.route(torch.float32, d) == "tensor_cores"
     assert fa.route(torch.bfloat16, d) == "simt"
     with pytest.raises(ValueError):
