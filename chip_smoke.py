@@ -20,7 +20,9 @@ and full depth on the dense serve path), the encoder-decoder family
 (whisper-large-v3 at full width and full depth: encode, greedy decode,
 the teacher-forced decoder through K6, and its Trainer), the training
 launcher's smoke run on the card for every LM and encoder-decoder arch,
-the fused training tick at full width and 8 layers, the checkpointing
+the families' training at full width (gemma3-27b, zamba2-7b and
+moonshot-v1-16b-a3b at reduced depth, mamba2-1.3b at full depth), the
+fused training tick at full width and 8 layers, the checkpointing
 Trainer on the ~100M e2e model at full size, the port's train and kernel
 benches, and the paper's ternary AlexNet and VGG-16 at full size.
 Phases, each printing JSON lines; any failure raises, so the script exits
@@ -74,8 +76,10 @@ non-zero and prints no result:
    its route names (read from the counters); and K1, K2, K5 (T = 5) and
    K3 at gemma3-27b's heads (32 on 16 KV heads of 168), windows -1 and
    1024, in the two serve modes (bf16 q over the fp32 and the int8
-   cache), timed as at D = 128 (phase ``kernels_d168``), and at
-   kimi-k2's (64 on 8 KV heads of 112), no window (``kernels_d112``);
+   cache; K3 in every bf16-q mode, over bf16 and int8 pools on its
+   tensor cores at 168 and 112, the route asserted), timed as at D = 128
+   (phase ``kernels_d168``), and at kimi-k2's (64 on 8 KV heads of 112),
+   no window (``kernels_d112``);
    K1 alone also at zamba2-7b's (32 on 32 KV heads of 112: a group of
    one), no window, the same two modes (``kernels_zamba2``);
    K3's checks hold every lane of a live row, the padding lanes past its
@@ -259,6 +263,15 @@ non-zero and prints no result:
    route, and at S 67; timed at B 8, S 64 with kimi-k2's (D 8),
    starcoder2's (D 16) and gemma3's (D 24) smoke heads, fp32 and bf16, by
    device time, beside the plain versions, causal SDPA and the bounds;
+4e. flash kernels at head dims 112 and 168 (``flash_wide_dims``): the
+   same checks at kimi-k2's heads (64 on 8 of 112), zamba2-7b's (32 on
+   32 of 112) and gemma3-27b's (32 on 16 of 168, windows -1 and 1024) at
+   S 2048, then ragged lengths (1000 with a window of 300; Sq 100 < Sk
+   128 at a group of 9; a non-causal case; one key), fp32 and bf16, each
+   call on the kernel its route names (112 on the D = 128 kernels; 168 on
+   the forward's own D = 168 kernel and, in fp32 as in bf16, the SIMT
+   backward at 192 columns); timed at kimi-k2's and gemma3-27b's heads,
+   B 1, S 2048, as in 4d;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
    asserted); then the serve params are freed;
@@ -271,7 +284,7 @@ non-zero and prints no result:
    engines' streams identical; then the same draws in bf16 on the paged
    engine, unquantized and int8 (K4), their agreement with the fp32
    streams reported; every run's launches checked (every layer, on the
-   SIMT kernels at D = 168);
+   SIMT kernels at D = 168; K3 on its tensor cores in the int8 run);
 9c. granite-34b, qwen1.5-110b and qwen2-vl-72b at full width, 2 layers,
    bf16: 4 requests of 100-400 tokens x 16 on the paged engine, streams
    and launches;
@@ -290,8 +303,10 @@ non-zero and prints no result:
    published factor on the paged engine, at 16 layers (agreement with
    the fp32 streams, routes dropped) and at full depth (8 slots, 3
    decode ticks profiled); kimi-k2 at full width and one layer, bf16,
-   paged and speculative (K2, K3, K5 on SIMT at D 112, one tick set
-   profiled); every run's launches checked;
+   paged and speculative over the fp32 cache (K2, K3, K5 on SIMT at D
+   112, one tick set profiled), and paged over a bf16 cache (K3 on its
+   tensor cores; agreement with the fp32 cache's streams reported);
+   every run's launches checked;
 9e. the SSD/hybrid family (``ssd_scan``, ``ssm_family``), the dense
    serve path only (the paged path refuses SSD archs, as the reference's
    does), ``conv_b``/``conv_c`` of every SSD block drawn N(0, 0.2) from
@@ -332,6 +347,21 @@ non-zero and prints no result:
    and encoder-decoder arch of the registry: a finite loss, K6 = K7 = K8
    for every arch whose training attention takes the flash route (qwen2-vl's
    M-RoPE and mamba2 launch none), no other kernel;
+9h. the families' training on the card (``family_train``): gemma3-27b
+   at full width cut to 3 sliding-window layers (1024) and a global one,
+   zamba2-7b to 2 of its 13 groups (two sites of its shared block),
+   moonshot-v1-16b-a3b to 2 of its 48 layers, mamba2-1.3b at full depth;
+   fp32, AdamW, B 1 x S 2048 synthetic tokens (mamba2's S 1024), SSD
+   blocks on live ``conv_b``/``conv_c``: for each arch with attention one
+   step's loss and gradients through K6-K8 against the masked ``sdpa``
+   route (the loss within 1e-6 relative, each leaf within 1e-5 of its max,
+   an SSD block's per-head scalars within 1e-4, key biases held to
+   noise), then 3 Trainer steps with
+   finite losses (moonshot's aux loss above zero), K6 = K7 = K8 = the
+   attention layers a step, each on the kernel its route names; s/step
+   with the first step apart, peak memory, parameters and their 16 bytes
+   a parameter, then one more step profiled (device time by kernel, busy
+   share);
 10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
    of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
    ``sdpa`` route (explicit positions), the loss within 1e-5 and each
@@ -376,8 +406,8 @@ non-zero and prints no result:
    ``kernels_d168`` and ``kernels_d112`` rows at the int8 mode; K1's also
    with its ``kernels_zamba2`` row as ``d112_zamba2``; K6's, K7's, K8's
    and K10's with the head dims of the counted runs that launched them
-   and their fp32 ``flash_small_dims`` rows as ``d8``, ``d16``,
-   ``d24``), then the result line
+   and their fp32 ``flash_small_dims`` and ``flash_wide_dims`` rows as
+   ``d8``, ``d16``, ``d24``, ``d112``, ``d168``), then the result line
    ``{"ok": true, "device": ...}``.
 
 Every counter is set to 0 just before each serve, train, trainer, bench
@@ -810,7 +840,7 @@ def _dequantized(library, kv_pos):
 
 def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                   iters, kv_pos, extra=None, device_time=False, route=None,
-                  modes=MODES, windows=WINDOWS):
+                  modes=MODES, windows=WINDOWS, kv_arg=1):
     """Hold ``kernel`` against ``plain`` in every mode and window, time the
     kernel, the plain version and the library call, and return the rows of
     the main path's modes (``MAIN_FP``, ``MAIN_INT8``). ``inputs(q_dtype,
@@ -827,7 +857,8 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
     a wrapper with per-kernel counters (``launches_by_kernel``) reports
     the kernel the checked call launched as the row's route, which must be
     the one that ``route(q dtype, K/V dtype, head dim)`` names (the split
-    body's ``route``, for K1, K2 and K5) when both are there. ``modes``
+    body's ``route``, for K1, K2 and K5; K3's own, with its pool at
+    ``kv_arg`` 3) when both are there. ``modes``
     and ``windows`` narrow the checked and timed calls; the softmax scale
     is q's head dim ** -0.5."""
     import torch
@@ -884,7 +915,7 @@ def _check_kernel(name, kernel, plain, library, inputs, bound, dead, cold,
                     timed(fns[2]), max(iters // 2, 4))})
             if counts is not None:
                 row["route"] = ran[0] if len(ran) == 1 else ran
-                rule = route and route(args[0].dtype, args[1].dtype,
+                rule = route and route(args[0].dtype, args[kv_arg].dtype,
                                        args[0].shape[-1])
                 if rule and row["route"] != rule:
                     raise AssertionError(
@@ -1534,6 +1565,10 @@ G3_MODES = tuple(m for m in MODES if (m[0], m[1]) in (MAIN_FP[:2],
 # kimi-k2-1t-a32b's heads at full width (64 query heads on 8 KV heads of
 # 112), no window: the same calls
 KIMI_HEADS = (64, 8, 112)
+# K3 at those heads in every bf16-q mode: its tensor-core kernel over the
+# bf16 and the int8 pool (D = 112 and 168 on tiles of 128 and 192
+# columns), its SIMT kernel over the fp32 one
+K3_WIDE_MODES = tuple(m for m in MODES if m[0] == "bfloat16")
 
 
 def phase_kernels_d168():
@@ -1550,9 +1585,10 @@ def phase_kernels_d112():
 
 
 def _kernels_at_heads(phase, heads, windows):
-    """K1, K2, K5 (T = 5) and K3 at ``heads`` (H, Hkv, D), in the two
-    serve modes and ``windows``, checked and timed as at D = 128. Returns
-    each kernel's MAIN_INT8 row."""
+    """K1, K2, K5 (T = 5) at ``heads`` (H, Hkv, D), in the two serve modes
+    and ``windows``, and K3 in every bf16-q mode (its tensor-core kernel
+    over bf16 and int8 pools, asserted from its counters), checked and
+    timed as at D = 128. Returns each kernel's MAIN_INT8 row."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import paged_decode_attention as k2
@@ -1590,8 +1626,8 @@ def _kernels_at_heads(phase, heads, windows):
             lambda q, kv: _prefill_inputs(q, kv, heads),
             lambda a, w: _prefill_bound(a[0], a[1], a[3], a[6], a[7], w),
             dead=_dead_rows(CHUNK_LENS, CHUNK),
-            cold=(3, 4), iters=16, kv_pos=(3, 4), modes=G3_MODES,
-            windows=windows)}
+            cold=(3, 4), iters=16, kv_pos=(3, 4), modes=K3_WIDE_MODES,
+            windows=windows, route=k3.route, kv_arg=3)}
     emit({"phase": phase, "heads": list(heads),
           "seconds": time.monotonic() - t0})
     return {name: r[MAIN_INT8] for name, r in rows.items()}
@@ -2533,7 +2569,7 @@ def _smoke_flash_heads():
     return heads
 
 
-def _time_flash(b, s, h, hkv, d, q_name):
+def _time_flash(b, s, h, hkv, d, q_name, phase="flash_small_dims"):
     """K6, K7, K8 and K10 (K/V in q's dtype) at (B, S, H, Hkv, D), causal,
     no window, N(0, 1) inputs: device ms (torch.profiler), the plain
     versions' ms (CUDA events), the library calls' device ms (causal SDPA
@@ -2599,7 +2635,7 @@ def _time_flash(b, s, h, hkv, d, q_name):
                             _rel_err(o10, w_out)[0], plain_fwd, lib_fwd)}
     rows = {}
     for name, (fn, err, plain_ms, library_ms) in calls.items():
-        rows[name] = {"phase": "flash_small_dims", "kernel": name,
+        rows[name] = {"phase": phase, "kernel": name,
                       "q": q_name, "B": b, "S": s, "H": h, "Hkv": hkv,
                       "D": d, "kernel_dim": fa.kernel_dim(d),
                       "ms": device_ms(fn, 10), "max_abs_err": err,
@@ -2643,6 +2679,61 @@ def phase_flash_small_dims():
                       if arch in archs)
         for q_name in FLASH_TOL:
             r = _time_flash(SMALL_B, SMALL_S, h, hkv, d, q_name)
+            if q_name == "float32":
+                timed[d] = r
+        torch.cuda.empty_cache()
+    return timed
+
+
+# The head dims 112 (kimi-k2's and zamba2's: the D = 128 kernels on tiles
+# zero past 112) and 168 (gemma3-27b's: the forward's own D = 168 kernel,
+# the backward's SIMT kernels at 192 columns), (B, Sq, Sk, H, Hkv, D,
+# causal, window): each config's heads at S 2048 (gemma3's without and
+# with its window of 1024), then ragged lengths, a group of 9, a
+# non-causal case and one key; checked in fp32 and bf16
+# (``_check_flash_case``), then timed at WIDE_TIMED's heads
+WIDE_FLASH = ((1, 2048, 2048, 32, 16, 168, True, -1),
+              (1, 2048, 2048, 32, 16, 168, True, 1024),
+              (1, 2048, 2048, 64, 8, 112, True, -1),
+              (1, 2048, 2048, 32, 32, 112, True, -1),
+              (2, 1000, 1000, 64, 8, 112, True, 300),
+              (2, 1000, 1000, 32, 16, 168, True, 300),
+              (2, 100, 128, 9, 1, 168, True, -1),
+              (2, 65, 65, 3, 3, 112, False, 300),
+              (2, 1, 1, 4, 4, 168, True, -1))
+WIDE_TIMED = {112: (64, 8), 168: (32, 16)}
+
+
+def phase_flash_wide_dims():
+    """K6, K7, K8 and K10 at head dims 112 and 168: checked at the
+    WIDE_FLASH cases in fp32 and bf16, each call on its route's kernel,
+    then timed (``_time_flash``) at B 1, S 2048 with kimi-k2's heads (64 on
+    8 of 112) and gemma3-27b's (32 on 16 of 168). Returns the fp32 rows by
+    dim and kernel."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    rows = []
+    for case in WIDE_FLASH:
+        for q_name in FLASH_TOL:
+            before = {fn.__name__: dict(fn.launches_by_kernel)
+                      for fn in _train_flash_counters()}
+            rows.append(_check_flash_case(gen, *case, q_name))
+            ran = {fn.__name__: [k for k, n in fn.launches_by_kernel.items()
+                                 if n != before[fn.__name__][k]]
+                   for fn in _train_flash_counters()}
+            want = rows[-1]["kernel"]
+            if ran != {"flash_attention_fwd": [want["forward"]],
+                       "flash_attention_bwd_dq": [want["backward"]],
+                       "flash_attention_bwd_dkv": [want["backward"]]}:
+                raise AssertionError(f"flash kernels at {case}, {q_name} "
+                                     f"ran {ran}, not {want}")
+            torch.cuda.empty_cache()
+    emit({"phase": "flash_wide_dims", "cases": rows})
+    timed = {}
+    for d, (h, hkv) in WIDE_TIMED.items():
+        for q_name in FLASH_TOL:
+            r = _time_flash(1, FLASH_S, h, hkv, d, q_name,
+                            "flash_wide_dims")
             if q_name == "float32":
                 timed[d] = r
         torch.cuda.empty_cache()
@@ -2756,18 +2847,22 @@ def _reset_flash_kernels():
             fn.launches_by_kernel[key] = 0
 
 
-def _flash_on_tensor_cores(phase):
+def _flash_on_route(phase, head_dim=128):
     """K6's, K7's and K8's per-kernel counts since
-    ``_reset_flash_kernels``; every launch of the fp32 training attention
-    must have gone through the tensor-core kernels."""
+    ``_reset_flash_kernels``: every launch of the fp32 training attention
+    on the kernel ``route`` names at ``head_dim``, the tensor cores at
+    every head dim but 168 (there K7 and K8 run SIMT)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
     by_kernel = {fn.__name__: dict(fn.launches_by_kernel)
                  for fn in _train_flash_counters()}
     for fn in _train_flash_counters():
-        if fn.launches_by_kernel.get("tensor_cores") != fn.launches or any(
-                n for kernel, n in fn.launches_by_kernel.items()
-                if kernel != "tensor_cores"):
+        want = fa.route(torch.float32, head_dim,
+                        forward=fn is fa.flash_attention_fwd)
+        if fn.launches_by_kernel.get(want) != fn.launches:
             raise AssertionError(f"{phase}: the fp32 flash attention ran "
-                                 f"off the tensor-core kernels: {by_kernel}")
+                                 f"off its route's {want} kernels at "
+                                 f"head_dim {head_dim}: {by_kernel}")
     return by_kernel
 
 
@@ -2812,7 +2907,7 @@ def phase_train_parity():
         results[route] = (loss.detach(), grads,
                           {n: fn.launches for n, fn in counters.items()})
         if route == "flash":
-            by_kernel = _flash_on_tensor_cores("train parity")
+            by_kernel = _flash_on_route("train parity")
     (l_f, g_f, launches), (l_s, g_s, sdpa_launches) = (results["flash"],
                                                        results["sdpa"])
     loss_rel = float((l_f - l_s).abs() / l_s.abs())
@@ -2906,7 +3001,7 @@ def phase_train():
     eng.run(steps)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    by_kernel = _flash_on_tensor_cores("train")
+    by_kernel = _flash_on_route("train")
     want = {n: (steps * TRAIN_LAYERS if n in TRAIN_FLASH else 0)
             for n in counters}
     log = np.concatenate(eng.step_log)
@@ -3042,7 +3137,7 @@ def phase_trainer():
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
-        by_kernel = _flash_on_tensor_cores("trainer")
+        by_kernel = _flash_on_route("trainer")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = {name: (2 * n * cfg.n_layers if name in TRAIN_FLASH else 0)
                 for name in counters}
@@ -4142,22 +4237,25 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
     # which of K1's, K2's, K3's, K4's and K5's kernels ran: the one their
     # route names for the activations' dtype, the cache's and the head dim
     # (bf16 q over the int8 cache at D = 128 on K1's, K2's, K3's and K5's
-    # tensor cores; over the fp32 cache, fp32 q or another head dim on their
-    # SIMT kernels); bf16 x on
+    # tensor cores, and at 112 and 168 on K3's; over the fp32 cache, fp32 q
+    # or another head dim on their SIMT kernels); bf16 x on
     # K4's wgmma kernel (M > 8: admission and extend calls, the spec ticks'
     # 40 rows) and its decode kernel (M <= 8: the 8 slots of a decode tick,
     # an extend call of a few tokens), never its SIMT one
     from repro_torch.kernels import paged_decode_attention as k2
+    from repro_torch.kernels import paged_prefill_attention as k3
     k3_by = by_kernel["paged_prefill_attention"]
     k4_by = by_kernel["int8_matmul"]
     q_dtype = eng.params["embed"]["w"].dtype
     kv_dtype = torch.int8 if int8 else eng.scfg.cache_dtype
     head_dim = eng.cfg.resolved_head_dim
     attn_kernel = k2.route(q_dtype, kv_dtype, head_dim)
+    k3_kernel = k3.route(q_dtype, kv_dtype, head_dim)
     for name in ATTENTION_KERNELS:
         if launches[name]:
             MAIN_HEAD_DIMS.setdefault(name, set()).add(head_dim)
-    if any(by_kernel[name][attn_kernel] != launches[name]
+    if any(by_kernel[name][k3_kernel if name == "paged_prefill_attention"
+                           else attn_kernel] != launches[name]
            for name in ("decode_attention", "paged_decode_attention",
                         "paged_prefill_attention",
                         "paged_verify_attention")) or (
@@ -4167,7 +4265,7 @@ def _serve_run(phase, eng, acct, prompts, n_new, n_best=1, hits=True):
             f"{phase}: K1 ran {by_kernel['decode_attention']}, K2 ran "
             f"{by_kernel['paged_decode_attention']}, K3 "
             f"{k3_by}, K5 {by_kernel['paged_verify_attention']} (all on "
-            f"{attn_kernel} expected), K4 ran {k4_by}")
+            f"{attn_kernel} expected, K3 on {k3_kernel}), K4 ran {k4_by}")
     row = {"phase": phase, "arch": eng.cfg.name,
            "layers": eng.cfg.n_layers, "attention_layers": layers,
            "head_dim": head_dim,
@@ -5293,7 +5391,8 @@ def phase_moe():
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    # kimi-k2 at full width, one layer, bf16: paged and speculative
+    # kimi-k2 at full width, one layer, bf16: paged and speculative, and
+    # paged over a bf16 cache (K3 on its tensor cores at D 112)
     kcfg = dataclasses.replace(cfgbase.get("kimi-k2-1t-a32b").make_config(),
                                repeats=1)
     kparams = tf_lib.init_lm(kcfg, seed=SEED, dtype=torch.bfloat16,
@@ -5303,7 +5402,9 @@ def phase_moe():
     kstreams = {}
     for name, scfg in (("paged", paged_cfg),
                        ("spec", dataclasses.replace(paged_cfg,
-                                                    spec_k=SPEC_K))):
+                                                    spec_k=SPEC_K)),
+                       ("paged_bf16_cache", dataclasses.replace(
+                           paged_cfg, cache_dtype=torch.bfloat16))):
         t0 = time.monotonic()
         acct = _accountant()
         launches, kstreams[name], _ = _serve_run(
@@ -5325,6 +5426,8 @@ def phase_moe():
           "agreement_with_fp32": agreement,
           "kimi_paged_spec_agreement": generation_agreement(
               kstreams["spec"], kstreams["paged"]),
+          "kimi_bf16_cache_agreement": generation_agreement(
+              kstreams["paged_bf16_cache"], kstreams["paged"]),
           **report, "run_seconds": seconds,
           "seconds": time.monotonic() - t_start})
     return runs
@@ -5703,7 +5806,7 @@ def phase_encdec():
                 tf = encdec.decode_train(params, cfg, fed, enc_out)
                 torch.cuda.synchronize()
                 launches = {n: fn.launches for n, fn in counters.items()}
-                by_kernel = _flash_on_tensor_cores("encdec")
+                by_kernel = _flash_on_route("encdec")
                 tf = tf[..., :cfg.vocab].float()
                 scale = max(1.0, float(tf.abs().max()))
                 err = float((step_logits - tf).abs().max())
@@ -5838,7 +5941,7 @@ def phase_encdec_train():
                           {n: fn.launches for n, fn in counters.items()})
         del loss, grads
         if route == "flash":
-            by_kernel = _flash_on_tensor_cores("encdec train parity")
+            by_kernel = _flash_on_route("encdec train parity")
     (l_f, g_f, launches_f), (l_s, g_s, launches_s) = (results["flash"],
                                                       results["sdpa"])
     g_max = max(float(g.abs().max()) for g in g_s)
@@ -5878,7 +5981,7 @@ def phase_encdec_train():
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {n: fn.launches for n, fn in counters.items()}
-    by_kernel = _flash_on_tensor_cores("encdec trainer")
+    by_kernel = _flash_on_route("encdec trainer")
     losses = [e["loss"] for e in tr.metrics_log]
     row = {"phase": "encdec_train", "layers": [cfg.n_enc_layers,
                                                cfg.n_dec_layers],
@@ -5939,12 +6042,240 @@ def phase_encdec_train():
                      if n not in TRAIN_FLASH)
         if not (math.isfinite(final["loss"]) and flash_ok and others):
             raise AssertionError(f"launch.train --smoke on the card: {r}")
-        _flash_on_tensor_cores(f"launch.train {arch}")
+        _flash_on_route(f"launch.train {arch}")
         if heads is not None:
             _add_flash_dims(launches, heads[2])
         runs.append(launches)
     emit({"phase": "launch_train_smoke", "steps": LAUNCHER_STEPS,
           "runs": rows})
+    return runs
+
+
+# The families' training on the card at full width (the reference trains
+# each on its chip): gemma3-27b cut to 3 sliding-window layers (window
+# 1024) and 1 global one, zamba2-7b to 2 of its 13 groups (5 SSD layers
+# and a site of the shared attention block each), moonshot-v1-16b-a3b to
+# 2 of its 48 MoE layers, mamba2-1.3b at full depth; fp32 with AdamW, B 1
+# x S 2048 (past gemma3's window, so the window cuts keys), mamba2's 1024
+# (its 48 chunked scans keep ~1.2 GB of activations a layer at 2048,
+# which with its 21.5 GB of state passed the card). The depths from 16
+# bytes a parameter (fp32 weight, gradient and AdamW's two moments) plus
+# activations within the card's 80 GB: PERF.md section 4.
+# The Markov source's table is vocab x vocab (550 GB at gemma3's 262,144
+# tokens): the tokens are the synthetic source's, as encdec_train's.
+# kimi-k2-1t-a32b stays off: one layer's 16.9 G expert parameters are 270
+# GB at 16 bytes a parameter.
+# arch -> S
+FAMILY_TRAIN = {"gemma3-27b": 2048, "zamba2-7b": 2048,
+                "moonshot-v1-16b-a3b": 2048, "mamba2-1.3b": 1024}
+FAMILY_TRAIN_B, FAMILY_TRAIN_STEPS = 1, 3
+# one step through K6-K8 against the same step through the masked sdpa
+# (the plain math of kernels/ref.py): the loss within FAMILY_LOSS_TOL
+# relative, each leaf within FAMILY_LEAF_TOL of its max; a key bias's
+# gradient (zero in exact arithmetic) below ENCDEC_BK_NOISE of the
+# largest gradient in both. An SSD block's per-head scalars (a_log,
+# dt_bias, d_skip) get a gradient summed over every position and channel
+# of the head, which cancels to 0.4-1.7% of the largest gradient: the two
+# routes' ~1e-6 differences there reached 2.5e-5 of the leaf's own max in
+# zamba2-7b's full-width step, and are held to FAMILY_SCALAR_TOL
+FAMILY_LOSS_TOL, FAMILY_LEAF_TOL, FAMILY_SCALAR_TOL = 1e-6, 1e-5, 1e-4
+FAMILY_SCALAR_LEAVES = (".ssd.a_log", ".ssd.dt_bias", ".ssd.d_skip")
+
+
+def _family_train_cfg(arch):
+    """``arch``'s config at full width, cut to the depth FAMILY_TRAIN's
+    comment gives."""
+    from repro_torch.configs import base as cfgbase
+    full = cfgbase.get(arch).make_config()
+    if arch == "gemma3-27b":
+        local, glob = full.pattern[0], full.pattern[-1]
+        return dataclasses.replace(full, pattern=(local,) * 3 + (glob,),
+                                   repeats=1, tail=())
+    if arch == "zamba2-7b":
+        return dataclasses.replace(full, repeats=2, tail=())
+    if arch == "moonshot-v1-16b-a3b":
+        return dataclasses.replace(full, repeats=2)
+    return full
+
+
+def _family_parity(arch, cfg, params, batch, counters, attn_layers):
+    """One step's loss and gradients through K6-K8 against the masked
+    sdpa's (explicit arange positions), held to FAMILY_LOSS_TOL and
+    FAMILY_LEAF_TOL. Returns the row."""
+    import torch
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.models.common import flatten
+    leaves, _ = flatten(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    names = [".".join(p) for p in _leaf_paths(params)]
+    b, s = batch["tokens"].shape
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    results = {}
+    for route, extra in (("flash", {}), ("sdpa", {"positions": pos})):
+        for fn in counters.values():
+            fn.launches = 0
+        _reset_flash_kernels()
+        with torch.enable_grad():
+            loss, metrics = tf_lib.loss_fn(params, cfg, {**batch, **extra})
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        results[route] = (loss.detach(), float(metrics["aux"].detach()),
+                          [g.detach() for g in grads],
+                          {n: fn.launches for n, fn in counters.items()})
+        del loss, grads
+        if route == "flash":
+            by_kernel = _flash_on_route(f"{arch} train parity",
+                                        cfg.resolved_head_dim)
+    (l_f, aux_f, g_f, launches_f), (l_s, aux_s, g_s, launches_s) = (
+        results["flash"], results["sdpa"])
+    del results
+    g_max = max(float(g.abs().max()) for g in g_s)
+    loss_rel = float((l_f - l_s).abs() / l_s.abs())
+    leaf_rels, bk_max = {}, 0.0
+    for name, a, c in zip(names, g_f, g_s):
+        if name.endswith(".bk"):
+            bk_max = max(bk_max, float(a.abs().max()), float(c.abs().max()))
+            continue
+        leaf_rels[name] = (float((a - c).abs().max()
+                                 / c.abs().max().clamp_min(1e-30)),
+                           float(c.abs().max()) / g_max)
+    scalar = {n: r for n, (r, _) in leaf_rels.items()
+              if n.endswith(FAMILY_SCALAR_LEAVES)}
+    leaf_rel = max(r for n, (r, _) in leaf_rels.items() if n not in scalar)
+    scalar_rel = max(scalar.values(), default=0.0)
+    worst = sorted(leaf_rels.items(), key=lambda kv: -kv[1][0])[:6]
+    finite = all(bool(torch.isfinite(x).all()) for x in [l_f, l_s] + g_f
+                 + g_s)
+    del g_f, g_s
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    row = {"finite": finite, "loss_flash": float(l_f),
+           "loss_sdpa": float(l_s),
+           "aux_flash": aux_f, "aux_sdpa": aux_s,
+           "loss_rel_diff": loss_rel, "max_leaf_rel_diff": leaf_rel,
+           "max_ssd_scalar_rel_diff": scalar_rel,
+           "worst_leaves_rel_diff_and_max_over_max_grad": dict(worst),
+           "bk_grad_max_over_max_grad": bk_max / g_max,
+           "leaves": len(leaves), "launches": launches_f,
+           "flash_launches_by_kernel": by_kernel,
+           "sdpa_launches": launches_s}
+    want = {n: (attn_layers if n in TRAIN_FLASH else 0) for n in counters}
+    if not (finite and loss_rel <= FAMILY_LOSS_TOL
+            and leaf_rel <= FAMILY_LEAF_TOL
+            and scalar_rel <= FAMILY_SCALAR_TOL
+            and bk_max <= ENCDEC_BK_NOISE * g_max
+            and launches_f == want and not any(launches_s.values())):
+        raise AssertionError(f"{arch} train parity: {row} (launches want "
+                             f"{want})")
+    return row
+
+
+def phase_family_train():
+    """gemma3-27b, zamba2-7b, moonshot-v1-16b-a3b and mamba2-1.3b trained
+    on the card at full width and FAMILY_TRAIN's depths, in fp32 with the
+    smoke launcher's pieces (``init_lm``, ``transformer.loss_fn``,
+    warmup-cosine AdamW, the Trainer; synthetic tokens; the SSD blocks on
+    live ``conv_b``/``conv_c``, ``_live_ssd_conv``): for each arch
+    with attention, one step through K6-K8 held to the masked sdpa's
+    (``_family_parity``); then FAMILY_TRAIN_STEPS Trainer steps with
+    finite losses (moonshot's with its aux loss above zero), K6 = K7 = K8
+    = the flash-route attention layers a step, each on its route's kernel,
+    s/step with the first step apart, peak memory; then one more step
+    profiled (``_profile_tick``). Returns each Trainer run's launches."""
+    import torch
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.models.common import flatten
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+    counters = _counters()
+    runs = []
+    for arch, seq in FAMILY_TRAIN.items():
+        t_arch = time.monotonic()
+        cfg = _family_train_cfg(arch)
+        heads = _flash_heads(cfg)
+        specs = tuple(cfg.pattern) * cfg.repeats + tuple(cfg.tail)
+        attn_layers = 0 if heads is None else sum(
+            1 for sp in specs if sp.kind != "ssd")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        params = _live_ssd_conv(tf_lib.init_lm(
+            cfg, seed=SEED, dtype=torch.float32, device="cuda"))
+        init_s = time.monotonic() - t0
+        n_params = sum(p.numel() for p in flatten(params)[0])
+        pipeline = make_pipeline(DataConfig(
+            vocab=cfg.vocab, seq_len=seq,
+            global_batch=FAMILY_TRAIN_B, seed=SEED, source="synthetic"))
+        row = {"phase": "family_train", "arch": arch,
+               "layers": len(specs), "attention_layers": attn_layers,
+               "d_model": cfg.d_model,
+               "heads": None if heads is None else list(heads),
+               "batch": FAMILY_TRAIN_B, "seq": seq,
+               "params": n_params,
+               "state_gb_at_16_bytes": 16 * n_params / 1e9,
+               "init_s": init_s}
+        if heads is not None:
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in pipeline.batch_at(0).items()}
+            row["parity"] = _family_parity(arch, cfg, params, batch,
+                                           counters, attn_layers)
+            del batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        steps = FAMILY_TRAIN_STEPS
+        tr = Trainer(
+            loss_fn=lambda p, b, cfg=cfg: tf_lib.loss_fn(p, cfg, b),
+            params=params,
+            opt_cfg=AdamWConfig(lr=warmup_cosine(3e-3, 1, steps)),
+            train_cfg=TrainConfig(num_steps=steps, log_every=1,
+                                  checkpoint_every=10 ** 9),
+            pipeline=pipeline, accountant=_accountant())
+        del params
+        for fn in counters.values():
+            fn.launches = 0
+        _reset_flash_kernels()
+        torch.cuda.reset_peak_memory_stats()
+        tr.run()
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        log = tr.metrics_log
+        losses = [e["loss"] for e in log]
+        step_s = [e["step_time_s"] for e in log]
+        row.update({
+            "steps": steps, "losses": losses,
+            "aux": [e.get("aux") for e in log],
+            "first_step_s": step_s[0],
+            "s_per_step": sum(step_s[1:]) / max(len(step_s) - 1, 1),
+            "tokens_per_s": FAMILY_TRAIN_B * seq * (
+                len(step_s) - 1) / max(sum(step_s[1:]), 1e-9),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {n: c for n, c in launches.items() if c},
+            "flash_launches_per_step": {
+                n: launches[n] / steps for n in TRAIN_FLASH}})
+        if heads is not None:
+            row["flash_launches_by_kernel"] = _flash_on_route(
+                f"{arch} trainer", heads[2])
+        # one more step under torch.profiler: where the step's time goes
+        row["profile"] = _profile_tick(tr, 1, top=6)
+        want = {n: (steps * attn_layers if n in TRAIN_FLASH else 0)
+                for n in counters}
+        aux_ok = cfg.moe_cfg is None or all(
+            a is not None and a > 0 for a in row["aux"])
+        row["seconds"] = time.monotonic() - t_arch
+        emit(row)
+        if not (len(losses) == steps
+                and all(math.isfinite(x) for x in losses)
+                and launches == want and aux_ok):
+            raise AssertionError(f"family_train {arch}: {row} (launches "
+                                 f"want {want})")
+        if heads is not None:
+            _add_flash_dims(launches, heads[2])
+        runs.append(launches)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -6051,6 +6382,7 @@ def main() -> int:
     phase_flash_ragged()
     rows["flash_attention"] = phase_flash_infer()
     small = phase_flash_small_dims()
+    small.update(phase_flash_wide_dims())
     mark("kernels")
     # before any long profile: after one of tens of thousands of kernels,
     # the card's profiles drop records for a while, and the CNN phase
@@ -6086,6 +6418,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs += phase_encdec_train()
     mark("encdec_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += phase_family_train()
+    mark("family_train")
     gc.collect()
     torch.cuda.empty_cache()
     runs += [phase_train_parity(), phase_train()]

@@ -370,9 +370,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// Shared memory a block can take (227 KiB of the SM's 256 KiB)
+constexpr int kMaxSmem = 232448;
+
+// Floats of the SIMT K8's shared memory with `p_tiles` tiles of P^T / dS^T
+__host__ __device__ constexpr int dkv_simt_floats(int D, int p_tiles) {
+  return kTile * D * 2 + kTile * (D + 4) * 2 + kTile * kPS * p_tiles + 2 * kTile;
+}
+
+// K8 holds P^T and dS^T in one tile, dS^T written once dV's pass has read
+// P^T, where two do not fit: D = 192 (head dim 168), 240,128 bytes with two
+__host__ __device__ constexpr bool dkv_one_p_tile(int D) {
+  return 4 * dkv_simt_floats(D, 2) > kMaxSmem;
+}
+
 // K8: grid (Sk tiles, Hkv, B). Shared memory: K and V (64 x D), Q (scaled)
-// and dO (64 x (D + 4)), P^T and dS^T (64 x kPS), the query rows' lse and
-// delta. Each thread holds 4 key rows x D/16 columns of dK and of dV.
+// and dO (64 x (D + 4)), P^T and dS^T (64 x kPS; one tile for both where
+// dkv_one_p_tile), the query rows' lse and delta. Each thread holds 4 key
+// rows x D/16 columns of dK and of dV.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -381,13 +396,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
                      int dg, int causal, int window, float scale) {
   constexpr int QS = D + 4, CJ = D / 64;
+  constexpr bool kOneP = dkv_one_p_tile(D);
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   float* v_s = k_s + kTile * D;
   float* q_s = v_s + kTile * D;
   float* do_s = q_s + kTile * QS;
   float* pt_s = do_s + kTile * QS;
-  float* dst_s = pt_s + kTile * kPS;
+  float* dst_s = kOneP ? pt_s : pt_s + kTile * kPS;
   float* lse_s = dst_s + kTile * kPS;
   float* dl_s = lse_s + kTile;
 
@@ -438,12 +454,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int qq = tx + 16 * j;
           const bool ok = valid_pair(q0 + qq, k0 + kk, Sq, Sk, causal, window);
           const float p = ok ? expf(s[i][j] - lse_s[qq]) : 0.f;
+          dp[i][j] = p * (dp[i][j] - dl_s[qq]);
           pt_s[kk * kPS + qq] = p;
-          dst_s[kk * kPS + qq] = p * (dp[i][j] - dl_s[qq]);
+          if (!kOneP) dst_s[kk * kPS + qq] = dp[i][j];
         }
       }
       __syncthreads();
       pv<D>(pt_s, do_s, QS, ty, tx, dv_acc);      // dV += P^T dO
+      if (kOneP) {
+        __syncthreads();                  // P^T is read: dS^T takes its tile
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dst_s[(ty + 16 * i) * kPS + tx + 16 * j] = dp[i][j];
+        __syncthreads();
+      }
       pv<D>(dst_s, q_s, QS, ty, tx, dk_acc);      // dK += dS^T (scale * Q)
     }
   }
@@ -1079,10 +1104,25 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
 constexpr int kFwdRows = 128;            // query rows a block: 64 a warpgroup, 16 a warp
 constexpr int kFwdKeys = 32;             // keys a streamed tile
 
+// The columns the planes hold for a head dim of D: D rounded up to 64 (the
+// 32-float swizzled blocks; the rows the transposed products put on
+// wgmma's M side), zero past D. 192 for D = 168.
+__host__ __device__ constexpr int padded_dim(int D) { return (D + 63) / 64 * 64; }
+
 // floats of shared memory past the 1024-byte alignment: Q's lo planes (two
-// warpgroups x 64 rows, scaled) and two buffers of a tile's kFwdPlanes
-// planes. Q's hi planes pass through buffer 1 on their way into registers.
-__host__ __device__ constexpr int fwd_smem_floats(int D) { return 384 * D; }
+// warpgroups x 64 rows, scaled) and `stages` buffers of a tile's
+// kFwdPlanes planes (each 128 x the padded dim, as Q's planes). Q's hi
+// planes pass through the last buffer on their way into registers.
+__host__ __device__ constexpr int fwd_smem_floats(int D, int stages) {
+  return (1 + stages) * 128 * padded_dim(D);
+}
+
+// The forward's buffers of tile planes: two (tile i + 1 lands during tile
+// i) where they fit beside Q, else one (D = 168: 295,936 bytes with two,
+// 197,632 with one), refilled after both warpgroups are done with it.
+__host__ __device__ constexpr int fwd_stages(int D) {
+  return 1024 + 4 * fwd_smem_floats(D, 2) <= kMaxSmem ? 2 : 1;
+}
 
 // The slot of key kk (0-31) of a tile in the V^T planes: within each k step
 // of 8, slot t holds key 2t and slot t + 4 key 2t + 1, so that S's
@@ -1192,22 +1232,28 @@ struct PFrags {
   }
 };
 
-// part = P V for 64 columns of D over one key tile, on wgmma m64n64k8 in
-// 3xTF32 from zero, V^T's 64 rows of those columns from its hi/lo planes;
-// waited for. Without kVLo, V's lo half is zero (V was bf16) and P_hi V_lo
-// is not issued. part[4j + e] is (row g + 8 (e / 2), column 8j + 2t + e %
-// 2) of the 64.
-template <bool kVLo>
+// part = P V for N (64 or 32) columns of D over one key tile, on wgmma
+// m64nNk8 in 3xTF32 from zero, V^T's N rows of those columns from its
+// hi/lo planes; waited for. Without kVLo, V's lo half is zero (V was bf16)
+// and P_hi V_lo is not issued. part[4j + e] is (row g + 8 (e / 2), column
+// 8j + 2t + e % 2) of the N.
+template <bool kVLo, int N>
 __device__ __forceinline__ void pv_wgmma(const PFrags& p, const float* vt_hi,
-                                         const float* vt_lo, float (&part)[32]) {
+                                         const float* vt_lo, float (&part)[N / 2]) {
   hopper::wgmma_fence();
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const uint64_t dh = hopper::sw128_desc(vt_hi + 8 * j, 16, 1024);
     const uint64_t dl = hopper::sw128_desc(vt_lo + 8 * j, 16, 1024);
-    hopper::wgmma_tf32_rs_n64(part, p.l[j], dh, j > 0);
-    if constexpr (kVLo) hopper::wgmma_tf32_rs_n64(part, p.h[j], dl, 1);
-    hopper::wgmma_tf32_rs_n64(part, p.h[j], dh, 1);
+    if constexpr (N == 64) {
+      hopper::wgmma_tf32_rs_n64(part, p.l[j], dh, j > 0);
+      if constexpr (kVLo) hopper::wgmma_tf32_rs_n64(part, p.h[j], dl, 1);
+      hopper::wgmma_tf32_rs_n64(part, p.h[j], dh, 1);
+    } else {
+      hopper::wgmma_tf32_rs_n32(part, p.l[j], dh, j > 0);
+      if constexpr (kVLo) hopper::wgmma_tf32_rs_n32(part, p.h[j], dl, 1);
+      hopper::wgmma_tf32_rs_n32(part, p.h[j], dh, 1);
+    }
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
@@ -1238,17 +1284,31 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
 // out = O / max(l, 1e-30) in q's dtype, and K6's lse = m + log max(l,
 // 1e-30). Without kKvLo (bf16 K and V) the lo planes are neither copied
 // nor read.
+//
+// D is the head dim the kernel serves (64, 128 or 168); the planes hold DP
+// = padded_dim(D) columns, zero past D. S runs D / 8 k steps, so 168 = 21
+// x 8 reads no padding; P V runs in N = 64 column blocks where 64 divides
+// D, else in blocks of 32 (the last of 168's six holds one 8-column group
+// of the head), and O keeps the D / 8 column groups the head has, which
+// at 168 leaves (Q's hi half 84, O 84, P's halves 32, a block 16) room in
+// the 255 registers a thread of a 256-thread block can take. With
+// fwd_stages(D) == 1 the tile planes have one buffer, refilled after the
+// tile's math.
 template <typename QT, int D, bool kKvLo, bool kSaveLse>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
                     QT* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
                     int Hkv, int dg, int causal, int window, float scale) {
-  constexpr int kPlane = kFwdKeys * D;              // floats of one plane
+  constexpr int DP = padded_dim(D);
+  constexpr int kStages = fwd_stages(D);
+  constexpr int kPvN = D % 64 == 0 ? 64 : 32;      // P V's column block
+  constexpr int kGroups = D / 8;                    // O's 8-column groups
+  constexpr int kPlane = kFwdKeys * DP;             // floats of one plane
   constexpr int kTile = kFwdPlanes * kPlane;        // floats of a tile's planes
   extern __shared__ float4 smem4[];
-  float* q_lo_all = tc_smem(smem4);                 // warpgroup r's 64 rows at 64 r D
-  float* kv_all = q_lo_all + kFwdRows * D;          // buffer u at u kTile
-  float* q_hi_all = kv_all + kTile;                 // buffer 1, before the first tile
+  float* q_lo_all = tc_smem(smem4);                 // warpgroup r's 64 rows at 64 r DP
+  float* kv_all = q_lo_all + kFwdRows * DP;         // buffer u at u kTile
+  float* q_hi_all = kv_all + (kStages - 1) * kTile; // the last buffer, before the first tile
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdRows;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
@@ -1270,10 +1330,11 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
   // the (batch, KV head)'s tiles in the workspace
   const float* ws_bh =
       ws + ((long long)b * Hkv + hk) * ((Sk + kFwdKeys - 1) / kFwdKeys) * kTile;
-  // tile i's planes into buffer i % 2, 16 bytes a thread a step; committed
+  // tile i's planes into buffer i % kStages, 16 bytes a thread a step;
+  // committed
   auto fetch = [&](int i) {
     const float* src = ws_bh + (long long)(t_lo + i) * kTile;
-    const uint32_t dst = hopper::smem_addr(kv_all + (i & 1) * kTile);
+    const uint32_t dst = hopper::smem_addr(kv_all + (i % kStages) * kTile);
 #pragma unroll
     for (int p = 0; p < kFwdPlanes; ++p) {
       if (!kKvLo && (p & 1)) continue;
@@ -1286,28 +1347,35 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
     hopper::cp_async_commit();
   };
 
-  if (n_tiles > 0) fetch(0);
+  if (kStages == 2 && n_tiles > 0) fetch(0);
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    stage_global<D, 64>(q_hi_all + 64 * r * D, q_lo_all + 64 * r * D,
-                        q + ((long long)b * Sq + q0 + 64 * r) * q_row + (long long)h * dg, q_row,
-                        n_q - 64 * r, dg, scale);
+    stage_global<DP, 64>(q_hi_all + 64 * r * DP, q_lo_all + 64 * r * DP,
+                         q + ((long long)b * Sq + q0 + 64 * r) * q_row + (long long)h * dg, q_row,
+                         n_q - 64 * r, dg, scale);
   hopper::cp_async_wait<0>();
   hopper::fence_proxy_async();
   __syncthreads();
   RowFrags<D> qa;                                   // (scale Q)'s hi half, for the whole block
-  qa.load(q_hi_all + 64 * wg * D);
-  __syncthreads();                                  // buffer 1 is free
-  const float* q_lo = q_lo_all + 64 * wg * D;
+  qa.load(q_hi_all + 64 * wg * DP);
+  __syncthreads();                                  // the last buffer is free
+  if (kStages == 1 && n_tiles > 0) {
+    fetch(0);
+    hopper::cp_async_wait<0>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+  }
+  const float* q_lo = q_lo_all + 64 * wg * DP;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 2];                                 // O: the warp's 16 rows, all of D
+  float acc[4 * kGroups];                           // O: the warp's 16 rows, all of D
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+  for (int x = 0; x < 4 * kGroups; ++x) acc[x] = 0.f;
   for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) fetch(i + 1);    // its buffer's last reader, tile i - 1, is done
+    // its buffer's last reader, tile i - 1, is done
+    if (kStages == 2 && i + 1 < n_tiles) fetch(i + 1);
     const int k0 = (t_lo + i) * kFwdKeys;
-    const float* kb = kv_all + (i & 1) * kTile;
+    const float* kb = kv_all + (i % kStages) * kTile;
     const bool seen = r0 <= r_last && (!causal || k0 <= r_last) &&
                       (window <= 0 || k0 + kFwdKeys - 1 > r0 - window);
     float s[1][4][4];
@@ -1362,21 +1430,33 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
       pf.split(s);
       const float* vt = kb + 2 * kPlane;
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
-        float part[32];
-        pv_wgmma<kKvLo>(pf, vt + 64 * c * kFwdKeys, vt + kPlane + 64 * c * kFwdKeys, part);
+      for (int c = 0; c < (D + kPvN - 1) / kPvN; ++c) {
+        float part[kPvN / 2];
+        pv_wgmma<kKvLo, kPvN>(pf, vt + kPvN * c * kFwdKeys,
+                              vt + kPlane + kPvN * c * kFwdKeys, part);
+        // column group jg = c kPvN / 8 + j of the head: acc[4 jg + e]
 #pragma unroll
-        for (int x = 0; x < 32; ++x)
-          acc[32 * c + x] = fmaf(acc[32 * c + x], x & 2 ? alpha[1] : alpha[0], part[x]);
+        for (int j = 0; j < kPvN / 8; ++j) {
+          const int jg = c * (kPvN / 8) + j;
+          if (jg < kGroups) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[4 * jg + e] = fmaf(acc[4 * jg + e], e & 2 ? alpha[1] : alpha[0], part[4 * j + e]);
+          }
+        }
       }
       pf.hold();
+    }
+    if (kStages == 1) {
+      __syncthreads();                    // tile i's planes are read
+      if (i + 1 < n_tiles) fetch(i + 1);
     }
     hopper::cp_async_wait<0>();
     hopper::fence_proxy_async();          // tile i + 1's planes, before wgmma reads them
     __syncthreads();                      // tile i + 1 has landed, tile i's planes are read
   }
 
-  // acc[32c + 4j + e]: row + 8 (e / 2), column 64c + 8j + 2t + e % 2
+  // acc[4jg + e]: row + 8 (e / 2), column 8jg + 2t + e % 2
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = r0 + row + 8 * r;
@@ -1387,12 +1467,9 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
     }
     QT* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 2 * t;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (64 * c + 8 * j + 2 * t < dg)
-          st2(o + 64 * c + 8 * j, acc[32 * c + 4 * j + 2 * r] / den,
-              acc[32 * c + 4 * j + 2 * r + 1] / den);
+    for (int jg = 0; jg < kGroups; ++jg)
+      if (8 * jg + 2 * t < dg)
+        st2(o + 8 * jg, acc[4 * jg + 2 * r] / den, acc[4 * jg + 2 * r + 1] / den);
   }
 }
 
@@ -1404,8 +1481,8 @@ cudaError_t set_smem(K kernel, size_t smem) {
 }
 
 // K6 (KVT = QT, kSaveLse) and K10 (KVT = QT or int8_t, no lse): the split
-// pre-pass into ws, then the forward. D is the kernels' head dim, dg the
-// tensors' (dg <= D; see the entry points)
+// pre-pass into ws, then the forward. D is the kernels' head dim (64, 128
+// or 168), dg the tensors' (dg <= D; see the entry points)
 template <typename QT, typename KVT, int D, bool kSaveLse>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* k_scale,
                        const void* v_scale, void* out, void* lse, void* ws, int B, int Sq,
@@ -1413,13 +1490,13 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
                        cudaStream_t stream) {
   const long long tiles = (long long)B * Hkv * ((Sk + kFwdKeys - 1) / kFwdKeys);
   if (tiles > 0x7fffffffll) return cudaErrorInvalidValue;
-  flash_fwd_split_kernel<KVT, D><<<(unsigned)tiles, kTcThreads, 0, stream>>>(
+  flash_fwd_split_kernel<KVT, padded_dim(D)><<<(unsigned)tiles, kTcThreads, 0, stream>>>(
       static_cast<const KVT*>(k), static_cast<const KVT*>(v),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<float*>(ws), Sk, Hkv, dg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = 1024 + sizeof(float) * fwd_smem_floats(D);
+  const size_t smem = 1024 + sizeof(float) * fwd_smem_floats(D, fwd_stages(D));
   auto kernel =
       flash_fwd_tc_kernel<QT, D, !std::is_same<KVT, __nv_bfloat16>::value, kSaveLse>;
   err = set_smem(kernel, smem);
@@ -1443,11 +1520,14 @@ cudaError_t launch_infer(const void* q, const void* k, const void* v, const void
                                       H, Hkv, dg, causal, window, scale, stream);
 }
 
-template <typename T, int D>
+// The SIMT kernels run at the padded head dim (192 for 168: their threads
+// take 64-column groups), on tiles zero past dg.
+template <typename T, int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
                       int H, int Hkv, int dg, int causal, int window, float scale,
                       cudaStream_t stream) {
+  constexpr int D = padded_dim(DH);
   const size_t smem = sizeof(float) * ((size_t)kTile * D * 2 + (size_t)kTile * (D + 4) +
                                        shared_tile(D) + 2 * kTile);
   auto kernel = flash_bwd_dq_kernel<T, D>;
@@ -1462,13 +1542,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                        int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kTile * D * 2 + (size_t)kTile * (D + 4) * 2 +
-                                       (size_t)kTile * kPS * 2 + 2 * kTile);
+  constexpr int D = padded_dim(DH);
+  const size_t smem = sizeof(float) * dkv_simt_floats(D, dkv_one_p_tile(D) ? 1 : 2);
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1481,11 +1561,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// The tensor-core backward takes the head dims of the D = 64 and 128
+// kernels only: at 168 its planes need 320,000 (K7) and 327,936 (K8)
+// bytes (see the entry points).
 template <typename T, int D>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
                          int H, int Hkv, int dg, int causal, int window, float scale,
                          cudaStream_t stream) {
+  if constexpr (D % 64 != 0) {
+    return cudaErrorInvalidValue;
+  } else {
   const size_t smem = 1024 + sizeof(float) * dq_smem_floats(D);
   auto kernel = flash_bwd_dq_tc_kernel<D>;
   const cudaError_t err = set_smem(kernel, smem);
@@ -1497,6 +1583,7 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void
       static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Sk, H, Hkv, dg, causal,
       window, scale);
   return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -1504,6 +1591,9 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
                           const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                           int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
                           cudaStream_t stream) {
+  if constexpr (D % 64 != 0) {
+    return cudaErrorInvalidValue;
+  } else {
   const size_t smem = 1024 + sizeof(float) * dkv_smem_floats(D);
   auto kernel = flash_bwd_dkv_tc_kernel<D>;
   const cudaError_t err = set_smem(kernel, smem);
@@ -1516,6 +1606,7 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), B, Sq,
       Sk, H, Hkv, dg, causal, window, scale);
   return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -1523,20 +1614,25 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 // Plain C entry points. q, dout, out and dq (B, Sq, H, D); k, v, dk and dv
 // (B, Sk, Hkv, D), all contiguous and of one dtype (fp32, or bf16 when
 // `bf16` is 1); lse and delta (B, H, Sq) fp32 contiguous. H % Hkv == 0, D in
-// {8, 16, 24, 64, 128}. causal is 0 or 1; window <= 0 means no window. The
-// forward's ws is an fp32 workspace of B * Hkv * ceil(Sk / 32) * kFwdPlanes
-// * 32 * max(D, 64) floats, 16-byte aligned. Each returns the CUDA error of
-// its launches (0 on success).
+// {8, 16, 24, 64, 112, 128, 168}. causal is 0 or 1; window <= 0 means no
+// window. The forward's ws is an fp32 workspace of B * Hkv * ceil(Sk / 32)
+// * kFwdPlanes * 32 * padded_dim(max(D, 64)) floats, 16-byte aligned. Each
+// returns the CUDA error of its launches (0 on success).
 //
 // The head dims under 64 (the reference's smoke configs: 8, 16, 24) run
-// the D = 64 kernels with dg = D: the tensors' rows are read and
-// written at their own width, and the tiles in shared memory (and the
-// forward's workspace planes) are zero past column dg. The zero columns add
-// exact zeros to S, dP and the products over the rows, and the outputs'
-// columns past dg are not stored, so the values are those of a D-wide
-// kernel. The transposed backward products put D on wgmma's 64-row M side,
-// which is why 64 and not 32 is the floor; the work is that of D = 64
-// (8x the pairs' FLOPs at D = 8), a simple route for the small configs.
+// the D = 64 kernels with dg = D, and 112 (kimi-k2's and zamba2's) the D =
+// 128 kernels: the tensors' rows are read and written at their own width,
+// and the tiles in shared memory (and the forward's workspace planes) are
+// zero past column dg. The zero columns add exact zeros to S, dP and the
+// products over the rows, and the outputs' columns past dg are not stored,
+// so the values are those of a D-wide kernel. The transposed backward
+// products put D on wgmma's 64-row M side, which is why 64 and not 32 is
+// the floor; the work is that of D = 64 (8x the pairs' FLOPs at D = 8), a
+// simple route for the small configs. 168 (gemma3-27b's) has kernels of
+// its own: the forward at D = 168 (21 k steps of 8, planes of 192 columns,
+// one buffer of tile planes), and the backward on the SIMT kernels at 192
+// columns in fp32 as in bf16 (K8 with one P^T / dS^T tile), since the
+// tensor-core backward's planes do not fit a block's shared memory there.
 
 #define FLASH_DISPATCH(CALL, T)                                                   \
   switch (D) {                                                                    \
@@ -1545,8 +1641,11 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
     case 24:                                                                      \
     case 64:                                                                      \
       return static_cast<int>(CALL(T, 64));                                       \
+    case 112:                                                                     \
     case 128:                                                                     \
       return static_cast<int>(CALL(T, 128));                                      \
+    case 168:                                                                     \
+      return static_cast<int>(CALL(T, 168));                                      \
   }                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
 
@@ -1586,14 +1685,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 }
 
 // K7 and K8 take `tensor_cores` from the wrapper's route: 1 runs the 3xTF32
-// tensor-core kernel, which takes fp32 only; 0 the SIMT kernel, which takes
-// bf16 only. Any other pairing is refused (cudaErrorInvalidValue).
+// tensor-core kernel, which takes fp32 at every head dim but 168; 0 the
+// SIMT kernel, which takes bf16, and fp32 at 168 only. Any other pairing is
+// refused (cudaErrorInvalidValue).
 #define BWD_DISPATCH(TC, SIMT)                                                     \
   if (tensor_cores) {                                                             \
-    if (bf16) return static_cast<int>(cudaErrorInvalidValue);                     \
+    if (bf16 || D == 168) return static_cast<int>(cudaErrorInvalidValue);         \
     FLASH_DISPATCH(TC, float)                                                     \
   } else if (bf16) {                                                              \
     FLASH_DISPATCH(SIMT, __nv_bfloat16)                                           \
+  } else if (D == 168) {                                                          \
+    return static_cast<int>(SIMT(float, 168));                                    \
   }                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
 

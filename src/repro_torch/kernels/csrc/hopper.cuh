@@ -55,6 +55,12 @@ __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, 
                "r"(valid ? 16 : 0));
 }
 
+// 8 bytes from global to shared memory, or 8 zero bytes when !valid.
+__device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+
 // 4 bytes from global to shared memory, or 4 zero bytes when !valid.
 __device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),

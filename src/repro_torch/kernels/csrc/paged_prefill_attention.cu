@@ -27,9 +27,9 @@
 // The chunk's own K/V stay in q's dtype.
 //
 // Two kernels, chosen by the wrapper from the dtypes and the head dim (no
-// fallback either way): bf16 q over a bf16 or int8 pool at D = 128 runs
-// paged_prefill_tc_kernel on the tensor cores; fp32 q, an fp32 pool or
-// any other head dim runs paged_prefill_kernel, fp32 SIMT dots, since TF32
+// fallback either way): bf16 q over a bf16 or int8 pool at D = 112, 128
+// or 168 runs paged_prefill_tc_kernel on the tensor cores; fp32 q, an fp32
+// pool or any other head dim runs paged_prefill_kernel, fp32 SIMT dots, since TF32
 // would change the fp32 numerics. The SIMT kernel takes every head dim of
 // the reference's configs (8, 16, 24, 64, 112, 128, 168), masked by
 // length and never padded: a tile's last loads, and the threads past the
@@ -51,7 +51,8 @@
 //     pools and its padding of C are not carried over;
 //   * query rows flatten (token, rep) row-major, so a tile holds whole
 //     tokens and row r decodes as token r / rep, head r % rep.
-// The tensor-core kernel (D = 128):
+// The tensor-core kernel (D = 128; 112 and 168 on tiles of 128 and 192
+// columns, zero past D in shared memory only, below):
 //   * a block is 128 consecutive chunk tokens of one q head, two warpgroups
 //     of 64 rows. Rows of one head, not the (token, head) packing above:
 //     each row's causal and window limits are then its token, with no
@@ -344,33 +345,56 @@ cudaError_t launch_prefill(const void* q, const void* k_new, const void* v_new,
 }
 
 // ---------------------------------------------------------------------------
-// tensor cores: bf16 q over a bf16 or int8 pool, D = 128
+// tensor cores: bf16 q over a bf16 or int8 pool, D = 112, 128 and 168
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 128;                     // query rows a block: two warpgroups
 constexpr int kTcKeys = 64;                      // keys a tile
-constexpr int kTcD = 128;
 constexpr int kTcThreads = 256;
-constexpr int kTcHalf = 64 * 128;                // one 64-column half of a 64-row bf16 tile
-constexpr int kTcQBytes = kTcRows * kTcD * 2;    // Q: two warpgroups x two halves
-constexpr int kTcTile = kTcKeys * kTcD * 2;      // a K or V tile, bf16, two halves
-constexpr int kTcRaw = kTcKeys * kTcD;           // a K or V tile of int8 codes as it landed
-constexpr int kTcStage = 50 * 1024;              // K, V, raw K, raw V, scales; 1024-aligned
+constexpr int kTcHalf = 64 * 128;                // one 64-column block of a 64-row bf16 tile
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The tiles' columns for a head dim of DG: DG rounded up to whole
+// 64-column blocks of the 128-byte swizzle (128 for 112, 192 for 168),
+// zero past DG in shared memory only; the tensors are read and written at
+// DG.
+__host__ __device__ constexpr int tc_cols(int DG) { return (DG + 63) / 64 * 64; }
+// Q: two warpgroups x the column blocks
+__host__ __device__ constexpr int tc_q_bytes(int DG) { return kTcRows * tc_cols(DG) * 2; }
+// a K or V tile in bf16
+__host__ __device__ constexpr int tc_tile_bytes(int DG) { return kTcKeys * tc_cols(DG) * 2; }
+// a K or V tile of int8 codes as it landed (rows of tc_cols bytes)
+__host__ __device__ constexpr int tc_raw_bytes(int DG) { return kTcKeys * tc_cols(DG); }
+// a stage: K, V, raw K, raw V, the K and V scales; 1024-aligned
+__host__ __device__ constexpr int tc_stage_bytes(int DG) {
+  return (2 * tc_tile_bytes(DG) + 2 * tc_raw_bytes(DG) + 2 * kTcKeys * 4 + 1023) / 1024 * 1024;
+}
+// page-table entries a row can hold in shared memory beside two stages:
+// 16384 at 112 and 128 (199,680 bytes in all); 8192 at 168, whose Q and
+// stages take 199,680 bytes before the table (232,448 with it). The
+// wrapper raises above it (paged_prefill_attention.tc_max_pages).
+__host__ __device__ constexpr int tc_max_pages(int DG) { return DG > 128 ? 8192 : 16384; }
+
+template <int DG>
 inline size_t tc_smem_bytes(int n_blocks) {
-  return 1024 + kTcQBytes + 2 * (size_t)kTcStage + 4 * (size_t)n_blocks;
+  return 1024 + tc_q_bytes(DG) + 2 * (size_t)tc_stage_bytes(DG) + 4 * (size_t)n_blocks;
 }
 
-// Byte offset of the 16-byte chunk holding columns 8c..8c+7 (c in 0-15) of
-// row r of a 64-row bf16 tile of 128 columns: two 64-column halves of 8 KB,
-// each with the 128-byte swizzle, the layout wgmma reads both K-major (Q, K)
-// and N-major (V).
+// Byte offset of the 16-byte chunk holding columns 8c..8c+7 of row r of a
+// 64-row bf16 tile: 64-column blocks of 8 KB, each with the 128-byte
+// swizzle, the layout wgmma reads both K-major (Q, K) and N-major (V).
 __device__ __forceinline__ uint32_t tc_chunk(int r, int c) {
   return (uint32_t)((c >> 3) * kTcHalf) + hopper::sw128(r, c & 7);
 }
 
-template <bool kInt8>
+// DG is the head dim (112, 128 or 168); the tiles hold DP = tc_cols(DG)
+// columns. S runs ceil(DG / 16) k steps of 16 (7 at 112, 8 at 128, 11 at
+// 168, whose last step reads columns 160-175, zero past 167); P V runs
+// m64nDPk16 (n128, or n192 at 168) and the columns past DG are not
+// stored. The columns past DG of the K and V tiles are zeroed once, before
+// the first tile, and never written again (the copies and the int8
+// widening touch only the head's columns); Q's by the copy's zero fill.
+template <bool kInt8, int DG>
 __global__ void __launch_bounds__(kTcThreads, 1)
 paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k_new,
@@ -381,19 +405,28 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         int page_size, long long stride_page, long long stride_row, int window,
                         float scale, const float* __restrict__ ks,
                         const float* __restrict__ vs) {
+  constexpr int DP = tc_cols(DG);
+  constexpr int kBlocks = DP / 64;                            // 64-column blocks
+  constexpr int kChunks = DG / 8;                             // the head's 16-byte chunks a row
+  constexpr int kTile = tc_tile_bytes(DG), kRaw = tc_raw_bytes(DG);
+  constexpr int kStage = tc_stage_bytes(DG);
+  // int8 rows land in 16-byte copies where DG allows, else 8-byte ones
+  // (168 codes: 8-byte aligned rows)
+  constexpr int kRawCopy = DG % 16 == 0 ? 16 : 8;
+  constexpr int kRawChunks = DG / kRawCopy;
   extern __shared__ unsigned char tc_smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(tc_smem_raw) + 1023) & ~(uintptr_t)1023);
   unsigned char* q_s = smem;                                  // also the output staging
-  unsigned char* stage0 = smem + kTcQBytes;
-  int* pt_s = reinterpret_cast<int*>(stage0 + 2 * kTcStage);  // the prefix's page entries
+  unsigned char* stage0 = smem + tc_q_bytes(DG);
+  int* pt_s = reinterpret_cast<int*>(stage0 + 2 * kStage);    // the prefix's page entries
   // a stage: K tile, V tile (bf16, swizzled), raw K, raw V (int8), K and V scales
-  auto k_tile = [&](int st) { return stage0 + st * kTcStage; };
-  auto v_tile = [&](int st) { return stage0 + st * kTcStage + kTcTile; };
-  auto raw_k = [&](int st) { return stage0 + st * kTcStage + 2 * kTcTile; };
-  auto raw_v = [&](int st) { return stage0 + st * kTcStage + 2 * kTcTile + kTcRaw; };
+  auto k_tile = [&](int st) { return stage0 + st * kStage; };
+  auto v_tile = [&](int st) { return stage0 + st * kStage + kTile; };
+  auto raw_k = [&](int st) { return stage0 + st * kStage + 2 * kTile; };
+  auto raw_v = [&](int st) { return stage0 + st * kStage + 2 * kTile + kRaw; };
   auto scales = [&](int st) {
-    return reinterpret_cast<float*>(stage0 + st * kTcStage + 2 * kTcTile + 2 * kTcRaw);
+    return reinterpret_cast<float*>(stage0 + st * kStage + 2 * kTile + 2 * kRaw);
   };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -401,13 +434,13 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvh = h / (H / Hkv);
   const int start = min(max(starts[b], 0), n_blocks * page_size);
   const int ln = min(lens[b], C);
-  const long long q_row = (long long)H * kTcD;                // q / out token stride
-  const __nv_bfloat16* q_b = q + ((long long)b * C * H + h) * kTcD;
-  __nv_bfloat16* out_b = out + ((long long)b * C * H + h) * kTcD;
+  const long long q_row = (long long)H * DG;                  // q / out token stride
+  const __nv_bfloat16* q_b = q + ((long long)b * C * H + h) * DG;
+  __nv_bfloat16* out_b = out + ((long long)b * C * H + h) * DG;
   const int r_end = min(kTcRows, C - t0);                     // rows inside the chunk
   if (ln <= 0) {                                              // a dead row: exact zeros
-    for (int i = tid; i < r_end * (kTcD / 8); i += kTcThreads)
-      *reinterpret_cast<uint4*>(out_b + (t0 + i / 16) * q_row + (i % 16) * 8) =
+    for (int i = tid; i < r_end * kChunks; i += kTcThreads)
+      *reinterpret_cast<uint4*>(out_b + (t0 + i / kChunks) * q_row + (i % kChunks) * 8) =
           make_uint4(0u, 0u, 0u, 0u);
     return;
   }
@@ -423,11 +456,21 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int pg_lo = kp_lo / page_size;
   for (int i = tid; i < (start + page_size - 1) / page_size - pg_lo; i += kTcThreads)
     pt_s[i] = page_table[(long long)b * n_blocks + pg_lo + i];
+  // the padding columns of both stages' K and V tiles
+  if constexpr (DP / 8 > kChunks) {
+    constexpr int kPad = DP / 8 - kChunks;                    // chunks a row
+    for (int i = tid; i < 4 * kTcKeys * kPad; i += kTcThreads) {
+      const int tile = i / (kTcKeys * kPad), j = i % (kTcKeys * kPad);
+      *reinterpret_cast<uint4*>(stage0 + (tile >> 1) * kStage + (tile & 1) * kTile +
+                                tc_chunk(j / kPad, kChunks + j % kPad)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   __syncthreads();
 
-  const long long chunk_row = (long long)Hkv * kTcD;
-  const __nv_bfloat16* kc = k_new + (long long)b * C * chunk_row + (long long)kvh * kTcD;
-  const __nv_bfloat16* vc = v_new + (long long)b * C * chunk_row + (long long)kvh * kTcD;
+  const long long chunk_row = (long long)Hkv * DG;
+  const __nv_bfloat16* kc = k_new + (long long)b * C * chunk_row + (long long)kvh * DG;
+  const __nv_bfloat16* vc = v_new + (long long)b * C * chunk_row + (long long)kvh * DG;
   auto tile_span = [&](int i, int& kt0, int& kt_end) {
     if (i < n_pre) {
       kt0 = kp_lo + i * kTcKeys;
@@ -453,37 +496,44 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     int kt0, kt_end;
     tile_span(i, kt0, kt_end);
     if (kInt8 && i < n_pre) {
-      const int8_t* kp8 = static_cast<const int8_t*>(k_pool) + kvh * kTcD;
-      const int8_t* vp8 = static_cast<const int8_t*>(v_pool) + kvh * kTcD;
+      const int8_t* kp8 = static_cast<const int8_t*>(k_pool) + kvh * DG;
+      const int8_t* vp8 = static_cast<const int8_t*>(v_pool) + kvh * DG;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int idx = tid + u * kTcThreads, r = idx >> 3, c = idx & 7;
+      for (int u = 0; u < (kTcKeys * kRawChunks + kTcThreads - 1) / kTcThreads; ++u) {
+        const int idx = tid + u * kTcThreads, r = idx / kRawChunks, c = idx % kRawChunks;
+        if (idx >= kTcKeys * kRawChunks) break;
         const int kp = kt0 + r;
         const bool ok = kp < kt_end;
         const long long row = ok ? pool_row(kp) : 0;
-        hopper::cp_async16_zfill(hopper::smem_addr(raw_k(st) + r * kTcD + c * 16),
-                                 kp8 + row + c * 16, ok);
-        hopper::cp_async16_zfill(hopper::smem_addr(raw_v(st) + r * kTcD + c * 16),
-                                 vp8 + row + c * 16, ok);
+        const uint32_t dk = hopper::smem_addr(raw_k(st) + r * DP + c * kRawCopy);
+        const uint32_t dv = hopper::smem_addr(raw_v(st) + r * DP + c * kRawCopy);
+        if constexpr (kRawCopy == 16) {
+          hopper::cp_async16_zfill(dk, kp8 + row + c * 16, ok);
+          hopper::cp_async16_zfill(dv, vp8 + row + c * 16, ok);
+        } else {
+          hopper::cp_async8_zfill(dk, kp8 + row + c * 8, ok);
+          hopper::cp_async8_zfill(dv, vp8 + row + c * 8, ok);
+        }
       }
       if (tid < 2 * kTcKeys) {
         const int r = tid & (kTcKeys - 1), kp = kt0 + r;
         const bool ok = kp < kt_end;
-        const long long s_off = ok ? pool_row(kp) / kTcD + kvh : 0;
+        const long long s_off = ok ? pool_row(kp) / DG + kvh : 0;
         hopper::cp_async4_zfill(hopper::smem_addr(scales(st) + tid),
                                 (tid < kTcKeys ? ks : vs) + s_off, ok);
       }
       return;
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = tid + u * kTcThreads, r = idx >> 4, c = idx & 15;
+    for (int u = 0; u < (kTcKeys * kChunks + kTcThreads - 1) / kTcThreads; ++u) {
+      const int idx = tid + u * kTcThreads, r = idx / kChunks, c = idx % kChunks;
+      if (idx >= kTcKeys * kChunks) break;
       const int kp = kt0 + r;
       const bool ok = kp < kt_end;
       const __nv_bfloat16 *ksrc = kc, *vsrc = vc;
       if (ok) {
         if (i < n_pre) {
-          const long long row = pool_row(kp) + kvh * kTcD;
+          const long long row = pool_row(kp) + kvh * DG;
           ksrc = static_cast<const __nv_bfloat16*>(k_pool) + row;
           vsrc = static_cast<const __nv_bfloat16*>(v_pool) + row;
         } else {
@@ -496,14 +546,14 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  // Q: 128 rows of head h, zeros past the chunk
+  // Q: 128 rows of head h, zeros past the chunk and past DG
 #pragma unroll
-  for (int u = 0; u < kTcRows * 16 / kTcThreads; ++u) {
-    const int idx = tid + u * kTcThreads, r = idx >> 4, c = idx & 15;
-    const bool ok = t0 + r < C;
+  for (int u = 0; u < kTcRows * (DP / 8) / kTcThreads; ++u) {
+    const int idx = tid + u * kTcThreads, r = idx / (DP / 8), c = idx % (DP / 8);
+    const bool ok = t0 + r < C && c < kChunks;
     hopper::cp_async16_zfill(
-        hopper::smem_addr(q_s + (r >> 6) * (2 * kTcHalf) + tc_chunk(r & 63, c)),
-        q_b + (ok ? (t0 + r) * q_row : 0) + c * 8, ok);
+        hopper::smem_addr(q_s + (r >> 6) * (kBlocks * kTcHalf) + tc_chunk(r & 63, c)),
+        q_b + (ok ? (t0 + r) * q_row + c * 8 : 0), ok);
   }
   fetch(0, 0);
   hopper::cp_async_commit();
@@ -522,12 +572,12 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float c_log2 = scale * kLog2e;                         // scores in log2 units
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float s_acc[32], o_acc[64];
+  float s_acc[32], o_acc[DP / 2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s_acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o_acc[i] = 0.f;
-  const unsigned char* q_wg = q_s + wg * (2 * kTcHalf);
+  for (int i = 0; i < DP / 2; ++i) o_acc[i] = 0.f;
+  const unsigned char* q_wg = q_s + wg * (kBlocks * kTcHalf);
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i & 1;
@@ -536,19 +586,30 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     hopper::cp_async_wait<1>();                                // tile i (and Q) landed
     const bool widen = kInt8 && i < n_pre;
     if (widen) {
-      // this thread's own 16-code chunks (row r, codes 16c..16c+15 of K and
+      // this thread's own code chunks (row r, codes kRawCopy c.. of K and
       // of V, as fetch copied them) to bf16, exactly, into the swizzled
-      // tiles: two 8-value chunks each
+      // tiles: 8-value chunks
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = tid + (u & 1) * kTcThreads, r = idx >> 3, c = idx & 7;
-        const uint4 w = *reinterpret_cast<const uint4*>((u < 2 ? raw_k(st) : raw_v(st)) +
-                                                        r * kTcD + c * 16);
-        unsigned char* dst = u < 2 ? k_tile(st) : v_tile(st);
-        const uint2 a = hopper::widen4(w.x), b = hopper::widen4(w.y);
-        const uint2 e = hopper::widen4(w.z), f = hopper::widen4(w.w);
-        *reinterpret_cast<uint4*>(dst + tc_chunk(r, 2 * c)) = make_uint4(a.x, a.y, b.x, b.y);
-        *reinterpret_cast<uint4*>(dst + tc_chunk(r, 2 * c + 1)) = make_uint4(e.x, e.y, f.x, f.y);
+      for (int u = 0; u < (kTcKeys * kRawChunks + kTcThreads - 1) / kTcThreads; ++u) {
+        const int idx = tid + u * kTcThreads, r = idx / kRawChunks, c = idx % kRawChunks;
+        if (idx >= kTcKeys * kRawChunks) break;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const unsigned char* src = (kv ? raw_v(st) : raw_k(st)) + r * DP + c * kRawCopy;
+          unsigned char* dst = kv ? v_tile(st) : k_tile(st);
+          if constexpr (kRawCopy == 16) {
+            const uint4 w = *reinterpret_cast<const uint4*>(src);
+            const uint2 a = hopper::widen4(w.x), bb = hopper::widen4(w.y);
+            const uint2 e = hopper::widen4(w.z), f = hopper::widen4(w.w);
+            *reinterpret_cast<uint4*>(dst + tc_chunk(r, 2 * c)) = make_uint4(a.x, a.y, bb.x, bb.y);
+            *reinterpret_cast<uint4*>(dst + tc_chunk(r, 2 * c + 1)) =
+                make_uint4(e.x, e.y, f.x, f.y);
+          } else {
+            const uint2 w = *reinterpret_cast<const uint2*>(src);
+            const uint2 a = hopper::widen4(w.x), bb = hopper::widen4(w.y);
+            *reinterpret_cast<uint4*>(dst + tc_chunk(r, c)) = make_uint4(a.x, a.y, bb.x, bb.y);
+          }
+        }
       }
     }
     hopper::fence_proxy_async();
@@ -556,10 +617,10 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     int kt0, kt_end;
     tile_span(i, kt0, kt_end);
-    // S = Q K^T over D in 16-deep steps (two 64-column halves)
+    // S = Q K^T over DG in 16-deep steps (the 64-column blocks in turn)
     hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kTcD / 16; ++j) {
+    for (int j = 0; j < (DG + 15) / 16; ++j) {
       const uint32_t off = (j >> 2) * kTcHalf + (j & 3) * 32;
       hopper::wgmma_ss_n64(s_acc, hopper::sw128_desc(q_wg + off, 16, 1024),
                            hopper::sw128_desc(k_tile(st) + off, 16, 1024), j > 0);
@@ -614,54 +675,59 @@ paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l_run[rr] = l_run[rr] * alpha[rr] + sum[rr];
     }
 #pragma unroll
-    for (int x = 0; x < 64; ++x) o_acc[x] *= alpha[(x & 3) >> 1];
+    for (int x = 0; x < DP / 2; ++x) o_acc[x] *= alpha[(x & 3) >> 1];
 
     // O += P V over the tile's keys in 16-deep steps (V N-major: its
-    // 64-column halves 8 KB apart, 8-key groups 1 KB apart)
+    // 64-column blocks 8 KB apart, 8-key groups 1 KB apart)
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk)
-      hopper::wgmma_rs_n128<1>(o_acc, a[kk],
-                               hopper::sw128_desc(v_tile(st) + kk * 16 * 128, kTcHalf, 1024), 1);
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      const uint64_t vd = hopper::sw128_desc(v_tile(st) + kk * 16 * 128, kTcHalf, 1024);
+      if constexpr (DP == 128)
+        hopper::wgmma_rs_n128<1>(o_acc, a[kk], vd, 1);
+      else
+        hopper::wgmma_rs_n192<1>(o_acc, a[kk], vd, 1);
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o_acc);
     __syncthreads();                                           // stage st is free again
   }
 
-  // O / l in bf16 through the warpgroup's own Q tile (16-byte chunks
-  // swizzled by row), then whole rows to global memory; rows no key
-  // reaches have l = 0 and O = 0: exact zeros
-  unsigned char* o_s = q_s + wg * (2 * kTcHalf);
+  // O / l in bf16 through the warpgroup's own Q tile (rows of DP columns,
+  // 16-byte chunks swizzled by row), then the head's DG columns of each
+  // row to global memory; rows no key reaches have l = 0 and O = 0: exact
+  // zeros
+  unsigned char* o_s = q_s + wg * (kBlocks * kTcHalf);
   const float inv[2] = {1.f / fmaxf(l_run[0], 1e-30f), 1.f / fmaxf(l_run[1], 1e-30f)};
   const int r_wg = (warp & 3) * 16 + g;
 #pragma unroll
-  for (int x = 0; x < 64; x += 2) {
+  for (int x = 0; x < DP / 2; x += 2) {
     const int rr = (x & 3) >> 1, r = r_wg + 8 * rr, col = 8 * (x >> 2) + 2 * t;
     const __nv_bfloat162 v = __floats2bfloat162_rn(o_acc[x] * inv[rr], o_acc[x + 1] * inv[rr]);
-    *reinterpret_cast<__nv_bfloat162*>(o_s + r * 256 + (((col >> 3) ^ (r & 7)) << 4) +
+    *reinterpret_cast<__nv_bfloat162*>(o_s + r * (2 * DP) + (((col >> 3) ^ (r & 7)) << 4) +
                                        (col & 7) * 2) = v;
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   const int wt = tid & 127;
 #pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const int idx = wt + u * 128, r = idx >> 4, c = idx & 15, row = wg * 64 + r;
-    if (row < r_end)
+  for (int u = 0; u < (64 * kChunks + 127) / 128; ++u) {
+    const int idx = wt + u * 128, r = idx / kChunks, c = idx % kChunks, row = wg * 64 + r;
+    if (idx < 64 * kChunks && row < r_end)
       *reinterpret_cast<uint4*>(out_b + (t0 + row) * q_row + c * 8) =
-          *reinterpret_cast<const uint4*>(o_s + r * 256 + ((c ^ (r & 7)) << 4));
+          *reinterpret_cast<const uint4*>(o_s + r * (2 * DP) + ((c ^ (r & 7)) << 4));
   }
 }
 
-template <bool kInt8>
+template <bool kInt8, int DG>
 cudaError_t launch_prefill_tc(const void* q, const void* k_new, const void* v_new,
                               const void* k_pool, const void* v_pool, const void* page_table,
                               const void* starts, const void* lens, void* out, int B, int C,
                               int H, int Hkv, int n_blocks, int page_size, long long stride_page,
                               long long stride_row, int window, float scale, const float* ks,
                               const float* vs, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(n_blocks);
-  auto kernel = paged_prefill_tc_kernel<kInt8>;
+  const size_t smem = tc_smem_bytes<DG>(n_blocks);
+  auto kernel = paged_prefill_tc_kernel<kInt8, DG>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -679,7 +745,7 @@ cudaError_t launch_prefill_tc(const void* q, const void* k_new, const void* v_ne
 
 // Plain C entry point of the SIMT kernel, which takes fp32 or bf16 q over
 // any pool (bf16 q over a bf16 or int8 pool is the tensor-core kernel's at
-// D = 128; the wrapper routes it there). q (B, C, H, D),
+// D = 112, 128 and 168; the wrapper routes it there). q (B, C, H, D),
 // k_new/v_new (B, C, Hkv, D) in q's dtype and out (B, C, H, D), all
 // contiguous; k/v pools (P, page_size, Hkv, D) with unit stride on D and
 // stride D on Hkv, their page and row strides given in elements;
@@ -724,9 +790,9 @@ extern "C" int paged_prefill_attention_launch(
 
 // Plain C entry point of the tensor-core kernel: bf16 q, k_new, v_new and
 // out as for paged_prefill_attention_launch, a bf16 or int8 pool (kv_type),
-// D = 128 only, any H / Hkv; the table's entries of one row must fit in
-// shared memory beside the tiles (n_blocks <= 16384). Returns the CUDA
-// error of the launch (0 on success).
+// D = 112, 128 or 168, any H / Hkv; the table's entries of one row must fit
+// in shared memory beside the tiles (n_blocks <= tc_max_pages(D): 16384,
+// 8192 at 168). Returns the CUDA error of the launch (0 on success).
 extern "C" int paged_prefill_attention_tc_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_pool,
     const void* v_pool, const void* page_table, const void* starts, const void* lens,
@@ -734,16 +800,23 @@ extern "C" int paged_prefill_attention_tc_launch(
     long long pool_stride_page, long long pool_stride_row, int window, float scale,
     int kv_type, const void* ks, const void* vs, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kTcD || n_blocks > 16384 || H % Hkv != 0)
+  if ((D != 112 && D != 128 && D != 168) || n_blocks > tc_max_pages(D) || H % Hkv != 0 ||
+      (kv_type != kKvBf16 && kv_type != kKvInt8))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (kv_type == kKvBf16)
-    return static_cast<int>(launch_prefill_tc<false>(
-        q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv, n_blocks,
-        page_size, pool_stride_page, pool_stride_row, window, scale, nullptr, nullptr, s));
-  if (kv_type == kKvInt8)
-    return static_cast<int>(launch_prefill_tc<true>(
-        q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, C, H, Hkv, n_blocks,
-        page_size, pool_stride_page, pool_stride_row, window, scale,
-        static_cast<const float*>(ks), static_cast<const float*>(vs), s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool int8 = kv_type == kKvInt8;
+  const float* ksf = int8 ? static_cast<const float*>(ks) : nullptr;
+  const float* vsf = int8 ? static_cast<const float*>(vs) : nullptr;
+#define PREFILL_TC(I8, DG)                                                                    \
+  launch_prefill_tc<I8, DG>(q, k_new, v_new, k_pool, v_pool, page_table, starts, lens, out, B, \
+                            C, H, Hkv, n_blocks, page_size, pool_stride_page, pool_stride_row, \
+                            window, scale, ksf, vsf, s)
+  cudaError_t err;
+  if (D == 112)
+    err = int8 ? PREFILL_TC(true, 112) : PREFILL_TC(false, 112);
+  else if (D == 128)
+    err = int8 ? PREFILL_TC(true, 128) : PREFILL_TC(false, 128);
+  else
+    err = int8 ? PREFILL_TC(true, 168) : PREFILL_TC(false, 168);
+#undef PREFILL_TC
+  return static_cast<int>(err);
 }

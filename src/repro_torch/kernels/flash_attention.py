@@ -14,17 +14,21 @@ K6 and K10 run one tensor-core kernel in every mode (q fp32 or bf16, K/V
 in q's dtype or int8 codes): every product on wgmma in 3xTF32, hi/lo tf32
 halves of each operand, fp32-accurate. A pre-pass in the same call splits
 K and V once into their planes in a workspace (``fwd_workspace``). K7 and
-K8 each have two kernels, and ``route`` picks one by dtype: fp32 runs the
-tensor-core kernel, bf16 the SIMT kernel (fp32 FMAs). The C entry point
-refuses any other pairing, so neither stands in for the other.
+K8 each have two kernels, and ``route`` picks one by dtype and head dim:
+fp32 runs the tensor-core kernel, bf16 the SIMT kernel (fp32 FMAs), and
+fp32 at head dim 168 the SIMT kernel too (the tensor-core backward's
+planes do not fit a block's shared memory at 192 columns). The C entry
+point refuses any other pairing, so neither stands in for the other.
 ``<wrapper>.launches_by_kernel`` counts each kernel's launches by the name
 ``route`` gives it. K8's tensor-core grid launches its blocks in
 ``dkv_block_order``.
 
-Head dims 64 and 128, and 8, 16 and 24 (the reference's smoke configs):
-those run the D = 64 kernels (``kernel_dim``), reading and writing the
-tensors' rows at their own width with zeros past it in shared memory and
-in the forward's workspace planes, so the tensors are never padded.
+Head dims 64 and 128; 8, 16 and 24 (the reference's smoke configs), which
+run the D = 64 kernels; 112 (kimi-k2's and zamba2's), which runs the D =
+128 kernels; and 168 (gemma3-27b's), whose kernels hold 192 columns
+(``kernel_dim``). Each reads and writes the tensors' rows at their own
+width with zeros past it in shared memory and in the forward's workspace
+planes, so the tensors are never padded.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import DTYPES, check_cuda
 
-_HEAD_DIMS = (8, 16, 24, 64, 128)
+_HEAD_DIMS = (8, 16, 24, 64, 112, 128, 168)
 # K8's keys a block (kDkvKeys in the source)
 DKV_KEYS = 64
 # the forward's key tile and the hi/lo planes a tile takes in its workspace
@@ -47,19 +51,22 @@ FWD_KEYS, FWD_PLANES = 32, 4
 
 
 def kernel_dim(d: int) -> int:
-    """The head dim the kernels run at for tensors of head dim ``d``: 64
-    for the dims under it (their tiles zero past ``d``), else ``d``."""
-    return max(d, 64)
+    """The columns the kernels' tiles hold for tensors of head dim ``d``:
+    ``d`` rounded up to a multiple of 64 (their tiles zero past ``d``):
+    64 for the dims under it, 128 for 112, 192 for 168."""
+    return -(-d // 64) * 64
 
 
 def route(dtype: torch.dtype, d: int, *, forward: bool = False) -> str:
     """The kernel that q of ``dtype`` at head dim ``d`` runs: the forward
     (K6, K10) "tensor_cores" in every mode; the backward (K7, K8)
-    "tensor_cores" for fp32, "simt" for bf16."""
+    "tensor_cores" for fp32 except at 168, "simt" for bf16 and for fp32 at
+    168."""
     if d not in _HEAD_DIMS or dtype not in DTYPES:
         raise ValueError(f"flash attention: no kernel for {dtype} at "
                          f"head_dim {d} (takes fp32 or bf16 at {_HEAD_DIMS})")
-    return "tensor_cores" if forward or dtype == torch.float32 else "simt"
+    return "tensor_cores" if forward or (dtype == torch.float32
+                                         and d != 168) else "simt"
 
 
 def dkv_block_order(sk: int, b: int, hkv: int):

@@ -3,12 +3,13 @@
 ``repro.kernels.flash_attention.paged_prefill_attention``.
 
 The source holds two kernels, and ``route`` picks one by dtype and head
-dim: bf16 q over a bf16 or int8 pool at D = 128 runs the tensor-core
-kernel (wgmma, any GQA group), every mode with fp32 q or an fp32 pool, and
-every other head dim of ``HEAD_DIMS``, the SIMT kernel (fp32 FMAs: TF32
-would change the fp32 numerics; GQA group at most ``MAX_REP``). A shape
-the chosen kernel cannot take raises; neither kernel stands in for the
-other.
+dim: bf16 q over a bf16 or int8 pool at D = 112, 128 or 168 runs the
+tensor-core kernel (wgmma, any GQA group; 112 and 168 on tiles of 128 and
+192 columns, zero past D in shared memory), every mode with fp32 q or an
+fp32 pool, and every other head dim of ``HEAD_DIMS``, the SIMT kernel
+(fp32 FMAs: TF32 would change the fp32 numerics; GQA group at most
+``MAX_REP``). A shape the chosen kernel cannot take raises; neither
+kernel stands in for the other.
 
 The wrapper checks device, dtypes, shapes, strides and alignment, allocates
 the output with ``torch.empty``, launches on PyTorch's current stream and
@@ -35,34 +36,41 @@ from repro_torch.kernels.checks import (DTYPES, KV_TYPES, check_cuda,
 HEAD_DIMS = (8, 16, 24, 64, 112, 128, 168)
 # the SIMT kernel's query rows a block (kRows in the source): T tokens x rep
 MAX_REP = 72
-# the tensor-core kernel's head dim (kTcD) and page-table entries a row
-# (held in shared memory beside the tiles)
-TC_HEAD_DIM = 128
-TC_MAX_PAGES = 16384
+# the tensor-core kernel's head dims
+TC_HEAD_DIMS = (112, 128, 168)
+
+
+def tc_max_pages(head_dim: int) -> int:
+    """Page-table entries a row the tensor-core kernel takes at
+    ``head_dim`` (held in shared memory beside its tiles: tc_max_pages in
+    the source): 16384, or 8192 at 168, whose tiles of 192 columns leave
+    32 KiB of the block's shared memory for the table."""
+    return 8192 if head_dim > 128 else 16384
 
 
 def route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
-          head_dim: int = TC_HEAD_DIM) -> str:
+          head_dim: int = 128) -> str:
     """The kernel that runs for q of ``q_dtype`` over a pool of
     ``kv_dtype`` at ``head_dim``: "tensor_cores" (bf16 q, bf16 or int8
-    pool, D = 128) or "simt" (every other mode and head dim)."""
+    pool, D in ``TC_HEAD_DIMS``) or "simt" (every other mode and head
+    dim)."""
     if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
-            and head_dim == TC_HEAD_DIM):
+            and head_dim in TC_HEAD_DIMS):
         return "tensor_cores"
     return "simt"
 
 
 def check_heads(name: str, kernel: str, d: int, h: int, hkv: int) -> None:
     """The head dims and GQA groups ``kernel`` takes: the tensor-core
-    kernel D = 128 and any group, the SIMT kernel D in ``HEAD_DIMS`` and at
-    most ``MAX_REP`` query heads a KV head. Anything else raises: no
-    wrapper falls back to the plain version."""
+    kernel D in ``TC_HEAD_DIMS`` and any group, the SIMT kernel D in
+    ``HEAD_DIMS`` and at most ``MAX_REP`` query heads a KV head. Anything
+    else raises: no wrapper falls back to the plain version."""
     if h % hkv:
         raise ValueError(f"{name} kernel: H {h} must be a multiple of Hkv "
                          f"{hkv}")
-    if kernel == "tensor_cores" and d != TC_HEAD_DIM:
+    if kernel == "tensor_cores" and d not in TC_HEAD_DIMS:
         raise ValueError(f"{name} tensor-core kernel (bf16 q, bf16/int8 "
-                         f"pool): head_dim {d} must be {TC_HEAD_DIM}")
+                         f"pool): head_dim {d} must be in {TC_HEAD_DIMS}")
     if kernel == "simt" and (d not in HEAD_DIMS or h // hkv > MAX_REP):
         raise ValueError(f"{name} kernel: head_dim {d} not in {HEAD_DIMS}, "
                          f"or GQA group {h}/{hkv} above {MAX_REP}")
@@ -127,9 +135,10 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
     kernel = route(q.dtype, k_pool.dtype, d)
     tensor_cores = kernel == "tensor_cores"
     check_heads(name, kernel, d, h, hkv)
-    if tensor_cores and nb > TC_MAX_PAGES:
+    if tensor_cores and nb > tc_max_pages(d):
         raise ValueError(f"{name} tensor-core kernel: the table at most "
-                         f"{TC_MAX_PAGES} pages a row (got {nb})")
+                         f"{tc_max_pages(d)} pages a row at head_dim {d} "
+                         f"(got {nb})")
     if not (q.is_contiguous() and k_new.is_contiguous()
             and v_new.is_contiguous()):
         raise ValueError(f"{name} kernel: q, k_new and v_new must be "

@@ -193,11 +193,16 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, init_state=None):
     cum = torch.cumsum(da, dim=-1)                      # cumulative log-decay
     xbar = xc * dtc[..., None]
 
-    # intra-chunk (masked quadratic, attention-like form)
+    # intra-chunk (masked quadratic, attention-like form). The mask goes
+    # on the exponent: above the diagonal cum_q - cum_k is positive and
+    # passes fp32's exp range once a chunk's log-decay sums past ~88 (at
+    # chunk 256), and exp(inf) times the masked zero gradient is a NaN in
+    # the backward; exp(-inf) is the same 0 forward with a zero gradient
+    # (the reference's where after the exp has the NaN, ssd.py:178)
     ldiff = cum[..., :, None] - cum[..., None, :]       # (B, nc, H, Q, Q)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    l_mat = torch.where(tri, torch.exp(ldiff), 0.0)
+    l_mat = torch.exp(torch.where(tri, ldiff, float("-inf")))
     del ldiff
     scores = torch.einsum("bchqn,bchkn->bchqk", cc, bc) * l_mat
     del l_mat

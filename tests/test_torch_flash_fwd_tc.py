@@ -41,6 +41,17 @@ FP32_GATE = 1e-4                    # chip_smoke.py FLASH_TOL["float32"]
 BLOCK = 32                          # the Pallas kernel's tiles here
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The emulations' ops are far below any parallel grain: one torch
+    thread while this file runs (idle intra-op threads cost a loaded host
+    several times its run time), the worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def tf32(x):
     """x rounded to tf32 as cvt.rna.tf32.f32 rounds: add 0x1000 to the bit
     pattern and clear the low 13 bits (to nearest, ties away from zero)."""
@@ -90,9 +101,11 @@ def emulate_fwd(q, k, v, *, scale, causal, window, k_scale=None,
     """What the forward kernel computes: q (B, Sq, H, D) fp32 or bf16, k/v
     (B, Sk, Hkv, D) in q's dtype or int8 codes with (B, Sk, Hkv) scales.
     Returns out (B, Sq, H, D) in q's dtype and lse (B, H, Sq) fp32. A head
-    dim under 64 runs the D = 64 kernel on tiles zero past it
+    dim under 64 runs the D = 64 kernel on tiles zero past it, 112 the D =
+    128 kernel, 168 its own kernel on planes of 192 columns
     (``flash_attention.kernel_dim``): the walk runs on zero-padded
-    operands and the output keeps the first D columns."""
+    operands (exact zeros in every product, so 168's 21 k steps of 8 give
+    the same values) and the output keeps the first D columns."""
     d_in = q.shape[-1]
     pad = fa.kernel_dim(d_in) - d_in
     kf, vf = k.float(), v.float()
@@ -154,11 +167,21 @@ SMALL = [
 ]
 SMALL_IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}d{c[4]}{'c' if c[5] else 'f'}"
              f"w{c[6]}" for c in SMALL]
+# kimi-k2's and zamba2's 112 (the D = 128 kernel on tiles zero past it) and
+# gemma3-27b's 168 (its own kernel, planes of 192 columns), gemma3's group
+# of 2 and a window that starts inside a tile among them
+WIDE = [
+    (130, 130, 4, 2, 112, True, -1),
+    (96, 160, 2, 1, 168, True, -1),
+    (128, 128, 4, 2, 168, True, 40),
+]
+WIDE_IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}d{c[4]}{'c' if c[5] else 'f'}"
+            f"w{c[6]}" for c in WIDE]
 
 
 def _inputs(case):
     sq, sk, h, hkv, d, _, _ = case
-    rng = np.random.default_rng((CASES + SMALL).index(case))
+    rng = np.random.default_rng((CASES + SMALL + WIDE).index(case))
     shapes = ((1, sq, h, d), (1, sk, hkv, d), (1, sk, hkv, d))
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
@@ -198,7 +221,7 @@ def _rel_errs(got, want):
             for g, w in zip(got, want)]
 
 
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", CASES + WIDE, ids=IDS + WIDE_IDS)
 def test_split_numerics_within_the_card_gate(case):
     """3xTF32 in the kernel's tile walk: out and lse within 1e-4 of the max
     of the Pallas forward's (with a margin of 10x: about 2^-21 a
@@ -234,7 +257,7 @@ def test_plain_tf32_is_worse_than_the_split():
 
 
 @pytest.mark.parametrize("s,window", [(96, -1), (130, 50)])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128, 112, 168])
 def test_int8_kv_within_the_card_gate(s, window, d):
     """K10's int8-KV mode: codes times their row's scale in fp32, then the
     split, against the Pallas kernel's int8-KV mode (``ops.flash_attention``
@@ -272,7 +295,7 @@ def test_bf16_operands_are_tf32_exact():
     assert lo_scaled.any()
 
 
-@pytest.mark.parametrize("d", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 24, 64, 128, 112, 168])
 def test_forward_route(d):
     """K6 and K10 run their tensor-core kernel for fp32 and bf16 q at every
     head dim (the backward routes bf16 to SIMT); any other dtype or head

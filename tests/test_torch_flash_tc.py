@@ -17,7 +17,10 @@ Held against the JAX Pallas backward in interpret mode, at chip_smoke.py's
 fp32 gate (1e-4 of the max), they show the design can pass the card's
 gate, and that plain TF32 (hi * hi' only) at the same inputs does not.
 The head dims under 64 (8, 16, 24: the smoke configs') run the D = 64
-kernels on tiles zero past d, which the emulation does too.
+kernels on tiles zero past d, and 112 the D = 128 kernels, which the
+emulation does too. fp32 at 168 runs the SIMT kernels (fp32 FMAs over 64 x
+64 tiles: the tensor-core kernels' planes do not fit a block's shared
+memory at 192 columns), emulated with fp32 products over those walks.
 The routing rule and K8's block order are checked as pure functions.
 """
 
@@ -33,7 +36,19 @@ from repro_torch.kernels import ref
 
 DQ_ROWS, DQ_KEYS = 64, 32           # K7's block rows and key tile
 DKV_KEYS, DKV_ROWS = 64, 32         # K8's block keys and query tile
+SIMT_TILE = 64                      # the SIMT kernels' streamed tiles
 FP32_GATE = 1e-4                    # chip_smoke.py FLASH_TOL["float32"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The emulations' ops are far below any parallel grain: one torch
+    thread while this file runs (idle intra-op threads cost a loaded host
+    several times its run time), the worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def tf32(x):
@@ -61,6 +76,11 @@ def mm1(a, b):
     return tf32(a) @ tf32(b)
 
 
+def mm_fp32(a, b):
+    """a @ b in fp32: the SIMT kernels' FMAs (in another order)."""
+    return a @ b
+
+
 def _valid(qi, kj, sq, sk, causal, window):
     """(len(qi), len(kj)) valid pairs, the kernels' ``valid_pair``."""
     diff = qi[:, None] - kj[None, :]
@@ -81,9 +101,11 @@ def _rows(x, lo, n):
     return out
 
 
-def emulate_dq(q, k, v, dout, lse, delta, *, scale, causal, window, mm=mm3):
-    """What K7's tensor-core kernel computes: fp32 q, k, v, dout (B, S, H,
-    D), lse and delta (B, H, Sq). Returns dq (B, Sq, H, D)."""
+def emulate_dq(q, k, v, dout, lse, delta, *, scale, causal, window, mm=mm3,
+               keys=DQ_KEYS):
+    """What K7's tensor-core kernel computes (the SIMT kernel's walk with
+    ``keys`` 64): fp32 q, k, v, dout (B, S, H, D), lse and delta (B, H,
+    Sq). Returns dq (B, Sq, H, D)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -98,11 +120,11 @@ def emulate_dq(q, k, v, dout, lse, delta, *, scale, causal, window, mm=mm3):
         lse_r = _rows(lse.transpose(1, 2), q0, DQ_ROWS).transpose(1, 2)
         dl_r = _rows(delta.transpose(1, 2), q0, DQ_ROWS).transpose(1, 2)
         acc = torch.zeros((b, h, DQ_ROWS, d))
-        for k0 in range(k_lo // DQ_KEYS * DQ_KEYS, k_hi, DQ_KEYS):
-            kj = torch.arange(k0, k0 + DQ_KEYS)
-            kt = _rows(k, k0, DQ_KEYS).permute(0, 2, 1, 3) \
+        for k0 in range(k_lo // keys * keys, k_hi, keys):
+            kj = torch.arange(k0, k0 + keys)
+            kt = _rows(k, k0, keys).permute(0, 2, 1, 3) \
                 .repeat_interleave(rep, 1)                        # (B, H, K, D)
-            vt = _rows(v, k0, DQ_KEYS).permute(0, 2, 1, 3) \
+            vt = _rows(v, k0, keys).permute(0, 2, 1, 3) \
                 .repeat_interleave(rep, 1)
             s = mm(qs, kt.transpose(-1, -2))
             dp = mm(do, vt.transpose(-1, -2))
@@ -114,9 +136,10 @@ def emulate_dq(q, k, v, dout, lse, delta, *, scale, causal, window, mm=mm3):
 
 
 def emulate_dkv(q, k, v, dout, lse, delta, *, scale, causal, window,
-                mm=mm3):
-    """What K8's tensor-core kernel computes. Returns (dk, dv) (B, Sk, Hkv,
-    D), each GQA group summed in the kernel's order (head, then tile)."""
+                mm=mm3, rows=DKV_ROWS):
+    """What K8's tensor-core kernel computes (the SIMT kernel's walk with
+    ``rows`` 64). Returns (dk, dv) (B, Sk, Hkv, D), each GQA group summed
+    in the kernel's order (head, then tile)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -132,14 +155,14 @@ def emulate_dkv(q, k, v, dout, lse, delta, *, scale, causal, window,
         dv_acc = torch.zeros((b, hkv, DKV_KEYS, d))
         for r in range(rep):
             heads = torch.arange(hkv) * rep + r
-            for q0 in range(q_lo // DKV_ROWS * DKV_ROWS, q_hi, DKV_ROWS):
-                qi = torch.arange(q0, q0 + DKV_ROWS)
-                qs = _rows(q, q0, DKV_ROWS)[:, :, heads].permute(0, 2, 1, 3) \
+            for q0 in range(q_lo // rows * rows, q_hi, rows):
+                qi = torch.arange(q0, q0 + rows)
+                qs = _rows(q, q0, rows)[:, :, heads].permute(0, 2, 1, 3) \
                     * scale                                       # (B, Hkv, R, D)
-                do = _rows(dout, q0, DKV_ROWS)[:, :, heads].permute(0, 2, 1, 3)
-                lse_r = _rows(lse.transpose(1, 2), q0, DKV_ROWS)[:, :, heads] \
+                do = _rows(dout, q0, rows)[:, :, heads].permute(0, 2, 1, 3)
+                lse_r = _rows(lse.transpose(1, 2), q0, rows)[:, :, heads] \
                     .transpose(1, 2)                              # (B, Hkv, R)
-                dl_r = _rows(delta.transpose(1, 2), q0, DKV_ROWS)[:, :, heads] \
+                dl_r = _rows(delta.transpose(1, 2), q0, rows)[:, :, heads] \
                     .transpose(1, 2)
                 st = mm(kt, qs.transpose(-1, -2))                 # (B, Hkv, K, R)
                 dpt = mm(vt, do.transpose(-1, -2))
@@ -163,6 +186,11 @@ CASES = [
 IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}{'c' if c[4] else 'f'}w{c[5]}"
        for c in CASES]
 D = 64
+# kimi-k2's and zamba2's head dim 112 (the D = 128 kernels on tiles zero
+# past it) and gemma3-27b's 168 (the SIMT kernels at 192 columns) on cases
+# of CASES: a window with rep 1, Sq < Sk with rep 3
+WIDE = [(CASES[1], 112), (CASES[0], 112), (CASES[1], 168), (CASES[0], 168)]
+WIDE_IDS = [f"{IDS[CASES.index(c)]}d{d}" for c, d in WIDE]
 
 
 def _inputs(case, d=D):
@@ -192,11 +220,12 @@ def _pad(x, dk):
     return torch.nn.functional.pad(x, (0, dk - x.shape[-1]))
 
 
-def _emulated(case, mm, d=D):
+def _emulated(case, mm, d=D, tile=None):
     """The kernels' dq, dk, dv, from the port's plain forward's out and
-    lse as the backward on the card gets them; at a head dim under 64 the
-    walks run on tiles zero-padded to 64 columns, and the outputs' first d
-    columns are kept."""
+    lse as the backward on the card gets them; the walks run on tiles
+    zero-padded to ``kernel_dim(d)`` columns, and the outputs' first d
+    columns are kept. ``tile`` sets both streamed tiles (the SIMT
+    kernels' 64)."""
     sq, sk, h, hkv, causal, window = case
     q, k, v, dout = (torch.from_numpy(x) for x in _inputs(case, d))
     kw = dict(scale=d ** -0.5, causal=causal, window=window)
@@ -204,8 +233,10 @@ def _emulated(case, mm, d=D):
     delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
     dk_ = fa.kernel_dim(d)
     q, k, v, dout = (_pad(x, dk_) for x in (q, k, v, dout))
-    dq = emulate_dq(q, k, v, dout, lse, delta, mm=mm, **kw)
-    dk, dv = emulate_dkv(q, k, v, dout, lse, delta, mm=mm, **kw)
+    walk = {} if tile is None else {"keys": tile}
+    dq = emulate_dq(q, k, v, dout, lse, delta, mm=mm, **walk, **kw)
+    walk = {} if tile is None else {"rows": tile}
+    dk, dv = emulate_dkv(q, k, v, dout, lse, delta, mm=mm, **walk, **kw)
     return [x[..., :d].numpy() for x in (dq, dk, dv)]
 
 
@@ -214,11 +245,17 @@ def _rel_errs(got, want):
             for g, w in zip(got, want)]
 
 
-@pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_split_numerics_within_the_card_gate(case):
-    """3xTF32 in the kernels' tile walks: dq, dk and dv within 1e-4 of the
-    max of JAX's (with a margin of 10x: about 2^-21 a product)."""
-    errs = _rel_errs(_emulated(case, mm3), _jax_grads(case))
+@pytest.mark.parametrize("case,d", [(c, D) for c in CASES] + WIDE,
+                         ids=IDS + WIDE_IDS)
+def test_split_numerics_within_the_card_gate(case, d):
+    """3xTF32 in the kernels' tile walks (at 168 the SIMT kernels' fp32
+    products over 64-row tiles, the route fp32 takes there): dq, dk and
+    dv within 1e-4 of the max of JAX's (with a margin of 10x: about 2^-21
+    a product)."""
+    simt = fa.route(torch.float32, d) == "simt"
+    got = _emulated(case, mm_fp32 if simt else mm3, d,
+                    SIMT_TILE if simt else None)
+    errs = _rel_errs(got, _jax_grads(case, d))
     assert max(errs) <= FP32_GATE / 10, errs
 
 
@@ -258,13 +295,15 @@ def test_tf32_rounding():
     assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2 ** -22
 
 
-@pytest.mark.parametrize("d", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 24, 64, 128, 112, 168])
 def test_route(d):
-    """fp32 runs the tensor-core kernels at every head dim, bf16 the SIMT
-    kernels; any other dtype or head dim has no kernel. The dims under 64
-    run the D = 64 kernels."""
-    assert fa.kernel_dim(d) == max(d, 64)
-    assert fa.route(torch.float32, d) == "tensor_cores"
+    """fp32 runs the tensor-core kernels at every head dim but 168, where
+    it runs the SIMT kernels as bf16 does everywhere; any other dtype or
+    head dim has no kernel. The dims under 64 run the D = 64 kernels, 112
+    the D = 128 ones, 168 kernels of 192 columns."""
+    assert fa.kernel_dim(d) == {112: 128, 168: 192}.get(d, max(d, 64))
+    assert fa.route(torch.float32, d) == ("simt" if d == 168
+                                          else "tensor_cores")
     assert fa.route(torch.bfloat16, d) == "simt"
     with pytest.raises(ValueError):
         fa.route(torch.float16, d)

@@ -32,6 +32,17 @@ B, PS, NB = 5, 8, 4
 LENS = np.array([0, 1, 13, 27, PS * NB], np.int32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain versions' ops are far below any parallel grain: one torch
+    thread while this file runs (idle intra-op threads cost a loaded host
+    several times its run time), the worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -161,22 +172,31 @@ def test_other_head_dims_raise(d):
 
 
 def test_k3_tensor_cores_take_d128_only():
+    """K3's tensor-core kernel takes D = 128 and, on tiles of 128 and 192
+    columns zero past D, 112 and 168 (kimi-k2's and gemma3-27b's heads),
+    any group; no other head dim."""
     k3.check_heads("k", "tensor_cores", 128, 48, 1)
-    with pytest.raises(ValueError, match="head_dim"):
-        k3.check_heads("k", "tensor_cores", 168, 32, 16)
+    k3.check_heads("k", "tensor_cores", 168, 32, 16)
+    k3.check_heads("k", "tensor_cores", 112, 64, 8)
+    for d in (8, 24, 64):
+        with pytest.raises(ValueError, match="head_dim"):
+            k3.check_heads("k", "tensor_cores", d, 32, 16)
     with pytest.raises(ValueError, match="GQA"):
         k3.check_heads("k", "simt", 128, 80, 1)
+    assert [k3.tc_max_pages(d) for d in (112, 128, 168)] == \
+        [16384, 16384, 8192]
 
 
 @pytest.mark.parametrize("d", (8, 24, 112, 168))
 @pytest.mark.parametrize("kv", (torch.bfloat16, torch.int8, torch.float32))
 def test_routes_send_other_head_dims_to_simt(d, kv):
-    """bf16 q over a bf16 or int8 pool runs the tensor cores at D = 128
-    only; every other head dim runs the SIMT kernels of K1, K2, K5 and
-    K3."""
-    assert k2.route(torch.bfloat16, kv, d) == "simt"
-    assert k3.route(torch.bfloat16, kv, d) == "simt"
+    """bf16 q over a bf16 or int8 pool runs K1's, K2's and K5's tensor
+    cores at D = 128 only, K3's at 112, 128 and 168; every other head dim
+    runs their SIMT kernels."""
     want = "simt" if kv == torch.float32 else "tensor_cores"
+    assert k2.route(torch.bfloat16, kv, d) == "simt"
+    assert k3.route(torch.bfloat16, kv, d) == (
+        want if d in (112, 168) else "simt")
     assert k2.route(torch.bfloat16, kv, 128) == want
     assert k3.route(torch.bfloat16, kv, 128) == want
 

@@ -8,7 +8,8 @@ into P, and P is rounded to bf16 before P.V. ``tc_prefill`` below emulates
 exactly that in torch, with the kernel's own walk (128 query rows of one
 head a block; the cached prefix, then the chunk, in 64-key tiles; the
 online softmax per tile, so P is rounded against the running max of its
-tile). Held against the JAX Pallas ``paged_prefill_attention`` in
+tile; at head dims 112 and 168 on tiles of 128 and 192 columns, zero past
+D). Held against the JAX Pallas ``paged_prefill_attention`` in
 interpret mode at chip_smoke.py's bf16 gate (5e-3 absolute plus 1e-2
 relative), it shows here that the design can pass the card's gate: the
 one extra rounding, P to bf16 (2^-9 relative a term), stays inside it.
@@ -35,12 +36,31 @@ ATOL, RTOL = 5e-3, 1e-2             # chip_smoke.py MODES' bf16 gate
 SMS = 132                           # an H100 SXM
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The emulations' ops are far below any parallel grain: one torch
+    thread while this file runs (idle intra-op threads cost a loaded host
+    several times its run time), the worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def tc_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
                scale, window=-1, k_scale=None, v_scale=None):
     """What the tensor-core K3 computes: q (B, C, H, D) bf16; k_new/v_new
     bf16; pools bf16, or int8 codes with (P, page_size, Hkv) fp32 scales.
     Returns (B, C, H, D) bf16: a padding token past a live row's length
-    attends the row's keys, a dead row is zeros."""
+    attends the row's keys, a dead row is zeros. The tiles hold D rounded
+    up to 64 columns (112 -> 128, 168 -> 192), zero past D in shared
+    memory: the walk runs on operands zero-padded so, and the output
+    keeps the first D columns."""
+    d_in = q.shape[-1]
+    pad = -(-d_in // 64) * 64 - d_in
+    q, k_new, v_new, k_pool, v_pool = (
+        torch.nn.functional.pad(x, (0, pad))
+        for x in (q, k_new, v_new, k_pool, v_pool))
     b_n, c, h, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     rep = h // hkv
@@ -95,16 +115,22 @@ def tc_prefill(q, k_new, v_new, k_pool, v_pool, table, starts, lens, *,
                 o = o * alpha + p_bf @ vh
                 m = m_new
             out[b, rows] = (o / l.clamp(min=1e-30)).transpose(0, 1)
-    return out.bfloat16()
+    return out[..., :d_in].bfloat16()
 
 
-def _prefill_case(kv, seed=0):
-    """B = 3 rows, C = 40 (no multiple of 64), H = 18 over Hkv = 2 (a GQA
-    group of 9, as starcoder2-7b's), D = 128, pages of 16 through a
-    permuted table; starts 300 (unaligned; a window of 256 then cuts a
-    prefix tile), 37 and 0, chunk lengths 40, 23 and 0 (a dead row)."""
+# (H, Hkv) at each head dim: starcoder2-7b's group of 9 at 128, kimi-k2's
+# of 8 at 112, gemma3-27b's of 2 at 168
+K3_HEADS = {128: (18, 2), 112: (16, 2), 168: (4, 2)}
+
+
+def _prefill_case(kv, seed=0, d=128):
+    """B = 3 rows, C = 40 (no multiple of 64), K3_HEADS[d] heads (at 128
+    H = 18 over Hkv = 2, a GQA group of 9, as starcoder2-7b's), pages of
+    16 through a permuted table; starts 300 (unaligned; a window of 256
+    then cuts a prefix tile), 37 and 0, chunk lengths 40, 23 and 0 (a dead
+    row)."""
     rng = np.random.default_rng(seed)
-    b, c, h, hkv, d, ps, nb = 3, 40, 18, 2, 128, 16, 24
+    (h, hkv), b, c, ps, nb = K3_HEADS[d], 3, 40, 16, 24
     bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16))     # noqa: E731
     q = bf(rng.standard_normal((b, c, h, d)))
     k_new = bf(rng.standard_normal((b, c, hkv, d)))
@@ -132,11 +158,15 @@ def _torch(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("window", [-1, 256])
-@pytest.mark.parametrize("kv", ["int8", "bfloat16"])
-def test_tc_prefill_numerics_within_the_card_gate(kv, window):
-    args, (ks, vs) = _prefill_case(kv)
-    scale = 128 ** -0.5
+TC_CASES = [(kv, w, d) for d in (128, 112, 168)
+            for kv in ("int8", "bfloat16") for w in (-1, 256)]
+
+
+@pytest.mark.parametrize("kv,window,d", TC_CASES, ids=[
+    f"{kv}-{w}" + ("" if d == 128 else f"-d{d}") for kv, w, d in TC_CASES])
+def test_tc_prefill_numerics_within_the_card_gate(kv, window, d):
+    args, (ks, vs) = _prefill_case(kv, d=d)
+    scale = d ** -0.5
     want = np.asarray(jops.paged_prefill_attention(
         *map(jnp.asarray, args), scale=scale, window=window, block_q=8,
         interpret=True, k_scale=None if ks is None else jnp.asarray(ks),
@@ -157,16 +187,28 @@ def test_tc_prefill_numerics_within_the_card_gate(kv, window):
     assert (got[~live] == 0.0).all()
 
 
-@pytest.mark.parametrize("q_dtype,kv_dtype,want", [
-    (torch.bfloat16, torch.int8, "tensor_cores"),
-    (torch.bfloat16, torch.bfloat16, "tensor_cores"),
-    (torch.bfloat16, torch.float32, "simt"),
-    (torch.float32, torch.int8, "simt"),
-    (torch.float32, torch.float32, "simt")])
-def test_k3_route(q_dtype, kv_dtype, want):
+K3_ROUTES = [(torch.bfloat16, torch.int8, 128, "tensor_cores"),
+             (torch.bfloat16, torch.bfloat16, 128, "tensor_cores"),
+             (torch.bfloat16, torch.float32, 128, "simt"),
+             (torch.float32, torch.int8, 128, "simt"),
+             (torch.float32, torch.float32, 128, "simt"),
+             (torch.bfloat16, torch.int8, 112, "tensor_cores"),
+             (torch.bfloat16, torch.bfloat16, 168, "tensor_cores"),
+             (torch.bfloat16, torch.int8, 168, "tensor_cores"),
+             (torch.bfloat16, torch.float32, 168, "simt"),
+             (torch.float32, torch.bfloat16, 112, "simt"),
+             (torch.bfloat16, torch.int8, 64, "simt")]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,want", K3_ROUTES, ids=[
+    f"q_dtype{i}-kv_dtype{i}-{want}" + ("" if d == 128 else f"-d{d}")
+    for i, (_, _, d, want) in enumerate(K3_ROUTES)])
+def test_k3_route(q_dtype, kv_dtype, d, want):
     """fp32 pools (the unquantized serve mode) and fp32 q (the stream
-    identity runs) stay on the SIMT kernel: TF32 would change them."""
-    assert k3.route(q_dtype, kv_dtype) == want
+    identity runs) stay on the SIMT kernel: TF32 would change them. bf16 q
+    over a bf16 or int8 pool runs the tensor cores at D = 112, 128 and
+    168, the SIMT kernel at any other head dim."""
+    assert k3.route(q_dtype, kv_dtype, d) == want
 
 
 @pytest.mark.parametrize("m,x_dtype,want", [
