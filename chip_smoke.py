@@ -239,9 +239,11 @@ non-zero and prints no result:
    their plain versions at the training path's shapes (B=2, S=2048, H=36,
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
    backward on the kernel's own out and lse (K6 and K10 run their
-   tensor-core kernel in every mode, fp32 K7 and K8 theirs, bf16 K7 and
-   K8 their SIMT kernels); two calls of K6, K7 and K8 on the same inputs
-   must give the same bits; the kernels and the library calls timed by
+   tensor-core kernel in every mode, fp32 K7 and K8 their 3xTF32 ones,
+   bf16 K7 and K8 their bf16 ones: every call asserted on its route's
+   kernel, bf16 on the tensor cores; the bounds count bf16 K7's and K8's
+   three-plane products at a third of the bf16 rate); two calls of K6, K7
+   and K8 on the same inputs must give the same bits; the kernels and the library calls timed by
    device time from torch.profiler, CUDA events beside; the library call
    is causal ``F.scaled_dot_product_attention`` with K/V repeated to H
    heads, and its autograd backward for K7 + K8 together; then (checked,
@@ -269,9 +271,9 @@ non-zero and prints no result:
    S 2048, then ragged lengths (1000 with a window of 300; Sq 100 < Sk
    128 at a group of 9; a non-causal case; one key), fp32 and bf16, each
    call on the kernel its route names (112 on the D = 128 kernels; 168 on
-   the forward's own D = 168 kernel and, in fp32 as in bf16, the SIMT
-   backward at 192 columns); timed at kimi-k2's and gemma3-27b's heads,
-   B 1, S 2048, as in 4d;
+   the forward's own D = 168 kernel, the bf16 tensor-core backward and
+   the fp32 SIMT backward at 192 columns); timed at kimi-k2's and
+   gemma3-27b's heads, B 1, S 2048, as in 4d;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
    asserted); then the serve params are freed;
@@ -362,18 +364,21 @@ non-zero and prints no result:
    with the first step apart, peak memory, parameters and their 16 bytes
    a parameter, then one more step profiled (device time by kernel, busy
    share);
-10. train parity: fp32, full width, 2 layers, B=2, S=1024: the gradients
-   of ``loss_fn`` through K6-K8 (``positions=None``) against the masked
-   ``sdpa`` route (explicit positions), the loss within 1e-5 and each
-   leaf within 1e-4 of its max, relative; every K6, K7 and K8 launch on
-   the tensor-core kernels;
-11. train: ``TrainEngine.for_lm`` on the 8-layer full-width config, fp32
-   params and AdamW state, synthetic tokens, batch 2 x 2048, two ticks of
-   two steps: every loss and grad norm finite, one readback per tick, K6,
-   K7 and K8 launches each steps x 8, all on the tensor-core kernels;
-   reports s/step, tokens/s, peak
-   memory, model FLOP/s over the fp32 peak and the accountant's train
-   block, then profiles one more tick (device time by kernel, busy
+10. train parity: fp32 and bf16 params, full width, 2 layers, B=2,
+   S=1024: the gradients of ``loss_fn`` through K6-K8
+   (``positions=None``) against the masked ``sdpa`` route (explicit
+   positions), the loss within 1e-5 (bf16: 1e-2) and each leaf within
+   1e-4 (bf16: 6e-2) of its max, relative (TRAIN_PARITY_TOL); every K6,
+   K7 and K8 launch on the tensor-core kernels;
+11. train: ``TrainEngine.for_lm`` on the 8-layer full-width config,
+   synthetic tokens, batch 2 x 2048, two ticks of two steps, with fp32
+   params and AdamW state, then with bf16 params and the reference's
+   fleet AdamW (bf16 moments, no fp32 master, grad_clip 1.0, lr 3e-4):
+   every loss and grad norm finite, one readback per tick, K6, K7 and K8
+   launches each steps x 8, all on the tensor-core kernels; reports
+   s/step (the first tick apart), tokens/s, peak memory, model FLOP/s
+   over the fp32 (bf16) peak and the accountant's train block, then
+   profiles one more tick (device time by kernel, K6-K8's among it, busy
    share);
 11b. trainer: the checkpointing ``Trainer`` on examples/train_e2e.py's
    model_100m at full size (12 layers, d_model 768, 129.0M params), fp32,
@@ -2247,20 +2252,33 @@ def _flash_bounds(q, k, window):
     """Least time of K6, K7 and K8 at these inputs: 4, 6 and 8 * D FLOPs
     per valid (query, key) pair and head (K6: s and P V; K7 recomputes s
     and dP and does dS K; K8 recomputes s and dP and does P^T dO and dS^T
-    Q) over the peak of the inputs' type, or their bytes (each input read
-    once, each output written once) over the HBM rate, the larger."""
+    Q), each product at its operands' rate, or their bytes (each input
+    read once, each output written once) over the HBM rate, the larger.
+    fp32 inputs: every product at ``_peak`` (3xTF32). bf16 inputs: K6 at
+    PEAK_BF16; in K7 and K8, S and dP (bf16 x bf16) at PEAK_BF16 and the
+    products with fp32 P or dS (their fp32 values against bf16 dO, Q or
+    K, as the Pallas bodies compute them) at PEAK_BF16 / 3, three exact
+    bf16 planes, as ``_peak_coded`` counts fp32 x against codes: 10 and 16
+    * D at PEAK_BF16."""
+    import torch
     b, s, h, d = q.shape
     pairs = b * h * _flash_pairs(s, window)
     qb = q.numel() * q.element_size()
     kb = k.numel() * k.element_size()
     rows = 4 * b * h * s                      # one fp32 lse or delta row
-    peak = _peak(q)
-    return {"flash_attention_fwd": _bound(2 * qb + 2 * kb + rows,
-                                          4.0 * d * pairs / peak),
+    if q.dtype == torch.float32:
+        peak = _peak(q)
+        t_fwd, t_dq, t_dkv = (n * d * pairs / peak for n in (4.0, 6.0, 8.0))
+    else:
+        # (bf16 x bf16 FLOPs, fp32 x bf16 FLOPs) a pair and head, over D
+        t_fwd = 4.0 * d * pairs / PEAK_BF16
+        t_dq, t_dkv = ((exact + 3 * planes) * d * pairs / PEAK_BF16
+                       for exact, planes in ((4, 2), (4, 4)))
+    return {"flash_attention_fwd": _bound(2 * qb + 2 * kb + rows, t_fwd),
             "flash_attention_bwd_dq": _bound(3 * qb + 2 * kb + 2 * rows,
-                                             6.0 * d * pairs / peak),
+                                             t_dq),
             "flash_attention_bwd_dkv": _bound(2 * qb + 4 * kb + 2 * rows,
-                                              8.0 * d * pairs / peak)}
+                                              t_dkv)}
 
 
 def _rel_err(got, want):
@@ -2294,12 +2312,14 @@ def phase_flash_kernels():
         q, k, v, dout = _flash_inputs(getattr(torch, q_name))
         for window in WINDOWS:
             kw = dict(scale=scale, causal=True, window=window)
+            before = _flash_launch_counts()
             out, lse = fa.flash_attention_fwd(q, k, v, **kw)
             delta = (dout.float() * out.float()).sum(-1).transpose(
                 1, 2).contiguous()
             dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
             dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
                                                 **kw)
+            _flash_ran(before, f"{q_name}, window {window}", q.dtype, D)
             torch.cuda.synchronize()
             w_out, w_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
             w_dq, w_dk, w_dv = ref.flash_attention_bwd_ref(q, k, v, out, lse,
@@ -2426,6 +2446,34 @@ def _same_bits(label, first, second):
                              f"{label}")
 
 
+def _flash_launch_counts():
+    """K6's, K7's and K8's per-kernel launch counts now, to diff."""
+    return {fn.__name__: dict(fn.launches_by_kernel)
+            for fn in _train_flash_counters()}
+
+
+def _flash_ran(before, label, dtype, d):
+    """The kernels K6, K7 and K8 launched since ``before``
+    (``_flash_launch_counts``) must be their route's at ``d`` and no
+    other, and the backward's route in bf16 the tensor cores at every head
+    dim. Returns {kernel: [kernels that ran]}."""
+    from repro_torch.kernels import flash_attention as fa
+    ran = {fn.__name__: [k for k, n in fn.launches_by_kernel.items()
+                         if n != before[fn.__name__][k]]
+           for fn in _train_flash_counters()}
+    want = {fn.__name__: [fa.route(dtype, d,
+                                   forward=fn is fa.flash_attention_fwd)]
+            for fn in _train_flash_counters()}
+    if ran != want:
+        raise AssertionError(f"flash kernels at {label} ran {ran}, not "
+                             f"their route's {want}")
+    if str(dtype) == "torch.bfloat16" and \
+            ran["flash_attention_bwd_dq"] != ["tensor_cores"]:
+        raise AssertionError(f"bf16 K7 and K8 at {label} ran {ran}, not "
+                             f"the tensor cores")
+    return ran
+
+
 # (Sq, Sk, H, Hkv, D, causal, window): ragged lengths across the tensor-core
 # kernels' 64- and 32-row tiles (1, 63, 65, 1000; Sq < Sk), GQA groups of
 # 1, 3 and 9, both head dims, a window of 300 and a non-causal case
@@ -2475,12 +2523,14 @@ def _check_flash_case(gen, b, sq, sk, h, hkv, d, causal, window, q_name):
     v = _randn(gen, (b, sk, hkv, d), dt)
     dout = _randn(gen, (b, sq, h, d), dt)
     kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    label = (f"B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, causal "
+             f"{causal}, window {window}, {q_name}")
+    before = _flash_launch_counts()
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-    label = (f"B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, causal "
-             f"{causal}, window {window}, {q_name}")
+    _flash_ran(before, label, dt, d)
     _same_bits(label, (out, lse, dq, dk, dv),
                fa.flash_attention_fwd(q, k, v, **kw)
                + (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw),)
@@ -2586,10 +2636,13 @@ def _time_flash(b, s, h, hkv, d, q_name, phase="flash_small_dims"):
     v = _randn(gen, (b, s, hkv, d), dt)
     dout = _randn(gen, (b, s, h, d), dt)
     kw = dict(scale=d ** -0.5, causal=True, window=-1)
+    before = _flash_launch_counts()
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    _flash_ran(before, f"B {b}, S {s}, H {h}, Hkv {hkv}, D {d}, {q_name}",
+               dt, d)
     o10 = fa.flash_attention(q, k, v, **kw)
     w_out, _ = ref.flash_attention_fwd_ref(q, k, v, **kw)
     w_dq, w_dk, w_dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
@@ -2687,7 +2740,8 @@ def phase_flash_small_dims():
 
 # The head dims 112 (kimi-k2's and zamba2's: the D = 128 kernels on tiles
 # zero past 112) and 168 (gemma3-27b's: the forward's own D = 168 kernel,
-# the backward's SIMT kernels at 192 columns), (B, Sq, Sk, H, Hkv, D,
+# the backward's bf16 tensor-core and fp32 SIMT kernels at 192 columns),
+# (B, Sq, Sk, H, Hkv, D,
 # causal, window): each config's heads at S 2048 (gemma3's without and
 # with its window of 1024), then ragged lengths, a group of 9, a
 # non-causal case and one key; checked in fp32 and bf16
@@ -2715,18 +2769,7 @@ def phase_flash_wide_dims():
     rows = []
     for case in WIDE_FLASH:
         for q_name in FLASH_TOL:
-            before = {fn.__name__: dict(fn.launches_by_kernel)
-                      for fn in _train_flash_counters()}
             rows.append(_check_flash_case(gen, *case, q_name))
-            ran = {fn.__name__: [k for k, n in fn.launches_by_kernel.items()
-                                 if n != before[fn.__name__][k]]
-                   for fn in _train_flash_counters()}
-            want = rows[-1]["kernel"]
-            if ran != {"flash_attention_fwd": [want["forward"]],
-                       "flash_attention_bwd_dq": [want["backward"]],
-                       "flash_attention_bwd_dkv": [want["backward"]]}:
-                raise AssertionError(f"flash kernels at {case}, {q_name} "
-                                     f"ran {ran}, not {want}")
             torch.cuda.empty_cache()
     emit({"phase": "flash_wide_dims", "cases": rows})
     timed = {}
@@ -2847,21 +2890,21 @@ def _reset_flash_kernels():
             fn.launches_by_kernel[key] = 0
 
 
-def _flash_on_route(phase, head_dim=128):
+def _flash_on_route(phase, head_dim=128, dtype="float32"):
     """K6's, K7's and K8's per-kernel counts since
-    ``_reset_flash_kernels``: every launch of the fp32 training attention
-    on the kernel ``route`` names at ``head_dim``, the tensor cores at
-    every head dim but 168 (there K7 and K8 run SIMT)."""
+    ``_reset_flash_kernels``: every launch of the training attention in
+    ``dtype`` on the kernel ``route`` names at ``head_dim``: the tensor
+    cores at every head dim, but for fp32 K7 and K8 at 168 (SIMT)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     by_kernel = {fn.__name__: dict(fn.launches_by_kernel)
                  for fn in _train_flash_counters()}
     for fn in _train_flash_counters():
-        want = fa.route(torch.float32, head_dim,
+        want = fa.route(getattr(torch, dtype), head_dim,
                         forward=fn is fa.flash_attention_fwd)
         if fn.launches_by_kernel.get(want) != fn.launches:
-            raise AssertionError(f"{phase}: the fp32 flash attention ran "
-                                 f"off its route's {want} kernels at "
+            raise AssertionError(f"{phase}: the {dtype} flash attention "
+                                 f"ran off its route's {want} kernels at "
                                  f"head_dim {head_dim}: {by_kernel}")
     return by_kernel
 
@@ -2872,21 +2915,29 @@ def _starcoder2(layers):
     return dataclasses.replace(starcoder2_7b.make_config(), repeats=layers)
 
 
-def phase_train_parity():
-    """fp32, full width, 2 layers, B = 2, S = 1024, random weights from the
-    seed: the gradients of ``loss_fn`` through K6-K8 (``positions=None``)
-    against the same call with explicit arange positions (masked ``sdpa``
-    on the card). Tolerances: the loss within 1e-5 relative, each leaf's
-    max abs gradient difference within 1e-4 of that leaf's max abs
-    gradient: the two routes differ only in the order of the attention's
-    fp32 sums (about 1e-6 relative), carried through two layers' matmuls
-    and the loss. Returns the flash route's launches."""
+# the training parity's tolerances by params dtype: (the loss's relative
+# difference, each leaf's max abs gradient difference over that leaf's max
+# abs gradient). fp32: the two routes differ only in the order of the
+# attention's fp32 sums (about 1e-6 relative), carried through two layers'
+# matmuls and the loss. bf16: tests/test_torch_flash.py's bf16 bound (the
+# routes round the attention's bf16 output, and the matmuls after it, at
+# other places)
+TRAIN_PARITY_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 6e-2)}
+
+
+def phase_train_parity(dtype="float32"):
+    """Params in ``dtype`` (fp32 or bf16), full width, 2 layers, B = 2, S
+    = 1024, random weights from the seed: the gradients of ``loss_fn``
+    through K6-K8 (``positions=None``) against the same call with explicit
+    arange positions (masked ``sdpa`` on the card), within
+    TRAIN_PARITY_TOL; every flash launch on its route's kernels. Returns
+    the flash route's launches."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as tf_lib
     from repro_torch.models.common import flatten
     cfg = _starcoder2(2)
-    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=getattr(torch, dtype),
                             device="cuda")
     leaves, _ = flatten(params)
     for p in leaves:
@@ -2904,26 +2955,31 @@ def phase_train_parity():
         loss, _ = tf_lib.loss_fn(params, cfg, {**batch, **extra})
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
-        results[route] = (loss.detach(), grads,
+        results[route] = (loss.detach().float(), grads,
                           {n: fn.launches for n, fn in counters.items()})
         if route == "flash":
-            by_kernel = _flash_on_route("train parity")
+            by_kernel = _flash_on_route(f"train parity ({dtype})",
+                                        cfg.resolved_head_dim, dtype)
     (l_f, g_f, launches), (l_s, g_s, sdpa_launches) = (results["flash"],
                                                        results["sdpa"])
     loss_rel = float((l_f - l_s).abs() / l_s.abs())
-    leaf_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    leaf_rel = max(float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max().clamp_min(1e-30))
                    for a, b in zip(g_f, g_s))
     want = {n: (2 if n in TRAIN_FLASH else 0) for n in counters}
     finite = bool(torch.isfinite(l_f)) and all(
         bool(torch.isfinite(g).all()) for g in g_f)
-    row = {"phase": "train_parity", "layers": 2, "batch": 2, "seq": 1024,
+    loss_tol, leaf_tol = TRAIN_PARITY_TOL[dtype]
+    row = {"phase": "train_parity", "dtype": dtype, "layers": 2,
+           "batch": 2, "seq": 1024,
            "loss_flash": float(l_f), "loss_sdpa": float(l_s),
            "loss_rel_diff": loss_rel, "max_leaf_rel_diff": leaf_rel,
+           "tolerance": {"loss_rel": loss_tol, "leaf_rel": leaf_tol},
            "leaves": len(leaves), "launches": launches,
            "flash_launches_by_kernel": by_kernel,
            "sdpa_launches": sdpa_launches}
     emit(row)
-    if not (finite and loss_rel <= 1e-5 and leaf_rel <= 1e-4):
+    if not (finite and loss_rel <= loss_tol and leaf_rel <= leaf_tol):
         raise AssertionError(f"train parity: flash route against sdpa: {row}")
     if launches != want or any(sdpa_launches.values()):
         raise AssertionError(f"train parity launches: flash {launches} != "
@@ -2963,13 +3019,17 @@ def _profile_tick(eng, k, top=10):
             "top_kernels_ms_per_step": dict(kernels[:top])}
 
 
-def phase_train():
+def phase_train(dtype="float32"):
     """The fused TrainEngine on starcoder2-7b at full width and 8 layers,
-    fp32 params and AdamW state, synthetic tokens, global batch 2 x 2048,
-    two ticks of two steps, billed to h100_sxm. Every counter is set to 0
-    just before the run and read just after: K6, K7 and K8 each launch
-    steps x layers times; one readback per tick; every loss and grad norm
-    finite. Returns the launches."""
+    synthetic tokens, global batch 2 x 2048, two ticks of two steps,
+    billed to h100_sxm. fp32: fp32 params and AdamW state, a warmup-cosine
+    lr. bf16: bf16 params and AdamW as the reference's fleet cells train
+    (``repro/launch/cells.py::_adamw_for``: bf16 moments, no fp32 master,
+    grad_clip 1.0, lr 3e-4). Every counter is set to 0 just before the run
+    and read just after: K6, K7 and K8 each launch steps x layers times,
+    every launch on its route's kernels (bf16: the tensor cores); one
+    readback per tick; every loss and grad norm finite. Then one profiled
+    tick: K6-K8's device ms a step. Returns the launches."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, make_pipeline
@@ -2980,16 +3040,19 @@ def phase_train():
     from repro_torch.train import TrainEngine, TrainEngineConfig
     cfg = _starcoder2(TRAIN_LAYERS)
     steps, k = 4, 2
-    params = tf_lib.init_lm(cfg, seed=SEED, dtype=torch.float32,
+    params = tf_lib.init_lm(cfg, seed=SEED, dtype=getattr(torch, dtype),
                             device="cuda")
+    opt_cfg = (AdamWConfig(lr=warmup_cosine(3e-4, 1, steps))
+               if dtype == "float32" else
+               AdamWConfig(lr=3e-4, state_dtype="bf16", use_master=False,
+                           grad_clip=1.0))
     pipeline = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=FLASH_S,
                                         global_batch=FLASH_B, seed=SEED,
                                         source="synthetic"))
     acct = _accountant()
     eng = TrainEngine.for_lm(
-        params, cfg, opt_cfg=AdamWConfig(lr=warmup_cosine(3e-4, 1, steps)),
-        pipeline=pipeline, engine_cfg=TrainEngineConfig(steps_per_tick=k),
-        accountant=acct)
+        params, cfg, opt_cfg=opt_cfg, pipeline=pipeline,
+        engine_cfg=TrainEngineConfig(steps_per_tick=k), accountant=acct)
     n_params = sum(p.numel() for p in flatten(params)[0])
     torch.cuda.synchronize()
     resident_gb = torch.cuda.memory_allocated() / 1e9
@@ -3001,7 +3064,8 @@ def phase_train():
     eng.run(steps)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    by_kernel = _flash_on_route("train")
+    by_kernel = _flash_on_route(f"train ({dtype})", cfg.resolved_head_dim,
+                                dtype)
     want = {n: (steps * TRAIN_LAYERS if n in TRAIN_FLASH else 0)
             for n in counters}
     log = np.concatenate(eng.step_log)
@@ -3009,13 +3073,20 @@ def phase_train():
     cost = eng.cost
     walls = [m.wall_s for m in eng.metrics_log]
     train = acct.report()["train"]
-    row = {"phase": "train", "layers": TRAIN_LAYERS, "d_model": cfg.d_model,
-           "params": n_params, "batch": FLASH_B, "seq": FLASH_S,
-           "steps": steps, "steps_per_tick": k, "ticks": s["ticks"],
-           "host_readbacks": eng.host_readbacks,
+    peak = PEAK_FP32 if dtype == "float32" else PEAK_BF16
+    row = {"phase": "train", "dtype": dtype, "layers": TRAIN_LAYERS,
+           "d_model": cfg.d_model, "params": n_params, "batch": FLASH_B,
+           "seq": FLASH_S, "steps": steps, "steps_per_tick": k,
+           "optimizer": {"state_dtype": opt_cfg.state_dtype,
+                         "use_master": opt_cfg.use_master,
+                         "grad_clip": opt_cfg.grad_clip},
+           "ticks": s["ticks"], "host_readbacks": eng.host_readbacks,
            "losses": log[:, 0].tolist(), "grad_norms": log[:, 1].tolist(),
            "lrs": log[:, 2].tolist(), "tick_wall_s": walls,
            "s_per_step": s["s_per_step"],
+           # the first tick holds the first step (its allocations and
+           # first calls), apart from the last
+           "s_per_step_first_tick": walls[0] / k,
            "s_per_step_last_tick": walls[-1] / k,
            "tokens_per_s": s["tokens"] / s["wall_s"],
            "resident_gb_before_run": resident_gb,
@@ -3023,8 +3094,8 @@ def phase_train():
            "model_flops_per_step": cost.fwd_flops + cost.bwd_flops,
            "model_flops_per_s_last_tick": (cost.fwd_flops + cost.bwd_flops)
            * k / walls[-1],
-           "fp32_peak_share_last_tick": (cost.fwd_flops + cost.bwd_flops)
-           * k / walls[-1] / PEAK_FP32,
+           f"{'fp32' if dtype == 'float32' else 'bf16'}_peak_share_last_tick":
+           (cost.fwd_flops + cost.bwd_flops) * k / walls[-1] / peak,
            "launches": launches, "flash_launches_by_kernel": by_kernel,
            "train": {key: train[key] for key in (
                "steps", "bwd_fwd_ratio", "fwd_j", "bwd_j", "opt_j",
@@ -3033,13 +3104,14 @@ def phase_train():
     row["profile"] = _profile_tick(eng, k)
     emit(row)
     if not np.isfinite(log[:, :2]).all():
-        raise AssertionError(f"train: a loss or grad norm is not finite: "
-                             f"{log.tolist()}")
+        raise AssertionError(f"train ({dtype}): a loss or grad norm is not "
+                             f"finite: {log.tolist()}")
     if row["host_readbacks"] != row["ticks"] or row["ticks"] != steps // k:
-        raise AssertionError(f"train: {row['host_readbacks']} readbacks "
-                             f"for {row['ticks']} ticks")
+        raise AssertionError(f"train ({dtype}): {row['host_readbacks']} "
+                             f"readbacks for {row['ticks']} ticks")
     if launches != want:
-        raise AssertionError(f"train: launches {launches} != {want}")
+        raise AssertionError(f"train ({dtype}): launches {launches} != "
+                             f"{want}")
     _add_flash_dims(launches, cfg.resolved_head_dim)
     return launches
 
@@ -6424,7 +6496,11 @@ def main() -> int:
     mark("family_train")
     gc.collect()
     torch.cuda.empty_cache()
-    runs += [phase_train_parity(), phase_train()]
+    runs += [phase_train_parity(), phase_train_parity("bfloat16"),
+             phase_train()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.append(phase_train("bfloat16"))
     mark("train")
     gc.collect()
     torch.cuda.empty_cache()

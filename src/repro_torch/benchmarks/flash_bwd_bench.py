@@ -7,7 +7,8 @@ causal), fp32 and bf16, windows -1 and 256, and K10 (``flash_attention``)
 in each of its modes against the SDPA forward; the kernels and the SDPA
 calls by device time (torch.profiler), their CUDA-event times beside.
 
-    PYTHONPATH=src python src/repro_torch/benchmarks/flash_bwd_bench.py
+    PYTHONPATH=src python src/repro_torch/benchmarks/flash_bwd_bench.py \\
+        [--dims]
     PYTHONPATH=<older checkout>/src \\
         python src/repro_torch/benchmarks/flash_bwd_bench.py
 
@@ -17,13 +18,17 @@ lies in: its ``phase_device`` (the card's name and power limit, TF32 off),
 each equal bit for bit) and ``phase_flash_infer`` (K10, two calls equal
 bit for bit). Those call only the kernels' public
 wrappers, so the second command times an older checkout's kernels on the
-same inputs. Prints JSON lines, with the flash source's ptxas lines. Needs
-a card.
+same inputs. ``--dims`` adds ``phase_flash_ragged``,
+``phase_flash_small_dims`` and ``phase_flash_wide_dims`` (K6-K8 and K10 at
+the ragged shapes and at head dims 8, 16, 24, 112 and 168, checked and
+timed), which assert this checkout's routes. Prints JSON lines, with the
+flash source's ptxas lines. Needs a card.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import sys
 from pathlib import Path
 
 import torch
@@ -52,6 +57,10 @@ def main() -> None:
                  if "registers" in line or "spill" in line]})
     cs.phase_flash_kernels()
     cs.phase_flash_infer()
+    if "--dims" in sys.argv[1:]:
+        cs.phase_flash_ragged()
+        cs.phase_flash_small_dims()
+        cs.phase_flash_wide_dims()
 
 
 if __name__ == "__main__":

@@ -33,13 +33,13 @@
 // dP, dV, dK), against one read of each q, k, v, dO row: at starcoder2-7b's
 // shapes (S = 2048, causal) that is hundreds of FLOPs per byte, above the
 // H100's ridge. The least time for fp32 work is its FLOPs at the 3xTF32
-// rate, 495 / 3 = 165 TFLOP/s on the tensor cores (below); for bf16, at
-// the bf16 peak.
+// rate, 495 / 3 = 165 TFLOP/s on the tensor cores (below); for bf16, each
+// product at its operands' rate (below).
 //
-// The tensor-core kernels: K6 and K10 in every mode (flash_fwd_tc_kernel:
-// q fp32 or bf16, K/V in q's dtype or int8 codes), K7 and K8 in fp32
-// (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel; the wrapper's route
-// "tensor_cores"). Every product runs on the tensor cores in tf32 with
+// The 3xTF32 tensor-core kernels: K6 and K10 in every mode
+// (flash_fwd_tc_kernel: q fp32 or bf16, K/V in q's dtype or int8 codes), K7
+// and K8 in fp32 (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel; the
+// wrapper's route "tensor_cores"). Every product runs on the tensor cores in tf32 with
 // fp32-accurate results (3xTF32): each fp32 operand x splits into hi =
 // tf32(x) (round to nearest, ties away: cvt.rna's rounding) and lo = tf32(x
 // - hi), and A B = A_lo B_hi + A_hi B_lo + A_hi B_hi, small terms first,
@@ -108,13 +108,35 @@
 //     block, so the GQA sum stays in registers. Every sum is taken in a
 //     fixed order, with no atomics: two calls give the same bits.
 //
-// K7 and K8 in bf16 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; route
-// "simt") run fp32 SIMT dots: 64 x 64 tiles, 256 threads, each thread a 4
-// x 4 block of scores and 4 rows x D/16 columns of the accumulator in
-// registers, so each value read from shared memory serves 4 FMAs; rows
-// that shared memory reads across threads are padded to D + 4 floats. They
-// run on fp32 CUDA cores with no overlap of loads and math, one block per
-// SM.
+// K7 and K8 in bf16 (flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel;
+// route "tensor_cores" at every head dim) run on bf16 wgmma with the Pallas
+// kernels' numerics (the Pallas bodies upcast bf16 to fp32; S, P, dP and dS
+// are fp32): S = Q K^T and dP = dO V^T have bf16 on both sides, so each is
+// one bf16 wgmma k16 with exact products and an fp32 sum; S is scaled in
+// fp32 after its product (Pallas scales q before it, and dK = scale dS^T Q
+// at the end where Pallas multiplies dS^T by scale q: both differ at fp32
+// rounding). The products over the rows (dQ += dS K, dV += P^T dO, dK +=
+// dS^T Q) have one fp32 operand: P or dS splits into three exact bf16
+// planes on its bit pattern (hopper::bf16x3_split, as the coded GEMM
+// carries fp32 x), each a bf16 wgmma against the bf16 tile, small terms
+// first, into a fresh fp32 accumulator that one add (to nearest) takes into
+// the running sum. bf16 wgmma reads a 16-bit B N-major (the transpose bit),
+// so K, dO and Q serve those products from the tiles S and dP read K-major:
+// no transposed copies. Tiles hold 2 bytes an element (the fp32 planes 8),
+// so 64 x 64 tiles fit every head dim: 64 columns for 8-64, 128 for 112 and
+// 128, 192 for 168 (S and dP take ceil(D / 16) k steps). K7 is one
+// warpgroup over a block's 64 query rows (two blocks an SM); K8 keeps the
+// fp32 kernel's grid and group walk with two warpgroups by product. The
+// bound of both: 10 and 16 D FLOPs a pair, S and dP at the bf16 rate and
+// the three-plane products at a third of it.
+//
+// The SIMT K7 and K8 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; route
+// "simt") serve fp32 at head dim 168 only: fp32 SIMT dots over 64 x 64
+// tiles, 256 threads, each thread a 4 x 4 block of scores and 4 rows x D/16
+// columns of the accumulator in registers, so each value read from shared
+// memory serves 4 FMAs; rows that shared memory reads across threads are
+// padded to D + 4 floats. They run on fp32 CUDA cores with no overlap of
+// loads and math, one block per SM.
 //
 // K10 (the inference flash_attention, with its int8-KV mode) is K6's
 // forward without the lse: the pre-pass takes the K/V storage type as a
@@ -172,25 +194,6 @@ __device__ __forceinline__ void ld8(const float* p, float4& a, float4& b) {
   b = ld4(p + 4);
 }
 
-// eight consecutive bf16 elements of a global row, in fp32
-__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float4& a, float4& b) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 x0 = __bfloat1622float2(h[0]), x1 = __bfloat1622float2(h[1]);
-  const float2 x2 = __bfloat1622float2(h[2]), x3 = __bfloat1622float2(h[3]);
-  a = make_float4(x0.x, x0.y, x1.x, x1.y);
-  b = make_float4(x2.x, x2.y, x3.x, x3.y);
-}
-
-__device__ __forceinline__ void st4(__nv_bfloat16* p, const float4& x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 __device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -215,7 +218,7 @@ __device__ __forceinline__ bool valid_pair(int i, int j, int Sq, int Sk, int cau
   return i < Sq && j < Sk && (!causal || diff >= 0) && (window <= 0 || diff < window);
 }
 
-// Rows [0, 64) of a bf16 tile into shared memory with row stride `stride`
+// Rows [0, 64) of a tile (fp32) into shared memory with row stride `stride`
 // floats, times `mul`: global row r at src + r * gstride (elements), its
 // first dg columns; rows at or past n_valid and columns at or past dg are
 // zeros, so p = 0 never meets stale memory and a head dim under D pads
@@ -803,7 +806,8 @@ __device__ __forceinline__ float* tc_smem(float4* raw) {
 
 // Named barriers (0 is __syncthreads). In K7 warpgroup 0 arrives and
 // warpgroup 1 waits on kPlanesReady (a key tile's K and V planes are
-// stored) and kPReady (its P is in the exchange tiles); warpgroup 1 arrives
+// stored) and kPReady (its P is in the exchange tiles; in the bf16 K8, P^T
+// is in the exchange tile); warpgroup 1 arrives
 // and warpgroup 0 waits on kPlanesFree (warpgroup 1 has read the tile's V
 // planes, P, and K as its A fragments). kStored (K7's warpgroup 0) and
 // kDsStored (K7's and K8's warpgroup 1) are one warpgroup's own: its
@@ -1473,6 +1477,397 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7 and K8 on the tensor cores in bf16: bf16 wgmma, P and dS in three exact
+// bf16 planes
+// ---------------------------------------------------------------------------
+
+constexpr int kBfTile = 64;              // K7: query rows a block and keys a tile;
+                                         // K8: keys a block and query rows a tile
+constexpr int kBfHalf = 64 * 128;        // bytes of one 64-column block of a 64-row bf16 tile
+
+// bytes of a 64-row bf16 tile of padded_dim(DH) columns
+__host__ __device__ constexpr int bf_tile_bytes(int DH) { return kBfTile * padded_dim(DH) * 2; }
+
+// K7's buffers of K and V tiles: two (tile i + 1 lands during tile i) where
+// two blocks of 128 threads still fit an SM, else one (DH = 168: 148,480
+// bytes a block with two, 99,328 with one), refilled once the block is done
+// with it; the other block on the SM covers the copy.
+__host__ __device__ constexpr int dq_bf16_smem(int DH, int stages) {
+  return 1024 + (2 + 2 * stages) * bf_tile_bytes(DH);
+}
+__host__ __device__ constexpr int dq_bf16_stages(int DH) {
+  return 2 * dq_bf16_smem(DH, 2) <= kMaxSmem ? 2 : 1;
+}
+
+// K8: the block's K and V, the P^T exchange tile (64 x 64 fp32), then two
+// stages of a query tile's Q and dO and its 64 lse and 64 delta rows (1 KB)
+constexpr int kBfXchg = kBfTile * kBfTile * 4;
+__host__ __device__ constexpr int dkv_bf16_stage(int DH) { return 2 * bf_tile_bytes(DH) + 1024; }
+__host__ __device__ constexpr int dkv_bf16_smem(int DH) {
+  return 1024 + 2 * bf_tile_bytes(DH) + kBfXchg + 2 * dkv_bf16_stage(DH);
+}
+
+// Byte offset of the 16-byte chunk holding columns 8c .. 8c + 7 of row r of
+// a 64-row bf16 tile: 64-column blocks of 8 KB, each with the 128-byte
+// swizzle (K3's layout), which wgmma reads K-major (the operands of S and
+// dP, whose depth is the head dim) and N-major (the B of the products over
+// the rows, whose depth is the tile's rows).
+__device__ __forceinline__ uint32_t bf_chunk(int r, int c) {
+  return (uint32_t)((c >> 3) * kBfHalf) + hopper::sw128(r, c & 7);
+}
+
+// Rows [0, 64) of a bf16 tile (global row r at src + r * gstride elements,
+// its first dg columns) into a padded_dim(DH)-column tile by cp.async,
+// 16 bytes a copy, rows at or past n_valid and columns at or past dg zero
+// filled; committed by the caller.
+template <int DH, int kThreads>
+__device__ __forceinline__ void bf_fetch_tile(unsigned char* dst, const __nv_bfloat16* src,
+                                              long long gstride, int n_valid, int dg, int tid) {
+  constexpr int C = padded_dim(DH) / 8;
+#pragma unroll
+  for (int u = 0; u < kBfTile * C / kThreads; ++u) {
+    const int idx = tid + u * kThreads, r = idx / C, c = idx % C;
+    const bool ok = r < n_valid && 8 * c < dg;
+    hopper::cp_async16_zfill(hopper::smem_addr(dst + bf_chunk(r, c)),
+                             ok ? src + r * gstride + 8 * c : src, ok);
+  }
+}
+
+// s = A B^T over the head's columns for the warpgroup's 64 rows of tile A
+// and the 64 rows of tile B: wgmma m64n64k16 in ceil(DH / 16) k steps
+// (bf16 products are exact, the sum fp32). s[4j + e] of warp w is (row 16w
+// + g + 8 (e / 2), B row 8j + 2t + e % 2). The caller fences, commits and
+// waits.
+template <int DH>
+__device__ __forceinline__ void bf_dots(float (&s)[32], const unsigned char* a,
+                                        const unsigned char* b) {
+#pragma unroll
+  for (int j = 0; j < (DH + 15) / 16; ++j) {
+    const uint32_t off = (j >> 2) * kBfHalf + (j & 3) * 32;
+    hopper::wgmma_ss_n64(s, hopper::sw128_desc(a + off, 16, 1024),
+                         hopper::sw128_desc(b + off, 16, 1024), j > 0);
+  }
+}
+
+// A warp's 16 x 64 fp32 tile in s's layout (P, dS, P^T or dS^T) as the A
+// fragments of the four 16-deep k steps of a product over its 64 columns,
+// in three exact bf16 planes (hopper::bf16x3_split on the bit pattern: hi +
+// mid + lo == x), so that against a bf16 B three bf16 products carry fp32 x
+// without loss. f[kk][p] is k step kk's fragment of plane p (0 hi, 1 mid, 2
+// lo): a0 (row g, columns 16kk + 2t, + 1), a1 (row g + 8), a2 (columns + 8),
+// a3 (row g + 8, columns + 8), each pair low column first; s's values
+// 4j + e at j = 2kk + (register / 2), e = 2 (register % 2) + (0, 1).
+struct Planes3 {
+  uint32_t f[4][3][4];
+
+  __device__ __forceinline__ void split(const float (&x)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      uint32_t h0, m0, l0, h1, m1, l1;
+      hopper::bf16x3_split(x[i], h0, m0, l0);
+      hopper::bf16x3_split(x[i + 1], h1, m1, l1);
+      const int kk = i >> 3, reg = ((i >> 2) & 1) * 2 + ((i & 3) >> 1);
+      f[kk][0][reg] = hopper::bf16_pack(h0, h1);
+      f[kk][1][reg] = hopper::bf16_pack(m0, m1);
+      f[kk][2][reg] = hopper::bf16_pack(l0, l1);
+    }
+  }
+
+  // Keeps the registers live and unchanged up to here: call after the last
+  // wgmma_wait of the products that read them.
+  __device__ __forceinline__ void hold() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f[kk][p][e])::"memory");
+  }
+};
+
+// acc += X B over the tile's 64 rows of B: X the warpgroup's 64 x 64 fp32
+// tile in three planes, B a 64-row bf16 tile read N-major (its rows are the
+// depth, its padded_dim(DH) columns the output's), in 64-column blocks of
+// the output. Each block's 12 wgmma m64n64k16 (four k steps x lo, mid, hi:
+// small terms first) sum in a fresh accumulator, which one fp32 add (to
+// nearest) takes into acc: the tensor cores' own accumulation rounds toward
+// zero. acc[32c + 4j + e] is (row 16w + g + 8 (e / 2), column 64c + 8j + 2t
+// + e % 2). (Blocks of 128 columns, m64n128k16, measured no faster in K7 at
+// D 128 on an H100.)
+template <int DH>
+__device__ __forceinline__ void bf_rows_product(float (&acc)[padded_dim(DH) / 2],
+                                                const Planes3& x, const unsigned char* b) {
+  float part[32];
+#pragma unroll
+  for (int c = 0; c < padded_dim(DH) / 64; ++c) {
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc = hopper::sw128_desc(b + c * kBfHalf + kk * 16 * 128, kBfHalf, 1024);
+#pragma unroll
+      for (int p = 2; p >= 0; --p)
+        hopper::wgmma_rs_n64<1>(part, x.f[kk][p], desc, kk > 0 || p < 2);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[32 * c + i] += part[i];
+  }
+}
+
+// acc times mul in bf16 into rows [0, n_rows) of 64 rows of a (rows, dg)
+// slice at out (row stride ostride elements): this thread's rows r0 and
+// r0 + 8 and its column pairs 64c + 8j + 2t, those under dg.
+template <int DH>
+__device__ __forceinline__ void bf_store_rows(__nv_bfloat16* out, long long ostride, int r0,
+                                              int n_rows, int dg, int t,
+                                              const float (&acc)[padded_dim(DH) / 2], float mul) {
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int r = r0 + 8 * e2;
+    if (r >= n_rows) continue;
+    __nv_bfloat16* o = out + r * ostride + 2 * t;
+#pragma unroll
+    for (int c = 0; c < padded_dim(DH) / 64; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (64 * c + 8 * j + 2 * t < dg)
+          st2(o + 64 * c + 8 * j, acc[32 * c + 4 * j + 2 * e2] * mul,
+              acc[32 * c + 4 * j + 2 * e2 + 1] * mul);
+  }
+}
+
+// K7 in bf16: grid (Sq tiles of 64, H, B), heaviest tiles first, one
+// warpgroup a block (two blocks an SM). The block's Q and dO tiles stay in
+// shared memory; the 64-key tiles of K and V that its rows can see land by
+// cp.async (tile i + 1 during tile i where dq_bf16_stages is 2). Tile i:
+// S = Q K^T and dP = dO V^T on bf16 wgmma (one commit group), then in fp32
+// p = exp(scale S - lse), masked explicitly, and dS = p (dP - delta); dS
+// in three planes; dQ += dS K (K read N-major: no transposed copy). At the
+// end dq = scale dQ in bf16. DH is the kernel's head dim (64, 128, 168),
+// dg the tensors' (the tiles zero past it).
+template <int DH>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
+                         int Sk, int H, int Hkv, int dg, int causal, int window, float scale) {
+  constexpr int kTileB = bf_tile_bytes(DH);
+  constexpr int kStages = dq_bf16_stages(DH);
+  extern __shared__ float4 smem4[];
+  unsigned char* q_s = reinterpret_cast<unsigned char*>(tc_smem(smem4));
+  unsigned char* do_s = q_s + kTileB;
+  unsigned char* kv_s = do_s + kTileB;              // stage u: K at 2u kTileB, V after it
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBfTile;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
+  const int n_q = min(kBfTile, Sq - q0);
+  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
+
+  // key tiles [t_lo, t_lo + n_tiles) of 64: the keys the block's rows can see
+  const int key_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int key_hi = causal ? min(Sk, q0 + n_q) : Sk;
+  const int t_lo = key_lo / kBfTile;
+  const int n_tiles = max(0, (key_hi + kBfTile - 1) / kBfTile - t_lo);
+  const __nv_bfloat16* k_g = k + (long long)b * Sk * k_row + (long long)hk * dg;
+  const __nv_bfloat16* v_g = v + (long long)b * Sk * k_row + (long long)hk * dg;
+  auto fetch = [&](int i) {
+    const int k0 = (t_lo + i) * kBfTile;
+    unsigned char* st = kv_s + (i % kStages) * 2 * kTileB;
+    bf_fetch_tile<DH, 128>(st, k_g + k0 * k_row, k_row, Sk - k0, dg, tid);
+    bf_fetch_tile<DH, 128>(st + kTileB, v_g + k0 * k_row, k_row, Sk - k0, dg, tid);
+  };
+  bf_fetch_tile<DH, 128>(q_s, q + q_off, q_row, n_q, dg, tid);
+  bf_fetch_tile<DH, 128>(do_s, dout + q_off, q_row, n_q, dg, tid);
+  if (n_tiles > 0) fetch(0);
+  hopper::cp_async_commit();
+
+  const int row = 16 * warp + g;                    // this thread's rows: row, row + 8
+  const long long row_off = ((long long)b * H + h) * Sq + q0;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const bool in = row + 8 * e < n_q;
+    lse_r[e] = in ? lse[row_off + row + 8 * e] : 0.f;
+    dl_r[e] = in ? delta[row_off + row + 8 * e] : 0.f;
+  }
+
+  float acc[padded_dim(DH) / 2];                    // dQ: the warp's 16 rows, all columns
+#pragma unroll
+  for (int i = 0; i < padded_dim(DH) / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    if constexpr (kStages == 2) {
+      if (i + 1 < n_tiles) fetch(i + 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();                   // tile i (and Q, dO) landed
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    hopper::fence_proxy_async();                    // the copies, before wgmma reads them
+    __syncthreads();
+    const unsigned char* k_t = kv_s + (i % kStages) * 2 * kTileB;
+    const int k0 = (t_lo + i) * kBfTile;
+    float s[32], dp[32];
+    hopper::wgmma_fence();
+    bf_dots<DH>(s, q_s, k_t);                       // S
+    bf_dots<DH>(dp, do_s, k_t + kTileB);            // dP
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int rr = (x & 3) >> 1;
+      const bool ok = valid_pair(q0 + row + 8 * rr, k0 + 8 * (x >> 2) + 2 * t + (x & 1), Sq, Sk,
+                                 causal, window);
+      // explicit mask: a row with no valid key has lse ~ -1e30
+      const float p = ok ? expf(s[x] * scale - lse_r[rr]) : 0.f;
+      s[x] = p * (dp[x] - dl_r[rr]);                // dS
+    }
+    Planes3 ds;
+    ds.split(s);
+    bf_rows_product<DH>(acc, ds, k_t);              // dQ += dS K
+    ds.hold();
+    __syncthreads();                                // the stage's K and V are read
+    if constexpr (kStages == 1) {
+      if (i + 1 < n_tiles) {
+        fetch(i + 1);
+        hopper::cp_async_commit();
+      }
+    }
+  }
+  bf_store_rows<DH>(dq + q_off, q_row, row, n_q, dg, t, acc, scale);
+}
+
+// K8 in bf16: the fp32 tensor-core kernel's 1-D grid of (key tile of 64,
+// batch, KV head) blocks, key tile slowest (dkv_block_order), and its walk
+// over the rep query heads of the group and their 64-row query tiles inside
+// the block, so the GQA sum stays in registers (kept: at the training
+// shapes, B 2 x S 2048 with 4 KV heads, the walk gives 256 blocks of one an
+// SM over 132 SMs in longest-first order, about two even waves; a grid
+// split over the group's heads would add an fp32 workspace of dK and dV per
+// query head and a second pass). Two warpgroups by product, each over the
+// block's 64 keys: warpgroup 0 computes S^T = K Q^T and P^T, hands P^T to
+// warpgroup 1 through an fp32 exchange tile in fragment order (a named
+// barrier), and adds P^T dO to dV; warpgroup 1 computes dP^T = V dO^T
+// meanwhile, then dS^T = P^T (dP^T - delta) and adds dS^T Q to dK (Q and
+// dO read N-major: no transposed copies). dK = scale dK at the end; both
+// in bf16.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int B, int Sq, int Sk, int H, int Hkv,
+                          int dg, int causal, int window, float scale) {
+  constexpr int kTileB = bf_tile_bytes(DH);
+  constexpr int kStage = dkv_bf16_stage(DH);
+  extern __shared__ float4 smem4[];
+  unsigned char* k_s = reinterpret_cast<unsigned char*>(tc_smem(smem4));
+  unsigned char* v_s = k_s + kTileB;
+  float* xchg = reinterpret_cast<float*>(v_s + kTileB);   // P^T, warpgroup 0 to 1
+  unsigned char* stages = v_s + kTileB + kBfXchg;   // stage u: Q, dO, lse and delta rows
+
+  const int n_bh = B * Hkv;
+  const int k0 = (blockIdx.x / n_bh) * kBfTile;
+  const int b = (blockIdx.x % n_bh) / Hkv, hk = blockIdx.x % Hkv, rep = H / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = tid & 3;
+  const int role = warp >> 2;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
+  const int n_k = min(kBfTile, Sk - k0);
+  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
+
+  // query tiles [qt_lo, qt_lo + n_qt) of 64 that can see a key of the
+  // block, for each of the rep heads: tile i is head i / n_qt's tile i % n_qt
+  const int k_last = k0 + n_k - 1;
+  const int qry_lo = causal ? k0 : 0;
+  const int qry_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int qt_lo = qry_lo / kBfTile;
+  const int n_qt = max(0, (qry_hi + kBfTile - 1) / kBfTile - qt_lo);
+  const int n_tiles = rep * n_qt;
+  auto fetch = [&](int i) {
+    const int h = hk * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * kBfTile;
+    const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
+    unsigned char* st = stages + (i & 1) * kStage;
+    bf_fetch_tile<DH, kTcThreads>(st, q + q_off, q_row, Sq - q0, dg, tid);
+    bf_fetch_tile<DH, kTcThreads>(st + kTileB, dout + q_off, q_row, Sq - q0, dg, tid);
+    if (tid < 2 * kBfTile) {                        // lse rows, then delta rows
+      const int r = tid % kBfTile;
+      const bool ok = q0 + r < Sq;
+      const float* src = (tid < kBfTile ? lse : delta) + ((long long)b * H + h) * Sq + q0;
+      hopper::cp_async4_zfill(
+          hopper::smem_addr(reinterpret_cast<float*>(st + 2 * kTileB) + tid), ok ? src + r : src,
+          ok);
+    }
+  };
+  bf_fetch_tile<DH, kTcThreads>(k_s, k + k_off, k_row, n_k, dg, tid);
+  bf_fetch_tile<DH, kTcThreads>(v_s, v + k_off, k_row, n_k, dg, tid);
+  if (n_tiles > 0) fetch(0);
+  hopper::cp_async_commit();
+
+  const int key = 16 * (warp & 3) + g;              // this thread's keys: key, key + 8
+  float acc[padded_dim(DH) / 2];                    // dV (role 0) or dK (role 1): 16 keys a warp
+#pragma unroll
+  for (int i = 0; i < padded_dim(DH) / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) fetch(i + 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();                     // tile i (and K, V) landed
+    hopper::fence_proxy_async();
+    __syncthreads();
+    const unsigned char* q_t = stages + (i & 1) * kStage;
+    const unsigned char* do_t = q_t + kTileB;
+    const float* lse_s = reinterpret_cast<const float*>(q_t + 2 * kTileB);
+    const float* dl_s = lse_s + kBfTile;
+    const int q0 = (qt_lo + i % n_qt) * kBfTile;
+    // transposed scores: rows are the block's keys, columns the tile's
+    // queries; x: this thread's (key, query) pair of the warp's 16 x 64
+    float s[32];
+    float* xs = xchg + (warp & 3) * 1024;           // warp w of each warpgroup: the same pairs
+    Planes3 xt;
+    if (role == 0) {
+      hopper::wgmma_fence();
+      bf_dots<DH>(s, k_s, q_t);                     // S^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int qq = 8 * (x >> 2) + 2 * t + (x & 1);
+        const bool ok =
+            valid_pair(q0 + qq, k0 + key + 8 * ((x & 3) >> 1), Sq, Sk, causal, window);
+        s[x] = ok ? expf(s[x] * scale - lse_s[qq]) : 0.f;   // P^T
+        xs[x * 32 + lane] = s[x];
+      }
+      bar_arrive(kPReady, kTcThreads);
+      xt.split(s);
+      bf_rows_product<DH>(acc, xt, do_t);           // dV += P^T dO
+    } else {
+      hopper::wgmma_fence();
+      bf_dots<DH>(s, v_s, do_t);                    // dP^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      bar_sync(kPReady, kTcThreads);                // warpgroup 0's P^T is in the exchange
+#pragma unroll
+      for (int x = 0; x < 32; ++x)
+        s[x] = xs[x * 32 + lane] * (s[x] - dl_s[8 * (x >> 2) + 2 * t + (x & 1)]);   // dS^T
+      xt.split(s);
+      bf_rows_product<DH>(acc, xt, q_t);            // dK += dS^T Q
+    }
+    xt.hold();
+    __syncthreads();                                // the stage and the exchange are read
+  }
+  bf_store_rows<DH>((role ? dk : dv) + k_off, k_row, key, n_k, dg, t, acc, role ? scale : 1.f);
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -1561,10 +1956,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// The tensor-core backward takes the head dims of the D = 64 and 128
+// The fp32 tensor-core backward takes the head dims of the D = 64 and 128
 // kernels only: at 168 its planes need 320,000 (K7) and 327,936 (K8)
 // bytes (see the entry points).
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
                          int H, int Hkv, int dg, int causal, int window, float scale,
@@ -1586,7 +1981,7 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                           int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
@@ -1607,6 +2002,45 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
       Sk, H, Hkv, dg, causal, window, scale);
   return cudaGetLastError();
   }
+}
+
+// The bf16 tensor-core backward at every kernel head dim (64, 128, 168).
+template <int DH>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
+                           int H, int Hkv, int dg, int causal, int window, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = dq_bf16_smem(DH, dq_bf16_stages(DH));
+  auto kernel = flash_bwd_dq_bf16_kernel<DH>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kBfTile - 1) / kBfTile, H, B);
+  kernel<<<grid, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, Hkv, dg, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                            int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
+                            cudaStream_t stream) {
+  const size_t smem = dkv_bf16_smem(DH);
+  auto kernel = flash_bwd_dkv_bf16_kernel<DH>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((Sk + kBfTile - 1) / kBfTile) * B * Hkv;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, Sq, Sk, H, Hkv, dg,
+      causal, window, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1630,9 +2064,10 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 // the floor; the work is that of D = 64 (8x the pairs' FLOPs at D = 8), a
 // simple route for the small configs. 168 (gemma3-27b's) has kernels of
 // its own: the forward at D = 168 (21 k steps of 8, planes of 192 columns,
-// one buffer of tile planes), and the backward on the SIMT kernels at 192
-// columns in fp32 as in bf16 (K8 with one P^T / dS^T tile), since the
-// tensor-core backward's planes do not fit a block's shared memory there.
+// one buffer of tile planes), the bf16 backward on tiles of 192 columns,
+// and the fp32 backward on the SIMT kernels at 192 columns (K8 with one
+// P^T / dS^T tile), since the 3xTF32 backward's planes do not fit a
+// block's shared memory there.
 
 #define FLASH_DISPATCH(CALL, T)                                                   \
   switch (D) {                                                                    \
@@ -1684,17 +2119,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #undef INFER
 }
 
-// K7 and K8 take `tensor_cores` from the wrapper's route: 1 runs the 3xTF32
-// tensor-core kernel, which takes fp32 at every head dim but 168; 0 the
-// SIMT kernel, which takes bf16, and fp32 at 168 only. Any other pairing is
+// K7 and K8 take `tensor_cores` from the wrapper's route: 1 runs a
+// tensor-core kernel, the bf16 one (bf16 wgmma, three planes of P and dS) at
+// every head dim or the 3xTF32 one for fp32 at every head dim but 168; 0 the
+// fp32 SIMT kernel, which takes fp32 at 168 only. Any other pairing is
 // refused (cudaErrorInvalidValue).
-#define BWD_DISPATCH(TC, SIMT)                                                     \
+#define BWD_DISPATCH(TC, BF, SIMT)                                                 \
   if (tensor_cores) {                                                             \
-    if (bf16 || D == 168) return static_cast<int>(cudaErrorInvalidValue);         \
+    if (bf16) {                                                                   \
+      FLASH_DISPATCH(BF, __nv_bfloat16)                                           \
+    }                                                                             \
+    if (D == 168) return static_cast<int>(cudaErrorInvalidValue);                 \
     FLASH_DISPATCH(TC, float)                                                     \
-  } else if (bf16) {                                                              \
-    FLASH_DISPATCH(SIMT, __nv_bfloat16)                                           \
-  } else if (D == 168) {                                                          \
+  } else if (!bf16 && D == 168) {                                                 \
     return static_cast<int>(SIMT(float, 168));                                    \
   }                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1706,14 +2143,18 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const
                                              int window, float scale, int bf16,
                                              int tensor_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ_TC(T, DIM)                                                                       \
-  launch_dq_tc<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window, \
-                       scale, s)
-#define DQ(T, DIM)                                                                          \
-  launch_dq<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window,    \
+#define DQ_TC(T, DIM)                                                                     \
+  launch_dq_tc<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window,  \
                     scale, s)
-  BWD_DISPATCH(DQ_TC, DQ)
+#define DQ_BF(T, DIM)                                                                     \
+  launch_dq_bf16<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window, \
+                      scale, s)
+#define DQ(T, DIM)                                                                        \
+  launch_dq<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window,  \
+                    scale, s)
+  BWD_DISPATCH(DQ_TC, DQ_BF, DQ)
 #undef DQ_TC
+#undef DQ_BF
 #undef DQ
 }
 
@@ -1724,14 +2165,18 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
                                               int causal, int window, float scale, int bf16,
                                               int tensor_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV_TC(T, DIM)                                                                       \
-  launch_dkv_tc<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,     \
-                        window, scale, s)
-#define DKV(T, DIM)                                                                          \
-  launch_dkv<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal, window, \
-                     scale, s)
-  BWD_DISPATCH(DKV_TC, DKV)
+#define DKV_TC(T, DIM)                                                                      \
+  launch_dkv_tc<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,       \
+                     window, scale, s)
+#define DKV_BF(T, DIM)                                                                      \
+  launch_dkv_bf16<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,     \
+                       window, scale, s)
+#define DKV(T, DIM)                                                                         \
+  launch_dkv<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,       \
+                     window, scale, s)
+  BWD_DISPATCH(DKV_TC, DKV_BF, DKV)
 #undef DKV_TC
+#undef DKV_BF
 #undef DKV
 }
 

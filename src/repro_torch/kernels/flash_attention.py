@@ -14,11 +14,13 @@ K6 and K10 run one tensor-core kernel in every mode (q fp32 or bf16, K/V
 in q's dtype or int8 codes): every product on wgmma in 3xTF32, hi/lo tf32
 halves of each operand, fp32-accurate. A pre-pass in the same call splits
 K and V once into their planes in a workspace (``fwd_workspace``). K7 and
-K8 each have two kernels, and ``route`` picks one by dtype and head dim:
-fp32 runs the tensor-core kernel, bf16 the SIMT kernel (fp32 FMAs), and
-fp32 at head dim 168 the SIMT kernel too (the tensor-core backward's
-planes do not fit a block's shared memory at 192 columns). The C entry
-point refuses any other pairing, so neither stands in for the other.
+K8 each have three kernels, and ``route`` picks the route by dtype and
+head dim: bf16 runs the bf16 tensor-core kernel at every head dim (bf16
+wgmma; S and dP exact bf16 products, P and dS in three exact bf16 planes
+against the bf16 tiles), fp32 the 3xTF32 tensor-core kernel, and fp32 at
+head dim 168 the SIMT kernel (fp32 FMAs: the 3xTF32 backward's planes do
+not fit a block's shared memory at 192 columns). The C entry point
+refuses any other pairing, so none stands in for another.
 ``<wrapper>.launches_by_kernel`` counts each kernel's launches by the name
 ``route`` gives it. K8's tensor-core grid launches its blocks in
 ``dkv_block_order``.
@@ -26,9 +28,10 @@ point refuses any other pairing, so neither stands in for the other.
 Head dims 64 and 128; 8, 16 and 24 (the reference's smoke configs), which
 run the D = 64 kernels; 112 (kimi-k2's and zamba2's), which runs the D =
 128 kernels; and 168 (gemma3-27b's), whose kernels hold 192 columns
-(``kernel_dim``). Each reads and writes the tensors' rows at their own
-width with zeros past it in shared memory and in the forward's workspace
-planes, so the tensors are never padded.
+(``kernel_dim``; the bf16 backward's S and dP read 176 of them). Each
+reads and writes the tensors' rows at their own width with zeros past it
+in shared memory and in the forward's workspace planes, so the tensors
+are never padded.
 """
 
 from __future__ import annotations
@@ -60,13 +63,13 @@ def kernel_dim(d: int) -> int:
 def route(dtype: torch.dtype, d: int, *, forward: bool = False) -> str:
     """The kernel that q of ``dtype`` at head dim ``d`` runs: the forward
     (K6, K10) "tensor_cores" in every mode; the backward (K7, K8)
-    "tensor_cores" for fp32 except at 168, "simt" for bf16 and for fp32 at
-    168."""
+    "tensor_cores" for bf16 at every head dim and for fp32 except at 168,
+    "simt" for fp32 at 168."""
     if d not in _HEAD_DIMS or dtype not in DTYPES:
         raise ValueError(f"flash attention: no kernel for {dtype} at "
                          f"head_dim {d} (takes fp32 or bf16 at {_HEAD_DIMS})")
-    return "tensor_cores" if forward or (dtype == torch.float32
-                                         and d != 168) else "simt"
+    simt = not forward and dtype == torch.float32 and d == 168
+    return "simt" if simt else "tensor_cores"
 
 
 def dkv_block_order(sk: int, b: int, hkv: int):

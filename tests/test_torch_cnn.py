@@ -34,6 +34,19 @@ from repro_torch.examples.edge_cnn_repro import fc_predicate, ternary_mm
 from repro_torch.models import cnn as tcnn
 from repro_torch.quant import ternary as ttern
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ARCHS = {"alexnet": (j_alexnet, t_alexnet), "vgg16": (j_vgg16, t_vgg16)}
 _CACHE = {}
 

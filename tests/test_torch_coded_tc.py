@@ -28,6 +28,19 @@ from repro_torch.kernels import coded_gemm
 from repro_torch.kernels import int8_matmul as k9
 from repro_torch.kernels import ternary_matmul as k11
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # chip_smoke.py's gates: (of the plain version's max abs, relative)
 K9_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 K11_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import advisor as j_advisor
 from repro.core import energy as j_energy
@@ -53,6 +54,19 @@ from repro_torch.serve import scheduler as t_sched
 from repro_torch.serve import snapshot as t_snapshot
 from repro_torch.serve import spec as t_spec
 from repro_torch.train import ft as t_ft
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 POLICIES = [("fifo", 0), ("longest_prompt", 0), ("longest_prompt", 3)]
 

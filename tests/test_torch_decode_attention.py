@@ -18,6 +18,19 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import decode_attention as k1
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 HKV = 2
 
 

@@ -32,6 +32,19 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 from repro_torch.serve import ServeConfig, ServeEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ARCHS = ("gemma3-27b", "granite-34b", "qwen1.5-110b", "qwen2-vl-72b")
 MAX_LEN = 40
 # gemma3-smoke's local window is 8: most prompts run past it

@@ -21,6 +21,18 @@ from repro_torch.kernels import int8_matmul as t_im
 from repro_torch.kernels import ternary_matmul as t_tm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_train_bench_cpu(tmp_path):
     """Both arms run their steps, the fused engine reads back once per
     tick, its update equals ``make_train_step``'s bit for bit, and the

@@ -36,6 +36,19 @@ from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.serve import faults as tfaults
 from repro_torch.serve.engine import Request
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PROMPTS = [np.arange(15), np.arange(11) + 7, np.arange(8) + 30]
 MATRIX_TICK, MATRIX_SEED, MATRIX_SLOT = 2, 11, 1
 # the counts a fault run must share with the JAX engine's

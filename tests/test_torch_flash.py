@@ -23,6 +23,19 @@ from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
 from repro_torch.models import layers as t_layers
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = {"fp32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=6e-2, atol=6e-2)}
 J_DT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 T_DT = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -69,25 +82,30 @@ def _pad_rows(x, mult):
 
 def _jax(case, dt):
     """JAX's out, lse, dq, dk, dv (as fp32 numpy) through the Pallas
-    kernels in interpret mode."""
+    kernels in interpret mode, in one jitted call."""
     sq, sk, h, hkv, d, causal, window, bq, bk = case
     q, k, v, ct = _inputs(case, dt)
     cast = lambda x: jnp.asarray(x, J_DT[dt])  # noqa: E731
-
-    def f(q, k, v):
-        return j_ops.flash_attention_train(
-            q, k, v, scale=SCALE, causal=causal, window=window, block_q=bq,
-            block_k=bk, interpret=True)
-
-    out, vjp = jax.vjp(f, cast(q), cast(k), cast(v))
-    dq, dk, dv = vjp(jnp.asarray(ct).astype(out.dtype))
     # the lse residual of the same kernel, on the wrapper's padded shapes
     bq_, bk_ = min(bq, j_ops._round_up_pow2(sq)), min(bk,
                                                     j_ops._round_up_pow2(sk))
-    _, lse = j_fa._fwd_with_lse(
-        cast(_pad_rows(q, bq_)), cast(_pad_rows(k, bk_)),
-        cast(_pad_rows(v, bk_)),
-        (SCALE, causal, window, bq_, bk_, True))
+
+    @jax.jit
+    def run(q, k, v, ct, qp, kp, vp):
+        def f(q, k, v):
+            return j_ops.flash_attention_train(
+                q, k, v, scale=SCALE, causal=causal, window=window,
+                block_q=bq, block_k=bk, interpret=True)
+
+        out, vjp = jax.vjp(f, q, k, v)
+        dq, dk, dv = vjp(ct.astype(out.dtype))
+        _, lse = j_fa._fwd_with_lse(qp, kp, vp, (SCALE, causal, window, bq_,
+                                                 bk_, True))
+        return out, lse, dq, dk, dv
+
+    out, lse, dq, dk, dv = run(
+        cast(q), cast(k), cast(v), jnp.asarray(ct), cast(_pad_rows(q, bq_)),
+        cast(_pad_rows(k, bk_)), cast(_pad_rows(v, bk_)))
     lse = np.asarray(lse)[:, :, :sq, 0]
     return tuple(np.asarray(x, np.float32)
                  for x in (out, lse, dq, dk, dv))

@@ -298,11 +298,11 @@ def test_bf16_operands_are_tf32_exact():
 @pytest.mark.parametrize("d", [8, 16, 24, 64, 128, 112, 168])
 def test_forward_route(d):
     """K6 and K10 run their tensor-core kernel for fp32 and bf16 q at every
-    head dim (the backward routes bf16 to SIMT); any other dtype or head
-    dim has no kernel."""
+    head dim (the backward routes bf16 to its bf16 tensor-core kernels at
+    every head dim too); any other dtype or head dim has no kernel."""
     for dt in (torch.float32, torch.bfloat16):
         assert fa.route(dt, d, forward=True) == "tensor_cores"
-    assert fa.route(torch.bfloat16, d) == "simt"
+    assert fa.route(torch.bfloat16, d) == "tensor_cores"
     with pytest.raises(ValueError):
         fa.route(torch.float16, d, forward=True)
     with pytest.raises(ValueError):

@@ -24,6 +24,8 @@ memory at 192 columns), emulated with fp32 products over those walks.
 The routing rule and K8's block order are checked as pure functions.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -200,18 +202,25 @@ def _inputs(case, d=D):
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_grads(case, d=D):
-    """JAX's dq, dk, dv through the Pallas backward in interpret mode."""
+    """JAX's dq, dk, dv through the Pallas backward in interpret mode,
+    jitted; once per module (the plain-TF32 test reuses the cases')."""
     sq, sk, h, hkv, causal, window = case
     q, k, v, ct = _inputs(case, d)
 
-    def f(q, k, v):
-        return j_ops.flash_attention_train(
-            q, k, v, scale=d ** -0.5, causal=causal, window=window,
-            block_q=32, block_k=32, interpret=True)
+    @jax.jit
+    def grads(q, k, v, ct):
+        def f(q, k, v):
+            return j_ops.flash_attention_train(
+                q, k, v, scale=d ** -0.5, causal=causal, window=window,
+                block_q=32, block_k=32, interpret=True)
 
-    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
-    return [np.asarray(x, np.float32) for x in vjp(jnp.asarray(ct))]
+        _, vjp = jax.vjp(f, q, k, v)
+        return vjp(ct)
+
+    return [np.asarray(x, np.float32)
+            for x in grads(*(jnp.asarray(x) for x in (q, k, v, ct)))]
 
 
 def _pad(x, dk):
@@ -298,13 +307,14 @@ def test_tf32_rounding():
 @pytest.mark.parametrize("d", [8, 16, 24, 64, 128, 112, 168])
 def test_route(d):
     """fp32 runs the tensor-core kernels at every head dim but 168, where
-    it runs the SIMT kernels as bf16 does everywhere; any other dtype or
+    it runs the SIMT kernels; bf16 runs its tensor-core kernels at every
+    head dim (``tests/test_torch_flash_bf16_tc.py``); any other dtype or
     head dim has no kernel. The dims under 64 run the D = 64 kernels, 112
     the D = 128 ones, 168 kernels of 192 columns."""
     assert fa.kernel_dim(d) == {112: 128, 168: 192}.get(d, max(d, 64))
     assert fa.route(torch.float32, d) == ("simt" if d == 168
                                           else "tensor_cores")
-    assert fa.route(torch.bfloat16, d) == "simt"
+    assert fa.route(torch.bfloat16, d) == "tensor_cores"
     with pytest.raises(ValueError):
         fa.route(torch.float16, d)
     with pytest.raises(ValueError):

@@ -24,6 +24,19 @@ from repro.kernels import ops as j_ops
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = {"fp32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=6e-2)}
 J_DT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 T_DT = {"fp32": torch.float32, "bf16": torch.bfloat16}

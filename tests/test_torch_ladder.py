@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings, strategies as st
 
 from repro.models import transformer as jtf
@@ -33,6 +34,19 @@ from repro_torch.serve import PagePool, ServeConfig, ServeEngine
 from repro_torch.serve import faults as tfaults
 from repro_torch.serve.pages import ROOT
 from repro_torch.serve.snapshot import reconcile_ownership
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 PROMPTS = [np.arange(15), np.arange(11) + 7, np.arange(8) + 30]
 # the reference test's drift guard and plan

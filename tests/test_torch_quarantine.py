@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.models import transformer as jtf
 from repro.serve import ServeConfig as JServeConfig
@@ -28,6 +29,18 @@ from repro.serve import ServeEngine as JServeEngine
 from repro.serve.faults import corrupt_kv_page
 from repro_torch import bridge
 from repro_torch.serve import ServeConfig, ServeEngine, StepMetrics
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _core_cfg():

@@ -30,6 +30,19 @@ from repro_torch.kernels import coded_gemm, ops, ref
 from repro_torch.kernels import ternary_matmul as k11
 from repro_torch.quant import ternary as ttern
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # tests/test_kernels_ternary.py's shapes, and the smoke classifier's
 SHAPES = [(8, 512, 128), (128, 512, 128), (64, 1024, 256), (100, 300, 50),
           (1, 512, 128), (256, 128, 384), (3, 192, 10)]

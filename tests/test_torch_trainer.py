@@ -49,6 +49,19 @@ from repro_torch.models.common import flatten
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import TrainConfig, Trainer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 VOCAB = 64
 

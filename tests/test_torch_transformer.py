@@ -22,6 +22,18 @@ from repro_torch.configs import starcoder2_7b as t_sc2
 from repro_torch.models import transformer as ttf
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's ops are far below any parallel grain, but on a loaded
+    host (the suite's parallel workers) idle intra-op threads cost it
+    several times its run time: one torch thread while it runs, the
+    worker's setting back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _core_cfg():
     """tests/test_serve_core.py::_cfg."""
     return jtf.LMConfig(name="t", d_model=48, n_heads=4, n_kv_heads=2,
