@@ -262,17 +262,19 @@ non-zero and prints no result:
    in 4b's ragged cases (fp32 and bf16, windows -1 and 8, two calls equal
    bit for bit) at the training launcher's batch (B 8, S 64) with the
    heads of every smoke config whose training attention takes the flash
-   route, and at S 67; timed at B 8, S 64 with kimi-k2's (D 8),
-   starcoder2's (D 16) and gemma3's (D 24) smoke heads, fp32 and bf16, by
-   device time, beside the plain versions, causal SDPA and the bounds;
+   route, and at S 67 (K8 split over each group's heads at these shapes:
+   fewer (key tile, batch, KV head) blocks than SMs); timed at B 8, S 64
+   with kimi-k2's (D 8), starcoder2's (D 16) and gemma3's (D 24) smoke
+   heads, fp32 and bf16, by device time, beside the plain versions,
+   causal SDPA and the bounds, K8's rows with its split and blocks;
 4e. flash kernels at head dims 112 and 168 (``flash_wide_dims``): the
    same checks at kimi-k2's heads (64 on 8 of 112), zamba2-7b's (32 on
    32 of 112) and gemma3-27b's (32 on 16 of 168, windows -1 and 1024) at
    S 2048, then ragged lengths (1000 with a window of 300; Sq 100 < Sk
    128 at a group of 9; a non-causal case; one key), fp32 and bf16, each
-   call on the kernel its route names (112 on the D = 128 kernels; 168 on
-   the forward's own D = 168 kernel, the bf16 tensor-core backward and
-   the fp32 SIMT backward at 192 columns); timed at kimi-k2's and
+   call on the tensor-core kernel its route names (112 on the D = 128
+   kernels; 168 on kernels of 192 columns: the forward's own, the bf16
+   backward and the fp32 backward's wide kernels); timed at kimi-k2's and
    gemma3-27b's heads, B 1, S 2048, as in 4d;
 9. agreement: teacher-forced greedy token agreement of the int8 model with
    the bf16 one on 8 prompts of 64 tokens x 24 tokens (reported, not
@@ -1154,7 +1156,7 @@ def phase_routes():
             k6_ran[key] = ran(fa.flash_attention_fwd, lambda: fwd.update(
                 res=fa.flash_attention_fwd(q, k, v, **kw)))
             out, lse = fwd["res"]
-            if k6_ran[key] != fa.route(dt, d, forward=True):
+            if k6_ran[key] != fa.route(dt, d):
                 raise AssertionError(f"K6 {key} ran its {k6_ran[key]} "
                                      f"kernel")
             for kv_name in ("int8", q_name):
@@ -1167,7 +1169,7 @@ def phase_routes():
                 k10_ran[key10] = ran(fa.flash_attention,
                                      lambda: fa.flash_attention(
                                          q, kk, vv, **kw, **kvs))
-                if k10_ran[key10] != fa.route(dt, d, forward=True):
+                if k10_ran[key10] != fa.route(dt, d):
                     raise AssertionError(f"K10 {key10} ran its "
                                          f"{k10_ran[key10]} kernel")
             delta = (dout.float() * out.float()).sum(-1).transpose(
@@ -2455,22 +2457,17 @@ def _flash_launch_counts():
 def _flash_ran(before, label, dtype, d):
     """The kernels K6, K7 and K8 launched since ``before``
     (``_flash_launch_counts``) must be their route's at ``d`` and no
-    other, and the backward's route in bf16 the tensor cores at every head
-    dim. Returns {kernel: [kernels that ran]}."""
+    other: the tensor cores, in every dtype and at every head dim. Returns
+    {kernel: [kernels that ran]}."""
     from repro_torch.kernels import flash_attention as fa
     ran = {fn.__name__: [k for k, n in fn.launches_by_kernel.items()
                          if n != before[fn.__name__][k]]
            for fn in _train_flash_counters()}
-    want = {fn.__name__: [fa.route(dtype, d,
-                                   forward=fn is fa.flash_attention_fwd)]
+    want = {fn.__name__: [fa.route(dtype, d)]
             for fn in _train_flash_counters()}
-    if ran != want:
+    if ran != want or any(w != ["tensor_cores"] for w in want.values()):
         raise AssertionError(f"flash kernels at {label} ran {ran}, not "
-                             f"their route's {want}")
-    if str(dtype) == "torch.bfloat16" and \
-            ran["flash_attention_bwd_dq"] != ["tensor_cores"]:
-        raise AssertionError(f"bf16 K7 and K8 at {label} ran {ran}, not "
-                             f"the tensor cores")
+                             f"their route's {want} (the tensor cores)")
     return ran
 
 
@@ -2564,7 +2561,7 @@ def _check_flash_case(gen, b, sq, sk, h, hkv, d, causal, window, q_name):
                              f"{FLASH_ATOL[q_name]}), finite {finite}")
     return {"case": label, "max_abs_err": {n: e[0] for n, e in errs.items()},
             "rel_err": {n: e[1] for n, e in errs.items()},
-            "kernel": {"forward": fa.route(dt, d, forward=True),
+            "kernel": {"forward": fa.route(dt, d),
                        "backward": fa.route(dt, d)}}
 
 
@@ -2686,6 +2683,9 @@ def _time_flash(b, s, h, hkv, d, q_name, phase="flash_small_dims"):
             lib_bwd),
         "flash_attention": (lambda i: fa.flash_attention(q, k, v, **kw),
                             _rel_err(o10, w_out)[0], plain_fwd, lib_fwd)}
+    units = -(-s // fa.DKV_KEYS) * b * hkv
+    split = fa.dkv_split(units, rep, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     rows = {}
     for name, (fn, err, plain_ms, library_ms) in calls.items():
         rows[name] = {"phase": phase, "kernel": name,
@@ -2695,9 +2695,11 @@ def _time_flash(b, s, h, hkv, d, q_name, phase="flash_small_dims"):
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bounds[name][0],
                       "bound_by": bounds[name][1],
-                      "route": fa.route(dt, d, forward=name in (
-                          "flash_attention_fwd", "flash_attention")),
+                      "route": fa.route(dt, d),
                       "timing": "device"}
+        if name == "flash_attention_bwd_dkv":
+            rows[name].update(split=split,
+                              blocks=units * (rep if split else 1))
         emit(rows[name])
     return rows
 
@@ -2739,8 +2741,8 @@ def phase_flash_small_dims():
 
 
 # The head dims 112 (kimi-k2's and zamba2's: the D = 128 kernels on tiles
-# zero past 112) and 168 (gemma3-27b's: the forward's own D = 168 kernel,
-# the backward's bf16 tensor-core and fp32 SIMT kernels at 192 columns),
+# zero past 112) and 168 (gemma3-27b's: kernels of 192 columns, the
+# forward's own D = 168 kernel and the bf16 and fp32 backward's),
 # (B, Sq, Sk, H, Hkv, D,
 # causal, window): each config's heads at S 2048 (gemma3's without and
 # with its window of 1024), then ragged lengths, a group of 9, a
@@ -2894,14 +2896,13 @@ def _flash_on_route(phase, head_dim=128, dtype="float32"):
     """K6's, K7's and K8's per-kernel counts since
     ``_reset_flash_kernels``: every launch of the training attention in
     ``dtype`` on the kernel ``route`` names at ``head_dim``: the tensor
-    cores at every head dim, but for fp32 K7 and K8 at 168 (SIMT)."""
+    cores at every head dim."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     by_kernel = {fn.__name__: dict(fn.launches_by_kernel)
                  for fn in _train_flash_counters()}
     for fn in _train_flash_counters():
-        want = fa.route(getattr(torch, dtype), head_dim,
-                        forward=fn is fa.flash_attention_fwd)
+        want = fa.route(getattr(torch, dtype), head_dim)
         if fn.launches_by_kernel.get(want) != fn.launches:
             raise AssertionError(f"{phase}: the {dtype} flash attention "
                                  f"ran off its route's {want} kernels at "

@@ -105,8 +105,12 @@
 //     order). Tiles outside the causal triangle or the window are never
 //     visited.
 //   * K8 walks the rep query heads of its group and their tiles inside the
-//     block, so the GQA sum stays in registers. Every sum is taken in a
-//     fixed order, with no atomics: two calls give the same bits.
+//     block, so the GQA sum stays in registers; where its (key tile, batch,
+//     KV head) blocks are fewer than the card's SMs (the smoke configs' B 8
+//     x S 64: 16 of them), each head of the group takes a block of its own
+//     and the group's last block to finish sums their fp32 partials in head
+//     order (dkv_block, dkv_combine; one launch). Every sum is taken in a
+//     fixed order, with no atomics on values: two calls give the same bits.
 //
 // K7 and K8 in bf16 (flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel;
 // route "tensor_cores" at every head dim) run on bf16 wgmma with the Pallas
@@ -130,13 +134,14 @@
 // bound of both: 10 and 16 D FLOPs a pair, S and dP at the bf16 rate and
 // the three-plane products at a third of it.
 //
-// The SIMT K7 and K8 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; route
-// "simt") serve fp32 at head dim 168 only: fp32 SIMT dots over 64 x 64
-// tiles, 256 threads, each thread a 4 x 4 block of scores and 4 rows x D/16
-// columns of the accumulator in registers, so each value read from shared
-// memory serves 4 FMAs; rows that shared memory reads across threads are
-// padded to D + 4 floats. They run on fp32 CUDA cores with no overlap of
-// loads and math, one block per SM.
+// fp32 K7 and K8 at head dim 168 (flash_bwd_dq_tc_wide_kernel,
+// flash_bwd_dkv_tc_wide_kernel) keep the 3xTF32 kernels' walks, tiles and
+// numerics on planes of 192 columns, where hi/lo planes of every operand
+// would take 320,000 and 327,936 bytes a block. The operands that enter
+// wgmma only as A from registers (K7's Q and dO, K8's K and V) stay one
+// plain fp32 plane each, split into their tf32 halves as each chunk of k
+// steps is read (221,696 and 229,632 bytes); the products over the rows
+// take one 64-row m-tile of D's fragments at a time.
 //
 // K10 (the inference flash_attention, with its int8-KV mode) is K6's
 // forward without the lse: the pre-pass takes the K/V storage type as a
@@ -150,9 +155,10 @@
 // there, and the JAX wrapper sends such ragged shapes to attention_ref,
 // which averages all of V; no model path makes such a row.
 //
-// Head dims: 64 and 128, and the reference's smoke configs' 8, 16 and 24,
+// Head dims: 64 and 128; the reference's smoke configs' 8, 16 and 24,
 // which run the D = 64 kernels on rows read and written at their own width,
-// the tiles zero past it (see the entry points).
+// the tiles zero past it; 112 on the D = 128 kernels; 168 on instances of
+// its own (see the entry points).
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library
 // with a plain C entry point, loaded with ctypes.
@@ -167,327 +173,23 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;            // query rows and keys per tile
-constexpr int kPS = kTile + 16;      // row stride of a 64 x 64 P or dS tile
 constexpr float kNegInf = -1e30f;
 
-// floats of a 64-row tile of stride D + 4 whose space a P or dS tile
-// (stride kPS) takes over once it is read
-__host__ __device__ constexpr int shared_tile(int D) { return kTile * (D + 4 > kPS ? D + 4 : kPS); }
+// Shared memory a block can take (227 KiB of the SM's 256 KiB)
+constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, const float4& x) {
-  *reinterpret_cast<float4*>(p) = x;
 }
 
 __device__ __forceinline__ float4 mul4(float4 x, float s) {
   return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
 }
 
-// eight consecutive elements of a global row, in fp32
-__device__ __forceinline__ void ld8(const float* p, float4& a, float4& b) {
-  a = ld4(p);
-  b = ld4(p + 4);
-}
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float a, const float4& x, float4& y) {
-  y.x = fmaf(a, x.x, y.x);
-  y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z);
-  y.w = fmaf(a, x.w, y.w);
-}
-
-__device__ __forceinline__ float comp(const float4& x, int u) {
-  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
-}
-
 __device__ __forceinline__ bool valid_pair(int i, int j, int Sq, int Sk, int causal,
                                            int window) {
   const int diff = i - j;
   return i < Sq && j < Sk && (!causal || diff >= 0) && (window <= 0 || diff < window);
-}
-
-// Rows [0, 64) of a tile (fp32) into shared memory with row stride `stride`
-// floats, times `mul`: global row r at src + r * gstride (elements), its
-// first dg columns; rows at or past n_valid and columns at or past dg are
-// zeros, so p = 0 never meets stale memory and a head dim under D pads
-// with zeros in shared memory only.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          long long gstride, int n_valid, int dg, float mul) {
-  constexpr int C8 = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * C8; idx += kThreads) {
-    const int r = idx / C8, c = (idx % C8) * 8;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r < n_valid && c < dg) {
-      ld8(src + r * gstride + c, a, b);
-      a = mul4(a, mul);
-      b = mul4(b, mul);
-    }
-    st4(dst + r * stride + c, a);
-    st4(dst + r * stride + c + 4, b);
-  }
-}
-
-// 64 per-row floats (lse or delta) of rows [r0, r0 + n_valid), else 0
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int n_valid) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) dst[r] = r < n_valid ? src[r] : 0.f;
-}
-
-// The score pass: s[i][j] = A[ty + 16 i] . B[tx + 16 j] over D. A's rows
-// are shared by the 16 lanes of a row group (broadcast reads); B's rows
-// differ per lane, so B's stride is D + 4.
-template <int D>
-__device__ __forceinline__ void dots(const float* a_s, int a_stride, const float* b_s,
-                                     int ty, int tx, float (&s)[4][4]) {
-  constexpr int BS = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ld4(a_s + (ty + 16 * i) * a_stride + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ld4(b_s + (tx + 16 * j) * BS + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], b[j], s[i][j]);
-  }
-}
-
-// The product pass: acc[i][c] += sum_kk P[ty + 16 i][kk] * V[kk][4 tx + 64 c
-// .. + 3] over the tile's 64 kk, P with row stride kPS, V with `v_stride`.
-template <int D>
-__device__ __forceinline__ void pv(const float* p_s, const float* v_s, int v_stride, int ty,
-                                   int tx, float4 (&acc)[4][D / 64]) {
-  constexpr int CJ = D / 64;
-#pragma unroll 2
-  for (int kk = 0; kk < kTile; kk += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = ld4(p_s + (ty + 16 * i) * kPS + kk);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const float4 vv = ld4(v_s + (kk + u) * v_stride + 4 * tx + 64 * c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) axpy4(comp(p[i], u), vv, acc[i][c]);
-      }
-    }
-  }
-}
-
-// K7: grid (Sq tiles, H, B), heaviest tiles first as in K6. Shared memory:
-// Q (scaled) and dO (64 x D), K and V (64 x (D + 4)), the rows' lse and
-// delta; dS reuses V's space once dP is taken.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H,
-                    int Hkv, int dg, int causal, int window, float scale) {
-  constexpr int KS = D + 4, CJ = D / 64;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + kTile * D;
-  float* k_s = do_s + kTile * D;
-  float* v_s = k_s + kTile * KS;
-  float* lse_s = v_s + shared_tile(D);
-  float* dl_s = lse_s + kTile;
-  float* ds_s = v_s;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
-  const int n_q = min(kTile, Sq - q0);
-  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
-  load_tile<T, D>(q_s, D, q + q_off, q_row, n_q, dg, scale);
-  load_tile<T, D>(do_s, D, dout + q_off, q_row, n_q, dg, 1.f);
-  const long long row_off = ((long long)b * H + h) * Sq + q0;
-  load_rows(lse_s, lse + row_off, n_q);
-  load_rows(dl_s, delta + row_off, n_q);
-  const T* k_g = k + (long long)b * Sk * k_row + (long long)hk * dg;
-  const T* v_g = v + (long long)b * Sk * k_row + (long long)hk * dg;
-
-  const int q_last = q0 + n_q - 1;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-
-  float4 acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
-    __syncthreads();                      // the last tile's dS and K readers are done
-    const int n_k = min(kTile, Sk - k0);
-    load_tile<T, D>(k_s, KS, k_g + k0 * k_row, k_row, n_k, dg, 1.f);
-    load_tile<T, D>(v_s, KS, v_g + k0 * k_row, k_row, n_k, dg, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dots<D>(q_s, D, k_s, ty, tx, s);
-    dots<D>(do_s, D, v_s, ty, tx, dp);
-    __syncthreads();                      // every dP is taken: dS may overwrite V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float lse_r = lse_s[r], dl_r = dl_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = valid_pair(q0 + r, k0 + tx + 16 * j, Sq, Sk, causal, window);
-        // explicit mask: a row with no valid key has lse ~ -1e30
-        const float p = ok ? expf(s[i][j] - lse_r) : 0.f;
-        ds_s[r * kPS + tx + 16 * j] = p * (dp[i][j] - dl_r);
-      }
-    }
-    __syncthreads();
-    pv<D>(ds_s, k_s, KS, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= Sq) break;
-    T* o = dq + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 4 * tx;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c)
-      if (4 * tx + 64 * c < dg) st4(o + 64 * c, mul4(acc[i][c], scale));
-  }
-}
-
-// Shared memory a block can take (227 KiB of the SM's 256 KiB)
-constexpr int kMaxSmem = 232448;
-
-// Floats of the SIMT K8's shared memory with `p_tiles` tiles of P^T / dS^T
-__host__ __device__ constexpr int dkv_simt_floats(int D, int p_tiles) {
-  return kTile * D * 2 + kTile * (D + 4) * 2 + kTile * kPS * p_tiles + 2 * kTile;
-}
-
-// K8 holds P^T and dS^T in one tile, dS^T written once dV's pass has read
-// P^T, where two do not fit: D = 192 (head dim 168), 240,128 bytes with two
-__host__ __device__ constexpr bool dkv_one_p_tile(int D) {
-  return 4 * dkv_simt_floats(D, 2) > kMaxSmem;
-}
-
-// K8: grid (Sk tiles, Hkv, B). Shared memory: K and V (64 x D), Q (scaled)
-// and dO (64 x (D + 4)), P^T and dS^T (64 x kPS; one tile for both where
-// dkv_one_p_tile), the query rows' lse and delta. Each thread holds 4 key
-// rows x D/16 columns of dK and of dV.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-                     int dg, int causal, int window, float scale) {
-  constexpr int QS = D + 4, CJ = D / 64;
-  constexpr bool kOneP = dkv_one_p_tile(D);
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + kTile * D;
-  float* q_s = v_s + kTile * D;
-  float* do_s = q_s + kTile * QS;
-  float* pt_s = do_s + kTile * QS;
-  float* dst_s = kOneP ? pt_s : pt_s + kTile * kPS;
-  float* lse_s = dst_s + kTile * kPS;
-  float* dl_s = lse_s + kTile;
-
-  const int k0 = blockIdx.x * kTile;
-  const int hk = blockIdx.y, b = blockIdx.z, rep = H / Hkv;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
-  const int n_k = min(kTile, Sk - k0);
-  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
-  load_tile<T, D>(k_s, D, k + k_off, k_row, n_k, dg, 1.f);
-  load_tile<T, D>(v_s, D, v + k_off, k_row, n_k, dg, 1.f);
-
-  // queries that can see a key of [k0, k0 + n_k)
-  const int k_last = k0 + n_k - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Sq, k_last + window) : Sq;
-
-  float4 dk_acc[4][CJ], dv_acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) {
-      dk_acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-      dv_acc[i][c] = dk_acc[i][c];
-    }
-
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    for (int q0 = (q_lo / kTile) * kTile; q0 < q_hi; q0 += kTile) {
-      __syncthreads();                    // the last tile's readers are done
-      const int n_q = min(kTile, Sq - q0);
-      const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
-      load_tile<T, D>(q_s, QS, q + q_off, q_row, n_q, dg, scale);
-      load_tile<T, D>(do_s, QS, dout + q_off, q_row, n_q, dg, 1.f);
-      const long long row_off = ((long long)b * H + h) * Sq + q0;
-      load_rows(lse_s, lse + row_off, n_q);
-      load_rows(dl_s, delta + row_off, n_q);
-      __syncthreads();
-      // transposed scores: rows are keys ty + 16 i, columns queries tx + 16 j
-      float s[4][4], dp[4][4];
-      dots<D>(k_s, D, q_s, ty, tx, s);
-      dots<D>(v_s, D, do_s, ty, tx, dp);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kk = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qq = tx + 16 * j;
-          const bool ok = valid_pair(q0 + qq, k0 + kk, Sq, Sk, causal, window);
-          const float p = ok ? expf(s[i][j] - lse_s[qq]) : 0.f;
-          dp[i][j] = p * (dp[i][j] - dl_s[qq]);
-          pt_s[kk * kPS + qq] = p;
-          if (!kOneP) dst_s[kk * kPS + qq] = dp[i][j];
-        }
-      }
-      __syncthreads();
-      pv<D>(pt_s, do_s, QS, ty, tx, dv_acc);      // dV += P^T dO
-      if (kOneP) {
-        __syncthreads();                  // P^T is read: dS^T takes its tile
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dst_s[(ty + 16 * i) * kPS + tx + 16 * j] = dp[i][j];
-        __syncthreads();
-      }
-      pv<D>(dst_s, q_s, QS, ty, tx, dk_acc);      // dK += dS^T (scale * Q)
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = ty + 16 * i;
-    if (kk >= n_k) break;
-    const long long off = ((long long)b * Sk + k0 + kk) * k_row + (long long)hk * dg + 4 * tx;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) {
-      if (4 * tx + 64 * c >= dg) continue;
-      st4(dk + off + 64 * c, dk_acc[i][c]);
-      st4(dv + off + 64 * c, dv_acc[i][c]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -500,13 +202,26 @@ constexpr int kDqKeys = 32;              // K7: keys a streamed tile
 constexpr int kDkvKeys = 64;             // K8: keys a block, 16 a warp
 constexpr int kDkvRows = 32;             // K8: query rows a streamed tile
 
+// The columns the planes hold for a head dim of D: D rounded up to 64 (the
+// 32-float swizzled blocks; the rows the transposed products put on
+// wgmma's M side), zero past D. 192 for D = 168.
+__host__ __device__ constexpr int padded_dim(int D) { return (D + 63) / 64 * 64; }
+
 // floats of shared memory past the 1024-byte alignment: K7 holds Q (scaled)
 // and dO (64 rows) and K and V (32 rows) as hi and lo planes, the dS planes
 // (64 x 32), four exchange tiles (16 x 32) and 128 lse and delta rows; K8
 // holds K and V (64 rows) and Q (scaled) and dO (32 rows) as hi and lo
-// planes, the P^T and dS^T planes (64 x 32) and 64 lse and delta rows
+// planes, the P^T and dS^T planes (64 x 32) and 64 lse and delta rows. At
+// 192 columns that is 320,000 and 327,936 bytes, over kMaxSmem: the wide
+// kernels (head dim 168) keep the operands that only ever enter wgmma from
+// registers (K7's Q and dO, K8's K and V) as one plain fp32 plane each,
+// split into tf32 halves as they are read, 221,696 and 229,632 bytes.
 __host__ __device__ constexpr int dq_smem_floats(int D) { return 384 * D + 2 * 2048 + 2048 + 128; }
 __host__ __device__ constexpr int dkv_smem_floats(int D) { return 384 * D + 4 * 2048 + 64; }
+__host__ __device__ constexpr int dq_wide_smem_floats(int DP) { return 256 * DP + 3 * 2048 + 128; }
+__host__ __device__ constexpr int dkv_wide_smem_floats(int DP) { return 256 * DP + 4 * 2048 + 64; }
+static_assert(1024 + 4 * dq_wide_smem_floats(192) <= kMaxSmem, "K7 at 168 fits a block");
+static_assert(1024 + 4 * dkv_wide_smem_floats(192) + 16 <= kMaxSmem, "K8 at 168 fits a block");
 
 // Float offset of element (r, c) of a plane of R rows of D floats in
 // wgmma's K-major layout with the 128-byte swizzle: D / 32 blocks of R rows
@@ -580,6 +295,20 @@ __device__ __forceinline__ void stage_global(float* hi, float* lo, const T* src,
     const int o = pl<D, R>(r, 4 * c);
     *reinterpret_cast<uint4*>(hi + o) = h;
     *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// stage_global's tile (fp32) as one plain plane in the same layout, not
+// split: the wide kernels' operands that enter wgmma only from registers.
+template <int D, int R>
+__device__ __forceinline__ void stage_plain(float* dst, const float* src, long long gstride,
+                                            int n_valid, int dg, float mul) {
+  constexpr int C = D / 4;
+  for (int idx = threadIdx.x; idx < R * C; idx += kTcThreads) {
+    const int r = idx / C, c = idx % C;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_valid && 4 * c < dg) x = mul4(ld4(src + r * gstride + 4 * c), mul);
+    *reinterpret_cast<float4*>(dst + pl<D, R>(r, 4 * c)) = x;
   }
 }
 
@@ -698,6 +427,52 @@ __device__ __forceinline__ void dots_wgmma_rs(const RowFrags<D>& a, const float*
   hopper::fence_regs(d);
 }
 
+// dots_wgmma over the first D columns (D / 8 k steps) with A, the
+// warpgroup's 64 rows, from one plain fp32 plane of DP columns
+// (stage_plain): each k step's A fragment is read and split into its tf32
+// hi and lo halves in registers (RowFrags' layout), kChunk steps at a time,
+// and each chunk's wgmma are waited for before the next chunk's fragments
+// take their registers (56 of them at 7 steps). The same products as
+// dots_wgmma on planes split as they were stored.
+template <int D, int DP>
+__device__ __forceinline__ void dots_wgmma_split(const float* a, const float* b_hi,
+                                                 const float* b_lo, float (&s)[1][4][4]) {
+  constexpr int kSteps = D / 8, kChunk = 7;
+  static_assert(kSteps % kChunk == 0, "whole chunks of k steps");
+  float(&d)[16] = reinterpret_cast<float(&)[16]>(s);
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int r = 16 * w + g;
+#pragma unroll
+  for (int c0 = 0; c0 < kSteps; c0 += kChunk) {
+    uint32_t h[kChunk][4], l[kChunk][4];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        hopper::tf32_split(a[pl<DP, 64>(r + 8 * (e & 1), 8 * (c0 + u) + t + 4 * (e >> 1))],
+                           h[u][e], l[u][e]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int kk = c0 + u;
+      const int b_off = (kk >> 2) * (32 * 32) + (kk & 3) * 8;
+      const uint64_t bh = hopper::sw128_desc(b_hi + b_off, 16, 1024);
+      const uint64_t bl = hopper::sw128_desc(b_lo + b_off, 16, 1024);
+      hopper::wgmma_tf32_rs_n32(d, l[u], bh, kk > 0);
+      hopper::wgmma_tf32_rs_n32(d, h[u], bl, 1);
+      hopper::wgmma_tf32_rs_n32(d, h[u], bh, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    // the chunk's fragments stay unchanged until their wgmma are done
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(h[u][e]), "+r"(l[u][e])::"memory");
+  }
+  hopper::fence_regs(d);
+}
+
 // The transposed products (dQ^T = K^T dS^T, dV^T = dO^T P, dK^T = (scale
 // Q)^T dS) on wgmma in 3xTF32, in two steps: load takes X^T's A fragments
 // into registers, run multiplies them by B^T. tf32 wgmma reads
@@ -706,18 +481,19 @@ __device__ __forceinline__ void dots_wgmma_rs(const RowFrags<D>& a, const float*
 // planes (k = its 32 rows, m = its D columns), comes in as the A operand
 // from registers, which may be filled from any layout: m-tile mt is X's
 // columns 64 mt .. + 63, warp w's rows 16w + g (+ 8) of it, its k columns t
-// (+ 4) of each k step of 8.
+// (+ 4) of each k step of 8. load(.., mt0) takes m-tiles mt0 .. mt0 + MT - 1
+// (the wide kernels hold one at a time).
 template <int D, int MT>
 struct TFrags {
   uint32_t h[MT][4][4], l[MT][4][4];
 
-  __device__ __forceinline__ void load(const float* xh, const float* xl) {
+  __device__ __forceinline__ void load(const float* xh, const float* xl, int mt0 = 0) {
     const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const int r = 8 * kk + t, d = 64 * mt + 16 * w + g;
+        const int r = 8 * kk + t, d = 64 * (mt0 + mt) + 16 * w + g;
         const int o[4] = {pl<D, 32>(r, d), pl<D, 32>(r, d + 8), pl<D, 32>(r + 4, d),
                           pl<D, 32>(r + 4, d + 8)};
 #pragma unroll
@@ -822,17 +598,37 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// One m-tile of an accumulator in the transposed layout (acc[4j + e]: d =
+// 64 mt + 16 grp + g + 8 (e / 2), row 8j + 2t + e % 2) times mul, into rows
+// [0, n_rows) of a (rows, dg) slice at out, row stride ostride elements.
+__device__ __forceinline__ void store_t(float* out, long long ostride, const float (&acc)[32],
+                                        int mt, int n_rows, int dg, float mul) {
+  const int lane = threadIdx.x & 31, grp = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int r = 8 * j + 2 * t + e1;
+      if (r >= n_rows) continue;
+      float* o = out + r * ostride + 64 * mt + 16 * grp + g;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+        if (64 * mt + 16 * grp + g + 8 * e2 < dg) o[8 * e2] = acc[4 * j + 2 * e2 + e1] * mul;
+    }
+}
+
 // K7 on the tensor cores: grid (Sq tiles of 64, H, B), heaviest tiles first
-// as in the SIMT kernel. The two warpgroups work as a pipeline over the
-// 32-key tiles. Warpgroup 0 splits tile i's K and V (loaded into its
-// registers during tile i - 1) into their planes, computes S = (scale Q)
-// K^T on wgmma and P, and passes P from warp w to warp w of warpgroup 1
-// through their exchange tile. Warpgroup 1 computes dP = dO V^T on wgmma and
-// dS = P (dP - delta) into the dS planes, takes K^T's A fragments into
-// registers, releases the tile, and adds K^T dS^T to dQ^T (the block's 64
-// rows, all of D) while warpgroup 0 goes on to tile i + 1. Shared memory:
-// the block's Q and dO and the tile's K and V as hi/lo planes, the dS
-// planes, the exchange tiles, the rows' lse and delta.
+// (block x walks query tile nq - 1 - x). The two warpgroups work as a
+// pipeline over the 32-key tiles. Warpgroup 0 splits tile i's K and V
+// (loaded into its registers during tile i - 1) into their planes,
+// computes S = (scale Q) K^T on wgmma and P, and passes P from warp w to
+// warp w of warpgroup 1 through their exchange tile. Warpgroup 1 computes
+// dP = dO V^T on wgmma and dS = P (dP - delta) into the dS planes, takes
+// K^T's A fragments into registers, releases the tile, and adds K^T dS^T
+// to dQ^T (the block's 64 rows, all of D) while warpgroup 0 goes on to
+// tile i + 1. Shared memory: the block's Q and dO and the tile's K and V
+// as hi/lo planes, the dS planes, the exchange tiles, the rows' lse and
+// delta.
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -944,26 +740,77 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     kt.template run<64>(ds_hi, ds_lo, acc);         // dQ^T += K^T dS^T
   }
 
-  // acc[mt][4j + e]: d = 64 mt + 16 grp + g + 8 (e / 2), row 8j + 2t + e % 2
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e1 = 0; e1 < 2; ++e1) {
-      const int qi = q0 + 8 * j + 2 * t + e1;
-      if (qi >= Sq) continue;
-      float* o = dq + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 16 * grp + g;
-#pragma unroll
-      for (int mt = 0; mt < D / 64; ++mt)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2)
-          if (64 * mt + 16 * grp + g + 8 * e2 < dg)
-            o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1] * scale;
-    }
+  for (int mt = 0; mt < D / 64; ++mt) store_t(dq + q_off, q_row, acc[mt], mt, n_q, dg, scale);
 }
 
-// K8 on the tensor cores: a 1-D grid of (key tile of 64, batch, KV head)
-// blocks, key tile slowest, so every (b, hk) of key tile 0 (the heaviest
-// under the causal mask) launches first (longest-processing-time order).
+// K8's blocks (every K8 kernel): a 1-D grid over units (key tile of 64,
+// batch, KV head), key tile slowest, so every (b, hk) of key tile 0 (the
+// heaviest under the causal mask) launches first (longest-processing-time
+// order). Without a split a block is a unit and walks the rep query heads
+// of its group in turn, the GQA sum in its registers. Where that leaves
+// SMs idle (fewer units than SMs: the smoke configs' B 8 x S 64 makes 16;
+// flash_attention.dkv_split, a function of the shape and the SM count),
+// the kernels' kSplit instances give each head of the group a block of
+// its own, the unit's rep blocks adjacent, and dkv_combine sums their
+// partials (a template flag, so the walk's instance keeps its registers).
+struct DkvBlock {
+  int unit, k0, b, hk, r0, nh;            // the heads walked: r0 .. r0 + nh - 1 of the group
+};
+
+__device__ __forceinline__ DkvBlock dkv_block(int keys, int B, int Hkv, int rep, bool split) {
+  const int unit = split ? blockIdx.x / rep : blockIdx.x, n_bh = B * Hkv;
+  return {unit, (unit / n_bh) * keys, (unit % n_bh) / Hkv, unit % Hkv,
+          split ? (int)(blockIdx.x % rep) : 0, split ? 1 : rep};
+}
+
+// The split K8's end, in every thread of the block: its head's partial
+// sums x (fp32, in the thread's own register order) go to the head's slice
+// of ws in float4s, thread-fastest (coalesced), and the unit's last block
+// to arrive (a counter per unit, which it leaves at zero) reads the rep
+// slices from L2 and returns true with x their sum, taken in head order:
+// the same bits whichever block is last. Every block of a launch maps its
+// threads to the accumulators alike, so thread t reads only what thread t
+// of each block wrote. One thread fences and counts for the block, after
+// the block's barrier (the pattern of a cooperative grid barrier).
+template <int N>
+__device__ __forceinline__ bool dkv_combine(float (&x)[N], float* __restrict__ ws,
+                                            int* __restrict__ counters, const DkvBlock& blk,
+                                            int rep) {
+  static_assert(N % 4 == 0, "whole float4s a thread");
+  constexpr int kSlice = N / 4 * kTcThreads;        // float4s of a head's partials
+  __shared__ int last;
+  float4* mine = reinterpret_cast<float4*>(ws) + ((long long)blk.unit * rep + blk.r0) * kSlice +
+                 threadIdx.x;
+#pragma unroll
+  for (int v = 0; v < N / 4; ++v)
+    mine[v * kTcThreads] = make_float4(x[4 * v], x[4 * v + 1], x[4 * v + 2], x[4 * v + 3]);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counters + blk.unit, 1) == rep - 1;
+    if (last) counters[blk.unit] = 0;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return false;
+  // a head's slice at a time, the thread's N / 4 loads of it in flight together
+  const float4* all =
+      reinterpret_cast<const float4*>(ws) + (long long)blk.unit * rep * kSlice + threadIdx.x;
+  for (int r = 0; r < rep; ++r) {
+#pragma unroll
+    for (int v = 0; v < N / 4; ++v) {
+      const float4 y = __ldcg(all + r * kSlice + v * kTcThreads);
+      x[4 * v] = r ? x[4 * v] + y.x : y.x;
+      x[4 * v + 1] = r ? x[4 * v + 1] + y.y : y.y;
+      x[4 * v + 2] = r ? x[4 * v + 2] + y.z : y.z;
+      x[4 * v + 3] = r ? x[4 * v + 3] + y.w : y.w;
+    }
+  }
+  return true;
+}
+
+// K8 on the tensor cores, D = 64 or 128: K8's grid (dkv_block).
 // Warpgroup 0 computes S^T = K (scale Q)^T and P^T, warpgroup 1 dP^T = V
 // dO^T, each on wgmma from the planes; P^T goes into hi/lo planes, from
 // which warpgroup 1 takes it for dS^T = P^T (dP^T - delta) and its own
@@ -971,16 +818,17 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dS to dK^T (TFrags), each for all D rows and the block's 64 keys.
 // Shared memory: the block's K and V (resident) and the current 32-query
 // tile's Q and dO as hi/lo planes, the P^T and dS^T planes, the tile's lse
-// and delta rows. The block walks the rep query heads of its group and
-// their query tiles in order, dV^T or dK^T in each warpgroup's registers;
-// the next tile loads into registers during this tile's math.
-template <int D>
+// and delta rows. The block walks its heads and their query tiles in
+// order, dV^T or dK^T in each warpgroup's registers; the next tile loads
+// into registers during this tile's math.
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dk, float* __restrict__ dv, int B, int Sq, int Sk,
-                        int H, int Hkv, int dg, int causal, int window, float scale) {
+                        int H, int Hkv, int dg, int causal, int window, float scale,
+                        float* __restrict__ ws, int* __restrict__ counters) {
   extern __shared__ float4 smem4[];
   float* k_hi = tc_smem(smem4);
   float* k_lo = k_hi + kDkvKeys * D;
@@ -997,9 +845,9 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
   float* lse_s = st_lo + kDkvKeys * kDkvRows;
   float* dl_s = lse_s + kDkvRows;
 
-  const int n_bh = B * Hkv;
-  const int k0 = (blockIdx.x / n_bh) * kDkvKeys;
-  const int b = (blockIdx.x % n_bh) / Hkv, hk = blockIdx.x % Hkv, rep = H / Hkv;
+  const int rep = H / Hkv;
+  const DkvBlock blk = dkv_block(kDkvKeys, B, Hkv, rep, kSplit);
+  const int k0 = blk.k0, b = blk.b, hk = blk.hk;
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   const int grp = warp & 3, role = warp >> 2;
   const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
@@ -1007,17 +855,17 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
   const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
 
   // query tiles [qt_lo, qt_lo + n_qt) of 32 that can see a key of the
-  // block, for each of the rep heads: tile i is head i / n_qt's tile i % n_qt
+  // block, for each of its heads: tile i is head r0 + i / n_qt's tile i % n_qt
   const int k_last = k0 + n_k - 1;
   const int qry_lo = causal ? k0 : 0;
   const int qry_hi = window > 0 ? min(Sq, k_last + window) : Sq;
   const int qt_lo = qry_lo / kDkvRows;
   const int n_qt = max(0, (qry_hi + kDkvRows - 1) / kDkvRows - qt_lo);
-  const int n_tiles = rep * n_qt;
+  const int n_tiles = blk.nh * n_qt;
   Prefetch<D, kTcThreads> next;
   float next_row = 0.f;                   // lse (threads 0-31) or delta (32-63) of a query row
   auto fetch = [&](int i) {
-    const int h = hk * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * kDkvRows;
+    const int h = hk * rep + blk.r0 + i / n_qt, q0 = (qt_lo + i % n_qt) * kDkvRows;
     const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
     next.load(q + q_off, dout + q_off, q_row, Sq - q0, dg);
     if (tid < 2 * kDkvRows) {
@@ -1084,21 +932,273 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
   }
 
-  // acc[mt][4j + e]: d = 64 mt + 16 grp + g + 8 (e / 2), key 8j + 2t + e % 2
-  float* out = role ? dk : dv;
+  if constexpr (kSplit) {
+    if (!dkv_combine(reinterpret_cast<float(&)[D / 64 * 32]>(acc), ws, counters, blk, rep)) return;
+  }
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int mt = 0; mt < D / 64; ++mt)
+    store_t((role ? dk : dv) + k_off, k_row, acc[mt], mt, n_k, dg, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// K7 and K8 at head dim 168 on the tensor cores: the 3xTF32 kernels' walks
+// and numerics on planes of 192 columns, the register-only operands plain
+// ---------------------------------------------------------------------------
+
+// K7 at D = 168 (planes of DP = 192 columns): flash_bwd_dq_tc_kernel's grid,
+// 64-row blocks, 32-key tiles and numerics. Its hi/lo planes would take
+// 320,000 bytes here, so Q (scaled) and dO, which enter wgmma only as the
+// A operands of S and dP, stay one plain fp32 plane each, split as they
+// are read (dots_wgmma_split): 221,696 bytes. The warpgroups work each
+// tile in step: all 256 threads store the tile's K and V planes (loaded
+// into registers during the tile before); warpgroup 0 computes S = (scale
+// Q) K^T and P and passes P through the exchange tiles, warpgroup 1 dP =
+// dO V^T and dS = P (dP - delta) into the dS planes; then dQ^T += K^T dS^T,
+// its three 64-row m-tiles of D shared out (0 and 2 to warpgroup 0, 1 to
+// warpgroup 1), each taking K^T's fragments of one m-tile at a time.
+// Registers a thread: the next tile's K and V (48), dQ^T (64), then S
+// (16) and a chunk of A fragments (56), or one m-tile's fragments (32) and
+// its fresh accumulator (32).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int dg,
+                            int causal, int window, float scale) {
+  constexpr int DP = padded_dim(D);
+  extern __shared__ float4 smem4[];
+  float* q_f = tc_smem(smem4);
+  float* do_f = q_f + kDqRows * DP;
+  float* k_hi = do_f + kDqRows * DP;
+  float* k_lo = k_hi + kDqKeys * DP;
+  float* v_hi = k_lo + kDqKeys * DP;
+  float* v_lo = v_hi + kDqKeys * DP;
+  float* ds_hi = v_lo + kDqKeys * DP;               // 64 rows x 32 keys
+  float* ds_lo = ds_hi + kDqRows * kDqKeys;
+  float* xs_all = ds_lo + kDqRows * kDqKeys;        // 4 groups x 16 x 32
+  float* lse_s = xs_all + 2048;
+  float* dl_s = lse_s + kDqRows;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int grp = warp & 3, role = warp >> 2;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
+  const int n_q = min(kDqRows, Sq - q0);
+  const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
+
+  // key tiles [t_lo, t_lo + n_tiles) of 32: the keys the block's rows can see
+  const int q_last = q0 + n_q - 1;
+  const int key_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int key_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int t_lo = key_lo / kDqKeys;
+  const int n_tiles = max(0, (key_hi + kDqKeys - 1) / kDqKeys - t_lo);
+
+  const float* k_g = k + (long long)b * Sk * k_row + (long long)hk * dg;
+  const float* v_g = v + (long long)b * Sk * k_row + (long long)hk * dg;
+  Prefetch<DP, kTcThreads> next;
+  auto fetch = [&](int i) {
+    const int k0 = (t_lo + i) * kDqKeys;
+    next.load(k_g + k0 * k_row, v_g + k0 * k_row, k_row, Sk - k0, dg);
+  };
+  if (n_tiles > 0) fetch(0);
+  stage_plain<DP, kDqRows>(q_f, q + q_off, q_row, n_q, dg, scale);
+  stage_plain<DP, kDqRows>(do_f, dout + q_off, q_row, n_q, dg, 1.f);
+  const long long row_off = ((long long)b * H + h) * Sq + q0;
+  if (tid < kDqRows) {
+    lse_s[tid] = tid < n_q ? lse[row_off + tid] : 0.f;
+    dl_s[tid] = tid < n_q ? delta[row_off + tid] : 0.f;
+  }
+
+  float* xs = xs_all + grp * 512;
+  const int row = 16 * grp + g;                     // this thread's rows: row, row + 8
+  const int n_mt = role == 0 ? 2 : 1;               // dQ^T's m-tiles here: 2x (role 0) or 1
+  float acc[2][32];
 #pragma unroll
-    for (int e1 = 0; e1 < 2; ++e1) {
-      const int kk = 8 * j + 2 * t + e1;
-      if (kk >= n_k) continue;
-      float* o = out + ((long long)b * Sk + k0 + kk) * k_row + (long long)hk * dg + 16 * grp + g;
+  for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int mt = 0; mt < D / 64; ++mt)
+    for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    __syncthreads();                      // the last tile's readers of the planes are done
+    next.store(k_hi, k_lo, 1.f, v_hi, v_lo);
+    hopper::fence_proxy_async();          // the planes' stores, before wgmma reads them
+    __syncthreads();                      // tile i's K and V planes are ready
+    if (i + 1 < n_tiles) fetch(i + 1);
+    const int k0 = (t_lo + i) * kDqKeys;
+    float s[1][4][4];
+    if (role == 0) {
+      dots_wgmma_split<D, DP>(q_f, k_hi, k_lo, s);   // S
 #pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2)
-          if (64 * mt + 16 * grp + g + 8 * e2 < dg) o[64 * mt + 8 * e2] = acc[mt][4 * j + 2 * e2 + e1];
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row + 8 * (e >> 1);
+          const bool ok =
+              valid_pair(q0 + r, k0 + 8 * j + 2 * t + (e & 1), Sq, Sk, causal, window);
+          // explicit mask: a row with no valid key has lse ~ -1e30
+          s[0][j][e] = ok ? expf(s[0][j][e] - lse_s[r]) : 0.f;
+        }
+      put_tile(xs, s);                    // P
+      bar_arrive(kPReady, kTcThreads);
+    } else {
+      dots_wgmma_split<D, DP>(do_f, v_hi, v_lo, s);  // dP
+      float p[1][4][4];
+      bar_sync(kPReady, kTcThreads);
+      get_tile(xs, p);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[0][j][e] = p[0][j][e] * (s[0][j][e] - dl_s[row + 8 * (e >> 1)]);
+      put_planes<kDqRows>(ds_hi, ds_lo, 16 * grp, s);   // dS
     }
+    hopper::fence_proxy_async();
+    __syncthreads();                      // dS is in its planes
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (x >= n_mt) break;
+      TFrags<DP, 1> kt;                   // K^T's m-tile, dQ^T's A operand
+      kt.load(k_hi, k_lo, role == 0 ? 2 * x : 1);
+      kt.template run<64>(ds_hi, ds_lo, reinterpret_cast<float(&)[1][32]>(acc[x]));
+    }
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+    if (x < n_mt)
+      store_t(dq + q_off, q_row, acc[x], role == 0 ? 2 * x : 1, n_q, dg, scale);
+}
+
+// K8 at D = 168 (planes of DP = 192 columns): K8's grid (dkv_block) and
+// flash_bwd_dkv_tc_kernel's roles, 32-query tiles and numerics. Its hi/lo
+// planes would take 327,936 bytes here, so K and V, which enter wgmma only
+// as the A operands of S^T and dP^T, stay one plain fp32 plane each (64
+// keys), split as they are read (dots_wgmma_split): 229,632 bytes. Each
+// tile's Q and dO are loaded into registers before the tile's first
+// barrier (no tile ahead: registers), split and stored; the products over
+// the queries take dO^T's or Q^T's fragments one m-tile at a time.
+// Registers a thread: dV^T or dK^T (96), then S^T (16) and a chunk of A
+// fragments (56), or one m-tile's fragments (32) and its fresh accumulator
+// (32); the tile's Q and dO (48) while dV^T or dK^T alone is live.
+template <int D, bool kSplit>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv, int B, int Sq,
+                             int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
+                             float* __restrict__ ws, int* __restrict__ counters) {
+  constexpr int DP = padded_dim(D), MT = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* k_f = tc_smem(smem4);
+  float* v_f = k_f + kDkvKeys * DP;
+  float* q_hi = v_f + kDkvKeys * DP;
+  float* q_lo = q_hi + kDkvRows * DP;
+  float* do_hi = q_lo + kDkvRows * DP;
+  float* do_lo = do_hi + kDkvRows * DP;
+  float* pt_hi = do_lo + kDkvRows * DP;             // 64 keys x 32 queries
+  float* pt_lo = pt_hi + kDkvKeys * kDkvRows;
+  float* st_hi = pt_lo + kDkvKeys * kDkvRows;
+  float* st_lo = st_hi + kDkvKeys * kDkvRows;
+  float* lse_s = st_lo + kDkvKeys * kDkvRows;
+  float* dl_s = lse_s + kDkvRows;
+
+  const int rep = H / Hkv;
+  const DkvBlock blk = dkv_block(kDkvKeys, B, Hkv, rep, kSplit);
+  const int k0 = blk.k0, b = blk.b, hk = blk.hk;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int grp = warp & 3, role = warp >> 2;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
+  const int n_k = min(kDkvKeys, Sk - k0);
+  const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
+
+  // query tiles [qt_lo, qt_lo + n_qt) of 32 that can see a key of the
+  // block, for each of its heads: tile i is head r0 + i / n_qt's tile i % n_qt
+  const int k_last = k0 + n_k - 1;
+  const int qry_lo = causal ? k0 : 0;
+  const int qry_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int qt_lo = qry_lo / kDkvRows;
+  const int n_qt = max(0, (qry_hi + kDkvRows - 1) / kDkvRows - qt_lo);
+  const int n_tiles = blk.nh * n_qt;
+  stage_plain<DP, kDkvKeys>(k_f, k + k_off, k_row, n_k, dg, 1.f);
+  stage_plain<DP, kDkvKeys>(v_f, v + k_off, k_row, n_k, dg, 1.f);
+
+  const int key = 16 * grp + g;                     // this thread's keys: key, key + 8
+  float acc[MT][32];                                // dV^T (role 0) or dK^T (role 1): DP x 64 keys
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int h = hk * rep + blk.r0 + i / n_qt, q0 = (qt_lo + i % n_qt) * kDkvRows;
+    const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
+    Prefetch<DP, kTcThreads> cur;
+    cur.load(q + q_off, dout + q_off, q_row, Sq - q0, dg);
+    float row_in = 0.f;                   // lse (threads 0-31) or delta (32-63) of a query row
+    if (tid < 2 * kDkvRows) {
+      const int r = tid % kDkvRows;
+      row_in = q0 + r < Sq ? (tid < kDkvRows ? lse : delta)[((long long)b * H + h) * Sq + q0 + r]
+                           : 0.f;
+    }
+    __syncthreads();                      // the last tile's readers of the planes are done
+    cur.store(q_hi, q_lo, scale, do_hi, do_lo);
+    if (tid < 2 * kDkvRows) lse_s[tid] = row_in;     // lse, then delta
+    hopper::fence_proxy_async();          // the planes' stores, before wgmma reads them
+    __syncthreads();                      // tile i's planes are ready
+
+    // transposed scores: rows are the warpgroup's 64 keys, columns the tile's queries
+    float s[1][4][4];                     // S^T (role 0) or dP^T (role 1)
+    if (role == 0) {
+      dots_wgmma_split<D, DP>(k_f, q_hi, q_lo, s);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qq = 8 * j + 2 * t + (e & 1);
+          const bool ok = valid_pair(q0 + qq, k0 + key + 8 * (e >> 1), Sq, Sk, causal, window);
+          s[0][j][e] = ok ? expf(s[0][j][e] - lse_s[qq]) : 0.f;
+        }
+      put_planes<kDkvKeys>(pt_hi, pt_lo, 16 * grp, s);  // P^T
+      hopper::fence_proxy_async();
+      __syncthreads();                    // P^T is in its planes
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        TFrags<DP, 1> dot;
+        dot.load(do_hi, do_lo, mt);
+        // dV^T += dO^T P
+        dot.template run<64>(pt_hi, pt_lo, reinterpret_cast<float(&)[1][32]>(acc[mt]));
+      }
+    } else {
+      dots_wgmma_split<D, DP>(v_f, do_hi, do_lo, s);
+      __syncthreads();                    // P^T is in its planes
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = pl<32, kDkvKeys>(key + 8 * (e >> 1), 8 * j + 2 * t + (e & 1));
+          s[0][j][e] = (pt_hi[o] + pt_lo[o]) * (s[0][j][e] - dl_s[8 * j + 2 * t + (e & 1)]);
+        }
+      put_planes<kDkvKeys>(st_hi, st_lo, 16 * grp, s);  // dS^T
+      hopper::fence_proxy_async();
+      bar_sync(kDsStored, 128);           // warpgroup 1's dS^T is in its planes
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        TFrags<DP, 1> qt;
+        qt.load(q_hi, q_lo, mt);
+        // dK^T += (scale Q)^T dS
+        qt.template run<64>(st_hi, st_lo, reinterpret_cast<float(&)[1][32]>(acc[mt]));
+      }
+    }
+  }
+
+  if constexpr (kSplit) {
+    if (!dkv_combine(reinterpret_cast<float(&)[MT * 32]>(acc), ws, counters, blk, rep)) return;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    store_t((role ? dk : dv) + k_off, k_row, acc[mt], mt, n_k, dg, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1107,11 +1207,6 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k
 
 constexpr int kFwdRows = 128;            // query rows a block: 64 a warpgroup, 16 a warp
 constexpr int kFwdKeys = 32;             // keys a streamed tile
-
-// The columns the planes hold for a head dim of D: D rounded up to 64 (the
-// 32-float swizzled blocks; the rows the transposed products put on
-// wgmma's M side), zero past D. 192 for D = 168.
-__host__ __device__ constexpr int padded_dim(int D) { return (D + 63) / 64 * 64; }
 
 // floats of shared memory past the 1024-byte alignment: Q's lo planes (two
 // warpgroups x 64 rows, scaled) and `stages` buffers of a tile's
@@ -1744,21 +1839,18 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   bf_store_rows<DH>(dq + q_off, q_row, row, n_q, dg, t, acc, scale);
 }
 
-// K8 in bf16: the fp32 tensor-core kernel's 1-D grid of (key tile of 64,
-// batch, KV head) blocks, key tile slowest (dkv_block_order), and its walk
-// over the rep query heads of the group and their 64-row query tiles inside
-// the block, so the GQA sum stays in registers (kept: at the training
-// shapes, B 2 x S 2048 with 4 KV heads, the walk gives 256 blocks of one an
-// SM over 132 SMs in longest-first order, about two even waves; a grid
-// split over the group's heads would add an fp32 workspace of dK and dV per
-// query head and a second pass). Two warpgroups by product, each over the
+// K8 in bf16: the fp32 kernels' grid (dkv_block; 64-row query tiles), so
+// at the training shapes, B 2 x S 2048 with 4 KV heads, 256 blocks walk
+// their groups over 132 SMs in longest-first order, about two even waves,
+// and a shape of fewer units than SMs splits its groups' heads over blocks
+// (dkv_combine). Two warpgroups by product, each over the
 // block's 64 keys: warpgroup 0 computes S^T = K Q^T and P^T, hands P^T to
 // warpgroup 1 through an fp32 exchange tile in fragment order (a named
 // barrier), and adds P^T dO to dV; warpgroup 1 computes dP^T = V dO^T
 // meanwhile, then dS^T = P^T (dP^T - delta) and adds dS^T Q to dK (Q and
 // dO read N-major: no transposed copies). dK = scale dK at the end; both
 // in bf16.
-template <int DH>
+template <int DH, bool kSplit>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -1766,7 +1858,8 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int B, int Sq, int Sk, int H, int Hkv,
-                          int dg, int causal, int window, float scale) {
+                          int dg, int causal, int window, float scale,
+                          float* __restrict__ ws, int* __restrict__ counters) {
   constexpr int kTileB = bf_tile_bytes(DH);
   constexpr int kStage = dkv_bf16_stage(DH);
   extern __shared__ float4 smem4[];
@@ -1775,9 +1868,9 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float* xchg = reinterpret_cast<float*>(v_s + kTileB);   // P^T, warpgroup 0 to 1
   unsigned char* stages = v_s + kTileB + kBfXchg;   // stage u: Q, dO, lse and delta rows
 
-  const int n_bh = B * Hkv;
-  const int k0 = (blockIdx.x / n_bh) * kBfTile;
-  const int b = (blockIdx.x % n_bh) / Hkv, hk = blockIdx.x % Hkv, rep = H / Hkv;
+  const int rep = H / Hkv;
+  const DkvBlock blk = dkv_block(kBfTile, B, Hkv, rep, kSplit);
+  const int k0 = blk.k0, b = blk.b, hk = blk.hk;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = tid & 3;
   const int role = warp >> 2;
   const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
@@ -1785,15 +1878,15 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const long long k_off = ((long long)b * Sk + k0) * k_row + (long long)hk * dg;
 
   // query tiles [qt_lo, qt_lo + n_qt) of 64 that can see a key of the
-  // block, for each of the rep heads: tile i is head i / n_qt's tile i % n_qt
+  // block, for each of its heads: tile i is head r0 + i / n_qt's tile i % n_qt
   const int k_last = k0 + n_k - 1;
   const int qry_lo = causal ? k0 : 0;
   const int qry_hi = window > 0 ? min(Sq, k_last + window) : Sq;
   const int qt_lo = qry_lo / kBfTile;
   const int n_qt = max(0, (qry_hi + kBfTile - 1) / kBfTile - qt_lo);
-  const int n_tiles = rep * n_qt;
+  const int n_tiles = blk.nh * n_qt;
   auto fetch = [&](int i) {
-    const int h = hk * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * kBfTile;
+    const int h = hk * rep + blk.r0 + i / n_qt, q0 = (qt_lo + i % n_qt) * kBfTile;
     const long long q_off = ((long long)b * Sq + q0) * q_row + (long long)h * dg;
     unsigned char* st = stages + (i & 1) * kStage;
     bf_fetch_tile<DH, kTcThreads>(st, q + q_off, q_row, Sq - q0, dg, tid);
@@ -1865,6 +1958,9 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     xt.hold();
     __syncthreads();                                // the stage and the exchange are read
   }
+  if constexpr (kSplit) {
+    if (!dkv_combine(acc, ws, counters, blk, rep)) return;
+  }
   bf_store_rows<DH>((role ? dk : dv) + k_off, k_row, key, n_k, dg, t, acc, role ? scale : 1.f);
 }
 
@@ -1915,60 +2011,37 @@ cudaError_t launch_infer(const void* q, const void* k, const void* v, const void
                                       H, Hkv, dg, causal, window, scale, stream);
 }
 
-// The SIMT kernels run at the padded head dim (192 for 168: their threads
-// take 64-column groups), on tiles zero past dg.
-template <typename T, int DH>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
-                      int H, int Hkv, int dg, int causal, int window, float scale,
-                      cudaStream_t stream) {
-  constexpr int D = padded_dim(DH);
-  const size_t smem = sizeof(float) * ((size_t)kTile * D * 2 + (size_t)kTile * (D + 4) +
-                                       shared_tile(D) + 2 * kTile);
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, Hkv, dg, causal,
-      window, scale);
-  return cudaGetLastError();
+// The fp32 tensor-core backward: the D = 64 and 128 kernels, and the wide
+// ones at 168 (their planes' bytes: dq_smem_floats). K8 takes the split
+// flag, its workspace and counters (dkv_block, dkv_combine; unread without
+// a split).
+template <int D>
+auto dq_tc_kernel() {
+  if constexpr (D % 64 != 0) {
+    return flash_bwd_dq_tc_wide_kernel<D>;
+  } else {
+    return flash_bwd_dq_tc_kernel<D>;
+  }
 }
 
-template <typename T, int DH>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-                       int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
-                       cudaStream_t stream) {
-  constexpr int D = padded_dim(DH);
-  const size_t smem = sizeof(float) * dkv_simt_floats(D, dkv_one_p_tile(D) ? 1 : 2);
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kTile - 1) / kTile, Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H,
-      Hkv, dg, causal, window, scale);
-  return cudaGetLastError();
+template <int D, bool kSplit>
+auto dkv_tc_kernel() {
+  if constexpr (D % 64 != 0) {
+    return flash_bwd_dkv_tc_wide_kernel<D, kSplit>;
+  } else {
+    return flash_bwd_dkv_tc_kernel<D, kSplit>;
+  }
 }
 
-// The fp32 tensor-core backward takes the head dims of the D = 64 and 128
-// kernels only: at 168 its planes need 320,000 (K7) and 327,936 (K8)
-// bytes (see the entry points).
 template <int D>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
                          int H, int Hkv, int dg, int causal, int window, float scale,
                          cudaStream_t stream) {
-  if constexpr (D % 64 != 0) {
-    return cudaErrorInvalidValue;
-  } else {
-  const size_t smem = 1024 + sizeof(float) * dq_smem_floats(D);
-  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  constexpr bool kWide = D % 64 != 0;
+  const size_t smem =
+      1024 + sizeof(float) * (kWide ? dq_wide_smem_floats(padded_dim(D)) : dq_smem_floats(D));
+  auto kernel = dq_tc_kernel<D>();
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kDqRows - 1) / kDqRows, H, B);
@@ -1978,30 +2051,33 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void
       static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Sk, H, Hkv, dg, causal,
       window, scale);
   return cudaGetLastError();
-  }
+}
+
+// K8's grid: units (key tiles x B x Hkv) blocks, times rep with a split
+inline long long dkv_blocks(int keys, int B, int Sk, int H, int Hkv, int split) {
+  return (long long)((Sk + keys - 1) / keys) * B * Hkv * (split ? H / Hkv : 1);
 }
 
 template <int D>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                           int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
-                          cudaStream_t stream) {
-  if constexpr (D % 64 != 0) {
-    return cudaErrorInvalidValue;
-  } else {
-  const size_t smem = 1024 + sizeof(float) * dkv_smem_floats(D);
-  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+                          int split, void* ws, void* counters, cudaStream_t stream) {
+  constexpr bool kWide = D % 64 != 0;
+  const size_t smem =
+      1024 + sizeof(float) * (kWide ? dkv_wide_smem_floats(padded_dim(D)) : dkv_smem_floats(D));
+  auto kernel = split ? dkv_tc_kernel<D, true>() : dkv_tc_kernel<D, false>();
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((Sk + kDkvKeys - 1) / kDkvKeys) * B * Hkv;
+  const long long blocks = dkv_blocks(kDkvKeys, B, Sk, H, Hkv, split);
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), B, Sq,
-      Sk, H, Hkv, dg, causal, window, scale);
+      Sk, H, Hkv, dg, causal, window, scale, static_cast<float*>(ws),
+      static_cast<int*>(counters));
   return cudaGetLastError();
-  }
 }
 
 // The bf16 tensor-core backward at every kernel head dim (64, 128, 168).
@@ -2027,19 +2103,20 @@ template <int DH>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                             int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
-                            cudaStream_t stream) {
+                            int split, void* ws, void* counters, cudaStream_t stream) {
   const size_t smem = dkv_bf16_smem(DH);
-  auto kernel = flash_bwd_dkv_bf16_kernel<DH>;
+  auto kernel =
+      split ? flash_bwd_dkv_bf16_kernel<DH, true> : flash_bwd_dkv_bf16_kernel<DH, false>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((Sk + kBfTile - 1) / kBfTile) * B * Hkv;
+  const long long blocks = dkv_blocks(kBfTile, B, Sk, H, Hkv, split);
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, Sq, Sk, H, Hkv, dg,
-      causal, window, scale);
+      causal, window, scale, static_cast<float*>(ws), static_cast<int*>(counters));
   return cudaGetLastError();
 }
 
@@ -2050,8 +2127,12 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 // `bf16` is 1); lse and delta (B, H, Sq) fp32 contiguous. H % Hkv == 0, D in
 // {8, 16, 24, 64, 112, 128, 168}. causal is 0 or 1; window <= 0 means no
 // window. The forward's ws is an fp32 workspace of B * Hkv * ceil(Sk / 32)
-// * kFwdPlanes * 32 * padded_dim(max(D, 64)) floats, 16-byte aligned. Each
-// returns the CUDA error of its launches (0 on success).
+// * kFwdPlanes * 32 * padded_dim(max(D, 64)) floats, 16-byte aligned. K8's
+// split is 0 or 1 (flash_attention.dkv_split); with 1, ws is an fp32
+// workspace of units * (H / Hkv) * 2 * 64 * padded_dim(max(D, 64)) floats,
+// 16-byte aligned, and counters units int32 zeros, units = ceil(Sk / 64) *
+// B * Hkv, which the call leaves at zero. Each returns the CUDA error of its launches (0
+// on success).
 //
 // The head dims under 64 (the reference's smoke configs: 8, 16, 24) run
 // the D = 64 kernels with dg = D, and 112 (kimi-k2's and zamba2's) the D =
@@ -2063,11 +2144,9 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 // products put D on wgmma's 64-row M side, which is why 64 and not 32 is
 // the floor; the work is that of D = 64 (8x the pairs' FLOPs at D = 8), a
 // simple route for the small configs. 168 (gemma3-27b's) has kernels of
-// its own: the forward at D = 168 (21 k steps of 8, planes of 192 columns,
-// one buffer of tile planes), the bf16 backward on tiles of 192 columns,
-// and the fp32 backward on the SIMT kernels at 192 columns (K8 with one
-// P^T / dS^T tile), since the 3xTF32 backward's planes do not fit a
-// block's shared memory there.
+// its own on planes of 192 columns: the forward (21 k steps of 8, one
+// buffer of tile planes), the bf16 backward, and the fp32 backward with
+// its register-only operands in plain fp32 planes (the wide kernels).
 
 #define FLASH_DISPATCH(CALL, T)                                                   \
   switch (D) {                                                                    \
@@ -2119,29 +2198,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #undef INFER
 }
 
-// K7 and K8 take `tensor_cores` from the wrapper's route: 1 runs a
-// tensor-core kernel, the bf16 one (bf16 wgmma, three planes of P and dS) at
-// every head dim or the 3xTF32 one for fp32 at every head dim but 168; 0 the
-// fp32 SIMT kernel, which takes fp32 at 168 only. Any other pairing is
-// refused (cudaErrorInvalidValue).
-#define BWD_DISPATCH(TC, BF, SIMT)                                                 \
-  if (tensor_cores) {                                                             \
-    if (bf16) {                                                                   \
-      FLASH_DISPATCH(BF, __nv_bfloat16)                                           \
-    }                                                                             \
-    if (D == 168) return static_cast<int>(cudaErrorInvalidValue);                 \
-    FLASH_DISPATCH(TC, float)                                                     \
-  } else if (!bf16 && D == 168) {                                                 \
-    return static_cast<int>(SIMT(float, 168));                                    \
+// K7 and K8 run one kernel for each dtype and head dim: the bf16 one (bf16
+// wgmma, three planes of P and dS) or the fp32 one (3xTF32).
+#define BWD_DISPATCH(TC, BF)                                                       \
+  if (bf16) {                                                                     \
+    FLASH_DISPATCH(BF, __nv_bfloat16)                                             \
   }                                                                               \
-  return static_cast<int>(cudaErrorInvalidValue);
+  FLASH_DISPATCH(TC, float)
 
 extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse,
                                              const void* delta, void* dq, int B, int Sq,
                                              int Sk, int H, int Hkv, int D, int causal,
-                                             int window, float scale, int bf16,
-                                             int tensor_cores, void* stream) {
+                                             int window, float scale, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DQ_TC(T, DIM)                                                                     \
   launch_dq_tc<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window,  \
@@ -2149,13 +2218,9 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const
 #define DQ_BF(T, DIM)                                                                     \
   launch_dq_bf16<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window, \
                       scale, s)
-#define DQ(T, DIM)                                                                        \
-  launch_dq<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, D, causal, window,  \
-                    scale, s)
-  BWD_DISPATCH(DQ_TC, DQ_BF, DQ)
+  BWD_DISPATCH(DQ_TC, DQ_BF)
 #undef DQ_TC
 #undef DQ_BF
-#undef DQ
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
@@ -2163,21 +2228,20 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
                                               const void* delta, void* dk, void* dv, int B,
                                               int Sq, int Sk, int H, int Hkv, int D,
                                               int causal, int window, float scale, int bf16,
-                                              int tensor_cores, void* stream) {
+                                              int split, void* ws, void* counters,
+                                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split && (H == Hkv || ws == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
 #define DKV_TC(T, DIM)                                                                      \
   launch_dkv_tc<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,       \
-                     window, scale, s)
+                     window, scale, split, ws, counters, s)
 #define DKV_BF(T, DIM)                                                                      \
   launch_dkv_bf16<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,     \
-                       window, scale, s)
-#define DKV(T, DIM)                                                                         \
-  launch_dkv<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, D, causal,       \
-                     window, scale, s)
-  BWD_DISPATCH(DKV_TC, DKV_BF, DKV)
+                       window, scale, split, ws, counters, s)
+  BWD_DISPATCH(DKV_TC, DKV_BF)
 #undef DKV_TC
 #undef DKV_BF
-#undef DKV
 }
 
 #undef BWD_DISPATCH

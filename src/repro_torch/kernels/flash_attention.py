@@ -10,28 +10,29 @@ outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. Nothing is padded: the kernels
 mask by length. ``<wrapper>.launches`` counts each kernel's launches.
 
-K6 and K10 run one tensor-core kernel in every mode (q fp32 or bf16, K/V
-in q's dtype or int8 codes): every product on wgmma in 3xTF32, hi/lo tf32
-halves of each operand, fp32-accurate. A pre-pass in the same call splits
-K and V once into their planes in a workspace (``fwd_workspace``). K7 and
-K8 each have three kernels, and ``route`` picks the route by dtype and
-head dim: bf16 runs the bf16 tensor-core kernel at every head dim (bf16
-wgmma; S and dP exact bf16 products, P and dS in three exact bf16 planes
-against the bf16 tiles), fp32 the 3xTF32 tensor-core kernel, and fp32 at
-head dim 168 the SIMT kernel (fp32 FMAs: the 3xTF32 backward's planes do
-not fit a block's shared memory at 192 columns). The C entry point
-refuses any other pairing, so none stands in for another.
+Every kernel runs on the tensor cores (``route``). K6 and K10 run one
+kernel in every mode (q fp32 or bf16, K/V in q's dtype or int8 codes):
+every product on wgmma in 3xTF32, hi/lo tf32 halves of each operand,
+fp32-accurate. A pre-pass in the same call splits K and V once into their
+planes in a workspace (``fwd_workspace``). K7 and K8 run one kernel for
+each dtype and head dim: bf16 the bf16 kernel (bf16 wgmma; S and dP exact
+bf16 products, P and dS in three exact bf16 planes against the bf16
+tiles), fp32 the 3xTF32 kernel, whose register-only operands at head dim
+168 stay plain fp32 planes split as they are read (hi/lo planes of every
+operand do not fit a block's shared memory at 192 columns).
 ``<wrapper>.launches_by_kernel`` counts each kernel's launches by the name
-``route`` gives it. K8's tensor-core grid launches its blocks in
-``dkv_block_order``.
+``route`` gives it. K8 launches its blocks in ``dkv_block_order``: one a
+(key tile, batch, KV head), walking the group's heads, or, where those
+would leave SMs idle (``dkv_split``), one a head of the group, whose
+partials the group's last block sums in head order in the same launch
+(a workspace and counters from ``paged_decode_attention.scratch``).
 
 Head dims 64 and 128; 8, 16 and 24 (the reference's smoke configs), which
 run the D = 64 kernels; 112 (kimi-k2's and zamba2's), which runs the D =
 128 kernels; and 168 (gemma3-27b's), whose kernels hold 192 columns
-(``kernel_dim``; the bf16 backward's S and dP read 176 of them). Each
-reads and writes the tensors' rows at their own width with zeros past it
-in shared memory and in the forward's workspace planes, so the tensors
-are never padded.
+(``kernel_dim``; S and dP read 168 or 176 of them). Each reads and writes
+the tensors' rows at their own width with zeros past it in shared memory
+and in the forward's workspace planes, so the tensors are never padded.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import DTYPES, check_cuda
+from repro_torch.kernels.int8_matmul import _sm_count
+from repro_torch.kernels.paged_decode_attention import scratch
 
 _HEAD_DIMS = (8, 16, 24, 64, 112, 128, 168)
 # K8's keys a block (kDkvKeys in the source)
@@ -60,28 +63,49 @@ def kernel_dim(d: int) -> int:
     return -(-d // 64) * 64
 
 
-def route(dtype: torch.dtype, d: int, *, forward: bool = False) -> str:
-    """The kernel that q of ``dtype`` at head dim ``d`` runs: the forward
-    (K6, K10) "tensor_cores" in every mode; the backward (K7, K8)
-    "tensor_cores" for bf16 at every head dim and for fp32 except at 168,
-    "simt" for fp32 at 168."""
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that q of ``dtype`` at head dim ``d`` runs: "tensor_cores"
+    for the forward (K6, K10) and the backward (K7, K8) in every mode and
+    at every head dim the kernels take; raises for any other dtype or head
+    dim."""
     if d not in _HEAD_DIMS or dtype not in DTYPES:
         raise ValueError(f"flash attention: no kernel for {dtype} at "
                          f"head_dim {d} (takes fp32 or bf16 at {_HEAD_DIMS})")
-    simt = not forward and dtype == torch.float32 and d == 168
-    return "simt" if simt else "tensor_cores"
+    return "tensor_cores"
 
 
-def dkv_block_order(sk: int, b: int, hkv: int):
-    """(key tile, batch, KV head) of each block of K8's tensor-core grid,
-    in launch order: the key tile slowest, so every (batch, KV head) of key
-    tile 0, which the most query rows see under the causal mask, launches
-    first, then tile 1, and so on (the kernel's own decoding of
-    ``blockIdx.x``)."""
+def dkv_split(units: int, rep: int, sms: int) -> bool:
+    """Whether K8 gives each head of a GQA group of ``rep`` a block of its
+    own: when its ``units`` (key tile, batch, KV head) blocks, each walking
+    the group, would leave some of the card's ``sms`` SMs idle. A function
+    of the shape and the card only."""
+    return rep > 1 and units < sms
+
+
+def dkv_block_order(sk: int, b: int, hkv: int, rep: int, sms: int):
+    """(key tile, batch, KV head, first head of the group, heads) of each
+    block of K8's grid, in launch order (the kernels' ``dkv_block``): the
+    key tile slowest, so every (batch, KV head) of key tile 0, which the
+    most query rows see under the causal mask, launches first; each block
+    walks the whole group, or with ``dkv_split`` one head, the group's
+    ``rep`` blocks adjacent."""
     n_bh = b * hkv
-    n_kt = -(-sk // DKV_KEYS)
-    return [(x // n_bh, (x % n_bh) // hkv, x % hkv)
-            for x in range(n_kt * n_bh)]
+    units = -(-sk // DKV_KEYS) * n_bh
+    per = rep if dkv_split(units, rep, sms) else 1
+    out = []
+    for x in range(units * per):
+        u = x // per
+        out.append((u // n_bh, (u % n_bh) // hkv, u % hkv,
+                    x % per if per > 1 else 0, 1 if per > 1 else rep))
+    return out
+
+
+def dkv_workspace_floats(units: int, rep: int, d: int) -> int:
+    """fp32 floats of the split K8's partials: for each of the ``rep``
+    heads of each of the ``units`` (key tile, batch, KV head), its block's
+    dV and dK accumulators (64 keys x the kernels' columns each), stored in
+    the threads' register order."""
+    return units * rep * 2 * DKV_KEYS * kernel_dim(d)
 
 
 def fwd_workspace(b: int, sk: int, hkv: int, d: int,
@@ -105,9 +129,9 @@ def _launcher(name: str):
              "flash_attention_bwd_dq_launch": 7,
              "flash_attention_bwd_dkv_launch": 8,
              "flash_attention_launch": 7}[name]
-    n_flags = 1 if name == "flash_attention_fwd_launch" else 2
-    fn.argtypes = [p] * n_ptr + [i] * 8 + [ctypes.c_float] + [i] * n_flags \
-        + [p]
+    tail = {"flash_attention_launch": [i, i],
+            "flash_attention_bwd_dkv_launch": [i, i, p, p]}.get(name, [i])
+    fn.argtypes = [p] * n_ptr + [i] * 8 + [ctypes.c_float] + tail + [p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -152,9 +176,9 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _statics(causal: bool, window: int, scale: float, q: torch.Tensor,
-             *flags: int):
+             *extra):
     return (int(bool(causal)), int(window), float(scale),
-            int(q.dtype == torch.bfloat16), *flags,
+            int(q.dtype == torch.bfloat16), *extra,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -186,8 +210,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *_statics(causal, window, scale, q))
     _raise_on(name, err)
     flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_kernel[route(q.dtype, d, forward=True)] \
-        += 1
+    flash_attention_fwd.launches_by_kernel[route(q.dtype, d)] += 1
     return out, lse
 
 
@@ -210,8 +233,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, sk, h,
-            hkv, d, *_statics(causal, window, scale, q,
-                              int(kernel == "tensor_cores")))
+            hkv, d, *_statics(causal, window, scale, q))
     _raise_on(name, err)
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.launches_by_kernel[kernel] += 1
@@ -225,7 +247,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             window: int = -1
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8. The inputs of K7. Returns (dk, dv) (B, Sk, Hkv, D) in k's and
-    v's dtype, each summed over its GQA group inside the kernel."""
+    v's dtype, each summed over its GQA group inside the kernel (by the
+    group's last block where ``dkv_split`` gives each head a block)."""
     name = "flash_attention_bwd_dkv"
     b, sq, sk, h, hkv, d = _check(name, q, k, v, dout, lse, delta)
     kernel = route(q.dtype, d)
@@ -235,13 +258,22 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
         return dk, dv
     if sq == 0 or h == 0:
         return dk.zero_(), dv.zero_()
+    rep = h // hkv
+    units = -(-sk // DKV_KEYS) * b * hkv
+    split = dkv_split(units, rep, _sm_count(q.device.index))
+    ws = counters = None
+    if split:
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters, ws = scratch(q.device, stream, units,
+                               dkv_workspace_floats(units, rep, d))
     with torch.cuda.device(q.device):
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, h, hkv, d,
-            *_statics(causal, window, scale, q,
-                      int(kernel == "tensor_cores")))
+            *_statics(causal, window, scale, q, int(split),
+                      ws.data_ptr() if split else None,
+                      counters.data_ptr() if split else None))
     _raise_on(name, err)
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.launches_by_kernel[kernel] += 1
@@ -286,15 +318,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err)
     flash_attention.launches += 1
-    flash_attention.launches_by_kernel[route(q.dtype, d, forward=True)] += 1
+    flash_attention.launches_by_kernel[route(q.dtype, d)] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_kernel = {"tensor_cores": 0}
 flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dq.launches_by_kernel = {"tensor_cores": 0, "simt": 0}
+flash_attention_bwd_dq.launches_by_kernel = {"tensor_cores": 0}
 flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dkv.launches_by_kernel = {"tensor_cores": 0, "simt": 0}
+flash_attention_bwd_dkv.launches_by_kernel = {"tensor_cores": 0}
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = {"tensor_cores": 0}

@@ -13,8 +13,11 @@ multiplied by the bf16 tile, each tile's sum on its own and then added to
 the running fp32 sum. ``emulate_dq`` and ``emulate_dkv`` below do exactly
 that in torch, with the kernels' walks: K7 64 query rows a block over
 64-key tiles from the block's first visible key, K8 64 keys a block over
-the group's heads, each over 64-query tiles; dq and dk are scaled once at
-the end.
+the group's heads, each over 64-query tiles, or, where its (key tile,
+batch, KV head) blocks are fewer than the card's SMs
+(``flash_attention.dkv_split``: every case here with a group of more than
+one head), one head a block, the heads' sums added in head order; dq and
+dk are scaled once at the end.
 
 Held against the JAX Pallas backward in interpret mode: the fp32
 accumulators (before the bf16 cast) against Pallas run on the same bf16
@@ -23,9 +26,10 @@ gate of ``test_torch_flash_tc.py`` (1e-4 of the max); the bf16 outputs
 against Pallas run in bf16 at chip_smoke.py's bf16 gate (1e-2 of the max
 plus 1e-3). The same walk with P and dS rounded to one bf16 plane (as
 bf16 SDPA does) is reported beside three planes and must do measurably
-worse. Head dims 8 (the D = 64 kernel, tiles zero past 8), 64, 112 (the
-D = 128 kernel), 128 and 168 (tiles of 192 columns), GQA groups 1 and 3,
-windows -1 and 300, one non-causal case, ragged lengths.
+worse. Head dims 8, 16 and 24 (the D = 64 kernel, tiles zero past them),
+64, 112 (the D = 128 kernel), 128 and 168 (tiles of 192 columns), GQA
+groups 1, 3 and 4, windows -1, 8 and 300, one non-causal case, ragged
+lengths; K8's walk over the whole group (shapes that fill the card) too.
 """
 
 import functools
@@ -45,6 +49,7 @@ TILE = 64
 K_STEP = 16                         # bf16 wgmma's depth
 FP32_GATE = 1e-4                    # chip_smoke.py FLASH_TOL["float32"]
 BF16_GATE, BF16_ATOL = 1e-2, 1e-3   # chip_smoke.py FLASH_TOL, FLASH_ATOL
+SMS = 132                           # the H100's SMs: K8's split rule
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -149,10 +154,12 @@ def emulate_dq(q, k, v, dout, lse, delta, *, scale, causal, window,
 
 
 def emulate_dkv(q, k, v, dout, lse, delta, *, scale, causal, window,
-                mm=planes3):
+                mm=planes3, split=False):
     """K8's bf16 tensor-core kernel on the inputs of ``emulate_dq``.
     Returns (dk, dv) (B, Sk, Hkv, D) in fp32, before the bf16 cast, each
-    GQA group summed in the kernel's order (head, then query tile)."""
+    GQA group summed in the kernel's order: head, then query tile, in one
+    running sum, or with ``split`` each head's tiles in a sum of its own
+    and the heads' sums added in head order."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -164,9 +171,11 @@ def emulate_dkv(q, k, v, dout, lse, delta, *, scale, causal, window,
         q_hi = min(sq, k0 + n_k - 1 + window) if window > 0 else sq
         kt = _rows(k, k0, TILE).permute(0, 2, 1, 3)            # (B, Hkv, K, D)
         vt = _rows(v, k0, TILE).permute(0, 2, 1, 3)
-        dk_acc = torch.zeros((b, hkv, TILE, d))
-        dv_acc = torch.zeros((b, hkv, TILE, d))
+        parts = []
         for r in range(rep):
+            if split or r == 0:
+                dk_acc = torch.zeros((b, hkv, TILE, d))
+                dv_acc = torch.zeros((b, hkv, TILE, d))
             heads = torch.arange(hkv) * rep + r
             for q0 in range(q_lo // TILE * TILE, q_hi, TILE):
                 qi = torch.arange(q0, q0 + TILE)
@@ -182,6 +191,12 @@ def emulate_dkv(q, k, v, dout, lse, delta, *, scale, causal, window,
                 pt = torch.where(ok, torch.exp(st - lse_r[:, :, None]), 0.0)
                 dv_acc = dv_acc + mm(pt, do)
                 dk_acc = dk_acc + mm(pt * (dpt - dl_r[:, :, None]), qs)
+            if split:
+                parts.append((dk_acc, dv_acc))
+        if split:
+            dk_acc, dv_acc = parts[0]
+            for pk, pv in parts[1:]:
+                dk_acc, dv_acc = dk_acc + pk, dv_acc + pv
         dk[:, k0:k0 + n_k] = (dk_acc * scale).permute(0, 2, 1, 3)[:, :n_k]
         dv[:, k0:k0 + n_k] = dv_acc.permute(0, 2, 1, 3)[:, :n_k]
     return dk, dv
@@ -197,6 +212,8 @@ CASES = [
     (65, 65, 2, 2, True, -1, 168),         # group 1, 192-column tiles
     (330, 330, 2, 2, True, 300, 128),      # window 300, group 1
     (320, 320, 3, 1, True, 300, 168),      # window 300, group 3
+    (64, 64, 8, 2, True, 8, 16),           # a smoke launcher's S 64, group 4
+    (67, 67, 4, 2, True, -1, 24),          # odd length, group 2
 ]
 IDS = [f"sq{c[0]}sk{c[1]}h{c[2]}kv{c[3]}{'c' if c[4] else 'f'}w{c[5]}d{c[6]}"
        for c in CASES]
@@ -240,14 +257,21 @@ def _pad(x, dk):
     return torch.nn.functional.pad(x, (0, dk - x.shape[-1]))
 
 
+def _split(case, sms=SMS):
+    """Whether K8 splits the case's groups over blocks on a card of
+    ``sms`` SMs (B = 1)."""
+    sq, sk, h, hkv = case[:4]
+    return fa.dkv_split(-(-sk // TILE) * hkv, h // hkv, sms)
+
+
 @functools.lru_cache(maxsize=None)
-def _emulated(case, fwd_dtype, planes):
+def _emulated(case, fwd_dtype, planes, sms=SMS):
     """The kernels' fp32 dq, dk, dv (before the bf16 cast) on the case's
-    bf16 values, from the port's plain forward's out and lse in
-    ``fwd_dtype`` ("float32" for the fp32 comparison; "bfloat16" as the
-    card's bf16 backward gets them), with ``planes`` (3 or 1) bf16 planes
-    of P and dS; the walks run on tiles zero-padded to ``kernel_dim(d)``
-    columns and the outputs' first d columns are kept."""
+    bf16 values on a card of ``sms`` SMs, from the port's plain forward's
+    out and lse in ``fwd_dtype`` ("float32" for the fp32 comparison;
+    "bfloat16" as the card's bf16 backward gets them), with ``planes`` (3
+    or 1) bf16 planes of P and dS; the walks run on tiles zero-padded to
+    ``kernel_dim(d)`` columns and the outputs' first d columns are kept."""
     sq, sk, h, hkv, causal, window, d = case
     x32 = [torch.from_numpy(x) for x in _inputs(case)]
     kw = dict(scale=d ** -0.5, causal=causal, window=window)
@@ -259,7 +283,8 @@ def _emulated(case, fwd_dtype, planes):
     q, k, v, dout = (_pad(x, fa.kernel_dim(d)) for x in x32[:3] + [dout])
     mm = planes3 if planes == 3 else planes1
     dq = emulate_dq(q, k, v, dout, lse, delta, mm=mm, **kw)
-    dk, dv = emulate_dkv(q, k, v, dout, lse, delta, mm=mm, **kw)
+    dk, dv = emulate_dkv(q, k, v, dout, lse, delta, mm=mm,
+                         split=_split(case, sms), **kw)
     return tuple(x[..., :d].numpy() for x in (dq, dk, dv))
 
 
@@ -274,6 +299,21 @@ def test_fp32_accumulators_within_the_fp32_gate(case):
     1e-4 of the max of Pallas's on the same values in fp32, with a margin
     of 10x."""
     errs = _rel_errs(_emulated(case, "float32", 3),
+                     _pallas(case, "float32"))
+    assert max(errs) <= FP32_GATE / 10, errs
+
+
+GROUPS = [(c, i) for c, i in zip(CASES, IDS) if c[2] > c[3]]
+
+
+@pytest.mark.parametrize("case", [c for c, _ in GROUPS],
+                         ids=[i for _, i in GROUPS])
+def test_group_walk_within_the_fp32_gate(case):
+    """K8's walk over the whole group in one block, which shapes that fill
+    the card run (one SM here, so no split): the fp32 accumulators within
+    the same margin."""
+    assert _split(case) and not _split(case, 1)
+    errs = _rel_errs(_emulated(case, "float32", 3, sms=1),
                      _pallas(case, "float32"))
     assert max(errs) <= FP32_GATE / 10, errs
 

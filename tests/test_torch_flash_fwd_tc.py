@@ -301,11 +301,11 @@ def test_forward_route(d):
     head dim (the backward routes bf16 to its bf16 tensor-core kernels at
     every head dim too); any other dtype or head dim has no kernel."""
     for dt in (torch.float32, torch.bfloat16):
-        assert fa.route(dt, d, forward=True) == "tensor_cores"
+        assert fa.route(dt, d) == "tensor_cores"
     assert fa.route(torch.bfloat16, d) == "tensor_cores"
     with pytest.raises(ValueError):
-        fa.route(torch.float16, d, forward=True)
+        fa.route(torch.float16, d)
     with pytest.raises(ValueError):
-        fa.route(torch.float32, 96, forward=True)
+        fa.route(torch.float32, 96)
     assert set(fa.flash_attention_fwd.launches_by_kernel) == \
         set(fa.flash_attention.launches_by_kernel) == {"tensor_cores"}
