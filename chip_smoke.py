@@ -238,11 +238,12 @@ non-zero and prints no result:
 4b. flash kernels: K6 (forward with lse), K7 (dQ) and K8 (dK, dV) against
    their plain versions at the training path's shapes (B=2, S=2048, H=36,
    Hkv=4, D=128, causal) in fp32 and bf16 with windows -1 and 256, the
-   backward on the kernel's own out and lse (K6 and K10 run their
-   tensor-core kernel in every mode, fp32 K7 and K8 their 3xTF32 ones,
-   bf16 K7 and K8 their bf16 ones: every call asserted on its route's
-   kernel, bf16 on the tensor cores; the bounds count bf16 K7's and K8's
-   three-plane products at a third of the bf16 rate); two calls of K6, K7
+   backward on the kernel's own out and lse (fp32 K6-K8 and K10 run
+   their 3xTF32 kernels, bf16 ones their bf16 ones: every call asserted
+   on its route's kernel; each K6 and K10 row gives the device kernels a
+   call launched, bf16 q one, the fp32 forward's split pre-pass and
+   kernel two; the bounds count bf16's three-plane products, P V, dS K,
+   P^T dO and dS^T Q, at a third of the bf16 rate); two calls of K6, K7
    and K8 on the same inputs must give the same bits; the kernels and the library calls timed by
    device time from torch.profiler, CUDA events beside; the library call
    is causal ``F.scaled_dot_product_attention`` with K/V repeated to H
@@ -2250,30 +2251,44 @@ def _flash_pairs(s, window):
                for i in range(s))
 
 
+def _fwd_ops_s(q, pairs):
+    """Least seconds of a flash forward's operations (K6, K10) over
+    ``pairs`` valid (query, key) pairs and heads: s = q k^T and P V, 2 D
+    FLOPs each. fp32 q: 4 D at ``_peak`` (3xTF32; int8 K/V too). bf16 q:
+    s (bf16 x bf16) at PEAK_BF16 and P V (fp32 P, as the Pallas body
+    computes it, against bf16 or int8 V) at PEAK_BF16 / 3, three exact
+    bf16 planes: 8 D at PEAK_BF16, the backward's count below."""
+    import torch
+    d = q.shape[-1]
+    if q.dtype == torch.float32:
+        return 4.0 * d * pairs / _peak(q)
+    return (2 + 3 * 2) * d * pairs / PEAK_BF16
+
+
 def _flash_bounds(q, k, window):
     """Least time of K6, K7 and K8 at these inputs: 4, 6 and 8 * D FLOPs
     per valid (query, key) pair and head (K6: s and P V; K7 recomputes s
     and dP and does dS K; K8 recomputes s and dP and does P^T dO and dS^T
     Q), each product at its operands' rate, or their bytes (each input
     read once, each output written once) over the HBM rate, the larger.
-    fp32 inputs: every product at ``_peak`` (3xTF32). bf16 inputs: K6 at
-    PEAK_BF16; in K7 and K8, S and dP (bf16 x bf16) at PEAK_BF16 and the
-    products with fp32 P or dS (their fp32 values against bf16 dO, Q or
-    K, as the Pallas bodies compute them) at PEAK_BF16 / 3, three exact
-    bf16 planes, as ``_peak_coded`` counts fp32 x against codes: 10 and 16
-    * D at PEAK_BF16."""
+    fp32 inputs: every product at ``_peak`` (3xTF32). bf16 inputs: s and
+    dP (bf16 x bf16) at PEAK_BF16 and the products with fp32 P or dS
+    (their fp32 values against bf16 V, dO, Q or K, as the Pallas bodies
+    compute them) at PEAK_BF16 / 3, three exact bf16 planes, as
+    ``_peak_coded`` counts fp32 x against codes: 8, 10 and 16 * D at
+    PEAK_BF16 (K6: ``_fwd_ops_s``)."""
     import torch
     b, s, h, d = q.shape
     pairs = b * h * _flash_pairs(s, window)
     qb = q.numel() * q.element_size()
     kb = k.numel() * k.element_size()
     rows = 4 * b * h * s                      # one fp32 lse or delta row
+    t_fwd = _fwd_ops_s(q, pairs)
     if q.dtype == torch.float32:
         peak = _peak(q)
-        t_fwd, t_dq, t_dkv = (n * d * pairs / peak for n in (4.0, 6.0, 8.0))
+        t_dq, t_dkv = (n * d * pairs / peak for n in (6.0, 8.0))
     else:
         # (bf16 x bf16 FLOPs, fp32 x bf16 FLOPs) a pair and head, over D
-        t_fwd = 4.0 * d * pairs / PEAK_BF16
         t_dq, t_dkv = ((exact + 3 * planes) * d * pairs / PEAK_BF16
                        for exact, planes in ((4, 2), (4, 4)))
     return {"flash_attention_fwd": _bound(2 * qb + 2 * kb + rows, t_fwd),
@@ -2281,6 +2296,27 @@ def _flash_bounds(q, k, window):
                                              t_dq),
             "flash_attention_bwd_dkv": _bound(2 * qb + 4 * kb + 2 * rows,
                                               t_dkv)}
+
+
+# The device kernels one call of a flash forward (K6, K10) launches, by the
+# stem of their names: fp32 q the split pre-pass and the 3xTF32 forward;
+# bf16 q the bf16 forward alone, no pre-pass
+FWD_KERNELS = {"float32": {"flash_fwd_split_kernel": 1,
+                           "flash_fwd_tc_kernel": 1},
+               "bfloat16": {"flash_fwd_bf16_kernel": 1}}
+
+
+def _fwd_device_kernels(label, fn, q_name):
+    """The device kernels that one call of ``fn`` (K6 or K10 with q in
+    ``q_name``) launches, read from torch.profiler's kernel records
+    (``_one_launch``): FWD_KERNELS[q_name], each as often as it says, and
+    nothing else. Returns {stem: launches a call}."""
+    want = FWD_KERNELS[q_name]
+    _one_launch(label, fn, iters=4, per_call=sum(want.values()))
+    for stem, n in want.items():
+        _one_launch(f"{label}, {stem}", fn, iters=4, per_call=n,
+                    names=(stem,))
+    return dict(want)
 
 
 def _rel_err(got, want):
@@ -2301,15 +2337,17 @@ def phase_flash_kernels():
     together. The kernels and the library calls are timed by device time
     (torch.profiler; their CUDA-event times beside). Calls only the
     kernels' public wrappers, so an older checkout's kernels can be timed
-    through it (``benchmarks/flash_bwd_bench.py``). Returns the main-path
-    rows by kernel."""
+    through it (``benchmarks/flash_bwd_bench.py``). K6's rows give the
+    device kernels each call launched (``_fwd_device_kernels``: bf16 q one
+    launch). Returns the main-path rows by kernel and K6's bf16 row
+    without a window."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     scale = D ** -0.5
     rep = H // HKV
-    main = {}
+    main, bf16 = {}, {}
     for q_name, tol in FLASH_TOL.items():
         q, k, v, dout = _flash_inputs(getattr(torch, q_name))
         for window in WINDOWS:
@@ -2346,6 +2384,9 @@ def phase_flash_kernels():
                        + fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
                                                     **kw))
             del w_out, w_lse, w_dq, w_dk, w_dv
+            fwd_kernels = _fwd_device_kernels(
+                f"K6, {q_name}, window {window}",
+                lambda: fa.flash_attention_fwd(q, k, v, **kw), q_name)
             mask = None if window <= 0 else ref.flash_mask(
                 FLASH_S, FLASH_S, causal=True, window=window, device="cuda")
 
@@ -2428,13 +2469,18 @@ def phase_flash_kernels():
                 row["library_cuda_event_ms"] = event_ms[
                     "library_fwd" if name == "flash_attention_fwd"
                     else "library_bwd"]
+                if name == "flash_attention_fwd":
+                    row["device_kernels"] = fwd_kernels
                 emit(row)
                 if (q_name, window) == MAIN_FLASH:
                     main[name] = row
+                if (q_name, window, name) == ("bfloat16", -1,
+                                              "flash_attention_fwd"):
+                    bf16[name] = row
             del out, lse, delta, dq, dk, dv
         del q, k, v, dout
         torch.cuda.empty_cache()
-    return main
+    return main, bf16
 
 
 def _same_bits(label, first, second):
@@ -2668,7 +2714,7 @@ def _time_flash(b, s, h, hkv, d, q_name, phase="flash_small_dims"):
     pairs = b * h * _flash_pairs(s, -1)
     bounds["flash_attention"] = _bound(
         2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size(),
-        4.0 * d * pairs / _peak(q))
+        _fwd_ops_s(q, pairs))
     calls = {
         "flash_attention_fwd": (lambda i: fa.flash_attention_fwd(q, k, v,
                                                                  **kw),
@@ -2786,11 +2832,13 @@ def phase_flash_wide_dims():
 
 
 # K10 at K6's shapes: (q dtype, K/V storage) with windows -1 and 256; the
-# kernels line reports fp32 q and K/V without a window, K6's mode.
-# Tolerance over the max of the plain version's output: K6's (FLASH_TOL)
+# kernels line reports fp32 q and K/V without a window, K6's mode, and
+# beside it bf16 q and K/V. Tolerance over the max of the plain version's
+# output: K6's (FLASH_TOL)
 K10_MODES = (("float32", "float32"), ("float32", "int8"),
              ("bfloat16", "bfloat16"), ("bfloat16", "int8"))
 K10_MAIN = ("float32", "float32", -1)
+K10_BF16 = ("bfloat16", "bfloat16", -1)
 
 
 def phase_flash_infer():
@@ -2801,15 +2849,16 @@ def phase_flash_infer():
     ``F.scaled_dot_product_attention`` with K/V dequantized (int8) and
     repeated to H heads inside the timed call (a boolean mask for the
     window). K10 and the library call are timed by device time
-    (torch.profiler; their CUDA-event times beside). Returns the main
-    row."""
+    (torch.profiler; their CUDA-event times beside), and each mode's
+    device kernels a call are read (``_fwd_device_kernels``: bf16 q one
+    launch). Returns the main row and the bf16 row (K10_BF16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     scale = D ** -0.5
     rep = H // HKV
-    main = None
+    main = bf16 = None
     for q_name, kv_name in K10_MODES:
         q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -2848,6 +2897,9 @@ def phase_flash_infer():
                     attn_mask=mask, is_causal=mask is None, scale=scale)
 
             lib_rel = _rel_err(got, library().transpose(1, 2))[1]
+            kernels = _fwd_device_kernels(
+                f"K10, q {q_name}, kv {kv_name}, window {window}",
+                lambda: fa.flash_attention(q, k, v, **kw), q_name)
             ms = device_ms(lambda i: fa.flash_attention(q, k, v, **kw), 10)
             event_ms = cuda_ms(lambda i: fa.flash_attention(q, k, v, **kw),
                                10)
@@ -2859,7 +2911,7 @@ def phase_flash_infer():
             nbytes = (2 * q.numel() * q.element_size()
                       + 2 * k.numel() * k.element_size()
                       + sum(t.numel() * 4 for t in scales))
-            bound_ms, bound_by = _bound(nbytes, 4.0 * D * pairs / _peak(q))
+            bound_ms, bound_by = _bound(nbytes, _fwd_ops_s(q, pairs))
             row = {"phase": "kernels", "kernel": "flash_attention",
                    "q": q_name, "kv": kv_name, "window": window,
                    "B": FLASH_B, "S": FLASH_S, "max_abs_err": err,
@@ -2868,14 +2920,17 @@ def phase_flash_infer():
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "timing": "device", "cuda_event_ms": event_ms,
-                   "library_cuda_event_ms": library_event_ms}
+                   "library_cuda_event_ms": library_event_ms,
+                   "device_kernels": kernels}
             emit(row)
             if (q_name, kv_name, window) == K10_MAIN:
                 main = row
+            if (q_name, kv_name, window) == K10_BF16:
+                bf16 = row
             del got
         del q, k, v, scales, kvs
         torch.cuda.empty_cache()
-    return main
+    return main, bf16
 
 
 def _train_flash_counters():
@@ -2992,9 +3047,9 @@ def phase_train_parity(dtype="float32"):
 def _profile_tick(eng, k, top=10):
     """``eng.run(k)`` (a TrainEngine tick, or k Trainer steps) under
     torch.profiler, after the measured run: device time by kernel (ms per
-    step, largest first), the
-    flash kernels' share of it, the device's busy share of the tick's wall
-    time and the kernel launches per step."""
+    step, largest first), the flash kernels' share of it (and the
+    forward's, K6), the device's busy share of the tick's wall time and
+    the kernel launches per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3011,11 +3066,13 @@ def _profile_tick(eng, k, top=10):
                       for e in events), key=lambda kv: -kv[1])
     busy = sum(ms for _, ms in kernels)
     flash = sum(ms for name, ms in kernels if "flash_" in name)
+    flash_fwd = sum(ms for name, ms in kernels if "flash_fwd" in name)
     gemm = sum(ms for name, ms in kernels if "gemm" in name.lower())
     return {"steps": k, "wall_ms_per_step": wall_ms / k,
             "device_busy_ms_per_step": busy,
             "device_busy_share": busy * k / wall_ms,
             "gemm_ms_per_step": gemm, "flash_kernels_ms_per_step": flash,
+            "flash_fwd_ms_per_step": flash_fwd,
             "launches_per_step": sum(e.count for e in events) / k,
             "top_kernels_ms_per_step": dict(kernels[:top])}
 
@@ -3030,7 +3087,8 @@ def phase_train(dtype="float32"):
     and read just after: K6, K7 and K8 each launch steps x layers times,
     every launch on its route's kernels (bf16: the tensor cores); one
     readback per tick; every loss and grad norm finite. Then one profiled
-    tick: K6-K8's device ms a step. Returns the launches."""
+    tick: K6-K8's device ms a step, and K6's apart. Returns the
+    launches."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, make_pipeline
@@ -6451,9 +6509,10 @@ def main() -> int:
     rows["int8_matmul_dx"] = phase_int8_dx()
     phase_int8_train_grads()
     rows["ternary_matmul"] = phase_ternary_matmul()
-    rows.update(phase_flash_kernels())
+    flash_rows, bf16 = phase_flash_kernels()
+    rows.update(flash_rows)
     phase_flash_ragged()
-    rows["flash_attention"] = phase_flash_infer()
+    rows["flash_attention"], bf16["flash_attention"] = phase_flash_infer()
     small = phase_flash_small_dims()
     small.update(phase_flash_wide_dims())
     mark("kernels")
@@ -6533,6 +6592,9 @@ def main() -> int:
         **({"d112_zamba2": {key: k1_zamba2[key] for key in (
             "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "route")}} if name == "decode_attention" else {}),
+        **({"bf16": {key: bf16[name][key] for key in (
+            "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_kernels")}} if name in bf16 else {}),
         **({"head_dims": sorted(MAIN_HEAD_DIMS.get(name, ())),
             **{f"d{d}": {key: small[d][name][key] for key in (
                 "ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",

@@ -22,12 +22,14 @@ same inputs. ``--dims`` adds ``phase_flash_ragged``,
 ``phase_flash_small_dims`` and ``phase_flash_wide_dims`` (K6-K8 and K10 at
 the ragged shapes and at head dims 8, 16, 24, 112 and 168, checked and
 timed), which assert this checkout's routes. Prints JSON lines, with the
-flash source's ptxas lines. Needs a card.
+flash source's ptxas lines (registers and spills) by kernel instance.
+Needs a card.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import re
 import sys
 from pathlib import Path
 
@@ -43,6 +45,49 @@ def _chip_smoke():
     return module
 
 
+def _template_args(tail: str) -> str:
+    """The template arguments at the head of ``tail``, the rest of a
+    mangled kernel name after its identifier (``ILi168ELb0ELb1EEEv..``:
+    ``<168, 0, 1>``): literals, named types, one-letter builtins."""
+    if not tail.startswith("I"):
+        return ""
+    args, i = [], 1
+    while i < len(tail) and tail[i] != "E":
+        if tail[i] == "L":                  # a literal: L <type> <value> E
+            j = tail.index("E", i)
+            args.append(tail[i + 2:j])
+            i = j + 1
+        elif tail[i].isdigit():             # a named type: <length> <name>
+            n = re.match(r"\d+", tail[i:]).group()
+            start = i + len(n)
+            args.append(tail[start:start + int(n)])
+            i = start + int(n)
+        else:
+            args.append({"f": "float", "a": "int8_t"}.get(tail[i], tail[i]))
+            i += 1
+    return "<" + ", ".join(args) + ">"
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """ptxas's register and spill lines of an nvcc log (``-Xptxas -v``) by
+    kernel instance: ``flash_fwd_bf16_kernel<168, 0, 1>`` and the like,
+    from each line "Compiling entry function" that precedes them."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = key = m.group(1)
+            for n in re.finditer(r"\d+", name):
+                word = name[n.end():n.end() + int(n.group())]
+                if word.endswith("_kernel"):
+                    key = word + _template_args(
+                        name[n.end() + int(n.group()):])
+                    break
+        elif key and ("registers" in line or "spill" in line):
+            out.setdefault(key, []).append(line.strip())
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_bench: needs a CUDA device")
@@ -51,10 +96,8 @@ def main() -> None:
     cs.phase_device()
     build.build(["flash_attention"])
     cs.emit({"phase": "checkout", "src": str(Path(build.__file__).parents[2]),
-             "flash_attention_ptxas": [
-                 line.strip() for line in
-                 build.build_log("flash_attention").splitlines()
-                 if "registers" in line or "spill" in line]})
+             "flash_attention_ptxas": ptxas_by_kernel(
+                 build.build_log("flash_attention"))})
     cs.phase_flash_kernels()
     cs.phase_flash_infer()
     if "--dims" in sys.argv[1:]:

@@ -36,10 +36,10 @@
 // rate, 495 / 3 = 165 TFLOP/s on the tensor cores (below); for bf16, each
 // product at its operands' rate (below).
 //
-// The 3xTF32 tensor-core kernels: K6 and K10 in every mode
-// (flash_fwd_tc_kernel: q fp32 or bf16, K/V in q's dtype or int8 codes), K7
-// and K8 in fp32 (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel; the
-// wrapper's route "tensor_cores"). Every product runs on the tensor cores in tf32 with
+// The 3xTF32 tensor-core kernels: K6 and K10 with fp32 q
+// (flash_fwd_tc_kernel: K/V fp32 or int8 codes), K7 and K8 in fp32
+// (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel; the wrapper's route
+// "tensor_cores"). Every product runs on the tensor cores in tf32 with
 // fp32-accurate results (3xTF32): each fp32 operand x splits into hi =
 // tf32(x) (round to nearest, ties away: cvt.rna's rounding) and lo = tf32(x
 // - hi), and A B = A_lo B_hi + A_hi B_lo + A_hi B_hi, small terms first,
@@ -51,10 +51,8 @@
 // all the query blocks of the KV head: split in the block, every query
 // block that sees a tile split it again (up to 144 at starcoder2-7b's
 // shapes, 9 query heads x 16 blocks), and the split and its stores were
-// half of a block's instructions. bf16 and int8 K/V are widened to fp32
-// there (int8 codes times their row's scale, the Pallas body's k * ks,
-// v * vs). A bf16 K or V is tf32-exact (lo = 0): the forward leaves out
-// its lo planes and the terms with them.
+// half of a block's instructions. int8 K/V are widened to fp32 there (codes
+// times their row's scale, the Pallas body's k * ks, v * vs).
 //   * Every product on wgmma. S = Q K^T and dP = dO V^T (K8: S^T = K Q^T,
 //     dP^T = V dO^T) have K-major operands as the tensors are stored:
 //     m64n32k8 from hi/lo planes in shared memory (K6's, K10's and K7's S
@@ -143,13 +141,28 @@
 // steps is read (221,696 and 229,632 bytes); the products over the rows
 // take one 64-row m-tile of D's fragments at a time.
 //
+// K6 and K10 with bf16 q (flash_fwd_bf16_kernel) run on bf16 wgmma with
+// the Pallas body's numerics, as bf16 K7 does: S = Q K^T is one bf16 wgmma
+// k16 a step with exact products and an fp32 sum, scaled in fp32 after it;
+// P V takes the fp32 P in three exact bf16 planes against the bf16 V tile,
+// read N-major. K and V come straight from the tensors as 64-key bf16
+// tiles by cp.async: no pre-pass, no workspace, one launch a call. Tiles of
+// 2 bytes an element (the fp32 planes take 8) hold 64 keys at every head
+// dim. One warpgroup a 64-row block and two blocks an SM, whose phases run
+// apart, so one block's softmax overlaps the other's wgmma (two
+// warpgroups sharing a block's tiles ran their phases in step, and were
+// slower in a trial on an H100), and the softmax makes no mask on the
+// tiles that cross no edge. The bound: 8 D FLOPs a pair, S's 2 D at the
+// bf16 rate and P V's 2 D at a third of it (three planes).
+//
 // K10 (the inference flash_attention, with its int8-KV mode) is K6's
-// forward without the lse: the pre-pass takes the K/V storage type as a
-// template parameter, the forward whether K and V have lo planes and the
-// lse switch. In the int8-KV mode K and V are int8 codes with one fp32
-// scale per (batch, key, KV head), (B, Sk, Hkv); the bound and the math
-// are K6's, and the pre-pass reads 4x (2x) fewer K/V bytes than in fp32
-// (bf16). With Sq > Sk under a window, a query
+// forward without the lse. In the int8-KV mode K and V are int8 codes with
+// one fp32 scale per (batch, key, KV head), (B, Sk, Hkv): with fp32 q the
+// pre-pass takes the K/V storage type as a template parameter and reads
+// 4x fewer K/V bytes than in fp32; with bf16 q the codes are widened
+// exactly to bf16 in shared memory (int8 is exact in bf16), each key's K
+// scale multiplies its column of S and its V scale P before the planes.
+// The math is K6's. With Sq > Sk under a window, a query
 // row whose window lies past the last key sees no key and is zeros: the
 // Pallas kernel averages V over the masked keys of the tiles it visited
 // there, and the JAX wrapper sends such ragged shapes to attention_ref,
@@ -242,17 +255,13 @@ __device__ __forceinline__ void split4(const float4& x, uint4& h, uint4& l) {
   hopper::tf32_split(x.w, h.w, l.w);
 }
 
-// Four consecutive elements of a global row as stored (fp32, bf16, or int8
+// Four consecutive elements of a global row as stored (fp32, or int8
 // codes), read in one access and widened to fp32 exactly.
 template <typename T>
 struct Raw4;
 template <>
 struct Raw4<float> {
   using type = float4;
-};
-template <>
-struct Raw4<__nv_bfloat16> {
-  using type = uint2;
 };
 template <>
 struct Raw4<int8_t> {
@@ -265,12 +274,6 @@ __device__ __forceinline__ typename Raw4<T>::type ld_raw4(const T* p) {
 }
 
 __device__ __forceinline__ float4 to_f32x4(const float4& x) { return x; }
-
-__device__ __forceinline__ float4 to_f32x4(const uint2& u) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 __device__ __forceinline__ float4 to_f32x4(uint32_t w) {
   return make_float4((float)(int8_t)w, (float)(int8_t)(w >> 8), (float)(int8_t)(w >> 16),
@@ -402,9 +405,7 @@ struct RowFrags {
 
 // dots_wgmma with A's hi half from registers (RowFrags): A_lo B_hi reads
 // A's lo plane from shared memory, A_hi B_lo and A_hi B_hi only B's planes.
-// Without kBLo, B's lo half is zero (B was bf16: tf32-exact) and A_hi B_lo
-// is not issued.
-template <int D, bool kBLo = true>
+template <int D>
 __device__ __forceinline__ void dots_wgmma_rs(const RowFrags<D>& a, const float* a_lo,
                                               const float* b_hi, const float* b_lo,
                                               float (&s)[1][4][4]) {
@@ -419,7 +420,7 @@ __device__ __forceinline__ void dots_wgmma_rs(const RowFrags<D>& a, const float*
     const uint64_t bh = hopper::sw128_desc(b_hi + b_off, 16, 1024);
     const uint64_t bl = hopper::sw128_desc(b_lo + b_off, 16, 1024);
     hopper::wgmma_tf32_ss_n32(d, al, bh, kk > 0);
-    if constexpr (kBLo) hopper::wgmma_tf32_rs_n32(d, a.h[kk], bl, 1);
+    hopper::wgmma_tf32_rs_n32(d, a.h[kk], bl, 1);
     hopper::wgmma_tf32_rs_n32(d, a.h[kk], bh, 1);
   }
   hopper::wgmma_commit();
@@ -1202,7 +1203,7 @@ flash_bwd_dkv_tc_wide_kernel(const float* __restrict__ q, const float* __restric
 }
 
 // ---------------------------------------------------------------------------
-// K6 and K10 on the tensor cores: every mode through the 3xTF32 split
+// K6 and K10 on the tensor cores with fp32 q: the 3xTF32 split
 // ---------------------------------------------------------------------------
 
 constexpr int kFwdRows = 128;            // query rows a block: 64 a warpgroup, 16 a warp
@@ -1240,20 +1241,18 @@ __device__ __forceinline__ int vt_slot(int kk) {
 // tiles, so a block copies a tile's planes as they lie.
 constexpr int kFwdPlanes = 4;
 
-// Keys [0, 32) of a tile of K and V as stored (fp32, bf16, or int8 codes
-// times their row's fp32 scale: k_scale / v_scale, stride sstride), rows
-// at and past n_valid zeros, widened to fp32, split and stored into the
-// tile's planes (see kFwdPlanes) at `planes`. Thread x moves key x % 32's
-// 4-column chunks x / 32 + 8u of K and of V, so a warp's scalar V^T stores
-// (one column, 32 keys) fill one 128-byte row. Without a lo half (bf16 is
-// tf32-exact) the lo planes are not written.
+// Keys [0, 32) of a tile of K and V as stored (fp32, or int8 codes times
+// their row's fp32 scale: k_scale / v_scale, stride sstride), rows at and
+// past n_valid zeros, widened to fp32, split and stored into the tile's
+// planes (see kFwdPlanes) at `planes`. Thread x moves key x % 32's 4-column
+// chunks x / 32 + 8u of K and of V, so a warp's scalar V^T stores (one
+// column, 32 keys) fill one 128-byte row.
 template <typename T, int D>
 __device__ __forceinline__ void split_tile(const T* k_g, const T* v_g, long long gstride,
                                            int n_valid, int dg, const float* k_scale,
                                            const float* v_scale, long long sstride,
                                            float* planes) {
   constexpr bool kScaled = std::is_same<T, int8_t>::value;
-  constexpr bool kLo = !std::is_same<T, __nv_bfloat16>::value;
   constexpr int kPlane = kFwdKeys * D;
   const int key = threadIdx.x & 31, w = threadIdx.x >> 5, slot = vt_slot(key);
   const bool ok = key < n_valid;
@@ -1274,20 +1273,20 @@ __device__ __forceinline__ void split_tile(const T* k_g, const T* v_g, long long
     split4(x, h, l);
     const int o = pl<D, 32>(key, c);
     *reinterpret_cast<uint4*>(planes + o) = h;
-    if constexpr (kLo) *reinterpret_cast<uint4*>(planes + kPlane + o) = l;
+    *reinterpret_cast<uint4*>(planes + kPlane + o) = l;
     split4(y, h, l);
     const uint32_t hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int ot = 2 * kPlane + pl<32, D>(c + e, slot);
       planes[ot] = __uint_as_float(hs[e]);
-      if constexpr (kLo) planes[kPlane + ot] = __uint_as_float(ls[e]);
+      planes[kPlane + ot] = __uint_as_float(ls[e]);
     }
   }
 }
 
-// The pre-pass of K6 and K10: one block of 256 threads a (batch, KV head,
-// 32-key tile), tile fastest, into the workspace `ws`.
+// The pre-pass of K6 and K10 with fp32 q: one block of 256 threads a
+// (batch, KV head, 32-key tile), tile fastest, into the workspace `ws`.
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_split_kernel(const T* __restrict__ k, const T* __restrict__ v,
@@ -1333,10 +1332,9 @@ struct PFrags {
 
 // part = P V for N (64 or 32) columns of D over one key tile, on wgmma
 // m64nNk8 in 3xTF32 from zero, V^T's N rows of those columns from its
-// hi/lo planes; waited for. Without kVLo, V's lo half is zero (V was bf16)
-// and P_hi V_lo is not issued. part[4j + e] is (row g + 8 (e / 2), column
-// 8j + 2t + e % 2) of the N.
-template <bool kVLo, int N>
+// hi/lo planes; waited for. part[4j + e] is (row g + 8 (e / 2), column 8j +
+// 2t + e % 2) of the N.
+template <int N>
 __device__ __forceinline__ void pv_wgmma(const PFrags& p, const float* vt_hi,
                                          const float* vt_lo, float (&part)[N / 2]) {
   hopper::wgmma_fence();
@@ -1346,11 +1344,11 @@ __device__ __forceinline__ void pv_wgmma(const PFrags& p, const float* vt_hi,
     const uint64_t dl = hopper::sw128_desc(vt_lo + 8 * j, 16, 1024);
     if constexpr (N == 64) {
       hopper::wgmma_tf32_rs_n64(part, p.l[j], dh, j > 0);
-      if constexpr (kVLo) hopper::wgmma_tf32_rs_n64(part, p.h[j], dl, 1);
+      hopper::wgmma_tf32_rs_n64(part, p.h[j], dl, 1);
       hopper::wgmma_tf32_rs_n64(part, p.h[j], dh, 1);
     } else {
       hopper::wgmma_tf32_rs_n32(part, p.l[j], dh, j > 0);
-      if constexpr (kVLo) hopper::wgmma_tf32_rs_n32(part, p.h[j], dl, 1);
+      hopper::wgmma_tf32_rs_n32(part, p.h[j], dl, 1);
       hopper::wgmma_tf32_rs_n32(part, p.h[j], dh, 1);
     }
   }
@@ -1367,9 +1365,9 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// K6 (kSaveLse) and K10: grid (Sq tiles of 128, H, B), heaviest tiles first
-// (block x walks query tile nq - 1 - x), after flash_fwd_split_kernel has
-// split K and V into the workspace `ws`. Each warpgroup owns 64 of the
+// K6 (kSaveLse) and K10 with fp32 q: grid (Sq tiles of 128, H, B),
+// heaviest tiles first (block x walks query tile nq - 1 - x), after
+// flash_fwd_split_kernel has split K and V into the workspace `ws`. Each warpgroup owns 64 of the
 // block's rows from end to end; the two share the 32-key tiles that the
 // block's rows can see, whose planes land by cp.async in one of two
 // buffers during the tile before. Tile i: S = (scale Q) K^T on wgmma (Q's
@@ -1380,9 +1378,7 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
 // alpha + P V in fp32. One barrier a tile: tile i + 1 has landed and tile
 // i's planes are read. A warpgroup skips the math of a tile none of its
 // rows can see (a no-op in exact arithmetic: alpha = 1, p = 0). At the end
-// out = O / max(l, 1e-30) in q's dtype, and K6's lse = m + log max(l,
-// 1e-30). Without kKvLo (bf16 K and V) the lo planes are neither copied
-// nor read.
+// out = O / max(l, 1e-30), and K6's lse = m + log max(l, 1e-30).
 //
 // D is the head dim the kernel serves (64, 128 or 168); the planes hold DP
 // = padded_dim(D) columns, zero past D. S runs D / 8 k steps, so 168 = 21
@@ -1393,10 +1389,10 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
 // the 255 registers a thread of a 256-thread block can take. With
 // fwd_stages(D) == 1 the tile planes have one buffer, refilled after the
 // tile's math.
-template <typename QT, int D, bool kKvLo, bool kSaveLse>
+template <int D, bool kSaveLse>
 __global__ void __launch_bounds__(kTcThreads, 1)
-flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
-                    QT* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ ws,
+                    float* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
                     int Hkv, int dg, int causal, int window, float scale) {
   constexpr int DP = padded_dim(D);
   constexpr int kStages = fwd_stages(D);
@@ -1436,7 +1432,6 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
     const uint32_t dst = hopper::smem_addr(kv_all + (i % kStages) * kTile);
 #pragma unroll
     for (int p = 0; p < kFwdPlanes; ++p) {
-      if (!kKvLo && (p & 1)) continue;
 #pragma unroll
       for (int j = 0; j < kPlane / 4 / kTcThreads; ++j) {
         const int x = p * kPlane + 4 * (tid + j * kTcThreads);
@@ -1479,7 +1474,7 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
                       (window <= 0 || k0 + kFwdKeys - 1 > r0 - window);
     float s[1][4][4];
     if (seen) {
-      dots_wgmma_rs<D, kKvLo>(qa, q_lo, kb, kb + kPlane, s);   // S
+      dots_wgmma_rs<D>(qa, q_lo, kb, kb + kPlane, s);   // S
       // every pair of the tile is valid for these rows unless it crosses an edge
       const bool edge = r0 + 64 > Sq || k0 + kFwdKeys > Sk ||
                         (causal && k0 + kFwdKeys - 1 > r0) ||
@@ -1531,8 +1526,7 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
 #pragma unroll
       for (int c = 0; c < (D + kPvN - 1) / kPvN; ++c) {
         float part[kPvN / 2];
-        pv_wgmma<kKvLo, kPvN>(pf, vt + kPvN * c * kFwdKeys,
-                              vt + kPlane + kPvN * c * kFwdKeys, part);
+        pv_wgmma<kPvN>(pf, vt + kPvN * c * kFwdKeys, vt + kPlane + kPvN * c * kFwdKeys, part);
         // column group jg = c kPvN / 8 + j of the head: acc[4 jg + e]
 #pragma unroll
         for (int j = 0; j < kPvN / 8; ++j) {
@@ -1564,7 +1558,7 @@ flash_fwd_tc_kernel(const QT* __restrict__ q, const float* __restrict__ ws,
     if constexpr (kSaveLse) {
       if (t == 0) lse[((long long)b * H + h) * Sq + qi] = m[r] + logf(den);
     }
-    QT* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 2 * t;
+    float* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 2 * t;
 #pragma unroll
     for (int jg = 0; jg < kGroups; ++jg)
       if (8 * jg + 2 * t < dg)
@@ -1656,12 +1650,21 @@ __device__ __forceinline__ void bf_dots(float (&s)[32], const unsigned char* a,
 struct Planes3 {
   uint32_t f[4][3][4];
 
+  // kFinite: every x is finite (the forward's p), so the split needs no
+  // non-finite case (hopper::bf16x3_split_finite; that case's test slowed
+  // the forward's tile loop in a trial on an H100)
+  template <bool kFinite = false>
   __device__ __forceinline__ void split(const float (&x)[32]) {
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       uint32_t h0, m0, l0, h1, m1, l1;
-      hopper::bf16x3_split(x[i], h0, m0, l0);
-      hopper::bf16x3_split(x[i + 1], h1, m1, l1);
+      if constexpr (kFinite) {
+        hopper::bf16x3_split_finite(x[i], h0, m0, l0);
+        hopper::bf16x3_split_finite(x[i + 1], h1, m1, l1);
+      } else {
+        hopper::bf16x3_split(x[i], h0, m0, l0);
+        hopper::bf16x3_split(x[i + 1], h1, m1, l1);
+      }
       const int kk = i >> 3, reg = ((i >> 2) & 1) * 2 + ((i & 3) >> 1);
       f[kk][0][reg] = hopper::bf16_pack(h0, h1);
       f[kk][1][reg] = hopper::bf16_pack(m0, m1);
@@ -1964,6 +1967,302 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   bf_store_rows<DH>((role ? dk : dv) + k_off, k_row, key, n_k, dg, t, acc, role ? scale : 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// K6 and K10 with bf16 q on the tensor cores: bf16 wgmma, P in three exact
+// bf16 planes, one launch a call
+// ---------------------------------------------------------------------------
+
+// K and V as stored: bf16, or int8 codes (K10's int8-KV mode)
+template <bool kInt8Kv>
+using FwdKv = std::conditional_t<kInt8Kv, int8_t, __nv_bfloat16>;
+
+// Bytes of shared memory of the bf16 forward's block: Q's 64-row tile and
+// `stages` stages of a 64-key K and V tile, all bf16 tiles of
+// bf_tile_bytes(DH); in the int8-KV mode besides, one buffer of the raw
+// codes of K and V (64 rows of padded_dim(DH) bytes each: one tile's bytes
+// for the two) and each stage's 64 K and 64 V scales.
+__host__ __device__ constexpr int fwd_bf16_smem(int DH, bool int8, int stages) {
+  return 1024 + (1 + 2 * stages + (int8 ? 1 : 0)) * bf_tile_bytes(DH) +
+         (int8 ? stages * 2 * kBfTile * 4 : 0);
+}
+
+// Its stages: two (tile i + 1 lands during tile i) where two blocks of 128
+// threads still fit an SM, else one (DH = 168: 123,904 bytes a block with
+// two, 74,752 with one; 99,840 with int8 codes), refilled once the block is
+// done with it; the other block on the SM covers the copy.
+__host__ __device__ constexpr int fwd_bf16_stages(int DH, bool int8) {
+  return 2 * fwd_bf16_smem(DH, int8, 2) <= kMaxSmem ? 2 : 1;
+}
+static_assert(2 * fwd_bf16_smem(168, true, fwd_bf16_stages(168, true)) <= kMaxSmem,
+              "two blocks of the bf16 forward fit an SM at 168");
+
+// O = O alpha + P V over one 64-key tile: P the warpgroup's 64 x 64 fp32
+// tile in three planes, V the stage's tile read N-major (its rows are the
+// depth), in 64-column blocks of the head. Each block's 12 wgmma m64n64k16
+// (four k steps x lo, mid, hi: small terms first) sum in a fresh
+// accumulator, which one fp32 fma a value (to nearest) takes into O, alpha
+// = a0 for the thread's row g and a1 for g + 8: the tensor cores' own
+// accumulation rounds toward zero. acc[32c + 4j + e] is (row 16w + g + 8
+// (e / 2), column 64c + 8j + 2t + e % 2), for the DH columns of the head
+// only (168: not the last block's 24 zero columns). (At D 128 on an H100
+// neither issuing both blocks before the first wait, in accumulators of
+// their own, nor one block of 128 columns, m64n128k16, was faster.)
+template <int DH>
+__device__ __forceinline__ void pv_bf16(float (&acc)[DH / 2], const Planes3& x,
+                                        const unsigned char* v, float a0, float a1) {
+  float part[32];
+#pragma unroll
+  for (int c = 0; c < padded_dim(DH) / 64; ++c) {
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc = hopper::sw128_desc(v + c * kBfHalf + kk * 16 * 128, kBfHalf, 1024);
+#pragma unroll
+      for (int p = 2; p >= 0; --p)
+        hopper::wgmma_rs_n64<1>(part, x.f[kk][p], desc, kk > 0 || p < 2);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (32 * c + i < DH / 2)
+        acc[32 * c + i] = fmaf(acc[32 * c + i], i & 2 ? a1 : a0, part[i]);
+  }
+}
+
+// K6 (kSaveLse) and K10 with bf16 q: grid (Sq tiles of 64, H, B), heaviest
+// tiles first (block x walks query tile nq - 1 - x), one warpgroup a block
+// over its 64 query rows, two blocks an SM, which run their tiles' phases
+// independently: one block's softmax overlaps the other's wgmma. The 64-key
+// tiles of K and V that the block's rows can see come straight from the
+// tensors by cp.async (tile i + 1 during tile i where fwd_bf16_stages is 2):
+// no pre-pass, no workspace. Tile i: S = Q K^T on bf16 wgmma m64n64k16 in
+// ceil(DH / 16) k steps from the stored tiles (bf16 products are exact, the
+// sum fp32), then scaled in fp32 (Pallas scales q before the product: the
+// two differ at fp32 rounding); the online softmax in fp32 (m from -1e30,
+// p masked explicitly on the tiles that cross an edge, l summed from the
+// fp32 p, alpha = exp(m - m_new)); P V with P split into three exact bf16
+// planes (hi + mid + lo == p) against the V tile read N-major (pv_bf16).
+// One block barrier a tile (two with one stage): tile i has landed and
+// every thread is done with tile i - 1. At the end out = O / max(l, 1e-30)
+// in bf16, and K6's lse = m + log max(l, 1e-30): a row with no valid key is
+// zeros with lse -1e30 + log(1e-30).
+//
+// int8 K/V (kInt8Kv, K10): the codes land as they lie (16 bytes a copy on
+// the 128-column instance, whose rows of 112 and 128 codes are 16-byte
+// aligned, 8 on the others: rows of 8, 24 and 168 codes are 8-byte
+// aligned) in one buffer, with the stage's K and V scales, and each thread
+// widens the chunks it copied, exactly (hopper::widen4), into the stage's
+// bf16 tiles before the tile's barrier, after which it copies the next
+// tile's codes over them. (16-byte copies at D 128 were faster than 8-byte
+// ones in a trial on an H100; widening tile i + 1 while tile i's P V ran on
+// the tensor cores gained little there and is not kept.) Each key's
+// scale multiplies its fp32 column of S together with the softmax scale
+// (Pallas: scale q · (codes ks)), and p times the key's V scale is split
+// into the planes (l sums the unscaled p).
+//
+// DH is the kernel's head dim (64, 128, 168), dg the tensors' (the tiles
+// zero past it): 8, 16, 24 and 64 run the 64-column instance, 112 and 128
+// the 128-column one, 168 its own on 192 columns (S in 11 k steps over
+// 176). A thread holds O (DH / 2 floats: 84 at 168), S's 32, P's three
+// planes (48 registers) and P V's block in flight (32).
+template <int DH, bool kInt8Kv, bool kSaveLse>
+__global__ void __launch_bounds__(128)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const FwdKv<kInt8Kv>* __restrict__ k,
+                      const FwdKv<kInt8Kv>* __restrict__ v, const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale, __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int dg, int causal,
+                      int window, float scale) {
+  constexpr int DP = padded_dim(DH);
+  constexpr int kTileB = bf_tile_bytes(DH);
+  constexpr int kStages = fwd_bf16_stages(DH, kInt8Kv);
+  // int8: bytes of codes a copy and copies a tile row
+  constexpr int kRaw = DH == 128 ? 16 : 8, CR = DP / kRaw;
+  extern __shared__ float4 smem4[];
+  unsigned char* q_s = reinterpret_cast<unsigned char*>(tc_smem(smem4));
+  unsigned char* kv_s = q_s + kTileB;               // stage u: K at 2u kTileB, V after it
+  unsigned char* raw_s = kv_s + 2 * kStages * kTileB;   // int8: K's codes, then V's
+  float* sc_s = reinterpret_cast<float*>(raw_s + kTileB);   // int8: stage u's 64 ks, 64 vs
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBfTile;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const long long q_row = (long long)H * dg, k_row = (long long)Hkv * dg;
+  const int n_q = min(kBfTile, Sq - q0);
+
+  // key tiles [t_lo, t_lo + n_tiles) of 64: the keys the block's rows can
+  // see (each tile some row's)
+  const int key_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int key_hi = causal ? min(Sk, q0 + n_q) : Sk;
+  const int t_lo = key_lo / kBfTile;
+  const int n_tiles = max(0, (key_hi + kBfTile - 1) / kBfTile - t_lo);
+  const int row = 16 * warp + g;                    // this thread's rows: row, row + 8
+
+  const FwdKv<kInt8Kv>* k_g = k + (long long)b * Sk * k_row + (long long)hk * dg;
+  const FwdKv<kInt8Kv>* v_g = v + (long long)b * Sk * k_row + (long long)hk * dg;
+  // tile i's K and V (int8: codes and scales) into stage i % kStages;
+  // committed by the caller
+  auto fetch = [&](int i) {
+    const int k0 = (t_lo + i) * kBfTile, st = i % kStages;
+    if constexpr (kInt8Kv) {
+#pragma unroll
+      for (int u = 0; u < kBfTile * CR / 128; ++u) {
+        const int idx = tid + u * 128, r = idx / CR, c = idx % CR;
+        const bool ok = r < Sk - k0 && kRaw * c < dg;
+        const long long off = ok ? (long long)(k0 + r) * k_row + kRaw * c : 0;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const uint32_t dst = hopper::smem_addr(raw_s + (kv * kBfTile + r) * DP + kRaw * c);
+          if constexpr (kRaw == 16) {
+            hopper::cp_async16_zfill(dst, (kv ? v_g : k_g) + off, ok);
+          } else {
+            hopper::cp_async8_zfill(dst, (kv ? v_g : k_g) + off, ok);
+          }
+        }
+      }
+      // K scales, then V scales
+      const int r = tid % kBfTile;
+      const bool ok = k0 + r < Sk;
+      const float* src = (tid < kBfTile ? k_scale : v_scale) + (long long)b * Sk * Hkv + hk;
+      hopper::cp_async4_zfill(hopper::smem_addr(sc_s + st * 2 * kBfTile + tid),
+                              src + (ok ? (long long)(k0 + r) * Hkv : 0), ok);
+    } else {
+      unsigned char* kt = kv_s + st * 2 * kTileB;
+      bf_fetch_tile<DH, 128>(kt, k_g + k0 * k_row, k_row, Sk - k0, dg, tid);
+      bf_fetch_tile<DH, 128>(kt + kTileB, v_g + k0 * k_row, k_row, Sk - k0, dg, tid);
+    }
+  };
+  // int8: this thread's own code chunks of tile i (as fetch copied them,
+  // landed) to bf16, exactly, into stage i % kStages's swizzled tiles
+  auto widen = [&](int i) {
+    unsigned char* kt = kv_s + (i % kStages) * 2 * kTileB;
+#pragma unroll
+    for (int u = 0; u < kBfTile * CR / 128; ++u) {
+      const int idx = tid + u * 128, r = idx / CR, c = idx % CR;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const unsigned char* src = raw_s + (kv * kBfTile + r) * DP + kRaw * c;
+        // 8 codes at a time into the 16-byte chunk of their 8 columns
+#pragma unroll
+        for (int h = 0; h < kRaw / 8; ++h) {
+          const uint2 w = *reinterpret_cast<const uint2*>(src + 8 * h);
+          const uint2 lo = hopper::widen4(w.x), hi = hopper::widen4(w.y);
+          *reinterpret_cast<uint4*>(kt + kv * kTileB + bf_chunk(r, kRaw / 8 * c + h)) =
+              make_uint4(lo.x, lo.y, hi.x, hi.y);
+        }
+      }
+    }
+  };
+  bf_fetch_tile<DH, 128>(q_s, q + ((long long)b * Sq + q0) * q_row + (long long)h * dg, q_row,
+                         n_q, dg, tid);
+  if (n_tiles > 0) fetch(0);
+  hopper::cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DH / 2];                                // O: the warp's 16 rows, the head's columns
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) acc[x] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    unsigned char* k_t = kv_s + st * 2 * kTileB;
+    hopper::cp_async_wait<0>();                     // tile i (and Q) landed
+    if (kInt8Kv) widen(i);
+    hopper::fence_proxy_async();                    // the tiles, before wgmma reads them
+    __syncthreads();                                // tile i is in, tile i - 1 is read
+    if (kStages == 2 && i + 1 < n_tiles) {
+      fetch(i + 1);
+      hopper::cp_async_commit();
+    }
+    const int k0 = (t_lo + i) * kBfTile;
+    float s[32];
+    hopper::wgmma_fence();
+    bf_dots<DH>(s, q_s, k_t);                       // S = Q K^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    const float* ks = sc_s + st * 2 * kBfTile;      // int8: the keys' K scales, then V's
+    // every pair of the tile is valid for these rows unless it crosses an edge
+    const bool edge = q0 + kBfTile > Sq || k0 + kBfTile > Sk ||
+                      (causal && k0 + kBfTile - 1 > q0) ||
+                      (window > 0 && q0 + kBfTile - 1 - k0 >= window);
+    float alpha[2];
+    // the online softmax over the tile, s[x] (row row + 8 ((x & 3) / 2),
+    // key 8 (x / 4) + 2t + x % 2) to p; on a tile that crosses an edge
+    // (kEdge) p is masked explicitly (a row with no valid key yet has m =
+    // -1e30), elsewhere every pair is valid and no mask is made
+    auto softmax = [&](auto edge_tag) {
+      constexpr bool kEdge = decltype(edge_tag)::value;
+      uint32_t ok = 0xffffffffu;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int key = 8 * (x >> 2) + 2 * t + (x & 1), rr = (x & 3) >> 1;
+        s[x] *= kInt8Kv ? scale * ks[key] : scale;
+        if constexpr (kEdge) {
+          if (!valid_pair(q0 + row + 8 * rr, k0 + key, Sq, Sk, causal, window))
+            ok &= ~(1u << x);
+          if ((ok >> x) & 1u) mx[rr] = fmaxf(mx[rr], s[x]);
+        } else {
+          mx[rr] = fmaxf(mx[rr], s[x]);
+        }
+      }
+      float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+      }
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int rr = (x & 3) >> 1;
+        const float p = !kEdge || ((ok >> x) & 1u) ? expf(s[x] - m_new[rr]) : 0.f;
+        sum[rr] += p;
+        s[x] = kInt8Kv ? p * ks[kBfTile + 8 * (x >> 2) + 2 * t + (x & 1)] : p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        alpha[r] = expf(m[r] - m_new[r]);
+        l[r] = l[r] * alpha[r] + sum[r];
+        m[r] = m_new[r];
+      }
+    };
+    if (edge) {
+      softmax(std::true_type{});
+    } else {
+      softmax(std::false_type{});
+    }
+    Planes3 pp;
+    pp.split<true>(s);
+    pv_bf16<DH>(acc, pp, k_t + kTileB, alpha[0], alpha[1]);   // O = O alpha + P V
+    pp.hold();
+    if (kStages == 1 && i + 1 < n_tiles) {
+      __syncthreads();                              // the stage is read
+      fetch(i + 1);
+      hopper::cp_async_commit();
+    }
+  }
+
+  // acc[4jg + e]: row + 8 (e / 2), column 8jg + 2t + e % 2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row + 8 * r;
+    if (qi >= Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    if constexpr (kSaveLse) {
+      if (t == 0) lse[((long long)b * H + h) * Sq + qi] = m[r] + logf(den);
+    }
+    __nv_bfloat16* o = out + ((long long)b * Sq + qi) * q_row + (long long)h * dg + 2 * t;
+#pragma unroll
+    for (int jg = 0; jg < DH / 8; ++jg)
+      if (8 * jg + 2 * t < dg)
+        st2(o + 8 * jg, acc[4 * jg + 2 * r] / den, acc[4 * jg + 2 * r + 1] / den);
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -1971,10 +2270,10 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-// K6 (KVT = QT, kSaveLse) and K10 (KVT = QT or int8_t, no lse): the split
-// pre-pass into ws, then the forward. D is the kernels' head dim (64, 128
-// or 168), dg the tensors' (dg <= D; see the entry points)
-template <typename QT, typename KVT, int D, bool kSaveLse>
+// K6 (KVT = float, kSaveLse) and K10 (KVT = float or int8_t, no lse) with
+// fp32 q: the split pre-pass into ws, then the forward. D is the kernels'
+// head dim (64, 128 or 168), dg the tensors' (dg <= D; see the entry points)
+template <typename KVT, int D, bool kSaveLse>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* k_scale,
                        const void* v_scale, void* out, void* lse, void* ws, int B, int Sq,
                        int Sk, int H, int Hkv, int dg, int causal, int window, float scale,
@@ -1988,27 +2287,56 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = 1024 + sizeof(float) * fwd_smem_floats(D, fwd_stages(D));
-  auto kernel =
-      flash_fwd_tc_kernel<QT, D, !std::is_same<KVT, __nv_bfloat16>::value, kSaveLse>;
+  auto kernel = flash_fwd_tc_kernel<D, kSaveLse>;
   err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kFwdRows - 1) / kFwdRows, H, B);
   kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const float*>(ws), static_cast<QT*>(out),
+      static_cast<const float*>(q), static_cast<const float*>(ws), static_cast<float*>(out),
       static_cast<float*>(lse), Sq, Sk, H, Hkv, dg, causal, window, scale);
   return cudaGetLastError();
 }
 
+// K6 (kSaveLse) and K10 with bf16 q: one launch, no workspace. DH is the
+// kernel's head dim (64, 128 or 168), dg the tensors'.
+template <int DH, bool kInt8Kv, bool kSaveLse>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, const void* k_scale,
+                            const void* v_scale, void* out, void* lse, int B, int Sq, int Sk,
+                            int H, int Hkv, int dg, int causal, int window, float scale,
+                            cudaStream_t stream) {
+  const size_t smem = fwd_bf16_smem(DH, kInt8Kv, fwd_bf16_stages(DH, kInt8Kv));
+  auto kernel = flash_fwd_bf16_kernel<DH, kInt8Kv, kSaveLse>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kBfTile - 1) / kBfTile, H, B);
+  kernel<<<grid, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const FwdKv<kInt8Kv>*>(k),
+      static_cast<const FwdKv<kInt8Kv>*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, Hkv, dg, causal, window, scale);
+  return cudaGetLastError();
+}
+
+// K10 in each (q, K/V) mode: fp32 q over fp32 K/V or int8 codes (3xTF32,
+// through ws), bf16 q over bf16 K/V or int8 codes (the bf16 kernel)
 template <typename QT, int D>
 cudaError_t launch_infer(const void* q, const void* k, const void* v, const void* k_scale,
                          const void* v_scale, void* out, void* ws, int B, int Sq, int Sk,
                          int H, int Hkv, int dg, int causal, int window, float scale,
                          int kv_int8, cudaStream_t stream) {
-  if (kv_int8)
-    return launch_fwd<QT, int8_t, D, false>(q, k, v, k_scale, v_scale, out, nullptr, ws, B,
-                                            Sq, Sk, H, Hkv, dg, causal, window, scale, stream);
-  return launch_fwd<QT, QT, D, false>(q, k, v, nullptr, nullptr, out, nullptr, ws, B, Sq, Sk,
-                                      H, Hkv, dg, causal, window, scale, stream);
+  if constexpr (std::is_same<QT, __nv_bfloat16>::value) {
+    if (kv_int8)
+      return launch_fwd_bf16<D, true, false>(q, k, v, k_scale, v_scale, out, nullptr, B, Sq, Sk,
+                                             H, Hkv, dg, causal, window, scale, stream);
+    return launch_fwd_bf16<D, false, false>(q, k, v, nullptr, nullptr, out, nullptr, B, Sq, Sk,
+                                            H, Hkv, dg, causal, window, scale, stream);
+  } else {
+    if (kv_int8)
+      return launch_fwd<int8_t, D, false>(q, k, v, k_scale, v_scale, out, nullptr, ws, B, Sq,
+                                          Sk, H, Hkv, dg, causal, window, scale, stream);
+    return launch_fwd<float, D, false>(q, k, v, nullptr, nullptr, out, nullptr, ws, B, Sq, Sk,
+                                       H, Hkv, dg, causal, window, scale, stream);
+  }
 }
 
 // The fp32 tensor-core backward: the D = 64 and 128 kernels, and the wide
@@ -2126,8 +2454,9 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 // (B, Sk, Hkv, D), all contiguous and of one dtype (fp32, or bf16 when
 // `bf16` is 1); lse and delta (B, H, Sq) fp32 contiguous. H % Hkv == 0, D in
 // {8, 16, 24, 64, 112, 128, 168}. causal is 0 or 1; window <= 0 means no
-// window. The forward's ws is an fp32 workspace of B * Hkv * ceil(Sk / 32)
-// * kFwdPlanes * 32 * padded_dim(max(D, 64)) floats, 16-byte aligned. K8's
+// window. The fp32 forward's ws is an fp32 workspace of B * Hkv * ceil(Sk
+// / 32) * kFwdPlanes * 32 * padded_dim(max(D, 64)) floats, 16-byte aligned;
+// the bf16 forward (one launch) takes none and ignores ws. K8's
 // split is 0 or 1 (flash_attention.dkv_split); with 1, ws is an fp32
 // workspace of units * (H / Hkv) * 2 * 64 * padded_dim(max(D, 64)) floats,
 // 16-byte aligned, and counters units int32 zeros, units = ceil(Sk / 64) *
@@ -2144,9 +2473,10 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 // products put D on wgmma's 64-row M side, which is why 64 and not 32 is
 // the floor; the work is that of D = 64 (8x the pairs' FLOPs at D = 8), a
 // simple route for the small configs. 168 (gemma3-27b's) has kernels of
-// its own on planes of 192 columns: the forward (21 k steps of 8, one
-// buffer of tile planes), the bf16 backward, and the fp32 backward with
-// its register-only operands in plain fp32 planes (the wide kernels).
+// its own on tiles of 192 columns: the fp32 forward (21 k steps of 8, one
+// buffer of tile planes), the bf16 forward and backward (11 k steps of 16
+// in S), and the fp32 backward with its register-only operands in plain
+// fp32 planes (the wide kernels).
 
 #define FLASH_DISPATCH(CALL, T)                                                   \
   switch (D) {                                                                    \
@@ -2168,14 +2498,18 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
                                           int Sk, int H, int Hkv, int D, int causal,
                                           int window, float scale, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(T, DIM)                                                                         \
-  launch_fwd<T, T, DIM, true>(q, k, v, nullptr, nullptr, out, lse, ws, B, Sq, Sk, H, Hkv, D, \
-                              causal, window, scale, s)
+#define FWD(T, DIM)                                                                           \
+  launch_fwd<T, DIM, true>(q, k, v, nullptr, nullptr, out, lse, ws, B, Sq, Sk, H, Hkv, D,     \
+                           causal, window, scale, s)
+#define FWD_BF(T, DIM)                                                                        \
+  launch_fwd_bf16<DIM, false, true>(q, k, v, nullptr, nullptr, out, lse, B, Sq, Sk, H, Hkv, D, \
+                                    causal, window, scale, s)
   if (bf16) {
-    FLASH_DISPATCH(FWD, __nv_bfloat16)
+    FLASH_DISPATCH(FWD_BF, __nv_bfloat16)
   }
   FLASH_DISPATCH(FWD, float)
 #undef FWD
+#undef FWD_BF
 }
 
 // K10. q and out (B, Sq, H, D) fp32, or bf16 when `bf16` is 1; k, v (B, Sk,

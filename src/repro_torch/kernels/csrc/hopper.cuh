@@ -120,6 +120,16 @@ __device__ __forceinline__ void bf16x3_split(float x, uint32_t& hi, uint32_t& mi
   lo = __float_as_uint(r - __uint_as_float(mid));
 }
 
+// bf16x3_split for a finite x (the same pieces), without the non-finite
+// case.
+__device__ __forceinline__ void bf16x3_split_finite(float x, uint32_t& hi, uint32_t& mid,
+                                                    uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFF0000u;
+  const float r = x - __uint_as_float(hi);
+  mid = __float_as_uint(r) & 0xFFFF0000u;
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+
 // Two such pieces (elements k and k + 1) as one packed bf16 pair, k low.
 __device__ __forceinline__ uint32_t bf16_pack(uint32_t k0, uint32_t k1) {
   return __byte_perm(k0, k1, 0x7632);

@@ -10,16 +10,18 @@ outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reports a CUDA error. Nothing is padded: the kernels
 mask by length. ``<wrapper>.launches`` counts each kernel's launches.
 
-Every kernel runs on the tensor cores (``route``). K6 and K10 run one
-kernel in every mode (q fp32 or bf16, K/V in q's dtype or int8 codes):
-every product on wgmma in 3xTF32, hi/lo tf32 halves of each operand,
-fp32-accurate. A pre-pass in the same call splits K and V once into their
-planes in a workspace (``fwd_workspace``). K7 and K8 run one kernel for
-each dtype and head dim: bf16 the bf16 kernel (bf16 wgmma; S and dP exact
-bf16 products, P and dS in three exact bf16 planes against the bf16
-tiles), fp32 the 3xTF32 kernel, whose register-only operands at head dim
-168 stay plain fp32 planes split as they are read (hi/lo planes of every
-operand do not fit a block's shared memory at 192 columns).
+Every kernel runs on the tensor cores (``route``), one kernel for each
+dtype of q and head dim. fp32 q runs the 3xTF32 kernels, every product on
+wgmma in hi/lo tf32 halves of each operand, fp32-accurate: K6 and K10 over
+fp32 K/V or int8 codes, after a pre-pass in the same call that splits K
+and V once into their planes in a workspace (``fwd_workspace``); K7 and
+K8, whose register-only operands at head dim 168 stay plain fp32 planes
+split as they are read (hi/lo planes of every operand do not fit a block's
+shared memory at 192 columns). bf16 q runs the bf16 kernels (bf16 wgmma;
+the products of two bf16 operands, S and dP, exact; the fp32 P and dS in
+three exact bf16 planes against the bf16 tiles): K6 and K10 over bf16 K/V
+or int8 codes widened exactly to bf16, one launch a call with no
+workspace, and K7 and K8.
 ``<wrapper>.launches_by_kernel`` counts each kernel's launches by the name
 ``route`` gives it. K8 launches its blocks in ``dkv_block_order``: one a
 (key tile, batch, KV head), walking the group's heads, or, where those
@@ -32,7 +34,8 @@ run the D = 64 kernels; 112 (kimi-k2's and zamba2's), which runs the D =
 128 kernels; and 168 (gemma3-27b's), whose kernels hold 192 columns
 (``kernel_dim``; S and dP read 168 or 176 of them). Each reads and writes
 the tensors' rows at their own width with zeros past it in shared memory
-and in the forward's workspace planes, so the tensors are never padded.
+and in the fp32 forward's workspace planes, so the tensors are never
+padded.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ from repro_torch.kernels.paged_decode_attention import scratch
 _HEAD_DIMS = (8, 16, 24, 64, 112, 128, 168)
 # K8's keys a block (kDkvKeys in the source)
 DKV_KEYS = 64
-# the forward's key tile and the hi/lo planes a tile takes in its workspace
-# (kFwdKeys, kFwdPlanes in the source)
+# the fp32 forward's key tile and the hi/lo planes a tile takes in its
+# workspace (kFwdKeys, kFwdPlanes in the source)
 FWD_KEYS, FWD_PLANES = 32, 4
 
 
@@ -110,10 +113,10 @@ def dkv_workspace_floats(units: int, rep: int, d: int) -> int:
 
 def fwd_workspace(b: int, sk: int, hkv: int, d: int,
                   device: torch.device) -> torch.Tensor:
-    """The fp32 workspace of K6 and K10: K and V split once per call into
-    the hi/lo tf32 planes of every 32-key tile of every (batch, KV head)
-    at the kernels' head dim, which all the query blocks of the head
-    read."""
+    """The fp32 workspace of K6 and K10 with fp32 q: K and V split once
+    per call into the hi/lo tf32 planes of every 32-key tile of every
+    (batch, KV head) at the kernels' head dim, which all the query blocks
+    of the head read. bf16 q takes none."""
     tiles = b * hkv * -(-sk // FWD_KEYS)
     return torch.empty(tiles * FWD_PLANES * FWD_KEYS * kernel_dim(d),
                        dtype=torch.float32, device=device)
@@ -202,12 +205,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     if sk == 0:
         return out.zero_(), lse.fill_(-1e30)
-    ws = fwd_workspace(b, sk, hkv, d, q.device)
+    # the fp32 forward's workspace; bf16 q takes none
+    ws = (fwd_workspace(b, sk, hkv, d, q.device)
+          if q.dtype == torch.float32 else None)
     with torch.cuda.device(q.device):
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), ws.data_ptr(), b, sq, sk, h, hkv, d,
-            *_statics(causal, window, scale, q))
+            lse.data_ptr(), ws.data_ptr() if ws is not None else None, b,
+            sq, sk, h, hkv, d, *_statics(causal, window, scale, q))
     _raise_on(name, err)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_kernel[route(q.dtype, d)] += 1
@@ -306,13 +311,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if sk == 0:
         return out.zero_()
-    ws = fwd_workspace(b, sk, hkv, d, q.device)
+    # the fp32 forward's workspace; bf16 q takes none
+    ws = (fwd_workspace(b, sk, hkv, d, q.device)
+          if q.dtype == torch.float32 else None)
     with torch.cuda.device(q.device):
         err = _launcher(name + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if int8 else None,
             v_scale.data_ptr() if int8 else None, out.data_ptr(),
-            ws.data_ptr(), b, sq, sk, h, hkv, d, int(bool(causal)),
+            ws.data_ptr() if ws is not None else None, b, sq, sk, h, hkv,
+            d, int(bool(causal)),
             int(window), float(scale),
             int(q.dtype == torch.bfloat16), int(int8),
             torch.cuda.current_stream(q.device).cuda_stream)

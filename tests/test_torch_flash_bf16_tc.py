@@ -43,10 +43,10 @@ import torch
 from repro.kernels import ops as j_ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from tests._bf16_planes import bf16x3, dots16, planes1, planes3
 
 # K7's rows and key tiles; K8's keys and query tiles
 TILE = 64
-K_STEP = 16                         # bf16 wgmma's depth
 FP32_GATE = 1e-4                    # chip_smoke.py FLASH_TOL["float32"]
 BF16_GATE, BF16_ATOL = 1e-2, 1e-3   # chip_smoke.py FLASH_TOL, FLASH_ATOL
 SMS = 132                           # the H100's SMs: K8's split rule
@@ -61,42 +61,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
-
-
-def bf16x3(x):
-    """fp32 x as three bf16 values on its bit pattern, as
-    ``hopper::bf16x3_split`` (finite x): hi keeps x's top 16 bits, r = x -
-    hi is exact, mid keeps r's top 16 bits, lo = r - mid (exact, at most 8
-    significant bits)."""
-    def top(y):
-        return (y.contiguous().view(torch.int32) & -0x10000).view(
-            torch.float32)
-    hi = top(x)
-    r = x - hi
-    mid = top(r)
-    return hi, mid, r - mid
-
-
-def planes3(x, b):
-    """x @ b with fp32 x in three bf16 planes against bf16-exact b: the
-    small terms first, each product of bf16 values (exact in fp32)."""
-    hi, mid, lo = bf16x3(x)
-    return lo @ b + mid @ b + hi @ b
-
-
-def planes1(x, b):
-    """x @ b with x rounded to one bf16 plane (to nearest): what rounding
-    P and dS to bf16, as bf16 SDPA does, gives."""
-    return x.to(torch.bfloat16).float() @ b
-
-
-def dots16(a, b):
-    """a @ b^T over the last dim in 16-deep steps (bf16 ``wgmma`` k16),
-    each step's exact products summed in fp32, the steps in order."""
-    s = torch.zeros(a.shape[:-1] + (b.shape[-2],))
-    for c in range(0, a.shape[-1], K_STEP):
-        s = s + a[..., c:c + K_STEP] @ b[..., c:c + K_STEP].transpose(-1, -2)
-    return s
 
 
 def _valid(qi, kj, sq, sk, causal, window):

@@ -1,5 +1,6 @@
-"""The numerics of the flash forward's tensor-core kernel (K6, K10),
-checked on the CPU.
+"""The numerics of the flash forward's fp32 tensor-core kernel (K6, K10
+with fp32 q), checked on the CPU (bf16 q runs a kernel of its own:
+``test_torch_flash_fwd_bf16_tc.py``).
 
 The forward kernel (``csrc/flash_attention.cu``, ``flash_fwd_tc_kernel``)
 runs both products on the tensor cores in tf32, split so as to keep fp32
@@ -7,8 +8,8 @@ accuracy: each fp32 operand x = hi + lo with hi = tf32(x) and lo = tf32(x
 - hi) (tf32: round to nearest, ties away, to 10 mantissa bits), and a
 product A B as A_lo B_hi + A_hi B_lo + A_hi B_hi in fp32 (3xTF32). q is
 scaled in fp32 and split as its tile is stored, K and V are widened to
-fp32 (bf16, or int8 codes times their row's scale) and split as theirs
-are, P as it is made. The walk: each warpgroup's 64 query rows over the
+fp32 (int8 codes times their row's scale) and split as theirs are, P as
+it is made. The walk: each warpgroup's 64 query rows over the
 32-key tiles from its block's first visible key (a block holds two
 warpgroups; a tile that none of a warpgroup's rows sees changes nothing
 there, so a 64-row walk gives the same values); an online softmax from m
@@ -35,6 +36,7 @@ from repro.kernels import flash_attention as j_fa
 from repro.kernels import ops as j_ops
 from repro.quant import int8 as j_q8
 from repro_torch.kernels import flash_attention as fa
+from tests._bf16_planes import bf16x3
 
 ROWS, KEYS = 64, 32                 # the forward's warpgroup rows and key tile
 FP32_GATE = 1e-4                    # chip_smoke.py FLASH_TOL["float32"]
@@ -98,9 +100,9 @@ def _rows(x, lo, n):
 
 def emulate_fwd(q, k, v, *, scale, causal, window, k_scale=None,
                 v_scale=None, mm=mm3):
-    """What the forward kernel computes: q (B, Sq, H, D) fp32 or bf16, k/v
-    (B, Sk, Hkv, D) in q's dtype or int8 codes with (B, Sk, Hkv) scales.
-    Returns out (B, Sq, H, D) in q's dtype and lse (B, H, Sq) fp32. A head
+    """What the forward kernel computes: q (B, Sq, H, D) fp32, k/v (B, Sk,
+    Hkv, D) fp32 or int8 codes with (B, Sk, Hkv) scales. Returns out (B,
+    Sq, H, D) and lse (B, H, Sq) fp32. A head
     dim under 64 runs the D = 64 kernel on tiles zero past it, 112 the D =
     128 kernel, 168 its own kernel on planes of 192 columns
     (``flash_attention.kernel_dim``): the walk runs on zero-padded
@@ -284,15 +286,23 @@ def test_int8_kv_within_the_card_gate(s, window, d):
 
 
 def test_bf16_operands_are_tf32_exact():
-    """bf16 values (8 mantissa bits) split into hi = x and lo = 0, so the
-    kernel leaves out the terms with a bf16 K's or V's lo half (a bf16 q,
-    scaled in fp32, keeps its lo half)."""
-    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        4096).astype(np.float32)).to(torch.bfloat16).float()
-    hi, lo = split(x)
-    assert torch.equal(hi, x) and not lo.any()
-    _, lo_scaled = split(x * 128 ** -0.5)
-    assert lo_scaled.any()
+    """What the bf16 forward (``flash_fwd_bf16_kernel``) rests on: bf16
+    values and int8 codes are exact as bf16 (``bf16x3`` gives hi = x and
+    mid = lo = 0; tf32 too, hi = x and lo = 0), so bf16 K and V and the
+    codes enter its bf16 ``wgmma`` as they are stored, and S = Q K^T is
+    exact products; a bf16 q scaled in fp32 is not exact as bf16 (mid or
+    lo nonzero), which is why the kernel scales S after the product."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(4096).astype(
+        np.float32)).to(torch.bfloat16).float()
+    codes = torch.arange(-128, 128, dtype=torch.float32)
+    for exact in (x, codes):
+        hi, mid, lo = bf16x3(exact)
+        assert torch.equal(hi, exact) and not mid.any() and not lo.any()
+        hi, lo = split(exact)
+        assert torch.equal(hi, exact) and not lo.any()
+    _, mid_s, lo_s = bf16x3(x * 128 ** -0.5)
+    assert mid_s.any() or lo_s.any()
 
 
 @pytest.mark.parametrize("d", [8, 16, 24, 64, 128, 112, 168])
