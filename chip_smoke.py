@@ -125,6 +125,21 @@ non-zero and prints no result:
    on the weight dequantized once (4x the weight bytes in fp32); times are
    device time from torch.profiler (at M = 1 the host's launch time
    exceeds the kernel's), the CUDA-event time beside them;
+4g. cells (``launch.cells``, after 4c), on one card and a one-device
+   mesh, at full width: starcoder2-7b ``decode_32k`` (32 of 32 layers,
+   bf16, global batch cut 128 -> 8: 128 rows of its bf16 cache are 256
+   GiB) one step through ``Cell.run``, its logits equal bit for bit to a
+   direct ``decode_step`` on the same tensors, K1 once a layer; the same
+   cell with ``_weights_int8`` (K4 six times a layer, K1 once); whisper-
+   large-v3's ``decode_32k`` cell (32 + 32 layers, batch cut to 8) against
+   its direct ``decode_step``, no kernel; starcoder2-7b ``train_4k`` at 8
+   of 32 layers and global batch 1 (from 256) with the cells' AdamW (bf16
+   moments, no master), two steps: finite losses, K6 = K7 = K8 = 8 a step
+   on the route's kernel, the route printed. Each cell's dry-run record
+   (``launch.dryrun``, meta tensors: per-device argument bytes, analytic
+   live bytes, FLOPs and bytes, the modeled roofline terms, collective
+   bytes null) on the one-device mesh and the 16 x 16 and 2 x 16 x 16
+   meshes, beside the card's peak allocated memory;
 5. streams: fp32 weights and cache, 4 requests x 16 greedy tokens; the
    dense engine (through K1) must be token-identical to the host-loop
    reference (through masked ``sdpa``), and the paged engine (K2, K3;
@@ -322,7 +337,7 @@ non-zero and prints no result:
    SSD blocks) and zamba2-7b (81 slots: 13 x (5 SSD blocks and a shared
    attention site) and 3) at full width and full depth, 8 slots, max_len
    2048, prompts of 512 and 301 tokens alternating (equal-length
-   admission groups: the 301s go back to the queue), 24 greedy tokens:
+   admission groups: the 301s go back to the queue), 16 greedy tokens:
    fp32 dense streams identical to ``ReferenceEngine``'s (mamba2's also
    to a kill at tick 7 restored from the tick-4 snapshot and the
    journal), the SSM states nonzero; bf16 (and zamba2 int8: the shared
@@ -652,15 +667,6 @@ def _peak_coded(x):
     return PEAK_BF16 / 3 if x.dtype == torch.float32 else PEAK_BF16
 
 
-def _row_bytes(kv):
-    """Bytes of one K/V row (all heads): int8 codes carry a 4-byte scale
-    per head."""
-    import torch
-    hkv, d = kv.shape[-2:]
-    return hkv * (d * kv.element_size() + (4 if kv.dtype == torch.int8
-                                           else 0))
-
-
 def _bound(nbytes, t_ops):
     """The larger of the bytes' time over the HBM rate and ``t_ops``
     seconds of operations, in ms, and which of the two it is."""
@@ -670,81 +676,39 @@ def _bound(nbytes, t_ops):
 
 
 def _decode_bound(q, k, lengths, window, paged=False):
-    """Least time of a decode call (K1, K2): the live K/V rows (with their
-    scales for int8), q, the output and the lengths once each over the HBM
-    rate (K2 adds the table entries of the live rows), or 4*live*H*D FLOPs
-    over the inputs' peak (fp32 if any input is fp32)."""
-    lens = lengths.tolist()
-    los = [max(0, n - window) if window > 0 else 0 for n in lens]
-    n_live = sum(n - lo for n, lo in zip(lens, los))
-    b, h, d = q.shape
-    nbytes = (2 * n_live * _row_bytes(k)
-              + 2 * q.numel() * q.element_size() + 4 * b)
-    if paged:
-        nbytes += 4 * sum(-(-n // PAGE) - lo // PAGE
-                          for n, lo in zip(lens, los) if n > 0)
-    return _bound(nbytes, 4.0 * n_live * h * d / _peak(q, k))
+    """Least time of a decode call (K1, K2): its bytes (``decode_work``:
+    the live K/V rows with their scales for int8, q, the output and the
+    lengths; K2 the table entries of the live rows too) over the HBM rate,
+    or its 4*live*H*D FLOPs over the inputs' peak (fp32 if any input is
+    fp32)."""
+    from repro_torch.core import flops as fl
+    cap, page = (N_BLOCKS * PAGE, PAGE) if paged else (k.shape[1], 0)
+    ops, nbytes = fl.decode_work(q, k, lengths, window, cap, page)
+    return _bound(nbytes, ops / _peak(q, k))
 
 
 def _verify_bound(q, k, lengths, window):
-    """Least time of a K5 call: the K/V rows some lane of a slot attends
-    (with their scales for int8), q, the output, the lengths and those
-    rows' table entries once each over the HBM rate; or 4*H*D FLOPs per
-    valid (lane, key) pair over the inputs' peak."""
-    b, t, h, d = q.shape
-    cap = N_BLOCKS * PAGE
-    rows = pairs = pages = 0
-    for n in lengths.tolist():
-        if n <= 0:
-            continue
-        spans = []
-        for lane in range(t):
-            q_pos = n - t + lane
-            lo = max(0, q_pos + 1 - window) if window > 0 else 0
-            spans.append((lo, min(q_pos + 1, cap)))
-            pairs += max(0, spans[-1][1] - lo)
-        lo, hi = spans[0][0], spans[-1][1]
-        if hi > lo:
-            rows += hi - lo
-            pages += -(-hi // PAGE) - lo // PAGE
-    nbytes = (2 * rows * _row_bytes(k) + 2 * q.numel() * q.element_size()
-              + 4 * b + 4 * pages)
-    return _bound(nbytes, 4.0 * pairs * h * d / _peak(q, k))
+    """Least time of a K5 call: its bytes (``verify_work``: the K/V rows
+    some lane of a slot attends with their scales for int8, q, the output,
+    the lengths and those rows' table entries) over the HBM rate, or 4*H*D
+    FLOPs per valid (lane, key) pair over the inputs' peak."""
+    from repro_torch.core import flops as fl
+    ops, nbytes = fl.verify_work(q, k, lengths, window, N_BLOCKS * PAGE,
+                                 PAGE)
+    return _bound(nbytes, ops / _peak(q, k))
 
 
 def _prefill_bound(q, k_new, k_pool, starts, lens, window):
-    """Least time of a K3 call: q of every lane of a live row, the live
-    chunk tokens' k and v, the cached keys the row's lanes attend (per
-    row, [start - window + 1, start) or [0, start)), the output and the
-    table entries once each over the HBM rate; or 4*D*H FLOPs per valid
-    (query, key) pair, the pairs on cached keys over the peak of q's and
-    the pool's types, those on the chunk's own keys over the peak of q's
-    type (k_new, v_new share it). A padding lane (t >= len) of a live row
-    attends the row's keys below start + len that its window reaches."""
-    _, c, h, d = q.shape
-    hkv = k_pool.shape[2]
-    cached = cached_pairs = chunk_pairs = live_rows = 0
-    for start, ln in zip(starts.tolist(), lens.tolist()):
-        if ln <= 0:
-            continue
-        live_rows += 1
-        lo = max(0, start - window + 1) if window > 0 else 0
-        cached += start - lo
-        for t in range(c):
-            if window > 0:      # keys with q_abs - k_abs < window
-                cached_pairs += min(start, max(0, window - 1 - t))
-                chunk_pairs += max(0, min(t + 1, ln) - max(0, t - window + 1))
-            else:
-                cached_pairs += start
-                chunk_pairs += min(t + 1, ln)
-    live = int(lens.clamp(min=0).sum())
-    nbytes = (live_rows * c * h * d * q.element_size()
-              + live * 2 * hkv * d * q.element_size()
-              + 2 * cached * _row_bytes(k_pool)
-              + q.numel() * q.element_size()
-              + 4 * sum(-(-s // PAGE) for s in starts.tolist()) + 8 * B)
-    return _bound(nbytes, 4.0 * h * d * (cached_pairs / _peak(q, k_pool)
-                                         + chunk_pairs / _peak(q)))
+    """Least time of a K3 call: its bytes (``prefill_work``: q of every
+    lane of a live row, the live chunk tokens' k and v, the cached keys
+    the row's lanes attend, the output and the table entries) over the
+    HBM rate; or 4*D*H FLOPs per valid (query, key) pair, the pairs on
+    cached keys over the peak of q's and the pool's types, those on the
+    chunk's own keys over the peak of q's type (k_new, v_new share it)."""
+    from repro_torch.core import flops as fl
+    on_cached, on_chunk, nbytes = fl.prefill_work(q, k_pool, starts, lens,
+                                                  window, PAGE)
+    return _bound(nbytes, on_cached / _peak(q, k_pool) + on_chunk / _peak(q))
 
 
 def _library_decode(q, k, v, lengths, *, scale, window):
@@ -1741,6 +1705,7 @@ def _k4_row(gen, m, k, n, x_name, out_name):
     library call's CUDA-event times beside them; a second call on the same
     inputs must give the first one's bits."""
     import torch
+    from repro_torch.core import flops as fl
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import ref
     dt, odt = getattr(torch, x_name), getattr(torch, out_name)
@@ -1778,10 +1743,8 @@ def _k4_row(gen, m, k, n, x_name, out_name):
         row.update({"timing": "device", "event_ms": cuda_ms(kernel, iters),
                     "library_event_ms": cuda_ms(library, iters)})
     del qs, wd
-    nbytes = (q.numel() + sc.numel() * 4 + x.numel() * x.element_size()
-              + m * n * got.element_size())
-    row["bound_ms"], row["bound_by"] = _bound(nbytes,
-                                              2.0 * m * k * n / _peak_coded(x))
+    ops, nbytes = fl.matmul_work(x, q, n, got.element_size())
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, ops / _peak_coded(x))
     return row
 
 
@@ -1979,6 +1942,7 @@ def phase_int8_dx():
     function: it reads 4x the weight bytes); then the ragged shapes
     (checked, not timed), both outputs. Returns the main row."""
     import torch
+    from repro_torch.core import flops as fl
     from repro_torch.kernels import int8_matmul as k4
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1997,10 +1961,8 @@ def phase_int8_dx():
             plain_ms = cuda_ms(
                 lambda i: ref.int8_matmul_dx_ref(dy, q, sc, odt), 3)
             library_ms = cuda_ms(lambda i: ((dy * sc) @ wf.T).to(odt), 6)
-            nbytes = (dy.numel() * 4 + q.numel() + n * 4
-                      + K9_M * k * got.element_size())
-            bound_ms, bound_by = _bound(
-                nbytes, 2.0 * K9_M * n * k / _peak_coded(dy))
+            ops, nbytes = fl.matmul_work(dy, q, k, got.element_size())
+            bound_ms, bound_by = _bound(nbytes, ops / _peak_coded(dy))
             row = {"phase": "int8_matmul_dx", "kernel": "tensor_cores",
                    "m": K9_M, "k": k, "n": n,
                    "dy": "float32", "out": out_name, "max_abs_err": max_err,
@@ -2152,6 +2114,7 @@ def phase_ternary_matmul():
     not the same function, it reads 4x (fp32) or 2x (bf16) the weight
     bytes). Returns the main row (fp32 x, M = 1, AlexNet fc0)."""
     import torch
+    from repro_torch.core import flops as fl
     from repro_torch.kernels import ref
     from repro_torch.kernels import ternary_matmul as k11
     from repro_torch.quant import ternary
@@ -2182,10 +2145,8 @@ def phase_ternary_matmul():
             2, int(K4_COLD_BYTES // (q.numel() * x.element_size())))]]
         library_ms = device_ms(lambda i: x @ wd[i % len(wd)], 24)
         del qs, wd
-        nbytes = (q.numel() + sc.numel() * 4
-                  + (x.numel() + m * n) * x.element_size())
-        bound_ms, bound_by = _bound(nbytes,
-                                    2.0 * m * k * n / _peak_coded(x))
+        ops, nbytes = fl.matmul_work(x, q, n, x.element_size())
+        bound_ms, bound_by = _bound(nbytes, ops / _peak_coded(x))
         row = {"phase": "ternary_matmul", "kernel": k11.route(m),
                "m": m, "k": k, "n": n,
                "x": x_name, "codes": codes,
@@ -2245,57 +2206,37 @@ def _flash_inputs(dtype):
     return q, k, v, dout
 
 
-def _flash_pairs(s, window):
-    """Valid causal (query, key) pairs of one (batch, head) over S = s."""
-    return sum(i + 1 - (max(0, i - window + 1) if window > 0 else 0)
-               for i in range(s))
-
-
-def _fwd_ops_s(q, pairs):
-    """Least seconds of a flash forward's operations (K6, K10) over
-    ``pairs`` valid (query, key) pairs and heads: s = q k^T and P V, 2 D
-    FLOPs each. fp32 q: 4 D at ``_peak`` (3xTF32; int8 K/V too). bf16 q:
-    s (bf16 x bf16) at PEAK_BF16 and P V (fp32 P, as the Pallas body
-    computes it, against bf16 or int8 V) at PEAK_BF16 / 3, three exact
-    bf16 planes: 8 D at PEAK_BF16, the backward's count below."""
+def _flash_ops_s(q, exact, on_p):
+    """Least seconds of a flash kernel's FLOPs (``flash_work``): ``exact``
+    of products of two input-typed operands (s, dP) and ``on_p`` of
+    products with fp32 P or dS. fp32 q: both at ``_peak`` (3xTF32; int8
+    K/V too). bf16 q: ``exact`` (bf16 x bf16) at PEAK_BF16 and ``on_p``
+    (fp32 P or dS, as the Pallas bodies compute them, against bf16 or
+    int8 operands) at PEAK_BF16 / 3, three exact bf16 planes, as
+    ``_peak_coded`` counts fp32 x against codes: K6 and K10 8 D a pair
+    and head at PEAK_BF16, K7 10 D, K8 16 D."""
     import torch
-    d = q.shape[-1]
     if q.dtype == torch.float32:
-        return 4.0 * d * pairs / _peak(q)
-    return (2 + 3 * 2) * d * pairs / PEAK_BF16
+        return (exact + on_p) / _peak(q)
+    return (exact + 3 * on_p) / PEAK_BF16
+
+
+def _flash_bound(name, q, k, window, extra=()):
+    """Least time of the causal flash kernel ``name`` at these inputs:
+    its bytes (``flash_work``: each input read once, each output written
+    once) over the HBM rate, or its FLOPs at ``_flash_ops_s``, the
+    larger."""
+    from repro_torch.core import flops as fl
+    exact, on_p, nbytes = fl.flash_work(name, q, k, True, window, extra)
+    return _bound(nbytes, _flash_ops_s(q, exact, on_p))
 
 
 def _flash_bounds(q, k, window):
-    """Least time of K6, K7 and K8 at these inputs: 4, 6 and 8 * D FLOPs
-    per valid (query, key) pair and head (K6: s and P V; K7 recomputes s
-    and dP and does dS K; K8 recomputes s and dP and does P^T dO and dS^T
-    Q), each product at its operands' rate, or their bytes (each input
-    read once, each output written once) over the HBM rate, the larger.
-    fp32 inputs: every product at ``_peak`` (3xTF32). bf16 inputs: s and
-    dP (bf16 x bf16) at PEAK_BF16 and the products with fp32 P or dS
-    (their fp32 values against bf16 V, dO, Q or K, as the Pallas bodies
-    compute them) at PEAK_BF16 / 3, three exact bf16 planes, as
-    ``_peak_coded`` counts fp32 x against codes: 8, 10 and 16 * D at
-    PEAK_BF16 (K6: ``_fwd_ops_s``)."""
-    import torch
-    b, s, h, d = q.shape
-    pairs = b * h * _flash_pairs(s, window)
-    qb = q.numel() * q.element_size()
-    kb = k.numel() * k.element_size()
-    rows = 4 * b * h * s                      # one fp32 lse or delta row
-    t_fwd = _fwd_ops_s(q, pairs)
-    if q.dtype == torch.float32:
-        peak = _peak(q)
-        t_dq, t_dkv = (n * d * pairs / peak for n in (6.0, 8.0))
-    else:
-        # (bf16 x bf16 FLOPs, fp32 x bf16 FLOPs) a pair and head, over D
-        t_dq, t_dkv = ((exact + 3 * planes) * d * pairs / PEAK_BF16
-                       for exact, planes in ((4, 2), (4, 4)))
-    return {"flash_attention_fwd": _bound(2 * qb + 2 * kb + rows, t_fwd),
-            "flash_attention_bwd_dq": _bound(3 * qb + 2 * kb + 2 * rows,
-                                             t_dq),
-            "flash_attention_bwd_dkv": _bound(2 * qb + 4 * kb + 2 * rows,
-                                              t_dkv)}
+    """Least time of K6, K7 and K8 at these inputs (``_flash_bound``): 4,
+    6 and 8 * D FLOPs per valid (query, key) pair and head (K6: s and P
+    V; K7 recomputes s and dP and does dS K; K8 recomputes s and dP and
+    does P^T dO and dS^T Q)."""
+    return {name: _flash_bound(name, q, k, window) for name in TRAIN_FLASH}
 
 
 # The device kernels one call of a flash forward (K6, K10) launches, by the
@@ -2711,10 +2652,7 @@ def _time_flash(b, s, h, hkv, d, q_name, phase="flash_small_dims"):
     plain_bwd = cuda_ms(lambda i: ref.flash_attention_bwd_ref(
         q, k, v, out, lse, dout, **kw), 3)
     bounds = _flash_bounds(q, k, -1)
-    pairs = b * h * _flash_pairs(s, -1)
-    bounds["flash_attention"] = _bound(
-        2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size(),
-        _fwd_ops_s(q, pairs))
+    bounds["flash_attention"] = _flash_bound("flash_attention", q, k, -1)
     calls = {
         "flash_attention_fwd": (lambda i: fa.flash_attention_fwd(q, k, v,
                                                                  **kw),
@@ -2907,11 +2845,8 @@ def phase_flash_infer():
                                                                  **kw), 3)
             library_ms = device_ms(lambda i: library(), 10)
             library_event_ms = cuda_ms(lambda i: library(), 10)
-            pairs = FLASH_B * H * _flash_pairs(FLASH_S, window)
-            nbytes = (2 * q.numel() * q.element_size()
-                      + 2 * k.numel() * k.element_size()
-                      + sum(t.numel() * 4 for t in scales))
-            bound_ms, bound_by = _bound(nbytes, _fwd_ops_s(q, pairs))
+            bound_ms, bound_by = _flash_bound("flash_attention", q, k,
+                                              window, scales)
             row = {"phase": "kernels", "kernel": "flash_attention",
                    "q": q_name, "kv": kv_name, "window": window,
                    "B": FLASH_B, "S": FLASH_S, "max_abs_err": err,
@@ -6410,6 +6345,265 @@ def phase_family_train():
     return runs
 
 
+# the cells phase: starcoder2-7b decode_32k at full width and depth with
+# its batch cut 128 -> 8 (the bf16 cache of 128 rows of 32768 tokens is
+# 256 GiB, of 8 rows 16 GiB beside 14.3 GB of weights), the same cell
+# with int8 weights, whisper-large-v3's decode_32k cell cut the same way
+# (a 43 GB self cache at 8 rows), and starcoder2-7b train_4k at full
+# width cut to 8 of its 32 layers and a global batch of 1 (from 256)
+CELL_BATCH = 8
+CELL_TRAIN_LAYERS = 8
+CELL_TRAIN_STEPS = 2
+
+
+def _cell_record(arch_id, shape_name, shape, overrides, mesh_name):
+    """The dry-run record of a cut cell (meta tensors, no device), its
+    traceback dropped."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch_id, shape_name, overrides=overrides,
+                          mesh_name=mesh_name, shape=shape)
+    if not rec.get("ok"):
+        raise AssertionError(f"cells: dry-run of {rec['label']}: "
+                             f"{rec.get('error')}")
+    return {k: rec[k] for k in (
+        "label", "mesh", "kind", "n_params_total", "tokens_per_step",
+        "memory", "flops_per_device", "bytes_per_device", "flops_by_prim",
+        "compute_s", "memory_s", "bound", "step_time_s",
+        "collective_bytes_per_device", "collective_note")}
+
+
+def _run_cell(phase, arch_id, shape_name, shape, overrides, check):
+    """Builds the cut cell, materializes it on the card from SEED, and
+    runs ``check(cell, args, counters)`` with every counter set to 0 just
+    before the cell's step and read inside it; prints the row with the
+    dry-run's records of the same cell and the peak memory beside them.
+    Returns the launches."""
+    import torch
+    from repro_torch.launch import cells, dryrun
+    counters = _counters()
+    mesh = dryrun.mesh_named("one")
+    t0 = time.monotonic()
+    cell = cells.build_cell(arch_id, shape_name, mesh, overrides,
+                            shape=shape)
+    torch.cuda.reset_peak_memory_stats()
+    args = cell.materialize("cuda", SEED)
+    torch.cuda.synchronize()
+    row = {"phase": phase, "arch": arch_id, "shape": shape_name,
+           "kind": cell.kind, "overrides": overrides or {},
+           "global_batch": shape.global_batch, "seq_len": shape.seq_len,
+           "layers": cell.cfg.n_layers, "build_materialize_s":
+           time.monotonic() - t0}
+    for fn in counters.values():
+        fn.launches = 0
+        for key in fn.launches_by_kernel:
+            fn.launches_by_kernel[key] = 0
+    row.update(check(cell, args, counters))
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["dryrun"] = {m: _cell_record(arch_id, shape_name, shape, overrides,
+                                     m) for m in ("one", "single", "multi")}
+    one = row["dryrun"]["one"]["memory"]
+    row["peak_vs_dryrun_gb"] = {
+        "peak_allocated": row["peak_mem_gb"],
+        "dryrun_argument": one["argument"] / 1e9,
+        "dryrun_analytic_live": one["analytic_live"] / 1e9}
+    emit(row)
+    launches = row["launches"]
+    del args, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# K1 at the decode cell's shapes is held against its plain version with
+# q of unit scale and at CELL_Q_PEAKED times it: at 32768 keys a
+# unit q spreads its softmax over thousands of keys, so outputs are ~1e-2
+# and the bf16 atol alone would pass a lost split; the peaked q puts most
+# of the weight on a few keys, so a split dropped or combined wrongly
+# moves outputs of order one
+CELL_Q_PEAKED = 8.0
+
+
+def _cell_kernels_check(cell, params, caches):
+    """The cell's kernels at the shapes its step gives them, each against
+    its plain version: K1 on layer 0's bf16 cache (B rows, every one of
+    its keys live after the step) within MODES' bf16 tolerance, for a q
+    at unit scale and one CELL_Q_PEAKED times it; with int8 weights also
+    K4 on layer 0's q projection (x (B, d_model) bf16) within K4_TOL.
+    Returns each check's max abs error and the largest plain output."""
+    import torch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as tf_lib
+    cfg = cell.cfg
+    if not isinstance(cfg, tf_lib.LMConfig):
+        return {}
+    window = cfg.pattern[0].window
+    entry = caches["pat0"]
+    k, v, tags = entry["kv"].k[0], entry["kv"].v[0], entry["pos"][0]
+    lengths = (tags >= 0).sum(-1).to(torch.int32)
+    b, sk = tags.shape
+    if not bool((lengths == sk).all()):
+        raise AssertionError(f"cells: layer 0's cache holds {lengths} "
+                             f"keys a row, not {sk}")
+    atol, rtol = next((a, r) for qn, kn, a, r in MODES
+                      if (qn, kn) == ("bfloat16", "bfloat16"))
+    scale = cfg.attn_cfg(window).scale
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    q = torch.randn((b, cfg.n_heads, cfg.resolved_head_dim), generator=gen,
+                    device="cuda")
+    out = {"k1_shape": {"B": b, "Sk": sk, "H": cfg.n_heads,
+                        "Hkv": k.shape[-2], "D": k.shape[-1],
+                        "window": window}}
+    for label, mult in (("unit_q", 1.0), ("peaked_q", CELL_Q_PEAKED)):
+        qs = (q * mult).to(torch.bfloat16)
+        got = k1.decode_attention(qs, k, v, lengths, scale=scale,
+                                  window=window)
+        want = ref.decode_attention_ref(qs, k, v, lengths, scale=scale,
+                                        window=window)
+        err = (got.float() - want.float()).abs()
+        row = {"max_abs_err": float(err.max()),
+               "plain_max_abs": float(want.float().abs().max()),
+               "atol": atol, "rtol": rtol}
+        out[f"k1_{label}"] = row
+        if not (bool((err <= atol + rtol * want.float().abs()).all())
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"cells: K1 at {out['k1_shape']}, "
+                                 f"{label}: {row}")
+    if cfg.use_int8_matmul:
+        wq = params["pat0"]["attn"]["wq"]
+        q8, s8 = wq["q8"][0], wq["s8"][0]
+        codes = q8.reshape(q8.shape[0], -1)
+        sc = torch.broadcast_to(s8, q8.shape[1:]).reshape(-1).float()
+        x = torch.randn((b, codes.shape[0]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        _, max_err = _check_k4(x, codes, sc.contiguous(), torch.bfloat16)
+        out["k4_wq"] = {"m": b, "k": codes.shape[0], "n": codes.shape[1],
+                        "max_abs_err": max_err,
+                        "tolerance": K4_TOL["bfloat16", "bfloat16"]}
+    return out
+
+
+def _decode_check(per_layer):
+    """A decode cell's check: one step through ``Cell.run``, then a direct
+    ``decode_step`` on the same tensors (the step's cache write is the same
+    row with the same values, so the second call sees the same cache):
+    the logits equal bit for bit and finite (a wiring check: both run the
+    same kernels), and each kernel's launches in the cell's step
+    ``per_layer[name]`` x the layers; then the cell's kernels against
+    their plain versions at its shapes (``_cell_kernels_check``). Both
+    calls' wall seconds are reported (the first with its warm-up)."""
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf_lib
+
+    def check(cell, args, counters):
+        params, token, pos, caches = args
+        t0 = time.monotonic()
+        with torch.no_grad():
+            logits, _ = cell.run(*args)
+            torch.cuda.synchronize()
+            step_s = time.monotonic() - t0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            by_kernel = {n: dict(counters[n].launches_by_kernel)
+                         for n in per_layer}
+            t0 = time.monotonic()
+            if isinstance(cell.cfg, tf_lib.LMConfig):
+                want, _ = tf_lib.decode_step(params, cell.cfg, token,
+                                             pos.expand(token.shape[0]),
+                                             caches)
+            else:
+                want, _ = encdec.decode_step(params, cell.cfg, token, pos,
+                                             caches)
+            torch.cuda.synchronize()
+            direct_s = time.monotonic() - t0
+            kernel_checks = _cell_kernels_check(cell, params, caches)
+        n_layers = cell.cfg.n_layers if isinstance(
+            cell.cfg, tf_lib.LMConfig) else cell.cfg.n_dec_layers
+        expect = {n: per_layer.get(n, 0) * n_layers for n in counters}
+        out = {"step_s": step_s, "direct_step_s": direct_s,
+               "launches": launches,
+               "launches_by_kernel": by_kernel,
+               "kernel_checks": kernel_checks,
+               "logits_shape": list(logits.shape),
+               "finite": bool(torch.isfinite(logits).all()),
+               "equal_to_direct_decode_step": bool(torch.equal(logits,
+                                                               want))}
+        if not (out["finite"] and out["equal_to_direct_decode_step"]
+                and launches == expect):
+            raise AssertionError(f"cells: {cell.arch_id} {cell.shape_name} "
+                                 f"{cell.notes}: {out} (launches want "
+                                 f"{expect})")
+        return out
+    return check
+
+
+def _train_check(cell, args, counters):
+    """Two training steps through ``Cell.run``: the losses finite, K6, K7
+    and K8 once a layer a step, each on the kernel ``route`` names; the
+    attention route the step took and s/step reported."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    _reset_flash_kernels()
+    losses, secs = [], []
+    for _ in range(CELL_TRAIN_STEPS):
+        t0 = time.monotonic()
+        _, _, metrics = cell.run(*args)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.monotonic() - t0)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    by_kernel = _flash_on_route("cells_train", cell.cfg.resolved_head_dim,
+                                "bfloat16")
+    expect = {n: (CELL_TRAIN_STEPS * cell.cfg.n_layers if n in TRAIN_FLASH
+                  else 0) for n in counters}
+    out = {"losses": losses, "s_per_step": secs, "launches": launches,
+           "attention_route": {
+               "path": "ops.flash_attention_train (positions=None)",
+               "kernel": fa.route(torch.bfloat16,
+                                  cell.cfg.resolved_head_dim)},
+           "flash_launches_by_kernel": by_kernel}
+    if not (all(math.isfinite(x) for x in losses) and launches == expect):
+        raise AssertionError(f"cells train: {out} (launches want {expect})")
+    _add_flash_dims(launches, cell.cfg.resolved_head_dim)
+    return out
+
+
+def phase_cells():
+    """The mesh cells (``launch.cells``) on one card, a one-device mesh,
+    at full width: starcoder2-7b ``decode_32k`` (32 of 32 layers, bf16,
+    global batch cut to CELL_BATCH) through K1 once a layer, the same
+    cell with ``_weights_int8`` (every projection on K4: six a layer),
+    whisper-large-v3's ``decode_32k`` cell (32 + 32 layers, the same
+    batch; masked ``sdpa``, no kernel), and starcoder2-7b ``train_4k``
+    (CELL_TRAIN_LAYERS layers, batch 1, the cells' AdamW: bf16 moments, no
+    master) for CELL_TRAIN_STEPS steps through K6-K8. Each cell's dry-run
+    record on the one-device mesh and the production meshes is printed
+    beside its peak memory. Returns each run's launches."""
+    from repro_torch.configs import base as cfgbase
+    decode = dataclasses.replace(cfgbase.SHAPES["decode_32k"],
+                                 global_batch=CELL_BATCH)
+    train = dataclasses.replace(cfgbase.SHAPES["train_4k"], global_batch=1)
+    emit({"phase": "cells_cuts", "cuts": {
+        "decode_32k": f"global_batch 128 -> {CELL_BATCH}: 128 bf16 rows of "
+                      f"32768 tokens are 256 GiB of KV cache at "
+                      f"starcoder2-7b, 8 rows 16 GiB",
+        "whisper decode_32k": f"global_batch 128 -> {CELL_BATCH}: a 43 GB "
+                              f"self cache at 8 rows",
+        "train_4k": f"32 -> {CELL_TRAIN_LAYERS} layers and global_batch 256 "
+                    f"-> 1: one card's memory and the phase's time"}})
+    runs = [
+        _run_cell("cells_decode", "starcoder2-7b", "decode_32k", decode,
+                  None, _decode_check({"decode_attention": 1})),
+        _run_cell("cells_decode_int8", "starcoder2-7b", "decode_32k",
+                  decode, {"_weights_int8": True},
+                  _decode_check({"decode_attention": 1, "int8_matmul": 6})),
+        _run_cell("cells_encdec_decode", "whisper-large-v3", "decode_32k",
+                  decode, None, _decode_check({})),
+        _run_cell("cells_train", "starcoder2-7b", "train_4k", train,
+                  {"repeats": CELL_TRAIN_LAYERS}, _train_check)]
+    MAIN_HEAD_DIMS.setdefault("decode_attention", set()).add(128)
+    return runs
+
+
 def _leaf_paths(tree, prefix=()):
     """The key path of every leaf of a nested dict, in ``flatten``'s
     order."""
@@ -6526,6 +6720,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     mark("cnn")
+    runs += phase_cells()
+    mark("cells")
     phase_streams()
     mark("streams")
     torch.cuda.empty_cache()

@@ -1,15 +1,37 @@
 """ArchSpec registry of the PyTorch port (mirror of ``repro.configs.base``).
 
-The registry holds every arch of the JAX package's registry. The
-input-shape grid of the original (``SHAPES``) drives the TPU dry-run
-cells and is not ported.
+The registry holds every arch of the JAX package's registry, and
+``SHAPES`` the original's input-shape grid, which the cells of
+``launch.cells`` and the dry-run of ``launch.dryrun`` build on:
+
+  train_4k     seq 4096  x global_batch 256   (training step)
+  prefill_32k  seq 32768 x global_batch 32    (inference prefill)
+  decode_32k   seq 32768 x global_batch 128   (decode: 1 token, 32k KV)
+  long_500k    seq 524288 x global_batch 1    (long-context decode; only
+               for the sub-quadratic archs, ``long_context_ok``)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +46,11 @@ class ArchSpec:
     source: str = ""
     notes: str = ""
     active_fraction: float = 1.0
+
+    @property
+    def shapes(self) -> Tuple[str, ...]:
+        base = ("train_4k", "prefill_32k", "decode_32k")
+        return base + (("long_500k",) if self.long_context_ok else ())
 
 
 # every arch of repro.configs, in the reference's order: the dense and
@@ -49,6 +76,14 @@ def arch_ids() -> List[str]:
     """Every registered arch, in the reference's order."""
     _load()
     return list(REGISTRY)
+
+
+def all_arch_ids(lm_only: bool = False) -> Tuple[str, ...]:
+    """Sorted arch ids; ``lm_only`` keeps the LM and encoder-decoder archs
+    (those with mesh cells)."""
+    _load()
+    return tuple(sorted(a for a, s in REGISTRY.items()
+                        if not lm_only or s.kind in ("lm", "encdec")))
 
 
 def get(arch_id: str) -> ArchSpec:

@@ -2,9 +2,11 @@
 ``examples/sustainability_report.py``).
 
 Regenerates Table 1/2/3 and the Figure-2 analyses from first principles.
-The reference's second section, the fleet extension, reads TPU dry-run
-roofline records that ``launch/dryrun.py`` writes; the port has no dry-run
-yet (ROADMAP item 13), so that section says so and stops.
+The reference's second section, the fleet extension, reads the dry-run's
+roofline records through ``benchmarks/roofline_table.py``. The port's
+dry-run writes its records (``repro_torch.launch.dryrun --out``), but the
+roofline table that reads them is not ported yet, so that section says
+so and stops.
 
     PYTHONPATH=src python -m repro_torch.examples.sustainability_report
 """
@@ -54,9 +56,9 @@ def paper_tables():
 
 
 def fleet_report():
-    print("\n(fleet section: it reads the TPU dry-run records of "
-          "launch/dryrun.py, which the port does not have yet: ROADMAP "
-          "item 13)")
+    print("\n(fleet section: it reads the dry-run's records through the "
+          "roofline table, which the port does not have yet: ROADMAP "
+          "item 13(a))")
 
 
 def main(argv=None):

@@ -10,9 +10,18 @@ dV), and the ternary weight matmul (K11) of the CNN workloads.
 Dispatch goes by the tensors' device, never by what the machine has: CPU
 tensors take the plain PyTorch version (``ref``), CUDA tensors take the
 hand-written kernel, which runs or raises. There is no fallback from one to
-the other and no switch that turns a kernel off on the card. Unlike the
-JAX wrappers, these pad nothing: the kernels mask by length, and padding
-would copy the cache or the chunk on every call of every layer.
+the other and no switch that turns a kernel off on the card. Meta tensors
+(the dry-run's shapes, ``launch.dryrun``) get an empty meta output of the
+kernel's shape and dtype: nothing is computed, so nothing stands in for a
+kernel. Unlike the JAX wrappers, these pad nothing: the kernels mask by
+length, and padding would copy the cache or the chunk on every call of
+every layer.
+
+While a ``core.flops`` counter is active, each entry bills its kernel's
+FLOPs (2 per multiply-add) and bytes under its name: the ``*_work``
+counts of ``core.flops``, which ``chip_smoke.py``'s bounds read too. A
+meta call bills the most its shapes allow (every slot at its capacity),
+since its lengths hold no values.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import flops as _flops
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_matmul as _im
@@ -35,6 +45,19 @@ from repro_torch.quant.ternary import TernaryWeight
 def _scale_pair(name: str, k_scale, v_scale) -> None:
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{name}: pass both KV scales or neither")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _billed(work, *args):
+    """A ``flops.kernel`` cost: the FLOPs of ``work(*args)`` (a
+    ``core.flops`` ``*_work`` function) summed, and its bytes."""
+    def cost():
+        *flops, nbytes = work(*args)
+        return float(sum(flops)), float(nbytes)
+    return cost
 
 
 def _channel_scale(scale: torch.Tensor, n: int) -> torch.Tensor:
@@ -56,12 +79,16 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     sc = _channel_scale(scale, n)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    if x.device.type == "cpu":
-        y = _ref.int8_matmul_ref(x2, q, sc)
-    elif x.device.type == "cuda":
-        y = _im.int8_matmul(x2.contiguous(), q, sc.contiguous())
-    else:
-        raise ValueError(f"int8_matmul: no kernel for device {x.device}")
+    with _flops.kernel("int8_matmul", _billed(
+            _flops.matmul_work, x2, q, n, x.dtype.itemsize)):
+        if x.device.type == "meta":
+            y = _meta((x2.shape[0], n), x.dtype)
+        elif x.device.type == "cpu":
+            y = _ref.int8_matmul_ref(x2, q, sc)
+        elif x.device.type == "cuda":
+            y = _im.int8_matmul(x2.contiguous(), q, sc.contiguous())
+        else:
+            raise ValueError(f"int8_matmul: no kernel for device {x.device}")
     return y.reshape(*lead, n)
 
 
@@ -71,13 +98,18 @@ def ternary_matmul(x: torch.Tensor, w: TernaryWeight) -> torch.Tensor:
     sc = w.scale.reshape(n).float()
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    if x.device.type == "cpu":
-        y = _ref.ternary_matmul_ref(x2, w.q, sc)
-    elif x.device.type == "cuda":
-        y = _tm.ternary_matmul(x2.contiguous(), w.q.contiguous(),
-                               sc.contiguous())
-    else:
-        raise ValueError(f"ternary_matmul: no kernel for device {x.device}")
+    with _flops.kernel("ternary_matmul", _billed(
+            _flops.matmul_work, x2, w.q, n, x.dtype.itemsize)):
+        if x.device.type == "meta":
+            y = _meta((x2.shape[0], n), x.dtype)
+        elif x.device.type == "cpu":
+            y = _ref.ternary_matmul_ref(x2, w.q, sc)
+        elif x.device.type == "cuda":
+            y = _tm.ternary_matmul(x2.contiguous(), w.q.contiguous(),
+                                   sc.contiguous())
+        else:
+            raise ValueError(f"ternary_matmul: no kernel for device "
+                             f"{x.device}")
     return y.reshape(*lead, n)
 
 
@@ -103,14 +135,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _scale_pair("decode_attention", k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return _ref.decode_attention_ref(q, k, v, lengths, scale=scale,
-                                         window=window, k_scale=k_scale,
-                                         v_scale=v_scale)
-    if q.device.type == "cuda":
-        return _da.decode_attention(q, k, v, lengths, scale=scale,
-                                    window=window, k_scale=k_scale,
-                                    v_scale=v_scale)
+    with _flops.kernel("decode_attention",
+                       _billed(_flops.decode_work, q, k, lengths, window,
+                               k.shape[1])):
+        if q.device.type == "meta":
+            return _meta(q.shape, q.dtype)
+        if q.device.type == "cpu":
+            return _ref.decode_attention_ref(q, k, v, lengths, scale=scale,
+                                             window=window, k_scale=k_scale,
+                                             v_scale=v_scale)
+        if q.device.type == "cuda":
+            return _da.decode_attention(q, k, v, lengths, scale=scale,
+                                        window=window, k_scale=k_scale,
+                                        v_scale=v_scale)
     raise ValueError(f"decode_attention: no kernel for device {q.device}")
 
 
@@ -132,14 +169,20 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """
     _scale_pair("paged_decode_attention", k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return _ref.paged_decode_attention_ref(
-            q, k_pool, v_pool, page_table, lengths, scale=scale,
-            window=window, k_scale=k_scale, v_scale=v_scale)
-    if q.device.type == "cuda":
-        return _pda.paged_decode_attention(
-            q, k_pool, v_pool, page_table, lengths, scale=scale,
-            window=window, k_scale=k_scale, v_scale=v_scale)
+    ps = k_pool.shape[1]
+    with _flops.kernel("paged_decode_attention",
+                       _billed(_flops.decode_work, q, k_pool, lengths,
+                               window, page_table.shape[1] * ps, ps)):
+        if q.device.type == "meta":
+            return _meta(q.shape, q.dtype)
+        if q.device.type == "cpu":
+            return _ref.paged_decode_attention_ref(
+                q, k_pool, v_pool, page_table, lengths, scale=scale,
+                window=window, k_scale=k_scale, v_scale=v_scale)
+        if q.device.type == "cuda":
+            return _pda.paged_decode_attention(
+                q, k_pool, v_pool, page_table, lengths, scale=scale,
+                window=window, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"paged_decode_attention: no kernel for device "
                      f"{q.device}")
 
@@ -165,14 +208,20 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """
     _scale_pair("paged_verify_attention", k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return _ref.paged_verify_attention_ref(
-            q, k_pool, v_pool, page_table, lengths, scale=scale,
-            window=window, k_scale=k_scale, v_scale=v_scale)
-    if q.device.type == "cuda":
-        return _pva.paged_verify_attention(
-            q, k_pool, v_pool, page_table, lengths, scale=scale,
-            window=window, k_scale=k_scale, v_scale=v_scale)
+    ps = k_pool.shape[1]
+    with _flops.kernel("paged_verify_attention",
+                       _billed(_flops.verify_work, q, k_pool, lengths,
+                               window, page_table.shape[1] * ps, ps)):
+        if q.device.type == "meta":
+            return _meta(q.shape, q.dtype)
+        if q.device.type == "cpu":
+            return _ref.paged_verify_attention_ref(
+                q, k_pool, v_pool, page_table, lengths, scale=scale,
+                window=window, k_scale=k_scale, v_scale=v_scale)
+        if q.device.type == "cuda":
+            return _pva.paged_verify_attention(
+                q, k_pool, v_pool, page_table, lengths, scale=scale,
+                window=window, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"paged_verify_attention: no kernel for device "
                      f"{q.device}")
 
@@ -199,14 +248,21 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
     """
     _scale_pair("paged_prefill_attention", k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return _ref.paged_prefill_attention_ref(
-            q, k_new, v_new, k_pool, v_pool, page_table, starts, lens,
-            scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
-    if q.device.type == "cuda":
-        return _ppa.paged_prefill_attention(
-            q, k_new, v_new, k_pool, v_pool, page_table, starts, lens,
-            scale=scale, window=window, k_scale=k_scale, v_scale=v_scale)
+    with _flops.kernel("paged_prefill_attention",
+                       _billed(_flops.prefill_work, q, k_pool, starts, lens,
+                               window, k_pool.shape[1])):
+        if q.device.type == "meta":
+            return _meta(q.shape, q.dtype)
+        if q.device.type == "cpu":
+            return _ref.paged_prefill_attention_ref(
+                q, k_new, v_new, k_pool, v_pool, page_table, starts, lens,
+                scale=scale, window=window, k_scale=k_scale,
+                v_scale=v_scale)
+        if q.device.type == "cuda":
+            return _ppa.paged_prefill_attention(
+                q, k_new, v_new, k_pool, v_pool, page_table, starts, lens,
+                scale=scale, window=window, k_scale=k_scale,
+                v_scale=v_scale)
     raise ValueError(f"paged_prefill_attention: no kernel for device "
                      f"{q.device}")
 
@@ -232,14 +288,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     kw = dict(scale=float(scale), causal=bool(causal), window=int(window),
               k_scale=k_scale, v_scale=v_scale)
-    if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, **kw)
-    if q.device.type == "cuda":
-        if k_scale is not None:
-            kw.update(k_scale=k_scale.float().contiguous(),
-                      v_scale=v_scale.float().contiguous())
-        return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), **kw)
+    with _flops.kernel("flash_attention",
+                       _billed(_flops.flash_work, "flash_attention", q, k,
+                               causal, window, (k_scale, v_scale))):
+        if q.device.type == "meta":
+            return _meta(q.shape, q.dtype)
+        if q.device.type == "cpu":
+            return _ref.flash_attention_ref(q, k, v, **kw)
+        if q.device.type == "cuda":
+            if k_scale is not None:
+                kw.update(k_scale=k_scale.float().contiguous(),
+                          v_scale=v_scale.float().contiguous())
+            return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), **kw)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
@@ -255,14 +316,19 @@ class _Int8MatmulTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, q, sc):
-        if x2.device.type == "cpu":
-            y = _ref.int8_matmul_ref(x2, q, sc, out_dtype=torch.float32)
-        elif x2.device.type == "cuda":
-            y = _im.int8_matmul(x2.contiguous(), q, sc.contiguous(),
-                                out_dtype=torch.float32)
-        else:
-            raise ValueError(f"int8_matmul_train: no kernel for device "
-                             f"{x2.device}")
+        with _flops.kernel("int8_matmul",
+                           _billed(_flops.matmul_work, x2, q,
+                                   q.shape[1], 4)):
+            if x2.device.type == "meta":
+                y = _meta((x2.shape[0], q.shape[1]), torch.float32)
+            elif x2.device.type == "cpu":
+                y = _ref.int8_matmul_ref(x2, q, sc, out_dtype=torch.float32)
+            elif x2.device.type == "cuda":
+                y = _im.int8_matmul(x2.contiguous(), q, sc.contiguous(),
+                                    out_dtype=torch.float32)
+            else:
+                raise ValueError(f"int8_matmul_train: no kernel for device "
+                                 f"{x2.device}")
         ctx.save_for_backward(q, sc, y)
         ctx.x_dtype = x2.dtype
         return y
@@ -271,11 +337,18 @@ class _Int8MatmulTrain(torch.autograd.Function):
     def backward(ctx, dy):
         q, sc, y = ctx.saved_tensors
         dy32 = dy.float()
-        if dy32.device.type == "cpu":
-            dx = _ref.int8_matmul_dx_ref(dy32, q, sc, ctx.x_dtype)
-        else:
-            dx = _im.int8_matmul_dx(dy32.contiguous(), q, sc.contiguous(),
-                                    ctx.x_dtype)
+        # dx = (dy * scale) q^T: 2 M K N FLOPs over dy, the codes, the
+        # scale and dx
+        with _flops.kernel("int8_matmul_dx", _billed(
+                _flops.matmul_work, dy32, q, q.shape[0],
+                ctx.x_dtype.itemsize)):
+            if dy32.device.type == "meta":
+                dx = _meta((dy32.shape[0], q.shape[0]), ctx.x_dtype)
+            elif dy32.device.type == "cpu":
+                dx = _ref.int8_matmul_dx_ref(dy32, q, sc, ctx.x_dtype)
+            else:
+                dx = _im.int8_matmul_dx(dy32.contiguous(), q,
+                                        sc.contiguous(), ctx.x_dtype)
         # y = acc * scale => dscale[n] = sum_m dy[m, n] * y[m, n] / scale[n]
         # (int8_matmul.py:172-176), in plain torch as the reference does
         safe = torch.where(sc == 0, torch.ones_like(sc), sc)
@@ -311,16 +384,23 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
-        if q.device.type == "cpu":
-            out, lse = _ref.flash_attention_fwd_ref(
-                q, k, v, scale=scale, causal=causal, window=window)
-        elif q.device.type == "cuda":
-            out, lse = _fa.flash_attention_fwd(
-                q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
-                causal=causal, window=window)
-        else:
-            raise ValueError(f"flash_attention_train: no kernel for device "
-                             f"{q.device}")
+        with _flops.kernel("flash_attention_fwd",
+                           _billed(_flops.flash_work, "flash_attention_fwd",
+                                   q, k, causal, window)):
+            if q.device.type == "meta":
+                b, sq, h, _ = q.shape
+                out = _meta(q.shape, q.dtype)
+                lse = _meta((b, h, sq), torch.float32)
+            elif q.device.type == "cpu":
+                out, lse = _ref.flash_attention_fwd_ref(
+                    q, k, v, scale=scale, causal=causal, window=window)
+            elif q.device.type == "cuda":
+                out, lse = _fa.flash_attention_fwd(
+                    q.contiguous(), k.contiguous(), v.contiguous(),
+                    scale=scale, causal=causal, window=window)
+            else:
+                raise ValueError(f"flash_attention_train: no kernel for "
+                                 f"device {q.device}")
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.statics = dict(scale=scale, causal=causal, window=window)
         return out
@@ -329,9 +409,28 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.to(q.dtype)
-        if q.device.type == "cpu":
+        causal, window = ctx.statics["causal"], ctx.statics["window"]
+        if _flops.counting():
+            # K7 and K8 billed apart; on the CPU their plain versions run
+            # as one call, inside both scopes
+            with _flops.kernel("flash_attention_bwd_dq", _billed(
+                    _flops.flash_work, "flash_attention_bwd_dq", q, k,
+                    causal, window)), \
+                    _flops.kernel("flash_attention_bwd_dkv", _billed(
+                        _flops.flash_work, "flash_attention_bwd_dkv", q, k,
+                        causal, window)):
+                return _FlashAttention._backward(q, k, v, out, lse, dout,
+                                                 ctx.statics)
+        return _FlashAttention._backward(q, k, v, out, lse, dout,
+                                         ctx.statics)
+
+    @staticmethod
+    def _backward(q, k, v, out, lse, dout, statics):
+        if q.device.type == "meta":
+            dq, dk, dv = (_meta(t.shape, t.dtype) for t in (q, k, v))
+        elif q.device.type == "cpu":
             dq, dk, dv = _ref.flash_attention_bwd_ref(
-                q, k, v, out, lse, dout, **ctx.statics)
+                q, k, v, out, lse, dout, **statics)
         else:
             q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
             # delta = rowsum(dO * O) in plain torch, as the reference
@@ -339,9 +438,9 @@ class _FlashAttention(torch.autograd.Function):
             delta = (dout.float() * out.float()).sum(-1) \
                 .transpose(1, 2).contiguous()
             dq = _fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta,
-                                            **ctx.statics)
+                                            **statics)
             dk, dv = _fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                                 **ctx.statics)
+                                                 **statics)
         return dq, dk, dv, None, None, None
 
 

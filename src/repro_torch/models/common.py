@@ -2,8 +2,11 @@
 
 Parameters are plain nested dicts of tensors with the JAX tree's keys and
 layouts, so ``bridge.params_from_numpy`` maps one onto the other array by
-array. ``Axed`` and the logical-axis trees of the original are sharding
-metadata for the TPU mesh and have no counterpart here. Random draws come
+array. The original's ``Axed`` pairs each tree with its logical axes; here
+the axes are a tree of their own, built from the config alone by a
+function beside each init (``transformer.lm_axes``, ``caches_axes``,
+``encdec.encdec_axes``, ``dec_caches_axes``, ``optim.adamw.opt_state_axes``)
+and mapped onto a mesh by ``parallel.sharding``. Random draws come
 from an explicit ``torch.Generator``; they do not reproduce ``jax.random``'s
 bits, so tests that compare the two frameworks bridge JAX's weights.
 """

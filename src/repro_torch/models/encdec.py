@@ -214,6 +214,36 @@ def loss_fn(params, cfg: EncDecConfig, batch: Dict[str, torch.Tensor]
         float(labels.numel()), dtype=torch.float32, device=ce.device)}
 
 
+def encdec_axes(cfg: EncDecConfig) -> Dict[str, dict]:
+    """The logical axes of ``init_encdec``'s tree, leaf for leaf: the
+    reference's ``init_encdec(...).axes`` (encdec.py:87). Builds no
+    tensor."""
+    st = ("stack",)
+    return {
+        "embed": layers.embed_axes(),
+        "pos_dec": ("seq", "embed"),
+        "enc": {"norm_attn": layers.layernorm_axes(st),
+                "attn": layers.attention_axes(cfg.attn_cfg(False), st),
+                "norm_ffn": layers.layernorm_axes(st),
+                "mlp": layers.mlp_axes(st, gated=False)},
+        "dec": {"norm_self": layers.layernorm_axes(st),
+                "self_attn": layers.attention_axes(cfg.attn_cfg(True), st),
+                "norm_cross": layers.layernorm_axes(st),
+                "cross_attn": layers.attention_axes(cfg.attn_cfg(False), st),
+                "norm_ffn": layers.layernorm_axes(st),
+                "mlp": layers.mlp_axes(st, gated=False)},
+        "norm_enc": layers.layernorm_axes(),
+        "norm_dec": layers.layernorm_axes(),
+    }
+
+
+def dec_caches_axes() -> Dict[str, dict]:
+    """The logical axes of ``init_dec_caches``'s tree (the reference's
+    ``_ENC_CACHE_AXES``, cells.py:297-303)."""
+    kv = ("stack", "batch", "seq", "heads", "head_dim")
+    return {"self": {"k": kv, "v": kv}, "cross": {"k": kv, "v": kv}}
+
+
 # -----------------------------------------------------------------------------
 # Serving
 # -----------------------------------------------------------------------------
@@ -222,7 +252,8 @@ def init_dec_caches(cfg: EncDecConfig, batch: int, max_len: int,
                     dtype=torch.bfloat16, device="cuda") -> Dict[str, KVCache]:
     """Zero caches: ``self`` (L, B, max_len, H, Dh) and ``cross`` (L, B,
     n_audio_ctx, H, Dh)."""
-    dev = device_lib.resolve(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else device_lib.resolve(device))
 
     def kv(slen):
         shape = (cfg.n_dec_layers, batch, slen, cfg.n_heads, cfg.head_dim)

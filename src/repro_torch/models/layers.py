@@ -109,6 +109,47 @@ def init_attention(cfg: "AttnConfig", lead=(), *, generator, device,
     return parts
 
 
+# -- logical axes: the reference's ``Axed.axes`` of each init above, as
+# tuples of axis names (``lead`` names the stacked dims: ("stack",)) --------
+
+def rmsnorm_axes(lead=()) -> dict:
+    return {"scale": tuple(lead) + ("embed",)}
+
+
+def layernorm_axes(lead=()) -> dict:
+    return {"scale": tuple(lead) + ("embed",),
+            "bias": tuple(lead) + ("embed",)}
+
+
+def embed_axes() -> dict:
+    return {"w": ("vocab", "embed")}
+
+
+def unembed_axes() -> dict:
+    return {"w": ("embed", "vocab")}
+
+
+def mlp_axes(lead=(), *, gated: bool) -> dict:
+    lead = tuple(lead)
+    parts = {"w_in": lead + ("embed", "ffn"), "w_out": lead + ("ffn", "embed")}
+    if gated:
+        parts["w_gate"] = lead + ("embed", "ffn")
+    return parts
+
+
+def attention_axes(cfg: "AttnConfig", lead=()) -> dict:
+    lead = tuple(lead)
+    parts = {"wq": lead + ("embed", "heads", "head_dim"),
+             "wk": lead + ("embed", "kv_heads", "head_dim"),
+             "wv": lead + ("embed", "kv_heads", "head_dim"),
+             "wo": lead + ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        parts["bq"] = lead + ("heads", "head_dim")
+        parts["bk"] = lead + ("kv_heads", "head_dim")
+        parts["bv"] = lead + ("kv_heads", "head_dim")
+    return parts
+
+
 # -----------------------------------------------------------------------------
 # Norms, embedding, MLP
 # -----------------------------------------------------------------------------

@@ -17,9 +17,10 @@ its kept routes' gated outputs in ascending expert order, the order in
 which the one-hot contraction meets them. Every term is one exact product,
 so the two agree to rounding. A slot no route fills stays zero, and an
 expert's output on a zero row is exactly zero (silu(0) * h = 0), as in the
-reference. Expert parallelism (``moe_ep``) is not ported: it belongs with
-the parallel layer. ``_counting_sort_dispatch`` is kept as a plain
-function.
+reference. Expert parallelism (``moe_ep``) takes the local experts'
+slice of the slot space that ``_counting_sort_dispatch`` assigns and sums
+the ranks' combines with a differentiable all-reduce over the experts'
+process group (no all-to-all, as in the reference).
 
 Router: softmax over the top-k logits (Mixtral/DeepSeek style), with the
 Switch load-balance auxiliary loss and the router z-loss.
@@ -84,6 +85,15 @@ def init_moe(cfg: MoEConfig, lead=(), *, generator: torch.Generator,
             "w_out": experts((f, d), f)}
 
 
+def moe_axes(lead=()) -> dict:
+    """The logical axes of ``init_moe``'s leaves (moe.py:49-62)."""
+    lead = tuple(lead)
+    return {"router": lead + ("embed", "experts"),
+            "w_in": lead + ("experts", "embed", "ffn"),
+            "w_gate": lead + ("experts", "embed", "ffn"),
+            "w_out": lead + ("experts", "ffn", "embed")}
+
+
 # -----------------------------------------------------------------------------
 # Routing
 # -----------------------------------------------------------------------------
@@ -139,7 +149,9 @@ def _experts(params, cfg: MoEConfig, xin: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(xin)
 
     def part(w, lo, hi):
-        return {"q8": w["q8"][lo:hi], "s8": w["s8"][lo:hi]}
+        # a per-layer scale (the cells' serving transform) is 0-d
+        s8 = w["s8"][lo:hi] if w["s8"].dim() else w["s8"]
+        return {"q8": w["q8"][lo:hi], "s8": s8}
 
     for lo in range(0, e, step):
         hi = min(lo + step, e)
@@ -288,3 +300,54 @@ def _counting_sort_dispatch(expert_ids: torch.Tensor, n_experts: int,
                             device=expert_ids.device)
     slot_token[torch.where(keep, slot, n_experts * capacity)] = token_of_route
     return slot_token[:-1], slot.reshape(t, k)
+
+
+# -----------------------------------------------------------------------------
+# Expert parallelism
+# -----------------------------------------------------------------------------
+
+def moe_ep(params, cfg: MoEConfig, x: torch.Tensor, group=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE (moe.py:202-248): the experts are split over the
+    ranks of ``group`` in equal contiguous blocks, the tokens replicated
+    over it. ``params["w_*"]`` are this rank's (E_loc, ...) experts; the
+    router is the full (d, E) matrix. x (B_loc, S, d) -> (y, aux loss).
+
+    Every rank routes every token, runs its experts on the slots of the
+    one capacity-padded (E * C) slot space that fall in its range, and
+    adds each route landing there, gated; the ranks' partial sums meet in
+    ``parallel.compat.psum``, a differentiable all-reduce. The aux loss is
+    the same on every rank (the tokens are)."""
+    from repro_torch.parallel import compat
+    b, s, d = x.shape
+    t = b * s
+    x2d = x.reshape(t, d)
+    e_loc = params["w_in"].shape[0]
+    lo = compat.axis_index(group) * e_loc
+
+    gates, expert_ids, aux = route(params, cfg, x2d)
+    cap = cfg.capacity(t)
+    slot_token, slot_of_route = _counting_sort_dispatch(
+        expert_ids, cfg.n_experts, cap)
+
+    # this rank's slice of the global (E * C) slot space
+    lo *= cap
+    local_slot_token = slot_token[lo:lo + e_loc * cap]
+    valid = local_slot_token < t
+    dispatched = (x2d[torch.where(valid, local_slot_token, 0)]
+                  * valid[:, None].to(x2d.dtype)).reshape(e_loc, cap, d)
+    y_flat = _expert_ffn(params["w_in"], params["w_gate"], params["w_out"],
+                         dispatched, cfg.act).reshape(e_loc * cap, d)
+
+    # combine: every route landing in this rank's range adds gate * y[slot];
+    # the others add 0 here and come in through the all-reduce
+    flat_slot = slot_of_route.reshape(-1)
+    in_range = (flat_slot >= lo) & (flat_slot < lo + e_loc * cap)
+    contrib = (y_flat[torch.where(in_range, flat_slot - lo, 0)]
+               * in_range[:, None].to(y_flat.dtype)
+               * gates.reshape(-1, 1).to(y_flat.dtype))
+    tok = torch.arange(t, device=x.device).repeat_interleave(cfg.top_k)
+    y = torch.zeros(t, d, dtype=y_flat.dtype,
+                    device=x.device).index_add(0, tok, contrib)
+    y = compat.psum(y, group)
+    return y.reshape(b, s, d), aux

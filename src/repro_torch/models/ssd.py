@@ -108,6 +108,33 @@ def init_ssd(cfg: SSDConfig, lead=(), *, generator: torch.Generator,
     }
 
 
+def ssd_axes(lead=()) -> dict:
+    """The logical axes of ``init_ssd``'s leaves (ssd.py:64-81)."""
+    lead = tuple(lead)
+    return {"w_z": lead + ("embed", "heads", "head_dim"),
+            "w_x": lead + ("embed", "heads", "head_dim"),
+            "w_b": lead + ("embed", "ssm_group", "ssm_state"),
+            "w_c": lead + ("embed", "ssm_group", "ssm_state"),
+            "w_dt": lead + ("embed", "heads"),
+            "dt_bias": lead + ("heads",), "a_log": lead + ("heads",),
+            "d_skip": lead + ("heads",),
+            "conv_x": lead + ("conv", "heads", "head_dim"),
+            "conv_b": lead + ("conv", "ssm_group", "ssm_state"),
+            "conv_c": lead + ("conv", "ssm_group", "ssm_state"),
+            "norm": {"scale": lead + ("ssm_inner",)},
+            "w_out": lead + ("heads", "head_dim", "embed")}
+
+
+def ssd_state_axes(lead=()) -> dict:
+    """The logical axes of ``init_ssd_state``'s fields
+    (transformer.py:1159-1162), as a dict of the dataclass's fields."""
+    lead = tuple(lead)
+    return {"conv_x": lead + ("batch", "conv", "heads", "head_dim"),
+            "conv_b": lead + ("batch", "conv", "ssm_group", "ssm_state"),
+            "conv_c": lead + ("batch", "conv", "ssm_group", "ssm_state"),
+            "ssm": lead + ("batch", "heads", "ssm_state", "head_dim")}
+
+
 # -----------------------------------------------------------------------------
 # causal depthwise conv (width d_conv), full-sequence and incremental forms
 # -----------------------------------------------------------------------------

@@ -257,6 +257,43 @@ def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.bfloat16,
     return params
 
 
+def _block_axes(cfg: LMConfig, spec: BlockSpec, lead) -> dict:
+    if spec.kind == "ssd":
+        return {"norm_ssd": layers.rmsnorm_axes(lead),
+                "ssd": ssd_lib.ssd_axes(lead)}
+    parts = {"norm_attn": layers.rmsnorm_axes(lead),
+             "attn": layers.attention_axes(cfg.attn_cfg(spec.window), lead)}
+    if spec.has_ffn:
+        parts["norm_ffn"] = layers.rmsnorm_axes(lead)
+        parts["moe" if spec.moe else "mlp"] = (
+            moe_lib.moe_axes(lead) if spec.moe
+            else layers.mlp_axes(lead, gated=cfg.mlp_gated))
+    return parts
+
+
+def lm_axes(cfg: LMConfig) -> Dict[str, PyTree]:
+    """The logical axes of ``init_lm``'s tree, leaf for leaf: the
+    reference's ``init_lm(...).axes`` (transformer.py:182), with
+    ``"stack"`` leading every ``pat{i}`` leaf. Builds no tensor."""
+    axes: Dict[str, PyTree] = {"embed": layers.embed_axes()}
+    for i, spec in enumerate(cfg.pattern):
+        if not spec.shared_attn:
+            axes[f"pat{i}"] = _block_axes(cfg, spec, ("stack",))
+    for i, spec in enumerate(cfg.tail):
+        if not spec.shared_attn:
+            axes[f"tail{i}"] = _block_axes(cfg, spec, ())
+    if _has_shared(cfg):
+        axes["shared_attn"] = {
+            "norm_attn": layers.rmsnorm_axes(),
+            "attn": layers.attention_axes(cfg.attn_cfg(-1)),
+            "norm_ffn": layers.rmsnorm_axes(),
+            "mlp": layers.mlp_axes(gated=True)}
+    axes["final_norm"] = layers.rmsnorm_axes()
+    if not cfg.tie_embeddings:
+        axes["unembed"] = layers.unembed_axes()
+    return axes
+
+
 def quantize_lm(params: PyTree) -> PyTree:
     """Weight-tree int8 quantization for serving (``weights_int8``), as
     ``repro.models.transformer.quantize_lm``: linear-layer leaves
@@ -464,7 +501,8 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int,
     is ignored for them) and the cache gains a ``kv_scale`` pair (B, clen,
     Hkv) fp32. An SSD block's entry is ``{"ssd": SSDState}``: its conv
     windows in ``dtype``, its SSM state in fp32 (transformer.py:418)."""
-    dev = device_lib.resolve(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else device_lib.resolve(device))
     kvh, dh = cfg.n_kv_heads, cfg.resolved_head_dim
 
     def one(spec, lead):
@@ -483,6 +521,27 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int,
     for i, spec in enumerate(cfg.tail):
         caches[f"tail{i}"] = one(spec, ())
     return caches
+
+
+def caches_axes(cfg: LMConfig) -> Dict[str, PyTree]:
+    """The logical axes of ``init_caches``'s tree (transformer.py:1144),
+    the ``KVCache`` and ``SSDState`` fields as dicts. Builds no tensor."""
+    def one(spec: BlockSpec, lead):
+        if spec.kind == "ssd":
+            return {"ssd": ssd_lib.ssd_state_axes(lead)}
+        kv_ax = lead + ("batch", "seq", "kv_heads", "head_dim")
+        out = {"kv": {"k": kv_ax, "v": kv_ax}, "pos": lead + ("batch", "seq")}
+        if cfg.quant.kv_int8:
+            sc_ax = lead + ("batch", "seq", "kv_heads")
+            out["kv_scale"] = {"k": sc_ax, "v": sc_ax}
+        return out
+
+    out: Dict[str, PyTree] = {}
+    for i, spec in enumerate(cfg.pattern):
+        out[f"pat{i}"] = one(spec, ("stack",))
+    for i, spec in enumerate(cfg.tail):
+        out[f"tail{i}"] = one(spec, ())
+    return out
 
 
 def _kv_entry(cfg: LMConfig, rows, dh: int, dtype, dev) -> dict:

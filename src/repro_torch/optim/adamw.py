@@ -168,3 +168,15 @@ def apply_updates(params: PyTree, grads: PyTree, state: Dict[str, PyTree],
         if base is not p:
             p.copy_(base)
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_axes(params_axes: PyTree, cfg: AdamWConfig) -> Dict[str, PyTree]:
+    """Logical axes of ``init_opt_state``'s tree (adamw.py:150): the
+    moments mirror the params (an int8 moment's scale is a scalar), the
+    step is a scalar, and ``master`` mirrors the params whether or not the
+    state has one, as in the reference."""
+    def ax_state(ax):
+        return {"q": ax, "s": ()} if cfg.state_dtype == "int8" else ax
+
+    return {"m": _map(ax_state, params_axes), "v": _map(ax_state, params_axes),
+            "step": (), "master": params_axes}

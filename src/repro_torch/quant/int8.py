@@ -5,16 +5,67 @@ Row-wise codes for the KV cache (one fp32 scale per (slot, position,
 kv-head)) and per-output-channel weight leaves ``{"q8", "s8"}``. The
 arithmetic is the original's, op for op, in fp32: ``torch.round`` rounds
 half to even like ``jnp.round``, so the same fp32 inputs give the same
-codes and scales bit for bit. The gradient-compression quantizers
-(``Int8Weight``, ``quantize_stochastic``) and the dry-run transform
-(``quantize_params_for_serving``) are not ported yet.
+codes and scales bit for bit. Also the per-channel ``Int8Weight``
+quantizers of the gradient-compression side (``quantize_stochastic``
+draws its noise from an explicit ``torch.Generator``: ``jax.random``'s
+bits are not reproduced) and the cells' serving transform
+``quantize_params_for_serving``, which maps meta tensors to meta leaves,
+the counterpart of the reference's ``ShapeDtypeStruct`` branch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass
+class Int8Weight:
+    q: torch.Tensor        # int8
+    scale: torch.Tensor    # fp32, per-last-dim-channel (keepdims)
+
+
+def _channel_scale(w32: torch.Tensor, axis: int, floor: float
+                   ) -> torch.Tensor:
+    red = tuple(i for i in range(w32.dim()) if i != axis % w32.dim())
+    amax = w32.abs().amax(dim=red, keepdim=True) if red else w32.abs()
+    return amax.clamp_min(floor) / 127.0
+
+
+def quantize(w: torch.Tensor, axis: int = -1) -> Int8Weight:
+    """Symmetric int8 with one fp32 scale per channel of ``axis``."""
+    w32 = w.float()
+    scale = _channel_scale(w32, axis, 1e-12)
+    q = torch.round(w32 / scale).clamp(-127, 127).to(torch.int8)
+    return Int8Weight(q=q, scale=scale)
+
+
+def dequantize(iw: Int8Weight, dtype=torch.float32) -> torch.Tensor:
+    return (iw.q.float() * iw.scale).to(dtype)
+
+
+def quantize_stochastic(w: torch.Tensor, axis: int = -1, *,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Int8Weight:
+    """Stochastic rounding (unbiased): round(w / scale + u - 1/2), u
+    uniform on [0, 1) from ``generator``."""
+    w32 = w.float()
+    scale = _channel_scale(w32, axis, 1e-12)
+    scaled = w32 / scale
+    noise = torch.rand(scaled.shape, generator=generator,
+                       device=w.device) - 0.5
+    q = torch.round(scaled + noise).clamp(-127, 127).to(torch.int8)
+    return Int8Weight(q=q, scale=scale)
+
+
+def quant_error(w: torch.Tensor, iw: Int8Weight) -> float:
+    """Relative Frobenius error of the dequantized weight."""
+    w32 = w.float()
+    num = torch.linalg.vector_norm(w32 - dequantize(iw))
+    den = torch.clamp(torch.linalg.vector_norm(w32), min=1e-12)
+    return float(num / den)
 
 # scale floor: an all-zero channel still gets a positive scale, so dequant
 # is exact zero and division never produces inf/nan
@@ -64,3 +115,51 @@ def quantize_weight(w: torch.Tensor, lead: int = 0, out_dims: int = 1
     scale = amax.clamp_min(SCALE_FLOOR) / 127.0
     q = torch.round(w32 / scale).clamp(-127, 127).to(torch.int8)
     return {"q8": q, "s8": scale}
+
+
+# -----------------------------------------------------------------------------
+# The cells' int8-weight serving transform (int8.py:125-160)
+# -----------------------------------------------------------------------------
+
+def _q8_leaf(w: torch.Tensor, stacked: bool) -> dict:
+    """tensor -> {"q8", "s8"}: one fp32 scale per layer if ``stacked``,
+    else one per tensor. A meta tensor gives meta leaves of those shapes
+    and dtypes."""
+    s_shape = (w.shape[0],) if stacked else ()
+    if w.is_meta:
+        return {"q8": torch.empty(w.shape, dtype=torch.int8, device="meta"),
+                "s8": torch.empty(s_shape, dtype=torch.float32,
+                                  device="meta")}
+    if stacked:
+        # layer by layer: the same codes and scales, one layer's fp32
+        # temporaries at a time
+        parts = [_q8_leaf(w[r], False) for r in range(w.shape[0])]
+        return {"q8": torch.stack([p["q8"] for p in parts]),
+                "s8": torch.stack([p["s8"] for p in parts])}
+    w32 = w.float()
+    scale = w32.abs().amax().clamp_min(1e-12) / 127.0
+    q = torch.round(w32 / scale).clamp(-127, 127).to(torch.int8)
+    return {"q8": q, "s8": scale}
+
+
+def quantize_params_for_serving(params, axes):
+    """(params, axes) -> their int8-served versions: the linear weights of
+    ``SERVING_QUANT_KEYS`` become {"q8": int8, "s8": fp32 per-layer scale}
+    with axes {"q8": the weight's, "s8": ("stack",) or ()}; everything
+    else passes through."""
+    def walk(p, a):
+        if not isinstance(p, dict):
+            return p, a
+        out_p, out_a = {}, {}
+        for k, v in p.items():
+            if (k in SERVING_QUANT_KEYS and not isinstance(v, dict)
+                    and v.dim() >= 2):
+                stacked = (isinstance(a[k], tuple) and len(a[k]) > 0
+                           and a[k][0] == "stack")
+                out_p[k] = _q8_leaf(v, stacked)
+                out_a[k] = {"q8": a[k], "s8": ("stack",) if stacked else ()}
+            else:
+                out_p[k], out_a[k] = walk(v, a[k])
+        return out_p, out_a
+
+    return walk(params, axes)

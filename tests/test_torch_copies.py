@@ -620,3 +620,29 @@ def test_advisor_fleet_equal():
 def test_cnn_configs_equal(name):
     assert dataclasses.asdict(getattr(t_cnn, name)) == \
         dataclasses.asdict(getattr(j_cnn, name))
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k",
+                                        "decode_32k", "long_500k"])
+def test_shape_grid_equal(shape_name):
+    """The port's ``SHAPES`` and each arch's ``shapes`` hold the
+    reference's, value for value."""
+    from repro.configs import base as j_cfgbase
+    from repro_torch.configs import base as t_cfgbase
+    assert list(t_cfgbase.SHAPES) == list(j_cfgbase.SHAPES)
+    assert dataclasses.asdict(t_cfgbase.SHAPES[shape_name]) == \
+        dataclasses.asdict(j_cfgbase.SHAPES[shape_name])
+    assert t_cfgbase.all_arch_ids(lm_only=True) == \
+        j_cfgbase.all_arch_ids(lm_only=True)
+    for arch_id in j_cfgbase.all_arch_ids():
+        assert t_cfgbase.get(arch_id).shapes == j_cfgbase.get(arch_id).shapes
+
+
+@pytest.mark.parametrize("table", ["DEFAULT_RULES", "LONG_CONTEXT_RULES"])
+def test_sharding_rules_equal(table):
+    """The port's rule tables equal ``repro.parallel.sharding``'s, entry
+    for entry and in order."""
+    from repro.parallel import sharding as j_sh
+    from repro_torch.parallel import sharding as t_sh
+    assert list(getattr(t_sh, table).items()) == \
+        list(getattr(j_sh, table).items())

@@ -93,11 +93,31 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         k1.decode_attention(q, k, v, lens, scale=0.25)
 
 
+class _NoKernelDevice(torch.Tensor):
+    """A CPU tensor that reports a device the port has no kernel for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_no_kernel_for_other_devices():
-    q = torch.empty((2, 4, 16), device="meta")
-    k = torch.empty((2, 8, 2, 16), device="meta")
+    """A device with no kernel raises. Meta tensors (the dry-run's shapes)
+    launch no kernel and compute nothing: the entry gives an empty meta
+    output of the kernel's shape and dtype, and bills the kernel's cost to
+    an active counter."""
+    from repro_torch.core import flops
+    other = torch.zeros((2, 4, 16)).as_subclass(_NoKernelDevice)
+    kv = torch.zeros((2, 8, 2, 16))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.decode_attention(q, k, k, torch.empty(2, device="meta"))
+        ops.decode_attention(other, kv, kv, torch.ones(2, dtype=torch.int32))
+    q = torch.empty((2, 4, 16), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 8, 2, 16), dtype=torch.bfloat16, device="meta")
+    with flops.count() as cost:
+        out = ops.decode_attention(q, k, k, torch.empty(2, device="meta"))
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    # every slot at its capacity of 8 keys: 4 H D FLOPs a key
+    assert cost.by_prim == {"decode_attention": 4.0 * 2 * 8 * 4 * 16}
 
 
 def test_build_is_keyed_on_the_source():

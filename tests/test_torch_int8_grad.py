@@ -196,14 +196,27 @@ def test_plain_k4_fp32_output_matches_pallas():
                                  torch.from_numpy(scale)).dtype == torch.bfloat16
 
 
+class _NoKernelDevice(torch.Tensor):
+    """A CPU tensor that reports a device the port has no kernel for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_lead_dims_and_no_cuda_fallback():
     """(..., K) inputs keep their lead dims; a tensor on a device with no
-    kernel raises instead of falling back."""
+    kernel raises instead of falling back; meta tensors (the dry-run's
+    shapes) get an empty meta output of the kernel's shape."""
     x, q, scale, _ = _inputs(6, 32, 16, "fp32", seed=2)
     xt = torch.from_numpy(x).reshape(2, 3, 32)
     y = t_ops.int8_matmul_train(xt, torch.from_numpy(q),
                                 torch.from_numpy(scale))
     assert y.shape == (2, 3, 16)
     with pytest.raises(ValueError):
-        t_ops.int8_matmul_train(xt.to("meta"), torch.from_numpy(q).to("meta"),
-                                torch.from_numpy(scale).to("meta"))
+        t_ops.int8_matmul_train(xt.as_subclass(_NoKernelDevice),
+                                torch.from_numpy(q), torch.from_numpy(scale))
+    out = t_ops.int8_matmul_train(xt.to("meta"),
+                                  torch.from_numpy(q).to("meta"),
+                                  torch.from_numpy(scale).to("meta"))
+    assert out.is_meta and out.shape == (2, 3, 16)

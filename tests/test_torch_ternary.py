@@ -156,18 +156,30 @@ def test_wrapper_refuses_cpu_tensors():
     assert k11.ternary_matmul.launches == before
 
 
+class _NoKernelDevice(torch.Tensor):
+    """A CPU tensor that reports a device the port has no kernel for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_ops_dispatch_on_device_not_on_availability(monkeypatch):
     """``ops.ternary_matmul`` goes by the tensor's device: with a card
     reported present, a CPU tensor still takes the plain version; a device
-    with no kernel raises."""
+    with no kernel raises; meta tensors (the dry-run's shapes) get an
+    empty meta output of the kernel's shape and dtype."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     x, _, ttw = _inputs(9, 4, 64, 16)
     got = ops.ternary_matmul(torch.from_numpy(x), ttw)
     assert torch.equal(got, ref.ternary_matmul_ref(torch.from_numpy(x),
                                                    ttw.q, ttw.scale))
-    meta = ttern.TernaryWeight(ttw.q.to("meta"), ttw.scale.to("meta"))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.ternary_matmul(torch.empty((4, 64), device="meta"), meta)
+        ops.ternary_matmul(torch.empty((4, 64)).as_subclass(_NoKernelDevice),
+                           ttw)
+    meta = ttern.TernaryWeight(ttw.q.to("meta"), ttw.scale.to("meta"))
+    out = ops.ternary_matmul(torch.empty((4, 64), device="meta"), meta)
+    assert out.is_meta and out.shape == (4, 16)
 
 
 # -- the quantizer ------------------------------------------------------------
